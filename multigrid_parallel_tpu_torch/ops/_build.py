@@ -1,0 +1,107 @@
+"""Build and load the hand-written CUDA kernels of ``ops/csrc``.
+
+The sources are compiled with ``nvcc`` into one shared library with a
+plain C interface and loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
+         -shared -Xcompiler -fPIC -o _build/libmg_kernels_<hash>.so csrc/*.cu
+
+``--fmad=false`` (and no ``--use_fast_math``) keeps every f32 operation
+a separate IEEE rounding, so the kernels match their plain PyTorch
+versions bit for bit and the EFT two-sum chains stay exact.
+
+The library is built at first use into ``multigrid_parallel_tpu_torch/
+_build/`` (listed in .gitignore), named by a hash of the sources and the
+flags, so an edited source rebuilds and an unchanged one loads at once.
+Nothing here runs at import: the package and its CPU tests import
+without ``nvcc`` or a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# name -> argtypes of every exported launcher (all return a cudaError_t as int)
+_SIGNATURES = {
+    "mg_rb_half_sweep": (_P, _P, _I, _F, _I, _P),
+    "mg_rb_half_sweep_from_zero": (_P, _P, _I, _F, _I, _P),
+    "mg_residual": (_P, _P, _P, _I, _F, _P),
+    "mg_residual_df_norm_partials": (_I,),
+    "mg_residual_df_norm": (_P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
+}
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return _BUILD_DIR / f"libmg_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library of these sources exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(str(s) for s in sorted(_CSRC.glob("*.cu")))]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use, with argtypes set."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib

@@ -19,3 +19,9 @@ import jax  # noqa: E402
 # the env var above is too late — force the platform via config too.
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips itself where there is none"
+    )

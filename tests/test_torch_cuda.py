@@ -1,0 +1,94 @@
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+double-float solve on the card against the same solve on the CPU.
+
+These need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
+themselves where there is none. The file imports no jax, so on a machine
+with a card and without jax it runs on its own:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import multigrid_parallel_tpu_torch as tmg
+from multigrid_parallel_tpu_torch import cycles_padded as tcp
+from multigrid_parallel_tpu_torch.ops import pallas3d as tpk
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _fields32(seed, n, dev):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal((n, n, n)).astype(np.float32)).to(dev)
+                 for _ in range(2))
+
+
+def _df_state(seed, n, dev):
+    h = 1.0 / (n - 1)
+    c = np.arange(n) * h
+    x, y, z = np.meshgrid(c, c, c, indexing="ij")
+    rng = np.random.default_rng(seed)
+    u64 = x * x - 2 * y * y + z * z + 1e-9 * rng.standard_normal((n, n, n))
+    f64 = np.sin(x + y + z)
+    return [t.to(dev) for x64 in (u64, f64)
+            for t in tpk.df_split(torch.from_numpy(x64))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 65])
+def test_kernels_match_plain_on_card(cuda, n):
+    h = 1.0 / (n - 1)
+    u, f = _fields32(6, n, cuda)
+    tpk.reset_launches()
+    for n_iter in (1, 2, 3):
+        for red_first in (True, False):
+            want = tpk.rb_smooth_plain(u, f, h, n_iter, red_first)
+            got = tpk.rb_smooth_fused(u.clone(), f, h, n_iter, red_first)
+            assert torch.equal(got, want)
+            assert torch.equal(tpk.rb_smooth_from_zero_fused(f, h, n_iter, red_first),
+                               tpk.rb_smooth_from_zero_plain(f, h, n_iter, red_first))
+    assert torch.equal(tpk.residual_fused(u, f, h), tpk.residual_plain(u, f, h))
+    state = _df_state(7, n, cuda)
+    r, nrm2 = tpk.residual_df_norm_fused(*state, h)
+    r_ref, nrm2_ref = tpk.residual_df_norm_plain(*state, h)
+    assert torch.equal(r, r_ref)
+    assert float(nrm2) == pytest.approx(float(nrm2_ref), rel=1e-5)
+    # one launch per half-sweep: 2 colours x (1 + 2 + 3) iterations x 2 orders
+    assert tpk.LAUNCHES == {"rb_smooth_fused": 24, "rb_smooth_from_zero_fused": 24,
+                            "residual_fused": 1, "residual_df_norm_fused": 1}
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    f = torch.zeros((9, 9, 9), device=cuda)
+    with pytest.raises(TypeError):
+        tpk.residual_fused(f.double(), f.double(), 0.125)
+    with pytest.raises(ValueError):
+        tpk.residual_fused(f[:, :, :8], f[:, :, :8], 0.125)
+    with pytest.raises(ValueError):
+        tpk.residual_fused(f.transpose(0, 2), f, 0.125)
+
+
+@pytest.mark.cuda
+def test_df_solve_on_card_matches_cpu(cuda):
+    hier = tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=4)  # 33^3
+    prob = tmg.poisson_3d_quadratic()
+    init = tcp.ref_init_norm(prob, hier)
+    out = {}
+    for dev in ("cpu", cuda):
+        run = tcp.make_on_device_df_solver(hier, tmg.CycleConfig(), inner_cycles=4,
+                                           init_norm=init, device=dev)
+        u_hi, u_lo, nrm, it = run(*tcp.setup_df_problem(prob, hier, dev))
+        assert float(nrm) <= 1e-8 * init
+        out[str(dev)] = (tpk.df_to_f64(u_hi, u_lo).cpu(), it)
+    assert out["cpu"][1] == out["cuda"][1]
+    assert float((out["cpu"][0] - out["cuda"][0]).abs().max()) <= 1e-8
