@@ -7,22 +7,30 @@ Drives the port's main path (multigrid_parallel_tpu_torch): the
 double-float defect-correction solve of 3D Poisson at 257^3 (coarse_n 5,
 7 levels, quadratic Dirichlet data, f = 0) to relative residual 1e-8
 against the whole-cube ||f||, 4 f32 correction V-cycles per outer step,
-2 RB-GS sweeps before and after. Phases, each of which fails the run:
+2 RB-GS sweeps before and after; in its unfused configuration (K1, K2, R,
+matrix-product transfers, K5), its fused one (the default: K1, K2, K3,
+K4, K6, with K5 for the initial residual), fused with the full-multigrid
+bootstrap, and the f64-outer mixed solver on the fused cycle. Phases,
+each of which fails the run:
 
-  1. build the hand-written CUDA kernels from ops/csrc (nvcc, sm_90a);
+  1. build the hand-written CUDA kernels from ops/csrc (one nvcc per
+     source, all started together; sm_90a);
   2. hold each kernel against its plain PyTorch version on the card at
      65^3 and 257^3 (numpy-seeded inputs) and time both (CUDA events,
      median of 20);
-  3. solve 33^3 on the CPU (plain versions) and on the card (kernels):
-     same outer-step count, solutions within 1e-8;
-  4. solve 257^3 with every launch count reset just before and read just
-     after, then check the outer-step count, the final relative residual,
-     the error against the analytic solution and that every kernel ran;
-     time the solve (warm-up, median of 5).
+  3. solve 33^3 on the CPU (plain versions) and on the card (kernels),
+     unfused, fused and fused with FMG: same outer-step count, solutions
+     within 1e-8;
+  4. solve 257^3 on each path with every launch count reset just before
+     and read just after, then check the outer-step count, the final
+     relative residual, the error against the analytic solution and that
+     every kernel of the path ran (and R did not in the fused ones); time
+     each solve (warm-up, median of 5).
 
-Prints a {"kernels": [...]} line, the card's name and power limit, and as
-its last line {"ok": true, "device": {...}}. Exits non-zero, printing no
-result, when there is no CUDA device or any check fails.
+Prints a {"kernels": [...]} line (each kernel's launches summed over the
+257^3 runs of phase 4), the card's name and power limit, and as its last
+line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
+when there is no CUDA device or any check fails.
 """
 
 import json
@@ -47,6 +55,22 @@ SOURCES = {
                        "multigrid_parallel_tpu/ops/pallas3d.py:626"),
     "residual_df_norm_fused": ("multigrid_parallel_tpu_torch/ops/csrc/residual_df_norm.cu",
                                "multigrid_parallel_tpu/ops/pallas3d.py:1245"),
+    "residual_restrict_fused": ("multigrid_parallel_tpu_torch/ops/csrc/residual_restrict.cu",
+                                "multigrid_parallel_tpu/ops/pallas3d.py:872"),
+    "prolong_smooth_fused": ("multigrid_parallel_tpu_torch/ops/csrc/prolong_smooth.cu",
+                             "multigrid_parallel_tpu/ops/pallas3d.py:1075"),
+    "df_step_residual_norm_fused": ("multigrid_parallel_tpu_torch/ops/csrc/df_step.cu",
+                                    "multigrid_parallel_tpu/ops/pallas3d.py:1426"),
+}
+# kernels each 257^3 path must launch (every other kernel: no launch)
+_CYCLE = ("rb_smooth_fused", "rb_smooth_from_zero_fused")
+_FUSED_CYCLE = _CYCLE + ("residual_restrict_fused", "prolong_smooth_fused")
+_FUSED_DF = _FUSED_CYCLE + ("residual_df_norm_fused", "df_step_residual_norm_fused")
+PATH_KERNELS = {
+    "unfused": _CYCLE + ("residual_fused", "residual_df_norm_fused"),
+    "fused": _FUSED_DF,
+    "fmg_fused": _FUSED_DF,
+    "mixed_pallas": _FUSED_CYCLE,  # its f64 outer residual is plain torch
 }
 
 
@@ -145,6 +169,40 @@ def compare_kernels(pk, dev):
         times = (time_ms(lambda: pk.residual_df_norm_fused(*state, h)),
                  time_ms(lambda: pk.residual_df_norm_plain(*state, h)))
         record("residual_df_norm_fused", n, "r", r, r_ref, *times)
+        check(torch.equal(r, r_ref), f"residual_df_norm_fused n={n}: r not bitwise equal")
+
+        # K3 on the random (u, f) as (e, r)
+        times = (time_ms(lambda: pk.residual_restrict_fused(u, f, h)),
+                 time_ms(lambda: pk.residual_restrict_plain(u, f, h)))
+        record("residual_restrict_fused", n, "", pk.residual_restrict_fused(u, f, h),
+               pk.residual_restrict_plain(u, f, h), *times)
+
+        # K4: a coarse correction interpolated into (u, f) as (e, r)
+        nc = (n + 1) // 2
+        ec = torch.from_numpy(rng.standard_normal((nc, nc, nc)).astype(np.float32)).to(dev)
+        for n_iter in (1, 2):
+            times = ()
+            if n_iter == 2:  # the main path's n_smooth
+                times = (time_ms(lambda: pk.prolong_smooth_fused(ec, u, f, h, 2)),
+                         time_ms(lambda: pk.prolong_smooth_plain(ec, u, f, h, 2)))
+            record("prolong_smooth_fused", n, f"n_iter={n_iter}",
+                   pk.prolong_smooth_fused(ec, u, f, h, n_iter),
+                   pk.prolong_smooth_plain(ec, u, f, h, n_iter), *times)
+
+        # K6: the K5 state plus a small correction
+        d = torch.from_numpy(1e-6 * rng.standard_normal((n, n, n)).astype(np.float32)).to(dev)
+        args = (state[0], state[1], d, state[2], state[3], h)
+        got = pk.df_step_residual_norm_fused(*args)
+        want = pk.df_step_residual_norm_plain(*args)
+        rel = abs(float(got[3]) - float(want[3])) / float(want[3])
+        print(f"[kernel] df_step_residual_norm_fused n={n:3d} norm2={float(got[3]):.9e} "
+              f"plain={float(want[3]):.9e} rel_diff={rel:.3e} (tol {NORM_RTOL:g})")
+        check(rel <= NORM_RTOL, f"df_step_residual_norm_fused n={n}: norm rel diff {rel}")
+        times = (time_ms(lambda: pk.df_step_residual_norm_fused(*args)),
+                 time_ms(lambda: pk.df_step_residual_norm_plain(*args)))
+        for label, g, w in zip(("u_hi", "u_lo"), got, want):
+            record("df_step_residual_norm_fused", n, label, g, w)
+        record("df_step_residual_norm_fused", n, "r", got[2], want[2], *times)
     return results
 
 
@@ -155,6 +213,7 @@ def main():
         return 1
     import multigrid_parallel_tpu_torch as mg
     from multigrid_parallel_tpu_torch import cycles_padded as cp
+    from multigrid_parallel_tpu_torch.cycles import setup_problem
     from multigrid_parallel_tpu_torch.hierarchy import evaluate_on_grid
     from multigrid_parallel_tpu_torch.ops import _build
     from multigrid_parallel_tpu_torch.ops import pallas3d as pk
@@ -176,61 +235,97 @@ def main():
     cfg = mg.CycleConfig(n_smooth=2)
     prob = mg.poisson_3d_quadratic()
 
-    # 3. small solve: card (kernels) against CPU (plain versions)
+    # 3. small solves: card (kernels) against CPU (plain versions)
     hier33 = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=4)
     init33 = cp.ref_init_norm(prob, hier33)
-    small = {}
-    for d in ("cpu", "cuda"):
-        run = cp.make_on_device_df_solver(hier33, cfg, rel_tol=REL_TOL, inner_cycles=4,
-                                          init_norm=init33, device=d)
-        u_hi, u_lo, nrm, it = run(*cp.setup_df_problem(prob, hier33, d))
-        small[d] = (pk.df_to_f64(u_hi, u_lo).cpu(), it, float(nrm))
-    du = float((small["cpu"][0] - small["cuda"][0]).abs().max())
-    print(f"[solve 33^3] cpu steps={small['cpu'][1]} norm={small['cpu'][2]:.6e} | "
-          f"cuda steps={small['cuda'][1]} norm={small['cuda'][2]:.6e} | max|du|={du:.3e}")
-    check(small["cpu"][1] == small["cuda"][1], "33^3 outer-step count cpu != cuda")
-    check(du <= 1e-8, f"33^3 solutions differ by {du}")
+    for label, kw in (("unfused", dict(fused=False)), ("fused", dict(fused=True)),
+                      ("fmg_fused", dict(fused=True, use_fmg=True))):
+        small = {}
+        for d in ("cpu", "cuda"):
+            run = cp.make_on_device_df_solver(hier33, cfg, rel_tol=REL_TOL, inner_cycles=4,
+                                              init_norm=init33, device=d, **kw)
+            u_hi, u_lo, nrm, it = run(*cp.setup_df_problem(prob, hier33, d))
+            small[d] = (pk.df_to_f64(u_hi, u_lo).cpu(), it, float(nrm))
+        du = float((small["cpu"][0] - small["cuda"][0]).abs().max())
+        print(f"[solve 33^3 {label}] cpu steps={small['cpu'][1]} norm={small['cpu'][2]:.6e} | "
+              f"cuda steps={small['cuda'][1]} norm={small['cuda'][2]:.6e} | max|du|={du:.3e}")
+        check(small["cpu"][1] == small["cuda"][1], f"33^3 {label}: outer-step count cpu != cuda")
+        check(du <= 1e-8, f"33^3 {label}: solutions differ by {du}")
 
-    # 4. the main path: 257^3
+    # 4. the main path: 257^3, each configuration
     hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7)
     n = hier.finest_n
     init = cp.ref_init_norm(prob, hier, dev)
-    state = cp.setup_df_problem(prob, hier, dev)
-    run = cp.make_on_device_df_solver(hier, cfg, rel_tol=REL_TOL, max_cycles=40,
-                                      inner_cycles=4, init_norm=init, device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    pk.reset_launches()
-    t0 = time.perf_counter()
-    u_hi, u_lo, nrm, it = run(*state)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = dict(pk.LAUNCHES)
-    nrm = float(nrm)
-    u = pk.df_to_f64(u_hi, u_lo)
     exact = evaluate_on_grid(prob.analytic, hier, hier.num_levels - 1, dev)
-    err = float(torch.sqrt(torch.sum((u - exact) ** 2)))
-    print(f"[solve {n}^3] outer_steps={it} v_cycles={4 * it} final_norm={nrm:.6e} "
-          f"init_norm={init:.6e} rel={nrm / init:.3e} err_l2_vs_analytic={err:.3e} "
-          f"finite={bool(torch.isfinite(u).all())} shape={tuple(u.shape)}")
-    print(f"[launches {n}^3 solve] {json.dumps(launches)}")
-    check(tuple(u.shape) == (n, n, n) and bool(torch.isfinite(u).all()), "solution not finite")
-    check(it < 40 and nrm <= REL_TOL * init, f"not converged: {nrm} > {REL_TOL} * {init}")
-    check(err <= ERR_TOL, f"error vs analytic {err} > {ERR_TOL}")
-    for name in SOURCES:
-        check(launches[name] > 0, f"kernel {name} not launched in the {n}^3 solve")
+    df_state = cp.setup_df_problem(prob, hier, dev)
+    mixed_state = setup_problem(prob, hier, dev)
+    f_norm = float(torch.sqrt(torch.sum(mixed_state[1] ** 2)))
 
-    walls = []
-    for _ in range(5):
+    def df_path(**kw):
+        run = cp.make_on_device_df_solver(hier, cfg, rel_tol=REL_TOL, max_cycles=40,
+                                          inner_cycles=4, init_norm=init, device=dev, **kw)
+
+        def go():
+            u_hi, u_lo, nrm, it = run(*df_state)
+            return pk.df_to_f64(u_hi, u_lo), float(nrm), it
+        return go, init
+
+    def mixed_path():
+        run = cp.make_on_device_mixed_solver_pallas(hier, cfg, rel_tol=REL_TOL, max_cycles=40,
+                                                    inner_cycles=2, device=dev)
+
+        def go():
+            u, nrm, it = run(*mixed_state)
+            return u, float(nrm), it
+        return go, f_norm
+
+    paths = {"unfused": df_path(fused=False), "fused": df_path(fused=True),
+             "fmg_fused": df_path(fused=True, use_fmg=True), "mixed_pallas": mixed_path()}
+    launches = dict.fromkeys(SOURCES, 0)
+    solved = {}
+    for label, (go, ref_norm) in paths.items():
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pk.reset_launches()
         t0 = time.perf_counter()
-        out = run(*state)
+        u, nrm, it = go()
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        check(out[3] == it, "outer-step count changed between runs")
-    print(f"[wall {n}^3] first_run_s={first_s:.4f} median_of_5_s={statistics.median(walls):.4f} "
-          f"runs_s={[round(w, 4) for w in walls]} peak_mem_GiB="
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} card: {card}")
+        first_s = time.perf_counter() - t0
+        counts = dict(pk.LAUNCHES)
+        err = float(torch.sqrt(torch.sum((u - exact) ** 2)))
+        print(f"[solve {n}^3 {label}] outer_steps={it} final_norm={nrm:.6e} "
+              f"init_norm={ref_norm:.6e} rel={nrm / ref_norm:.3e} err_l2_vs_analytic={err:.3e} "
+              f"finite={bool(torch.isfinite(u).all())} shape={tuple(u.shape)}")
+        print(f"[launches {n}^3 {label}] {json.dumps(counts)}")
+        check(tuple(u.shape) == (n, n, n) and bool(torch.isfinite(u).all()),
+              f"{label}: solution not finite")
+        check(it < 40 and nrm <= REL_TOL * ref_norm,
+              f"{label} not converged: {nrm} > {REL_TOL} * {ref_norm}")
+        check(err <= ERR_TOL, f"{label}: error vs analytic {err} > {ERR_TOL}")
+        for name in SOURCES:
+            ran = counts[name] > 0
+            check(ran == (name in PATH_KERNELS[label]),
+                  f"{label}: kernel {name} launched {counts[name]} times in the {n}^3 solve")
+            launches[name] += counts[name]
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = go()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            check(out[2] == it, f"{label}: outer-step count changed between runs")
+        print(f"[wall {n}^3 {label}] first_run_s={first_s:.4f} "
+              f"median_of_5_s={statistics.median(walls):.4f} "
+              f"runs_s={[round(w, 4) for w in walls]} peak_mem_GiB="
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} card: {card}")
+        solved[label] = (u, it)
+
+    du = float((solved["fused"][0] - solved["unfused"][0]).abs().max())
+    print(f"[fused vs unfused {n}^3] outer_steps {solved['fused'][1]} vs "
+          f"{solved['unfused'][1]} max|du|={du:.3e}")
+    check(solved["fused"][1] == solved["unfused"][1], "fused and unfused outer-step counts differ")
+    check(du <= 1e-8, f"fused and unfused solutions differ by {du}")
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,10 +1,11 @@
 """multigrid_parallel_tpu_torch: the PyTorch + CUDA port of
 ``multigrid_parallel_tpu`` for NVIDIA Hopper GPUs.
 
-This slice covers the double-float 3D Poisson solve
-(``cycles_padded.make_on_device_df_solver``) on four hand-written CUDA
-kernels (``ops/csrc``); the JAX package stays the reference it is tested
-against. The package imports torch and never jax.
+It covers the double-float 3D Poisson solve
+(``cycles_padded.make_on_device_df_solver``, fused and unfused, with
+the FMG bootstrap) and the f64-outer mixed solver on seven hand-written
+CUDA kernels (``ops/csrc``); the JAX package stays the reference it is
+tested against. The package imports torch and never jax.
 """
 
 from multigrid_parallel_tpu_torch.cycles import CycleConfig

@@ -1,10 +1,13 @@
 """Build and load the hand-written CUDA kernels of ``ops/csrc``.
 
-The sources are compiled with ``nvcc`` into one shared library with a
-plain C interface and loaded with ``ctypes``:
+Each source is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC -o _build/libmg_kernels_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -c -o <tmp>/<name>.o csrc/<name>.cu     (each .cu)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o _build/libmg_kernels_<hash>.so <tmp>/*.o
 
 ``--fmad=false`` (and no ``--use_fast_math``) keeps every f32 operation
 a separate IEEE rounding, so the kernels match their plain PyTorch
@@ -33,8 +36,9 @@ _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +50,10 @@ _SIGNATURES = {
     "mg_residual": (_P, _P, _P, _I, _F, _P),
     "mg_residual_df_norm_partials": (_I,),
     "mg_residual_df_norm": (_P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
+    "mg_residual_restrict": (_P, _P, _P, _I, _F, _P),
+    "mg_prolong_correct_black": (_P, _P, _P, _P, _I, _F, _P),
+    "mg_df_step_partials": (_I,),
+    "mg_df_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
 }
 
 
@@ -65,11 +73,23 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD_DIR / f"libmg_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _spawn(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True)
+
+
+def _finish(job) -> None:
+    cmd, proc = job
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
 
 
 def build() -> Path:
@@ -78,21 +98,25 @@ def build() -> Path:
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(s) for s in sorted(_CSRC.glob("*.cu")))]
+    tmp = Path(tempfile.mkdtemp(dir=_BUILD_DIR))
+    nvcc = _nvcc()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        jobs = [_spawn([nvcc, *NVCC_FLAGS, "-c", "-o", str(tmp / f"{src.stem}.o"), str(src)])
+                for src in sorted(_CSRC.glob("*.cu"))]
+        try:
+            for job in jobs:
+                _finish(job)
+        finally:
+            for _, proc in jobs:  # a failed compile stops the others
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        lib = tmp / "lib.so"
+        _finish(_spawn([nvcc, *LINK_FLAGS, "-o", str(lib),
+                        *(str(o) for o in sorted(tmp.glob("*.o")))]))
+        os.replace(lib, out)  # atomic: a concurrent loader sees all or nothing
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 

@@ -7,18 +7,23 @@ is kept so each port sits beside its Pallas original). Wrapper, the
 Pallas kernel it replaces in multigrid_parallel_tpu/ops/pallas3d.py,
 and its CUDA source in ops/csrc/:
 
-  K1 rb_smooth_fused            rb_smooth_fused_pipelined       rb_smooth.cu
-  K2 rb_smooth_from_zero_fused  rb_smooth_from_zero_fused       rb_smooth.cu
-  R  residual_fused             residual_fused_pipelined        residual.cu
-  K5 residual_df_norm_fused     residual_df_norm_fused_padded   residual_df_norm.cu
+  K1 rb_smooth_fused              rb_smooth_fused_pipelined       rb_smooth.cu
+  K2 rb_smooth_from_zero_fused    rb_smooth_from_zero_fused       rb_smooth.cu
+  R  residual_fused               residual_fused_pipelined        residual.cu
+  K3 residual_restrict_fused      residual_restrict_fused_padded  residual_restrict.cu
+  K4 prolong_smooth_fused         prolong_smooth_fused_padded     prolong_smooth.cu
+  K5 residual_df_norm_fused       residual_df_norm_fused_padded   residual_df_norm.cu
+  K6 df_step_residual_norm_fused  df_step_residual_norm_fused     df_step.cu
 
-Fields are plain contiguous (n, n, n) tensors: the port has none of the
-TPU's lane padding. A wrapper takes the plain version for a tensor on
-the CPU, launches its kernel for a CUDA tensor (float32, contiguous,
-cubic), and raises for anything else: there is no fallback from the
-kernel to the plain version. Each kernel launch adds one to its entry in
-``LAUNCHES`` (K5's launch is the pair: per-block partials, then their
-sum).
+(K5 and K6 share the double-float arithmetic of eft.cuh; K4 finishes its
+stage with K1 half-sweeps.) Fields are plain contiguous (n, n, n)
+tensors: the port has none of the TPU's lane padding. A wrapper takes
+the plain version for a tensor on the CPU, launches its kernel for a
+CUDA tensor (float32, contiguous, cubic), and raises for anything else:
+there is no fallback from the kernel to the plain version. Each kernel
+launch adds one to its entry in ``LAUNCHES`` (the launch of K5 or K6 is
+the pair: per-block partials, then their sum; each K1 half-sweep that
+K4 runs counts as a K4 launch).
 """
 
 from __future__ import annotations
@@ -33,6 +38,9 @@ KERNELS = (
     "rb_smooth_from_zero_fused",
     "residual_fused",
     "residual_df_norm_fused",
+    "residual_restrict_fused",
+    "prolong_smooth_fused",
+    "df_step_residual_norm_fused",
 )
 # kernel launches per wrapper, since the last reset_launches()
 LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -43,22 +51,30 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _on_cuda(*fields: torch.Tensor) -> bool:
+def _on_cuda(*fields: torch.Tensor, coarse: torch.Tensor = None) -> bool:
     """False for CPU tensors (plain path); True for CUDA tensors that the
-    kernels take; raises for anything else."""
+    kernels take; raises for anything else. ``fields`` are (n, n, n);
+    ``coarse``, if given, is a field of the next coarser level,
+    ((n + 1) / 2)^3 with n odd."""
+    n = fields[0].shape[0]
+    cubes = [(x, n) for x in fields]
+    if coarse is not None:
+        if n % 2 == 0:
+            raise ValueError(f"a level with a coarser one has an odd size, got n = {n}")
+        cubes.append((coarse, (n + 1) // 2))
     dev = fields[0].device
-    if any(x.device != dev for x in fields):
-        raise ValueError(f"fields on different devices: {[x.device for x in fields]}")
+    if any(x.device != dev for x, _ in cubes):
+        raise ValueError(f"fields on different devices: {[x.device for x, _ in cubes]}")
     if dev.type == "cpu":
         return False
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    n = fields[0].shape[0]
-    for x in fields:
+    for x, m in cubes:
         if x.dtype != torch.float32:
             raise TypeError(f"CUDA kernels take float32, got {x.dtype}")
-        if x.shape != (n, n, n) or n < 3:
-            raise ValueError(f"expected an (n, n, n) field with n >= 3, got {tuple(x.shape)}")
+        if x.shape != (m, m, m) or m < 3:
+            raise ValueError(f"expected an (n, n, n) field with n = {m} >= 3, "
+                             f"got {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError("CUDA kernels take contiguous fields")
     if n ** 3 >= 2 ** 31:
@@ -156,6 +172,98 @@ def residual_fused(u, f, h: float):
     return r
 
 
+# ------------------------------------------- K3: residual + restriction
+
+
+def _tap3(a, b, c):
+    """Full-weighting 3-tap, in the kernel's order (0.25 a + 0.5 b) + 0.25 c."""
+    return 0.25 * a + 0.5 * b + 0.25 * c
+
+
+def _restrict_axis(x, axis: int):
+    """3-tap restriction along ``axis`` to the coarse INTERIOR points
+    (n -> (n + 1) / 2 - 2): coarse c takes fine 2c - 1, 2c, 2c + 1."""
+    x = x.movedim(axis, 0)
+    n = x.shape[0]
+    return _tap3(x[1:n - 2:2], x[2:n - 1:2], x[3:n:2]).movedim(0, axis)
+
+
+def residual_restrict_plain(e, r, h: float):
+    """Plain version of K3: the fine residual (R), then the 3-tap weights
+    along i, then j, then k; the coarse boundary is zero."""
+    t = ops3.residual(e, r, h)
+    for axis in (0, 1, 2):
+        t = _restrict_axis(t, axis)
+    nc = (e.shape[0] + 1) // 2
+    out = torch.zeros((nc, nc, nc), dtype=e.dtype, device=e.device)
+    out[1:-1, 1:-1, 1:-1] = t
+    return out
+
+
+def residual_restrict_fused(e, r, h: float):
+    """(n, n, n) correction e and its RHS r -> the (nc, nc, nc) coarse
+    RHS, nc = (n + 1) / 2: full weighting of the interior residual, zero
+    coarse boundary, without storing the fine residual."""
+    n = e.shape[0]
+    if n % 2 == 0:
+        raise ValueError(f"restriction needs an odd size, got n = {n}")
+    if not _on_cuda(e, r):
+        return residual_restrict_plain(e, r, h)
+    nc = (n + 1) // 2
+    out = torch.empty((nc, nc, nc), dtype=e.dtype, device=e.device)
+    _check(_lib().mg_residual_restrict(out.data_ptr(), e.data_ptr(), r.data_ptr(),
+                                       n, 1.0 / (h * h), _stream()),
+           "residual_restrict_fused")
+    LAUNCHES["residual_restrict_fused"] += 1
+    return out
+
+
+# ------------------------------------ K4: prolongation + correction + smooth
+
+
+def _interp_axis(x, axis: int):
+    """Linear interpolation along ``axis`` (nc -> 2 nc - 1): even fine
+    points copy, odd ones are 0.5 a + 0.5 b, as the kernel computes."""
+    x = x.movedim(axis, 0)
+    nc = x.shape[0]
+    out = x.new_empty((2 * nc - 1,) + tuple(x.shape[1:]))
+    out[0::2] = x
+    out[1::2] = 0.5 * x[:-1] + 0.5 * x[1:]
+    return out.movedim(0, axis)
+
+
+def prolong_smooth_plain(ec, e, r, h: float, n_iter: int):
+    """Plain version of K4: e + trilinear interpolation of ec (j, then
+    k, then i), then the black-first RB stage."""
+    t = ec
+    for axis in (1, 2, 0):
+        t = _interp_axis(t, axis)
+    return rb_smooth_plain(e + t, r, h, n_iter, red_first=False)
+
+
+def prolong_smooth_fused(ec, e, r, h: float, n_iter: int):
+    """rb_smooth(e + P ec, r, h, n_iter, black first) as a fresh field (e
+    is left as it is): the post-smoothing stage of a V-cycle level, with
+    the coarse correction ec interpolated and added in its first launch.
+    The CUDA form is one K4 launch (correction + first black half-sweep)
+    and 2 * n_iter - 1 K1 half-sweeps, all counted as K4 launches."""
+    if n_iter < 1:
+        raise ValueError(f"n_iter must be >= 1, got {n_iter}")
+    if not _on_cuda(e, r, coarse=ec):
+        return prolong_smooth_plain(ec, e, r, h, n_iter)
+    lib, stream, n, h2 = _lib(), _stream(), e.shape[0], h * h
+    out = torch.empty_like(e)
+    _check(lib.mg_prolong_correct_black(out.data_ptr(), ec.data_ptr(), e.data_ptr(),
+                                        r.data_ptr(), n, h2, stream),
+           "prolong_smooth_fused")
+    LAUNCHES["prolong_smooth_fused"] += 1
+    for c in [RED] + [BLACK, RED] * (n_iter - 1):
+        _check(lib.mg_rb_half_sweep(out.data_ptr(), r.data_ptr(), n, h2, c, stream),
+               "prolong_smooth_fused")
+        LAUNCHES["prolong_smooth_fused"] += 1
+    return out
+
+
 # ------------------------------------------- K5: double-float residual + norm
 
 
@@ -223,6 +331,37 @@ def residual_df_norm_fused(u_hi, u_lo, f_hi, f_lo, h: float):
         n, 1.0 / (h * h), _stream()), "residual_df_norm_fused")
     LAUNCHES["residual_df_norm_fused"] += 1
     return r, nrm2
+
+
+# ------------------------------------ K6: df_add + residual + norm (one step)
+
+
+def df_step_residual_norm_plain(u_hi, u_lo, e, f_hi, f_lo, h: float):
+    """Plain version of K6: df_add, then K5's plain version."""
+    u_hi, u_lo = df_add(u_hi, u_lo, e)
+    r, nrm2 = residual_df_norm_plain(u_hi, u_lo, f_hi, f_lo, h)
+    return u_hi, u_lo, r, nrm2
+
+
+def df_step_residual_norm_fused(u_hi, u_lo, e, f_hi, f_lo, h: float):
+    """(u_hi', u_lo', r, ||r||^2): the tail of a defect-correction step,
+    (u_hi, u_lo) + e and the compensated residual of the result with its
+    squared norm. All outputs are fresh tensors (the inputs are left as
+    they are); the norm is a 0-d tensor on the fields' device."""
+    if not _on_cuda(u_hi, u_lo, e, f_hi, f_lo):
+        return df_step_residual_norm_plain(u_hi, u_lo, e, f_hi, f_lo, h)
+    lib, n = _lib(), u_hi.shape[0]
+    o_hi, o_lo, r = (torch.empty_like(u_hi) for _ in range(3))
+    nrm2 = torch.empty((), dtype=torch.float32, device=u_hi.device)
+    partials = torch.empty(lib.mg_df_step_partials(n), dtype=torch.float64,
+                           device=u_hi.device)
+    _check(lib.mg_df_step(
+        o_hi.data_ptr(), o_lo.data_ptr(), r.data_ptr(), nrm2.data_ptr(),
+        partials.data_ptr(), u_hi.data_ptr(), u_lo.data_ptr(), e.data_ptr(),
+        f_hi.data_ptr(), f_lo.data_ptr(), n, 1.0 / (h * h), _stream()),
+        "df_step_residual_norm_fused")
+    LAUNCHES["df_step_residual_norm_fused"] += 1
+    return o_hi, o_lo, r, nrm2
 
 
 # ------------------------------------------------------ double-float helpers

@@ -63,8 +63,48 @@ def test_kernels_match_plain_on_card(cuda, n):
     assert torch.equal(r, r_ref)
     assert float(nrm2) == pytest.approx(float(nrm2_ref), rel=1e-5)
     # one launch per half-sweep: 2 colours x (1 + 2 + 3) iterations x 2 orders
-    assert tpk.LAUNCHES == {"rb_smooth_fused": 24, "rb_smooth_from_zero_fused": 24,
+    assert tpk.LAUNCHES == {**dict.fromkeys(tpk.KERNELS, 0),
+                            "rb_smooth_fused": 24, "rb_smooth_from_zero_fused": 24,
                             "residual_fused": 1, "residual_df_norm_fused": 1}
+
+
+def _ulps(got, want, ulps=4):
+    err = float((got.double() - want.double()).abs().max())
+    return err <= ulps * float(np.spacing(np.float32(want.abs().max().item())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 65])
+def test_fused_kernels_match_plain_on_card(cuda, n):
+    h = 1.0 / (n - 1)
+    nc = (n + 1) // 2
+    e, r = _fields32(8, n, cuda)
+    ec = _fields32(9, nc, cuda)[0]
+    tpk.reset_launches()
+    # K3: the same operations in the same order (the plain version's
+    # strided 3-taps), expected bitwise; held to 4 ulp of the max
+    got = tpk.residual_restrict_fused(e, r, h)
+    assert got.shape == (nc, nc, nc)
+    assert _ulps(got, tpk.residual_restrict_plain(e, r, h))
+    for n_iter in (1, 2):
+        e0 = e.clone()
+        got = tpk.prolong_smooth_fused(ec, e, r, h, n_iter)
+        assert torch.equal(e, e0)  # fresh output, e untouched
+        assert torch.equal(got, tpk.prolong_smooth_plain(ec, e, r, h, n_iter))
+    u_hi, u_lo, f_hi, f_lo = _df_state(10, n, cuda)
+    d = 1e-6 * e
+    got = tpk.df_step_residual_norm_fused(u_hi, u_lo, d, f_hi, f_lo, h)
+    want = tpk.df_step_residual_norm_plain(u_hi, u_lo, d, f_hi, f_lo, h)
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    assert float(got[3]) == pytest.approx(float(want[3]), rel=1e-5)
+    # K5 on the updated pair gives K6's residual and norm bit for bit
+    r5, nrm5 = tpk.residual_df_norm_fused(got[0], got[1], f_hi, f_lo, h)
+    assert torch.equal(r5, got[2]) and float(nrm5) == float(got[3])
+    # K4: one correction launch + 2 n_iter - 1 half-sweeps, n_iter = 1, 2
+    assert tpk.LAUNCHES == {**dict.fromkeys(tpk.KERNELS, 0),
+                            "residual_restrict_fused": 1, "prolong_smooth_fused": 2 + 4,
+                            "df_step_residual_norm_fused": 1, "residual_df_norm_fused": 1}
 
 
 @pytest.mark.cuda
@@ -79,16 +119,39 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 @pytest.mark.cuda
-def test_df_solve_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_df_solve_on_card_matches_cpu(cuda, fused):
     hier = tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=4)  # 33^3
     prob = tmg.poisson_3d_quadratic()
     init = tcp.ref_init_norm(prob, hier)
     out = {}
     for dev in ("cpu", cuda):
         run = tcp.make_on_device_df_solver(hier, tmg.CycleConfig(), inner_cycles=4,
-                                           init_norm=init, device=dev)
+                                           init_norm=init, device=dev, fused=fused)
         u_hi, u_lo, nrm, it = run(*tcp.setup_df_problem(prob, hier, dev))
         assert float(nrm) <= 1e-8 * init
         out[str(dev)] = (tpk.df_to_f64(u_hi, u_lo).cpu(), it)
     assert out["cpu"][1] == out["cuda"][1]
     assert float((out["cpu"][0] - out["cuda"][0]).abs().max()) <= 1e-8
+
+
+@pytest.mark.cuda
+def test_fused_df_solve_65_on_card(cuda):
+    hier = tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=5)  # 65^3
+    prob = tmg.poisson_3d_quadratic()
+    init = tcp.ref_init_norm(prob, hier)
+    out = {}
+    for fused in (True, False):
+        run = tcp.make_on_device_df_solver(hier, tmg.CycleConfig(), inner_cycles=4,
+                                           init_norm=init, device=cuda, fused=fused)
+        tpk.reset_launches()
+        u_hi, u_lo, nrm, it = run(*tcp.setup_df_problem(prob, hier, cuda))
+        assert float(nrm) <= 1e-8 * init and 1 <= it <= 10
+        out[fused] = (tpk.df_to_f64(u_hi, u_lo), it, dict(tpk.LAUNCHES))
+    launches = out[True][2]
+    assert launches["residual_fused"] == 0 and launches["rb_smooth_fused"] > 0
+    assert min(launches[k] for k in ("residual_restrict_fused", "prolong_smooth_fused",
+                                     "df_step_residual_norm_fused")) > 0
+    assert out[False][2]["residual_restrict_fused"] == 0
+    assert out[True][1] == out[False][1]
+    assert float((out[True][0] - out[False][0]).abs().max()) <= 1e-8

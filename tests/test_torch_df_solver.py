@@ -102,8 +102,12 @@ def test_package_does_not_import_jax():
     code = (
         "import sys\n"
         "import multigrid_parallel_tpu_torch\n"
-        "import multigrid_parallel_tpu_torch.cycles_padded\n"
+        "import multigrid_parallel_tpu_torch.cycles_padded as cp\n"
         "import multigrid_parallel_tpu_torch.ops._build\n"
+        "import multigrid_parallel_tpu_torch.ops.pallas3d as pk\n"
+        "assert cp.make_padded_fmg_bootstrap and cp.make_on_device_mixed_solver_pallas\n"
+        "assert pk.residual_restrict_fused and pk.prolong_smooth_fused\n"
+        "assert pk.df_step_residual_norm_fused\n"
         "import multigrid_parallel_tpu_torch.utils.convert\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'multigrid_parallel_tpu' not in sys.modules\n"

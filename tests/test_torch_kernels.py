@@ -160,9 +160,17 @@ def test_cpu_path_counts_no_launches():
 def test_build_flags_and_library_name():
     flags = _build.NVCC_FLAGS
     assert "--fmad=false" in flags and "arch=compute_90a,code=sm_90a" in flags
-    assert not any("fast_math" in f for f in flags)
+    assert "arch=compute_90a,code=sm_90a" in _build.LINK_FLAGS
+    assert not any("fast_math" in f for f in flags + _build.LINK_FLAGS)
     path = _build.library_path()
     assert path == _build.library_path()  # stable hash of the sources
     assert path.parent.name == "_build" and path.suffix == ".so"
     names = {p.name for p in _build._sources()}
-    assert {"rb_smooth.cu", "residual.cu", "residual_df_norm.cu"} <= names
+    assert {"rb_smooth.cu", "residual.cu", "residual_df_norm.cu", "residual_restrict.cu",
+            "prolong_smooth.cu", "df_step.cu", "eft.cuh", "stencil.cuh"} <= names
+    assert {"mg_residual_restrict", "mg_prolong_correct_black", "mg_df_step",
+            "mg_df_step_partials"} <= set(_build._SIGNATURES)
+    # no kernel source leans on a library for the work its TPU kernel does
+    for src in _build._sources():
+        text = src.read_text()
+        assert "cublas" not in text.lower() and "torch/" not in text, src.name
