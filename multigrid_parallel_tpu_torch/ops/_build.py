@@ -54,6 +54,14 @@ _SIGNATURES = {
     "mg_prolong_correct_black": (_P, _P, _P, _P, _I, _F, _P),
     "mg_df_step_partials": (_I,),
     "mg_df_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
+    "mg_split_half_sweep": (_P, _P, _P, _I, _F, _I, _I, _P),
+    "mg_split_half_sweep_from_zero": (_P, _P, _I, _F, _I, _P),
+    "mg_split_residual_restrict": (_P, _P, _P, _P, _P, _I, _F, _P),
+    "mg_split_prolong_correct_red": (_P, _P, _P, _I, _P),
+    "mg_split_black_sweep": (_P, _P, _P, _P, _I, _F, _P),
+    "mg_split_df_partials": (_I,),
+    "mg_split_residual_df_norm": (_P,) * 12 + (_I, _F, _P),
+    "mg_split_df_step": (_P,) * 18 + (_I, _F, _P),
 }
 
 

@@ -2,9 +2,10 @@
 
 The solver has no weights: its state is the fields. The JAX package
 keeps them lane-padded as (n, rup(n, 8), rup(n, 128)) arrays with the
-live cube at [:n, :n, :n] and zeros elsewhere; the port keeps plain
-contiguous (n, n, n) tensors. Both sides meet as numpy arrays, so
-neither package imports the other.
+live cube at [:n, :n, :n] and zeros elsewhere, or as split-colour pairs
+(below); the port keeps plain contiguous (n, n, n) tensors and
+(n, n, (n - 1) // 2) pairs. Both sides meet as numpy arrays, so neither
+package imports the other.
 """
 
 from __future__ import annotations
@@ -47,3 +48,39 @@ def to_jax_layout(x: torch.Tensor, n: int) -> np.ndarray:
     out = np.zeros(jax_padded_shape(n), dtype=a.dtype)
     out[:, :n, :n] = a
     return out
+
+
+# Split-colour pairs (ops.pallas_split): the JAX package keeps each colour
+# as (n, rup(n, 8), rup((n - 1) // 2, 128)) with the live slots at
+# [:, :n, :(n - 1) // 2] and zeros elsewhere; the port as (n, n, (n - 1) // 2).
+
+
+def jax_split_shape(n: int):
+    """One colour of the JAX package's split pair."""
+    return (n, _rup(n, 8), _rup((n - 1) // 2, 128))
+
+
+def from_jax_split(xr, xb, n: int, device="cpu"):
+    """The JAX package's split pair (numpy or anything np.asarray takes)
+    -> the port's (red, black) pair of contiguous tensors on ``device``."""
+    out = []
+    for x in (xr, xb):
+        a = np.asarray(x)
+        if a.shape != jax_split_shape(n):
+            raise ValueError(f"expected shape {jax_split_shape(n)}, got {a.shape}")
+        out.append(torch.from_numpy(np.array(a[:, :n, : (n - 1) // 2])).to(device))
+    return out[0], out[1]
+
+
+def to_jax_split(xr: torch.Tensor, xb: torch.Tensor, n: int):
+    """The port's (red, black) pair -> zero-padded numpy arrays in the
+    JAX package's split layout."""
+    out = []
+    for x in (xr, xb):
+        if tuple(x.shape) != (n, n, (n - 1) // 2):
+            raise ValueError(f"expected an {(n, n, (n - 1) // 2)} colour, got {tuple(x.shape)}")
+        a = x.detach().cpu().numpy()
+        padded = np.zeros(jax_split_shape(n), dtype=a.dtype)
+        padded[:, :n, : (n - 1) // 2] = a
+        out.append(padded)
+    return out[0], out[1]

@@ -1,5 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, and the
-double-float solve on the card against the same solve on the CPU.
+"""The port's CUDA kernels against their plain PyTorch versions, the
+double-float solve on the card against the same solve on the CPU, and
+the split-colour solve (K7-K12 on the finest level) against the fused
+rect one.
 
 These need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 themselves where there is none. The file imports no jax, so on a machine
@@ -14,7 +16,9 @@ import torch
 
 import multigrid_parallel_tpu_torch as tmg
 from multigrid_parallel_tpu_torch import cycles_padded as tcp
+from multigrid_parallel_tpu_torch import cycles_split as tcs
 from multigrid_parallel_tpu_torch.ops import pallas3d as tpk
+from multigrid_parallel_tpu_torch.ops import pallas_split as tps
 
 torch.set_num_threads(1)
 
@@ -155,3 +159,96 @@ def test_fused_df_solve_65_on_card(cuda):
     assert out[False][2]["residual_restrict_fused"] == 0
     assert out[True][1] == out[False][1]
     assert float((out[True][0] - out[False][0]).abs().max()) <= 1e-8
+
+
+def _split_pairs(seed, n, dev, count):
+    """``count`` random split pairs packed from zero-boundary cubes, so
+    their dead slots and boundary rows are 0 (the pair invariant)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        x = np.zeros((n, n, n), np.float32)
+        x[1:-1, 1:-1, 1:-1] = rng.standard_normal((n - 2,) * 3)
+        out.append(tuple(t.to(dev) for t in tps.pack_split(torch.from_numpy(x))))
+    return out
+
+
+@pytest.mark.cuda
+def test_split_kernels_match_plain_on_card(cuda):
+    n = 65
+    h = 1.0 / (n - 1)
+    e, r = _split_pairs(11, n, cuda, 2)
+    ec = _fields32(12, (n + 1) // 2, cuda)[0]
+    tps.reset_launches()
+    for n_iter in (1, 2):
+        for red_first in (True, False):
+            want = tps.rb_smooth_split_plain(*e, *r, h, n_iter, red_first)
+            got = tps.rb_smooth_split(e[0].clone(), e[1].clone(), *r, h, n_iter, red_first)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            want = tps.rb_smooth_split_from_zero_plain(*r, h, n_iter, red_first)
+            got = tps.rb_smooth_split_from_zero(*r, h, n_iter, red_first)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        e0 = tuple(x.clone() for x in e)
+        got = tps.prolong_smooth_split(ec, *e, *r, h, n_iter)
+        assert all(torch.equal(a, b) for a, b in zip(e, e0))  # fresh pair, e untouched
+        want = tps.prolong_smooth_split_plain(ec, *e, *r, h, n_iter)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    got = tps.residual_restrict_split(*e, *r, h)
+    assert got.shape == ((n + 1) // 2,) * 3
+    assert _ulps(got, tps.residual_restrict_split_plain(*e, *r, h))
+    # a double-float state near a solution, packed, and a small correction
+    u_hi, u_lo, f_hi, f_lo = (tps.pack_split(x) for x in _df_state(13, n, cuda))
+    d = tuple(1e-6 * x for x in e)
+    got = tps.residual_df_norm_split(*u_hi, *u_lo, *f_hi, *f_lo, h)
+    want = tps.residual_df_norm_split_plain(*u_hi, *u_lo, *f_hi, *f_lo, h)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert float(got[2]) == pytest.approx(float(want[2]), rel=1e-5)
+    got = tps.df_step_split(*u_hi, *u_lo, *d, *f_hi, *f_lo, h)
+    want = tps.df_step_split_plain(*u_hi, *u_lo, *d, *f_hi, *f_lo, h)
+    assert all(torch.equal(g, w) for g, w in zip(got[:6], want[:6]))
+    assert float(got[6]) == pytest.approx(float(want[6]), rel=1e-5)
+    # K12 on the updated pair gives K11's residual and norm bit for bit
+    r12 = tps.residual_df_norm_split(*got[:4], *f_hi, *f_lo, h)
+    assert torch.equal(r12[0], got[4]) and torch.equal(r12[1], got[5])
+    assert float(r12[2]) == float(got[6])
+    # one launch per half-sweep (K10: 2 n_iter + 1), orders x n_iter = 1, 2
+    assert tps.LAUNCHES == {"rb_smooth_split": 12, "rb_smooth_split_from_zero": 12,
+                            "residual_restrict_split": 1, "prolong_smooth_split": 3 + 5,
+                            "df_step_split": 1, "residual_df_norm_split": 2}
+
+
+@pytest.mark.cuda
+def test_split_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    e, r = _split_pairs(14, 9, cuda, 1)[0]
+    with pytest.raises(TypeError):
+        tps.rb_smooth_split_from_zero(e.double(), r.double(), 0.125, 1)
+    with pytest.raises(ValueError):
+        tps.rb_smooth_split_from_zero(e.transpose(0, 1), r, 0.125, 1)
+
+
+@pytest.mark.cuda
+def test_split_solve_65_on_card_matches_fused(cuda):
+    hier = tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=5)  # 65^3
+    prob = tmg.poisson_3d_quadratic()
+    init = tcp.ref_init_norm(prob, hier)
+    tpk.reset_launches()
+    tps.reset_launches()
+    run = tcs.make_split_df_solver(hier, tmg.CycleConfig(), inner_cycles=4, init_norm=init,
+                                   device=cuda)
+    hr, hb, lr, lb, nrm, it = run(*tcs.setup_split_df_problem(prob, hier, cuda))
+    assert float(nrm) <= 1e-8 * init and 1 <= it <= 10
+    assert min(tps.LAUNCHES.values()) > 0
+    assert tpk.LAUNCHES["residual_fused"] == tpk.LAUNCHES["residual_df_norm_fused"] == 0
+    assert tpk.LAUNCHES["df_step_residual_norm_fused"] == 0
+    # the rect levels are entered from a zero correction: K2, K3, K4 (whose
+    # K1 half-sweeps count as theirs), no K1 launch of its own
+    assert tpk.LAUNCHES["rb_smooth_fused"] == 0
+    assert min(tpk.LAUNCHES[k] for k in ("rb_smooth_from_zero_fused",
+                                         "residual_restrict_fused",
+                                         "prolong_smooth_fused")) > 0
+    u = tcs.unsplit_solution(hr, hb, lr, lb, prob, hier)
+    run = tcp.make_on_device_df_solver(hier, tmg.CycleConfig(), inner_cycles=4,
+                                       init_norm=init, device=cuda)
+    u_hi, u_lo, _, it_rect = run(*tcp.setup_df_problem(prob, hier, cuda))
+    assert it == it_rect
+    assert float((u - tpk.df_to_f64(u_hi, u_lo)).abs().max()) <= 1e-8

@@ -108,6 +108,9 @@ def test_package_does_not_import_jax():
         "assert cp.make_padded_fmg_bootstrap and cp.make_on_device_mixed_solver_pallas\n"
         "assert pk.residual_restrict_fused and pk.prolong_smooth_fused\n"
         "assert pk.df_step_residual_norm_fused\n"
+        "import multigrid_parallel_tpu_torch.cycles_split as cs\n"
+        "import multigrid_parallel_tpu_torch.ops.pallas_split as ps\n"
+        "assert cs.make_split_df_solver and ps.df_step_split\n"
         "import multigrid_parallel_tpu_torch.utils.convert\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'multigrid_parallel_tpu' not in sys.modules\n"
