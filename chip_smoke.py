@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (multigrid_parallel_tpu_torch): the
+Drives the port's main paths (multigrid_parallel_tpu_torch). The
 double-float defect-correction solve of 3D Poisson at 257^3 (coarse_n 5,
 7 levels, quadratic Dirichlet data, f = 0) to relative residual 1e-8
 against the whole-cube ||f||, 4 f32 correction V-cycles per outer step,
@@ -12,33 +12,45 @@ matrix-product transfers, K5), its fused one (the default: K1, K2, K3,
 K4, K6, with K5 for the initial residual), fused with the full-multigrid
 bootstrap, the f64-outer mixed solver on the fused cycle, and the
 split-colour solver (the finest level on red / black pairs: K7-K12; the
-levels below on the fused cycle: K1-K4). Phases, each of which fails the
-run:
+levels below on the fused cycle: K1-K4). And the electrospray mixed-BC
+solve at 257^3 in its production configuration (docs/MIXED_BC.md section
+4: W-cycles capped at 65^3, one inner cycle per outer step, to 1e-8 of
+the initial residual) on the fused-kernel tier: K13-K15, K3, K5.
+Phases, each of which fails the run:
 
   1. build the hand-written CUDA kernels from ops/csrc (one nvcc per
      source, all started together; sm_90a);
   2. hold each kernel against its plain PyTorch version on the card at
      65^3 and 257^3 (numpy-seeded inputs; the split kernels on pairs
-     packed from zero-boundary cubes) and time both (CUDA events, median
-     of 20);
+     packed from zero-boundary cubes; K13-K15, and K3 and K5 once more,
+     at the electrospray's h = 3e-4 / (n - 1) with its pin planes) and
+     time both (CUDA events, median of 20);
   3. solve 33^3 on the CPU (plain versions) and on the card (kernels),
      unfused, fused, fused with FMG and split: same outer-step count,
-     solutions within 1e-8;
-  4. solve 257^3 on each path with every launch count reset just before
-     and read just after, then check the outer-step count, the final
-     relative residual, the error against the analytic solution and that
-     the path launched exactly its kernels; time each solve (warm-up,
-     median of 5); the split solution against the fused one;
+     solutions within 1e-8; the electrospray tier at 33^3, V and W: same
+     count, within 1e-7 V;
+  4. solve 257^3 on each Dirichlet path with every launch count reset
+     just before and read just after, then check the outer-step count,
+     the final relative residual, the error against the analytic solution
+     and that the path launched exactly its kernels; time each solve
+     (warm-up, median of 5); the split solution against the fused one;
   5. time the split and fused 257^3 solves interleaved run by run in
-     this one call (host wall and CUDA-event span, 9 each).
+     this one call (host wall and CUDA-event span, 9 each);
+  6. the electrospray 257^3 solve, launches reset and read around it:
+     14 +- 1 outer steps, final norm <= 1e-8 of the initial one, only
+     K13-K15, K3 and K5 launched; its wall (warm-up, median of 5) beside
+     the device-busy time of one traced solve; its solution within 1e-3 V
+     of the f64-outer MixedBCSolver.solve_on_device, outer steps within 1.
 
 Prints a {"kernels": [...]} line (each kernel's launches summed over the
-257^3 runs of phase 4), the card's name and power limit, and as its last
-line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
-when there is no CUDA device or any check fails.
+257^3 runs of phases 4 and 6; bound_ms from the timed call's bytes and
+operations), the card's name and power limit, and as its last line
+{"ok": true, "device": {...}}. Exits non-zero, printing no result, when
+there is no CUDA device or any check fails.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -78,7 +90,33 @@ SOURCES = {
                       "multigrid_parallel_tpu/ops/pallas_split.py:830"),
     "residual_df_norm_split": ("multigrid_parallel_tpu_torch/ops/csrc/df_split.cu",
                                "multigrid_parallel_tpu/ops/pallas_split.py:879"),
+    "mixed_rb_smooth_fused": ("multigrid_parallel_tpu_torch/ops/csrc/mixed_rb_smooth.cu",
+                              "multigrid_parallel_tpu/ops/pallas_mixed.py:277"),
+    "mixed_rb_smooth_from_zero_fused": ("multigrid_parallel_tpu_torch/ops/csrc/mixed_rb_smooth.cu",
+                                        "multigrid_parallel_tpu/ops/pallas_mixed.py:300"),
+    "mixed_prolong_smooth_fused": ("multigrid_parallel_tpu_torch/ops/csrc/mixed_prolong_smooth.cu",
+                                   "multigrid_parallel_tpu/ops/pallas_mixed.py:320"),
 }
+# f32 operations per stored output point of each kernel as the main path
+# calls it (n_iter = 2), counted from its arithmetic: an RB update is 8
+# (five adds, h^2 r, the difference, the 1/6 scaling), a residual 9, an
+# EFT residual ~70 plus the f64 square and sum, df_add 12, the 27-point
+# restriction ~5 per fine point on top of the residual, the
+# interpolation ~3. They only decide bound_by: each is two orders of
+# magnitude under the bytes.
+OPS_PER_POINT = {
+    "rb_smooth_fused": 16, "rb_smooth_from_zero_fused": 16, "residual_fused": 9,
+    "residual_df_norm_fused": 72, "residual_restrict_fused": 14, "prolong_smooth_fused": 20,
+    "df_step_residual_norm_fused": 84, "rb_smooth_split": 16, "rb_smooth_split_from_zero": 16,
+    "residual_restrict_split": 14, "prolong_smooth_split": 20, "df_step_split": 84,
+    "residual_df_norm_split": 72, "mixed_rb_smooth_fused": 16,
+    "mixed_rb_smooth_from_zero_fused": 16, "mixed_prolong_smooth_fused": 20,
+}
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores (same sheet)
+ES_LENGTH = 3e-4            # the electrospray cube's side: h = 3e-4 / (n - 1)
+MIXED_DU_TOL = 1e-7         # V: 33^3 electrospray, CPU against card
+FIXED_POINT_TOL = 1e-3      # V: 257^3 tier against the f64-outer solve (tests/test_mixed_bc.py:230)
 # kernels each 257^3 path must launch (every other kernel: no launch)
 _CYCLE = ("rb_smooth_fused", "rb_smooth_from_zero_fused")
 _FUSED_CYCLE = _CYCLE + ("residual_restrict_fused", "prolong_smooth_fused")
@@ -95,6 +133,10 @@ PATH_KERNELS = {
               "rb_smooth_split", "rb_smooth_split_from_zero", "residual_restrict_split",
               "prolong_smooth_split", "df_step_split", "residual_df_norm_split"),
 }
+# the electrospray tier: mixed smoothing, the Dirichlet K3 and K5 (its
+# outer df_add and BC pass are plain torch, the coarse LU a library call)
+ES_KERNELS = ("mixed_rb_smooth_fused", "mixed_rb_smooth_from_zero_fused",
+              "mixed_prolong_smooth_fused", "residual_restrict_fused", "residual_df_norm_fused")
 INTERLEAVED = 9  # split and fused 257^3 solves, each, in phase 5
 
 
@@ -127,17 +169,29 @@ def time_ms(fn, reps=20):
     return statistics.median(times)
 
 
+def bound(name, n, inputs, outputs):
+    """(bound_ms, bound_by): the least time the card could take for one
+    call, the larger of its bytes (each input read once, each output
+    written once) over the memory rate and its operations over the f32
+    rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = OPS_PER_POINT[name] * n ** 3 / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def field_err(got, want):
     err = float((got.double() - want.double()).abs().max())
     tol = FIELD_ULPS * float(np.spacing(np.float32(want.abs().max().item())))
     return err, tol, bool(torch.equal(got, want))
 
 
-def compare_kernels(pk, ps, dev):
-    """Phase 2: each kernel against its plain version at 65^3 and 257^3."""
+def compare_kernels(pk, ps, pm, es, dev):
+    """Phase 2: each kernel against its plain version at 65^3 and 257^3
+    (the mixed ones with the pin planes of the electrospray problem es)."""
     results = {name: {"max_abs_err": 0.0} for name in SOURCES}
 
-    def record(name, n, label, got, want, t_kernel=None, t_plain=None):
+    def record(name, n, label, got, want, t_kernel=None, t_plain=None, io=None):
         err, tol, exact = field_err(got, want)
         print(f"[kernel] {name:26s} n={n:3d} {label:14s} max_abs_err={err:.3e} "
               f"(tol {tol:.3e}) bitwise_equal={exact}"
@@ -146,6 +200,7 @@ def compare_kernels(pk, ps, dev):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
         if t_kernel is not None:
             results[name]["ms"], results[name]["plain_ms"] = t_kernel, t_plain
+            results[name]["bound_ms"], results[name]["bound_by"] = bound(name, n, *io)
 
     for n in (65, 257):
         h = 1.0 / (n - 1)
@@ -162,7 +217,7 @@ def compare_kernels(pk, ps, dev):
                 uk = u.clone()
                 times = (time_ms(lambda: pk.rb_smooth_fused(uk, f, h, 2, True)),
                          time_ms(lambda: pk.rb_smooth_plain(u, f, h, 2, True)))
-            record("rb_smooth_fused", n, label, got, want, *times)
+            record("rb_smooth_fused", n, label, got, want, *times, io=((u, f), (u,)))
 
             want = pk.rb_smooth_from_zero_plain(f, h, 2, red_first)
             got = pk.rb_smooth_from_zero_fused(f, h, 2, red_first)
@@ -170,12 +225,12 @@ def compare_kernels(pk, ps, dev):
             if red_first:
                 times = (time_ms(lambda: pk.rb_smooth_from_zero_fused(f, h, 2, True)),
                          time_ms(lambda: pk.rb_smooth_from_zero_plain(f, h, 2, True)))
-            record("rb_smooth_from_zero_fused", n, label, got, want, *times)
+            record("rb_smooth_from_zero_fused", n, label, got, want, *times, io=((f,), (got,)))
 
         times = (time_ms(lambda: pk.residual_fused(u, f, h)),
                  time_ms(lambda: pk.residual_plain(u, f, h)))
         record("residual_fused", n, "", pk.residual_fused(u, f, h),
-               pk.residual_plain(u, f, h), *times)
+               pk.residual_plain(u, f, h), *times, io=((u, f), (u,)))
 
         # a double-float state near a solution, where K5 runs
         c = np.arange(n) * h
@@ -192,14 +247,15 @@ def compare_kernels(pk, ps, dev):
         check(rel <= NORM_RTOL, f"residual_df_norm_fused n={n}: norm rel diff {rel}")
         times = (time_ms(lambda: pk.residual_df_norm_fused(*state, h)),
                  time_ms(lambda: pk.residual_df_norm_plain(*state, h)))
-        record("residual_df_norm_fused", n, "r", r, r_ref, *times)
+        record("residual_df_norm_fused", n, "r", r, r_ref, *times, io=(state, (r, nrm2)))
         check(torch.equal(r, r_ref), f"residual_df_norm_fused n={n}: r not bitwise equal")
 
         # K3 on the random (u, f) as (e, r)
         times = (time_ms(lambda: pk.residual_restrict_fused(u, f, h)),
                  time_ms(lambda: pk.residual_restrict_plain(u, f, h)))
-        record("residual_restrict_fused", n, "", pk.residual_restrict_fused(u, f, h),
-               pk.residual_restrict_plain(u, f, h), *times)
+        rc = pk.residual_restrict_fused(u, f, h)
+        record("residual_restrict_fused", n, "", rc, pk.residual_restrict_plain(u, f, h),
+               *times, io=((u, f), (rc,)))
 
         # K4: a coarse correction interpolated into (u, f) as (e, r)
         nc = (n + 1) // 2
@@ -211,7 +267,7 @@ def compare_kernels(pk, ps, dev):
                          time_ms(lambda: pk.prolong_smooth_plain(ec, u, f, h, 2)))
             record("prolong_smooth_fused", n, f"n_iter={n_iter}",
                    pk.prolong_smooth_fused(ec, u, f, h, n_iter),
-                   pk.prolong_smooth_plain(ec, u, f, h, n_iter), *times)
+                   pk.prolong_smooth_plain(ec, u, f, h, n_iter), *times, io=((ec, u, f), (u,)))
 
         # K6: the K5 state plus a small correction
         d = torch.from_numpy(1e-6 * rng.standard_normal((n, n, n)).astype(np.float32)).to(dev)
@@ -226,13 +282,15 @@ def compare_kernels(pk, ps, dev):
                  time_ms(lambda: pk.df_step_residual_norm_plain(*args)))
         for label, g, w in zip(("u_hi", "u_lo"), got, want):
             record("df_step_residual_norm_fused", n, label, g, w)
-        record("df_step_residual_norm_fused", n, "r", got[2], want[2], *times)
+        record("df_step_residual_norm_fused", n, "r", got[2], want[2], *times,
+               io=(args[:-1], got))
 
         # K7-K12 on pairs packed from zero-boundary cubes (dead slots and
         # boundary rows 0, the pair invariant), the colours held one by one
-        def record_pair(name, label, got, want, times=()):
+        def record_pair(name, label, got, want, times=(), io=None):
             for colour, g, w in zip(("red", "black"), got, want):
-                record(name, n, f"{label}{colour}", g, w, *(times if colour == "black" else ()))
+                record(name, n, f"{label}{colour}", g, w,
+                       *(times if colour == "black" else ()), io=io)
 
         inner = torch.zeros((n, n, n), dtype=torch.bool, device=dev)
         inner[1:-1, 1:-1, 1:-1] = True
@@ -247,18 +305,20 @@ def compare_kernels(pk, ps, dev):
                 ek = tuple(x.clone() for x in e2)
                 times = (time_ms(lambda: ps.rb_smooth_split(*ek, *r2, h, 2, True)),
                          time_ms(lambda: ps.rb_smooth_split_plain(*e2, *r2, h, 2, True)))
-            record_pair("rb_smooth_split", label, got, want, times)
+            record_pair("rb_smooth_split", label, got, want, times, io=((*e2, *r2), e2))
             times = ()
             if red_first:
                 times = (time_ms(lambda: ps.rb_smooth_split_from_zero(*r2, h, 2, True)),
                          time_ms(lambda: ps.rb_smooth_split_from_zero_plain(*r2, h, 2, True)))
             record_pair("rb_smooth_split_from_zero", label,
                         ps.rb_smooth_split_from_zero(*r2, h, 2, red_first),
-                        ps.rb_smooth_split_from_zero_plain(*r2, h, 2, red_first), times)
+                        ps.rb_smooth_split_from_zero_plain(*r2, h, 2, red_first), times,
+                        io=(r2, r2))
         times = (time_ms(lambda: ps.residual_restrict_split(*e2, *r2, h)),
                  time_ms(lambda: ps.residual_restrict_split_plain(*e2, *r2, h)))
-        record("residual_restrict_split", n, "", ps.residual_restrict_split(*e2, *r2, h),
-               ps.residual_restrict_split_plain(*e2, *r2, h), *times)
+        rc = ps.residual_restrict_split(*e2, *r2, h)
+        record("residual_restrict_split", n, "", rc,
+               ps.residual_restrict_split_plain(*e2, *r2, h), *times, io=((*e2, *r2), (rc,)))
         for n_iter in (1, 2):
             times = ()
             if n_iter == 2:
@@ -266,7 +326,8 @@ def compare_kernels(pk, ps, dev):
                          time_ms(lambda: ps.prolong_smooth_split_plain(ec, *e2, *r2, h, 2)))
             record_pair("prolong_smooth_split", f"n_iter={n_iter}_",
                         ps.prolong_smooth_split(ec, *e2, *r2, h, n_iter),
-                        ps.prolong_smooth_split_plain(ec, *e2, *r2, h, n_iter), times)
+                        ps.prolong_smooth_split_plain(ec, *e2, *r2, h, n_iter), times,
+                        io=((ec, *e2, *r2), e2))
         split_state = [x for t in state for x in ps.pack_split(t)]
         for name, args in (("residual_df_norm_split", split_state),
                            ("df_step_split", split_state[:4] + list(d2) + split_state[4:])):
@@ -280,8 +341,173 @@ def compare_kernels(pk, ps, dev):
             if name == "df_step_split":
                 record_pair(name, "u_hi_", got[0:2], want[0:2])
                 record_pair(name, "u_lo_", got[2:4], want[2:4])
-            record_pair(name, "r_", got[-3:-1], want[-3:-1], times)
+            record_pair(name, "r_", got[-3:-1], want[-3:-1], times, io=(args, got))
+
+        # K3 and K5 at the electrospray's non-dyadic h, on fields with a live
+        # boundary (the mixed case)
+        h_es = ES_LENGTH / (n - 1)
+        record("residual_restrict_fused", n, "h=3e-4/(n-1)", pk.residual_restrict_fused(u, f, h_es),
+               pk.residual_restrict_plain(u, f, h_es))
+        xs = np.linspace(0.0, 1.0, n)[:, None, None]  # volts towards the extractor
+        u64 = -1350.0 * xs * xs + 1e-3 * rng.standard_normal((n, n, n))
+        es_state = [t.to(dev) for x64 in (u64, 1e3 * rng.standard_normal((n, n, n)))
+                    for t in pk.df_split(torch.from_numpy(x64))]
+        r, nrm2 = pk.residual_df_norm_fused(*es_state, h_es)
+        r_ref, nrm2_ref = pk.residual_df_norm_plain(*es_state, h_es)
+        rel = abs(float(nrm2) - float(nrm2_ref)) / float(nrm2_ref)
+        check(rel <= NORM_RTOL, f"residual_df_norm_fused n={n} h=3e-4/(n-1): norm rel diff {rel}")
+        record("residual_df_norm_fused", n, "h=3e-4/(n-1)", r, r_ref)
+        check(torch.equal(r, r_ref), f"residual_df_norm_fused n={n} h=3e-4/(n-1): r differs")
+
+        # K13-K15 with the electrospray's pin planes at the same h, on
+        # BC-consistent corrections (where the fold equals the plain copy
+        # form), the coarse boundary of K15's ec live
+        pin = pm.dirichlet_pin_planes(es, n, dev)
+        e_bc = pm.apply_bcs_padded(u, pin)
+        r0 = torch.where(inner, f, torch.zeros_like(f))
+        for n_iter in (1, 2):
+            timed = n_iter == 2  # the main path's n_smooth
+            for red_first in (True, False):
+                want = pm.mixed_rb_smooth_plain(e_bc, r0, pin, h_es, n_iter, red_first)
+                got = pm.mixed_rb_smooth_fused(e_bc.clone(), r0, pin, h_es, n_iter, red_first)
+                times = ()
+                if timed and red_first:
+                    ek = e_bc.clone()
+                    times = (time_ms(lambda: pm.mixed_rb_smooth_fused(ek, r0, pin, h_es, 2)),
+                             time_ms(lambda: pm.mixed_rb_smooth_plain(e_bc, r0, pin, h_es, 2)))
+                label = f"n_iter={n_iter}_" + ("red_first" if red_first else "black_first")
+                record("mixed_rb_smooth_fused", n, label, got, want, *times,
+                       io=((e_bc, r0, pin), (e_bc,)))
+            got = pm.mixed_rb_smooth_from_zero_fused(r0, pin, h_es, n_iter)
+            times = ()
+            if timed:
+                times = (time_ms(lambda: pm.mixed_rb_smooth_from_zero_fused(r0, pin, h_es, 2)),
+                         time_ms(lambda: pm.mixed_rb_smooth_from_zero_plain(r0, pin, h_es, 2)))
+            record("mixed_rb_smooth_from_zero_fused", n, f"n_iter={n_iter}", got,
+                   pm.mixed_rb_smooth_from_zero_plain(r0, pin, h_es, n_iter), *times,
+                   io=((r0, pin), (got,)))
+            got = pm.mixed_prolong_smooth_fused(ec, e_bc, r0, pin, h_es, n_iter)
+            times = ()
+            if timed:
+                times = (time_ms(lambda: pm.mixed_prolong_smooth_fused(ec, e_bc, r0, pin, h_es, 2)),
+                         time_ms(lambda: pm.mixed_prolong_smooth_plain(ec, e_bc, r0, pin, h_es, 2)))
+            record("mixed_prolong_smooth_fused", n, f"n_iter={n_iter}", got,
+                   pm.mixed_prolong_smooth_plain(ec, e_bc, r0, pin, h_es, n_iter), *times,
+                   io=((ec, e_bc, r0, pin), (got,)))
     return results
+
+
+def device_busy_ms(fn):
+    """(busy ms, kernels, by_name): the union of the device's kernel
+    intervals over one call of fn, from a torch.profiler trace, and each
+    kernel name's summed ms and count; (None, 0, {}) when the trace holds
+    no device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return None, 0, {}
+    by_name = {}
+    for e in events:
+        found = re.search(r"\d([a-z_]+_kernel)", e.name)  # the repo's kernels, demangled
+        name = found.group(1) if found else e.name[:60]
+        ms, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, count + 1)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    return (busy + hi - lo) / 1e3, len(spans), by_name
+
+
+def _launch_modules():
+    from multigrid_parallel_tpu_torch.ops import pallas3d, pallas_mixed, pallas_split
+
+    return pallas3d, pallas_split, pallas_mixed
+
+
+def reset_launches():
+    for mod in _launch_modules():
+        mod.reset_launches()
+
+
+def read_launches():
+    return {name: count for mod in _launch_modules() for name, count in mod.LAUNCHES.items()}
+
+
+def electrospray_257(es, dev, card, launches):
+    """Phase 6: the production electrospray solve at 257^3 on the kernel
+    tier (gamma 2, gamma_min_n 65 = finest / 4, one inner cycle) with the
+    launch counts reset just before and read just after (added into
+    ``launches``); then its wall and device-busy time and its solution
+    against the f64-outer MixedBCSolver.solve_on_device on the card."""
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch import mixed_padded as mp
+    from multigrid_parallel_tpu_torch.mixed_bc import MixedBCSolver
+    from multigrid_parallel_tpu_torch.models.electrospray import EXTRACTOR_VOLTAGE
+    from multigrid_parallel_tpu_torch.ops import pallas3d as pk
+
+    hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7, length=es.length)
+    n = hier.finest_n
+    solver = MixedBCSolver(es, hier, n_smooth=2, gamma=2, gamma_min_n=(n - 1) // 4 + 1,
+                           device=dev)
+    run = mp.make_mixed_padded_df_solver(solver, rel_tol=REL_TOL, max_cycles=100,
+                                         inner_cycles=1)
+    state = mp.setup_mixed_df_problem(solver)
+    n0 = float(torch.sqrt(pk.residual_df_norm_fused(*state, hier.spacing(6))[1]))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run(*state)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = read_launches()
+    u, nrm, it = mp.unpack_mixed_solution(out[0], out[1], hier), float(out[2]), out[3]
+    print(f"[solve {n}^3 electrospray] outer_steps={it} final_norm={nrm:.6e} n0={n0:.6e} "
+          f"rel={nrm / n0:.3e} min_V={float(u.min()):.6f} max_V={float(u.max()):.6f} "
+          f"finite={bool(torch.isfinite(u).all())} shape={tuple(u.shape)}")
+    print(f"[launches {n}^3 electrospray] {json.dumps(counts)}")
+    check(tuple(u.shape) == (n, n, n) and bool(torch.isfinite(u).all()),
+          "electrospray: solution not finite")
+    check(13 <= it <= 15, f"electrospray: {it} outer steps, expected 14 +- 1")
+    check(nrm <= REL_TOL * n0, f"electrospray not converged: {nrm} > {REL_TOL} * {n0}")
+    check(float(u.min()) >= EXTRACTOR_VOLTAGE - 1e-3 and float(u.max()) <= 1e-3,
+          "electrospray: potential outside the electrode voltages")
+    for name in SOURCES:
+        check((counts[name] > 0) == (name in ES_KERNELS),
+              f"electrospray: kernel {name} launched {counts[name]} times in the {n}^3 solve")
+        launches[name] += counts[name]
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = run(*state)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(again[3] == it, "electrospray: outer-step count changed between runs")
+    busy, n_kernels, by_name = device_busy_ms(lambda: run(*state))
+    busy_s = "not measured" if busy is None else f"{busy:.3f} ms over {n_kernels} kernels"
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    print(f"[device time {n}^3 electrospray] "
+          + "; ".join(f"{name}: {ms:.3f} ms / {count}" for name, (ms, count) in top))
+    print(f"[wall {n}^3 electrospray] first_run_s={first_s:.4f} "
+          f"median_of_5_s={statistics.median(walls):.4f} runs_s={[round(w, 4) for w in walls]} "
+          f"device_busy={busy_s} card: {card}")
+    t0 = time.perf_counter()
+    u_ref, nrm_ref, it_ref, init_ref = solver.solve_on_device(rel_tol=REL_TOL, max_cycles=100,
+                                                               inner_cycles=1)
+    torch.cuda.synchronize()
+    du = float((u - u_ref).abs().max())
+    print(f"[electrospray {n}^3 tier vs f64-outer solve_on_device] outer_steps {it} vs {it_ref} "
+          f"max|du|={du:.3e} V (tol {FIXED_POINT_TOL:g}) f64_rel={nrm_ref / init_ref:.3e} "
+          f"f64_wall_s={time.perf_counter() - t0:.3f}")
+    check(abs(it - it_ref) <= 1, f"electrospray: {it} outer steps against {it_ref} in f64")
+    check(du <= FIXED_POINT_TOL, f"electrospray: tier and f64 solutions differ by {du} V")
 
 
 def main():
@@ -295,7 +521,10 @@ def main():
     from multigrid_parallel_tpu_torch.cycles import setup_problem
     from multigrid_parallel_tpu_torch.hierarchy import evaluate_on_grid
     from multigrid_parallel_tpu_torch.ops import _build
+    from multigrid_parallel_tpu_torch import mixed_padded as mp
+    from multigrid_parallel_tpu_torch.mixed_bc import MixedBCSolver
     from multigrid_parallel_tpu_torch.ops import pallas3d as pk
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed as pm
     from multigrid_parallel_tpu_torch.ops import pallas_split as ps
 
     dev = torch.device("cuda")
@@ -310,7 +539,8 @@ def main():
     print(f"[build] {time.perf_counter() - t0:.2f} s -> {lib_path.name}")
 
     # 2. kernels against their plain versions
-    results = compare_kernels(pk, ps, dev)
+    es = mg.electrospray_problem()
+    results = compare_kernels(pk, ps, pm, es, dev)
 
     cfg = mg.CycleConfig(n_smooth=2)
     prob = mg.poisson_3d_quadratic()
@@ -334,7 +564,7 @@ def main():
 
     # 3. small solves: card (kernels) against CPU (plain versions)
     hier33 = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=4)
-    init33 = cp.ref_init_norm(prob, hier33)
+    init33 = cp.ref_init_norm(prob, hier33, dev)
     for label, kw in df_configs.items():
         small = {}
         for d in ("cpu", "cuda"):
@@ -346,6 +576,24 @@ def main():
               f"cuda steps={small['cuda'][1]} norm={small['cuda'][2]:.6e} | max|du|={du:.3e}")
         check(small["cpu"][1] == small["cuda"][1], f"33^3 {label}: outer-step count cpu != cuda")
         check(du <= 1e-8, f"33^3 {label}: solutions differ by {du}")
+
+    # 3b. the electrospray tier at 33^3, V- and W-cycles: card against CPU
+    es33 = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=4, length=es.length)
+    for label, gamma in (("V", 1), ("W", 2)):
+        small = {}
+        for d in ("cpu", "cuda"):
+            solver = MixedBCSolver(es, es33, n_smooth=2, gamma=gamma, device=d)
+            run = mp.make_mixed_padded_df_solver(solver, rel_tol=REL_TOL, inner_cycles=1)
+            out = run(*mp.setup_mixed_df_problem(solver))
+            small[d] = (mp.unpack_mixed_solution(out[0], out[1], es33).cpu(), out[3],
+                        float(out[2]))
+        du = float((small["cpu"][0] - small["cuda"][0]).abs().max())
+        print(f"[solve 33^3 electrospray {label}] cpu steps={small['cpu'][1]} "
+              f"norm={small['cpu'][2]:.6e} | cuda steps={small['cuda'][1]} "
+              f"norm={small['cuda'][2]:.6e} | max|du|={du:.3e} V (tol {MIXED_DU_TOL:g})")
+        check(small["cpu"][1] == small["cuda"][1],
+              f"33^3 electrospray {label}: outer-step count cpu != cuda")
+        check(du <= MIXED_DU_TOL, f"33^3 electrospray {label}: solutions differ by {du} V")
 
     # 4. the main path: 257^3, each configuration
     hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7)
@@ -363,13 +611,12 @@ def main():
     for label, (solve, to_cube, ref_norm) in paths.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        pk.reset_launches()
-        ps.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         out = solve()
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        counts = {**pk.LAUNCHES, **ps.LAUNCHES}
+        counts = read_launches()
         u, nrm, it = to_cube(out), float(out[-2]), out[-1]
         err = float(torch.sqrt(torch.sum((u - exact) ** 2)))
         print(f"[solve {n}^3 {label}] outer_steps={it} final_norm={nrm:.6e} "
@@ -432,10 +679,16 @@ def main():
           f"ms={[(round(a, 3), round(b, 3)) for a, b in zip(walls['split'], walls['fused'])]} "
           f"| card: {card}")
 
+    # 6. the electrospray production solve at 257^3 (docs/MIXED_BC.md section 4)
+    electrospray_257(es, dev, card, launches)
+
+    # no single PyTorch call computes any of these stencils: library_ms is null
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
+         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
+         "bound_ms": results[name]["bound_ms"], "bound_by": results[name]["bound_by"],
+         "library_ms": None}
         for name, (src, rep) in SOURCES.items()
     ]
     print(json.dumps({"kernels": kernels}))

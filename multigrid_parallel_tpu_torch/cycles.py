@@ -53,7 +53,7 @@ class SolveResult:
         return [b / a for a, b in zip(norms, norms[1:])]
 
 
-def setup_problem(problem: Problem, hier: Hierarchy, device="cpu"):
+def setup_problem(problem: Problem, hier: Hierarchy, device="cuda"):
     """Build (u0, f) on the finest grid, reference-style:
 
     * f interior = rhs, f boundary = Dirichlet values (the reference

@@ -145,7 +145,7 @@ def _coarse_solver(hier32: Hierarchy, cfg: CycleConfig, device):
     )
 
 
-def make_padded_correction_cycle(hier32: Hierarchy, cfg: CycleConfig, device="cpu",
+def make_padded_correction_cycle(hier32: Hierarchy, cfg: CycleConfig, device="cuda",
                                  fused: bool = True):
     """Build cycle(e, r, from_zero=False) -> e': one V-cycle on the
     correction equation A e = r at the finest level (f32 fields on
@@ -159,7 +159,7 @@ def make_padded_correction_cycle(hier32: Hierarchy, cfg: CycleConfig, device="cp
     return cycle
 
 
-def make_padded_fmg_bootstrap(hier32: Hierarchy, cfg: CycleConfig, device="cpu",
+def make_padded_fmg_bootstrap(hier32: Hierarchy, cfg: CycleConfig, device="cuda",
                               fused: bool = True):
     """Build bootstrap(r) -> e: one full-multigrid pass on the CORRECTION
     equation A e = r (f32 fields on ``device``), the JAX package's
@@ -193,7 +193,7 @@ def make_on_device_df_solver(
     max_cycles: int = 40,
     inner_cycles: int = 4,
     init_norm: float = None,
-    device="cpu",
+    device="cuda",
     fused: bool = True,
     use_fmg: bool = False,
 ):
@@ -253,7 +253,7 @@ def make_on_device_df_solver(
     return run
 
 
-def setup_df_problem(problem, hier: Hierarchy, device="cpu"):
+def setup_df_problem(problem, hier: Hierarchy, device="cuda"):
     """(u_hi, u_lo, f_hi, f_lo) double-float (n, n, n) f32 setup with the
     reference semantics of cycles.setup_problem, evaluated in hier.dtype
     (full layout: the JAX package's trim=False)."""
@@ -263,7 +263,7 @@ def setup_df_problem(problem, hier: Hierarchy, device="cpu"):
     return u_hi, u_lo, f_hi, f_lo
 
 
-def ref_init_norm(problem, hier: Hierarchy, device="cpu") -> float:
+def ref_init_norm(problem, hier: Hierarchy, device="cuda") -> float:
     """||f||_2 over the WHOLE finest cube, boundary Dirichlet values
     included — the reference's initial-residual convention
     (mg_3d.h:1430-1433)."""
@@ -277,7 +277,7 @@ def make_on_device_mixed_solver_pallas(
     rel_tol: float = 1e-8,
     max_cycles: int = 40,
     inner_cycles: int = 2,
-    device="cpu",
+    device="cuda",
 ):
     """run(u0, f) -> (u, norm, n_outer): the f64-outer mixed-precision
     solve on the same (fused) f32 correction cycle. Each outer step

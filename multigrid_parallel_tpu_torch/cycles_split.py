@@ -49,7 +49,7 @@ def make_split_df_solver(
     max_cycles: int = 40,
     inner_cycles: int = 4,
     init_norm: float = None,
-    device="cpu",
+    device="cuda",
 ):
     """run(u_hr, u_hb, u_lr, u_lb, f_hr, f_hb, f_lr, f_lb) ->
     (u_hr', u_hb', u_lr', u_lb', norm, n_outer): the split-colour twin of
@@ -111,7 +111,7 @@ def make_split_df_solver(
     return run
 
 
-def setup_split_df_problem(problem, hier: Hierarchy, device="cpu"):
+def setup_split_df_problem(problem, hier: Hierarchy, device="cuda"):
     """(u_hr, u_hb, u_lr, u_lb, f_hr, f_hb, f_lr, f_lb): the double-float
     setup of ``cycles_padded.setup_df_problem`` with the k-face Dirichlet
     values folded into the RHS in ``hier.dtype`` (f64) before the split,

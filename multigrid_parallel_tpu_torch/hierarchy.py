@@ -89,7 +89,7 @@ def boundary_mask(n: int, ndim: int) -> np.ndarray:
     return m
 
 
-def evaluate_on_grid(fn, hier: Hierarchy, level: int, device="cpu") -> torch.Tensor:
+def evaluate_on_grid(fn, hier: Hierarchy, level: int, device="cuda") -> torch.Tensor:
     """Evaluate fn(x[, y, z]) on the full level grid, as a contiguous
     tensor of ``hier.dtype`` on ``device``."""
     c = torch.as_tensor(hier.coords_1d(level), dtype=hier.dtype, device=device)

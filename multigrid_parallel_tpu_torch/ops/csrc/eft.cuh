@@ -38,7 +38,10 @@ __device__ inline void df_add(float hi, float lo, float d, float& out_hi,
 //   r, e1 = two_sum(f_hi, -inv_h2 * s_hi)
 //   out   = r + ((f_lo - inv_h2 * (c_hi + s_lo)) + e1)
 // Neighbours come in nbr_sum order (i-1, i+1, j-1, j+1, k-1, k+1).
-// inv_h2 is an exact power of two (h = 2^-k), so every scaling is exact.
+// inv_h2 is 1 / h^2 computed in f64 and rounded once to f32 by the
+// wrapper, as the JAX package's weak-typed scalar is: its scalings are
+// exact only on dyadic grids (h = 2^-k); on others (the electrospray's
+// h = 3e-4 / (n - 1)) they round as in JAX and in the plain version.
 __device__ inline float eft_residual(float fh, float fl, float ch,
                                      const float (&nh)[6], float cl,
                                      const float (&nl)[6], float inv_h2) {

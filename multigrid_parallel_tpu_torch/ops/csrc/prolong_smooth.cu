@@ -5,11 +5,9 @@
 // Replaces, with K1 launches for the rest of the stage, the Pallas kernel
 // multigrid_parallel_tpu/ops/pallas3d.py: prolong_smooth_fused_padded
 // (K4), which computes rb_smooth(e + P ec, r, h, n_iter, black first) in
-// one pass. Interpolation in its order: j, then k, then i; an even fine
-// index copies the coincident coarse value, an odd one is
-// 0.5 a + 0.5 b of its two coarse neighbours. Every step has at most two
-// non-zero taps with exact 0.5 scalings, so it rounds once whatever the
-// order of the sum, and the plain version (separable matrix products,
+// one pass. Interpolation in its order, j, then k, then i (mg::interp in
+// stencil.cuh, shared with K15): each step rounds once whatever the
+// order of its sum, so the plain version (separable matrix products,
 // then the plain RB stage) agrees bit for bit.
 //
 // This launch: red points and boundary points get the corrected value
@@ -30,31 +28,10 @@
 
 namespace {
 
-// (P ec) at fine point (fi, fj, fk): j, then k, then i.
-__device__ inline float interp(const float* __restrict__ ec, int nc, int fi,
-                               int fj, int fk) {
-  const int ci0 = fi >> 1, cj0 = fj >> 1, ck0 = fk >> 1;
-  const bool oi = fi & 1, oj = fj & 1, ok = fk & 1;
-  float y2[2];
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    if (a == 1 && !oi) break;
-    float y1[2];
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      if (b == 1 && !ok) break;
-      const float* col = ec + (ci0 + a) * nc * nc + (ck0 + b);  // stride nc in j
-      y1[b] = oj ? 0.5f * col[cj0 * nc] + 0.5f * col[(cj0 + 1) * nc] : col[cj0 * nc];
-    }
-    y2[a] = ok ? 0.5f * y1[0] + 0.5f * y1[1] : y1[0];
-  }
-  return oi ? 0.5f * y2[0] + 0.5f * y2[1] : y2[0];
-}
-
 __device__ inline float corrected(const float* __restrict__ e,
                                   const float* __restrict__ ec, int n, int nc,
                                   int i, int j, int k) {
-  return e[(i * n + j) * n + k] + interp(ec, nc, i, j, k);
+  return e[(i * n + j) * n + k] + mg::interp(ec, nc, i, j, k);
 }
 
 __global__ void prolong_correct_black_kernel(float* __restrict__ out,

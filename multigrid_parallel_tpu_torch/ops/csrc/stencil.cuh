@@ -1,5 +1,6 @@
 // Shared pieces of the 7-point stencil kernels on (n, n, n) contiguous
-// f32 fields, index p = (i * n + j) * n + k.
+// f32 fields, index p = (i * n + j) * n + k, and of the trilinear
+// prolongation.
 //
 // Built with --fmad=false and without --use_fast_math: every expression
 // below must round exactly as its plain PyTorch version (and as the
@@ -47,6 +48,34 @@ __device__ inline float nbr_sum(const float* u, int p, int n) {
   s = s + u[p - 1];
   s = s + u[p + 1];
   return s;
+}
+
+// Trilinear prolongation (P ec) at fine point (fi, fj, fk) of the coarse
+// (nc, nc, nc) field ec, nc = (n + 1) / 2: j, then k, then i, as the
+// Pallas kernels' MXU bands and i interleave do. An even fine index copies
+// the coincident coarse value, an odd one is 0.5 a + 0.5 b of its two
+// coarse neighbours; every step has at most two non-zero taps with exact
+// 0.5 scalings, so it rounds once whatever the order of the sum. Coarse
+// boundary values take part (zero for Dirichlet corrections, live for
+// the mixed-BC ones). Used by K4 and K15.
+__device__ inline float interp(const float* __restrict__ ec, int nc, int fi,
+                               int fj, int fk) {
+  const int ci0 = fi >> 1, cj0 = fj >> 1, ck0 = fk >> 1;
+  const bool oi = fi & 1, oj = fj & 1, ok = fk & 1;
+  float y2[2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    if (a == 1 && !oi) break;
+    float y1[2];
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      if (b == 1 && !ok) break;
+      const float* col = ec + (ci0 + a) * nc * nc + (ck0 + b);  // stride nc in j
+      y1[b] = oj ? 0.5f * col[cj0 * nc] + 0.5f * col[(cj0 + 1) * nc] : col[cj0 * nc];
+    }
+    y2[a] = ok ? 0.5f * y1[0] + 0.5f * y1[1] : y1[0];
+  }
+  return oi ? 0.5f * y2[0] + 0.5f * y2[1] : y2[0];
 }
 
 }  // namespace mg

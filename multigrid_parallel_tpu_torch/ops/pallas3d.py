@@ -280,7 +280,10 @@ def _eft_residual(f_hi, f_lo, hi_center, hi_nbrs, lo_center, lo_nbrs, inv_h2):
     package's _eft_residual: a two-sum chain over the hi stencil's 8
     terms (6 neighbours, -4u, -2u: exact scalings), a plain sum over the
     lo terms, then r_hi ~= f - inv_h2 (sum6(u) - 6u), ~ulp-relative.
-    ``inv_h2`` must be an exact power of two (h = 2^-k grids)."""
+    ``inv_h2`` is 1 / h^2 computed in f64 and rounded once to the field's
+    dtype, as the JAX package's weak-typed scalar is: the scaling is exact
+    only on dyadic grids (h = 2^-k); on others, such as the electrospray's
+    h = 3e-4 / (n - 1), it rounds as in JAX."""
     terms = list(hi_nbrs) + [-4.0 * hi_center, -2.0 * hi_center]
     s_hi = terms[0]
     c_hi = torch.zeros_like(s_hi)

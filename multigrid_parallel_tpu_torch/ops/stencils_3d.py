@@ -50,6 +50,25 @@ def zero_boundary(x: torch.Tensor) -> torch.Tensor:
     return torch.where(interior, x, torch.zeros_like(x))
 
 
+def apply_neumann_copy(u: torch.Tensor) -> torch.Tensor:
+    """Homogeneous-Neumann enforcement by copying the adjacent interior
+    plane onto each boundary plane (the mg_3d_bkup.c:84-133 rule), as a
+    new tensor. Faces go x, then y, then z, so later faces win at edges
+    and corners: afterwards a boundary node holds u[c(i), c(j), c(k)],
+    with c mapping 0 -> 1, n-1 -> n-2 and every interior index to itself.
+    Every face is Neumann (the JAX function's per-face ``neumann_masks``
+    has no caller in either package)."""
+    n = u.shape[0]
+    u = u.clone()
+    u[0] = u[1]
+    u[n - 1] = u[n - 2]
+    u[:, 0] = u[:, 1]
+    u[:, n - 1] = u[:, n - 2]
+    u[:, :, 0] = u[:, :, 1]
+    u[:, :, n - 1] = u[:, :, n - 2]
+    return u
+
+
 def neighbor_sum(u: torch.Tensor) -> torch.Tensor:
     """Sum of the 6 face neighbours in the reference's addition order
     (i-1)+(i+1)+(j-1)+(j+1)+(k-1)+(k+1) (mg_3d.h:439-441). Wrapped roll

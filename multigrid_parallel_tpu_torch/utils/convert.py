@@ -4,7 +4,8 @@ The solver has no weights: its state is the fields. The JAX package
 keeps them lane-padded as (n, rup(n, 8), rup(n, 128)) arrays with the
 live cube at [:n, :n, :n] and zeros elsewhere, or as split-colour pairs
 (below); the port keeps plain contiguous (n, n, n) tensors and
-(n, n, (n - 1) // 2) pairs. Both sides meet as numpy arrays, so neither
+(n, n, (n - 1) // 2) pairs. The mixed-BC solver adds its pin planes and
+its coarse LU factor. Both sides meet as numpy arrays, so neither
 package imports the other.
 """
 
@@ -23,7 +24,7 @@ def jax_padded_shape(n: int):
     return (n, _rup(n, 8), _rup(n, 128))
 
 
-def from_jax_layout(x, n: int, device="cpu") -> torch.Tensor:
+def from_jax_layout(x, n: int, device="cuda") -> torch.Tensor:
     """Padded numpy array (or anything np.asarray takes) -> (n, n, n)
     contiguous tensor of the same dtype on ``device``."""
     a = np.asarray(x)
@@ -32,7 +33,7 @@ def from_jax_layout(x, n: int, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.array(a[:, :n, :n])).to(device)
 
 
-def from_jax_state(u_hi, u_lo, f_hi, f_lo, n: int, device="cpu"):
+def from_jax_state(u_hi, u_lo, f_hi, f_lo, n: int, device="cuda"):
     """The JAX package's padded double-float state
     (``cycles_padded.setup_df_problem``, trim=False) -> the port's four
     (n, n, n) f32 tensors."""
@@ -60,7 +61,7 @@ def jax_split_shape(n: int):
     return (n, _rup(n, 8), _rup((n - 1) // 2, 128))
 
 
-def from_jax_split(xr, xb, n: int, device="cpu"):
+def from_jax_split(xr, xb, n: int, device="cuda"):
     """The JAX package's split pair (numpy or anything np.asarray takes)
     -> the port's (red, black) pair of contiguous tensors on ``device``."""
     out = []
@@ -70,6 +71,29 @@ def from_jax_split(xr, xb, n: int, device="cpu"):
             raise ValueError(f"expected shape {jax_split_shape(n)}, got {a.shape}")
         out.append(torch.from_numpy(np.array(a[:, :n, : (n - 1) // 2])).to(device))
     return out[0], out[1]
+
+
+def from_jax_pin_planes(pin, n: int, device="cuda") -> torch.Tensor:
+    """The JAX package's mixed-BC pin planes
+    (``pallas_mixed.dirichlet_pin_planes``, (2, rup(n, 8), rup(n, 128)))
+    -> the port's (2, n, n) f32 tensor on ``device``."""
+    a = np.asarray(pin)
+    want = (2,) + jax_padded_shape(n)[1:]
+    if a.shape != want:
+        raise ValueError(f"expected shape {want}, got {a.shape}")
+    return torch.from_numpy(np.array(a[:, :n, :n])).to(device)
+
+
+def from_jax_coarse_lu(lu, piv):
+    """The JAX ``MixedBCSolver``'s host factor (``_lu_host``,
+    ``_piv_host``: scipy's ``lu_factor``, 0-based pivots) -> the port's
+    (``torch.linalg.lu_factor``: LAPACK's 1-based int32 pivots), as CPU
+    tensors. The factor itself is the same LAPACK getrf output."""
+    lu = np.asarray(lu, dtype=np.float64)
+    piv = np.asarray(piv)
+    if lu.ndim != 2 or lu.shape[0] != lu.shape[1] or piv.shape != lu.shape[:1]:
+        raise ValueError(f"expected an (m, m) factor and (m,) pivots, got {lu.shape}, {piv.shape}")
+    return torch.from_numpy(lu.copy()), torch.from_numpy(piv.astype(np.int32) + 1)
 
 
 def to_jax_split(xr: torch.Tensor, xb: torch.Tensor, n: int):

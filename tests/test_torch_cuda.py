@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, the
-double-float solve on the card against the same solve on the CPU, and
-the split-colour solve (K7-K12 on the finest level) against the fused
-rect one.
+double-float solve on the card against the same solve on the CPU, the
+split-colour solve (K7-K12 on the finest level) against the fused rect
+one, and the electrospray tier (K13-K15 with K3 and K5) on the card
+against the CPU.
 
 These need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 themselves where there is none. The file imports no jax, so on a machine
@@ -17,7 +18,10 @@ import torch
 import multigrid_parallel_tpu_torch as tmg
 from multigrid_parallel_tpu_torch import cycles_padded as tcp
 from multigrid_parallel_tpu_torch import cycles_split as tcs
+from multigrid_parallel_tpu_torch import mixed_padded as tmp
+from multigrid_parallel_tpu_torch.mixed_bc import MixedBCSolver
 from multigrid_parallel_tpu_torch.ops import pallas3d as tpk
+from multigrid_parallel_tpu_torch.ops import pallas_mixed as tpm
 from multigrid_parallel_tpu_torch.ops import pallas_split as tps
 
 torch.set_num_threads(1)
@@ -252,3 +256,92 @@ def test_split_solve_65_on_card_matches_fused(cuda):
     u_hi, u_lo, _, it_rect = run(*tcp.setup_df_problem(prob, hier, cuda))
     assert it == it_rect
     assert float((u - tpk.df_to_f64(u_hi, u_lo)).abs().max()) <= 1e-8
+
+
+def _electrospray_pins(n, dev):
+    return tpm.dirichlet_pin_planes(tmg.electrospray_problem(), n, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 65])
+def test_mixed_kernels_match_plain_on_card(cuda, n):
+    """K13-K15 at the electrospray's non-dyadic h, with its pin planes and
+    a random x-face mask, on BC-consistent corrections (where the
+    kernels' folded reads equal the plain copy form bit for bit)."""
+    h = 3e-4 / (n - 1)
+    e, r = _fields32(15, n, cuda)
+    ec = _fields32(16, (n + 1) // 2, cuda)[0]  # live coarse boundary
+    r = torch.where(_interior(n, cuda), r, torch.zeros_like(r))
+    rng = np.random.default_rng(17)
+    random_pin = torch.from_numpy((rng.random((2, n, n)) < 0.3).astype(np.float32)).to(cuda)
+    tpm.reset_launches()
+    for pin in (_electrospray_pins(n, cuda), random_pin):
+        e_bc = tpm.apply_bcs_padded(e, pin)
+        for n_iter in (1, 2):
+            for red_first in (True, False):
+                want = tpm.mixed_rb_smooth_plain(e_bc, r, pin, h, n_iter, red_first)
+                got = tpm.mixed_rb_smooth_fused(e_bc.clone(), r, pin, h, n_iter, red_first)
+                assert torch.equal(got, want)
+            assert torch.equal(tpm.mixed_rb_smooth_from_zero_fused(r, pin, h, n_iter),
+                               tpm.mixed_rb_smooth_from_zero_plain(r, pin, h, n_iter))
+            e0 = e.clone()
+            got = tpm.mixed_prolong_smooth_fused(ec, e, r, pin, h, n_iter)
+            assert torch.equal(e, e0)  # fresh output, e untouched
+            assert torch.equal(got, tpm.mixed_prolong_smooth_plain(ec, e, r, pin, h, n_iter))
+    # per pin, n_iter 1 and 2: K13 2 orders x (2 n_iter + 1); K14 and K15 2 n_iter + 1
+    assert tpm.LAUNCHES == {"mixed_rb_smooth_fused": 2 * 2 * (3 + 5),
+                            "mixed_rb_smooth_from_zero_fused": 2 * (3 + 5),
+                            "mixed_prolong_smooth_fused": 2 * (3 + 5)}
+
+
+def _interior(n, dev):
+    inner = torch.zeros((n, n, n), dtype=torch.bool, device=dev)
+    inner[1:-1, 1:-1, 1:-1] = True
+    return inner
+
+
+@pytest.mark.cuda
+def test_reused_kernels_non_dyadic_h_on_card(cuda):
+    """K3 and K5 at h = 3e-4 / (n - 1), on fields with a live boundary."""
+    n = 65
+    h = 3e-4 / (n - 1)
+    e, r = _fields32(18, n, cuda)
+    got = tpk.residual_restrict_fused(e, r, h)
+    assert _ulps(got, tpk.residual_restrict_plain(e, r, h))
+    rng = np.random.default_rng(19)
+    x = np.linspace(0.0, 1.0, n)[:, None, None]
+    state = [t.to(cuda) for a in (-1350.0 * x * x + 1e-3 * rng.standard_normal((n, n, n)),
+                                  1e3 * rng.standard_normal((n, n, n)))
+             for t in tpk.df_split(torch.from_numpy(a))]
+    r5, nrm5 = tpk.residual_df_norm_fused(*state, h)
+    r_ref, nrm_ref = tpk.residual_df_norm_plain(*state, h)
+    assert torch.equal(r5, r_ref)
+    assert float(nrm5) == pytest.approx(float(nrm_ref), rel=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [1, 2], ids=["V", "W"])
+def test_mixed_tier_on_card_matches_cpu(cuda, gamma):
+    """The electrospray tier at 33^3 on the card (K13-K15, K3, K5) against
+    the same tier on the CPU (plain versions): same outer steps, within
+    1e-7 V; the card launches only the tier's kernels."""
+    prob = tmg.electrospray_problem()
+    hier = tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=4, length=prob.length)
+    out = {}
+    for dev in ("cpu", cuda):
+        s = MixedBCSolver(prob, hier, n_smooth=2, gamma=gamma, device=dev)
+        tpk.reset_launches()
+        tpm.reset_launches()
+        hi, lo, nrm, it = tmp.make_mixed_padded_df_solver(s, inner_cycles=1)(
+            *tmp.setup_mixed_df_problem(s))
+        out[str(dev)] = (tmp.unpack_mixed_solution(hi, lo, hier).cpu(), it)
+    assert out["cpu"][1] == out["cuda"][1]
+    assert float((out["cpu"][0] - out["cuda"][0]).abs().max()) <= 1e-7
+    # K13 runs only where a correction is revisited: W-cycles (inner_cycles 1)
+    assert (tpm.LAUNCHES["mixed_rb_smooth_fused"] > 0) == (gamma > 1)
+    assert tpm.LAUNCHES["mixed_rb_smooth_from_zero_fused"] > 0
+    assert tpm.LAUNCHES["mixed_prolong_smooth_fused"] > 0
+    assert tpk.LAUNCHES["residual_restrict_fused"] > 0 and tpk.LAUNCHES["residual_df_norm_fused"] > 0
+    assert all(tpk.LAUNCHES[k] == 0 for k in ("rb_smooth_fused", "rb_smooth_from_zero_fused",
+                                               "residual_fused", "prolong_smooth_fused",
+                                               "df_step_residual_norm_fused"))

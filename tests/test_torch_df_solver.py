@@ -26,7 +26,7 @@ torch.set_num_threads(1)
 
 def _error_vs_analytic(u_hi, u_lo, prob, hier):
     u = tpk.df_to_f64(u_hi, u_lo)
-    exact = evaluate_on_grid(prob.analytic, hier, hier.num_levels - 1)
+    exact = evaluate_on_grid(prob.analytic, hier, hier.num_levels - 1, device="cpu")
     return float(torch.sqrt(torch.sum((u - exact) ** 2)))
 
 
@@ -36,7 +36,7 @@ def test_df_solve_33_matches_jax():
     thier = tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=4)
     jprob, tprob = jmg.poisson_3d_quadratic(), tmg.poisson_3d_quadratic()
     init = jcp.ref_init_norm(jprob, jhier)
-    assert tcp.ref_init_norm(tprob, thier) == pytest.approx(init, rel=1e-14)
+    assert tcp.ref_init_norm(tprob, thier, device="cpu") == pytest.approx(init, rel=1e-14)
 
     state = jcp.setup_df_problem(jprob, jhier)
     run_j = jcp.make_on_device_df_solver(jhier, jmg.CycleConfig(n_smooth=2),
@@ -45,8 +45,8 @@ def test_df_solve_33_matches_jax():
     jhi, jlo, jnrm, jit = run_j(*state)
     run_t = tcp.make_on_device_df_solver(thier, tmg.CycleConfig(n_smooth=2),
                                          rel_tol=1e-8, inner_cycles=inner,
-                                         init_norm=init)
-    thi, tlo, tnrm, tit = run_t(*convert.from_jax_state(*state, n))
+                                         init_norm=init, device="cpu")
+    thi, tlo, tnrm, tit = run_t(*convert.from_jax_state(*state, n, device="cpu"))
 
     assert tit == int(jit)
     assert float(tnrm) <= 1e-8 * init and float(jnrm) <= 1e-8 * init
@@ -63,10 +63,10 @@ def test_df_solve_33_matches_jax():
 def test_df_solve_65_reaches_tolerance(cfg):
     hier = tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=5)  # 65^3
     prob = tmg.poisson_3d_quadratic()
-    init = tcp.ref_init_norm(prob, hier)
+    init = tcp.ref_init_norm(prob, hier, device="cpu")
     run = tcp.make_on_device_df_solver(hier, cfg, rel_tol=1e-8, inner_cycles=4,
-                                       init_norm=init)
-    u_hi, u_lo, nrm, it = run(*tcp.setup_df_problem(prob, hier))
+                                       init_norm=init, device="cpu")
+    u_hi, u_lo, nrm, it = run(*tcp.setup_df_problem(prob, hier, device="cpu"))
     assert float(nrm) <= 1e-8 * init and 1 <= it <= 10
     assert u_hi.dtype == torch.float32 and u_hi.shape == (65, 65, 65)
     assert _error_vs_analytic(u_hi, u_lo, prob, hier) < 5e-8
@@ -76,15 +76,15 @@ def test_df_solver_stops_at_max_cycles():
     hier = tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=3)
     prob = tmg.poisson_3d_quadratic()
     run = tcp.make_on_device_df_solver(hier, tmg.CycleConfig(), rel_tol=1e-30,
-                                       max_cycles=2, inner_cycles=1)
-    *_, it = run(*tcp.setup_df_problem(prob, hier))
+                                       max_cycles=2, inner_cycles=1, device="cpu")
+    *_, it = run(*tcp.setup_df_problem(prob, hier, device="cpu"))
     assert it == 2
 
 
 def test_df_solver_rejects_other_smoothers():
     hier = tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=3)
     with pytest.raises(ValueError, match="rb"):
-        tcp.make_on_device_df_solver(hier, tmg.CycleConfig(smoother="jacobi"))
+        tcp.make_on_device_df_solver(hier, tmg.CycleConfig(smoother="jacobi"), device="cpu")
 
 
 def test_convert_round_trip():
@@ -93,9 +93,9 @@ def test_convert_round_trip():
     padded = convert.to_jax_layout(x, n)
     assert padded.shape == (9, 16, 128) and padded.dtype == np.float64
     assert not padded[:, n:].any() and not padded[:, :, n:].any()
-    assert torch.equal(convert.from_jax_layout(padded, n), x)
+    assert torch.equal(convert.from_jax_layout(padded, n, device="cpu"), x)
     with pytest.raises(ValueError):
-        convert.from_jax_layout(padded[:, :n], n)
+        convert.from_jax_layout(padded[:, :n], n, device="cpu")
 
 
 def test_package_does_not_import_jax():
@@ -111,6 +111,11 @@ def test_package_does_not_import_jax():
         "import multigrid_parallel_tpu_torch.cycles_split as cs\n"
         "import multigrid_parallel_tpu_torch.ops.pallas_split as ps\n"
         "assert cs.make_split_df_solver and ps.df_step_split\n"
+        "import multigrid_parallel_tpu_torch.mixed_bc as mb\n"
+        "import multigrid_parallel_tpu_torch.mixed_padded as mp\n"
+        "import multigrid_parallel_tpu_torch.ops.pallas_mixed as pm\n"
+        "assert mb.MixedBCSolver and mp.make_mixed_padded_df_solver\n"
+        "assert pm.mixed_prolong_smooth_fused\n"
         "import multigrid_parallel_tpu_torch.utils.convert\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'multigrid_parallel_tpu' not in sys.modules\n"

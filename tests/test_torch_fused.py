@@ -140,7 +140,7 @@ def test_df_step_residual_norm_fused_matches_pallas():
     f_hi, f_lo = jpk.df_split(jnp.asarray(f64), pad=True)
     want = jpk.df_step_residual_norm_fused(u_hi, u_lo, _pad(e), f_hi, f_lo, H, N,
                                            block_i=4)
-    port = convert.from_jax_state(u_hi, u_lo, f_hi, f_lo, N)
+    port = convert.from_jax_state(u_hi, u_lo, f_hi, f_lo, N, device="cpu")
     got = tpk.df_step_residual_norm_fused(port[0], port[1], _t(e), port[2], port[3], H)
     for g, w in zip(got[:3], want[:3]):
         _assert_ulps(g, np.asarray(w)[:, :N, :N])
@@ -186,7 +186,7 @@ def test_fused_correction_cycle_matches_jax():
     jcyc = jcp.make_padded_correction_cycle(jhier, cfg_j, jnp_level_max=5)
     want = jcyc(None, _pad(r), from_zero=True)
     want = jcyc(want, _pad(r))
-    tcyc = tcp.make_padded_correction_cycle(thier, cfg_t)
+    tcyc = tcp.make_padded_correction_cycle(thier, cfg_t, device="cpu")
     got = tcyc(None, _t(r), from_zero=True)
     got = tcyc(got, _t(r))
     np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, :N, :N],
@@ -217,7 +217,7 @@ def jax_33():
 
 
 def _error_vs_analytic(u, prob, hier):
-    exact = evaluate_on_grid(prob.analytic, hier, hier.num_levels - 1)
+    exact = evaluate_on_grid(prob.analytic, hier, hier.num_levels - 1, device="cpu")
     return float(torch.sqrt(torch.sum((u - exact) ** 2)))
 
 
@@ -230,8 +230,8 @@ def test_df_solve_33_matches_jax_default_path(jax_33, fused, use_fmg):
     init = jax_33["init"]
     run = tcp.make_on_device_df_solver(hier, tmg.CycleConfig(n_smooth=2), rel_tol=1e-8,
                                        inner_cycles=4, init_norm=init, fused=fused,
-                                       use_fmg=use_fmg)
-    hi, lo, nrm, it = run(*convert.from_jax_state(*jax_33["state"], 33))
+                                       use_fmg=use_fmg, device="cpu")
+    hi, lo, nrm, it = run(*convert.from_jax_state(*jax_33["state"], 33, device="cpu"))
     u_j, it_j = jax_33["fmg" if use_fmg else "df"]
     assert it == it_j
     assert float(nrm) <= 1e-8 * init
@@ -244,8 +244,8 @@ def test_mixed_solver_pallas_33_matches_jax(jax_33):
     hier = tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=4)
     prob = tmg.poisson_3d_quadratic()
     run = tcp.make_on_device_mixed_solver_pallas(hier, tmg.CycleConfig(n_smooth=2),
-                                                 rel_tol=1e-8, inner_cycles=2)
-    u0, f = tsetup_problem(prob, hier)
+                                                 rel_tol=1e-8, inner_cycles=2, device="cpu")
+    u0, f = tsetup_problem(prob, hier, device="cpu")
     u, nrm, it = run(u0, f)
     u_j, it_j = jax_33["mixed"]
     assert it == it_j
@@ -260,11 +260,11 @@ def test_fmg_df_solver_reduces_outer_steps():
     the FMG bootstrap saves outer steps at equal accuracy."""
     hier = tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=4)  # 33^3
     prob = tmg.poisson_3d_quadratic()
-    state = tcp.setup_df_problem(prob, hier)
+    state = tcp.setup_df_problem(prob, hier, device="cpu")
     outs = {}
     for fmg in (False, True):
         run = tcp.make_on_device_df_solver(hier, tmg.CycleConfig(n_smooth=2),
-                                           rel_tol=1e-8, inner_cycles=1, use_fmg=fmg)
+                                           rel_tol=1e-8, inner_cycles=1, use_fmg=fmg, device="cpu")
         u_hi, u_lo, _, n_outer = run(*state)
         err = _error_vs_analytic(tpk.df_to_f64(u_hi, u_lo), prob, hier)
         assert err < 2e-8, (fmg, err)

@@ -99,7 +99,7 @@ def test_residual_df_norm_fused_matches_pallas():
     f_hi, f_lo = jpk.df_split(jnp.asarray(f64), pad=True)
     r_want, n_want = jpk.residual_df_norm_fused_padded(u_hi, u_lo, f_hi, f_lo,
                                                        H, N, block_i=4)
-    port = convert.from_jax_state(u_hi, u_lo, f_hi, f_lo, N)
+    port = convert.from_jax_state(u_hi, u_lo, f_hi, f_lo, N, device="cpu")
     r_got, n_got = tpk.residual_df_norm_fused(*port, H)
     _assert_ulps(r_got, _unpad(r_want))
     # the norms differ only in the order (and, on the JAX side, the f32

@@ -73,7 +73,7 @@ def _close(got, want, tol=1e-12):
 
 
 def _close_pair(got, want_jax):
-    for g, w in zip(got, convert.from_jax_split(*want_jax, N)):
+    for g, w in zip(got, convert.from_jax_split(*want_jax, N, device="cpu")):
         _close(g, w)
 
 
@@ -104,7 +104,7 @@ def test_pack_unpack_round_trip_matches_jax():
     assert xr[..., -1][torch.from_numpy(q == 0)].all()
     # the same pair as the JAX package packs from its padded layout
     want = jps.pack_split(jnp.asarray(convert.to_jax_layout(torch.from_numpy(x), N)), N)
-    for g, w in zip((xr, xb), convert.from_jax_split(*want, N)):
+    for g, w in zip((xr, xb), convert.from_jax_split(*want, N, device="cpu")):
         assert torch.equal(g, w)
 
 
@@ -114,10 +114,10 @@ def test_convert_split_round_trip():
     jr, jb = convert.to_jax_split(*pair, N)
     assert jr.shape == convert.jax_split_shape(N) == (N, 24, 128)
     assert not jr[:, N:].any() and not jb[:, :, S:].any()
-    back = convert.from_jax_split(jr, jb, N)
+    back = convert.from_jax_split(jr, jb, N, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(back, pair))
     with pytest.raises(ValueError):
-        convert.from_jax_split(jr[:, :N], jb, N)
+        convert.from_jax_split(jr[:, :N], jb, N, device="cpu")
 
 
 # ------------------------------------------ K7-K12 against Pallas (f64)
@@ -292,9 +292,10 @@ def _hier33():
 
 def _split_solve(hier, cfg, state=None):
     prob = tmg.poisson_3d_quadratic()
-    init = tcp.ref_init_norm(prob, hier)
-    run = tcs.make_split_df_solver(hier, cfg, rel_tol=1e-8, inner_cycles=4, init_norm=init)
-    hr, hb, lr, lb, nrm, it = run(*(state or tcs.setup_split_df_problem(prob, hier)))
+    init = tcp.ref_init_norm(prob, hier, device="cpu")
+    run = tcs.make_split_df_solver(hier, cfg, rel_tol=1e-8, inner_cycles=4, init_norm=init,
+                                   device="cpu")
+    hr, hb, lr, lb, nrm, it = run(*(state or tcs.setup_split_df_problem(prob, hier, device="cpu")))
     assert float(nrm) <= 1e-8 * init
     return tcs.unsplit_solution(hr, hb, lr, lb, prob, hier), it
 
@@ -302,27 +303,28 @@ def _split_solve(hier, cfg, state=None):
 def _rect_solve(hier, cfg):
     prob = tmg.poisson_3d_quadratic()
     run = tcp.make_on_device_df_solver(hier, cfg, rel_tol=1e-8, inner_cycles=4,
-                                       init_norm=tcp.ref_init_norm(prob, hier))
-    hi, lo, _, it = run(*tcp.setup_df_problem(prob, hier))
+                                       init_norm=tcp.ref_init_norm(prob, hier, device="cpu"),
+                                       device="cpu")
+    hi, lo, _, it = run(*tcp.setup_df_problem(prob, hier, device="cpu"))
     return tpk.df_to_f64(hi, lo), it
 
 
 def test_setup_split_matches_jax(jax_split_33):
-    got = tcs.setup_split_df_problem(tmg.poisson_3d_quadratic(), _hier33())
+    got = tcs.setup_split_df_problem(tmg.poisson_3d_quadratic(), _hier33(), device="cpu")
     want = jax_split_33["state"]
     for c in range(0, 8, 2):
-        for g, w in zip(got[c:c + 2], convert.from_jax_split(*want[c:c + 2], 33)):
+        for g, w in zip(got[c:c + 2], convert.from_jax_split(*want[c:c + 2], 33, device="cpu")):
             assert g.dtype == torch.float32 and torch.equal(g, w)
 
 
 def test_split_solve_33_matches_jax(jax_split_33):
     state = [t for c in range(0, 8, 2)
-             for t in convert.from_jax_split(*jax_split_33["state"][c:c + 2], 33)]
+             for t in convert.from_jax_split(*jax_split_33["state"][c:c + 2], 33, device="cpu")]
     u, it = _split_solve(_hier33(), tmg.CycleConfig(n_smooth=2), state)
     assert it == jax_split_33["it"]
     assert u.dtype == torch.float64 and u.shape == (33, 33, 33)
     assert np.abs(u.numpy() - jax_split_33["u"]).max() <= 1e-8
-    exact = evaluate_on_grid(tmg.poisson_3d_quadratic().analytic, _hier33(), 3)
+    exact = evaluate_on_grid(tmg.poisson_3d_quadratic().analytic, _hier33(), 3, device="cpu")
     assert float(torch.sqrt(torch.sum((u - exact) ** 2))) < 5e-8
 
 
@@ -344,16 +346,18 @@ def test_split_solver_guards():
     assert tcs.split_available(hier)
     assert not tcs.split_available(tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=1))
     with pytest.raises(ValueError, match="init_norm"):
-        tcs.make_split_df_solver(hier)
+        tcs.make_split_df_solver(hier, device="cpu")
     with pytest.raises(ValueError, match="levels"):
         tcs.make_split_df_solver(tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=1),
-                                 init_norm=1.0)
+                                 init_norm=1.0, device="cpu")
 
 
 def test_split_solver_stops_at_max_cycles():
     hier = tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=3)
     prob = tmg.poisson_3d_quadratic()
     run = tcs.make_split_df_solver(hier, tmg.CycleConfig(), rel_tol=1e-30, max_cycles=2,
-                                   inner_cycles=1, init_norm=tcp.ref_init_norm(prob, hier))
-    *_, it = run(*tcs.setup_split_df_problem(prob, hier))
+                                   inner_cycles=1,
+                                   init_norm=tcp.ref_init_norm(prob, hier, device="cpu"),
+                                   device="cpu")
+    *_, it = run(*tcs.setup_split_df_problem(prob, hier, device="cpu"))
     assert it == 2

@@ -148,10 +148,10 @@ def test_setup_problem_and_init_norm(name):
     th = thier.Hierarchy(ndim=3, coarse_n=5, num_levels=3)
     jh = jhier.Hierarchy(ndim=3, coarse_n=5, num_levels=3, dtype=jnp.float64)
     tprob, jprob = getattr(tmodels, name)(), getattr(jmodels, name)()
-    for got, want in zip(tcycles.setup_problem(tprob, th),
+    for got, want in zip(tcycles.setup_problem(tprob, th, device="cpu"),
                          jcycles.setup_problem(jprob, jh)):
         _assert_close(got, want)
-    _assert_close(thier.evaluate_on_grid(tprob.analytic, th, 1),
+    _assert_close(thier.evaluate_on_grid(tprob.analytic, th, 1, device="cpu"),
                   jhier.evaluate_on_grid(jprob.analytic, jh, 1))
-    assert tcp.ref_init_norm(tprob, th) == pytest.approx(
+    assert tcp.ref_init_norm(tprob, th, device="cpu") == pytest.approx(
         jcp.ref_init_norm(jprob, jh), rel=RTOL)
