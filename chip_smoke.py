@@ -15,20 +15,23 @@ split-colour solver (the finest level on red / black pairs: K7-K12; the
 levels below on the fused cycle: K1-K4). And the electrospray mixed-BC
 solve at 257^3 in its production configuration (docs/MIXED_BC.md section
 4: W-cycles capped at 65^3, one inner cycle per outer step, to 1e-8 of
-the initial residual) on the fused-kernel tier: K13-K15, K3, K5.
-Phases, each of which fails the run:
+the initial residual) on the fused-kernel tier (K13-K15, K3, K5) and on
+the k-fold tier (the same solve in the (n, n, n - 2) fold layout:
+K16-K20). Phases, each of which fails the run:
 
   1. build the hand-written CUDA kernels from ops/csrc (one nvcc per
      source, all started together; sm_90a);
   2. hold each kernel against its plain PyTorch version on the card at
      65^3 and 257^3 (numpy-seeded inputs; the split kernels on pairs
      packed from zero-boundary cubes; K13-K15, and K3 and K5 once more,
-     at the electrospray's h = 3e-4 / (n - 1) with its pin planes) and
+     at the electrospray's h = 3e-4 / (n - 1) with its pin planes; the
+     fold kernels K16-K20 on the same fields packed into the fold layout,
+     and K19 once more at 17^3, where its pin-edge delta is live) and
      time both (CUDA events, median of 20);
   3. solve 33^3 on the CPU (plain versions) and on the card (kernels),
      unfused, fused, fused with FMG and split: same outer-step count,
-     solutions within 1e-8; the electrospray tier at 33^3, V and W: same
-     count, within 1e-7 V;
+     solutions within 1e-8; the electrospray full and fold tiers at 33^3,
+     V and W: same count, within 1e-7 V;
   4. solve 257^3 on each Dirichlet path with every launch count reset
      just before and read just after, then check the outer-step count,
      the final relative residual, the error against the analytic solution
@@ -40,15 +43,21 @@ Phases, each of which fails the run:
      14 +- 1 outer steps, final norm <= 1e-8 of the initial one, only
      K13-K15, K3 and K5 launched; its wall (warm-up, median of 5) beside
      the device-busy time of one traced solve; its solution within 1e-3 V
-     of the f64-outer MixedBCSolver.solve_on_device, outer steps within 1.
+     of the f64-outer MixedBCSolver.solve_on_device, outer steps within 1;
+  7. the electrospray 257^3 solve on the fold tier, launches reset and
+     read around it: only K16-K20 launched, the full tier's outer-step
+     count, max|u_fold - u_full| <= 1e-7 max|u|; then the fold and full
+     walls interleaved run by run (9 each) and the device-busy time of
+     one traced solve of each.
 
 Prints a {"kernels": [...]} line (each kernel's launches summed over the
-257^3 runs of phases 4 and 6; bound_ms from the timed call's bytes and
+257^3 runs of phases 4, 6 and 7; bound_ms from the timed call's bytes and
 operations), the card's name and power limit, and as its last line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 there is no CUDA device or any check fails.
 """
 
+import itertools
 import json
 import re
 import statistics
@@ -96,6 +105,16 @@ SOURCES = {
                                         "multigrid_parallel_tpu/ops/pallas_mixed.py:300"),
     "mixed_prolong_smooth_fused": ("multigrid_parallel_tpu_torch/ops/csrc/mixed_prolong_smooth.cu",
                                    "multigrid_parallel_tpu/ops/pallas_mixed.py:320"),
+    "mixed_rb_smooth_fold": ("multigrid_parallel_tpu_torch/ops/csrc/mixed_rb_smooth_fold.cu",
+                             "multigrid_parallel_tpu/ops/pallas_mixed_fold.py:233"),
+    "mixed_rb_smooth_from_zero_fold": ("multigrid_parallel_tpu_torch/ops/csrc/mixed_rb_smooth_fold.cu",
+                                       "multigrid_parallel_tpu/ops/pallas_mixed_fold.py:256"),
+    "residual_restrict_fold": ("multigrid_parallel_tpu_torch/ops/csrc/residual_restrict_fold.cu",
+                               "multigrid_parallel_tpu/ops/pallas_mixed_fold.py:399"),
+    "mixed_prolong_smooth_fold": ("multigrid_parallel_tpu_torch/ops/csrc/mixed_prolong_smooth_fold.cu",
+                                  "multigrid_parallel_tpu/ops/pallas_mixed_fold.py:502"),
+    "residual_df_norm_fold": ("multigrid_parallel_tpu_torch/ops/csrc/residual_df_norm_fold.cu",
+                              "multigrid_parallel_tpu/ops/pallas_mixed_fold.py:744"),
 }
 # f32 operations per stored output point of each kernel as the main path
 # calls it (n_iter = 2), counted from its arithmetic: an RB update is 8
@@ -111,11 +130,14 @@ OPS_PER_POINT = {
     "residual_restrict_split": 14, "prolong_smooth_split": 20, "df_step_split": 84,
     "residual_df_norm_split": 72, "mixed_rb_smooth_fused": 16,
     "mixed_rb_smooth_from_zero_fused": 16, "mixed_prolong_smooth_fused": 20,
+    "mixed_rb_smooth_fold": 16, "mixed_rb_smooth_from_zero_fold": 16,
+    "residual_restrict_fold": 14, "mixed_prolong_smooth_fold": 20, "residual_df_norm_fold": 72,
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores (same sheet)
 ES_LENGTH = 3e-4            # the electrospray cube's side: h = 3e-4 / (n - 1)
 MIXED_DU_TOL = 1e-7         # V: 33^3 electrospray, CPU against card
+FOLD_FULL_RTOL = 1e-7       # of max|u|: 257^3 fold tier against the full tier (tests/test_mixed_fold.py:201)
 FIXED_POINT_TOL = 1e-3      # V: 257^3 tier against the f64-outer solve (tests/test_mixed_bc.py:230)
 # kernels each 257^3 path must launch (every other kernel: no launch)
 _CYCLE = ("rb_smooth_fused", "rb_smooth_from_zero_fused")
@@ -137,7 +159,11 @@ PATH_KERNELS = {
 # outer df_add and BC pass are plain torch, the coarse LU a library call)
 ES_KERNELS = ("mixed_rb_smooth_fused", "mixed_rb_smooth_from_zero_fused",
               "mixed_prolong_smooth_fused", "residual_restrict_fused", "residual_df_norm_fused")
-INTERLEAVED = 9  # split and fused 257^3 solves, each, in phase 5
+# the fold tier: only its own kernels (its outer BC pass and df_add are
+# plain torch, the coarse level's fold <-> full conversions torch copies)
+FOLD_KERNELS = ("mixed_rb_smooth_fold", "mixed_rb_smooth_from_zero_fold", "residual_restrict_fold",
+                "mixed_prolong_smooth_fold", "residual_df_norm_fold")
+INTERLEAVED = 9  # 257^3 solves of each of two paths, in phases 5 and 7
 
 
 def check(cond, msg):
@@ -169,14 +195,14 @@ def time_ms(fn, reps=20):
     return statistics.median(times)
 
 
-def bound(name, n, inputs, outputs):
+def bound(name, points, inputs, outputs):
     """(bound_ms, bound_by): the least time the card could take for one
-    call, the larger of its bytes (each input read once, each output
-    written once) over the memory rate and its operations over the f32
-    rate."""
+    call over ``points`` stored output points, the larger of its bytes
+    (each input read once, each output written once) over the memory rate
+    and its operations over the f32 rate."""
     nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = OPS_PER_POINT[name] * n ** 3 / F32_OPS_PER_S
+    t_ops = OPS_PER_POINT[name] * points / F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -186,12 +212,13 @@ def field_err(got, want):
     return err, tol, bool(torch.equal(got, want))
 
 
-def compare_kernels(pk, ps, pm, es, dev):
+def compare_kernels(pk, ps, pm, pmf, es, dev):
     """Phase 2: each kernel against its plain version at 65^3 and 257^3
-    (the mixed ones with the pin planes of the electrospray problem es)."""
+    (the mixed ones with the pin planes of the electrospray problem es),
+    and K19 at 17^3."""
     results = {name: {"max_abs_err": 0.0} for name in SOURCES}
 
-    def record(name, n, label, got, want, t_kernel=None, t_plain=None, io=None):
+    def record(name, n, label, got, want, t_kernel=None, t_plain=None, io=None, points=None):
         err, tol, exact = field_err(got, want)
         print(f"[kernel] {name:26s} n={n:3d} {label:14s} max_abs_err={err:.3e} "
               f"(tol {tol:.3e}) bitwise_equal={exact}"
@@ -200,7 +227,8 @@ def compare_kernels(pk, ps, pm, es, dev):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
         if t_kernel is not None:
             results[name]["ms"], results[name]["plain_ms"] = t_kernel, t_plain
-            results[name]["bound_ms"], results[name]["bound_by"] = bound(name, n, *io)
+            results[name]["bound_ms"], results[name]["bound_by"] = bound(
+                name, n ** 3 if points is None else points, *io)
 
     for n in (65, 257):
         h = 1.0 / (n - 1)
@@ -394,7 +422,91 @@ def compare_kernels(pk, ps, pm, es, dev):
             record("mixed_prolong_smooth_fused", n, f"n_iter={n_iter}", got,
                    pm.mixed_prolong_smooth_plain(ec, e_bc, r0, pin, h_es, n_iter), *times,
                    io=((ec, e_bc, r0, pin), (got,)))
+
+        # K16-K20 on the same fields packed into the fold layout
+        compare_fold(pm, pmf, es, n, h_es, u, r0, ec, es_state, dev, record, timed=True)
+
+    # K19 where its pin-edge delta is live: 17^3, coarse level 9^3
+    n = 17
+    rng = np.random.default_rng(n)
+    u, f, ec = (torch.from_numpy(rng.standard_normal((m, m, m)).astype(np.float32)).to(dev)
+                for m in (n, n, (n + 1) // 2))
+    inner = torch.zeros((n, n, n), dtype=torch.bool, device=dev)
+    inner[1:-1, 1:-1, 1:-1] = True
+    compare_fold(pm, pmf, es, n, ES_LENGTH / (n - 1), u, torch.where(inner, f, 0 * f), ec,
+                 None, dev, record, timed=False)
     return results
+
+
+def compare_fold(pm, pmf, es, n, h, u, r, ec, es_state, dev, record, timed):
+    """K16-K20 against their plain versions at size n: the fold fields
+    packed from u after a BC pass (the cycle's fields are BC-consistent)
+    and from the zero-boundary r, the coarse correction from ec after the
+    coarse level's BC pass, K19 with the coarse level's sign planes (zero
+    at 33^3 and above in this geometry), K20 on the packed double-float
+    state es_state (skipped when None). Timed at n_iter = 2 when
+    ``timed``."""
+    nc = (n + 1) // 2
+    pin_full = pm.dirichlet_pin_planes(es, n, dev)
+    pin = pmf.pack_fold(pin_full)
+    fe, fr = pmf.pack_fold(pm.apply_bcs_padded(u, pin_full)), pmf.pack_fold(r)
+    fec = pmf.pack_fold(pm.apply_bcs_padded(ec, pm.dirichlet_pin_planes(es, nc, dev)))
+    sgn = pmf.fold_edge_sign_planes(es, nc, dev)
+    points = n * n * (n - 2)
+    check(bool(sgn.any()) == (nc <= 17), f"fold sign planes at {nc}^3: nonzero={bool(sgn.any())}")
+    if not timed:  # the delta check only
+        for n_iter in (1, 2):
+            record("mixed_prolong_smooth_fold", n, f"n_iter={n_iter}_delta",
+                   pmf.mixed_prolong_smooth_fold(fec, fe, fr, pin, sgn, h, n_iter),
+                   pmf.mixed_prolong_smooth_fold_plain(fec, fe, fr, pin, sgn, h, n_iter))
+        return
+    for n_iter in (1, 2):
+        t2 = n_iter == 2  # the main path's n_smooth
+        for red_first in (True, False):
+            times = ()
+            if t2 and red_first:
+                fk = fe.clone()
+                times = (time_ms(lambda: pmf.mixed_rb_smooth_fold(fk, fr, pin, h, 2)),
+                         time_ms(lambda: pmf.mixed_rb_smooth_fold_plain(fe, fr, pin, h, 2)))
+            record("mixed_rb_smooth_fold", n,
+                   f"n_iter={n_iter}_" + ("red_first" if red_first else "black_first"),
+                   pmf.mixed_rb_smooth_fold(fe.clone(), fr, pin, h, n_iter, red_first),
+                   pmf.mixed_rb_smooth_fold_plain(fe, fr, pin, h, n_iter, red_first), *times,
+                   io=((fe, fr, pin), (fe,)), points=points)
+        got = pmf.mixed_rb_smooth_from_zero_fold(fr, pin, h, n_iter)
+        times = ()
+        if t2:
+            times = (time_ms(lambda: pmf.mixed_rb_smooth_from_zero_fold(fr, pin, h, 2)),
+                     time_ms(lambda: pmf.mixed_rb_smooth_from_zero_fold_plain(fr, pin, h, 2)))
+        record("mixed_rb_smooth_from_zero_fold", n, f"n_iter={n_iter}", got,
+               pmf.mixed_rb_smooth_from_zero_fold_plain(fr, pin, h, n_iter), *times,
+               io=((fr, pin), (got,)), points=points)
+        got = pmf.mixed_prolong_smooth_fold(fec, fe, fr, pin, sgn, h, n_iter)
+        times = ()
+        if t2:
+            times = (time_ms(lambda: pmf.mixed_prolong_smooth_fold(fec, fe, fr, pin, sgn, h, 2)),
+                     time_ms(lambda: pmf.mixed_prolong_smooth_fold_plain(fec, fe, fr, pin, sgn,
+                                                                         h, 2)))
+        record("mixed_prolong_smooth_fold", n, f"n_iter={n_iter}", got,
+               pmf.mixed_prolong_smooth_fold_plain(fec, fe, fr, pin, sgn, h, n_iter), *times,
+               io=((fec, fe, fr, pin, sgn), (got,)), points=points)
+    rc = pmf.residual_restrict_fold(fe, fr, h)
+    times = (time_ms(lambda: pmf.residual_restrict_fold(fe, fr, h)),
+             time_ms(lambda: pmf.residual_restrict_fold_plain(fe, fr, h)))
+    record("residual_restrict_fold", n, "", rc, pmf.residual_restrict_fold_plain(fe, fr, h),
+           *times, io=((fe, fr), (rc,)), points=points)
+    state = [pmf.pack_fold(t) for t in es_state]
+    r20, nrm2 = pmf.residual_df_norm_fold(*state, h)
+    r_ref, nrm2_ref = pmf.residual_df_norm_fold_plain(*state, h)
+    rel = abs(float(nrm2) - float(nrm2_ref)) / float(nrm2_ref)
+    print(f"[kernel] residual_df_norm_fold      n={n:3d} norm2={float(nrm2):.9e} "
+          f"plain={float(nrm2_ref):.9e} rel_diff={rel:.3e} (tol {NORM_RTOL:g})")
+    check(rel <= NORM_RTOL, f"residual_df_norm_fold n={n}: norm rel diff {rel}")
+    times = (time_ms(lambda: pmf.residual_df_norm_fold(*state, h)),
+             time_ms(lambda: pmf.residual_df_norm_fold_plain(*state, h)))
+    record("residual_df_norm_fold", n, "r", r20, r_ref, *times, io=(state, (r20, nrm2)),
+           points=points)
+    check(torch.equal(r20, r_ref), f"residual_df_norm_fold n={n}: r not bitwise equal")
 
 
 def device_busy_ms(fn):
@@ -426,9 +538,10 @@ def device_busy_ms(fn):
 
 
 def _launch_modules():
-    from multigrid_parallel_tpu_torch.ops import pallas3d, pallas_mixed, pallas_split
+    from multigrid_parallel_tpu_torch.ops import pallas3d, pallas_mixed, pallas_mixed_fold
+    from multigrid_parallel_tpu_torch.ops import pallas_split
 
-    return pallas3d, pallas_split, pallas_mixed
+    return pallas3d, pallas_split, pallas_mixed, pallas_mixed_fold
 
 
 def reset_launches():
@@ -440,22 +553,31 @@ def read_launches():
     return {name: count for mod in _launch_modules() for name, count in mod.LAUNCHES.items()}
 
 
-def electrospray_257(es, dev, card, launches):
-    """Phase 6: the production electrospray solve at 257^3 on the kernel
-    tier (gamma 2, gamma_min_n 65 = finest / 4, one inner cycle) with the
-    launch counts reset just before and read just after (added into
-    ``launches``); then its wall and device-busy time and its solution
-    against the f64-outer MixedBCSolver.solve_on_device on the card."""
+def es_solver(es, dev):
+    """The production electrospray configuration at 257^3 (docs/MIXED_BC.md
+    section 4): gamma 2, gamma_min_n 65 = finest / 4, n_smooth 2."""
     import multigrid_parallel_tpu_torch as mg
-    from multigrid_parallel_tpu_torch import mixed_padded as mp
     from multigrid_parallel_tpu_torch.mixed_bc import MixedBCSolver
+
+    hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7, length=es.length)
+    return MixedBCSolver(es, hier, n_smooth=2, gamma=2, gamma_min_n=(hier.finest_n - 1) // 4 + 1,
+                         device=dev)
+
+
+def electrospray_257(es, dev, card, launches):
+    """Phase 6: the production electrospray solve at 257^3 on the full
+    kernel tier (one inner cycle) with the launch counts reset just before
+    and read just after (added into ``launches``); then its wall and
+    device-busy time and its solution against the f64-outer
+    MixedBCSolver.solve_on_device on the card. Returns (u, outer steps,
+    solve) for phase 7."""
+    from multigrid_parallel_tpu_torch import mixed_padded as mp
     from multigrid_parallel_tpu_torch.models.electrospray import EXTRACTOR_VOLTAGE
     from multigrid_parallel_tpu_torch.ops import pallas3d as pk
 
-    hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7, length=es.length)
+    solver = es_solver(es, dev)
+    hier = solver.hier
     n = hier.finest_n
-    solver = MixedBCSolver(es, hier, n_smooth=2, gamma=2, gamma_min_n=(n - 1) // 4 + 1,
-                           device=dev)
     run = mp.make_mixed_padded_df_solver(solver, rel_tol=REL_TOL, max_cycles=100,
                                          inner_cycles=1)
     state = mp.setup_mixed_df_problem(solver)
@@ -508,6 +630,84 @@ def electrospray_257(es, dev, card, launches):
           f"f64_wall_s={time.perf_counter() - t0:.3f}")
     check(abs(it - it_ref) <= 1, f"electrospray: {it} outer steps against {it_ref} in f64")
     check(du <= FIXED_POINT_TOL, f"electrospray: tier and f64 solutions differ by {du} V")
+    return u, it, lambda: run(*state)
+
+
+def fold_257(es, dev, card, launches, full):
+    """Phase 7: the production electrospray solve at 257^3 on the fold
+    tier, launch counts reset just before and read just after (added into
+    ``launches``): only K16-K20, the full tier's outer-step count, the
+    full tier's solution (``full``: phase 6's (u, outer steps, solve))
+    within 1e-7 max|u|; then the fold and full walls interleaved and the
+    device-busy time of one traced solve of each."""
+    from multigrid_parallel_tpu_torch import mixed_padded as mp
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed_fold as pmf
+
+    solver = es_solver(es, dev)
+    n = solver.hier.finest_n
+    run = mp.make_mixed_fold_df_solver(solver, rel_tol=REL_TOL, max_cycles=100, inner_cycles=1)
+    state = mp.setup_mixed_fold_df_problem(solver)
+    n0 = float(torch.sqrt(pmf.residual_df_norm_fold(*state, solver.hier.spacing(6))[1]))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run(*state)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = read_launches()
+    u, nrm, it = mp.unpack_mixed_fold_solution(out[0], out[1], solver), float(out[2]), out[3]
+    u_full, it_full, solve_full = full
+    scale = float(u_full.abs().max())
+    du = float((u - u_full).abs().max())
+    print(f"[solve {n}^3 electrospray fold] outer_steps={it} final_norm={nrm:.6e} n0={n0:.6e} "
+          f"rel={nrm / n0:.3e} finite={bool(torch.isfinite(u).all())} shape={tuple(u.shape)} "
+          f"| full tier: outer_steps={it_full} max|u_fold-u_full|={du:.3e} V "
+          f"(tol {FOLD_FULL_RTOL:g} * {scale:g}) first_run_s={first_s:.4f}")
+    print(f"[launches {n}^3 electrospray fold] {json.dumps(counts)}")
+    check(tuple(u.shape) == (n, n, n) and bool(torch.isfinite(u).all()),
+          "fold: solution not finite")
+    check(nrm <= REL_TOL * n0, f"fold not converged: {nrm} > {REL_TOL} * {n0}")
+    check(it == it_full, f"fold: {it} outer steps against the full tier's {it_full}")
+    check(du <= FOLD_FULL_RTOL * scale, f"fold: solution differs from the full tier's by {du} V")
+    for name in SOURCES:
+        check((counts[name] > 0) == (name in FOLD_KERNELS),
+              f"fold: kernel {name} launched {counts[name]} times in the {n}^3 solve")
+        launches[name] += counts[name]
+    interleave({"fold": lambda: run(*state), "full": solve_full}, f"{n}^3 electrospray", card)
+    for label, solve in (("fold", lambda: run(*state)), ("full", solve_full)):
+        busy, n_kernels, by_name = device_busy_ms(solve)
+        busy_s = "not measured" if busy is None else f"{busy:.3f} ms over {n_kernels} kernels"
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        print(f"[device time {n}^3 electrospray {label}] busy={busy_s} | "
+              + "; ".join(f"{name}: {ms:.3f} ms / {count}" for name, (ms, count) in top)
+              + f" | card: {card}")
+
+
+def interleave(solves, what, card):
+    """The walls (host clock) and CUDA-event spans of the two solves in
+    ``solves``, interleaved run by run (alternating which goes first),
+    INTERLEAVED each; prints the medians and the pairs."""
+    a, b = solves
+    walls = {a: [], b: []}
+    spans = {a: [], b: []}
+    for rep in range(INTERLEAVED):
+        for label in (a, b) if rep % 2 == 0 else (b, a):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            solves[label]()
+            end.record()
+            torch.cuda.synchronize()
+            walls[label].append(1e3 * (time.perf_counter() - t0))
+            spans[label].append(start.elapsed_time(end))
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    med_span = {k: statistics.median(v) for k, v in spans.items()}
+    print(f"[interleaved {what} {a} vs {b}] runs={INTERLEAVED} each | wall median ms: "
+          f"{a}={med[a]:.3f} {b}={med[b]:.3f} {a}/{b}={med[a] / med[b]:.3f} | event span "
+          f"median ms: {a}={med_span[a]:.3f} {b}={med_span[b]:.3f} | pairs ({a}, {b}) "
+          f"ms={[(round(x, 3), round(y, 3)) for x, y in zip(walls[a], walls[b])]} | card: {card}")
 
 
 def main():
@@ -525,6 +725,7 @@ def main():
     from multigrid_parallel_tpu_torch.mixed_bc import MixedBCSolver
     from multigrid_parallel_tpu_torch.ops import pallas3d as pk
     from multigrid_parallel_tpu_torch.ops import pallas_mixed as pm
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed_fold as pmf
     from multigrid_parallel_tpu_torch.ops import pallas_split as ps
 
     dev = torch.device("cuda")
@@ -540,7 +741,7 @@ def main():
 
     # 2. kernels against their plain versions
     es = mg.electrospray_problem()
-    results = compare_kernels(pk, ps, pm, es, dev)
+    results = compare_kernels(pk, ps, pm, pmf, es, dev)
 
     cfg = mg.CycleConfig(n_smooth=2)
     prob = mg.poisson_3d_quadratic()
@@ -577,16 +778,22 @@ def main():
         check(small["cpu"][1] == small["cuda"][1], f"33^3 {label}: outer-step count cpu != cuda")
         check(du <= 1e-8, f"33^3 {label}: solutions differ by {du}")
 
-    # 3b. the electrospray tier at 33^3, V- and W-cycles: card against CPU
+    # 3b. the electrospray tiers at 33^3, V- and W-cycles: card against CPU
     es33 = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=4, length=es.length)
-    for label, gamma in (("V", 1), ("W", 2)):
+    tiers = {
+        "": (mp.make_mixed_padded_df_solver, mp.setup_mixed_df_problem,
+             lambda out, solver: mp.unpack_mixed_solution(out[0], out[1], es33)),
+        " fold": (mp.make_mixed_fold_df_solver, mp.setup_mixed_fold_df_problem,
+                  lambda out, solver: mp.unpack_mixed_fold_solution(out[0], out[1], solver)),
+    }
+    for (tier, (make, setup, unpack)), (label, gamma) in itertools.product(
+            tiers.items(), (("V", 1), ("W", 2))):
+        label = f"{label}{tier}"
         small = {}
         for d in ("cpu", "cuda"):
             solver = MixedBCSolver(es, es33, n_smooth=2, gamma=gamma, device=d)
-            run = mp.make_mixed_padded_df_solver(solver, rel_tol=REL_TOL, inner_cycles=1)
-            out = run(*mp.setup_mixed_df_problem(solver))
-            small[d] = (mp.unpack_mixed_solution(out[0], out[1], es33).cpu(), out[3],
-                        float(out[2]))
+            out = make(solver, rel_tol=REL_TOL, inner_cycles=1)(*setup(solver))
+            small[d] = (unpack(out, solver).cpu(), out[3], float(out[2]))
         du = float((small["cpu"][0] - small["cuda"][0]).abs().max())
         print(f"[solve 33^3 electrospray {label}] cpu steps={small['cpu'][1]} "
               f"norm={small['cpu'][2]:.6e} | cuda steps={small['cuda'][1]} "
@@ -656,31 +863,13 @@ def main():
         check(du <= 1e-8, f"{label} and fused solutions differ by {du}")
 
     # 5. split against fused, interleaved run by run (alternating which goes first)
-    walls = {"split": [], "fused": []}
-    spans = {"split": [], "fused": []}
-    for rep in range(INTERLEAVED):
-        for label in ("split", "fused") if rep % 2 == 0 else ("fused", "split"):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            start.record()
-            paths[label][0]()
-            end.record()
-            torch.cuda.synchronize()
-            walls[label].append(1e3 * (time.perf_counter() - t0))
-            spans[label].append(start.elapsed_time(end))
-    med = {k: statistics.median(v) for k, v in walls.items()}
-    med_span = {k: statistics.median(v) for k, v in spans.items()}
-    print(f"[interleaved {n}^3 split vs fused] runs={INTERLEAVED} each | wall median ms: "
-          f"split={med['split']:.3f} fused={med['fused']:.3f} "
-          f"split/fused={med['split'] / med['fused']:.3f} | event span median ms: "
-          f"split={med_span['split']:.3f} fused={med_span['fused']:.3f} | pairs (split, fused) "
-          f"ms={[(round(a, 3), round(b, 3)) for a, b in zip(walls['split'], walls['fused'])]} "
-          f"| card: {card}")
+    interleave({"split": paths["split"][0], "fused": paths["fused"][0]}, f"{n}^3", card)
 
     # 6. the electrospray production solve at 257^3 (docs/MIXED_BC.md section 4)
-    electrospray_257(es, dev, card, launches)
+    full = electrospray_257(es, dev, card, launches)
+
+    # 7. the same solve on the fold tier, held against the full tier's
+    fold_257(es, dev, card, launches, full)
 
     # no single PyTorch call computes any of these stencils: library_ms is null
     kernels = [

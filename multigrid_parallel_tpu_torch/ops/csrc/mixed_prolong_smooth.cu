@@ -47,7 +47,7 @@ __global__ void mixed_prolong_correct_black_kernel(
     out[p] = at(i, j, k);
     return;
   }
-  const float nbr = mg::mixed_nbr_sum(at, pin, i, j, k, n);
+  const float nbr = mg::mixed_nbr_sum(at, mg::full_pins(pin, n), i, j, k, n);
   out[p] = (nbr - h2 * r[p]) * (1.0f / 6.0f);
 }
 

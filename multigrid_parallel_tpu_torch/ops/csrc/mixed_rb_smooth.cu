@@ -32,7 +32,7 @@ __global__ void mixed_half_sweep_kernel(float* __restrict__ u,
   int i, j, k;
   if (!mg::decode(p, n, i, j, k)) return;
   if (!mg::is_interior(i, j, k, n) || ((i + j + k) & 1) != color) return;
-  const float nbr = mg::mixed_nbr_sum(mg::FieldAt{u, n}, pin, i, j, k, n);
+  const float nbr = mg::mixed_nbr_sum(mg::FieldAt{u, n}, mg::full_pins(pin, n), i, j, k, n);
   u[p] = (nbr - h2 * r[p]) * (1.0f / 6.0f);
 }
 
@@ -68,19 +68,16 @@ __device__ inline bool decode_boundary(int q, int n, int& i, int& j, int& k) {
   return false;
 }
 
-__device__ inline int copy_source(int x, int n) {
-  return x == 0 ? 1 : (x == n - 1 ? n - 2 : x);
-}
-
 __global__ void mixed_bc_pass_kernel(float* __restrict__ u,
                                      const float* __restrict__ pin, int n) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   int i, j, k;
   if (!decode_boundary(q, n, i, j, k)) return;
   const int p = (i * n + j) * n + k;
-  u[p] = mg::pinned(pin, i, j, k, n)
+  u[p] = mg::pinned(mg::full_pins(pin, n), i, j, k, n)
              ? 0.0f
-             : u[(copy_source(i, n) * n + copy_source(j, n)) * n + copy_source(k, n)];
+             : u[(mg::copy_source(i, n) * n + mg::copy_source(j, n)) * n +
+                 mg::copy_source(k, n)];
 }
 
 }  // namespace

@@ -50,16 +50,25 @@ __device__ inline float nbr_sum(const float* u, int p, int n) {
   return s;
 }
 
-// Trilinear prolongation (P ec) at fine point (fi, fj, fk) of the coarse
-// (nc, nc, nc) field ec, nc = (n + 1) / 2: j, then k, then i, as the
-// Pallas kernels' MXU bands and i interleave do. An even fine index copies
-// the coincident coarse value, an odd one is 0.5 a + 0.5 b of its two
-// coarse neighbours; every step has at most two non-zero taps with exact
-// 0.5 scalings, so it rounds once whatever the order of the sum. Coarse
-// boundary values take part (zero for Dirichlet corrections, live for
-// the mixed-BC ones). Used by K4 and K15.
-__device__ inline float interp(const float* __restrict__ ec, int nc, int fi,
-                               int fj, int fk) {
+// A plain (n, n, n) field read at grid point (i, j, k).
+struct FieldAt {
+  const float* u;
+  int n;
+  __device__ float operator()(int i, int j, int k) const {
+    return u[(i * n + j) * n + k];
+  }
+};
+
+// Trilinear prolongation (P ec) at fine point (fi, fj, fk) of a coarse
+// field of (n + 1) / 2 points a side, read through `c(ci, cj, ck)`: j,
+// then k, then i, as the Pallas kernels' MXU bands and i interleave do.
+// An even fine index copies the coincident coarse value, an odd one is
+// 0.5 a + 0.5 b of its two coarse neighbours; every step has at most two
+// non-zero taps with exact 0.5 scalings, so it rounds once whatever the
+// order of the sum. Coarse boundary values take part (zero for Dirichlet
+// corrections, live for the mixed-BC ones). Used by K4, K15 and K19.
+template <class CoarseAt>
+__device__ inline float interp_at(const CoarseAt& c, int fi, int fj, int fk) {
   const int ci0 = fi >> 1, cj0 = fj >> 1, ck0 = fk >> 1;
   const bool oi = fi & 1, oj = fj & 1, ok = fk & 1;
   float y2[2];
@@ -70,12 +79,18 @@ __device__ inline float interp(const float* __restrict__ ec, int nc, int fi,
 #pragma unroll
     for (int b = 0; b < 2; ++b) {
       if (b == 1 && !ok) break;
-      const float* col = ec + (ci0 + a) * nc * nc + (ck0 + b);  // stride nc in j
-      y1[b] = oj ? 0.5f * col[cj0 * nc] + 0.5f * col[(cj0 + 1) * nc] : col[cj0 * nc];
+      const int ci = ci0 + a, ck = ck0 + b;
+      y1[b] = oj ? 0.5f * c(ci, cj0, ck) + 0.5f * c(ci, cj0 + 1, ck) : c(ci, cj0, ck);
     }
     y2[a] = ok ? 0.5f * y1[0] + 0.5f * y1[1] : y1[0];
   }
   return oi ? 0.5f * y2[0] + 0.5f * y2[1] : y2[0];
+}
+
+// interp_at of the plain coarse (nc, nc, nc) field ec.
+__device__ inline float interp(const float* __restrict__ ec, int nc, int fi,
+                               int fj, int fk) {
+  return interp_at(FieldAt{ec, nc}, fi, fj, fk);
 }
 
 }  // namespace mg

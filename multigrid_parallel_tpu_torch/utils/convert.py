@@ -2,10 +2,10 @@
 
 The solver has no weights: its state is the fields. The JAX package
 keeps them lane-padded as (n, rup(n, 8), rup(n, 128)) arrays with the
-live cube at [:n, :n, :n] and zeros elsewhere, or as split-colour pairs
-(below); the port keeps plain contiguous (n, n, n) tensors and
-(n, n, (n - 1) // 2) pairs. The mixed-BC solver adds its pin planes and
-its coarse LU factor. Both sides meet as numpy arrays, so neither
+live cube at [:n, :n, :n] and zeros elsewhere, as split-colour pairs or
+as k-fold fields (below); the port keeps plain contiguous (n, n, n)
+tensors, (n, n, (n - 1) // 2) pairs and (n, n, n - 2) fold fields. The
+mixed-BC solver adds its pin planes and its coarse LU factor. Both sides meet as numpy arrays, so neither
 package imports the other.
 """
 
@@ -82,6 +82,48 @@ def from_jax_pin_planes(pin, n: int, device="cuda") -> torch.Tensor:
     if a.shape != want:
         raise ValueError(f"expected shape {want}, got {a.shape}")
     return torch.from_numpy(np.array(a[:, :n, :n])).to(device)
+
+
+# k-fold fields (ops.pallas_mixed_fold): the JAX package keeps them as
+# (n, rup(n, 8), rup(n - 2, 128)) with the live slots at [:, :n, :n - 2];
+# the port as (n, n, n - 2). Its fold pin and sign planes are
+# (2, rup(n, 8), rup(n - 2, 128)); the port's (2, n, n - 2).
+
+
+def jax_fold_shape(n: int):
+    """The JAX package's k-fold layout of an n^3 field."""
+    return (n, _rup(n, 8), _rup(n - 2, 128))
+
+
+def from_jax_fold(x, n: int, device="cuda") -> torch.Tensor:
+    """The JAX package's fold field (numpy or anything np.asarray takes)
+    -> the port's contiguous (n, n, n - 2) tensor on ``device``."""
+    a = np.asarray(x)
+    if a.shape != jax_fold_shape(n):
+        raise ValueError(f"expected shape {jax_fold_shape(n)}, got {a.shape}")
+    return torch.from_numpy(np.array(a[:, :n, : n - 2])).to(device)
+
+
+def to_jax_fold(x: torch.Tensor, n: int) -> np.ndarray:
+    """The port's (n, n, n - 2) fold field -> zero-padded numpy array in
+    the JAX package's fold layout."""
+    if tuple(x.shape) != (n, n, n - 2):
+        raise ValueError(f"expected an {(n, n, n - 2)} fold field, got {tuple(x.shape)}")
+    a = x.detach().cpu().numpy()
+    out = np.zeros(jax_fold_shape(n), dtype=a.dtype)
+    out[:, :n, : n - 2] = a
+    return out
+
+
+def from_jax_fold_planes(planes, n: int, device="cuda") -> torch.Tensor:
+    """The JAX package's fold pin or sign planes
+    (``pallas_mixed_fold.fold_pin_planes`` / ``fold_edge_sign_planes``)
+    -> the port's (2, n, n - 2) tensor on ``device``."""
+    a = np.asarray(planes)
+    want = (2,) + jax_fold_shape(n)[1:]
+    if a.shape != want:
+        raise ValueError(f"expected shape {want}, got {a.shape}")
+    return torch.from_numpy(np.array(a[:, :n, : n - 2])).to(device)
 
 
 def from_jax_coarse_lu(lu, piv):

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, the
 double-float solve on the card against the same solve on the CPU, the
 split-colour solve (K7-K12 on the finest level) against the fused rect
-one, and the electrospray tier (K13-K15 with K3 and K5) on the card
-against the CPU.
+one, and the electrospray tiers (full: K13-K15 with K3 and K5; k-fold:
+K16-K20) on the card against the CPU.
 
 These need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 themselves where there is none. The file imports no jax, so on a machine
@@ -22,6 +22,7 @@ from multigrid_parallel_tpu_torch import mixed_padded as tmp
 from multigrid_parallel_tpu_torch.mixed_bc import MixedBCSolver
 from multigrid_parallel_tpu_torch.ops import pallas3d as tpk
 from multigrid_parallel_tpu_torch.ops import pallas_mixed as tpm
+from multigrid_parallel_tpu_torch.ops import pallas_mixed_fold as tpmf
 from multigrid_parallel_tpu_torch.ops import pallas_split as tps
 
 torch.set_num_threads(1)
@@ -345,3 +346,94 @@ def test_mixed_tier_on_card_matches_cpu(cuda, gamma):
     assert all(tpk.LAUNCHES[k] == 0 for k in ("rb_smooth_fused", "rb_smooth_from_zero_fused",
                                                "residual_fused", "prolong_smooth_fused",
                                                "df_step_residual_norm_fused"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 65])
+def test_fold_kernels_match_plain_on_card(cuda, n):
+    """K16-K20 at the electrospray's h, with its pin planes and a random
+    x-face mask, on fold fields packed from BC-consistent cubes; K19 with
+    the coarse level's sign planes (the pin-edge delta live at 17^3,
+    whose coarse level is 9^3). The fold plain versions read only what
+    the kernels read, so fields are expected bitwise equal."""
+    h = 3e-4 / (n - 1)
+    nc = (n + 1) // 2
+    prob = tmg.electrospray_problem()
+    e, r = _fields32(20, n, cuda)
+    r = tpmf.pack_fold(torch.where(_interior(n, cuda), r, torch.zeros_like(r)))
+    ec = tpmf.pack_fold(tpm.apply_bcs_padded(_fields32(21, nc, cuda)[0],
+                                             _electrospray_pins(nc, cuda)))
+    sgn_c = tpmf.fold_edge_sign_planes(prob, nc, cuda)
+    assert bool(sgn_c.any()) == (n == 17)
+    rng = np.random.default_rng(22)
+    random_pin = torch.from_numpy((rng.random((2, n, n)) < 0.3).astype(np.float32)).to(cuda)
+    tpmf.reset_launches()
+    for pin_full in (_electrospray_pins(n, cuda), random_pin):
+        pin = tpmf.pack_fold(pin_full)
+        fe = tpmf.pack_fold(tpm.apply_bcs_padded(e, pin_full))
+        for n_iter in (1, 2):
+            for red_first in (True, False):
+                want = tpmf.mixed_rb_smooth_fold_plain(fe, r, pin, h, n_iter, red_first)
+                got = tpmf.mixed_rb_smooth_fold(fe.clone(), r, pin, h, n_iter, red_first)
+                assert torch.equal(got, want)
+            assert torch.equal(tpmf.mixed_rb_smooth_from_zero_fold(r, pin, h, n_iter),
+                               tpmf.mixed_rb_smooth_from_zero_fold_plain(r, pin, h, n_iter))
+            e0 = fe.clone()
+            got = tpmf.mixed_prolong_smooth_fold(ec, fe, r, pin, sgn_c, h, n_iter)
+            assert torch.equal(fe, e0)  # fresh output, e untouched
+            assert torch.equal(got, tpmf.mixed_prolong_smooth_fold_plain(ec, fe, r, pin, sgn_c,
+                                                                         h, n_iter))
+        got = tpmf.residual_restrict_fold(fe, r, h)
+        assert got.shape == (nc, nc, nc - 2)
+        assert _ulps(got, tpmf.residual_restrict_fold_plain(fe, r, h))
+    x = np.linspace(0.0, 1.0, n)[:, None, None]
+    state = [tpmf.pack_fold(t.to(cuda))
+             for a in (-1350.0 * x * x + 1e-3 * rng.standard_normal((n, n, n)),
+                       1e3 * rng.standard_normal((n, n, n)))
+             for t in tpk.df_split(torch.from_numpy(a))]
+    r20, nrm20 = tpmf.residual_df_norm_fold(*state, h)
+    r_ref, nrm_ref = tpmf.residual_df_norm_fold_plain(*state, h)
+    assert torch.equal(r20, r_ref)
+    assert float(nrm20) == pytest.approx(float(nrm_ref), rel=1e-5)
+    # per pin, n_iter 1 and 2: K16 2 orders x (2 n_iter + 1); K17 and K19 2 n_iter + 1
+    assert tpmf.LAUNCHES == {"mixed_rb_smooth_fold": 2 * 2 * (3 + 5),
+                             "mixed_rb_smooth_from_zero_fold": 2 * (3 + 5),
+                             "residual_restrict_fold": 2,
+                             "mixed_prolong_smooth_fold": 2 * (3 + 5),
+                             "residual_df_norm_fold": 1}
+
+
+@pytest.mark.cuda
+def test_fold_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    e = torch.zeros((9, 9, 7), device=cuda)
+    pin = torch.zeros((2, 9, 7), device=cuda)
+    with pytest.raises(TypeError):
+        tpmf.mixed_rb_smooth_from_zero_fold(e.double(), pin.double(), 0.125, 1)
+    with pytest.raises(ValueError):
+        tpmf.residual_restrict_fold(e.transpose(0, 1), e, 0.125)
+    with pytest.raises(ValueError):
+        tpmf.mixed_rb_smooth_fold(e, e, pin.cpu(), 0.125, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [1, 2], ids=["V", "W"])
+def test_fold_tier_on_card_matches_cpu(cuda, gamma):
+    """The electrospray fold tier at 33^3 on the card (K16-K20) against the
+    same tier on the CPU (plain versions): same outer steps, within 1e-7 V;
+    the card launches only the fold kernels."""
+    prob = tmg.electrospray_problem()
+    hier = tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=4, length=prob.length)
+    out = {}
+    for dev in ("cpu", cuda):
+        s = MixedBCSolver(prob, hier, n_smooth=2, gamma=gamma, device=dev)
+        for mod in (tpk, tpm, tpmf):
+            mod.reset_launches()
+        hi, lo, nrm, it = tmp.make_mixed_fold_df_solver(s, inner_cycles=1)(
+            *tmp.setup_mixed_fold_df_problem(s))
+        out[str(dev)] = (tmp.unpack_mixed_fold_solution(hi, lo, s).cpu(), it)
+    assert out["cpu"][1] == out["cuda"][1]
+    assert float((out["cpu"][0] - out["cuda"][0]).abs().max()) <= 1e-7
+    # K16 runs only where a correction is revisited: W-cycles (inner_cycles 1)
+    assert (tpmf.LAUNCHES["mixed_rb_smooth_fold"] > 0) == (gamma > 1)
+    assert all(tpmf.LAUNCHES[k] > 0 for k in tpmf.KERNELS if k != "mixed_rb_smooth_fold")
+    assert not any(tpk.LAUNCHES.values()) and not any(tpm.LAUNCHES.values())

@@ -116,6 +116,8 @@ def test_package_does_not_import_jax():
         "import multigrid_parallel_tpu_torch.ops.pallas_mixed as pm\n"
         "assert mb.MixedBCSolver and mp.make_mixed_padded_df_solver\n"
         "assert pm.mixed_prolong_smooth_fused\n"
+        "import multigrid_parallel_tpu_torch.ops.pallas_mixed_fold as pmf\n"
+        "assert mp.make_mixed_fold_df_solver and pmf.mixed_prolong_smooth_fold\n"
         "import multigrid_parallel_tpu_torch.utils.convert\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'multigrid_parallel_tpu' not in sys.modules\n"
