@@ -15,9 +15,11 @@ split-colour solver (the finest level on red / black pairs: K7-K12; the
 levels below on the fused cycle: K1-K4). And the electrospray mixed-BC
 solve at 257^3 in its production configuration (docs/MIXED_BC.md section
 4: W-cycles capped at 65^3, one inner cycle per outer step, to 1e-8 of
-the initial residual) on the fused-kernel tier (K13-K15, K3, K5) and on
+the initial residual) on the fused-kernel tier (K13-K15, K3, K5), on
 the k-fold tier (the same solve in the (n, n, n - 2) fold layout:
-K16-K20). Phases, each of which fails the run:
+K16-K20) and on the split-colour tier (the finest level on red / black
+pairs: K22-K25, and K21 where a cycle starts from a correction; the
+levels below on the fold cycle). Phases, each of which fails the run:
 
   1. build the hand-written CUDA kernels from ops/csrc (one nvcc per
      source, all started together; sm_90a);
@@ -25,13 +27,16 @@ K16-K20). Phases, each of which fails the run:
      65^3 and 257^3 (numpy-seeded inputs; the split kernels on pairs
      packed from zero-boundary cubes; K13-K15, and K3 and K5 once more,
      at the electrospray's h = 3e-4 / (n - 1) with its pin planes; the
-     fold kernels K16-K20 on the same fields packed into the fold layout,
-     and K19 once more at 17^3, where its pin-edge delta is live) and
-     time both (CUDA events, median of 20);
+     fold kernels K16-K20 on the same fields packed into the fold layout
+     and K21-K25 on them packed into pairs, and K19 and K24 once more at
+     17^3, where the pin-edge delta is live) and time both (CUDA events,
+     median of 20);
   3. solve 33^3 on the CPU (plain versions) and on the card (kernels),
      unfused, fused, fused with FMG and split: same outer-step count,
-     solutions within 1e-8; the electrospray full and fold tiers at 33^3,
-     V and W: same count, within 1e-7 V;
+     solutions within 1e-8; the electrospray full, fold and split tiers
+     at 33^3, V and W, and the split tier with two inner cycles (K21
+     launched; its card solves' launches counted): same count, within
+     1e-7 V;
   4. solve 257^3 on each Dirichlet path with every launch count reset
      just before and read just after, then check the outer-step count,
      the final relative residual, the error against the analytic solution
@@ -48,16 +53,21 @@ K16-K20). Phases, each of which fails the run:
      read around it: only K16-K20 launched, the full tier's outer-step
      count, max|u_fold - u_full| <= 1e-7 max|u|; then the fold and full
      walls interleaved run by run (9 each) and the device-busy time of
-     one traced solve of each.
+     one traced solve of each;
+  8. the same solve on the split tier, launches reset and read around
+     it: only K22-K25 and K16-K19 launched, the fold tier's outer-step
+     count, converged to 1e-8 of its initial norm, max|u_msplit -
+     u_fold| <= 1e-7 max|u|; then the split and fold walls interleaved
+     and the device-busy time of one traced solve of each.
 
 Prints a {"kernels": [...]} line (each kernel's launches summed over the
-257^3 runs of phases 4, 6 and 7; bound_ms from the timed call's bytes and
-operations), the card's name and power limit, and as its last line
+257^3 runs of phases 4, 6, 7 and 8 and the split tier's 33^3 card solves
+of phase 3; bound_ms from the timed call's bytes and operations), the
+card's name and power limit, and as its last line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 there is no CUDA device or any check fails.
 """
 
-import itertools
 import json
 import re
 import statistics
@@ -115,6 +125,16 @@ SOURCES = {
                                   "multigrid_parallel_tpu/ops/pallas_mixed_fold.py:502"),
     "residual_df_norm_fold": ("multigrid_parallel_tpu_torch/ops/csrc/residual_df_norm_fold.cu",
                               "multigrid_parallel_tpu/ops/pallas_mixed_fold.py:744"),
+    "mixed_rb_smooth_msplit": ("multigrid_parallel_tpu_torch/ops/csrc/mixed_rb_smooth_msplit.cu",
+                               "multigrid_parallel_tpu/ops/pallas_mixed_split.py:448"),
+    "mixed_rb_smooth_from_zero_msplit": ("multigrid_parallel_tpu_torch/ops/csrc/mixed_rb_smooth_msplit.cu",
+                                         "multigrid_parallel_tpu/ops/pallas_mixed_split.py:479"),
+    "residual_restrict_msplit": ("multigrid_parallel_tpu_torch/ops/csrc/residual_restrict_msplit.cu",
+                                 "multigrid_parallel_tpu/ops/pallas_mixed_split.py:615"),
+    "mixed_prolong_smooth_msplit": ("multigrid_parallel_tpu_torch/ops/csrc/mixed_prolong_smooth_msplit.cu",
+                                    "multigrid_parallel_tpu/ops/pallas_mixed_split.py:831"),
+    "residual_df_norm_msplit": ("multigrid_parallel_tpu_torch/ops/csrc/residual_df_norm_msplit.cu",
+                                "multigrid_parallel_tpu/ops/pallas_mixed_split.py:922"),
 }
 # f32 operations per stored output point of each kernel as the main path
 # calls it (n_iter = 2), counted from its arithmetic: an RB update is 8
@@ -132,6 +152,9 @@ OPS_PER_POINT = {
     "mixed_rb_smooth_from_zero_fused": 16, "mixed_prolong_smooth_fused": 20,
     "mixed_rb_smooth_fold": 16, "mixed_rb_smooth_from_zero_fold": 16,
     "residual_restrict_fold": 14, "mixed_prolong_smooth_fold": 20, "residual_df_norm_fold": 72,
+    "mixed_rb_smooth_msplit": 16, "mixed_rb_smooth_from_zero_msplit": 16,
+    "residual_restrict_msplit": 14, "mixed_prolong_smooth_msplit": 20,
+    "residual_df_norm_msplit": 72,
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores (same sheet)
@@ -163,7 +186,12 @@ ES_KERNELS = ("mixed_rb_smooth_fused", "mixed_rb_smooth_from_zero_fused",
 # plain torch, the coarse level's fold <-> full conversions torch copies)
 FOLD_KERNELS = ("mixed_rb_smooth_fold", "mixed_rb_smooth_from_zero_fold", "residual_restrict_fold",
                 "mixed_prolong_smooth_fold", "residual_df_norm_fold")
-INTERLEAVED = 9  # 257^3 solves of each of two paths, in phases 5 and 7
+# the split tier at 257^3 with one inner cycle: every finest-level cycle
+# starts from zero (K22, no K21), the levels below on the fold cycle (its
+# outer residual is K25, not K20)
+MSPLIT_KERNELS = ("mixed_rb_smooth_from_zero_msplit", "residual_restrict_msplit",
+                  "mixed_prolong_smooth_msplit", "residual_df_norm_msplit") + FOLD_KERNELS[:4]
+INTERLEAVED = 9  # 257^3 solves of each of two paths, in phases 5, 7 and 8
 
 
 def check(cond, msg):
@@ -212,10 +240,10 @@ def field_err(got, want):
     return err, tol, bool(torch.equal(got, want))
 
 
-def compare_kernels(pk, ps, pm, pmf, es, dev):
+def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
     """Phase 2: each kernel against its plain version at 65^3 and 257^3
     (the mixed ones with the pin planes of the electrospray problem es),
-    and K19 at 17^3."""
+    and K19 and K24 at 17^3."""
     results = {name: {"max_abs_err": 0.0} for name in SOURCES}
 
     def record(name, n, label, got, want, t_kernel=None, t_plain=None, io=None, points=None):
@@ -423,18 +451,22 @@ def compare_kernels(pk, ps, pm, pmf, es, dev):
                    pm.mixed_prolong_smooth_plain(ec, e_bc, r0, pin, h_es, n_iter), *times,
                    io=((ec, e_bc, r0, pin), (got,)))
 
-        # K16-K20 on the same fields packed into the fold layout
+        # K16-K20 on the same fields packed into the fold layout, K21-K25
+        # packed into pairs
         compare_fold(pm, pmf, es, n, h_es, u, r0, ec, es_state, dev, record, timed=True)
+        compare_msplit(pm, pmf, pms, ps, es, n, h_es, u, r0, ec, es_state, dev, record,
+                       timed=True)
 
-    # K19 where its pin-edge delta is live: 17^3, coarse level 9^3
+    # K19 and K24 where the pin-edge delta is live: 17^3, coarse level 9^3
     n = 17
     rng = np.random.default_rng(n)
     u, f, ec = (torch.from_numpy(rng.standard_normal((m, m, m)).astype(np.float32)).to(dev)
                 for m in (n, n, (n + 1) // 2))
     inner = torch.zeros((n, n, n), dtype=torch.bool, device=dev)
     inner[1:-1, 1:-1, 1:-1] = True
-    compare_fold(pm, pmf, es, n, ES_LENGTH / (n - 1), u, torch.where(inner, f, 0 * f), ec,
-                 None, dev, record, timed=False)
+    h, r = ES_LENGTH / (n - 1), torch.where(inner, f, 0 * f)
+    compare_fold(pm, pmf, es, n, h, u, r, ec, None, dev, record, timed=False)
+    compare_msplit(pm, pmf, pms, ps, es, n, h, u, r, ec, None, dev, record, timed=False)
     return results
 
 
@@ -509,6 +541,82 @@ def compare_fold(pm, pmf, es, n, h, u, r, ec, es_state, dev, record, timed):
     check(torch.equal(r20, r_ref), f"residual_df_norm_fold n={n}: r not bitwise equal")
 
 
+def compare_msplit(pm, pmf, pms, ps, es, n, h, u, r, ec, es_state, dev, record, timed):
+    """K21-K25 against their plain versions at size n, on the fields of
+    compare_fold packed into pairs (the cycle's pairs are BC-consistent,
+    their dead slots 0), with the electrospray's pin packs and the coarse
+    level's fold correction and sign planes; K25 on the packed
+    double-float state es_state. Only K24 when not ``timed`` (17^3, the
+    delta check); else timed at n_iter = 2."""
+    nc = (n + 1) // 2
+    packs = pms.msplit_pin_packs(es, n, dev)
+    e2 = ps.pack_split(pm.apply_bcs_padded(u, pm.dirichlet_pin_planes(es, n, dev)))
+    r2 = ps.pack_split(r)
+    fec = pmf.pack_fold(pm.apply_bcs_padded(ec, pm.dirichlet_pin_planes(es, nc, dev)))
+    sgn = pmf.fold_edge_sign_planes(es, nc, dev)
+    points = 2 * n * n * ps.split_shape(n)[2]
+
+    def record_pair(name, label, got, want, times=(), io=None):
+        for colour, g, w in zip(("red", "black"), got, want):
+            record(name, n, f"{label}{colour}", g, w, *(times if colour == "black" else ()),
+                   io=io, points=points)
+
+    for n_iter in (1, 2):
+        t2 = timed and n_iter == 2  # the main path's n_smooth
+        times = ()
+        if t2:
+            times = (time_ms(lambda: pms.mixed_prolong_smooth_msplit(fec, *e2, *r2, packs, sgn, h,
+                                                                     2)),
+                     time_ms(lambda: pms.mixed_prolong_smooth_msplit_plain(fec, *e2, *r2, packs,
+                                                                           sgn, h, 2)))
+        got = pms.mixed_prolong_smooth_msplit(fec, *e2, *r2, packs, sgn, h, n_iter)
+        record_pair("mixed_prolong_smooth_msplit",
+                    f"n_iter={n_iter}_" + ("" if timed else "delta_"), got,
+                    pms.mixed_prolong_smooth_msplit_plain(fec, *e2, *r2, packs, sgn, h, n_iter),
+                    times, io=((fec, *e2, *r2, packs, sgn), got))
+        if not timed:
+            continue
+        for red_first in (True, False):
+            times = ()
+            if t2 and red_first:
+                ek = tuple(x.clone() for x in e2)
+                times = (time_ms(lambda: pms.mixed_rb_smooth_msplit(*ek, *r2, packs, h, 2)),
+                         time_ms(lambda: pms.mixed_rb_smooth_msplit_plain(*e2, *r2, packs, h, 2)))
+            record_pair("mixed_rb_smooth_msplit",
+                        f"n_iter={n_iter}_" + ("red_first_" if red_first else "black_first_"),
+                        pms.mixed_rb_smooth_msplit(*(x.clone() for x in e2), *r2, packs, h,
+                                                   n_iter, red_first),
+                        pms.mixed_rb_smooth_msplit_plain(*e2, *r2, packs, h, n_iter, red_first),
+                        times, io=((*e2, *r2, packs), e2))
+        got = pms.mixed_rb_smooth_from_zero_msplit(*r2, packs, h, n_iter)
+        times = ()
+        if t2:
+            times = (time_ms(lambda: pms.mixed_rb_smooth_from_zero_msplit(*r2, packs, h, 2)),
+                     time_ms(lambda: pms.mixed_rb_smooth_from_zero_msplit_plain(*r2, packs, h,
+                                                                                2)))
+        record_pair("mixed_rb_smooth_from_zero_msplit", f"n_iter={n_iter}_", got,
+                    pms.mixed_rb_smooth_from_zero_msplit_plain(*r2, packs, h, n_iter), times,
+                    io=((*r2, packs), got))
+    if not timed:
+        return
+    rc = pms.residual_restrict_msplit(*e2, *r2, h)
+    times = (time_ms(lambda: pms.residual_restrict_msplit(*e2, *r2, h)),
+             time_ms(lambda: pms.residual_restrict_msplit_plain(*e2, *r2, h)))
+    record("residual_restrict_msplit", n, "", rc, pms.residual_restrict_msplit_plain(*e2, *r2, h),
+           *times, io=((*e2, *r2), (rc,)), points=points)
+    state = [x for t in es_state for x in ps.pack_split(t)]
+    got, want = pms.residual_df_norm_msplit(*state, h), pms.residual_df_norm_msplit_plain(*state, h)
+    rel = abs(float(got[2]) - float(want[2])) / float(want[2])
+    print(f"[kernel] residual_df_norm_msplit    n={n:3d} norm2={float(got[2]):.9e} "
+          f"plain={float(want[2]):.9e} rel_diff={rel:.3e} (tol {NORM_RTOL:g})")
+    check(rel <= NORM_RTOL, f"residual_df_norm_msplit n={n}: norm rel diff {rel}")
+    check(all(torch.equal(g, w) for g, w in zip(got[:2], want[:2])),
+          f"residual_df_norm_msplit n={n}: r not bitwise equal")
+    times = (time_ms(lambda: pms.residual_df_norm_msplit(*state, h)),
+             time_ms(lambda: pms.residual_df_norm_msplit_plain(*state, h)))
+    record_pair("residual_df_norm_msplit", "r_", got[:2], want[:2], times, io=(state, got))
+
+
 def device_busy_ms(fn):
     """(busy ms, kernels, by_name): the union of the device's kernel
     intervals over one call of fn, from a torch.profiler trace, and each
@@ -539,9 +647,9 @@ def device_busy_ms(fn):
 
 def _launch_modules():
     from multigrid_parallel_tpu_torch.ops import pallas3d, pallas_mixed, pallas_mixed_fold
-    from multigrid_parallel_tpu_torch.ops import pallas_split
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed_split, pallas_split
 
-    return pallas3d, pallas_split, pallas_mixed, pallas_mixed_fold
+    return pallas3d, pallas_split, pallas_mixed, pallas_mixed_fold, pallas_mixed_split
 
 
 def reset_launches():
@@ -647,7 +755,7 @@ def fold_257(es, dev, card, launches, full):
     n = solver.hier.finest_n
     run = mp.make_mixed_fold_df_solver(solver, rel_tol=REL_TOL, max_cycles=100, inner_cycles=1)
     state = mp.setup_mixed_fold_df_problem(solver)
-    n0 = float(torch.sqrt(pmf.residual_df_norm_fold(*state, solver.hier.spacing(6))[1]))
+    n0 = float(torch.sqrt(pmf.residual_df_norm_fold(*state, solver.hier.spacing(solver.hier.num_levels - 1))[1]))
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -673,14 +781,68 @@ def fold_257(es, dev, card, launches, full):
         check((counts[name] > 0) == (name in FOLD_KERNELS),
               f"fold: kernel {name} launched {counts[name]} times in the {n}^3 solve")
         launches[name] += counts[name]
-    interleave({"fold": lambda: run(*state), "full": solve_full}, f"{n}^3 electrospray", card)
-    for label, solve in (("fold", lambda: run(*state)), ("full", solve_full)):
+    solve = lambda: run(*state)  # noqa: E731
+    interleave({"fold": solve, "full": solve_full}, f"{n}^3 electrospray", card)
+    print_device_time({"fold": solve, "full": solve_full}, f"{n}^3 electrospray", card)
+    return u, it, solve
+
+
+def print_device_time(solves, what, card):
+    """The device-busy time and the top kernels of one traced run of each
+    solve in ``solves``."""
+    for label, solve in solves.items():
         busy, n_kernels, by_name = device_busy_ms(solve)
         busy_s = "not measured" if busy is None else f"{busy:.3f} ms over {n_kernels} kernels"
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-        print(f"[device time {n}^3 electrospray {label}] busy={busy_s} | "
+        print(f"[device time {what} {label}] busy={busy_s} | "
               + "; ".join(f"{name}: {ms:.3f} ms / {count}" for name, (ms, count) in top)
               + f" | card: {card}")
+
+
+def msplit_257(es, dev, card, launches, fold):
+    """Phase 8: the production electrospray solve at 257^3 on the split
+    tier, launch counts reset just before and read just after (added into
+    ``launches``): only K22-K25 and K16-K19, the fold tier's outer-step
+    count, converged to 1e-8 of its initial norm, the fold tier's solution
+    (``fold``: phase 7's (u, outer steps, solve)) within 1e-7 max|u|; then
+    the split and fold walls interleaved and the device-busy time of one
+    traced solve of each."""
+    from multigrid_parallel_tpu_torch import mixed_padded as mp
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed_split as pms
+
+    solver = es_solver(es, dev)
+    n = solver.hier.finest_n
+    run = mp.make_mixed_split_df_solver(solver, rel_tol=REL_TOL, max_cycles=100, inner_cycles=1)
+    state = mp.setup_mixed_split_df_problem(solver)
+    n0 = float(torch.sqrt(pms.residual_df_norm_msplit(*state, solver.hier.spacing(solver.hier.num_levels - 1))[2]))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run(*state)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = read_launches()
+    u, nrm, it = mp.unpack_mixed_split_solution(*out[:4], solver), float(out[4]), out[5]
+    u_fold, it_fold, solve_fold = fold
+    scale = float(u_fold.abs().max())
+    du = float((u - u_fold).abs().max())
+    print(f"[solve {n}^3 electrospray msplit] outer_steps={it} final_norm={nrm:.6e} n0={n0:.6e} "
+          f"rel={nrm / n0:.3e} finite={bool(torch.isfinite(u).all())} shape={tuple(u.shape)} "
+          f"| fold tier: outer_steps={it_fold} max|u_msplit-u_fold|={du:.3e} V "
+          f"(tol {FOLD_FULL_RTOL:g} * {scale:g}) first_run_s={first_s:.4f}")
+    print(f"[launches {n}^3 electrospray msplit] {json.dumps(counts)}")
+    check(tuple(u.shape) == (n, n, n) and bool(torch.isfinite(u).all()),
+          "msplit: solution not finite")
+    check(nrm <= REL_TOL * n0, f"msplit not converged: {nrm} > {REL_TOL} * {n0}")
+    check(it == it_fold, f"msplit: {it} outer steps against the fold tier's {it_fold}")
+    check(du <= FOLD_FULL_RTOL * scale, f"msplit: solution differs from the fold tier's by {du} V")
+    for name in SOURCES:
+        check((counts[name] > 0) == (name in MSPLIT_KERNELS),
+              f"msplit: kernel {name} launched {counts[name]} times in the {n}^3 solve")
+        launches[name] += counts[name]
+    solve = lambda: run(*state)  # noqa: E731
+    interleave({"msplit": solve, "fold": solve_fold}, f"{n}^3 electrospray", card)
+    print_device_time({"msplit": solve, "fold": solve_fold}, f"{n}^3 electrospray", card)
 
 
 def interleave(solves, what, card):
@@ -726,6 +888,7 @@ def main():
     from multigrid_parallel_tpu_torch.ops import pallas3d as pk
     from multigrid_parallel_tpu_torch.ops import pallas_mixed as pm
     from multigrid_parallel_tpu_torch.ops import pallas_mixed_fold as pmf
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed_split as pms
     from multigrid_parallel_tpu_torch.ops import pallas_split as ps
 
     dev = torch.device("cuda")
@@ -741,7 +904,7 @@ def main():
 
     # 2. kernels against their plain versions
     es = mg.electrospray_problem()
-    results = compare_kernels(pk, ps, pm, pmf, es, dev)
+    results = compare_kernels(pk, ps, pm, pmf, pms, es, dev)
 
     cfg = mg.CycleConfig(n_smooth=2)
     prob = mg.poisson_3d_quadratic()
@@ -778,29 +941,48 @@ def main():
         check(small["cpu"][1] == small["cuda"][1], f"33^3 {label}: outer-step count cpu != cuda")
         check(du <= 1e-8, f"33^3 {label}: solutions differ by {du}")
 
-    # 3b. the electrospray tiers at 33^3, V- and W-cycles: card against CPU
+    # 3b. the electrospray tiers at 33^3, V- and W-cycles (the split tier
+    # also with two inner cycles, whose second finest-level cycle runs K21):
+    # card against CPU. The split tier's card solves are paths of their
+    # own: launch counts reset just before, read just after.
+    launches = dict.fromkeys(SOURCES, 0)
     es33 = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=4, length=es.length)
     tiers = {
         "": (mp.make_mixed_padded_df_solver, mp.setup_mixed_df_problem,
              lambda out, solver: mp.unpack_mixed_solution(out[0], out[1], es33)),
         " fold": (mp.make_mixed_fold_df_solver, mp.setup_mixed_fold_df_problem,
                   lambda out, solver: mp.unpack_mixed_fold_solution(out[0], out[1], solver)),
+        " msplit": (mp.make_mixed_split_df_solver, mp.setup_mixed_split_df_problem,
+                    lambda out, solver: mp.unpack_mixed_split_solution(*out[:4], solver)),
     }
-    for (tier, (make, setup, unpack)), (label, gamma) in itertools.product(
-            tiers.items(), (("V", 1), ("W", 2))):
-        label = f"{label}{tier}"
-        small = {}
-        for d in ("cpu", "cuda"):
-            solver = MixedBCSolver(es, es33, n_smooth=2, gamma=gamma, device=d)
-            out = make(solver, rel_tol=REL_TOL, inner_cycles=1)(*setup(solver))
-            small[d] = (unpack(out, solver).cpu(), out[3], float(out[2]))
-        du = float((small["cpu"][0] - small["cuda"][0]).abs().max())
-        print(f"[solve 33^3 electrospray {label}] cpu steps={small['cpu'][1]} "
-              f"norm={small['cpu'][2]:.6e} | cuda steps={small['cuda'][1]} "
-              f"norm={small['cuda'][2]:.6e} | max|du|={du:.3e} V (tol {MIXED_DU_TOL:g})")
-        check(small["cpu"][1] == small["cuda"][1],
-              f"33^3 electrospray {label}: outer-step count cpu != cuda")
-        check(du <= MIXED_DU_TOL, f"33^3 electrospray {label}: solutions differ by {du} V")
+    cycles = (("V", 1, 1), ("W", 2, 1))
+    for tier, (make, setup, unpack) in tiers.items():
+        for label, gamma, inner_cycles in cycles + ((("V_inner2", 1, 2),) if tier == " msplit"
+                                                   else ()):
+            label = f"{label}{tier}"
+            small = {}
+            for d in ("cpu", "cuda"):
+                solver = MixedBCSolver(es, es33, n_smooth=2, gamma=gamma, device=d)
+                run, state = make(solver, rel_tol=REL_TOL, inner_cycles=inner_cycles), setup(solver)
+                torch.cuda.synchronize()
+                reset_launches()
+                out = run(*state)
+                torch.cuda.synchronize()
+                counts = read_launches()
+                small[d] = (unpack(out, solver).cpu(), out[-1], float(out[-2]))
+            du = float((small["cpu"][0] - small["cuda"][0]).abs().max())
+            print(f"[solve 33^3 electrospray {label}] cpu steps={small['cpu'][1]} "
+                  f"norm={small['cpu'][2]:.6e} | cuda steps={small['cuda'][1]} "
+                  f"norm={small['cuda'][2]:.6e} | max|du|={du:.3e} V (tol {MIXED_DU_TOL:g})")
+            check(small["cpu"][1] == small["cuda"][1],
+                  f"33^3 electrospray {label}: outer-step count cpu != cuda")
+            check(du <= MIXED_DU_TOL, f"33^3 electrospray {label}: solutions differ by {du} V")
+            if tier == " msplit":
+                print(f"[launches 33^3 electrospray {label}] {json.dumps(counts)}")
+                check((counts["mixed_rb_smooth_msplit"] > 0) == (inner_cycles > 1),
+                      f"33^3 {label}: K21 launched {counts['mixed_rb_smooth_msplit']} times")
+                for name in SOURCES:
+                    launches[name] += counts[name]
 
     # 4. the main path: 257^3, each configuration
     hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7)
@@ -813,7 +995,6 @@ def main():
                                                   inner_cycles=2, device=dev)
     paths = {label: df_path(hier, init, dev, **kw) + (init,) for label, kw in df_configs.items()}
     paths["mixed_pallas"] = (lambda: mixed(*mixed_state)), (lambda out: out[0]), f_norm
-    launches = dict.fromkeys(SOURCES, 0)
     solved = {}
     for label, (solve, to_cube, ref_norm) in paths.items():
         torch.cuda.synchronize()
@@ -869,7 +1050,10 @@ def main():
     full = electrospray_257(es, dev, card, launches)
 
     # 7. the same solve on the fold tier, held against the full tier's
-    fold_257(es, dev, card, launches, full)
+    fold = fold_257(es, dev, card, launches, full)
+
+    # 8. the same solve on the split tier, held against the fold tier's
+    msplit_257(es, dev, card, launches, fold)
 
     # no single PyTorch call computes any of these stencils: library_ms is null
     kernels = [

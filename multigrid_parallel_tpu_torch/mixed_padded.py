@@ -1,7 +1,6 @@
 """The electrospray (mixed-BC) solve on the fused-kernel tiers: the full-
-layout and the k-fold double-float defect-correction solvers (counterpart
-of the full and fold parts of ``multigrid_parallel_tpu.mixed_padded``;
-the split tier waits for its kernels).
+layout, the k-fold and the split-colour double-float defect-correction
+solvers (counterpart of ``multigrid_parallel_tpu.mixed_padded``).
 
 Full tier: the f32 correction V-cycle runs the mixed-BC smoothing kernels
 of ``ops.pallas_mixed`` (K14 / K13 pre-smoothing, K15 prolongation +
@@ -21,11 +20,18 @@ coarsest. The coarsest level goes through the full layout
 delegation of small levels to the full layout (``jnp_level_max`` and the
 fold planners) is not carried over.
 
+Split-colour tier: the finest level on red / black pairs
+(``ops.pallas_mixed_split``: K22 / K21, K23 to the coarse fold RHS, K24
+from the coarse fold correction, K25 for the outer residual), every
+coarser level on the fold cycle; the outer step's BCs on the pairs in
+plain torch (``apply_bcs_split_pair``).
+
 The module keeps its JAX name; the port's fields are plain tensors.
 Not carried over (TPU planning with the same half-sweep sequence):
-``jnp_level_max``, ``block_i``, the ``*_block_i`` VMEM planners and the
-fold tier's split ladder; every level above the coarsest runs the
-kernels on a CUDA device, the plain versions on the CPU.
+``jnp_level_max``, ``block_i``, the ``*_block_i`` VMEM planners, the
+fold and split tiers' split ladders, and the split tier's lane gate and
+``force`` flag; every level above the coarsest runs the kernels on a
+CUDA device, the plain versions on the CPU.
 
 Convergence criterion as ``MixedBCSolver.solve_on_device``: ||r|| <=
 rel_tol * ||r0|| (the charge-free problem has f = 0, so the reference's
@@ -40,11 +46,14 @@ import warnings
 import numpy as np
 import torch
 
+from multigrid_parallel_tpu_torch import cycles_split as cs
 from multigrid_parallel_tpu_torch.hierarchy import Hierarchy
 from multigrid_parallel_tpu_torch.mixed_bc import MixedBCSolver
 from multigrid_parallel_tpu_torch.ops import pallas3d as pk
 from multigrid_parallel_tpu_torch.ops import pallas_mixed as pm
 from multigrid_parallel_tpu_torch.ops import pallas_mixed_fold as pmf
+from multigrid_parallel_tpu_torch.ops import pallas_mixed_split as pms
+from multigrid_parallel_tpu_torch.ops import pallas_split as ps
 from multigrid_parallel_tpu_torch.ops.pallas_mixed import apply_bcs_padded
 
 __all__ = [
@@ -52,10 +61,14 @@ __all__ = [
     "apply_bcs_padded",
     "make_mixed_fold_df_solver",
     "make_mixed_padded_df_solver",
+    "make_mixed_split_df_solver",
+    "mixed_split_available",
     "setup_mixed_df_problem",
     "setup_mixed_fold_df_problem",
+    "setup_mixed_split_df_problem",
     "unpack_mixed_fold_solution",
     "unpack_mixed_solution",
+    "unpack_mixed_split_solution",
 ]
 
 
@@ -111,13 +124,13 @@ def _patch_values(solver: MixedBCSolver, n: int):
     return pk.df_split(torch.from_numpy(np.stack([vals64[0], vals64[n - 1]])).to(solver.device))
 
 
-def _outer_loop(inner, level: int, residual, enforce_bcs, rel_tol, max_cycles, inner_cycles):
+def _outer_loop(inner, level: int, residual, update, rel_tol, max_cycles, inner_cycles):
     """run(u_hi, u_lo, f_hi, f_lo) -> (u_hi, u_lo, norm, n_outer): each
     outer step runs ``inner_cycles`` f32 correction cycles on the defect
-    r, then df_add, ``enforce_bcs`` on the pair and ``residual``. Host
-    loop with one scalar readback per step and the JAX stop rule: ``tol =
-    f32(rel_tol) * n0`` with n0 the initial norm, ``while nrm > tol and it
-    < max_cycles``."""
+    r, then ``update`` (df_add of the correction and the BCs on the pair)
+    and ``residual``. Host loop with one scalar readback per step and the
+    JAX stop rule: ``tol = f32(rel_tol) * n0`` with n0 the initial norm,
+    ``while nrm > tol and it < max_cycles``."""
 
     def run(u_hi, u_lo, f_hi, f_lo):
         r, nrm = residual(u_hi, u_lo, f_hi, f_lo)
@@ -127,7 +140,7 @@ def _outer_loop(inner, level: int, residual, enforce_bcs, rel_tol, max_cycles, i
             e = inner(None, r, level, from_zero=True)
             for _ in range(inner_cycles - 1):
                 e = inner(e, r, level)
-            u_hi, u_lo = enforce_bcs(*pk.df_add(u_hi, u_lo, e))
+            u_hi, u_lo = update(u_hi, u_lo, e)
             r, nrm = residual(u_hi, u_lo, f_hi, f_lo)
             it += 1
         return u_hi, u_lo, nrm, it
@@ -169,10 +182,11 @@ def make_mixed_padded_df_solver(solver: MixedBCSolver, rel_tol: float = 1e-8,
         r, nrm2 = pk.residual_df_norm_fused(u_hi, u_lo, f_hi, f_lo, h)
         return r, torch.sqrt(nrm2)
 
-    def enforce_bcs(u_hi, u_lo):
+    def update(u_hi, u_lo, e):
+        u_hi, u_lo = pk.df_add(u_hi, u_lo, e)
         return apply_bcs_padded(u_hi, pin_top, vals_hi), apply_bcs_padded(u_lo, pin_top, vals_lo)
 
-    return _outer_loop(inner, level, residual, enforce_bcs, rel_tol, max_cycles, inner_cycles)
+    return _outer_loop(inner, level, residual, update, rel_tol, max_cycles, inner_cycles)
 
 
 def setup_mixed_df_problem(solver: MixedBCSolver):
@@ -194,25 +208,32 @@ def unpack_mixed_solution(u_hi, u_lo, hier: Hierarchy):
 # ------------------------------------------------------------ k-FOLD tier
 
 
+def _edge_sign_planes(solver: MixedBCSolver, level: int) -> torch.Tensor:
+    """The sign planes (2, n, n - 2) with which a finer level's
+    prolongation rebuilds the unstored k-face edge nodes of this level's
+    fold correction (K19, K24).
+
+    The planes rebuild a coarse k-face edge node by the BC pass's rule
+    (the pin after the z copy, ``fold_edge_sign_planes``), which every
+    level's stage output follows. The coarsest correction comes from the
+    LU solve instead, whose Neumann rows copy a k-face node from its
+    k-edge neighbour, pinned or not (``mixed_bc._neumann_source_index``):
+    there the node is the stored copy, or 0 where it is pinned itself, so
+    level 0's planes keep only the -1 entries. With the BC rule at level 0
+    the 33^3 V-cycle takes 27 outer steps where the full tier takes 29."""
+    sgn = pmf.fold_edge_sign_planes(solver.problem, solver.hier.sizes[level], solver.device)
+    return torch.clamp(sgn, max=0.0) if level == 0 else sgn
+
+
 def _make_mixed_descend_fold(solver: MixedBCSolver, hier32: Hierarchy):
     """descend(e, r, level, from_zero) on fold-layout fields: K17 / K16,
     K18, the coarse recursion (revisits as the full tier), K19 with the
-    coarse level's sign planes. Level 0 is the full tier's coarse32
-    between ``fold_to_full_rhs`` and ``full_to_fold``. A given e is
-    updated in place by the pre-smoother.
-
-    The sign planes rebuild a coarse k-face edge node by the BC pass's
-    rule (the pin after the z copy), which every level's stage output
-    follows. The coarsest correction comes from the LU solve instead,
-    whose Neumann rows copy a k-face node from its k-edge neighbour,
-    pinned or not (``mixed_bc._neumann_source_index``): there the node is
-    the stored copy, or 0 where it is pinned itself, so its planes keep
-    only the -1 entries. With the BC rule at level 0 the 33^3 V-cycle
-    takes 27 outer steps where the full tier takes 29."""
+    coarse level's ``_edge_sign_planes``. Level 0 is the full tier's
+    coarse32 between ``fold_to_full_rhs`` and ``full_to_fold``. A given e
+    is updated in place by the pre-smoother."""
     n_smooth = solver.n_smooth
     pins = [pmf.fold_pin_planes(solver.problem, n, solver.device) for n in hier32.sizes]
-    sgns = [pmf.fold_edge_sign_planes(solver.problem, n, solver.device) for n in hier32.sizes]
-    sgns[0] = torch.clamp(sgns[0], max=0.0)
+    sgns = [_edge_sign_planes(solver, lvl) for lvl in range(hier32.num_levels)]
     coarse32 = _mixed_coarse32(solver, hier32)
 
     def descend(e, r, level, from_zero=False):
@@ -275,10 +296,11 @@ def make_mixed_fold_df_solver(solver: MixedBCSolver, rel_tol: float = 1e-8,
         r, nrm2 = pmf.residual_df_norm_fold(u_hi, u_lo, f_hi, f_lo, h)
         return r, torch.sqrt(nrm2)
 
-    def enforce_bcs(u_hi, u_lo):
+    def update(u_hi, u_lo, e):
+        u_hi, u_lo = pk.df_add(u_hi, u_lo, e)
         return apply_bcs_fold(u_hi, pin_top, vals_hi), apply_bcs_fold(u_lo, pin_top, vals_lo)
 
-    return _outer_loop(inner, level, residual, enforce_bcs, rel_tol, max_cycles, inner_cycles)
+    return _outer_loop(inner, level, residual, update, rel_tol, max_cycles, inner_cycles)
 
 
 def setup_mixed_fold_df_problem(solver: MixedBCSolver):
@@ -292,4 +314,99 @@ def unpack_mixed_fold_solution(u_hi, u_lo, solver: MixedBCSolver):
     restores the Dirichlet patch values on the x faces' k-edge nodes,
     which unpacking rebuilds as Neumann copies."""
     u = pk.df_to_f64(pmf.unpack_fold(u_hi), pmf.unpack_fold(u_lo))
+    return solver._apply_bcs(u, solver.hier.num_levels - 1, zero_dirichlet=False)
+
+
+# ------------------------------------------------------ SPLIT-COLOUR tier
+
+
+def mixed_split_available(solver: MixedBCSolver) -> bool:
+    """True when the finest level has a coarser one, which K23 and K24
+    need: the one gate of the split tier, which
+    ``make_mixed_split_df_solver`` applies too. The JAX package also asks
+    that the pair halve the TPU's lane tiles and that every kernel fit
+    VMEM (its two gates disagree there); neither has a counterpart here."""
+    return cs.split_available(solver.hier)
+
+
+def make_mixed_split_df_solver(solver: MixedBCSolver, rel_tol: float = 1e-8,
+                               max_cycles: int = 100, inner_cycles: int = 2):
+    """run(u_hr, u_hb, u_lr, u_lb, f_hr, f_hb, f_lr, f_lb) -> (u_hr',
+    u_hb', u_lr', u_lb', norm, n_outer): the split-colour twin of
+    ``make_mixed_fold_df_solver``, the same solve and stop rule with the
+    finest level on red / black pairs (``ops.pallas_mixed_split``) and
+    every coarser level on the fold cycle. Pair with
+    ``setup_mixed_split_df_problem`` / ``unpack_mixed_split_solution``.
+
+    A finest-level cycle: K22 from a zero guess (K21 for the
+    ``inner_cycles - 1`` later ones), K23 to the coarse fold RHS, the fold
+    cycle on the level below (revisited as the fold tier revisits it), K24
+    with that level's ``_edge_sign_planes``. The outer step: df_add per
+    colour, ``apply_bcs_split_pair`` on the hi and lo pairs with the
+    patch-value packs, then K25, which also gives the initial residual.
+    Not carried over (TPU planning): the split ladder, ``force`` and the
+    ``block_i`` / ``smooth_block_i`` / ``ps_block_i`` / ``jnp_level_max``
+    arguments."""
+    if not mixed_split_available(solver):
+        raise ValueError(f"the split tier needs a 3D hierarchy of >= 2 levels, got {solver.hier}")
+    if solver.boundary_band_iters:
+        warnings.warn(
+            "make_mixed_split_df_solver honors gamma but NOT "
+            "boundary_band_width/iters (use gamma=2 W-cycles here)",
+            stacklevel=2,
+        )
+    hier = solver.hier
+    fold_descend = _make_mixed_descend_fold(solver, dataclasses.replace(hier, dtype=torch.float32))
+    level = hier.num_levels - 1
+    n = hier.sizes[level]
+    h = hier.spacing(level)
+    ns = solver.n_smooth
+    packs = pms.msplit_pin_packs(solver.problem, n, solver.device)
+    sgn_c = _edge_sign_planes(solver, level - 1)
+    vals_hi, vals_lo = (pms.msplit_plane_packs(v) for v in _patch_values(solver, n))
+
+    def cycle(e2, r2, lvl, from_zero=False):
+        """One finest-level cycle on the correction pair; a given e2 is
+        updated in place by the pre-smoother."""
+        rr, rb = r2
+        if from_zero:
+            er, eb = pms.mixed_rb_smooth_from_zero_msplit(rr, rb, packs, h, ns, red_first=True)
+        else:
+            er, eb = pms.mixed_rb_smooth_msplit(*e2, rr, rb, packs, h, ns, red_first=True)
+        rc = pms.residual_restrict_msplit(er, eb, rr, rb, h)
+        ec = fold_descend(None, rc, lvl - 1, from_zero=True)
+        for _ in range(solver._revisits(lvl - 1)):  # W-cycle revisits (depth-capped)
+            ec = fold_descend(ec, rc, lvl - 1)
+        return pms.mixed_prolong_smooth_msplit(ec, er, eb, rr, rb, packs, sgn_c, h, ns)
+
+    def residual(u_hi, u_lo, f_hi, f_lo):
+        r_r, r_b, nrm2 = pms.residual_df_norm_msplit(*u_hi, *u_lo, *f_hi, *f_lo, h)
+        return (r_r, r_b), torch.sqrt(nrm2)
+
+    def update(u_hi, u_lo, e):
+        (hr, lr), (hb, lb) = (pk.df_add(u_hi[c], u_lo[c], e[c]) for c in (0, 1))
+        return (pms.apply_bcs_split_pair(hr, hb, packs, vals_hi),
+                pms.apply_bcs_split_pair(lr, lb, packs, vals_lo))
+
+    loop = _outer_loop(cycle, level, residual, update, rel_tol, max_cycles, inner_cycles)
+
+    def run(u_hr, u_hb, u_lr, u_lb, f_hr, f_hb, f_lr, f_lb):
+        (hr, hb), (lr, lb), nrm, it = loop((u_hr, u_hb), (u_lr, u_lb), (f_hr, f_hb), (f_lr, f_lb))
+        return hr, hb, lr, lb, nrm, it
+
+    return run
+
+
+def setup_mixed_split_df_problem(solver: MixedBCSolver):
+    """``setup_mixed_df_problem`` packed into pairs: (u_hr, u_hb, u_lr,
+    u_lb, f_hr, f_hb, f_lr, f_lb)."""
+    return tuple(t for x in setup_mixed_df_problem(solver) for t in ps.pack_split(x))
+
+
+def unpack_mixed_split_solution(u_hr, u_hb, u_lr, u_lb, solver: MixedBCSolver):
+    """The double-float pair solution as an (n, n, n) f64 tensor, after
+    one f64 BC pass (``MixedBCSolver._apply_bcs``, as JAX does): it
+    restores the k faces, which the pair does not store, and the
+    Dirichlet patch values on the x faces' k edges."""
+    u = pk.df_to_f64(ps.unpack_split(u_hr, u_hb), ps.unpack_split(u_lr, u_lb))
     return solver._apply_bcs(u, solver.hier.num_levels - 1, zero_dirichlet=False)

@@ -72,6 +72,14 @@ _SIGNATURES = {
     "mg_mixed_fold_prolong_correct_black": (_P, _P, _P, _P, _P, _P, _I, _F, _P),
     "mg_residual_df_norm_fold_partials": (_I,),
     "mg_residual_df_norm_fold": (_P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
+    "mg_msplit_half_sweep": (_P, _P, _P, _P, _I, _F, _I, _P),
+    "mg_msplit_half_sweep_from_zero": (_P, _P, _P, _I, _F, _I, _P),
+    "mg_msplit_bc_pass": (_P, _P, _P, _I, _P),
+    "mg_msplit_residual_restrict": (_P, _P, _P, _P, _P, _I, _F, _P),
+    "mg_msplit_prolong_correct_red": (_P, _P, _P, _P, _I, _P),
+    "mg_msplit_prolong_correct_black": (_P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
+    "mg_msplit_residual_df_norm_partials": (_I,),
+    "mg_msplit_residual_df_norm": (_P,) * 12 + (_I, _F, _P),
 }
 
 

@@ -1,8 +1,9 @@
 // Shared pieces of the mixed-BC (electrospray) kernels: K13-K15
 // (mixed_rb_smooth.cu, mixed_prolong_smooth.cu) on (n, n, n) contiguous
-// f32 correction fields, and K16-K20 (mixed_rb_smooth_fold.cu,
-// residual_restrict_fold.cu, mixed_prolong_smooth_fold.cu,
-// residual_df_norm_fold.cu) on the same fields in the FOLD layout:
+// f32 correction fields, K21-K25 on split pairs (msplit.cuh), and K16-K20
+// (mixed_rb_smooth_fold.cu, residual_restrict_fold.cu,
+// mixed_prolong_smooth_fold.cu, residual_df_norm_fold.cu) on the same
+// fields in the FOLD layout:
 // (n, n, n - 2), stored slot kk holding grid plane k = kk + 1. The fold
 // stores no k face: the BC makes each k-face node a copy of its stored
 // neighbour, so a folded read returns the reader's own value.
@@ -56,9 +57,10 @@ __device__ inline int copy_source(int x, int n) {
 // BC-consistent input the iterates equal the copy form's (a half-sweep,
 // then a BC pass) bit for bit. `at(i, j, k)` returns the field's value at
 // grid point (i, j, k); k = 0 and k = n-1 are never read, so the same sum
-// serves the fold layout.
-template <class At>
-__device__ inline float mixed_nbr_sum(const At& at, const PinAt& pin, int i,
+// serves the fold layout and the split pairs (msplit.cuh). `pin(face, j,
+// k)` is PinAt's test, or msplit.cuh's on the pairs' pin packs.
+template <class At, class Pin>
+__device__ inline float mixed_nbr_sum(const At& at, const Pin& pin, int i,
                                       int j, int k, int n) {
   const float cen = at(i, j, k);
   const float im = i == 1 ? (pin(0, j, k) ? 0.0f : cen) : at(i - 1, j, k);

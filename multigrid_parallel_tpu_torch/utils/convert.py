@@ -5,8 +5,9 @@ keeps them lane-padded as (n, rup(n, 8), rup(n, 128)) arrays with the
 live cube at [:n, :n, :n] and zeros elsewhere, as split-colour pairs or
 as k-fold fields (below); the port keeps plain contiguous (n, n, n)
 tensors, (n, n, (n - 1) // 2) pairs and (n, n, n - 2) fold fields. The
-mixed-BC solver adds its pin planes and its coarse LU factor. Both sides meet as numpy arrays, so neither
-package imports the other.
+mixed-BC solver adds its pin planes, its coarse LU factor and, on the
+split-colour tier, its (2, 2, n, (n - 1) // 2) parity packs. Both sides
+meet as numpy arrays, so neither package imports the other.
 """
 
 from __future__ import annotations
@@ -136,6 +137,33 @@ def from_jax_coarse_lu(lu, piv):
     if lu.ndim != 2 or lu.shape[0] != lu.shape[1] or piv.shape != lu.shape[:1]:
         raise ValueError(f"expected an (m, m) factor and (m,) pivots, got {lu.shape}, {piv.shape}")
     return torch.from_numpy(lu.copy()), torch.from_numpy(piv.astype(np.int32) + 1)
+
+
+def jax_msplit_packs_shape(n: int):
+    """The JAX package's mixed split parity packs (``pallas_mixed_split.
+    msplit_pin_packs`` / ``msplit_plane_packs``): [p][face] planes of one
+    colour's padded (j, slot) shape."""
+    return (2, 2) + jax_split_shape(n)[1:]
+
+
+def from_jax_msplit_packs(packs, n: int, device="cuda") -> torch.Tensor:
+    """The JAX package's mixed split packs -> the port's (2, 2, n,
+    (n - 1) // 2) tensor on ``device``."""
+    a = np.asarray(packs)
+    if a.shape != jax_msplit_packs_shape(n):
+        raise ValueError(f"expected shape {jax_msplit_packs_shape(n)}, got {a.shape}")
+    return torch.from_numpy(np.array(a[:, :, :n, : (n - 1) // 2])).to(device)
+
+
+def to_jax_msplit_packs(packs: torch.Tensor, n: int) -> np.ndarray:
+    """The port's (2, 2, n, (n - 1) // 2) packs -> zero-padded numpy array
+    in the JAX package's pack layout."""
+    if tuple(packs.shape) != (2, 2, n, (n - 1) // 2):
+        raise ValueError(f"expected {(2, 2, n, (n - 1) // 2)} packs, got {tuple(packs.shape)}")
+    a = packs.detach().cpu().numpy()
+    out = np.zeros(jax_msplit_packs_shape(n), dtype=a.dtype)
+    out[:, :, :n, : (n - 1) // 2] = a
+    return out
 
 
 def to_jax_split(xr: torch.Tensor, xb: torch.Tensor, n: int):

@@ -2,7 +2,8 @@
 double-float solve on the card against the same solve on the CPU, the
 split-colour solve (K7-K12 on the finest level) against the fused rect
 one, and the electrospray tiers (full: K13-K15 with K3 and K5; k-fold:
-K16-K20) on the card against the CPU.
+K16-K20; split-colour: K21-K25 over the fold cycle) on the card against
+the CPU.
 
 These need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 themselves where there is none. The file imports no jax, so on a machine
@@ -23,6 +24,7 @@ from multigrid_parallel_tpu_torch.mixed_bc import MixedBCSolver
 from multigrid_parallel_tpu_torch.ops import pallas3d as tpk
 from multigrid_parallel_tpu_torch.ops import pallas_mixed as tpm
 from multigrid_parallel_tpu_torch.ops import pallas_mixed_fold as tpmf
+from multigrid_parallel_tpu_torch.ops import pallas_mixed_split as tpms
 from multigrid_parallel_tpu_torch.ops import pallas_split as tps
 
 torch.set_num_threads(1)
@@ -436,4 +438,98 @@ def test_fold_tier_on_card_matches_cpu(cuda, gamma):
     # K16 runs only where a correction is revisited: W-cycles (inner_cycles 1)
     assert (tpmf.LAUNCHES["mixed_rb_smooth_fold"] > 0) == (gamma > 1)
     assert all(tpmf.LAUNCHES[k] > 0 for k in tpmf.KERNELS if k != "mixed_rb_smooth_fold")
+    assert not any(tpk.LAUNCHES.values()) and not any(tpm.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 65])
+def test_msplit_kernels_match_plain_on_card(cuda, n):
+    """K21-K25 at the electrospray's h, with its pin packs and a random
+    x-face mask, on pairs packed from BC-consistent cubes; K24 with the
+    coarse level's sign planes (the pin-edge delta live at 17^3). K21,
+    K22, K24 and K25 take the same steps as their plain versions (fields
+    bitwise); K23 too, held to 4 ulp of the max as K18 is."""
+    h = 3e-4 / (n - 1)
+    nc = (n + 1) // 2
+    prob = tmg.electrospray_problem()
+    e, r = _fields32(23, n, cuda)
+    r2 = tps.pack_split(torch.where(_interior(n, cuda), r, torch.zeros_like(r)))
+    ec = tpmf.pack_fold(tpm.apply_bcs_padded(_fields32(24, nc, cuda)[0],
+                                             _electrospray_pins(nc, cuda)))
+    sgn_c = tpmf.fold_edge_sign_planes(prob, nc, cuda)
+    assert bool(sgn_c.any()) == (n == 17)
+    rng = np.random.default_rng(25)
+    random_pin = torch.from_numpy((rng.random((2, n, n)) < 0.3).astype(np.float32)).to(cuda)
+    tpms.reset_launches()
+    for pin_full in (_electrospray_pins(n, cuda), random_pin):
+        packs = tpms.msplit_plane_packs(pin_full)
+        e2 = tps.pack_split(tpm.apply_bcs_padded(e, pin_full))
+        for n_iter in (1, 2):
+            for red_first in (True, False):
+                want = tpms.mixed_rb_smooth_msplit_plain(*e2, *r2, packs, h, n_iter, red_first)
+                got = tpms.mixed_rb_smooth_msplit(*(x.clone() for x in e2), *r2, packs, h,
+                                                  n_iter, red_first)
+                assert all(torch.equal(g, w) for g, w in zip(got, want))
+            got = tpms.mixed_rb_smooth_from_zero_msplit(*r2, packs, h, n_iter)
+            want = tpms.mixed_rb_smooth_from_zero_msplit_plain(*r2, packs, h, n_iter)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            e0 = tuple(x.clone() for x in e2)
+            got = tpms.mixed_prolong_smooth_msplit(ec, *e2, *r2, packs, sgn_c, h, n_iter)
+            assert all(torch.equal(a, b) for a, b in zip(e2, e0))  # fresh pair, e untouched
+            want = tpms.mixed_prolong_smooth_msplit_plain(ec, *e2, *r2, packs, sgn_c, h, n_iter)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        got = tpms.residual_restrict_msplit(*e2, *r2, h)
+        assert got.shape == (nc, nc, nc - 2)
+        assert _ulps(got, tpms.residual_restrict_msplit_plain(*e2, *r2, h))
+    x = np.linspace(0.0, 1.0, n)[:, None, None]
+    state = [t for a in (-1350.0 * x * x + 1e-3 * rng.standard_normal((n, n, n)),
+                         1e3 * rng.standard_normal((n, n, n)))
+             for half in tpk.df_split(torch.from_numpy(a).to(cuda)) for t in tps.pack_split(half)]
+    got = tpms.residual_df_norm_msplit(*state, h)
+    want = tpms.residual_df_norm_msplit_plain(*state, h)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert float(got[2]) == pytest.approx(float(want[2]), rel=1e-5)
+    # per pin, n_iter 1 and 2: K21 2 orders x (2 n_iter + 1); K22 2 n_iter + 1; K24 2 n_iter + 2
+    assert tpms.LAUNCHES == {"mixed_rb_smooth_msplit": 2 * 2 * (3 + 5),
+                             "mixed_rb_smooth_from_zero_msplit": 2 * (3 + 5),
+                             "residual_restrict_msplit": 2,
+                             "mixed_prolong_smooth_msplit": 2 * (4 + 6),
+                             "residual_df_norm_msplit": 1}
+
+
+@pytest.mark.cuda
+def test_msplit_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    e = torch.zeros(tps.split_shape(9), device=cuda)
+    packs = torch.zeros((2, 2, 9, 4), device=cuda)
+    with pytest.raises(TypeError):
+        tpms.mixed_rb_smooth_from_zero_msplit(e.double(), e.double(), packs.double(), 0.125, 1)
+    with pytest.raises(ValueError):
+        tpms.residual_restrict_msplit(e.transpose(0, 1), e, e, e, 0.125)
+    with pytest.raises(ValueError):
+        tpms.mixed_rb_smooth_msplit(e, e, e, e, packs.cpu(), 0.125, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma, inner_cycles", [(1, 1), (2, 1), (1, 2)],
+                         ids=["V", "W", "V_inner2"])
+def test_msplit_tier_on_card_matches_cpu(cuda, gamma, inner_cycles):
+    """The electrospray split tier at 33^3 on the card (K21-K25 at 33, the
+    fold kernels below) against the same tier on the CPU: same outer
+    steps, within 1e-7 V; K21 runs only where a finest-level cycle starts
+    from a correction (inner_cycles 2)."""
+    prob = tmg.electrospray_problem()
+    hier = tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=4, length=prob.length)
+    out = {}
+    for dev in ("cpu", cuda):
+        s = MixedBCSolver(prob, hier, n_smooth=2, gamma=gamma, device=dev)
+        for mod in (tpk, tpm, tpmf, tpms):
+            mod.reset_launches()
+        hr, hb, lr, lb, nrm, it = tmp.make_mixed_split_df_solver(s, inner_cycles=inner_cycles)(
+            *tmp.setup_mixed_split_df_problem(s))
+        out[str(dev)] = (tmp.unpack_mixed_split_solution(hr, hb, lr, lb, s).cpu(), it)
+    assert out["cpu"][1] == out["cuda"][1]
+    assert float((out["cpu"][0] - out["cuda"][0]).abs().max()) <= 1e-7
+    assert (tpms.LAUNCHES["mixed_rb_smooth_msplit"] > 0) == (inner_cycles > 1)
+    assert all(tpms.LAUNCHES[k] > 0 for k in tpms.KERNELS if k != "mixed_rb_smooth_msplit")
+    assert tpmf.LAUNCHES["residual_df_norm_fold"] == 0
     assert not any(tpk.LAUNCHES.values()) and not any(tpm.LAUNCHES.values())
