@@ -19,7 +19,10 @@ the initial residual) on the fused-kernel tier (K13-K15, K3, K5), on
 the k-fold tier (the same solve in the (n, n, n - 2) fold layout:
 K16-K20) and on the split-colour tier (the finest level on red / black
 pairs: K22-K25, and K21 where a cycle starts from a correction; the
-levels below on the fold cycle). Phases, each of which fails the run:
+levels below on the fold cycle). And the reference driver surface: the
+f64 V-cycle solve at 257^3 through each of its entry points,
+MultigridSolver with a checkpoint, the smoother study on K1 and the
+CLI. Phases, each of which fails the run:
 
   1. build the hand-written CUDA kernels from ops/csrc (one nvcc per
      source, all started together; sm_90a);
@@ -30,7 +33,8 @@ levels below on the fold cycle). Phases, each of which fails the run:
      fold kernels K16-K20 on the same fields packed into the fold layout
      and K21-K25 on them packed into pairs, and K19 and K24 once more at
      17^3, where the pin-edge delta is live) and time both (CUDA events,
-     median of 20);
+     median of 20); K26 against K1 + R timed in the same call, and
+     residual_norm_fused (R and a sum) against its plain version;
   3. solve 33^3 on the CPU (plain versions) and on the card (kernels),
      unfused, fused, fused with FMG and split: same outer-step count,
      solutions within 1e-8; the electrospray full, fold and split tiers
@@ -58,11 +62,24 @@ levels below on the fold cycle). Phases, each of which fails the run:
      it: only K22-K25 and K16-K19 launched, the fold tier's outer-step
      count, converged to 1e-8 of its initial norm, max|u_msplit -
      u_fold| <= 1e-7 max|u|; then the split and fold walls interleaved
-     and the device-busy time of one traced solve of each.
+     and the device-busy time of one traced solve of each;
+  9. the driver surface: (a) the f64 reference solve at 257^3 (solve,
+     solve_mixed, solve with FMG, solve_on_device, solve_on_device_mixed):
+     converged, 16 +- 1 V-cycles (the C reference's 16), L2 error <= 5e-9
+     (its 2.81e-9), no hand kernel launched, wall (median of 3) and
+     device-busy time; (b) MultigridSolver at 257^3 to convergence, saved
+     and restored, three more cycles bit for bit, one profiled stage
+     table; (c) the smoother study at 50^3 on K1 (f32, 600 iterations),
+     launches reset and read around it (4 a iteration): ratio^2 within
+     1e-3 of the published 0.983675, the trajectory bit for bit against
+     the plain f32 study; (d) profile_padded_stages at 257^3; (e) the CLI
+     in-process, each flag set on the card and on the CPU at 33^3: the
+     same cycle counts, printed errors within 1e-5.
 
 Prints a {"kernels": [...]} line (each kernel's launches summed over the
-257^3 runs of phases 4, 6, 7 and 8 and the split tier's 33^3 card solves
-of phase 3; bound_ms from the timed call's bytes and operations), the
+257^3 runs of phases 4, 6, 7 and 8, the split tier's 33^3 card solves of
+phase 3 and the study of phase 9c; bound_ms from the timed call's bytes
+and operations), the
 card's name and power limit, and as its last line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 there is no CUDA device or any check fails.
@@ -74,6 +91,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -83,12 +101,21 @@ FIELD_ULPS = 4      # fields: expected bitwise equal; allowed 4 ulp of the max
 NORM_RTOL = 1e-5    # ||r||^2: kernel and plain sum in different orders
 ERR_TOL = 1e-8      # L2 error against the analytic solution at 257^3
 SOURCES = {
+    # K1 and R also serve the single-buffered site :174 (rb_smooth_fused_padded
+    # :556 and its cube wrapper :1618; residual_fused_padded :610 and the
+    # cube wrappers residual_fused :1626, residual_norm_fused :1631)
     "rb_smooth_fused": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth.cu",
-                        "multigrid_parallel_tpu/ops/pallas3d.py:515"),
+                        "multigrid_parallel_tpu/ops/pallas3d.py:515, "
+                        "multigrid_parallel_tpu/ops/pallas3d.py:556"),
     "rb_smooth_from_zero_fused": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth.cu",
                                   "multigrid_parallel_tpu/ops/pallas3d.py:412"),
     "residual_fused": ("multigrid_parallel_tpu_torch/ops/csrc/residual.cu",
-                       "multigrid_parallel_tpu/ops/pallas3d.py:626"),
+                       "multigrid_parallel_tpu/ops/pallas3d.py:626, "
+                       "multigrid_parallel_tpu/ops/pallas3d.py:610"),
+    "rb_smooth_residual_fused": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth_residual.cu",
+                                 "multigrid_parallel_tpu/ops/pallas3d.py:695"),
+    "residual_df_fused": ("multigrid_parallel_tpu_torch/ops/csrc/residual_df_norm.cu",
+                          "multigrid_parallel_tpu/ops/pallas3d.py:1528"),
     "residual_df_norm_fused": ("multigrid_parallel_tpu_torch/ops/csrc/residual_df_norm.cu",
                                "multigrid_parallel_tpu/ops/pallas3d.py:1245"),
     "residual_restrict_fused": ("multigrid_parallel_tpu_torch/ops/csrc/residual_restrict.cu",
@@ -154,7 +181,7 @@ OPS_PER_POINT = {
     "residual_restrict_fold": 14, "mixed_prolong_smooth_fold": 20, "residual_df_norm_fold": 72,
     "mixed_rb_smooth_msplit": 16, "mixed_rb_smooth_from_zero_msplit": 16,
     "residual_restrict_msplit": 14, "mixed_prolong_smooth_msplit": 20,
-    "residual_df_norm_msplit": 72,
+    "residual_df_norm_msplit": 72, "rb_smooth_residual_fused": 16 + 9, "residual_df_fused": 70,
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores (same sheet)
@@ -192,6 +219,14 @@ FOLD_KERNELS = ("mixed_rb_smooth_fold", "mixed_rb_smooth_from_zero_fold", "resid
 MSPLIT_KERNELS = ("mixed_rb_smooth_from_zero_msplit", "residual_restrict_msplit",
                   "mixed_prolong_smooth_msplit", "residual_df_norm_msplit") + FOLD_KERNELS[:4]
 INTERLEAVED = 9  # 257^3 solves of each of two paths, in phases 5, 7 and 8
+REF_ERR_TOL = 5e-9  # f64 reference solve at 257^3: the C reference's L2 error is 2.81e-9
+# the 50^3 study on K1 in f32: the spread of the last 20 per-iteration
+# ratios^2 of an f32 study is ~1.1e-4 (their f64 spread 2e-7)
+STUDY_TOL = 1e-3
+# the CLI's printed f64 error, card against CPU: the error ~2.5e-9 is a
+# difference of O(1) values that agree to ~1e-15 (matrix-product sums in
+# another order), ~1e-6 relative, printed to 7 digits
+CLI_RTOL = 1e-5
 
 
 def check(cond, msg):
@@ -305,6 +340,49 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
                  time_ms(lambda: pk.residual_df_norm_plain(*state, h)))
         record("residual_df_norm_fused", n, "r", r, r_ref, *times, io=(state, (r, nrm2)))
         check(torch.equal(r, r_ref), f"residual_df_norm_fused n={n}: r not bitwise equal")
+
+        # K27: K5's residual without its norm
+        r27 = pk.residual_df_fused(*state, h)
+        check(torch.equal(r27, r), f"residual_df_fused n={n}: r differs from K5's")
+        times = (time_ms(lambda: pk.residual_df_fused(*state, h)),
+                 time_ms(lambda: pk.residual_df_plain(*state, h)))
+        record("residual_df_fused", n, "r", r27, pk.residual_df_plain(*state, h), *times,
+               io=(state, (r27,)))
+        check(torch.equal(r27, pk.residual_df_plain(*state, h)),
+              f"residual_df_fused n={n}: r not bitwise equal")
+
+        # K26: the pre-smoothing stage and its residual, against K1 then R
+        for n_iter in (1, 2):
+            for red_first in (True, False):
+                want_u, want_r = pk.rb_smooth_residual_plain(u, f, h, n_iter, red_first)
+                got_u, got_r = pk.rb_smooth_residual_fused(u.clone(), f, h, n_iter, red_first)
+                label = f"n_iter={n_iter}_" + ("red_first" if red_first else "black_first")
+                times = ()
+                if n_iter == 2 and red_first:  # the pre-smoother of the main paths
+                    uk = u.clone()
+                    times = (time_ms(lambda: pk.rb_smooth_residual_fused(uk, f, h, 2, True)),
+                             time_ms(lambda: pk.rb_smooth_residual_plain(u, f, h, 2, True)))
+                record("rb_smooth_residual_fused", n, label + "_u", got_u, want_u)
+                record("rb_smooth_residual_fused", n, label + "_r", got_r, want_r, *times,
+                       io=((u, f), (got_u, got_r)))
+                check(torch.equal(got_u, want_u) and torch.equal(got_r, want_r),
+                      f"rb_smooth_residual_fused n={n} {label}: not bitwise equal")
+        uk = u.clone()
+        fused_ms = results["rb_smooth_residual_fused"]["ms"]
+        pair_ms = time_ms(lambda: (pk.rb_smooth_fused(uk, f, h, 2, True),
+                                   pk.residual_fused(uk, f, h)))
+        results["rb_smooth_residual_fused"]["pair_ms"] = pair_ms
+        print(f"[kernel] rb_smooth_residual_fused   n={n:3d} K26_ms={fused_ms:.4f} "
+              f"K1+R_ms={pair_ms:.4f} K26/(K1+R)={fused_ms / pair_ms:.3f}")
+        nrm = pk.residual_norm_fused(u, f, h)
+        nrm_ref = pk.residual_norm_plain(u, f, h)
+        rel = abs(float(nrm) - float(nrm_ref)) / float(nrm_ref)
+        t_norm = (time_ms(lambda: pk.residual_norm_fused(u, f, h)),
+                  time_ms(lambda: pk.residual_norm_plain(u, f, h)))
+        print(f"[kernel] residual_norm_fused (R + sum) n={n:3d} norm={float(nrm):.9e} "
+              f"plain={float(nrm_ref):.9e} rel_diff={rel:.3e} (tol {NORM_RTOL:g}) "
+              f"kernel_ms={t_norm[0]:.4f} plain_ms={t_norm[1]:.4f}")
+        check(rel <= NORM_RTOL, f"residual_norm_fused n={n}: norm rel diff {rel}")
 
         # K3 on the random (u, f) as (e, r)
         times = (time_ms(lambda: pk.residual_restrict_fused(u, f, h)),
@@ -872,6 +950,232 @@ def interleave(solves, what, card):
           f"ms={[(round(x, 3), round(y, 3)) for x, y in zip(walls[a], walls[b])]} | card: {card}")
 
 
+def reference_257(dev, card):
+    """Phase 9a: the f64 reference solve at 257^3 (plain torch, no hand
+    kernel) through each of its entry points: converged, 16 +- 1 V-cycles
+    (FMG: at most 17), L2 error <= REF_ERR_TOL; the wall (median of 3) and
+    the device-busy time of one traced solve of each."""
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch.hierarchy import evaluate_on_grid
+
+    prob = mg.poisson_3d_quadratic()
+    hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7)
+    cfg = mg.CycleConfig(n_smooth=2)
+    exact = evaluate_on_grid(prob.analytic, hier, hier.num_levels - 1, dev)
+
+    def host_loop(fn, **kw):
+        def go():
+            res = fn(prob, hier, cfg, rel_tol=REL_TOL, device=dev, **kw)
+            return res.u, res.n_cycles, res.residual_norms[-1], res.initial_residual
+        return go
+
+    def on_device(fn):
+        def go():
+            u, norm, n_cycles, init = fn(prob, hier, cfg, rel_tol=REL_TOL, device=dev)
+            return u, n_cycles, norm, init
+        return go
+
+    solves = {"solve": host_loop(mg.solve), "solve_mixed": host_loop(mg.solve_mixed),
+              "solve_fmg": host_loop(mg.solve, use_fmg=True),
+              "solve_on_device": on_device(mg.solve_on_device),
+              "solve_on_device_mixed": on_device(mg.solve_on_device_mixed)}
+    n = hier.finest_n
+    for label, go in solves.items():
+        torch.cuda.synchronize()
+        reset_launches()
+        u, it, nrm, init = go()
+        torch.cuda.synchronize()
+        counts = read_launches()
+        err = float(torch.sqrt(torch.sum((u - exact) ** 2)))
+        print(f"[reference {n}^3 f64 {label}] cycles={it} final_norm={nrm:.6e} "
+              f"rel={nrm / init:.3e} err_l2_vs_analytic={err:.3e} dtype={u.dtype} "
+              f"finite={bool(torch.isfinite(u).all())}")
+        check(u.dtype == torch.float64 and bool(torch.isfinite(u).all()),
+              f"reference {label}: not a finite f64 solution")
+        check(nrm <= REL_TOL * init, f"reference {label} not converged: {nrm} > {REL_TOL} * {init}")
+        check(it <= 17 if label == "solve_fmg" else abs(it - 16) <= 1,
+              f"reference {label}: {it} cycles, expected 16 +- 1")
+        check(err <= REF_ERR_TOL, f"reference {label}: error {err} > {REF_ERR_TOL}")
+        check(not any(counts.values()), f"reference {label}: hand kernels launched {counts}")
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            go()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        busy, n_kernels, _ = device_busy_ms(go)
+        busy_s = "not measured" if busy is None else f"{busy:.3f} ms over {n_kernels} kernels"
+        print(f"[wall {n}^3 f64 {label}] median_of_3_s={statistics.median(walls):.4f} "
+              f"runs_s={[round(w, 4) for w in walls]} device_busy={busy_s} card: {card}")
+
+
+def solver_257(dev, card, tmp):
+    """Phase 9b: MultigridSolver at 257^3: lin_solve to convergence, then a
+    checkpoint saved and restored resumes bit for bit over three more
+    cycles; one lin_solve_profiled stage table."""
+    import multigrid_parallel_tpu_torch as mg
+
+    s = mg.MultigridSolver(5, 7, 2, device=dev)
+    t0 = time.perf_counter()
+    norms = s.solve(rel_tol=REL_TOL)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    init, err = s.get_initial_residual(), s.error_vs_analytic()
+    print(f"[MultigridSolver 257^3] cycles={len(norms)} final_norm={norms[-1]:.6e} "
+          f"rel={norms[-1] / init:.3e} err_l2_vs_analytic={err:.3e} wall_s={solve_s:.4f} "
+          f"card: {card}")
+    check(norms[-1] <= REL_TOL * init and abs(len(norms) - 16) <= 1,
+          f"MultigridSolver: {len(norms)} cycles to {norms[-1] / init}")
+    check(err <= REF_ERR_TOL, f"MultigridSolver: error {err} > {REF_ERR_TOL}")
+    path = str(tmp / "state.npz")
+    t0 = time.perf_counter()
+    s.save(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = mg.MultigridSolver.restore(path, device=dev)
+    restore_s = time.perf_counter() - t0
+    cont = [s.lin_solve() for _ in range(3)]
+    resumed = [r.lin_solve() for _ in range(3)]
+    exact = bool(torch.equal(r.u, s.u)) and resumed == cont
+    print(f"[MultigridSolver 257^3 checkpoint] save_s={save_s:.2f} restore_s={restore_s:.2f} "
+          f"three more cycles {cont} resumed {resumed} bitwise_equal={exact}")
+    check(exact, "MultigridSolver: the restored solver does not resume bit for bit")
+    s.reset_timing_info()
+    s.lin_solve_profiled()
+    print(f"[MultigridSolver 257^3 lin_solve_profiled] card: {card}")
+    s.print_timing_info()
+
+
+def study_50(dev, card, launches):
+    """Phase 9c: the smoother study at 50^3 on K1 (use_pallas=True, f32
+    fields), K1 launch counts reset just before and read just after (4 a
+    iteration, added into ``launches``): its ratio^2 against the published
+    0.983675 within STUDY_TOL, its trajectory bit for bit against the plain
+    f32 study on the card; the f64 plain study's ratio^2 for the record."""
+    from multigrid_parallel_tpu_torch.studies import smoother_study
+
+    kw = dict(n=50, rel_tol=1e-8, max_iters=600, device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    got = smoother_study(use_pallas=True, dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    plain = smoother_study(dtype=torch.float32, **kw)
+    ref64 = smoother_study(dtype=torch.float64, **kw)
+    ratio2 = got.final_ratio ** 2
+    same = got.residual_norms == plain.residual_norms
+    print(f"[study 50^3 K1 f32] iters={got.n_iters} ratio^2={ratio2:.7f} (published 0.983675, "
+          f"tol {STUDY_TOL:g}) final_norm={got.residual_norms[-1]:.6e} K1_launches="
+          f"{counts['rb_smooth_fused']} wall_s={got.wall_time_s:.4f} | plain f32 trajectory "
+          f"bitwise_equal={same} wall_s={plain.wall_time_s:.4f} | plain f64 ratio^2="
+          f"{ref64.final_ratio ** 2:.7f} | card: {card}")
+    check(got.n_iters == 600, f"study: {got.n_iters} iterations")
+    check(counts["rb_smooth_fused"] == 4 * got.n_iters
+          and all(v == 0 for k, v in counts.items() if k != "rb_smooth_fused"),
+          f"study: launches {counts}")
+    check(abs(ratio2 - 0.983675) <= STUDY_TOL, f"study: ratio^2 {ratio2}")
+    check(same, "study: K1 trajectory differs from the plain f32 one")
+    launches["rb_smooth_fused"] += counts["rb_smooth_fused"]
+
+
+def run_cli(args, device):
+    """The CLI in this process; its stdout."""
+    import contextlib
+    import io
+
+    from multigrid_parallel_tpu_torch.__main__ import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli([*args, "--quiet", "--device", device])
+    return buf.getvalue()
+
+
+def cli_values(out):
+    """(cycles or iterations, error or final ratio) from the CLI's output."""
+    m = re.search(r"^cycles: (\d+)   wall time: ", out, re.M)
+    if m:
+        e = re.search(r"^error vs analytic \(L2\): (\S+)$", out, re.M)
+        return int(m.group(1)), (float(e.group(1)) if e else None)
+    m = re.search(r"^iters: (\d+)  converged: True  final ResidRatio: (\S+)  wall: ", out, re.M)
+    check(m is not None, f"CLI printed no result: {out[-300:]}")
+    return int(m.group(1)), float(m.group(2))
+
+
+def cli_phase(tmp):
+    """Phase 9e: the CLI in-process, each flag set with --device cuda and
+    --device cpu: the same cycle count and the printed error (or the
+    study's ratio) within CLI_RTOL; the --vtk files with equal headers and
+    coordinates and values within 1e-13."""
+    base = ["5", "4", "2"]
+    flag_sets = [
+        base, base + ["--mixed"], base + ["--fmg"], base + ["--gamma", "2", "--gamma-min", "9"],
+        base + ["--smoother", "jacobi"], base + ["--smoother", "lex"],
+        base + ["--problem", "trig"], base + ["--f32", "--tol", "1e-3"], base + ["--profile"],
+        ["5", "3", "2", "--study"], ["5", "9", "2", "--ndim", "1"],
+        base + ["--electrospray"], base + ["--electrospray", "--mixed"],
+        base + ["--electrospray", "--fold", "--gamma", "2"],
+        base + ["--electrospray", "--split", "--gamma", "2"],
+    ]
+    for args in flag_sets:
+        got = {}
+        for d in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            got[d] = cli_values(run_cli(args, d)) + (time.perf_counter() - t0,)
+        (c_cuda, v_cuda, s_cuda), (c_cpu, v_cpu, s_cpu) = got["cuda"], got["cpu"]
+        rel = None if v_cuda is None else abs(v_cuda - v_cpu) / abs(v_cpu)
+        print(f"[cli {' '.join(args)}] cuda: {c_cuda}, {v_cuda} ({s_cuda:.2f} s) | cpu: {c_cpu}, "
+              f"{v_cpu} ({s_cpu:.2f} s) | rel_diff={rel}")
+        check(c_cuda == c_cpu, f"CLI {args}: {c_cuda} cycles on the card, {c_cpu} on the CPU")
+        check((v_cuda is None) == (v_cpu is None), f"CLI {args}: printed values differ")
+        if "--f32" in args:
+            # the f32 error is roundoff, in another summation order on each
+            # device: both under 1e-4 at 33^3 (tests/test_torch_reference_solve.py)
+            check(v_cuda < 1e-4 and v_cpu < 1e-4, f"CLI {args}: f32 errors {v_cuda}, {v_cpu}")
+        elif rel is not None:
+            check(rel <= CLI_RTOL, f"CLI {args}: printed values differ: {v_cuda} against {v_cpu}")
+    files = {d: tmp / f"{d}.vtk" for d in ("cuda", "cpu")}
+    for d, path in files.items():
+        run_cli(["5", "4", "2", "--vtk", str(path)], d)
+    lines = {d: path.read_text().splitlines() for d, path in files.items()}
+    n_pts = 33 ** 3
+    head = 6 + n_pts + 3  # header, coordinates, the scalars' header
+    vals = {d: np.array(v[head:], dtype=np.float64) for d, v in lines.items()}
+    dv = float(np.abs(vals["cuda"] - vals["cpu"]).max())
+    print(f"[cli 5 4 2 --vtk] files byte-equal={lines['cuda'] == lines['cpu']} "
+          f"headers and coordinates equal={lines['cuda'][:head] == lines['cpu'][:head]} "
+          f"max|d error field|={dv:.3e} (tol 1e-13) lines={len(lines['cuda'])}")
+    check(len(lines["cuda"]) == len(lines["cpu"]) == head + n_pts, "CLI --vtk: file length")
+    check(lines["cuda"][:head] == lines["cpu"][:head], "CLI --vtk: headers or coordinates differ")
+    check(dv <= 1e-13, f"CLI --vtk: error fields differ by {dv}")
+
+
+def driver_phase(dev, card, launches):
+    """Phase 9: the driver surface on the card (9a-9e)."""
+    import tempfile
+
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch.ops import _build
+    from multigrid_parallel_tpu_torch.utils.timing import profile_padded_stages
+
+    t_phase = time.perf_counter()
+    reference_257(dev, card)
+    with tempfile.TemporaryDirectory(dir=_build.library_path().parent) as tmp_dir:
+        tmp = Path(tmp_dir)
+        solver_257(dev, card, tmp)
+        study_50(dev, card, launches)
+        rows, latency = profile_padded_stages(mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7),
+                                              mg.CycleConfig(n_smooth=2), device=dev)
+        print(f"[profile_padded_stages 257^3] launch+sync latency {1e3 * latency:.4f} ms | "
+              + "; ".join(f"{label}: {1e3 * s:.4f} ms" for label, s in rows)
+              + f" | card: {card}")
+        check(len(rows) == 4 * 6 + 2 and all(s > 0 for _, s in rows),
+              "profile_padded_stages: rows")
+        cli_phase(tmp)
+    print(f"[phase 9] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on one",
@@ -1054,6 +1358,10 @@ def main():
 
     # 8. the same solve on the split tier, held against the fold tier's
     msplit_257(es, dev, card, launches, fold)
+
+    # 9. the driver surface: the f64 reference solve, MultigridSolver, the
+    # smoother study on K1, the stage profile and the CLI
+    driver_phase(dev, card, launches)
 
     # no single PyTorch call computes any of these stencils: library_ms is null
     kernels = [

@@ -75,6 +75,9 @@ class Hierarchy:
         n = self.sizes[level]
         return np.arange(n) * self.spacing(level)
 
+    def zeros(self, level: int, device="cuda") -> torch.Tensor:
+        return torch.zeros((self.sizes[level],) * self.ndim, dtype=self.dtype, device=device)
+
 
 def boundary_mask(n: int, ndim: int) -> np.ndarray:
     """Boolean mask of boundary nodes of an n^ndim grid."""

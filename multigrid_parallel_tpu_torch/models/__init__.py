@@ -1,5 +1,4 @@
-"""Problem definitions. The 1D problems come with their solver path in a
-later slice."""
+"""Problem definitions."""
 
 from multigrid_parallel_tpu_torch.models.electrospray import (
     ElectrosprayProblem,
@@ -7,6 +6,7 @@ from multigrid_parallel_tpu_torch.models.electrospray import (
 )
 from multigrid_parallel_tpu_torch.models.poisson import (
     Problem,
+    poisson_1d_cos,
     poisson_3d_quadratic,
     poisson_3d_trig,
 )
@@ -15,6 +15,7 @@ __all__ = [
     "ElectrosprayProblem",
     "Problem",
     "electrospray_problem",
+    "poisson_1d_cos",
     "poisson_3d_quadratic",
     "poisson_3d_trig",
 ]

@@ -6,7 +6,7 @@ Sign convention (matches the reference throughout): we solve
     lap(u) = f      on the interior,
     u = g           on the boundary (Dirichlet),
 
-with the 2nd-order central 7-point stencil. The reference smoother
+with the 2nd-order central 7-point (3D) / 3-point (1D) stencil. The reference smoother
 update ``v[p] = (sum of neighbors - h^2 f[p]) / 6`` (mg_3d.h:438-443) and
 residual ``f - (1/h^2)(sum - 6 v)`` (mg_3d.h:819-821) are both written
 for this convention.
@@ -81,3 +81,16 @@ def poisson_3d_trig(length: float = 1.0) -> Problem:
         return -3.0 * (math.pi**2) * u(x, y, z)
 
     return Problem(ndim=3, length=length, bc=u, rhs=f, analytic=u, name="poisson3d_trig")
+
+
+def poisson_1d_cos(length: float = 1.0) -> Problem:
+    """The 1D reference problem: u'' = cos(x) on [0, 1] (mg_1d.c:151-152).
+
+    Analytic solution -cos(x) + x (cos(1) - 1) + 1, which is 0 at both
+    endpoints (homogeneous Dirichlet, mg_1d.c:186-192)."""
+
+    def analytic(x):
+        return -torch.cos(x) + x * (math.cos(1.0) - 1.0) + 1.0
+
+    return Problem(ndim=1, length=length, bc=analytic, rhs=torch.cos,
+                   analytic=analytic, name="poisson1d_cos")

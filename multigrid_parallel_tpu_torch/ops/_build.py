@@ -51,6 +51,8 @@ _SIGNATURES = {
     "mg_residual_df_norm_partials": (_I,),
     "mg_residual_df_norm": (_P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
     "mg_residual_restrict": (_P, _P, _P, _I, _F, _P),
+    "mg_rb_last_sweep_residual": (_P, _P, _P, _I, _F, _F, _I, _P),
+    "mg_residual_df": (_P, _P, _P, _P, _P, _I, _F, _P),
     "mg_prolong_correct_black": (_P, _P, _P, _P, _I, _F, _P),
     "mg_df_step_partials": (_I,),
     "mg_df_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P),

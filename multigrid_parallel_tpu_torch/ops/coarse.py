@@ -1,5 +1,5 @@
 """Coarsest-grid direct solve (counterpart of
-``multigrid_parallel_tpu.ops.coarse``, 3D).
+``multigrid_parallel_tpu.ops.coarse``).
 
 The reference builds a dense (N^3)^2 matrix — interior rows the 7-point
 Laplacian scaled by 1/h^2, boundary rows identity (constructCoarseMatrixA,
@@ -39,16 +39,36 @@ def build_coarse_matrix_3d(n: int, h: float) -> np.ndarray:
     return a
 
 
+def build_coarse_matrix_1d(n: int, h: float) -> np.ndarray:
+    """Tridiagonal {1, -2, 1}/h^2 with identity end rows (mg_1d.c:77-86,
+    which builds the unscaled {1, -2, 1} form; the 1/h^2 scaling keeps it
+    consistent with the 3D matrix, as in the JAX package)."""
+    a = np.zeros((n, n), dtype=np.float64)
+    inv_h2 = 1.0 / (h * h)
+    a[0, 0] = 1.0
+    a[n - 1, n - 1] = 1.0
+    for j in range(1, n - 1):
+        a[j, j - 1] = inv_h2
+        a[j, j] = -2.0 * inv_h2
+        a[j, j + 1] = inv_h2
+    return a
+
+
+def _build_matrix(n: int, h: float, ndim: int) -> np.ndarray:
+    return build_coarse_matrix_3d(n, h) if ndim == 3 else build_coarse_matrix_1d(n, h)
+
+
 def make_coarse_solver(n: int, h: float, dtype: torch.dtype, device,
-                       method: str = "lu") -> Callable[[torch.Tensor], torch.Tensor]:
-    """Return solve(f_grid) -> u_grid for the (n, n, n) coarsest level.
+                       method: str = "lu", ndim: int = 3
+                       ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Return solve(f_grid) -> u_grid for the coarsest level, (n,) * ndim.
 
     The factorization runs once here, on the host in f64 (the analogue
     of the one-time convertToLU_InPlace call at mg_3d.h:289). torch's LU
     pivots are 1-based LAPACK ipiv, so the factor comes from
     ``torch.linalg.lu_factor`` itself rather than from scipy (0-based)."""
-    a = torch.from_numpy(build_coarse_matrix_3d(n, h))
-    shape = (n, n, n)
+    a = torch.from_numpy(_build_matrix(n, h, ndim))
+    shape = (n,) * ndim
 
     if method == "lu":
         lu, piv = torch.linalg.lu_factor(a)
@@ -70,3 +90,16 @@ def make_coarse_solver(n: int, h: float, dtype: torch.dtype, device,
         raise ValueError(f"unknown coarse method {method!r}")
 
     return solve
+
+
+def direct_solve_poisson(f: torch.Tensor, h: float) -> torch.Tensor:
+    """One-shot dense direct solve of the FULL n^d Poisson system, with
+    Dirichlet boundary values read from f's boundary entries: the
+    capability of test_lu.c:23-43 (practical only for small n). Factored
+    and solved on the host in f64; the result is in f's dtype on f's
+    device."""
+    a = torch.from_numpy(_build_matrix(f.shape[0], h, f.ndim))
+    lu, piv = torch.linalg.lu_factor(a)
+    b = f.detach().to(device="cpu", dtype=torch.float64).reshape(-1, 1)
+    x = torch.linalg.lu_solve(lu, piv, b)
+    return x.reshape(f.shape).to(device=f.device, dtype=f.dtype)

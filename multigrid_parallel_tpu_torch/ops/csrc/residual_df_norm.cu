@@ -1,7 +1,10 @@
-// Compensated (EFT) residual of a double-float solution plus ||r||^2.
+// Compensated (EFT) residual of a double-float solution plus ||r||^2
+// (K5), and the same residual alone (K27).
 //
-// Replaces the Pallas kernel multigrid_parallel_tpu/ops/pallas3d.py:
-// residual_df_norm_fused_padded (K5): the compensated residual of
+// Replaces the Pallas kernels multigrid_parallel_tpu/ops/pallas3d.py:
+// residual_df_norm_fused_padded (K5) and residual_df_fused_padded (K27,
+// K5 without the norm: one launch that writes r and skips the partial
+// sums). Both compute the compensated residual of
 // u = u_hi + u_lo against f = f_hi + f_lo (mg::eft_residual in eft.cuh,
 // the operation order of the JAX _eft_residual) on interior points, 0 on
 // the boundary.
@@ -46,6 +49,23 @@ __global__ void residual_df_partials_kernel(
   mg::block_partial(rr, partials);
 }
 
+__global__ void residual_df_kernel(float* __restrict__ out, const float* __restrict__ uh,
+                                   const float* __restrict__ ul,
+                                   const float* __restrict__ fh,
+                                   const float* __restrict__ fl, int n, float inv_h2) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  int i, j, k;
+  if (!mg::decode(p, n, i, j, k)) return;
+  float v = 0.0f;
+  if (mg::is_interior(i, j, k, n)) {
+    float nh[6], nl[6];
+    mg::load_nbrs(uh, p, n, nh);
+    mg::load_nbrs(ul, p, n, nl);
+    v = mg::eft_residual(fh[p], fl[p], uh[p], nh, ul[p], nl, inv_h2);
+  }
+  out[p] = v;
+}
+
 }  // namespace
 
 // Number of f64 partials the caller allocates for an n^3 field.
@@ -63,5 +83,14 @@ extern "C" int mg_residual_df_norm(float* r, float* nrm2, double* partials,
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   sum_partials_kernel<<<1, mg::kReduceThreads, 0, stream>>>(partials, blocks, nrm2);
+  return (int)cudaGetLastError();
+}
+
+// K27: the compensated residual alone, r as K5 writes it.
+extern "C" int mg_residual_df(float* r, const float* u_hi, const float* u_lo,
+                              const float* f_hi, const float* f_lo, int n, float inv_h2,
+                              cudaStream_t stream) {
+  residual_df_kernel<<<mg::point_blocks(n), mg::kThreads, 0, stream>>>(
+      r, u_hi, u_lo, f_hi, f_lo, n, inv_h2);
   return (int)cudaGetLastError();
 }

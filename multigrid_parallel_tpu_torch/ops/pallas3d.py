@@ -7,23 +7,33 @@ is kept so each port sits beside its Pallas original). Wrapper, the
 Pallas kernel it replaces in multigrid_parallel_tpu/ops/pallas3d.py,
 and its CUDA source in ops/csrc/:
 
-  K1 rb_smooth_fused              rb_smooth_fused_pipelined       rb_smooth.cu
-  K2 rb_smooth_from_zero_fused    rb_smooth_from_zero_fused       rb_smooth.cu
-  R  residual_fused               residual_fused_pipelined        residual.cu
-  K3 residual_restrict_fused      residual_restrict_fused_padded  residual_restrict.cu
-  K4 prolong_smooth_fused         prolong_smooth_fused_padded     prolong_smooth.cu
-  K5 residual_df_norm_fused       residual_df_norm_fused_padded   residual_df_norm.cu
-  K6 df_step_residual_norm_fused  df_step_residual_norm_fused     df_step.cu
+  K1  rb_smooth_fused             rb_smooth_fused_pipelined,      rb_smooth.cu
+                                  rb_smooth_fused_padded, and the
+                                  cube wrapper rb_smooth_fused
+  K2  rb_smooth_from_zero_fused   rb_smooth_from_zero_fused       rb_smooth.cu
+  R   residual_fused              residual_fused_pipelined,       residual.cu
+                                  residual_fused_padded, and the
+                                  cube wrapper residual_fused
+  K3  residual_restrict_fused     residual_restrict_fused_padded  residual_restrict.cu
+  K4  prolong_smooth_fused        prolong_smooth_fused_padded     prolong_smooth.cu
+  K5  residual_df_norm_fused      residual_df_norm_fused_padded   residual_df_norm.cu
+  K6  df_step_residual_norm_fused df_step_residual_norm_fused     df_step.cu
+  K26 rb_smooth_residual_fused    rb_smooth_residual_fused_padded rb_smooth_residual.cu
+  K27 residual_df_fused           residual_df_fused_padded        residual_df_norm.cu
 
-(K5 and K6 share the double-float arithmetic of eft.cuh; K4 finishes its
+The JAX package's single-buffered and pipelined Pallas forms of K1 and R
+differ only in how the TPU overlaps its DMAs, so one Hopper kernel
+serves both. ``residual_norm_fused`` is R and then a torch sum, as the
+JAX function takes its norm outside the kernel. (K5, K6 and K27 share
+the double-float arithmetic of eft.cuh; K4 and K26 finish or start their
 stage with K1 half-sweeps.) Fields are plain contiguous (n, n, n)
 tensors: the port has none of the TPU's lane padding. A wrapper takes
 the plain version for a tensor on the CPU, launches its kernel for a
 CUDA tensor (float32, contiguous, cubic), and raises for anything else:
 there is no fallback from the kernel to the plain version. Each kernel
 launch adds one to its entry in ``LAUNCHES`` (the launch of K5 or K6 is
-the pair: per-block partials, then their sum; each K1 half-sweep that
-K4 runs counts as a K4 launch).
+the pair: per-block partials, then their sum; each K1 half-sweep that K4
+or K26 runs counts as a K4 or K26 launch).
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ KERNELS = (
     "residual_restrict_fused",
     "prolong_smooth_fused",
     "df_step_residual_norm_fused",
+    "rb_smooth_residual_fused",
+    "residual_df_fused",
 )
 # kernel launches per wrapper, since the last reset_launches()
 LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -170,6 +182,52 @@ def residual_fused(u, f, h: float):
            "residual_fused")
     LAUNCHES["residual_fused"] += 1
     return r
+
+
+def residual_norm_plain(u, f, h: float):
+    return ops3.residual_norm(u, f, h)
+
+
+def residual_norm_fused(u, f, h: float):
+    """||r||_2 of the interior residual, a 0-d tensor: R (counted as an R
+    launch on the card), then the sum in torch."""
+    r = residual_fused(u, f, h)
+    return torch.sqrt(torch.sum(r * r))
+
+
+# ------------------------------------- K26: RB-GS stage + residual of it
+
+
+def rb_smooth_residual_plain(u, f, h: float, n_iter: int, red_first: bool = True):
+    """Plain version of K26: K1's plain version, then R's on its result."""
+    u2 = rb_smooth_plain(u, f, h, n_iter, red_first)
+    return u2, residual_plain(u2, f, h)
+
+
+def rb_smooth_residual_fused(u, f, h: float, n_iter: int, red_first: bool = True):
+    """(u', r): n_iter red-black GS iterations and the interior residual
+    of their result (the pre-smoothing stage and its residual in one
+    call). Updates ``u`` IN PLACE and returns it with a fresh r (on both
+    devices). The CUDA form is 2 * n_iter - 1 K1 half-sweeps and one
+    launch that sweeps the last colour and writes r, all counted as K26
+    launches."""
+    if n_iter < 1:
+        raise ValueError(f"n_iter must be >= 1, got {n_iter}")
+    if not _on_cuda(u, f):
+        u.copy_(rb_smooth_plain(u, f, h, n_iter, red_first))
+        return u, residual_plain(u, f, h)
+    lib, stream, n, h2 = _lib(), _stream(), u.shape[0], h * h
+    colors = list(_colors(red_first)) * n_iter
+    for c in colors[:-1]:
+        _check(lib.mg_rb_half_sweep(u.data_ptr(), f.data_ptr(), n, h2, c, stream),
+               "rb_smooth_residual_fused")
+        LAUNCHES["rb_smooth_residual_fused"] += 1
+    r = torch.empty_like(u)
+    _check(lib.mg_rb_last_sweep_residual(u.data_ptr(), r.data_ptr(), f.data_ptr(), n, h2,
+                                         1.0 / (h * h), colors[-1], stream),
+           "rb_smooth_residual_fused")
+    LAUNCHES["rb_smooth_residual_fused"] += 1
+    return u, r
 
 
 # ------------------------------------------- K3: residual + restriction
@@ -310,10 +368,7 @@ def residual_df_norm_plain(u_hi, u_lo, f_hi, f_lo, h: float):
     """Plain version of K5: the EFT residual r of u_hi + u_lo against
     f_hi + f_lo (zero boundary) and ||r||^2, the sum taken in f64 and
     returned in r's dtype, as the kernel does."""
-    r = _eft_residual(f_hi, f_lo, u_hi, _roll_nbrs(u_hi), u_lo,
-                      _roll_nbrs(u_lo), 1.0 / (h * h))
-    _, _, interior = ops3._masks(u_hi.shape[0], u_hi.device)
-    r = torch.where(interior, r, torch.zeros_like(r))
+    r = residual_df_plain(u_hi, u_lo, f_hi, f_lo, h)
     r64 = r.to(torch.float64)
     return r, torch.sum(r64 * r64).to(r.dtype)
 
@@ -334,6 +389,31 @@ def residual_df_norm_fused(u_hi, u_lo, f_hi, f_lo, h: float):
         n, 1.0 / (h * h), _stream()), "residual_df_norm_fused")
     LAUNCHES["residual_df_norm_fused"] += 1
     return r, nrm2
+
+
+# ------------------------------------------ K27: double-float residual
+
+
+def residual_df_plain(u_hi, u_lo, f_hi, f_lo, h: float):
+    """Plain version of K27, and K5's residual: the EFT residual of u_hi +
+    u_lo against f_hi + f_lo, zero boundary."""
+    r = _eft_residual(f_hi, f_lo, u_hi, _roll_nbrs(u_hi), u_lo,
+                      _roll_nbrs(u_lo), 1.0 / (h * h))
+    _, _, interior = ops3._masks(u_hi.shape[0], u_hi.device)
+    return torch.where(interior, r, torch.zeros_like(r))
+
+
+def residual_df_fused(u_hi, u_lo, f_hi, f_lo, h: float):
+    """The compensated residual of the double-float solution (zero
+    boundary), as K5 computes it, without the norm."""
+    if not _on_cuda(u_hi, u_lo, f_hi, f_lo):
+        return residual_df_plain(u_hi, u_lo, f_hi, f_lo, h)
+    r = torch.empty_like(u_hi)
+    _check(_lib().mg_residual_df(r.data_ptr(), u_hi.data_ptr(), u_lo.data_ptr(),
+                                 f_hi.data_ptr(), f_lo.data_ptr(), u_hi.shape[0],
+                                 1.0 / (h * h), _stream()), "residual_df_fused")
+    LAUNCHES["residual_df_fused"] += 1
+    return r
 
 
 # ------------------------------------ K6: df_add + residual + norm (one step)

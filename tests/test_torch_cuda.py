@@ -3,7 +3,9 @@ double-float solve on the card against the same solve on the CPU, the
 split-colour solve (K7-K12 on the finest level) against the fused rect
 one, and the electrospray tiers (full: K13-K15 with K3 and K5; k-fold:
 K16-K20; split-colour: K21-K25 over the fold cycle) on the card against
-the CPU.
+the CPU, K26 (smoothing stage + residual) and K27 (double-float
+residual) against their plain versions, the f64 reference solve on the
+card against the CPU, and the smoother study on K1.
 
 These need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 themselves where there is none. The file imports no jax, so on a machine
@@ -533,3 +535,53 @@ def test_msplit_tier_on_card_matches_cpu(cuda, gamma, inner_cycles):
     assert all(tpms.LAUNCHES[k] > 0 for k in tpms.KERNELS if k != "mixed_rb_smooth_msplit")
     assert tpmf.LAUNCHES["residual_df_norm_fold"] == 0
     assert not any(tpk.LAUNCHES.values()) and not any(tpm.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 65])
+def test_k26_k27_match_plain_on_card(cuda, n):
+    h = 1.0 / (n - 1)
+    u, f = _fields32(20, n, cuda)
+    tpk.reset_launches()
+    for n_iter in (1, 2, 3):
+        for red_first in (True, False):
+            want_u, want_r = tpk.rb_smooth_residual_plain(u, f, h, n_iter, red_first)
+            u1 = u.clone()
+            got_u, got_r = tpk.rb_smooth_residual_fused(u1, f, h, n_iter, red_first)
+            assert got_u is u1
+            assert torch.equal(got_u, want_u) and torch.equal(got_r, want_r)
+    state = _df_state(21, n, cuda)
+    r = tpk.residual_df_fused(*state, h)
+    assert torch.equal(r, tpk.residual_df_plain(*state, h))
+    assert torch.equal(r, tpk.residual_df_norm_fused(*state, h)[0])
+    nrm = tpk.residual_norm_fused(u, f, h)
+    assert float(nrm) == pytest.approx(float(tpk.residual_norm_plain(u, f, h)), rel=1e-6)
+    # K26: 2 n_iter launches a call, n_iter = 1, 2, 3, both orders
+    assert tpk.LAUNCHES == {**dict.fromkeys(tpk.KERNELS, 0),
+                            "rb_smooth_residual_fused": 24, "residual_df_fused": 1,
+                            "residual_df_norm_fused": 1, "residual_fused": 1}
+
+
+@pytest.mark.cuda
+def test_reference_solve_on_card_matches_cpu(cuda):
+    # the f64 reference solve is plain torch on either device
+    hier = tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=4)
+    runs = [tmg.solve(tmg.poisson_3d_quadratic(), hier, device=d) for d in (cuda, "cpu")]
+    assert runs[0].n_cycles == runs[1].n_cycles == 14
+    assert runs[0].u.is_cuda
+    assert float((runs[0].u.cpu() - runs[1].u).abs().max()) <= 1e-12
+    assert runs[0].error_norm == pytest.approx(runs[1].error_norm, rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_smoother_study_on_k1(cuda):
+    from multigrid_parallel_tpu_torch.studies import smoother_study
+
+    # both set up in f32, so K1's trajectory equals the plain one bit for bit
+    tpk.reset_launches()
+    got = smoother_study(num_levels=2, rel_tol=0.0, max_iters=6, use_pallas=True,
+                         dtype=torch.float32, device=cuda)
+    assert tpk.LAUNCHES["rb_smooth_fused"] == 4 * 6
+    plain = smoother_study(num_levels=2, rel_tol=0.0, max_iters=6, dtype=torch.float32,
+                           device=cuda)
+    assert got.residual_norms == plain.residual_norms

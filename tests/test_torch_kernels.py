@@ -1,7 +1,8 @@
-"""The four kernel functions of the port (K1, K2, R, K5 in
-multigrid_parallel_tpu_torch.ops.pallas3d) against the JAX package's
-Pallas kernels, run in interpret mode at 17^3 f32 on the same
-numpy-seeded inputs, and the double-float helpers.
+"""The kernel functions of the port's first slice (K1, K2, R, K5 in
+multigrid_parallel_tpu_torch.ops.pallas3d), the rest of that module
+(K26 smooth + residual, K27 double-float residual, residual_norm_fused)
+against the JAX package's Pallas kernels, run in interpret mode at 17^3
+f32 on the same numpy-seeded inputs, and the double-float helpers.
 
 On CPU tensors the wrappers take their plain PyTorch versions; the CUDA
 kernels themselves are held against those plain versions on the card
@@ -121,6 +122,54 @@ def test_residual_df_matches_f64_oracle():
     assert float(nrm2) == pytest.approx(float((want * want).sum()), rel=1e-5)
 
 
+@pytest.mark.parametrize("red_first", [True, False])
+@pytest.mark.parametrize("n_iter", [1, 2])
+def test_rb_smooth_residual_fused_matches_pallas(red_first, n_iter):
+    u, f = _fields32(11)
+    want_u, want_r = jpk.rb_smooth_residual_fused_padded(
+        _pad(u), _pad(f), H, n_iter, N, red_first=red_first, block_i=4)
+    ut = torch.from_numpy(u.copy())
+    got_u, got_r = tpk.rb_smooth_residual_fused(ut, torch.from_numpy(f), H, n_iter,
+                                                red_first=red_first)
+    assert got_u is ut  # updated in place, as the CUDA form does
+    _assert_ulps(got_u, _unpad(want_u))
+    _assert_ulps(got_r, _unpad(want_r))
+    # the plain version is K1's plain version, then R's
+    pu, pr = tpk.rb_smooth_residual_plain(torch.from_numpy(u), torch.from_numpy(f), H,
+                                          n_iter, red_first)
+    assert torch.equal(pu, got_u) and torch.equal(pr, got_r)
+
+
+def test_rb_smooth_residual_fused_needs_an_iteration():
+    u, f = _fields32(12, 9)
+    with pytest.raises(ValueError, match="n_iter"):
+        tpk.rb_smooth_residual_fused(torch.from_numpy(u), torch.from_numpy(f), 0.125, 0)
+
+
+def test_residual_df_fused_matches_pallas():
+    u64, f64 = _df_state(13)
+    u_hi, u_lo = jpk.df_split(jnp.asarray(u64), pad=True)
+    f_hi, f_lo = jpk.df_split(jnp.asarray(f64), pad=True)
+    want = jpk.residual_df_fused_padded(u_hi, u_lo, f_hi, f_lo, H, N, block_i=4)
+    port = convert.from_jax_state(u_hi, u_lo, f_hi, f_lo, N, device="cpu")
+    got = tpk.residual_df_fused(*port, H)
+    _assert_ulps(got, _unpad(want))
+    # K27's r is K5's r
+    assert torch.equal(got, tpk.residual_df_norm_fused(*port, H)[0])
+
+
+def test_residual_norm_fused_matches_jax():
+    u, f = _fields32(14)
+    want = jpk.residual_norm_fused(jnp.asarray(u), jnp.asarray(f), H, block_i=4)
+    got = tpk.residual_norm_fused(torch.from_numpy(u), torch.from_numpy(f), H)
+    assert got.shape == () and got.dtype == torch.float32
+    # the residuals agree to 4 ulp; the f32 sums of squares run in
+    # another order
+    assert float(got) == pytest.approx(float(want), rel=1e-5)
+    assert torch.equal(got, tpk.residual_norm_plain(torch.from_numpy(u),
+                                                    torch.from_numpy(f), H))
+
+
 def test_df_split_add_match_jax():
     rng = np.random.default_rng(1)
     x = rng.standard_normal(1000) * 100
@@ -167,9 +216,11 @@ def test_build_flags_and_library_name():
     assert path.parent.name == "_build" and path.suffix == ".so"
     names = {p.name for p in _build._sources()}
     assert {"rb_smooth.cu", "residual.cu", "residual_df_norm.cu", "residual_restrict.cu",
-            "prolong_smooth.cu", "df_step.cu", "eft.cuh", "stencil.cuh"} <= names
+            "prolong_smooth.cu", "df_step.cu", "rb_smooth_residual.cu", "eft.cuh",
+            "stencil.cuh"} <= names
     assert {"mg_residual_restrict", "mg_prolong_correct_black", "mg_df_step",
-            "mg_df_step_partials"} <= set(_build._SIGNATURES)
+            "mg_df_step_partials", "mg_rb_last_sweep_residual",
+            "mg_residual_df"} <= set(_build._SIGNATURES)
     # no kernel source leans on a library for the work its TPU kernel does
     for src in _build._sources():
         text = src.read_text()
