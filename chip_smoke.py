@@ -22,7 +22,9 @@ pairs: K22-K25, and K21 where a cycle starts from a correction; the
 levels below on the fold cycle). And the reference driver surface: the
 f64 V-cycle solve at 257^3 through each of its entry points,
 MultigridSolver with a checkpoint, the smoother study on K1 and the
-CLI. Phases, each of which fails the run:
+CLI. And the i-sharded distributed double-float solve at 257^3 on
+torch.distributed (K28-K32; K33 beside them), on one NCCL rank and on
+four gloo ranks sharing the card. Phases, each of which fails the run:
 
   1. build the hand-written CUDA kernels from ops/csrc (one nvcc per
      source, all started together; sm_90a);
@@ -74,11 +76,28 @@ CLI. Phases, each of which fails the run:
      1e-3 of the published 0.983675, the trajectory bit for bit against
      the plain f32 study; (d) profile_padded_stages at 257^3; (e) the CLI
      in-process, each flag set on the card and on the CPU at 33^3: the
-     same cycle counts, printed errors within 1e-5.
+     same cycle counts, printed errors within 1e-5;
+ 10. the i-sharded solve (parallel.sharded_padded): (a) K28-K33 on four
+     simulated ranks' segments of 65^3 and 257^3 fields, each bitwise
+     equal to its plain version and, stitched, to the single-device
+     kernels (K1, K2, R, K3, K4, K5's r; the partial norms' sum within
+     1e-6 of K5's), each timed against its plain version; (b)
+     make_sharded_df_solver at 257^3 on one rank of an NCCL group, launch
+     counts reset and read around it: only K28-K32 launched, the fused
+     solve's outer steps, error within 1% of its, max|u - u_fused| <=
+     1e-9, walls interleaved with the fused solve (5 each) and the device
+     busy time of each; (c) the same solve on four gloo ranks on the one
+     card (halos staged through host memory, every kernel on the card),
+     spawned by parallel.launch: (b)'s outer steps, u within 1e-9 of (b)'s,
+     each rank launching only K28-K32 and, in the replicated 9^3 cycle,
+     K2-K4, one host-staged wall (not a scaling
+     figure); and the f64 sharded V-cycle at 129^3 on those ranks against
+     the single-device one within 1e-11.
 
 Prints a {"kernels": [...]} line (each kernel's launches summed over the
-257^3 runs of phases 4, 6, 7 and 8, the split tier's 33^3 card solves of
-phase 3 and the study of phase 9c; bound_ms from the timed call's bytes
+257^3 runs of phases 4, 6, 7, 8 and 10 (all four ranks of 10c), the split
+tier's 33^3 card solves of phase 3 and the study of phase 9c; bound_ms
+from the timed call's bytes
 and operations), the
 card's name and power limit, and as its last line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -162,6 +181,25 @@ SOURCES = {
                                     "multigrid_parallel_tpu/ops/pallas_mixed_split.py:831"),
     "residual_df_norm_msplit": ("multigrid_parallel_tpu_torch/ops/csrc/residual_df_norm_msplit.cu",
                                 "multigrid_parallel_tpu/ops/pallas_mixed_split.py:922"),
+    # the i-sharded kernels: each serves the ext and the halo form of its
+    # Pallas kernel (the sites :184 and :864 for K28 / K29; :374 and :864 for K32)
+    "rb_smooth_seg": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth_seg.cu",
+                      "multigrid_parallel_tpu/ops/pallas_sharded.py:184, "
+                      "multigrid_parallel_tpu/ops/pallas_sharded.py:864"),
+    "rb_smooth_from_zero_seg": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth_seg.cu",
+                                "multigrid_parallel_tpu/ops/pallas_sharded.py:184, "
+                                "multigrid_parallel_tpu/ops/pallas_sharded.py:864"),
+    "residual_restrict_seg": ("multigrid_parallel_tpu_torch/ops/csrc/residual_restrict_seg.cu",
+                              "multigrid_parallel_tpu/ops/pallas_sharded.py:511, "
+                              "multigrid_parallel_tpu/ops/pallas_sharded.py:1056"),
+    "prolong_smooth_seg": ("multigrid_parallel_tpu_torch/ops/csrc/prolong_smooth_seg.cu",
+                           "multigrid_parallel_tpu/ops/pallas_sharded.py:658, "
+                           "multigrid_parallel_tpu/ops/pallas_sharded.py:1188"),
+    "residual_df_norm_seg": ("multigrid_parallel_tpu_torch/ops/csrc/residual_df_norm_seg.cu",
+                             "multigrid_parallel_tpu/ops/pallas_sharded.py:374, "
+                             "multigrid_parallel_tpu/ops/pallas_sharded.py:864"),
+    "residual_seg": ("multigrid_parallel_tpu_torch/ops/csrc/residual.cu",
+                     "multigrid_parallel_tpu/ops/pallas_sharded.py:184"),
 }
 # f32 operations per stored output point of each kernel as the main path
 # calls it (n_iter = 2), counted from its arithmetic: an RB update is 8
@@ -182,6 +220,8 @@ OPS_PER_POINT = {
     "mixed_rb_smooth_msplit": 16, "mixed_rb_smooth_from_zero_msplit": 16,
     "residual_restrict_msplit": 14, "mixed_prolong_smooth_msplit": 20,
     "residual_df_norm_msplit": 72, "rb_smooth_residual_fused": 16 + 9, "residual_df_fused": 70,
+    "rb_smooth_seg": 16, "rb_smooth_from_zero_seg": 16, "residual_restrict_seg": 14,
+    "prolong_smooth_seg": 20, "residual_df_norm_seg": 72, "residual_seg": 9,
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores (same sheet)
@@ -227,6 +267,18 @@ STUDY_TOL = 1e-3
 # difference of O(1) values that agree to ~1e-15 (matrix-product sums in
 # another order), ~1e-6 relative, printed to 7 digits
 CLI_RTOL = 1e-5
+SHARDED_RANKS = 4           # simulated (phase 10a) and host-staged gloo (10c) ranks on the one card
+SHARDED_DU_TOL = 1e-9       # max|u|: the sharded 257^3 solves against the single-device fused one
+SHARDED_NORM_RTOL = 1e-6    # the ranks' partial ||r||^2 summed, against K5's (the sum's order only)
+# the f64 sharded V-cycle against the single-device one (tests/test_sharded.py)
+SHARDED_F64_TOL = 1e-11
+# the kernels of the sharded 257^3 solve (K33, residual_ext, is on no path, as in the JAX
+# package): on one rank the plan shards down to 9^3 and gathers the bare 5^3 LU; on four
+# it gathers at 9^3, whose replicated cycle runs K2, K3 and K4 on every rank
+SEG_KERNELS = ("rb_smooth_seg", "rb_smooth_from_zero_seg", "residual_restrict_seg",
+               "prolong_smooth_seg", "residual_df_norm_seg")
+SEG_TAIL_KERNELS = ("rb_smooth_from_zero_fused", "residual_restrict_fused",
+                    "prolong_smooth_fused")
 
 
 def check(cond, msg):
@@ -725,9 +777,10 @@ def device_busy_ms(fn):
 
 def _launch_modules():
     from multigrid_parallel_tpu_torch.ops import pallas3d, pallas_mixed, pallas_mixed_fold
-    from multigrid_parallel_tpu_torch.ops import pallas_mixed_split, pallas_split
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed_split, pallas_sharded, pallas_split
 
-    return pallas3d, pallas_split, pallas_mixed, pallas_mixed_fold, pallas_mixed_split
+    return (pallas3d, pallas_split, pallas_mixed, pallas_mixed_fold, pallas_mixed_split,
+            pallas_sharded)
 
 
 def reset_launches():
@@ -923,14 +976,14 @@ def msplit_257(es, dev, card, launches, fold):
     print_device_time({"msplit": solve, "fold": solve_fold}, f"{n}^3 electrospray", card)
 
 
-def interleave(solves, what, card):
+def interleave(solves, what, card, reps=INTERLEAVED):
     """The walls (host clock) and CUDA-event spans of the two solves in
     ``solves``, interleaved run by run (alternating which goes first),
-    INTERLEAVED each; prints the medians and the pairs."""
+    ``reps`` each; prints the medians and the pairs."""
     a, b = solves
     walls = {a: [], b: []}
     spans = {a: [], b: []}
-    for rep in range(INTERLEAVED):
+    for rep in range(reps):
         for label in (a, b) if rep % 2 == 0 else (b, a):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -944,7 +997,7 @@ def interleave(solves, what, card):
             spans[label].append(start.elapsed_time(end))
     med = {k: statistics.median(v) for k, v in walls.items()}
     med_span = {k: statistics.median(v) for k, v in spans.items()}
-    print(f"[interleaved {what} {a} vs {b}] runs={INTERLEAVED} each | wall median ms: "
+    print(f"[interleaved {what} {a} vs {b}] runs={reps} each | wall median ms: "
           f"{a}={med[a]:.3f} {b}={med[b]:.3f} {a}/{b}={med[a] / med[b]:.3f} | event span "
           f"median ms: {a}={med_span[a]:.3f} {b}={med_span[b]:.3f} | pairs ({a}, {b}) "
           f"ms={[(round(x, 3), round(y, 3)) for x, y in zip(walls[a], walls[b])]} | card: {card}")
@@ -1176,6 +1229,369 @@ def driver_phase(dev, card, launches):
     print(f"[phase 9] {time.perf_counter() - t_phase:.1f} s")
 
 
+def _seg_parts(x, rank, L, kl, kr):
+    """Rank ``rank``'s own copies of its (local, lh, rh) segments of the
+    global field x (n_dev * L planes); a chain end receives zeros."""
+    n_dev, m = x.shape[0] // L, x.shape[1:]
+    body = x[rank * L:(rank + 1) * L].clone()
+    lh = x[rank * L - kl:rank * L].clone() if rank > 0 else x.new_zeros((kl,) + m)
+    rh = (x[(rank + 1) * L:(rank + 1) * L + kr].clone() if rank < n_dev - 1
+          else x.new_zeros((kr,) + m))
+    return body, lh, rh
+
+
+def _seg_ext(x, rank, L, k):
+    body, lh, rh = _seg_parts(x, rank, L, k, k)
+    return torch.cat([lh, body, rh])
+
+
+def compare_sharded(dev, results):
+    """Phase 10a: K28-K33 on SHARDED_RANKS simulated ranks' segments of
+    65^3 and 257^3 fields (their own copies: real neighbour halos, zeros at
+    the chain ends, gi0 = rank L - halo; L as the 4-rank plan has it, 24
+    and 96, so at 257^3 the last rank owns only pad planes): each rank's
+    kernel output bitwise equal to its plain version on the same segments,
+    the stitched owned rows bitwise equal to the single-device kernel on
+    the whole field (K1 stage both orders, K2 stage, R, K3, K4 stage, K5's
+    r), the ranks' partial norms summed within SHARDED_NORM_RTOL of K5's;
+    then each timed on rank 1's 257^3 segments against its plain version."""
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch.ops import pallas3d as pk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as px
+    from multigrid_parallel_tpu_torch.parallel import sharded as sh
+
+    D, hh = SHARDED_RANKS, 4  # the stage halo of n_smooth = 2
+    for name in px.KERNELS:
+        results[name] = {"max_abs_err": 0.0}
+
+    def same(name, n, label, got, want):
+        err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        check(torch.equal(got, want), f"{name} n={n} {label}: not bitwise equal ({err:.3e})")
+
+    for levels in (5, 7):
+        hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=levels)
+        n, L = hier.finest_n, sh.plan_sharding(hier, D).local_planes(0)
+        h, nc, Lc = 1.0 / (n - 1), (n + 1) // 2, L // 2
+        rng = np.random.default_rng(n + 10)
+
+        def glob(m, rows):
+            x = np.zeros((rows, m, m), np.float32)
+            x[:m] = rng.standard_normal((m, m, m))
+            return torch.from_numpy(x).to(dev)
+
+        u, f, ec = glob(n, D * L), glob(n, D * L), glob(nc, D * Lc)
+        parts = lambda x, r, kl, kr, Lr=L: _seg_parts(x, r, Lr, kl, kr)  # noqa: E731
+
+        def stitched(name, label, kernel, plain, want):
+            outs = []
+            for r in range(D):
+                got = kernel(r)
+                same(name, n, f"{label} rank {r} against plain", got, plain(r))
+                outs.append(got)
+            same(name, n, f"{label} stitched against single-device",
+                 torch.cat(outs)[:want.shape[0]], want)
+            return torch.cat(outs)
+
+        for red in (True, False):
+            want = pk.rb_smooth_fused(u[:n].clone(), f[:n], h, 2, red)
+            stitched("rb_smooth_seg", f"red_first={red}",
+                     lambda r: px.rb_smooth_halo(parts(u, r, hh, hh), parts(f, r, hh, hh),
+                                                 r * L - hh, h, 2, n, L, red),
+                     lambda r: px.rb_smooth_halo_plain(parts(u, r, hh, hh), parts(f, r, hh, hh),
+                                                       r * L - hh, h, 2, n, L, red), want)
+        stitched("rb_smooth_seg", "ext form",
+                 lambda r: px.rb_smooth_ext(_seg_ext(u, r, L, hh), _seg_ext(f, r, L, hh),
+                                            r * L - hh, h, 2, n, L, False),
+                 lambda r: px.rb_smooth_halo_plain(parts(u, r, hh, hh), parts(f, r, hh, hh),
+                                                   r * L - hh, h, 2, n, L, False), want)
+        stitched("rb_smooth_from_zero_seg", "red_first=True",
+                 lambda r: px.rb_smooth_from_zero_halo(parts(f, r, hh, hh), r * L - hh, h, 2, n, L),
+                 lambda r: px.rb_smooth_from_zero_halo_plain(parts(f, r, hh, hh), r * L - hh, h,
+                                                             2, n, L),
+                 pk.rb_smooth_from_zero_fused(f[:n], h, 2))
+        stitched("residual_seg", "ext form",
+                 lambda r: px.residual_ext(_seg_ext(u, r, L, 1), _seg_ext(f, r, L, 1), r * L - 1,
+                                           h, n, L),
+                 lambda r: px.residual_ext_plain(_seg_ext(u, r, L, 1), _seg_ext(f, r, L, 1),
+                                                 r * L - 1, h, n, L),
+                 pk.residual_fused(u[:n], f[:n], h))
+        coarse = stitched("residual_restrict_seg", "halo 2 / 1",
+                          lambda r: px.residual_restrict_halo(parts(u, r, 2, 1), parts(f, r, 2, 1),
+                                                              r * L - 2, h, n, Lc),
+                          lambda r: px.residual_restrict_halo_plain(parts(u, r, 2, 1),
+                                                                    parts(f, r, 2, 1),
+                                                                    r * L - 2, h, n, Lc),
+                          pk.residual_restrict_fused(u[:n], f[:n], h))
+        check(not coarse[nc:].any(), f"residual_restrict_seg n={n}: pad coarse planes not zero")
+        stitched("prolong_smooth_seg", "n_iter=2",
+                 lambda r: px.prolong_smooth_halo(parts(ec, r, 2, 3, Lc), parts(u, r, hh, hh),
+                                                  parts(f, r, hh, hh), r * L - hh, h, 2, n, L),
+                 lambda r: px.prolong_smooth_halo_plain(parts(ec, r, 2, 3, Lc),
+                                                        parts(u, r, hh, hh), parts(f, r, hh, hh),
+                                                        r * L - hh, h, 2, n, L),
+                 pk.prolong_smooth_fused(ec[:nc], u[:n], f[:n], h, 2))
+        df = [t for _ in range(2) for t in pk.df_split(
+            glob(n, D * L).double() + 1e-9 * glob(n, D * L).double())]
+        want_r, want_n2 = pk.residual_df_norm_fused(*(x[:n] for x in df), h)
+        df_parts = lambda r: [parts(x, r, 1, 1) for x in df]  # noqa: E731
+        outs = [px.residual_df_norm_halo(*df_parts(r), r * L - 1, h, n, L) for r in range(D)]
+        for r, (got_r, got_n2) in enumerate(outs):
+            plain_r, plain_n2 = px.residual_df_norm_halo_plain(*df_parts(r), r * L - 1, h, n, L)
+            same("residual_df_norm_seg", n, f"r rank {r} against plain", got_r, plain_r)
+            check(abs(float(got_n2) - float(plain_n2)) <= SHARDED_NORM_RTOL * float(plain_n2),
+                  f"residual_df_norm_seg n={n} rank {r}: partial norm {float(got_n2)} against "
+                  f"{float(plain_n2)}")
+        same("residual_df_norm_seg", n, "r stitched against K5",
+             torch.cat([o[0] for o in outs])[:n], want_r)
+        n2 = sum(float(o[1]) for o in outs)
+        rel = abs(n2 - float(want_n2)) / float(want_n2)
+        print(f"[sharded kernels n={n} L={L} x{D} ranks] K28-K33 bitwise equal to their plain "
+              f"versions and, stitched, to K1 (both orders, and the ext form), K2, R, K3, K4, "
+              f"K5's r; sum of the partial ||r||^2 {n2:.9e} against K5's {float(want_n2):.9e} "
+              f"(rel {rel:.2e}, tol {SHARDED_NORM_RTOL:g})")
+        check(rel <= SHARDED_NORM_RTOL, f"residual_df_norm_seg n={n}: norm rel diff {rel}")
+
+    # times on rank 1's segments of the 257^3 fields (the 4-rank solve's shapes)
+    seg = lambda x, kl, kr, Lr=L: _seg_parts(x, 1, Lr, kl, kr)  # noqa: E731
+    u4, f4, u21, f21, f11 = seg(u, hh, hh), seg(f, hh, hh), seg(u, 2, 1), seg(f, 2, 1), seg(f, 1, 1)
+    ec23, df11 = seg(ec, 2, 3, Lc), [seg(x, 1, 1) for x in df]
+    u_ext, f_ext = _seg_ext(u, 1, L, 1), _seg_ext(f, 1, L, 1)
+    calls = {
+        "rb_smooth_seg": (lambda: px.rb_smooth_halo(u4, f4, L - hh, h, 2, n, L),
+                          lambda: px.rb_smooth_halo_plain(u4, f4, L - hh, h, 2, n, L),
+                          (*u4, *f4), (L + 2 * hh) * n * n),
+        "rb_smooth_from_zero_seg": (lambda: px.rb_smooth_from_zero_halo(f4, L - hh, h, 2, n, L),
+                                    lambda: px.rb_smooth_from_zero_halo_plain(f4, L - hh, h, 2,
+                                                                              n, L),
+                                    f4, (L + 2 * hh) * n * n),
+        "residual_seg": (lambda: px.residual_ext(u_ext, f_ext, L - 1, h, n, L),
+                         lambda: px.residual_ext_plain(u_ext, f_ext, L - 1, h, n, L),
+                         (u_ext, f11[0]), L * n * n),
+        "residual_restrict_seg": (lambda: px.residual_restrict_halo(u21, f21, L - 2, h, n, Lc),
+                                  lambda: px.residual_restrict_halo_plain(u21, f21, L - 2, h, n,
+                                                                          Lc),
+                                  (*u21, *f21), L * n * n),
+        "prolong_smooth_seg": (lambda: px.prolong_smooth_halo(ec23, u4, f4, L - hh, h, 2, n, L),
+                               lambda: px.prolong_smooth_halo_plain(ec23, u4, f4, L - hh, h, 2,
+                                                                    n, L),
+                               (*ec23, *u4, *f4), (L + 2 * hh) * n * n),
+        "residual_df_norm_seg": (lambda: px.residual_df_norm_halo(*df11, L - 1, h, n, L),
+                                 lambda: px.residual_df_norm_halo_plain(*df11, L - 1, h, n, L),
+                                 (*df11[0], *df11[1], df11[2][0], df11[3][0]), L * n * n),
+    }
+    for name, (kernel, plain, inputs, points) in calls.items():
+        out = kernel()
+        outputs = out if isinstance(out, tuple) else (out,)
+        res = results[name]
+        res["ms"], res["plain_ms"] = time_ms(kernel), time_ms(plain)
+        res["bound_ms"], res["bound_by"] = bound(name, points, inputs, outputs)
+        print(f"[sharded kernel] {name:24s} n={n} L={L} rank 1 kernel_ms={res['ms']:.4f} "
+              f"plain_ms={res['plain_ms']:.4f} bound_ms={res['bound_ms']:.4f} "
+              f"({res['bound_by']}) max_abs_err={res['max_abs_err']:.3e}")
+
+
+def _sharded_solver(mesh, init):
+    """The 257^3 double-float solve of phases 4 and 10 on i-sharded blocks:
+    (run, plan, this rank's (u_hi, u_lo, f_hi, f_lo) blocks)."""
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch.parallel import sharded_padded as spp
+
+    hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7)
+    run, plan = spp.make_sharded_df_solver(hier, mg.CycleConfig(n_smooth=2), mesh,
+                                           rel_tol=REL_TOL, max_cycles=40, inner_cycles=4,
+                                           init_norm=init)
+    return run, plan, spp.setup_df_problem_sharded_padded(mg.poisson_3d_quadratic(), hier,
+                                                          mesh, plan)
+
+
+def sharded_one_rank(dev, card, launches, fused):
+    """Phase 10b: make_sharded_df_solver at 257^3 on one rank of an NCCL
+    group, launch counts reset just before and read just after (added
+    into ``launches``): only K28-K32 launched (the plan shards down to 9^3,
+    so the gathered tail is the bare 5^3 LU), the fused single-device
+    solve's outer steps (``fused``: phase 4's (u, outer steps, solve)), its
+    L2 error within 1%, max|u - u_fused| <= SHARDED_DU_TOL; then the walls
+    interleaved with the fused solve and the device-busy time of each.
+    Returns (u, outer steps)."""
+    import torch.distributed as dist
+
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch import cycles_padded as cp
+    from multigrid_parallel_tpu_torch.hierarchy import evaluate_on_grid
+    from multigrid_parallel_tpu_torch.parallel import sharded as sh
+    from multigrid_parallel_tpu_torch.parallel import sharded_padded as spp
+    from multigrid_parallel_tpu_torch.parallel.launch import _free_port
+
+    u_fused, it_fused, solve_fused = fused
+    hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7)
+    n = hier.finest_n
+    exact = evaluate_on_grid(mg.poisson_3d_quadratic().analytic, hier, hier.num_levels - 1, dev)
+    init = cp.ref_init_norm(mg.poisson_3d_quadratic(), hier, dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = sh.make_mesh(1)
+        run, plan, state = _sharded_solver(mesh, init)
+        check((plan.n_sharded, plan.local_planes(0)) == (6, 320), f"1-rank plan {plan}")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = run(*state)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = read_launches()
+        u = spp.unpad_solution(sh.gather_global(out[0], mesh), sh.gather_global(out[1], mesh),
+                               hier)
+        it, nrm = out[3], float(out[2])
+        err = float(torch.sqrt(torch.sum((u - exact) ** 2)))
+        err_fused = float(torch.sqrt(torch.sum((u_fused - exact) ** 2)))
+        du = float((u - u_fused).abs().max())
+        print(f"[solve {n}^3 sharded 1 rank nccl {mesh.device}] plan={plan} outer_steps={it} "
+              f"final_norm={nrm:.6e} rel={nrm / init:.3e} err_l2_vs_analytic={err:.4e} "
+              f"(fused {err_fused:.4e}) max|u-u_fused|={du:.3e} (tol {SHARDED_DU_TOL:g}) "
+              f"finite={bool(torch.isfinite(u).all())} first_run_s={first_s:.4f}")
+        print(f"[launches {n}^3 sharded 1 rank] {json.dumps(counts)}")
+        check(bool(torch.isfinite(u).all()) and nrm <= REL_TOL * init,
+              f"1-rank sharded solve not converged: {nrm}")
+        check(it == it_fused, f"1-rank sharded solve: {it} outer steps, fused {it_fused}")
+        check(abs(err - err_fused) <= 0.01 * err_fused, f"1-rank sharded solve: error {err}")
+        check(du <= SHARDED_DU_TOL, f"1-rank sharded solve: max|u - u_fused| = {du}")
+        for name in SOURCES:
+            check((counts[name] > 0) == (name in SEG_KERNELS),
+                  f"1-rank sharded: kernel {name} launched {counts[name]} times")
+            launches[name] += counts[name]
+        solve = lambda: run(*state)  # noqa: E731
+        interleave({"sharded_1rank": solve, "fused": solve_fused}, f"{n}^3", card, reps=5)
+        print_device_time({"sharded_1rank": solve, "fused": solve_fused}, f"{n}^3", card)
+    finally:
+        dist.destroy_process_group()
+    return u, it
+
+
+def sharded_rank_main(mesh, init, u_ref_path):
+    """Phase 10c on each host-staged gloo rank: the 257^3 sharded solve
+    (a warm-up, then one run with the launch counts reset just before and
+    read just after), this rank's max|u - u_ref| and squared error over
+    its valid planes, reduced over the ranks; then the f64 sharded V-cycle
+    at 129^3 (two cycles). Rank 0 returns the results."""
+    import torch.distributed as dist
+
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch.hierarchy import evaluate_on_grid
+    from multigrid_parallel_tpu_torch.ops import pallas3d as pk
+    from multigrid_parallel_tpu_torch.parallel import sharded as sh
+
+    run, plan, state = _sharded_solver(mesh, init)
+    run(*state)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_launches()
+    t0 = time.perf_counter()
+    u_hi, u_lo, nrm, it = run(*state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7)
+    n, L = hier.finest_n, plan.local_planes(0)
+    g0 = mesh.rank * L
+    g1 = max(min(g0 + L, n), g0)
+    u = pk.df_to_f64(u_hi, u_lo)[:g1 - g0]
+    u_ref = torch.from_numpy(np.array(np.load(u_ref_path, mmap_mode="r")[g0:g1]))
+    exact = evaluate_on_grid(mg.poisson_3d_quadratic().analytic, hier, hier.num_levels - 1,
+                             mesh.device)[g0:g1]
+    du = torch.tensor([float((u.cpu() - u_ref).abs().max()) if g1 > g0 else 0.0])
+    err2 = torch.tensor([float(torch.sum((u - exact) ** 2))], dtype=torch.float64)
+    dist.all_reduce(du, op=dist.ReduceOp.MAX)
+    dist.all_reduce(err2)
+    per_rank = [None] * mesh.n_dev
+    dist.all_gather_object(per_rank, (wall, counts))
+
+    hier64 = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=6)
+    step64, plan64 = sh.make_sharded_cycle(hier64, mg.CycleConfig(n_smooth=2), mesh)
+    u64, f64 = sh.setup_problem_sharded(mg.poisson_3d_quadratic(), hier64, mesh, plan64)
+    norms64 = []
+    for _ in range(2):
+        u64, nrm64 = step64(u64, f64)
+        norms64.append(float(nrm64))
+    u64 = sh.unpad(sh.gather_global(u64, mesh), hier64)
+    if mesh.rank != 0:
+        return None
+    return {"plan": plan, "it": it, "nrm": float(nrm), "du": float(du), "err": float(err2) ** 0.5,
+            "per_rank": per_rank, "plan64": plan64, "norms64": norms64, "u64": u64,
+            "backend": mesh.backend, "device": str(mesh.device), "staged": mesh.staged}
+
+
+def sharded_four_ranks(dev, card, launches, one_rank, tmp):
+    """Phase 10c: four gloo ranks on the one card (halos and reductions
+    staged through host memory; every kernel on the card): the 257^3
+    sharded solve in phase 10b's outer steps with u within SHARDED_DU_TOL
+    of its, each rank launching exactly K28-K32 and, in the replicated 9^3
+    cycle, K2-K4 (added into ``launches``),
+    one host-staged wall; the f64 sharded V-cycle at 129^3 against the
+    single-device one within SHARDED_F64_TOL."""
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch import cycles_padded as cp
+    from multigrid_parallel_tpu_torch.cycles import make_cycle_fn, setup_problem
+    from multigrid_parallel_tpu_torch.parallel.launch import launch
+
+    u_one, it_one = one_rank
+    u_ref_path = tmp / "u_one_rank.npy"
+    np.save(u_ref_path, u_one.cpu().numpy())
+    init = cp.ref_init_norm(mg.poisson_3d_quadratic(), mg.Hierarchy(ndim=3, coarse_n=5,
+                                                                    num_levels=7), dev)
+    t0 = time.perf_counter()
+    res = launch(sharded_rank_main, SHARDED_RANKS, init, str(u_ref_path), backend="gloo",
+                 device="cuda", timeout=600.0)[0]
+    launch_s = time.perf_counter() - t0
+    n = 257
+    print(f"[solve {n}^3 sharded {SHARDED_RANKS} ranks {res['backend']} on one card, halos "
+          f"host-staged={res['staged']} ({res['device']})] plan={res['plan']} "
+          f"outer_steps={res['it']} final_norm={res['nrm']:.6e} err_l2_vs_analytic="
+          f"{res['err']:.4e} max|u-u_1rank|={res['du']:.3e} (tol {SHARDED_DU_TOL:g}) | "
+          f"host-staged wall (not a scaling figure) per rank s="
+          f"{[round(w, 4) for w, _ in res['per_rank']]} | launch incl. spawn {launch_s:.1f} s "
+          f"| card: {card}")
+    check(res["staged"] and (res["plan"].n_sharded, res["plan"].local_planes(0)) == (5, 96),
+          f"4-rank plan {res['plan']}")
+    check(res["it"] == it_one, f"4-rank sharded solve: {res['it']} outer steps, 1 rank {it_one}")
+    check(res["du"] <= SHARDED_DU_TOL, f"4-rank sharded solve: max|u - u_1rank| = {res['du']}")
+    for rank, (_, counts) in enumerate(res["per_rank"]):
+        print(f"[launches {n}^3 sharded rank {rank} of {SHARDED_RANKS}] "
+              f"{json.dumps({k: v for k, v in counts.items() if v})}")
+        for name in SOURCES:
+            check((counts[name] > 0) == (name in SEG_KERNELS + SEG_TAIL_KERNELS),
+                  f"4-rank sharded rank {rank}: kernel {name} launched {counts[name]} times")
+            launches[name] += counts[name]
+
+    hier64 = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=6)
+    cycle = make_cycle_fn(hier64, mg.CycleConfig(n_smooth=2), device=dev)
+    u1, f1 = setup_problem(mg.poisson_3d_quadratic(), hier64, dev)
+    for it in range(2):
+        u1, n1 = cycle(u1, f1)
+        check(abs(res["norms64"][it] - float(n1)) <= 1e-10 * float(n1),
+              f"f64 sharded cycle {it}: norm {res['norms64'][it]} against {float(n1)}")
+    du64 = float((res["u64"].to(dev) - u1).abs().max())
+    print(f"[f64 sharded cycle 129^3 {SHARDED_RANKS} ranks gloo] plan={res['plan64']} norms="
+          f"{res['norms64']} single-device={float(n1):.10e} max|du|={du64:.3e} "
+          f"(tol {SHARDED_F64_TOL:g})")
+    check(du64 <= SHARDED_F64_TOL, f"f64 sharded cycle: max|du| = {du64}")
+
+
+def sharded_phase(dev, card, launches, results, fused):
+    """Phase 10: the i-sharded solve (10a-10c)."""
+    import tempfile
+
+    from multigrid_parallel_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    compare_sharded(dev, results)
+    one_rank = sharded_one_rank(dev, card, launches, fused)
+    with tempfile.TemporaryDirectory(dir=_build.library_path().parent) as tmp_dir:
+        sharded_four_ranks(dev, card, launches, one_rank, Path(tmp_dir))
+    print(f"[phase 10] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on one",
@@ -1362,6 +1778,11 @@ def main():
     # 9. the driver surface: the f64 reference solve, MultigridSolver, the
     # smoother study on K1, the stage profile and the CLI
     driver_phase(dev, card, launches)
+
+    # 10. the i-sharded solve: K28-K33 on simulated ranks, the 257^3 solve on
+    # one NCCL rank against the fused solve, and on four host-staged gloo ranks
+    sharded_phase(dev, card, launches, results,
+                  (solved["fused"][0], solved["fused"][1], paths["fused"][0]))
 
     # no single PyTorch call computes any of these stencils: library_ms is null
     kernels = [

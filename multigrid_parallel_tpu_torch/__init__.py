@@ -13,8 +13,11 @@ fused and unfused, with the FMG bootstrap), its split-colour form
 the electrospray mixed-BC problem (``mixed_bc.MixedBCSolver`` and its
 fused-kernel tiers ``mixed_padded.make_mixed_padded_df_solver``,
 ``make_mixed_fold_df_solver`` (the k-fold layout) and
-``make_mixed_split_df_solver`` (the finest level on red / black pairs))
-on twenty-eight hand-written CUDA kernels (``ops/csrc``); the JAX package
+``make_mixed_split_df_solver`` (the finest level on red / black pairs)),
+and the i-sharded distributed Dirichlet solve on ``torch.distributed``
+(``parallel.sharded``, ``parallel.sharded_padded``; ranks started by
+``parallel.launch``), on thirty-four hand-written CUDA kernels
+(``ops/csrc``); the JAX package
 stays the reference it is tested against. The package imports torch and
 never jax. Entry points put their fields on the CUDA device unless the
 caller names another (``device="cpu"`` runs the kernels' plain versions).
@@ -30,6 +33,7 @@ from multigrid_parallel_tpu_torch.cycles import (
     solve_on_device_mixed,
     v_cycle,
 )
+from multigrid_parallel_tpu_torch import parallel
 from multigrid_parallel_tpu_torch.hierarchy import Hierarchy, level_sizes
 from multigrid_parallel_tpu_torch.models import (
     ElectrosprayProblem,
@@ -51,6 +55,7 @@ __all__ = [
     "electrospray_problem",
     "fmg_initialize",
     "level_sizes",
+    "parallel",
     "poisson_1d_cos",
     "poisson_3d_quadratic",
     "poisson_3d_trig",

@@ -82,6 +82,16 @@ _SIGNATURES = {
     "mg_msplit_prolong_correct_black": (_P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
     "mg_msplit_residual_df_norm_partials": (_I,),
     "mg_msplit_residual_df_norm": (_P,) * 12 + (_I, _F, _P),
+    # segmented (i-sharded) blocks: each segment is (lh, body, rh[, r_off])
+    "mg_seg_half_sweep": (_P, _P, _P, _I) * 2 + (_I,) * 5 + (_F, _I, _P),
+    "mg_seg_half_sweep_from_zero": (_P,) * 6 + (_I,) * 6 + (_F, _I, _P),
+    "mg_seg_residual_restrict": (_P,) + (_P, _P, _P, _I) * 2 + (_I,) * 5 + (_F, _P),
+    "mg_seg_prolong_correct_black": ((_P,) * 6 + (_I,) * 3 + (_P, _P, _P, _I) * 2
+                                     + (_I,) * 4 + (_F, _P)),
+    "mg_seg_residual_df_norm_partials": (_I, _I),
+    "mg_seg_residual_df_norm": (_P,) * 3 + (_P, _P, _P, _I) * 2 + (_P, _P) + (_I,) * 3
+                               + (_F, _P),
+    "mg_seg_residual": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _P),
 }
 
 

@@ -6,7 +6,9 @@ live cube at [:n, :n, :n] and zeros elsewhere, as split-colour pairs or
 as k-fold fields (below); the port keeps plain contiguous (n, n, n)
 tensors, (n, n, (n - 1) // 2) pairs and (n, n, n - 2) fold fields. The
 mixed-BC solver adds its pin planes, its coarse LU factor and, on the
-split-colour tier, its (2, 2, n, (n - 1) // 2) parity packs. Both sides
+split-colour tier, its (2, 2, n, (n - 1) // 2) parity packs. An
+i-sharded field is one global array in JAX and one block per rank in the
+port. Both sides
 meet as numpy arrays, so neither package imports the other.
 """
 
@@ -164,6 +166,51 @@ def to_jax_msplit_packs(packs: torch.Tensor, n: int) -> np.ndarray:
     out = np.zeros(jax_msplit_packs_shape(n), dtype=a.dtype)
     out[:, :, :n, : (n - 1) // 2] = a
     return out
+
+
+# i-sharded fields (parallel.sharded, parallel.sharded_padded): the JAX
+# package keeps a sharded field as ONE global array of n_dev * L planes
+# (the n valid ones, then zero pad planes), lane-padded to (rup(n, 8),
+# rup(n, 128)) on the kernel path and (n, n) on the plain path; the port
+# keeps each rank's (L, n, n) block on that rank.
+
+
+def from_jax_sharded(x_global, n: int, plan, rank: int, device="cuda") -> torch.Tensor:
+    """A JAX sharded global array (numpy or anything np.asarray takes),
+    (plan.padded_planes(0), SJ, SK) lane-padded or (..., n, n) -> this
+    rank's contiguous (L, n, n) block on ``device``."""
+    a = np.asarray(x_global)
+    L = plan.local_planes(0)
+    if (a.ndim != 3 or a.shape[0] != plan.n_dev * L
+            or a.shape[1:] not in ((n, n), jax_padded_shape(n)[1:])):
+        raise ValueError(f"expected a ({plan.n_dev * L}, {n}, {n}) or lane-padded sharded "
+                         f"array, got {a.shape}")
+    return torch.from_numpy(np.array(a[rank * L:(rank + 1) * L, :n, :n])).to(device)
+
+
+def to_jax_sharded(blocks, n: int, lanes: bool = True) -> np.ndarray:
+    """The ranks' (L, n, n) blocks, rank 0 first -> the JAX package's
+    global array (n_dev * L planes), zero-padded to its lanes when
+    ``lanes`` (the kernel path) and (n, n) otherwise (the plain path)."""
+    a = np.concatenate([b.detach().cpu().numpy() for b in blocks])
+    if a.ndim != 3 or a.shape[1:] != (n, n):
+        raise ValueError(f"expected (L, {n}, {n}) blocks, got {a.shape}")
+    if not lanes:
+        return a
+    out = np.zeros((a.shape[0],) + jax_padded_shape(n)[1:], dtype=a.dtype)
+    out[:, :n, :n] = a
+    return out
+
+
+def from_jax_sharded_df(hi, lo, n: int, plan, rank: int, device="cuda"):
+    """A JAX sharded double-float pair -> this rank's (hi, lo) blocks."""
+    return (from_jax_sharded(hi, n, plan, rank, device),
+            from_jax_sharded(lo, n, plan, rank, device))
+
+
+def to_jax_sharded_df(hi_blocks, lo_blocks, n: int, lanes: bool = True):
+    """The ranks' double-float blocks -> the JAX package's sharded pair."""
+    return to_jax_sharded(hi_blocks, n, lanes), to_jax_sharded(lo_blocks, n, lanes)
 
 
 def to_jax_split(xr: torch.Tensor, xb: torch.Tensor, n: int):

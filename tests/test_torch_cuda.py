@@ -5,7 +5,10 @@ one, and the electrospray tiers (full: K13-K15 with K3 and K5; k-fold:
 K16-K20; split-colour: K21-K25 over the fold cycle) on the card against
 the CPU, K26 (smoothing stage + residual) and K27 (double-float
 residual) against their plain versions, the f64 reference solve on the
-card against the CPU, and the smoother study on K1.
+card against the CPU, the smoother study on K1, and the i-sharded
+kernels K28-K33 on four simulated ranks against their plain versions
+and the single-device kernels, with the sharded solve on one NCCL rank
+against the fused single-device solve.
 
 These need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 themselves where there is none. The file imports no jax, so on a machine
@@ -585,3 +588,114 @@ def test_smoother_study_on_k1(cuda):
     plain = smoother_study(num_levels=2, rel_tol=0.0, max_iters=6, dtype=torch.float32,
                            device=cuda)
     assert got.residual_norms == plain.residual_norms
+
+
+# ------------------------------------------- the i-sharded kernels K28-K33
+
+
+def _sharded_fields(dev, n, L, n_dev=4):
+    import torch_sharded_ranks as rk
+
+    rng = np.random.default_rng(40)
+    glob = lambda m, rows: torch.from_numpy(rk.global_field(rng, m, rows)).to(dev)  # noqa: E731
+    return glob(n, n_dev * L), glob(n, n_dev * L), glob((n + 1) // 2, n_dev * L // 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K28", "K29", "K30", "K31", "K32", "K33"])
+def test_sharded_kernels_match_plain_and_single_device_on_card(cuda, kernel):
+    """Four simulated ranks' segments of a 65^3 field (L = 18: the last
+    rank owns pad planes only): each rank's kernel output bitwise equal to
+    its plain version, and the stitched owned rows to the single-device
+    kernel on the whole field."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+
+    n, L, D = 65, 18, 4
+    h, nc, Lc = 1.0 / (n - 1), (n + 1) // 2, L // 2
+    u, f, ec = _sharded_fields(cuda, n, L)
+    parts = lambda x, r, kl, kr, Lr=L: rk.rank_parts(x, r, Lr, kl, kr)  # noqa: E731
+    tpx.reset_launches()
+    if kernel == "K32":
+        df = [t for x in (u, f) for t in tpk.df_split(x.double() + 1e-9 * x.double() ** 2)]
+        want_r, want_n2 = tpk.residual_df_norm_fused(*(x[:n] for x in df), h)
+        outs, n2 = [], 0.0
+        for r in range(D):
+            segs = [parts(x, r, 1, 1) for x in df]
+            got, part = tpx.residual_df_norm_halo(*segs, r * L - 1, h, n, L)
+            ref, ref_part = tpx.residual_df_norm_halo_plain(*segs, r * L - 1, h, n, L)
+            assert torch.equal(got, ref), r
+            assert float(part) == pytest.approx(float(ref_part), rel=1e-6, abs=0.0)
+            outs.append(got)
+            n2 += float(part)
+        assert torch.equal(torch.cat(outs)[:n], want_r)
+        assert n2 == pytest.approx(float(want_n2), rel=1e-6)
+        assert tpx.LAUNCHES["residual_df_norm_seg"] == D
+        return
+    hh = 4
+    calls = {
+        "K28": ("rb_smooth_seg", 4,
+                lambda r: tpx.rb_smooth_halo(parts(u, r, hh, hh), parts(f, r, hh, hh),
+                                             r * L - hh, h, 2, n, L, False),
+                lambda r: tpx.rb_smooth_halo_plain(parts(u, r, hh, hh), parts(f, r, hh, hh),
+                                                   r * L - hh, h, 2, n, L, False),
+                tpk.rb_smooth_fused(u[:n].clone(), f[:n], h, 2, red_first=False)),
+        "K29": ("rb_smooth_from_zero_seg", 4,
+                lambda r: tpx.rb_smooth_from_zero_halo(parts(f, r, hh, hh), r * L - hh, h, 2,
+                                                       n, L),
+                lambda r: tpx.rb_smooth_from_zero_halo_plain(parts(f, r, hh, hh), r * L - hh, h,
+                                                             2, n, L),
+                tpk.rb_smooth_from_zero_fused(f[:n], h, 2)),
+        "K30": ("residual_restrict_seg", 1,
+                lambda r: tpx.residual_restrict_halo(parts(u, r, 2, 1), parts(f, r, 2, 1),
+                                                     r * L - 2, h, n, Lc),
+                lambda r: tpx.residual_restrict_halo_plain(parts(u, r, 2, 1), parts(f, r, 2, 1),
+                                                           r * L - 2, h, n, Lc),
+                tpk.residual_restrict_fused(u[:n], f[:n], h)),
+        "K31": ("prolong_smooth_seg", 4,
+                lambda r: tpx.prolong_smooth_halo(parts(ec, r, 2, 3, Lc), parts(u, r, hh, hh),
+                                                  parts(f, r, hh, hh), r * L - hh, h, 2, n, L),
+                lambda r: tpx.prolong_smooth_halo_plain(parts(ec, r, 2, 3, Lc),
+                                                        parts(u, r, hh, hh), parts(f, r, hh, hh),
+                                                        r * L - hh, h, 2, n, L),
+                tpk.prolong_smooth_fused(ec[:nc], u[:n], f[:n], h, 2)),
+        "K33": ("residual_seg", 1,
+                lambda r: tpx.residual_ext(rk.rank_ext(u, r, L, 1), rk.rank_ext(f, r, L, 1),
+                                           r * L - 1, h, n, L),
+                lambda r: tpx.residual_ext_plain(rk.rank_ext(u, r, L, 1), rk.rank_ext(f, r, L, 1),
+                                                 r * L - 1, h, n, L),
+                tpk.residual_fused(u[:n], f[:n], h)),
+    }
+    name, per_call, kern, plain, want = calls[kernel]
+    tpx.reset_launches()
+    outs = []
+    for r in range(D):
+        got = kern(r)
+        assert torch.equal(got, plain(r)), r
+        outs.append(got)
+    assert torch.equal(torch.cat(outs)[:want.shape[0]], want)
+    assert tpx.LAUNCHES == {**dict.fromkeys(tpx.KERNELS, 0), name: per_call * D}
+
+
+@pytest.mark.cuda
+def test_sharded_df_solver_one_nccl_rank_matches_fused(cuda):
+    """make_sharded_df_solver at 65^3 on one NCCL rank (a spawned process)
+    against the single-device fused solve: the same outer steps, the
+    solution within 1e-9, only K28-K32 launched."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.parallel.launch import launch
+
+    hier = tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=5)
+    prob = tmg.poisson_3d_quadratic()
+    init = tcp.ref_init_norm(prob, hier, cuda)
+    steps, nrm, _, err, u, plan, launches = launch(rk.df_solver, 1, 65, 4, False, 0, init,
+                                                   backend="nccl", device="cuda")[0]
+    run = tcp.make_on_device_df_solver(hier, tmg.CycleConfig(n_smooth=2), rel_tol=1e-8,
+                                       inner_cycles=4, init_norm=init, device=cuda)
+    out = run(*tcp.setup_df_problem(prob, hier, cuda))
+    assert (plan.n_sharded, plan.fine_local) == (4, 80)
+    assert steps == out[3] and nrm <= 1e-8 * init
+    assert float((u - tpk.df_to_f64(*out[:2]).cpu()).abs().max()) <= 1e-9
+    seg = {"rb_smooth_seg", "rb_smooth_from_zero_seg", "residual_restrict_seg",
+           "prolong_smooth_seg", "residual_df_norm_seg"}
+    assert {k for k, v in launches.items() if v} == seg, launches
