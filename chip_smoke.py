@@ -23,8 +23,10 @@ levels below on the fold cycle). And the reference driver surface: the
 f64 V-cycle solve at 257^3 through each of its entry points,
 MultigridSolver with a checkpoint, the smoother study on K1 and the
 CLI. And the i-sharded distributed double-float solve at 257^3 on
-torch.distributed (K28-K32; K33 beside them), on one NCCL rank and on
-four gloo ranks sharing the card. Phases, each of which fails the run:
+torch.distributed (K28-K32; K33 beside them), and the i-sharded
+electrospray solve at 257^3 in its production configuration (K34-K36 with
+K30 and K32), each on one NCCL rank and on four gloo ranks sharing the
+card. Phases, each of which fails the run:
 
   1. build the hand-written CUDA kernels from ops/csrc (one nvcc per
      source, all started together; sm_90a);
@@ -92,13 +94,28 @@ four gloo ranks sharing the card. Phases, each of which fails the run:
      each rank launching only K28-K32 and, in the replicated 9^3 cycle,
      K2-K4, one host-staged wall (not a scaling
      figure); and the f64 sharded V-cycle at 129^3 on those ranks against
-     the single-device one within 1e-11.
+     the single-device one within 1e-11;
+ 11. the i-sharded electrospray solve (parallel.sharded_mixed_padded):
+     (a) K34-K36 on four simulated ranks' segments of 65^3 (L = 24, and
+     L = 32, where plane 64 is rank 2's first row) and 257^3 (L = 96)
+     electrospray fields with the problem's pins, each bitwise equal to its
+     plain version and, stitched, to K13-K15, pad planes zero, each timed
+     on rank 1's 257^3 segments against its plain version; (b)
+     make_sharded_mixed_padded_df_solver at 257^3 (production
+     configuration) on one NCCL rank, launch counts reset and read around
+     it: K34-K36, K30 and K32 launched as often as phase 6's full tier
+     launches K13-K15, K3 and K5 and nothing else, the full tier's outer
+     steps, max|u - u_full| <= 1e-7 max|u|, walls interleaved with the full
+     tier (5 each) and the device busy time of each; (c) in 10c's spawned
+     group, the same solve on the four gloo ranks: (b)'s outer steps, u
+     within 1e-7 max|u| of (b)'s, each rank launching only K34-K36, K30,
+     K32 and, in the replicated 9^3 tail, K14, K3, K15; and the f64 sharded
+     mixed-BC cycle at 65^3 against MixedBCSolver's within 1e-11 max|u|.
 
 Prints a {"kernels": [...]} line (each kernel's launches summed over the
-257^3 runs of phases 4, 6, 7, 8 and 10 (all four ranks of 10c), the split
-tier's 33^3 card solves of phase 3 and the study of phase 9c; bound_ms
-from the timed call's bytes
-and operations), the
+257^3 runs of phases 4, 6, 7, 8, 10 and 11 (all four ranks of 10c and
+11c), the split tier's 33^3 card solves of phase 3 and the study of
+phase 9c; bound_ms from the timed call's bytes and operations), the
 card's name and power limit, and as its last line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 there is no CUDA device or any check fails.
@@ -200,6 +217,17 @@ SOURCES = {
                              "multigrid_parallel_tpu/ops/pallas_sharded.py:864"),
     "residual_seg": ("multigrid_parallel_tpu_torch/ops/csrc/residual.cu",
                      "multigrid_parallel_tpu/ops/pallas_sharded.py:184"),
+    # the i-sharded electrospray kernels: each serves the ext and the halo
+    # form of its Pallas kernel
+    "mixed_rb_smooth_seg": ("multigrid_parallel_tpu_torch/ops/csrc/mixed_rb_smooth_seg.cu",
+                            "multigrid_parallel_tpu/ops/pallas_mixed.py:524, "
+                            "multigrid_parallel_tpu/ops/pallas_mixed.py:786"),
+    "mixed_rb_smooth_from_zero_seg": ("multigrid_parallel_tpu_torch/ops/csrc/mixed_rb_smooth_seg.cu",
+                                      "multigrid_parallel_tpu/ops/pallas_mixed.py:524, "
+                                      "multigrid_parallel_tpu/ops/pallas_mixed.py:786"),
+    "mixed_prolong_smooth_seg": ("multigrid_parallel_tpu_torch/ops/csrc/mixed_prolong_smooth_seg.cu",
+                                 "multigrid_parallel_tpu/ops/pallas_mixed.py:684, "
+                                 "multigrid_parallel_tpu/ops/pallas_mixed.py:948"),
 }
 # f32 operations per stored output point of each kernel as the main path
 # calls it (n_iter = 2), counted from its arithmetic: an RB update is 8
@@ -222,6 +250,7 @@ OPS_PER_POINT = {
     "residual_df_norm_msplit": 72, "rb_smooth_residual_fused": 16 + 9, "residual_df_fused": 70,
     "rb_smooth_seg": 16, "rb_smooth_from_zero_seg": 16, "residual_restrict_seg": 14,
     "prolong_smooth_seg": 20, "residual_df_norm_seg": 72, "residual_seg": 9,
+    "mixed_rb_smooth_seg": 16, "mixed_rb_smooth_from_zero_seg": 16, "mixed_prolong_smooth_seg": 20,
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores (same sheet)
@@ -279,6 +308,22 @@ SEG_KERNELS = ("rb_smooth_seg", "rb_smooth_from_zero_seg", "residual_restrict_se
                "prolong_smooth_seg", "residual_df_norm_seg")
 SEG_TAIL_KERNELS = ("rb_smooth_from_zero_fused", "residual_restrict_fused",
                     "prolong_smooth_fused")
+# the sharded electrospray 257^3 solve: K34-K36 with the Dirichlet K30 and K32 on
+# every sharded level, each launched as often as phase 6's full tier launches
+# K13-K15, K3 and K5; on four ranks the replicated 9^3 tail runs the full tier
+# from a zero correction (K14, K3, K15; no revisit below 65^3, so no K13)
+MIXED_SEG_TWINS = {"mixed_rb_smooth_seg": "mixed_rb_smooth_fused",
+                   "mixed_rb_smooth_from_zero_seg": "mixed_rb_smooth_from_zero_fused",
+                   "mixed_prolong_smooth_seg": "mixed_prolong_smooth_fused",
+                   "residual_restrict_seg": "residual_restrict_fused",
+                   "residual_df_norm_seg": "residual_df_norm_fused"}
+MIXED_SEG_TAIL_KERNELS = ("mixed_rb_smooth_from_zero_fused", "residual_restrict_fused",
+                          "mixed_prolong_smooth_fused")
+# of max|u|: the sharded electrospray solves against the full tier and each other
+# (tests/test_mixed_fold.py:201's bound; the arithmetic is the same, so 0 is expected)
+SHARDED_MIXED_RTOL = 1e-7
+# of max|u| (1350 V): the f64 sharded mixed-BC cycle against MixedBCSolver's own
+SHARDED_MIXED_F64_RTOL = 1e-11
 
 
 def check(cond, msg):
@@ -809,7 +854,7 @@ def electrospray_257(es, dev, card, launches):
     and read just after (added into ``launches``); then its wall and
     device-busy time and its solution against the f64-outer
     MixedBCSolver.solve_on_device on the card. Returns (u, outer steps,
-    solve) for phase 7."""
+    solve, launch counts) for phases 7 and 11."""
     from multigrid_parallel_tpu_torch import mixed_padded as mp
     from multigrid_parallel_tpu_torch.models.electrospray import EXTRACTOR_VOLTAGE
     from multigrid_parallel_tpu_torch.ops import pallas3d as pk
@@ -869,14 +914,14 @@ def electrospray_257(es, dev, card, launches):
           f"f64_wall_s={time.perf_counter() - t0:.3f}")
     check(abs(it - it_ref) <= 1, f"electrospray: {it} outer steps against {it_ref} in f64")
     check(du <= FIXED_POINT_TOL, f"electrospray: tier and f64 solutions differ by {du} V")
-    return u, it, lambda: run(*state)
+    return u, it, lambda: run(*state), counts
 
 
 def fold_257(es, dev, card, launches, full):
     """Phase 7: the production electrospray solve at 257^3 on the fold
     tier, launch counts reset just before and read just after (added into
     ``launches``): only K16-K20, the full tier's outer-step count, the
-    full tier's solution (``full``: phase 6's (u, outer steps, solve))
+    full tier's solution (``full``: phase 6's (u, outer steps, solve, counts))
     within 1e-7 max|u|; then the fold and full walls interleaved and the
     device-busy time of one traced solve of each."""
     from multigrid_parallel_tpu_torch import mixed_padded as mp
@@ -895,7 +940,7 @@ def fold_257(es, dev, card, launches, full):
     first_s = time.perf_counter() - t0
     counts = read_launches()
     u, nrm, it = mp.unpack_mixed_fold_solution(out[0], out[1], solver), float(out[2]), out[3]
-    u_full, it_full, solve_full = full
+    u_full, it_full, solve_full, _ = full
     scale = float(u_full.abs().max())
     du = float((u - u_full).abs().max())
     print(f"[solve {n}^3 electrospray fold] outer_steps={it} final_norm={nrm:.6e} n0={n0:.6e} "
@@ -1245,6 +1290,14 @@ def _seg_ext(x, rank, L, k):
     return torch.cat([lh, body, rh])
 
 
+def bitwise_same(results, name, n, label, got, want):
+    """Check got == want bit for bit; keep the largest difference seen in
+    results[name]["max_abs_err"]."""
+    err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    check(torch.equal(got, want), f"{name} n={n} {label}: not bitwise equal ({err:.3e})")
+
+
 def compare_sharded(dev, results):
     """Phase 10a: K28-K33 on SHARDED_RANKS simulated ranks' segments of
     65^3 and 257^3 fields (their own copies: real neighbour halos, zeros at
@@ -1265,9 +1318,7 @@ def compare_sharded(dev, results):
         results[name] = {"max_abs_err": 0.0}
 
     def same(name, n, label, got, want):
-        err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
-        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
-        check(torch.equal(got, want), f"{name} n={n} {label}: not bitwise equal ({err:.3e})")
+        bitwise_same(results, name, n, label, got, want)
 
     for levels in (5, 7):
         hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=levels)
@@ -1469,12 +1520,14 @@ def sharded_one_rank(dev, card, launches, fused):
     return u, it
 
 
-def sharded_rank_main(mesh, init, u_ref_path):
-    """Phase 10c on each host-staged gloo rank: the 257^3 sharded solve
-    (a warm-up, then one run with the launch counts reset just before and
-    read just after), this rank's max|u - u_ref| and squared error over
+def sharded_rank_main(mesh, init, u_ref_path, es_u_ref_path):
+    """Phases 10c and 11c on each host-staged gloo rank: the 257^3 sharded
+    solve (a warm-up, then one run with the launch counts reset just before
+    and read just after), this rank's max|u - u_ref| and squared error over
     its valid planes, reduced over the ranks; then the f64 sharded V-cycle
-    at 129^3 (two cycles). Rank 0 returns the results."""
+    at 129^3 (two cycles); then the same for the sharded electrospray
+    257^3 solve and the f64 sharded mixed-BC cycle at 65^3. Rank 0 returns
+    the results."""
     import torch.distributed as dist
 
     import multigrid_parallel_tpu_torch as mg
@@ -1515,34 +1568,92 @@ def sharded_rank_main(mesh, init, u_ref_path):
         u64, nrm64 = step64(u64, f64)
         norms64.append(float(nrm64))
     u64 = sh.unpad(sh.gather_global(u64, mesh), hier64)
+    es = sharded_mixed_rank(mesh, es_u_ref_path)
     if mesh.rank != 0:
         return None
     return {"plan": plan, "it": it, "nrm": float(nrm), "du": float(du), "err": float(err2) ** 0.5,
             "per_rank": per_rank, "plan64": plan64, "norms64": norms64, "u64": u64,
-            "backend": mesh.backend, "device": str(mesh.device), "staged": mesh.staged}
+            "backend": mesh.backend, "device": str(mesh.device), "staged": mesh.staged, "es": es}
 
 
-def sharded_four_ranks(dev, card, launches, one_rank, tmp):
-    """Phase 10c: four gloo ranks on the one card (halos and reductions
-    staged through host memory; every kernel on the card): the 257^3
-    sharded solve in phase 10b's outer steps with u within SHARDED_DU_TOL
-    of its, each rank launching exactly K28-K32 and, in the replicated 9^3
-    cycle, K2-K4 (added into ``launches``),
-    one host-staged wall; the f64 sharded V-cycle at 129^3 against the
-    single-device one within SHARDED_F64_TOL."""
+def sharded_mixed_rank(mesh, u_ref_path):
+    """Phase 11c on each rank: the sharded electrospray 257^3 solve (a
+    warm-up, then one run with the launch counts reset just before and read
+    just after), max|u - u_ref| over the valid planes reduced over the
+    ranks; then two f64 sharded mixed-BC cycles at 65^3 (gamma 2 capped at
+    17, a quarter of the finest size as in production). Returns the results
+    (gathered; every rank)."""
+    import torch.distributed as dist
+
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch.mixed_bc import MixedBCSolver
+    from multigrid_parallel_tpu_torch.ops import pallas3d as pk
+    from multigrid_parallel_tpu_torch.parallel import sharded as sh
+    from multigrid_parallel_tpu_torch.parallel import sharded_mixed as sm
+    from multigrid_parallel_tpu_torch.parallel import sharded_mixed_padded as smp
+
+    es = mg.electrospray_problem()
+    solver = es_solver(es, mesh.device)
+    run, plan = smp.make_sharded_mixed_padded_df_solver(solver, mesh, rel_tol=REL_TOL,
+                                                        max_cycles=100, inner_cycles=1)
+    state = smp.setup_mixed_df_problem_sharded(solver, mesh, plan)
+    run(*state)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_launches()
+    t0 = time.perf_counter()
+    u_hi, u_lo, nrm, it = run(*state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    n, L = solver.hier.finest_n, plan.local_planes(0)
+    g0 = mesh.rank * L
+    g1 = max(min(g0 + L, n), g0)
+    u = pk.df_to_f64(u_hi, u_lo)[:g1 - g0].cpu()
+    u_ref = torch.from_numpy(np.array(np.load(u_ref_path, mmap_mode="r")[g0:g1]))
+    du = torch.tensor([float((u - u_ref).abs().max()) if g1 > g0 else 0.0])
+    finite = torch.tensor([float(torch.isfinite(u).all())])
+    dist.all_reduce(du, op=dist.ReduceOp.MAX)
+    dist.all_reduce(finite, op=dist.ReduceOp.MIN)
+    per_rank = [None] * mesh.n_dev
+    dist.all_gather_object(per_rank, (wall, counts))
+
+    hier65 = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=5, length=es.length)
+    s65 = MixedBCSolver(es, hier65, n_smooth=2, gamma=2, gamma_min_n=17, device=mesh.device)
+    step, plan65 = sm.make_sharded_mixed_bc_cycle(s65, mesh)
+    u65, f65 = sm.setup_mixed_problem_sharded(s65, mesh, plan65)
+    norms65 = []
+    for _ in range(2):
+        u65, nrm65 = step(u65, f65)
+        norms65.append(float(nrm65))
+    return {"plan": plan, "it": it, "nrm": float(nrm), "du": float(du), "finite": bool(finite),
+            "per_rank": per_rank, "plan65": plan65, "norms65": norms65,
+            "u65": sh.gather_global(u65, mesh)[:hier65.finest_n].cpu()}
+
+
+def sharded_four_ranks(dev, card, launches, one_rank, es_one_rank, tmp):
+    """Phases 10c and 11c: four gloo ranks on the one card (halos and
+    reductions staged through host memory; every kernel on the card): the
+    257^3 sharded solve in phase 10b's outer steps with u within
+    SHARDED_DU_TOL of its, each rank launching exactly K28-K32 and, in the
+    replicated 9^3 cycle, K2-K4 (added into ``launches``), one host-staged
+    wall; the f64 sharded V-cycle at 129^3 against the single-device one
+    within SHARDED_F64_TOL; then the electrospray's (11c) against
+    ``es_one_rank``, phase 11b's (u, outer steps)."""
     import multigrid_parallel_tpu_torch as mg
     from multigrid_parallel_tpu_torch import cycles_padded as cp
     from multigrid_parallel_tpu_torch.cycles import make_cycle_fn, setup_problem
     from multigrid_parallel_tpu_torch.parallel.launch import launch
 
     u_one, it_one = one_rank
-    u_ref_path = tmp / "u_one_rank.npy"
+    u_ref_path, es_u_ref_path = tmp / "u_one_rank.npy", tmp / "es_u_one_rank.npy"
     np.save(u_ref_path, u_one.cpu().numpy())
+    np.save(es_u_ref_path, es_one_rank[0].cpu().numpy())
     init = cp.ref_init_norm(mg.poisson_3d_quadratic(), mg.Hierarchy(ndim=3, coarse_n=5,
                                                                     num_levels=7), dev)
     t0 = time.perf_counter()
-    res = launch(sharded_rank_main, SHARDED_RANKS, init, str(u_ref_path), backend="gloo",
-                 device="cuda", timeout=600.0)[0]
+    res = launch(sharded_rank_main, SHARDED_RANKS, init, str(u_ref_path), str(es_u_ref_path),
+                 backend="gloo", device="cuda", timeout=600.0)[0]
     launch_s = time.perf_counter() - t0
     n = 257
     print(f"[solve {n}^3 sharded {SHARDED_RANKS} ranks {res['backend']} on one card, halos "
@@ -1576,10 +1687,241 @@ def sharded_four_ranks(dev, card, launches, one_rank, tmp):
           f"{res['norms64']} single-device={float(n1):.10e} max|du|={du64:.3e} "
           f"(tol {SHARDED_F64_TOL:g})")
     check(du64 <= SHARDED_F64_TOL, f"f64 sharded cycle: max|du| = {du64}")
+    sharded_mixed_four_ranks(dev, card, launches, es_one_rank, res["es"])
 
 
-def sharded_phase(dev, card, launches, results, fused):
-    """Phase 10: the i-sharded solve (10a-10c)."""
+def sharded_mixed_four_ranks(dev, card, launches, es_one_rank, res):
+    """Phase 11c, read on the host: the sharded electrospray 257^3 solve on
+    the four gloo ranks in phase 11b's outer steps with u within
+    SHARDED_MIXED_RTOL of its, each rank launching exactly K34-K36, K30 and
+    K32 and, in the replicated 9^3 tail, K14, K3 and K15 (added into
+    ``launches``); the f64 sharded mixed-BC cycle at 65^3 against
+    MixedBCSolver's single-device cycle within SHARDED_MIXED_F64_RTOL."""
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch.mixed_bc import MixedBCSolver
+    from multigrid_parallel_tpu_torch.ops import stencils_3d as ops3
+
+    u_one, it_one = es_one_rank
+    scale = float(u_one.abs().max())
+    n = 257
+    print(f"[solve {n}^3 electrospray sharded {SHARDED_RANKS} ranks gloo on one card] "
+          f"plan={res['plan']} outer_steps={res['it']} final_norm={res['nrm']:.6e} "
+          f"finite={res['finite']} max|u-u_1rank|={res['du']:.3e} V (tol {SHARDED_MIXED_RTOL:g} "
+          f"* {scale:g}) | host-staged wall (not a scaling figure) per rank s="
+          f"{[round(w, 4) for w, _ in res['per_rank']]} | card: {card}")
+    check((res["plan"].n_sharded, res["plan"].local_planes(0)) == (5, 96),
+          f"4-rank electrospray plan {res['plan']}")
+    check(res["finite"] and res["it"] == it_one,
+          f"4-rank electrospray solve: {res['it']} outer steps, 1 rank {it_one}")
+    check(res["du"] <= SHARDED_MIXED_RTOL * scale,
+          f"4-rank electrospray solve: max|u - u_1rank| = {res['du']}")
+    for rank, (_, counts) in enumerate(res["per_rank"]):
+        print(f"[launches {n}^3 electrospray sharded rank {rank} of {SHARDED_RANKS}] "
+              f"{json.dumps({k: v for k, v in counts.items() if v})}")
+        for name in SOURCES:
+            check((counts[name] > 0) == (name in (*MIXED_SEG_TWINS, *MIXED_SEG_TAIL_KERNELS)),
+                  f"4-rank electrospray rank {rank}: kernel {name} launched {counts[name]} times")
+            launches[name] += counts[name]
+
+    es = mg.electrospray_problem()
+    hier65 = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=5, length=es.length)
+    s65 = MixedBCSolver(es, hier65, n_smooth=2, gamma=2, gamma_min_n=17, device=dev)
+    u1, f1 = s65.initial_state()
+    coarse = s65._coarse_solver(hier65.dtype)
+    for it in range(2):
+        u1 = s65._descend(u1, f1, hier65.num_levels - 1, False, coarse)
+        n1 = float(ops3.residual_norm(u1, f1, hier65.spacing(hier65.num_levels - 1)))
+        check(abs(res["norms65"][it] - n1) <= 1e-10 * n1,
+              f"f64 sharded mixed cycle {it}: norm {res['norms65'][it]} against {n1}")
+    du65 = float((res["u65"].to(dev) - u1).abs().max())
+    scale65 = float(u1.abs().max())
+    print(f"[f64 sharded mixed-BC cycle 65^3 {SHARDED_RANKS} ranks gloo] plan={res['plan65']} "
+          f"norms={res['norms65']} single-device={n1:.10e} max|du|={du65:.3e} V "
+          f"(tol {SHARDED_MIXED_F64_RTOL:g} * {scale65:g})")
+    check(du65 <= SHARDED_MIXED_F64_RTOL * scale65, f"f64 sharded mixed cycle: max|du| = {du65}")
+
+
+def compare_sharded_mixed(dev, results, es):
+    """Phase 11a: K34-K36 on SHARDED_RANKS simulated ranks' segments of
+    electrospray fields (h = 3e-4 / (n - 1), the problem's pin planes; their
+    own copies, zeros at the chain ends): 65^3 at L = 24 (the 4-rank plan),
+    65^3 at L = 32 (plane 64 is rank 2's row 0: its left halo is one plane
+    deeper) and 257^3 at L = 96 (the last rank owns pad planes only). Each
+    rank's kernel output bitwise equal to its plain version, the stitched
+    owned rows bitwise equal to K13-K15 on the whole field, the pad planes
+    zero; then each timed on rank 1's 257^3 segments against its plain
+    version."""
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed as pm
+
+    D, hh = SHARDED_RANKS, 4
+    names = ("mixed_rb_smooth_seg", "mixed_rb_smooth_from_zero_seg", "mixed_prolong_smooth_seg")
+    for name in names:
+        results[name] = {"max_abs_err": 0.0}
+
+    def same(name, n, label, got, want):
+        bitwise_same(results, name, n, label, got, want)
+
+    for n, L in ((65, 24), (65, 32), (257, 96)):
+        h, nc, Lc = es.length / (n - 1), (n + 1) // 2, L // 2
+        pin = pm.dirichlet_pin_planes(es, n, dev)
+        rng = np.random.default_rng(n + L)
+
+        def glob(m, rows):
+            x = np.zeros((rows, m, m), np.float32)
+            x[:m] = rng.standard_normal((m, m, m))
+            return torch.from_numpy(x).to(dev)
+
+        u, f, ec = glob(n, D * L), glob(n, D * L), glob(nc, D * Lc)
+        u[:n] = pm.apply_bcs_padded(u[:n], pin)  # BC-consistent, as the cycle hands it over
+
+        def kl(r):
+            return hh + (r * L == n - 1)
+
+        def parts(x, r):
+            return _seg_parts(x, r, L, kl(r), hh)
+
+        def cparts(r):
+            return _seg_parts(ec, r, Lc, kl(r) - 2, 3)
+
+        def stitched(name, label, kernel, plain, want):
+            outs = []
+            for r in range(D):
+                got = kernel(r)
+                same(name, n, f"{label} rank {r} against plain", got, plain(r))
+                outs.append(got)
+            got = torch.cat(outs)
+            same(name, n, f"{label} stitched against single-device", got[:n], want)
+            check(not got[n:].any(), f"{name} n={n} L={L}: a pad plane was written")
+
+        for red in (True, False):
+            stitched("mixed_rb_smooth_seg", f"L={L} red_first={red}",
+                     lambda r: pm.mixed_rb_smooth_halo(parts(u, r), parts(f, r), pin, r * L - hh,
+                                                       h, 2, n, L, red),
+                     lambda r: pm.mixed_rb_smooth_halo_plain(parts(u, r), parts(f, r), pin,
+                                                             r * L - hh, h, 2, n, L, red),
+                     pm.mixed_rb_smooth_fused(u[:n].clone(), f[:n], pin, h, 2, red))
+        stitched("mixed_rb_smooth_from_zero_seg", f"L={L}",
+                 lambda r: pm.mixed_rb_smooth_from_zero_halo(parts(f, r), pin, r * L - hh, h, 2,
+                                                             n, L),
+                 lambda r: pm.mixed_rb_smooth_from_zero_halo_plain(parts(f, r), pin, r * L - hh,
+                                                                   h, 2, n, L),
+                 pm.mixed_rb_smooth_from_zero_fused(f[:n], pin, h, 2))
+        stitched("mixed_prolong_smooth_seg", f"L={L}",
+                 lambda r: pm.mixed_prolong_smooth_halo(cparts(r), parts(u, r), parts(f, r), pin,
+                                                        r * L - hh, h, 2, n, L),
+                 lambda r: pm.mixed_prolong_smooth_halo_plain(cparts(r), parts(u, r), parts(f, r),
+                                                              pin, r * L - hh, h, 2, n, L),
+                 pm.mixed_prolong_smooth_fused(ec[:nc], u[:n], f[:n], pin, h, 2))
+        print(f"[sharded mixed kernels n={n} L={L} x{D} ranks] K34-K36 bitwise equal to their "
+              f"plain versions and, stitched, to K13 (both orders), K14, K15; pad planes zero")
+
+    # times on rank 1's segments of the 257^3 fields (the 4-rank solve's shapes)
+    u4, f4, ec23 = _seg_parts(u, 1, L, hh, hh), _seg_parts(f, 1, L, hh, hh), cparts(1)
+    points = (L + 2 * hh) * n * n
+    calls = {
+        "mixed_rb_smooth_seg": (lambda: pm.mixed_rb_smooth_halo(u4, f4, pin, L - hh, h, 2, n, L),
+                                lambda: pm.mixed_rb_smooth_halo_plain(u4, f4, pin, L - hh, h, 2,
+                                                                      n, L),
+                                (*u4, *f4, pin)),
+        "mixed_rb_smooth_from_zero_seg": (
+            lambda: pm.mixed_rb_smooth_from_zero_halo(f4, pin, L - hh, h, 2, n, L),
+            lambda: pm.mixed_rb_smooth_from_zero_halo_plain(f4, pin, L - hh, h, 2, n, L),
+            (*f4, pin)),
+        "mixed_prolong_smooth_seg": (
+            lambda: pm.mixed_prolong_smooth_halo(ec23, u4, f4, pin, L - hh, h, 2, n, L),
+            lambda: pm.mixed_prolong_smooth_halo_plain(ec23, u4, f4, pin, L - hh, h, 2, n, L),
+            (*ec23, *u4, *f4, pin)),
+    }
+    twins = {"mixed_rb_smooth_seg": ("mixed_rb_smooth_fused", "rb_smooth_seg"),
+             "mixed_rb_smooth_from_zero_seg": ("mixed_rb_smooth_from_zero_fused",
+                                               "rb_smooth_from_zero_seg"),
+             "mixed_prolong_smooth_seg": ("mixed_prolong_smooth_fused", "prolong_smooth_seg")}
+    for name, (kernel, plain, inputs) in calls.items():
+        res = results[name]
+        res["ms"], res["plain_ms"] = time_ms(kernel), time_ms(plain)
+        res["bound_ms"], res["bound_by"] = bound(name, points, inputs, (kernel(),))
+        single, dirichlet = (results[k]["ms"] for k in twins[name])
+        print(f"[sharded mixed kernel] {name:30s} n={n} L={L} rank 1 kernel_ms={res['ms']:.4f} "
+              f"plain_ms={res['plain_ms']:.4f} bound_ms={res['bound_ms']:.4f} "
+              f"({res['bound_by']}) max_abs_err={res['max_abs_err']:.3e} | the Dirichlet seg "
+              f"kernel {twins[name][1]} {dirichlet:.4f} ms on the same rows; per stored point "
+              f"{res['ms'] / points * 1e9:.3f} ps against {twins[name][0]}'s "
+              f"{single / n ** 3 * 1e9:.3f} ps on the whole {n}^3 field")
+
+
+def sharded_mixed_one_rank(dev, card, launches, full, es):
+    """Phase 11b: make_sharded_mixed_padded_df_solver at 257^3 in the
+    production configuration on one rank of an NCCL group, launch counts
+    reset just before and read just after (added into ``launches``): K34-K36,
+    K30 and K32 launched exactly as often as phase 6's full tier launches
+    K13-K15, K3 and K5, and nothing else (the plan shards down to 9^3 and
+    gathers the bare 5^3 LU); the full tier's outer steps (``full``: phase
+    6's (u, outer steps, solve, counts)), max|u - u_full| <=
+    SHARDED_MIXED_RTOL max|u|; then the walls interleaved with the full tier
+    and the device-busy time of each. Returns (u, outer steps)."""
+    import torch.distributed as dist
+
+    from multigrid_parallel_tpu_torch import mixed_padded as mp
+    from multigrid_parallel_tpu_torch.ops import pallas3d as pk
+    from multigrid_parallel_tpu_torch.parallel import sharded as sh
+    from multigrid_parallel_tpu_torch.parallel import sharded_mixed_padded as smp
+    from multigrid_parallel_tpu_torch.parallel.launch import _free_port
+
+    u_full, it_full, solve_full, counts_full = full
+    solver = es_solver(es, dev)
+    hier = solver.hier
+    n = hier.finest_n
+    n0 = float(torch.sqrt(pk.residual_df_norm_fused(*mp.setup_mixed_df_problem(solver),
+                                                    hier.spacing(hier.num_levels - 1))[1]))
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = sh.make_mesh(1)
+        run, plan = smp.make_sharded_mixed_padded_df_solver(solver, mesh, rel_tol=REL_TOL,
+                                                            max_cycles=100, inner_cycles=1)
+        check((plan.n_sharded, plan.local_planes(0)) == (6, 320), f"1-rank plan {plan}")
+        state = smp.setup_mixed_df_problem_sharded(solver, mesh, plan)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = run(*state)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = read_launches()
+        u = smp.unpack_mixed_solution_sharded(sh.gather_global(out[0], mesh),
+                                              sh.gather_global(out[1], mesh), hier)
+        it, nrm = out[3], float(out[2])
+        scale = float(u_full.abs().max())
+        du = float((u - u_full).abs().max())
+        print(f"[solve {n}^3 electrospray sharded 1 rank nccl {mesh.device}] plan={plan} "
+              f"outer_steps={it} final_norm={nrm:.6e} n0={n0:.6e} rel={nrm / n0:.3e} "
+              f"max|u-u_full|={du:.3e} V (tol {SHARDED_MIXED_RTOL:g} * {scale:g}) "
+              f"finite={bool(torch.isfinite(u).all())} first_run_s={first_s:.4f}")
+        print(f"[launches {n}^3 electrospray sharded 1 rank] "
+              f"{json.dumps({k: v for k, v in counts.items() if v})}")
+        check(bool(torch.isfinite(u).all()) and nrm <= REL_TOL * n0,
+              f"1-rank electrospray solve not converged: {nrm}")
+        check(it == it_full, f"1-rank electrospray solve: {it} outer steps, full tier {it_full}")
+        check(du <= SHARDED_MIXED_RTOL * scale, f"1-rank electrospray solve: max|du| = {du}")
+        for name in SOURCES:
+            want = counts_full[MIXED_SEG_TWINS[name]] if name in MIXED_SEG_TWINS else 0
+            check(counts[name] == want, f"1-rank electrospray: kernel {name} launched "
+                                        f"{counts[name]} times, expected {want}")
+            launches[name] += counts[name]
+        solve = lambda: run(*state)  # noqa: E731
+        interleave({"sharded_1rank": solve, "full": solve_full}, f"{n}^3 electrospray", card,
+                   reps=5)
+        print_device_time({"sharded_1rank": solve, "full": solve_full}, f"{n}^3 electrospray",
+                          card)
+    finally:
+        dist.destroy_process_group()
+    return u, it
+
+
+def sharded_phase(dev, card, launches, results, fused, full, es):
+    """Phases 10 and 11: the i-sharded Dirichlet solve (10a, 10b) and
+    electrospray solve (11a, 11b), then one spawned group of four gloo
+    ranks for both (10c, 11c)."""
     import tempfile
 
     from multigrid_parallel_tpu_torch.ops import _build
@@ -1587,9 +1929,13 @@ def sharded_phase(dev, card, launches, results, fused):
     t_phase = time.perf_counter()
     compare_sharded(dev, results)
     one_rank = sharded_one_rank(dev, card, launches, fused)
+    t_mixed = time.perf_counter()
+    compare_sharded_mixed(dev, results, es)
+    es_one_rank = sharded_mixed_one_rank(dev, card, launches, full, es)
+    print(f"[phase 11a-b] {time.perf_counter() - t_mixed:.1f} s")
     with tempfile.TemporaryDirectory(dir=_build.library_path().parent) as tmp_dir:
-        sharded_four_ranks(dev, card, launches, one_rank, Path(tmp_dir))
-    print(f"[phase 10] {time.perf_counter() - t_phase:.1f} s")
+        sharded_four_ranks(dev, card, launches, one_rank, es_one_rank, Path(tmp_dir))
+    print(f"[phases 10-11] {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -1780,9 +2126,10 @@ def main():
     driver_phase(dev, card, launches)
 
     # 10. the i-sharded solve: K28-K33 on simulated ranks, the 257^3 solve on
-    # one NCCL rank against the fused solve, and on four host-staged gloo ranks
+    # one NCCL rank against the fused solve, and on four host-staged gloo ranks;
+    # 11. the same for the electrospray solve (K34-K36) against the full tier
     sharded_phase(dev, card, launches, results,
-                  (solved["fused"][0], solved["fused"][1], paths["fused"][0]))
+                  (solved["fused"][0], solved["fused"][1], paths["fused"][0]), full, es)
 
     # no single PyTorch call computes any of these stencils: library_ms is null
     kernels = [

@@ -92,6 +92,10 @@ _SIGNATURES = {
     "mg_seg_residual_df_norm": (_P,) * 3 + (_P, _P, _P, _I) * 2 + (_P, _P) + (_I,) * 3
                                + (_F, _P),
     "mg_seg_residual": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _P),
+    "mg_seg_mixed_half_sweep": (_P, _P, _P, _I) * 2 + (_P,) + (_I,) * 5 + (_F, _I, _P),
+    "mg_seg_mixed_bc_pass": (_P, _P, _P, _I, _P) + (_I,) * 5 + (_P,),
+    "mg_seg_mixed_prolong_correct_black": ((_P,) * 6 + (_I,) * 3 + (_P, _P, _P, _I) * 2
+                                           + (_P,) + (_I,) * 5 + (_F, _P)),
 }
 
 

@@ -1,6 +1,6 @@
 // A segmented block: one rank's rows of an i-sharded field, its halo
 // planes from the neighbours beside them, read as one field of rows
-// [-kl, L + kr), shared by the sharded kernels K28-K33.
+// [-kl, L + kr), shared by the sharded kernels K28-K36.
 //
 // The JAX package hands its sharded kernels either an extended copy
 // (L + 2 halo planes, multigrid_parallel_tpu/ops/pallas_sharded.py *_ext)
@@ -85,6 +85,16 @@ __device__ inline void seg_load_nbrs(const Seg& u, int t, int jk, int n, float (
   v[4] = ut[jk - 1];
   v[5] = ut[jk + 1];
 }
+
+// A fine segment read at GLOBAL plane i (mixed.cuh's accessor): g0 is the
+// global index of its body row 0.
+struct SegFieldAt {
+  Seg u;
+  int g0, n;
+  __device__ float operator()(int i, int j, int k) const {
+    return u.row(i - g0)[j * n + k];
+  }
+};
 
 // A coarse segment read at GLOBAL coarse plane ci (interp_at's accessor):
 // cg0 is the global index of its body row 0.

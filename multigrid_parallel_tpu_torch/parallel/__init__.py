@@ -10,7 +10,9 @@ step on its own blocks (SPMD): halos travel by
 ``dist.batch_isend_irecv``, norms by ``all_reduce``, the coarse section
 by ``all_gather``. ``launch.launch`` starts such a group.
 
-Ported: ``sharded`` (plain ops) and ``sharded_padded`` (the kernel path,
-``ops.pallas_sharded``). The (i, j) decomposition and the sharded
-electrospray path are later slices.
+Ported: the Dirichlet solve, ``sharded`` (plain ops) and
+``sharded_padded`` (the kernel path, ``ops.pallas_sharded``), and the
+electrospray mixed-BC solve, ``sharded_mixed`` (plain f64 ops) and
+``sharded_mixed_padded`` (the kernel path, the sharded kernels of
+``ops.pallas_mixed``). The (i, j) decomposition is a later slice.
 """

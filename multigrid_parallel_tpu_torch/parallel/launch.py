@@ -131,11 +131,14 @@ def launch(fn, n_ranks: int, *args, backend: str = "nccl", device: str = "cuda",
 
 
 def _dryrun_ranks(mesh):
-    """The 1D parts of the JAX _dryrun_impl (__graft_entry__.py:25-72) on
-    this rank: two steps of the double-float df cycle and one f64 V-cycle
-    at 17^3, then the kernel-path whole solve at 33^3 (plan with
-    min_local 2, the kernels forced on from 17^3 up). Returns rank 0's
-    summary line (None elsewhere)."""
+    """The 1D and mixed-BC parts of the JAX _dryrun_impl
+    (__graft_entry__.py:25-72, :109-137) on this rank: two steps of the
+    double-float df cycle and one f64 V-cycle at 17^3, the kernel-path
+    whole solve at 33^3 (plan with min_local 2, the kernels forced on from
+    17^3 up), and the electrospray kernel-path solve at 33^3 (W-cycles,
+    rel_tol 1e-5 of the initial residual, two inner cycles, the kernels
+    forced on from 17^3 up). Returns rank 0's summary line (None
+    elsewhere)."""
     import multigrid_parallel_tpu_torch as mg
     from multigrid_parallel_tpu_torch.parallel import sharded as sh
     from multigrid_parallel_tpu_torch.parallel import sharded_padded as spp
@@ -168,20 +171,41 @@ def _dryrun_ranks(mesh):
     init_p = float(torch.sqrt(sh._all_reduce_sum(mesh, torch.sum(st[2].double() ** 2))))
     _, _, norm_p, n_outer_p = run_p(*st)
     assert float(norm_p) <= 1e-6 * init_p, (float(norm_p), init_p)
+
+    # the electrospray (mixed-BC) kernel path at 33^3, W-cycle: its norm is
+    # relative to the initial residual (f = 0), as MixedBCSolver.solve's
+    from multigrid_parallel_tpu_torch.mixed_bc import MixedBCSolver
+    from multigrid_parallel_tpu_torch.ops import stencils_3d as ops3
+    from multigrid_parallel_tpu_torch.parallel import sharded_mixed_padded as smp
+
+    prob_m = mg.electrospray_problem()
+    hier_m = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=4, length=prob_m.length)
+    sol_m = MixedBCSolver(prob_m, hier_m, n_smooth=2, gamma=2, device=mesh.device)
+    u0_m, f_m = sol_m.initial_state()
+    init_m = float(ops3.residual_norm(u0_m, f_m, hier_m.spacing(hier_m.num_levels - 1)))
+    run_m, plan_m = smp.make_sharded_mixed_padded_df_solver(sol_m, mesh, rel_tol=1e-5,
+                                                            max_cycles=20, inner_cycles=2,
+                                                            jnp_level_max=9)
+    _, _, norm_m, n_outer_m = run_m(*smp.setup_mixed_df_problem_sharded(sol_m, mesh, plan_m))
+    assert float(norm_m) <= 1e-5 * init_m, (float(norm_m), init_m)
+    assert n_outer_m < 20, n_outer_m
     if mesh.rank != 0:
         return None
     return (f"dryrun_multichip OK: {mesh.n_dev} ranks ({mesh.backend}, {mesh.device}), "
             f"plan={plan}, df residual {norm:.3e} -> {float(norm2):.3e}, "
             f"f64 cycle residual {float(norm64):.3e}, kernel-path sharded solve 33^3 "
-            f"plan={plan_p} converged to {float(norm_p):.3e} in {n_outer_p} outer steps")
+            f"plan={plan_p} converged to {float(norm_p):.3e} in {n_outer_p} outer steps, "
+            f"mixed-BC kernel-path sharded 33^3 plan={plan_m} converged to "
+            f"{float(norm_m):.3e} (init {init_m:.3e}, rel {float(norm_m) / init_m:.1e}) in "
+            f"{n_outer_m} outer steps")
 
 
 def dryrun_multichip(n_devices: int, backend: str = "nccl", device: str = "cuda",
                      timeout: float = 300.0) -> str:
     """Run the 1D sharded paths on ``n_devices`` ranks of a fresh group
     and return the summary line (the port's twin of the JAX package's
-    ``__graft_entry__.dryrun_multichip``; its 2D and mixed-BC parts wait
-    for their slices)."""
+    ``__graft_entry__.dryrun_multichip``; its 2D parts wait for their
+    slice)."""
     return launch(_dryrun_ranks, n_devices, backend=backend, device=device,
                   timeout=timeout)[0]
 

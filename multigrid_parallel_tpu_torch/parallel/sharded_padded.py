@@ -97,6 +97,24 @@ def _residual_df_norm_local_plain(u_hi, u_lo, f_hi, f_lo, h, n, mesh: Mesh):
     return r, torch.sum(r64 * r64).to(r.dtype)
 
 
+def _make_residual_norm(mesh: Mesh, n: int, h: float, L0: int, jnp_level_max: int):
+    """residual_norm(u_hi, u_lo, f_hi, f_lo) -> (r, ||r||) of the finest
+    level: K32 on 1-plane halos of u (the plain tier at or below
+    jnp_level_max), its partial ||r||^2 all-reduced over the ranks."""
+
+    def residual_norm(u_hi, u_lo, f_hi, f_lo):
+        if n > jnp_level_max:
+            uh, ul = (_halo_parts(a, mesh, 1, 1) for a in (u_hi, u_lo))
+            # f's halos are not read: only its owned rows
+            r, part = px.residual_df_norm_halo(uh, ul, (f_hi, None, None), (f_lo, None, None),
+                                               _gi0(mesh, L0, 1), h, n, L0)
+        else:
+            r, part = _residual_df_norm_local_plain(u_hi, u_lo, f_hi, f_lo, h, n, mesh)
+        return r, torch.sqrt(_all_reduce_sum(mesh, part))
+
+    return residual_norm
+
+
 # ----------------------------------------------------- cycle + solver
 
 
@@ -287,15 +305,7 @@ def make_sharded_df_solver(
     h = hier.spacing(hier.num_levels - 1)
     L0 = plan.local_planes(0)
 
-    def residual_norm(u_hi, u_lo, f_hi, f_lo):
-        if n > jnp_level_max:
-            uh, ul = (_halo_parts(a, mesh, 1, 1) for a in (u_hi, u_lo))
-            # f's halos are not read: only its owned rows
-            r, part = px.residual_df_norm_halo(uh, ul, (f_hi, None, None), (f_lo, None, None),
-                                               _gi0(mesh, L0, 1), h, n, L0)
-        else:
-            r, part = _residual_df_norm_local_plain(u_hi, u_lo, f_hi, f_lo, h, n, mesh)
-        return r, torch.sqrt(_all_reduce_sum(mesh, part))
+    residual_norm = _make_residual_norm(mesh, n, h, L0, jnp_level_max)
 
     def run(u_hi, u_lo, f_hi, f_lo):
         if init_norm is not None:

@@ -213,6 +213,20 @@ def to_jax_sharded_df(hi_blocks, lo_blocks, n: int, lanes: bool = True):
     return to_jax_sharded(hi_blocks, n, lanes), to_jax_sharded(lo_blocks, n, lanes)
 
 
+def from_jax_sharded_state(state, n: int, plan, rank: int, device="cuda"):
+    """A JAX sharded double-float state (u_hi, u_lo, f_hi, f_lo: the
+    electrospray's ``setup_mixed_df_problem_sharded`` or the Dirichlet
+    ``setup_df_problem_sharded_padded``, lane-padded global arrays) -> this
+    rank's four (L, n, n) blocks."""
+    return tuple(from_jax_sharded(x, n, plan, rank, device) for x in state)
+
+
+def to_jax_sharded_state(rank_states, n: int, lanes: bool = True):
+    """The ranks' (u_hi, u_lo, f_hi, f_lo) blocks, rank 0 first -> the JAX
+    package's four sharded global arrays."""
+    return tuple(to_jax_sharded(blocks, n, lanes) for blocks in zip(*rank_states))
+
+
 def to_jax_split(xr: torch.Tensor, xb: torch.Tensor, n: int):
     """The port's (red, black) pair -> zero-padded numpy arrays in the
     JAX package's split layout."""

@@ -8,7 +8,9 @@ residual) against their plain versions, the f64 reference solve on the
 card against the CPU, the smoother study on K1, and the i-sharded
 kernels K28-K33 on four simulated ranks against their plain versions
 and the single-device kernels, with the sharded solve on one NCCL rank
-against the fused single-device solve.
+against the fused single-device solve, and the i-sharded electrospray
+kernels K34-K36 likewise against their plain versions and K13-K15, with
+the sharded electrospray solve on one NCCL rank against the full tier.
 
 These need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 themselves where there is none. The file imports no jax, so on a machine
@@ -297,7 +299,8 @@ def test_mixed_kernels_match_plain_on_card(cuda, n):
             assert torch.equal(e, e0)  # fresh output, e untouched
             assert torch.equal(got, tpm.mixed_prolong_smooth_plain(ec, e, r, pin, h, n_iter))
     # per pin, n_iter 1 and 2: K13 2 orders x (2 n_iter + 1); K14 and K15 2 n_iter + 1
-    assert tpm.LAUNCHES == {"mixed_rb_smooth_fused": 2 * 2 * (3 + 5),
+    assert tpm.LAUNCHES == {**dict.fromkeys(tpm.KERNELS, 0),
+                            "mixed_rb_smooth_fused": 2 * 2 * (3 + 5),
                             "mixed_rb_smooth_from_zero_fused": 2 * (3 + 5),
                             "mixed_prolong_smooth_fused": 2 * (3 + 5)}
 
@@ -699,3 +702,106 @@ def test_sharded_df_solver_one_nccl_rank_matches_fused(cuda):
     seg = {"rb_smooth_seg", "rb_smooth_from_zero_seg", "residual_restrict_seg",
            "prolong_smooth_seg", "residual_df_norm_seg"}
     assert {k for k, v in launches.items() if v} == seg, launches
+
+
+# --------------------------------- the i-sharded electrospray kernels K34-K36
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L", [(65, 18), (65, 32)])
+@pytest.mark.parametrize("kernel", ["K34", "K35", "K36"])
+def test_sharded_mixed_kernels_match_plain_and_single_device_on_card(cuda, kernel, n, L):
+    """Four simulated ranks' segments of a 65^3 electrospray field (the
+    last rank owns pad planes only; L = 32 puts plane 64 at rank 2's row 0,
+    whose left halo is one plane deeper): each rank's kernel output bitwise
+    equal to its plain version, the stitched owned rows to K13-K15 on the
+    whole field, the pad planes zero."""
+    import torch_sharded_ranks as rk
+
+    D, hh = 4, 4
+    es = tmg.electrospray_problem()
+    h, nc, Lc = es.length / (n - 1), (n + 1) // 2, L // 2
+    pin = tpm.dirichlet_pin_planes(es, n, cuda)
+    u, f, ec = _sharded_fields(cuda, n, L)
+    u[:n] = tpm.apply_bcs_padded(u[:n], pin)  # BC-consistent, as the cycle hands it over
+
+    def parts(x, r):
+        return rk.rank_parts(x, r, L, hh + (r * L == n - 1), hh)
+
+    calls = {
+        "K34": ("mixed_rb_smooth_seg",
+                lambda r: tpm.mixed_rb_smooth_halo(parts(u, r), parts(f, r), pin, r * L - hh, h,
+                                                   2, n, L),
+                lambda r: tpm.mixed_rb_smooth_halo_plain(parts(u, r), parts(f, r), pin,
+                                                         r * L - hh, h, 2, n, L),
+                tpm.mixed_rb_smooth_fused(u[:n].clone(), f[:n], pin, h, 2)),
+        "K35": ("mixed_rb_smooth_from_zero_seg",
+                lambda r: tpm.mixed_rb_smooth_from_zero_halo(parts(f, r), pin, r * L - hh, h, 2,
+                                                             n, L),
+                lambda r: tpm.mixed_rb_smooth_from_zero_halo_plain(parts(f, r), pin, r * L - hh,
+                                                                   h, 2, n, L),
+                tpm.mixed_rb_smooth_from_zero_fused(f[:n], pin, h, 2)),
+        "K36": ("mixed_prolong_smooth_seg",
+                lambda r: tpm.mixed_prolong_smooth_halo(
+                    rk.rank_parts(ec, r, Lc, 2 + (r * L == n - 1), 3), parts(u, r), parts(f, r),
+                    pin, r * L - hh, h, 2, n, L),
+                lambda r: tpm.mixed_prolong_smooth_halo_plain(
+                    rk.rank_parts(ec, r, Lc, 2 + (r * L == n - 1), 3), parts(u, r), parts(f, r),
+                    pin, r * L - hh, h, 2, n, L),
+                tpm.mixed_prolong_smooth_fused(ec[:nc], u[:n], f[:n], pin, h, 2)),
+    }
+    name, kern, plain, want = calls[kernel]
+    tpm.reset_launches()
+    outs = []
+    for r in range(D):
+        got = kern(r)
+        assert torch.equal(got, plain(r)), r
+        outs.append(got)
+    got = torch.cat(outs)
+    assert torch.equal(got[:n], want) and not got[n:].any()
+    assert tpm.LAUNCHES == {**dict.fromkeys(tpm.KERNELS, 0), name: 5 * D}
+
+
+@pytest.mark.cuda
+def test_sharded_mixed_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    import torch_sharded_ranks as rk
+
+    n, L, hh = 33, 10, 4
+    pin = tpm.dirichlet_pin_planes(tmg.electrospray_problem(), n, cuda)
+    u, f, _ = _sharded_fields(cuda, n, L)
+    u3, f3 = rk.rank_parts(u, 1, L, hh, hh), rk.rank_parts(f, 1, L, hh, hh)
+    with pytest.raises(TypeError):
+        tpm.mixed_rb_smooth_halo(tuple(t.double() for t in u3), f3, pin, L - hh, 1e-5, 2, n, L)
+    with pytest.raises(TypeError):
+        tpm.mixed_rb_smooth_halo(u3, f3, pin.double(), L - hh, 1e-5, 2, n, L)
+    with pytest.raises(ValueError, match="pin planes on"):
+        tpm.mixed_rb_smooth_from_zero_halo(f3, pin.cpu(), L - hh, 1e-5, 2, n, L)
+    with pytest.raises(ValueError, match="different devices"):
+        tpm.mixed_rb_smooth_halo((u3[0].cpu(),) + u3[1:], f3, pin, L - hh, 1e-5, 2, n, L)
+    with pytest.raises(ValueError, match="planes"):
+        tpm.mixed_rb_smooth_halo(tuple(t[:, :-1] for t in u3), f3, pin, L - hh, 1e-5, 2, n, L)
+    with pytest.raises(ValueError, match="contiguous"):
+        tpm.mixed_rb_smooth_halo((u3[0].transpose(1, 2),) + u3[1:], f3, pin, L - hh, 1e-5, 2,
+                                 n, L)
+
+
+@pytest.mark.cuda
+def test_sharded_mixed_df_solver_one_nccl_rank_matches_full_tier(cuda):
+    """make_sharded_mixed_padded_df_solver at 33^3 on one NCCL rank (a
+    spawned process; K34-K36, K30, K32 at every level above 5^3) against
+    the single-device full tier: the same outer steps and solution."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.parallel.launch import launch
+
+    u, nrm, steps, plan, calls = launch(rk.mixed_df_solver, 1, 0, 0, 0, backend="nccl",
+                                        device="cuda")[0]
+    es = tmg.electrospray_problem()
+    hier = tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=4, length=es.length)
+    s = MixedBCSolver(es, hier, n_smooth=2, gamma=2, device=cuda)
+    out = tmp.make_mixed_padded_df_solver(s, rel_tol=1e-6, inner_cycles=2)(
+        *tmp.setup_mixed_df_problem(s))
+    want = tmp.unpack_mixed_solution(out[0], out[1], hier).cpu()
+    assert (plan.n_sharded, plan.fine_local) == (3, 40)
+    assert steps == out[3]
+    assert float((u - want).abs().max()) <= 1e-7 * float(want.abs().max())
+    assert calls["mixed_prolong_smooth_halo"] > 0 and calls["residual_df_norm_halo"] == steps + 1

@@ -4,8 +4,13 @@ segments of a global field, and the SPMD functions that the gloo ranks of
 imports torch and the port, never jax).
 
 A global field here is an (n_dev * L, n, n) array: the n valid planes,
-then zero pad planes, of which rank r owns rows [r L, (r + 1) L).
+then zero pad planes, of which rank r owns rows [r L, (r + 1) L). The
+electrospray checks take the problem's own cube (its length, its
+patches) at each size.
 """
+
+import collections
+import contextlib
 
 import numpy as np
 import torch
@@ -61,6 +66,28 @@ def _blocks(x_global: np.ndarray, mesh, L: int) -> torch.Tensor:
     return torch.from_numpy(x_global[mesh.rank * L:(mesh.rank + 1) * L].copy()).to(mesh.device)
 
 
+@contextlib.contextmanager
+def _counted_calls(module, names):
+    """Count this rank's calls of ``module``'s functions ``names`` inside
+    the block (LAUNCHES counts launches on the card only)."""
+    calls = collections.Counter()
+    saved = {name: getattr(module, name) for name in names}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for name, fn in saved.items():
+        setattr(module, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
 def f64_cycles(mesh, n_cycles: int = 3):
     """The f64 sharded V-cycle (parallel.sharded.make_sharded_cycle) at
     17^3, n_cycles times: (norms, the gathered valid planes of u)."""
@@ -112,21 +139,10 @@ def padded_cycles(mesh, r_global: np.ndarray, L: int, configs, jnp_level_maxes):
     gathered (n_dev * L, n, n) correction, this rank's calls of each
     sharded kernel wrapper)}. (LAUNCHES counts launches on the card only;
     on the CPU the calls are counted here.)"""
-    import collections
-
     from multigrid_parallel_tpu_torch.ops import pallas_sharded as px
 
-    calls = collections.Counter()
-
-    def counted(name, fn):
-        def wrapper(*args, **kwargs):
-            calls[name] += 1
-            return fn(*args, **kwargs)
-        return wrapper
-
-    for name in ("rb_smooth_halo", "rb_smooth_from_zero_halo", "residual_restrict_halo",
-                 "prolong_smooth_halo"):
-        setattr(px, name, counted(name, getattr(px, name)))
+    names = ("rb_smooth_halo", "rb_smooth_from_zero_halo", "residual_restrict_halo",
+             "prolong_smooth_halo")
     hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=4)
     r = _blocks(r_global, mesh, L)
     out = {}
@@ -135,8 +151,8 @@ def padded_cycles(mesh, r_global: np.ndarray, L: int, configs, jnp_level_maxes):
         plan = sh.ShardPlan(n_dev=mesh.n_dev, axis="x", n_sharded=n_sharded, fine_local=L)
         for jl in jnp_level_maxes:
             step, _ = spp.make_sharded_padded_cycle(hier, cfg, mesh, plan, jnp_level_max=jl)
-            calls.clear()
-            e = step(torch.zeros_like(r), r)
+            with _counted_calls(px, names) as calls:
+                e = step(torch.zeros_like(r), r)
             out[(n_sharded, gamma, gamma_min_n, jl)] = (sh.gather_global(e, mesh), dict(calls))
     return out
 
@@ -183,3 +199,94 @@ def never_returns(mesh):
     import time
 
     time.sleep(3600)
+
+
+# ------------------------------------------ the sharded electrospray solve
+
+
+def _es_solver(mesh, gamma=2, gamma_min_n=0, band_width=0, band_iters=0):
+    from multigrid_parallel_tpu_torch.mixed_bc import MixedBCSolver
+
+    es = mg.electrospray_problem()
+    hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=4, length=es.length)  # 33^3
+    return MixedBCSolver(es, hier, n_smooth=2, gamma=gamma, gamma_min_n=gamma_min_n,
+                         boundary_band_width=band_width, boundary_band_iters=band_iters,
+                         device=mesh.device)
+
+
+def mixed_bcs(mesh, u_global: np.ndarray, n: int, L: int):
+    """sharded_mixed.apply_bcs_local (zero pin; the electrospray patch
+    values) and sharded_mixed_padded.apply_bcs_local_padded on this rank's
+    block of u_global: {label: the gathered result} on rank 0."""
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed as pm
+    from multigrid_parallel_tpu_torch.parallel import sharded_mixed as sm
+    from multigrid_parallel_tpu_torch.parallel import sharded_mixed_padded as smp
+
+    es = mg.electrospray_problem()
+    pin = pm.dirichlet_pin_planes(es, n, mesh.device)
+    vals = es.boundary_masks(n)[1]
+    vals = torch.from_numpy(np.stack([vals[0], vals[n - 1]])).to(mesh.device, torch.float32)
+    u = _blocks(u_global, mesh, L)
+    zero = torch.zeros_like(pin[0])
+    out = {"zero": sm.apply_bcs_local(u, n, mesh, zero, zero),
+           "patches": sm.apply_bcs_local(u, n, mesh, pin[0], pin[1], vals[0], vals[1]),
+           "padded": smp.apply_bcs_local_padded(u, n, mesh, pin, vals)}
+    out = {k: sh.gather_global(v, mesh) for k, v in out.items()}
+    return out if mesh.rank == 0 else None
+
+
+def mixed_bc_cycles(mesh, gamma: int, gamma_min_n: int, band_width: int, band_iters: int,
+                    n_cycles: int = 3):
+    """The f64 sharded mixed-BC cycle (sharded_mixed.make_sharded_mixed_bc_cycle)
+    at 33^3, n_cycles times: (norms, the gathered valid planes of u)."""
+    from multigrid_parallel_tpu_torch.parallel import sharded_mixed as sm
+
+    solver = _es_solver(mesh, gamma, gamma_min_n, band_width, band_iters)
+    step, plan = sm.make_sharded_mixed_bc_cycle(solver, mesh)
+    u, f = sm.setup_mixed_problem_sharded(solver, mesh, plan)
+    norms = []
+    for _ in range(n_cycles):
+        u, nrm = step(u, f)
+        norms.append(float(nrm))
+    return norms, sh.gather_global(u, mesh)[:solver.hier.finest_n]
+
+
+def mixed_df_solver(mesh, fine_local: int, n_sharded: int, jnp_level_max: int):
+    """make_sharded_mixed_padded_df_solver at 33^3 (W-cycles, two inner
+    cycles, to 1e-6 of the initial residual) under the plan (the default
+    plan where fine_local is 0): (the gathered f64 solution, final norm,
+    outer steps, plan, this rank's calls of the sharded kernel wrappers)."""
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed as pm
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as px
+    from multigrid_parallel_tpu_torch.parallel import sharded_mixed_padded as smp
+
+    solver = _es_solver(mesh)
+    plan = (sh.ShardPlan(n_dev=mesh.n_dev, axis="x", n_sharded=n_sharded, fine_local=fine_local)
+            if fine_local else None)
+    run, plan = smp.make_sharded_mixed_padded_df_solver(solver, mesh, plan, rel_tol=1e-6,
+                                                        inner_cycles=2,
+                                                        jnp_level_max=jnp_level_max)
+    state = smp.setup_mixed_df_problem_sharded(solver, mesh, plan)
+    with _counted_calls(pm, ("mixed_rb_smooth_halo", "mixed_rb_smooth_from_zero_halo",
+                             "mixed_prolong_smooth_halo")) as calls, \
+            _counted_calls(px, ("residual_restrict_halo", "residual_df_norm_halo")) as calls_d:
+        u_hi, u_lo, nrm, steps = run(*state)
+    u = smp.unpack_mixed_solution_sharded(sh.gather_global(u_hi, mesh),
+                                          sh.gather_global(u_lo, mesh), solver.hier)
+    return u, float(nrm), steps, plan, {**calls, **calls_d}
+
+
+def mixed_solve_checks(mesh, cycle_configs, solver_configs):
+    """Every electrospray check of one world size, in one launch: the f64
+    cycles of each (gamma, gamma_min_n, band width, band iterations), the solver under each
+    (fine_local, n_sharded, jnp_level_max), and this rank's blocks of the
+    double-float setup (gathered)."""
+    from multigrid_parallel_tpu_torch.parallel import sharded_mixed_padded as smp
+
+    out = {"cycles": {cfg: mixed_bc_cycles(mesh, *cfg) for cfg in cycle_configs},
+           "solver": {cfg: mixed_df_solver(mesh, *cfg) for cfg in solver_configs}}
+    solver = _es_solver(mesh)
+    plan = sh.plan_sharding(solver.hier, mesh.n_dev)
+    out["setup"] = [sh.gather_global(x, mesh)
+                    for x in smp.setup_mixed_df_problem_sharded(solver, mesh, plan)]
+    return out if mesh.rank == 0 else None
