@@ -23,10 +23,13 @@ levels below on the fold cycle). And the reference driver surface: the
 f64 V-cycle solve at 257^3 through each of its entry points,
 MultigridSolver with a checkpoint, the smoother study on K1 and the
 CLI. And the i-sharded distributed double-float solve at 257^3 on
-torch.distributed (K28-K32; K33 beside them), and the i-sharded
+torch.distributed (K28-K32; K33 beside them), the i-sharded
 electrospray solve at 257^3 in its production configuration (K34-K36 with
 K30 and K32), each on one NCCL rank and on four gloo ranks sharing the
-card. Phases, each of which fails the run:
+card, and the (i, j)-sharded double-float solve at 257^3 (K37-K41, with
+K28-K31 in its j-replicated tier and K2-K4 in its replicated tail) on one
+NCCL rank and on the four gloo ranks as 2x2 and 1x4 meshes. Phases, each
+of which fails the run:
 
   1. build the hand-written CUDA kernels from ops/csrc (one nvcc per
      source, all started together; sm_90a);
@@ -110,11 +113,27 @@ card. Phases, each of which fails the run:
      group, the same solve on the four gloo ranks: (b)'s outer steps, u
      within 1e-7 max|u| of (b)'s, each rank launching only K34-K36, K30,
      K32 and, in the replicated 9^3 tail, K14, K3, K15; and the f64 sharded
-     mixed-BC cycle at 65^3 against MixedBCSolver's within 1e-11 max|u|.
+     mixed-BC cycle at 65^3 against MixedBCSolver's within 1e-11 max|u|;
+ 12. the (i, j)-sharded solve (parallel.sharded2d_padded): (a) K37-K41 on
+     the simulated ranks' blocks of 65^3 and 257^3 fields on 2x2, 4x1 and
+     1x4 meshes (the padded plan's blocks, five halo parts with the corner
+     blocks), each bitwise equal to its plain version and, stitched, to K1
+     (both orders), K2, K3, K4 and K5's r, each timed on rank (0, 0)'s
+     257^3 2x2 block against its plain version; (b)
+     make_sharded2d_padded_df_solver at 257^3 on one NCCL rank (a 1x1 mesh,
+     plan Li = Lj = 272, n_sharded 4), launch counts reset and read around
+     it: exactly the launches predicted from the tier map, the fused
+     solve's outer steps, max|u - u_fused| = 0, walls interleaved with the
+     fused solve (5 each), the device busy time of each, and the dry-run
+     twin on that rank; (c) four gloo ranks through parallel.launch: the
+     same solve on a 2x2 mesh (Li = Lj = 144) and on a 1x4 mesh whose 9^3
+     level runs the j-replicated tier, each in (b)'s outer steps with u
+     bitwise equal to (b)'s and each rank's launches as predicted, one
+     host-staged wall a rank, and the dry-run twin with its 2D part.
 
 Prints a {"kernels": [...]} line (each kernel's launches summed over the
-257^3 runs of phases 4, 6, 7, 8, 10 and 11 (all four ranks of 10c and
-11c), the split tier's 33^3 card solves of phase 3 and the study of
+257^3 runs of phases 4, 6, 7, 8, 10, 11 and 12 (all four ranks of 10c,
+11c and 12c), the split tier's 33^3 card solves of phase 3 and the study of
 phase 9c; bound_ms from the timed call's bytes and operations), the
 card's name and power limit, and as its last line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
@@ -228,6 +247,24 @@ SOURCES = {
     "mixed_prolong_smooth_seg": ("multigrid_parallel_tpu_torch/ops/csrc/mixed_prolong_smooth_seg.cu",
                                  "multigrid_parallel_tpu/ops/pallas_mixed.py:684, "
                                  "multigrid_parallel_tpu/ops/pallas_mixed.py:948"),
+    # the (i, j)-sharded kernels: the i-sharded sources instantiated on the 2D
+    # accessor (seg2d.cuh); each serves the ext and the halo form of its Pallas
+    # kernel (the sites :181 and :910 for K37 / K38; :676 and :910 for K41)
+    "rb_smooth_seg2d": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth_seg.cu",
+                        "multigrid_parallel_tpu/ops/pallas_sharded2d.py:181, "
+                        "multigrid_parallel_tpu/ops/pallas_sharded2d.py:910"),
+    "rb_smooth_from_zero_seg2d": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth_seg.cu",
+                                  "multigrid_parallel_tpu/ops/pallas_sharded2d.py:181, "
+                                  "multigrid_parallel_tpu/ops/pallas_sharded2d.py:910"),
+    "residual_restrict_seg2d": ("multigrid_parallel_tpu_torch/ops/csrc/residual_restrict_seg.cu",
+                                "multigrid_parallel_tpu/ops/pallas_sharded2d.py:382, "
+                                "multigrid_parallel_tpu/ops/pallas_sharded2d.py:1122"),
+    "prolong_smooth_seg2d": ("multigrid_parallel_tpu_torch/ops/csrc/prolong_smooth_seg.cu",
+                             "multigrid_parallel_tpu/ops/pallas_sharded2d.py:540, "
+                             "multigrid_parallel_tpu/ops/pallas_sharded2d.py:1259"),
+    "residual_df_norm_seg2d": ("multigrid_parallel_tpu_torch/ops/csrc/residual_df_norm_seg.cu",
+                               "multigrid_parallel_tpu/ops/pallas_sharded2d.py:676, "
+                               "multigrid_parallel_tpu/ops/pallas_sharded2d.py:910"),
 }
 # f32 operations per stored output point of each kernel as the main path
 # calls it (n_iter = 2), counted from its arithmetic: an RB update is 8
@@ -251,6 +288,8 @@ OPS_PER_POINT = {
     "rb_smooth_seg": 16, "rb_smooth_from_zero_seg": 16, "residual_restrict_seg": 14,
     "prolong_smooth_seg": 20, "residual_df_norm_seg": 72, "residual_seg": 9,
     "mixed_rb_smooth_seg": 16, "mixed_rb_smooth_from_zero_seg": 16, "mixed_prolong_smooth_seg": 20,
+    "rb_smooth_seg2d": 16, "rb_smooth_from_zero_seg2d": 16, "residual_restrict_seg2d": 14,
+    "prolong_smooth_seg2d": 20, "residual_df_norm_seg2d": 72,
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores (same sheet)
@@ -322,6 +361,22 @@ MIXED_SEG_TAIL_KERNELS = ("mixed_rb_smooth_from_zero_fused", "residual_restrict_
 # of max|u|: the sharded electrospray solves against the full tier and each other
 # (tests/test_mixed_fold.py:201's bound; the arithmetic is the same, so 0 is expected)
 SHARDED_MIXED_RTOL = 1e-7
+# the (i, j)-sharded solve (phase 12): simulated blocks on each mesh shape; the
+# four gloo ranks as a 2x2 mesh, and as a 1x4 mesh under NARROW_2D (n_sharded,
+# fine_local_i, fine_local_j), whose 9^3 level has Lj = 4 columns, too narrow
+# for the 2D kernels' halos: the gate runs the j-replicated tier (K28-K31) there
+SHARDED2D_SHAPES = ((2, 2), (4, 1), (1, 4))
+NARROW_2D = (6, 320, 128)
+# the kernel names of each tier of the (i, j) cycle: smoothing, smoothing from
+# zero, residual + restriction, prolongation + smoothing
+TIER_KERNELS = {
+    "2d": ("rb_smooth_seg2d", "rb_smooth_from_zero_seg2d", "residual_restrict_seg2d",
+           "prolong_smooth_seg2d"),
+    "j-replicated": ("rb_smooth_seg", "rb_smooth_from_zero_seg", "residual_restrict_seg",
+                     "prolong_smooth_seg"),
+    "replicated": ("rb_smooth_fused", "rb_smooth_from_zero_fused", "residual_restrict_fused",
+                   "prolong_smooth_fused"),
+}
 # of max|u| (1350 V): the f64 sharded mixed-BC cycle against MixedBCSolver's own
 SHARDED_MIXED_F64_RTOL = 1e-11
 
@@ -823,9 +878,10 @@ def device_busy_ms(fn):
 def _launch_modules():
     from multigrid_parallel_tpu_torch.ops import pallas3d, pallas_mixed, pallas_mixed_fold
     from multigrid_parallel_tpu_torch.ops import pallas_mixed_split, pallas_sharded, pallas_split
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d
 
     return (pallas3d, pallas_split, pallas_mixed, pallas_mixed_fold, pallas_mixed_split,
-            pallas_sharded)
+            pallas_sharded, pallas_sharded2d)
 
 
 def reset_launches():
@@ -1938,6 +1994,418 @@ def sharded_phase(dev, card, launches, results, fused, full, es):
     print(f"[phases 10-11] {time.perf_counter() - t_phase:.1f} s")
 
 
+def _seg_parts2d(x, ix, iy, li, lj, kl, kr):
+    """Rank (ix, iy)'s own copies of its five parts (body, jl, jr, lh, rh)
+    of the global field x (nx li, ny lj, m): the j halos (kl columns before
+    the block, kr after), and j-extended i-halo rows (corners included);
+    zeros past the array's edges (the chain ends)."""
+    rows, cols, m = x.shape
+    g = x.new_zeros((rows + kl + kr, cols + kl + kr, m))
+    g[kl:kl + rows, kl:kl + cols] = x
+    e = g[ix * li:ix * li + kl + li + kr, iy * lj:iy * lj + kl + lj + kr]
+    mid = e[kl:kl + li]
+    return (mid[:, kl:kl + lj].clone(), mid[:, :kl].clone(), mid[:, kl + lj:].clone(),
+            e[:kl].clone(), e[kl + li:].clone())
+
+
+def compare_sharded2d(dev, results):
+    """Phase 12a: K37-K41 on the simulated ranks' blocks of 65^3 and 257^3
+    fields on 2x2, 4x1 and 1x4 meshes (the blocks of the padded plan; their
+    own copies of the five halo parts, corner blocks included, zeros past
+    the chain ends; gij0 = (ix Li - halo, iy Lj - halo)): each rank's kernel
+    output bitwise equal to its plain version, the stitched owned points
+    bitwise equal to the single-device kernel on the whole field (K1 stage
+    both orders, K2 stage, K3, K4 stage, K5's r), the ranks' partial norms
+    summed within SHARDED_NORM_RTOL of K5's; then each timed on rank (0,
+    0)'s 257^3 2x2 block against its plain version."""
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch.ops import pallas3d as pk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as px2
+    from multigrid_parallel_tpu_torch.parallel import sharded2d_padded as s2p
+
+    hh = 4  # the stage halo of n_smooth = 2
+    for name in px2.KERNELS:
+        results[name] = {"max_abs_err": 0.0}
+    timed = {}
+    for levels in (5, 7):
+        hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=levels)
+        n = hier.finest_n
+        h, nc = 1.0 / (n - 1), (n + 1) // 2
+        rng = np.random.default_rng(n + 20)
+
+        def cube(m):
+            return torch.from_numpy(rng.standard_normal((m, m, m)).astype(np.float32)).to(dev)
+
+        u, f, ec = cube(n), cube(n), cube(nc)
+        df = [t for _ in range(2) for t in pk.df_split(cube(n).double() + 1e-9 * cube(n).double())]
+        wants = {
+            ("rb_smooth_seg2d", True): pk.rb_smooth_fused(u.clone(), f, h, 2, True),
+            ("rb_smooth_seg2d", False): pk.rb_smooth_fused(u.clone(), f, h, 2, False),
+            ("rb_smooth_from_zero_seg2d", True): pk.rb_smooth_from_zero_fused(f, h, 2),
+            ("residual_restrict_seg2d", True): pk.residual_restrict_fused(u, f, h),
+            ("prolong_smooth_seg2d", True): pk.prolong_smooth_fused(ec, u, f, h, 2),
+        }
+        want_r, want_n2 = pk.residual_df_norm_fused(*df, h)
+        for nx, ny in SHARDED2D_SHAPES:
+            plan = s2p.plan_sharding_2d_padded(hier, nx, ny)
+            li, lj = plan.local_i(0), plan.local_j(0)
+            lic, ljc = li // 2, lj // 2
+
+            def glob(x, a, b):
+                m = x.shape[0]
+                out = x.new_zeros((nx * a, ny * b, m))
+                out[:m, :m] = x
+                return out
+
+            U, F, EC = glob(u, li, lj), glob(f, li, lj), glob(ec, lic, ljc)
+            DF = [glob(x, li, lj) for x in df]
+            ranks = [(ix, iy) for ix in range(nx) for iy in range(ny)]
+            g = lambda ix, iy, halo: (ix * li - halo, iy * lj - halo)  # noqa: E731
+
+            def p5(x, ix, iy, kl, kr, a=li, b=lj):
+                return _seg_parts2d(x, ix, iy, a, b, kl, kr)
+
+            calls = {
+                ("rb_smooth_seg2d", True): lambda ix, iy, fn: fn(
+                    p5(U, ix, iy, hh, hh), p5(F, ix, iy, hh, hh), g(ix, iy, hh), h, 2, n, li, lj,
+                    True),
+                ("rb_smooth_seg2d", False): lambda ix, iy, fn: fn(
+                    p5(U, ix, iy, hh, hh), p5(F, ix, iy, hh, hh), g(ix, iy, hh), h, 2, n, li, lj,
+                    False),
+                ("rb_smooth_from_zero_seg2d", True): lambda ix, iy, fn: fn(
+                    p5(F, ix, iy, hh, hh), g(ix, iy, hh), h, 2, n, li, lj),
+                ("residual_restrict_seg2d", True): lambda ix, iy, fn: fn(
+                    p5(U, ix, iy, 2, 1), p5(F, ix, iy, 2, 1), g(ix, iy, 2), h, n, lic, ljc),
+                ("prolong_smooth_seg2d", True): lambda ix, iy, fn: fn(
+                    p5(EC, ix, iy, 2, 3, lic, ljc), p5(U, ix, iy, hh, hh), p5(F, ix, iy, hh, hh),
+                    g(ix, iy, hh), h, 2, n, li, lj),
+            }
+            fns = {"rb_smooth_seg2d": (px2.rb_smooth_halo2d, px2.rb_smooth_halo2d_plain),
+                   "rb_smooth_from_zero_seg2d": (px2.rb_smooth_from_zero_halo2d,
+                                                 px2.rb_smooth_from_zero_halo2d_plain),
+                   "residual_restrict_seg2d": (px2.residual_restrict_halo2d,
+                                               px2.residual_restrict_halo2d_plain),
+                   "prolong_smooth_seg2d": (px2.prolong_smooth_halo2d,
+                                            px2.prolong_smooth_halo2d_plain)}
+            label = f"{nx}x{ny} Li={li} Lj={lj}"
+            for (name, red), call in calls.items():
+                kern, plain = fns[name]
+                outs = {}
+                for ix, iy in ranks:
+                    outs[ix, iy] = call(ix, iy, kern)
+                    bitwise_same(results, name, n, f"{label} red_first={red} rank ({ix}, {iy}) "
+                                 "against plain", outs[ix, iy], call(ix, iy, plain))
+                stitched = torch.cat([torch.cat([outs[ix, iy] for iy in range(ny)], dim=1)
+                                      for ix in range(nx)])
+                want = wants[name, red]
+                m = want.shape[0]
+                bitwise_same(results, name, n, f"{label} red_first={red} stitched against the "
+                             "single-device kernel", stitched[:m, :m].contiguous(), want)
+                # (K40 writes e + P ec on pad points too, which nothing reads)
+                check(name == "prolong_smooth_seg2d"
+                      or (not stitched[m:].any() and not stitched[:, m:].any()),
+                      f"{name} n={n} {label}: pad points not zero")
+            outs, n2 = {}, 0.0
+            for ix, iy in ranks:
+                segs = [p5(x, ix, iy, 1, 1) for x in DF]
+                got_r, got_n2 = px2.residual_df_norm_halo2d(*segs, g(ix, iy, 1), h, n, li, lj)
+                plain_r, plain_n2 = px2.residual_df_norm_halo2d_plain(*segs, g(ix, iy, 1), h, n,
+                                                                      li, lj)
+                bitwise_same(results, "residual_df_norm_seg2d", n,
+                             f"{label} r rank ({ix}, {iy}) against plain", got_r, plain_r)
+                check(abs(float(got_n2) - float(plain_n2)) <= SHARDED_NORM_RTOL * float(plain_n2),
+                      f"residual_df_norm_seg2d n={n} {label} rank ({ix}, {iy}): partial norm "
+                      f"{float(got_n2)} against {float(plain_n2)}")
+                outs[ix, iy] = got_r
+                n2 += float(got_n2)
+            stitched = torch.cat([torch.cat([outs[ix, iy] for iy in range(ny)], dim=1)
+                                  for ix in range(nx)])
+            bitwise_same(results, "residual_df_norm_seg2d", n, f"{label} r stitched against K5",
+                         stitched[:n, :n].contiguous(), want_r)
+            rel = abs(n2 - float(want_n2)) / float(want_n2)
+            check(rel <= SHARDED_NORM_RTOL, f"residual_df_norm_seg2d n={n} {label}: norm rel {rel}")
+            print(f"[sharded2d kernels n={n} {label}] K37-K41 bitwise equal to their plain "
+                  f"versions and, stitched, to K1 (both orders), K2, K3, K4, K5's r; sum of the "
+                  f"partial ||r||^2 {n2:.9e} against K5's {float(want_n2):.9e} (rel {rel:.2e})")
+            if n == 257 and (nx, ny) == (2, 2):
+                timed = dict(U=U, F=F, EC=EC, DF=DF, li=li, lj=lj, n=n, h=h, p5=p5)
+
+    # times on rank (0, 0)'s block of the 257^3 fields on 2x2 (the 4-rank solve's shapes)
+    U, F, EC, DF, li, lj, n, h, p5 = (timed[k] for k in ("U", "F", "EC", "DF", "li", "lj", "n",
+                                                          "h", "p5"))
+    u4, f4 = p5(U, 0, 0, hh, hh), p5(F, 0, 0, hh, hh)
+    u21, f21 = p5(U, 0, 0, 2, 1), p5(F, 0, 0, 2, 1)
+    ec23, df11 = p5(EC, 0, 0, 2, 3, li // 2, lj // 2), [p5(x, 0, 0, 1, 1) for x in DF]
+    g = lambda halo: (-halo, -halo)  # noqa: E731
+    ext_pts = (li + 2 * hh) * (lj + 2 * hh) * n
+    calls = {
+        "rb_smooth_seg2d": (lambda: px2.rb_smooth_halo2d(u4, f4, g(hh), h, 2, n, li, lj),
+                            lambda: px2.rb_smooth_halo2d_plain(u4, f4, g(hh), h, 2, n, li, lj),
+                            (*u4, *f4), ext_pts),
+        "rb_smooth_from_zero_seg2d": (
+            lambda: px2.rb_smooth_from_zero_halo2d(f4, g(hh), h, 2, n, li, lj),
+            lambda: px2.rb_smooth_from_zero_halo2d_plain(f4, g(hh), h, 2, n, li, lj),
+            f4, ext_pts),
+        "residual_restrict_seg2d": (
+            lambda: px2.residual_restrict_halo2d(u21, f21, g(2), h, n, li // 2, lj // 2),
+            lambda: px2.residual_restrict_halo2d_plain(u21, f21, g(2), h, n, li // 2, lj // 2),
+            (*u21, *f21), li * lj * n),
+        "prolong_smooth_seg2d": (
+            lambda: px2.prolong_smooth_halo2d(ec23, u4, f4, g(hh), h, 2, n, li, lj),
+            lambda: px2.prolong_smooth_halo2d_plain(ec23, u4, f4, g(hh), h, 2, n, li, lj),
+            (*ec23, *u4, *f4), ext_pts),
+        "residual_df_norm_seg2d": (
+            lambda: px2.residual_df_norm_halo2d(*df11, g(1), h, n, li, lj),
+            lambda: px2.residual_df_norm_halo2d_plain(*df11, g(1), h, n, li, lj),
+            (*df11[0], *df11[1], df11[2][0], df11[3][0]), li * lj * n),
+    }
+    for name, (kernel, plain, inputs, points) in calls.items():
+        out = kernel()
+        outputs = out if isinstance(out, tuple) else (out,)
+        res = results[name]
+        res["ms"], res["plain_ms"] = time_ms(kernel), time_ms(plain)
+        res["bound_ms"], res["bound_by"] = bound(name, points, inputs, outputs)
+        print(f"[sharded2d kernel] {name:26s} n={n} Li={li} Lj={lj} rank (0, 0) of 2x2 "
+              f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+              f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
+              f"max_abs_err={res['max_abs_err']:.3e}")
+
+
+def predicted_launches(hier, tiers, steps, inner_cycles, n_smooth=2):
+    """The kernel launches of one (i, j)-sharded double-float solve of
+    ``steps`` outer steps, from the tier map (gamma 1: every coarse visit
+    starts from zero; the finest level's first cycle of each step too):
+    per V-cycle and level, 2 n_smooth smoothing launches, one residual +
+    restriction, 2 n_smooth prolongation + smoothing launches; the
+    replicated tail runs the single-device cycle (K2-K4) on each of its
+    levels above the coarse LU; one K41 per outer step and one before."""
+    cycles, hs = steps * inner_cycles, 2 * n_smooth
+    out = dict.fromkeys(SOURCES, 0)
+    top = hier.num_levels - 1
+    for depth, (n, tier) in enumerate(sorted(tiers.items(), reverse=True)):
+        if tier == "replicated":
+            levels = [m for m in hier.sizes[:top - depth + 1] if m > hier.coarse_n]
+        elif tier in TIER_KERNELS:
+            levels = [n]
+        else:
+            continue
+        smooth, smooth0, rr, ps = TIER_KERNELS[tier]
+        for m in levels:
+            first = depth == 0 and m == n
+            out[smooth0] += hs * (steps if first else cycles)
+            out[smooth] += hs * (cycles - steps) if first else 0
+            out[rr] += cycles
+            out[ps] += hs * cycles
+    out["residual_df_norm_seg2d"] = steps + 1
+    return out
+
+
+def _sharded2d_solver(mesh2, init, plan=None):
+    """The 257^3 double-float solve of phases 4 and 12 on (i, j)-sharded
+    blocks: (run, plan, this rank's (u_hi, u_lo, f_hi, f_lo) blocks, tier
+    map)."""
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch.parallel import sharded2d_padded as s2p
+
+    hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7)
+    cfg = mg.CycleConfig(n_smooth=2)
+    run, plan = s2p.make_sharded2d_padded_df_solver(hier, cfg, mesh2, plan, rel_tol=REL_TOL,
+                                                    max_cycles=40, inner_cycles=4,
+                                                    init_norm=init)
+    state = s2p.setup_df_problem_sharded2d_padded(mg.poisson_3d_quadratic(), hier, mesh2, plan)
+    return run, plan, state, s2p.tier_map(hier, cfg, plan)
+
+
+def sharded2d_one_rank(dev, card, launches, fused):
+    """Phase 12b: make_sharded2d_padded_df_solver at 257^3 on one rank of an
+    NCCL group (a 1x1 mesh), launch counts reset just before and read just
+    after (added into ``launches``): exactly the launches predicted from the
+    tier map (K37-K41 on the sharded levels 257^3 .. 33^3, K2-K4 in the
+    replicated 17^3 tail), the fused single-device solve's outer steps
+    (``fused``: phase 4's (u, outer steps, solve)), max|u - u_fused| = 0;
+    then the walls interleaved with the fused solve (5 each), the device
+    busy time of each, and the dry-run twin on this one rank (its 2D part
+    needs an even rank count >= 4). Returns (u, outer steps)."""
+    import torch.distributed as dist
+
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch import cycles_padded as cp
+    from multigrid_parallel_tpu_torch.parallel import launch as ln
+    from multigrid_parallel_tpu_torch.parallel import sharded as sh
+    from multigrid_parallel_tpu_torch.parallel import sharded2d as s2
+    from multigrid_parallel_tpu_torch.parallel import sharded2d_padded as s2p
+
+    u_fused, it_fused, solve_fused = fused
+    hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7)
+    n = hier.finest_n
+    init = cp.ref_init_norm(mg.poisson_3d_quadratic(), hier, dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{ln._free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh2 = s2.make_mesh_2d(1, 1)
+        run, plan, state, tiers = _sharded2d_solver(mesh2, init)
+        check((plan.n_sharded, plan.local_i(0), plan.local_j(0)) == (4, 272, 272),
+              f"1x1 plan {plan}")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = run(*state)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = read_launches()
+        u = s2p.unpad_solution2d(s2.gather_global2d(out[0], mesh2),
+                                 s2.gather_global2d(out[1], mesh2), hier)
+        it, nrm = out[3], float(out[2])
+        du = float((u - u_fused).abs().max())
+        want = predicted_launches(hier, tiers, it, 4)
+        print(f"[solve {n}^3 sharded2d 1x1 nccl {mesh2.device}] plan={plan} tiers={tiers} "
+              f"outer_steps={it} final_norm={nrm:.6e} rel={nrm / init:.3e} "
+              f"max|u-u_fused|={du:.3e} finite={bool(torch.isfinite(u).all())} "
+              f"first_run_s={first_s:.4f}")
+        ran = {k: v for k, v in counts.items() if v}
+        print(f"[launches {n}^3 sharded2d 1x1] {json.dumps(ran)}")
+        check(bool(torch.isfinite(u).all()) and nrm <= REL_TOL * init,
+              f"1x1 sharded2d solve not converged: {nrm}")
+        check(it == it_fused, f"1x1 sharded2d solve: {it} outer steps, fused {it_fused}")
+        check(du == 0.0, f"1x1 sharded2d solve: max|u - u_fused| = {du}")
+        for name in SOURCES:
+            check(counts[name] == want[name],
+                  f"1x1 sharded2d: kernel {name} launched {counts[name]} times, predicted "
+                  f"{want[name]}")
+            launches[name] += counts[name]
+        solve = lambda: run(*state)  # noqa: E731
+        interleave({"sharded2d_1x1": solve, "fused": solve_fused}, f"{n}^3", card, reps=5)
+        print_device_time({"sharded2d_1x1": solve, "fused": solve_fused}, f"{n}^3", card)
+        t0 = time.perf_counter()
+        print(f"[dryrun 1 rank nccl] {ln._dryrun_ranks(sh.make_mesh(1))} "
+              f"({time.perf_counter() - t0:.1f} s)")
+    finally:
+        dist.destroy_process_group()
+    return u, it
+
+
+def _block_du(u_hi, u_lo, mesh2, plan, u_ref_path, n):
+    """max|u - u_ref| over this rank's valid points (u_ref: the (n, n, n)
+    f64 solution saved by phase 12b)."""
+    from multigrid_parallel_tpu_torch.ops import pallas3d as pk
+
+    li, lj = plan.local_i(0), plan.local_j(0)
+    i0, j0 = mesh2.ix * li, mesh2.iy * lj
+    i1, j1 = max(min(i0 + li, n), i0), max(min(j0 + lj, n), j0)
+    if i1 == i0 or j1 == j0:
+        return 0.0
+    u = pk.df_to_f64(u_hi, u_lo)[:i1 - i0, :j1 - j0].cpu()
+    u_ref = torch.from_numpy(np.array(np.load(u_ref_path, mmap_mode="r")[i0:i1, j0:j1]))
+    return float((u - u_ref).abs().max())
+
+
+def sharded2d_rank_main(mesh, init, u_ref_path):
+    """Phase 12c on each host-staged gloo rank: the 257^3 (i, j)-sharded
+    solve on the four ranks as a 2x2 mesh (a warm-up, then one run with the
+    launch counts reset just before and read just after), this rank's
+    max|u - u_ref| over its valid points, reduced over the ranks; the same
+    on the 1x4 mesh under NARROW_2D (the j-replicated tier at 9^3); then the
+    dry-run twin on the four ranks (its 2D part on a 2x2 mesh). Rank 0
+    returns the results."""
+    import torch.distributed as dist
+
+    from multigrid_parallel_tpu_torch.parallel import launch as ln
+    from multigrid_parallel_tpu_torch.parallel import sharded2d as s2
+
+    out = {}
+    for label, shape, spec in (("2x2", (2, 2), None), ("1x4 narrow", (1, 4), NARROW_2D)):
+        mesh2 = s2.make_mesh_2d(*shape, device=mesh.device)
+        plan = s2.ShardPlan2D(shape[0], shape[1], ("x", "y"), *spec) if spec else None
+        run, plan, state, tiers = _sharded2d_solver(mesh2, init, plan)
+        if label == "2x2":
+            run(*state)  # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_launches()
+        t0 = time.perf_counter()
+        u_hi, u_lo, nrm, it = run(*state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        du = torch.tensor([_block_du(u_hi, u_lo, mesh2, plan, u_ref_path, 257)])
+        dist.all_reduce(du, op=dist.ReduceOp.MAX)
+        per_rank = [None] * mesh.n_dev
+        dist.all_gather_object(per_rank, (wall, counts))
+        out[label] = {"plan": plan, "tiers": tiers, "it": it, "nrm": float(nrm),
+                      "du": float(du), "per_rank": per_rank}
+    t0 = time.perf_counter()
+    dry = ln._dryrun_ranks(mesh)
+    out["dryrun"] = (dry, time.perf_counter() - t0)
+    out.update(backend=mesh.backend, device=str(mesh.device), staged=mesh.staged)
+    return out if mesh.rank == 0 else None
+
+
+def sharded2d_four_ranks(dev, card, launches, one_rank, tmp):
+    """Phase 12c: four gloo ranks on the one card (halos and reductions
+    staged through host memory; every kernel on the card) through
+    parallel.launch: the 257^3 solve on a 2x2 mesh and on a 1x4 mesh under
+    NARROW_2D, each in phase 12b's outer steps with u bitwise equal to its,
+    each rank launching exactly the kernels predicted from the tier map
+    (added into ``launches``), one host-staged wall a rank; and the dry-run
+    twin with its 2D part."""
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch import cycles_padded as cp
+    from multigrid_parallel_tpu_torch.parallel.launch import launch
+
+    u_one, it_one = one_rank
+    u_ref_path = tmp / "u_sharded2d_1x1.npy"
+    np.save(u_ref_path, u_one.cpu().numpy())
+    hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7)
+    init = cp.ref_init_norm(mg.poisson_3d_quadratic(), hier, dev)
+    t0 = time.perf_counter()
+    res = launch(sharded2d_rank_main, SHARDED_RANKS, init, str(u_ref_path), backend="gloo",
+                 device="cuda", timeout=600.0)[0]
+    launch_s = time.perf_counter() - t0
+    n = hier.finest_n
+    check(res["staged"], f"4 gloo ranks not host-staged: {res['backend']} {res['device']}")
+    for label in ("2x2", "1x4 narrow"):
+        r = res[label]
+        print(f"[solve {n}^3 sharded2d {label} {SHARDED_RANKS} ranks {res['backend']} on one "
+              f"card, halos host-staged] plan={r['plan']} tiers={r['tiers']} "
+              f"outer_steps={r['it']} final_norm={r['nrm']:.6e} max|u-u_1x1|={r['du']:.3e} | "
+              f"host-staged wall (not a scaling figure) per rank s="
+              f"{[round(w, 4) for w, _ in r['per_rank']]} | card: {card}")
+        check(r["it"] == it_one, f"{label} sharded2d solve: {r['it']} outer steps, 1x1 {it_one}")
+        check(r["du"] == 0.0, f"{label} sharded2d solve: max|u - u_1x1| = {r['du']}")
+        check(("j-replicated" in r["tiers"].values()) == (label != "2x2"),
+              f"{label} tiers {r['tiers']}")
+        want = predicted_launches(hier, r["tiers"], r["it"], 4)
+        for rank, (_, counts) in enumerate(r["per_rank"]):
+            print(f"[launches {n}^3 sharded2d {label} rank {rank} of {SHARDED_RANKS}] "
+                  f"{json.dumps({k: v for k, v in counts.items() if v})}")
+            for name in SOURCES:
+                check(counts[name] == want[name],
+                      f"{label} sharded2d rank {rank}: kernel {name} launched {counts[name]} "
+                      f"times, predicted {want[name]}")
+                launches[name] += counts[name]
+    dry, dry_s = res["dryrun"]
+    check(" 2d(2x2) " in dry, f"the dry run's 2D part did not run: {dry}")
+    print(f"[dryrun {SHARDED_RANKS} ranks gloo] {dry} ({dry_s:.1f} s)")
+    print(f"[phase 12c] launch incl. spawn {launch_s:.1f} s")
+
+
+def sharded2d_phase(dev, card, launches, results, fused):
+    """Phase 12: the (i, j)-sharded solve: K37-K41 on simulated blocks
+    (12a), the 257^3 solve on one NCCL rank against the fused solve (12b),
+    and on four host-staged gloo ranks as 2x2 and 1x4 meshes (12c)."""
+    import tempfile
+
+    from multigrid_parallel_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    compare_sharded2d(dev, results)
+    print(f"[phase 12a] {time.perf_counter() - t_phase:.1f} s")
+    one_rank = sharded2d_one_rank(dev, card, launches, fused)
+    with tempfile.TemporaryDirectory(dir=_build.library_path().parent) as tmp_dir:
+        sharded2d_four_ranks(dev, card, launches, one_rank, Path(tmp_dir))
+    print(f"[phase 12] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on one",
@@ -2130,6 +2598,12 @@ def main():
     # 11. the same for the electrospray solve (K34-K36) against the full tier
     sharded_phase(dev, card, launches, results,
                   (solved["fused"][0], solved["fused"][1], paths["fused"][0]), full, es)
+
+    # 12. the (i, j)-sharded solve: K37-K41 on simulated blocks, the 257^3
+    # solve on one NCCL rank (1x1) against the fused solve, and on four
+    # host-staged gloo ranks as a 2x2 mesh and as a 1x4 one (j-replicated tier)
+    sharded2d_phase(dev, card, launches, results,
+                    (solved["fused"][0], solved["fused"][1], paths["fused"][0]))
 
     # no single PyTorch call computes any of these stencils: library_ms is null
     kernels = [

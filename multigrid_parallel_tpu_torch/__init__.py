@@ -14,10 +14,12 @@ the electrospray mixed-BC problem (``mixed_bc.MixedBCSolver`` and its
 fused-kernel tiers ``mixed_padded.make_mixed_padded_df_solver``,
 ``make_mixed_fold_df_solver`` (the k-fold layout) and
 ``make_mixed_split_df_solver`` (the finest level on red / black pairs)),
-and the i-sharded distributed Dirichlet and electrospray solves on
+the i-sharded distributed Dirichlet and electrospray solves on
 ``torch.distributed`` (``parallel.sharded``, ``parallel.sharded_padded``,
 ``parallel.sharded_mixed``, ``parallel.sharded_mixed_padded``; ranks
-started by ``parallel.launch``), on thirty-seven hand-written CUDA kernels
+started by ``parallel.launch``), and the (i, j)-sharded Dirichlet solve
+over an (nx, ny) grid of the ranks (``parallel.sharded2d``,
+``parallel.sharded2d_padded``), on forty-two hand-written CUDA kernels
 (``ops/csrc``); the JAX package
 stays the reference it is tested against. The package imports torch and
 never jax. Entry points put their fields on the CUDA device unless the

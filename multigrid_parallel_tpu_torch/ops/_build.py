@@ -92,7 +92,14 @@ _SIGNATURES = {
     "mg_seg_residual_df_norm": (_P,) * 3 + (_P, _P, _P, _I) * 2 + (_P, _P) + (_I,) * 3
                                + (_F, _P),
     "mg_seg_residual": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _P),
-    "mg_seg_mixed_half_sweep": (_P, _P, _P, _I) * 2 + (_P,) + (_I,) * 5 + (_F, _I, _P),
+    # (i, j)-sharded blocks: each segment is a host descriptor (seg2d.cuh)
+    "mg_seg2d_half_sweep": (_P, _P) + (_I,) * 6 + (_F, _I, _P),
+    "mg_seg2d_half_sweep_from_zero": (_P, _P) + (_I,) * 6 + (_F, _I, _P),
+    "mg_seg2d_residual_restrict": (_P,) * 3 + (_I,) * 5 + (_F, _P),
+    "mg_seg2d_prolong_correct_black": (_P,) * 4 + (_I,) * 6 + (_F, _P),
+    "mg_seg2d_residual_df_norm_partials": (_I, _I, _I),
+    "mg_seg2d_residual_df_norm": (_P,) * 7 + (_I,) * 5 + (_F, _P),
+    "mg_seg_mixed_half_sweep":(_P, _P, _P, _I) * 2 + (_P,) + (_I,) * 5 + (_F, _I, _P),
     "mg_seg_mixed_bc_pass": (_P, _P, _P, _I, _P) + (_I,) * 5 + (_P,),
     "mg_seg_mixed_prolong_correct_black": ((_P,) * 6 + (_I,) * 3 + (_P, _P, _P, _I) * 2
                                            + (_P,) + (_I,) * 5 + (_F, _P)),

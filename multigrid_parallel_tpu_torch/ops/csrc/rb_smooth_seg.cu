@@ -1,53 +1,78 @@
-// Red-black Gauss-Seidel half-sweeps on one rank's segmented block (K28)
-// and the from-zero first half-sweep (K29).
+// Red-black Gauss-Seidel half-sweeps on one rank's segmented block (K28,
+// and K37 on an (i, j) block) and the from-zero first half-sweep (K29,
+// K38).
 //
 // Replace the Pallas kernels multigrid_parallel_tpu/ops/pallas_sharded.py:
 // rb_smooth_ext / rb_smooth_halo (K28) and rb_smooth_from_zero_ext /
 // rb_smooth_from_zero_halo (K29), which run all 2 * n_iter half-sweeps of
 // a smoothing stage on a block with a 2 * n_iter plane halo in one pass
-// (trapezoidal recompute in VMEM). Here, as for K1/K2, one launch per
-// half-sweep over local rows [-kl + 1, L + kr - 2], in place: the halo
-// rows are the rank's own receive buffers (or its own ext copy), so
+// (trapezoidal recompute in VMEM), and their (i, j) twins of
+// pallas_sharded2d.py: rb_smooth_ext2d / rb_smooth_halo2d (K37) and
+// rb_smooth_from_zero_ext2d / rb_smooth_from_zero_halo2d (K38), the same
+// stage on a block with that halo in i and in j. Here, as for K1/K2, one
+// launch per half-sweep over local rows [-kl + 1, L + kr - 2] (and, on an
+// (i, j) block, columns [-hjl + 1, Lj + hjr - 2]), in place: the halo rows
+// and columns are the rank's own receive buffers (or its own ext copy), so
 // writing them is safe. A half-sweep is Jacobi within a colour, so a stale
-// halo row spoils one more row per half-sweep; a halo as deep as the
-// number of half-sweeps leaves every owned row exactly what the
+// halo row or column spoils one more per half-sweep; a halo as deep as the
+// number of half-sweeps leaves every owned point exactly what the
 // single-device K1 computes on the whole field, bit for bit (same
-// neighbour order, global colours and masks, --fmad=false).
+// neighbour order, global colours and masks, --fmad=false). The corner
+// points of an (i, j) stage read diagonal-neighbour values: they come in
+// the j-extended i-halo rows (seg2d.cuh).
 //
-// K29's first half-sweep reads only f (the initial guess is an implicit
-// zero) and writes every row [-kl, L + kr) of the output segment: the
-// body and one scratch buffer per halo side.
+// K29's (K38's) first half-sweep reads only f (the initial guess is an
+// implicit zero) and writes every point of the output segment: the body
+// and one scratch buffer per halo side.
 //
 // Bound: device-memory bytes, as K1: ~10 bytes per point and half-sweep
-// over L + kl + kr rows; the halo rows are the recompute the TPU kernel
-// also pays.
-#include "seg.cuh"
+// over the halo-extended block; the halo rows and columns are the
+// recompute the TPU kernel also pays.
+#include "seg2d.cuh"
 
 namespace {
 
-__global__ void seg_half_sweep_kernel(mg::Seg u, mg::Seg f, int n, int g0, float h2,
-                                      int color, int t0, int rows) {
+template <class S>
+__global__ void seg_half_sweep_kernel(S u, S f, mg::Span sp, int n, int g0, int gj0, float h2,
+                                      int color) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  int t, j, k, jk;
-  if (!mg::decode_seg(p, rows, t0, n, t, j, k, jk)) return;
-  const int g = g0 + t;
-  if (!mg::is_interior(g, j, k, n) || ((g + j + k) & 1) != color) return;
-  const float nbr = mg::seg_nbr_sum(u, t, jk, n);
-  u.row(t)[jk] = (nbr - h2 * f.row(t)[jk]) * (1.0f / 6.0f);
+  int t, j, k;
+  if (!mg::decode_span(p, sp, n, t, j, k)) return;
+  const int g = g0 + t, gj = gj0 + j;
+  if (!mg::is_interior(g, gj, k, n) || ((g + gj + k) & 1) != color) return;
+  const float nbr = mg::nbr_sum_at(u, t, j, k, n);
+  mg::seg_at(u, t, j, n)[k] = (nbr - h2 * mg::seg_at(f, t, j, n)[k]) * (1.0f / 6.0f);
 }
 
-__global__ void seg_half_sweep_from_zero_kernel(mg::Seg out, mg::Seg f, int n, int g0,
-                                                float h2, int color, int t0, int rows) {
+template <class S>
+__global__ void seg_half_sweep_from_zero_kernel(S out, S f, mg::Span sp, int n, int g0, int gj0,
+                                                float h2, int color) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  int t, j, k, jk;
-  if (!mg::decode_seg(p, rows, t0, n, t, j, k, jk)) return;
-  const int g = g0 + t;
+  int t, j, k;
+  if (!mg::decode_span(p, sp, n, t, j, k)) return;
+  const int g = g0 + t, gj = gj0 + j;
   float v = 0.0f;
-  if (mg::is_interior(g, j, k, n) && ((g + j + k) & 1) == color) {
+  if (mg::is_interior(g, gj, k, n) && ((g + gj + k) & 1) == color) {
     const float nbr = 0.0f;  // six zero neighbours, summed: +0
-    v = (nbr - h2 * f.row(t)[jk]) * (1.0f / 6.0f);
+    v = (nbr - h2 * mg::seg_at(f, t, j, n)[k]) * (1.0f / 6.0f);
   }
-  out.row(t)[jk] = v;
+  mg::seg_at(out, t, j, n)[k] = v;
+}
+
+template <class S>
+int launch_half_sweep(const S& u, const S& f, const mg::Span& sp, int n, int g0, int gj0,
+                      float h2, int color, cudaStream_t stream) {
+  seg_half_sweep_kernel<<<mg::span_blocks(sp, n), mg::kThreads, 0, stream>>>(u, f, sp, n, g0,
+                                                                             gj0, h2, color);
+  return (int)cudaGetLastError();
+}
+
+template <class S>
+int launch_half_sweep_from_zero(const S& out, const S& f, const mg::Span& sp, int n, int g0,
+                                int gj0, float h2, int color, cudaStream_t stream) {
+  seg_half_sweep_from_zero_kernel<<<mg::span_blocks(sp, n), mg::kThreads, 0, stream>>>(
+      out, f, sp, n, g0, gj0, h2, color);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -61,10 +86,8 @@ extern "C" int mg_seg_half_sweep(float* u_lh, float* u_body, float* u_rh, int u_
   const int nn = n * n;
   const mg::Seg u = mg::make_seg(u_lh, u_body, u_rh, kl, L, kr, u_roff, nn);
   const mg::Seg f = mg::make_seg(f_lh, f_body, f_rh, kl, L, kr, f_roff, nn);
-  const int rows = L + kl + kr - 2;
-  seg_half_sweep_kernel<<<mg::seg_blocks(rows, nn), mg::kThreads, 0, stream>>>(
-      u, f, n, g0, h2, color, -kl + 1, rows);
-  return (int)cudaGetLastError();
+  return launch_half_sweep(u, f, mg::Span{-kl + 1, L + kl + kr - 2, 0, n}, n, g0, 0, h2, color,
+                           stream);
 }
 
 // The from-zero first half-sweep: writes every row [-kl, L + kr) of out.
@@ -75,8 +98,28 @@ extern "C" int mg_seg_half_sweep_from_zero(float* o_lh, float* o_body, float* o_
   const int nn = n * n;
   const mg::Seg out = mg::make_seg(o_lh, o_body, o_rh, kl, L, kr, 0, nn);
   const mg::Seg f = mg::make_seg(f_lh, f_body, f_rh, kl, L, kr, f_roff, nn);
-  const int rows = L + kl + kr;
-  seg_half_sweep_from_zero_kernel<<<mg::seg_blocks(rows, nn), mg::kThreads, 0, stream>>>(
-      out, f, n, g0, h2, color, -kl, rows);
-  return (int)cudaGetLastError();
+  return launch_half_sweep_from_zero(out, f, mg::Span{-kl, L + kl + kr, 0, n}, n, g0, 0, h2,
+                                     color, stream);
+}
+
+// K37: one in-place half-sweep over rows [-H + 1, L + H - 2] x columns
+// [-H + 1, Lj + H - 2] of the (i, j) segment u (descriptor, seg2d.cuh),
+// RHS f; (g0, gj0) = global indices of body row and column 0.
+extern "C" int mg_seg2d_half_sweep(const long long* u_desc, const long long* f_desc, int H,
+                                   int L, int Lj, int n, int g0, int gj0, float h2, int color,
+                                   cudaStream_t stream) {
+  return launch_half_sweep(mg::seg2_from_desc(u_desc, L, Lj), mg::seg2_from_desc(f_desc, L, Lj),
+                           mg::Span{-H + 1, L + 2 * H - 2, -H + 1, Lj + 2 * H - 2}, n, g0, gj0,
+                           h2, color, stream);
+}
+
+// K38's first launch: writes every point of rows [-H, L + H) x columns
+// [-H, Lj + H) of out.
+extern "C" int mg_seg2d_half_sweep_from_zero(const long long* o_desc, const long long* f_desc,
+                                             int H, int L, int Lj, int n, int g0, int gj0,
+                                             float h2, int color, cudaStream_t stream) {
+  return launch_half_sweep_from_zero(mg::seg2_from_desc(o_desc, L, Lj),
+                                     mg::seg2_from_desc(f_desc, L, Lj),
+                                     mg::Span{-H, L + 2 * H, -H, Lj + 2 * H}, n, g0, gj0, h2,
+                                     color, stream);
 }

@@ -131,14 +131,16 @@ def launch(fn, n_ranks: int, *args, backend: str = "nccl", device: str = "cuda",
 
 
 def _dryrun_ranks(mesh):
-    """The 1D and mixed-BC parts of the JAX _dryrun_impl
-    (__graft_entry__.py:25-72, :109-137) on this rank: two steps of the
-    double-float df cycle and one f64 V-cycle at 17^3, the kernel-path
-    whole solve at 33^3 (plan with min_local 2, the kernels forced on from
-    17^3 up), and the electrospray kernel-path solve at 33^3 (W-cycles,
-    rel_tol 1e-5 of the initial residual, two inner cycles, the kernels
-    forced on from 17^3 up). Returns rank 0's summary line (None
-    elsewhere)."""
+    """The JAX _dryrun_impl (__graft_entry__.py:25-137) on this rank: two
+    steps of the double-float df cycle and one f64 V-cycle at 17^3, the
+    kernel-path whole solve at 33^3 (plan with min_local 2, the kernels
+    forced on from 17^3 up); where the rank count is even and >= 4, the
+    (i, j) decomposition on an (n / 2, 2) mesh: the plain double-float
+    solve at 17^3 and the kernel-path solve at 33^3 (the kernels forced on
+    from 17^3 up), both to rel_tol 1e-6 in at most 8 outer steps; and the
+    electrospray kernel-path solve at 33^3 (W-cycles, rel_tol 1e-5 of the
+    initial residual, two inner cycles, the kernels forced on from 17^3
+    up). Returns rank 0's summary line (None elsewhere)."""
     import multigrid_parallel_tpu_torch as mg
     from multigrid_parallel_tpu_torch.parallel import sharded as sh
     from multigrid_parallel_tpu_torch.parallel import sharded_padded as spp
@@ -172,6 +174,33 @@ def _dryrun_ranks(mesh):
     _, _, norm_p, n_outer_p = run_p(*st)
     assert float(norm_p) <= 1e-6 * init_p, (float(norm_p), init_p)
 
+    # the (i, j) mesh decomposition when the rank count factorizes
+    msg2d = "2d skipped (the rank count is not even and >= 4)"
+    if mesh.n_dev >= 4 and mesh.n_dev % 2 == 0:
+        from multigrid_parallel_tpu_torch.parallel import sharded2d as s2
+        from multigrid_parallel_tpu_torch.parallel import sharded2d_padded as s2p
+
+        nx, ny = mesh.n_dev // 2, 2
+        mesh2 = s2.make_mesh_2d(nx, ny, device=mesh.device)
+        run2, plan2 = s2.make_sharded2d_df_solver(hier, cfg, mesh2, rel_tol=1e-6, max_cycles=8,
+                                                  inner_cycles=2)
+        st2 = s2.setup_df_problem_sharded2d(prob, hier, mesh2, plan2)
+        init2 = float(torch.sqrt(sh._all_reduce_sum(mesh2, torch.sum(st2[2].double() ** 2))))
+        _, _, n2d, n_outer2 = run2(*st2)
+        assert float(n2d) <= 1e-6 * init2, (float(n2d), init2)
+        # the kernel path on the (i, j) mesh, the 2D kernels forced on
+        run2p, plan2p = s2p.make_sharded2d_padded_df_solver(hier_p, cfg, mesh2, rel_tol=1e-6,
+                                                            max_cycles=8, inner_cycles=2,
+                                                            jnp_level_max=9)
+        st2p = s2p.setup_df_problem_sharded2d_padded(prob, hier_p, mesh2, plan2p)
+        init2p = float(torch.sqrt(sh._all_reduce_sum(mesh2, torch.sum(st2p[2].double() ** 2))))
+        _, _, n2p, n_outer2p = run2p(*st2p)
+        assert float(n2p) <= 1e-6 * init2p, (float(n2p), init2p)
+        msg2d = (f"2d({nx}x{ny}) df solve converged to {float(n2d):.3e} in {n_outer2} outer "
+                 f"steps, 2d-padded 33^3 plan={plan2p} tiers="
+                 f"{s2p.tier_map(hier_p, cfg, plan2p, 9)} converged to {float(n2p):.3e} in "
+                 f"{n_outer2p} outer steps")
+
     # the electrospray (mixed-BC) kernel path at 33^3, W-cycle: its norm is
     # relative to the initial residual (f = 0), as MixedBCSolver.solve's
     from multigrid_parallel_tpu_torch.mixed_bc import MixedBCSolver
@@ -195,17 +224,18 @@ def _dryrun_ranks(mesh):
             f"plan={plan}, df residual {norm:.3e} -> {float(norm2):.3e}, "
             f"f64 cycle residual {float(norm64):.3e}, kernel-path sharded solve 33^3 "
             f"plan={plan_p} converged to {float(norm_p):.3e} in {n_outer_p} outer steps, "
-            f"mixed-BC kernel-path sharded 33^3 plan={plan_m} converged to "
+            f"{msg2d}, mixed-BC kernel-path sharded 33^3 plan={plan_m} converged to "
             f"{float(norm_m):.3e} (init {init_m:.3e}, rel {float(norm_m) / init_m:.1e}) in "
             f"{n_outer_m} outer steps")
 
 
 def dryrun_multichip(n_devices: int, backend: str = "nccl", device: str = "cuda",
                      timeout: float = 300.0) -> str:
-    """Run the 1D sharded paths on ``n_devices`` ranks of a fresh group
-    and return the summary line (the port's twin of the JAX package's
-    ``__graft_entry__.dryrun_multichip``; its 2D parts wait for their
-    slice)."""
+    """Run the sharded paths on ``n_devices`` ranks of a fresh group and
+    return the summary line (the port's twin of the JAX package's
+    ``__graft_entry__.dryrun_multichip``): the i-sharded and electrospray
+    paths, and the (i, j) paths on an (n / 2, 2) mesh where the rank count
+    is even and >= 4."""
     return launch(_dryrun_ranks, n_devices, backend=backend, device=device,
                   timeout=timeout)[0]
 

@@ -143,7 +143,15 @@ def _exchange(mesh: Mesh, to_right: torch.Tensor, to_left: torch.Tensor):
     """The two ppermutes of a halo exchange: ``to_right`` (this rank's
     last planes) becomes the left halo of rank + 1, ``to_left`` (its first
     planes) the right halo of rank - 1. Returns (from_left, from_right),
-    shaped like to_right and to_left; the chain ends receive zeros.
+    shaped like to_right and to_left; the chain ends receive zeros."""
+    return _sendrecv(mesh, to_right, to_left, mesh.rank - 1 if mesh.rank > 0 else None,
+                     mesh.rank + 1 if mesh.rank < mesh.n_dev - 1 else None)
+
+
+def _sendrecv(mesh, to_right: torch.Tensor, to_left: torch.Tensor, left, right):
+    """_exchange with the peers named: ``to_left`` goes to rank ``left``
+    and ``to_right`` to rank ``right``; what they send back comes in. A
+    peer of None is a chain end, whose halo is zeros.
 
     Every request is waited on before returning, so a kernel may then
     write the planes that were sent (gloo reads a send buffer
@@ -154,12 +162,12 @@ def _exchange(mesh: Mesh, to_right: torch.Tensor, to_left: torch.Tensor):
         to_right, to_left = to_right.cpu(), to_left.cpu()
     from_left, from_right = torch.zeros_like(to_right), torch.zeros_like(to_left)
     ops = []
-    if mesh.rank > 0:
-        ops += [dist.P2POp(dist.isend, to_left, mesh.rank - 1),
-                dist.P2POp(dist.irecv, from_left, mesh.rank - 1)]
-    if mesh.rank < mesh.n_dev - 1:
-        ops += [dist.P2POp(dist.isend, to_right, mesh.rank + 1),
-                dist.P2POp(dist.irecv, from_right, mesh.rank + 1)]
+    if left is not None:
+        ops += [dist.P2POp(dist.isend, to_left, left),
+                dist.P2POp(dist.irecv, from_left, left)]
+    if right is not None:
+        ops += [dist.P2POp(dist.isend, to_right, right),
+                dist.P2POp(dist.irecv, from_right, right)]
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()

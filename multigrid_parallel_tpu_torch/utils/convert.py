@@ -7,9 +7,9 @@ as k-fold fields (below); the port keeps plain contiguous (n, n, n)
 tensors, (n, n, (n - 1) // 2) pairs and (n, n, n - 2) fold fields. The
 mixed-BC solver adds its pin planes, its coarse LU factor and, on the
 split-colour tier, its (2, 2, n, (n - 1) // 2) parity packs. An
-i-sharded field is one global array in JAX and one block per rank in the
-port. Both sides
-meet as numpy arrays, so neither package imports the other.
+i-sharded or (i, j)-sharded field is one global array in JAX and one
+block per rank in the port. Both sides meet as numpy arrays, so neither
+package imports the other.
 """
 
 from __future__ import annotations
@@ -239,3 +239,56 @@ def to_jax_split(xr: torch.Tensor, xb: torch.Tensor, n: int):
         padded[:, :n, : (n - 1) // 2] = a
         out.append(padded)
     return out[0], out[1]
+
+
+# (i, j)-sharded fields (parallel.sharded2d, parallel.sharded2d_padded): the
+# JAX package keeps ONE global array of (nx * Li, ny * Lj) points a k row,
+# the n valid rows and columns first, then zero pads, lane-padded to
+# rup(n, 128) on the kernel path and n wide on the plain path; the port
+# keeps each rank's (Li, Lj, n) block on that rank, rank r at mesh
+# coordinates (r // ny, r % ny).
+
+
+def from_jax_sharded2d(x_global, n: int, plan, rank: int, device="cuda") -> torch.Tensor:
+    """A JAX (i, j)-sharded global array (numpy or anything np.asarray
+    takes), (plan.padded_i(0), plan.padded_j(0), SK or n) -> this rank's
+    contiguous (Li, Lj, n) block on ``device``."""
+    a = np.asarray(x_global)
+    li, lj = plan.local_i(0), plan.local_j(0)
+    if (a.ndim != 3 or a.shape[:2] != (plan.nx * li, plan.ny * lj)
+            or a.shape[2] not in (n, jax_padded_shape(n)[2])):
+        raise ValueError(f"expected a ({plan.nx * li}, {plan.ny * lj}, {n}) or lane-padded "
+                         f"(i, j)-sharded array, got {a.shape}")
+    ix, iy = divmod(rank, plan.ny)
+    return torch.from_numpy(np.array(a[ix * li:(ix + 1) * li, iy * lj:(iy + 1) * lj, :n])).to(
+        device)
+
+
+def to_jax_sharded2d(blocks, n: int, plan, lanes: bool = True) -> np.ndarray:
+    """The ranks' (Li, Lj, n) blocks, rank 0 first -> the JAX package's
+    (i, j)-sharded global array, zero-padded to its lanes when ``lanes``
+    (the kernel path) and n wide otherwise (the plain path)."""
+    li, lj = plan.local_i(0), plan.local_j(0)
+    a = [b.detach().cpu().numpy() for b in blocks]
+    if len(a) != plan.nx * plan.ny or any(b.shape != (li, lj, n) for b in a):
+        raise ValueError(f"expected {plan.nx * plan.ny} ({li}, {lj}, {n}) blocks, got "
+                         f"{[b.shape for b in a]}")
+    out = np.zeros((plan.nx * li, plan.ny * lj, jax_padded_shape(n)[2] if lanes else n),
+                   dtype=a[0].dtype)
+    for rank, b in enumerate(a):
+        ix, iy = divmod(rank, plan.ny)
+        out[ix * li:(ix + 1) * li, iy * lj:(iy + 1) * lj, :n] = b
+    return out
+
+
+def from_jax_sharded2d_state(state, n: int, plan, rank: int, device="cuda"):
+    """A JAX (i, j)-sharded double-float state (u_hi, u_lo, f_hi, f_lo of
+    ``setup_df_problem_sharded2d_padded`` or ``setup_df_problem_sharded2d``)
+    -> this rank's four (Li, Lj, n) blocks."""
+    return tuple(from_jax_sharded2d(x, n, plan, rank, device) for x in state)
+
+
+def to_jax_sharded2d_state(rank_states, n: int, plan, lanes: bool = True):
+    """The ranks' (u_hi, u_lo, f_hi, f_lo) blocks, rank 0 first -> the JAX
+    package's four (i, j)-sharded global arrays."""
+    return tuple(to_jax_sharded2d(blocks, n, plan, lanes) for blocks in zip(*rank_states))

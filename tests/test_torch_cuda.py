@@ -8,9 +8,12 @@ residual) against their plain versions, the f64 reference solve on the
 card against the CPU, the smoother study on K1, and the i-sharded
 kernels K28-K33 on four simulated ranks against their plain versions
 and the single-device kernels, with the sharded solve on one NCCL rank
-against the fused single-device solve, and the i-sharded electrospray
+against the fused single-device solve, the i-sharded electrospray
 kernels K34-K36 likewise against their plain versions and K13-K15, with
-the sharded electrospray solve on one NCCL rank against the full tier.
+the sharded electrospray solve on one NCCL rank against the full tier,
+and the (i, j)-sharded kernels K37-K41 on four simulated 2x2 blocks
+against their plain versions and K1-K5, with the 2D solver on one NCCL
+rank against the fused single-device solve.
 
 These need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 themselves where there is none. The file imports no jax, so on a machine
@@ -805,3 +808,161 @@ def test_sharded_mixed_df_solver_one_nccl_rank_matches_full_tier(cuda):
     assert steps == out[3]
     assert float((u - want).abs().max()) <= 1e-7 * float(want.abs().max())
     assert calls["mixed_prolong_smooth_halo"] > 0 and calls["residual_df_norm_halo"] == steps + 1
+
+
+# ------------------------------------ the (i, j)-sharded kernels K37-K41
+
+
+def _blocks2d(dev, n, li, lj, nx=2, ny=2):
+    """u, f (nx li, ny lj, n) and the coarse ec (nx li / 2, ny lj / 2, nc):
+    a standard normal cube in [:m, :m], zero pads."""
+    rng = np.random.default_rng(41)
+
+    def glob(m, a, b):
+        x = np.zeros((nx * a, ny * b, m), np.float32)
+        x[:m, :m] = rng.standard_normal((m, m, m))
+        return torch.from_numpy(x).to(dev)
+
+    return glob(n, li, lj), glob(n, li, lj), glob((n + 1) // 2, li // 2, lj // 2)
+
+
+def _stitch2d(per_rank, nx=2, ny=2):
+    return torch.cat([torch.cat([per_rank(ix, iy) for iy in range(ny)], dim=1)
+                      for ix in range(nx)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K37", "K38", "K39", "K40", "K41"])
+def test_sharded2d_kernels_match_plain_and_single_device_on_card(cuda, kernel):
+    """Four simulated ranks' 2x2 blocks of a 65^3 field (Li = Lj = 34:
+    the blocks meet at an interior point, so the stages read the corner
+    blocks), five-part halos: each rank's kernel output bitwise equal to
+    its plain version, and the stitched owned points to the single-device
+    kernel on the whole field; the ext form and the j-extended triple
+    launch the same kernel."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as tpx2
+
+    n, li, lj = 65, 34, 34
+    h, nc, lic, ljc = 1.0 / (n - 1), (n + 1) // 2, li // 2, lj // 2
+    u, f, ec = _blocks2d(cuda, n, li, lj)
+
+    def p5(x, ix, iy, kl, kr, a=li, b=lj):
+        return rk.rank_parts2d(x, ix, iy, a, b, kl, kr)
+
+    g = lambda ix, iy, halo: (ix * li - halo, iy * lj - halo)  # noqa: E731
+    cube = lambda x, m=n: x[:m, :m].contiguous()  # noqa: E731  (the whole field)
+    tpx2.reset_launches()
+    if kernel == "K41":
+        df = [t for x in (u, f) for t in tpk.df_split(x.double() + 1e-9 * x.double() ** 2)]
+        want_r, want_n2 = tpk.residual_df_norm_fused(*(cube(x) for x in df), h)
+        parts, n2 = {}, 0.0
+        for ix in range(2):
+            for iy in range(2):
+                segs = [p5(x, ix, iy, 1, 1) for x in df]
+                got, part = tpx2.residual_df_norm_halo2d(*segs, g(ix, iy, 1), h, n, li, lj)
+                ref, ref_part = tpx2.residual_df_norm_halo2d_plain(*segs, g(ix, iy, 1), h, n,
+                                                                   li, lj)
+                assert torch.equal(got, ref), (ix, iy)
+                assert float(part) == pytest.approx(float(ref_part), rel=1e-6, abs=0.0)
+                parts[ix, iy] = got
+                n2 += float(part)
+        assert torch.equal(_stitch2d(lambda ix, iy: parts[ix, iy])[:n, :n], want_r)
+        assert n2 == pytest.approx(float(want_n2), rel=1e-6)
+        assert tpx2.LAUNCHES["residual_df_norm_seg2d"] == 4
+        return
+    hh = 4
+    calls = {
+        "K37": ("rb_smooth_seg2d", 4,
+                lambda ix, iy: tpx2.rb_smooth_halo2d(p5(u, ix, iy, hh, hh), p5(f, ix, iy, hh, hh),
+                                                     g(ix, iy, hh), h, 2, n, li, lj, True),
+                lambda ix, iy: tpx2.rb_smooth_halo2d_plain(p5(u, ix, iy, hh, hh),
+                                                           p5(f, ix, iy, hh, hh), g(ix, iy, hh),
+                                                           h, 2, n, li, lj, True),
+                tpk.rb_smooth_fused(cube(u), cube(f), h, 2, red_first=True)),
+        "K38": ("rb_smooth_from_zero_seg2d", 4,
+                lambda ix, iy: tpx2.rb_smooth_from_zero_halo2d(p5(f, ix, iy, hh, hh),
+                                                               g(ix, iy, hh), h, 2, n, li, lj),
+                lambda ix, iy: tpx2.rb_smooth_from_zero_halo2d_plain(
+                    p5(f, ix, iy, hh, hh), g(ix, iy, hh), h, 2, n, li, lj),
+                tpk.rb_smooth_from_zero_fused(cube(f), h, 2)),
+        "K39": ("residual_restrict_seg2d", 1,
+                lambda ix, iy: tpx2.residual_restrict_halo2d(p5(u, ix, iy, 2, 1),
+                                                             p5(f, ix, iy, 2, 1), g(ix, iy, 2), h,
+                                                             n, lic, ljc),
+                lambda ix, iy: tpx2.residual_restrict_halo2d_plain(
+                    p5(u, ix, iy, 2, 1), p5(f, ix, iy, 2, 1), g(ix, iy, 2), h, n, lic, ljc),
+                tpk.residual_restrict_fused(cube(u), cube(f), h)),
+        "K40": ("prolong_smooth_seg2d", 4,
+                lambda ix, iy: tpx2.prolong_smooth_halo2d(p5(ec, ix, iy, 2, 3, lic, ljc),
+                                                          p5(u, ix, iy, hh, hh),
+                                                          p5(f, ix, iy, hh, hh), g(ix, iy, hh),
+                                                          h, 2, n, li, lj),
+                lambda ix, iy: tpx2.prolong_smooth_halo2d_plain(
+                    p5(ec, ix, iy, 2, 3, lic, ljc), p5(u, ix, iy, hh, hh),
+                    p5(f, ix, iy, hh, hh), g(ix, iy, hh), h, 2, n, li, lj),
+                tpk.prolong_smooth_fused(cube(ec, nc), cube(u), cube(f), h, 2)),
+    }
+    name, per_call, kern, plain, want = calls[kernel]
+    outs = {}
+    for ix in range(2):
+        for iy in range(2):
+            got = kern(ix, iy)
+            assert torch.equal(got, plain(ix, iy)), (ix, iy)
+            outs[ix, iy] = got
+    m = want.shape[0]
+    assert torch.equal(_stitch2d(lambda ix, iy: outs[ix, iy])[:m, :m], want)
+    assert tpx2.LAUNCHES == {**dict.fromkeys(tpx2.KERNELS, 0), name: per_call * 4}
+    if kernel == "K37":  # the ext form and the triple: views of one buffer each
+        ext = _stitch2d(lambda ix, iy: tpx2.rb_smooth_ext2d(
+            rk.rank_ext2d(u, ix, iy, li, lj, hh, hh, hh, hh),
+            rk.rank_ext2d(f, ix, iy, li, lj, hh, hh, hh, hh), g(ix, iy, hh), h, 2, n, li, lj))
+        tri = _stitch2d(lambda ix, iy: tpx2.rb_smooth_halo2d(
+            rk.rank_triple2d(u, ix, iy, li, lj, hh, hh, 8, 2),
+            rk.rank_triple2d(f, ix, iy, li, lj, hh, hh, 8), g(ix, iy, hh), h, 2, n, li, lj))
+        assert torch.equal(ext[:n, :n], want) and torch.equal(tri[:n, :n], want)
+
+
+@pytest.mark.cuda
+def test_sharded2d_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as tpx2
+
+    u, f, _ = _blocks2d(cuda, 17, 12, 16)
+    p5 = lambda x: rk.rank_parts2d(x, 1, 1, 12, 16, 4, 4)  # noqa: E731
+    with pytest.raises(TypeError, match="float32"):
+        tpx2.rb_smooth_halo2d(tuple(t.double() for t in p5(u)), p5(f), (8, 12), 1 / 16, 2, 17,
+                              12, 16)
+    with pytest.raises(ValueError, match="different devices"):
+        tpx2.rb_smooth_halo2d(tuple(t.cpu() for t in p5(u)), p5(f), (8, 12), 1 / 16, 2, 17, 12,
+                              16)
+    bad = p5(u)
+    bad = (bad[0].transpose(1, 2).contiguous().transpose(1, 2),) + bad[1:]
+    with pytest.raises(ValueError, match="unit k stride"):
+        tpx2.rb_smooth_halo2d(bad, p5(f), (8, 12), 1 / 16, 2, 17, 12, 16)
+
+
+@pytest.mark.cuda
+def test_sharded2d_df_solver_one_nccl_rank_matches_fused(cuda):
+    """make_sharded2d_padded_df_solver at 33^3 on one NCCL rank (a 1x1
+    mesh, a spawned process) against the single-device fused solve: the
+    same outer steps, the solution bit for bit, only K37-K41 launched (the
+    plan shards down to 9^3 and gathers the bare 5^3 LU)."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.parallel.launch import launch
+
+    hier = tmg.Hierarchy(ndim=3, coarse_n=5, num_levels=4)
+    prob = tmg.poisson_3d_quadratic()
+    init = tcp.ref_init_norm(prob, hier, cuda)
+    u, steps, nrm, plan, tiers, _, launches = launch(rk.padded_solver2d_on, 1, (1, 1), None, 0, 4,
+                                                     33, init, backend="nccl", device="cuda")[0]
+    run = tcp.make_on_device_df_solver(hier, tmg.CycleConfig(n_smooth=2), rel_tol=1e-8,
+                                       inner_cycles=4, init_norm=init, device=cuda)
+    out = run(*tcp.setup_df_problem(prob, hier, cuda))
+    assert tiers == {33: "2d", 17: "2d", 9: "2d", 5: "replicated"}, tiers
+    assert steps == out[3] and nrm <= 1e-8 * init
+    assert torch.equal(u, tpk.df_to_f64(*out[:2]).cpu())
+    seg2d = {"rb_smooth_seg2d", "rb_smooth_from_zero_seg2d", "residual_restrict_seg2d",
+             "prolong_smooth_seg2d", "residual_df_norm_seg2d"}
+    assert {k for k, v in launches.items() if v} == seg2d, launches
+    assert launches["residual_df_norm_seg2d"] == steps + 1

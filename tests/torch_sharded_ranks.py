@@ -290,3 +290,174 @@ def mixed_solve_checks(mesh, cycle_configs, solver_configs):
     out["setup"] = [sh.gather_global(x, mesh)
                     for x in smp.setup_mixed_df_problem_sharded(solver, mesh, plan)]
     return out if mesh.rank == 0 else None
+
+
+# ------------------------------------------ the (i, j)-sharded solve
+
+
+def rank_ext2d(x: torch.Tensor, ix: int, iy: int, Li: int, Lj: int, kl: int, kr: int,
+               hjl: int, hjr: int) -> torch.Tensor:
+    """Simulated rank (ix, iy)'s own (kl + Li + kr, hjl + Lj + hjr, m) copy
+    of the global field x (nx Li, ny Lj, m) around its block: the halo
+    exchanges' values, corners included, and zeros past the array's edges
+    (the chain ends)."""
+    rows, cols, m = x.shape
+    g = x.new_zeros((rows + kl + kr, cols + hjl + hjr, m))
+    g[kl:kl + rows, hjl:hjl + cols] = x
+    return g[ix * Li:ix * Li + kl + Li + kr, iy * Lj:iy * Lj + hjl + Lj + hjr].clone()
+
+
+def rank_parts2d(x, ix, iy, Li, Lj, kl, kr, hjl=None, hjr=None, tail: int = 0):
+    """Rank (ix, iy)'s five parts (body, jl, jr, lh, rhc) of x, each its own
+    copy (the port's _halo_parts2dj layout; the j halo defaults to the i
+    halo); ``tail`` j-extended local tail rows start rhc."""
+    hjl, hjr = kl if hjl is None else hjl, kr if hjr is None else hjr
+    e = rank_ext2d(x, ix, iy, Li, Lj, kl, kr, hjl, hjr)
+    mid = e[kl:kl + Li]
+    rh = e[kl + Li:]
+    if tail:
+        rh = torch.cat([mid[Li - tail:], rh])
+    return (mid[:, hjl:hjl + Lj].clone(), mid[:, :hjl].clone(), mid[:, hjl + Lj:].clone(),
+            e[:kl].clone(), rh.clone())
+
+
+def rank_triple2d(x, ix, iy, Li, Lj, kl, kr, hj, tail: int = 0):
+    """Rank (ix, iy)'s (B, lh, rhc) of x: B its j-extended block (an hj
+    column halo), lh / rhc j-extended edge rows (the JAX _halo_parts2d
+    layout)."""
+    e = rank_ext2d(x, ix, iy, Li, Lj, kl, kr, hj, hj)
+    b, rh = e[kl:kl + Li], e[kl + Li:]
+    if tail:
+        rh = torch.cat([b[Li - tail:], rh])
+    return b.clone(), e[:kl].clone(), rh.clone()
+
+
+_PX2_NAMES = ("rb_smooth_halo2d", "rb_smooth_from_zero_halo2d", "residual_restrict_halo2d",
+              "prolong_smooth_halo2d", "residual_df_norm_halo2d")
+_PX1_NAMES = ("rb_smooth_halo", "rb_smooth_from_zero_halo", "residual_restrict_halo",
+              "prolong_smooth_halo")
+
+
+def f64_cycles2d(mesh2, n_cycles: int = 3):
+    """The f64 (i, j)-sharded V-cycle (sharded2d.make_sharded2d_cycle) at
+    17^3, n_cycles times: (norms, the gathered valid points of u, plan)."""
+    from multigrid_parallel_tpu_torch.parallel import sharded2d as s2
+
+    hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=3)
+    step, plan = s2.make_sharded2d_cycle(hier, mg.CycleConfig(n_smooth=2), mesh2)
+    u, f = s2.setup_problem_sharded2d(mg.poisson_3d_quadratic(), hier, mesh2, plan)
+    norms = []
+    for _ in range(n_cycles):
+        u, nrm = step(u, f)
+        norms.append(float(nrm))
+    return norms, s2.unpad2d(s2.gather_global2d(u, mesh2), hier), plan
+
+
+def df_solver2d(mesh2, inner_cycles: int = 2):
+    """sharded2d.make_sharded2d_df_solver at 17^3 to 1e-8: (outer steps,
+    final norm, the gathered f64 solution's valid points)."""
+    from multigrid_parallel_tpu_torch.parallel import sharded2d as s2
+
+    hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=3)
+    run, plan = s2.make_sharded2d_df_solver(hier, mg.CycleConfig(n_smooth=2), mesh2,
+                                            rel_tol=1e-8, inner_cycles=inner_cycles)
+    u_hi, u_lo, nrm, steps = run(*s2.setup_df_problem_sharded2d(mg.poisson_3d_quadratic(),
+                                                                 hier, mesh2, plan))
+    u = pk.df_to_f64(s2.gather_global2d(u_hi, mesh2), s2.gather_global2d(u_lo, mesh2))
+    return steps, float(nrm), s2.unpad2d(u, hier)
+
+
+def padded_solver2d(mesh2, plan_spec, jnp_level_max: int, inner_cycles: int = 2, n: int = 33,
+                    init_norm: float = None):
+    """sharded2d_padded.make_sharded2d_padded_df_solver at n^3 to 1e-8 (of
+    ``init_norm``, else of ||f_hi||) under the plan (n_sharded,
+    fine_local_i, fine_local_j), or the default plan where plan_spec is
+    None: (the gathered f64 solution, outer steps, final norm, plan, tier
+    map, this rank's calls of the kernel wrappers, and its kernel launches
+    (on the card; LAUNCHES counts launches only))."""
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as px1
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as px2
+    from multigrid_parallel_tpu_torch.parallel import sharded2d as s2
+    from multigrid_parallel_tpu_torch.parallel import sharded2d_padded as s2p
+
+    hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels={33: 4, 65: 5}[n])
+    cfg = mg.CycleConfig(n_smooth=2)
+    plan = (s2.ShardPlan2D(mesh2.nx, mesh2.ny, ("x", "y"), *plan_spec) if plan_spec
+            else None)
+    run, plan = s2p.make_sharded2d_padded_df_solver(hier, cfg, mesh2, plan, rel_tol=1e-8,
+                                                    inner_cycles=inner_cycles,
+                                                    jnp_level_max=jnp_level_max,
+                                                    init_norm=init_norm)
+    state = s2p.setup_df_problem_sharded2d_padded(mg.poisson_3d_quadratic(), hier, mesh2, plan)
+    for mod in (pk, px1, px2):
+        mod.reset_launches()
+    with _counted_calls(px2, _PX2_NAMES) as calls2, _counted_calls(px1, _PX1_NAMES) as calls1:
+        u_hi, u_lo, nrm, steps = run(*state)
+    launches = {**pk.LAUNCHES, **px1.LAUNCHES, **px2.LAUNCHES}
+    u = s2p.unpad_solution2d(s2.gather_global2d(u_hi, mesh2), s2.gather_global2d(u_lo, mesh2),
+                             hier)
+    return (u, steps, float(nrm), plan, s2p.tier_map(hier, cfg, plan, jnp_level_max),
+            {**calls1, **calls2}, launches)
+
+
+def padded_solver2d_on(mesh, shape, plan_spec, jnp_level_max: int, inner_cycles: int, n: int,
+                       init_norm: float = None):
+    """padded_solver2d on this group seen as a ``shape`` mesh (rank 0's
+    result)."""
+    from multigrid_parallel_tpu_torch.parallel import sharded2d as s2
+
+    out = padded_solver2d(s2.make_mesh_2d(*shape, device=mesh.device), plan_spec, jnp_level_max,
+                          inner_cycles, n, init_norm)
+    return out if mesh.rank == 0 else None
+
+
+def sharded2d_checks(mesh, shapes, padded_configs):
+    """Every (i, j)-sharded check of one launch, on (nx, ny) meshes of the
+    same ranks: the f64 cycles and the plain double-float solver on each
+    mesh of ``shapes``, the padded solver under each (shape, plan spec,
+    jnp_level_max) of ``padded_configs``, and every rank's blocks of the
+    padded setup on the first shape (gathered)."""
+    from multigrid_parallel_tpu_torch.parallel import sharded2d as s2
+    from multigrid_parallel_tpu_torch.parallel import sharded2d_padded as s2p
+
+    out = {}
+    for shape in shapes:
+        mesh2 = s2.make_mesh_2d(*shape, device=mesh.device)
+        out[("f64", shape)] = f64_cycles2d(mesh2)
+        out[("df17", shape)] = df_solver2d(mesh2)
+    for shape, plan_spec, jnp_level_max in padded_configs:
+        mesh2 = s2.make_mesh_2d(*shape, device=mesh.device)
+        out[("padded", shape, plan_spec, jnp_level_max)] = padded_solver2d(mesh2, plan_spec,
+                                                                          jnp_level_max)
+    mesh2 = s2.make_mesh_2d(*shapes[0], device=mesh.device)
+    hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=4)
+    plan = s2p.plan_sharding_2d_padded(hier, mesh2.nx, mesh2.ny)
+    setup = s2p.setup_df_problem_sharded2d_padded(mg.poisson_3d_quadratic(), hier, mesh2, plan)
+    out["setup"] = (plan, [sh._all_gather(mesh2, x) for x in setup])
+    out["halos"] = halo_helpers(mesh2)
+    return out if mesh.rank == 0 else {"halos": out["halos"]}
+
+
+HALO_FIELD = (20, 12, 14, 5)  # (seed, Li, Lj, k points) of halo_helpers' global field
+
+
+def halo_field(nx: int, ny: int) -> torch.Tensor:
+    seed, li, lj, m = HALO_FIELD
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((nx * li, ny * lj, m)).astype(np.float32))
+
+
+def halo_helpers(mesh2):
+    """This rank's halo parts of halo_field through the exchanges of
+    sharded2d_padded: the five copy-free parts (4-deep halo, a 2-row tail),
+    the j-extended triple (2 rows before, 1 after) and the ext block (3
+    deep, i then j)."""
+    from multigrid_parallel_tpu_torch.parallel import sharded2d_padded as s2p
+
+    _, li, lj, _ = HALO_FIELD
+    x = halo_field(mesh2.nx, mesh2.ny)
+    block = x[mesh2.ix * li:(mesh2.ix + 1) * li, mesh2.iy * lj:(mesh2.iy + 1) * lj].contiguous()
+    block = block.to(mesh2.device)
+    return {"five": s2p._halo_parts2dj(block, mesh2, 4, 4, tail_local=2),
+            "triple": s2p._halo_parts2d(block, mesh2, 2, 1),
+            "ext": s2p._halo_ext_j(s2p._halo_ext_i(block, mesh2, 3), mesh2, 3)}
