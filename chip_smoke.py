@@ -28,8 +28,11 @@ electrospray solve at 257^3 in its production configuration (K34-K36 with
 K30 and K32), each on one NCCL rank and on four gloo ranks sharing the
 card, and the (i, j)-sharded double-float solve at 257^3 (K37-K41, with
 K28-K31 in its j-replicated tier and K2-K4 in its replicated tail) on one
-NCCL rank and on the four gloo ranks as 2x2 and 1x4 meshes. Phases, each
-of which fails the run:
+NCCL rank and on the four gloo ranks as 2x2 and 1x4 meshes. And the
+packed split-colour smoothing stage (K42), which no solve path calls,
+through its stage bench (utils.timing.profile_splitcolor_stage, the
+counterpart of scripts/splitcolor_bench.py) at 257^3. Phases, each of
+which fails the run:
 
   1. build the hand-written CUDA kernels from ops/csrc (one nvcc per
      source, all started together; sm_90a);
@@ -129,12 +132,22 @@ of which fails the run:
      same solve on a 2x2 mesh (Li = Lj = 144) and on a 1x4 mesh whose 9^3
      level runs the j-replicated tier, each in (b)'s outer steps with u
      bitwise equal to (b)'s and each rank's launches as predicted, one
-     host-staged wall a rank, and the dry-run twin with its 2D part.
+     host-staged wall a rank, and the dry-run twin with its 2D part;
+ 13. the packed split-colour stage (ops.pallas_splitcolor): (a) K42 at
+     65^3 and 257^3 on packed arrays of zero-boundary cubes, n_iter 1 and
+     2, both orders, each call launching 2 n_iter times, against its plain
+     version and, within 4 ulp of max|u| (another addition order), K7 on
+     the pair and K1 on the cube; timed against its plain version; (b) the
+     stage bench at 257^3, n_iter 2, launch counts reset just before and
+     read just after: the rect (K1), packed (K42) and pair (K7) stages and
+     the same-bytes floor, interleaved (median of 20 CUDA-event rounds),
+     each with its one-pass bytes and bound, and exactly 2 n_iter launches
+     of each of K1, K42 and K7 a call.
 
 Prints a {"kernels": [...]} line (each kernel's launches summed over the
 257^3 runs of phases 4, 6, 7, 8, 10, 11 and 12 (all four ranks of 10c,
-11c and 12c), the split tier's 33^3 card solves of phase 3 and the study of
-phase 9c; bound_ms from the timed call's bytes and operations), the
+11c and 12c), the split tier's 33^3 card solves of phase 3, the study of
+phase 9c and the stage bench of phase 13b; bound_ms from the timed call's bytes and operations), the
 card's name and power limit, and as its last line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 there is no CUDA device or any check fails.
@@ -265,6 +278,9 @@ SOURCES = {
     "residual_df_norm_seg2d": ("multigrid_parallel_tpu_torch/ops/csrc/residual_df_norm_seg.cu",
                                "multigrid_parallel_tpu/ops/pallas_sharded2d.py:676, "
                                "multigrid_parallel_tpu/ops/pallas_sharded2d.py:910"),
+    # the packed split-colour stage: on no solve path; the stage bench's (phase 13)
+    "rb_smooth_split_fused": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth_splitcolor.cu",
+                              "multigrid_parallel_tpu/ops/pallas_splitcolor.py:220"),
 }
 # f32 operations per stored output point of each kernel as the main path
 # calls it (n_iter = 2), counted from its arithmetic: an RB update is 8
@@ -289,7 +305,7 @@ OPS_PER_POINT = {
     "prolong_smooth_seg": 20, "residual_df_norm_seg": 72, "residual_seg": 9,
     "mixed_rb_smooth_seg": 16, "mixed_rb_smooth_from_zero_seg": 16, "mixed_prolong_smooth_seg": 20,
     "rb_smooth_seg2d": 16, "rb_smooth_from_zero_seg2d": 16, "residual_restrict_seg2d": 14,
-    "prolong_smooth_seg2d": 20, "residual_df_norm_seg2d": 72,
+    "prolong_smooth_seg2d": 20, "residual_df_norm_seg2d": 72, "rb_smooth_split_fused": 16,
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores (same sheet)
@@ -379,6 +395,7 @@ TIER_KERNELS = {
 }
 # of max|u| (1350 V): the f64 sharded mixed-BC cycle against MixedBCSolver's own
 SHARDED_MIXED_F64_RTOL = 1e-11
+STAGE_REPS = 20  # phase 13b: CUDA-event rounds of each stage of the splitcolor stage bench
 
 
 def check(cond, msg):
@@ -878,10 +895,10 @@ def device_busy_ms(fn):
 def _launch_modules():
     from multigrid_parallel_tpu_torch.ops import pallas3d, pallas_mixed, pallas_mixed_fold
     from multigrid_parallel_tpu_torch.ops import pallas_mixed_split, pallas_sharded, pallas_split
-    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d, pallas_splitcolor
 
     return (pallas3d, pallas_split, pallas_mixed, pallas_mixed_fold, pallas_mixed_split,
-            pallas_sharded, pallas_sharded2d)
+            pallas_sharded, pallas_sharded2d, pallas_splitcolor)
 
 
 def reset_launches():
@@ -2406,6 +2423,94 @@ def sharded2d_phase(dev, card, launches, results, fused):
     print(f"[phase 12] {time.perf_counter() - t_phase:.1f} s")
 
 
+def compare_splitcolor(dev, results):
+    """Phase 13a: K42 against its plain version at 65^3 and 257^3 on
+    packed arrays of numpy-seeded zero-boundary cubes, n_iter 1 and 2, both
+    orders, each call launching exactly 2 n_iter times; against K7 (its
+    pair joined along j) and K1 (through unpack_split) within FIELD_ULPS of
+    max|u|, the gap printed in ulps (another addition order); K42 and its
+    plain version timed at n_iter 2, red first."""
+    from multigrid_parallel_tpu_torch.ops import pallas3d as pk
+    from multigrid_parallel_tpu_torch.ops import pallas_split as ps
+    from multigrid_parallel_tpu_torch.ops import pallas_splitcolor as psc
+
+    name = "rb_smooth_split_fused"
+    res = results[name]
+    for n in (65, 257):
+        h = 1.0 / (n - 1)
+        rng = np.random.default_rng(n)
+        u, f = (torch.from_numpy(np.pad(rng.standard_normal((n - 2,) * 3).astype(np.float32), 1))
+                .to(dev) for _ in range(2))
+        u2, f2 = psc.pack_split(u), psc.pack_split(f)
+        pu, pf = ps.pack_split(u), ps.pack_split(f)
+        for n_iter in (1, 2):
+            for red_first in (True, False):
+                label = f"n_iter={n_iter}_" + ("red_first" if red_first else "black_first")
+                want = psc.rb_smooth_split_fused_plain(u2, f2, h, n_iter, red_first)
+                before = psc.LAUNCHES[name]
+                got = u2.clone()
+                check(psc.rb_smooth_split_fused(got, f2, h, n_iter, n, red_first) is got,
+                      f"{name}: not in place")
+                calls = psc.LAUNCHES[name] - before
+                torch.cuda.synchronize()
+                err, tol, exact = field_err(got, want)
+                k7 = torch.cat(ps.rb_smooth_split(pu[0].clone(), pu[1].clone(), *pf, h, n_iter,
+                                                  red_first), dim=1)
+                k1 = pk.rb_smooth_fused(u.clone(), f, h, n_iter, red_first)
+                ulp = float(np.spacing(np.float32(want.abs().max().item())))
+                gap7 = float((got - k7).abs().max())
+                gap1 = float((psc.unpack_split(got) - k1).abs().max())
+                times = ()
+                if n_iter == 2 and red_first:
+                    uk = u2.clone()
+                    times = (time_ms(lambda: psc.rb_smooth_split_fused(uk, f2, h, 2, n, True)),
+                             time_ms(lambda: psc.rb_smooth_split_fused_plain(u2, f2, h, 2, True)))
+                print(f"[kernel] {name:26s} n={n:3d} {label:22s} max_abs_err={err:.3e} "
+                      f"(tol {tol:.3e}) bitwise_equal={exact} launches={calls} | vs K7 "
+                      f"{gap7 / ulp:.1f} ulp, vs K1 {gap1 / ulp:.1f} ulp of max|u| "
+                      f"{float(want.abs().max()):.4f} (tol {FIELD_ULPS})"
+                      + (f" kernel_ms={times[0]:.4f} plain_ms={times[1]:.4f}" if times else ""))
+                check(err <= tol, f"{name} n={n} {label}: {err} > {tol}")
+                check(calls == 2 * n_iter, f"{name} n={n} {label}: {calls} launches")
+                check(max(gap7, gap1) <= FIELD_ULPS * ulp,
+                      f"{name} n={n} {label}: {gap7 / ulp} / {gap1 / ulp} ulp from K7 / K1")
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                if times:
+                    res["ms"], res["plain_ms"] = times
+                    res["bound_ms"], res["bound_by"] = bound(name, n ** 3, (u2, f2), (u2,))
+
+
+def splitcolor_phase(dev, card, launches, results):
+    """Phase 13: the packed split-colour stage (K42): against its plain
+    version, K7 and K1 (13a), then its path, the stage bench
+    profile_splitcolor_stage at 257^3, n_iter 2, with launch counts reset
+    just before and read just after (13b)."""
+    from multigrid_parallel_tpu_torch.utils.timing import profile_splitcolor_stage
+
+    t_phase = time.perf_counter()
+    compare_splitcolor(dev, results)
+    n, n_iter = 257, 2
+    torch.cuda.synchronize()
+    reset_launches()
+    rows = profile_splitcolor_stage(n, n_iter, reps=STAGE_REPS, device=dev)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    for label, seconds, nbytes, bound_s in rows:
+        print(f"[splitcolor stage {n}^3] {label}: {1e3 * seconds:.4f} ms, "
+              f"{nbytes / seconds / 1e9:.1f} GB/s of {nbytes / 1e6:.1f} MB one-pass, bound "
+              f"{1e3 * bound_s:.4f} ms ({bound_s / seconds:.1%}) | card: {card}")
+    check(len(rows) == 4 and all(np.isfinite(s) and s > 0 for _, s, _, _ in rows),
+          "profile_splitcolor_stage: rows")
+    ran = {k: v for k, v in counts.items() if v}
+    print(f"[launches {n}^3 splitcolor stage bench] {json.dumps(ran)}")
+    per_stage = 2 * n_iter * (STAGE_REPS + 1)  # a warm-up call and STAGE_REPS timed ones
+    check(ran == dict.fromkeys(("rb_smooth_fused", "rb_smooth_split", "rb_smooth_split_fused"),
+                               per_stage), f"stage bench launches {ran}, {per_stage} each expected")
+    for name in SOURCES:
+        launches[name] += counts[name]
+    print(f"[phase 13] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on one",
@@ -2604,6 +2709,10 @@ def main():
     # host-staged gloo ranks as a 2x2 mesh and as a 1x4 one (j-replicated tier)
     sharded2d_phase(dev, card, launches, results,
                     (solved["fused"][0], solved["fused"][1], paths["fused"][0]))
+
+    # 13. the packed split-colour stage: K42 against its plain version, K7
+    # and K1, then the stage bench at 257^3 (rect, packed, pair, floor)
+    splitcolor_phase(dev, card, launches, results)
 
     # no single PyTorch call computes any of these stencils: library_ms is null
     kernels = [

@@ -20,7 +20,9 @@ the i-sharded distributed Dirichlet and electrospray solves on
 started by ``parallel.launch``), and the (i, j)-sharded Dirichlet solve
 over an (nx, ny) grid of the ranks (``parallel.sharded2d``,
 ``parallel.sharded2d_padded``), on forty-two hand-written CUDA kernels
-(``ops/csrc``); the JAX package
+(``ops/csrc``). A forty-third, K42, is the packed split-colour smoothing
+stage that no path calls (``ops.pallas_splitcolor``), timed by the stage
+bench ``utils.timing.profile_splitcolor_stage``. The JAX package
 stays the reference it is tested against. The package imports torch and
 never jax. Entry points put their fields on the CUDA device unless the
 caller names another (``device="cpu"`` runs the kernels' plain versions).

@@ -64,6 +64,7 @@ _SIGNATURES = {
     "mg_split_df_partials": (_I,),
     "mg_split_residual_df_norm": (_P,) * 12 + (_I, _F, _P),
     "mg_split_df_step": (_P,) * 18 + (_I, _F, _P),
+    "mg_splitcolor_half_sweep": (_P, _P, _I, _F, _I, _P),
     "mg_mixed_half_sweep": (_P, _P, _P, _I, _F, _I, _P),
     "mg_mixed_bc_pass": (_P, _P, _I, _P),
     "mg_mixed_prolong_correct_black": (_P, _P, _P, _P, _P, _I, _F, _P),

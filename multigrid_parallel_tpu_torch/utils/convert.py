@@ -2,9 +2,10 @@
 
 The solver has no weights: its state is the fields. The JAX package
 keeps them lane-padded as (n, rup(n, 8), rup(n, 128)) arrays with the
-live cube at [:n, :n, :n] and zeros elsewhere, as split-colour pairs or
-as k-fold fields (below); the port keeps plain contiguous (n, n, n)
-tensors, (n, n, (n - 1) // 2) pairs and (n, n, n - 2) fold fields. The
+live cube at [:n, :n, :n] and zeros elsewhere, as split-colour pairs,
+packed split-colour arrays or k-fold fields (below); the port keeps plain contiguous (n, n, n)
+tensors, (n, n, (n - 1) // 2) pairs, (n, 2 n, (n - 1) // 2) packed
+split-colour arrays and (n, n, n - 2) fold fields. The
 mixed-BC solver adds its pin planes, its coarse LU factor and, on the
 split-colour tier, its (2, 2, n, (n - 1) // 2) parity packs. An
 i-sharded or (i, j)-sharded field is one global array in JAX and one
@@ -74,6 +75,42 @@ def from_jax_split(xr, xb, n: int, device="cuda"):
             raise ValueError(f"expected shape {jax_split_shape(n)}, got {a.shape}")
         out.append(torch.from_numpy(np.array(a[:, :n, : (n - 1) // 2])).to(device))
     return out[0], out[1]
+
+
+# Packed split-colour arrays (ops.pallas_splitcolor): the JAX package keeps
+# them as (n, 2 rup(n, 8), rup((n - 1) // 2, 128)), red rows [0, SJ) and
+# black rows [SJ, 2 SJ), the live slots at [:, :n, :(n - 1) // 2] of each
+# half and zeros elsewhere; the port as (n, 2 n, (n - 1) // 2).
+
+
+def jax_splitcolor_shape(n: int):
+    """The JAX package's packed split-colour array."""
+    return (n, 2 * _rup(n, 8), _rup((n - 1) // 2, 128))
+
+
+def from_jax_splitcolor(u2, n: int, device="cuda") -> torch.Tensor:
+    """The JAX package's packed array (numpy or anything np.asarray takes)
+    -> the port's contiguous (n, 2 n, (n - 1) // 2) tensor on ``device``."""
+    a = np.asarray(u2)
+    if a.shape != jax_splitcolor_shape(n):
+        raise ValueError(f"expected shape {jax_splitcolor_shape(n)}, got {a.shape}")
+    sj, s = a.shape[1] // 2, (n - 1) // 2
+    return torch.from_numpy(np.concatenate([a[:, :n, :s], a[:, sj:sj + n, :s]], axis=1)).to(
+        device)
+
+
+def to_jax_splitcolor(u2: torch.Tensor, n: int) -> np.ndarray:
+    """The port's packed array -> zero-padded numpy array in the JAX
+    package's packed layout."""
+    s = (n - 1) // 2
+    if tuple(u2.shape) != (n, 2 * n, s):
+        raise ValueError(f"expected an {(n, 2 * n, s)} packed array, got {tuple(u2.shape)}")
+    a = u2.detach().cpu().numpy()
+    out = np.zeros(jax_splitcolor_shape(n), dtype=a.dtype)
+    sj = out.shape[1] // 2
+    out[:, :n, :s] = a[:, :n]
+    out[:, sj:sj + n, :s] = a[:, n:]
+    return out
 
 
 def from_jax_pin_planes(pin, n: int, device="cuda") -> torch.Tensor:

@@ -10,7 +10,10 @@ stages of mg_3d.h:136-140 at each level, gathered two ways:
   * ``profile_padded_stages``: the hand kernels of the double-float
     solver's correction cycle (K2, K1, K3, K4 at every level above the
     coarsest) and of its outer step (K5, K6) at their production shapes,
-    timed with CUDA events.
+    timed with CUDA events;
+  * ``profile_splitcolor_stage``: one RB-GS smoothing stage at 257^3 as
+    the rect kernel (K1), the packed split-colour kernel (K42), the pair
+    kernel (K7) and a same-bytes copy floor, interleaved.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from typing import Callable, List
 
 import numpy as np
 import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 
 # The reference's stage names, verbatim (mg_3d.h:136-137).
 STAGE_NAMES = (
@@ -110,6 +115,21 @@ def profile_cycle(hier, coarse_solve, cfg, u, f, infos: List[TimingInfo]):
     return go(u, f, hier.num_levels - 1)
 
 
+def _call_s(fn, on_cuda: bool) -> float:
+    """Seconds of one call of fn: its device time between two CUDA events,
+    or on the CPU its host time."""
+    if not on_cuda:
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
 def profile_padded_stages(hier, cfg, reps: int = 20, device="cuda"):
     """Per-call times of the double-float solver's kernels at each level
     of ``hier``: the stages the solver (``cycles_padded``, fused) runs.
@@ -146,20 +166,7 @@ def profile_padded_stages(hier, cfg, reps: int = 20, device="cuda"):
     def median_s(fn):
         fn()  # warm-up
         sync()
-        times = []
-        for _ in range(reps):
-            if on_cuda:
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                fn()
-                end.record()
-                end.synchronize()
-                times.append(start.elapsed_time(end) / 1e3)
-            else:
-                t0 = time.perf_counter()
-                fn()
-                times.append(time.perf_counter() - t0)
-        return statistics.median(times)
+        return statistics.median(_call_s(fn, on_cuda) for _ in range(reps))
 
     tiny = torch.zeros(8, device=dev)
     lat = []
@@ -190,3 +197,72 @@ def profile_padded_stages(hier, cfg, reps: int = 20, device="cuda"):
     rows.append((f"outer ({n_top}³) df-add+EFT residual+norm fused",
                  median_s(lambda: pk.df_step_residual_norm_fused(uh, ul, d, fh, fl, h_top))))
     return rows, statistics.median(lat)
+
+
+
+def profile_splitcolor_stage(n: int = 257, n_iter: int = 2, reps: int = 20, device="cuda"):
+    """One red-first RB-GS smoothing stage of n_iter iterations at n^3 in
+    three layouts, and a floor: the counterpart of
+    scripts/splitcolor_bench.py.
+
+    The stages, timed round by round in turn: the rect stage (K1,
+    ``pallas3d.rb_smooth_fused``, on the (n, n, n) cube), the packed
+    split-colour stage (K42, ``pallas_splitcolor.rb_smooth_split_fused``,
+    on (n, 2 n, (n - 1) // 2)), the pair stage (K7,
+    ``pallas_split.rb_smooth_split``) and ``torch.add(u2, f2, out=w)``,
+    which reads u2 and f2 and writes one array of their size: the bytes
+    of a one-pass stage (the script's identity-DMA floor). Inputs are
+    seeded as the script seeds them: ``default_rng(0)``, standard-normal
+    interiors of u and then f, zero boundaries. Each stage updates its
+    own copy of u in place, call after call. On a CUDA device each row is
+    the median over ``reps`` rounds of the CUDA-event time of one call,
+    after one warm-up call each; with ``device="cpu"`` the plain versions
+    run and the host clock times them. The script's chain-slope mode
+    (against the TPU's dispatch latency) has no counterpart here.
+
+    Returns rows of (label, seconds per call, bytes a one-pass call moves
+    (u and f read once, u written once), that byte count over the H100's
+    3.35 TB/s in seconds)."""
+    from multigrid_parallel_tpu_torch.ops import pallas3d as pk
+    from multigrid_parallel_tpu_torch.ops import pallas_split as ps
+    from multigrid_parallel_tpu_torch.ops import pallas_splitcolor as psc
+
+    dev = torch.device(device)
+    on_cuda = dev.type == "cuda"
+    if on_cuda and not torch.cuda.is_available():
+        raise RuntimeError("profile_splitcolor_stage: no CUDA device")
+    h = 1.0 / (n - 1)
+    rng = np.random.default_rng(0)
+    cubes = []
+    for _ in range(2):
+        x = np.zeros((n, n, n), np.float32)
+        x[1:-1, 1:-1, 1:-1] = rng.standard_normal((n - 2,) * 3)
+        cubes.append(torch.from_numpy(x).to(dev))
+    u, f = cubes
+    u2, f2 = psc.pack_split(u), psc.pack_split(f)
+    (er, eb), rhs = ps.pack_split(u), ps.pack_split(f)
+    w = torch.empty_like(u2)
+    stages = (
+        (f"rect stage (K1, {2 * n_iter} half-sweeps)",
+         lambda: pk.rb_smooth_fused(u, f, h, n_iter, red_first=True), (u, f, u)),
+        (f"packed stage (K42, {2 * n_iter} half-sweeps)",
+         lambda: psc.rb_smooth_split_fused(u2, f2, h, n_iter, n, red_first=True), (u2, f2, u2)),
+        (f"pair stage (K7, {2 * n_iter} half-sweeps)",
+         lambda: ps.rb_smooth_split(er, eb, *rhs, h, n_iter, True), (er, eb, *rhs, er, eb)),
+        ("same-bytes floor (torch.add(u2, f2, out=w))",
+         lambda: torch.add(u2, f2, out=w), (u2, f2, w)),
+    )
+
+    for _, fn, _ in stages:  # warm-up
+        fn()
+    if on_cuda:
+        torch.cuda.synchronize(dev)
+    times = [[] for _ in stages]
+    for _ in range(reps):
+        for ts, (_, fn, _) in zip(times, stages):
+            ts.append(_call_s(fn, on_cuda))
+    rows = []
+    for ts, (label, _, io) in zip(times, stages):
+        nbytes = sum(t.numel() * t.element_size() for t in io)
+        rows.append((label, statistics.median(ts), nbytes, nbytes / HBM_BYTES_PER_S))
+    return rows

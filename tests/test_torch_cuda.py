@@ -13,7 +13,8 @@ kernels K34-K36 likewise against their plain versions and K13-K15, with
 the sharded electrospray solve on one NCCL rank against the full tier,
 and the (i, j)-sharded kernels K37-K41 on four simulated 2x2 blocks
 against their plain versions and K1-K5, with the 2D solver on one NCCL
-rank against the fused single-device solve.
+rank against the fused single-device solve, and the packed split-colour
+stage K42 against its plain version.
 
 These need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 themselves where there is none. The file imports no jax, so on a machine
@@ -36,6 +37,7 @@ from multigrid_parallel_tpu_torch.ops import pallas_mixed as tpm
 from multigrid_parallel_tpu_torch.ops import pallas_mixed_fold as tpmf
 from multigrid_parallel_tpu_torch.ops import pallas_mixed_split as tpms
 from multigrid_parallel_tpu_torch.ops import pallas_split as tps
+from multigrid_parallel_tpu_torch.ops import pallas_splitcolor as tpsc
 
 torch.set_num_threads(1)
 
@@ -241,6 +243,37 @@ def test_split_wrappers_reject_what_the_kernels_do_not_take(cuda):
         tps.rb_smooth_split_from_zero(e.double(), r.double(), 0.125, 1)
     with pytest.raises(ValueError):
         tps.rb_smooth_split_from_zero(e.transpose(0, 1), r, 0.125, 1)
+
+
+@pytest.mark.cuda
+def test_splitcolor_kernel_matches_plain_on_card(cuda):
+    """K42 on packed arrays (pairs of zero-boundary cubes joined along j),
+    in place, bitwise equal to its plain version; 2 n_iter launches a
+    call."""
+    n = 65
+    h = 1.0 / (n - 1)
+    u2, f2 = (torch.cat(pair, dim=1) for pair in _split_pairs(16, n, cuda, 2))
+    tpsc.reset_launches()
+    for n_iter in (1, 2):
+        for red_first in (True, False):
+            want = tpsc.rb_smooth_split_fused_plain(u2, f2, h, n_iter, red_first)
+            got = u2.clone()
+            before = tpsc.LAUNCHES["rb_smooth_split_fused"]
+            assert tpsc.rb_smooth_split_fused(got, f2, h, n_iter, n, red_first) is got
+            assert tpsc.LAUNCHES["rb_smooth_split_fused"] - before == 2 * n_iter
+            assert torch.equal(got, want), (n_iter, red_first)
+    assert tpsc.LAUNCHES == {"rb_smooth_split_fused": 2 * (2 + 4)}
+
+
+@pytest.mark.cuda
+def test_splitcolor_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    n = 9
+    u2, f2 = (torch.cat(pair, dim=1) for pair in _split_pairs(17, n, cuda, 2))
+    with pytest.raises(TypeError, match="float32"):
+        tpsc.rb_smooth_split_fused(u2.double(), f2.double(), 0.125, 1, n)
+    strided = u2.permute(2, 1, 0).contiguous().permute(2, 1, 0)  # the shape, not the strides
+    with pytest.raises(ValueError, match="contiguous"):
+        tpsc.rb_smooth_split_fused(strided, f2, 0.125, 1, n)
 
 
 @pytest.mark.cuda
