@@ -54,10 +54,14 @@ which fails the run:
   4. solve 257^3 on each Dirichlet path with every launch count reset
      just before and read just after, then check the outer-step count,
      the final relative residual, the error against the analytic solution
-     and that the path launched exactly its kernels; time each solve
-     (warm-up, median of 5); the split solution against the fused one;
+     and that the path launched exactly its kernels (the split solve its
+     one-pass stages exactly 3 K7 and 4 K10 launches an outer step); time
+     each solve (warm-up, median of 5); the split solution against the
+     fused one;
   5. time the split and fused 257^3 solves interleaved run by run in
-     this one call (host wall and CUDA-event span, 9 each);
+     this one call (host wall and CUDA-event span, 9 each), then trace one
+     solve of each (device busy, kernels by name, the device's idle share
+     of the span from its first kernel to its last);
   6. the electrospray 257^3 solve, launches reset and read around it:
      14 +- 1 outer steps, final norm <= 1e-8 of the initial one, only
      K13-K15, K3 and K5 launched; its wall (warm-up, median of 5) beside
@@ -139,10 +143,12 @@ which fails the run:
      version and, within 4 ulp of max|u| (another addition order), K7 on
      the pair and K1 on the cube; timed against its plain version; (b) the
      stage bench at 257^3, n_iter 2, launch counts reset just before and
-     read just after: the rect (K1), packed (K42) and pair (K7) stages and
-     the same-bytes floor, interleaved (median of 20 CUDA-event rounds),
-     each with its one-pass bytes and bound, and exactly 2 n_iter launches
-     of each of K1, K42 and K7 a call.
+     read just after: the rect (K1), packed (K42) and pair (K7) stages,
+     the pair stage in K7's per-sweep form (one launch a half-sweep,
+     through K8's half-sweep entry) and the same-bytes floor, interleaved
+     (median of 20 CUDA-event rounds), each with its one-pass bytes and
+     bound, and exactly 2 n_iter launches of each of K1 and K42 a call,
+     one of K7 and 2 n_iter of the per-sweep form (counted apart).
 
 Prints a {"kernels": [...]} line (each kernel's launches summed over the
 257^3 runs of phases 4, 6, 7, 8, 10, 11 and 12 (all four ranks of 10c,
@@ -430,12 +436,34 @@ def time_ms(fn, reps=20):
 def bound(name, points, inputs, outputs):
     """(bound_ms, bound_by): the least time the card could take for one
     call over ``points`` stored output points, the larger of its bytes
-    (each input read once, each output written once) over the memory rate
-    and its operations over the f32 rate."""
-    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    (each input read once, each output written once; an int in ``inputs``
+    is a count of bytes that the call needs) over the memory rate and its
+    operations over the f32 rate."""
+    nbytes = sum(t if isinstance(t, int) else t.numel() * t.element_size()
+                 for t in (*inputs, *outputs))
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = OPS_PER_POINT[name] * points / F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def split_stage_bytes(ps, n, red_first, prolong=False):
+    """The bytes a K7 stage call (K10's, ``prolong``, black first) at n^3
+    must move, counted in the card's 32-byte sectors: the fresh pair
+    written, the second colour read whole; of the first half-sweep's colour
+    only the slots that no half-sweep updates (the boundary rows and dead
+    slots, which the output keeps); of each colour's f its live slots;
+    K10's coarse correction read whole."""
+    _, live_r, live_b = ps._masks(n, "cpu")
+
+    def sectors(mask):
+        flat = mask.reshape(-1)
+        flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 8)])
+        return int(flat.view(-1, 8).any(1).sum())
+
+    first = live_r if red_first and not prolong else live_b
+    total = (3 * sectors(torch.ones_like(live_r)) + sectors(~first) + sectors(live_r)
+             + sectors(live_b))
+    return 32 * total + (4 * ((n + 1) // 2) ** 3 if prolong else 0)
 
 
 def field_err(got, want):
@@ -608,7 +636,8 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
                 ek = tuple(x.clone() for x in e2)
                 times = (time_ms(lambda: ps.rb_smooth_split(*ek, *r2, h, 2, True)),
                          time_ms(lambda: ps.rb_smooth_split_plain(*e2, *r2, h, 2, True)))
-            record_pair("rb_smooth_split", label, got, want, times, io=((*e2, *r2), e2))
+            record_pair("rb_smooth_split", label, got, want, times,
+                        io=((split_stage_bytes(ps, n, True),), ()))
             times = ()
             if red_first:
                 times = (time_ms(lambda: ps.rb_smooth_split_from_zero(*r2, h, 2, True)),
@@ -630,7 +659,7 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
             record_pair("prolong_smooth_split", f"n_iter={n_iter}_",
                         ps.prolong_smooth_split(ec, *e2, *r2, h, n_iter),
                         ps.prolong_smooth_split_plain(ec, *e2, *r2, h, n_iter), times,
-                        io=((ec, *e2, *r2), e2))
+                        io=((split_stage_bytes(ps, n, False, prolong=True),), ()))
         split_state = [x for t in state for x in ps.pack_split(t)]
         for name, args in (("residual_df_norm_split", split_state),
                            ("df_step_split", split_state[:4] + list(d2) + split_state[4:])):
@@ -864,32 +893,12 @@ def compare_msplit(pm, pmf, pms, ps, es, n, h, u, r, ec, es_state, dev, record, 
     record_pair("residual_df_norm_msplit", "r_", got[:2], want[:2], times, io=(state, got))
 
 
-def device_busy_ms(fn):
-    """(busy ms, kernels, by_name): the union of the device's kernel
-    intervals over one call of fn, from a torch.profiler trace, and each
-    kernel name's summed ms and count; (None, 0, {}) when the trace holds
-    no device events."""
-    from torch.profiler import ProfilerActivity, profile
+def device_trace(fn):
+    """(busy ms, kernels, by_name, span ms) of one traced call of fn
+    (``utils.split_trace.device_trace``)."""
+    from multigrid_parallel_tpu_torch.utils.split_trace import device_trace as trace
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        return None, 0, {}
-    by_name = {}
-    for e in events:
-        found = re.search(r"\d([a-z_]+_kernel)", e.name)  # the repo's kernels, demangled
-        name = found.group(1) if found else e.name[:60]
-        ms, count = by_name.get(name, (0.0, 0))
-        by_name[name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, count + 1)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            busy, lo = busy + hi - lo, a
-        hi = max(hi, b)
-    return (busy + hi - lo) / 1e3, len(spans), by_name
+    return trace(fn)
 
 
 def _launch_modules():
@@ -969,7 +978,7 @@ def electrospray_257(es, dev, card, launches):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         check(again[3] == it, "electrospray: outer-step count changed between runs")
-    busy, n_kernels, by_name = device_busy_ms(lambda: run(*state))
+    busy, n_kernels, by_name, _ = device_trace(lambda: run(*state))
     busy_s = "not measured" if busy is None else f"{busy:.3f} ms over {n_kernels} kernels"
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     print(f"[device time {n}^3 electrospray] "
@@ -1038,10 +1047,13 @@ def fold_257(es, dev, card, launches, full):
 
 def print_device_time(solves, what, card):
     """The device-busy time and the top kernels of one traced run of each
-    solve in ``solves``."""
+    solve in ``solves``, and the device's idle share of the span from the
+    run's first kernel to its last."""
     for label, solve in solves.items():
-        busy, n_kernels, by_name = device_busy_ms(solve)
-        busy_s = "not measured" if busy is None else f"{busy:.3f} ms over {n_kernels} kernels"
+        busy, n_kernels, by_name, span = device_trace(solve)
+        busy_s = "not measured" if busy is None else (
+            f"{busy:.3f} ms over {n_kernels} kernels, device span {span:.3f} ms, idle share "
+            f"{1 - busy / span:.1%}")
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
         print(f"[device time {what} {label}] busy={busy_s} | "
               + "; ".join(f"{name}: {ms:.3f} ms / {count}" for name, (ms, count) in top)
@@ -1175,7 +1187,7 @@ def reference_257(dev, card):
             go()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        busy, n_kernels, _ = device_busy_ms(go)
+        busy, n_kernels, _, _ = device_trace(go)
         busy_s = "not measured" if busy is None else f"{busy:.3f} ms over {n_kernels} kernels"
         print(f"[wall {n}^3 f64 {label}] median_of_3_s={statistics.median(walls):.4f} "
               f"runs_s={[round(w, 4) for w in walls]} device_busy={busy_s} card: {card}")
@@ -2485,6 +2497,7 @@ def splitcolor_phase(dev, card, launches, results):
     version, K7 and K1 (13a), then its path, the stage bench
     profile_splitcolor_stage at 257^3, n_iter 2, with launch counts reset
     just before and read just after (13b)."""
+    from multigrid_parallel_tpu_torch.ops import pallas_split as ps
     from multigrid_parallel_tpu_torch.utils.timing import profile_splitcolor_stage
 
     t_phase = time.perf_counter()
@@ -2499,13 +2512,18 @@ def splitcolor_phase(dev, card, launches, results):
         print(f"[splitcolor stage {n}^3] {label}: {1e3 * seconds:.4f} ms, "
               f"{nbytes / seconds / 1e9:.1f} GB/s of {nbytes / 1e6:.1f} MB one-pass, bound "
               f"{1e3 * bound_s:.4f} ms ({bound_s / seconds:.1%}) | card: {card}")
-    check(len(rows) == 4 and all(np.isfinite(s) and s > 0 for _, s, _, _ in rows),
+    check(len(rows) == 5 and all(np.isfinite(s) and s > 0 for _, s, _, _ in rows),
           "profile_splitcolor_stage: rows")
     ran = {k: v for k, v in counts.items() if v}
-    print(f"[launches {n}^3 splitcolor stage bench] {json.dumps(ran)}")
-    per_stage = 2 * n_iter * (STAGE_REPS + 1)  # a warm-up call and STAGE_REPS timed ones
-    check(ran == dict.fromkeys(("rb_smooth_fused", "rb_smooth_split", "rb_smooth_split_fused"),
-                               per_stage), f"stage bench launches {ran}, {per_stage} each expected")
+    per_sweep = dict(ps.PER_SWEEP_LAUNCHES)
+    print(f"[launches {n}^3 splitcolor stage bench] {json.dumps(ran)} | per-sweep K7 "
+          f"{json.dumps(per_sweep)}")
+    calls = STAGE_REPS + 1  # a warm-up call and STAGE_REPS timed ones
+    want = dict.fromkeys(("rb_smooth_fused", "rb_smooth_split_fused"), 2 * n_iter * calls)
+    want["rb_smooth_split"] = calls  # one one-pass launch a call
+    check(ran == want, f"stage bench launches {ran}, {want} expected")
+    check(per_sweep == {"rb_smooth_split_per_sweep": 2 * n_iter * calls},
+          f"stage bench per-sweep K7 launches {per_sweep}")
     for name in SOURCES:
         launches[name] += counts[name]
     print(f"[phase 13] {time.perf_counter() - t_phase:.1f} s")
@@ -2660,6 +2678,10 @@ def main():
             check(ran == (name in PATH_KERNELS[label]),
                   f"{label}: kernel {name} launched {counts[name]} times in the {n}^3 solve")
             launches[name] += counts[name]
+        if label == "split":  # one-pass stages: one launch a call, 3 K7 and 4 K10 calls a step
+            for name, calls in (("rb_smooth_split", 3), ("prolong_smooth_split", 4)):
+                check(counts[name] == calls * it,
+                      f"split: {name} launched {counts[name]} times, {calls} x {it} expected")
         walls = []
         for _ in range(5):
             torch.cuda.synchronize()
@@ -2682,8 +2704,10 @@ def main():
               f"{label} and fused outer-step counts differ")
         check(du <= 1e-8, f"{label} and fused solutions differ by {du}")
 
-    # 5. split against fused, interleaved run by run (alternating which goes first)
+    # 5. split against fused, interleaved run by run (alternating which goes first),
+    # then one traced solve of each: device busy, kernels, idle share
     interleave({"split": paths["split"][0], "fused": paths["fused"][0]}, f"{n}^3", card)
+    print_device_time({"split": paths["split"][0], "fused": paths["fused"][0]}, f"{n}^3", card)
 
     # 6. the electrospray production solve at 257^3 (docs/MIXED_BC.md section 4)
     full = electrospray_257(es, dev, card, launches)
@@ -2711,7 +2735,8 @@ def main():
                     (solved["fused"][0], solved["fused"][1], paths["fused"][0]))
 
     # 13. the packed split-colour stage: K42 against its plain version, K7
-    # and K1, then the stage bench at 257^3 (rect, packed, pair, floor)
+    # and K1, then the stage bench at 257^3 (rect, packed, pair, per-sweep
+    # pair, floor)
     splitcolor_phase(dev, card, launches, results)
 
     # no single PyTorch call computes any of these stencils: library_ms is null

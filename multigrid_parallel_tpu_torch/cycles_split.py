@@ -80,7 +80,7 @@ def make_split_df_solver(
 
     def cycle(e2, r2):
         """One V-cycle on the correction pair; e2=None is a zero initial
-        pair. A given e2 is updated in place by the pre-smoother."""
+        pair. A given e2 is left as it is (K7 returns a fresh pair)."""
         rr, rb = r2
         if e2 is None:
             er, eb = ps.rb_smooth_split_from_zero(rr, rb, h, ns, red_first=True)

@@ -59,8 +59,10 @@ _SIGNATURES = {
     "mg_split_half_sweep": (_P, _P, _P, _I, _F, _I, _I, _P),
     "mg_split_half_sweep_from_zero": (_P, _P, _I, _F, _I, _P),
     "mg_split_residual_restrict": (_P, _P, _P, _P, _P, _I, _F, _P),
-    "mg_split_prolong_correct_red": (_P, _P, _P, _I, _P),
-    "mg_split_black_sweep": (_P, _P, _P, _P, _I, _F, _P),
+    # the one-pass stages: pointers, n, h2, (red_first,) n_iter, the plan
+    # (bi, bj, bk, k_halo, threads, smem), stream
+    "mg_split_stage": (_P,) * 6 + (_I, _F, _I, _I) + (_I,) * 6 + (_P,),
+    "mg_split_prolong_stage": (_P,) * 7 + (_I, _F, _I) + (_I,) * 6 + (_P,),
     "mg_split_df_partials": (_I,),
     "mg_split_residual_df_norm": (_P,) * 12 + (_I, _F, _P),
     "mg_split_df_step": (_P,) * 18 + (_I, _F, _P),

@@ -1,40 +1,53 @@
 // Trilinear prolongation of a rect coarse correction into a split-colour
-// pair, added to the fine correction, and the first half-sweep of the
-// black-first RB stage: two launches that write a fresh pair.
+// pair, added to the fine correction, and the black-first RB smoothing
+// stage on the result (K10): one launch, one pass, a fresh pair.
 //
-// Replaces, with K7 half-sweeps for the rest of the stage, the Pallas
-// kernel multigrid_parallel_tpu/ops/pallas_split.py: prolong_smooth_split
-// (K10), which computes post_smooth(e + P ec, r) on the pair in one pass.
-// Interpolation in its order (pallas_split.py:672-697): j, then i, then
-// k. An even fine j or i copies the coincident coarse value, an odd one
-// averages its two coarse neighbours (0.5 a + 0.5 b in j, as the MXU band
-// product sums, 0.5 (a + b) in i); in k, slot kk of a colour with parity
-// p holds fine k = 2 kk + 1 + p, so p = 0 takes 0.5 (y[kk] + y[kk+1]) and
-// p = 1 takes y[kk+1]. Each step rounds once; the plain version takes the
-// same steps in the same order, so the two agree bit for bit. The
-// correction is added at live interior slots only; everywhere else the
-// slot keeps e + 0.
+// Replaces the Pallas kernel multigrid_parallel_tpu/ops/pallas_split.py:
+// prolong_smooth_split (K10, :746), which computes post_smooth(e + P ec, r)
+// on the pair in one pass over HBM, whole (j, k) planes in VMEM with a
+// halo of 4 n_iter + 1 planes (:756).
 //
-// Launch 1 writes red' = e_r + P ec. Launch 2 is the stage's first black
-// half-sweep, which overwrites every live black slot from red' and r_b
-// alone, so the corrected black values are never needed: it writes black'
-// = the smoothed value there and e_b + 0 elsewhere. (The rect K4 has no
-// such shortcut: its black points recompute six neighbours'
-// interpolations.) The stage's other 2 n_iter - 1 half-sweeps are K7
-// launches on (red', black').
+// The stage is K7's tile body (stage_body in split.cuh, black first) with
+// one step more as each plane of both colours arrives in shared memory:
+// red' = e_r + P ec at the live interior slots (e_r + 0 elsewhere), black'
+// = e_b + 0, the plain version's e + where(live, P ec, 0) (so -0 becomes
+// +0). The first black half-sweep overwrites every live black slot from
+// red' and r_b alone, so e_b is loaded only where a slot is not live
+// (ProlongPrep::kFixedFirst). Interpolation in the Pallas kernel's order
+// (pallas_split.py:672-697): j, then i, then k. An even fine j or i copies the coincident
+// coarse value, an odd one averages its two coarse neighbours (0.5 a +
+// 0.5 b in j, as the MXU band product sums, 0.5 (a + b) in i); in k, slot
+// kk of a colour with parity p holds fine k = 2 kk + 1 + p, so p = 0
+// takes 0.5 (y[kk] + y[kk+1]) and p = 1 takes y[kk+1]. Each step rounds
+// once; the plain version takes the same steps in the same order, so the
+// two agree bit for bit. A lane forms y, the j-then-i interpolation, at
+// the 5 coarse k its 4 slots need, from coarse planes that stream through
+// a ring of 3 in shared memory beside the fine rings.
 //
-// Bound: device-memory bytes: launch 1 reads e_r and a red point's up to 8
-// coarse values (mostly L1/L2 hits) and writes red', 4 B per grid point;
-// launch 2 reads red' and r_b and writes black', 6 B per grid point.
+// Bound: device-memory bytes, those the function needs (chip_smoke.
+// split_stage_bytes, in 32-byte sectors): K7's, black first (the pair
+// written, e_r read whole, e_b where not live, rr and rb where live) plus
+// ec, 8.59 MB: 178.2 MB at 257^3, 0.0532 ms at 3.35 TB/s.
+// The design answers the same costs as K7's (rb_smooth_split.cu): one pass
+// instead of a correction launch, a black half-sweep launch and 2 n_iter -
+// 1 K7 launches (~515 MB at n_iter 2); neighbours from shared memory; one
+// launch a call. The coarse ring costs the fine tile 2 rows (10, not 12,
+// at 257^3), and the correction a pass over each arriving plane. n_iter >
+// 2 continues with ceil(n_iter / 2) - 1 K7 stage launches (black first),
+// counted as K10's.
+// nvcc -Xptxas -v (CUDA 12.8, sm_90a; launch bound 640 threads): the four
+// split_prolong_stage_kernel instantiations 86-95 registers, no spills;
+// shared memory all dynamic, the plan's (219,780 B at 257^3, n_iter 2).
 #include "split.cuh"
 
 namespace {
 
 using namespace mg::split;
 
-// (P ec) at slot kk of parity p in fine row (i, j): j, then i, then k.
-__device__ inline float interp(const float* __restrict__ ec, int nc, int i,
-                               int j, int kk, int p) {
+// (P ec) at slot kk of parity p in fine row (i, j): j, then i, then k;
+// get(ci, cj, ck) is the coarse value.
+template <class Get>
+__device__ inline float interp(const Get& get, int i, int j, int kk, int p) {
   const int ci0 = i >> 1, cj0 = j >> 1;
   const bool oi = i & 1, oj = j & 1;
   float yk[2];  // at coarse k = kk, kk + 1
@@ -45,59 +58,156 @@ __device__ inline float interp(const float* __restrict__ ec, int nc, int i,
 #pragma unroll
     for (int a = 0; a < 2; ++a) {
       if (a == 1 && !oi) break;
-      const float* col = ec + (ci0 + a) * nc * nc + (kk + b);  // stride nc in j
-      yi[a] = oj ? 0.5f * col[cj0 * nc] + 0.5f * col[(cj0 + 1) * nc] : col[cj0 * nc];
+      yi[a] = oj ? 0.5f * get(ci0 + a, cj0, kk + b) + 0.5f * get(ci0 + a, cj0 + 1, kk + b)
+                 : get(ci0 + a, cj0, kk + b);
     }
     yk[b] = oi ? 0.5f * (yi[0] + yi[1]) : yi[0];
   }
   return p == 0 ? 0.5f * (yk[0] + yk[1]) : yk[1];
 }
 
-__global__ void split_prolong_correct_red_kernel(float* __restrict__ out_r,
-                                                 const float* __restrict__ ec,
-                                                 const float* __restrict__ er,
-                                                 int n) {
-  const int S = slots(n);
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  int i, j, kk;
-  if (!decode(idx, n, S, i, j, kk)) return;
-  const int p = parity(i, j, kRed);
-  const float c = live_interior(i, j, kk, p, n) ? interp(ec, (n + 1) / 2, i, j, kk, p) : 0.0f;
-  out_r[idx] = er[idx] + c;
-}
+// Coarse tile rows and row width for a plan: the coarse rows ja >> 1 ..
+// jb >> 1 and coarse k ka .. kb that the loaded fine box interpolates from
+// (pallas_split._stage_smem plans with the same sizes).
+__host__ __device__ inline int coarse_rows(int bj, int H) { return (bj + 2 * H) / 2 + 2; }
+__host__ __device__ inline int coarse_width(int W) { return W + 1; }
 
-__global__ void split_black_sweep_kernel(float* __restrict__ out_b,
-                                         const float* __restrict__ red,
-                                         const float* __restrict__ eb,
-                                         const float* __restrict__ fb, int n,
-                                         float h2) {
-  const int S = slots(n);
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  int i, j, kk;
-  if (!decode(idx, n, S, i, j, kk)) return;
-  const int p = parity(i, j, kBlack);
-  out_b[idx] = live_interior(i, j, kk, p, n) ? sweep_value(red, fb, idx, n, S, kk, p, h2)
-                                             : eb[idx] + 0.0f;
+// The correction of each fine plane as it arrives (stage colour 0 is
+// black, 1 red): red' = e_r + P ec at the live interior slots, black' = e_b
+// + 0, over the whole loaded box. The coarse planes it interpolates from
+// stream through a ring of 3 in shared memory (4-byte cp.async: a coarse
+// row of nc floats is not 16-byte aligned), each copied with the first
+// fine plane that needs it: coarse c serves fine planes 2 c - 1 .. 2 c + 1.
+struct ProlongPrep {
+  static constexpr bool kActive = true;
+  static constexpr bool kFixedFirst = true;  // e_b only where a slot is not live
+  const float* ec;
+  int nc, rows, width;  // coarse field size; the tile's rows and row width
+  float* tile;
+  int cja;
+
+  __device__ float* plane(int c) const { return tile + (c % 3) * rows * width; }
+
+  __device__ void start(float* extra, const StageGeom& t) {
+    tile = extra;
+    cja = t.ja >> 1;
+  }
+
+  __device__ void load(int q, const StageGeom& t) const {
+    // fine plane q needs coarse q >> 1 and (q + 1) >> 1: the first plane
+    // loaded copies both, an odd one the second (an even one finds both)
+    if (q != t.ia && !(q & 1)) return;
+    const int c_lo = q == t.ia ? q >> 1 : (q + 1) >> 1, c_hi = (q + 1) >> 1;
+    const int cols = t.kb - t.ka + 1, count = ((t.jb >> 1) - cja + 1) * cols;
+    for (int c = c_lo; c <= c_hi; ++c) {
+      for (int v = threadIdx.x; v < count; v += blockDim.x) {
+        const int r = v / cols, k = v - r * cols;
+        cp_async4(plane(c) + r * width + k, ec + (c * nc + cja + r) * nc + t.ka + k);
+      }
+    }
+  }
+
+  __device__ float red(int q, int j, int kk, int p, const StageGeom& t) const {
+    if (!live_interior(q, j, kk, p, t.n)) return 0.0f;
+    const auto get = [&](int ci, int cj, int ck) {
+      return plane(ci)[(cj - cja) * width + (ck - t.ka)];
+    };
+    return interp(get, q, j, kk, p);
+  }
+
+  template <bool VEC>
+  __device__ void apply(float* black, float* red_tile, int q, const StageGeom& t) const {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+    for (int j = t.ja + warp; j < t.jb; j += nwarps) {
+      const int p = parity(q, j, kRed);
+      const int row = (j - t.jb0) * t.W - t.kb0;
+      if constexpr (VEC) {
+        // interior rows: the j-then-i interpolation y at coarse k = g ..
+        // g + 4 serves the lane's 4 slots (slot kk takes y at kk and kk + 1)
+        const bool inner = q >= 1 && q <= t.n - 2 && j >= 1 && j <= t.n - 2;
+        const int ci0 = q >> 1, cj0 = j >> 1;
+        const bool oi = q & 1, oj = j & 1;
+        const float* c0 = plane(ci0) + (cj0 - cja) * width - t.ka;
+        const float* c1 = plane(ci0 + 1) + (cj0 - cja) * width - t.ka;
+        for (int g = t.ka + 4 * lane; g < t.kb; g += 128) {
+          float corr[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          if (inner) {
+            float y[5];
+#pragma unroll
+            for (int m = 0; m < 5; ++m) {
+              const int k = g + m;
+              float yi[2];
+#pragma unroll
+              for (int a = 0; a < 2; ++a) {
+                if (a == 1 && !oi) break;
+                const float* c = a ? c1 : c0;
+                yi[a] = oj ? 0.5f * c[k] + 0.5f * c[width + k] : c[k];
+              }
+              y[m] = oi ? 0.5f * (yi[0] + yi[1]) : yi[0];
+            }
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              if (2 * (g + m) + 1 + p <= t.n - 2)
+                corr[m] = p == 0 ? 0.5f * (y[m] + y[m + 1]) : y[m + 1];
+            }
+          }
+          const float4 r = ld4(red_tile + row + g), b = ld4(black + row + g);
+          st4(red_tile + row + g,
+              make_float4(r.x + corr[0], r.y + corr[1], r.z + corr[2], r.w + corr[3]));
+          st4(black + row + g, make_float4(b.x + 0.0f, b.y + 0.0f, b.z + 0.0f, b.w + 0.0f));
+        }
+      } else {
+        for (int kk = t.ka + lane; kk < t.kb; kk += 32) {
+          red_tile[row + kk] = red_tile[row + kk] + red(q, j, kk, p, t);
+          black[row + kk] = black[row + kk] + 0.0f;
+        }
+      }
+    }
+  }
+};
+
+template <int NITER, bool VEC>
+__global__ void __launch_bounds__(kStageMaxThreads) split_prolong_stage_kernel(StageArgs a, ProlongPrep prep) {
+  extern __shared__ __align__(16) float tile[];
+  stage_body<NITER, VEC>(a, tile, prep);
 }
 
 }  // namespace
 
-// out_r <- e_r + P ec (the correction at live interior slots). out_r must
-// not alias e_r.
-extern "C" int mg_split_prolong_correct_red(float* out_r, const float* ec,
-                                            const float* er, int n,
-                                            cudaStream_t stream) {
-  split_prolong_correct_red_kernel<<<mg::split::slot_blocks(n), mg::kThreads, 0,
-                                     stream>>>(out_r, ec, er, n);
-  return (int)cudaGetLastError();
-}
-
-// out_b <- the black half-sweep of (red, black) at live interior slots,
-// e_b + 0 elsewhere. out_b must not alias e_b.
-extern "C" int mg_split_black_sweep(float* out_b, const float* red,
-                                    const float* eb, const float* fb, int n,
-                                    float h2, cudaStream_t stream) {
-  split_black_sweep_kernel<<<mg::split::slot_blocks(n), mg::kThreads, 0, stream>>>(
-      out_b, red, eb, fb, n, h2);
-  return (int)cudaGetLastError();
+// The K10 stage: (out_r, out_b) <- n_iter (1 or 2) black-first RB-GS
+// iterations of (e_r + P ec, e_b) against (rr, rb), on the plan (bi, bj,
+// bk, k_halo, threads, smem) of pallas_split._stage_plan. The outputs must
+// not alias the inputs.
+extern "C" int mg_split_prolong_stage(float* out_r, float* out_b, const float* ec,
+                                      const float* er, const float* eb, const float* rr,
+                                      const float* rb, int n, float h2, int n_iter, int bi,
+                                      int bj, int bk, int k_halo, int threads, int smem,
+                                      cudaStream_t stream) {
+  using namespace mg::split;
+  StageArgs a;
+  a.out[0] = out_b;
+  a.out[1] = out_r;
+  a.in[0] = eb;
+  a.in[1] = er;
+  a.f[0] = rb;
+  a.f[1] = rr;
+  a.color0 = kBlack;
+  a.n = n;
+  a.h2 = h2;
+  a.bi = bi;
+  a.bj = bj;
+  a.bk = bk;
+  a.k_halo = k_halo;
+  const int W = k_halo ? bk + 2 * k_halo : slots(n);
+  const int rows = coarse_rows(bj, 2 * n_iter), width = coarse_width(W);
+  if (const int err = stage_plan_error(a, n_iter, threads, smem - 3 * rows * width * 4))
+    return err;
+  const ProlongPrep prep{ec, (n + 1) / 2, rows, width, nullptr, 0};
+  const bool vec = stage_vec(a);
+  if (n_iter == 1) {
+    return vec ? launch_stage(split_prolong_stage_kernel<1, true>, a, threads, smem, stream, prep)
+               : launch_stage(split_prolong_stage_kernel<1, false>, a, threads, smem, stream, prep);
+  }
+  return vec ? launch_stage(split_prolong_stage_kernel<2, true>, a, threads, smem, stream, prep)
+             : launch_stage(split_prolong_stage_kernel<2, false>, a, threads, smem, stream, prep);
 }

@@ -1,0 +1,188 @@
+"""Trace the split-colour and the fused double-float 257^3 solves of one or
+more checkouts of the port, in turns on one card: two versions of the
+split-colour kernels compared within one call, with the fused solve,
+which runs none of them, as the control.
+
+    python -m multigrid_parallel_tpu_torch.utils.split_trace [ROOT ...] [--rounds R]
+
+Each ROOT is a directory that holds a ``multigrid_parallel_tpu_torch``
+package (default: this checkout). Round r runs every ROOT once, each in a
+process of its own (this file run as a script, the ROOT's package first
+on the path), in the order given on even rounds and reversed on odd ones:
+A B, B A, ... A process builds its checkout's kernels, solves each path
+twice to warm up, times ``--walls`` solves of each (host clock,
+interleaved, alternating which goes first), then takes ``--traces``
+torch.profiler traces of each solve and prints one JSON line: per path
+the outer steps, the median wall, and from the trace with the median busy
+time the device busy time (the union of kernel intervals), the kernel
+count, the span from the first kernel to the last, the idle share of that
+span, and each kernel name's summed ms, count and the device idle time
+just before its kernels (``idle_before``). The parent prints the
+lines as they come and the card's name and power limit.
+
+The problem is ``chip_smoke.py``'s main path: the quadratic Dirichlet
+problem at 257^3 (coarse_n 5, 7 levels), n_smooth 2, 4 inner V-cycles an
+outer step, rel_tol 1e-8 of the reference initial norm.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve()
+THIS_ROOT = HERE.parents[2]
+
+
+def kernel_intervals(fn):
+    """The device kernels of one call of fn, from a torch.profiler trace:
+    (start us, end us, name) sorted by start, the repo's kernels by their
+    demangled name. Defined here, not imported from the package, so that
+    it serves a checkout of any version."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            found = re.search(r"\d([a-z_]+_kernel)", e.name)
+            out.append((e.time_range.start, e.time_range.end,
+                        found.group(1) if found else e.name[:60]))
+    return sorted(out)
+
+
+def device_trace(fn):
+    """(busy ms, kernels, by_name, span ms) of one call of fn: the union
+    of the device's kernel intervals, their count, each kernel name's
+    summed ms and count, and the span from the first kernel's start to
+    the last one's end; (None, 0, {}, None) when the trace holds no device
+    events."""
+    return _summary(kernel_intervals(fn))
+
+
+def _summary(intervals):
+    if not intervals:
+        return None, 0, {}, None
+    by_name = {}
+    for a, b, name in intervals:
+        ms, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (b - a) / 1e3, count + 1)
+    busy, lo, hi = 0.0, intervals[0][0], intervals[0][1]
+    for a, b, _ in intervals[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    span = (hi - intervals[0][0]) / 1e3
+    return (busy + hi - lo) / 1e3, len(intervals), by_name, span
+
+
+def idle_before(intervals):
+    """Each kernel name's summed device idle time just before its kernels
+    start (ms): where the device waited for that kernel, the host's
+    launch or the SM's reconfiguration."""
+    out, hi = {}, None
+    for a, b, name in intervals:
+        if hi is not None and a > hi:
+            out[name] = out.get(name, 0.0) + (a - hi) / 1e3
+        hi = b if hi is None else max(hi, b)
+    return out
+
+
+def _child(root: Path, walls: int, traces: int) -> None:
+    sys.path[0] = str(root)  # the script's own directory: the ROOT's package instead
+    import torch
+
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch import cycles_padded as cp
+    from multigrid_parallel_tpu_torch import cycles_split as cs
+    from multigrid_parallel_tpu_torch.ops import _build
+
+    if Path(mg.__file__).resolve().parents[1] != root:
+        raise RuntimeError(f"imported {mg.__file__}, not the package under {root}")
+    _build.build()
+    _build.load()
+    dev = torch.device("cuda")
+    prob = mg.poisson_3d_quadratic()
+    hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7)
+    cfg = mg.CycleConfig(n_smooth=2)
+    init = cp.ref_init_norm(prob, hier, dev)
+    kw = dict(rel_tol=1e-8, max_cycles=40, inner_cycles=4, init_norm=init, device=dev)
+    split = cs.make_split_df_solver(hier, cfg, **kw)
+    split_state = cs.setup_split_df_problem(prob, hier, dev)
+    fused = cp.make_on_device_df_solver(hier, cfg, fused=True, **kw)
+    fused_state = cp.setup_df_problem(prob, hier, dev)
+    solves = {"split": lambda: split(*split_state), "fused": lambda: fused(*fused_state)}
+    result = {"root": str(root)}
+    for label, solve in solves.items():
+        solve()
+        result[label] = {"outer_steps": int(solve()[-1])}
+    torch.cuda.synchronize()
+    times = {label: [] for label in solves}
+    for rep in range(walls):
+        for label in solves if rep % 2 == 0 else reversed(list(solves)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solves[label]()
+            torch.cuda.synchronize()
+            times[label].append(1e3 * (time.perf_counter() - t0))
+    for label, solve in solves.items():
+        runs = []
+        for _ in range(traces):
+            intervals = kernel_intervals(solve)
+            runs.append(_summary(intervals) + (idle_before(intervals),))
+        runs.sort(key=lambda r: float("inf") if r[0] is None else r[0])
+        busy, n_kernels, by_name, span, idle = runs[len(runs) // 2]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
+        result[label].update({
+            "wall_ms_median": statistics.median(times[label]),
+            "busy_ms": busy, "kernels": n_kernels, "span_ms": span,
+            "idle_share": None if busy is None else 1 - busy / span,
+            "busy_ms_all": [r[0] for r in runs],
+            "by_name": {name: [round(ms, 4), count, round(idle.get(name, 0.0), 4)]
+                        for name, (ms, count) in top},
+        })
+    print(json.dumps(result), flush=True)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("roots", nargs="*", type=Path, default=[THIS_ROOT])
+    parser.add_argument("--rounds", type=int, default=2)
+    parser.add_argument("--walls", type=int, default=9)
+    parser.add_argument("--traces", type=int, default=3)
+    parser.add_argument("--child", type=Path, help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    if args.child is not None:
+        _child(args.child.resolve(), args.walls, args.traces)
+        return 0
+    try:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True)
+        print(f"[card] {card.stdout.strip() or card.stderr.strip()}", flush=True)
+    except OSError as err:
+        print(f"[card] nvidia-smi: {err}", flush=True)
+    roots = [r.resolve() for r in args.roots]
+    for rnd in range(args.rounds):
+        for root in roots if rnd % 2 == 0 else roots[::-1]:
+            run = subprocess.run([sys.executable, str(HERE), "--child", str(root),
+                                  "--walls", str(args.walls), "--traces", str(args.traces)],
+                                 cwd=root, capture_output=True, text=True)
+            lines = run.stdout.strip().splitlines()
+            if run.returncode or not lines:
+                print(run.stdout[-4000:], run.stderr[-4000:], sep="\n", file=sys.stderr)
+                return run.returncode or 1
+            print(f"[round {rnd}] {lines[-1]}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -209,12 +209,15 @@ def profile_splitcolor_stage(n: int = 257, n_iter: int = 2, reps: int = 20, devi
     ``pallas3d.rb_smooth_fused``, on the (n, n, n) cube), the packed
     split-colour stage (K42, ``pallas_splitcolor.rb_smooth_split_fused``,
     on (n, 2 n, (n - 1) // 2)), the pair stage (K7,
-    ``pallas_split.rb_smooth_split``) and ``torch.add(u2, f2, out=w)``,
-    which reads u2 and f2 and writes one array of their size: the bytes
-    of a one-pass stage (the script's identity-DMA floor). Inputs are
-    seeded as the script seeds them: ``default_rng(0)``, standard-normal
-    interiors of u and then f, zero boundaries. Each stage updates its
-    own copy of u in place, call after call. On a CUDA device each row is
+    ``pallas_split.rb_smooth_split``, one one-pass launch), the pair stage
+    in K7's per-sweep form (``pallas_split.rb_smooth_split_per_sweep``,
+    one launch a half-sweep) and ``torch.add(u2, f2, out=w)``, which reads
+    u2 and f2 and writes one array of their size: the bytes of a one-pass
+    stage (the script's identity-DMA floor). Inputs are seeded as the
+    script seeds them: ``default_rng(0)``, standard-normal interiors of u
+    and then f, zero boundaries. Each stage but K7 updates its own copy of
+    u in place, call after call; K7 smooths its pair into a fresh one, the
+    next call's input. On a CUDA device each row is
     the median over ``reps`` rounds of the CUDA-event time of one call,
     after one warm-up call each; with ``device="cpu"`` the plain versions
     run and the host clock times them. The script's chain-slope mode
@@ -240,15 +243,23 @@ def profile_splitcolor_stage(n: int = 257, n_iter: int = 2, reps: int = 20, devi
         cubes.append(torch.from_numpy(x).to(dev))
     u, f = cubes
     u2, f2 = psc.pack_split(u), psc.pack_split(f)
-    (er, eb), rhs = ps.pack_split(u), ps.pack_split(f)
+    rhs = ps.pack_split(f)
+    pair = list(ps.pack_split(u))
+    per_sweep = ps.pack_split(u)
     w = torch.empty_like(u2)
+
+    def k7():
+        pair[:] = ps.rb_smooth_split(*pair, *rhs, h, n_iter, True)
     stages = (
         (f"rect stage (K1, {2 * n_iter} half-sweeps)",
          lambda: pk.rb_smooth_fused(u, f, h, n_iter, red_first=True), (u, f, u)),
         (f"packed stage (K42, {2 * n_iter} half-sweeps)",
          lambda: psc.rb_smooth_split_fused(u2, f2, h, n_iter, n, red_first=True), (u2, f2, u2)),
-        (f"pair stage (K7, {2 * n_iter} half-sweeps)",
-         lambda: ps.rb_smooth_split(er, eb, *rhs, h, n_iter, True), (er, eb, *rhs, er, eb)),
+        (f"pair stage (K7, {2 * n_iter} half-sweeps, one launch)",
+         k7, (*pair, *rhs, *pair)),
+        (f"pair stage, one launch a half-sweep (K7's per-sweep form, {2 * n_iter} launches)",
+         lambda: ps.rb_smooth_split_per_sweep(*per_sweep, *rhs, h, n_iter, True),
+         (*per_sweep, *rhs, *per_sweep)),
         ("same-bytes floor (torch.add(u2, f2, out=w))",
          lambda: torch.add(u2, f2, out=w), (u2, f2, w)),
     )

@@ -13,8 +13,9 @@ kernels K34-K36 likewise against their plain versions and K13-K15, with
 the sharded electrospray solve on one NCCL rank against the full tier,
 and the (i, j)-sharded kernels K37-K41 on four simulated 2x2 blocks
 against their plain versions and K1-K5, with the 2D solver on one NCCL
-rank against the fused single-device solve, and the packed split-colour
-stage K42 against its plain version.
+rank against the fused single-device solve, the packed split-colour
+stage K42 against its plain version, and the one-pass split stages K7
+and K10 against theirs at 9^3-257^3 (one launch a call).
 
 These need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 themselves where there is none. The file imports no jax, so on a machine
@@ -230,10 +231,120 @@ def test_split_kernels_match_plain_on_card(cuda):
     r12 = tps.residual_df_norm_split(*got[:4], *f_hi, *f_lo, h)
     assert torch.equal(r12[0], got[4]) and torch.equal(r12[1], got[5])
     assert float(r12[2]) == float(got[6])
-    # one launch per half-sweep (K10: 2 n_iter + 1), orders x n_iter = 1, 2
-    assert tps.LAUNCHES == {"rb_smooth_split": 12, "rb_smooth_split_from_zero": 12,
-                            "residual_restrict_split": 1, "prolong_smooth_split": 3 + 5,
+    # K7 and K10 one launch a call at n_iter <= 2 (orders x n_iter = 1, 2 and
+    # n_iter = 1, 2); K8 one launch a half-sweep
+    assert tps.LAUNCHES == {"rb_smooth_split": 4, "rb_smooth_split_from_zero": 12,
+                            "residual_restrict_split": 1, "prolong_smooth_split": 2,
                             "df_step_split": 1, "residual_df_norm_split": 2}
+
+
+def _random_pairs(seed, n, dev, count):
+    """``count`` split pairs random at every slot, boundary rows and dead
+    slots too: what a stage keeps there must come from its input."""
+    rng = np.random.default_rng(seed)
+    shape = tps.split_shape(n)
+    return [tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+                  for _ in range(2)) for _ in range(count)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data", ["invariant", "random"])
+@pytest.mark.parametrize("n", [9, 11, 17, 33, 65, 257, 513])
+def test_split_stages_match_plain_on_card(cuda, n, data):
+    """The one-pass stages K7 and K10 bit for bit against their plain
+    versions (n = 11: 5 slots a row, the 4-byte copy path; 257: the main
+    path's plan; 513: k tiles at n_iter 2), n_iter 1-3, both orders of K7,
+    on pairs that keep the pair invariant and on pairs random everywhere;
+    one launch a call at n_iter <= 2, two at 3; and K7's per-sweep form
+    likewise, 2 n_iter launches counted apart."""
+    h = 1.0 / (n - 1)
+    e, r = (_split_pairs if data == "invariant" else _random_pairs)(20 + n, n, cuda, 2)
+    ec = _fields32(21 + n, (n + 1) // 2, cuda)[0]
+    if n == 513:
+        assert tps._stage_plan(n, 2, tps._sms(torch.cuda.current_device())).k_halo > 0
+    for n_iter in (1, 2, 3):
+        calls = 1 if n_iter <= 2 else 2
+        for red_first in (True, False):
+            want = tps.rb_smooth_split_plain(*e, *r, h, n_iter, red_first)
+            tps.reset_launches()
+            got = tps.rb_smooth_split(*e, *r, h, n_iter, red_first)
+            assert tps.LAUNCHES["rb_smooth_split"] == calls
+            assert _bitwise_pair(got, want), (n_iter, red_first)
+            mine = tuple(x.clone() for x in e)
+            tps.rb_smooth_split_per_sweep(*mine, *r, h, n_iter, red_first)
+            assert tps.PER_SWEEP_LAUNCHES["rb_smooth_split_per_sweep"] == 2 * n_iter
+            assert tps.LAUNCHES["rb_smooth_split"] == calls
+            assert _bitwise_pair(mine, want), (n_iter, red_first)
+        want = tps.prolong_smooth_split_plain(ec, *e, *r, h, n_iter)
+        tps.reset_launches()
+        got = tps.prolong_smooth_split(ec, *e, *r, h, n_iter)
+        assert tps.LAUNCHES["prolong_smooth_split"] == calls
+        assert tps.LAUNCHES["rb_smooth_split"] == 0
+        assert _bitwise_pair(got, want), n_iter
+
+
+def _stage_on_plan(plan, e, r, h, red_first=False, ec=None):
+    """One launch of the K7 stage (or, given ec, the K10 one) on a plan of
+    the caller's, into a fresh pair."""
+    out = [torch.empty_like(x) for x in e]
+    ptrs = [x.data_ptr() for x in (*out, *(() if ec is None else (ec,)), *e, *r)]
+    args = (plan.n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem,
+            tps._stream())
+    lib = tps._lib()
+    if ec is None:
+        err = lib.mg_split_stage(*ptrs, plan.n, h * h, int(red_first), *args)
+    else:
+        err = lib.mg_split_prolong_stage(*ptrs, plan.n, h * h, *args)
+    assert err == 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bk", [4, 12])
+@pytest.mark.parametrize("n", [33, 35])
+def test_split_stages_on_k_tiles_on_card(cuda, n, bk):
+    """K7 and K10 on plans that tile k (4-slot k halo; n = 33: 16 slots a
+    row, 16-byte copies, region edges inside a 4-slot group; 35: 17 slots,
+    4-byte copies; bk = 12 leaves a short last tile), 8 rows by 9 planes a
+    block, on pairs random everywhere: bit for bit against the plain
+    versions."""
+    h = 1.0 / (n - 1)
+    s = tps.split_shape(n)[2]
+    e, r = _random_pairs(40 + n + bk, n, cuda, 2)
+    ec = _fields32(41 + n, (n + 1) // 2, cuda)[0]
+    for n_iter in (1, 2):
+        halo = 2 * n_iter
+        width = bk + 2 * tps.STAGE_K_HALO
+        plan = tps.StagePlan(n, n_iter, halo, tps.STAGE_K_HALO, 9, 8, bk, 32 * (8 + 2 * halo),
+                             tps._stage_smem(n_iter, 8, width))
+        assert plan.tiles[2] == -(-s // bk) > 1
+        for red_first in (True, False):
+            got = _stage_on_plan(plan, e, r, h, red_first)
+            want = tps.rb_smooth_split_plain(*e, *r, h, n_iter, red_first)
+            assert _bitwise_pair(got, want), (n_iter, red_first)
+        plan = plan._replace(smem=tps._stage_smem(n_iter, 8, width, prolong=True))
+        got = _stage_on_plan(plan, e, r, h, ec=ec)
+        assert _bitwise_pair(got, tps.prolong_smooth_split_plain(ec, *e, *r, h, n_iter)), n_iter
+
+
+@pytest.mark.cuda
+def test_split_stage_leaves_its_inputs_untouched(cuda):
+    """K7 returns a fresh pair: its inputs (and K10's) are as they were."""
+    n = 33
+    h = 1.0 / (n - 1)
+    e, r = _split_pairs(22, n, cuda, 2)
+    ec = _fields32(23, (n + 1) // 2, cuda)[0]
+    before = [x.clone() for x in (*e, *r, ec)]
+    got = tps.rb_smooth_split(*e, *r, h, 2, True)
+    got10 = tps.prolong_smooth_split(ec, *e, *r, h, 2)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((*e, *r, ec), before))
+    assert all(g.data_ptr() not in {x.data_ptr() for x in (*e, *r)} for g in (*got, *got10))
+    assert not _bitwise_pair(got, e)
+
+
+def _bitwise_pair(got, want):
+    return all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda
