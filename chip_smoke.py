@@ -44,7 +44,9 @@ which fails the run:
      and K21-K25 on them packed into pairs, and K19 and K24 once more at
      17^3, where the pin-edge delta is live) and time both (CUDA events,
      median of 20); K26 against K1 + R timed in the same call, and
-     residual_norm_fused (R and a sum) against its plain version;
+     residual_norm_fused (R and a sum) against its plain version; K2 and
+     K4 (one-pass stages) once more at 129^3, n_iter 1-3, timed at n_iter 2
+     beside the bound from the bytes a call needs;
   3. solve 33^3 on the CPU (plain versions) and on the card (kernels),
      unfused, fused, fused with FMG and split: same outer-step count,
      solutions within 1e-8; the electrospray full, fold and split tiers
@@ -54,8 +56,9 @@ which fails the run:
   4. solve 257^3 on each Dirichlet path with every launch count reset
      just before and read just after, then check the outer-step count,
      the final relative residual, the error against the analytic solution
-     and that the path launched exactly its kernels (the split solve its
-     one-pass stages exactly 3 K7 and 4 K10 launches an outer step); time
+     and that the path launched exactly its kernels (the one-pass stages
+     exactly: the split solve 3 K7, 4 K10, 20 K2 and 20 K4 launches an
+     outer step, the fused one 21 K2 and 24 K4); time
      each solve (warm-up, median of 5); the split solution against the
      fused one;
   5. time the split and fused 257^3 solves interleaved run by run in
@@ -329,8 +332,8 @@ PATH_KERNELS = {
     "fmg_fused": _FUSED_DF,
     "mixed_pallas": _FUSED_CYCLE,  # its f64 outer residual is plain torch
     # the finest level on pairs, the levels below on the fused cycle. Those
-    # are always entered from a zero correction (gamma 1), so the K1
-    # half-sweep kernel runs there only inside K2 and K4, counted as theirs.
+    # are always entered from a zero correction (gamma 1), so K1 makes no
+    # launch there.
     "split": ("rb_smooth_from_zero_fused", "residual_restrict_fused", "prolong_smooth_fused",
               "rb_smooth_split", "rb_smooth_split_from_zero", "residual_restrict_split",
               "prolong_smooth_split", "df_step_split", "residual_df_norm_split"),
@@ -348,6 +351,16 @@ FOLD_KERNELS = ("mixed_rb_smooth_fold", "mixed_rb_smooth_from_zero_fold", "resid
 # outer residual is K25, not K20)
 MSPLIT_KERNELS = ("mixed_rb_smooth_from_zero_msplit", "residual_restrict_msplit",
                   "mixed_prolong_smooth_msplit", "residual_df_norm_msplit") + FOLD_KERNELS[:4]
+# the one-pass stages' calls an outer step of 4 inner V-cycles at 257^3 (7
+# levels, coarse_n 5), one launch each: the split path's 3 K7 and 4 K10 on
+# the finest level, K2 and K4 on the 5 rect levels 129^3 .. 9^3; the fused
+# path's K2 on the finest level's first cycle and on the levels below
+# (1 + 5 x 4), and K4 on all 6 levels (6 x 4)
+STAGE_CALLS = {
+    "split": {"rb_smooth_split": 3, "prolong_smooth_split": 4,
+              "rb_smooth_from_zero_fused": 20, "prolong_smooth_fused": 20},
+    "fused": {"rb_smooth_from_zero_fused": 21, "prolong_smooth_fused": 24},
+}
 INTERLEAVED = 9  # 257^3 solves of each of two paths, in phases 5, 7 and 8
 REF_ERR_TOL = 5e-9  # f64 reference solve at 257^3: the C reference's L2 error is 2.81e-9
 # the 50^3 study on K1 in f32: the spread of the last 20 per-iteration
@@ -732,6 +745,32 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
         compare_fold(pm, pmf, es, n, h_es, u, r0, ec, es_state, dev, record, timed=True)
         compare_msplit(pm, pmf, pms, ps, es, n, h_es, u, r0, ec, es_state, dev, record,
                        timed=True)
+
+    # K2 and K4 at 129^3, the largest rect level of the split path: n_iter
+    # 1-3 (n_iter 3: two launches) against their plain versions, timed at
+    # the main path's n_iter 2 beside the bound from the bytes a call needs
+    n = 129
+    h = 1.0 / (n - 1)
+    rng = np.random.default_rng(n)
+    u, f, ec = (torch.from_numpy(rng.standard_normal((m, m, m)).astype(np.float32)).to(dev)
+                for m in (n, n, (n + 1) // 2))
+    for n_iter in (1, 2, 3):
+        for red_first in (True, False):
+            record("rb_smooth_from_zero_fused", n, f"n_iter={n_iter}_red_first={red_first}",
+                   pk.rb_smooth_from_zero_fused(f, h, n_iter, red_first),
+                   pk.rb_smooth_from_zero_plain(f, h, n_iter, red_first))
+        record("prolong_smooth_fused", n, f"n_iter={n_iter}",
+               pk.prolong_smooth_fused(ec, u, f, h, n_iter),
+               pk.prolong_smooth_plain(ec, u, f, h, n_iter))
+    for name, kernel, plain, io in (
+            ("rb_smooth_from_zero_fused", lambda: pk.rb_smooth_from_zero_fused(f, h, 2, True),
+             lambda: pk.rb_smooth_from_zero_plain(f, h, 2, True), ((f,), (f,))),
+            ("prolong_smooth_fused", lambda: pk.prolong_smooth_fused(ec, u, f, h, 2),
+             lambda: pk.prolong_smooth_plain(ec, u, f, h, 2), ((ec, u, f), (u,)))):
+        at = dict(zip(("ms", "plain_ms"), (time_ms(kernel), time_ms(plain))))
+        at["bound_ms"], at["bound_by"] = bound(name, n ** 3, *io)
+        print(f"[kernel] {name:26s} n={n:3d} n_iter=2 kernel_ms={at['ms']:.4f} "
+              f"plain_ms={at['plain_ms']:.4f} bound_ms={at['bound_ms']:.4f} ({at['bound_by']})")
 
     # K19 and K24 where the pin-edge delta is live: 17^3, coarse level 9^3
     n = 17
@@ -2207,8 +2246,11 @@ def predicted_launches(hier, tiers, steps, inner_cycles, n_smooth=2):
     per V-cycle and level, 2 n_smooth smoothing launches, one residual +
     restriction, 2 n_smooth prolongation + smoothing launches; the
     replicated tail runs the single-device cycle (K2-K4) on each of its
-    levels above the coarse LU; one K41 per outer step and one before."""
+    levels above the coarse LU, whose K2 and K4 are one-pass stages:
+    ceil(n_smooth / 2) launches a call; one K41 per outer step and one
+    before."""
     cycles, hs = steps * inner_cycles, 2 * n_smooth
+    stage = -(-n_smooth // 2)  # K2's and K4's launches a call
     out = dict.fromkeys(SOURCES, 0)
     top = hier.num_levels - 1
     for depth, (n, tier) in enumerate(sorted(tiers.items(), reverse=True)):
@@ -2219,12 +2261,13 @@ def predicted_launches(hier, tiers, steps, inner_cycles, n_smooth=2):
         else:
             continue
         smooth, smooth0, rr, ps = TIER_KERNELS[tier]
+        per_call = stage if tier == "replicated" else hs
         for m in levels:
             first = depth == 0 and m == n
-            out[smooth0] += hs * (steps if first else cycles)
+            out[smooth0] += per_call * (steps if first else cycles)
             out[smooth] += hs * (cycles - steps) if first else 0
             out[rr] += cycles
-            out[ps] += hs * cycles
+            out[ps] += per_call * cycles
     out["residual_df_norm_seg2d"] = steps + 1
     return out
 
@@ -2678,10 +2721,10 @@ def main():
             check(ran == (name in PATH_KERNELS[label]),
                   f"{label}: kernel {name} launched {counts[name]} times in the {n}^3 solve")
             launches[name] += counts[name]
-        if label == "split":  # one-pass stages: one launch a call, 3 K7 and 4 K10 calls a step
-            for name, calls in (("rb_smooth_split", 3), ("prolong_smooth_split", 4)):
+        if label in STAGE_CALLS:  # one-pass stages: one launch a call (n_smooth 2)
+            for name, calls in STAGE_CALLS[label].items():
                 check(counts[name] == calls * it,
-                      f"split: {name} launched {counts[name]} times, {calls} x {it} expected")
+                      f"{label}: {name} launched {counts[name]} times, {calls} x {it} expected")
         walls = []
         for _ in range(5):
             torch.cuda.synchronize()

@@ -13,6 +13,10 @@ plain C interface, loaded with ``ctypes``:
 a separate IEEE rounding, so the kernels match their plain PyTorch
 versions bit for bit and the EFT two-sum chains stay exact.
 
+``python -m multigrid_parallel_tpu_torch.ops._build --ptxas rb_smooth.cu
+...`` compiles the named sources with the same flags and ``-Xptxas -v``
+and prints each kernel's registers, stack frame and spill bytes.
+
 The library is built at first use into ``multigrid_parallel_tpu_torch/
 _build/`` (listed in .gitignore), named by a hash of the sources and the
 flags, so an edited source rebuilds and an unchanged one loads at once.
@@ -26,6 +30,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -53,7 +58,6 @@ _SIGNATURES = {
     "mg_residual_restrict": (_P, _P, _P, _I, _F, _P),
     "mg_rb_last_sweep_residual": (_P, _P, _P, _I, _F, _F, _I, _P),
     "mg_residual_df": (_P, _P, _P, _P, _P, _I, _F, _P),
-    "mg_prolong_correct_black": (_P, _P, _P, _P, _I, _F, _P),
     "mg_df_step_partials": (_I,),
     "mg_df_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
     "mg_split_half_sweep": (_P, _P, _P, _I, _F, _I, _I, _P),
@@ -63,6 +67,9 @@ _SIGNATURES = {
     # (bi, bj, bk, k_halo, threads, smem), stream
     "mg_split_stage": (_P,) * 6 + (_I, _F, _I, _I) + (_I,) * 6 + (_P,),
     "mg_split_prolong_stage": (_P,) * 7 + (_I, _F, _I) + (_I,) * 6 + (_P,),
+    # the rect stages: the plan, then its box flag
+    "mg_rect_stage": (_P,) * 3 + (_I, _F, _I, _I) + (_I,) * 7 + (_P,),
+    "mg_rect_prolong_stage": (_P,) * 4 + (_I, _F, _I) + (_I,) * 7 + (_P,),
     "mg_split_df_partials": (_I,),
     "mg_split_residual_df_norm": (_P,) * 12 + (_I, _F, _P),
     "mg_split_df_step": (_P,) * 18 + (_I, _F, _P),
@@ -181,3 +188,37 @@ def load() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def ptxas_report(names) -> str:
+    """ptxas's resource lines (registers, stack frame, spills) of each
+    kernel of the named ``csrc`` sources, compiled with the build's flags
+    and ``-Xptxas -v``; mangled names demangled where cu++filt is found."""
+    nvcc = _nvcc()
+    filt = Path(nvcc).with_name("cu++filt")
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in names:
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(Path(tmp) / "k.o"),
+                   str(_CSRC / name)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+            for line in (proc.stdout + proc.stderr).splitlines():
+                if "entry function" in line or "registers" in line or "spill" in line:
+                    found = re.search(r"'(_Z\w+)'", line)
+                    if found and filt.exists():
+                        name_d = subprocess.run([str(filt), found.group(1)], capture_output=True,
+                                                text=True).stdout.strip()
+                        line = line.replace(found.group(1), name_d)
+                    lines.append(f"{name}: {line.strip()}")
+    return "\n".join(lines)
+
+
+if __name__ == "__main__":
+    import sys
+
+    if len(sys.argv) < 3 or sys.argv[1] != "--ptxas":
+        sys.exit("usage: python -m multigrid_parallel_tpu_torch.ops._build --ptxas SOURCE.cu ...")
+    print(ptxas_report(sys.argv[2:]))

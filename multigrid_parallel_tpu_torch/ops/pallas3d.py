@@ -10,12 +10,12 @@ and its CUDA source in ops/csrc/:
   K1  rb_smooth_fused             rb_smooth_fused_pipelined,      rb_smooth.cu
                                   rb_smooth_fused_padded, and the
                                   cube wrapper rb_smooth_fused
-  K2  rb_smooth_from_zero_fused   rb_smooth_from_zero_fused       rb_smooth.cu
+  K2  rb_smooth_from_zero_fused   rb_smooth_from_zero_fused       rb_smooth.cu, rect.cuh
   R   residual_fused              residual_fused_pipelined,       residual.cu
                                   residual_fused_padded, and the
                                   cube wrapper residual_fused
   K3  residual_restrict_fused     residual_restrict_fused_padded  residual_restrict.cu
-  K4  prolong_smooth_fused        prolong_smooth_fused_padded     prolong_smooth.cu
+  K4  prolong_smooth_fused        prolong_smooth_fused_padded     prolong_smooth.cu, rect.cuh
   K5  residual_df_norm_fused      residual_df_norm_fused_padded   residual_df_norm.cu
   K6  df_step_residual_norm_fused df_step_residual_norm_fused     df_step.cu
   K26 rb_smooth_residual_fused    rb_smooth_residual_fused_padded rb_smooth_residual.cu
@@ -25,15 +25,19 @@ The JAX package's single-buffered and pipelined Pallas forms of K1 and R
 differ only in how the TPU overlaps its DMAs, so one Hopper kernel
 serves both. ``residual_norm_fused`` is R and then a torch sum, as the
 JAX function takes its norm outside the kernel. (K5, K6 and K27 share
-the double-float arithmetic of eft.cuh; K4 and K26 finish or start their
-stage with K1 half-sweeps.) Fields are plain contiguous (n, n, n)
+the double-float arithmetic of eft.cuh; K26 starts its stage with K1
+half-sweeps.) K2 and K4 are one-pass stage kernels (rect.cuh): one launch
+runs all 2 n_iter <= 4 half-sweeps of a stage on tiles in shared memory
+(``pallas_split._stage_plan`` with ``rect=True`` cuts the level into
+blocks) and writes a fresh field. Fields are plain contiguous (n, n, n)
 tensors: the port has none of the TPU's lane padding. A wrapper takes
 the plain version for a tensor on the CPU, launches its kernel for a
 CUDA tensor (float32, contiguous, cubic), and raises for anything else:
 there is no fallback from the kernel to the plain version. Each kernel
 launch adds one to its entry in ``LAUNCHES`` (the launch of K5 or K6 is
-the pair: per-block partials, then their sum; each K1 half-sweep that K4
-or K26 runs counts as a K4 or K26 launch).
+the pair: per-block partials, then their sum; each K1 half-sweep that K26
+runs counts as a K26 launch; a K2 or K4 call makes ceil(n_iter / 2)
+launches).
 """
 
 from __future__ import annotations
@@ -145,23 +149,36 @@ def rb_smooth_fused(u, f, h: float, n_iter: int, red_first: bool = True):
 
 
 def rb_smooth_from_zero_fused(f, h: float, n_iter: int, red_first: bool = True):
-    """rb_smooth_fused from an implicit zero initial guess: the first
-    half-sweep reads only f and writes the whole (new) output, whose
-    boundary is zero."""
+    """rb_smooth_fused from an implicit zero initial guess, as a fresh
+    field whose boundary is zero. The CUDA form is one one-pass launch of
+    the rect stage (rect.cuh) for n_iter <= 2, its tile starting as zeros;
+    ceil(n_iter / 2) in all, each later one the same stage on the field so
+    far, all counted as K2 launches."""
+    if n_iter < 1:
+        raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     if not _on_cuda(f):
         return rb_smooth_from_zero_plain(f, h, n_iter, red_first)
-    lib, stream, n, h2 = _lib(), _stream(), f.shape[0], h * h
+    from multigrid_parallel_tpu_torch.ops import pallas_split as ps
+
+    lib, stream, h2 = _lib(), _stream(), h * h
+    u = None
+    for chunk in ps._stage_chunks(n_iter):
+        u = _rect_stage_launch(lib, u, f, h2, chunk, red_first, stream,
+                               "rb_smooth_from_zero_fused")
+    return u
+
+
+def _rect_stage_launch(lib, u, f, h2, n_iter, red_first, stream, name):
+    """One launch of the rect stage (K2's kernel) on ``u`` (None: a zero
+    initial guess) against f into a fresh field, counted as ``name``'s."""
+    from multigrid_parallel_tpu_torch.ops import pallas_split as ps
+
+    n = f.shape[0]
     out = torch.empty_like(f)
-    first, second = _colors(red_first)
-    _check(lib.mg_rb_half_sweep_from_zero(out.data_ptr(), f.data_ptr(), n, h2,
-                                          first, stream),
-           "rb_smooth_from_zero_fused")
-    LAUNCHES["rb_smooth_from_zero_fused"] += 1
-    sweeps = [second] + list(_colors(red_first)) * (n_iter - 1)
-    for c in sweeps:
-        _check(lib.mg_rb_half_sweep(out.data_ptr(), f.data_ptr(), n, h2, c,
-                                    stream), "rb_smooth_from_zero_fused")
-        LAUNCHES["rb_smooth_from_zero_fused"] += 1
+    _check(lib.mg_rect_stage(out.data_ptr(), None if u is None else u.data_ptr(),
+                             f.data_ptr(), n, h2, int(red_first),
+                             *ps._plan_args(n, n_iter, f.device, rect=True), stream), name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -302,23 +319,26 @@ def prolong_smooth_plain(ec, e, r, h: float, n_iter: int):
 def prolong_smooth_fused(ec, e, r, h: float, n_iter: int):
     """rb_smooth(e + P ec, r, h, n_iter, black first) as a fresh field (e
     is left as it is): the post-smoothing stage of a V-cycle level, with
-    the coarse correction ec interpolated and added in its first launch.
-    The CUDA form is one K4 launch (correction + first black half-sweep)
-    and 2 * n_iter - 1 K1 half-sweeps, all counted as K4 launches."""
+    the coarse correction ec interpolated and added. The CUDA form is one
+    one-pass launch for n_iter <= 2 (e + P ec made as each plane reaches
+    shared memory); a larger n_iter goes on with launches of K2's stage
+    kernel on the field so far, black first, counted as K4's."""
     if n_iter < 1:
         raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     if not _on_cuda(e, r, coarse=ec):
         return prolong_smooth_plain(ec, e, r, h, n_iter)
+    from multigrid_parallel_tpu_torch.ops import pallas_split as ps
+
     lib, stream, n, h2 = _lib(), _stream(), e.shape[0], h * h
+    first, *rest = ps._stage_chunks(n_iter)
     out = torch.empty_like(e)
-    _check(lib.mg_prolong_correct_black(out.data_ptr(), ec.data_ptr(), e.data_ptr(),
-                                        r.data_ptr(), n, h2, stream),
+    _check(lib.mg_rect_prolong_stage(out.data_ptr(), ec.data_ptr(), e.data_ptr(), r.data_ptr(),
+                                     n, h2, *ps._plan_args(n, first, e.device, prolong=True,
+                                                           rect=True), stream),
            "prolong_smooth_fused")
     LAUNCHES["prolong_smooth_fused"] += 1
-    for c in [RED] + [BLACK, RED] * (n_iter - 1):
-        _check(lib.mg_rb_half_sweep(out.data_ptr(), r.data_ptr(), n, h2, c, stream),
-               "prolong_smooth_fused")
-        LAUNCHES["prolong_smooth_fused"] += 1
+    for chunk in rest:
+        out = _rect_stage_launch(lib, out, r, h2, chunk, False, stream, "prolong_smooth_fused")
     return out
 
 

@@ -237,16 +237,23 @@ SM_SMEM = 233_472    # an SM's shared memory; each block also reserves 1,024 B
 STAGE_MIN_PLANES = 16  # planes a block owns at least (its i halo is 2 n_iter a side)
 STAGE_K_HALO = 4       # slots a k tile reads past its own on each side (>= 2 n_iter)
 STAGE_MAX_THREADS = 640  # the stage kernels' launch bound (split.cuh, kStageMaxThreads)
+RECT_ROW_PAD = 4         # tile columns before slot 0 of a whole rect row (rect.cuh, kRowPad)
+RECT_BOX_MAX_N = 129     # rect levels up to this size take the box schedule (rect.cuh, box_body)
+RECT_MAX_THREADS = 576   # the rect stage kernels' launch bound (rect.cuh, kStageMaxThreads)
+RECT_REGISTERS = 112     # registers a thread of theirs may take under it (65,536 an SM)
 
 
 class StagePlan(NamedTuple):
-    """How one launch of the stage kernel (split.cuh, stage_body) cuts a
-    split level: blocks own boxes of ``bi`` planes x ``bj`` rows x ``bk``
-    slots of both colours, tiles numbered k fastest, then j, then i, and
-    read ``halo`` = 2 n_iter planes and rows and ``k_halo`` slots (0 when
-    a block holds whole rows) past their box on each side, clipped to the
-    field. ``smem`` is the bytes of shared memory a block takes: a ring of
-    tile planes for each colour (``_stage_smem``)."""
+    """How one launch of a stage kernel (split.cuh or rect.cuh, stage_body)
+    cuts a split level (or, ``rect``, a plain one, its rows held as two
+    colours of n // 2 slots): blocks own boxes of ``bi`` planes x ``bj``
+    rows x ``bk`` slots of both colours, tiles numbered k fastest, then j,
+    then i, and read ``halo`` = 2 n_iter planes and rows and ``k_halo``
+    slots (0 when a block holds whole rows) past their box on each side,
+    clipped to the field. ``smem`` is the bytes of shared memory a block
+    takes: a ring of tile planes for each colour (``_stage_smem``), or,
+    ``box``, all bi + 2 halo planes of its loaded box (rect.cuh, box_body:
+    the half-sweeps one after another, not as a wavefront)."""
     n: int
     n_iter: int
     halo: int
@@ -256,11 +263,13 @@ class StagePlan(NamedTuple):
     bk: int
     threads: int
     smem: int
+    rect: bool = False
+    box: bool = False
 
     @property
     def tiles(self):
         """(planes, rows, slots): the number of boxes along each axis."""
-        s = split_shape(self.n)[2]
+        s = _slots(self.n, self.rect)
         return (-(-self.n // self.bi), -(-self.n // self.bj), -(-s // self.bk))
 
     @property
@@ -269,24 +278,61 @@ class StagePlan(NamedTuple):
         return ni * nj * nk
 
 
-def _stage_smem(n_iter: int, bj: int, width: int, prolong: bool = False) -> int:
+def _stage_smem(n_iter: int, bj: int, width: int, prolong: bool = False,
+                rect: bool = False, box_bi: int = 0) -> int:
     """Shared-memory bytes of a block of bj rows of ``width`` slots: for
     each colour a ring of 2 H + 3 tile planes of bj + 2 H rows, H = 2 n_iter
-    (split.cuh, stage_depth); K10 (``prolong``) adds a ring of 3 coarse
-    planes of (bj + 2 H) / 2 + 2 rows of width + 1 values
-    (prolong_smooth_split.cu). The launchers compute the same bytes
-    (split.cuh, stage_smem_bytes; coarse_rows and coarse_width) and reject
-    a plan that differs: a change to a ring is made in both."""
+    (split.cuh, stage_depth), or, for a box of ``box_bi`` planes, its bi +
+    2 H planes; K10 (``prolong``) adds a ring of 3 coarse planes of (bj +
+    2 H) / 2 + 2 rows of width + 1 values (prolong_smooth_split.cu), K4
+    (``prolong`` and ``rect``) of width + 4, the box's (bi + 2 H) / 2 + 2
+    planes of them (prolong_smooth.cu). The launchers compute the same bytes
+    (split.cuh and rect.cuh, stage_smem_bytes; coarse_rows, coarse_width
+    and coarse_planes) and reject a plan that differs: a change to a ring
+    is made in both."""
     halo = 2 * n_iter
-    extra = 3 * ((bj + 2 * halo) // 2 + 2) * (width + 1) * 4 if prolong else 0
-    return 2 * (2 * halo + 3) * (bj + 2 * halo) * width * 4 + extra
+    planes, coarse = ((box_bi + 2 * halo, (box_bi + 2 * halo) // 2 + 2) if box_bi
+                      else (2 * halo + 3, 3))
+    coarse_width = width + (4 if rect else 1)
+    extra = coarse * ((bj + 2 * halo) // 2 + 2) * coarse_width * 4 if prolong else 0
+    return 2 * planes * (bj + 2 * halo) * width * 4 + extra
+
+
+def _stage_width(n: int, bk: int, k_halo: int, rect: bool = False) -> int:
+    """Slots of a tile row: a k tile with its halos, or a whole row (of a
+    rect level, its slots rounded up to 4 and 4 more before slot 0, the
+    last of which holds k = 0: rect.cuh, tile_width)."""
+    if k_halo:
+        return bk + 2 * k_halo
+    s = _slots(n, rect)
+    return -(-s // 4) * 4 + RECT_ROW_PAD if rect else s
+
+
+def _row_lanes(swept: int) -> int:
+    """Lanes a rect stage gives a tile row whose sweep spans ``swept``
+    slots: the fewest, a power of 2 up to 32, that cover its 4-slot groups
+    in one pass (rect.cuh, row_lanes); a warp sweeps 32 / that rows at
+    once."""
+    lanes = 1
+    while lanes < 32 and 4 * lanes < swept:
+        lanes *= 2
+    return lanes
+
+
+def _slots(n: int, rect: bool = False) -> int:
+    """Slots of a colour in a row: (n - 1) // 2 on a split level, n // 2 on
+    a rect one (where the colour holding the even k's also holds k = 0)."""
+    return n // 2 if rect else split_shape(n)[2]
 
 
 @functools.lru_cache(maxsize=None)
-def _stage_plan(n: int, n_iter: int, sms: int, prolong: bool = False) -> StagePlan:
+def _stage_plan(n: int, n_iter: int, sms: int, prolong: bool = False,
+                rect: bool = False) -> StagePlan:
     """The plan of one stage launch of n_iter (1 or 2) iterations on an n^3
-    split level for a card of ``sms`` SMs, within ``SMEM_MAX`` bytes of
-    shared memory a block. Over the
+    split level (``rect``: a plain level, K2's and K4's stage) for a card of
+    ``sms`` SMs, within ``SMEM_MAX`` bytes of shared memory a block: a rect
+    level up to ``RECT_BOX_MAX_N`` takes the box (``_box_plan``), every
+    other the wavefront (``_wave_plan``). Over the
     k tilings (whole rows, or any count of tiles of a multiple of 4 slots
     with a ``STAGE_K_HALO`` halo) and the row counts that fit, the plan
     whose estimated time is least: the tile slots read per slot owned (rows
@@ -297,33 +343,50 @@ def _stage_plan(n: int, n_iter: int, sms: int, prolong: bool = False) -> StagePl
     least ``STAGE_MIN_PLANES`` planes, as many as fill one wave at the
     occupancy that the shared memory and threads allow (at most 2 blocks
     an SM). A warp a tile row, at most ``STAGE_MAX_THREADS`` threads. K10's
-    plan (``prolong``) counts its coarse ring."""
+    and K4's plans (``prolong``) count their coarse ring. A rect plan's
+    tile rows are 16-byte aligned whatever n is, its warps sweep 32 /
+    ``_row_lanes`` rows at once, at most ``RECT_MAX_THREADS`` threads, and
+    it tiles k only where whole rows fit fewer than 8 rows a block."""
     if n_iter not in (1, 2):
         raise ValueError(f"a stage launch runs 1 or 2 iterations, got {n_iter}")
-    s = split_shape(n)[2]
+    if rect and n <= RECT_BOX_MAX_N:
+        return _box_plan(n, n_iter, sms, prolong)
+    return _wave_plan(n, n_iter, sms, prolong, rect)
+
+
+def _wave_plan(n: int, n_iter: int, sms: int, prolong: bool, rect: bool) -> StagePlan:
+    """``_stage_plan``'s wavefront plan (every split level, rect levels
+    past ``RECT_BOX_MAX_N``)."""
+    s = _slots(n, rect)
     halo = 2 * n_iter
     best = None
     for nk in range(1, max(1, s // 4) + 1):
         if nk == 1:
             bk, k_halo = s, 0
+        elif rect and best is not None and best[1].bj >= 8:
+            break  # rect: k tiles only where whole rows fit few rows a block
         else:
             bk = -(-(-(-s // nk)) // 4) * 4
             if bk >= s or -(-s // bk) != nk:
                 continue
             k_halo = STAGE_K_HALO
-        width = bk + 2 * k_halo
-        lane_slots = 128 if s % 4 == 0 else 32  # slots a warp sweeps at once
-        waste = -(-width // lane_slots) * lane_slots / width
+        width = _stage_width(n, bk, k_halo, rect)
+        swept = width - RECT_ROW_PAD if rect and not k_halo else width  # slots a sweep spans
+        lanes = _row_lanes(swept) if rect else 32  # a tile row's lanes (32 / lanes rows a warp)
+        lane_slots = 4 * lanes if rect else 128 if s % 4 == 0 else 32  # slots a row's pass sweeps
+        waste = -(-swept // lane_slots) * lane_slots / swept
         for bj in range(1, n + 1):
-            smem = _stage_smem(n_iter, bj, width, prolong)
+            smem = _stage_smem(n_iter, bj, width, prolong, rect)
             if smem > SMEM_MAX:
                 break
             nj = -(-n // bj)
             if -(-n // nj) != bj:  # only evened-out row tiles
                 continue
             rows = min(n, bj + 2 * halo)
-            nthreads = 32 * max(1, min(STAGE_MAX_THREADS // 32, rows))
-            per_sm = min(2, SM_SMEM // (smem + 1024), 2048 // nthreads)
+            nthreads = 32 * max(1, min((RECT_MAX_THREADS if rect else STAGE_MAX_THREADS) // 32,
+                                       -(-rows * lanes // 32)))
+            per_sm = min(2, SM_SMEM // (smem + 1024), 2048 // nthreads,
+                         65536 // (nthreads * RECT_REGISTERS) if rect else 2)
             if per_sm < 1:
                 break
             ni = max(1, min(-(-n // STAGE_MIN_PLANES), per_sm * sms // (nj * nk)))
@@ -333,7 +396,48 @@ def _stage_plan(n: int, n_iter: int, sms: int, prolong: bool = False) -> StagePl
             read = rows / bj * min(s, width) / bk * (bi + 6 * n_iter) / bi
             est = read * waste * -(-blocks // sms) / blocks
             if best is None or est < best[0] * (1 - 1e-9):
-                best = (est, StagePlan(n, n_iter, halo, k_halo, bi, bj, bk, nthreads, smem))
+                best = (est, StagePlan(n, n_iter, halo, k_halo, bi, bj, bk, nthreads, smem,
+                                       rect))
+    return best[1]
+
+
+BOX_ROW_LATENCY = 10  # a warp's pass over its tile rows, in units of one tile row's work
+
+
+def _box_plan(n: int, n_iter: int, sms: int, prolong: bool) -> StagePlan:
+    """The box plan of a small rect level (rect.cuh, box_body): whole rows,
+    bi planes x bj rows a block, the pair whose estimated time is least
+    (more blocks on a tie), within ``SMEM_MAX``. A block of the field's
+    middle makes a pass over its loaded tile rows, one over each
+    half-sweep's region (the loaded box shrunk by s, clipped to the
+    interior) and one to store, its warps sweeping 32 / lanes rows at once
+    (``_row_lanes``): a pass takes the longer of its warps' chain
+    (``BOX_ROW_LATENCY``) and the row work of the blocks that share an SM,
+    in waves of the blocks the SMs hold at once."""
+    s, halo = _slots(n, True), 2 * n_iter
+    width = _stage_width(n, s, 0, True)
+    per_warp = 32 // _row_lanes(s)
+    evened = [b for b in range(1, n + 1) if -(-n // -(-n // b)) == b]
+    best = None
+    for bi in evened:
+        for bj in evened:
+            smem = _stage_smem(n_iter, bj, width, prolong, True, box_bi=bi)
+            if smem > SMEM_MAX:
+                continue
+            loaded = min(n, bi + 2 * halo) * min(n, bj + 2 * halo)
+            warps = max(1, min(RECT_MAX_THREADS // 32, -(-loaded // per_warp)))
+            per_sm = min(16, SM_SMEM // (smem + 1024), 65536 // (32 * warps * RECT_REGISTERS))
+            blocks = -(-n // bi) * -(-n // bj)
+            waves = -(-blocks // (per_sm * sms))
+            sharing = min(per_sm, -(-blocks // sms))
+            regions = [min(n - 2, bi + 2 * (halo - lvl)) * min(n - 2, bj + 2 * (halo - lvl))
+                       for lvl in range(1, halo + 1)]
+            passes = [loaded] + regions + [bi * bj]
+            est = waves * sum(max(BOX_ROW_LATENCY * -(-rows // (warps * per_warp)),
+                                  rows * sharing / per_warp) for rows in passes)
+            if best is None or (est, -blocks) < best[0]:
+                best = ((est, -blocks), StagePlan(n, n_iter, halo, 0, bi, bj, s, 32 * warps,
+                                                  smem, True, True))
     return best[1]
 
 
@@ -349,15 +453,17 @@ def _stage_chunks(n_iter: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_args_on(n: int, n_iter: int, index: int, prolong: bool):
-    plan = _stage_plan(n, n_iter, _sms(index), prolong=prolong)
-    return (n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem)
+def _plan_args_on(n: int, n_iter: int, index: int, prolong: bool, rect: bool):
+    plan = _stage_plan(n, n_iter, _sms(index), prolong=prolong, rect=rect)
+    args = (n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem)
+    return args + (int(plan.box),) if rect else args
 
 
-def _plan_args(n: int, n_iter: int, device, prolong: bool = False):
-    """The launcher's n_iter and plan arguments on ``device``."""
+def _plan_args(n: int, n_iter: int, device, prolong: bool = False, rect: bool = False):
+    """The launcher's n_iter and plan arguments on ``device`` (the rect
+    launchers' with the plan's box flag last)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return _plan_args_on(n, n_iter, index, prolong)
+    return _plan_args_on(n, n_iter, index, prolong, rect)
 
 
 def _stage_launch(lib, er, eb, fr, fb, h2, n_iter, red_first, stream, name):

@@ -16,8 +16,10 @@ torch.profiler traces of each solve and prints one JSON line: per path
 the outer steps, the median wall, and from the trace with the median busy
 time the device busy time (the union of kernel intervals), the kernel
 count, the span from the first kernel to the last, the idle share of that
-span, and each kernel name's summed ms, count and the device idle time
-just before its kernels (``idle_before``). The parent prints the
+span, each kernel name's summed ms, count and the device idle time
+just before its kernels (``idle_before``), and each K1, K2 and K4 call's
+device time by level (``stage_calls``: the one-pass form's kernel, or the
+first form's head kernel and its K1 half-sweeps). The parent prints the
 lines as they come and the card's name and power limit.
 
 The problem is ``chip_smoke.py``'s main path: the quadratic Dirichlet
@@ -33,6 +35,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -40,23 +43,39 @@ HERE = Path(__file__).resolve()
 THIS_ROOT = HERE.parents[2]
 
 
+# the chrome export's categories of device work: kernels, copies, fills
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
 def kernel_intervals(fn):
-    """The device kernels of one call of fn, from a torch.profiler trace:
-    (start us, end us, name) sorted by start, the repo's kernels by their
-    demangled name. Defined here, not imported from the package, so that
-    it serves a checkout of any version."""
+    """The device kernels (and copies and fills) of one call of fn, from a
+    torch.profiler trace: (start us, end us, name, shape) sorted by start,
+    a kernel by its function's name, its shape the grid and the shared
+    memory from the trace's chrome export (() where the export holds no
+    device events, and the times then from the profiler's events). Defined
+    here, not imported from the package, so that it serves a checkout of
+    any version."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    out = []
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            found = re.search(r"\d([a-z_]+_kernel)", e.name)
-            out.append((e.time_range.start, e.time_range.end,
-                        found.group(1) if found else e.name[:60]))
+
+    def short(name):
+        found = re.search(r"([a-z_]+_kernel)(?![a-z_])", name)
+        return found.group(1) if found else name[:60]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    out = [(e["ts"], e["ts"] + e["dur"], short(e["name"]),
+            tuple(e.get("args", {}).get("grid", ())) + (e.get("args", {}).get("shared memory"),))
+           for e in events if e.get("cat") in DEVICE_CATS and "dur" in e]
+    if not out:
+        out = [(e.time_range.start, e.time_range.end, short(e.name), ())
+               for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     return sorted(out)
 
 
@@ -73,11 +92,11 @@ def _summary(intervals):
     if not intervals:
         return None, 0, {}, None
     by_name = {}
-    for a, b, name in intervals:
+    for a, b, name, *_ in intervals:
         ms, count = by_name.get(name, (0.0, 0))
         by_name[name] = (ms + (b - a) / 1e3, count + 1)
     busy, lo, hi = 0.0, intervals[0][0], intervals[0][1]
-    for a, b, _ in intervals[1:]:
+    for a, b, *_ in intervals[1:]:
         if a > hi:
             busy, lo = busy + hi - lo, a
         hi = max(hi, b)
@@ -90,10 +109,67 @@ def idle_before(intervals):
     start (ms): where the device waited for that kernel, the host's
     launch or the SM's reconfiguration."""
     out, hi = {}, None
-    for a, b, name in intervals:
+    for a, b, name, *_ in intervals:
         if hi is not None and a > hi:
             out[name] = out.get(name, 0.0) + (a - hi) / 1e3
         hi = b if hi is None else max(hi, b)
+    return out
+
+
+# K1, K2 and K4, the rect smoothing stages: their kernels in the one-pass
+# form (rect.cuh) and in the first form, a head kernel and K1 half-sweeps
+STAGE_KERNELS = {"rect_stage_kernel": "K2", "rect_prolong_stage_kernel": "K4",
+                 "rb_half_sweep_from_zero_kernel": "K2", "prolong_correct_black_kernel": "K4",
+                 "rb_half_sweep_kernel": "K1"}
+
+
+def stage_calls(intervals, sizes, n_smooth=2):
+    """Each K1, K2 and K4 call's device time: a call in the first form is
+    its head kernel and the K1 half-sweeps that follow it, 2 n_smooth
+    kernels in all (a half-sweep that follows none heads a K1 call); in the
+    one-pass form its one kernel. ``sizes`` maps (kernel name, shape) to
+    the level's n (a shape without its shared memory where the trace has
+    none). Returns {"K4 n=257": [calls, summed ms, median ms a call],
+    ...}."""
+    groups, first_form = [], False  # first_form: the last kernel was part of a first-form call
+    for a, b, name, grid in intervals:
+        if name == "rb_half_sweep_kernel" and first_form and groups[-1][3] < 2 * n_smooth:
+            groups[-1][2].append((b - a) / 1e3)
+            groups[-1][3] += 1
+        elif name in STAGE_KERNELS:
+            groups.append([name, grid, [(b - a) / 1e3], 1])
+            first_form = not name.startswith("rect_")
+        else:
+            first_form = False
+    out = {}
+    for name, grid, parts, _ in groups:
+        n = sizes.get((name, grid), sizes.get((name, grid[:-1]), grid))
+        key = f"{STAGE_KERNELS[name]} n={n}"
+        out.setdefault(key, []).append(sum(parts))
+    return {key: [len(v), round(sum(v), 4), round(statistics.median(v), 4)]
+            for key, v in sorted(out.items())}
+
+
+def _stage_sizes(hier, sms):
+    """(kernel name, shape) -> n for the stage kernels of each level, the
+    shape the grid and the shared memory and, for a trace without the
+    latter, the grid alone: the one-pass ones from their plans (where the
+    package has them), the first forms from their one thread a point."""
+    from multigrid_parallel_tpu_torch.ops import pallas_split as ps
+
+    out = {}
+    for n in hier.sizes:
+        for name in ("rb_half_sweep_from_zero_kernel", "prolong_correct_black_kernel",
+                     "rb_half_sweep_kernel"):
+            out[(name, (-(-n ** 3 // 256), 1, 1, 0))] = n
+            out[(name, (-(-n ** 3 // 256), 1, 1))] = n
+        for name, prolong in (("rect_stage_kernel", False), ("rect_prolong_stage_kernel", True)):
+            try:
+                plan = ps._stage_plan(n, 2, sms, prolong=prolong, rect=True)
+            except TypeError:  # a checkout without the one-pass rect stages
+                continue
+            out[(name, (plan.blocks, 1, 1, plan.smem))] = n
+            out[(name, (plan.blocks, 1, 1))] = n
     return out
 
 
@@ -121,6 +197,7 @@ def _child(root: Path, walls: int, traces: int) -> None:
     fused = cp.make_on_device_df_solver(hier, cfg, fused=True, **kw)
     fused_state = cp.setup_df_problem(prob, hier, dev)
     solves = {"split": lambda: split(*split_state), "fused": lambda: fused(*fused_state)}
+    sizes = _stage_sizes(hier, torch.cuda.get_device_properties(0).multi_processor_count)
     result = {"root": str(root)}
     for label, solve in solves.items():
         solve()
@@ -138,9 +215,10 @@ def _child(root: Path, walls: int, traces: int) -> None:
         runs = []
         for _ in range(traces):
             intervals = kernel_intervals(solve)
-            runs.append(_summary(intervals) + (idle_before(intervals),))
+            runs.append(_summary(intervals) + (idle_before(intervals),
+                                               stage_calls(intervals, sizes)))
         runs.sort(key=lambda r: float("inf") if r[0] is None else r[0])
-        busy, n_kernels, by_name, span, idle = runs[len(runs) // 2]
+        busy, n_kernels, by_name, span, idle, calls = runs[len(runs) // 2]
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
         result[label].update({
             "wall_ms_median": statistics.median(times[label]),
@@ -149,6 +227,7 @@ def _child(root: Path, walls: int, traces: int) -> None:
             "busy_ms_all": [r[0] for r in runs],
             "by_name": {name: [round(ms, 4), count, round(idle.get(name, 0.0), 4)]
                         for name, (ms, count) in top},
+            "stage_calls": calls,
         })
     print(json.dumps(result), flush=True)
 

@@ -14,8 +14,10 @@ the sharded electrospray solve on one NCCL rank against the full tier,
 and the (i, j)-sharded kernels K37-K41 on four simulated 2x2 blocks
 against their plain versions and K1-K5, with the 2D solver on one NCCL
 rank against the fused single-device solve, the packed split-colour
-stage K42 against its plain version, and the one-pass split stages K7
-and K10 against theirs at 9^3-257^3 (one launch a call).
+stage K42 against its plain version, the one-pass split stages K7
+and K10 against theirs at 9^3-257^3 (one launch a call), and the
+one-pass rect stages K2 and K4 against theirs at 9^3-513^3 and on hand
+plans (one launch a call).
 
 These need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 themselves where there is none. The file imports no jax, so on a machine
@@ -86,9 +88,10 @@ def test_kernels_match_plain_on_card(cuda, n):
     r_ref, nrm2_ref = tpk.residual_df_norm_plain(*state, h)
     assert torch.equal(r, r_ref)
     assert float(nrm2) == pytest.approx(float(nrm2_ref), rel=1e-5)
-    # one launch per half-sweep: 2 colours x (1 + 2 + 3) iterations x 2 orders
+    # K1: one launch per half-sweep, 2 colours x (1 + 2 + 3) iterations x 2
+    # orders; K2: one one-pass launch per 2 iterations, (1 + 1 + 2) x 2 orders
     assert tpk.LAUNCHES == {**dict.fromkeys(tpk.KERNELS, 0),
-                            "rb_smooth_fused": 24, "rb_smooth_from_zero_fused": 24,
+                            "rb_smooth_fused": 24, "rb_smooth_from_zero_fused": 8,
                             "residual_fused": 1, "residual_df_norm_fused": 1}
 
 
@@ -125,10 +128,110 @@ def test_fused_kernels_match_plain_on_card(cuda, n):
     # K5 on the updated pair gives K6's residual and norm bit for bit
     r5, nrm5 = tpk.residual_df_norm_fused(got[0], got[1], f_hi, f_lo, h)
     assert torch.equal(r5, got[2]) and float(nrm5) == float(got[3])
-    # K4: one correction launch + 2 n_iter - 1 half-sweeps, n_iter = 1, 2
+    # K4: one one-pass launch a call at n_iter = 1, 2
     assert tpk.LAUNCHES == {**dict.fromkeys(tpk.KERNELS, 0),
-                            "residual_restrict_fused": 1, "prolong_smooth_fused": 2 + 4,
+                            "residual_restrict_fused": 1, "prolong_smooth_fused": 1 + 1,
                             "df_step_residual_norm_fused": 1, "residual_df_norm_fused": 1}
+
+
+def _rect_fields(seed, n, dev, count):
+    """``count`` fields random at every point, the boundary too: what a
+    stage keeps there must come from its input."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((n, n, n)).astype(np.float32)).to(dev)
+            for _ in range(count)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [9, 16, 17, 33, 65, 129, 257, 513])
+def test_rect_stages_match_plain_on_card(cuda, n):
+    """The one-pass stages K2 and K4 bit for bit against their plain
+    versions (9-129: the box schedule; 257, 513: the wavefront, 257 the main
+    path's plan; 513: k tiles at n_iter 2; 16: an even size, K2 only),
+    n_iter 1-3, both orders of K2, on fields random everywhere; one launch
+    a call at n_iter <= 2, two at 3; fresh outputs, e, r and ec
+    untouched."""
+    h = 1.0 / (n - 1)
+    e, r = _rect_fields(60 + n, n, cuda, 2)
+    plan = tps._stage_plan(n, 2, tps._sms(torch.cuda.current_device()), rect=True)
+    assert plan.box == (n <= tps.RECT_BOX_MAX_N) and (plan.k_halo > 0) == (n == 513)
+    for n_iter in (1, 2, 3):
+        calls = 1 if n_iter <= 2 else 2
+        for red_first in (True, False):
+            want = tpk.rb_smooth_from_zero_plain(r, h, n_iter, red_first)
+            tpk.reset_launches()
+            got = tpk.rb_smooth_from_zero_fused(r, h, n_iter, red_first)
+            assert tpk.LAUNCHES == {**dict.fromkeys(tpk.KERNELS, 0),
+                                    "rb_smooth_from_zero_fused": calls}
+            assert torch.equal(got, want), (n_iter, red_first)
+        if n % 2 == 0:
+            continue
+        ec = _rect_fields(61 + n, (n + 1) // 2, cuda, 1)[0]
+        before = [x.clone() for x in (e, r, ec)]
+        want = tpk.prolong_smooth_plain(ec, e, r, h, n_iter)
+        tpk.reset_launches()
+        got = tpk.prolong_smooth_fused(ec, e, r, h, n_iter)
+        assert tpk.LAUNCHES == {**dict.fromkeys(tpk.KERNELS, 0), "prolong_smooth_fused": calls}
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip((e, r, ec), before))
+        assert got.data_ptr() not in {x.data_ptr() for x in (e, r, ec)}
+        assert torch.equal(got, want), n_iter
+
+
+def _rect_stage_on_plan(plan, f, h, red_first=True, u=None, ec=None):
+    """One launch of the K2 stage (on u, or from zero) or, given ec, of the
+    K4 one (u is e) on a plan of the caller's, into a fresh field."""
+    out = torch.empty_like(f)
+    args = (plan.n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem,
+            int(plan.box), tpk._stream())
+    lib = tpk._lib()
+    if ec is None:
+        err = lib.mg_rect_stage(out.data_ptr(), None if u is None else u.data_ptr(),
+                                f.data_ptr(), plan.n, h * h, int(red_first), *args)
+    else:
+        err = lib.mg_rect_prolong_stage(out.data_ptr(), ec.data_ptr(), u.data_ptr(),
+                                        f.data_ptr(), plan.n, h * h, *args)
+    assert err == 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("box", [False, True], ids=["wave", "box"])
+@pytest.mark.parametrize("bk", [0, 4, 12])
+@pytest.mark.parametrize("n", [11, 33, 35])
+def test_rect_stages_on_hand_plans_on_card(cuda, n, bk, box):
+    """K2's stage (from zero and on an initial guess) and K4's on plans of
+    8 rows by 9 planes a block, on the wavefront and on the box: whole rows
+    (bk = 0; n = 11 and 35: a row's n // 2 slots not a multiple of 4) and k
+    tiles of 4 or 12 slots with the 4-slot k halo (12 leaves a short last
+    tile), on fields random everywhere: bit for bit against the plain
+    versions; a plan whose shared memory is not the kernel's is refused."""
+    h = 1.0 / (n - 1)
+    s = n // 2
+    if bk >= s:
+        pytest.skip("a k tile as wide as the row is the whole-row plan")
+    e, r = _rect_fields(70 + n + bk, n, cuda, 2)
+    ec = _rect_fields(71 + n, (n + 1) // 2, cuda, 1)[0]
+    for n_iter in (1, 2):
+        halo, k_halo = 2 * n_iter, tps.STAGE_K_HALO if bk else 0
+        width = tps._stage_width(n, bk or s, k_halo, rect=True)
+        box_bi = 9 if box else 0
+        plan = tps.StagePlan(n, n_iter, halo, k_halo, 9, 8, bk or s, 32 * (8 + 2 * halo),
+                             tps._stage_smem(n_iter, 8, width, rect=True, box_bi=box_bi), True,
+                             box)
+        assert plan.tiles[2] == (-(-s // bk) if bk else 1)
+        for red_first in (True, False):
+            got = _rect_stage_on_plan(plan, r, h, red_first)
+            assert torch.equal(got, tpk.rb_smooth_from_zero_plain(r, h, n_iter, red_first))
+            got = _rect_stage_on_plan(plan, r, h, red_first, u=e)
+            assert torch.equal(got, tpk.rb_smooth_plain(e, r, h, n_iter, red_first))
+        k4 = plan._replace(smem=tps._stage_smem(n_iter, 8, width, prolong=True, rect=True,
+                                                box_bi=box_bi))
+        got = _rect_stage_on_plan(k4, r, h, u=e, ec=ec)
+        assert torch.equal(got, tpk.prolong_smooth_plain(ec, e, r, h, n_iter)), n_iter
+        bad = plan._replace(smem=plan.smem + 16)
+        with pytest.raises(AssertionError):
+            _rect_stage_on_plan(bad, r, h)
 
 
 @pytest.mark.cuda
@@ -401,8 +504,8 @@ def test_split_solve_65_on_card_matches_fused(cuda):
     assert min(tps.LAUNCHES.values()) > 0
     assert tpk.LAUNCHES["residual_fused"] == tpk.LAUNCHES["residual_df_norm_fused"] == 0
     assert tpk.LAUNCHES["df_step_residual_norm_fused"] == 0
-    # the rect levels are entered from a zero correction: K2, K3, K4 (whose
-    # K1 half-sweeps count as theirs), no K1 launch of its own
+    # the rect levels are entered from a zero correction: K2, K3, K4, no K1
+    # launch
     assert tpk.LAUNCHES["rb_smooth_fused"] == 0
     assert min(tpk.LAUNCHES[k] for k in ("rb_smooth_from_zero_fused",
                                          "residual_restrict_fused",

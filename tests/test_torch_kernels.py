@@ -217,8 +217,8 @@ def test_build_flags_and_library_name():
     names = {p.name for p in _build._sources()}
     assert {"rb_smooth.cu", "residual.cu", "residual_df_norm.cu", "residual_restrict.cu",
             "prolong_smooth.cu", "df_step.cu", "rb_smooth_residual.cu", "eft.cuh",
-            "stencil.cuh"} <= names
-    assert {"mg_residual_restrict", "mg_prolong_correct_black", "mg_df_step",
+            "stencil.cuh", "rect.cuh"} <= names
+    assert {"mg_residual_restrict", "mg_rect_stage", "mg_rect_prolong_stage", "mg_df_step",
             "mg_df_step_partials", "mg_rb_last_sweep_residual",
             "mg_residual_df"} <= set(_build._SIGNATURES)
     # no kernel source leans on a library for the work its TPU kernel does

@@ -22,3 +22,28 @@ def test_summary_and_idle_before():
 def test_summary_of_an_empty_trace():
     assert st._summary([]) == (None, 0, {}, None)
     assert st.idle_before([]) == {}
+
+
+def test_stage_calls_group_each_form_by_level():
+    """A K2 call of the first form is its from-zero kernel and the K1
+    half-sweeps after it, a K4 call its correction kernel and its three;
+    half-sweeps that follow neither (another kernel between) head K1 calls;
+    a one-pass call is its one kernel; the level from the (name, grid,
+    shared memory) map, the grid alone where the trace has no shared
+    memory."""
+    from multigrid_parallel_tpu_torch.hierarchy import Hierarchy
+    from multigrid_parallel_tpu_torch.ops import pallas_split as tps
+
+    sizes = st._stage_sizes(Hierarchy(ndim=3, coarse_n=5, num_levels=5), 132)
+    g = {n: (-(-n ** 3 // 256), 1, 1, 0) for n in (9, 65)}
+    half = [(10 * i, 10 * i + 2, "rb_half_sweep_kernel", g[65]) for i in range(1, 8)]
+    plan = tps._stage_plan(9, 2, 132, prolong=True, rect=True)
+    intervals = ([(0, 5, "rb_half_sweep_from_zero_kernel", g[65])] + half[:3]
+                 + [(35, 39, "prolong_correct_black_kernel", g[9])] + half[3:6]
+                 + [(64, 65, "residual_restrict_kernel", ())] + half[6:]
+                 + [(90, 93, "rect_prolong_stage_kernel", (plan.blocks, 1, 1, plan.smem)),
+                    (95, 96, "rect_prolong_stage_kernel", (plan.blocks, 1, 1))])
+    got = st.stage_calls(sorted(intervals), sizes)
+    assert got == {"K1 n=65": [1, pytest.approx(0.002), pytest.approx(0.002)],
+                   "K2 n=65": [1, pytest.approx(0.011), pytest.approx(0.011)],
+                   "K4 n=9": [3, pytest.approx(0.014), pytest.approx(0.003)]}
