@@ -43,10 +43,14 @@ which fails the run:
      fold kernels K16-K20 on the same fields packed into the fold layout
      and K21-K25 on them packed into pairs, and K19 and K24 once more at
      17^3, where the pin-edge delta is live) and time both (CUDA events,
-     median of 20); K26 against K1 + R timed in the same call, and
-     residual_norm_fused (R and a sum) against its plain version; K2 and
-     K4 (one-pass stages) once more at 129^3, n_iter 1-3, timed at n_iter 2
-     beside the bound from the bytes a call needs;
+     median of 20); K1 (a one-pass stage) timed beside its per-sweep form
+     (one launch a half-sweep) in the same call, at 65^3 and 257^3 and at
+     every level of the main path, 9^3-257^3 (CUDA events, and device time
+     a call from a trace of 20 calls); K26 against K1 + R timed in
+     the same call, and residual_norm_fused (R and a sum) against its plain
+     version; K1, K2 and K4 (one-pass stages) once more at 129^3, n_iter
+     1-3, K2 and K4 timed at n_iter 2 beside the bound from the bytes a
+     call needs;
   3. solve 33^3 on the CPU (plain versions) and on the card (kernels),
      unfused, fused, fused with FMG and split: same outer-step count,
      solutions within 1e-8; the electrospray full, fold and split tiers
@@ -57,8 +61,9 @@ which fails the run:
      just before and read just after, then check the outer-step count,
      the final relative residual, the error against the analytic solution
      and that the path launched exactly its kernels (the one-pass stages
-     exactly: the split solve 3 K7, 4 K10, 20 K2 and 20 K4 launches an
-     outer step, the fused one 21 K2 and 24 K4); time
+     exactly: the split solve 1 K8, 3 K7, 4 K10, 20 K2 and 20 K4 launches
+     an outer step, the fused one 3 K1, 21 K2 and 24 K4, the unfused one
+     27 K1 and 21 K2); time
      each solve (warm-up, median of 5); the split solution against the
      fused one;
   5. time the split and fused 257^3 solves interleaved run by run in
@@ -87,7 +92,7 @@ which fails the run:
      device-busy time; (b) MultigridSolver at 257^3 to convergence, saved
      and restored, three more cycles bit for bit, one profiled stage
      table; (c) the smoother study at 50^3 on K1 (f32, 600 iterations),
-     launches reset and read around it (4 a iteration): ratio^2 within
+     launches reset and read around it (2 a iteration): ratio^2 within
      1e-3 of the published 0.983675, the trajectory bit for bit against
      the plain f32 study; (d) profile_padded_stages at 257^3; (e) the CLI
      in-process, each flag set on the card and on the CPU at 33^3: the
@@ -146,12 +151,12 @@ which fails the run:
      version and, within 4 ulp of max|u| (another addition order), K7 on
      the pair and K1 on the cube; timed against its plain version; (b) the
      stage bench at 257^3, n_iter 2, launch counts reset just before and
-     read just after: the rect (K1), packed (K42) and pair (K7) stages,
-     the pair stage in K7's per-sweep form (one launch a half-sweep,
-     through K8's half-sweep entry) and the same-bytes floor, interleaved
+     read just after: the rect (K1) stage and K1's per-sweep form, the
+     packed (K42) stage, the pair (K7) stage and K7's per-sweep form (one
+     launch a half-sweep each) and the same-bytes floor, interleaved
      (median of 20 CUDA-event rounds), each with its one-pass bytes and
-     bound, and exactly 2 n_iter launches of each of K1 and K42 a call,
-     one of K7 and 2 n_iter of the per-sweep form (counted apart).
+     bound, and exactly one launch of each of K1 and K7 a call, 2 n_iter
+     of K42 and of each per-sweep form (counted apart).
 
 Prints a {"kernels": [...]} line (each kernel's launches summed over the
 257^3 runs of phases 4, 6, 7, 8, 10, 11 and 12 (all four ranks of 10c,
@@ -352,14 +357,17 @@ FOLD_KERNELS = ("mixed_rb_smooth_fold", "mixed_rb_smooth_from_zero_fold", "resid
 MSPLIT_KERNELS = ("mixed_rb_smooth_from_zero_msplit", "residual_restrict_msplit",
                   "mixed_prolong_smooth_msplit", "residual_df_norm_msplit") + FOLD_KERNELS[:4]
 # the one-pass stages' calls an outer step of 4 inner V-cycles at 257^3 (7
-# levels, coarse_n 5), one launch each: the split path's 3 K7 and 4 K10 on
-# the finest level, K2 and K4 on the 5 rect levels 129^3 .. 9^3; the fused
-# path's K2 on the finest level's first cycle and on the levels below
-# (1 + 5 x 4), and K4 on all 6 levels (6 x 4)
+# levels, coarse_n 5), one launch each: the split path's K8 on the finest
+# level's first cycle, 3 K7 on the other three and 4 K10, K2 and K4 on the
+# 5 rect levels 129^3 .. 9^3; the fused path's K1 on the finest level's
+# cycles 2-4, K2 on its first and on the levels below (1 + 5 x 4), and K4
+# on all 6 levels (6 x 4); the unfused path's K1 and K2 as the fused one's,
+# and K1 for the post-smoothing of all 6 levels (3 + 6 x 4)
 STAGE_CALLS = {
-    "split": {"rb_smooth_split": 3, "prolong_smooth_split": 4,
+    "split": {"rb_smooth_split_from_zero": 1, "rb_smooth_split": 3, "prolong_smooth_split": 4,
               "rb_smooth_from_zero_fused": 20, "prolong_smooth_fused": 20},
-    "fused": {"rb_smooth_from_zero_fused": 21, "prolong_smooth_fused": 24},
+    "fused": {"rb_smooth_fused": 3, "rb_smooth_from_zero_fused": 21, "prolong_smooth_fused": 24},
+    "unfused": {"rb_smooth_fused": 27, "rb_smooth_from_zero_fused": 21},
 }
 INTERLEAVED = 9  # 257^3 solves of each of two paths, in phases 5, 7 and 8
 REF_ERR_TOL = 5e-9  # f64 reference solve at 257^3: the C reference's L2 error is 2.81e-9
@@ -459,13 +467,14 @@ def bound(name, points, inputs, outputs):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def split_stage_bytes(ps, n, red_first, prolong=False):
-    """The bytes a K7 stage call (K10's, ``prolong``, black first) at n^3
-    must move, counted in the card's 32-byte sectors: the fresh pair
-    written, the second colour read whole; of the first half-sweep's colour
-    only the slots that no half-sweep updates (the boundary rows and dead
-    slots, which the output keeps); of each colour's f its live slots;
-    K10's coarse correction read whole."""
+def split_stage_bytes(ps, n, red_first, prolong=False, from_zero=False):
+    """The bytes a K7 stage call (K10's, ``prolong``, black first; K8's,
+    ``from_zero``) at n^3 must move, counted in the card's 32-byte sectors:
+    the fresh pair written, the second colour read whole; of the first
+    half-sweep's colour only the slots that no half-sweep updates (the
+    boundary rows and dead slots, which the output keeps); of each colour's
+    f its live slots; K10's coarse correction read whole. K8 reads no pair:
+    only the f's and the written pair count."""
     _, live_r, live_b = ps._masks(n, "cpu")
 
     def sectors(mask):
@@ -474,8 +483,8 @@ def split_stage_bytes(ps, n, red_first, prolong=False):
         return int(flat.view(-1, 8).any(1).sum())
 
     first = live_r if red_first and not prolong else live_b
-    total = (3 * sectors(torch.ones_like(live_r)) + sectors(~first) + sectors(live_r)
-             + sectors(live_b))
+    pair_read = 0 if from_zero else sectors(torch.ones_like(live_r)) + sectors(~first)
+    total = 2 * sectors(torch.ones_like(live_r)) + pair_read + sectors(live_r) + sectors(live_b)
     return 32 * total + (4 * ((n + 1) // 2) ** 3 if prolong else 0)
 
 
@@ -493,15 +502,17 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
 
     def record(name, n, label, got, want, t_kernel=None, t_plain=None, io=None, points=None):
         err, tol, exact = field_err(got, want)
-        print(f"[kernel] {name:26s} n={n:3d} {label:14s} max_abs_err={err:.3e} "
-              f"(tol {tol:.3e}) bitwise_equal={exact}"
-              + (f" kernel_ms={t_kernel:.4f} plain_ms={t_plain:.4f}" if t_kernel else ""))
-        check(err <= tol, f"{name} n={n} {label}: {err} > {tol}")
-        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
         if t_kernel is not None:
             results[name]["ms"], results[name]["plain_ms"] = t_kernel, t_plain
             results[name]["bound_ms"], results[name]["bound_by"] = bound(
                 name, n ** 3 if points is None else points, *io)
+        print(f"[kernel] {name:26s} n={n:3d} {label:14s} max_abs_err={err:.3e} "
+              f"(tol {tol:.3e}) bitwise_equal={exact}"
+              + (f" kernel_ms={t_kernel:.4f} plain_ms={t_plain:.4f} bound_ms="
+                 f"{results[name]['bound_ms']:.4f} ({results[name]['bound_by']})"
+                 if t_kernel else ""))
+        check(err <= tol, f"{name} n={n} {label}: {err} > {tol}")
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
 
     for n in (65, 257):
         h = 1.0 / (n - 1)
@@ -511,14 +522,20 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
         for red_first in (True, False):
             label = "red_first" if red_first else "black_first"
             want = pk.rb_smooth_plain(u, f, h, 2, red_first)
-            got = pk.rb_smooth_fused(u.clone(), f, h, 2, red_first)
+            u0 = u.clone()
+            got = pk.rb_smooth_fused(u, f, h, 2, red_first)
             torch.cuda.synchronize()
+            check(torch.equal(u, u0), f"rb_smooth_fused n={n} {label}: u changed")
             times = ()
             if red_first:
-                uk = u.clone()
-                times = (time_ms(lambda: pk.rb_smooth_fused(uk, f, h, 2, True)),
+                times = (time_ms(lambda: pk.rb_smooth_fused(u, f, h, 2, True)),
                          time_ms(lambda: pk.rb_smooth_plain(u, f, h, 2, True)))
-            record("rb_smooth_fused", n, label, got, want, *times, io=((u, f), (u,)))
+                uk = u.clone()
+                results["rb_smooth_fused"]["per_sweep_ms"] = time_ms(
+                    lambda: pk.rb_smooth_fused_per_sweep(uk, f, h, 2, True))
+                print(f"[kernel] rb_smooth_fused            n={n:3d} one-pass K1_ms={times[0]:.4f}"
+                      f" per-sweep_ms={results['rb_smooth_fused']['per_sweep_ms']:.4f}")
+            record("rb_smooth_fused", n, label, got, want, *times, io=((u, f), (got,)))
 
             want = pk.rb_smooth_from_zero_plain(f, h, 2, red_first)
             got = pk.rb_smooth_from_zero_fused(f, h, 2, red_first)
@@ -658,7 +675,7 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
             record_pair("rb_smooth_split_from_zero", label,
                         ps.rb_smooth_split_from_zero(*r2, h, 2, red_first),
                         ps.rb_smooth_split_from_zero_plain(*r2, h, 2, red_first), times,
-                        io=(r2, r2))
+                        io=((split_stage_bytes(ps, n, True, from_zero=True),), ()))
         times = (time_ms(lambda: ps.residual_restrict_split(*e2, *r2, h)),
                  time_ms(lambda: ps.residual_restrict_split_plain(*e2, *r2, h)))
         rc = ps.residual_restrict_split(*e2, *r2, h)
@@ -756,6 +773,9 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
                 for m in (n, n, (n + 1) // 2))
     for n_iter in (1, 2, 3):
         for red_first in (True, False):
+            record("rb_smooth_fused", n, f"n_iter={n_iter}_red_first={red_first}",
+                   pk.rb_smooth_fused(u, f, h, n_iter, red_first),
+                   pk.rb_smooth_plain(u, f, h, n_iter, red_first))
             record("rb_smooth_from_zero_fused", n, f"n_iter={n_iter}_red_first={red_first}",
                    pk.rb_smooth_from_zero_fused(f, h, n_iter, red_first),
                    pk.rb_smooth_from_zero_plain(f, h, n_iter, red_first))
@@ -771,6 +791,30 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
         at["bound_ms"], at["bound_by"] = bound(name, n ** 3, *io)
         print(f"[kernel] {name:26s} n={n:3d} n_iter=2 kernel_ms={at['ms']:.4f} "
               f"plain_ms={at['plain_ms']:.4f} bound_ms={at['bound_ms']:.4f} ({at['bound_by']})")
+
+    # K1 at every level of the main path (it runs at each on the unfused and
+    # FMG paths): the one-pass stage against its per-sweep form, the same
+    # call, n_iter 2, red first; event-timed (host launch work included),
+    # and device time a call from one trace of 20 calls of each
+    for n in (9, 17, 33, 65, 129, 257):
+        h = 1.0 / (n - 1)
+        u, f = (torch.from_numpy(np.random.default_rng(n + 1).standard_normal((n, n, n))
+                                 .astype(np.float32)).to(dev) for _ in range(2))
+        uk = u.clone()
+        one_pass = time_ms(lambda: pk.rb_smooth_fused(u, f, h, 2, True))
+        per_sweep = time_ms(lambda: pk.rb_smooth_fused_per_sweep(uk, f, h, 2, True))
+        b_ms, _ = bound("rb_smooth_fused", n ** 3, (u, f), (u,))
+        calls, device = 20, []
+        for fn, per_call in ((lambda: pk.rb_smooth_fused(u, f, h, 2, True), 1),
+                             (lambda: pk.rb_smooth_fused_per_sweep(uk, f, h, 2, True), 4)):
+            busy, kernels, _, _ = device_trace(lambda: [fn() for _ in range(calls)])
+            check(busy is None or kernels == per_call * calls,
+                  f"rb_smooth_fused n={n}: {kernels} kernels traced for {calls} calls")
+            device.append("not measured" if busy is None else f"{busy / calls:.4f}")
+        print(f"[kernel] rb_smooth_fused by level n={n:3d} one-pass_ms={one_pass:.4f} "
+              f"per-sweep_ms={per_sweep:.4f} one-pass/per-sweep={one_pass / per_sweep:.3f} "
+              f"| device ms a call: one-pass {device[0]} per-sweep {device[1]} | "
+              f"bound_ms={b_ms:.4f}")
 
     # K19 and K24 where the pin-edge delta is live: 17^3, coarse level 9^3
     n = 17
@@ -1271,8 +1315,8 @@ def solver_257(dev, card, tmp):
 
 def study_50(dev, card, launches):
     """Phase 9c: the smoother study at 50^3 on K1 (use_pallas=True, f32
-    fields), K1 launch counts reset just before and read just after (4 a
-    iteration, added into ``launches``): its ratio^2 against the published
+    fields), K1 launch counts reset just before and read just after (2 a
+    iteration, one one-pass launch a stage, added into ``launches``): its ratio^2 against the published
     0.983675 within STUDY_TOL, its trajectory bit for bit against the plain
     f32 study on the card; the f64 plain study's ratio^2 for the record."""
     from multigrid_parallel_tpu_torch.studies import smoother_study
@@ -1293,7 +1337,7 @@ def study_50(dev, card, launches):
           f"bitwise_equal={same} wall_s={plain.wall_time_s:.4f} | plain f64 ratio^2="
           f"{ref64.final_ratio ** 2:.7f} | card: {card}")
     check(got.n_iters == 600, f"study: {got.n_iters} iterations")
-    check(counts["rb_smooth_fused"] == 4 * got.n_iters
+    check(counts["rb_smooth_fused"] == 2 * got.n_iters
           and all(v == 0 for k, v in counts.items() if k != "rb_smooth_fused"),
           f"study: launches {counts}")
     check(abs(ratio2 - 0.983675) <= STUDY_TOL, f"study: ratio^2 {ratio2}")
@@ -2245,12 +2289,12 @@ def predicted_launches(hier, tiers, steps, inner_cycles, n_smooth=2):
     starts from zero; the finest level's first cycle of each step too):
     per V-cycle and level, 2 n_smooth smoothing launches, one residual +
     restriction, 2 n_smooth prolongation + smoothing launches; the
-    replicated tail runs the single-device cycle (K2-K4) on each of its
-    levels above the coarse LU, whose K2 and K4 are one-pass stages:
+    replicated tail runs the single-device cycle (K1-K4) on each of its
+    levels above the coarse LU, whose K1, K2 and K4 are one-pass stages:
     ceil(n_smooth / 2) launches a call; one K41 per outer step and one
     before."""
     cycles, hs = steps * inner_cycles, 2 * n_smooth
-    stage = -(-n_smooth // 2)  # K2's and K4's launches a call
+    stage = -(-n_smooth // 2)  # K1's, K2's and K4's launches a call
     out = dict.fromkeys(SOURCES, 0)
     top = hier.num_levels - 1
     for depth, (n, tier) in enumerate(sorted(tiers.items(), reverse=True)):
@@ -2265,7 +2309,7 @@ def predicted_launches(hier, tiers, steps, inner_cycles, n_smooth=2):
         for m in levels:
             first = depth == 0 and m == n
             out[smooth0] += per_call * (steps if first else cycles)
-            out[smooth] += hs * (cycles - steps) if first else 0
+            out[smooth] += per_call * (cycles - steps) if first else 0
             out[rr] += cycles
             out[ps] += per_call * cycles
     out["residual_df_norm_seg2d"] = steps + 1
@@ -2540,6 +2584,7 @@ def splitcolor_phase(dev, card, launches, results):
     version, K7 and K1 (13a), then its path, the stage bench
     profile_splitcolor_stage at 257^3, n_iter 2, with launch counts reset
     just before and read just after (13b)."""
+    from multigrid_parallel_tpu_torch.ops import pallas3d as pk
     from multigrid_parallel_tpu_torch.ops import pallas_split as ps
     from multigrid_parallel_tpu_torch.utils.timing import profile_splitcolor_stage
 
@@ -2555,18 +2600,19 @@ def splitcolor_phase(dev, card, launches, results):
         print(f"[splitcolor stage {n}^3] {label}: {1e3 * seconds:.4f} ms, "
               f"{nbytes / seconds / 1e9:.1f} GB/s of {nbytes / 1e6:.1f} MB one-pass, bound "
               f"{1e3 * bound_s:.4f} ms ({bound_s / seconds:.1%}) | card: {card}")
-    check(len(rows) == 5 and all(np.isfinite(s) and s > 0 for _, s, _, _ in rows),
+    check(len(rows) == 6 and all(np.isfinite(s) and s > 0 for _, s, _, _ in rows),
           "profile_splitcolor_stage: rows")
     ran = {k: v for k, v in counts.items() if v}
-    per_sweep = dict(ps.PER_SWEEP_LAUNCHES)
-    print(f"[launches {n}^3 splitcolor stage bench] {json.dumps(ran)} | per-sweep K7 "
+    per_sweep = {**ps.PER_SWEEP_LAUNCHES, **pk.PER_SWEEP_LAUNCHES}
+    print(f"[launches {n}^3 splitcolor stage bench] {json.dumps(ran)} | per-sweep K7 and K1 "
           f"{json.dumps(per_sweep)}")
     calls = STAGE_REPS + 1  # a warm-up call and STAGE_REPS timed ones
-    want = dict.fromkeys(("rb_smooth_fused", "rb_smooth_split_fused"), 2 * n_iter * calls)
-    want["rb_smooth_split"] = calls  # one one-pass launch a call
+    want = {"rb_smooth_split_fused": 2 * n_iter * calls,
+            "rb_smooth_fused": calls, "rb_smooth_split": calls}  # one one-pass launch a call
     check(ran == want, f"stage bench launches {ran}, {want} expected")
-    check(per_sweep == {"rb_smooth_split_per_sweep": 2 * n_iter * calls},
-          f"stage bench per-sweep K7 launches {per_sweep}")
+    check(per_sweep == {"rb_smooth_split_per_sweep": 2 * n_iter * calls,
+                        "rb_smooth_fused_per_sweep": 2 * n_iter * calls},
+          f"stage bench per-sweep K7 and K1 launches {per_sweep}")
     for name in SOURCES:
         launches[name] += counts[name]
     print(f"[phase 13] {time.perf_counter() - t_phase:.1f} s")

@@ -112,7 +112,7 @@ def _make_descend(hier32: Hierarchy, cfg: CycleConfig, coarse_solve, fused: bool
     def descend(e, r, level, from_zero=False):
         """One correction V-cycle level; e=None with from_zero=True means
         a zero initial guess (no zeros field is materialized). A given e
-        is updated in place by the pre-smoother."""
+        is left as it is: every stage returns a fresh field."""
         n = hier32.sizes[level]
         if level == 0:
             return ops3.zero_boundary(coarse_solve(r))
@@ -149,7 +149,7 @@ def make_padded_correction_cycle(hier32: Hierarchy, cfg: CycleConfig, device="cu
                                  fused: bool = True):
     """Build cycle(e, r, from_zero=False) -> e': one V-cycle on the
     correction equation A e = r at the finest level (f32 fields on
-    ``device``); a given e is updated in place by the pre-smoother."""
+    ``device``), as a fresh field; a given e is left as it is."""
     descend = _make_descend(hier32, cfg, _coarse_solver(hier32, cfg, device), fused)
     level = hier32.num_levels - 1
 

@@ -60,12 +60,12 @@ _SIGNATURES = {
     "mg_residual_df": (_P, _P, _P, _P, _P, _I, _F, _P),
     "mg_df_step_partials": (_I,),
     "mg_df_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
-    "mg_split_half_sweep": (_P, _P, _P, _I, _F, _I, _I, _P),
-    "mg_split_half_sweep_from_zero": (_P, _P, _I, _F, _I, _P),
+    "mg_split_half_sweep": (_P, _P, _P, _I, _F, _I, _P),
     "mg_split_residual_restrict": (_P, _P, _P, _P, _P, _I, _F, _P),
     # the one-pass stages: pointers, n, h2, (red_first,) n_iter, the plan
     # (bi, bj, bk, k_halo, threads, smem), stream
     "mg_split_stage": (_P,) * 6 + (_I, _F, _I, _I) + (_I,) * 6 + (_P,),
+    "mg_split_stage_from_zero": (_P,) * 4 + (_I, _F, _I, _I) + (_I,) * 6 + (_P,),
     "mg_split_prolong_stage": (_P,) * 7 + (_I, _F, _I) + (_I,) * 6 + (_P,),
     # the rect stages: the plan, then its box flag
     "mg_rect_stage": (_P,) * 3 + (_I, _F, _I, _I) + (_I,) * 7 + (_P,),

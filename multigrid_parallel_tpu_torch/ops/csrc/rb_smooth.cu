@@ -1,33 +1,36 @@
-// Red-black Gauss-Seidel on an (n, n, n) f32 field: the half-sweeps of K1
-// and the one-pass smoothing stage of K2 (and of K4 past n_iter = 2).
+// Red-black Gauss-Seidel on an (n, n, n) f32 field: the one-pass smoothing
+// stage of K1 and K2 (and of K4 past n_iter = 2), and the half-sweeps of
+// K1's per-sweep form.
 //
 // Replaces the Pallas kernels multigrid_parallel_tpu/ops/pallas3d.py:
-// rb_smooth_fused_pipelined (K1) and rb_smooth_from_zero_fused (K2, :412).
-// Those run all 2 * n_iter half-sweeps of a smoothing stage in one pass
-// over HBM (trapezoidal halo in VMEM).
+// rb_smooth_fused_pipelined (K1, :515 -> :479; rb_smooth_fused_padded
+// :556, the cube wrapper :1618 -> :174) and rb_smooth_from_zero_fused (K2,
+// :412). Those run all 2 * n_iter half-sweeps of a smoothing stage in one
+// pass over HBM (trapezoidal halo in VMEM).
 //
-// K1 runs one launch per half-sweep, which is race-free in place because a
-// colour reads only the other colour:
-//   u <- (sum6(u) - h^2 f) * (1/6)   on interior points of `color`.
-// Bound: device-memory bytes. One half-sweep reads u's neighbours and f
-// and writes the active half of u, at least 4 + 4 + 2 = 10 bytes per
-// point (every 32-byte sector of u and f is touched, though only half of
-// f is used), so a stage of 2 * n_iter half-sweeps moves ~10 * 2 * n_iter
-// bytes per point where the fused Pallas stage moves 12: one thread per
-// point, k fastest, the six neighbour loads of a warp coalesced rows that
-// the i +- 1 and j +- 1 rows of later blocks find in L2.
+// K1 and K2 are one launch of rect.cuh's stage (rect_stage_kernel: the
+// wavefront, or up to 129^3 the box) for n_iter <= 2, into a fresh field.
+// K1's tile is loaded from its initial guess u, boundary included, which
+// the stage carries to the output unchanged; u is not written. Bound:
+// device-memory bytes, u and f read and the output written, 12 bytes a
+// point (0.0608 ms at 257^3, 3.35 TB/s; chip_smoke.py, bound), the
+// arithmetic (8 f32 operations a point and half-sweep) two orders of
+// magnitude under that. K2's tile starts as zeros in shared memory
+// (nothing is loaded, ZERO), so its first half-sweep is (+0 - h^2 f) (1/6)
+// at every live point of its colour, as the plain version computes from a
+// zero field, and the whole output, a fresh field with a zero boundary, is
+// written: f read and the output written, 8 bytes a point (0.0405 ms at
+// 257^3). n_iter > 2 is ceil(n_iter / 2) launches, each later one K1's
+// stage on the field so far.
 //
-// K2 is one launch of rect.cuh's stage (rect_stage_kernel: the wavefront,
-// or up to 129^3 the box) for n_iter <= 2. Its tile starts as zeros in
-// shared memory (nothing is loaded), so its first half-sweep is (+0 - h^2
-// f) (1/6) at every live point of its colour, as the plain version computes
-// from a zero field, and the whole output, a fresh field with a zero
-// boundary, is written. Bound: device-memory bytes, f read and the output
-// written, 8 bytes a point (0.0405 ms at 257^3, 3.35 TB/s; chip_smoke.py,
-// bound): one pass instead of four launches that each moved ~10 bytes a
-// point. n_iter > 2 is ceil(n_iter / 2) launches, each later one the same
-// stage kernel on the field so far. The first half-sweep of K2's first
-// form (mg_rb_half_sweep_from_zero) still serves K14 (pallas_mixed.py).
+// K1's per-sweep form (pallas3d.rb_smooth_fused_per_sweep, the yardstick
+// of its timings) runs one launch per half-sweep, race-free in place
+// because a colour reads only the other colour:
+//   u <- (sum6(u) - h^2 f) * (1/6)   on interior points of `color`,
+// one thread a point, ~10 bytes a point a launch, 4 launches a call at
+// n_iter 2. K26 (rb_smooth_residual.cu) runs its stage on that half-sweep
+// too. The first half-sweep from zero (mg_rb_half_sweep_from_zero) serves
+// K14 (pallas_mixed.py).
 #include "rect.cuh"
 #include "stencil.cuh"
 
@@ -96,11 +99,11 @@ extern "C" int mg_rb_half_sweep_from_zero(float* out, const float* f, int n,
   return (int)cudaGetLastError();
 }
 
-// The rect stage (K2; K4's launches past its first): out <- n_iter (1 or 2)
-// RB-GS iterations of u (a zero field where u is null) against f, red
-// first or black first, on the plan (bi, bj, bk, k_halo, threads, smem,
-// box: the box schedule, else the wavefront) of pallas_split._stage_plan
-// (rect). out must not alias u.
+// The rect stage (K1; K2 where u is null; K4's launches past its first):
+// out <- n_iter (1 or 2) RB-GS iterations of u (a zero field where u is
+// null) against f, red first or black first, on the plan (bi, bj, bk,
+// k_halo, threads, smem, box: the box schedule, else the wavefront) of
+// pallas_split._stage_plan (rect). out must not alias u.
 extern "C" int mg_rect_stage(float* out, const float* u, const float* f, int n, float h2,
                              int red_first, int n_iter, int bi, int bj, int bk, int k_halo,
                              int threads, int smem, int box, cudaStream_t stream) {

@@ -1,8 +1,8 @@
 // The last red-black half-sweep of a smoothing stage and the residual of
 // its result, on an (n, n, n) f32 field.
 //
-// Replaces, with K1 launches for the stage's first 2 * n_iter - 1
-// half-sweeps, the Pallas kernel multigrid_parallel_tpu/ops/pallas3d.py:
+// Replaces, with half-sweeps of K1's per-sweep form (rb_smooth.cu) for the
+// stage's first 2 * n_iter - 1 half-sweeps, the Pallas kernel multigrid_parallel_tpu/ops/pallas3d.py:
 // rb_smooth_residual_fused_padded (K26), which runs all 2 * n_iter
 // half-sweeps of a pre-smoothing stage and the residual of the smoothed
 // field in one pass (halo 2 * n_iter + 1 planes in VMEM) and writes
@@ -26,7 +26,7 @@
 //
 // Bound: device-memory bytes. The floor of the whole stage is 16 B per
 // point (read u and f, write u' and r); this form moves ~10 B per point
-// for each of its 2 * n_iter - 1 K1 half-sweeps and ~14 for this launch
+// for each of its 2 * n_iter - 1 half-sweeps and ~14 for this launch
 // (u and f read, half of u and all of r written). Against the unfused
 // pair it saves R's 12 B per point and one launch. A !c point reads 30
 // neighbour values of u, from L1/L2 as K4's recomputes do.

@@ -1,5 +1,5 @@
-// Red-black Gauss-Seidel smoothing stage on a split-colour pair (K7), and
-// the single half-sweeps of K8 (split.cuh).
+// Red-black Gauss-Seidel smoothing stage on a split-colour pair (K7), the
+// same stage from a zero pair (K8), and K7's per-sweep form (split.cuh).
 //
 // Replaces the Pallas kernels multigrid_parallel_tpu/ops/pallas_split.py:
 // rb_smooth_split (K7, :406) and rb_smooth_split_from_zero (K8, :434),
@@ -16,7 +16,7 @@
 // arithmetic (8 f32 operations a point and half-sweep) is two orders of
 // magnitude under that. What the design does about the
 // per-sweep form's costs (K7's first form, one launch a half-sweep, still
-// here as mg_split_half_sweep, which K8 runs):
+// here as mg_split_half_sweep, the stage bench's yardstick):
 //  - Passes. The per-sweep form read the other colour and f and wrote the
 //    active colour in each of its 2 n_iter launches: 406 MB a call at
 //    n_iter 2. Here a block streams its box of planes through rings in
@@ -52,11 +52,18 @@
 // split_stage_kernel instantiations 82-96 registers, no spills; shared
 // memory all dynamic, the plan's (225,280 B at 257^3, n_iter 2).
 //
-// K8's first half-sweep reads only f (the initial guess is an implicit
-// zero) and writes every slot of its colour; its second writes every slot
-// of the other colour (0 where it has no interior point), so neither output
-// needs initialising. Its half-sweeps (one thread per slot, kk fastest)
-// update in place: a colour reads only the other colour.
+// K8 is the same launch with the template's ZERO set
+// (mg_split_stage_from_zero): nothing is read from an initial pair, both
+// colours' tile planes start as zeros (zero-filling cp.async, as K2's rect
+// tile), so half-sweep 1 computes (+0 - h^2 f) (1/6) at every live slot,
+// as the plain version does from a zero pair, and every other slot (dead
+// slots, boundary rows) is written out as 0: the fresh pair needs no
+// initialising. Bound: device-memory bytes, the live slots of each f read
+// and the pair written (chip_smoke.split_stage_bytes, from_zero): 134.2 MB
+// at 257^3, 0.0401 ms at 3.35 TB/s. Its first form was four
+// launches a call at n_iter 2, a half-sweep from zero, a fresh one and two
+// in place, each a pass over a colour, f and the other colour. n_iter > 2:
+// the first launch from zero, then K7 stage launches on the pair so far.
 #include "split.cuh"
 
 namespace {
@@ -66,50 +73,26 @@ using namespace mg::split;
 __global__ void split_half_sweep_kernel(float* __restrict__ dst,
                                         const float* __restrict__ src,
                                         const float* __restrict__ f, int n,
-                                        float h2, int color, int fresh) {
+                                        float h2, int color) {
   const int S = slots(n);
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   int i, j, kk;
   if (!decode(idx, n, S, i, j, kk)) return;
   const int p = parity(i, j, color);
-  if (live_interior(i, j, kk, p, n)) {
-    dst[idx] = sweep_value(src, f, idx, n, S, kk, p, h2);
-  } else if (fresh) {
-    dst[idx] = 0.0f;
-  }
+  if (live_interior(i, j, kk, p, n)) dst[idx] = sweep_value(src, f, idx, n, S, kk, p, h2);
 }
 
-__global__ void split_half_sweep_from_zero_kernel(float* __restrict__ dst,
-                                                  const float* __restrict__ f,
-                                                  int n, float h2, int color) {
-  const int S = slots(n);
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  int i, j, kk;
-  if (!decode(idx, n, S, i, j, kk)) return;
-  float v = 0.0f;
-  if (live_interior(i, j, kk, parity(i, j, color), n)) {
-    const float nbr = 0.0f;  // six zero neighbours, summed: +0
-    v = (nbr - h2 * f[idx]) * (1.0f / 6.0f);
-  }
-  dst[idx] = v;
-}
-
-template <int NITER, bool VEC>
+template <int NITER, bool VEC, bool ZERO>
 __global__ void __launch_bounds__(kStageMaxThreads) split_stage_kernel(StageArgs a) {
   extern __shared__ __align__(16) float tile[];
-  stage_body<NITER, VEC>(a, tile, NoPrep{});
+  stage_body<NITER, VEC, ZERO>(a, tile, NoPrep{});
 }
 
-}  // namespace
-
-// The K7 stage: n_iter (1 or 2) RB-GS iterations of (er, eb) against (fr,
-// fb), red first or black first, into the fresh pair (out_r, out_b), on
-// the plan (bi, bj, bk, k_halo, threads, smem) of pallas_split._stage_plan.
-extern "C" int mg_split_stage(float* out_r, float* out_b, const float* er, const float* eb,
-                              const float* fr, const float* fb, int n, float h2,
-                              int red_first, int n_iter, int bi, int bj, int bk, int k_halo,
-                              int threads, int smem, cudaStream_t stream) {
-  using namespace mg::split;
+// The stage's arguments by stage colour ([0] the first half-sweep's); er
+// and eb null for a zero initial pair.
+StageArgs stage_args(float* out_r, float* out_b, const float* er, const float* eb,
+                     const float* fr, const float* fb, int n, float h2, int red_first, int bi,
+                     int bj, int bk, int k_halo) {
   StageArgs a;
   const int c0 = red_first ? kRed : kBlack;
   float* out[2] = {out_b, out_r};  // by colour: [kBlack], [kRed]
@@ -128,34 +111,54 @@ extern "C" int mg_split_stage(float* out_r, float* out_b, const float* er, const
   a.bj = bj;
   a.bk = bk;
   a.k_halo = k_halo;
+  return a;
+}
+
+template <bool ZERO>
+int launch_split_stage(const StageArgs& a, int n_iter, int threads, int smem,
+                       cudaStream_t stream) {
   if (const int err = stage_plan_error(a, n_iter, threads, smem)) return err;
   const bool vec = stage_vec(a);
   if (n_iter == 1) {
-    return vec ? launch_stage(split_stage_kernel<1, true>, a, threads, smem, stream)
-               : launch_stage(split_stage_kernel<1, false>, a, threads, smem, stream);
+    return vec ? launch_stage(split_stage_kernel<1, true, ZERO>, a, threads, smem, stream)
+               : launch_stage(split_stage_kernel<1, false, ZERO>, a, threads, smem, stream);
   }
-  return vec ? launch_stage(split_stage_kernel<2, true>, a, threads, smem, stream)
-             : launch_stage(split_stage_kernel<2, false>, a, threads, smem, stream);
+  return vec ? launch_stage(split_stage_kernel<2, true, ZERO>, a, threads, smem, stream)
+             : launch_stage(split_stage_kernel<2, false, ZERO>, a, threads, smem, stream);
 }
 
-// One half-sweep of `color` (1 = RED, 0 = BLACK): dst (that colour) from
-// src (the other colour) and f (dst's RHS). In place when fresh = 0;
-// fresh = 1 also writes 0 to every slot it does not update. K8's, and K7's
-// per-sweep form (pallas_split.rb_smooth_split_per_sweep, the stage
-// bench's yardstick).
+}  // namespace
+
+// The K7 stage: n_iter (1 or 2) RB-GS iterations of (er, eb) against (fr,
+// fb), red first or black first, into the fresh pair (out_r, out_b), on
+// the plan (bi, bj, bk, k_halo, threads, smem) of pallas_split._stage_plan.
+extern "C" int mg_split_stage(float* out_r, float* out_b, const float* er, const float* eb,
+                              const float* fr, const float* fb, int n, float h2,
+                              int red_first, int n_iter, int bi, int bj, int bk, int k_halo,
+                              int threads, int smem, cudaStream_t stream) {
+  return launch_split_stage<false>(
+      stage_args(out_r, out_b, er, eb, fr, fb, n, h2, red_first, bi, bj, bk, k_halo), n_iter,
+      threads, smem, stream);
+}
+
+// The K8 stage: the K7 stage from a zero initial pair, on the same plan;
+// every slot of (out_r, out_b) written.
+extern "C" int mg_split_stage_from_zero(float* out_r, float* out_b, const float* fr,
+                                        const float* fb, int n, float h2, int red_first,
+                                        int n_iter, int bi, int bj, int bk, int k_halo,
+                                        int threads, int smem, cudaStream_t stream) {
+  return launch_split_stage<true>(
+      stage_args(out_r, out_b, nullptr, nullptr, fr, fb, n, h2, red_first, bi, bj, bk, k_halo),
+      n_iter, threads, smem, stream);
+}
+
+// One in-place half-sweep of `color` (1 = RED, 0 = BLACK): dst (that
+// colour) from src (the other colour) and f (dst's RHS), its live interior
+// slots only. K7's per-sweep form (pallas_split.rb_smooth_split_per_sweep,
+// the stage bench's yardstick).
 extern "C" int mg_split_half_sweep(float* dst, const float* src, const float* f,
-                                   int n, float h2, int color, int fresh,
-                                   cudaStream_t stream) {
+                                   int n, float h2, int color, cudaStream_t stream) {
   split_half_sweep_kernel<<<mg::split::slot_blocks(n), mg::kThreads, 0, stream>>>(
-      dst, src, f, n, h2, color, fresh);
-  return (int)cudaGetLastError();
-}
-
-// First half-sweep from a zero initial guess: writes all of dst.
-extern "C" int mg_split_half_sweep_from_zero(float* dst, const float* f, int n,
-                                             float h2, int color,
-                                             cudaStream_t stream) {
-  split_half_sweep_from_zero_kernel<<<mg::split::slot_blocks(n), mg::kThreads, 0, stream>>>(
-      dst, f, n, h2, color);
+      dst, src, f, n, h2, color);
   return (int)cudaGetLastError();
 }

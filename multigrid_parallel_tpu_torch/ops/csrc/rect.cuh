@@ -51,6 +51,7 @@ using split::comp;
 using split::cp_async4;
 using split::cp_async_commit;
 using split::cp_async_wait_all_but_one;
+using split::cp_async_zero;
 using split::ld4;
 using split::st4;
 using split::stage_depth;
@@ -201,20 +202,12 @@ __device__ inline void tile_load(float* t0, float* t1, const float* __restrict__
 }
 
 // Start zeroing both rings' tile planes of a plane (a zero initial
-// guess): 16-byte cp.async copies of no source bytes, which fill with
-// zeros (``any`` is a 16-byte aligned device address, not read), issued
-// and waited for as a load's are. (Plain stores here cost K2's
-// two-iteration wavefront a register spill.)
-__device__ inline void cp_async_zero16(float* dst, const float* any) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(any), "r"(0)
-               : "memory");
-}
-
+// guess, K2): 16-byte zero-filling cp.async copies (split::cp_async_zero),
+// issued and waited for as a load's are.
 __device__ inline void tile_zero(float* t0, float* t1, const Geom& t, const float* any) {
   for (int v = 4 * threadIdx.x; v < t.P; v += 4 * blockDim.x) {
-    cp_async_zero16(t0 + v, any);
-    cp_async_zero16(t1 + v, any);
+    cp_async_zero<4>(t0 + v, any);
+    cp_async_zero<4>(t1 + v, any);
   }
 }
 

@@ -199,6 +199,23 @@ __device__ inline void cp_async16(float* dst, const float* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
 
+// Start zero-filling 16 bytes (V = 4) or 4 (V = 1) of shared memory: a
+// cp.async of no source bytes, which fills with zeros (``any`` is a
+// device address aligned to the copy, not read), issued and waited for as
+// a load's are. (Plain stores of a zero tile cost the two-iteration rect
+// wavefront a register spill.)
+template <int V>
+__device__ inline void cp_async_zero(float* dst, const float* any) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (V == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(any), "r"(0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(any), "r"(0)
+                 : "memory");
+  }
+}
+
 __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
 // Wait for every group but the newest.
@@ -250,6 +267,18 @@ __device__ inline void tile_load_fixed(float* tile, const float* __restrict__ g,
   for (int j = max(t.ja, 1) + threadIdx.x; j < min(t.jb, t.n - 1); j += blockDim.x) {
     if (parity(q, j, color))
       cp_async4(tile + (j - t.jb0) * t.W + (kd - t.kb0), g + (q * t.n + j) * t.S + kd);
+  }
+}
+
+// Start zeroing both colours' tile planes of a plane (a zero initial
+// pair, K8): every slot of each, dead slots and boundary rows too, which
+// the stores write out as they are.
+template <bool VEC>
+__device__ inline void tile_zero(float* t0, float* t1, const StageGeom& t, const float* any) {
+  constexpr int V = VEC ? 4 : 1;
+  for (int v = V * threadIdx.x; v < t.P; v += V * blockDim.x) {
+    cp_async_zero<V>(t0 + v, any);
+    cp_async_zero<V>(t1 + v, any);
   }
 }
 
@@ -364,8 +393,13 @@ struct NoPrep {
   static constexpr bool kFixedFirst = false;
 };
 
-template <int NITER, bool VEC, class Prep>
+// ZERO: the initial pair is zero (K8): nothing is read from a.in, the
+// tile planes start as zeros, so half-sweep 1 computes (+0 - h^2 f) (1/6)
+// at every live slot of its region, as the plain version does from a zero
+// pair, and every other slot is written out as 0.
+template <int NITER, bool VEC, bool ZERO = false, class Prep>
 __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
+  static_assert(!(ZERO && Prep::kActive), "a zero initial pair has nothing to prepare");
   constexpr int H = 2 * NITER, D = stage_depth(H);
   StageGeom t;
   const int n = a.n, S = slots(n);
@@ -394,12 +428,16 @@ __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
   auto ring = [&](int c, int q) { return smem + (c * D + q % D) * t.P; };
   if constexpr (Prep::kActive) prep.start(smem + 2 * D * t.P, t);
   auto load = [&](int q) {
-    if constexpr (Prep::kFixedFirst) {
-      tile_load_fixed<VEC>(ring(0, q), a.in[0], t, q, a.color0);
+    if constexpr (ZERO) {
+      tile_zero<VEC>(ring(0, q), ring(1, q), t, a.f[0]);
     } else {
-      tile_load<VEC>(ring(0, q), a.in[0], t, q);
+      if constexpr (Prep::kFixedFirst) {
+        tile_load_fixed<VEC>(ring(0, q), a.in[0], t, q, a.color0);
+      } else {
+        tile_load<VEC>(ring(0, q), a.in[0], t, q);
+      }
+      tile_load<VEC>(ring(1, q), a.in[1], t, q);
     }
-    tile_load<VEC>(ring(1, q), a.in[1], t, q);
     if constexpr (Prep::kActive) prep.load(q, t);
   };
 

@@ -7,7 +7,7 @@ is kept so each port sits beside its Pallas original). Wrapper, the
 Pallas kernel it replaces in multigrid_parallel_tpu/ops/pallas3d.py,
 and its CUDA source in ops/csrc/:
 
-  K1  rb_smooth_fused             rb_smooth_fused_pipelined,      rb_smooth.cu
+  K1  rb_smooth_fused             rb_smooth_fused_pipelined,      rb_smooth.cu, rect.cuh
                                   rb_smooth_fused_padded, and the
                                   cube wrapper rb_smooth_fused
   K2  rb_smooth_from_zero_fused   rb_smooth_from_zero_fused       rb_smooth.cu, rect.cuh
@@ -25,19 +25,21 @@ The JAX package's single-buffered and pipelined Pallas forms of K1 and R
 differ only in how the TPU overlaps its DMAs, so one Hopper kernel
 serves both. ``residual_norm_fused`` is R and then a torch sum, as the
 JAX function takes its norm outside the kernel. (K5, K6 and K27 share
-the double-float arithmetic of eft.cuh; K26 starts its stage with K1
-half-sweeps.) K2 and K4 are one-pass stage kernels (rect.cuh): one launch
-runs all 2 n_iter <= 4 half-sweeps of a stage on tiles in shared memory
-(``pallas_split._stage_plan`` with ``rect=True`` cuts the level into
-blocks) and writes a fresh field. Fields are plain contiguous (n, n, n)
+the double-float arithmetic of eft.cuh; K26 runs its stage as K1's
+per-sweep form does, one half-sweep a launch.) K1, K2 and K4 are one-pass
+stage kernels (rect.cuh): one launch runs all 2 n_iter <= 4 half-sweeps
+of a stage on tiles in shared memory (``pallas_split._stage_plan`` with
+``rect=True`` cuts the level into blocks) and writes a fresh field, its
+inputs left as they are (K1 loads its initial guess, K2's tile starts as
+zeros). Fields are plain contiguous (n, n, n)
 tensors: the port has none of the TPU's lane padding. A wrapper takes
 the plain version for a tensor on the CPU, launches its kernel for a
 CUDA tensor (float32, contiguous, cubic), and raises for anything else:
 there is no fallback from the kernel to the plain version. Each kernel
 launch adds one to its entry in ``LAUNCHES`` (the launch of K5 or K6 is
 the pair: per-block partials, then their sum; each K1 half-sweep that K26
-runs counts as a K26 launch; a K2 or K4 call makes ceil(n_iter / 2)
-launches).
+runs counts as a K26 launch; a K1, K2 or K4 call makes ceil(n_iter / 2)
+launches; K1's per-sweep form counts in ``PER_SWEEP_LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -62,9 +64,14 @@ KERNELS = (
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
+# the per-sweep form of K1, counted apart from K1's launches
+PER_SWEEP_LAUNCHES = {"rb_smooth_fused_per_sweep": 0}
+
+
 def reset_launches() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+    PER_SWEEP_LAUNCHES["rb_smooth_fused_per_sweep"] = 0
 
 
 def _on_cuda(*fields: torch.Tensor, coarse: torch.Tensor = None) -> bool:
@@ -132,19 +139,38 @@ def rb_smooth_from_zero_plain(f, h: float, n_iter: int, red_first: bool = True):
 
 def rb_smooth_fused(u, f, h: float, n_iter: int, red_first: bool = True):
     """n_iter red-black GS iterations (red first = preSmoother ordering,
-    mg_3d.h:640-709; black first = postSmoother, mg_3d.h:711-781).
+    mg_3d.h:640-709; black first = postSmoother, mg_3d.h:711-781), as a
+    fresh field: u is left as it is (on both devices), its boundary carried
+    to the output unchanged. The CUDA form is one one-pass launch of the
+    rect stage (rect.cuh) for n_iter <= 2, its tile loaded from u;
+    ceil(n_iter / 2) in all, each later one the same stage on the field so
+    far."""
+    if n_iter < 1:
+        raise ValueError(f"n_iter must be >= 1, got {n_iter}")
+    if not _on_cuda(u, f):
+        return rb_smooth_plain(u, f, h, n_iter, red_first)
+    from multigrid_parallel_tpu_torch.ops import pallas_split as ps
 
-    Updates ``u`` IN PLACE and returns it (on both devices): the CUDA
-    form sweeps one colour per launch, 2 * n_iter launches. The boundary
-    of u is left as it is."""
+    lib, stream, h2 = _lib(), _stream(), h * h
+    for chunk in ps._stage_chunks(n_iter):
+        u = _rect_stage_launch(lib, u, f, h2, chunk, red_first, stream, "rb_smooth_fused")
+    return u
+
+
+def rb_smooth_fused_per_sweep(u, f, h: float, n_iter: int, red_first: bool = True):
+    """K1's first CUDA form, kept as the yardstick of its stage bench and
+    of its timing in chip_smoke.py: one launch a half-sweep, 2 n_iter
+    launches, each a pass over u's neighbours, f and the active colour.
+    Updates u IN PLACE and returns it; the plain version on the CPU. Its
+    launches count in ``PER_SWEEP_LAUNCHES``."""
     if not _on_cuda(u, f):
         return u.copy_(rb_smooth_plain(u, f, h, n_iter, red_first))
     lib, stream, n, h2 = _lib(), _stream(), u.shape[0], h * h
     for _ in range(n_iter):
         for c in _colors(red_first):
-            _check(lib.mg_rb_half_sweep(u.data_ptr(), f.data_ptr(), n, h2, c,
-                                        stream), "rb_smooth_fused")
-            LAUNCHES["rb_smooth_fused"] += 1
+            _check(lib.mg_rb_half_sweep(u.data_ptr(), f.data_ptr(), n, h2, c, stream),
+                   "rb_smooth_fused_per_sweep")
+            PER_SWEEP_LAUNCHES["rb_smooth_fused_per_sweep"] += 1
     return u
 
 
@@ -152,8 +178,8 @@ def rb_smooth_from_zero_fused(f, h: float, n_iter: int, red_first: bool = True):
     """rb_smooth_fused from an implicit zero initial guess, as a fresh
     field whose boundary is zero. The CUDA form is one one-pass launch of
     the rect stage (rect.cuh) for n_iter <= 2, its tile starting as zeros;
-    ceil(n_iter / 2) in all, each later one the same stage on the field so
-    far, all counted as K2 launches."""
+    ceil(n_iter / 2) in all, each later one K1's stage on the field so far,
+    all counted as K2 launches."""
     if n_iter < 1:
         raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     if not _on_cuda(f):
@@ -169,8 +195,9 @@ def rb_smooth_from_zero_fused(f, h: float, n_iter: int, red_first: bool = True):
 
 
 def _rect_stage_launch(lib, u, f, h2, n_iter, red_first, stream, name):
-    """One launch of the rect stage (K2's kernel) on ``u`` (None: a zero
-    initial guess) against f into a fresh field, counted as ``name``'s."""
+    """One launch of the rect stage (K1's kernel; K2's where ``u`` is None,
+    a zero initial guess) against f into a fresh field, counted as
+    ``name``'s."""
     from multigrid_parallel_tpu_torch.ops import pallas_split as ps
 
     n = f.shape[0]
@@ -225,9 +252,9 @@ def rb_smooth_residual_fused(u, f, h: float, n_iter: int, red_first: bool = True
     """(u', r): n_iter red-black GS iterations and the interior residual
     of their result (the pre-smoothing stage and its residual in one
     call). Updates ``u`` IN PLACE and returns it with a fresh r (on both
-    devices). The CUDA form is 2 * n_iter - 1 K1 half-sweeps and one
-    launch that sweeps the last colour and writes r, all counted as K26
-    launches."""
+    devices). The CUDA form is 2 * n_iter - 1 half-sweeps (the kernel of
+    K1's per-sweep form) and one launch that sweeps the last colour and
+    writes r, all counted as K26 launches."""
     if n_iter < 1:
         raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     if not _on_cuda(u, f):

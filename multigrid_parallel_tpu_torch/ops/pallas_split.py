@@ -45,11 +45,12 @@ coarse field of K9 / K10 (nc, nc, nc), nc = (n + 1) / 2), and raises for
 anything else: no fallback from the kernel to the plain version. Each
 kernel launch adds one to its entry in ``LAUNCHES`` (the launch of K11 or
 K12 is the pair of per-block partials and their sum; the K7 stage
-launches that K10 runs past n_iter = 2 count as K10 launches).
+launches that K8 and K10 run past n_iter = 2 count as theirs).
 
-K7 and K10 are one-pass stage kernels: one launch runs all 2 n_iter <= 4
-half-sweeps of a stage on tiles in shared memory (``_stage_plan`` cuts
-the level into blocks) and writes a fresh pair.
+K7, K8 and K10 are one-pass stage kernels: one launch runs all 2 n_iter
+<= 4 half-sweeps of a stage on tiles in shared memory (``_stage_plan``
+cuts the level into blocks) and writes a fresh pair; K8's tile starts as
+zeros.
 """
 
 from __future__ import annotations
@@ -224,13 +225,7 @@ def rb_smooth_split_from_zero_plain(fr, fb, h: float, n_iter: int, red_first: bo
                                  n_iter, red_first)
 
 
-def _half_sweep_launch(lib, dst, src, f, n, h2, color, fresh, stream, name, counter=None):
-    _check(lib.mg_split_half_sweep(dst.data_ptr(), src.data_ptr(), f.data_ptr(), n, h2,
-                                   color, fresh, stream), name)
-    (LAUNCHES if counter is None else counter)[name] += 1
-
-
-# ------------------------------------------ the one-pass stage (K7, K10)
+# ------------------------------------- the one-pass stage (K7, K8, K10)
 
 SMEM_MAX = 232_448   # shared memory a Hopper block may take (opt-in), bytes
 SM_SMEM = 233_472    # an SM's shared memory; each block also reserves 1,024 B
@@ -467,12 +462,19 @@ def _plan_args(n: int, n_iter: int, device, prolong: bool = False, rect: bool = 
 
 
 def _stage_launch(lib, er, eb, fr, fb, h2, n_iter, red_first, stream, name):
-    """One K7 stage launch into a fresh pair."""
-    n = er.shape[0]
-    out_r, out_b = torch.empty_like(er), torch.empty_like(eb)
-    _check(lib.mg_split_stage(out_r.data_ptr(), out_b.data_ptr(), er.data_ptr(), eb.data_ptr(),
-                              fr.data_ptr(), fb.data_ptr(), n, h2, int(red_first),
-                              *_plan_args(n, n_iter, er.device), stream), name)
+    """One K7 stage launch (K8's, where er and eb are None: a zero initial
+    pair) into a fresh pair, counted as ``name``'s."""
+    n = fr.shape[0]
+    out_r, out_b = torch.empty_like(fr), torch.empty_like(fb)
+    plan = _plan_args(n, n_iter, fr.device)
+    if er is None:
+        err = lib.mg_split_stage_from_zero(out_r.data_ptr(), out_b.data_ptr(), fr.data_ptr(),
+                                           fb.data_ptr(), n, h2, int(red_first), *plan, stream)
+    else:
+        err = lib.mg_split_stage(out_r.data_ptr(), out_b.data_ptr(), er.data_ptr(),
+                                 eb.data_ptr(), fr.data_ptr(), fb.data_ptr(), n, h2,
+                                 int(red_first), *plan, stream)
+    _check(err, name)
     LAUNCHES[name] += 1
     return out_r, out_b
 
@@ -500,10 +502,10 @@ PER_SWEEP_LAUNCHES = {"rb_smooth_split_per_sweep": 0}
 
 def rb_smooth_split_per_sweep(er, eb, fr, fb, h: float, n_iter: int, red_first: bool = True):
     """K7's first CUDA form, kept as the stage bench's yardstick: one
-    launch a half-sweep (K8's half-sweep kernel), 2 n_iter launches, each
-    a pass over the other colour, f and the active colour. Updates er and
-    eb IN PLACE and returns them; the plain version on the CPU. Its
-    launches count in ``PER_SWEEP_LAUNCHES``."""
+    launch a half-sweep, 2 n_iter launches, each a pass over the other
+    colour, f and the active colour. Updates er and eb IN PLACE and returns
+    them; the plain version on the CPU. Its launches count in
+    ``PER_SWEEP_LAUNCHES``."""
     if not _on_cuda(er, eb, fr, fb):
         r, b = rb_smooth_split_plain(er, eb, fr, fb, h, n_iter, red_first)
         return er.copy_(r), eb.copy_(b)
@@ -511,32 +513,29 @@ def rb_smooth_split_per_sweep(er, eb, fr, fb, h: float, n_iter: int, red_first: 
     pair, rhs = {RED: er, BLACK: eb}, {RED: fr, BLACK: fb}
     for _ in range(n_iter):
         for c in _colors(red_first):
-            _half_sweep_launch(lib, pair[c], pair[1 - c], rhs[c], n, h2, c, 0, stream,
-                               "rb_smooth_split_per_sweep", PER_SWEEP_LAUNCHES)
+            _check(lib.mg_split_half_sweep(pair[c].data_ptr(), pair[1 - c].data_ptr(),
+                                           rhs[c].data_ptr(), n, h2, c, stream),
+                   "rb_smooth_split_per_sweep")
+            PER_SWEEP_LAUNCHES["rb_smooth_split_per_sweep"] += 1
     return er, eb
 
 
 def rb_smooth_split_from_zero(fr, fb, h: float, n_iter: int, red_first: bool = True):
-    """rb_smooth_split from an implicit zero initial pair, as a fresh
-    pair: the first half-sweep reads only its f and writes its whole
-    colour, the second writes the whole other colour."""
+    """rb_smooth_split from an implicit zero initial pair, as a fresh pair
+    (dead slots and boundary rows 0). The CUDA form is one one-pass launch
+    of K7's stage from a zero tile for n_iter <= 2 (nothing is read but f);
+    ceil(n_iter / 2) in all, each later one a K7 stage launch on the pair
+    so far, all counted as K8 launches."""
     if n_iter < 1:
         raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     if not _on_cuda(fr, fb):
         return rb_smooth_split_from_zero_plain(fr, fb, h, n_iter, red_first)
-    lib, stream, n, h2 = _lib(), _stream(), fr.shape[0], h * h
-    pair, rhs = {RED: torch.empty_like(fr), BLACK: torch.empty_like(fb)}, {RED: fr, BLACK: fb}
-    first, second = _colors(red_first)
-    _check(lib.mg_split_half_sweep_from_zero(pair[first].data_ptr(), rhs[first].data_ptr(),
-                                             n, h2, first, stream),
-           "rb_smooth_split_from_zero")
-    LAUNCHES["rb_smooth_split_from_zero"] += 1
-    _half_sweep_launch(lib, pair[second], pair[first], rhs[second], n, h2, second, 1, stream,
-                       "rb_smooth_split_from_zero")
-    for c in list(_colors(red_first)) * (n_iter - 1):
-        _half_sweep_launch(lib, pair[c], pair[1 - c], rhs[c], n, h2, c, 0, stream,
-                           "rb_smooth_split_from_zero")
-    return pair[RED], pair[BLACK]
+    lib, stream, h2 = _lib(), _stream(), h * h
+    er = eb = None
+    for chunk in _stage_chunks(n_iter):
+        er, eb = _stage_launch(lib, er, eb, fr, fb, h2, chunk, red_first, stream,
+                               "rb_smooth_split_from_zero")
+    return er, eb
 
 
 # ------------------------------------------- K9: residual + restriction

@@ -79,8 +79,8 @@ def smoother_study(num_levels: int = 4, coarse_n: int = 5, smoother: str = "rb",
         fk = f
 
         def step(u):
-            pk.rb_smooth_fused(u, fk, h, n_smooth, red_first=True)  # in place
-            pk.rb_smooth_fused(u, fk, h, n_smooth, red_first=False)
+            u = pk.rb_smooth_fused(u, fk, h, n_smooth, red_first=True)  # a fresh field
+            u = pk.rb_smooth_fused(u, fk, h, n_smooth, red_first=False)
             return u, ops3.residual_norm(u, fk, h)
 
     elif smoother == "rb":

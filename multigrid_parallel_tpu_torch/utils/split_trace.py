@@ -17,10 +17,12 @@ the outer steps, the median wall, and from the trace with the median busy
 time the device busy time (the union of kernel intervals), the kernel
 count, the span from the first kernel to the last, the idle share of that
 span, each kernel name's summed ms, count and the device idle time
-just before its kernels (``idle_before``), and each K1, K2 and K4 call's
-device time by level (``stage_calls``: the one-pass form's kernel, or the
-first form's head kernel and its K1 half-sweeps). The parent prints the
-lines as they come and the card's name and power limit.
+just before its kernels (``idle_before``; a stage kernel's name carries
+its template arguments, which tell K1 from K2 and K7 from K8), and each
+smoothing stage call's device time by level (``stage_calls``: K1, K2, K4,
+K7, K8 and K10, the one-pass form's kernel, or a first form's head
+kernel and the half-sweeps that follow it). The parent prints the lines
+as they come and the card's name and power limit.
 
 The problem is ``chip_smoke.py``'s main path: the quadratic Dirichlet
 problem at 257^3 (coarse_n 5, 7 levels), n_smooth 2, 4 inner V-cycles an
@@ -47,11 +49,28 @@ THIS_ROOT = HERE.parents[2]
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
+def short_name(name):
+    """A kernel's function name from the trace's, with its template
+    arguments where it has them (``rect_stage_kernel<2, true, false>``,
+    from a demangled name, ``<2, true, false>`` or ``<(int)2, (bool)1,
+    (bool)0>``, or from a mangled one's Li2E, Lb1E, ...)."""
+    found = re.search(r"([a-z_]+_kernel)(?![a-z_])(<[^<>]*>|I(?:L[a-z]+\d+E)+E)?", name)
+    if not found:
+        return name[:60]
+    args = found.group(2) or ""
+    if args.startswith("I"):
+        args = "<" + ", ".join(v if t != "b" else ("true" if v == "1" else "false")
+                               for t, v in re.findall(r"L([a-z]+)(\d+)E", args)) + ">"
+    args = args.replace("(bool)1", "true").replace("(bool)0", "false").replace("(int)", "")
+    return found.group(1) + args
+
+
 def kernel_intervals(fn):
     """The device kernels (and copies and fills) of one call of fn, from a
     torch.profiler trace: (start us, end us, name, shape) sorted by start,
-    a kernel by its function's name, its shape the grid and the shared
-    memory from the trace's chrome export (() where the export holds no
+    a kernel by its function's name (with its template arguments, as
+    ``<2, true, false>``, where the name has them, demangled or not), its
+    shape the grid and the shared memory from the trace's chrome export (() where the export holds no
     device events, and the times then from the profiler's events). Defined
     here, not imported from the package, so that it serves a checkout of
     any version."""
@@ -62,19 +81,15 @@ def kernel_intervals(fn):
         fn()
         torch.cuda.synchronize()
 
-    def short(name):
-        found = re.search(r"([a-z_]+_kernel)(?![a-z_])", name)
-        return found.group(1) if found else name[:60]
-
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text()).get("traceEvents", [])
-    out = [(e["ts"], e["ts"] + e["dur"], short(e["name"]),
+    out = [(e["ts"], e["ts"] + e["dur"], short_name(e["name"]),
             tuple(e.get("args", {}).get("grid", ())) + (e.get("args", {}).get("shared memory"),))
            for e in events if e.get("cat") in DEVICE_CATS and "dur" in e]
     if not out:
-        out = [(e.time_range.start, e.time_range.end, short(e.name), ())
+        out = [(e.time_range.start, e.time_range.end, short_name(e.name), ())
                for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     return sorted(out)
 
@@ -116,36 +131,59 @@ def idle_before(intervals):
     return out
 
 
-# K1, K2 and K4, the rect smoothing stages: their kernels in the one-pass
-# form (rect.cuh) and in the first form, a head kernel and K1 half-sweeps
-STAGE_KERNELS = {"rect_stage_kernel": "K2", "rect_prolong_stage_kernel": "K4",
+# the smoothing stages' kernels: the one-pass forms (rect.cuh, split.cuh;
+# rect_stage_kernel and split_stage_kernel by their ZERO argument, below)
+# and the first forms' head kernels, each with the half-sweep kernel that
+# continues its call (a half-sweep that follows none heads a call of its own)
+STAGE_KERNELS = {"rect_prolong_stage_kernel": "K4", "split_prolong_stage_kernel": "K10",
                  "rb_half_sweep_from_zero_kernel": "K2", "prolong_correct_black_kernel": "K4",
-                 "rb_half_sweep_kernel": "K1"}
+                 "rb_half_sweep_kernel": "K1", "split_half_sweep_from_zero_kernel": "K8",
+                 "split_half_sweep_kernel": "K7"}
+FIRST_FORM = {"rb_half_sweep_from_zero_kernel": "rb_half_sweep_kernel",
+              "prolong_correct_black_kernel": "rb_half_sweep_kernel",
+              "rb_half_sweep_kernel": "rb_half_sweep_kernel",
+              "split_half_sweep_from_zero_kernel": "split_half_sweep_kernel",
+              "split_half_sweep_kernel": "split_half_sweep_kernel"}
+
+
+def stage_label(name):
+    """The stage ("K1", ...) whose call a kernel of that name starts, or
+    None. rect_stage_kernel<NITER, ZERO, BOX> is K2 where ZERO is true, K1
+    where false; split_stage_kernel<NITER, VEC, ZERO> K8 and K7 likewise
+    (a checkout whose split kernel has no ZERO argument runs it as K7
+    only); "K1|K2" where the trace drops the arguments."""
+    base, _, args = name.partition("<")
+    args = [a.strip() for a in args.rstrip(">").split(",")] if args else []
+    if base == "rect_stage_kernel":
+        return ("K2" if args[1] == "true" else "K1") if len(args) > 1 else "K1|K2"
+    if base == "split_stage_kernel":
+        return "K8" if args[2:] == ["true"] else "K7"
+    return STAGE_KERNELS.get(base)
 
 
 def stage_calls(intervals, sizes, n_smooth=2):
-    """Each K1, K2 and K4 call's device time: a call in the first form is
-    its head kernel and the K1 half-sweeps that follow it, 2 n_smooth
-    kernels in all (a half-sweep that follows none heads a K1 call); in the
-    one-pass form its one kernel. ``sizes`` maps (kernel name, shape) to
-    the level's n (a shape without its shared memory where the trace has
-    none). Returns {"K4 n=257": [calls, summed ms, median ms a call],
-    ...}."""
-    groups, first_form = [], False  # first_form: the last kernel was part of a first-form call
+    """Each smoothing stage call's device time: a call in a first form is
+    its head kernel and the half-sweeps that follow it, 2 n_smooth kernels
+    in all; in the one-pass form its one kernel. ``sizes`` maps (kernel
+    name without its arguments, shape) to the level's n (a shape without
+    its shared memory where the trace has none). Returns {"K4 n=257":
+    [calls, summed ms, median ms a call], ...}."""
+    groups, sweep = [], None  # sweep: the half-sweep kernel that continues the last call
     for a, b, name, grid in intervals:
-        if name == "rb_half_sweep_kernel" and first_form and groups[-1][3] < 2 * n_smooth:
+        base = name.split("<")[0]
+        label = stage_label(name)
+        if base == sweep and groups[-1][3] < 2 * n_smooth:
             groups[-1][2].append((b - a) / 1e3)
             groups[-1][3] += 1
-        elif name in STAGE_KERNELS:
-            groups.append([name, grid, [(b - a) / 1e3], 1])
-            first_form = not name.startswith("rect_")
+        elif label:
+            groups.append([(base, label), grid, [(b - a) / 1e3], 1])
+            sweep = FIRST_FORM.get(base)
         else:
-            first_form = False
+            sweep = None
     out = {}
-    for name, grid, parts, _ in groups:
-        n = sizes.get((name, grid), sizes.get((name, grid[:-1]), grid))
-        key = f"{STAGE_KERNELS[name]} n={n}"
-        out.setdefault(key, []).append(sum(parts))
+    for (base, label), grid, parts, _ in groups:
+        n = sizes.get((base, grid), sizes.get((base, grid[:-1]), grid))
+        out.setdefault(f"{label} n={n}", []).append(sum(parts))
     return {key: [len(v), round(sum(v), 4), round(statistics.median(v), 4)]
             for key, v in sorted(out.items())}
 
@@ -154,22 +192,32 @@ def _stage_sizes(hier, sms):
     """(kernel name, shape) -> n for the stage kernels of each level, the
     shape the grid and the shared memory and, for a trace without the
     latter, the grid alone: the one-pass ones from their plans (where the
-    package has them), the first forms from their one thread a point."""
+    package has them; the split ones at every level, though only the
+    finest runs them), the first forms from their one thread a point (a
+    slot on a split level)."""
     from multigrid_parallel_tpu_torch.ops import pallas_split as ps
 
     out = {}
+
+    def add(name, blocks, smem):
+        out[(name, (blocks, 1, 1, smem))] = n
+        out[(name, (blocks, 1, 1))] = n
+
     for n in hier.sizes:
         for name in ("rb_half_sweep_from_zero_kernel", "prolong_correct_black_kernel",
                      "rb_half_sweep_kernel"):
-            out[(name, (-(-n ** 3 // 256), 1, 1, 0))] = n
-            out[(name, (-(-n ** 3 // 256), 1, 1))] = n
-        for name, prolong in (("rect_stage_kernel", False), ("rect_prolong_stage_kernel", True)):
+            add(name, -(-n ** 3 // 256), 0)
+        for name in ("split_half_sweep_from_zero_kernel", "split_half_sweep_kernel"):
+            add(name, -(-n * n * ((n - 1) // 2) // 256), 0)
+        for name, prolong, rect in (("rect_stage_kernel", False, True),
+                                    ("rect_prolong_stage_kernel", True, True),
+                                    ("split_stage_kernel", False, False),
+                                    ("split_prolong_stage_kernel", True, False)):
             try:
-                plan = ps._stage_plan(n, 2, sms, prolong=prolong, rect=True)
-            except TypeError:  # a checkout without the one-pass rect stages
+                plan = ps._stage_plan(n, 2, sms, prolong=prolong, rect=rect)
+            except (TypeError, AttributeError):  # a checkout without that one-pass stage
                 continue
-            out[(name, (plan.blocks, 1, 1, plan.smem))] = n
-            out[(name, (plan.blocks, 1, 1))] = n
+            add(name, plan.blocks, plan.smem)
     return out
 
 

@@ -12,8 +12,9 @@ stages of mg_3d.h:136-140 at each level, gathered two ways:
     coarsest) and of its outer step (K5, K6) at their production shapes,
     timed with CUDA events;
   * ``profile_splitcolor_stage``: one RB-GS smoothing stage at 257^3 as
-    the rect kernel (K1), the packed split-colour kernel (K42), the pair
-    kernel (K7) and a same-bytes copy floor, interleaved.
+    the rect kernel (K1) and its per-sweep form, the packed split-colour
+    kernel (K42), the pair kernel (K7) and its per-sweep form, and a
+    same-bytes copy floor, interleaved.
 """
 
 from __future__ import annotations
@@ -206,18 +207,20 @@ def profile_splitcolor_stage(n: int = 257, n_iter: int = 2, reps: int = 20, devi
     scripts/splitcolor_bench.py.
 
     The stages, timed round by round in turn: the rect stage (K1,
-    ``pallas3d.rb_smooth_fused``, on the (n, n, n) cube), the packed
-    split-colour stage (K42, ``pallas_splitcolor.rb_smooth_split_fused``,
-    on (n, 2 n, (n - 1) // 2)), the pair stage (K7,
-    ``pallas_split.rb_smooth_split``, one one-pass launch), the pair stage
-    in K7's per-sweep form (``pallas_split.rb_smooth_split_per_sweep``,
+    ``pallas3d.rb_smooth_fused``, one one-pass launch, on the (n, n, n)
+    cube), the rect stage in K1's per-sweep form
+    (``pallas3d.rb_smooth_fused_per_sweep``, one launch a half-sweep), the
+    packed split-colour stage (K42, ``pallas_splitcolor.
+    rb_smooth_split_fused``, on (n, 2 n, (n - 1) // 2)), the pair stage
+    (K7, ``pallas_split.rb_smooth_split``, one one-pass launch), the pair
+    stage in K7's per-sweep form (``pallas_split.rb_smooth_split_per_sweep``,
     one launch a half-sweep) and ``torch.add(u2, f2, out=w)``, which reads
     u2 and f2 and writes one array of their size: the bytes of a one-pass
     stage (the script's identity-DMA floor). Inputs are seeded as the
     script seeds them: ``default_rng(0)``, standard-normal interiors of u
-    and then f, zero boundaries. Each stage but K7 updates its own copy of
-    u in place, call after call; K7 smooths its pair into a fresh one, the
-    next call's input. On a CUDA device each row is
+    and then f, zero boundaries. Each per-sweep form and K42 update their
+    own copy of u in place, call after call; K1 and K7 smooth theirs into a
+    fresh one, the next call's input. On a CUDA device each row is
     the median over ``reps`` rounds of the CUDA-event time of one call,
     after one warm-up call each; with ``device="cpu"`` the plain versions
     run and the host clock times them. The script's chain-slope mode
@@ -244,15 +247,20 @@ def profile_splitcolor_stage(n: int = 257, n_iter: int = 2, reps: int = 20, devi
     u, f = cubes
     u2, f2 = psc.pack_split(u), psc.pack_split(f)
     rhs = ps.pack_split(f)
+    cube = [u.clone()]
     pair = list(ps.pack_split(u))
     per_sweep = ps.pack_split(u)
     w = torch.empty_like(u2)
 
+    def k1():
+        cube[0] = pk.rb_smooth_fused(cube[0], f, h, n_iter, red_first=True)
+
     def k7():
         pair[:] = ps.rb_smooth_split(*pair, *rhs, h, n_iter, True)
     stages = (
-        (f"rect stage (K1, {2 * n_iter} half-sweeps)",
-         lambda: pk.rb_smooth_fused(u, f, h, n_iter, red_first=True), (u, f, u)),
+        (f"rect stage (K1, {2 * n_iter} half-sweeps, one launch)", k1, (u, f, u)),
+        (f"rect stage, one launch a half-sweep (K1's per-sweep form, {2 * n_iter} launches)",
+         lambda: pk.rb_smooth_fused_per_sweep(u, f, h, n_iter, red_first=True), (u, f, u)),
         (f"packed stage (K42, {2 * n_iter} half-sweeps)",
          lambda: psc.rb_smooth_split_fused(u2, f2, h, n_iter, n, red_first=True), (u2, f2, u2)),
         (f"pair stage (K7, {2 * n_iter} half-sweeps, one launch)",

@@ -14,10 +14,10 @@ the sharded electrospray solve on one NCCL rank against the full tier,
 and the (i, j)-sharded kernels K37-K41 on four simulated 2x2 blocks
 against their plain versions and K1-K5, with the 2D solver on one NCCL
 rank against the fused single-device solve, the packed split-colour
-stage K42 against its plain version, the one-pass split stages K7
-and K10 against theirs at 9^3-257^3 (one launch a call), and the
-one-pass rect stages K2 and K4 against theirs at 9^3-513^3 and on hand
-plans (one launch a call).
+stage K42 against its plain version, the one-pass split stages K7, K8
+and K10 against theirs at 9^3-513^3 (one launch a call), and the
+one-pass rect stages K1, K2 and K4 against theirs at 9^3-513^3 (K1 also
+at the smoother study's 50^3) and on hand plans (one launch a call).
 
 These need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 themselves where there is none. The file imports no jax, so on a machine
@@ -88,10 +88,9 @@ def test_kernels_match_plain_on_card(cuda, n):
     r_ref, nrm2_ref = tpk.residual_df_norm_plain(*state, h)
     assert torch.equal(r, r_ref)
     assert float(nrm2) == pytest.approx(float(nrm2_ref), rel=1e-5)
-    # K1: one launch per half-sweep, 2 colours x (1 + 2 + 3) iterations x 2
-    # orders; K2: one one-pass launch per 2 iterations, (1 + 1 + 2) x 2 orders
+    # K1 and K2: one one-pass launch per 2 iterations, (1 + 1 + 2) x 2 orders
     assert tpk.LAUNCHES == {**dict.fromkeys(tpk.KERNELS, 0),
-                            "rb_smooth_fused": 24, "rb_smooth_from_zero_fused": 8,
+                            "rb_smooth_fused": 8, "rb_smooth_from_zero_fused": 8,
                             "residual_fused": 1, "residual_df_norm_fused": 1}
 
 
@@ -176,6 +175,36 @@ def test_rect_stages_match_plain_on_card(cuda, n):
         assert all(torch.equal(a, b) for a, b in zip((e, r, ec), before))
         assert got.data_ptr() not in {x.data_ptr() for x in (e, r, ec)}
         assert torch.equal(got, want), n_iter
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [9, 17, 33, 50, 65, 129, 257, 513])
+def test_k1_stage_matches_plain_on_card(cuda, n):
+    """The one-pass stage K1 bit for bit against its plain version (9-129:
+    the box schedule, 50 the smoother study's even size; 257, 513: the
+    wavefront, 513 with k tiles at n_iter 2), n_iter 1-3, both orders, on u
+    random at every point, its boundary included, which comes through
+    unchanged; u left as it is, a fresh output; one launch a call at n_iter
+    <= 2, two at 3; and K1's per-sweep form likewise, 2 n_iter launches
+    counted apart."""
+    h = 1.0 / (n - 1)
+    u, f = _rect_fields(80 + n, n, cuda, 2)
+    u0 = u.clone()
+    for n_iter in (1, 2, 3):
+        calls = 1 if n_iter <= 2 else 2
+        for red_first in (True, False):
+            want = tpk.rb_smooth_plain(u, f, h, n_iter, red_first)
+            tpk.reset_launches()
+            got = tpk.rb_smooth_fused(u, f, h, n_iter, red_first)
+            assert tpk.LAUNCHES == {**dict.fromkeys(tpk.KERNELS, 0), "rb_smooth_fused": calls}
+            torch.cuda.synchronize()
+            assert torch.equal(u, u0) and got.data_ptr() not in (u.data_ptr(), f.data_ptr())
+            assert torch.equal(got, want), (n_iter, red_first)
+            mine = u.clone()
+            assert tpk.rb_smooth_fused_per_sweep(mine, f, h, n_iter, red_first) is mine
+            assert tpk.PER_SWEEP_LAUNCHES == {"rb_smooth_fused_per_sweep": 2 * n_iter}
+            assert tpk.LAUNCHES["rb_smooth_fused"] == calls
+            assert torch.equal(mine, want), (n_iter, red_first)
 
 
 def _rect_stage_on_plan(plan, f, h, red_first=True, u=None, ec=None):
@@ -334,9 +363,9 @@ def test_split_kernels_match_plain_on_card(cuda):
     r12 = tps.residual_df_norm_split(*got[:4], *f_hi, *f_lo, h)
     assert torch.equal(r12[0], got[4]) and torch.equal(r12[1], got[5])
     assert float(r12[2]) == float(got[6])
-    # K7 and K10 one launch a call at n_iter <= 2 (orders x n_iter = 1, 2 and
-    # n_iter = 1, 2); K8 one launch a half-sweep
-    assert tps.LAUNCHES == {"rb_smooth_split": 4, "rb_smooth_split_from_zero": 12,
+    # K7, K8 and K10 one launch a call at n_iter <= 2 (orders x n_iter = 1,
+    # 2 and n_iter = 1, 2)
+    assert tps.LAUNCHES == {"rb_smooth_split": 4, "rb_smooth_split_from_zero": 4,
                             "residual_restrict_split": 1, "prolong_smooth_split": 2,
                             "df_step_split": 1, "residual_df_norm_split": 2}
 
@@ -386,15 +415,42 @@ def test_split_stages_match_plain_on_card(cuda, n, data):
         assert _bitwise_pair(got, want), n_iter
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [9, 11, 17, 33, 65, 129, 257, 513])
+def test_k8_stage_matches_plain_on_card(cuda, n):
+    """The one-pass stage K8 bit for bit against its plain version at every
+    slot, dead slots and boundary rows included (n = 11: 5 slots a row, the
+    4-byte zero fill; 257: the main path's plan; 513: k tiles at n_iter
+    2), n_iter 1-3, both orders, on f random at every slot, the allocator
+    poisoned with NaN first, so that a slot left unwritten shows; one launch
+    a call at n_iter <= 2, two at 3, and no K7 launch counted."""
+    h = 1.0 / (n - 1)
+    (f,) = _random_pairs(30 + n, n, cuda, 1)
+    for n_iter in (1, 2, 3):
+        calls = 1 if n_iter <= 2 else 2
+        for red_first in (True, False):
+            want = tps.rb_smooth_split_from_zero_plain(*f, h, n_iter, red_first)
+            poison = [torch.full(tps.split_shape(n), float("nan"), device=cuda)
+                      for _ in range(8)]
+            del poison  # back to the caching allocator, NaN inside
+            tps.reset_launches()
+            got = tps.rb_smooth_split_from_zero(*f, h, n_iter, red_first)
+            assert tps.LAUNCHES == {**dict.fromkeys(tps.KERNELS, 0),
+                                    "rb_smooth_split_from_zero": calls}
+            assert _bitwise_pair(got, want), (n_iter, red_first)
+
+
 def _stage_on_plan(plan, e, r, h, red_first=False, ec=None):
-    """One launch of the K7 stage (or, given ec, the K10 one) on a plan of
-    the caller's, into a fresh pair."""
-    out = [torch.empty_like(x) for x in e]
-    ptrs = [x.data_ptr() for x in (*out, *(() if ec is None else (ec,)), *e, *r)]
+    """One launch of the K7 stage (K8's where e is None; given ec, the K10
+    one) on a plan of the caller's, into a fresh pair."""
+    out = [torch.empty_like(x) for x in r]
+    ptrs = [x.data_ptr() for x in (*out, *(() if ec is None else (ec,)), *(e or ()), *r)]
     args = (plan.n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem,
             tps._stream())
     lib = tps._lib()
-    if ec is None:
+    if e is None:
+        err = lib.mg_split_stage_from_zero(*ptrs, plan.n, h * h, int(red_first), *args)
+    elif ec is None:
         err = lib.mg_split_stage(*ptrs, plan.n, h * h, int(red_first), *args)
     else:
         err = lib.mg_split_prolong_stage(*ptrs, plan.n, h * h, *args)
@@ -406,11 +462,11 @@ def _stage_on_plan(plan, e, r, h, red_first=False, ec=None):
 @pytest.mark.parametrize("bk", [4, 12])
 @pytest.mark.parametrize("n", [33, 35])
 def test_split_stages_on_k_tiles_on_card(cuda, n, bk):
-    """K7 and K10 on plans that tile k (4-slot k halo; n = 33: 16 slots a
-    row, 16-byte copies, region edges inside a 4-slot group; 35: 17 slots,
-    4-byte copies; bk = 12 leaves a short last tile), 8 rows by 9 planes a
-    block, on pairs random everywhere: bit for bit against the plain
-    versions."""
+    """K7, K8 and K10 on plans that tile k (4-slot k halo; n = 33: 16 slots
+    a row, 16-byte copies, region edges inside a 4-slot group; 35: 17
+    slots, 4-byte copies; bk = 12 leaves a short last tile), 8 rows by 9
+    planes a block, on pairs random everywhere: bit for bit against the
+    plain versions."""
     h = 1.0 / (n - 1)
     s = tps.split_shape(n)[2]
     e, r = _random_pairs(40 + n + bk, n, cuda, 2)
@@ -424,6 +480,9 @@ def test_split_stages_on_k_tiles_on_card(cuda, n, bk):
         for red_first in (True, False):
             got = _stage_on_plan(plan, e, r, h, red_first)
             want = tps.rb_smooth_split_plain(*e, *r, h, n_iter, red_first)
+            assert _bitwise_pair(got, want), (n_iter, red_first)
+            got = _stage_on_plan(plan, None, r, h, red_first)
+            want = tps.rb_smooth_split_from_zero_plain(*r, h, n_iter, red_first)
             assert _bitwise_pair(got, want), (n_iter, red_first)
         plan = plan._replace(smem=tps._stage_smem(n_iter, 8, width, prolong=True))
         got = _stage_on_plan(plan, e, r, h, ec=ec)
@@ -837,7 +896,7 @@ def test_smoother_study_on_k1(cuda):
     tpk.reset_launches()
     got = smoother_study(num_levels=2, rel_tol=0.0, max_iters=6, use_pallas=True,
                          dtype=torch.float32, device=cuda)
-    assert tpk.LAUNCHES["rb_smooth_fused"] == 4 * 6
+    assert tpk.LAUNCHES["rb_smooth_fused"] == 2 * 6  # one one-pass launch a stage
     plain = smoother_study(num_levels=2, rel_tol=0.0, max_iters=6, dtype=torch.float32,
                            device=cuda)
     assert got.residual_norms == plain.residual_norms

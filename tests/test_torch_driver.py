@@ -242,6 +242,16 @@ def test_smoother_study_kernel_branch_matches_jax_pallas():
     assert got.residual_norms == plain.residual_norms
 
 
+def test_smoother_study_kernel_branch_keeps_the_plain_f32_trajectory():
+    # K1 returns a fresh field: the study must carry it from step to step
+    # (a caller that dropped it would stall on its first field)
+    kw = dict(n=17, rel_tol=0.0, max_iters=20, dtype=torch.float32, device="cpu")
+    got = tstudies.smoother_study(use_pallas=True, **kw)
+    plain = tstudies.smoother_study(**kw)
+    assert got.n_iters == 20 and got.residual_norms == plain.residual_norms
+    assert got.residual_norms[-1] < got.residual_norms[0]
+
+
 def test_smoother_study_rejects_unknown_smoother():
     with pytest.raises(ValueError, match="unknown smoother"):
         tstudies.smoother_study(num_levels=2, smoother="sor", device="cpu")

@@ -60,7 +60,8 @@ def test_rb_smooth_fused_matches_pallas(red_first):
                                          red_first=red_first, block_i=4)
     ut = torch.from_numpy(u.copy())
     got = tpk.rb_smooth_fused(ut, torch.from_numpy(f), H, 2, red_first=red_first)
-    assert got is ut  # updated in place, as the CUDA form does
+    # a fresh field, ut left as it is, as the CUDA form does
+    assert got is not ut and torch.equal(ut, torch.from_numpy(u))
     _assert_ulps(got, _unpad(want))
 
 

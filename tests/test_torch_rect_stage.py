@@ -1,7 +1,8 @@
-"""The one-pass rect smoothing stages (K2 ``rb_smooth_from_zero_fused`` and
-K4 ``prolong_smooth_fused``, multigrid_parallel_tpu_torch.ops.pallas3d) on
-the CPU: their tile plan, an emulation of the CUDA kernels' schedule held
-against the plain versions, and the wrappers' CPU contract.
+"""The one-pass rect smoothing stages (K1 ``rb_smooth_fused``, K2
+``rb_smooth_from_zero_fused`` and K4 ``prolong_smooth_fused``,
+multigrid_parallel_tpu_torch.ops.pallas3d) on the CPU: their tile plan,
+an emulation of the CUDA kernels' schedule held against the plain
+versions, and the wrappers' CPU contract.
 
 The CUDA stage kernel (ops/csrc/rect.cuh, ``stage_body``) cannot run here,
 so its schedule is emulated in torch, block by block, as the kernel runs
@@ -12,7 +13,8 @@ halos of 2 n_iter planes and rows (and k_halo slots where k is tiled);
 tile planes filled with NaN outside the loaded box and at the slots that
 hold no point of the field; a ring of tile planes for each colour as deep
 as the kernel's (a plane gone from a ring raises); K4's correction e + P
-ec of each plane as it arrives, K2's tile starting as zeros; the skewed
+ec of each plane as it arrives, K2's tile starting as zeros, K1's loaded
+from its initial guess, boundary included; the skewed
 wavefront (half-sweep s at plane p - 2 s once plane p has arrived, all
 half-sweeps of a step reading before any writes, as the kernel runs them
 at once), each half-sweep on its region, the loaded box shrunk by s,
@@ -249,10 +251,14 @@ def _check_writes(writes, n):
 
 
 def _emulate_k2(f, h, n_iter, red_first, plan_of):
+    return _emulate_k1(torch.zeros_like(f), f, h, n_iter, red_first, plan_of)
+
+
+def _emulate_k1(u, f, h, n_iter, red_first, plan_of):
+    """K1 from the initial guess u (K2: a zero one), chunk after chunk."""
     n = f.shape[0]
     color0 = RED if red_first else BLACK
     fs = _by_stage(_deinterleave(f), color0)
-    u = torch.zeros_like(f)
     for chunk in tps._stage_chunks(n_iter):
         outs, writes = _emulate_launch(_by_stage(_deinterleave(u), color0), fs, color0, h,
                                        plan_of(chunk))
@@ -279,9 +285,9 @@ def _emulate_k4(ec, e, r, h, n_iter, plan_of):
 def _plans(kind, n):
     """The plan of each launch size (n_iter 1, 2), all with tiles smaller
     than the field: the planner's for 4 SMs (at 17^3 and 33^3 a box), its
-    wavefront's, 8 whole rows by 7 planes, 4-slot k tiles with the 4-slot
-    k halo, 8 rows by 8 planes (both wavefronts), or a box of 5 planes by 4
-    rows."""
+    wavefront's, the planner's for the H100's 132 SMs, 8 whole rows by 7
+    planes, 4-slot k tiles with the 4-slot k halo, 8 rows by 8 planes (both
+    wavefronts), or a box of 5 planes by 4 rows."""
     s = n // 2
 
     def plan(n_iter):
@@ -289,6 +295,8 @@ def _plans(kind, n):
             return tps._stage_plan(n, n_iter, 4, rect=True)
         if kind == "wave":
             return tps._wave_plan(n, n_iter, 4, False, True)
+        if kind == "h100":
+            return tps._stage_plan(n, n_iter, H100_SMS, rect=True)
         if kind == "rows":
             return tps.StagePlan(n, n_iter, 2 * n_iter, 0, 7, 8, s, 256, 0, True)
         if kind == "box":
@@ -328,6 +336,38 @@ def test_emulated_k4_schedule_matches_plain(n, n_iter, kind):
     assert torch.equal(got, tpk.prolong_smooth_plain(ec, e, r, h, n_iter)), (n, n_iter, kind)
 
 
+@pytest.mark.parametrize("kind", ["wave", "box"])
+@pytest.mark.parametrize("n_iter", [1, 2, 3])
+@pytest.mark.parametrize("n", [17, 33])
+def test_emulated_k1_schedule_matches_plain(n, n_iter, kind):
+    """K1's schedule with its tile loaded from an initial guess random at
+    every point, faces included: they come through to the output as they
+    were."""
+    h = 1.0 / (n - 1)
+    rng = np.random.default_rng(3 * n + n_iter)
+    u, f = _field(rng, n), _field(rng, n)
+    plan_of = _plans(kind, n)
+    assert plan_of(2).blocks > 1 and plan_of(2).box == (kind == "box")
+    for red_first in (True, False):
+        got = _emulate_k1(u, f, h, n_iter, red_first, plan_of)
+        assert torch.equal(got, tpk.rb_smooth_plain(u, f, h, n_iter, red_first)), red_first
+
+
+@pytest.mark.parametrize("kind", ["h100", "box"])
+def test_emulated_k1_schedule_on_the_study_size(kind):
+    """The smoother study's n = 50, an even size, on the box plan it takes
+    on the H100 and on a hand box: the colour holding the even k's has no
+    point at its last slot (k = n), the other holds k = n - 1 there."""
+    n, h = 50, 1.0 / 49
+    rng = np.random.default_rng(50)
+    u, f = _field(rng, n), _field(rng, n)
+    plan_of = _plans(kind, n)
+    assert plan_of(1).box and plan_of(1).blocks > 1
+    for n_iter, red_first in ((1, True), (1, False), (2, True), (3, False)):
+        got = _emulate_k1(u, f, h, n_iter, red_first, plan_of)
+        assert torch.equal(got, tpk.rb_smooth_plain(u, f, h, n_iter, red_first)), n_iter
+
+
 def test_emulated_k2_schedule_on_an_even_size():
     """K2 takes any n: at an even one the colour holding the even k's has no
     point at its last slot (k = n)."""
@@ -342,17 +382,21 @@ def test_emulated_k2_schedule_on_an_even_size():
 def test_emulation_finds_a_shallow_halo(box):
     """The emulation is a check: the same schedule with halos one short
     leaves stale or NaN values in the owned box and no longer equals the
-    plain version, for K2 and K4, on the wavefront and on the box."""
+    plain version, for K1, K2 and K4, on the wavefront and on the box."""
     n, n_iter = 17, 2
     h = 1.0 / (n - 1)
     rng = np.random.default_rng(5)
     e, r, ec = _field(rng, n), _field(rng, n), _field(rng, (n + 1) // 2)
     plan = tps.StagePlan(n, n_iter, 2 * n_iter, 0, 8, 8, 8, 256, 0, True, box)
     short = plan._replace(halo=plan.halo - 1)
+    want1 = tpk.rb_smooth_plain(e, r, h, n_iter, False)
     want2 = tpk.rb_smooth_from_zero_plain(r, h, n_iter, True)
     want4 = tpk.prolong_smooth_plain(ec, e, r, h, n_iter)
+    assert torch.equal(_emulate_k1(e, r, h, n_iter, False, lambda _: plan), want1)
     assert torch.equal(_emulate_k2(r, h, n_iter, True, lambda _: plan), want2)
     assert torch.equal(_emulate_k4(ec, e, r, h, n_iter, lambda _: plan), want4)
+    with pytest.raises(AssertionError):
+        assert torch.equal(_emulate_k1(e, r, h, n_iter, False, lambda _: short), want1)
     with pytest.raises(AssertionError):  # NaN reaches an owned point, or the values differ
         assert torch.equal(_emulate_k2(r, h, n_iter, True, lambda _: short), want2)
     with pytest.raises(AssertionError):
@@ -379,6 +423,25 @@ def test_k2_k4_return_fresh_fields_and_leave_their_inputs():
     tpk.reset_launches()
     tpk.rb_smooth_from_zero_fused(r, h, 3)
     assert tpk.LAUNCHES["rb_smooth_from_zero_fused"] == 0  # no launch on the CPU
+
+
+def test_k1_returns_a_fresh_field_and_leaves_its_input():
+    """K1 returns a fresh field (its boundary u's), u untouched; its
+    per-sweep form updates u in place; no launch on the CPU."""
+    n, h = 17, 1.0 / 16
+    rng = np.random.default_rng(8)
+    u, f = _field(rng, n), _field(rng, n)
+    u0 = u.clone()
+    want = tpk.rb_smooth_plain(u, f, h, 3, True)
+    tpk.reset_launches()
+    got = tpk.rb_smooth_fused(u, f, h, 3, True)
+    assert got is not u and torch.equal(u, u0) and torch.equal(got, want)
+    assert torch.equal(got[0], u0[0]) and torch.equal(got[:, :, -1], u0[:, :, -1])
+    assert tpk.rb_smooth_fused_per_sweep(u, f, h, 3, True) is u and torch.equal(u, want)
+    assert tpk.LAUNCHES["rb_smooth_fused"] == 0
+    assert tpk.PER_SWEEP_LAUNCHES == {"rb_smooth_fused_per_sweep": 0}
+    with pytest.raises(ValueError, match="n_iter"):
+        tpk.rb_smooth_fused(u, f, h, 0)
 
 
 def test_stage_plans_candidates_fit():

@@ -1,8 +1,8 @@
-"""The one-pass split-colour smoothing stages (K7 ``rb_smooth_split`` and
-K10 ``prolong_smooth_split``, multigrid_parallel_tpu_torch.ops.
-pallas_split) on the CPU: their tile plan, an emulation of the CUDA
-kernels' schedule held against the plain versions, and the wrappers'
-CPU contract.
+"""The one-pass split-colour smoothing stages (K7 ``rb_smooth_split``, K8
+``rb_smooth_split_from_zero`` and K10 ``prolong_smooth_split``,
+multigrid_parallel_tpu_torch.ops.pallas_split) on the CPU: their tile
+plan, an emulation of the CUDA kernels' schedule held against the plain
+versions, and the wrappers' CPU contract.
 
 The CUDA stage kernel (ops/csrc/split.cuh, ``stage_body``) cannot run
 here, so its schedule is emulated in torch, block by block, as the
@@ -10,8 +10,9 @@ kernel runs it: the plan's boxes with halos of 2 n_iter planes and rows
 (and k_halo slots where k is tiled), tile planes filled with NaN outside
 the loaded box and, for the first half-sweep's colour, at every live
 slot (K10's kernel loads only the slots of that colour that no
-half-sweep updates; K7's loads it whole, which this covers), a ring of tile planes for each colour as deep as the
-kernel's (a plane gone from a ring raises), the skewed wavefront
+half-sweep updates; K7's loads it whole, which this covers; K8's tile
+starts as zeros, both colours, in the loaded box), a ring of tile planes
+for each colour as deep as the kernel's (a plane gone from a ring raises), the skewed wavefront
 (half-sweep s at plane p - 2 s once plane p has arrived, all half-sweeps
 of a step reading before any writes, as the kernel runs them at once),
 each half-sweep on its region, the loaded box shrunk by s, updating its
@@ -100,10 +101,13 @@ def _plans(kind, n):
     return plan
 
 
-def _emulate_launch(ins, fs, color0, h, plan, prep=None):
+def _emulate_launch(ins, fs, color0, h, plan, prep=None, from_zero=False):
     """One stage launch as stage_body runs it. ``ins`` and ``fs`` by stage
     colour ([0] the first half-sweep's colour, ``color0``); ``prep(c, q,
-    rows, cols, tile)`` corrects a newly loaded tile plane. The half-sweeps
+    rows, cols, tile)`` corrects a newly loaded tile plane; ``from_zero`` (K8):
+    the tile planes start as zeros, nothing read from ``ins`` (the kernel
+    zeros whole tile planes; what lies outside the loaded box stays NaN
+    here, as no half-sweep may read it). The half-sweeps
     of a step (and the correction of its new plane) run as if at once: all
     of them read the tiles before any writes. Returns the outputs by stage
     colour and how many blocks wrote each slot."""
@@ -133,7 +137,9 @@ def _emulate_launch(ins, fs, color0, h, plan, prep=None):
                         t = torch.full((plan.bj + 2 * big_h, width), float("nan"),
                                        dtype=ins[c].dtype)
                         box = ins[c][q, ja:jb, ka:kb]
-                        if c == 0:  # only the slots that no half-sweep updates
+                        if from_zero:
+                            box = torch.zeros_like(box)
+                        elif c == 0:  # only the slots that no half-sweep updates
                             box = torch.where(live0[q, ja:jb, ka:kb],
                                               torch.full_like(box, float("nan")), box)
                         t[rows, cols] = box
@@ -209,6 +215,20 @@ def _emulate_k7(er, eb, fr, fb, h, n_iter, red_first, plan_of, writes_seen):
     return pair
 
 
+def _emulate_k8(fr, fb, h, n_iter, red_first, plan_of, writes_seen):
+    """K8: the first launch from a zero tile, then K7 launches on the pair
+    so far."""
+    color0 = RED if red_first else BLACK
+    first, *rest = tps._stage_chunks(n_iter)
+    fs = _by_stage((fr, fb), color0)
+    outs, writes = _emulate_launch(fs, fs, color0, h, plan_of(first), from_zero=True)
+    writes_seen.append(writes)
+    pair = tuple(_by_stage(outs, color0))
+    for chunk in rest:
+        pair = _emulate_k7(*pair, fr, fb, h, chunk, red_first, plan_of, writes_seen)
+    return pair
+
+
 def _emulate_k10(ec, er, eb, rr, rb, h, n_iter, plan_of, writes_seen):
     n = er.shape[0]
     _, live_r, _ = tps._masks(n, er.device)
@@ -258,6 +278,31 @@ def test_emulated_k7_schedule_matches_plain(n, n_iter, kind):
         assert all(bool((w == 1).all()) for w in writes)
 
 
+def _random_pair(seed, n):
+    """A split pair random at every slot, dead slots and boundary rows too."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(tps.split_shape(n)).astype(np.float32))
+                 for _ in range(2))
+
+
+@pytest.mark.parametrize("kind", ["default", "rows", "k_tiles"])
+@pytest.mark.parametrize("n_iter", [1, 2, 3])
+@pytest.mark.parametrize("n", [17, 33])
+def test_emulated_k8_schedule_matches_plain(n, n_iter, kind):
+    """K8's schedule from a zero tile, on an f random at every slot: the
+    dead slots and boundary rows of the fresh pair come out 0, every slot
+    written by one block."""
+    h = 1.0 / (n - 1)
+    f = _random_pair(3 * n + n_iter, n)
+    plan_of = _plans(kind, n)
+    for red_first in (True, False):
+        writes = []
+        got = _emulate_k8(*f, h, n_iter, red_first, plan_of, writes)
+        want = tps.rb_smooth_split_from_zero_plain(*f, h, n_iter, red_first)
+        assert _bitwise(got, want), (n, n_iter, kind, red_first)
+        assert all(bool((w == 1).all()) for w in writes)
+
+
 @pytest.mark.parametrize("kind", ["default", "rows", "k_tiles"])
 @pytest.mark.parametrize("n", [17, 33])
 def test_emulated_k10_schedule_matches_plain(n, kind):
@@ -289,6 +334,10 @@ def test_emulation_finds_a_shallow_halo():
     short = plan._replace(halo=plan.halo - 1)
     got = _emulate_k7(*e, *f, h, n_iter, True, lambda _: short, [])
     assert not _bitwise(got, tps.rb_smooth_split_plain(*e, *f, h, n_iter, True))
+    # K8's, from a zero tile, likewise
+    want8 = tps.rb_smooth_split_from_zero_plain(*f, h, n_iter, True)
+    assert _bitwise(_emulate_k8(*f, h, n_iter, True, lambda _: plan, []), want8)
+    assert not _bitwise(_emulate_k8(*f, h, n_iter, True, lambda _: short, []), want8)
 
 
 # ------------------------------------------------- the wrappers on the CPU
@@ -304,6 +353,22 @@ def test_k7_returns_a_fresh_pair_and_leaves_its_inputs():
     assert _bitwise(got, tps.rb_smooth_split_plain(*e0, *f, h, 2, True))
     with pytest.raises(ValueError, match="n_iter"):
         tps.rb_smooth_split(*e, *f, h, 0)
+
+
+def test_k8_returns_a_fresh_pair_with_zero_dead_slots():
+    n, h = 17, 1.0 / 16
+    f = _random_pair(9, n)
+    f0 = tuple(x.clone() for x in f)
+    got = tps.rb_smooth_split_from_zero(*f, h, 3, False)
+    assert _bitwise(f, f0) and all(g is not x for g, x in zip(got, f))
+    assert _bitwise(got, tps.rb_smooth_split_from_zero_plain(*f, h, 3, False))
+    _, live_r, live_b = tps._masks(n, "cpu")
+    assert not got[0][~live_r].any() and not got[1][~live_b].any()
+    with pytest.raises(ValueError, match="n_iter"):
+        tps.rb_smooth_split_from_zero(*f, h, 0)
+    tps.reset_launches()
+    tps.rb_smooth_split_from_zero(*f, h, 2)
+    assert tps.LAUNCHES["rb_smooth_split_from_zero"] == 0  # no launch on the CPU
 
 
 def test_per_sweep_form_updates_in_place_on_the_cpu():

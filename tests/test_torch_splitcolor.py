@@ -178,10 +178,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
 def test_profile_splitcolor_stage_on_cpu():
     n = 17
     rows = profile_splitcolor_stage(n=n, reps=2, device="cpu")
-    assert [label.split()[0] for label, *_ in rows] == ["rect", "packed", "pair", "pair",
-                                                        "same-bytes"]
-    assert "one launch a half-sweep" in rows[3][0]
+    assert [label.split()[0] for label, *_ in rows] == ["rect", "rect", "packed", "pair",
+                                                        "pair", "same-bytes"]
+    assert "one launch a half-sweep" in rows[1][0] and "one launch a half-sweep" in rows[4][0]
     cube, packed = n ** 3 * 4, n * 2 * n * ((n - 1) // 2) * 4
-    assert [b for _, _, b, _ in rows] == [3 * cube] + [3 * packed] * 4
+    assert [b for _, _, b, _ in rows] == [3 * cube] * 2 + [3 * packed] * 4
     for _, seconds, nbytes, bound_s in rows:
         assert seconds > 0 and bound_s == nbytes / HBM_BYTES_PER_S
