@@ -43,7 +43,8 @@ which fails the run:
      fold kernels K16-K20 on the same fields packed into the fold layout
      and K21-K25 on them packed into pairs, and K19 and K24 once more at
      17^3, where the pin-edge delta is live) and time both (CUDA events,
-     median of 20); K1 (a one-pass stage) timed beside its per-sweep form
+     median of 20); K3 and K9 (the streaming restriction stage) bit for
+     bit, K3 at both h; K1 (a one-pass stage) timed beside its per-sweep form
      (one launch a half-sweep) in the same call, at 65^3 and 257^3 and at
      every level of the main path, 9^3-257^3 (CUDA events, and device time
      a call from a trace of 20 calls); K26 against K1 + R timed in
@@ -611,12 +612,13 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
               f"kernel_ms={t_norm[0]:.4f} plain_ms={t_norm[1]:.4f}")
         check(rel <= NORM_RTOL, f"residual_norm_fused n={n}: norm rel diff {rel}")
 
-        # K3 on the random (u, f) as (e, r)
+        # K3 on the random (u, f) as (e, r): the streaming stage, bit for bit
         times = (time_ms(lambda: pk.residual_restrict_fused(u, f, h)),
                  time_ms(lambda: pk.residual_restrict_plain(u, f, h)))
         rc = pk.residual_restrict_fused(u, f, h)
-        record("residual_restrict_fused", n, "", rc, pk.residual_restrict_plain(u, f, h),
-               *times, io=((u, f), (rc,)))
+        rc_ref = pk.residual_restrict_plain(u, f, h)
+        record("residual_restrict_fused", n, "", rc, rc_ref, *times, io=((u, f), (rc,)))
+        check(torch.equal(rc, rc_ref), f"residual_restrict_fused n={n}: not bitwise equal")
 
         # K4: a coarse correction interpolated into (u, f) as (e, r)
         nc = (n + 1) // 2
@@ -679,8 +681,9 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
         times = (time_ms(lambda: ps.residual_restrict_split(*e2, *r2, h)),
                  time_ms(lambda: ps.residual_restrict_split_plain(*e2, *r2, h)))
         rc = ps.residual_restrict_split(*e2, *r2, h)
-        record("residual_restrict_split", n, "", rc,
-               ps.residual_restrict_split_plain(*e2, *r2, h), *times, io=((*e2, *r2), (rc,)))
+        rc_ref = ps.residual_restrict_split_plain(*e2, *r2, h)
+        record("residual_restrict_split", n, "", rc, rc_ref, *times, io=((*e2, *r2), (rc,)))
+        check(torch.equal(rc, rc_ref), f"residual_restrict_split n={n}: not bitwise equal")
         for n_iter in (1, 2):
             times = ()
             if n_iter == 2:
@@ -708,8 +711,10 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
         # K3 and K5 at the electrospray's non-dyadic h, on fields with a live
         # boundary (the mixed case)
         h_es = ES_LENGTH / (n - 1)
-        record("residual_restrict_fused", n, "h=3e-4/(n-1)", pk.residual_restrict_fused(u, f, h_es),
-               pk.residual_restrict_plain(u, f, h_es))
+        rc, rc_ref = pk.residual_restrict_fused(u, f, h_es), pk.residual_restrict_plain(u, f, h_es)
+        record("residual_restrict_fused", n, "h=3e-4/(n-1)", rc, rc_ref)
+        check(torch.equal(rc, rc_ref),
+              f"residual_restrict_fused n={n} h=3e-4/(n-1): not bitwise equal")
         xs = np.linspace(0.0, 1.0, n)[:, None, None]  # volts towards the extractor
         u64 = -1350.0 * xs * xs + 1e-3 * rng.standard_normal((n, n, n))
         es_state = [t.to(dev) for x64 in (u64, 1e3 * rng.standard_normal((n, n, n)))

@@ -55,13 +55,15 @@ _SIGNATURES = {
     "mg_residual": (_P, _P, _P, _I, _F, _P),
     "mg_residual_df_norm_partials": (_I,),
     "mg_residual_df_norm": (_P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
-    "mg_residual_restrict": (_P, _P, _P, _I, _F, _P),
+    # the streaming restrictions: pointers, n, inv_h2, the plan (bci, bcj,
+    # bck, chunks, threads, smem), stream
+    "mg_residual_restrict": (_P, _P, _P, _I, _F) + (_I,) * 6 + (_P,),
     "mg_rb_last_sweep_residual": (_P, _P, _P, _I, _F, _F, _I, _P),
     "mg_residual_df": (_P, _P, _P, _P, _P, _I, _F, _P),
     "mg_df_step_partials": (_I,),
     "mg_df_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
     "mg_split_half_sweep": (_P, _P, _P, _I, _F, _I, _P),
-    "mg_split_residual_restrict": (_P, _P, _P, _P, _P, _I, _F, _P),
+    "mg_split_residual_restrict": (_P,) * 5 + (_I, _F) + (_I,) * 6 + (_P,),
     # the one-pass stages: pointers, n, h2, (red_first,) n_iter, the plan
     # (bi, bj, bk, k_halo, threads, smem), stream
     "mg_split_stage": (_P,) * 6 + (_I, _F, _I, _I) + (_I,) * 6 + (_P,),

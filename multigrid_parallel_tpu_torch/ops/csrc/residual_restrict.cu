@@ -9,68 +9,38 @@
 //   as (0.25 a + 0.5 b) + 0.25 c, left to right.
 // The TPU kernel applies the j and k taps as band-matrix products on its
 // MXU, whose sum order is the compiler's; this kernel, and its plain
-// version, fix the left-to-right order above. The 0.25 / 0.5 scalings
-// are exact, so each 3-tap rounds twice. The taps are computed here, in
-// the kernel's own body (no library matrix product). Coarse points on
+// version, fix the left-to-right order above. The taps are computed here,
+// in the kernel's own body (no library matrix product). Coarse points on
 // the coarse boundary are 0 (correction semantics).
 //
-// One thread per coarse point, k fastest. An interior coarse point
-// combines the 27 fine residuals of its (2c-1 .. 2c+1)^3 cone; all of
-// them lie on the fine interior. Each fine residual reads 7 points of e
-// and one of r, so a thread makes 216 loads, most of which hit L1/L2
-// (neighbouring threads share the cone's faces). Bound: those loads
-// through L1 rather than device memory, whose floor here is 8 B per fine
-// point (e and r read once) plus 4 B per coarse point written. The
-// unfused R moves 12 B per fine point and the three matrix products of
-// the restriction read and write the residual again.
-#include "stencil.cuh"
+// The kernel is restrict.cuh's streaming stage on a plain field (Rect):
+// as the Pallas kernel streams a slab of 2 bi + 3 fine planes through
+// VMEM, a block streams its cone's fine planes through a ring in shared
+// memory, computes each fine residual once, keeps the i taps' partial
+// sums in registers and writes only the coarse RHS. Bound: device memory,
+// 8 B a fine point read and 4 B a coarse point written (restrict.cuh).
+#include "restrict.cuh"
 
 namespace {
 
-__device__ inline float tap3(float a, float b, float c) {
-  return (0.25f * a + 0.5f * b) + 0.25f * c;
-}
+using mg::restriction::Args;
 
-__global__ void residual_restrict_kernel(float* __restrict__ out,
-                                         const float* __restrict__ e,
-                                         const float* __restrict__ r, int n,
-                                         float inv_h2) {
-  const int nc = (n + 1) / 2;
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  int ci, cj, ck;
-  if (!mg::decode(q, nc, ci, cj, ck)) return;
-  if (!mg::is_interior(ci, cj, ck, nc)) {
-    out[q] = 0.0f;
-    return;
-  }
-  const int nn = n * n;
-  // i taps first: plane[dj][dk] combines fine planes 2ci-1, 2ci, 2ci+1
-  float plane[3][3];
-#pragma unroll
-  for (int dj = 0; dj < 3; ++dj) {
-#pragma unroll
-    for (int dk = 0; dk < 3; ++dk) {
-      float rr[3];
-#pragma unroll
-      for (int di = 0; di < 3; ++di) {
-        const int p = (2 * ci - 1 + di) * nn + (2 * cj - 1 + dj) * n + (2 * ck - 1 + dk);
-        rr[di] = r[p] - inv_h2 * (mg::nbr_sum(e, p, n) - 6.0f * e[p]);
-      }
-      plane[dj][dk] = tap3(rr[0], rr[1], rr[2]);
-    }
-  }
-  // then j, then k
-  float y[3];
-#pragma unroll
-  for (int dk = 0; dk < 3; ++dk) y[dk] = tap3(plane[0][dk], plane[1][dk], plane[2][dk]);
-  out[q] = tap3(y[0], y[1], y[2]);
+template <int C>
+__global__ void __launch_bounds__(mg::restriction::kMaxThreads, 2) rect_restrict_kernel(Args a) {
+  extern __shared__ __align__(16) float tile[];
+  mg::restriction::restrict_body<mg::restriction::Rect, C>(a, tile);
 }
 
 }  // namespace
 
-extern "C" int mg_residual_restrict(float* out, const float* e, const float* r,
-                                    int n, float inv_h2, cudaStream_t stream) {
-  residual_restrict_kernel<<<mg::point_blocks((n + 1) / 2), mg::kThreads, 0,
-                             stream>>>(out, e, r, n, inv_h2);
-  return (int)cudaGetLastError();
+// out <- the coarse RHS of (e, r) on the plan (bci, bcj, bck, chunks,
+// threads, smem) of pallas_split._restrict_plan; out must not alias e or r.
+extern "C" int mg_residual_restrict(float* out, const float* e, const float* r, int n,
+                                    float inv_h2, int bci, int bcj, int bck, int chunks,
+                                    int threads, int smem, cudaStream_t stream) {
+  using namespace mg::restriction;
+  const Args a{out, {e, nullptr}, {r, nullptr}, n, inv_h2, bci, bcj, bck, 0};
+  if (const int err = plan_error(a, false, chunks, threads, smem)) return err;
+  return chunks == 1 ? launch(rect_restrict_kernel<1>, a, threads, smem, stream)
+                     : launch(rect_restrict_kernel<kMaxChunks>, a, threads, smem, stream);
 }

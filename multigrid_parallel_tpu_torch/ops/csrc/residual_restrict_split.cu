@@ -16,73 +16,42 @@
 // whose sum order is the compiler's; this kernel and its plain version
 // fix the left-to-right order above. Coarse boundary points are 0.
 //
-// One thread per coarse point, k fastest. It combines 27 fine residuals
-// (3 slots on each of 9 fine rows), each reading 7 slots of the other /
-// own colour and one of r: 216 loads, mostly L1/L2 hits, as in the rect
-// K3. Bound: those loads; the device-memory floor is 8 B per fine grid
-// point (the two pairs read once) plus 4 B per coarse point written.
-#include "split.cuh"
+// The kernel is restrict.cuh's streaming stage on a split pair (Split):
+// a block streams both colours of its cone's fine planes through rings in
+// shared memory (16-byte cp.async where the rows hold a multiple of 4
+// slots, as they do at every 2^m + 1 level past 5), computes each fine
+// residual once, takes the k taps within a warp, keeps the i taps' partial
+// sums in registers and writes only the coarse RHS. Bound: device memory,
+// 8 B a fine grid point read (the two pairs) and 4 B a coarse point
+// written (restrict.cuh).
+#include "restrict.cuh"
 
 namespace {
 
-using namespace mg::split;
+using mg::restriction::Args;
 
-__device__ inline float tap3(float a, float b, float c) {
-  return (0.25f * a + 0.5f * b) + 0.25f * c;
-}
-
-// Residual at slot idx (slot kk, parity p) of the colour (e_c, r_c).
-__device__ inline float slot_residual(const float* e_c, const float* e_o,
-                                      const float* r_c, int idx, int n, int S,
-                                      int kk, int p, float inv_h2) {
-  return r_c[idx] - inv_h2 * (nbr_sum(e_o, idx, n, S, kk, p) - 6.0f * e_c[idx]);
-}
-
-__global__ void split_residual_restrict_kernel(
-    float* __restrict__ out, const float* __restrict__ er,
-    const float* __restrict__ eb, const float* __restrict__ rr,
-    const float* __restrict__ rb, int n, float inv_h2) {
-  const int nc = (n + 1) / 2;
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  int ci, cj, ck;
-  if (!mg::decode(q, nc, ci, cj, ck)) return;
-  if (!mg::is_interior(ci, cj, ck, nc)) {
-    out[q] = 0.0f;
-    return;
-  }
-  const int S = slots(n);
-  float rows_j[3];
-#pragma unroll
-  for (int dj = 0; dj < 3; ++dj) {
-    float rows_i[3];
-#pragma unroll
-    for (int di = 0; di < 3; ++di) {
-      const int i = 2 * ci - 1 + di;
-      const int j = 2 * cj - 1 + dj;
-      // even k's (p = 1): BLACK where i + j is even, RED where odd
-      const bool red_even = (i + j) & 1;
-      const float* e_e = red_even ? er : eb;
-      const float* e_o = red_even ? eb : er;
-      const float* r_e = red_even ? rr : rb;
-      const float* r_o = red_even ? rb : rr;
-      const int base = (i * n + j) * S;
-      const float se = slot_residual(e_e, e_o, r_e, base + ck - 1, n, S, ck - 1, 1, inv_h2);
-      const float so0 = slot_residual(e_o, e_e, r_o, base + ck - 1, n, S, ck - 1, 0, inv_h2);
-      const float so1 = slot_residual(e_o, e_e, r_o, base + ck, n, S, ck, 0, inv_h2);
-      rows_i[di] = 0.5f * se + 0.25f * (so0 + so1);
-    }
-    rows_j[dj] = tap3(rows_i[0], rows_i[1], rows_i[2]);
-  }
-  out[q] = tap3(rows_j[0], rows_j[1], rows_j[2]);
+// Two chunks (only 513^3 and past) hold too much for two blocks an SM's
+// registers: one block an SM, as their shared memory allows anyway.
+template <int C>
+__global__ void __launch_bounds__(mg::restriction::kMaxThreads, C == 1 ? 2 : 1)
+    split_restrict_kernel(Args a) {
+  extern __shared__ __align__(16) float tile[];
+  mg::restriction::restrict_body<mg::restriction::Split, C>(a, tile);
 }
 
 }  // namespace
 
-extern "C" int mg_split_residual_restrict(float* out, const float* er,
-                                          const float* eb, const float* rr,
-                                          const float* rb, int n, float inv_h2,
-                                          cudaStream_t stream) {
-  split_residual_restrict_kernel<<<mg::point_blocks((n + 1) / 2), mg::kThreads, 0,
-                                   stream>>>(out, er, eb, rr, rb, n, inv_h2);
-  return (int)cudaGetLastError();
+// out <- the coarse RHS of the pairs (er, eb), (rr, rb) on the plan (bci,
+// bcj, bck, chunks, threads, smem) of pallas_split._restrict_plan (split).
+extern "C" int mg_split_residual_restrict(float* out, const float* er, const float* eb,
+                                          const float* rr, const float* rb, int n, float inv_h2,
+                                          int bci, int bcj, int bck, int chunks, int threads,
+                                          int smem, cudaStream_t stream) {
+  using namespace mg::restriction;
+  const int S = mg::split::slots(n);
+  const int vec = S % 4 == 0 && (bck >= interior(n) || bck % 4 == 0);
+  const Args a{out, {er, eb}, {rr, rb}, n, inv_h2, bci, bcj, bck, vec};
+  if (const int err = plan_error(a, true, chunks, threads, smem)) return err;
+  return chunks == 1 ? launch(split_restrict_kernel<1>, a, threads, smem, stream)
+                     : launch(split_restrict_kernel<kMaxChunks>, a, threads, smem, stream);
 }

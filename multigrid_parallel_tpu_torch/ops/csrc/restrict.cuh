@@ -1,0 +1,599 @@
+// The streaming restriction stage of K3 (residual_restrict.cu, a plain
+// (n, n, n) correction) and K9 (residual_restrict_split.cu, a split
+// pair): the interior residual of e against r, restricted by full
+// weighting to the coarse (nc, nc, nc) RHS, nc = (n + 1) / 2, in one
+// launch, each fine residual computed once, from tiles of e and r in
+// shared memory, and only the coarse RHS written to device memory.
+//
+// A block owns a box of interior coarse points: bci coarse planes x bcj
+// coarse rows x bck coarse k (the plan, pallas_split._restrict_plan; the
+// tiles are numbered k fastest, then j, then i, and start at coarse
+// point 1), and the coarse boundary points in the box widened by one on
+// a side that reaches the field's edge, which it writes as 0: the output
+// needs no initialisation. Its cone is fine planes 2 ci0 - 1 .. 2 ci1 - 1,
+// fine rows 2 cj0 - 1 .. 2 cj1 - 1 and fine k 2 ck0 - 1 .. 2 ck1 - 1 (the
+// slots ck0 - 1 .. ck1 - 1 of a split row), all on the fine interior.
+// It streams the fine planes of e from 2 ci0 - 2 to 2 ci1, one e plane
+// of halo on each side, and the planes of r over its cone: each plane's
+// footprint (e with one row and one k of halo on each side, r without)
+// goes by cp.async into a ring in shared memory, 3 planes of e and 2 of
+// r, plane p + 2 of e and p + 1 of r in flight while plane p is computed.
+// A step costs one barrier: the plane arrived, the ring slot it reuses
+// read, and the coarse plane that the step before closed in shared memory.
+//
+// A warp owns a fine row of the cone, and each lane groups of 4
+// consecutive points of it (k, or slots), C x 32 groups (C chunks, a
+// template argument), for the whole launch: so the e of plane p - 1 at a
+// lane's points stays in its registers (the i - 1 neighbour at plane p),
+// and so does the i taps' partial sum. A tile row keeps 4 floats before
+// the row's first point, so that every group sits on 16 bytes and a lane
+// reads a neighbour row as one float4. At plane p the lane computes the
+// residual at its points, once, in stencil.cuh's (or split.cuh's)
+// neighbour order, then the taps in the plain version's order:
+// - K3 (residual_restrict_plain): i, then j, then k, each 3-tap as
+//   (0.25 a + 0.5 b) + 0.25 c. Plane 2 ci - 1 closes coarse plane ci - 1
+//   (+ 0.25 R) and opens ci (0.25 R), plane 2 ci adds 0.5 R: the same
+//   roundings as the 3-tap. A closed plane goes to shared memory (A), and
+//   after the next step's barrier the warps apply the j taps and then the
+//   k taps and store its rows, consecutive ck across a warp.
+// - K9 (residual_restrict_split_plain): the k taps first, within the
+//   fine row, 0.5 E[ck - 1] + 0.25 (O[ck - 1] + O[ck]) with E / O the
+//   colour holding the row's even / odd k: a lane holds both colours'
+//   residuals at its slots and takes the next group's first O from the
+//   next lane by a warp shuffle. Then the i taps as K3's, then the j taps
+//   from A.
+// The 0.25 and 0.5 scalings are single IEEE roundings like the rest
+// (built with --fmad=false), so the result equals the plain version's
+// bit for bit.
+//
+// Bound: device memory. The function needs e and r read once (8 B a
+// fine point, 8 B a grid point for a split pair) and the coarse RHS
+// written (4 B a coarse point); the blocks re-read their halo rows and
+// planes, (2 bci + 3) / (2 bci) in i and (2 bcj + 3) / (2 bcj) in j for
+// e, about a quarter more bytes at the main path's plan, much of it from
+// L2. The first forms (one thread a coarse point, 216 loads each, every
+// fine residual computed 27 / 8 times) were bound by load instructions
+// and cache traffic instead.
+#pragma once
+
+#include "split.cuh"
+
+namespace mg {
+namespace restriction {
+
+using split::comp;
+using split::cp_async16;
+using split::cp_async4;
+using split::cp_async_commit;
+using split::ld4;
+using split::st4;
+
+// Coarse rows a block owns at most; a warp a fine row of its cone.
+constexpr int kMaxRows = 8;
+constexpr int kMaxThreads = 32 * (2 * kMaxRows + 1);
+// Chunks of 32 groups of 4 points a fine row at most (registers: each
+// chunk holds a lane's e of the plane before and the i taps' partial sum,
+// both colours' e for K9).
+constexpr int kMaxChunks = 2;
+// Tile columns of e before a row's first point.
+constexpr int kPad = 4;
+
+__device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+
+// The full-weighting 3-tap, as the plain versions compute it.
+__device__ inline float tap3(float a, float b, float c) {
+  return (0.25f * a + 0.5f * b) + 0.25f * c;
+}
+
+struct Args {
+  float* out;
+  const float* e[2];  // K3: e[0]; K9: (red, black)
+  const float* r[2];
+  int n;
+  float inv_h2;
+  int bci, bcj, bck;  // the plan (pallas_split._restrict_plan)
+  int vec;            // K9: 16-byte copies (every loaded row starts and ends on 4 slots)
+};
+
+// Interior coarse points along an axis.
+__host__ __device__ inline int interior(int n) { return (n + 1) / 2 - 2; }
+
+// Fine residual points of a tile row of a box of bck coarse k: K3 fine k,
+// K9 slots.
+__host__ __device__ inline int row_points(int bck, bool split) {
+  return split ? bck + 1 : 2 * bck + 1;
+}
+
+// Floats a tile row holds: e (kPad before the first point, one k of halo
+// past the last, and the last group's reads past that), r, and A (a
+// closed plane of i-tapped values); the same formula as
+// pallas_split._restrict_widths.
+struct Widths {
+  int we, wr, wa;
+};
+
+__host__ __device__ inline Widths widths(int bck, bool split) {
+  const int pts = row_points(bck, split);
+  return {round4(pts + 2 * kPad), round4(pts), round4(pts)};
+}
+
+// Tile planes of e and of r in a block's rings.
+constexpr int kERing = 3;
+constexpr int kRRing = 2;
+
+// Shared-memory bytes of a block: the e ring (planes of 2 bcj + 3 rows),
+// the r ring (2 bcj + 1 rows), both colours of each for K9, and A (2 bcj +
+// 1 rows). pallas_split._restrict_smem computes the same; the launchers
+// reject a plan that differs.
+__host__ __device__ inline long long smem_bytes(int bcj, int bck, bool split) {
+  const Widths w = widths(bck, split);
+  const long long colours = split ? 2 : 1, re = 2 * bcj + 3, rr = 2 * bcj + 1;
+  return 4 * (colours * (kERing * re * w.we + kRRing * rr * w.wr) + rr * w.wa);
+}
+
+inline int blocks(const Args& a) {
+  const int m = interior(a.n);
+  return ((m + a.bci - 1) / a.bci) * ((m + a.bcj - 1) / a.bcj) * ((m + a.bck - 1) / a.bck);
+}
+
+// 0 when the kernels take the plan: a box inside the interior, at most
+// kMaxRows coarse rows, a warp a fine row, C chunks a power of 2 up to
+// kMaxChunks that cover a row, the shared memory the formula gives.
+inline int plan_error(const Args& a, bool split, int chunks, int threads, long long smem) {
+  const int m = interior(a.n);
+  const bool chunks_ok = (chunks == 1 || chunks == kMaxChunks) &&
+                         128 * chunks >= row_points(a.bck, split);
+  if (m < 1 || a.bci < 1 || a.bci > m || a.bcj < 1 || a.bcj > imin(m, kMaxRows) || a.bck < 1 ||
+      a.bck > m || !chunks_ok || threads != 32 * (2 * a.bcj + 1) ||
+      smem != smem_bytes(a.bcj, a.bck, split))
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// One block's box and footprint.
+struct Geom {
+  int n, nc, S;
+  int ci0, ci1, cj0, cj1, ck0, ck1;  // the owned interior coarse box
+  int rows;                          // fine rows of the cone, from 2 cj0 - 1
+  int pts;                           // residual points a row, from k0
+  int k0;                            // the row's first point (K3 fine k 2 ck0 - 1, K9 slot ck0 - 1)
+  int ka, kb;                        // the loaded e columns (K3 fine k, K9 slots)
+  int ra, rb;                        // the loaded r columns
+  int pa;                            // the first e plane, 2 ci0 - 2
+  Widths w;
+};
+
+__device__ inline Geom geometry(const Args& a, bool split) {
+  Geom g;
+  g.n = a.n;
+  g.nc = (a.n + 1) / 2;
+  g.S = split::slots(a.n);
+  const int m = g.nc - 2;
+  const int nj = (m + a.bcj - 1) / a.bcj, nk = (m + a.bck - 1) / a.bck;
+  const int tk = blockIdx.x % nk, tj = (blockIdx.x / nk) % nj, ti = blockIdx.x / (nk * nj);
+  g.ci0 = 1 + ti * a.bci;
+  g.ci1 = imin(g.ci0 + a.bci, g.nc - 1);
+  g.cj0 = 1 + tj * a.bcj;
+  g.cj1 = imin(g.cj0 + a.bcj, g.nc - 1);
+  g.ck0 = 1 + tk * a.bck;
+  g.ck1 = imin(g.ck0 + a.bck, g.nc - 1);
+  g.rows = 2 * (g.cj1 - g.cj0) + 1;
+  g.pa = 2 * g.ci0 - 2;
+  g.w = widths(a.bck, split);
+  if (!split) {
+    g.pts = 2 * (g.ck1 - g.ck0) + 1;
+    g.k0 = 2 * g.ck0 - 1;
+    g.ka = g.k0 - 1;
+    g.kb = 2 * g.ck1 + 1;
+    g.ra = g.k0;
+    g.rb = 2 * g.ck1;
+  } else {
+    // residual slots ck0 - 1 .. ck1 - 1, their k neighbours one slot out;
+    // with 16-byte copies the windows open and close on 4 slots (ck0 - 1
+    // is a multiple of 4 there, bck being one)
+    g.pts = g.ck1 - g.ck0 + 1;
+    g.k0 = g.ck0 - 1;
+    g.ra = g.k0;
+    if (a.vec) {
+      g.ka = imax(g.k0 - 4, 0);
+      g.kb = imin((g.ck1 + 4) & ~3, g.S);
+      g.rb = imin((g.ck1 + 3) & ~3, g.S);
+    } else {
+      g.ka = imax(g.k0 - 1, 0);
+      g.kb = imin(g.ck1 + 1, g.S);
+      g.rb = g.ck1;
+    }
+  }
+  return g;
+}
+
+// Start copying rows [j0, j1) x columns [c0, c1) of plane q of a field of
+// rows of `len` floats into a tile whose row 0 is field row jt and whose
+// column col0 holds field column c0, W floats a row: a warp a row,
+// consecutive columns across it, 16 bytes (V = 4) or 4 a lane.
+template <int V>
+__device__ inline void load_box(float* tile, const float* __restrict__ g, int q, int n, int len,
+                                int j0, int j1, int c0, int c1, int col0, int jt, int W,
+                                int warp, int lane, int nwarps) {
+  for (int j = j0 + warp; j < j1; j += nwarps) {
+    float* d = tile + (j - jt) * W + col0 - c0;
+    const float* s = g + (q * n + j) * len;
+    for (int c = c0 + V * lane; c < c1; c += 32 * V) {
+      if constexpr (V == 4) {
+        cp_async16(d + c, s + c);
+      } else {
+        cp_async4(d + c, s + c);
+      }
+    }
+  }
+}
+
+// Write 0 at the coarse boundary points of the block's box widened by one
+// on each side at the field's edge: whole rows where the plane or the row
+// is a boundary one, else the row's ends; a warp a row.
+__device__ inline void zero_boundary(float* __restrict__ out, const Geom& g, int warp, int lane,
+                                     int nwarps) {
+  const int last = g.nc - 1;
+  const int ia = g.ci0 == 1 ? 0 : g.ci0, ib = g.ci1 == last ? g.nc : g.ci1;
+  const int ja = g.cj0 == 1 ? 0 : g.cj0, jb = g.cj1 == last ? g.nc : g.cj1;
+  const int ka = g.ck0 == 1 ? 0 : g.ck0, kb = g.ck1 == last ? g.nc : g.ck1;
+  const int nj = jb - ja;
+  for (int row = warp; row < (ib - ia) * nj; row += nwarps) {
+    const int ci = ia + row / nj, cj = ja + row % nj;
+    float* o = out + (ci * g.nc + cj) * g.nc;
+    if (ci == 0 || ci == last || cj == 0 || cj == last) {
+      for (int ck = ka + lane; ck < kb; ck += 32) o[ck] = 0.0f;
+    } else if (lane == 0) {
+      if (ka == 0) o[0] = 0.0f;
+      if (kb == g.nc) o[last] = 0.0f;
+    }
+  }
+}
+
+// The coarse rows of plane ci from A, spread over the block's warps: each
+// item a coarse row's 32 consecutive ck; `tap(a0, W, t)` the value of
+// coarse point t of the row whose A rows start at a0.
+template <class Tap>
+__device__ inline void store_coarse(float* __restrict__ out, const float* A, const Geom& g,
+                                    int ci, int W, int warp, int lane, int nwarps, Tap tap) {
+  const int ncr = g.cj1 - g.cj0, nck = g.ck1 - g.ck0, groups = (nck + 31) >> 5;
+  for (int it = warp; it < ncr * groups; it += nwarps) {
+    const int cr = it / groups, t = 32 * (it - cr * groups) + lane;
+    if (t < nck) out[(ci * g.nc + g.cj0 + cr) * g.nc + g.ck0 + t] = tap(A + 2 * cr * W, W, t);
+  }
+}
+
+// K3's layout: one field, tile rows of fine k, point b (fine k k0 + b) of
+// e at column kPad + b, of r and A at column b.
+struct Rect {
+  static constexpr bool kSplit = false;
+  float* ering;  // kERing planes of 2 bcj + 3 rows x we
+  float* rring;  // kRRing planes of 2 bcj + 1 rows x wr
+  float* A;      // 2 bcj + 1 rows x wa
+  int pe, pr;    // floats a plane
+
+  __device__ Rect(const Args& a, const Geom& g, float* smem) {
+    pe = (2 * a.bcj + 3) * g.w.we;
+    pr = (2 * a.bcj + 1) * g.w.wr;
+    ering = smem;
+    rring = ering + kERing * pe;
+    A = rring + kRRing * pr;
+  }
+
+  __device__ float* e_plane(const Geom& g, int q) const {
+    return ering + ((q - g.pa) % kERing) * pe;
+  }
+  __device__ float* r_plane(const Geom& g, int q) const {
+    return rring + ((q - g.pa) % kRRing) * pr;
+  }
+
+  __device__ void load_e(const Args& a, const Geom& g, int q, int warp, int lane,
+                         int nwarps) const {
+    load_box<1>(e_plane(g, q), a.e[0], q, g.n, g.n, 2 * g.cj0 - 2, 2 * g.cj1 + 1, g.ka, g.kb,
+                kPad - 1, 2 * g.cj0 - 2, g.w.we, warp, lane, nwarps);
+  }
+
+  __device__ void load_r(const Args& a, const Geom& g, int q, int warp, int lane,
+                         int nwarps) const {
+    load_box<1>(r_plane(g, q), a.r[0], q, g.n, g.n, 2 * g.cj0 - 1, 2 * g.cj1, g.ra, g.rb, 0,
+                2 * g.cj0 - 1, g.w.wr, warp, lane, nwarps);
+  }
+
+  // Its e at plane q at each of the lane's points (fine row `row`).
+  template <int C>
+  __device__ void init_prev(float4 (&prev)[2][C], const Geom& g, int q, int row, int lane) const {
+    const float* mid = e_plane(g, q) + (row + 1) * g.w.we + kPad;
+#pragma unroll
+    for (int m = 0; m < C; ++m) {
+      const int b = 4 * (32 * m + lane);
+      if (b < g.pts) prev[0][m] = ld4(mid + b);
+    }
+  }
+
+  // The residual at the lane's points of fine row `row` of plane p, each
+  // group handed to sink(m, values): r - inv_h2 (nbr_sum - 6 e), the
+  // neighbours i - 1 (prev), i + 1, j - 1, j + 1, k - 1, k + 1 (stencil.cuh,
+  // nbr_sum); prev becomes plane p's e. A group past the row's last point
+  // computes values that nothing reads.
+  template <int C, class Sink>
+  __device__ void row_values(float4 (&prev)[2][C], const Args& a, const Geom& g, int p, int row,
+                             int lane, Sink sink) const {
+    const int W = g.w.we;
+    const float* mid = e_plane(g, p) + (row + 1) * W + kPad;
+    const float* hi = e_plane(g, p + 1) + (row + 1) * W + kPad;
+    const float* rr = r_plane(g, p) + row * g.w.wr;
+#pragma unroll
+    for (int m = 0; m < C; ++m) {
+      const int b = 4 * (32 * m + lane);
+      if (b < g.pts) {
+        const float4 c = ld4(mid + b), h = ld4(hi + b), jm = ld4(mid + b - W),
+                     jp = ld4(mid + b + W), r = ld4(rr + b), lo = prev[0][m];
+        const float left = mid[b - 1], right = mid[b + 4];
+        float x[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float s = comp(lo, i);
+          s = s + comp(h, i);
+          s = s + comp(jm, i);
+          s = s + comp(jp, i);
+          s = s + (i == 0 ? left : comp(c, i - 1));
+          s = s + (i == 3 ? right : comp(c, i + 1));
+          x[i] = comp(r, i) - a.inv_h2 * (s - 6.0f * comp(c, i));
+        }
+        prev[0][m] = c;
+        sink(m, make_float4(x[0], x[1], x[2], x[3]));
+      }
+    }
+  }
+
+  // Coarse plane ci from A: the j taps, then the k taps.
+  __device__ void coarse_rows(float* __restrict__ out, const Geom& g, int ci, int warp, int lane,
+                              int nwarps) const {
+    store_coarse(out, A, g, ci, g.w.wa, warp, lane, nwarps, [](const float* a0, int W, int t) {
+      float y[3];
+#pragma unroll
+      for (int dk = 0; dk < 3; ++dk) {
+        const int b = 2 * t + dk;
+        y[dk] = tap3(a0[b], a0[W + b], a0[2 * W + b]);
+      }
+      return tap3(y[0], y[1], y[2]);
+    });
+  }
+};
+
+// K9's layout: a split pair, tile rows of slots, both colours; slot
+// k0 + s of e at column kPad + s, of r and A at column s.
+struct Split {
+  static constexpr bool kSplit = true;
+  float* ering;  // kERing planes x 2 colours of 2 bcj + 3 rows x we
+  float* rring;  // kRRing planes x 2 colours of 2 bcj + 1 rows x wr
+  float* A;      // 2 bcj + 1 rows x wa
+  int pe, pr;
+
+  __device__ Split(const Args& a, const Geom& g, float* smem) {
+    pe = (2 * a.bcj + 3) * g.w.we;
+    pr = (2 * a.bcj + 1) * g.w.wr;
+    ering = smem;
+    rring = ering + 2 * kERing * pe;
+    A = rring + 2 * kRRing * pr;
+  }
+
+  __device__ float* e_plane(const Geom& g, int c, int q) const {
+    return ering + (2 * ((q - g.pa) % kERing) + c) * pe;
+  }
+  __device__ float* r_plane(const Geom& g, int c, int q) const {
+    return rring + (2 * ((q - g.pa) % kRRing) + c) * pr;
+  }
+
+  template <int V>
+  __device__ void load_pair(float* t0, float* t1, const float* const* f, const Geom& g, int q,
+                            int j0, int j1, int c0, int c1, int col0, int W, int warp, int lane,
+                            int nwarps) const {
+    load_box<V>(t0, f[0], q, g.n, g.S, j0, j1, c0, c1, col0, j0, W, warp, lane, nwarps);
+    load_box<V>(t1, f[1], q, g.n, g.S, j0, j1, c0, c1, col0, j0, W, warp, lane, nwarps);
+  }
+
+  __device__ void load_e(const Args& a, const Geom& g, int q, int warp, int lane,
+                         int nwarps) const {
+    const int col0 = kPad + g.ka - g.k0;
+    if (a.vec) {
+      load_pair<4>(e_plane(g, 0, q), e_plane(g, 1, q), a.e, g, q, 2 * g.cj0 - 2, 2 * g.cj1 + 1,
+                   g.ka, g.kb, col0, g.w.we, warp, lane, nwarps);
+    } else {
+      load_pair<1>(e_plane(g, 0, q), e_plane(g, 1, q), a.e, g, q, 2 * g.cj0 - 2, 2 * g.cj1 + 1,
+                   g.ka, g.kb, col0, g.w.we, warp, lane, nwarps);
+    }
+  }
+
+  __device__ void load_r(const Args& a, const Geom& g, int q, int warp, int lane,
+                         int nwarps) const {
+    if (a.vec) {
+      load_pair<4>(r_plane(g, 0, q), r_plane(g, 1, q), a.r, g, q, 2 * g.cj0 - 1, 2 * g.cj1, g.ra,
+                   g.rb, 0, g.w.wr, warp, lane, nwarps);
+    } else {
+      load_pair<1>(r_plane(g, 0, q), r_plane(g, 1, q), a.r, g, q, 2 * g.cj0 - 1, 2 * g.cj1, g.ra,
+                   g.rb, 0, g.w.wr, warp, lane, nwarps);
+    }
+  }
+
+  // The colour holding the even k of fine row j of plane q (slot parity
+  // 1): red where i + j is odd.
+  __device__ static int even_colour(int q, int j) { return ((q + j) & 1) ? 0 : 1; }
+
+  // The e at plane q at each of the lane's slots by role: prev[0] the
+  // colour holding the row's even k there, prev[1] the other. A colour's
+  // role flips from plane to plane, so at plane q + 1 prev[0] is the e of
+  // the colour that then holds the odd k: the i - 1 neighbour of the
+  // even-k colour's residual, and prev[1] that of the odd-k one's.
+  template <int C>
+  __device__ void init_prev(float4 (&prev)[2][C], const Geom& g, int q, int row, int lane) const {
+    const int ce = even_colour(q, 2 * g.cj0 - 1 + row);
+    const int o = (row + 1) * g.w.we + kPad;
+    const float* te = e_plane(g, ce, q) + o;
+    const float* to = e_plane(g, 1 - ce, q) + o;
+#pragma unroll
+    for (int m = 0; m < C; ++m) {
+      const int s = 4 * (32 * m + lane);
+      if (s < g.pts) {
+        prev[0][m] = ld4(te + s);
+        prev[1][m] = ld4(to + s);
+      }
+    }
+  }
+
+  // The k-tapped values of fine row `row` of plane p at the lane's coarse
+  // k, each group handed to sink(m, values): both colours' residuals at
+  // slots kk = k0 + s (split.cuh's nbr_sum order: the other colour at
+  // i - 1 (prev), i + 1, j - 1, j + 1, kk, then kk - 1 where the colour's
+  // k is odd, kk + 1 where even, 0 past the row), then
+  // 0.5 E[kk] + 0.25 (O[kk] + O[kk + 1]), E / O the colour holding the
+  // row's even / odd k, the group's last O[kk + 1] from the next lane (or
+  // the next chunk's first); prev becomes plane p's e. Slots past the
+  // row's last point compute values that nothing reads.
+  template <int C, class Sink>
+  __device__ void row_values(float4 (&prev)[2][C], const Args& a, const Geom& g, int p, int row,
+                             int lane, Sink sink) const {
+    const int ce = even_colour(p, 2 * g.cj0 - 1 + row);
+    const int W = g.w.we, oe = (row + 1) * W + kPad, orr = row * g.w.wr;
+    const float* me = e_plane(g, ce, p) + oe;  // even-k colour, plane p
+    const float* mo = e_plane(g, 1 - ce, p) + oe;
+    const float* he = e_plane(g, ce, p + 1) + oe;
+    const float* ho = e_plane(g, 1 - ce, p + 1) + oe;
+    const float* re = r_plane(g, ce, p) + orr;
+    const float* ro = r_plane(g, 1 - ce, p) + orr;
+    // group m's (E, O) residuals at slots k0 + s .. + 3
+    auto group = [&](int m, float (&se)[4], float (&so)[4]) {
+      const int s = 4 * (32 * m + lane);
+      if (s >= g.pts) return;
+      const float4 ve = ld4(me + s), vo = ld4(mo + s), vhe = ld4(he + s), vho = ld4(ho + s);
+      const float4 oem = ld4(mo + s - W), oep = ld4(mo + s + W);  // O's j -+ 1, for E
+      const float4 eom = ld4(me + s - W), eop = ld4(me + s + W);  // E's j -+ 1, for O
+      const float4 vre = ld4(re + s), vro = ld4(ro + s);
+      const float o_right = mo[s + 4], e_left = me[s - 1];
+      const float4 le = prev[0][m], lo = prev[1][m];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kk = g.k0 + s + i;
+        // E (k parity 1): the other colour O, its kk + 1 last
+        float t = comp(le, i);
+        t = t + comp(vho, i);
+        t = t + comp(oem, i);
+        t = t + comp(oep, i);
+        t = t + comp(vo, i);
+        t = t + (kk + 1 < g.S ? (i == 3 ? o_right : comp(vo, i + 1)) : 0.0f);
+        se[i] = comp(vre, i) - a.inv_h2 * (t - 6.0f * comp(ve, i));
+        // O (k parity 0): the other colour E, its kk - 1 last
+        float u = comp(lo, i);
+        u = u + comp(vhe, i);
+        u = u + comp(eom, i);
+        u = u + comp(eop, i);
+        u = u + comp(ve, i);
+        u = u + (kk > 0 ? (i == 0 ? e_left : comp(ve, i - 1)) : 0.0f);
+        so[i] = comp(vro, i) - a.inv_h2 * (u - 6.0f * comp(vo, i));
+      }
+      prev[0][m] = ve;
+      prev[1][m] = vo;
+    };
+    float se[4] = {}, so[4] = {};
+    group(0, se, so);
+#pragma unroll
+    for (int m = 0; m < C; ++m) {
+      float se_next[4] = {}, so_next[4] = {};
+      if (m + 1 < C) group(m + 1, se_next, so_next);
+      float up = __shfl_down_sync(0xffffffffu, so[0], 1);
+      const float wrap = __shfl_sync(0xffffffffu, so_next[0], 0);
+      if (lane == 31) up = wrap;
+      if (4 * (32 * m + lane) < g.pts) {
+        float x[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          x[i] = 0.5f * se[i] + 0.25f * (so[i] + (i == 3 ? up : so[i + 1]));
+        sink(m, make_float4(x[0], x[1], x[2], x[3]));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        se[i] = se_next[i];
+        so[i] = so_next[i];
+      }
+    }
+  }
+
+  // Coarse plane ci from A: the j taps.
+  __device__ void coarse_rows(float* __restrict__ out, const Geom& g, int ci, int warp, int lane,
+                              int nwarps) const {
+    store_coarse(out, A, g, ci, g.w.wa, warp, lane, nwarps, [](const float* a0, int W, int t) {
+      return tap3(a0[t], a0[W + t], a0[2 * W + t]);
+    });
+  }
+};
+
+// The stage: the prologue (e planes 2 ci0 - 2 .. 2 ci0, r planes 2 ci0 - 1
+// and 2 ci0; the block's boundary zeros stored while they fly), then a
+// step a fine plane p of the cone: wait for plane p + 1 of e and p of r, a
+// barrier, the rows of the coarse plane the step before closed, start e
+// plane p + 2 and r plane p + 1 (into the ring slots of plane p - 1), the
+// row values and the i taps, and where p = 2 ci - 1 closes coarse plane
+// ci - 1, its i-tapped plane into A.
+template <class L, int C>
+__device__ void restrict_body(const Args& a, float* smem) {
+  const Geom g = geometry(a, L::kSplit);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  const L lay(a, g, smem);
+  const int pa = g.pa, pe = 2 * g.ci1, p1 = 2 * g.ci1 - 1;
+  for (int q = pa; q < pa + kERing; ++q) lay.load_e(a, g, q, warp, lane, nwarps);
+  for (int q = pa + 1; q <= pa + kRRing; ++q) lay.load_r(a, g, q, warp, lane, nwarps);
+  cp_async_commit();
+  zero_boundary(a.out, g, warp, lane, nwarps);  // while the copies fly
+  cp_async_wait_all();
+  __syncthreads();
+  const bool mine = warp < g.rows;  // a warp a fine row of the cone
+  float4 prev[2][C], acc[C];
+  if (mine) lay.template init_prev<C>(prev, g, pa, warp, lane);
+  float* arow = lay.A + warp * g.w.wa;
+  for (int p = pa + 1; p <= p1; ++p) {
+    cp_async_wait_all();
+    __syncthreads();  // plane p + 1 of e and p of r in; ring slots of p - 1 and A read
+    // the coarse plane the step before closed (p - 1 = 2 ci - 1)
+    if (!(p & 1) && p > pa + 2) lay.coarse_rows(a.out, g, p / 2 - 1, warp, lane, nwarps);
+    if (p + 2 <= pe) lay.load_e(a, g, p + 2, warp, lane, nwarps);
+    if (p > pa + 1 && p + 1 <= p1) lay.load_r(a, g, p + 1, warp, lane, nwarps);
+    cp_async_commit();
+    const bool opens = p & 1;                 // p = 2 ci - 1
+    const bool closes = opens && p > pa + 1;  // and the last plane of ci - 1's cone
+    if (mine) {
+      // the i taps of the lane's group m: 0.25 R opens coarse plane ci,
+      // closing ci - 1 with it; 0.5 R adds the middle plane
+      lay.template row_values<C>(prev, a, g, p, warp, lane, [&](int m, float4 x) {
+        float4& s = acc[m];
+        if (opens) {
+          const float4 q = make_float4(0.25f * x.x, 0.25f * x.y, 0.25f * x.z, 0.25f * x.w);
+          if (closes)
+            st4(arow + 4 * (32 * m + lane),
+                make_float4(s.x + q.x, s.y + q.y, s.z + q.z, s.w + q.w));
+          s = q;
+        } else {
+          s = make_float4(s.x + 0.5f * x.x, s.y + 0.5f * x.y, s.z + 0.5f * x.z, s.w + 0.5f * x.w);
+        }
+      });
+    }
+  }
+  __syncthreads();  // the last coarse plane, ci1 - 1, in A
+  lay.coarse_rows(a.out, g, g.ci1 - 1, warp, lane, nwarps);
+}
+
+// Launch one instantiation on the plan's grid; a cudaError_t.
+template <class Kernel>
+inline int launch(Kernel kernel, const Args& a, int threads, int smem, cudaStream_t stream) {
+  if (const int err = split::raise_smem_limit((const void*)kernel)) return err;
+  kernel<<<blocks(a), threads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace restriction
+}  // namespace mg

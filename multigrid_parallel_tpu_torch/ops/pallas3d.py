@@ -14,7 +14,7 @@ and its CUDA source in ops/csrc/:
   R   residual_fused              residual_fused_pipelined,       residual.cu
                                   residual_fused_padded, and the
                                   cube wrapper residual_fused
-  K3  residual_restrict_fused     residual_restrict_fused_padded  residual_restrict.cu
+  K3  residual_restrict_fused     residual_restrict_fused_padded  residual_restrict.cu, restrict.cuh
   K4  prolong_smooth_fused        prolong_smooth_fused_padded     prolong_smooth.cu, rect.cuh
   K5  residual_df_norm_fused      residual_df_norm_fused_padded   residual_df_norm.cu
   K6  df_step_residual_norm_fused df_step_residual_norm_fused     df_step.cu
@@ -31,7 +31,11 @@ stage kernels (rect.cuh): one launch runs all 2 n_iter <= 4 half-sweeps
 of a stage on tiles in shared memory (``pallas_split._stage_plan`` with
 ``rect=True`` cuts the level into blocks) and writes a fresh field, its
 inputs left as they are (K1 loads its initial guess, K2's tile starts as
-zeros). Fields are plain contiguous (n, n, n)
+zeros). K3 is the streaming restriction stage that K9 shares
+(restrict.cuh): one launch a call streams the fine planes through shared
+memory and computes each fine residual once (``pallas_split.
+_restrict_plan`` cuts the coarse interior into blocks). Fields are plain
+contiguous (n, n, n)
 tensors: the port has none of the TPU's lane padding. A wrapper takes
 the plain version for a tensor on the CPU, launches its kernel for a
 CUDA tensor (float32, contiguous, cubic), and raises for anything else:
@@ -305,16 +309,22 @@ def residual_restrict_plain(e, r, h: float):
 def residual_restrict_fused(e, r, h: float):
     """(n, n, n) correction e and its RHS r -> the (nc, nc, nc) coarse
     RHS, nc = (n + 1) / 2: full weighting of the interior residual, zero
-    coarse boundary, without storing the fine residual."""
+    coarse boundary, without storing the fine residual; the inputs are
+    left as they are. The CUDA form is one launch of the streaming
+    restriction stage (restrict.cuh) on ``pallas_split._restrict_plan``;
+    it takes n >= 5."""
     n = e.shape[0]
     if n % 2 == 0:
         raise ValueError(f"restriction needs an odd size, got n = {n}")
     if not _on_cuda(e, r):
         return residual_restrict_plain(e, r, h)
+    from multigrid_parallel_tpu_torch.ops import pallas_split as ps
+
     nc = (n + 1) // 2
     out = torch.empty((nc, nc, nc), dtype=e.dtype, device=e.device)
     _check(_lib().mg_residual_restrict(out.data_ptr(), e.data_ptr(), r.data_ptr(),
-                                       n, 1.0 / (h * h), _stream()),
+                                       n, 1.0 / (h * h), *ps._restrict_args(n, e.device),
+                                       _stream()),
            "residual_restrict_fused")
     LAUNCHES["residual_restrict_fused"] += 1
     return out

@@ -8,7 +8,7 @@ and its CUDA source in ops/csrc/ (all share split.cuh):
 
   K7  rb_smooth_split            rb_smooth_split              rb_smooth_split.cu
   K8  rb_smooth_split_from_zero  rb_smooth_split_from_zero    rb_smooth_split.cu
-  K9  residual_restrict_split    residual_restrict_split      residual_restrict_split.cu
+  K9  residual_restrict_split    residual_restrict_split      residual_restrict_split.cu, restrict.cuh
   K10 prolong_smooth_split       prolong_smooth_split         prolong_smooth_split.cu
   K11 df_step_split              df_step_split                df_split.cu
   K12 residual_df_norm_split     residual_df_norm_split       df_split.cu
@@ -50,7 +50,9 @@ launches that K8 and K10 run past n_iter = 2 count as theirs).
 K7, K8 and K10 are one-pass stage kernels: one launch runs all 2 n_iter
 <= 4 half-sweeps of a stage on tiles in shared memory (``_stage_plan``
 cuts the level into blocks) and writes a fresh pair; K8's tile starts as
-zeros.
+zeros. K9 is the streaming restriction stage that K3 shares
+(restrict.cuh; the plan ``_restrict_plan``): one launch a call, each fine
+residual computed once.
 """
 
 from __future__ import annotations
@@ -412,7 +414,7 @@ def _box_plan(n: int, n_iter: int, sms: int, prolong: bool) -> StagePlan:
     s, halo = _slots(n, True), 2 * n_iter
     width = _stage_width(n, s, 0, True)
     per_warp = 32 // _row_lanes(s)
-    evened = [b for b in range(1, n + 1) if -(-n // -(-n // b)) == b]
+    evened = _evened(n)
     best = None
     for bi in evened:
         for bj in evened:
@@ -538,6 +540,173 @@ def rb_smooth_split_from_zero(fr, fb, h: float, n_iter: int, red_first: bool = T
     return er, eb
 
 
+# ------------------------- the streaming restriction stage (K3 and K9)
+
+RESTRICT_MAX_ROWS = 8     # coarse rows a block owns at most (restrict.cuh, kMaxRows)
+RESTRICT_MAX_CHUNKS = 2   # chunks of 32 groups of 4 points a fine row at most (kMaxChunks)
+RESTRICT_PAD = 4          # tile columns of e before a row's first point (kPad)
+RESTRICT_REGISTERS = 56   # registers a thread takes (__launch_bounds__(544, 2))
+# The cost model's constants, fitted to the stage's device times on an H100
+# (utils/stage_plans.py --restrict): a step's latency, and the bytes an
+# SM's blocks copy a microsecond.
+RESTRICT_STEP_US = 0.9
+RESTRICT_SM_BYTES_PER_US = 20e3
+
+
+class RestrictPlan(NamedTuple):
+    """How one launch of the streaming restriction stage (restrict.cuh:
+    K3's on a plain n^3 level, K9's where ``split``) cuts the level's
+    interior coarse points: blocks own boxes of ``bci`` coarse planes x
+    ``bcj`` coarse rows x ``bck`` coarse k, tiles numbered k fastest, then
+    j, then i, from coarse point 1 (a block at the field's edge also
+    zeroes the coarse boundary next to its box); a warp a fine row of the
+    box's cone, ``threads`` = 32 (2 bcj + 1), its lanes ``chunks`` x 32
+    groups of 4 points of the row; ``smem`` the bytes of shared memory a
+    block takes (``_restrict_smem``)."""
+    n: int
+    split: bool
+    bci: int
+    bcj: int
+    bck: int
+    chunks: int
+    threads: int
+    smem: int
+
+    @property
+    def tiles(self):
+        """(planes, rows, k): the number of boxes along each axis."""
+        m = _interior(self.n)
+        return (-(-m // self.bci), -(-m // self.bcj), -(-m // self.bck))
+
+    @property
+    def blocks(self) -> int:
+        ni, nj, nk = self.tiles
+        return ni * nj * nk
+
+    @property
+    def args(self):
+        """The launchers' plan arguments: (bci, bcj, bck, chunks, threads,
+        smem)."""
+        return (self.bci, self.bcj, self.bck, self.chunks, self.threads, self.smem)
+
+
+def _interior(n: int) -> int:
+    """Interior coarse points along an axis of an n-point level."""
+    return (n + 1) // 2 - 2
+
+
+def _restrict_points(bck: int, split: bool) -> int:
+    """Residual points of a fine row of a box of bck coarse k: bck + 1
+    slots on a split level, 2 bck + 1 fine k on a plain one."""
+    return bck + 1 if split else 2 * bck + 1
+
+
+def _restrict_widths(bck: int, split: bool):
+    """(e, r, A) floats of a tile row of a box of bck coarse k, each a
+    multiple of 4: e the row's points, ``RESTRICT_PAD`` before them and as
+    many after (its k halo and the last group's reads), r and A the points
+    (restrict.cuh, widths)."""
+    pts = _restrict_points(bck, split)
+    r4 = -(-pts // 4) * 4
+    return -(-(pts + 2 * RESTRICT_PAD) // 4) * 4, r4, r4
+
+
+def _restrict_smem(bcj: int, bck: int, split: bool) -> int:
+    """Shared-memory bytes of a block: a ring of 3 e planes of 2 bcj + 3
+    rows and 2 r planes of 2 bcj + 1 rows (both colours of each on a split
+    level), and A, 2 bcj + 1 rows (restrict.cuh, smem_bytes, which the
+    launchers check a plan against)."""
+    we, wr, wa = _restrict_widths(bck, split)
+    colours = 2 if split else 1
+    return 4 * (colours * (3 * (2 * bcj + 3) * we + 2 * (2 * bcj + 1) * wr)
+                + (2 * bcj + 1) * wa)
+
+
+def _restrict_chunks(bck: int, split: bool):
+    """The chunks of 32 groups of 4 points a lane's warp takes for a fine
+    row of a box of bck coarse k: 1, ``RESTRICT_MAX_CHUNKS``, or None
+    where the row does not fit."""
+    points = _restrict_points(bck, split)
+    for chunks in (1, RESTRICT_MAX_CHUNKS):
+        if 128 * chunks >= points:
+            return chunks
+    return None
+
+
+def _evened(m: int):
+    """The box sizes that cut an axis of m points into tiles of one size
+    (the last shorter by less than a tile)."""
+    return [b for b in range(1, m + 1) if -(-m // -(-m // b)) == b]
+
+
+def _restrict_cost(plan: RestrictPlan, sms: int) -> float:
+    """The estimated time of a launch on ``plan`` (us): the blocks run in
+    waves of what the SMs hold at once (shared memory, threads,
+    ``RESTRICT_REGISTERS``; K9's two-chunk kernel one block an SM), each
+    SM's resident blocks copying ``RESTRICT_SM_BYTES_PER_US`` between
+    them. A block takes 2 bci + 1 steps and a prologue of about 1.5, each
+    ``RESTRICT_STEP_US`` plus its resident blocks' planes of e and r
+    (halos included) at that rate."""
+    split, bci, bcj, bck = plan.split, plan.bci, plan.bcj, plan.bck
+    we, wr, _ = _restrict_widths(bck, split)
+    colours = 2 if split else 1
+    e_plane = 4 * colours * (2 * bcj + 3) * we
+    r_plane = 4 * colours * (2 * bcj + 1) * wr
+    per_sm = min(SM_SMEM // (plan.smem + 1024), 2048 // plan.threads,
+                 65536 // (plan.threads * RESTRICT_REGISTERS),
+                 1 if split and plan.chunks > 1 else 32)
+    blocks = plan.blocks
+    resident = min(per_sm, -(-blocks // sms))
+    waves = -(-blocks // (per_sm * sms))
+    step = RESTRICT_STEP_US + resident * (e_plane + r_plane) / RESTRICT_SM_BYTES_PER_US
+    return waves * (2 * bci + 2.5) * step
+
+
+@functools.lru_cache(maxsize=None)
+def _restrict_plan(n: int, sms: int, split: bool = False) -> RestrictPlan:
+    """The plan of one launch of the streaming restriction stage on an n^3
+    level (K3; K9 on a split one) for a card of ``sms`` SMs, within
+    ``SMEM_MAX`` bytes of shared memory a block: k in whole rows where a
+    fine row fits ``RESTRICT_MAX_CHUNKS`` chunks, else in the fewest tiles
+    that do (a multiple of 4 slots on a split level whose rows hold a
+    multiple of 4); over the plane and row counts that cut their axes
+    evenly (at most ``RESTRICT_MAX_ROWS`` coarse rows), the plan of least
+    ``_restrict_cost``; a plan of at least one block an SM first where the
+    level has one. Raises for a level without interior coarse points
+    (n < 5) or an even n."""
+    m = _interior(n)
+    if n % 2 == 0 or m < 1:
+        raise ValueError(f"the restriction stage takes an odd n >= 5, got n = {n}")
+    s = split_shape(n)[2]
+    evened = _evened(m)
+    bck = next(b for b in reversed(evened) if _restrict_chunks(b, split) is not None
+               and not (split and s % 4 == 0 and b < m and b % 4))
+    chunks = _restrict_chunks(bck, split)
+    best = None
+    for bcj in (b for b in evened if b <= RESTRICT_MAX_ROWS):
+        smem = _restrict_smem(bcj, bck, split)
+        if smem > SMEM_MAX:
+            break
+        for bci in evened:
+            plan = RestrictPlan(n, split, bci, bcj, bck, chunks, 32 * (2 * bcj + 1), smem)
+            key = (plan.blocks < sms, _restrict_cost(plan, sms), -plan.blocks)
+            if best is None or key < best[0]:
+                best = (key, plan)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _restrict_args_on(n: int, index: int, split: bool):
+    return _restrict_plan(n, _sms(index), split).args
+
+
+def _restrict_args(n: int, device, split: bool = False):
+    """The restriction launchers' plan arguments on ``device``
+    (``RestrictPlan.args``)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _restrict_args_on(n, index, split)
+
+
 # ------------------------------------------- K9: residual + restriction
 
 
@@ -574,7 +743,9 @@ def residual_restrict_split(er, eb, rr, rb, h: float):
     """Split correction pair (er, eb) and its RHS pair -> the rect
     (nc, nc, nc) coarse RHS, nc = (n + 1) / 2: full weighting of the
     interior residual, zero coarse boundary, without storing the fine
-    residual."""
+    residual; the inputs are left as they are. The CUDA form is one launch
+    of the streaming restriction stage (restrict.cuh) on
+    ``_restrict_plan(n, sms, split=True)``."""
     if not _on_cuda(er, eb, rr, rb):
         return residual_restrict_split_plain(er, eb, rr, rb, h)
     n = er.shape[0]
@@ -582,6 +753,7 @@ def residual_restrict_split(er, eb, rr, rb, h: float):
     out = torch.empty((nc, nc, nc), dtype=er.dtype, device=er.device)
     _check(_lib().mg_split_residual_restrict(out.data_ptr(), er.data_ptr(), eb.data_ptr(),
                                              rr.data_ptr(), rb.data_ptr(), n, 1.0 / (h * h),
+                                             *_restrict_args(n, er.device, split=True),
                                              _stream()),
            "residual_restrict_split")
     LAUNCHES["residual_restrict_split"] += 1

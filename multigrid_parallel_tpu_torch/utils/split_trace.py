@@ -21,8 +21,10 @@ just before its kernels (``idle_before``; a stage kernel's name carries
 its template arguments, which tell K1 from K2 and K7 from K8), and each
 smoothing stage call's device time by level (``stage_calls``: K1, K2, K4,
 K7, K8 and K10, the one-pass form's kernel, or a first form's head
-kernel and the half-sweeps that follow it). The parent prints the lines
-as they come and the card's name and power limit.
+kernel and the half-sweeps that follow it), and each restriction call's
+(``restrict_calls``: K3 and K9, a kernel a call, the first forms' one
+thread a coarse point or the streaming stage's plan). The parent prints
+the lines as they come and the card's name and power limit.
 
 The problem is ``chip_smoke.py``'s main path: the quadratic Dirichlet
 problem at 257^3 (coarse_n 5, 7 levels), n_smooth 2, 4 inner V-cycles an
@@ -188,13 +190,35 @@ def stage_calls(intervals, sizes, n_smooth=2):
             for key, v in sorted(out.items())}
 
 
+# the restriction kernels, a launch a call: the first forms (one thread a
+# coarse point) and the streaming stage (restrict.cuh)
+RESTRICT_KERNELS = {"residual_restrict_kernel": "K3", "split_residual_restrict_kernel": "K9",
+                    "rect_restrict_kernel": "K3", "split_restrict_kernel": "K9"}
+
+
+def restrict_calls(intervals, sizes):
+    """Each K3 and K9 call's device time by level, ``sizes`` as
+    stage_calls' (``_stage_sizes``): {"K3 n=257": [calls, summed ms,
+    median ms a call], ...}."""
+    out = {}
+    for a, b, name, grid in intervals:
+        base = name.split("<")[0]
+        label = RESTRICT_KERNELS.get(base)
+        if label:
+            n = sizes.get((base, grid), sizes.get((base, grid[:-1]), grid))
+            out.setdefault(f"{label} n={n}", []).append((b - a) / 1e3)
+    return {key: [len(v), round(sum(v), 4), round(statistics.median(v), 4)]
+            for key, v in sorted(out.items())}
+
+
 def _stage_sizes(hier, sms):
-    """(kernel name, shape) -> n for the stage kernels of each level, the
-    shape the grid and the shared memory and, for a trace without the
-    latter, the grid alone: the one-pass ones from their plans (where the
-    package has them; the split ones at every level, though only the
-    finest runs them), the first forms from their one thread a point (a
-    slot on a split level)."""
+    """(kernel name, shape) -> n for the stage and restriction kernels of
+    each level, the shape the grid and the shared memory and, for a trace
+    without the latter, the grid alone: the one-pass stages and the
+    streaming restriction from their plans (where the package has them;
+    the split ones at every level, though only the finest runs them), the
+    first forms from their one thread a point (a slot on a split level, a
+    coarse point for K3 and K9)."""
     from multigrid_parallel_tpu_torch.ops import pallas_split as ps
 
     out = {}
@@ -216,6 +240,16 @@ def _stage_sizes(hier, sms):
             try:
                 plan = ps._stage_plan(n, 2, sms, prolong=prolong, rect=rect)
             except (TypeError, AttributeError):  # a checkout without that one-pass stage
+                continue
+            add(name, plan.blocks, plan.smem)
+        if n < 5:
+            continue
+        for name in ("residual_restrict_kernel", "split_residual_restrict_kernel"):
+            add(name, -(-((n + 1) // 2) ** 3 // 256), 0)
+        for name, split in (("rect_restrict_kernel", False), ("split_restrict_kernel", True)):
+            try:
+                plan = ps._restrict_plan(n, sms, split)
+            except AttributeError:  # a checkout without the streaming restriction
                 continue
             add(name, plan.blocks, plan.smem)
     return out
@@ -264,9 +298,10 @@ def _child(root: Path, walls: int, traces: int) -> None:
         for _ in range(traces):
             intervals = kernel_intervals(solve)
             runs.append(_summary(intervals) + (idle_before(intervals),
-                                               stage_calls(intervals, sizes)))
+                                               stage_calls(intervals, sizes),
+                                               restrict_calls(intervals, sizes)))
         runs.sort(key=lambda r: float("inf") if r[0] is None else r[0])
-        busy, n_kernels, by_name, span, idle, calls = runs[len(runs) // 2]
+        busy, n_kernels, by_name, span, idle, calls, restricts = runs[len(runs) // 2]
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
         result[label].update({
             "wall_ms_median": statistics.median(times[label]),
@@ -276,6 +311,7 @@ def _child(root: Path, walls: int, traces: int) -> None:
             "by_name": {name: [round(ms, 4), count, round(idle.get(name, 0.0), 4)]
                         for name, (ms, count) in top},
             "stage_calls": calls,
+            "restrict_calls": restricts,
         })
     print(json.dumps(result), flush=True)
 

@@ -1,17 +1,19 @@
-"""Time the rect stage kernels (K2's and K4's, ops/csrc/rect.cuh) on
-candidate plans at each level size on one card: the planner's own, the
-wavefront's and box plans of several block sizes, each held bit for bit
+"""Time the rect stage kernels (K2's and K4's, ops/csrc/rect.cuh) or,
+with ``--restrict``, the streaming restriction stage (K3's and K9's,
+ops/csrc/restrict.cuh) on candidate plans at each level size on one card:
+the planner's own and plans of several block sizes, each held bit for bit
 against its plain version.
 
     python -m multigrid_parallel_tpu_torch.utils.stage_plans [--sizes 9 17 33 65 129]
-                                                             [--reps 20]
+                                                             [--reps 20] [--restrict]
 
-For each size and kernel (K2 from zero, K4, both at n_iter 2) and plan,
-one JSON line: the plan, whether the output equals the plain version, and
-the median device time of ``reps`` launches from a torch.profiler trace
-(``utils.split_trace.kernel_intervals``). The numbers serve to tune
-``pallas_split._stage_plan``'s choice between the wavefront and the box,
-and the box's block size; the card's name and power limit first.
+For each size and kernel (K2 from zero, K4, both at n_iter 2; or K3 and
+K9) and plan, one JSON line: the plan, whether the output equals the
+plain version, and the median device time of ``reps`` launches from a
+torch.profiler trace (``utils.split_trace.kernel_intervals``). The numbers
+serve to tune ``pallas_split._stage_plan``'s choice between the wavefront
+and the box, and the box's block size, and ``pallas_split._restrict_plan``'s
+cost model; the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -92,10 +94,77 @@ def candidates(n, prolong, sms):
     return plans
 
 
+def restrict_launch(plan, e, r, h):
+    """One launch of K3's (K9's where ``plan.split``; e and r then pairs)
+    restriction stage on ``plan``, into a fresh coarse field."""
+    nc = (plan.n + 1) // 2
+    out = torch.empty((nc, nc, nc), device=e[0].device)
+    lib = pk._lib()
+    fn = lib.mg_split_residual_restrict if plan.split else lib.mg_residual_restrict
+    pk._check(fn(out.data_ptr(), *(x.data_ptr() for x in (*e, *r)), plan.n, 1.0 / (h * h),
+                 *plan.args, pk._stream()), "stage_plans")
+    return out
+
+
+def restrict_candidates(n, split, sms):
+    """The planner's plan and plans of bci x bcj coarse planes and rows,
+    whole k rows or two k tiles, that the kernels take."""
+    m = (n + 1) // 2 - 2
+    plans = {"planner": ps._restrict_plan(n, sms, split)}
+    half = -(-m // 2)
+    if split and ((n - 1) // 2) % 4 == 0:
+        half = -(-half // 4) * 4
+    for bck in sorted({m, half} if half < m else {m}):
+        chunks = ps._restrict_chunks(bck, split)
+        if chunks is None:
+            continue
+        for bcj in (1, 2, 4, 8):
+            bcj = evened(m, bcj)
+            smem = ps._restrict_smem(bcj, bck, split)
+            if smem > ps.SMEM_MAX:
+                continue
+            for bci in (1, 2, 4, 8, 16, 32):
+                bci = evened(m, bci)
+                plans[f"{bci}x{bcj}x{bck}"] = ps.RestrictPlan(n, split, bci, bcj, bck, chunks,
+                                                              32 * (2 * bcj + 1), smem)
+    return plans
+
+
+def time_restrict(n, sms, reps, dev):
+    """One JSON line a (kernel, plan) at level n: K3 on random (e, r) and K9
+    on random pairs, each candidate's output against the plain version and
+    its median device time over ``reps`` launches from a trace of its
+    own."""
+    h = 1.0 / (n - 1)
+    rng = np.random.default_rng(n)
+    for kernel, split in (("K3", False), ("K9", True)):
+        shape = ps.split_shape(n) if split else (n, n, n)
+        e, r = ([torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+                 for _ in range(2 if split else 1)] for _ in range(2))
+        want = (ps.residual_restrict_split_plain(*e, *r, h) if split
+                else pk.residual_restrict_plain(*e, *r, h))
+        for label, plan in restrict_candidates(n, split, sms).items():
+            exact = bool(torch.equal(restrict_launch(plan, e, r, h), want))
+            torch.cuda.synchronize()
+            times = [(b - a) / 1e3 for a, b, name, *_ in
+                     kernel_intervals(lambda: [restrict_launch(plan, e, r, h)
+                                               for _ in range(reps)])
+                     if "restrict_kernel" in name]
+            print(json.dumps({"n": n, "kernel": kernel, "plan": label, "bci": plan.bci,
+                              "bcj": plan.bcj, "bck": plan.bck,
+                              "blocks": plan.blocks,
+                              "threads": plan.threads, "smem": plan.smem,
+                              "exact": exact,
+                              "device_ms": statistics.median(times) if times else None}),
+                  flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--sizes", type=int, nargs="+", default=[9, 17, 33, 65, 129])
     parser.add_argument("--reps", type=int, default=20)
+    parser.add_argument("--restrict", action="store_true",
+                        help="time K3's and K9's restriction stage instead")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("stage_plans: needs a CUDA device")
@@ -104,6 +173,10 @@ def main(argv=None) -> int:
     print(f"[card] {card}", flush=True)
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if args.restrict:
+        for n in args.sizes:
+            time_restrict(n, sms, args.reps, dev)
+        return 0
     for n in args.sizes:
         h = 1.0 / (n - 1)
         rng = np.random.default_rng(n)

@@ -17,7 +17,9 @@ rank against the fused single-device solve, the packed split-colour
 stage K42 against its plain version, the one-pass split stages K7, K8
 and K10 against theirs at 9^3-513^3 (one launch a call), and the
 one-pass rect stages K1, K2 and K4 against theirs at 9^3-513^3 (K1 also
-at the smoother study's 50^3) and on hand plans (one launch a call).
+at the smoother study's 50^3) and on hand plans (one launch a call),
+and the streaming restriction stages K3 and K9 against theirs at
+9^3-513^3 on NaN-poisoned outputs and on hand plans (one launch a call).
 
 These need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 themselves where there is none. The file imports no jax, so on a machine
@@ -108,10 +110,10 @@ def test_fused_kernels_match_plain_on_card(cuda, n):
     ec = _fields32(9, nc, cuda)[0]
     tpk.reset_launches()
     # K3: the same operations in the same order (the plain version's
-    # strided 3-taps), expected bitwise; held to 4 ulp of the max
+    # strided 3-taps), bit for bit
     got = tpk.residual_restrict_fused(e, r, h)
     assert got.shape == (nc, nc, nc)
-    assert _ulps(got, tpk.residual_restrict_plain(e, r, h))
+    assert torch.equal(got, tpk.residual_restrict_plain(e, r, h))
     for n_iter in (1, 2):
         e0 = e.clone()
         got = tpk.prolong_smooth_fused(ec, e, r, h, n_iter)
@@ -347,7 +349,7 @@ def test_split_kernels_match_plain_on_card(cuda):
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     got = tps.residual_restrict_split(*e, *r, h)
     assert got.shape == ((n + 1) // 2,) * 3
-    assert _ulps(got, tps.residual_restrict_split_plain(*e, *r, h))
+    assert torch.equal(got, tps.residual_restrict_split_plain(*e, *r, h))
     # a double-float state near a solution, packed, and a small correction
     u_hi, u_lo, f_hi, f_lo = (tps.pack_split(x) for x in _df_state(13, n, cuda))
     d = tuple(1e-6 * x for x in e)
@@ -438,6 +440,116 @@ def test_k8_stage_matches_plain_on_card(cuda, n):
             assert tps.LAUNCHES == {**dict.fromkeys(tps.KERNELS, 0),
                                     "rb_smooth_split_from_zero": calls}
             assert _bitwise_pair(got, want), (n_iter, red_first)
+
+
+def _poison_allocator(shape, dev, count=8):
+    """Fill the caching allocator's free blocks of ``shape`` with NaN, so
+    that an output point left unwritten shows."""
+    poison = [torch.full(shape, float("nan"), device=dev) for _ in range(count)]
+    del poison
+
+
+def _same_with_nan(got, want):
+    """Bit for bit where finite, and NaN at the same points."""
+    return (torch.equal(got.isnan(), want.isnan())
+            and torch.equal(got.nan_to_num(), want.nan_to_num()))
+
+
+RESTRICT_SIZES = [9, 17, 33, 65, 129, 257, 513]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RESTRICT_SIZES)
+def test_k3_restrict_matches_plain_on_card(cuda, n):
+    """The streaming restriction stage K3 bit for bit against
+    ``residual_restrict_plain`` at every coarse point (257: the fused
+    path's finest level), on e and r random at every point, faces
+    included, at h = 1 / (n - 1) and at the electrospray's h = 3e-4 / (n -
+    1), the allocator poisoned with NaN first; exactly one launch a call;
+    the inputs unchanged."""
+    nc = (n + 1) // 2
+    e, r = _rect_fields(90 + n, n, cuda, 2)
+    before = [x.clone() for x in (e, r)]
+    for h in (1.0 / (n - 1), 3e-4 / (n - 1)):
+        want = tpk.residual_restrict_plain(e, r, h)
+        _poison_allocator((nc, nc, nc), cuda)
+        tpk.reset_launches()
+        got = tpk.residual_restrict_fused(e, r, h)
+        assert tpk.LAUNCHES == {**dict.fromkeys(tpk.KERNELS, 0), "residual_restrict_fused": 1}
+        assert torch.equal(got, want), h
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((e, r), before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RESTRICT_SIZES)
+def test_k9_restrict_matches_plain_on_card(cuda, n):
+    """The streaming restriction stage K9 bit for bit against
+    ``residual_restrict_split_plain`` at every coarse point (257: the split
+    path's finest level), on pairs random at every slot, boundary rows
+    included, with NaN in r's dead slots (no residual reads them), the
+    allocator poisoned with NaN first; then with NaN in e's dead slots too
+    (the k = n - 1 face its last odd slot reads): NaN at the same coarse
+    points and every other bit for bit; exactly one launch a call; the
+    inputs unchanged."""
+    h = 1.0 / (n - 1)
+    nc = (n + 1) // 2
+    e, r = _random_pairs(95 + n, n, cuda, 2)
+    _, live_r, live_b = tps._masks(n, cuda)
+    idx = torch.arange(n, device=cuda)
+    inner = (idx >= 1) & (idx <= n - 2)
+    dead = [(inner[:, None, None] & inner[None, :, None]) & ~live for live in (live_r, live_b)]
+    for x, d in zip(r, dead):
+        x[d] = float("nan")
+    for nan_e in (False, True):
+        if nan_e:
+            for x, d in zip(e, dead):
+                x[d] = float("nan")
+        before = [x.clone() for x in (*e, *r)]
+        want = tps.residual_restrict_split_plain(*e, *r, h)
+        assert bool(want.isnan().any()) == nan_e
+        _poison_allocator((nc, nc, nc), cuda)
+        tps.reset_launches()
+        got = tps.residual_restrict_split(*e, *r, h)
+        assert tps.LAUNCHES == {**dict.fromkeys(tps.KERNELS, 0), "residual_restrict_split": 1}
+        if nan_e:
+            assert _same_with_nan(got, want)
+        else:
+            assert torch.equal(got, want)
+        torch.cuda.synchronize()
+        assert all(_same_with_nan(a, b) for a, b in zip((*e, *r), before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [False, True], ids=["k3", "k9"])
+@pytest.mark.parametrize("n", [17, 33, 35])
+def test_restrict_on_hand_plans_on_card(cuda, n, split):
+    """K3 and K9 on plans of the caller's: several
+    blocks in i and j, whole k rows and k tiles (35: K9's rows of 17
+    slots, 4-byte copies; 33: tiles of 4 slots, the 16-byte windows, and
+    of 2, the exact ones); bit for bit against the plain versions."""
+    h = 1.0 / (n - 1)
+    nc = (n + 1) // 2
+    m = nc - 2
+    if split:
+        e, r = _random_pairs(110 + n, n, cuda, 2)
+        want = tps.residual_restrict_split_plain(*e, *r, h)
+    else:
+        e, r = ((x,) for x in _rect_fields(111 + n, n, cuda, 2))
+        want = tpk.residual_restrict_plain(*e, *r, h)
+    lib = tps._lib()
+    fn = lib.mg_split_residual_restrict if split else lib.mg_residual_restrict
+    for bci, bcj, bck in ((2, 3, m), (3, 2, 2), (5, min(m, 8), 4), (m, 1, 3)):
+        plan = tps.RestrictPlan(n, split, bci, bcj, bck, tps._restrict_chunks(bck, split),
+                                32 * (2 * bcj + 1), tps._restrict_smem(bcj, bck, split))
+        _poison_allocator((nc, nc, nc), cuda)
+        out = torch.empty((nc, nc, nc), device=cuda)
+        ptrs = [x.data_ptr() for x in (out, *e, *r)]
+        assert fn(*ptrs, n, 1.0 / (h * h), *plan.args, tps._stream()) == 0
+        assert torch.equal(out, want), plan
+    # a plan the kernels do not take is refused, not run
+    bad = (1, 9, 1, 1, 32 * 19, tps._restrict_smem(9, 1, split))
+    assert fn(*ptrs, n, 1.0 / (h * h), *bad, tps._stream()) != 0
 
 
 def _stage_on_plan(plan, e, r, h, red_first=False, ec=None):
@@ -627,7 +739,7 @@ def test_reused_kernels_non_dyadic_h_on_card(cuda):
     h = 3e-4 / (n - 1)
     e, r = _fields32(18, n, cuda)
     got = tpk.residual_restrict_fused(e, r, h)
-    assert _ulps(got, tpk.residual_restrict_plain(e, r, h))
+    assert torch.equal(got, tpk.residual_restrict_plain(e, r, h))
     rng = np.random.default_rng(19)
     x = np.linspace(0.0, 1.0, n)[:, None, None]
     state = [t.to(cuda) for a in (-1350.0 * x * x + 1e-3 * rng.standard_normal((n, n, n)),

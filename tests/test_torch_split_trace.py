@@ -83,3 +83,30 @@ def test_stage_calls_tell_the_one_pass_stages_apart():
                    "K8 n=65": [2, pytest.approx(0.011), pytest.approx(0.0055)],
                    "K7 n=65": [1, pytest.approx(0.005), pytest.approx(0.005)],
                    "K10 n=65": [1, pytest.approx(0.006), pytest.approx(0.006)]}
+
+
+def test_restrict_calls_by_level_for_both_forms():
+    """K3 and K9 a kernel a call, by level: the first forms from their one
+    thread a coarse point, the streaming stage from its plan's grid and
+    shared memory (the grid alone where the trace has none), a mangled
+    name with its template argument; other kernels are not counted."""
+    from multigrid_parallel_tpu_torch.hierarchy import Hierarchy
+    from multigrid_parallel_tpu_torch.ops import pallas_split as tps
+
+    sizes = st._stage_sizes(Hierarchy(ndim=3, coarse_n=5, num_levels=5), 132)
+    first = {n: (-(-((n + 1) // 2) ** 3 // 256), 1, 1, 0) for n in (33, 65)}
+    k3 = tps._restrict_plan(65, 132)
+    k9 = tps._restrict_plan(65, 132, split=True)
+    assert (st.short_name("_ZN12_GLOBAL__N_121split_restrict_kernelILi2EEEvN2mg11restriction4Args"
+                          "E") == "split_restrict_kernel<2>")
+    intervals = [(0, 3, "residual_restrict_kernel", first[65]),
+                 (5, 6, "residual_restrict_kernel", first[33]),
+                 (10, 12, "split_residual_restrict_kernel", first[65]),
+                 (20, 21, "rect_restrict_kernel<2>", (k3.blocks, 1, 1, k3.smem)),
+                 (22, 24, "rect_restrict_kernel<2>", (k3.blocks, 1, 1)),
+                 (30, 34, "split_restrict_kernel<1>", (k9.blocks, 1, 1, k9.smem)),
+                 (40, 49, "rect_stage_kernel<2, true, true>", (1, 1, 1, 0))]
+    got = st.restrict_calls(intervals, sizes)
+    assert got == {"K3 n=33": [1, pytest.approx(0.001), pytest.approx(0.001)],
+                   "K3 n=65": [3, pytest.approx(0.006), pytest.approx(0.002)],
+                   "K9 n=65": [2, pytest.approx(0.006), pytest.approx(0.003)]}
