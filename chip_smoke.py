@@ -51,7 +51,8 @@ which fails the run:
      the same call, and residual_norm_fused (R and a sum) against its plain
      version; K1, K2 and K4 (one-pass stages) once more at 129^3, n_iter
      1-3, K2 and K4 timed at n_iter 2 beside the bound from the bytes a
-     call needs;
+     call needs; K17 and K19 (one-pass fold stages) bit for bit at 65^3,
+     257^3 and, with the pin-edge delta, 17^3;
   3. solve 33^3 on the CPU (plain versions) and on the card (kernels),
      unfused, fused, fused with FMG and split: same outer-step count,
      solutions within 1e-8; the electrospray full, fold and split tiers
@@ -77,15 +78,20 @@ which fails the run:
      the device-busy time of one traced solve; its solution within 1e-3 V
      of the f64-outer MixedBCSolver.solve_on_device, outer steps within 1;
   7. the electrospray 257^3 solve on the fold tier, launches reset and
-     read around it: only K16-K20 launched, the full tier's outer-step
-     count, max|u_fold - u_full| <= 1e-7 max|u|; then the fold and full
-     walls interleaved run by run (9 each) and the device-busy time of
-     one traced solve of each;
+     read around it: only K16-K20 launched, K16, K17 and K19 exactly as
+     many times as the fold cycle's calls in that many outer steps need
+     (K17 and K19 one launch a call, K16 2 n_smooth + 1), the full tier's
+     outer-step count, max|u_fold - u_full| <= 1e-7 max|u|; then the fold
+     and full walls interleaved run by run (9 each), the device-busy time
+     of one traced solve of each, and K16, K17 and K19's device time a
+     call by level from a trace of the fold solve;
   8. the same solve on the split tier, launches reset and read around
-     it: only K22-K25 and K16-K19 launched, the fold tier's outer-step
-     count, converged to 1e-8 of its initial norm, max|u_msplit -
-     u_fold| <= 1e-7 max|u|; then the split and fold walls interleaved
-     and the device-busy time of one traced solve of each;
+     it: only K22-K25 and K16-K19 launched, K16, K17 and K19 exactly as
+     the fold cycle below the finest level needs, the fold tier's
+     outer-step count, converged to 1e-8 of its initial norm, max|u_msplit
+     - u_fold| <= 1e-7 max|u|; then the split and fold walls interleaved,
+     the device-busy time of one traced solve of each, and K16, K17 and
+     K19's device time a call by level;
   9. the driver surface: (a) the f64 reference solve at 257^3 (solve,
      solve_mixed, solve with FMG, solve_on_device, solve_on_device_mixed):
      converged, 16 +- 1 V-cycles (the C reference's 16), L2 error <= 5e-9
@@ -501,7 +507,8 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
     and K19 and K24 at 17^3."""
     results = {name: {"max_abs_err": 0.0} for name in SOURCES}
 
-    def record(name, n, label, got, want, t_kernel=None, t_plain=None, io=None, points=None):
+    def record(name, n, label, got, want, t_kernel=None, t_plain=None, io=None, points=None,
+               bitwise=False):
         err, tol, exact = field_err(got, want)
         if t_kernel is not None:
             results[name]["ms"], results[name]["plain_ms"] = t_kernel, t_plain
@@ -513,6 +520,7 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
                  f"{results[name]['bound_ms']:.4f} ({results[name]['bound_by']})"
                  if t_kernel else ""))
         check(err <= tol, f"{name} n={n} {label}: {err} > {tol}")
+        check(exact or not bitwise, f"{name} n={n} {label}: not bitwise equal ({err:.3e})")
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
 
     for n in (65, 257):
@@ -809,17 +817,21 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
         one_pass = time_ms(lambda: pk.rb_smooth_fused(u, f, h, 2, True))
         per_sweep = time_ms(lambda: pk.rb_smooth_fused_per_sweep(uk, f, h, 2, True))
         b_ms, _ = bound("rb_smooth_fused", n ** 3, (u, f), (u,))
-        calls, device = 20, []
+        calls, device, seen = 20, [], []
         for fn, per_call in ((lambda: pk.rb_smooth_fused(u, f, h, 2, True), 1),
                              (lambda: pk.rb_smooth_fused_per_sweep(uk, f, h, 2, True), 4)):
-            busy, kernels, _, _ = device_trace(lambda: [fn() for _ in range(calls)])
+            traces = retraced(lambda: device_trace(lambda: [fn() for _ in range(calls)]),
+                              lambda t: t[0] is not None and t[1] == per_call * calls)
+            busy, kernels, _, _ = traces[-1]
             check(busy is None or kernels == per_call * calls,
-                  f"rb_smooth_fused n={n}: {kernels} kernels traced for {calls} calls")
+                  f"rb_smooth_fused n={n}: {kernels} kernels traced for {calls} calls "
+                  f"(traces: {[t[1] for t in traces]})")
             device.append("not measured" if busy is None else f"{busy / calls:.4f}")
+            seen.append([t[1] for t in traces])
         print(f"[kernel] rb_smooth_fused by level n={n:3d} one-pass_ms={one_pass:.4f} "
               f"per-sweep_ms={per_sweep:.4f} one-pass/per-sweep={one_pass / per_sweep:.3f} "
               f"| device ms a call: one-pass {device[0]} per-sweep {device[1]} | "
-              f"bound_ms={b_ms:.4f}")
+              f"bound_ms={b_ms:.4f} | kernels a trace {seen}")
 
     # K19 and K24 where the pin-edge delta is live: 17^3, coarse level 9^3
     n = 17
@@ -841,7 +853,7 @@ def compare_fold(pm, pmf, es, n, h, u, r, ec, es_state, dev, record, timed):
     coarse level's BC pass, K19 with the coarse level's sign planes (zero
     at 33^3 and above in this geometry), K20 on the packed double-float
     state es_state (skipped when None). Timed at n_iter = 2 when
-    ``timed``."""
+    ``timed``. K17 and K19, one-pass stages, bit for bit."""
     nc = (n + 1) // 2
     pin_full = pm.dirichlet_pin_planes(es, n, dev)
     pin = pmf.pack_fold(pin_full)
@@ -854,7 +866,8 @@ def compare_fold(pm, pmf, es, n, h, u, r, ec, es_state, dev, record, timed):
         for n_iter in (1, 2):
             record("mixed_prolong_smooth_fold", n, f"n_iter={n_iter}_delta",
                    pmf.mixed_prolong_smooth_fold(fec, fe, fr, pin, sgn, h, n_iter),
-                   pmf.mixed_prolong_smooth_fold_plain(fec, fe, fr, pin, sgn, h, n_iter))
+                   pmf.mixed_prolong_smooth_fold_plain(fec, fe, fr, pin, sgn, h, n_iter),
+                   bitwise=True)
         return
     for n_iter in (1, 2):
         t2 = n_iter == 2  # the main path's n_smooth
@@ -876,7 +889,7 @@ def compare_fold(pm, pmf, es, n, h, u, r, ec, es_state, dev, record, timed):
                      time_ms(lambda: pmf.mixed_rb_smooth_from_zero_fold_plain(fr, pin, h, 2)))
         record("mixed_rb_smooth_from_zero_fold", n, f"n_iter={n_iter}", got,
                pmf.mixed_rb_smooth_from_zero_fold_plain(fr, pin, h, n_iter), *times,
-               io=((fr, pin), (got,)), points=points)
+               io=((fr, pin), (got,)), points=points, bitwise=True)
         got = pmf.mixed_prolong_smooth_fold(fec, fe, fr, pin, sgn, h, n_iter)
         times = ()
         if t2:
@@ -885,7 +898,7 @@ def compare_fold(pm, pmf, es, n, h, u, r, ec, es_state, dev, record, timed):
                                                                          h, 2)))
         record("mixed_prolong_smooth_fold", n, f"n_iter={n_iter}", got,
                pmf.mixed_prolong_smooth_fold_plain(fec, fe, fr, pin, sgn, h, n_iter), *times,
-               io=((fec, fe, fr, pin, sgn), (got,)), points=points)
+               io=((fec, fe, fr, pin, sgn), (got,)), points=points, bitwise=True)
     rc = pmf.residual_restrict_fold(fe, fr, h)
     times = (time_ms(lambda: pmf.residual_restrict_fold(fe, fr, h)),
              time_ms(lambda: pmf.residual_restrict_fold_plain(fe, fr, h)))
@@ -996,6 +1009,17 @@ def _launch_modules():
 
     return (pallas3d, pallas_split, pallas_mixed, pallas_mixed_fold, pallas_mixed_split,
             pallas_sharded, pallas_sharded2d, pallas_splitcolor)
+
+
+def retraced(trace, complete, tries=3):
+    """The traces taken by calling trace() until one is complete(), at
+    most ``tries``: the profiler now and then loses a trace's kernel events,
+    some or all of them, though the traced calls launch the same kernels
+    every time (``utils.trace_drops`` counts such traces)."""
+    out = [trace()]
+    while not complete(out[-1]) and len(out) < tries:
+        out.append(trace())
+    return out
 
 
 def reset_launches():
@@ -1127,10 +1151,72 @@ def fold_257(es, dev, card, launches, full):
         check((counts[name] > 0) == (name in FOLD_KERNELS),
               f"fold: kernel {name} launched {counts[name]} times in the {n}^3 solve")
         launches[name] += counts[name]
+    top = solver.hier.num_levels - 1
+    check_fold_launches(counts, fold_calls(solver, top, True, new_calls()), it, solver.n_smooth,
+                        f"{n}^3 electrospray fold")
     solve = lambda: run(*state)  # noqa: E731
     interleave({"fold": solve, "full": solve_full}, f"{n}^3 electrospray", card)
     print_device_time({"fold": solve, "full": solve_full}, f"{n}^3 electrospray", card)
+    print_fold_stage_times(solve, solver, f"{n}^3 electrospray fold", card)
     return u, it, solve
+
+
+FOLD_STAGES = {"K16": "mixed_rb_smooth_fold", "K17": "mixed_rb_smooth_from_zero_fold",
+               "K19": "mixed_prolong_smooth_fold"}
+
+
+def new_calls():
+    return dict.fromkeys(FOLD_STAGES, 0)
+
+
+def fold_calls(solver, level, from_zero, calls):
+    """Add to ``calls`` the K16, K17 and K19 calls of one fold-cycle descent
+    at ``level`` (mixed_padded._make_mixed_descend_fold's recursion,
+    walked without running it: K17 where a level is entered from zero, K16
+    where its correction is revisited, K19 once a call) and return it."""
+    if level == 0:
+        return calls
+    calls["K17" if from_zero else "K16"] += 1
+    fold_calls(solver, level - 1, True, calls)
+    for _ in range(solver._revisits(level - 1)):
+        fold_calls(solver, level - 1, False, calls)
+    calls["K19"] += 1
+    return calls
+
+
+def check_fold_launches(counts, calls, steps, n_smooth, what):
+    """The fold cycle's stage launches of a solve of ``steps`` outer steps,
+    ``calls`` those of one step: K17 and K19 one launch per two
+    iterations a call (one-pass stages), K16 2 n_smooth + 1 (a launch a
+    half-sweep and the BC pass), each exactly; printed beside the first
+    forms' 2 n_smooth + 1 a call of K17 and K19."""
+    chunks = -(-n_smooth // 2)
+    per_call = {"K16": 2 * n_smooth + 1, "K17": chunks, "K19": chunks}
+    first = 2 * n_smooth + 1
+    for key, name in FOLD_STAGES.items():
+        want = steps * calls[key] * per_call[key]
+        check(counts[name] == want, f"{what}: {name} launched {counts[name]} times, expected "
+              f"{want} ({steps} outer steps x {calls[key]} calls x {per_call[key]})")
+    fewer = sum(steps * calls[k] * (first - per_call[k]) for k in FOLD_STAGES)
+    print(f"[launches {what} stages] "
+          + "; ".join(f"{k}: {steps * calls[k]} calls, {counts[name]} launches (first form "
+                      f"{steps * calls[k] * first})" for k, name in FOLD_STAGES.items())
+          + f" | {fewer} launches fewer than K17 and K19's first forms")
+
+
+def print_fold_stage_times(solve, solver, what, card):
+    """K16, K17 and K19's device time a call by level, from one traced
+    solve (``utils.split_trace.stage_calls``: [calls, summed ms, median ms
+    a call])."""
+    from multigrid_parallel_tpu_torch.utils.split_trace import (_stage_sizes, kernel_intervals,
+                                                                stage_calls)
+
+    sizes = _stage_sizes(solver.hier, torch.cuda.get_device_properties(0).multi_processor_count)
+    intervals = retraced(lambda: kernel_intervals(solve), bool)[-1]
+    calls = stage_calls(intervals, sizes, solver.n_smooth)
+    mine = {k: v for k, v in calls.items() if k.split()[0] in FOLD_STAGES}
+    check(bool(mine), f"{what}: no K16, K17 or K19 call in the trace")
+    print(f"[stage calls {what}] {json.dumps(mine)} card: {card}")
 
 
 def print_device_time(solves, what, card):
@@ -1189,9 +1275,15 @@ def msplit_257(es, dev, card, launches, fold):
         check((counts[name] > 0) == (name in MSPLIT_KERNELS),
               f"msplit: kernel {name} launched {counts[name]} times in the {n}^3 solve")
         launches[name] += counts[name]
+    below = solver.hier.num_levels - 2  # the fold cycle's top level: entered from zero, revisited
+    calls = fold_calls(solver, below, True, new_calls())
+    for _ in range(solver._revisits(below)):
+        fold_calls(solver, below, False, calls)
+    check_fold_launches(counts, calls, it, solver.n_smooth, f"{n}^3 electrospray msplit")
     solve = lambda: run(*state)  # noqa: E731
     interleave({"msplit": solve, "fold": solve_fold}, f"{n}^3 electrospray", card)
     print_device_time({"msplit": solve, "fold": solve_fold}, f"{n}^3 electrospray", card)
+    print_fold_stage_times(solve, solver, f"{n}^3 electrospray msplit", card)
 
 
 def interleave(solves, what, card, reps=INTERLEAVED):

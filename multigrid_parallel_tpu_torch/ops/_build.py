@@ -80,10 +80,12 @@ _SIGNATURES = {
     "mg_mixed_bc_pass": (_P, _P, _I, _P),
     "mg_mixed_prolong_correct_black": (_P, _P, _P, _P, _P, _I, _F, _P),
     "mg_mixed_fold_half_sweep": (_P, _P, _P, _I, _F, _I, _P),
-    "mg_mixed_fold_half_sweep_from_zero": (_P, _P, _I, _F, _I, _P),
     "mg_mixed_fold_bc_pass": (_P, _P, _I, _P),
     "mg_residual_restrict_fold": (_P, _P, _P, _I, _F, _P),
-    "mg_mixed_fold_prolong_correct_black": (_P, _P, _P, _P, _P, _P, _I, _F, _P),
+    # the fold stages (rect.cuh, FOLD): the rect stages' arguments with the pins
+    # (and K19's coarse sign planes) after the fields
+    "mg_fold_stage": (_P,) * 4 + (_I, _F, _I, _I) + (_I,) * 7 + (_P,),
+    "mg_fold_prolong_stage": (_P,) * 6 + (_I, _F, _I) + (_I,) * 7 + (_P,),
     "mg_residual_df_norm_fold_partials": (_I,),
     "mg_residual_df_norm_fold": (_P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
     "mg_msplit_half_sweep": (_P, _P, _P, _P, _I, _F, _I, _P),

@@ -41,19 +41,6 @@ namespace {
 
 using namespace mg::rect;
 
-// Coarse tile rows and row width for a plan: the coarse rows ja >> 1 ..
-// jb >> 1 and coarse k max(ka, 0) .. kb that the loaded fine box
-// interpolates from, with room for the last 4-slot group's reads
-// (pallas_split._stage_smem plans with the same sizes).
-__host__ __device__ inline int coarse_rows(int bj, int H) { return (bj + 2 * H) / 2 + 2; }
-__host__ __device__ inline int coarse_width(int W) { return W + 4; }
-
-// Coarse tile planes: a ring of 3 (the wavefront), or every coarse plane
-// the loaded box's bi + 2 H fine planes interpolate from (the box).
-__host__ __device__ inline int coarse_planes(int bi, int H, bool box) {
-  return box ? (bi + 2 * H) / 2 + 2 : 3;
-}
-
 struct ProlongPrep {
   static constexpr bool kActive = true;
   const float* ec;
@@ -181,7 +168,7 @@ extern "C" int mg_rect_prolong_stage(float* out, const float* ec, const float* e
                                      int n, float h2, int n_iter, int bi, int bj, int bk,
                                      int k_halo, int threads, int smem, int box,
                                      cudaStream_t stream) {
-  StageArgs a;
+  StageArgs a{};
   a.out = out;
   a.in = e;
   a.f = r;

@@ -108,7 +108,7 @@ extern "C" int mg_rect_stage(float* out, const float* u, const float* f, int n, 
                              int red_first, int n_iter, int bi, int bj, int bk, int k_halo,
                              int threads, int smem, int box, cudaStream_t stream) {
   using namespace mg::rect;
-  StageArgs a;
+  StageArgs a{};
   a.out = out;
   a.in = u;
   a.f = f;

@@ -40,6 +40,27 @@
 // fewer, larger steps where the blocks' boxes fit in shared memory. On both,
 // a warp sweeps 32 / lanes tile rows at once (row_lanes), so that the
 // levels of 64 slots a row and fewer keep every lane busy.
+//
+// FOLD: the same stage on the electrospray's fold layout (mixed.cuh; K17
+// and K19, mixed_rb_smooth_fold.cu and mixed_prolong_smooth_fold.cu), an
+// (n, n, n - 2) field whose stored slot kk holds grid plane k = kk + 1.
+// The colour rows place k = 1 .. n - 2 in the same slots; the k-face slots
+// (slot -1 and, for n odd, slot S - 1 of the colour with p = 1) hold no
+// stored point, and no sweep uses their values. The loader and the store
+// address fold rows, f too. A neighbour across a face (i or j at 1 or
+// n - 2, k at 1 or n - 2) is read as the reader's own value, 0 at a pinned
+// x-face node (mixed_nbr_sum's rule), as a select in the sweep, in the
+// same order of the six adds: never from a tile slot of the face, which
+// holds a value of the first half-sweep's input. The pins are read through
+// the read-only path (__ldg), not staged: only the rows of planes 1 and
+// n - 2 read them, 4 values a lane's group, 0.5 MB at 257^3 that stays in
+// L2. The BC pass runs at store time: the
+// block that owns a stored interior point (i, j) writes it and the
+// boundary nodes whose copy source it is, (c(i), c(j)) = (i, j) with c
+// mapping 0 -> 1, n - 1 -> n - 2 (0 at a pinned x-face node), from its
+// final value: the x faces whole and the y faces as the fold's BC pass
+// (mixed_rb_smooth_fold.cu) has them, every node exactly once whatever the
+// plan, and never before its source's last half-sweep.
 #pragma once
 
 #include "split.cuh"
@@ -68,10 +89,18 @@ __host__ __device__ inline int slots(int n) { return n >> 1; }
 // p of `color` in row (i, j): its slot kk holds k = 2 kk + 1 + p.
 __device__ inline int parity(int i, int j, int color) { return ((i + j) & 1) ^ color ^ 1; }
 
+// Offset of grid point (q, j, k) in an (n, n, n) field, or in an (n, n,
+// n - 2) one of the fold layout (FOLD; 1 <= k <= n - 2).
+template <bool FOLD>
+__device__ inline int field_at(int n, int q, int j, int k) {
+  return FOLD ? (q * n + j) * (n - 2) + k - 1 : (q * n + j) * n + k;
+}
+
 struct StageArgs {
   float* out;
   const float* in;  // the initial guess; nullptr for a zero one (K2)
   const float* f;
+  const float* pin;  // FOLD: the x-face pin planes, (2, n, n - 2) fold columns
   int color0;  // kRed or kBlack: the colour of the first half-sweep
   int n;
   float h2;
@@ -95,6 +124,19 @@ __host__ __device__ inline long long stage_smem_bytes(int n, int n_iter, int bi,
                                                       int k_halo, bool box) {
   const int H = 2 * n_iter;
   return 2LL * tile_planes(bi, H, box) * (bj + 2 * H) * tile_width(n, bk, k_halo) * 4;
+}
+
+// The coarse tile of a prolongation stage (K4, K19), beside the fine one:
+// its rows and row width for a plan, the coarse rows ja >> 1 .. jb >> 1
+// and coarse k max(ka, 0) .. kb that the loaded fine box interpolates
+// from, with room for the last 4-slot group's reads; its planes, a ring of
+// 3 (the wavefront), or every coarse plane the loaded box's bi + 2 H fine
+// planes interpolate from (the box). pallas_split._stage_smem plans with
+// the same sizes.
+__host__ __device__ inline int coarse_rows(int bj, int H) { return (bj + 2 * H) / 2 + 2; }
+__host__ __device__ inline int coarse_width(int W) { return W + 4; }
+__host__ __device__ inline int coarse_planes(int bi, int H, bool box) {
+  return box ? (bi + 2 * H) / 2 + 2 : 3;
 }
 
 inline int stage_blocks(const StageArgs& a) {
@@ -190,14 +232,17 @@ __device__ inline float* colour_row(float* t0, float* t1, const Geom& t, int j, 
 // rings' tile planes, a warp a row: k goes to slot (k - 1 - p) / 2 of the
 // colour whose slots hold parity p = 1 - (k mod 2) in that row. A lane's k
 // keeps its parity from pass to pass (32 apart), so its colour row too.
+// FOLD: the stored k only, from fold rows.
+template <bool FOLD = false>
 __device__ inline void tile_load(float* t0, float* t1, const float* __restrict__ g, const Geom& t,
                                  int q, int color0, int warp, int lane, int nwarps) {
-  const int k = t.kra + lane, p = 1 - (k & 1);
+  const int ka = FOLD ? max(t.kra, 1) : t.kra, kb = FOLD ? min(t.krb, t.n - 1) : t.krb;
+  const int k = ka + lane, p = 1 - (k & 1);
   for (int j = t.ja + warp; j < t.jb; j += nwarps) {
     const int color = ((q + j) & 1) ^ p ^ 1;
     float* d = colour_row(t0, t1, t, j, color, color0) + ((k - 1 - p) >> 1);
-    const float* s = g + (q * t.n + j) * t.n + k;
-    for (int m = 0; k + 32 * m < t.krb; ++m) cp_async4(d + 16 * m, s + 32 * m);
+    const float* s = g + field_at<FOLD>(t.n, q, j, k);
+    for (int m = 0; k + 32 * m < kb; ++m) cp_async4(d + 16 * m, s + 32 * m);
   }
 }
 
@@ -224,6 +269,40 @@ __device__ inline void tile_store(float* __restrict__ g, float* t0, float* t1, c
   }
 }
 
+// FOLD's store with the BC pass (the header): the nodes of plane q's owned
+// rows and k whose copy source lies in plane q, q interior: its interior
+// rows, each with the y-face row it is the source of (row 0 with row 1,
+// row n - 1 with row n - 2), in plane q and, where q is 1 or n - 2, in the
+// x-face plane 0 or n - 1 too, 0 at a pinned node of it. A warp a target
+// row, consecutive k across a warp; read once plane q's last half-sweep is
+// done, so every boundary node gets its source's final value.
+__device__ inline void fold_store(float* __restrict__ g, float* t0, float* t1,
+                                  const Geom& t, int q, int color0, const float* __restrict__ pin,
+                                  int warp, int lane, int nwarps) {
+  const int n = t.n, nk = n - 2;
+  int jl = max(t.j0, 1), jh = min(t.j1, n - 1);
+  if (q < 1 || q > n - 2 || jl >= jh) return;  // an x-face plane: written with its source
+  if (jl == 1) jl = 0;
+  if (jh == n - 1) jh = n;
+  const int rows = jh - jl, planes = 1 + (q == 1) + (q == n - 2);
+  const int k = max(t.kr0, 1) + lane, k_end = min(t.kr1, n - 1), p = 1 - (k & 1);
+  for (int v = warp; v < planes * rows; v += nwarps) {
+    const int m = v / rows, jt = jl + v % rows;
+    const int qt = m == 0 ? q : (m == 1 && q == 1 ? 0 : n - 1);
+    const int js = jt == 0 ? 1 : (jt == n - 1 ? n - 2 : jt);
+    const int color = ((q + js) & 1) ^ p ^ 1;
+    const float* s = colour_row(t0, t1, t, js, color, color0) + ((k - 1 - p) >> 1);
+    float* d = g + field_at<true>(n, qt, jt, k);
+    if (qt == q) {
+      for (int i = 0; k + 32 * i < k_end; ++i) d[32 * i] = s[16 * i];
+    } else {
+      const float* pr = pin + ((qt == 0 ? 0 : n) + jt) * nk + k - 1;
+      for (int i = 0; k + 32 * i < k_end; ++i)
+        d[32 * i] = __ldg(pr + 32 * i) > 0.5f ? 0.0f : s[16 * i];
+    }
+  }
+}
+
 // f of slots g .. g + 3 of a colour row (f_row[2 kk] is slot kk's; 0 past
 // the live slots, whose values are not used).
 __device__ inline float4 load_f4(const float* __restrict__ f_row, int g, int k_end) {
@@ -233,23 +312,47 @@ __device__ inline float4 load_f4(const float* __restrict__ f_row, int g, int k_e
   return make_float4(v[0], v[1], v[2], v[3]);
 }
 
+// FOLD: which neighbours of a tile row (q, j) of parity p lie across a
+// face, and read the reader's own value (0 at a pinned x-face node).
+struct FoldFaces {
+  const float* pin_lo;  // where q = 1: the x = 0 pins of the row, slot kk's at [2 kk]
+  const float* pin_hi;  // where q = n - 2: the x = n - 1 ones
+  bool jm, jp;          // j = 1, j = n - 2
+  int km, kp;           // the slot at k = 1, at k = n - 2 (-1: none of this parity)
+};
+
+__device__ inline FoldFaces fold_faces(const StageArgs& a, int q, int j, int p) {
+  const int n = a.n, nk = n - 2;
+  FoldFaces fc;
+  fc.pin_lo = q == 1 ? a.pin + j * nk + p : nullptr;
+  fc.pin_hi = q == n - 2 ? a.pin + (n + j) * nk + p : nullptr;
+  fc.jm = j == 1;
+  fc.jp = j == n - 2;
+  fc.km = p == 0 ? 0 : -1;                            // k = 2 kk + 1 + p
+  fc.kp = ((n - 3 - p) & 1) ? -1 : (n - 3 - p) >> 1;
+  return fc;
+}
+
 // One half-sweep of the live slots [kl, k_end) of one tile row of parity p
 // (tile offset of slot kk: row + kk; f of slot kk: f_row[2 kk] in device
 // memory, the lane's first group's prefetched in ``pre`` where ``use_pre``),
 // a 4-slot group a lane (rl.sl of the row's rl.lanes), the other slots of
 // a group keeping their values. Slot kk's k - 1 and k + 1 neighbours are the other colour's
 // slots kk - 1 and kk where p = 0 (k odd), kk and kk + 1 where p = 1.
+// FOLD: the neighbours across the faces ``fc`` are selects of the slot's
+// own value, in the same order of the adds.
+template <bool FOLD = false>
 __device__ inline void sweep_row(float* dst, const float* lo, const float* mid, const float* hi,
                                  const float* __restrict__ f_row, int row, int W, int kl,
                                  int k_end, int p, float h2, const RowLanes& rl, bool use_pre,
-                                 float4 pre) {
+                                 float4 pre, const FoldFaces& fc = FoldFaces{}) {
   const int g0 = (kl & ~3) + 4 * rl.sl;
   for (int g = g0; g < k_end; g += 4 * rl.lanes) {
     const int o = row + g;
     const float4 vf = use_pre && g == g0 ? pre : load_f4(f_row, g, k_end);
     const float4 vl = ld4(lo + o), vh = ld4(hi + o), vjm = ld4(mid + o - W),
                  vjp = ld4(mid + o + W), vm = ld4(mid + o);
-    const bool whole = g >= kl && g + 4 <= k_end;
+    const bool whole = FOLD || (g >= kl && g + 4 <= k_end);
     const float4 old = whole ? vm : ld4(dst + o);  // kept where a slot is outside
     float km[4], kp[4];
     if (p == 0) {
@@ -272,16 +375,34 @@ __device__ inline void sweep_row(float* dst, const float* lo, const float* mid, 
       kp[3] = g + 3 < k_end ? mid[o + 4] : 0.0f;
     }
     float r[4];
+    if constexpr (FOLD) {
+      const float4 vc = ld4(dst + o);  // the slots' own values, what a folded read returns
+      const float4 pl = fc.pin_lo ? load_f4(fc.pin_lo, g, k_end) : float4{};
+      const float4 ph = fc.pin_hi ? load_f4(fc.pin_hi, g, k_end) : float4{};
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      float s = comp(vl, c);
-      s = s + comp(vh, c);
-      s = s + comp(vjm, c);
-      s = s + comp(vjp, c);
-      s = s + km[c];
-      s = s + kp[c];
-      const int kk = g + c;
-      r[c] = kk >= kl && kk < k_end ? (s - h2 * comp(vf, c)) * (1.0f / 6.0f) : comp(old, c);
+      for (int c = 0; c < 4; ++c) {
+        const float cen = comp(vc, c);
+        const int kk = g + c;
+        float s = fc.pin_lo ? (comp(pl, c) > 0.5f ? 0.0f : cen) : comp(vl, c);
+        s = s + (fc.pin_hi ? (comp(ph, c) > 0.5f ? 0.0f : cen) : comp(vh, c));
+        s = s + (fc.jm ? cen : comp(vjm, c));
+        s = s + (fc.jp ? cen : comp(vjp, c));
+        s = s + (kk == fc.km ? cen : km[c]);
+        s = s + (kk == fc.kp ? cen : kp[c]);
+        r[c] = kk >= kl && kk < k_end ? (s - h2 * comp(vf, c)) * (1.0f / 6.0f) : cen;
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float s = comp(vl, c);
+        s = s + comp(vh, c);
+        s = s + comp(vjm, c);
+        s = s + comp(vjp, c);
+        s = s + km[c];
+        s = s + kp[c];
+        const int kk = g + c;
+        r[c] = kk >= kl && kk < k_end ? (s - h2 * comp(vf, c)) * (1.0f / 6.0f) : comp(old, c);
+      }
     }
     st4(dst + o, make_float4(r[0], r[1], r[2], r[3]));
   }
@@ -292,8 +413,9 @@ __device__ inline void sweep_row(float* dst, const float* lo, const float* mid, 
 // issued with plane q's) and apply(stage colour 0's tile plane, 1's, q,
 // geometry, row lanes, color0), run on plane q once it has arrived and
 // before any half-sweep reads it (box_body: apply_row, the same a row).
-// ZERO: the initial guess is zero, nothing is loaded.
-template <int NITER, bool ZERO, class Prep>
+// ZERO: the initial guess is zero, nothing is loaded. FOLD: the fold
+// layout (the header).
+template <int NITER, bool ZERO, bool FOLD = false, class Prep>
 __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
   constexpr int H = 2 * NITER, D = stage_depth(H);
   const Geom t = geometry(a, H);
@@ -307,7 +429,7 @@ __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
     if constexpr (ZERO) {
       tile_zero(ring(0, q), ring(1, q), t, a.f);
     } else {
-      tile_load(ring(0, q), ring(1, q), a.in, t, q, a.color0, warp, lane, nwarps);
+      tile_load<FOLD>(ring(0, q), ring(1, q), a.in, t, q, a.color0, warp, lane, nwarps);
     }
     if constexpr (Prep::kActive) prep.load(q, t);
   };
@@ -323,9 +445,7 @@ __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
     return q >= max(t.i0 - H + s, 1) && q < min(t.i1 + H - s, n - 1);
   };
   auto colour_of = [&](int s) { return (s - 1) & 1 ? 1 - a.color0 : a.color0; };
-  auto f_row = [&](int q, int j, int pp) {
-    return a.f + (q * n + j) * n + 1 + pp;
-  };
+  auto f_row = [&](int q, int j, int pp) { return a.f + field_at<FOLD>(n, q, j, 1 + pp); };
   float4 f_pre[H] = {};
   auto fetch = [&](int step) {
 #pragma unroll
@@ -369,8 +489,9 @@ __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
           const int j = t.jb0 + r;
           if (j < jl || j >= jh) continue;
           const int pp = parity(q, j, color);
-          sweep_row(dst, lo, mid, hi, f_row(q, j, pp), r * t.W - t.kb0, t.W, kl,
-                    min(kh, (n - 1 - pp) >> 1), pp, a.h2, rl, r == r0, f_pre[s - 1]);
+          sweep_row<FOLD>(dst, lo, mid, hi, f_row(q, j, pp), r * t.W - t.kb0, t.W, kl,
+                          min(kh, (n - 1 - pp) >> 1), pp, a.h2, rl, r == r0, f_pre[s - 1],
+                          FOLD ? fold_faces(a, q, j, pp) : FoldFaces{});
         }
       }
     }
@@ -378,8 +499,13 @@ __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
     // both colours' last half-sweeps (H - 1 and H) are done with plane
     // p - 1 - 2 H: half-sweep H finished it a step ago
     const int qb = p - 1 - 2 * H;
-    if (qb >= t.i0 && qb < t.i1)
-      tile_store(a.out, ring(0, qb), ring(1, qb), t, qb, a.color0, warp, lane, nwarps);
+    if (qb >= t.i0 && qb < t.i1) {
+      if constexpr (FOLD) {
+        fold_store(a.out, ring(0, qb), ring(1, qb), t, qb, a.color0, a.pin, warp, lane, nwarps);
+      } else {
+        tile_store(a.out, ring(0, qb), ring(1, qb), t, qb, a.color0, warp, lane, nwarps);
+      }
+    }
     __syncthreads();
   }
 }
@@ -393,7 +519,7 @@ __device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n"
 // stores as stage_body, so the same values; Prep's coarse planes all
 // resident too (its depth). (f held in shared memory beside the tiles
 // measured no faster: PERF.md.)
-template <int NITER, bool ZERO, class Prep>
+template <int NITER, bool ZERO, bool FOLD = false, class Prep>
 __device__ void box_body(const StageArgs& a, float* smem, Prep prep) {
   constexpr int H = 2 * NITER;
   const Geom t = geometry(a, H);
@@ -406,7 +532,7 @@ __device__ void box_body(const StageArgs& a, float* smem, Prep prep) {
     if constexpr (ZERO) {
       tile_zero(tile(0, q), tile(1, q), t, a.f);
     } else {
-      tile_load(tile(0, q), tile(1, q), a.in, t, q, a.color0, warp, lane, nwarps);
+      tile_load<FOLD>(tile(0, q), tile(1, q), a.in, t, q, a.color0, warp, lane, nwarps);
     }
     if constexpr (Prep::kActive) prep.load(q, t);
   }
@@ -431,14 +557,20 @@ __device__ void box_body(const StageArgs& a, float* smem, Prep prep) {
     for (int v = warp * rl.rows + rl.sub; v < count; v += nwarps * rl.rows) {
       const int q = qa + v / rows, j = jl + v % rows;
       const int pp = parity(q, j, color);
-      sweep_row(tile(c, q), tile(1 - c, q - 1), tile(1 - c, q), tile(1 - c, q + 1),
-                a.f + (q * n + j) * n + 1 + pp, (j - t.jb0) * t.W - t.kb0, t.W, kl,
-                min(kh, (n - 1 - pp) >> 1), pp, a.h2, rl, false, float4{});
+      sweep_row<FOLD>(tile(c, q), tile(1 - c, q - 1), tile(1 - c, q), tile(1 - c, q + 1),
+                      a.f + field_at<FOLD>(n, q, j, 1 + pp), (j - t.jb0) * t.W - t.kb0, t.W,
+                      kl, min(kh, (n - 1 - pp) >> 1), pp, a.h2, rl, false, float4{},
+                      FOLD ? fold_faces(a, q, j, pp) : FoldFaces{});
     }
     __syncthreads();
   }
-  for (int q = t.i0; q < t.i1; ++q)
-    tile_store(a.out, tile(0, q), tile(1, q), t, q, a.color0, warp, lane, nwarps);
+  for (int q = t.i0; q < t.i1; ++q) {
+    if constexpr (FOLD) {
+      fold_store(a.out, tile(0, q), tile(1, q), t, q, a.color0, a.pin, warp, lane, nwarps);
+    } else {
+      tile_store(a.out, tile(0, q), tile(1, q), t, q, a.color0, warp, lane, nwarps);
+    }
+  }
 }
 
 // Launch one stage kernel instantiation on the plan's grid; a cudaError_t.

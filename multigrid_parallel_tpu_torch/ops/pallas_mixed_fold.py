@@ -34,12 +34,17 @@ the full tier that ``pallas_mixed`` holds against JAX. Not carried over
 ``*_block_i`` planners and the ``block_i`` and ``with_delta`` arguments
 (K19 reads the sign planes at the k-edge x-face nodes only).
 
+K17 and K19 are one-pass stages (rect.cuh on the fold layout): one
+launch a call for n_iter <= 2, all 2 n_iter half-sweeps and the BC pass
+in shared memory, into a fresh field; K16 keeps its first form, a launch
+a half-sweep and one for the BC pass, in place.
+
 A wrapper takes the plain version for tensors on the CPU, launches its
 kernel for CUDA tensors (float32, contiguous, fold shapes; pin (2, n,
 n - 2)), and raises for anything else: no fallback from the kernel to
 the plain version. Each kernel launch adds one to its entry in
-``LAUNCHES`` (every half-sweep and BC pass of a stage counts as a launch
-of the stage's kernel; K20's is the pair, partials then their sum).
+``LAUNCHES`` (every half-sweep and BC pass of K16 counts as a launch of
+its kernel; K20's is the pair, partials then their sum).
 """
 
 from __future__ import annotations
@@ -48,8 +53,8 @@ import torch
 
 from multigrid_parallel_tpu_torch.ops import pallas3d as pk
 from multigrid_parallel_tpu_torch.ops import pallas_mixed as pm
+from multigrid_parallel_tpu_torch.ops import pallas_split as ps
 from multigrid_parallel_tpu_torch.ops.pallas3d import _check, _colors, _lib, _stream
-from multigrid_parallel_tpu_torch.ops.stencils_3d import BLACK, RED
 
 KERNELS = (
     "mixed_rb_smooth_fold",
@@ -232,18 +237,31 @@ def mixed_rb_smooth_fold(e, r, pin, h: float, n_iter: int, red_first: bool = Tru
 
 def mixed_rb_smooth_from_zero_fold(r, pin, h: float, n_iter: int, red_first: bool = True):
     """mixed_rb_smooth_fold from an implicit zero initial guess, as a fresh
-    field: the first half-sweep reads only r and writes every stored
-    point."""
+    field. The CUDA form is one one-pass launch of the fold stage for
+    n_iter <= 2, its tile starting as zeros, the BC pass at its store;
+    ceil(n_iter / 2) in all, each later one the same stage on the field so
+    far, all counted as K17 launches."""
+    if n_iter < 1:
+        raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     if not _on_cuda(r, pin=pin):
         return mixed_rb_smooth_from_zero_fold_plain(r, pin, h, n_iter, red_first)
-    name, n, h2 = "mixed_rb_smooth_from_zero_fold", r.shape[0], h * h
+    lib, stream, h2 = _lib(), _stream(), h * h
+    u = None
+    for chunk in ps._stage_chunks(n_iter):
+        u = _fold_stage_launch(lib, u, r, pin, h2, chunk, red_first, stream,
+                               "mixed_rb_smooth_from_zero_fold")
+    return u
+
+
+def _fold_stage_launch(lib, u, r, pin, h2, n_iter, red_first, stream, name):
+    """One launch of the fold stage (on u, or from a zero field where u is
+    None) against r into a fresh field, counted as ``name``'s."""
+    n = r.shape[0]
     out = torch.empty_like(r)
-    first, second = _colors(red_first)
-    _check(_lib().mg_mixed_fold_half_sweep_from_zero(out.data_ptr(), r.data_ptr(), n, h2,
-                                                     first, _stream()), name)
+    _check(lib.mg_fold_stage(out.data_ptr(), None if u is None else u.data_ptr(), r.data_ptr(),
+                             pin.data_ptr(), n, h2, int(red_first),
+                             *ps._plan_args(n, n_iter, r.device, rect=True), stream), name)
     LAUNCHES[name] += 1
-    _half_sweeps_and_bc_pass(out, r, pin, h2, [second] + list(_colors(red_first)) * (n_iter - 1),
-                             name)
     return out
 
 
@@ -288,20 +306,27 @@ def mixed_prolong_smooth_fold(ec, e, r, pin, sgn_c, h: float, n_iter: int):
     """The black-first mixed stage of e + P ec on the fold layout, as a
     fresh field (e is left as it is): the post-smoothing stage of a fold
     cycle level. ``sgn_c``: ``fold_edge_sign_planes`` of the COARSE level.
-    The CUDA form is one K19 launch (correction + first black half-sweep),
-    then 2 * n_iter - 1 K16 half-sweeps and the BC pass, all counted as
-    K19 launches."""
+    The CUDA form is one one-pass launch for n_iter <= 2 (e + P ec made as
+    each plane reaches shared memory, the BC pass at its store); a larger
+    n_iter goes on with launches of K17's stage kernel on the field so far,
+    black first, all counted as K19 launches."""
     if n_iter < 1:
         raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     if not _on_cuda(e, r, pin=pin, coarse=ec, sgn=sgn_c):
         return mixed_prolong_smooth_fold_plain(ec, e, r, pin, sgn_c, h, n_iter)
     name, n, h2 = "mixed_prolong_smooth_fold", e.shape[0], h * h
+    if n < 5:
+        raise ValueError(f"K19 takes a fine level of n >= 5, got n = {n}")
+    lib, stream = _lib(), _stream()
+    first, *rest = ps._stage_chunks(n_iter)
     out = torch.empty_like(e)
-    _check(_lib().mg_mixed_fold_prolong_correct_black(
+    _check(lib.mg_fold_prolong_stage(
         out.data_ptr(), ec.data_ptr(), e.data_ptr(), r.data_ptr(), pin.data_ptr(),
-        sgn_c.data_ptr(), n, h2, _stream()), name)
+        sgn_c.data_ptr(), n, h2, *ps._plan_args(n, first, e.device, prolong=True, rect=True),
+        stream), name)
     LAUNCHES[name] += 1
-    _half_sweeps_and_bc_pass(out, r, pin, h2, [RED] + [BLACK, RED] * (n_iter - 1), name)
+    for chunk in rest:
+        out = _fold_stage_launch(lib, out, r, pin, h2, chunk, False, stream, name)
     return out
 
 

@@ -1,9 +1,11 @@
 """Trace the split-colour and the fused double-float 257^3 solves of one or
 more checkouts of the port, in turns on one card: two versions of the
 split-colour kernels compared within one call, with the fused solve,
-which runs none of them, as the control.
+which runs none of them, as the control; or, with ``--electrospray``, the
+electrospray's fold and split-colour tiers at 257^3.
 
     python -m multigrid_parallel_tpu_torch.utils.split_trace [ROOT ...] [--rounds R]
+                                                             [--electrospray]
 
 Each ROOT is a directory that holds a ``multigrid_parallel_tpu_torch``
 package (default: this checkout). Round r runs every ROOT once, each in a
@@ -13,22 +15,30 @@ A B, B A, ... A process builds its checkout's kernels, solves each path
 twice to warm up, times ``--walls`` solves of each (host clock,
 interleaved, alternating which goes first), then takes ``--traces``
 torch.profiler traces of each solve and prints one JSON line: per path
-the outer steps, the median wall, and from the trace with the median busy
-time the device busy time (the union of kernel intervals), the kernel
-count, the span from the first kernel to the last, the idle share of that
+the outer steps, the median wall and every wall, and from the trace with
+the median busy time the device busy time (the union of kernel
+intervals), the kernel count, the span from the first kernel to the last, the idle share of that
 span, each kernel name's summed ms, count and the device idle time
 just before its kernels (``idle_before``; a stage kernel's name carries
 its template arguments, which tell K1 from K2 and K7 from K8), and each
 smoothing stage call's device time by level (``stage_calls``: K1, K2, K4,
-K7, K8 and K10, the one-pass form's kernel, or a first form's head
-kernel and the half-sweeps that follow it), and each restriction call's
+K7, K8, K10, K16, K17 and K19, the one-pass form's kernel, or a first
+form's head kernel and the half-sweeps that follow it, and the BC pass
+that ends a mixed-BC call), and each restriction call's
 (``restrict_calls``: K3 and K9, a kernel a call, the first forms' one
 thread a coarse point or the streaming stage's plan). The parent prints
-the lines as they come and the card's name and power limit.
+the lines as they come and the card's name and power limit, and at the
+end each path's solution of round 0 against the first ROOT's
+(max|u - u_0|, held in a temporary directory).
 
 The problem is ``chip_smoke.py``'s main path: the quadratic Dirichlet
 problem at 257^3 (coarse_n 5, 7 levels), n_smooth 2, 4 inner V-cycles an
-outer step, rel_tol 1e-8 of the reference initial norm.
+outer step, rel_tol 1e-8 of the reference initial norm. With
+``--electrospray``: its phases 7 and 8, the electrospray problem at 257^3
+in the production configuration (n_smooth 2, gamma 2 capped at 65^3, one
+inner cycle an outer step, rel_tol 1e-8) on the fold tier (``fold``,
+K16-K20) and the split-colour tier (``split``, K22-K25 on the finest
+level over the fold cycle below it).
 """
 
 from __future__ import annotations
@@ -134,18 +144,25 @@ def idle_before(intervals):
 
 
 # the smoothing stages' kernels: the one-pass forms (rect.cuh, split.cuh;
-# rect_stage_kernel and split_stage_kernel by their ZERO argument, below)
-# and the first forms' head kernels, each with the half-sweep kernel that
-# continues its call (a half-sweep that follows none heads a call of its own)
+# rect_stage_kernel, split_stage_kernel and fold_stage_kernel by their ZERO
+# argument, below) and the first forms' head kernels, each with the
+# half-sweep kernel that continues its call (a half-sweep that follows none
+# heads a call of its own) and, for the mixed-BC forms, the BC-pass kernel
+# that ends it (the fold's first-form K17 head is the half-sweep kernel
+# with its FromZero argument true)
 STAGE_KERNELS = {"rect_prolong_stage_kernel": "K4", "split_prolong_stage_kernel": "K10",
                  "rb_half_sweep_from_zero_kernel": "K2", "prolong_correct_black_kernel": "K4",
                  "rb_half_sweep_kernel": "K1", "split_half_sweep_from_zero_kernel": "K8",
-                 "split_half_sweep_kernel": "K7"}
+                 "split_half_sweep_kernel": "K7", "fold_prolong_stage_kernel": "K19",
+                 "mixed_fold_prolong_correct_black_kernel": "K19"}
 FIRST_FORM = {"rb_half_sweep_from_zero_kernel": "rb_half_sweep_kernel",
               "prolong_correct_black_kernel": "rb_half_sweep_kernel",
               "rb_half_sweep_kernel": "rb_half_sweep_kernel",
               "split_half_sweep_from_zero_kernel": "split_half_sweep_kernel",
-              "split_half_sweep_kernel": "split_half_sweep_kernel"}
+              "split_half_sweep_kernel": "split_half_sweep_kernel",
+              "mixed_fold_half_sweep_kernel": "mixed_fold_half_sweep_kernel",
+              "mixed_fold_prolong_correct_black_kernel": "mixed_fold_half_sweep_kernel"}
+BC_PASS = {"mixed_fold_half_sweep_kernel": "mixed_fold_bc_pass_kernel"}
 
 
 def stage_label(name):
@@ -153,23 +170,32 @@ def stage_label(name):
     None. rect_stage_kernel<NITER, ZERO, BOX> is K2 where ZERO is true, K1
     where false; split_stage_kernel<NITER, VEC, ZERO> K8 and K7 likewise
     (a checkout whose split kernel has no ZERO argument runs it as K7
-    only); "K1|K2" where the trace drops the arguments."""
+    only); "K1|K2" where the trace drops the arguments.
+    fold_stage_kernel<NITER, ZERO, BOX> is K17 where ZERO is true, else a
+    later launch of a K17 or K19 call (n_iter > 2); the first form's
+    mixed_fold_half_sweep_kernel<FromZero> heads K17 where true, K16
+    where false or without arguments (this form's K16)."""
     base, _, args = name.partition("<")
     args = [a.strip() for a in args.rstrip(">").split(",")] if args else []
     if base == "rect_stage_kernel":
         return ("K2" if args[1] == "true" else "K1") if len(args) > 1 else "K1|K2"
     if base == "split_stage_kernel":
         return "K8" if args[2:] == ["true"] else "K7"
+    if base == "fold_stage_kernel":
+        return ("K17" if args[1] == "true" else "K17|K19") if len(args) > 1 else "K17|K19"
+    if base == "mixed_fold_half_sweep_kernel":
+        return "K17" if args == ["true"] else "K16"
     return STAGE_KERNELS.get(base)
 
 
 def stage_calls(intervals, sizes, n_smooth=2):
     """Each smoothing stage call's device time: a call in a first form is
     its head kernel and the half-sweeps that follow it, 2 n_smooth kernels
-    in all; in the one-pass form its one kernel. ``sizes`` maps (kernel
-    name without its arguments, shape) to the level's n (a shape without
-    its shared memory where the trace has none). Returns {"K4 n=257":
-    [calls, summed ms, median ms a call], ...}."""
+    in all, and a mixed-BC form's BC pass after them; in the one-pass form
+    its one kernel. ``sizes`` maps (kernel name without its arguments,
+    shape) to the level's n (a shape without its shared memory where the
+    trace has none). Returns {"K4 n=257": [calls, summed ms, median ms a
+    call], ...}."""
     groups, sweep = [], None  # sweep: the half-sweep kernel that continues the last call
     for a, b, name, grid in intervals:
         base = name.split("<")[0]
@@ -177,6 +203,10 @@ def stage_calls(intervals, sizes, n_smooth=2):
         if base == sweep and groups[-1][3] < 2 * n_smooth:
             groups[-1][2].append((b - a) / 1e3)
             groups[-1][3] += 1
+        elif sweep and base == BC_PASS.get(sweep) and groups[-1][3] == 2 * n_smooth:
+            groups[-1][2].append((b - a) / 1e3)
+            groups[-1][3] += 1
+            sweep = None
         elif label:
             groups.append([(base, label), grid, [(b - a) / 1e3], 1])
             sweep = FIRST_FORM.get(base)
@@ -231,10 +261,14 @@ def _stage_sizes(hier, sms):
         for name in ("rb_half_sweep_from_zero_kernel", "prolong_correct_black_kernel",
                      "rb_half_sweep_kernel"):
             add(name, -(-n ** 3 // 256), 0)
+        for name in ("mixed_fold_half_sweep_kernel", "mixed_fold_prolong_correct_black_kernel"):
+            add(name, -(-n * n * (n - 2) // 256), 0)
         for name in ("split_half_sweep_from_zero_kernel", "split_half_sweep_kernel"):
             add(name, -(-n * n * ((n - 1) // 2) // 256), 0)
         for name, prolong, rect in (("rect_stage_kernel", False, True),
                                     ("rect_prolong_stage_kernel", True, True),
+                                    ("fold_stage_kernel", False, True),
+                                    ("fold_prolong_stage_kernel", True, True),
                                     ("split_stage_kernel", False, False),
                                     ("split_prolong_stage_kernel", True, False)):
             try:
@@ -255,20 +289,31 @@ def _stage_sizes(hier, sms):
     return out
 
 
-def _child(root: Path, walls: int, traces: int) -> None:
-    sys.path[0] = str(root)  # the script's own directory: the ROOT's package instead
-    import torch
-
+def _solves(electrospray: bool, dev):
+    """(hierarchy, {label: solve}, {label: unpack}) of the paths traced:
+    the split and the fused Dirichlet solves, or the electrospray's fold
+    and split tiers; unpack takes a solve's output to its f64 solution."""
     import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch.ops import pallas3d as pk
+
+    if electrospray:
+        from multigrid_parallel_tpu_torch import mixed_padded as mp
+        from multigrid_parallel_tpu_torch.mixed_bc import MixedBCSolver
+
+        es = mg.electrospray_problem()
+        hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7, length=es.length)
+        solver = MixedBCSolver(es, hier, n_smooth=2, gamma=2, gamma_min_n=65, device=dev)
+        kw = dict(rel_tol=1e-8, max_cycles=100, inner_cycles=1)
+        fold = mp.make_mixed_fold_df_solver(solver, **kw)
+        fold_state = mp.setup_mixed_fold_df_problem(solver)
+        split = mp.make_mixed_split_df_solver(solver, **kw)
+        split_state = mp.setup_mixed_split_df_problem(solver)
+        return (hier, {"fold": lambda: fold(*fold_state), "split": lambda: split(*split_state)},
+                {"fold": lambda out: mp.unpack_mixed_fold_solution(out[0], out[1], solver),
+                 "split": lambda out: mp.unpack_mixed_split_solution(*out[:4], solver)})
     from multigrid_parallel_tpu_torch import cycles_padded as cp
     from multigrid_parallel_tpu_torch import cycles_split as cs
-    from multigrid_parallel_tpu_torch.ops import _build
 
-    if Path(mg.__file__).resolve().parents[1] != root:
-        raise RuntimeError(f"imported {mg.__file__}, not the package under {root}")
-    _build.build()
-    _build.load()
-    dev = torch.device("cuda")
     prob = mg.poisson_3d_quadratic()
     hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7)
     cfg = mg.CycleConfig(n_smooth=2)
@@ -278,12 +323,32 @@ def _child(root: Path, walls: int, traces: int) -> None:
     split_state = cs.setup_split_df_problem(prob, hier, dev)
     fused = cp.make_on_device_df_solver(hier, cfg, fused=True, **kw)
     fused_state = cp.setup_df_problem(prob, hier, dev)
-    solves = {"split": lambda: split(*split_state), "fused": lambda: fused(*fused_state)}
+    return (hier, {"split": lambda: split(*split_state), "fused": lambda: fused(*fused_state)},
+            {"split": lambda out: cs.unsplit_solution(*out[:4], prob, hier),
+             "fused": lambda out: pk.df_to_f64(out[0], out[1])})
+
+
+def _child(root: Path, walls: int, traces: int, electrospray: bool, save: Path) -> None:
+    sys.path[0] = str(root)  # the script's own directory: the ROOT's package instead
+    import torch
+
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch.ops import _build
+
+    if Path(mg.__file__).resolve().parents[1] != root:
+        raise RuntimeError(f"imported {mg.__file__}, not the package under {root}")
+    _build.build()
+    _build.load()
+    dev = torch.device("cuda")
+    hier, solves, unpack = _solves(electrospray, dev)
     sizes = _stage_sizes(hier, torch.cuda.get_device_properties(0).multi_processor_count)
     result = {"root": str(root)}
     for label, solve in solves.items():
         solve()
-        result[label] = {"outer_steps": int(solve()[-1])}
+        out = solve()
+        result[label] = {"outer_steps": int(out[-1])}
+        if save is not None:
+            torch.save(unpack[label](out).cpu(), save / f"{label}.pt")
     torch.cuda.synchronize()
     times = {label: [] for label in solves}
     for rep in range(walls):
@@ -305,6 +370,7 @@ def _child(root: Path, walls: int, traces: int) -> None:
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
         result[label].update({
             "wall_ms_median": statistics.median(times[label]),
+            "wall_ms_all": [round(t, 3) for t in times[label]],
             "busy_ms": busy, "kernels": n_kernels, "span_ms": span,
             "idle_share": None if busy is None else 1 - busy / span,
             "busy_ms_all": [r[0] for r in runs],
@@ -322,10 +388,13 @@ def main(argv=None) -> int:
     parser.add_argument("--rounds", type=int, default=2)
     parser.add_argument("--walls", type=int, default=9)
     parser.add_argument("--traces", type=int, default=3)
+    parser.add_argument("--electrospray", action="store_true",
+                        help="trace the electrospray's fold and split tiers instead")
     parser.add_argument("--child", type=Path, help=argparse.SUPPRESS)
+    parser.add_argument("--save", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.child is not None:
-        _child(args.child.resolve(), args.walls, args.traces)
+        _child(args.child.resolve(), args.walls, args.traces, args.electrospray, args.save)
         return 0
     try:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -334,17 +403,38 @@ def main(argv=None) -> int:
     except OSError as err:
         print(f"[card] nvidia-smi: {err}", flush=True)
     roots = [r.resolve() for r in args.roots]
-    for rnd in range(args.rounds):
-        for root in roots if rnd % 2 == 0 else roots[::-1]:
-            run = subprocess.run([sys.executable, str(HERE), "--child", str(root),
-                                  "--walls", str(args.walls), "--traces", str(args.traces)],
-                                 cwd=root, capture_output=True, text=True)
-            lines = run.stdout.strip().splitlines()
-            if run.returncode or not lines:
-                print(run.stdout[-4000:], run.stderr[-4000:], sep="\n", file=sys.stderr)
-                return run.returncode or 1
-            print(f"[round {rnd}] {lines[-1]}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = [Path(tmp) / str(i) for i in range(len(roots))]
+        for rnd in range(args.rounds):
+            for i in range(len(roots)) if rnd % 2 == 0 else reversed(range(len(roots))):
+                save = ["--save", str(saved[i])] if rnd == 0 else []
+                saved[i].mkdir(exist_ok=True)
+                run = subprocess.run([sys.executable, str(HERE), "--child", str(roots[i]),
+                                      "--walls", str(args.walls), "--traces", str(args.traces)]
+                                     + ["--electrospray"] * args.electrospray + save,
+                                     cwd=roots[i], capture_output=True, text=True)
+                lines = run.stdout.strip().splitlines()
+                if run.returncode or not lines:
+                    print(run.stdout[-4000:], run.stderr[-4000:], sep="\n", file=sys.stderr)
+                    return run.returncode or 1
+                print(f"[round {rnd}] {lines[-1]}", flush=True)
+        _compare_solutions(saved)
     return 0
+
+
+def _compare_solutions(saved):
+    """Each path's solution from round 0 of every ROOT against the first
+    ROOT's: max|u - u_first| (V for the electrospray), 0 where bit for bit
+    equal."""
+    import torch
+
+    for path in sorted(saved[0].glob("*.pt")):
+        first = torch.load(path)
+        for other in saved[1:]:
+            u = torch.load(other / path.name)
+            print(f"[solution {path.stem}] root {other.name} vs root 0: max|u - u_0| = "
+                  f"{float((u - first).abs().max()):.6e}, bitwise_equal={torch.equal(u, first)}",
+                  flush=True)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,15 @@
-"""Time the rect stage kernels (K2's and K4's, ops/csrc/rect.cuh) or,
-with ``--restrict``, the streaming restriction stage (K3's and K9's,
-ops/csrc/restrict.cuh) on candidate plans at each level size on one card:
-the planner's own and plans of several block sizes, each held bit for bit
-against its plain version.
+"""Time the rect stage kernels (K2's and K4's, ops/csrc/rect.cuh), with
+``--fold`` the same stage on the electrospray's fold layout (K17's and
+K19's), or, with ``--restrict``, the streaming restriction stage (K3's
+and K9's, ops/csrc/restrict.cuh) on candidate plans at each level size on
+one card: the planner's own and plans of several block sizes, each held
+bit for bit against its plain version.
 
     python -m multigrid_parallel_tpu_torch.utils.stage_plans [--sizes 9 17 33 65 129]
-                                                             [--reps 20] [--restrict]
+                                                             [--reps 20] [--restrict | --fold]
 
-For each size and kernel (K2 from zero, K4, both at n_iter 2; or K3 and
+For each size and kernel (K2 from zero, K4, both at n_iter 2; K17 and
+K19 likewise, with the electrospray's pins and coarse signs; or K3 and
 K9) and plan, one JSON line: the plan, whether the output equals the
 plain version, and the median device time of ``reps`` launches from a
 torch.profiler trace (``utils.split_trace.kernel_intervals``). The numbers
@@ -44,6 +46,23 @@ def launch(plan, f, h, ec=None, u=None):
     else:
         err = lib.mg_rect_prolong_stage(out.data_ptr(), ec.data_ptr(), u.data_ptr(),
                                         f.data_ptr(), plan.n, h * h, *args)
+    pk._check(err, "stage_plans")
+    return out
+
+
+def fold_launch(plan, r, pin, h, ec=None, e=None, sgn=None):
+    """One launch of K17's stage (from zero) or, given ec, K19's on
+    ``plan``, into a fresh fold field."""
+    out = torch.empty_like(r)
+    args = (plan.n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem,
+            int(plan.box), pk._stream())
+    lib = pk._lib()
+    if ec is None:
+        err = lib.mg_fold_stage(out.data_ptr(), None, r.data_ptr(), pin.data_ptr(), plan.n,
+                                h * h, 1, *args)
+    else:
+        err = lib.mg_fold_prolong_stage(out.data_ptr(), ec.data_ptr(), e.data_ptr(), r.data_ptr(),
+                                        pin.data_ptr(), sgn.data_ptr(), plan.n, h * h, *args)
     pk._check(err, "stage_plans")
     return out
 
@@ -159,12 +178,48 @@ def time_restrict(n, sms, reps, dev):
                   flush=True)
 
 
+def time_fold(n, sms, reps, dev):
+    """One JSON line a (kernel, plan) at level n: K17 from zero and K19 at
+    n_iter 2 on random fold fields with the electrospray's pins and the
+    coarse level's signs, each candidate's output against the plain
+    version and its median device time over ``reps`` launches from a
+    trace of its own."""
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed_fold as pmf
+
+    es = mg.electrospray_problem()
+    h, nc = es.length / (n - 1), (n + 1) // 2
+    rng = np.random.default_rng(n)
+    e, r, ec = (torch.from_numpy(rng.standard_normal((m, m, m - 2)).astype(np.float32)).to(dev)
+                for m in (n, n, nc))
+    pin, sgn = pmf.fold_pin_planes(es, n, dev), pmf.fold_edge_sign_planes(es, nc, dev)
+    for kernel, prolong in (("K17", False), ("K19", True)):
+        want = (pmf.mixed_prolong_smooth_fold_plain(ec, e, r, pin, sgn, h, 2) if prolong
+                else pmf.mixed_rb_smooth_from_zero_fold_plain(r, pin, h, 2, True))
+        for label, plan in candidates(n, prolong, sms).items():
+            run = ((lambda: fold_launch(plan, r, pin, h, ec, e, sgn)) if prolong
+                   else (lambda: fold_launch(plan, r, pin, h)))
+            exact = bool(torch.equal(run(), want))
+            torch.cuda.synchronize()
+            times = [(b - a) / 1e3 for a, b, name, *_ in
+                     kernel_intervals(lambda: [run() for _ in range(reps)])
+                     if name.startswith("fold_")]
+            print(json.dumps({"n": n, "kernel": kernel, "plan": label, "box": plan.box,
+                              "bi": plan.bi, "bj": plan.bj, "blocks": plan.blocks,
+                              "threads": plan.threads, "smem": plan.smem, "exact": exact,
+                              "device_ms": statistics.median(times) if times else None}),
+                  flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--sizes", type=int, nargs="+", default=[9, 17, 33, 65, 129])
     parser.add_argument("--reps", type=int, default=20)
-    parser.add_argument("--restrict", action="store_true",
-                        help="time K3's and K9's restriction stage instead")
+    group = parser.add_mutually_exclusive_group()
+    group.add_argument("--restrict", action="store_true",
+                       help="time K3's and K9's restriction stage instead")
+    group.add_argument("--fold", action="store_true",
+                       help="time K17's and K19's fold stages instead")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("stage_plans: needs a CUDA device")
@@ -176,6 +231,10 @@ def main(argv=None) -> int:
     if args.restrict:
         for n in args.sizes:
             time_restrict(n, sms, args.reps, dev)
+        return 0
+    if args.fold:
+        for n in args.sizes:
+            time_fold(n, sms, args.reps, dev)
         return 0
     for n in args.sizes:
         h = 1.0 / (n - 1)

@@ -18,8 +18,11 @@ stage K42 against its plain version, the one-pass split stages K7, K8
 and K10 against theirs at 9^3-513^3 (one launch a call), and the
 one-pass rect stages K1, K2 and K4 against theirs at 9^3-513^3 (K1 also
 at the smoother study's 50^3) and on hand plans (one launch a call),
-and the streaming restriction stages K3 and K9 against theirs at
-9^3-513^3 on NaN-poisoned outputs and on hand plans (one launch a call).
+the streaming restriction stages K3 and K9 against theirs at
+9^3-513^3 on NaN-poisoned outputs and on hand plans (one launch a call),
+and the one-pass fold stages K17 and K19 against theirs at 9^3-513^3
+and on hand plans, with the electrospray's pins and random ones, on
+NaN-poisoned outputs (one launch a call).
 
 These need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 themselves where there is none. The file imports no jax, so on a machine
@@ -826,12 +829,147 @@ def test_fold_kernels_match_plain_on_card(cuda, n):
     r_ref, nrm_ref = tpmf.residual_df_norm_fold_plain(*state, h)
     assert torch.equal(r20, r_ref)
     assert float(nrm20) == pytest.approx(float(nrm_ref), rel=1e-5)
-    # per pin, n_iter 1 and 2: K16 2 orders x (2 n_iter + 1); K17 and K19 2 n_iter + 1
+    # per pin, n_iter 1 and 2: K16 2 orders x (2 n_iter + 1); K17 and K19 one
+    # launch a call
     assert tpmf.LAUNCHES == {"mixed_rb_smooth_fold": 2 * 2 * (3 + 5),
-                             "mixed_rb_smooth_from_zero_fold": 2 * (3 + 5),
+                             "mixed_rb_smooth_from_zero_fold": 2 * 2,
                              "residual_restrict_fold": 2,
-                             "mixed_prolong_smooth_fold": 2 * (3 + 5),
+                             "mixed_prolong_smooth_fold": 2 * 2,
                              "residual_df_norm_fold": 1}
+
+
+def _fold_pins(kind, n, dev, rng):
+    """(fine pin planes (2, n, n - 2), coarse sign planes (2, nc, nc - 2)):
+    the electrospray's, or a random patch mask and random signs in {-1, 0,
+    1} (nonzero at the k-edge columns K19 reads)."""
+    nc = (n + 1) // 2
+    if kind == "electrospray":
+        prob = tmg.electrospray_problem()
+        return (tpmf.fold_pin_planes(prob, n, dev),
+                tpmf.fold_edge_sign_planes(prob, nc, dev))
+    pin = torch.from_numpy((rng.random((2, n, n - 2)) < 0.3).astype(np.float32)).to(dev)
+    sgn = torch.from_numpy(rng.integers(-1, 2, (2, nc, nc - 2)).astype(np.float32)).to(dev)
+    return pin, sgn
+
+
+def _fold_fields(rng, n, dev, count):
+    """``count`` fold fields random at every stored point, the x and y
+    faces too: the stages must neither read nor keep them."""
+    return [torch.from_numpy(rng.standard_normal((n, n, n - 2)).astype(np.float32)).to(dev)
+            for _ in range(count)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [9, 17, 33, 65, 129, 257, 513])
+def test_k17_k19_stages_match_plain_on_card(cuda, n):
+    """The one-pass fold stages K17 and K19 bit for bit against their
+    plain versions (9-129: the box schedule; 257, 513: the wavefront, 257
+    the main path's plan, 513 with k tiles at n_iter 2), n_iter 1-3, both
+    orders of K17, with the electrospray's pins and random ones and
+    nonzero coarse signs, on fields random at every stored point and the
+    allocator poisoned with NaN first, so that a point left unwritten
+    shows; one launch a call at n_iter <= 2, two at 3, and no other kernel
+    counted; fresh outputs, the inputs left as they were."""
+    h = 3e-4 / (n - 1)
+    nc = (n + 1) // 2
+    rng = np.random.default_rng(90 + n)
+    e, r = _fold_fields(rng, n, cuda, 2)
+    ec = _fold_fields(rng, nc, cuda, 1)[0]
+    plan = tps._stage_plan(n, 2, tps._sms(torch.cuda.current_device()), rect=True)
+    assert plan.box == (n <= tps.RECT_BOX_MAX_N) and (plan.k_halo > 0) == (n == 513)
+    for kind in ("electrospray", "random"):
+        pin, sgn_c = _fold_pins(kind, n, cuda, rng)
+        assert bool(sgn_c.any()) == (kind == "random" or nc <= 17)
+        before = [x.clone() for x in (e, r, ec, pin, sgn_c)]
+        for n_iter in (1, 2, 3):
+            calls = 1 if n_iter <= 2 else 2
+            for red_first in (True, False):
+                want = tpmf.mixed_rb_smooth_from_zero_fold_plain(r, pin, h, n_iter, red_first)
+                _poison_allocator((n, n, n - 2), cuda)
+                tpmf.reset_launches()
+                got = tpmf.mixed_rb_smooth_from_zero_fold(r, pin, h, n_iter, red_first)
+                assert tpmf.LAUNCHES == {**dict.fromkeys(tpmf.KERNELS, 0),
+                                         "mixed_rb_smooth_from_zero_fold": calls}
+                assert torch.equal(got, want), (kind, n_iter, red_first)
+            want = tpmf.mixed_prolong_smooth_fold_plain(ec, e, r, pin, sgn_c, h, n_iter)
+            _poison_allocator((n, n, n - 2), cuda)
+            tpmf.reset_launches()
+            got = tpmf.mixed_prolong_smooth_fold(ec, e, r, pin, sgn_c, h, n_iter)
+            assert tpmf.LAUNCHES == {**dict.fromkeys(tpmf.KERNELS, 0),
+                                     "mixed_prolong_smooth_fold": calls}
+            torch.cuda.synchronize()
+            assert got.data_ptr() not in {x.data_ptr() for x in (e, r, ec, pin, sgn_c)}
+            assert torch.equal(got, want), (kind, n_iter)
+        assert all(torch.equal(a, b) for a, b in zip((e, r, ec, pin, sgn_c), before))
+
+
+def _fold_stage_on_plan(plan, r, pin, h, red_first=True, u=None, ec=None, sgn=None):
+    """One launch of the fold stage (K17's from zero, or on u) or, given
+    ec, of K19's (u is e) on a plan of the caller's, into a fresh field;
+    the launcher's error code and the field."""
+    out = torch.empty_like(r)
+    args = (plan.n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem,
+            int(plan.box), tpk._stream())
+    lib = tpk._lib()
+    if ec is None:
+        err = lib.mg_fold_stage(out.data_ptr(), None if u is None else u.data_ptr(),
+                                r.data_ptr(), pin.data_ptr(), plan.n, h * h, int(red_first),
+                                *args)
+    else:
+        err = lib.mg_fold_prolong_stage(out.data_ptr(), ec.data_ptr(), u.data_ptr(),
+                                        r.data_ptr(), pin.data_ptr(), sgn.data_ptr(), plan.n,
+                                        h * h, *args)
+    return err, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("box", [False, True], ids=["wave", "box"])
+@pytest.mark.parametrize("bk", [0, 4, 12])
+@pytest.mark.parametrize("n", [9, 17, 33, 35])
+def test_fold_stages_on_hand_plans_on_card(cuda, n, bk, box):
+    """K17's stage (from zero and on an initial guess) and K19's on plans
+    of several blocks in i, j and k: 8 rows by 9 planes, and 1 row by 1
+    plane (whose x- and y-face nodes its source's block writes), on the
+    wavefront and on the box, whole rows (bk = 0; n = 35: a row's 17 slots
+    not a multiple of 4) and k tiles of 4 or 12 slots with the 4-slot k
+    halo; random pins and signs, fields random everywhere, the allocator
+    poisoned with NaN: bit for bit against the plain versions; a plan
+    whose shared memory is not the kernel's is refused."""
+    h = 3e-4 / (n - 1)
+    s, nc = n // 2, (n + 1) // 2
+    if bk >= s:
+        pytest.skip("a k tile as wide as the row is the whole-row plan")
+    rng = np.random.default_rng(130 + n + bk)
+    e, r = _fold_fields(rng, n, cuda, 2)
+    ec = _fold_fields(rng, nc, cuda, 1)[0]
+    pin, sgn = _fold_pins("random", n, cuda, rng)
+    for bi, bj in ((9, 8), (1, 1)):
+        for n_iter in (1, 2):
+            halo, k_halo = 2 * n_iter, tps.STAGE_K_HALO if bk else 0
+            width = tps._stage_width(n, bk or s, k_halo, rect=True)
+            box_bi = bi if box else 0
+            plan = tps.StagePlan(n, n_iter, halo, k_halo, bi, bj, bk or s,
+                                 32 * min(18, bj + 2 * halo),
+                                 tps._stage_smem(n_iter, bj, width, rect=True, box_bi=box_bi),
+                                 True, box)
+            assert plan.blocks > 1 and plan.tiles[2] == (-(-s // bk) if bk else 1)
+            for red_first in (True, False):
+                _poison_allocator((n, n, n - 2), cuda)
+                err, got = _fold_stage_on_plan(plan, r, pin, h, red_first)
+                assert err == 0 and torch.equal(
+                    got, tpmf.mixed_rb_smooth_from_zero_fold_plain(r, pin, h, n_iter, red_first))
+                err, got = _fold_stage_on_plan(plan, r, pin, h, red_first, u=e)
+                assert err == 0 and torch.equal(
+                    got, tpmf.mixed_rb_smooth_fold_plain(e, r, pin, h, n_iter, red_first))
+            k19 = plan._replace(smem=tps._stage_smem(n_iter, bj, width, prolong=True, rect=True,
+                                                     box_bi=box_bi))
+            _poison_allocator((n, n, n - 2), cuda)
+            err, got = _fold_stage_on_plan(k19, r, pin, h, u=e, ec=ec, sgn=sgn)
+            want = tpmf.mixed_prolong_smooth_fold_plain(ec, e, r, pin, sgn, h, n_iter)
+            assert err == 0 and torch.equal(got, want), (bi, n_iter)
+            assert _fold_stage_on_plan(plan._replace(smem=plan.smem + 16), r, pin, h)[0] != 0
+            assert _fold_stage_on_plan(k19._replace(smem=k19.smem + 16), r, pin, h, u=e, ec=ec,
+                                       sgn=sgn)[0] != 0
 
 
 @pytest.mark.cuda

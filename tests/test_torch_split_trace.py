@@ -85,6 +85,36 @@ def test_stage_calls_tell_the_one_pass_stages_apart():
                    "K10 n=65": [1, pytest.approx(0.006), pytest.approx(0.006)]}
 
 
+def test_stage_calls_group_the_fold_stages():
+    """The electrospray fold cycle's stages: a first-form K17 call is its
+    from-zero half-sweep, the three half-sweeps after it and the BC pass,
+    K19's its correction kernel, three half-sweeps and the BC pass, K16's
+    four half-sweeps and the BC pass; the one-pass K17 (fold_stage_kernel
+    with ZERO true) and K19 one kernel a call, by level from their plans."""
+    from multigrid_parallel_tpu_torch.hierarchy import Hierarchy
+    from multigrid_parallel_tpu_torch.ops import pallas_split as tps
+
+    sizes = st._stage_sizes(Hierarchy(ndim=3, coarse_n=5, num_levels=5), 132)
+    g = (-(-65 * 65 * 63 // 256), 1, 1, 0)
+    half = [(10 * i, 10 * i + 2, "mixed_fold_half_sweep_kernel<false>", g) for i in range(1, 12)]
+    bc = [(10 * i + 5, 10 * i + 6, "mixed_fold_bc_pass_kernel", (1, 1, 1, 0)) for i in (3, 7, 11)]
+    k17, k19 = tps._stage_plan(33, 2, 132, rect=True), tps._stage_plan(33, 2, 132, True, True)
+    intervals = sorted([(0, 4, "mixed_fold_half_sweep_kernel<true>", g)] + half[:3] + [bc[0]]
+                       + half[3:7] + [bc[1]]
+                       + [(78, 79, "mixed_fold_prolong_correct_black_kernel", g)]
+                       + half[7:10] + [bc[2]]
+                       + [(200, 203, "fold_stage_kernel<2, true, true>",
+                           (k17.blocks, 1, 1, k17.smem)),
+                          (210, 215, "fold_prolong_stage_kernel<2, true>",
+                           (k19.blocks, 1, 1, k19.smem))])
+    got = st.stage_calls(intervals, sizes)
+    assert got == {"K17 n=65": [1, pytest.approx(0.011), pytest.approx(0.011)],
+                   "K16 n=65": [1, pytest.approx(0.009), pytest.approx(0.009)],
+                   "K19 n=65": [1, pytest.approx(0.008), pytest.approx(0.008)],
+                   "K17 n=33": [1, pytest.approx(0.003), pytest.approx(0.003)],
+                   "K19 n=33": [1, pytest.approx(0.005), pytest.approx(0.005)]}
+
+
 def test_restrict_calls_by_level_for_both_forms():
     """K3 and K9 a kernel a call, by level: the first forms from their one
     thread a coarse point, the streaming stage from its plan's grid and
