@@ -52,7 +52,8 @@ which fails the run:
      version; K1, K2 and K4 (one-pass stages) once more at 129^3, n_iter
      1-3, K2 and K4 timed at n_iter 2 beside the bound from the bytes a
      call needs; K17 and K19 (one-pass fold stages) bit for bit at 65^3,
-     257^3 and, with the pin-edge delta, 17^3;
+     257^3 and, with the pin-edge delta, 17^3; K14 and K15 (one-pass
+     full-layout mixed stages) bit for bit at 17^3, 65^3 and 257^3;
   3. solve 33^3 on the CPU (plain versions) and on the card (kernels),
      unfused, fused, fused with FMG and split: same outer-step count,
      solutions within 1e-8; the electrospray full, fold and split tiers
@@ -74,9 +75,12 @@ which fails the run:
      of the span from its first kernel to its last);
   6. the electrospray 257^3 solve, launches reset and read around it:
      14 +- 1 outer steps, final norm <= 1e-8 of the initial one, only
-     K13-K15, K3 and K5 launched; its wall (warm-up, median of 5) beside
-     the device-busy time of one traced solve; its solution within 1e-3 V
-     of the f64-outer MixedBCSolver.solve_on_device, outer steps within 1;
+     K13-K15, K3 and K5 launched, K13, K14 and K15 exactly as many times
+     as the cycle's calls in that many outer steps need (K14 and K15 one
+     launch a call, K13 2 n_smooth + 1); its wall (warm-up, median of 5)
+     beside the device-busy time of one traced solve; its solution within
+     1e-3 V of the f64-outer MixedBCSolver.solve_on_device, outer steps
+     within 1; K13, K14 and K15's device time a call by level from a trace;
   7. the electrospray 257^3 solve on the fold tier, launches reset and
      read around it: only K16-K20 launched, K16, K17 and K19 exactly as
      many times as the fold cycle's calls in that many outer steps need
@@ -128,8 +132,9 @@ which fails the run:
      on rank 1's 257^3 segments against its plain version; (b)
      make_sharded_mixed_padded_df_solver at 257^3 (production
      configuration) on one NCCL rank, launch counts reset and read around
-     it: K34-K36, K30 and K32 launched as often as phase 6's full tier
-     launches K13-K15, K3 and K5 and nothing else, the full tier's outer
+     it: K30 and K32 launched as often as phase 6's full tier launches K3
+     and K5, K34-K36 2 n_smooth + 1 times for each call of K13-K15 there,
+     and nothing else, the full tier's outer
      steps, max|u - u_full| <= 1e-7 max|u|, walls interleaved with the full
      tier (5 each) and the device busy time of each; (c) in 10c's spawned
      group, the same solve on the four gloo ranks: (b)'s outer steps, u
@@ -760,7 +765,7 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
                          time_ms(lambda: pm.mixed_rb_smooth_from_zero_plain(r0, pin, h_es, 2)))
             record("mixed_rb_smooth_from_zero_fused", n, f"n_iter={n_iter}", got,
                    pm.mixed_rb_smooth_from_zero_plain(r0, pin, h_es, n_iter), *times,
-                   io=((r0, pin), (got,)))
+                   io=((r0, pin), (got,)), bitwise=True)
             got = pm.mixed_prolong_smooth_fused(ec, e_bc, r0, pin, h_es, n_iter)
             times = ()
             if timed:
@@ -768,7 +773,7 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
                          time_ms(lambda: pm.mixed_prolong_smooth_plain(ec, e_bc, r0, pin, h_es, 2)))
             record("mixed_prolong_smooth_fused", n, f"n_iter={n_iter}", got,
                    pm.mixed_prolong_smooth_plain(ec, e_bc, r0, pin, h_es, n_iter), *times,
-                   io=((ec, e_bc, r0, pin), (got,)))
+                   io=((ec, e_bc, r0, pin), (got,)), bitwise=True)
 
         # K16-K20 on the same fields packed into the fold layout, K21-K25
         # packed into pairs
@@ -833,7 +838,9 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
               f"| device ms a call: one-pass {device[0]} per-sweep {device[1]} | "
               f"bound_ms={b_ms:.4f} | kernels a trace {seen}")
 
-    # K19 and K24 where the pin-edge delta is live: 17^3, coarse level 9^3
+    # K19 and K24 where the pin-edge delta is live: 17^3, coarse level 9^3;
+    # K14 and K15 (one-pass stages) at 17^3 too, where the plan's blocks are
+    # 1-plane, 1-row boxes
     n = 17
     rng = np.random.default_rng(n)
     u, f, ec = (torch.from_numpy(rng.standard_normal((m, m, m)).astype(np.float32)).to(dev)
@@ -841,6 +848,14 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
     inner = torch.zeros((n, n, n), dtype=torch.bool, device=dev)
     inner[1:-1, 1:-1, 1:-1] = True
     h, r = ES_LENGTH / (n - 1), torch.where(inner, f, 0 * f)
+    pin = pm.dirichlet_pin_planes(es, n, dev)
+    for n_iter in (1, 2):
+        record("mixed_rb_smooth_from_zero_fused", n, f"n_iter={n_iter}",
+               pm.mixed_rb_smooth_from_zero_fused(r, pin, h, n_iter),
+               pm.mixed_rb_smooth_from_zero_plain(r, pin, h, n_iter), bitwise=True)
+        record("mixed_prolong_smooth_fused", n, f"n_iter={n_iter}",
+               pm.mixed_prolong_smooth_fused(ec, u, r, pin, h, n_iter),
+               pm.mixed_prolong_smooth_plain(ec, u, r, pin, h, n_iter), bitwise=True)
     compare_fold(pm, pmf, es, n, h, u, r, ec, None, dev, record, timed=False)
     compare_msplit(pm, pmf, pms, ps, es, n, h, u, r, ec, None, dev, record, timed=False)
     return results
@@ -1082,6 +1097,9 @@ def electrospray_257(es, dev, card, launches):
         check((counts[name] > 0) == (name in ES_KERNELS),
               f"electrospray: kernel {name} launched {counts[name]} times in the {n}^3 solve")
         launches[name] += counts[name]
+    top = hier.num_levels - 1
+    check_stage_launches(counts, cycle_calls(solver, top, True, new_calls(FULL_STAGES)), it,
+                         solver.n_smooth, f"{n}^3 electrospray", FULL_STAGES)
     walls = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -1108,6 +1126,7 @@ def electrospray_257(es, dev, card, launches):
           f"f64_wall_s={time.perf_counter() - t0:.3f}")
     check(abs(it - it_ref) <= 1, f"electrospray: {it} outer steps against {it_ref} in f64")
     check(du <= FIXED_POINT_TOL, f"electrospray: tier and f64 solutions differ by {du} V")
+    print_stage_times(lambda: run(*state), solver, f"{n}^3 electrospray", card, FULL_STAGES)
     return u, it, lambda: run(*state), counts
 
 
@@ -1152,70 +1171,82 @@ def fold_257(es, dev, card, launches, full):
               f"fold: kernel {name} launched {counts[name]} times in the {n}^3 solve")
         launches[name] += counts[name]
     top = solver.hier.num_levels - 1
-    check_fold_launches(counts, fold_calls(solver, top, True, new_calls()), it, solver.n_smooth,
-                        f"{n}^3 electrospray fold")
+    check_stage_launches(counts, cycle_calls(solver, top, True, new_calls(FOLD_STAGES)), it,
+                         solver.n_smooth, f"{n}^3 electrospray fold", FOLD_STAGES)
     solve = lambda: run(*state)  # noqa: E731
     interleave({"fold": solve, "full": solve_full}, f"{n}^3 electrospray", card)
     print_device_time({"fold": solve, "full": solve_full}, f"{n}^3 electrospray", card)
-    print_fold_stage_times(solve, solver, f"{n}^3 electrospray fold", card)
+    print_stage_times(solve, solver, f"{n}^3 electrospray fold", card, FOLD_STAGES)
     return u, it, solve
 
 
+# each mixed-BC cycle's smoothing stages: where a level's correction is
+# revisited (K13, K16; first form, 2 n_smooth + 1 launches a call), entered
+# from zero (K14, K17) and the prolongation (K15, K19), one-pass stages of
+# ceil(n_smooth / 2) launches a call, in that order
+FULL_STAGES = {"K13": "mixed_rb_smooth_fused", "K14": "mixed_rb_smooth_from_zero_fused",
+               "K15": "mixed_prolong_smooth_fused"}
 FOLD_STAGES = {"K16": "mixed_rb_smooth_fold", "K17": "mixed_rb_smooth_from_zero_fold",
                "K19": "mixed_prolong_smooth_fold"}
 
 
-def new_calls():
-    return dict.fromkeys(FOLD_STAGES, 0)
+def new_calls(stages):
+    return dict.fromkeys(stages, 0)
 
 
-def fold_calls(solver, level, from_zero, calls):
-    """Add to ``calls`` the K16, K17 and K19 calls of one fold-cycle descent
-    at ``level`` (mixed_padded._make_mixed_descend_fold's recursion,
-    walked without running it: K17 where a level is entered from zero, K16
-    where its correction is revisited, K19 once a call) and return it."""
+def cycle_calls(solver, level, from_zero, calls):
+    """Add to ``calls`` (keyed as FULL_STAGES or FOLD_STAGES: revisit,
+    from zero, prolongation) the stage calls of one mixed-cycle descent at
+    ``level`` (mixed_padded._make_mixed_descend's and
+    _make_mixed_descend_fold's recursion, walked without running it: the
+    from-zero stage where a level is entered from zero, the revisit stage
+    where its correction is revisited, the prolongation once a call) and
+    return it."""
+    revisit, zero, prolong = calls
     if level == 0:
         return calls
-    calls["K17" if from_zero else "K16"] += 1
-    fold_calls(solver, level - 1, True, calls)
+    calls[zero if from_zero else revisit] += 1
+    cycle_calls(solver, level - 1, True, calls)
     for _ in range(solver._revisits(level - 1)):
-        fold_calls(solver, level - 1, False, calls)
-    calls["K19"] += 1
+        cycle_calls(solver, level - 1, False, calls)
+    calls[prolong] += 1
     return calls
 
 
-def check_fold_launches(counts, calls, steps, n_smooth, what):
-    """The fold cycle's stage launches of a solve of ``steps`` outer steps,
-    ``calls`` those of one step: K17 and K19 one launch per two
-    iterations a call (one-pass stages), K16 2 n_smooth + 1 (a launch a
-    half-sweep and the BC pass), each exactly; printed beside the first
-    forms' 2 n_smooth + 1 a call of K17 and K19."""
+def check_stage_launches(counts, calls, steps, n_smooth, what, stages):
+    """A mixed cycle's stage launches in a solve of ``steps`` outer steps,
+    ``calls`` those of one step: the one-pass stages (from zero and the
+    prolongation) one launch per two iterations a call, the revisit stage
+    2 n_smooth + 1 (a launch a half-sweep and the BC pass), each exactly;
+    printed beside the first forms' 2 n_smooth + 1 a call."""
+    revisit = next(iter(stages))
     chunks = -(-n_smooth // 2)
-    per_call = {"K16": 2 * n_smooth + 1, "K17": chunks, "K19": chunks}
     first = 2 * n_smooth + 1
-    for key, name in FOLD_STAGES.items():
+    per_call = {k: first if k == revisit else chunks for k in stages}
+    for key, name in stages.items():
         want = steps * calls[key] * per_call[key]
         check(counts[name] == want, f"{what}: {name} launched {counts[name]} times, expected "
               f"{want} ({steps} outer steps x {calls[key]} calls x {per_call[key]})")
-    fewer = sum(steps * calls[k] * (first - per_call[k]) for k in FOLD_STAGES)
+    fewer = sum(steps * calls[k] * (first - per_call[k]) for k in stages)
     print(f"[launches {what} stages] "
           + "; ".join(f"{k}: {steps * calls[k]} calls, {counts[name]} launches (first form "
-                      f"{steps * calls[k] * first})" for k, name in FOLD_STAGES.items())
-          + f" | {fewer} launches fewer than K17 and K19's first forms")
+                      f"{steps * calls[k] * first})" for k, name in stages.items())
+          + f" | {fewer} launches fewer than the first forms of "
+          + " and ".join(k for k in stages if k != revisit))
 
 
-def print_fold_stage_times(solve, solver, what, card):
-    """K16, K17 and K19's device time a call by level, from one traced
-    solve (``utils.split_trace.stage_calls``: [calls, summed ms, median ms
-    a call])."""
+def print_stage_times(solve, solver, what, card, stages):
+    """The device time a call by level of the ``stages``' calls, from one
+    traced solve (``utils.split_trace.stage_calls``: [calls, summed ms,
+    median ms a call])."""
     from multigrid_parallel_tpu_torch.utils.split_trace import (_stage_sizes, kernel_intervals,
                                                                 stage_calls)
 
     sizes = _stage_sizes(solver.hier, torch.cuda.get_device_properties(0).multi_processor_count)
     intervals = retraced(lambda: kernel_intervals(solve), bool)[-1]
     calls = stage_calls(intervals, sizes, solver.n_smooth)
-    mine = {k: v for k, v in calls.items() if k.split()[0] in FOLD_STAGES}
-    check(bool(mine), f"{what}: no K16, K17 or K19 call in the trace")
+    mine = {k: v for k, v in calls.items() if k.split()[0] in stages}
+    check(bool(mine), f"{what}: no {', '.join(stages)} call in the trace")
     print(f"[stage calls {what}] {json.dumps(mine)} card: {card}")
 
 
@@ -1276,14 +1307,15 @@ def msplit_257(es, dev, card, launches, fold):
               f"msplit: kernel {name} launched {counts[name]} times in the {n}^3 solve")
         launches[name] += counts[name]
     below = solver.hier.num_levels - 2  # the fold cycle's top level: entered from zero, revisited
-    calls = fold_calls(solver, below, True, new_calls())
+    calls = cycle_calls(solver, below, True, new_calls(FOLD_STAGES))
     for _ in range(solver._revisits(below)):
-        fold_calls(solver, below, False, calls)
-    check_fold_launches(counts, calls, it, solver.n_smooth, f"{n}^3 electrospray msplit")
+        cycle_calls(solver, below, False, calls)
+    check_stage_launches(counts, calls, it, solver.n_smooth, f"{n}^3 electrospray msplit",
+                         FOLD_STAGES)
     solve = lambda: run(*state)  # noqa: E731
     interleave({"msplit": solve, "fold": solve_fold}, f"{n}^3 electrospray", card)
     print_device_time({"msplit": solve, "fold": solve_fold}, f"{n}^3 electrospray", card)
-    print_fold_stage_times(solve, solver, f"{n}^3 electrospray msplit", card)
+    print_stage_times(solve, solver, f"{n}^3 electrospray msplit", card, FOLD_STAGES)
 
 
 def interleave(solves, what, card, reps=INTERLEAVED):
@@ -2117,10 +2149,11 @@ def compare_sharded_mixed(dev, results, es):
 def sharded_mixed_one_rank(dev, card, launches, full, es):
     """Phase 11b: make_sharded_mixed_padded_df_solver at 257^3 in the
     production configuration on one rank of an NCCL group, launch counts
-    reset just before and read just after (added into ``launches``): K34-K36,
-    K30 and K32 launched exactly as often as phase 6's full tier launches
-    K13-K15, K3 and K5, and nothing else (the plan shards down to 9^3 and
-    gathers the bare 5^3 LU); the full tier's outer steps (``full``: phase
+    reset just before and read just after (added into ``launches``): K30 and
+    K32 launched exactly as often as phase 6's full tier launches K3 and K5,
+    K34-K36 (first forms) 2 n_smooth + 1 times for each call the full tier
+    makes of K13-K15 (seg_twin_launches), and nothing else (the plan shards
+    down to 9^3 and gathers the bare 5^3 LU); the full tier's outer steps (``full``: phase
     6's (u, outer steps, solve, counts)), max|u - u_full| <=
     SHARDED_MIXED_RTOL max|u|; then the walls interleaved with the full tier
     and the device-busy time of each. Returns (u, outer steps)."""
@@ -2169,7 +2202,7 @@ def sharded_mixed_one_rank(dev, card, launches, full, es):
         check(it == it_full, f"1-rank electrospray solve: {it} outer steps, full tier {it_full}")
         check(du <= SHARDED_MIXED_RTOL * scale, f"1-rank electrospray solve: max|du| = {du}")
         for name in SOURCES:
-            want = counts_full[MIXED_SEG_TWINS[name]] if name in MIXED_SEG_TWINS else 0
+            want = seg_twin_launches(counts_full, name, 2)
             check(counts[name] == want, f"1-rank electrospray: kernel {name} launched "
                                         f"{counts[name]} times, expected {want}")
             launches[name] += counts[name]
@@ -2181,6 +2214,21 @@ def sharded_mixed_one_rank(dev, card, launches, full, es):
     finally:
         dist.destroy_process_group()
     return u, it
+
+
+def seg_twin_launches(counts_full, name, n_smooth):
+    """The launches the one-rank sharded electrospray solve makes of kernel
+    ``name``: 0 unless it has a twin in MIXED_SEG_TWINS; its twin's in phase
+    6's full-tier solve for K30 and K32 (K3's, K5's); for K34-K36, whose
+    first forms launch 2 n_smooth + 1 times a call, that many for each call
+    of their twins K13 (as many a call), K14 and K15 (one-pass stages,
+    ceil(n_smooth / 2) a call)."""
+    twin = MIXED_SEG_TWINS.get(name)
+    if twin is None:
+        return 0
+    if twin not in ("mixed_rb_smooth_from_zero_fused", "mixed_prolong_smooth_fused"):
+        return counts_full[twin]
+    return counts_full[twin] // -(-n_smooth // 2) * (2 * n_smooth + 1)
 
 
 def sharded_phase(dev, card, launches, results, fused, full, es):

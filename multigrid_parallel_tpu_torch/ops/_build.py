@@ -51,7 +51,6 @@ _F = ctypes.c_float
 # name -> argtypes of every exported launcher (all return a cudaError_t as int)
 _SIGNATURES = {
     "mg_rb_half_sweep": (_P, _P, _I, _F, _I, _P),
-    "mg_rb_half_sweep_from_zero": (_P, _P, _I, _F, _I, _P),
     "mg_residual": (_P, _P, _P, _I, _F, _P),
     "mg_residual_df_norm_partials": (_I,),
     "mg_residual_df_norm": (_P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
@@ -78,11 +77,14 @@ _SIGNATURES = {
     "mg_splitcolor_half_sweep": (_P, _P, _I, _F, _I, _P),
     "mg_mixed_half_sweep": (_P, _P, _P, _I, _F, _I, _P),
     "mg_mixed_bc_pass": (_P, _P, _I, _P),
-    "mg_mixed_prolong_correct_black": (_P, _P, _P, _P, _P, _I, _F, _P),
+    # the full-layout mixed stages (rect.cuh, kMixed): the rect stages' arguments with
+    # the pins after the fields
+    "mg_mixed_stage": (_P,) * 4 + (_I, _F, _I, _I) + (_I,) * 7 + (_P,),
+    "mg_mixed_prolong_stage": (_P,) * 5 + (_I, _F, _I) + (_I,) * 7 + (_P,),
     "mg_mixed_fold_half_sweep": (_P, _P, _P, _I, _F, _I, _P),
     "mg_mixed_fold_bc_pass": (_P, _P, _I, _P),
     "mg_residual_restrict_fold": (_P, _P, _P, _I, _F, _P),
-    # the fold stages (rect.cuh, FOLD): the rect stages' arguments with the pins
+    # the fold stages (rect.cuh, kFold): the rect stages' arguments with the pins
     # (and K19's coarse sign planes) after the fields
     "mg_fold_stage": (_P,) * 4 + (_I, _F, _I, _I) + (_I,) * 7 + (_P,),
     "mg_fold_prolong_stage": (_P,) * 6 + (_I, _F, _I) + (_I,) * 7 + (_P,),

@@ -1,65 +1,92 @@
-// Mixed-BC prolongation + correction and the first half-sweep of the
-// black-first mixed stage, in one kernel that writes a fresh fine field.
+// Mixed-BC prolongation of the coarse correction, added to the fine one,
+// and the black-first mixed smoothing stage on the result (K15), on the
+// electrospray's full layout: one launch, one pass, a fresh fine (n, n, n)
+// field from the coarse (nc, nc, nc) correction ec.
 //
-// Replaces, with K13 launches for the rest of the stage, the Pallas kernel
-// multigrid_parallel_tpu/ops/pallas_mixed.py: mixed_prolong_smooth_fused
-// (K15), which computes the black-first mixed stage of e + P ec in one
-// pass: trilinear interpolation with the coarse BOUNDARY taking part (the
-// mixed correction's Neumann boundaries are nonzero), j then k then i
-// (mg::interp), then the folded half-sweeps (mixed.cuh) and one BC pass.
-// The folded sweeps never read the boundary, so no BC pass is needed
-// between the correction and the first half-sweep.
+// Replaces the Pallas kernel multigrid_parallel_tpu/ops/pallas_mixed.py:
+// mixed_prolong_smooth_fused (K15), which computes the black-first mixed
+// stage of e + P ec in one pass: trilinear interpolation with the coarse
+// BOUNDARY taking part (the mixed correction's Neumann boundaries are
+// nonzero), j then k then i, then the folded half-sweeps (mixed.cuh) and
+// one BC pass.
 //
-// This launch: red points and boundary points get the corrected value
-// e + P ec (the boundary ones are overwritten by the stage's BC pass);
-// black interior points get their first smoothed value
-//   (mixed_nbr_sum(e + P ec) - h^2 r) * (1/6),
-// each neighbour's corrected value recomputed from e and ec, as K4 does.
-// The stage's other 2 * n_iter - 1 half-sweeps and its BC pass are K13's
-// launches on the output.
+// The stage is rect.cuh's on the full layout (kMixed: the folded reads in
+// the sweeps, the BC pass at store time, the z faces included; the
+// wavefront, or up to 129^3 the box), black first, with K4's step
+// (rect.cuh, ProlongPrep) as each plane of e arrives in shared memory:
+// every point of the loaded box becomes e + P ec, computed once, from the
+// coarse planes in a ring of 3 (the box holds all it needs), each coarse
+// point read as it is stored, the live coarse boundary too. The fine
+// boundary's e + P ec is never read (the selects) and the store overwrites
+// it with its source's final value, so no BC pass is needed between the
+// correction and the first half-sweep.
 //
-// Bound: as K4, loads through L1/L2 (a black point recomputes six
-// neighbours' interpolations, up to 8 coarse loads each); the
-// device-memory floor is 12 B per fine point (e, r read, output written)
-// plus the coarse field and the pin planes.
+// Bound: device-memory bytes, those the function needs: e and r read, the
+// output written, 12 B a fine point, ec read, 4 B a coarse point, and the
+// pins of the two x faces (0.0635 ms at 257^3, 3.35 TB/s; chip_smoke.py,
+// bound). The design answers the first form's costs (a correction launch
+// that recomputed the interpolation of every neighbour of a black point,
+// then 2 n_iter - 1 K13 half-sweep launches and a BC-pass launch): one
+// pass, each corrected value computed once, neighbours from shared memory,
+// one launch a call. n_iter > 2 continues with ceil(n_iter / 2) - 1
+// launches of K14's stage kernel on its initial guess, black first
+// (mixed_rb_smooth.cu, mg_mixed_stage), counted as K15's.
 #include "mixed.cuh"
+#include "rect.cuh"
 
 namespace {
 
-struct CorrectedAt {
-  const float* e;
-  const float* ec;
-  int n, nc;
-  __device__ float operator()(int i, int j, int k) const {
-    return e[(i * n + j) * n + k] + mg::interp(ec, nc, i, j, k);
-  }
-};
+using namespace mg::rect;
 
-__global__ void mixed_prolong_correct_black_kernel(
-    float* __restrict__ out, const float* __restrict__ ec,
-    const float* __restrict__ e, const float* __restrict__ r,
-    const float* __restrict__ pin, int n, float h2) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  int i, j, k;
-  if (!mg::decode(p, n, i, j, k)) return;
-  const CorrectedAt at{e, ec, n, (n + 1) / 2};
-  if (!mg::is_interior(i, j, k, n) || ((i + j + k) & 1) != 0) {  // 0 = BLACK
-    out[p] = at(i, j, k);
-    return;
+template <int NITER, bool BOX>
+__global__ void __launch_bounds__(kStageMaxThreads)
+    mixed_prolong_stage_kernel(StageArgs a, ProlongPrep prep) {
+  extern __shared__ __align__(16) float tile[];
+  if constexpr (BOX) {
+    box_body<NITER, false, Layout::kMixed>(a, tile, prep);
+  } else {
+    stage_body<NITER, false, Layout::kMixed>(a, tile, prep);
   }
-  const float nbr = mg::mixed_nbr_sum(at, mg::full_pins(pin, n), i, j, k, n);
-  out[p] = (nbr - h2 * r[p]) * (1.0f / 6.0f);
+}
+
+template <int NITER>
+int launch_mixed_prolong_stage(const StageArgs& a, int box, int threads, int smem,
+                               cudaStream_t stream, const ProlongPrep& prep) {
+  return box ? launch_stage(mixed_prolong_stage_kernel<NITER, true>, a, threads, smem, stream,
+                            prep)
+             : launch_stage(mixed_prolong_stage_kernel<NITER, false>, a, threads, smem, stream,
+                            prep);
 }
 
 }  // namespace
 
-// out <- e + P ec on red and boundary points, the first black mixed
-// half-sweep of that field on black interior points. out must not alias e.
-extern "C" int mg_mixed_prolong_correct_black(float* out, const float* ec,
-                                              const float* e, const float* r,
-                                              const float* pin, int n, float h2,
-                                              cudaStream_t stream) {
-  mixed_prolong_correct_black_kernel<<<mg::point_blocks(n), mg::kThreads, 0,
-                                       stream>>>(out, ec, e, r, pin, n, h2);
-  return (int)cudaGetLastError();
+// The K15 stage: out <- n_iter (1 or 2) black-first mixed RB-GS iterations
+// of e + P ec against r, ending with the BC pass, on the plan (bi, bj, bk,
+// k_halo, threads, smem, box) of pallas_split._stage_plan (rect, prolong).
+// out must not alias e.
+extern "C" int mg_mixed_prolong_stage(float* out, const float* ec, const float* e, const float* r,
+                                      const float* pin, int n, float h2, int n_iter, int bi,
+                                      int bj, int bk, int k_halo, int threads, int smem, int box,
+                                      cudaStream_t stream) {
+  StageArgs a{};
+  a.out = out;
+  a.in = e;
+  a.f = r;
+  a.pin = pin;
+  a.color0 = mg::split::kBlack;
+  a.n = n;
+  a.h2 = h2;
+  a.bi = bi;
+  a.bj = bj;
+  a.bk = bk;
+  a.k_halo = k_halo;
+  const int rows = coarse_rows(bj, 2 * n_iter), width = coarse_width(tile_width(n, bk, k_halo));
+  const int depth = coarse_planes(bi, 2 * n_iter, box);
+  if (n % 2 == 0 || e == nullptr || pin == nullptr) return (int)cudaErrorInvalidValue;
+  if (const int err = stage_plan_error(a, n_iter, threads,
+                                       smem - (long long)depth * rows * width * 4, box))
+    return err;
+  const ProlongPrep prep{ec, (n + 1) / 2, rows, width, depth, nullptr, 0, 0};
+  return n_iter == 1 ? launch_mixed_prolong_stage<1>(a, box, threads, smem, stream, prep)
+                     : launch_mixed_prolong_stage<2>(a, box, threads, smem, stream, prep);
 }

@@ -6,7 +6,7 @@
 // Replaces the Pallas kernel multigrid_parallel_tpu/ops/pallas_mixed_fold.py:
 // mixed_prolong_smooth_fold (K19), K15 on the fold layout.
 //
-// The stage is rect.cuh's on the fold layout (FOLD: the folded reads in the
+// The stage is rect.cuh's on the fold layout (kFold: the folded reads in the
 // sweeps, the BC pass at store time; the wavefront, or up to 129^3 the
 // box), black first, with K4's step (prolong_smooth.cu) as each plane of e
 // arrives in shared memory: every stored point of the loaded box with i
@@ -154,9 +154,9 @@ __global__ void __launch_bounds__(kStageMaxThreads)
     fold_prolong_stage_kernel(StageArgs a, FoldProlongPrep prep) {
   extern __shared__ __align__(16) float tile[];
   if constexpr (BOX) {
-    box_body<NITER, false, true>(a, tile, prep);
+    box_body<NITER, false, Layout::kFold>(a, tile, prep);
   } else {
-    stage_body<NITER, false, true>(a, tile, prep);
+    stage_body<NITER, false, Layout::kFold>(a, tile, prep);
   }
 }
 

@@ -8,7 +8,7 @@
 // with the copy-BC folded into the stencil, then one BC pass without z
 // faces.
 //
-// K17 is one launch of rect.cuh's stage on the fold layout (FOLD; the
+// K17 is one launch of rect.cuh's stage on the fold layout (kFold; the
 // wavefront, or up to 129^3 the box; the plan pallas_split._stage_plan,
 // rect) for n_iter <= 2, into a fresh field: the tile starts as zeros (the
 // folded reads of a zero field are zero), every half-sweep reads the
@@ -91,9 +91,10 @@ __global__ void __launch_bounds__(mg::rect::kStageMaxThreads)
     fold_stage_kernel(mg::rect::StageArgs a) {
   extern __shared__ __align__(16) float tile[];
   if constexpr (BOX) {
-    mg::rect::box_body<NITER, ZERO, true>(a, tile, mg::split::NoPrep{});
+    mg::rect::box_body<NITER, ZERO, mg::rect::Layout::kFold>(a, tile, mg::split::NoPrep{});
   } else {
-    mg::rect::stage_body<NITER, ZERO, true>(a, tile, mg::split::NoPrep{});
+    mg::rect::stage_body<NITER, ZERO, mg::rect::Layout::kFold>(a, tile,
+                                                               mg::split::NoPrep{});
   }
 }
 

@@ -29,8 +29,7 @@
 //   u <- (sum6(u) - h^2 f) * (1/6)   on interior points of `color`,
 // one thread a point, ~10 bytes a point a launch, 4 launches a call at
 // n_iter 2. K26 (rb_smooth_residual.cu) runs its stage on that half-sweep
-// too. The first half-sweep from zero (mg_rb_half_sweep_from_zero) serves
-// K14 (pallas_mixed.py).
+// too.
 #include "rect.cuh"
 #include "stencil.cuh"
 
@@ -45,20 +44,6 @@ __global__ void rb_half_sweep_kernel(float* __restrict__ u,
   if (!mg::is_interior(i, j, k, n) || ((i + j + k) & 1) != color) return;
   const float nbr = mg::nbr_sum(u, p, n);
   u[p] = (nbr - h2 * f[p]) * (1.0f / 6.0f);
-}
-
-__global__ void rb_half_sweep_from_zero_kernel(float* __restrict__ out,
-                                               const float* __restrict__ f,
-                                               int n, float h2, int color) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  int i, j, k;
-  if (!mg::decode(p, n, i, j, k)) return;
-  float v = 0.0f;
-  if (mg::is_interior(i, j, k, n) && ((i + j + k) & 1) == color) {
-    const float nbr = 0.0f;  // six zero neighbours, summed: +0
-    v = (nbr - h2 * f[p]) * (1.0f / 6.0f);
-  }
-  out[p] = v;
 }
 
 template <int NITER, bool ZERO, bool BOX>
@@ -87,15 +72,6 @@ extern "C" int mg_rb_half_sweep(float* u, const float* f, int n, float h2,
                                 int color, cudaStream_t stream) {
   rb_half_sweep_kernel<<<mg::point_blocks(n), mg::kThreads, 0, stream>>>(
       u, f, n, h2, color);
-  return (int)cudaGetLastError();
-}
-
-// First half-sweep from a zero initial guess: writes all of `out`.
-extern "C" int mg_rb_half_sweep_from_zero(float* out, const float* f, int n,
-                                          float h2, int color,
-                                          cudaStream_t stream) {
-  rb_half_sweep_from_zero_kernel<<<mg::point_blocks(n), mg::kThreads, 0,
-                                   stream>>>(out, f, n, h2, color);
   return (int)cudaGetLastError();
 }
 

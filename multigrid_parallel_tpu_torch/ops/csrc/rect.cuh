@@ -41,26 +41,33 @@
 // a warp sweeps 32 / lanes tile rows at once (row_lanes), so that the
 // levels of 64 slots a row and fewer keep every lane busy.
 //
-// FOLD: the same stage on the electrospray's fold layout (mixed.cuh; K17
-// and K19, mixed_rb_smooth_fold.cu and mixed_prolong_smooth_fold.cu), an
-// (n, n, n - 2) field whose stored slot kk holds grid plane k = kk + 1.
-// The colour rows place k = 1 .. n - 2 in the same slots; the k-face slots
-// (slot -1 and, for n odd, slot S - 1 of the colour with p = 1) hold no
-// stored point, and no sweep uses their values. The loader and the store
-// address fold rows, f too. A neighbour across a face (i or j at 1 or
-// n - 2, k at 1 or n - 2) is read as the reader's own value, 0 at a pinned
-// x-face node (mixed_nbr_sum's rule), as a select in the sweep, in the
-// same order of the six adds: never from a tile slot of the face, which
-// holds a value of the first half-sweep's input. The pins are read through
-// the read-only path (__ldg), not staged: only the rows of planes 1 and
-// n - 2 read them, 4 values a lane's group, 0.5 MB at 257^3 that stays in
-// L2. The BC pass runs at store time: the
-// block that owns a stored interior point (i, j) writes it and the
-// boundary nodes whose copy source it is, (c(i), c(j)) = (i, j) with c
-// mapping 0 -> 1, n - 1 -> n - 2 (0 at a pinned x-face node), from its
-// final value: the x faces whole and the y faces as the fold's BC pass
-// (mixed_rb_smooth_fold.cu) has them, every node exactly once whatever the
-// plan, and never before its source's last half-sweep.
+// The layout (Layout) says what the stage runs on. kRect: the plain
+// field above (K1, K2, K4). The electrospray's mixed-BC stages run the same
+// schedule with two changes, on one of two layouts (mixed.cuh):
+//   kFold (K17, K19; mixed_rb_smooth_fold.cu, mixed_prolong_smooth_fold.cu):
+//     an (n, n, n - 2) field whose stored slot kk holds grid plane
+//     k = kk + 1. The colour rows place k = 1 .. n - 2 in the same slots;
+//     the k-face slots (slot -1 and, for n odd, slot S - 1 of the colour
+//     with p = 1) hold no stored point. The loader, the store and f
+//     address fold rows; the pins are (2, n, n - 2) fold columns.
+//   kMixed (K14, K15; mixed_rb_smooth.cu, mixed_prolong_smooth.cu): the
+//     plain (n, n, n) field's addressing; the k-face slots hold the loaded
+//     k = 0 and n - 1 values (zeros for K14); the pins are (2, n, n).
+// The two changes. (1) The selects: a neighbour across a face (i or j at 1
+// or n - 2, k at 1 or n - 2) is read as the reader's own value, 0 at a
+// pinned x-face node (mixed_nbr_sum's rule), as a select in the sweep, in
+// the same order of the six adds: never from a tile slot of the face, which
+// holds a value of the first half-sweep's input (or none), so no sweep uses
+// the k-face slots. The pins are read through the read-only path (__ldg),
+// not staged: only the rows of planes 1 and n - 2 read them, 4 values a
+// lane's group, 0.5 MB at 257^3 that stays in L2. (2) The BC pass runs at
+// store time (mixed_store): the block that owns an interior point (i, j, k)
+// writes it and the boundary nodes whose copy source it is, (c(i), c(j),
+// c(k)) = (i, j, k) with c mapping 0 -> 1, n - 1 -> n - 2 (0 at a pinned
+// x-face node, the pin tested at the node's own (j, k)), from its final
+// value: the x faces whole, the y faces, and (kMixed) the z faces, each
+// node exactly once whatever the plan, and never before its source's last
+// half-sweep. The fold stores no z face.
 #pragma once
 
 #include "split.cuh"
@@ -89,18 +96,29 @@ __host__ __device__ inline int slots(int n) { return n >> 1; }
 // p of `color` in row (i, j): its slot kk holds k = 2 kk + 1 + p.
 __device__ inline int parity(int i, int j, int color) { return ((i + j) & 1) ^ color ^ 1; }
 
+enum class Layout { kRect, kFold, kMixed };
+
+// The mixed-BC selects and the BC pass at store time (the header).
+__host__ __device__ constexpr bool mixed_bc(Layout L) { return L != Layout::kRect; }
+
 // Offset of grid point (q, j, k) in an (n, n, n) field, or in an (n, n,
-// n - 2) one of the fold layout (FOLD; 1 <= k <= n - 2).
-template <bool FOLD>
+// n - 2) one of the fold layout (kFold; 1 <= k <= n - 2).
+template <Layout L>
 __device__ inline int field_at(int n, int q, int j, int k) {
-  return FOLD ? (q * n + j) * (n - 2) + k - 1 : (q * n + j) * n + k;
+  return L == Layout::kFold ? (q * n + j) * (n - 2) + k - 1 : (q * n + j) * n + k;
 }
+
+// The pin planes' columns, and the grid plane k of column 0.
+__host__ __device__ constexpr int pin_cols(Layout L, int n) {
+  return L == Layout::kFold ? n - 2 : n;
+}
+__host__ __device__ constexpr int pin_k0(Layout L) { return L == Layout::kFold ? 1 : 0; }
 
 struct StageArgs {
   float* out;
   const float* in;  // the initial guess; nullptr for a zero one (K2)
   const float* f;
-  const float* pin;  // FOLD: the x-face pin planes, (2, n, n - 2) fold columns
+  const float* pin;  // kFold, kMixed: the x-face pin planes (pin_cols columns)
   int color0;  // kRed or kBlack: the colour of the first half-sweep
   int n;
   float h2;
@@ -232,16 +250,17 @@ __device__ inline float* colour_row(float* t0, float* t1, const Geom& t, int j, 
 // rings' tile planes, a warp a row: k goes to slot (k - 1 - p) / 2 of the
 // colour whose slots hold parity p = 1 - (k mod 2) in that row. A lane's k
 // keeps its parity from pass to pass (32 apart), so its colour row too.
-// FOLD: the stored k only, from fold rows.
-template <bool FOLD = false>
+// kFold: the stored k only, from fold rows.
+template <Layout L = Layout::kRect>
 __device__ inline void tile_load(float* t0, float* t1, const float* __restrict__ g, const Geom& t,
                                  int q, int color0, int warp, int lane, int nwarps) {
-  const int ka = FOLD ? max(t.kra, 1) : t.kra, kb = FOLD ? min(t.krb, t.n - 1) : t.krb;
+  constexpr bool fold = L == Layout::kFold;
+  const int ka = fold ? max(t.kra, 1) : t.kra, kb = fold ? min(t.krb, t.n - 1) : t.krb;
   const int k = ka + lane, p = 1 - (k & 1);
   for (int j = t.ja + warp; j < t.jb; j += nwarps) {
     const int color = ((q + j) & 1) ^ p ^ 1;
     float* d = colour_row(t0, t1, t, j, color, color0) + ((k - 1 - p) >> 1);
-    const float* s = g + field_at<FOLD>(t.n, q, j, k);
+    const float* s = g + field_at<L>(t.n, q, j, k);
     for (int m = 0; k + 32 * m < kb; ++m) cp_async4(d + 16 * m, s + 32 * m);
   }
 }
@@ -269,36 +288,49 @@ __device__ inline void tile_store(float* __restrict__ g, float* t0, float* t1, c
   }
 }
 
-// FOLD's store with the BC pass (the header): the nodes of plane q's owned
-// rows and k whose copy source lies in plane q, q interior: its interior
-// rows, each with the y-face row it is the source of (row 0 with row 1,
-// row n - 1 with row n - 2), in plane q and, where q is 1 or n - 2, in the
-// x-face plane 0 or n - 1 too, 0 at a pinned node of it. A warp a target
-// row, consecutive k across a warp; read once plane q's last half-sweep is
-// done, so every boundary node gets its source's final value.
-__device__ inline void fold_store(float* __restrict__ g, float* t0, float* t1,
-                                  const Geom& t, int q, int color0, const float* __restrict__ pin,
-                                  int warp, int lane, int nwarps) {
-  const int n = t.n, nk = n - 2;
+// The mixed-BC store with the BC pass (kFold, kMixed; the header): the
+// nodes of plane q's owned rows and k whose copy source lies in plane q, q
+// interior: its interior rows, each with the y-face row it is the source
+// of (row 0 with row 1, row n - 1 with row n - 2), in plane q and, where q
+// is 1 or n - 2, in the x-face plane 0 or n - 1 too, 0 at a pinned node of
+// it. kMixed: each row's k faces too, k = 0 from k = 1 and n - 1 from
+// n - 2; the block owning slot 0 owns k = 0 and 1 (kr0 = 0), that owning
+// slot S - 1 k = n - 2 and n - 1 (kr1 = n), so a k face's source is the
+// block's own. A warp a target row, consecutive k across a warp; read once
+// plane q's last half-sweep is done, so every boundary node gets its
+// source's final value.
+template <Layout L>
+__device__ inline void mixed_store(float* __restrict__ g, float* t0, float* t1, const Geom& t,
+                                   int q, int color0, const float* __restrict__ pin, int warp,
+                                   int lane, int nwarps) {
+  constexpr bool faces = L == Layout::kMixed;  // the k faces are stored
+  const int n = t.n, nk = pin_cols(L, n);
   int jl = max(t.j0, 1), jh = min(t.j1, n - 1);
   if (q < 1 || q > n - 2 || jl >= jh) return;  // an x-face plane: written with its source
   if (jl == 1) jl = 0;
   if (jh == n - 1) jh = n;
   const int rows = jh - jl, planes = 1 + (q == 1) + (q == n - 2);
-  const int k = max(t.kr0, 1) + lane, k_end = min(t.kr1, n - 1), p = 1 - (k & 1);
+  const int k = (faces ? t.kr0 : max(t.kr0, 1)) + lane;
+  const int k_end = faces ? t.kr1 : min(t.kr1, n - 1), p = 1 - (k & 1);
   for (int v = warp; v < planes * rows; v += nwarps) {
     const int m = v / rows, jt = jl + v % rows;
     const int qt = m == 0 ? q : (m == 1 && q == 1 ? 0 : n - 1);
     const int js = jt == 0 ? 1 : (jt == n - 1 ? n - 2 : jt);
     const int color = ((q + js) & 1) ^ p ^ 1;
     const float* s = colour_row(t0, t1, t, js, color, color0) + ((k - 1 - p) >> 1);
-    float* d = g + field_at<true>(n, qt, jt, k);
+    // the odd-k colour's row: k = 1 at slot 0, n - 2 at (n - 3) / 2
+    const float* odd = colour_row(t0, t1, t, js, ((q + js) & 1) ^ 1, color0);
+    auto value = [&](int i) {  // the source's value of target k + 32 i
+      const int kt = k + 32 * i;
+      return faces && (kt == 0 || kt == n - 1) ? odd[kt == 0 ? 0 : (n - 3) >> 1] : s[16 * i];
+    };
+    float* d = g + field_at<L>(n, qt, jt, k);
     if (qt == q) {
-      for (int i = 0; k + 32 * i < k_end; ++i) d[32 * i] = s[16 * i];
+      for (int i = 0; k + 32 * i < k_end; ++i) d[32 * i] = value(i);
     } else {
-      const float* pr = pin + ((qt == 0 ? 0 : n) + jt) * nk + k - 1;
+      const float* pr = pin + ((qt == 0 ? 0 : n) + jt) * nk + k - pin_k0(L);
       for (int i = 0; k + 32 * i < k_end; ++i)
-        d[32 * i] = __ldg(pr + 32 * i) > 0.5f ? 0.0f : s[16 * i];
+        d[32 * i] = __ldg(pr + 32 * i) > 0.5f ? 0.0f : value(i);
     }
   }
 }
@@ -312,20 +344,22 @@ __device__ inline float4 load_f4(const float* __restrict__ f_row, int g, int k_e
   return make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// FOLD: which neighbours of a tile row (q, j) of parity p lie across a
-// face, and read the reader's own value (0 at a pinned x-face node).
-struct FoldFaces {
+// The mixed BC: which neighbours of a tile row (q, j) of parity p lie
+// across a face, and read the reader's own value (0 at a pinned x-face
+// node).
+struct MixedFaces {
   const float* pin_lo;  // where q = 1: the x = 0 pins of the row, slot kk's at [2 kk]
   const float* pin_hi;  // where q = n - 2: the x = n - 1 ones
   bool jm, jp;          // j = 1, j = n - 2
   int km, kp;           // the slot at k = 1, at k = n - 2 (-1: none of this parity)
 };
 
-__device__ inline FoldFaces fold_faces(const StageArgs& a, int q, int j, int p) {
-  const int n = a.n, nk = n - 2;
-  FoldFaces fc;
-  fc.pin_lo = q == 1 ? a.pin + j * nk + p : nullptr;
-  fc.pin_hi = q == n - 2 ? a.pin + (n + j) * nk + p : nullptr;
+template <Layout L>
+__device__ inline MixedFaces mixed_faces(const StageArgs& a, int q, int j, int p) {
+  const int n = a.n, nk = pin_cols(L, n), c0 = 1 + p - pin_k0(L);  // slot 0's pin column
+  MixedFaces fc;
+  fc.pin_lo = q == 1 ? a.pin + j * nk + c0 : nullptr;
+  fc.pin_hi = q == n - 2 ? a.pin + (n + j) * nk + c0 : nullptr;
   fc.jm = j == 1;
   fc.jp = j == n - 2;
   fc.km = p == 0 ? 0 : -1;                            // k = 2 kk + 1 + p
@@ -339,20 +373,20 @@ __device__ inline FoldFaces fold_faces(const StageArgs& a, int q, int j, int p) 
 // a 4-slot group a lane (rl.sl of the row's rl.lanes), the other slots of
 // a group keeping their values. Slot kk's k - 1 and k + 1 neighbours are the other colour's
 // slots kk - 1 and kk where p = 0 (k odd), kk and kk + 1 where p = 1.
-// FOLD: the neighbours across the faces ``fc`` are selects of the slot's
-// own value, in the same order of the adds.
-template <bool FOLD = false>
+// MIXED (kFold, kMixed): the neighbours across the faces ``fc`` are
+// selects of the slot's own value, in the same order of the adds.
+template <bool MIXED = false>
 __device__ inline void sweep_row(float* dst, const float* lo, const float* mid, const float* hi,
                                  const float* __restrict__ f_row, int row, int W, int kl,
                                  int k_end, int p, float h2, const RowLanes& rl, bool use_pre,
-                                 float4 pre, const FoldFaces& fc = FoldFaces{}) {
+                                 float4 pre, const MixedFaces& fc = MixedFaces{}) {
   const int g0 = (kl & ~3) + 4 * rl.sl;
   for (int g = g0; g < k_end; g += 4 * rl.lanes) {
     const int o = row + g;
     const float4 vf = use_pre && g == g0 ? pre : load_f4(f_row, g, k_end);
     const float4 vl = ld4(lo + o), vh = ld4(hi + o), vjm = ld4(mid + o - W),
                  vjp = ld4(mid + o + W), vm = ld4(mid + o);
-    const bool whole = FOLD || (g >= kl && g + 4 <= k_end);
+    const bool whole = MIXED || (g >= kl && g + 4 <= k_end);
     const float4 old = whole ? vm : ld4(dst + o);  // kept where a slot is outside
     float km[4], kp[4];
     if (p == 0) {
@@ -375,7 +409,7 @@ __device__ inline void sweep_row(float* dst, const float* lo, const float* mid, 
       kp[3] = g + 3 < k_end ? mid[o + 4] : 0.0f;
     }
     float r[4];
-    if constexpr (FOLD) {
+    if constexpr (MIXED) {
       const float4 vc = ld4(dst + o);  // the slots' own values, what a folded read returns
       const float4 pl = fc.pin_lo ? load_f4(fc.pin_lo, g, k_end) : float4{};
       const float4 ph = fc.pin_hi ? load_f4(fc.pin_hi, g, k_end) : float4{};
@@ -413,9 +447,9 @@ __device__ inline void sweep_row(float* dst, const float* lo, const float* mid, 
 // issued with plane q's) and apply(stage colour 0's tile plane, 1's, q,
 // geometry, row lanes, color0), run on plane q once it has arrived and
 // before any half-sweep reads it (box_body: apply_row, the same a row).
-// ZERO: the initial guess is zero, nothing is loaded. FOLD: the fold
-// layout (the header).
-template <int NITER, bool ZERO, bool FOLD = false, class Prep>
+// ZERO: the initial guess is zero, nothing is loaded. L: the layout (the
+// header).
+template <int NITER, bool ZERO, Layout L = Layout::kRect, class Prep>
 __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
   constexpr int H = 2 * NITER, D = stage_depth(H);
   const Geom t = geometry(a, H);
@@ -429,7 +463,7 @@ __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
     if constexpr (ZERO) {
       tile_zero(ring(0, q), ring(1, q), t, a.f);
     } else {
-      tile_load<FOLD>(ring(0, q), ring(1, q), a.in, t, q, a.color0, warp, lane, nwarps);
+      tile_load<L>(ring(0, q), ring(1, q), a.in, t, q, a.color0, warp, lane, nwarps);
     }
     if constexpr (Prep::kActive) prep.load(q, t);
   };
@@ -445,7 +479,7 @@ __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
     return q >= max(t.i0 - H + s, 1) && q < min(t.i1 + H - s, n - 1);
   };
   auto colour_of = [&](int s) { return (s - 1) & 1 ? 1 - a.color0 : a.color0; };
-  auto f_row = [&](int q, int j, int pp) { return a.f + field_at<FOLD>(n, q, j, 1 + pp); };
+  auto f_row = [&](int q, int j, int pp) { return a.f + field_at<L>(n, q, j, 1 + pp); };
   float4 f_pre[H] = {};
   auto fetch = [&](int step) {
 #pragma unroll
@@ -489,9 +523,9 @@ __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
           const int j = t.jb0 + r;
           if (j < jl || j >= jh) continue;
           const int pp = parity(q, j, color);
-          sweep_row<FOLD>(dst, lo, mid, hi, f_row(q, j, pp), r * t.W - t.kb0, t.W, kl,
-                          min(kh, (n - 1 - pp) >> 1), pp, a.h2, rl, r == r0, f_pre[s - 1],
-                          FOLD ? fold_faces(a, q, j, pp) : FoldFaces{});
+          sweep_row<mixed_bc(L)>(dst, lo, mid, hi, f_row(q, j, pp), r * t.W - t.kb0, t.W, kl,
+                                 min(kh, (n - 1 - pp) >> 1), pp, a.h2, rl, r == r0, f_pre[s - 1],
+                                 mixed_bc(L) ? mixed_faces<L>(a, q, j, pp) : MixedFaces{});
         }
       }
     }
@@ -500,8 +534,9 @@ __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
     // p - 1 - 2 H: half-sweep H finished it a step ago
     const int qb = p - 1 - 2 * H;
     if (qb >= t.i0 && qb < t.i1) {
-      if constexpr (FOLD) {
-        fold_store(a.out, ring(0, qb), ring(1, qb), t, qb, a.color0, a.pin, warp, lane, nwarps);
+      if constexpr (mixed_bc(L)) {
+        mixed_store<L>(a.out, ring(0, qb), ring(1, qb), t, qb, a.color0, a.pin, warp, lane,
+                       nwarps);
       } else {
         tile_store(a.out, ring(0, qb), ring(1, qb), t, qb, a.color0, warp, lane, nwarps);
       }
@@ -519,7 +554,7 @@ __device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n"
 // stores as stage_body, so the same values; Prep's coarse planes all
 // resident too (its depth). (f held in shared memory beside the tiles
 // measured no faster: PERF.md.)
-template <int NITER, bool ZERO, bool FOLD = false, class Prep>
+template <int NITER, bool ZERO, Layout L = Layout::kRect, class Prep>
 __device__ void box_body(const StageArgs& a, float* smem, Prep prep) {
   constexpr int H = 2 * NITER;
   const Geom t = geometry(a, H);
@@ -532,7 +567,7 @@ __device__ void box_body(const StageArgs& a, float* smem, Prep prep) {
     if constexpr (ZERO) {
       tile_zero(tile(0, q), tile(1, q), t, a.f);
     } else {
-      tile_load<FOLD>(tile(0, q), tile(1, q), a.in, t, q, a.color0, warp, lane, nwarps);
+      tile_load<L>(tile(0, q), tile(1, q), a.in, t, q, a.color0, warp, lane, nwarps);
     }
     if constexpr (Prep::kActive) prep.load(q, t);
   }
@@ -557,21 +592,139 @@ __device__ void box_body(const StageArgs& a, float* smem, Prep prep) {
     for (int v = warp * rl.rows + rl.sub; v < count; v += nwarps * rl.rows) {
       const int q = qa + v / rows, j = jl + v % rows;
       const int pp = parity(q, j, color);
-      sweep_row<FOLD>(tile(c, q), tile(1 - c, q - 1), tile(1 - c, q), tile(1 - c, q + 1),
-                      a.f + field_at<FOLD>(n, q, j, 1 + pp), (j - t.jb0) * t.W - t.kb0, t.W,
-                      kl, min(kh, (n - 1 - pp) >> 1), pp, a.h2, rl, false, float4{},
-                      FOLD ? fold_faces(a, q, j, pp) : FoldFaces{});
+      sweep_row<mixed_bc(L)>(tile(c, q), tile(1 - c, q - 1), tile(1 - c, q),
+                             tile(1 - c, q + 1), a.f + field_at<L>(n, q, j, 1 + pp),
+                             (j - t.jb0) * t.W - t.kb0, t.W, kl, min(kh, (n - 1 - pp) >> 1), pp,
+                             a.h2, rl, false, float4{},
+                             mixed_bc(L) ? mixed_faces<L>(a, q, j, pp) : MixedFaces{});
     }
     __syncthreads();
   }
   for (int q = t.i0; q < t.i1; ++q) {
-    if constexpr (FOLD) {
-      fold_store(a.out, tile(0, q), tile(1, q), t, q, a.color0, a.pin, warp, lane, nwarps);
+    if constexpr (mixed_bc(L)) {
+      mixed_store<L>(a.out, tile(0, q), tile(1, q), t, q, a.color0, a.pin, warp, lane, nwarps);
     } else {
       tile_store(a.out, tile(0, q), tile(1, q), t, q, a.color0, warp, lane, nwarps);
     }
   }
 }
+
+// The prolongation step of K4 and K15 (prolong_smooth.cu,
+// mixed_prolong_smooth.cu), a stage's Prep: every point of the loaded box,
+// of both colours and on the boundary too, becomes e + P ec as its plane of
+// e arrives in shared memory, computed once; the coarse field's every
+// point, its boundary too, takes part (K15's Neumann coarse faces are
+// live). Interpolation in the order of mg::interp_at (stencil.cuh): j,
+// then k, then i; an even fine index copies the coincident coarse value,
+// an odd one is 0.5 a + 0.5 b of its two coarse neighbours, each step
+// rounding once, so it agrees bit for bit with the plain versions'
+// separable products. A lane corrects 4 slots of each colour of a tile
+// row, the fine k 2 g + 1 .. 2 g + 8, from the j-interpolated values y at
+// the 5 coarse k g .. g + 4 (an odd k takes 0.5 y[m] + 0.5 y[m + 1], an
+// even one y[m + 1]); the k = 0 point (slot -1) is one lane's extra; a
+// warp covers rows as its sweeps do. The coarse planes stream through a
+// ring of 3 in shared memory beside the fine rings (the box holds all it
+// needs), each copied with the first fine plane that needs it (4-byte
+// cp.async: a coarse row of nc floats is not 16-byte aligned): coarse c
+// serves fine planes 2 c - 1 .. 2 c + 1.
+struct ProlongPrep {
+  static constexpr bool kActive = true;
+  const float* ec;
+  int nc, rows, width, depth;  // coarse field size; the tile's rows, row width, planes
+  float* tile;
+  int cja, cka;  // coarse row and k of tile row 0 and column 0
+
+  __device__ float* plane(int c) const { return tile + (c % depth) * rows * width; }
+
+  __device__ void start(float* extra, const Geom& t) {
+    tile = extra;
+    cja = t.ja >> 1;
+    cka = max(t.ka, 0);
+  }
+
+  __device__ void load(int q, const Geom& t) const {
+    // fine plane q needs coarse q >> 1 and (q + 1) >> 1: the first plane
+    // loaded copies both, an odd one the second (an even one finds both)
+    if (q != t.ia && !(q & 1)) return;
+    const int c_lo = q == t.ia ? q >> 1 : (q + 1) >> 1, c_hi = (q + 1) >> 1;
+    const int cols = t.kb - cka + 1, rows_c = (t.jb >> 1) - cja + 1;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+    for (int c = c_lo; c <= c_hi; ++c) {
+      for (int r = warp; r < rows_c; r += nwarps) {  // a warp a row, lanes along k
+        float* d = plane(c) + r * width;
+        const float* src = ec + (c * nc + cja + r) * nc + cka;
+        for (int k = lane; k < cols; k += 32) cp_async4(d + k, src + k);
+      }
+    }
+  }
+
+  // e + P ec at every point of the loaded box of plane q, in place, the
+  // rows spread over a warp's lanes as the sweeps' are.
+  __device__ void apply(float* t0, float* t1, int q, const Geom& t, const RowLanes& rl,
+                        int color0) const {
+    const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+    for (int j = t.ja + warp * rl.rows + rl.sub; j < t.jb; j += nwarps * rl.rows)
+      apply_row(t0, t1, q, j, t, rl, color0);
+  }
+
+  // The same for row j of plane q.
+  __device__ void apply_row(float* t0, float* t1, int q, int j, const Geom& t,
+                            const RowLanes& rl, int color0) const {
+    const bool oi = q & 1, oj = j & 1;
+    const int par = (q + j) & 1;  // the colour with p = 1 (even k) is RED where par = 1
+    float* even = ((par ^ color0) ? t1 : t0) + (j - t.jb0) * t.W - t.kb0;
+    float* odd = ((par ^ 1 ^ color0) ? t1 : t0) + (j - t.jb0) * t.W - t.kb0;
+    const float* c[2] = {plane(q >> 1) + ((j >> 1) - cja) * width - cka,
+                         plane((q >> 1) + 1) + ((j >> 1) - cja) * width - cka};
+    // the j step at coarse k: its value in coarse plane a
+    auto yj = [&](int a, int k) {
+      return oj ? 0.5f * c[a][k] + 0.5f * c[a][width + k] : c[a][k];
+    };
+    for (int g = cka + 4 * rl.sl; g < t.kb; g += 4 * rl.lanes) {
+      float y[2][5];
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        if (a == 1 && !oi) break;
+        const float4 v = ld4(c[a] + g);
+        float y5 = c[a][g + 4];
+        if (oj) {
+          const float4 w = ld4(c[a] + width + g);
+          y[a][0] = 0.5f * v.x + 0.5f * w.x;
+          y[a][1] = 0.5f * v.y + 0.5f * w.y;
+          y[a][2] = 0.5f * v.z + 0.5f * w.z;
+          y[a][3] = 0.5f * v.w + 0.5f * w.w;
+          y5 = 0.5f * y5 + 0.5f * c[a][width + g + 4];
+        } else {
+          y[a][0] = v.x;
+          y[a][1] = v.y;
+          y[a][2] = v.z;
+          y[a][3] = v.w;
+        }
+        y[a][4] = y5;
+      }
+      float vo[4], ve[4];  // P ec at k = 2 (g + m) + 1 and 2 (g + m) + 2
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        float yo[2], ye[2];
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          if (a == 1 && !oi) break;
+          yo[a] = 0.5f * y[a][m] + 0.5f * y[a][m + 1];
+          ye[a] = y[a][m + 1];
+        }
+        vo[m] = oi ? 0.5f * yo[0] + 0.5f * yo[1] : yo[0];
+        ve[m] = oi ? 0.5f * ye[0] + 0.5f * ye[1] : ye[0];
+      }
+      const float4 eo = ld4(odd + g), ee = ld4(even + g);
+      st4(odd + g, make_float4(eo.x + vo[0], eo.y + vo[1], eo.z + vo[2], eo.w + vo[3]));
+      st4(even + g, make_float4(ee.x + ve[0], ee.y + ve[1], ee.z + ve[2], ee.w + ve[3]));
+    }
+    if (t.ka < 0 && rl.sl == rl.lanes - 1) {  // k = 0: the even colour's slot -1, coarse k = 0
+      const float v = oi ? 0.5f * yj(0, 0) + 0.5f * yj(1, 0) : yj(0, 0);
+      even[-1] = even[-1] + v;
+    }
+  }
+};
 
 // Launch one stage kernel instantiation on the plan's grid; a cudaError_t.
 template <class Kernel, class... Extra>

@@ -35,8 +35,12 @@ n) f32 0/1 ``pin`` planes of ``dirichlet_pin_planes``.
 
 The kernels fold the copy-BC into the stencil (a face-adjacent
 neighbour reads the reader's own value, or 0 at a pinned x-face node)
-and end each stage with one BC pass, as the Pallas kernels do. The plain
-versions are written in the COPY form instead: a half-sweep, then a BC
+and end each stage with one BC pass, as the Pallas kernels do. K14 and
+K15 are one-pass stages (rect.cuh on the full layout): one launch a call
+for n_iter <= 2, all 2 n_iter half-sweeps in shared memory and the BC
+pass, z faces included, at the store, into a fresh field; K13 keeps its
+first form, a launch a half-sweep and one for the BC pass, in place. The
+plain versions are written in the COPY form instead: a half-sweep, then a BC
 pass, after every half-sweep (``mixed_padded._mixed_smooth_padded_jnp``
 in the JAX package). The two agree bit for bit on BC-consistent input,
 which is what the cycle hands over (the zero field, or a stage's
@@ -47,8 +51,8 @@ A wrapper takes the plain version for tensors on the CPU, launches its
 kernel for CUDA tensors (float32, contiguous, cubic fields; pin (2, n,
 n)), and raises for anything else: no fallback from the kernel to the
 plain version. Each kernel launch adds one to its entry in ``LAUNCHES``
-(every half-sweep and BC pass of a stage counts as a launch of the
-stage's kernel). The sharded wrappers update a given ``u`` segment in
+(every half-sweep and BC pass of K13 and K34-K36 counts as a launch of
+the stage's kernel). The sharded wrappers update a given ``u`` segment in
 place (its halo buffers are scratch afterwards) and return its body;
 ``block_i`` is accepted and ignored (a VMEM tile).
 """
@@ -60,6 +64,7 @@ import torch
 
 from multigrid_parallel_tpu_torch.ops import pallas3d as pk
 from multigrid_parallel_tpu_torch.ops import pallas_sharded as px
+from multigrid_parallel_tpu_torch.ops import pallas_split as ps
 from multigrid_parallel_tpu_torch.ops import stencils_3d as ops3
 from multigrid_parallel_tpu_torch.ops.pallas3d import _check, _colors, _lib, _stream
 from multigrid_parallel_tpu_torch.ops.stencils_3d import BLACK, RED
@@ -178,18 +183,33 @@ def mixed_rb_smooth_fused(e, r, pin, h: float, n_iter: int, red_first: bool = Tr
 
 def mixed_rb_smooth_from_zero_fused(r, pin, h: float, n_iter: int, red_first: bool = True):
     """mixed_rb_smooth_fused from an implicit zero initial guess, as a
-    fresh field: the first half-sweep reads only r (K2's from-zero launch:
-    the folded reads of a zero field are zero too) and writes every point."""
+    fresh field. The CUDA form is one one-pass launch of the full-layout
+    mixed stage for n_iter <= 2, its tile starting as zeros, the BC pass
+    (z faces too) at its store; ceil(n_iter / 2) in all, each later one the
+    same stage on the field so far, all counted as K14 launches. Bound: r
+    read and the output written, 8 B a point, and the pins (bytes over
+    3.35 TB/s: 0.0407 ms at 257^3)."""
+    if n_iter < 1:
+        raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     if not _on_cuda(pin, r):
         return mixed_rb_smooth_from_zero_plain(r, pin, h, n_iter, red_first)
-    lib, n, h2 = _lib(), r.shape[0], h * h
+    lib, stream, h2 = _lib(), _stream(), h * h
+    u = None
+    for chunk in ps._stage_chunks(n_iter):
+        u = _stage_launch(lib, u, r, pin, h2, chunk, red_first, stream,
+                          "mixed_rb_smooth_from_zero_fused")
+    return u
+
+
+def _stage_launch(lib, u, r, pin, h2, n_iter, red_first, stream, name):
+    """One launch of the full-layout mixed stage (on u, or from a zero field
+    where u is None) against r into a fresh field, counted as ``name``'s."""
+    n = r.shape[0]
     out = torch.empty_like(r)
-    first, second = _colors(red_first)
-    _check(lib.mg_rb_half_sweep_from_zero(out.data_ptr(), r.data_ptr(), n, h2, first,
-                                          _stream()), "mixed_rb_smooth_from_zero_fused")
-    LAUNCHES["mixed_rb_smooth_from_zero_fused"] += 1
-    _half_sweeps_and_bc_pass(out, r, pin, h2, [second] + list(_colors(red_first)) * (n_iter - 1),
-                             "mixed_rb_smooth_from_zero_fused")
+    _check(lib.mg_mixed_stage(out.data_ptr(), None if u is None else u.data_ptr(), r.data_ptr(),
+                              pin.data_ptr(), n, h2, int(red_first),
+                              *ps._plan_args(n, n_iter, r.device, rect=True), stream), name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -210,21 +230,27 @@ def mixed_prolong_smooth_plain(ec, e, r, pin, h: float, n_iter: int):
 def mixed_prolong_smooth_fused(ec, e, r, pin, h: float, n_iter: int):
     """The black-first mixed stage of e + P ec as a fresh field (e is left
     as it is): the post-smoothing stage of a mixed V-cycle level. The CUDA
-    form is one K15 launch (correction + first black half-sweep), then
-    2 * n_iter - 1 K13 half-sweeps and the BC pass, all counted as K15
-    launches."""
+    form is one one-pass launch for n_iter <= 2 (e + P ec made as each
+    plane reaches shared memory, the live coarse boundary included, the BC
+    pass at its store); a larger n_iter goes on with launches of K14's
+    stage kernel on the field so far, black first, all counted as K15
+    launches. Bound: e and r read and the output written, 12 B a fine
+    point, ec and the pins read (bytes over 3.35 TB/s: 0.0635 ms at
+    257^3)."""
     if n_iter < 1:
         raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     if not _on_cuda(pin, e, r, coarse=ec):
         return mixed_prolong_smooth_plain(ec, e, r, pin, h, n_iter)
-    n, h2 = e.shape[0], h * h
+    name, n, h2 = "mixed_prolong_smooth_fused", e.shape[0], h * h
+    lib, stream = _lib(), _stream()
+    first, *rest = ps._stage_chunks(n_iter)
     out = torch.empty_like(e)
-    _check(_lib().mg_mixed_prolong_correct_black(
+    _check(lib.mg_mixed_prolong_stage(
         out.data_ptr(), ec.data_ptr(), e.data_ptr(), r.data_ptr(), pin.data_ptr(), n, h2,
-        _stream()), "mixed_prolong_smooth_fused")
-    LAUNCHES["mixed_prolong_smooth_fused"] += 1
-    _half_sweeps_and_bc_pass(out, r, pin, h2, [RED] + [BLACK, RED] * (n_iter - 1),
-                             "mixed_prolong_smooth_fused")
+        *ps._plan_args(n, first, e.device, prolong=True, rect=True), stream), name)
+    LAUNCHES[name] += 1
+    for chunk in rest:
+        out = _stage_launch(lib, out, r, pin, h2, chunk, False, stream, name)
     return out
 
 

@@ -2,7 +2,7 @@
 more checkouts of the port, in turns on one card: two versions of the
 split-colour kernels compared within one call, with the fused solve,
 which runs none of them, as the control; or, with ``--electrospray``, the
-electrospray's fold and split-colour tiers at 257^3.
+electrospray's full, fold and split-colour tiers at 257^3.
 
     python -m multigrid_parallel_tpu_torch.utils.split_trace [ROOT ...] [--rounds R]
                                                              [--electrospray]
@@ -22,7 +22,7 @@ span, each kernel name's summed ms, count and the device idle time
 just before its kernels (``idle_before``; a stage kernel's name carries
 its template arguments, which tell K1 from K2 and K7 from K8), and each
 smoothing stage call's device time by level (``stage_calls``: K1, K2, K4,
-K7, K8, K10, K16, K17 and K19, the one-pass form's kernel, or a first
+K7, K8, K10, K13-K17 and K19, the one-pass form's kernel, or a first
 form's head kernel and the half-sweeps that follow it, and the BC pass
 that ends a mixed-BC call), and each restriction call's
 (``restrict_calls``: K3 and K9, a kernel a call, the first forms' one
@@ -36,9 +36,10 @@ problem at 257^3 (coarse_n 5, 7 levels), n_smooth 2, 4 inner V-cycles an
 outer step, rel_tol 1e-8 of the reference initial norm. With
 ``--electrospray``: its phases 7 and 8, the electrospray problem at 257^3
 in the production configuration (n_smooth 2, gamma 2 capped at 65^3, one
-inner cycle an outer step, rel_tol 1e-8) on the fold tier (``fold``,
-K16-K20) and the split-colour tier (``split``, K22-K25 on the finest
-level over the fold cycle below it).
+inner cycle an outer step, rel_tol 1e-8) on the full tier (``full``,
+K13-K15 with K3 and K5, its phase 6), the fold tier (``fold``, K16-K20)
+and the split-colour tier (``split``, K22-K25 on the finest level over
+the fold cycle below it).
 """
 
 from __future__ import annotations
@@ -144,25 +145,33 @@ def idle_before(intervals):
 
 
 # the smoothing stages' kernels: the one-pass forms (rect.cuh, split.cuh;
-# rect_stage_kernel, split_stage_kernel and fold_stage_kernel by their ZERO
-# argument, below) and the first forms' head kernels, each with the
-# half-sweep kernel that continues its call (a half-sweep that follows none
-# heads a call of its own) and, for the mixed-BC forms, the BC-pass kernel
-# that ends it (the fold's first-form K17 head is the half-sweep kernel
-# with its FromZero argument true)
+# rect_stage_kernel, split_stage_kernel, fold_stage_kernel and
+# mixed_stage_kernel by their ZERO argument, below) and the first forms'
+# head kernels, each with the half-sweep kernels that may continue its call
+# (a half-sweep that follows none heads a call of its own) and, for the
+# mixed-BC forms, the BC-pass kernel that ends it (the fold's first-form
+# K17 head is the half-sweep kernel with its FromZero argument true; the
+# full tier's first-form K14 head is K2's from-zero kernel, followed by
+# the mixed half-sweeps)
 STAGE_KERNELS = {"rect_prolong_stage_kernel": "K4", "split_prolong_stage_kernel": "K10",
                  "rb_half_sweep_from_zero_kernel": "K2", "prolong_correct_black_kernel": "K4",
                  "rb_half_sweep_kernel": "K1", "split_half_sweep_from_zero_kernel": "K8",
                  "split_half_sweep_kernel": "K7", "fold_prolong_stage_kernel": "K19",
-                 "mixed_fold_prolong_correct_black_kernel": "K19"}
-FIRST_FORM = {"rb_half_sweep_from_zero_kernel": "rb_half_sweep_kernel",
-              "prolong_correct_black_kernel": "rb_half_sweep_kernel",
-              "rb_half_sweep_kernel": "rb_half_sweep_kernel",
-              "split_half_sweep_from_zero_kernel": "split_half_sweep_kernel",
-              "split_half_sweep_kernel": "split_half_sweep_kernel",
-              "mixed_fold_half_sweep_kernel": "mixed_fold_half_sweep_kernel",
-              "mixed_fold_prolong_correct_black_kernel": "mixed_fold_half_sweep_kernel"}
-BC_PASS = {"mixed_fold_half_sweep_kernel": "mixed_fold_bc_pass_kernel"}
+                 "mixed_fold_prolong_correct_black_kernel": "K19",
+                 "mixed_prolong_stage_kernel": "K15", "mixed_prolong_correct_black_kernel": "K15",
+                 "mixed_half_sweep_kernel": "K13"}
+FIRST_FORM = {"rb_half_sweep_from_zero_kernel": ("rb_half_sweep_kernel",
+                                                 "mixed_half_sweep_kernel"),
+              "prolong_correct_black_kernel": ("rb_half_sweep_kernel",),
+              "rb_half_sweep_kernel": ("rb_half_sweep_kernel",),
+              "split_half_sweep_from_zero_kernel": ("split_half_sweep_kernel",),
+              "split_half_sweep_kernel": ("split_half_sweep_kernel",),
+              "mixed_fold_half_sweep_kernel": ("mixed_fold_half_sweep_kernel",),
+              "mixed_fold_prolong_correct_black_kernel": ("mixed_fold_half_sweep_kernel",),
+              "mixed_half_sweep_kernel": ("mixed_half_sweep_kernel",),
+              "mixed_prolong_correct_black_kernel": ("mixed_half_sweep_kernel",)}
+BC_PASS = {"mixed_fold_half_sweep_kernel": "mixed_fold_bc_pass_kernel",
+           "mixed_half_sweep_kernel": "mixed_bc_pass_kernel"}
 
 
 def stage_label(name):
@@ -172,7 +181,8 @@ def stage_label(name):
     (a checkout whose split kernel has no ZERO argument runs it as K7
     only); "K1|K2" where the trace drops the arguments.
     fold_stage_kernel<NITER, ZERO, BOX> is K17 where ZERO is true, else a
-    later launch of a K17 or K19 call (n_iter > 2); the first form's
+    later launch of a K17 or K19 call (n_iter > 2); mixed_stage_kernel
+    likewise K14, or a later launch of a K14 or K15 call; the first form's
     mixed_fold_half_sweep_kernel<FromZero> heads K17 where true, K16
     where false or without arguments (this form's K16)."""
     base, _, args = name.partition("<")
@@ -183,6 +193,8 @@ def stage_label(name):
         return "K8" if args[2:] == ["true"] else "K7"
     if base == "fold_stage_kernel":
         return ("K17" if args[1] == "true" else "K17|K19") if len(args) > 1 else "K17|K19"
+    if base == "mixed_stage_kernel":
+        return ("K14" if args[1] == "true" else "K14|K15") if len(args) > 1 else "K14|K15"
     if base == "mixed_fold_half_sweep_kernel":
         return "K17" if args == ["true"] else "K16"
     return STAGE_KERNELS.get(base)
@@ -191,19 +203,23 @@ def stage_label(name):
 def stage_calls(intervals, sizes, n_smooth=2):
     """Each smoothing stage call's device time: a call in a first form is
     its head kernel and the half-sweeps that follow it, 2 n_smooth kernels
-    in all, and a mixed-BC form's BC pass after them; in the one-pass form
-    its one kernel. ``sizes`` maps (kernel name without its arguments,
+    in all, and a mixed-BC form's BC pass after them (K2's from-zero head
+    followed by the mixed half-sweeps is K14's first form); in the one-pass
+    form its one kernel. ``sizes`` maps (kernel name without its arguments,
     shape) to the level's n (a shape without its shared memory where the
     trace has none). Returns {"K4 n=257": [calls, summed ms, median ms a
     call], ...}."""
-    groups, sweep = [], None  # sweep: the half-sweep kernel that continues the last call
+    groups, sweep = [], None  # sweep: the half-sweep kernels that may continue the last call
     for a, b, name, grid in intervals:
         base = name.split("<")[0]
         label = stage_label(name)
-        if base == sweep and groups[-1][3] < 2 * n_smooth:
+        if sweep and base in sweep and groups[-1][3] < 2 * n_smooth:
+            if groups[-1][0][1] == "K2" and base == "mixed_half_sweep_kernel":
+                groups[-1][0] = (groups[-1][0][0], "K14")
             groups[-1][2].append((b - a) / 1e3)
             groups[-1][3] += 1
-        elif sweep and base == BC_PASS.get(sweep) and groups[-1][3] == 2 * n_smooth:
+            sweep = (base,)
+        elif sweep and base == BC_PASS.get(sweep[0]) and groups[-1][3] == 2 * n_smooth:
             groups[-1][2].append((b - a) / 1e3)
             groups[-1][3] += 1
             sweep = None
@@ -263,12 +279,16 @@ def _stage_sizes(hier, sms):
             add(name, -(-n ** 3 // 256), 0)
         for name in ("mixed_fold_half_sweep_kernel", "mixed_fold_prolong_correct_black_kernel"):
             add(name, -(-n * n * (n - 2) // 256), 0)
+        for name in ("mixed_half_sweep_kernel", "mixed_prolong_correct_black_kernel"):
+            add(name, -(-n ** 3 // 256), 0)
         for name in ("split_half_sweep_from_zero_kernel", "split_half_sweep_kernel"):
             add(name, -(-n * n * ((n - 1) // 2) // 256), 0)
         for name, prolong, rect in (("rect_stage_kernel", False, True),
                                     ("rect_prolong_stage_kernel", True, True),
                                     ("fold_stage_kernel", False, True),
                                     ("fold_prolong_stage_kernel", True, True),
+                                    ("mixed_stage_kernel", False, True),
+                                    ("mixed_prolong_stage_kernel", True, True),
                                     ("split_stage_kernel", False, False),
                                     ("split_prolong_stage_kernel", True, False)):
             try:
@@ -291,8 +311,9 @@ def _stage_sizes(hier, sms):
 
 def _solves(electrospray: bool, dev):
     """(hierarchy, {label: solve}, {label: unpack}) of the paths traced:
-    the split and the fused Dirichlet solves, or the electrospray's fold
-    and split tiers; unpack takes a solve's output to its f64 solution."""
+    the split and the fused Dirichlet solves, or the electrospray's full,
+    fold and split tiers; unpack takes a solve's output to its f64
+    solution."""
     import multigrid_parallel_tpu_torch as mg
     from multigrid_parallel_tpu_torch.ops import pallas3d as pk
 
@@ -304,12 +325,16 @@ def _solves(electrospray: bool, dev):
         hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7, length=es.length)
         solver = MixedBCSolver(es, hier, n_smooth=2, gamma=2, gamma_min_n=65, device=dev)
         kw = dict(rel_tol=1e-8, max_cycles=100, inner_cycles=1)
+        full = mp.make_mixed_padded_df_solver(solver, **kw)
+        full_state = mp.setup_mixed_df_problem(solver)
         fold = mp.make_mixed_fold_df_solver(solver, **kw)
         fold_state = mp.setup_mixed_fold_df_problem(solver)
         split = mp.make_mixed_split_df_solver(solver, **kw)
         split_state = mp.setup_mixed_split_df_problem(solver)
-        return (hier, {"fold": lambda: fold(*fold_state), "split": lambda: split(*split_state)},
-                {"fold": lambda out: mp.unpack_mixed_fold_solution(out[0], out[1], solver),
+        return (hier, {"full": lambda: full(*full_state), "fold": lambda: fold(*fold_state),
+                       "split": lambda: split(*split_state)},
+                {"full": lambda out: mp.unpack_mixed_solution(out[0], out[1], hier),
+                 "fold": lambda out: mp.unpack_mixed_fold_solution(out[0], out[1], solver),
                  "split": lambda out: mp.unpack_mixed_split_solution(*out[:4], solver)})
     from multigrid_parallel_tpu_torch import cycles_padded as cp
     from multigrid_parallel_tpu_torch import cycles_split as cs
@@ -389,7 +414,7 @@ def main(argv=None) -> int:
     parser.add_argument("--walls", type=int, default=9)
     parser.add_argument("--traces", type=int, default=3)
     parser.add_argument("--electrospray", action="store_true",
-                        help="trace the electrospray's fold and split tiers instead")
+                        help="trace the electrospray's full, fold and split tiers instead")
     parser.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     parser.add_argument("--save", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)

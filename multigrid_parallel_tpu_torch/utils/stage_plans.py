@@ -1,16 +1,18 @@
 """Time the rect stage kernels (K2's and K4's, ops/csrc/rect.cuh), with
 ``--fold`` the same stage on the electrospray's fold layout (K17's and
-K19's), or, with ``--restrict``, the streaming restriction stage (K3's
+K19's), with ``--mixed`` on its full layout (K14's and K15's), or, with
+``--restrict``, the streaming restriction stage (K3's
 and K9's, ops/csrc/restrict.cuh) on candidate plans at each level size on
 one card: the planner's own and plans of several block sizes, each held
 bit for bit against its plain version.
 
     python -m multigrid_parallel_tpu_torch.utils.stage_plans [--sizes 9 17 33 65 129]
-                                                             [--reps 20] [--restrict | --fold]
+                                                             [--reps 20]
+                                                             [--restrict | --fold | --mixed]
 
 For each size and kernel (K2 from zero, K4, both at n_iter 2; K17 and
-K19 likewise, with the electrospray's pins and coarse signs; or K3 and
-K9) and plan, one JSON line: the plan, whether the output equals the
+K19 likewise, with the electrospray's pins and coarse signs; K14 and K15
+with its pins; or K3 and K9) and plan, one JSON line: the plan, whether the output equals the
 plain version, and the median device time of ``reps`` launches from a
 torch.profiler trace (``utils.split_trace.kernel_intervals``). The numbers
 serve to tune ``pallas_split._stage_plan``'s choice between the wavefront
@@ -63,6 +65,23 @@ def fold_launch(plan, r, pin, h, ec=None, e=None, sgn=None):
     else:
         err = lib.mg_fold_prolong_stage(out.data_ptr(), ec.data_ptr(), e.data_ptr(), r.data_ptr(),
                                         pin.data_ptr(), sgn.data_ptr(), plan.n, h * h, *args)
+    pk._check(err, "stage_plans")
+    return out
+
+
+def mixed_launch(plan, r, pin, h, ec=None, e=None):
+    """One launch of K14's stage (from zero) or, given ec, K15's on
+    ``plan``, into a fresh field."""
+    out = torch.empty_like(r)
+    args = (plan.n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem,
+            int(plan.box), pk._stream())
+    lib = pk._lib()
+    if ec is None:
+        err = lib.mg_mixed_stage(out.data_ptr(), None, r.data_ptr(), pin.data_ptr(), plan.n,
+                                 h * h, 1, *args)
+    else:
+        err = lib.mg_mixed_prolong_stage(out.data_ptr(), ec.data_ptr(), e.data_ptr(),
+                                         r.data_ptr(), pin.data_ptr(), plan.n, h * h, *args)
     pk._check(err, "stage_plans")
     return out
 
@@ -178,32 +197,42 @@ def time_restrict(n, sms, reps, dev):
                   flush=True)
 
 
-def time_fold(n, sms, reps, dev):
+def time_electrospray(n, sms, reps, dev, fold):
     """One JSON line a (kernel, plan) at level n: K17 from zero and K19 at
     n_iter 2 on random fold fields with the electrospray's pins and the
-    coarse level's signs, each candidate's output against the plain
-    version and its median device time over ``reps`` launches from a
+    coarse level's signs (``fold``), or K14 and K15 likewise on full fields
+    (the coarse one's boundary live), each candidate's output against the
+    plain version and its median device time over ``reps`` launches from a
     trace of its own."""
     import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed as pm
     from multigrid_parallel_tpu_torch.ops import pallas_mixed_fold as pmf
 
     es = mg.electrospray_problem()
     h, nc = es.length / (n - 1), (n + 1) // 2
     rng = np.random.default_rng(n)
-    e, r, ec = (torch.from_numpy(rng.standard_normal((m, m, m - 2)).astype(np.float32)).to(dev)
-                for m in (n, n, nc))
-    pin, sgn = pmf.fold_pin_planes(es, n, dev), pmf.fold_edge_sign_planes(es, nc, dev)
-    for kernel, prolong in (("K17", False), ("K19", True)):
-        want = (pmf.mixed_prolong_smooth_fold_plain(ec, e, r, pin, sgn, h, 2) if prolong
-                else pmf.mixed_rb_smooth_from_zero_fold_plain(r, pin, h, 2, True))
+    e, r, ec = (torch.from_numpy(rng.standard_normal((m, m, m - 2 * fold)).astype(np.float32))
+                .to(dev) for m in (n, n, nc))
+    if fold:
+        pin, sgn = pmf.fold_pin_planes(es, n, dev), pmf.fold_edge_sign_planes(es, nc, dev)
+        stages = {"K17": (lambda plan: fold_launch(plan, r, pin, h),
+                          lambda: pmf.mixed_rb_smooth_from_zero_fold_plain(r, pin, h, 2, True)),
+                  "K19": (lambda plan: fold_launch(plan, r, pin, h, ec, e, sgn),
+                          lambda: pmf.mixed_prolong_smooth_fold_plain(ec, e, r, pin, sgn, h, 2))}
+    else:
+        pin = pm.dirichlet_pin_planes(es, n, dev)
+        stages = {"K14": (lambda plan: mixed_launch(plan, r, pin, h),
+                          lambda: pm.mixed_rb_smooth_from_zero_plain(r, pin, h, 2, True)),
+                  "K15": (lambda plan: mixed_launch(plan, r, pin, h, ec, e),
+                          lambda: pm.mixed_prolong_smooth_plain(ec, e, r, pin, h, 2))}
+    for (kernel, (launch_on, plain)), prolong in zip(stages.items(), (False, True)):
+        want = plain()
         for label, plan in candidates(n, prolong, sms).items():
-            run = ((lambda: fold_launch(plan, r, pin, h, ec, e, sgn)) if prolong
-                   else (lambda: fold_launch(plan, r, pin, h)))
-            exact = bool(torch.equal(run(), want))
+            exact = bool(torch.equal(launch_on(plan), want))
             torch.cuda.synchronize()
             times = [(b - a) / 1e3 for a, b, name, *_ in
-                     kernel_intervals(lambda: [run() for _ in range(reps)])
-                     if name.startswith("fold_")]
+                     kernel_intervals(lambda: [launch_on(plan) for _ in range(reps)])
+                     if name.startswith("fold_" if fold else "mixed_")]
             print(json.dumps({"n": n, "kernel": kernel, "plan": label, "box": plan.box,
                               "bi": plan.bi, "bj": plan.bj, "blocks": plan.blocks,
                               "threads": plan.threads, "smem": plan.smem, "exact": exact,
@@ -220,6 +249,8 @@ def main(argv=None) -> int:
                        help="time K3's and K9's restriction stage instead")
     group.add_argument("--fold", action="store_true",
                        help="time K17's and K19's fold stages instead")
+    group.add_argument("--mixed", action="store_true",
+                       help="time K14's and K15's full-layout mixed stages instead")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("stage_plans: needs a CUDA device")
@@ -232,9 +263,9 @@ def main(argv=None) -> int:
         for n in args.sizes:
             time_restrict(n, sms, args.reps, dev)
         return 0
-    if args.fold:
+    if args.fold or args.mixed:
         for n in args.sizes:
-            time_fold(n, sms, args.reps, dev)
+            time_electrospray(n, sms, args.reps, dev, args.fold)
         return 0
     for n in args.sizes:
         h = 1.0 / (n - 1)

@@ -22,7 +22,8 @@ the streaming restriction stages K3 and K9 against theirs at
 9^3-513^3 on NaN-poisoned outputs and on hand plans (one launch a call),
 and the one-pass fold stages K17 and K19 against theirs at 9^3-513^3
 and on hand plans, with the electrospray's pins and random ones, on
-NaN-poisoned outputs (one launch a call).
+NaN-poisoned outputs (one launch a call), and the one-pass full-layout
+mixed stages K14 and K15 likewise.
 
 These need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 themselves where there is none. The file imports no jax, so on a machine
@@ -722,11 +723,142 @@ def test_mixed_kernels_match_plain_on_card(cuda, n):
             got = tpm.mixed_prolong_smooth_fused(ec, e, r, pin, h, n_iter)
             assert torch.equal(e, e0)  # fresh output, e untouched
             assert torch.equal(got, tpm.mixed_prolong_smooth_plain(ec, e, r, pin, h, n_iter))
-    # per pin, n_iter 1 and 2: K13 2 orders x (2 n_iter + 1); K14 and K15 2 n_iter + 1
+    # per pin, n_iter 1 and 2: K13 2 orders x (2 n_iter + 1); K14 and K15 one
+    # launch a call (one-pass stages)
     assert tpm.LAUNCHES == {**dict.fromkeys(tpm.KERNELS, 0),
                             "mixed_rb_smooth_fused": 2 * 2 * (3 + 5),
-                            "mixed_rb_smooth_from_zero_fused": 2 * (3 + 5),
-                            "mixed_prolong_smooth_fused": 2 * (3 + 5)}
+                            "mixed_rb_smooth_from_zero_fused": 2 * 2,
+                            "mixed_prolong_smooth_fused": 2 * 2}
+
+
+def _mixed_pins(kind, n, dev, rng):
+    """(2, n, n) pin planes: the electrospray's, or a random patch mask
+    whose k = 0 and n - 1 columns pin nodes too."""
+    if kind == "electrospray":
+        return _electrospray_pins(n, dev)
+    pin = torch.from_numpy((rng.random((2, n, n)) < 0.3).astype(np.float32)).to(dev)
+    assert bool(pin[:, :, 0].any()) and bool(pin[:, :, n - 1].any())
+    return pin
+
+
+def _cubes(rng, n, dev, count):
+    """``count`` fields random at every point, the boundary too: the
+    stages must neither read nor keep it."""
+    return [torch.from_numpy(rng.standard_normal((n, n, n)).astype(np.float32)).to(dev)
+            for _ in range(count)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [9, 17, 33, 65, 129, 257, 513])
+def test_k14_k15_stages_match_plain_on_card(cuda, n):
+    """The one-pass full-layout mixed stages K14 and K15 bit for bit
+    against their plain versions (9-129: the box schedule; 257, 513: the
+    wavefront, 257 the main path's plan, 513 with k tiles at n_iter 2),
+    n_iter 1-3, both orders of K14, with the electrospray's pins and random
+    ones (k-face columns too), on fields and a coarse correction random at
+    every point (K15's coarse boundary live) and the allocator poisoned
+    with NaN first, so that a point left unwritten shows; one launch a call
+    at n_iter <= 2, two at 3, and no other kernel counted; fresh outputs,
+    the inputs left as they were."""
+    h = 3e-4 / (n - 1)
+    rng = np.random.default_rng(190 + n)
+    e, r = _cubes(rng, n, cuda, 2)
+    ec = _cubes(rng, (n + 1) // 2, cuda, 1)[0]
+    plan = tps._stage_plan(n, 2, tps._sms(torch.cuda.current_device()), rect=True)
+    assert plan.box == (n <= tps.RECT_BOX_MAX_N) and (plan.k_halo > 0) == (n == 513)
+    for kind in ("electrospray", "random"):
+        pin = _mixed_pins(kind, n, cuda, rng)
+        before = [x.clone() for x in (e, r, ec, pin)]
+        for n_iter in (1, 2, 3):
+            calls = 1 if n_iter <= 2 else 2
+            for red_first in (True, False):
+                want = tpm.mixed_rb_smooth_from_zero_plain(r, pin, h, n_iter, red_first)
+                _poison_allocator((n, n, n), cuda)
+                tpm.reset_launches()
+                got = tpm.mixed_rb_smooth_from_zero_fused(r, pin, h, n_iter, red_first)
+                assert tpm.LAUNCHES == {**dict.fromkeys(tpm.KERNELS, 0),
+                                        "mixed_rb_smooth_from_zero_fused": calls}
+                assert torch.equal(got, want), (kind, n_iter, red_first)
+            want = tpm.mixed_prolong_smooth_plain(ec, e, r, pin, h, n_iter)
+            _poison_allocator((n, n, n), cuda)
+            tpm.reset_launches()
+            got = tpm.mixed_prolong_smooth_fused(ec, e, r, pin, h, n_iter)
+            assert tpm.LAUNCHES == {**dict.fromkeys(tpm.KERNELS, 0),
+                                    "mixed_prolong_smooth_fused": calls}
+            torch.cuda.synchronize()
+            assert got.data_ptr() not in {x.data_ptr() for x in (e, r, ec, pin)}
+            assert torch.equal(got, want), (kind, n_iter)
+        assert all(torch.equal(a, b) for a, b in zip((e, r, ec, pin), before))
+
+
+def _mixed_stage_on_plan(plan, r, pin, h, red_first=True, u=None, ec=None):
+    """One launch of the full-layout mixed stage (K14's from zero, or on u)
+    or, given ec, of K15's (u is e) on a plan of the caller's, into a fresh
+    field; the launcher's error code and the field."""
+    out = torch.empty_like(r)
+    args = (plan.n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem,
+            int(plan.box), tpk._stream())
+    lib = tpk._lib()
+    if ec is None:
+        err = lib.mg_mixed_stage(out.data_ptr(), None if u is None else u.data_ptr(),
+                                 r.data_ptr(), pin.data_ptr(), plan.n, h * h, int(red_first),
+                                 *args)
+    else:
+        err = lib.mg_mixed_prolong_stage(out.data_ptr(), ec.data_ptr(), u.data_ptr(),
+                                         r.data_ptr(), pin.data_ptr(), plan.n, h * h, *args)
+    return err, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("box", [False, True], ids=["wave", "box"])
+@pytest.mark.parametrize("bk", [0, 4, 12])
+@pytest.mark.parametrize("n", [9, 17, 33, 35])
+def test_mixed_stages_on_hand_plans_on_card(cuda, n, bk, box):
+    """K14's stage (from zero and on a BC-consistent initial guess) and
+    K15's on plans of several blocks in i, j and k: 8 rows by 9 planes, and
+    1 row by 1 plane (whose x-, y- and z-face nodes its source's block
+    writes), on the wavefront and on the box, whole rows (bk = 0; n = 35: a
+    row's 17 slots not a multiple of 4) and k tiles of 4 or 12 slots with
+    the 4-slot k halo; random pins (k-face columns too), fields random
+    everywhere, the allocator poisoned with NaN: bit for bit against the
+    plain versions; a plan whose shared memory is not the kernel's is
+    refused."""
+    h = 3e-4 / (n - 1)
+    s, nc = n // 2, (n + 1) // 2
+    if bk >= s:
+        pytest.skip("a k tile as wide as the row is the whole-row plan")
+    rng = np.random.default_rng(230 + n + bk)
+    e, r = _cubes(rng, n, cuda, 2)
+    ec = _cubes(rng, nc, cuda, 1)[0]
+    pin = _mixed_pins("random", n, cuda, rng)
+    e_bc = tpm.apply_bcs_padded(e, pin)  # K13's contract: a BC-consistent guess
+    for bi, bj in ((9, 8), (1, 1)):
+        for n_iter in (1, 2):
+            halo, k_halo = 2 * n_iter, tps.STAGE_K_HALO if bk else 0
+            width = tps._stage_width(n, bk or s, k_halo, rect=True)
+            box_bi = bi if box else 0
+            plan = tps.StagePlan(n, n_iter, halo, k_halo, bi, bj, bk or s,
+                                 32 * min(18, bj + 2 * halo),
+                                 tps._stage_smem(n_iter, bj, width, rect=True, box_bi=box_bi),
+                                 True, box)
+            assert plan.blocks > 1 and plan.tiles[2] == (-(-s // bk) if bk else 1)
+            for red_first in (True, False):
+                _poison_allocator((n, n, n), cuda)
+                err, got = _mixed_stage_on_plan(plan, r, pin, h, red_first)
+                assert err == 0 and torch.equal(
+                    got, tpm.mixed_rb_smooth_from_zero_plain(r, pin, h, n_iter, red_first))
+                err, got = _mixed_stage_on_plan(plan, r, pin, h, red_first, u=e_bc)
+                assert err == 0 and torch.equal(
+                    got, tpm.mixed_rb_smooth_plain(e_bc, r, pin, h, n_iter, red_first))
+            k15 = plan._replace(smem=tps._stage_smem(n_iter, bj, width, prolong=True, rect=True,
+                                                     box_bi=box_bi))
+            _poison_allocator((n, n, n), cuda)
+            err, got = _mixed_stage_on_plan(k15, r, pin, h, u=e, ec=ec)
+            want = tpm.mixed_prolong_smooth_plain(ec, e, r, pin, h, n_iter)
+            assert err == 0 and torch.equal(got, want), (bi, n_iter)
+            assert _mixed_stage_on_plan(plan._replace(smem=plan.smem + 16), r, pin, h)[0] != 0
+            assert _mixed_stage_on_plan(k15._replace(smem=k15.smem + 16), r, pin, h, u=e,
+                                        ec=ec)[0] != 0
 
 
 def _interior(n, dev):

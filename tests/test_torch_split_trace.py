@@ -115,6 +115,40 @@ def test_stage_calls_group_the_fold_stages():
                    "K19 n=33": [1, pytest.approx(0.005), pytest.approx(0.005)]}
 
 
+def test_stage_calls_group_the_full_tier_stages():
+    """The electrospray full tier's stages: a first-form K14 call is K2's
+    from-zero kernel, the three mixed half-sweeps after it and the BC pass,
+    K15's its correction kernel, three half-sweeps and the BC pass, K13's
+    four half-sweeps and the BC pass (a K2 call of the first form, with the
+    rect half-sweeps, stays K2); the one-pass K14 (mixed_stage_kernel with
+    ZERO true) and K15 one kernel a call, by level from their plans."""
+    from multigrid_parallel_tpu_torch.hierarchy import Hierarchy
+    from multigrid_parallel_tpu_torch.ops import pallas_split as tps
+
+    sizes = st._stage_sizes(Hierarchy(ndim=3, coarse_n=5, num_levels=5), 132)
+    g = (-(-65 ** 3 // 256), 1, 1, 0)
+    half = [(10 * i, 10 * i + 2, "mixed_half_sweep_kernel", g) for i in range(1, 11)]
+    bc = [(10 * i + 5, 10 * i + 6, "mixed_bc_pass_kernel", (1, 1, 1, 0)) for i in (3, 7, 10)]
+    rect = [(300 + 10 * i, 302 + 10 * i, "rb_half_sweep_kernel", g) for i in range(1, 4)]
+    k14, k15 = tps._stage_plan(33, 2, 132, rect=True), tps._stage_plan(33, 2, 132, True, True)
+    intervals = sorted([(0, 4, "rb_half_sweep_from_zero_kernel", g)] + half[:3] + [bc[0]]
+                       + half[3:7] + [bc[1]]
+                       + [(78, 79, "mixed_prolong_correct_black_kernel", g)]
+                       + half[7:10] + [bc[2]]
+                       + [(200, 203, "mixed_stage_kernel<2, true, true>",
+                           (k14.blocks, 1, 1, k14.smem)),
+                          (210, 215, "mixed_prolong_stage_kernel<2, true>",
+                           (k15.blocks, 1, 1, k15.smem)),
+                          (300, 301, "rb_half_sweep_from_zero_kernel", g)] + rect)
+    got = st.stage_calls(intervals, sizes)
+    assert got == {"K14 n=65": [1, pytest.approx(0.011), pytest.approx(0.011)],
+                   "K13 n=65": [1, pytest.approx(0.009), pytest.approx(0.009)],
+                   "K15 n=65": [1, pytest.approx(0.008), pytest.approx(0.008)],
+                   "K14 n=33": [1, pytest.approx(0.003), pytest.approx(0.003)],
+                   "K15 n=33": [1, pytest.approx(0.005), pytest.approx(0.005)],
+                   "K2 n=65": [1, pytest.approx(0.007), pytest.approx(0.007)]}
+
+
 def test_restrict_calls_by_level_for_both_forms():
     """K3 and K9 a kernel a call, by level: the first forms from their one
     thread a coarse point, the streaming stage from its plan's grid and
