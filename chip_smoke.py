@@ -53,7 +53,9 @@ which fails the run:
      1-3, K2 and K4 timed at n_iter 2 beside the bound from the bytes a
      call needs; K17 and K19 (one-pass fold stages) bit for bit at 65^3,
      257^3 and, with the pin-edge delta, 17^3; K14 and K15 (one-pass
-     full-layout mixed stages) bit for bit at 17^3, 65^3 and 257^3;
+     full-layout mixed stages) bit for bit at 17^3, 65^3 and 257^3; K22
+     and K24 (one-pass msplit stages) bit for bit at 17^3 (K24 with the
+     pin-edge delta), 65^3 and 257^3;
   3. solve 33^3 on the CPU (plain versions) and on the card (kernels),
      unfused, fused, fused with FMG and split: same outer-step count,
      solutions within 1e-8; the electrospray full, fold and split tiers
@@ -91,11 +93,12 @@ which fails the run:
      call by level from a trace of the fold solve;
   8. the same solve on the split tier, launches reset and read around
      it: only K22-K25 and K16-K19 launched, K16, K17 and K19 exactly as
-     the fold cycle below the finest level needs, the fold tier's
+     the fold cycle below the finest level needs, K22 and K24 exactly as
+     the finest level's calls need (one launch a call), the fold tier's
      outer-step count, converged to 1e-8 of its initial norm, max|u_msplit
      - u_fold| <= 1e-7 max|u|; then the split and fold walls interleaved,
-     the device-busy time of one traced solve of each, and K16, K17 and
-     K19's device time a call by level;
+     the device-busy time of one traced solve of each, and K16, K17, K19,
+     K22 and K24's device time a call by level;
   9. the driver surface: (a) the f64 reference solve at 257^3 (solve,
      solve_mixed, solve with FMG, solve_on_device, solve_on_device_mixed):
      converged, 16 +- 1 V-cycles (the C reference's 16), L2 error <= 5e-9
@@ -938,8 +941,9 @@ def compare_msplit(pm, pmf, pms, ps, es, n, h, u, r, ec, es_state, dev, record, 
     compare_fold packed into pairs (the cycle's pairs are BC-consistent,
     their dead slots 0), with the electrospray's pin packs and the coarse
     level's fold correction and sign planes; K25 on the packed
-    double-float state es_state. Only K24 when not ``timed`` (17^3, the
-    delta check); else timed at n_iter = 2."""
+    double-float state es_state. The one-pass stages K22 and K24 bit for
+    bit at every size; only they when not ``timed`` (17^3, K24's delta
+    check); else all, timed at n_iter = 2."""
     nc = (n + 1) // 2
     packs = pms.msplit_pin_packs(es, n, dev)
     e2 = ps.pack_split(pm.apply_bcs_padded(u, pm.dirichlet_pin_planes(es, n, dev)))
@@ -948,10 +952,10 @@ def compare_msplit(pm, pmf, pms, ps, es, n, h, u, r, ec, es_state, dev, record, 
     sgn = pmf.fold_edge_sign_planes(es, nc, dev)
     points = 2 * n * n * ps.split_shape(n)[2]
 
-    def record_pair(name, label, got, want, times=(), io=None):
+    def record_pair(name, label, got, want, times=(), io=None, bitwise=False):
         for colour, g, w in zip(("red", "black"), got, want):
             record(name, n, f"{label}{colour}", g, w, *(times if colour == "black" else ()),
-                   io=io, points=points)
+                   io=io, points=points, bitwise=bitwise)
 
     for n_iter in (1, 2):
         t2 = timed and n_iter == 2  # the main path's n_smooth
@@ -965,7 +969,16 @@ def compare_msplit(pm, pmf, pms, ps, es, n, h, u, r, ec, es_state, dev, record, 
         record_pair("mixed_prolong_smooth_msplit",
                     f"n_iter={n_iter}_" + ("" if timed else "delta_"), got,
                     pms.mixed_prolong_smooth_msplit_plain(fec, *e2, *r2, packs, sgn, h, n_iter),
-                    times, io=((fec, *e2, *r2, packs, sgn), got))
+                    times, io=((fec, *e2, *r2, packs, sgn), got), bitwise=True)
+        got = pms.mixed_rb_smooth_from_zero_msplit(*r2, packs, h, n_iter)
+        times = ()
+        if t2:
+            times = (time_ms(lambda: pms.mixed_rb_smooth_from_zero_msplit(*r2, packs, h, 2)),
+                     time_ms(lambda: pms.mixed_rb_smooth_from_zero_msplit_plain(*r2, packs, h,
+                                                                                2)))
+        record_pair("mixed_rb_smooth_from_zero_msplit", f"n_iter={n_iter}_", got,
+                    pms.mixed_rb_smooth_from_zero_msplit_plain(*r2, packs, h, n_iter), times,
+                    io=((*r2, packs), got), bitwise=True)
         if not timed:
             continue
         for red_first in (True, False):
@@ -980,15 +993,6 @@ def compare_msplit(pm, pmf, pms, ps, es, n, h, u, r, ec, es_state, dev, record, 
                                                    n_iter, red_first),
                         pms.mixed_rb_smooth_msplit_plain(*e2, *r2, packs, h, n_iter, red_first),
                         times, io=((*e2, *r2, packs), e2))
-        got = pms.mixed_rb_smooth_from_zero_msplit(*r2, packs, h, n_iter)
-        times = ()
-        if t2:
-            times = (time_ms(lambda: pms.mixed_rb_smooth_from_zero_msplit(*r2, packs, h, 2)),
-                     time_ms(lambda: pms.mixed_rb_smooth_from_zero_msplit_plain(*r2, packs, h,
-                                                                                2)))
-        record_pair("mixed_rb_smooth_from_zero_msplit", f"n_iter={n_iter}_", got,
-                    pms.mixed_rb_smooth_from_zero_msplit_plain(*r2, packs, h, n_iter), times,
-                    io=((*r2, packs), got))
     if not timed:
         return
     rc = pms.residual_restrict_msplit(*e2, *r2, h)
@@ -1188,6 +1192,11 @@ FULL_STAGES = {"K13": "mixed_rb_smooth_fused", "K14": "mixed_rb_smooth_from_zero
                "K15": "mixed_prolong_smooth_fused"}
 FOLD_STAGES = {"K16": "mixed_rb_smooth_fold", "K17": "mixed_rb_smooth_from_zero_fold",
                "K19": "mixed_prolong_smooth_fold"}
+# the msplit tier's finest level: K21 where its correction is revisited
+# (first form), K22 from zero and K24 (one-pass stages; their first forms
+# took 2 n_smooth + 1 and 2 n_smooth + 2 launches a call)
+MSPLIT_STAGES = {"K21": "mixed_rb_smooth_msplit", "K22": "mixed_rb_smooth_from_zero_msplit",
+                 "K24": "mixed_prolong_smooth_msplit"}
 
 
 def new_calls(stages):
@@ -1213,24 +1222,25 @@ def cycle_calls(solver, level, from_zero, calls):
     return calls
 
 
-def check_stage_launches(counts, calls, steps, n_smooth, what, stages):
+def check_stage_launches(counts, calls, steps, n_smooth, what, stages, first_forms=None):
     """A mixed cycle's stage launches in a solve of ``steps`` outer steps,
     ``calls`` those of one step: the one-pass stages (from zero and the
     prolongation) one launch per two iterations a call, the revisit stage
     2 n_smooth + 1 (a launch a half-sweep and the BC pass), each exactly;
-    printed beside the first forms' 2 n_smooth + 1 a call."""
+    printed beside the first forms' launches a call (``first_forms`` by
+    stage, else 2 n_smooth + 1)."""
     revisit = next(iter(stages))
     chunks = -(-n_smooth // 2)
-    first = 2 * n_smooth + 1
-    per_call = {k: first if k == revisit else chunks for k in stages}
+    first = {k: 2 * n_smooth + 1 for k in stages} | (first_forms or {})
+    per_call = {k: first[k] if k == revisit else chunks for k in stages}
     for key, name in stages.items():
         want = steps * calls[key] * per_call[key]
         check(counts[name] == want, f"{what}: {name} launched {counts[name]} times, expected "
               f"{want} ({steps} outer steps x {calls[key]} calls x {per_call[key]})")
-    fewer = sum(steps * calls[k] * (first - per_call[k]) for k in stages)
+    fewer = sum(steps * calls[k] * (first[k] - per_call[k]) for k in stages)
     print(f"[launches {what} stages] "
           + "; ".join(f"{k}: {steps * calls[k]} calls, {counts[name]} launches (first form "
-                      f"{steps * calls[k] * first})" for k, name in stages.items())
+                      f"{steps * calls[k] * first[k]})" for k, name in stages.items())
           + f" | {fewer} launches fewer than the first forms of "
           + " and ".join(k for k in stages if k != revisit))
 
@@ -1268,11 +1278,13 @@ def print_device_time(solves, what, card):
 def msplit_257(es, dev, card, launches, fold):
     """Phase 8: the production electrospray solve at 257^3 on the split
     tier, launch counts reset just before and read just after (added into
-    ``launches``): only K22-K25 and K16-K19, the fold tier's outer-step
-    count, converged to 1e-8 of its initial norm, the fold tier's solution
+    ``launches``): only K22-K25 and K16-K19, K16, K17 and K19 exactly as
+    the fold cycle below needs, K22 and K24 exactly one launch a call (one
+    finest-level cycle an outer step), the fold tier's outer-step count,
+    converged to 1e-8 of its initial norm, the fold tier's solution
     (``fold``: phase 7's (u, outer steps, solve)) within 1e-7 max|u|; then
-    the split and fold walls interleaved and the device-busy time of one
-    traced solve of each."""
+    the split and fold walls interleaved, the device-busy time of one
+    traced solve of each, and the stages' device time a call by level."""
     from multigrid_parallel_tpu_torch import mixed_padded as mp
     from multigrid_parallel_tpu_torch.ops import pallas_mixed_split as pms
 
@@ -1312,10 +1324,15 @@ def msplit_257(es, dev, card, launches, fold):
         cycle_calls(solver, below, False, calls)
     check_stage_launches(counts, calls, it, solver.n_smooth, f"{n}^3 electrospray msplit",
                          FOLD_STAGES)
+    # the finest level: one cycle an outer step, entered from zero (inner_cycles 1)
+    check_stage_launches(counts, {"K21": 0, "K22": 1, "K24": 1}, it, solver.n_smooth,
+                         f"{n}^3 electrospray msplit finest", MSPLIT_STAGES,
+                         {"K24": 2 * solver.n_smooth + 2})
     solve = lambda: run(*state)  # noqa: E731
     interleave({"msplit": solve, "fold": solve_fold}, f"{n}^3 electrospray", card)
     print_device_time({"msplit": solve, "fold": solve_fold}, f"{n}^3 electrospray", card)
-    print_stage_times(solve, solver, f"{n}^3 electrospray msplit", card, FOLD_STAGES)
+    print_stage_times(solve, solver, f"{n}^3 electrospray msplit", card,
+                      {**FOLD_STAGES, **MSPLIT_STAGES})
 
 
 def interleave(solves, what, card, reps=INTERLEAVED):

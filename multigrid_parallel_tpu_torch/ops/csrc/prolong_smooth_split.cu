@@ -66,18 +66,13 @@ __device__ inline float interp(const Get& get, int i, int j, int kk, int p) {
   return p == 0 ? 0.5f * (yk[0] + yk[1]) : yk[1];
 }
 
-// Coarse tile rows and row width for a plan: the coarse rows ja >> 1 ..
-// jb >> 1 and coarse k ka .. kb that the loaded fine box interpolates from
-// (pallas_split._stage_smem plans with the same sizes).
-__host__ __device__ inline int coarse_rows(int bj, int H) { return (bj + 2 * H) / 2 + 2; }
-__host__ __device__ inline int coarse_width(int W) { return W + 1; }
-
 // The correction of each fine plane as it arrives (stage colour 0 is
 // black, 1 red): red' = e_r + P ec at the live interior slots, black' = e_b
 // + 0, over the whole loaded box. The coarse planes it interpolates from
-// stream through a ring of 3 in shared memory (4-byte cp.async: a coarse
-// row of nc floats is not 16-byte aligned), each copied with the first
-// fine plane that needs it: coarse c serves fine planes 2 c - 1 .. 2 c + 1.
+// stream through a ring of 3 in shared memory (split.cuh, coarse_rows and
+// coarse_width: coarse k ka .. kb; 4-byte cp.async: a coarse row of nc
+// floats is not 16-byte aligned), each copied with the first fine plane
+// that needs it: coarse c serves fine planes 2 c - 1 .. 2 c + 1.
 struct ProlongPrep {
   static constexpr bool kActive = true;
   static constexpr bool kFixedFirst = true;  // e_b only where a slot is not live

@@ -128,11 +128,37 @@ __device__ inline float sweep_value(const float* src, const float* f, int idx,
 // loads the colour whole, because the narrower loader costs its
 // two-iteration 16-byte instantiation a register spill at 640 threads and
 // made it slower (PERF.md).
+//
+// MIXED: the electrospray's mixed-BC stage on the pair (msplit.cuh; K22
+// and K24, mixed_rb_smooth_msplit.cu, mixed_prolong_smooth_msplit.cu), the
+// same schedule with two changes, as rect.cuh's mixed layouts make them.
+// (1) The selects: a neighbour across a face (i or j at 1 or n - 2, k at 1
+// or n - 2) is read as the slot's own value, 0 at a pinned x-face node
+// (mixed_nbr_sum's rule, mixed.cuh), in mixed_nbr_sum's order of the six
+// adds (i - 1, i + 1, j - 1, j + 1, k - 1, k + 1): the k = 1 and k = n - 2
+// neighbours are no longer the dead slot or the guard's 0. The pins are
+// the parity packs (2, 2, n, S), read through __ldg by the rows of planes
+// 1 and n - 2 only. A row with no face neighbour in i or j takes a branch
+// without selects (warp-uniform: a warp sweeps a row), its k-edge selects
+// folded into the loads of the k neighbours. The selects read the centre
+// of live slots, so the first half-sweep's colour is needed whole (no
+// kFixedFirst). (2) The store is
+// the cross-colour BC pass (mixed_store): the block that owns interior row
+// (q, j) writes it and every x- and y-face row whose copy source it is,
+// u_c(i, j) = u_c'(c(i), c(j)) at the same slot, c mapping 0 -> 1 and
+// n - 1 -> n - 2, the colour flipped once a copied coordinate, 0 at a
+// pinned x-face node (the pin of the target's row and colour), 0 at the
+// dead slots. A face row copied across one coordinate reads the other
+// colour of its source, so both colours of a plane are stored at the step
+// of the second colour's last half-sweep, qb, from the two rings, which
+// still hold plane qb then. Each slot of both colours is written once,
+// whatever the plan.
 
 struct StageArgs {
   float* out[2];  // by stage colour: [0] the first half-sweep's colour
   const float* in[2];
   const float* f[2];
+  const float* packs;  // MIXED: the x-face pin masks as parity packs (msplit.cuh)
   int color0;  // kRed or kBlack: the colour of the first half-sweep
   int n;
   float h2;
@@ -163,6 +189,14 @@ __host__ __device__ inline long long stage_smem_bytes(int n, int n_iter, int bj,
   const long long W = k_halo ? bk + 2 * k_halo : slots(n);
   return 2LL * stage_depth(H) * (bj + 2 * H) * W * 4;
 }
+
+// The coarse ring of a prolongation stage (K10, K24), beside the fine
+// rings: 3 planes of coarse_rows(bj, H) rows of coarse_width(W) floats, the
+// coarse rows ja >> 1 .. jb >> 1 and the coarse k columns that the loaded
+// fine box interpolates from (pallas_split._stage_smem plans with the same
+// sizes).
+__host__ __device__ inline int coarse_rows(int bj, int H) { return (bj + 2 * H) / 2 + 2; }
+__host__ __device__ inline int coarse_width(int W) { return W + 1; }
 
 inline int stage_blocks(int n, const StageArgs& a) {
   const int S = slots(n);
@@ -327,57 +361,202 @@ __device__ inline float comp(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
+// The mixed BC (MIXED): which neighbours of a tile row (q, j) of parity p
+// lie across a face and read the slot's own value (0 at a pinned x-face
+// node).
+// (The k faces: k = 2 kk + 1 + p is 1 only at slot 0 and n - 2 only at
+// slot S - 1 of a row of parity 0.)
+struct PairFaces {
+  const float* pin_lo;  // where q = 1: the row's x = 0 pins in its parity pack, slot kk's at [kk]
+  const float* pin_hi;  // where q = n - 2: the x = n - 1 ones
+  bool jm, jp;          // j = 1, j = n - 2
+};
+
+__device__ inline PairFaces pair_faces(const StageArgs& a, int q, int j, int p) {
+  const int n = a.n, S = slots(n);
+  PairFaces fc;
+  fc.pin_lo = q == 1 ? a.packs + ((p * 2 + 0) * n + j) * S : nullptr;
+  fc.pin_hi = q == n - 2 ? a.packs + ((p * 2 + 1) * n + j) * S : nullptr;
+  fc.jm = j == 1;
+  fc.jp = j == n - 2;
+  return fc;
+}
+
 // One half-sweep of the live slots [kl, k_end) of one tile row of parity p
 // (tile offset of slot kk: row + kk; f of slot kk: f_row[kk] in device
 // memory; its lane's first group prefetched in ``pre`` where ``use_pre``).
 // VEC: a 4-slot group a lane, 16-byte loads and stores, the other slots
 // of a group keeping their values; else a slot a lane. Each slot takes
-// tile_nbr_sum's terms in its order, then (sum - h2 f) (1/6).
-template <bool VEC>
+// tile_nbr_sum's terms in its order, then (sum - h2 f) (1/6). MIXED: the
+// neighbours in mixed_nbr_sum's order, those across the faces ``fc``
+// selects of the slot's own value (slot kk's k - 1 and k + 1 neighbours
+// are the other colour's slots kk - 1 and kk where p = 0, kk and kk + 1
+// where p = 1).
+template <bool VEC, bool MIXED = false>
 __device__ inline void sweep_row(float* dst, const float* lo, const float* mid, const float* hi,
                                  const float* __restrict__ f_row, int row, int W, int S, int kl,
                                  int k_end, int p, float h2, int lane, bool use_pre,
-                                 float4 pre) {
+                                 float4 pre, const PairFaces& fc = PairFaces{}) {
   if constexpr (!VEC) {
     for (int kk = kl + lane; kk < k_end; kk += 32) {
       const int o = row + kk;
-      dst[o] = (tile_nbr_sum(lo, mid, hi, o, W, S, kk, p) - h2 * __ldg(f_row + kk)) *
-               (1.0f / 6.0f);
+      if constexpr (MIXED) {
+        const float cen = dst[o];
+        const float km = p == 0 ? (kk == 0 ? cen : mid[o - 1]) : mid[o];
+        const float kp = p == 0 ? (kk == S - 1 ? cen : mid[o]) : (kk + 1 < S ? mid[o + 1] : 0.0f);
+        float s = fc.pin_lo ? (__ldg(fc.pin_lo + kk) > 0.5f ? 0.0f : cen) : lo[o];
+        s = s + (fc.pin_hi ? (__ldg(fc.pin_hi + kk) > 0.5f ? 0.0f : cen) : hi[o]);
+        s = s + (fc.jm ? cen : mid[o - W]);
+        s = s + (fc.jp ? cen : mid[o + W]);
+        s = s + km;
+        s = s + kp;
+        dst[o] = (s - h2 * __ldg(f_row + kk)) * (1.0f / 6.0f);
+      } else {
+        dst[o] = (tile_nbr_sum(lo, mid, hi, o, W, S, kk, p) - h2 * __ldg(f_row + kk)) *
+                 (1.0f / 6.0f);
+      }
     }
   } else {
     const int g0 = (kl & ~3) + 4 * lane;
+    const bool faces = MIXED && (fc.pin_lo || fc.pin_hi || fc.jm || fc.jp);  // the row's, warp-uniform
     for (int g = g0; g < k_end; g += 128) {
       const int o = row + g;
       const float4 vf = use_pre && g == g0 ? pre : __ldg(reinterpret_cast<const float4*>(f_row + g));
       const float4 vl = ld4(lo + o), vh = ld4(hi + o), vjm = ld4(mid + o - W),
                    vjp = ld4(mid + o + W), vm = ld4(mid + o);
-      const bool whole = g >= kl && g + 4 <= k_end;
-      const float4 old = whole ? vm : ld4(dst + o);  // kept where a slot is outside
-      float kn[4];  // each slot's second k neighbour: kk - 1 (p = 0) or kk + 1 (p = 1)
-      if (p == 0) {
-        kn[0] = g > 0 && g >= kl ? mid[o - 1] : 0.0f;
-        kn[1] = vm.x;
-        kn[2] = vm.y;
-        kn[3] = vm.z;
-      } else {
-        kn[0] = vm.y;
-        kn[1] = vm.z;
-        kn[2] = vm.w;
-        kn[3] = g + 3 < k_end && g + 4 < S ? mid[o + 4] : 0.0f;
-      }
       float r[4];
+      if constexpr (MIXED) {
+        // the k neighbours, the k-edge selects folded in: k = 1 (slot 0)
+        // and k = n - 2 (slot S - 1) only in rows of p = 0, whose own value
+        // is read there instead
+        float km[4], kp[4];
+        if (p == 0) {
+          km[0] = g == 0 ? dst[o] : (g >= kl ? mid[o - 1] : 0.0f);
+          km[1] = vm.x;
+          km[2] = vm.y;
+          km[3] = vm.z;
+          kp[0] = vm.x;
+          kp[1] = vm.y;
+          kp[2] = vm.z;
+          kp[3] = g + 4 == S ? dst[o + 3] : vm.w;
+        } else {
+          km[0] = vm.x;
+          km[1] = vm.y;
+          km[2] = vm.z;
+          km[3] = vm.w;
+          kp[0] = vm.y;
+          kp[1] = vm.z;
+          kp[2] = vm.w;
+          kp[3] = g + 3 < k_end && g + 4 < S ? mid[o + 4] : 0.0f;
+        }
+        const bool whole = g >= kl && g + 4 <= k_end;
+        if (!faces) {  // a row with no face neighbour in i or j: no select
+          const float4 old = whole ? vm : ld4(dst + o);  // kept where a slot is outside
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float s = comp(vl, c);
-        s = s + comp(vh, c);
-        s = s + comp(vjm, c);
-        s = s + comp(vjp, c);
-        s = s + comp(vm, c);
-        s = s + kn[c];
-        const int kk = g + c;
-        r[c] = kk >= kl && kk < k_end ? (s - h2 * comp(vf, c)) * (1.0f / 6.0f) : comp(old, c);
+          for (int c = 0; c < 4; ++c) {
+            float s = comp(vl, c);
+            s = s + comp(vh, c);
+            s = s + comp(vjm, c);
+            s = s + comp(vjp, c);
+            s = s + km[c];
+            s = s + kp[c];
+            const int kk = g + c;
+            r[c] = kk >= kl && kk < k_end ? (s - h2 * comp(vf, c)) * (1.0f / 6.0f)
+                                          : comp(old, c);
+          }
+        } else {
+          const float4 vc = ld4(dst + o);  // the slots' own values, what a face read returns
+          const float4 pl = fc.pin_lo ? __ldg(reinterpret_cast<const float4*>(fc.pin_lo + g))
+                                      : float4{};
+          const float4 ph = fc.pin_hi ? __ldg(reinterpret_cast<const float4*>(fc.pin_hi + g))
+                                      : float4{};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float cen = comp(vc, c);
+            const int kk = g + c;
+            float s = fc.pin_lo ? (comp(pl, c) > 0.5f ? 0.0f : cen) : comp(vl, c);
+            s = s + (fc.pin_hi ? (comp(ph, c) > 0.5f ? 0.0f : cen) : comp(vh, c));
+            s = s + (fc.jm ? cen : comp(vjm, c));
+            s = s + (fc.jp ? cen : comp(vjp, c));
+            s = s + km[c];
+            s = s + kp[c];
+            r[c] = kk >= kl && kk < k_end ? (s - h2 * comp(vf, c)) * (1.0f / 6.0f) : cen;
+          }
+        }
+      } else {
+        const bool whole = g >= kl && g + 4 <= k_end;
+        const float4 old = whole ? vm : ld4(dst + o);  // kept where a slot is outside
+        float kn[4];  // each slot's second k neighbour: kk - 1 (p = 0) or kk + 1 (p = 1)
+        if (p == 0) {
+          kn[0] = g > 0 && g >= kl ? mid[o - 1] : 0.0f;
+          kn[1] = vm.x;
+          kn[2] = vm.y;
+          kn[3] = vm.z;
+        } else {
+          kn[0] = vm.y;
+          kn[1] = vm.z;
+          kn[2] = vm.w;
+          kn[3] = g + 3 < k_end && g + 4 < S ? mid[o + 4] : 0.0f;
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float s = comp(vl, c);
+          s = s + comp(vh, c);
+          s = s + comp(vjm, c);
+          s = s + comp(vjp, c);
+          s = s + comp(vm, c);
+          s = s + kn[c];
+          const int kk = g + c;
+          r[c] = kk >= kl && kk < k_end ? (s - h2 * comp(vf, c)) * (1.0f / 6.0f) : comp(old, c);
+        }
       }
       st4(dst + o, make_float4(r[0], r[1], r[2], r[3]));
+    }
+  }
+}
+
+// The mixed-BC store with the BC pass (MIXED; the header): both colours of
+// the owned rows and slots of interior plane q, each interior row with the
+// y-face row it is the copy source of (row 0 with row 1, row n - 1 with
+// row n - 2), in plane q and, where q is 1 or n - 2, in the x-face plane 0
+// or n - 1 too; a warp a target row and colour, its lanes along k. A
+// target row copied across one coordinate takes the other colour's tile
+// row, across two (a corner) its own colour's; 0 at the dead slots and,
+// in an x-face plane, at the nodes pinned in the target's parity pack.
+// Run once plane q's last half-sweep of both colours is done.
+template <bool VEC>
+__device__ inline void mixed_store(const StageArgs& a, const float* t0, const float* t1,
+                                   const StageGeom& t, int q, int warp, int lane, int nwarps) {
+  constexpr int V = VEC ? 4 : 1;
+  const int n = t.n, S = t.S;
+  int jl = max(t.j0, 1), jh = min(t.j1, n - 1);
+  if (q < 1 || q > n - 2 || jl >= jh) return;  // an x-face plane: written with its source
+  if (jl == 1) jl = 0;
+  if (jh == n - 1) jh = n;
+  const int rows = jh - jl, planes = 1 + (q == 1) + (q == n - 2);
+  for (int v = warp; v < 2 * planes * rows; v += nwarps) {
+    const int st = v & 1, m = (v >> 1) / rows, jt = jl + (v >> 1) % rows;  // stage colour, target
+    const int qt = m == 0 ? q : (m == 1 && q == 1 ? 0 : n - 1);
+    const int js = jt == 0 ? 1 : (jt == n - 1 ? n - 2 : jt);
+    const int flip = (qt != q) ^ (jt != js);
+    const int p = parity(qt, jt, st ? 1 - a.color0 : a.color0);  // the target's (and source's)
+    const int dead = p ? S - 1 : S;  // slots from here on hold no point
+    const float* s = ((st ^ flip) ? t1 : t0) + (js - t.jb0) * t.W - t.kb0;
+    float* d = (st ? a.out[1] : a.out[0]) + (qt * n + jt) * S;  // no dynamic index into a
+    const float* pin = qt != q ? a.packs + ((p * 2 + (qt == 0 ? 0 : 1)) * n + jt) * S : nullptr;
+    for (int k = t.k0 + V * lane; k < t.k1; k += 32 * V) {
+      if constexpr (VEC) {
+        float4 x = ld4(s + k);
+        if (pin) {  // warp-uniform
+          const float4 w = __ldg(reinterpret_cast<const float4*>(pin + k));
+          x = make_float4(w.x > 0.5f ? 0.0f : x.x, w.y > 0.5f ? 0.0f : x.y,
+                          w.z > 0.5f ? 0.0f : x.z, w.w > 0.5f ? 0.0f : x.w);
+        }
+        if (k + 4 > dead) x.w = 0.0f;  // the dead slot S - 1 (S a multiple of 4)
+        st4(d + k, x);
+      } else {
+        d[k] = k >= dead || (pin && __ldg(pin + k) > 0.5f) ? 0.0f : s[k];
+      }
     }
   }
 }
@@ -393,13 +572,15 @@ struct NoPrep {
   static constexpr bool kFixedFirst = false;
 };
 
-// ZERO: the initial pair is zero (K8): nothing is read from a.in, the
-// tile planes start as zeros, so half-sweep 1 computes (+0 - h^2 f) (1/6)
-// at every live slot of its region, as the plain version does from a zero
-// pair, and every other slot is written out as 0.
-template <int NITER, bool VEC, bool ZERO = false, class Prep>
+// ZERO: the initial pair is zero (K8, K22): nothing is read from a.in,
+// the tile planes start as zeros, so half-sweep 1 computes (+0 - h^2 f)
+// (1/6) at every live slot of its region, as the plain version does from a
+// zero pair (a MIXED select returns the slot's +0 too), and every other
+// slot is written out as 0. MIXED: the mixed-BC stage (the header).
+template <int NITER, bool VEC, bool ZERO = false, bool MIXED = false, class Prep>
 __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
   static_assert(!(ZERO && Prep::kActive), "a zero initial pair has nothing to prepare");
+  static_assert(!(MIXED && Prep::kFixedFirst), "the mixed selects read the first colour whole");
   constexpr int H = 2 * NITER, D = stage_depth(H);
   StageGeom t;
   const int n = a.n, S = slots(n);
@@ -497,17 +678,25 @@ __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
           const int j = t.jb0 + r;
           if (j < jl || j >= jh) continue;
           const int pp = parity(q, j, color);
-          sweep_row<VEC>(dst, lo, mid, hi, a.f[c] + (q * n + j) * S, r * t.W - t.kb0, t.W, S,
-                         kl, min(kh, (n - 1 - pp) >> 1), pp, a.h2, lane, VEC && r == warp,
-                         f_pre[s - 1]);
+          sweep_row<VEC, MIXED>(dst, lo, mid, hi, a.f[c] + (q * n + j) * S, r * t.W - t.kb0,
+                                t.W, S, kl, min(kh, (n - 1 - pp) >> 1), pp, a.h2, lane,
+                                VEC && r == warp, f_pre[s - 1],
+                                MIXED ? pair_faces(a, q, j, pp) : PairFaces{});
         }
       }
     }
     fetch(p + 1);
     // each colour's last half-sweep (H - 1 and H) finished a step ago
     const int qa = p - 1 - 2 * (H - 1), qb = p - 1 - 2 * H;
-    if (qa >= t.i0 && qa < t.i1) tile_store<VEC>(a.out[0], ring(0, qa), t, qa, warp, lane, nwarps);
-    if (qb >= t.i0 && qb < t.i1) tile_store<VEC>(a.out[1], ring(1, qb), t, qb, warp, lane, nwarps);
+    if constexpr (MIXED) {  // both colours at qb: a face row reads its source's other colour
+      if (qb >= t.i0 && qb < t.i1)
+        mixed_store<VEC>(a, ring(0, qb), ring(1, qb), t, qb, warp, lane, nwarps);
+    } else {
+      if (qa >= t.i0 && qa < t.i1)
+        tile_store<VEC>(a.out[0], ring(0, qa), t, qa, warp, lane, nwarps);
+      if (qb >= t.i0 && qb < t.i1)
+        tile_store<VEC>(a.out[1], ring(1, qb), t, qb, warp, lane, nwarps);
+    }
     __syncthreads();
   }
 }

@@ -43,14 +43,27 @@ Not carried over (TPU planning, the same half-sweep sequence):
 planners and the ``block_i`` and ``with_delta`` arguments (K24 reads the
 sign planes at the x faces' k edges only).
 
+K22 and K24 are one-pass stages: one launch of split.cuh's
+``stage_body`` in its mixed-BC mode a call for n_iter <= 2, on
+``pallas_split._stage_plan``'s plan with ``msplit`` (K7's and, for K24,
+K10's; the fewest-steps plan on a level up to 65^3), all 2 n_iter
+half-sweeps on tiles of both colours in shared memory, the faces'
+neighbours selects of the slot's own value, the cross-colour BC pass done
+at store time, K24's e + P ec made as each plane arrives: a fresh pair,
+bit for bit the plain version's. A larger n_iter goes on with the same
+stage on the pair so far (``mg_msplit_stage`` with u loaded),
+ceil(n_iter / 2) launches in all. Bound: device-memory bytes
+(``chip_smoke.bound``; their sources' headers give them and ptxas's
+registers and spills). K21 keeps its first form: 2 n_iter in-place
+half-sweep launches and a BC-pass launch.
+
 A wrapper takes the plain version for tensors on the CPU, launches its
 kernel for CUDA tensors (float32, contiguous, pairs of ``split_shape(n)``
 with n odd >= 5; packs (2, 2, n, (n - 1) // 2); K24's coarse fold field
 and sign planes of the next coarser level), and raises for anything else:
 no fallback from the kernel to the plain version. Each kernel launch adds
-one to its entry in ``LAUNCHES`` (every half-sweep and BC pass of a stage
-counts as a launch of the stage's kernel; K25's is the pair, partials
-then their sum).
+one to its entry in ``LAUNCHES`` (every half-sweep and BC pass of K21's
+stage counts as a launch; K25's is the pair, partials then their sum).
 """
 
 from __future__ import annotations
@@ -225,20 +238,6 @@ def mixed_rb_smooth_from_zero_msplit_plain(fr, fb, packs, h: float, n_iter: int,
                                         packs, h, n_iter, red_first)
 
 
-def _half_sweeps_and_bc_pass(er, eb, fr, fb, packs, h2, colors, name):
-    """Launch K21's in-place half-sweeps of ``colors``, then its BC pass,
-    each counted as a launch of ``name``."""
-    lib, stream, n = _lib(), _stream(), er.shape[0]
-    rhs = {RED: fr, BLACK: fb}
-    for c in colors:
-        _check(lib.mg_msplit_half_sweep(er.data_ptr(), eb.data_ptr(), rhs[c].data_ptr(),
-                                        packs.data_ptr(), n, h2, c, stream), name)
-        LAUNCHES[name] += 1
-    _check(lib.mg_msplit_bc_pass(er.data_ptr(), eb.data_ptr(), packs.data_ptr(), n, stream),
-           name)
-    LAUNCHES[name] += 1
-
-
 def mixed_rb_smooth_msplit(er, eb, fr, fb, packs, h: float, n_iter: int,
                            red_first: bool = True):
     """n_iter mixed-BC RB-GS iterations on the correction pair (red first
@@ -252,31 +251,50 @@ def mixed_rb_smooth_msplit(er, eb, fr, fb, packs, h: float, n_iter: int,
     if not _on_cuda(er, eb, fr, fb, packs=packs):
         r, b = mixed_rb_smooth_msplit_plain(er, eb, fr, fb, packs, h, n_iter, red_first)
         return er.copy_(r), eb.copy_(b)
-    _half_sweeps_and_bc_pass(er, eb, fr, fb, packs, h * h, list(_colors(red_first)) * n_iter,
-                             "mixed_rb_smooth_msplit")
+    name, lib, stream, n = "mixed_rb_smooth_msplit", _lib(), _stream(), er.shape[0]
+    rhs = {RED: fr, BLACK: fb}
+    for c in list(_colors(red_first)) * n_iter:
+        _check(lib.mg_msplit_half_sweep(er.data_ptr(), eb.data_ptr(), rhs[c].data_ptr(),
+                                        packs.data_ptr(), n, h * h, c, stream), name)
+        LAUNCHES[name] += 1
+    _check(lib.mg_msplit_bc_pass(er.data_ptr(), eb.data_ptr(), packs.data_ptr(), n, stream),
+           name)
+    LAUNCHES[name] += 1
     return er, eb
+
+
+def _stage_launch(lib, er, eb, fr, fb, packs, h2, n_iter, red_first, stream, name):
+    """One launch of the mixed stage on a pair (K22's from a zero pair,
+    where er and eb are None) into a fresh pair, counted as ``name``'s."""
+    n = fr.shape[0]
+    out_r, out_b = torch.empty_like(fr), torch.empty_like(fb)
+    _check(lib.mg_msplit_stage(out_r.data_ptr(), out_b.data_ptr(),
+                               None if er is None else er.data_ptr(),
+                               None if eb is None else eb.data_ptr(), fr.data_ptr(),
+                               fb.data_ptr(), packs.data_ptr(), n, h2, int(red_first),
+                               *ps._plan_args(n, n_iter, fr.device, msplit=True), stream), name)
+    LAUNCHES[name] += 1
+    return out_r, out_b
 
 
 def mixed_rb_smooth_from_zero_msplit(fr, fb, packs, h: float, n_iter: int,
                                      red_first: bool = True):
     """mixed_rb_smooth_msplit from an implicit zero initial pair, as a
-    fresh pair: the first half-sweep reads only its f, writes its whole
-    colour and zeroes the other."""
+    fresh pair (dead slots 0, the boundary rows holding the BC). The CUDA
+    form is one one-pass launch of the mixed stage from a zero tile for
+    n_iter <= 2 (nothing is read but f and the pins); ceil(n_iter / 2) in
+    all, each later one the stage on the pair so far, all counted as K22
+    launches."""
     if n_iter < 1:
         raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     if not _on_cuda(fr, fb, packs=packs):
         return mixed_rb_smooth_from_zero_msplit_plain(fr, fb, packs, h, n_iter, red_first)
-    name, n, h2 = "mixed_rb_smooth_from_zero_msplit", fr.shape[0], h * h
-    pair, rhs = {RED: torch.empty_like(fr), BLACK: torch.empty_like(fb)}, {RED: fr, BLACK: fb}
-    first, second = _colors(red_first)
-    _check(_lib().mg_msplit_half_sweep_from_zero(pair[first].data_ptr(),
-                                                 pair[second].data_ptr(),
-                                                 rhs[first].data_ptr(), n, h2, first,
-                                                 _stream()), name)
-    LAUNCHES[name] += 1
-    _half_sweeps_and_bc_pass(pair[RED], pair[BLACK], fr, fb, packs, h2,
-                             [second] + list(_colors(red_first)) * (n_iter - 1), name)
-    return pair[RED], pair[BLACK]
+    lib, stream, h2 = _lib(), _stream(), h * h
+    er = eb = None
+    for chunk in ps._stage_chunks(n_iter):
+        er, eb = _stage_launch(lib, er, eb, fr, fb, packs, h2, chunk, red_first, stream,
+                               "mixed_rb_smooth_from_zero_msplit")
+    return er, eb
 
 
 # -------------------------------------------- K23: residual + restriction
@@ -366,26 +384,28 @@ def mixed_prolong_smooth_msplit(ec, er, eb, rr, rb, packs, sgn_c, h: float, n_it
     eb are left as they are): the post-smoothing stage of the finest level,
     ec the (nc, nc, nc - 2) coarse fold correction and ``sgn_c`` its
     level's ``fold_edge_sign_planes`` (or the coarsest level's LU rule).
-    The CUDA form is the red correction launch, the first black half-sweep
-    launch (its centre corrected in the thread), then 2 * n_iter - 1 K21
-    half-sweeps and the BC pass, all counted as K24 launches."""
+    The CUDA form is one one-pass launch for n_iter <= 2 (the correction
+    made as each plane reaches shared memory, the BC pass at store time); a
+    larger n_iter goes on with the mixed stage on the pair so far, black
+    first, counted as K24's."""
     if n_iter < 1:
         raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     if not _on_cuda(er, eb, rr, rb, packs=packs, coarse=ec, sgn=sgn_c):
         return mixed_prolong_smooth_msplit_plain(ec, er, eb, rr, rb, packs, sgn_c, h, n_iter)
     name, lib, stream, n, h2 = "mixed_prolong_smooth_msplit", _lib(), _stream(), er.shape[0], h * h
-    pair = {RED: torch.empty_like(er), BLACK: torch.empty_like(eb)}
-    _check(lib.mg_msplit_prolong_correct_red(pair[RED].data_ptr(), ec.data_ptr(),
-                                             sgn_c.data_ptr(), er.data_ptr(), n, stream), name)
+    first, *rest = ps._stage_chunks(n_iter)
+    out_r, out_b = torch.empty_like(er), torch.empty_like(eb)
+    _check(lib.mg_msplit_prolong_stage(out_r.data_ptr(), out_b.data_ptr(), ec.data_ptr(),
+                                       sgn_c.data_ptr(), er.data_ptr(), eb.data_ptr(),
+                                       rr.data_ptr(), rb.data_ptr(), packs.data_ptr(), n, h2,
+                                       *ps._plan_args(n, first, er.device, prolong=True,
+                                                      msplit=True),
+                                       stream), name)
     LAUNCHES[name] += 1
-    _check(lib.mg_msplit_prolong_correct_black(pair[BLACK].data_ptr(), pair[RED].data_ptr(),
-                                               ec.data_ptr(), sgn_c.data_ptr(), eb.data_ptr(),
-                                               rb.data_ptr(), packs.data_ptr(), n, h2, stream),
-           name)
-    LAUNCHES[name] += 1
-    _half_sweeps_and_bc_pass(pair[RED], pair[BLACK], rr, rb, packs, h2,
-                             [RED] + [BLACK, RED] * (n_iter - 1), name)
-    return pair[RED], pair[BLACK]
+    for chunk in rest:
+        out_r, out_b = _stage_launch(lib, out_r, out_b, rr, rb, packs, h2, chunk, False, stream,
+                                     name)
+    return out_r, out_b
 
 
 # ------------------------------------- K25: double-float residual + norm

@@ -238,6 +238,7 @@ RECT_ROW_PAD = 4         # tile columns before slot 0 of a whole rect row (rect.
 RECT_BOX_MAX_N = 129     # rect levels up to this size take the box schedule (rect.cuh, box_body)
 RECT_MAX_THREADS = 576   # the rect stage kernels' launch bound (rect.cuh, kStageMaxThreads)
 RECT_REGISTERS = 112     # registers a thread of theirs may take under it (65,536 an SM)
+MSPLIT_STEPS_MAX_N = 65  # msplit levels up to this size take the fewest-steps plan (_steps_plan)
 
 
 class StagePlan(NamedTuple):
@@ -324,7 +325,7 @@ def _slots(n: int, rect: bool = False) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _stage_plan(n: int, n_iter: int, sms: int, prolong: bool = False,
-                rect: bool = False) -> StagePlan:
+                rect: bool = False, msplit: bool = False) -> StagePlan:
     """The plan of one stage launch of n_iter (1 or 2) iterations on an n^3
     split level (``rect``: a plain level, K2's and K4's stage) for a card of
     ``sms`` SMs, within ``SMEM_MAX`` bytes of shared memory a block: a rect
@@ -343,12 +344,44 @@ def _stage_plan(n: int, n_iter: int, sms: int, prolong: bool = False,
     and K4's plans (``prolong``) count their coarse ring. A rect plan's
     tile rows are 16-byte aligned whatever n is, its warps sweep 32 /
     ``_row_lanes`` rows at once, at most ``RECT_MAX_THREADS`` threads, and
-    it tiles k only where whole rows fit fewer than 8 rows a block."""
+    it tiles k only where whole rows fit fewer than 8 rows a block. The
+    msplit stages (K22, K24: ``msplit``, the split layout) take K7's and
+    K10's plans, and on a level up to ``MSPLIT_STEPS_MAX_N`` the
+    fewest-steps plan (``_steps_plan``)."""
     if n_iter not in (1, 2):
         raise ValueError(f"a stage launch runs 1 or 2 iterations, got {n_iter}")
     if rect and n <= RECT_BOX_MAX_N:
         return _box_plan(n, n_iter, sms, prolong)
+    if msplit and n <= MSPLIT_STEPS_MAX_N:
+        return _steps_plan(n, n_iter, sms, prolong)
     return _wave_plan(n, n_iter, sms, prolong, rect)
+
+
+def _steps_plan(n: int, n_iter: int, sms: int, prolong: bool) -> StagePlan:
+    """``_stage_plan``'s plan for the msplit stages on a small split level:
+    the wavefront on whole rows, bi planes x bj rows a block, the pair whose
+    estimated time is least, fewer threads on a tie. A block takes bi + 3 H
+    + 1 steps (H = 2 n_iter), each of two barriers however little it holds,
+    its warps sweeping a tile row each (more where the rows outnumber
+    ``STAGE_MAX_THREADS`` / 32), and blocks that share an SM share its
+    time: the estimate is the steps, times the tile rows a warp sweeps,
+    times the waves of blocks over ``sms`` SMs. On the small levels the
+    steps, not the halos' reads that ``_wave_plan`` counts, set the time
+    (``utils.stage_plans --msplit``: PERF.md)."""
+    s, halo = split_shape(n)[2], 2 * n_iter
+    best = None
+    for bi in _evened(n):
+        for bj in _evened(n):
+            smem = _stage_smem(n_iter, bj, s, prolong)
+            if smem > SMEM_MAX:
+                continue
+            rows = min(n, bj + 2 * halo)
+            warps = min(STAGE_MAX_THREADS // 32, rows)
+            blocks = -(-n // bi) * -(-n // bj)
+            est = -(-blocks // sms) * (bi + 3 * halo + 1) * -(-rows // warps)
+            if best is None or (est, warps) < best[0]:
+                best = ((est, warps), StagePlan(n, n_iter, halo, 0, bi, bj, s, 32 * warps, smem))
+    return best[1]
 
 
 def _wave_plan(n: int, n_iter: int, sms: int, prolong: bool, rect: bool) -> StagePlan:
@@ -450,17 +483,18 @@ def _stage_chunks(n_iter: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_args_on(n: int, n_iter: int, index: int, prolong: bool, rect: bool):
-    plan = _stage_plan(n, n_iter, _sms(index), prolong=prolong, rect=rect)
+def _plan_args_on(n: int, n_iter: int, index: int, prolong: bool, rect: bool, msplit: bool):
+    plan = _stage_plan(n, n_iter, _sms(index), prolong=prolong, rect=rect, msplit=msplit)
     args = (n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem)
     return args + (int(plan.box),) if rect else args
 
 
-def _plan_args(n: int, n_iter: int, device, prolong: bool = False, rect: bool = False):
+def _plan_args(n: int, n_iter: int, device, prolong: bool = False, rect: bool = False,
+               msplit: bool = False):
     """The launcher's n_iter and plan arguments on ``device`` (the rect
     launchers' with the plan's box flag last)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return _plan_args_on(n, n_iter, index, prolong, rect)
+    return _plan_args_on(n, n_iter, index, prolong, rect, msplit)
 
 
 def _stage_launch(lib, er, eb, fr, fb, h2, n_iter, red_first, stream, name):

@@ -22,9 +22,9 @@ span, each kernel name's summed ms, count and the device idle time
 just before its kernels (``idle_before``; a stage kernel's name carries
 its template arguments, which tell K1 from K2 and K7 from K8), and each
 smoothing stage call's device time by level (``stage_calls``: K1, K2, K4,
-K7, K8, K10, K13-K17 and K19, the one-pass form's kernel, or a first
-form's head kernel and the half-sweeps that follow it, and the BC pass
-that ends a mixed-BC call), and each restriction call's
+K7, K8, K10, K13-K17, K19, K21, K22 and K24, the one-pass form's kernel,
+or a first form's head kernel and the half-sweeps that follow it, and the
+BC pass that ends a mixed-BC call), and each restriction call's
 (``restrict_calls``: K3 and K9, a kernel a call, the first forms' one
 thread a coarse point or the streaming stage's plan). The parent prints
 the lines as they come and the card's name and power limit, and at the
@@ -145,21 +145,26 @@ def idle_before(intervals):
 
 
 # the smoothing stages' kernels: the one-pass forms (rect.cuh, split.cuh;
-# rect_stage_kernel, split_stage_kernel, fold_stage_kernel and
-# mixed_stage_kernel by their ZERO argument, below) and the first forms'
-# head kernels, each with the half-sweep kernels that may continue its call
-# (a half-sweep that follows none heads a call of its own) and, for the
-# mixed-BC forms, the BC-pass kernel that ends it (the fold's first-form
-# K17 head is the half-sweep kernel with its FromZero argument true; the
-# full tier's first-form K14 head is K2's from-zero kernel, followed by
-# the mixed half-sweeps)
+# rect_stage_kernel, split_stage_kernel, fold_stage_kernel,
+# mixed_stage_kernel and msplit_stage_kernel by their ZERO argument, below)
+# and the first forms' head kernels, each with the half-sweep kernels that
+# may continue its call (a half-sweep that follows none heads a call of
+# its own; after a continuing kernel, those FIRST_FORM names for it, else
+# itself) and, for the mixed-BC forms, the BC-pass kernel that ends it (the
+# fold's first-form K17 head is the half-sweep kernel with its FromZero
+# argument true; the full tier's first-form K14 head is K2's from-zero
+# kernel, followed by the mixed half-sweeps; the msplit tier's first-form
+# K24 head is its red correction, not a half-sweep (HEAD_SWEEPS), followed
+# by the black correction's half-sweep and three more)
 STAGE_KERNELS = {"rect_prolong_stage_kernel": "K4", "split_prolong_stage_kernel": "K10",
                  "rb_half_sweep_from_zero_kernel": "K2", "prolong_correct_black_kernel": "K4",
                  "rb_half_sweep_kernel": "K1", "split_half_sweep_from_zero_kernel": "K8",
                  "split_half_sweep_kernel": "K7", "fold_prolong_stage_kernel": "K19",
                  "mixed_fold_prolong_correct_black_kernel": "K19",
                  "mixed_prolong_stage_kernel": "K15", "mixed_prolong_correct_black_kernel": "K15",
-                 "mixed_half_sweep_kernel": "K13"}
+                 "mixed_half_sweep_kernel": "K13", "msplit_prolong_stage_kernel": "K24",
+                 "msplit_prolong_correct_red_kernel": "K24",
+                 "msplit_half_sweep_from_zero_kernel": "K22", "msplit_half_sweep_kernel": "K21"}
 FIRST_FORM = {"rb_half_sweep_from_zero_kernel": ("rb_half_sweep_kernel",
                                                  "mixed_half_sweep_kernel"),
               "prolong_correct_black_kernel": ("rb_half_sweep_kernel",),
@@ -169,9 +174,15 @@ FIRST_FORM = {"rb_half_sweep_from_zero_kernel": ("rb_half_sweep_kernel",
               "mixed_fold_half_sweep_kernel": ("mixed_fold_half_sweep_kernel",),
               "mixed_fold_prolong_correct_black_kernel": ("mixed_fold_half_sweep_kernel",),
               "mixed_half_sweep_kernel": ("mixed_half_sweep_kernel",),
-              "mixed_prolong_correct_black_kernel": ("mixed_half_sweep_kernel",)}
+              "mixed_prolong_correct_black_kernel": ("mixed_half_sweep_kernel",),
+              "msplit_half_sweep_from_zero_kernel": ("msplit_half_sweep_kernel",),
+              "msplit_half_sweep_kernel": ("msplit_half_sweep_kernel",),
+              "msplit_prolong_correct_red_kernel": ("msplit_prolong_correct_black_kernel",),
+              "msplit_prolong_correct_black_kernel": ("msplit_half_sweep_kernel",)}
+HEAD_SWEEPS = {"msplit_prolong_correct_red_kernel": 0}  # half-sweeps a head counts (else 1)
 BC_PASS = {"mixed_fold_half_sweep_kernel": "mixed_fold_bc_pass_kernel",
-           "mixed_half_sweep_kernel": "mixed_bc_pass_kernel"}
+           "mixed_half_sweep_kernel": "mixed_bc_pass_kernel",
+           "msplit_half_sweep_kernel": "msplit_bc_pass_kernel"}
 
 
 def stage_label(name):
@@ -182,15 +193,19 @@ def stage_label(name):
     only); "K1|K2" where the trace drops the arguments.
     fold_stage_kernel<NITER, ZERO, BOX> is K17 where ZERO is true, else a
     later launch of a K17 or K19 call (n_iter > 2); mixed_stage_kernel
-    likewise K14, or a later launch of a K14 or K15 call; the first form's
-    mixed_fold_half_sweep_kernel<FromZero> heads K17 where true, K16
-    where false or without arguments (this form's K16)."""
+    likewise K14, or a later launch of a K14 or K15 call;
+    msplit_stage_kernel<NITER, VEC, ZERO> K22, or a later launch of a K22
+    or K24 call; the first form's mixed_fold_half_sweep_kernel<FromZero>
+    heads K17 where true, K16 where false or without arguments (this
+    form's K16)."""
     base, _, args = name.partition("<")
     args = [a.strip() for a in args.rstrip(">").split(",")] if args else []
     if base == "rect_stage_kernel":
         return ("K2" if args[1] == "true" else "K1") if len(args) > 1 else "K1|K2"
     if base == "split_stage_kernel":
         return "K8" if args[2:] == ["true"] else "K7"
+    if base == "msplit_stage_kernel":
+        return "K22" if args[2:] == ["true"] else "K22|K24"
     if base == "fold_stage_kernel":
         return ("K17" if args[1] == "true" else "K17|K19") if len(args) > 1 else "K17|K19"
     if base == "mixed_stage_kernel":
@@ -205,10 +220,11 @@ def stage_calls(intervals, sizes, n_smooth=2):
     its head kernel and the half-sweeps that follow it, 2 n_smooth kernels
     in all, and a mixed-BC form's BC pass after them (K2's from-zero head
     followed by the mixed half-sweeps is K14's first form); in the one-pass
-    form its one kernel. ``sizes`` maps (kernel name without its arguments,
-    shape) to the level's n (a shape without its shared memory where the
-    trace has none). Returns {"K4 n=257": [calls, summed ms, median ms a
-    call], ...}."""
+    form its one kernel (K24's first form: its red correction, the black
+    correction's half-sweep, three half-sweeps and the BC pass). ``sizes``
+    maps (kernel name without its arguments, shape) to the level's n (a
+    shape without its shared memory where the trace has none). Returns
+    {"K4 n=257": [calls, summed ms, median ms a call], ...}."""
     groups, sweep = [], None  # sweep: the half-sweep kernels that may continue the last call
     for a, b, name, grid in intervals:
         base = name.split("<")[0]
@@ -218,13 +234,13 @@ def stage_calls(intervals, sizes, n_smooth=2):
                 groups[-1][0] = (groups[-1][0][0], "K14")
             groups[-1][2].append((b - a) / 1e3)
             groups[-1][3] += 1
-            sweep = (base,)
+            sweep = FIRST_FORM.get(base, (base,))
         elif sweep and base == BC_PASS.get(sweep[0]) and groups[-1][3] == 2 * n_smooth:
             groups[-1][2].append((b - a) / 1e3)
             groups[-1][3] += 1
             sweep = None
         elif label:
-            groups.append([(base, label), grid, [(b - a) / 1e3], 1])
+            groups.append([(base, label), grid, [(b - a) / 1e3], HEAD_SWEEPS.get(base, 1)])
             sweep = FIRST_FORM.get(base)
         else:
             sweep = None
@@ -281,7 +297,9 @@ def _stage_sizes(hier, sms):
             add(name, -(-n * n * (n - 2) // 256), 0)
         for name in ("mixed_half_sweep_kernel", "mixed_prolong_correct_black_kernel"):
             add(name, -(-n ** 3 // 256), 0)
-        for name in ("split_half_sweep_from_zero_kernel", "split_half_sweep_kernel"):
+        for name in ("split_half_sweep_from_zero_kernel", "split_half_sweep_kernel",
+                     "msplit_half_sweep_from_zero_kernel", "msplit_half_sweep_kernel",
+                     "msplit_prolong_correct_red_kernel"):
             add(name, -(-n * n * ((n - 1) // 2) // 256), 0)
         for name, prolong, rect in (("rect_stage_kernel", False, True),
                                     ("rect_prolong_stage_kernel", True, True),
@@ -290,9 +308,12 @@ def _stage_sizes(hier, sms):
                                     ("mixed_stage_kernel", False, True),
                                     ("mixed_prolong_stage_kernel", True, True),
                                     ("split_stage_kernel", False, False),
-                                    ("split_prolong_stage_kernel", True, False)):
-            try:
-                plan = ps._stage_plan(n, 2, sms, prolong=prolong, rect=rect)
+                                    ("split_prolong_stage_kernel", True, False),
+                                    ("msplit_stage_kernel", False, None),
+                                    ("msplit_prolong_stage_kernel", True, None)):
+            try:  # rect None: the msplit plan
+                plan = (ps._stage_plan(n, 2, sms, prolong=prolong, msplit=True) if rect is None
+                        else ps._stage_plan(n, 2, sms, prolong=prolong, rect=rect))
             except (TypeError, AttributeError):  # a checkout without that one-pass stage
                 continue
             add(name, plan.blocks, plan.smem)

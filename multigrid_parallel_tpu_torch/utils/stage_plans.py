@@ -1,18 +1,22 @@
 """Time the rect stage kernels (K2's and K4's, ops/csrc/rect.cuh), with
 ``--fold`` the same stage on the electrospray's fold layout (K17's and
-K19's), with ``--mixed`` on its full layout (K14's and K15's), or, with
-``--restrict``, the streaming restriction stage (K3's
-and K9's, ops/csrc/restrict.cuh) on candidate plans at each level size on
-one card: the planner's own and plans of several block sizes, each held
-bit for bit against its plain version.
+K19's), with ``--mixed`` on its full layout (K14's and K15's), with
+``--msplit`` the split pair's mixed stage (K22's and K24's,
+ops/csrc/split.cuh with MIXED), or, with ``--restrict``, the streaming
+restriction stage (K3's and K9's, ops/csrc/restrict.cuh) on candidate
+plans at each level size on one card: the planner's own and plans of
+several block sizes, each held bit for bit against its plain version.
 
     python -m multigrid_parallel_tpu_torch.utils.stage_plans [--sizes 9 17 33 65 129]
                                                              [--reps 20]
-                                                             [--restrict | --fold | --mixed]
+                                                             [--restrict | --fold | --mixed
+                                                              | --msplit]
 
 For each size and kernel (K2 from zero, K4, both at n_iter 2; K17 and
 K19 likewise, with the electrospray's pins and coarse signs; K14 and K15
-with its pins; or K3 and K9) and plan, one JSON line: the plan, whether the output equals the
+with its pins; K22 and K24 with its pin packs and coarse signs, on the
+msplit planner's plan, K7's and K10's and wavefront plans of several
+block sizes; or K3 and K9) and plan, one JSON line: the plan, whether the output equals the
 plain version, and the median device time of ``reps`` launches from a
 torch.profiler trace (``utils.split_trace.kernel_intervals``). The numbers
 serve to tune ``pallas_split._stage_plan``'s choice between the wavefront
@@ -84,6 +88,91 @@ def mixed_launch(plan, r, pin, h, ec=None, e=None):
                                          r.data_ptr(), pin.data_ptr(), plan.n, h * h, *args)
     pk._check(err, "stage_plans")
     return out
+
+
+def msplit_launch(plan, r, packs, h, ec=None, e=None, sgn=None):
+    """One launch of K22's stage (from zero, red first) or, given ec,
+    K24's on ``plan``, into a fresh pair."""
+    out = [torch.empty_like(x) for x in r]
+    args = (plan.n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem,
+            pk._stream())
+    lib = pk._lib()
+    ptrs = [x.data_ptr() for x in out]
+    if ec is None:
+        err = lib.mg_msplit_stage(*ptrs, None, None, *(x.data_ptr() for x in r), packs.data_ptr(),
+                                  plan.n, h * h, 1, *args)
+    else:
+        err = lib.mg_msplit_prolong_stage(*ptrs, ec.data_ptr(), sgn.data_ptr(),
+                                          *(x.data_ptr() for x in (*e, *r)), packs.data_ptr(),
+                                          plan.n, h * h, *args)
+    pk._check(err, "stage_plans")
+    return out
+
+
+def split_wave(n, bi, bj, prolong, n_iter=2):
+    """A split wavefront plan of bi planes x bj rows (whole rows), or None
+    where it does not fit."""
+    s, halo = ps.split_shape(n)[2], 2 * n_iter
+    smem = ps._stage_smem(n_iter, bj, s, prolong)
+    if smem > ps.SMEM_MAX:
+        return None
+    threads = 32 * min(ps.STAGE_MAX_THREADS // 32, n, bj + 2 * halo)
+    return ps.StagePlan(n, n_iter, halo, 0, bi, bj, s, threads, smem)
+
+
+def split_candidates(n, prolong, sms):
+    """The msplit planner's plan (K22's, or K24's where ``prolong``), K7's
+    (K10's), and wavefront plans of other block sizes (up to 65^3, every
+    pair of a few small ones)."""
+    plans = {"planner": ps._stage_plan(n, 2, sms, prolong=prolong, msplit=True),
+             "k7_plan": ps._stage_plan(n, 2, sms, prolong=prolong)}
+    sizes = ((4, 4), (8, 4), (8, 8), (16, 4), (16, 8), (16, 12), (33, 8), (33, 12), (43, 10),
+             (65, 8))
+    if n <= 65:
+        sizes = [(bi, bj) for bi in (1, 2, 3, 4, 5, 6, 8) for bj in (1, 2, 3, 4, 6, 8, 9, 11)]
+    for bi, bj in sizes:
+        bi, bj = evened(n, bi), evened(n, bj)
+        plan = split_wave(n, bi, bj, prolong)
+        if plan is not None and plan not in plans.values():
+            plans[f"wave{bi}x{bj}"] = plan
+    return plans
+
+
+def time_msplit(n, sms, reps, dev):
+    """One JSON line a (kernel, plan) at level n: K22 from zero and K24 at
+    n_iter 2 on pairs random at every slot, with the electrospray's pin
+    packs and the coarse level's sign planes, each candidate's output
+    against the plain version and its median device time over ``reps``
+    launches from a trace of its own."""
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed_fold as pmf
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed_split as pms
+
+    es = mg.electrospray_problem()
+    h, nc = es.length / (n - 1), (n + 1) // 2
+    rng = np.random.default_rng(n)
+    e, r = ([torch.from_numpy(rng.standard_normal(ps.split_shape(n)).astype(np.float32)).to(dev)
+             for _ in range(2)] for _ in range(2))
+    ec = torch.from_numpy(rng.standard_normal((nc, nc, nc - 2)).astype(np.float32)).to(dev)
+    packs, sgn = pms.msplit_pin_packs(es, n, dev), pmf.fold_edge_sign_planes(es, nc, dev)
+    stages = {"K22": (lambda plan: msplit_launch(plan, r, packs, h),
+                      lambda: pms.mixed_rb_smooth_from_zero_msplit_plain(*r, packs, h, 2)),
+              "K24": (lambda plan: msplit_launch(plan, r, packs, h, ec, e, sgn),
+                      lambda: pms.mixed_prolong_smooth_msplit_plain(ec, *e, *r, packs, sgn, h,
+                                                                    2))}
+    for (kernel, (launch_on, plain)), prolong in zip(stages.items(), (False, True)):
+        want = plain()
+        for label, plan in split_candidates(n, prolong, sms).items():
+            exact = all(torch.equal(g, w) for g, w in zip(launch_on(plan), want))
+            torch.cuda.synchronize()
+            times = [(b - a) / 1e3 for a, b, name, *_ in
+                     kernel_intervals(lambda: [launch_on(plan) for _ in range(reps)])
+                     if name.startswith("msplit_")]
+            print(json.dumps({"n": n, "kernel": kernel, "plan": label, "bi": plan.bi,
+                              "bj": plan.bj, "blocks": plan.blocks, "threads": plan.threads,
+                              "smem": plan.smem, "exact": exact,
+                              "device_ms": statistics.median(times) if times else None}),
+                  flush=True)
 
 
 def box(n, bi, bj, prolong, n_iter=2):
@@ -251,6 +340,8 @@ def main(argv=None) -> int:
                        help="time K17's and K19's fold stages instead")
     group.add_argument("--mixed", action="store_true",
                        help="time K14's and K15's full-layout mixed stages instead")
+    group.add_argument("--msplit", action="store_true",
+                       help="time K22's and K24's mixed stages on the split pair instead")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("stage_plans: needs a CUDA device")
@@ -262,6 +353,10 @@ def main(argv=None) -> int:
     if args.restrict:
         for n in args.sizes:
             time_restrict(n, sms, args.reps, dev)
+        return 0
+    if args.msplit:
+        for n in args.sizes:
+            time_msplit(n, sms, args.reps, dev)
         return 0
     if args.fold or args.mixed:
         for n in args.sizes:

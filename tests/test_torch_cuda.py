@@ -22,8 +22,9 @@ the streaming restriction stages K3 and K9 against theirs at
 9^3-513^3 on NaN-poisoned outputs and on hand plans (one launch a call),
 and the one-pass fold stages K17 and K19 against theirs at 9^3-513^3
 and on hand plans, with the electrospray's pins and random ones, on
-NaN-poisoned outputs (one launch a call), and the one-pass full-layout
-mixed stages K14 and K15 likewise.
+NaN-poisoned outputs (one launch a call), the one-pass full-layout
+mixed stages K14 and K15 likewise, and the one-pass msplit stages K22 and
+K24 on the split pair likewise.
 
 These need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 themselves where there is none. The file imports no jax, so on a machine
@@ -1188,12 +1189,138 @@ def test_msplit_kernels_match_plain_on_card(cuda, n):
     want = tpms.residual_df_norm_msplit_plain(*state, h)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert float(got[2]) == pytest.approx(float(want[2]), rel=1e-5)
-    # per pin, n_iter 1 and 2: K21 2 orders x (2 n_iter + 1); K22 2 n_iter + 1; K24 2 n_iter + 2
+    # per pin, n_iter 1 and 2: K21 2 orders x (2 n_iter + 1); K22 and K24 one launch a call
     assert tpms.LAUNCHES == {"mixed_rb_smooth_msplit": 2 * 2 * (3 + 5),
-                             "mixed_rb_smooth_from_zero_msplit": 2 * (3 + 5),
+                             "mixed_rb_smooth_from_zero_msplit": 2 * (1 + 1),
                              "residual_restrict_msplit": 2,
-                             "mixed_prolong_smooth_msplit": 2 * (4 + 6),
+                             "mixed_prolong_smooth_msplit": 2 * (1 + 1),
                              "residual_df_norm_msplit": 1}
+
+
+def _msplit_pins(kind, n, dev, rng):
+    """(parity pin packs (2, 2, n, S), coarse sign planes (2, nc, nc - 2)):
+    the electrospray's, or a random patch mask and random signs in {-1, 0,
+    1} (nonzero at the k-edge columns K24 reads)."""
+    nc = (n + 1) // 2
+    if kind == "electrospray":
+        prob = tmg.electrospray_problem()
+        return tpms.msplit_pin_packs(prob, n, dev), tpmf.fold_edge_sign_planes(prob, nc, dev)
+    mask = torch.from_numpy((rng.random((2, n, n)) < 0.3).astype(np.float32)).to(dev)
+    sgn = torch.from_numpy(rng.integers(-1, 2, (2, nc, nc - 2)).astype(np.float32)).to(dev)
+    return tpms.msplit_plane_packs(mask), sgn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [9, 17, 33, 65, 129, 257, 513])
+def test_k22_k24_stages_match_plain_on_card(cuda, n):
+    """The one-pass msplit stages K22 and K24 bit for bit against their
+    plain versions (257: the main path's plans; 513: k tiles at n_iter
+    2), n_iter 1-3, both orders of K22, with the electrospray's pins and
+    random ones and nonzero coarse signs, on pairs random at every slot
+    (dead slots and boundary rows too) and the allocator poisoned with NaN
+    first, so that a slot left unwritten shows; one launch a call at
+    n_iter <= 2, two at 3, and no other kernel counted; fresh pairs, the
+    inputs left as they were."""
+    h = 3e-4 / (n - 1)
+    nc = (n + 1) // 2
+    rng = np.random.default_rng(150 + n)
+    e, r = _random_pairs(150 + n, n, cuda, 2)
+    ec = torch.from_numpy(rng.standard_normal((nc, nc, nc - 2)).astype(np.float32)).to(cuda)
+    if n == 513:
+        assert tps._stage_plan(n, 2, tps._sms(torch.cuda.current_device())).k_halo > 0
+    shape = tps.split_shape(n)
+    for kind in ("electrospray", "random"):
+        packs, sgn_c = _msplit_pins(kind, n, cuda, rng)
+        assert bool(sgn_c.any()) == (kind == "random" or nc <= 17)
+        inputs = (*e, *r, ec, packs, sgn_c)
+        before = [x.clone() for x in inputs]
+        for n_iter in (1, 2, 3):
+            calls = 1 if n_iter <= 2 else 2
+            for red_first in (True, False):
+                want = tpms.mixed_rb_smooth_from_zero_msplit_plain(*r, packs, h, n_iter,
+                                                                   red_first)
+                _poison_allocator(shape, cuda)
+                tpms.reset_launches()
+                got = tpms.mixed_rb_smooth_from_zero_msplit(*r, packs, h, n_iter, red_first)
+                assert tpms.LAUNCHES == {**dict.fromkeys(tpms.KERNELS, 0),
+                                         "mixed_rb_smooth_from_zero_msplit": calls}
+                assert _bitwise_pair(got, want), (kind, n_iter, red_first)
+            want = tpms.mixed_prolong_smooth_msplit_plain(ec, *e, *r, packs, sgn_c, h, n_iter)
+            _poison_allocator(shape, cuda)
+            tpms.reset_launches()
+            got = tpms.mixed_prolong_smooth_msplit(ec, *e, *r, packs, sgn_c, h, n_iter)
+            assert tpms.LAUNCHES == {**dict.fromkeys(tpms.KERNELS, 0),
+                                     "mixed_prolong_smooth_msplit": calls}
+            torch.cuda.synchronize()
+            assert not {g.data_ptr() for g in got} & {x.data_ptr() for x in inputs}
+            assert _bitwise_pair(got, want), (kind, n_iter)
+        assert all(torch.equal(a, b) for a, b in zip(inputs, before))
+
+
+def _msplit_stage_on_plan(plan, r, packs, h, red_first=True, e=None, ec=None, sgn=None):
+    """One launch of the msplit stage (K22's from zero, or on the pair e)
+    or, given ec, of K24's (on e) on a plan of the caller's, into a fresh
+    pair; the launcher's error code and the pair."""
+    out = tuple(torch.empty_like(x) for x in r)
+    args = (plan.n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem,
+            tpk._stream())
+    lib = tpk._lib()
+    ptrs = [x.data_ptr() for x in out]
+    if ec is None:
+        loaded = (None, None) if e is None else tuple(x.data_ptr() for x in e)
+        err = lib.mg_msplit_stage(*ptrs, *loaded, *(x.data_ptr() for x in r), packs.data_ptr(),
+                                  plan.n, h * h, int(red_first), *args)
+    else:
+        err = lib.mg_msplit_prolong_stage(*ptrs, ec.data_ptr(), sgn.data_ptr(),
+                                          *(x.data_ptr() for x in (*e, *r)), packs.data_ptr(),
+                                          plan.n, h * h, *args)
+    return err, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bk", [0, 4, 12])
+@pytest.mark.parametrize("n", [9, 17, 33, 35])
+def test_msplit_stages_on_hand_plans_on_card(cuda, n, bk):
+    """K22's stage (from zero and on a loaded pair) and K24's on plans of
+    several blocks in i, j and k: 8 rows by 9 planes, and 1 row by 1 plane
+    (whose x- and y-face rows its source's block writes), whole rows (bk =
+    0; n = 35: a row's 17 slots not a multiple of 4, the 4-byte path) and
+    k tiles of 4 or 12 slots with the 4-slot k halo; random pins and
+    signs, pairs random everywhere, the allocator poisoned with NaN: bit
+    for bit against the plain versions; a plan whose shared memory is not
+    the kernel's is refused."""
+    h = 3e-4 / (n - 1)
+    s, nc = tps.split_shape(n)[2], (n + 1) // 2
+    if bk >= s:
+        pytest.skip("a k tile as wide as the row is the whole-row plan")
+    rng = np.random.default_rng(170 + n + bk)
+    e, r = _random_pairs(170 + n + bk, n, cuda, 2)
+    ec = torch.from_numpy(rng.standard_normal((nc, nc, nc - 2)).astype(np.float32)).to(cuda)
+    packs, sgn = _msplit_pins("random", n, cuda, rng)
+    shape = tps.split_shape(n)
+    for bi, bj in ((9, 8), (1, 1)):
+        for n_iter in (1, 2):
+            halo, k_halo = 2 * n_iter, tps.STAGE_K_HALO if bk else 0
+            width = bk + 2 * k_halo if bk else s
+            plan = tps.StagePlan(n, n_iter, halo, k_halo, bi, bj, bk or s,
+                                 32 * min(20, bj + 2 * halo), tps._stage_smem(n_iter, bj, width))
+            assert plan.blocks > 1 and plan.tiles[2] == (-(-s // bk) if bk else 1)
+            for red_first in (True, False):
+                _poison_allocator(shape, cuda)
+                err, got = _msplit_stage_on_plan(plan, r, packs, h, red_first)
+                assert err == 0 and _bitwise_pair(got, tpms.mixed_rb_smooth_from_zero_msplit_plain(
+                    *r, packs, h, n_iter, red_first)), (bi, n_iter, red_first)
+                err, got = _msplit_stage_on_plan(plan, r, packs, h, red_first, e=e)
+                assert err == 0 and _bitwise_pair(got, tpms.mixed_rb_smooth_msplit_plain(
+                    *e, *r, packs, h, n_iter, red_first)), (bi, n_iter, red_first)
+            k24 = plan._replace(smem=tps._stage_smem(n_iter, bj, width, prolong=True))
+            _poison_allocator(shape, cuda)
+            err, got = _msplit_stage_on_plan(k24, r, packs, h, e=e, ec=ec, sgn=sgn)
+            want = tpms.mixed_prolong_smooth_msplit_plain(ec, *e, *r, packs, sgn, h, n_iter)
+            assert err == 0 and _bitwise_pair(got, want), (bi, n_iter)
+            assert _msplit_stage_on_plan(plan._replace(smem=plan.smem + 16), r, packs, h)[0] != 0
+            assert _msplit_stage_on_plan(k24._replace(smem=k24.smem + 16), r, packs, h, e=e,
+                                         ec=ec, sgn=sgn)[0] != 0
 
 
 @pytest.mark.cuda

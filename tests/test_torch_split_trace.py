@@ -2,7 +2,8 @@
 on hand-made kernel intervals (the profiler itself needs a card): busy
 time as the union of intervals, the span, per-name sums and counts, and
 the device idle just before each kernel name, and each smoothing
-stage's calls by level."""
+stage's calls by level (the one-pass forms and the first forms, the
+msplit tier's K21, K22 and K24 among them)."""
 
 import pytest
 
@@ -147,6 +148,47 @@ def test_stage_calls_group_the_full_tier_stages():
                    "K14 n=33": [1, pytest.approx(0.003), pytest.approx(0.003)],
                    "K15 n=33": [1, pytest.approx(0.005), pytest.approx(0.005)],
                    "K2 n=65": [1, pytest.approx(0.007), pytest.approx(0.007)]}
+
+
+def test_stage_calls_group_the_msplit_stages():
+    """The electrospray split tier's finest-level stages: a first-form K22
+    call is its from-zero half-sweep, the three half-sweeps after it and
+    the BC pass, K24's its red correction (no half-sweep), the black
+    correction's half-sweep, three half-sweeps and the BC pass, K21's four
+    half-sweeps and the BC pass; the one-pass K22 (msplit_stage_kernel
+    with ZERO true) and K24 one kernel a call, by level from their plans,
+    a loaded msplit stage launch a later launch of a K22 or K24 call; the
+    names demangled or mangled."""
+    from multigrid_parallel_tpu_torch.hierarchy import Hierarchy
+    from multigrid_parallel_tpu_torch.ops import pallas_split as tps
+
+    assert (st.short_name("_ZN12_GLOBAL__N_119msplit_stage_kernelILi2ELb1ELb1EEEvN2mg5split9Stage"
+                          "ArgsE") == "msplit_stage_kernel<2, true, true>")
+    assert (st.short_name("void (anonymous namespace)::msplit_prolong_stage_kernel<1, false>(mg::"
+                          "split::StageArgs, (anonymous namespace)::MsplitProlongPrep)")
+            == "msplit_prolong_stage_kernel<1, false>")
+    sizes = st._stage_sizes(Hierarchy(ndim=3, coarse_n=5, num_levels=5), 132)
+    g = (-(-65 * 65 * 32 // 256), 1, 1, 0)
+    half = [(10 * i, 10 * i + 2, "msplit_half_sweep_kernel", g) for i in range(1, 11)]
+    bc = [(10 * i + 5, 10 * i + 6, "msplit_bc_pass_kernel", (1, 1, 1, 0)) for i in (3, 7, 10)]
+    k22 = tps._stage_plan(65, 2, 132, msplit=True)
+    k24 = tps._stage_plan(65, 2, 132, prolong=True, msplit=True)
+    intervals = sorted([(0, 4, "msplit_half_sweep_from_zero_kernel", g)] + half[:3] + [bc[0]]
+                       + half[3:7] + [bc[1]]
+                       + [(76, 77, "msplit_prolong_correct_red_kernel", g),
+                          (78, 79, "msplit_prolong_correct_black_kernel", g)]
+                       + half[7:10] + [bc[2]]
+                       + [(200, 203, "msplit_stage_kernel<2, true, true>",
+                           (k22.blocks, 1, 1, k22.smem)),
+                          (210, 215, "msplit_prolong_stage_kernel<2, true>",
+                           (k24.blocks, 1, 1, k24.smem)),
+                          (220, 222, "msplit_stage_kernel<1, true, false>",
+                           (k22.blocks, 1, 1))])
+    got = st.stage_calls(intervals, sizes)
+    assert got == {"K22 n=65": [2, pytest.approx(0.014), pytest.approx(0.007)],
+                   "K21 n=65": [1, pytest.approx(0.009), pytest.approx(0.009)],
+                   "K24 n=65": [2, pytest.approx(0.014), pytest.approx(0.007)],
+                   "K22|K24 n=65": [1, pytest.approx(0.002), pytest.approx(0.002)]}
 
 
 def test_restrict_calls_by_level_for_both_forms():
