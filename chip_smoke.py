@@ -52,7 +52,10 @@ which fails the run:
      version; K1, K2 and K4 (one-pass stages) once more at 129^3, n_iter
      1-3, K2 and K4 timed at n_iter 2 beside the bound from the bytes a
      call needs; K17 and K19 (one-pass fold stages) bit for bit at 65^3,
-     257^3 and, with the pin-edge delta, 17^3; K14 and K15 (one-pass
+     257^3 and, with the pin-edge delta, 17^3; K16 (the fold stage on a
+     loaded field) bit for bit at 65^3 and 257^3, one launch a call at
+     n_iter <= 2; K18 bit for bit at 17^3 and 65^3 (its first form) and
+     257^3 (the streaming stage); K14 and K15 (one-pass
      full-layout mixed stages) bit for bit at 17^3, 65^3 and 257^3; K22
      and K24 (one-pass msplit stages) bit for bit at 17^3 (K24 with the
      pin-edge delta), 65^3 and 257^3;
@@ -86,7 +89,7 @@ which fails the run:
   7. the electrospray 257^3 solve on the fold tier, launches reset and
      read around it: only K16-K20 launched, K16, K17 and K19 exactly as
      many times as the fold cycle's calls in that many outer steps need
-     (K17 and K19 one launch a call, K16 2 n_smooth + 1), the full tier's
+     (one launch a call each), the full tier's
      outer-step count, max|u_fold - u_full| <= 1e-7 max|u|; then the fold
      and full walls interleaved run by run (9 each), the device-busy time
      of one traced solve of each, and K16, K17 and K19's device time a
@@ -864,6 +867,13 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
     return results
 
 
+def launched(mod, name, fn):
+    """fn()'s result and the launches of ``mod``'s kernel ``name`` it made."""
+    before = mod.LAUNCHES[name]
+    out = fn()
+    return out, mod.LAUNCHES[name] - before
+
+
 def compare_fold(pm, pmf, es, n, h, u, r, ec, es_state, dev, record, timed):
     """K16-K20 against their plain versions at size n: the fold fields
     packed from u after a BC pass (the cycle's fields are BC-consistent)
@@ -871,7 +881,10 @@ def compare_fold(pm, pmf, es, n, h, u, r, ec, es_state, dev, record, timed):
     coarse level's BC pass, K19 with the coarse level's sign planes (zero
     at 33^3 and above in this geometry), K20 on the packed double-float
     state es_state (skipped when None). Timed at n_iter = 2 when
-    ``timed``. K17 and K19, one-pass stages, bit for bit."""
+    ``timed``, else (17^3) K19's delta check and K18 only. K16, K17 and
+    K19, one-pass stages, bit for bit, K16 one launch a call at n_iter <=
+    2 and e left as it is; K18, a launch a call on either of its forms,
+    bit for bit."""
     nc = (n + 1) // 2
     pin_full = pm.dirichlet_pin_planes(es, n, dev)
     pin = pmf.pack_fold(pin_full)
@@ -880,26 +893,39 @@ def compare_fold(pm, pmf, es, n, h, u, r, ec, es_state, dev, record, timed):
     sgn = pmf.fold_edge_sign_planes(es, nc, dev)
     points = n * n * (n - 2)
     check(bool(sgn.any()) == (nc <= 17), f"fold sign planes at {nc}^3: nonzero={bool(sgn.any())}")
-    if not timed:  # the delta check only
+
+    def restrict(label, times=()):
+        rc, calls = launched(pmf, "residual_restrict_fold",
+                             lambda: pmf.residual_restrict_fold(fe, fr, h))
+        check(calls == 1, f"residual_restrict_fold n={n}: {calls} launches a call")
+        form = "stage" if n >= pmf.ps.FOLD_RESTRICT_STAGE_MIN_N else "first_form"
+        record("residual_restrict_fold", n, f"{form}{label}", rc,
+               pmf.residual_restrict_fold_plain(fe, fr, h), *times, io=((fe, fr), (rc,)),
+               points=points, bitwise=True)
+
+    if not timed:  # the delta check and K18's first form
         for n_iter in (1, 2):
             record("mixed_prolong_smooth_fold", n, f"n_iter={n_iter}_delta",
                    pmf.mixed_prolong_smooth_fold(fec, fe, fr, pin, sgn, h, n_iter),
                    pmf.mixed_prolong_smooth_fold_plain(fec, fe, fr, pin, sgn, h, n_iter),
                    bitwise=True)
+        restrict("")
         return
+    e0 = fe.clone()
     for n_iter in (1, 2):
         t2 = n_iter == 2  # the main path's n_smooth
         for red_first in (True, False):
             times = ()
             if t2 and red_first:
-                fk = fe.clone()
-                times = (time_ms(lambda: pmf.mixed_rb_smooth_fold(fk, fr, pin, h, 2)),
+                times = (time_ms(lambda: pmf.mixed_rb_smooth_fold(fe, fr, pin, h, 2)),
                          time_ms(lambda: pmf.mixed_rb_smooth_fold_plain(fe, fr, pin, h, 2)))
+            got, calls = launched(pmf, "mixed_rb_smooth_fold", lambda: pmf.mixed_rb_smooth_fold(
+                fe, fr, pin, h, n_iter, red_first))
+            check(calls == 1, f"mixed_rb_smooth_fold n={n}: {calls} launches a call")
             record("mixed_rb_smooth_fold", n,
-                   f"n_iter={n_iter}_" + ("red_first" if red_first else "black_first"),
-                   pmf.mixed_rb_smooth_fold(fe.clone(), fr, pin, h, n_iter, red_first),
+                   f"n_iter={n_iter}_" + ("red_first" if red_first else "black_first"), got,
                    pmf.mixed_rb_smooth_fold_plain(fe, fr, pin, h, n_iter, red_first), *times,
-                   io=((fe, fr, pin), (fe,)), points=points)
+                   io=((fe, fr, pin), (got,)), points=points, bitwise=True)
         got = pmf.mixed_rb_smooth_from_zero_fold(fr, pin, h, n_iter)
         times = ()
         if t2:
@@ -917,11 +943,10 @@ def compare_fold(pm, pmf, es, n, h, u, r, ec, es_state, dev, record, timed):
         record("mixed_prolong_smooth_fold", n, f"n_iter={n_iter}", got,
                pmf.mixed_prolong_smooth_fold_plain(fec, fe, fr, pin, sgn, h, n_iter), *times,
                io=((fec, fe, fr, pin, sgn), (got,)), points=points, bitwise=True)
-    rc = pmf.residual_restrict_fold(fe, fr, h)
-    times = (time_ms(lambda: pmf.residual_restrict_fold(fe, fr, h)),
-             time_ms(lambda: pmf.residual_restrict_fold_plain(fe, fr, h)))
-    record("residual_restrict_fold", n, "", rc, pmf.residual_restrict_fold_plain(fe, fr, h),
-           *times, io=((fe, fr), (rc,)), points=points)
+    torch.cuda.synchronize()
+    check(torch.equal(fe, e0), f"mixed_rb_smooth_fold n={n}: e changed")
+    restrict("", (time_ms(lambda: pmf.residual_restrict_fold(fe, fr, h)),
+                  time_ms(lambda: pmf.residual_restrict_fold_plain(fe, fr, h))))
     state = [pmf.pack_fold(t) for t in es_state]
     r20, nrm2 = pmf.residual_df_norm_fold(*state, h)
     r_ref, nrm2_ref = pmf.residual_df_norm_fold_plain(*state, h)
@@ -1175,8 +1200,10 @@ def fold_257(es, dev, card, launches, full):
               f"fold: kernel {name} launched {counts[name]} times in the {n}^3 solve")
         launches[name] += counts[name]
     top = solver.hier.num_levels - 1
-    check_stage_launches(counts, cycle_calls(solver, top, True, new_calls(FOLD_STAGES)), it,
-                         solver.n_smooth, f"{n}^3 electrospray fold", FOLD_STAGES)
+    calls = cycle_calls(solver, top, True, new_calls(FOLD_STAGES))
+    check_stage_launches(counts, calls, it, solver.n_smooth, f"{n}^3 electrospray fold",
+                         FOLD_STAGES)
+    check_fold_restrict_launches(counts, calls, it, f"{n}^3 electrospray fold")
     solve = lambda: run(*state)  # noqa: E731
     interleave({"fold": solve, "full": solve_full}, f"{n}^3 electrospray", card)
     print_device_time({"fold": solve, "full": solve_full}, f"{n}^3 electrospray", card)
@@ -1185,9 +1212,11 @@ def fold_257(es, dev, card, launches, full):
 
 
 # each mixed-BC cycle's smoothing stages: where a level's correction is
-# revisited (K13, K16; first form, 2 n_smooth + 1 launches a call), entered
-# from zero (K14, K17) and the prolongation (K15, K19), one-pass stages of
-# ceil(n_smooth / 2) launches a call, in that order
+# revisited (K13, K16), entered from zero (K14, K17) and the prolongation
+# (K15, K19), in that order; one-pass stages of ceil(n_smooth / 2) launches
+# a call, but for the revisit stages still in their first form
+# (PER_SWEEP_STAGES: 2 n_smooth + 1 launches a call, a half-sweep each and
+# the BC pass)
 FULL_STAGES = {"K13": "mixed_rb_smooth_fused", "K14": "mixed_rb_smooth_from_zero_fused",
                "K15": "mixed_prolong_smooth_fused"}
 FOLD_STAGES = {"K16": "mixed_rb_smooth_fold", "K17": "mixed_rb_smooth_from_zero_fold",
@@ -1197,6 +1226,7 @@ FOLD_STAGES = {"K16": "mixed_rb_smooth_fold", "K17": "mixed_rb_smooth_from_zero_
 # took 2 n_smooth + 1 and 2 n_smooth + 2 launches a call)
 MSPLIT_STAGES = {"K21": "mixed_rb_smooth_msplit", "K22": "mixed_rb_smooth_from_zero_msplit",
                  "K24": "mixed_prolong_smooth_msplit"}
+PER_SWEEP_STAGES = ("K13", "K21")
 
 
 def new_calls(stages):
@@ -1224,15 +1254,14 @@ def cycle_calls(solver, level, from_zero, calls):
 
 def check_stage_launches(counts, calls, steps, n_smooth, what, stages, first_forms=None):
     """A mixed cycle's stage launches in a solve of ``steps`` outer steps,
-    ``calls`` those of one step: the one-pass stages (from zero and the
-    prolongation) one launch per two iterations a call, the revisit stage
+    ``calls`` those of one step: the one-pass stages one launch per two
+    iterations a call, a revisit stage in its first form (PER_SWEEP_STAGES)
     2 n_smooth + 1 (a launch a half-sweep and the BC pass), each exactly;
     printed beside the first forms' launches a call (``first_forms`` by
     stage, else 2 n_smooth + 1)."""
-    revisit = next(iter(stages))
     chunks = -(-n_smooth // 2)
     first = {k: 2 * n_smooth + 1 for k in stages} | (first_forms or {})
-    per_call = {k: first[k] if k == revisit else chunks for k in stages}
+    per_call = {k: first[k] if k in PER_SWEEP_STAGES else chunks for k in stages}
     for key, name in stages.items():
         want = steps * calls[key] * per_call[key]
         check(counts[name] == want, f"{what}: {name} launched {counts[name]} times, expected "
@@ -1242,7 +1271,18 @@ def check_stage_launches(counts, calls, steps, n_smooth, what, stages, first_for
           + "; ".join(f"{k}: {steps * calls[k]} calls, {counts[name]} launches (first form "
                       f"{steps * calls[k] * first[k]})" for k, name in stages.items())
           + f" | {fewer} launches fewer than the first forms of "
-          + " and ".join(k for k in stages if k != revisit))
+          + ", ".join(k for k in stages if k not in PER_SWEEP_STAGES))
+
+
+def check_fold_restrict_launches(counts, calls, steps, what):
+    """K18 in a solve of ``steps`` outer steps: one launch a call, a call
+    each fold-cycle level visit, as many as K19's (``calls``: one step's,
+    keyed as FOLD_STAGES), exactly."""
+    want = steps * calls["K19"]
+    got = counts["residual_restrict_fold"]
+    check(got == want, f"{what}: residual_restrict_fold launched {got} times, expected {want} "
+          f"({steps} outer steps x {calls['K19']} calls)")
+    print(f"[launches {what} K18] {got} launches, {steps * calls['K19']} calls")
 
 
 def print_stage_times(solve, solver, what, card, stages):
@@ -1324,6 +1364,7 @@ def msplit_257(es, dev, card, launches, fold):
         cycle_calls(solver, below, False, calls)
     check_stage_launches(counts, calls, it, solver.n_smooth, f"{n}^3 electrospray msplit",
                          FOLD_STAGES)
+    check_fold_restrict_launches(counts, calls, it, f"{n}^3 electrospray msplit")
     # the finest level: one cycle an outer step, entered from zero (inner_cycles 1)
     check_stage_launches(counts, {"K21": 0, "K22": 1, "K24": 1}, it, solver.n_smooth,
                          f"{n}^3 electrospray msplit finest", MSPLIT_STAGES,

@@ -230,7 +230,7 @@ def _make_mixed_descend_fold(solver: MixedBCSolver, hier32: Hierarchy):
     K18, the coarse recursion (revisits as the full tier), K19 with the
     coarse level's ``_edge_sign_planes``. Level 0 is the full tier's
     coarse32 between ``fold_to_full_rhs`` and ``full_to_fold``. A given e
-    is updated in place by the pre-smoother."""
+    is left as it is: the pre-smoother returns a fresh field."""
     n_smooth = solver.n_smooth
     pins = [pmf.fold_pin_planes(solver.problem, n, solver.device) for n in hier32.sizes]
     sgns = [_edge_sign_planes(solver, lvl) for lvl in range(hier32.num_levels)]

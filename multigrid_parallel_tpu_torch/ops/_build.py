@@ -81,9 +81,8 @@ _SIGNATURES = {
     # the pins after the fields
     "mg_mixed_stage": (_P,) * 4 + (_I, _F, _I, _I) + (_I,) * 7 + (_P,),
     "mg_mixed_prolong_stage": (_P,) * 5 + (_I, _F, _I) + (_I,) * 7 + (_P,),
-    "mg_mixed_fold_half_sweep": (_P, _P, _P, _I, _F, _I, _P),
-    "mg_mixed_fold_bc_pass": (_P, _P, _I, _P),
     "mg_residual_restrict_fold": (_P, _P, _P, _I, _F, _P),
+    "mg_fold_residual_restrict": (_P, _P, _P, _I, _F) + (_I,) * 6 + (_P,),
     # the fold stages (rect.cuh, kFold): the rect stages' arguments with the pins
     # (and K19's coarse sign planes) after the fields
     "mg_fold_stage": (_P,) * 4 + (_I, _F, _I, _I) + (_I,) * 7 + (_P,),

@@ -1,9 +1,8 @@
 // Shared pieces of the mixed-BC (electrospray) kernels: K13-K15
 // (mixed_rb_smooth.cu, mixed_prolong_smooth.cu) on (n, n, n) contiguous
-// f32 correction fields, K21-K25 on split pairs (msplit.cuh), and K16-K20
-// (mixed_rb_smooth_fold.cu, residual_restrict_fold.cu,
-// mixed_prolong_smooth_fold.cu, residual_df_norm_fold.cu) on the same
-// fields in the FOLD layout:
+// f32 correction fields, K21-K25 on split pairs (msplit.cuh), and K18 and
+// K20 (residual_restrict_fold.cu, residual_df_norm_fold.cu; K16, K17 and
+// K19 run rect.cuh's fold stage) on the same fields in the FOLD layout:
 // (n, n, n - 2), stored slot kk holding grid plane k = kk + 1. The fold
 // stores no k face: the BC makes each k-face node a copy of its stored
 // neighbour, so a folded read returns the reader's own value.
@@ -35,7 +34,6 @@ struct PinAt {
 };
 
 __device__ inline PinAt full_pins(const float* pin, int n) { return {pin, n, n, 0}; }
-__device__ inline PinAt fold_pins(const float* pin, int n) { return {pin, n, n - 2, 1}; }
 
 __device__ inline bool pinned(const PinAt& pin, int i, int j, int k, int n) {
   if (i == 0) return pin(0, j, k);
@@ -103,14 +101,5 @@ __device__ inline bool decode_fold(int p, int n, int& i, int& j, int& k) {
 __device__ inline bool is_interior_ij(int i, int j, int n) {
   return i >= 1 && i <= n - 2 && j >= 1 && j <= n - 2;
 }
-
-// A fold field read at grid point (i, j, k), 1 <= k <= n-2.
-struct FoldAt {
-  const float* u;
-  int n;
-  __device__ float operator()(int i, int j, int k) const {
-    return u[(i * n + j) * (n - 2) + k - 1];
-  }
-};
 
 }  // namespace mg

@@ -17,17 +17,26 @@
 // compiler's sum order.) Coarse points on the x and y faces are 0; every
 // stored coarse k is interior.
 //
-// One thread per stored coarse point, k fastest; its 27 fine residuals
-// lie on the fine interior, 216 loads mostly from L1/L2, as K3. Bound:
-// device-memory bytes, 8 B per stored fine point (e and r read once)
-// plus 4 B per coarse point written.
+// Two forms, one launch a call each, both bit for bit the plain version:
+// - the streaming stage (restrict.cuh's Fold layout, on the plan of
+//   pallas_split._restrict_plan): e and r through rings in shared memory,
+//   each fine residual computed once, the i taps' partial sums in
+//   registers, only the coarse RHS written; the levels from
+//   pallas_split.FOLD_RESTRICT_STAGE_MIN_N up, where it is the faster.
+// - the first form below that: one thread per stored coarse point, k
+//   fastest; its 27 fine residuals lie on the fine interior, 216 loads
+//   mostly from L1/L2, as K3's first form. On a small level a launch is
+//   latency: the stage's prologue and 2 bci + 1 barrier steps cost more
+//   than the loads they save.
+// Bound: device-memory bytes, 8 B per stored fine point (e and r read
+// once) plus 4 B per coarse point written.
 #include "mixed.cuh"
+#include "restrict.cuh"
 
 namespace {
 
-__device__ inline float tap3(float a, float b, float c) {
-  return (0.25f * a + 0.5f * b) + 0.25f * c;
-}
+using mg::restriction::Args;
+using mg::restriction::tap3;
 
 __global__ void residual_restrict_fold_kernel(float* __restrict__ out,
                                               const float* __restrict__ e,
@@ -72,11 +81,32 @@ __global__ void residual_restrict_fold_kernel(float* __restrict__ out,
   out[q] = tap3(y[0], y[1], y[2]);
 }
 
+template <int C>
+__global__ void __launch_bounds__(mg::restriction::kMaxThreads, 2) fold_restrict_kernel(Args a) {
+  extern __shared__ __align__(16) float tile[];
+  mg::restriction::restrict_body<mg::restriction::Fold, C>(a, tile);
+}
+
 }  // namespace
 
+// The first form: out <- the coarse fold RHS of (e, r), one thread a
+// stored coarse point.
 extern "C" int mg_residual_restrict_fold(float* out, const float* e, const float* r,
                                          int n, float inv_h2, cudaStream_t stream) {
   residual_restrict_fold_kernel<<<mg::fold_blocks((n + 1) / 2), mg::kThreads, 0,
                                   stream>>>(out, e, r, n, inv_h2);
   return (int)cudaGetLastError();
+}
+
+// The streaming stage: out <- the coarse fold RHS of (e, r) on the plan
+// (bci, bcj, bck, chunks, threads, smem) of pallas_split._restrict_plan
+// (fold); out must not alias e or r.
+extern "C" int mg_fold_residual_restrict(float* out, const float* e, const float* r, int n,
+                                         float inv_h2, int bci, int bcj, int bck, int chunks,
+                                         int threads, int smem, cudaStream_t stream) {
+  using namespace mg::restriction;
+  const Args a{out, {e, nullptr}, {r, nullptr}, n, inv_h2, bci, bcj, bck, 0};
+  if (const int err = plan_error(a, false, chunks, threads, smem)) return err;
+  return chunks == 1 ? launch(fold_restrict_kernel<1>, a, threads, smem, stream)
+                     : launch(fold_restrict_kernel<kMaxChunks>, a, threads, smem, stream);
 }

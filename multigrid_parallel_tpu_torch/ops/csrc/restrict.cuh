@@ -1,9 +1,11 @@
 // The streaming restriction stage of K3 (residual_restrict.cu, a plain
-// (n, n, n) correction) and K9 (residual_restrict_split.cu, a split
-// pair): the interior residual of e against r, restricted by full
-// weighting to the coarse (nc, nc, nc) RHS, nc = (n + 1) / 2, in one
-// launch, each fine residual computed once, from tiles of e and r in
-// shared memory, and only the coarse RHS written to device memory.
+// (n, n, n) correction), K9 (residual_restrict_split.cu, a split pair)
+// and K18 (residual_restrict_fold.cu, the electrospray's (n, n, n - 2)
+// fold layout): the interior residual of e against r, restricted by full
+// weighting to the coarse (nc, nc, nc) RHS (K18: the (nc, nc, nc - 2)
+// fold), nc = (n + 1) / 2, in one launch, each fine residual computed
+// once, from tiles of e and r in shared memory, and only the coarse RHS
+// written to device memory.
 //
 // A block owns a box of interior coarse points: bci coarse planes x bcj
 // coarse rows x bck coarse k (the plan, pallas_split._restrict_plan; the
@@ -36,6 +38,12 @@
 //   roundings as the 3-tap. A closed plane goes to shared memory (A), and
 //   after the next step's barrier the warps apply the j taps and then the
 //   k taps and store its rows, consecutive ck across a warp.
+// - K18 (residual_restrict_fold_plain): K3's taps on the fold layout
+//   (Fold): fine k at slot k - 1 of a row of n - 2 floats, the k faces not
+//   stored, so the loaded e window stops at the stored slots and the k - 1
+//   neighbour at k = 1 and the k + 1 one at k = n - 2 are selects of the
+//   point's own value (the BC copy), never reads of the tile column there,
+//   which is not loaded; coarse k at slot ck - 1 of a row of nc - 2.
 // - K9 (residual_restrict_split_plain): the k taps first, within the
 //   fine row, 0.5 E[ck - 1] + 0.25 (O[ck - 1] + O[ck]) with E / O the
 //   colour holding the row's even / odd k: a lane holds both colours'
@@ -93,7 +101,7 @@ __device__ inline float tap3(float a, float b, float c) {
 
 struct Args {
   float* out;
-  const float* e[2];  // K3: e[0]; K9: (red, black)
+  const float* e[2];  // K3, K18: e[0]; K9: (red, black)
   const float* r[2];
   int n;
   float inv_h2;
@@ -162,14 +170,14 @@ struct Geom {
   int ci0, ci1, cj0, cj1, ck0, ck1;  // the owned interior coarse box
   int rows;                          // fine rows of the cone, from 2 cj0 - 1
   int pts;                           // residual points a row, from k0
-  int k0;                            // the row's first point (K3 fine k 2 ck0 - 1, K9 slot ck0 - 1)
-  int ka, kb;                        // the loaded e columns (K3 fine k, K9 slots)
+  int k0;                            // the row's first point (K3, K18 fine k 2 ck0 - 1, K9 slot ck0 - 1)
+  int ka, kb;                        // the loaded e columns (K3 fine k, K9 and K18 slots)
   int ra, rb;                        // the loaded r columns
   int pa;                            // the first e plane, 2 ci0 - 2
   Widths w;
 };
 
-__device__ inline Geom geometry(const Args& a, bool split) {
+__device__ inline Geom geometry(const Args& a, bool split, bool fold) {
   Geom g;
   g.n = a.n;
   g.nc = (a.n + 1) / 2;
@@ -186,7 +194,16 @@ __device__ inline Geom geometry(const Args& a, bool split) {
   g.rows = 2 * (g.cj1 - g.cj0) + 1;
   g.pa = 2 * g.ci0 - 2;
   g.w = widths(a.bck, split);
-  if (!split) {
+  if (fold) {
+    // fine k k0 - 1 .. 2 ck1 at slots k0 - 2 .. 2 ck1 - 1, clipped to the
+    // stored n - 2: the k faces (k = 0, n - 1) are not loaded
+    g.pts = 2 * (g.ck1 - g.ck0) + 1;
+    g.k0 = 2 * g.ck0 - 1;
+    g.ka = imax(g.k0 - 2, 0);
+    g.kb = imin(2 * g.ck1, a.n - 2);
+    g.ra = g.k0 - 1;
+    g.rb = 2 * g.ck1 - 1;
+  } else if (!split) {
     g.pts = 2 * (g.ck1 - g.ck0) + 1;
     g.k0 = 2 * g.ck0 - 1;
     g.ka = g.k0 - 1;
@@ -234,22 +251,32 @@ __device__ inline void load_box(float* tile, const float* __restrict__ g, int q,
   }
 }
 
+// Coarse row (ci, cj) of the output at its point ck = 0: rows of nc
+// floats, or the fold's nc - 2 (ck at slot ck - 1; FOLD).
+template <bool FOLD>
+__device__ inline float* coarse_row(float* out, const Geom& g, int ci, int cj) {
+  return FOLD ? out + (ci * g.nc + cj) * (g.nc - 2) - 1 : out + (ci * g.nc + cj) * g.nc;
+}
+
 // Write 0 at the coarse boundary points of the block's box widened by one
 // on each side at the field's edge: whole rows where the plane or the row
-// is a boundary one, else the row's ends; a warp a row.
+// is a boundary one, else the row's ends (FOLD: every stored coarse k is
+// interior, so the x and y faces' rows only, over the box's k); a warp a
+// row.
+template <bool FOLD>
 __device__ inline void zero_boundary(float* __restrict__ out, const Geom& g, int warp, int lane,
                                      int nwarps) {
   const int last = g.nc - 1;
   const int ia = g.ci0 == 1 ? 0 : g.ci0, ib = g.ci1 == last ? g.nc : g.ci1;
   const int ja = g.cj0 == 1 ? 0 : g.cj0, jb = g.cj1 == last ? g.nc : g.cj1;
-  const int ka = g.ck0 == 1 ? 0 : g.ck0, kb = g.ck1 == last ? g.nc : g.ck1;
+  const int ka = g.ck0 == 1 && !FOLD ? 0 : g.ck0, kb = g.ck1 == last && !FOLD ? g.nc : g.ck1;
   const int nj = jb - ja;
   for (int row = warp; row < (ib - ia) * nj; row += nwarps) {
     const int ci = ia + row / nj, cj = ja + row % nj;
-    float* o = out + (ci * g.nc + cj) * g.nc;
+    float* o = coarse_row<FOLD>(out, g, ci, cj);
     if (ci == 0 || ci == last || cj == 0 || cj == last) {
       for (int ck = ka + lane; ck < kb; ck += 32) o[ck] = 0.0f;
-    } else if (lane == 0) {
+    } else if (!FOLD && lane == 0) {
       if (ka == 0) o[0] = 0.0f;
       if (kb == g.nc) o[last] = 0.0f;
     }
@@ -259,26 +286,30 @@ __device__ inline void zero_boundary(float* __restrict__ out, const Geom& g, int
 // The coarse rows of plane ci from A, spread over the block's warps: each
 // item a coarse row's 32 consecutive ck; `tap(a0, W, t)` the value of
 // coarse point t of the row whose A rows start at a0.
-template <class Tap>
+template <bool FOLD, class Tap>
 __device__ inline void store_coarse(float* __restrict__ out, const float* A, const Geom& g,
                                     int ci, int W, int warp, int lane, int nwarps, Tap tap) {
   const int ncr = g.cj1 - g.cj0, nck = g.ck1 - g.ck0, groups = (nck + 31) >> 5;
   for (int it = warp; it < ncr * groups; it += nwarps) {
     const int cr = it / groups, t = 32 * (it - cr * groups) + lane;
-    if (t < nck) out[(ci * g.nc + g.cj0 + cr) * g.nc + g.ck0 + t] = tap(A + 2 * cr * W, W, t);
+    if (t < nck) coarse_row<FOLD>(out, g, ci, g.cj0 + cr)[g.ck0 + t] = tap(A + 2 * cr * W, W, t);
   }
 }
 
 // K3's layout: one field, tile rows of fine k, point b (fine k k0 + b) of
-// e at column kPad + b, of r and A at column b.
-struct Rect {
+// e at column kPad + b, of r and A at column b. FOLD: K18's, the same tile
+// from fold rows (fine k at slot k - 1 of n - 2), the k-face columns not
+// loaded and read through selects.
+template <bool FOLD>
+struct RectLayout {
   static constexpr bool kSplit = false;
+  static constexpr bool kFold = FOLD;
   float* ering;  // kERing planes of 2 bcj + 3 rows x we
   float* rring;  // kRRing planes of 2 bcj + 1 rows x wr
   float* A;      // 2 bcj + 1 rows x wa
   int pe, pr;    // floats a plane
 
-  __device__ Rect(const Args& a, const Geom& g, float* smem) {
+  __device__ RectLayout(const Args& a, const Geom& g, float* smem) {
     pe = (2 * a.bcj + 3) * g.w.we;
     pr = (2 * a.bcj + 1) * g.w.wr;
     ering = smem;
@@ -293,16 +324,21 @@ struct Rect {
     return rring + ((q - g.pa) % kRRing) * pr;
   }
 
+  // Floats a field row; the tile column of e's first loaded column (fine
+  // k ka, or slot ka: fine k ka + 1).
+  __device__ static int row_len(const Geom& g) { return FOLD ? g.n - 2 : g.n; }
+  __device__ static int e_col0(const Geom& g) { return FOLD ? kPad + g.ka + 1 - g.k0 : kPad - 1; }
+
   __device__ void load_e(const Args& a, const Geom& g, int q, int warp, int lane,
                          int nwarps) const {
-    load_box<1>(e_plane(g, q), a.e[0], q, g.n, g.n, 2 * g.cj0 - 2, 2 * g.cj1 + 1, g.ka, g.kb,
-                kPad - 1, 2 * g.cj0 - 2, g.w.we, warp, lane, nwarps);
+    load_box<1>(e_plane(g, q), a.e[0], q, g.n, row_len(g), 2 * g.cj0 - 2, 2 * g.cj1 + 1, g.ka,
+                g.kb, e_col0(g), 2 * g.cj0 - 2, g.w.we, warp, lane, nwarps);
   }
 
   __device__ void load_r(const Args& a, const Geom& g, int q, int warp, int lane,
                          int nwarps) const {
-    load_box<1>(r_plane(g, q), a.r[0], q, g.n, g.n, 2 * g.cj0 - 1, 2 * g.cj1, g.ra, g.rb, 0,
-                2 * g.cj0 - 1, g.w.wr, warp, lane, nwarps);
+    load_box<1>(r_plane(g, q), a.r[0], q, g.n, row_len(g), 2 * g.cj0 - 1, 2 * g.cj1, g.ra, g.rb,
+                0, 2 * g.cj0 - 1, g.w.wr, warp, lane, nwarps);
   }
 
   // Its e at plane q at each of the lane's points (fine row `row`).
@@ -319,8 +355,9 @@ struct Rect {
   // The residual at the lane's points of fine row `row` of plane p, each
   // group handed to sink(m, values): r - inv_h2 (nbr_sum - 6 e), the
   // neighbours i - 1 (prev), i + 1, j - 1, j + 1, k - 1, k + 1 (stencil.cuh,
-  // nbr_sum); prev becomes plane p's e. A group past the row's last point
-  // computes values that nothing reads.
+  // nbr_sum; FOLD: the k - 1 one at k = 1 and the k + 1 one at k = n - 2
+  // the point's own value); prev becomes plane p's e. A group past the
+  // row's last point computes values that nothing reads.
   template <int C, class Sink>
   __device__ void row_values(float4 (&prev)[2][C], const Args& a, const Geom& g, int p, int row,
                              int lane, Sink sink) const {
@@ -338,12 +375,13 @@ struct Rect {
         float x[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
+          const int k = g.k0 + b + i;
           float s = comp(lo, i);
           s = s + comp(h, i);
           s = s + comp(jm, i);
           s = s + comp(jp, i);
-          s = s + (i == 0 ? left : comp(c, i - 1));
-          s = s + (i == 3 ? right : comp(c, i + 1));
+          s = s + (FOLD && k == 1 ? comp(c, i) : (i == 0 ? left : comp(c, i - 1)));
+          s = s + (FOLD && k == g.n - 2 ? comp(c, i) : (i == 3 ? right : comp(c, i + 1)));
           x[i] = comp(r, i) - a.inv_h2 * (s - 6.0f * comp(c, i));
         }
         prev[0][m] = c;
@@ -355,7 +393,8 @@ struct Rect {
   // Coarse plane ci from A: the j taps, then the k taps.
   __device__ void coarse_rows(float* __restrict__ out, const Geom& g, int ci, int warp, int lane,
                               int nwarps) const {
-    store_coarse(out, A, g, ci, g.w.wa, warp, lane, nwarps, [](const float* a0, int W, int t) {
+    store_coarse<FOLD>(out, A, g, ci, g.w.wa, warp, lane, nwarps,
+                       [](const float* a0, int W, int t) {
       float y[3];
 #pragma unroll
       for (int dk = 0; dk < 3; ++dk) {
@@ -367,10 +406,14 @@ struct Rect {
   }
 };
 
+using Rect = RectLayout<false>;
+using Fold = RectLayout<true>;
+
 // K9's layout: a split pair, tile rows of slots, both colours; slot
 // k0 + s of e at column kPad + s, of r and A at column s.
 struct Split {
   static constexpr bool kSplit = true;
+  static constexpr bool kFold = false;
   float* ering;  // kERing planes x 2 colours of 2 bcj + 3 rows x we
   float* rring;  // kRRing planes x 2 colours of 2 bcj + 1 rows x wr
   float* A;      // 2 bcj + 1 rows x wa
@@ -527,7 +570,8 @@ struct Split {
   // Coarse plane ci from A: the j taps.
   __device__ void coarse_rows(float* __restrict__ out, const Geom& g, int ci, int warp, int lane,
                               int nwarps) const {
-    store_coarse(out, A, g, ci, g.w.wa, warp, lane, nwarps, [](const float* a0, int W, int t) {
+    store_coarse<false>(out, A, g, ci, g.w.wa, warp, lane, nwarps,
+                        [](const float* a0, int W, int t) {
       return tap3(a0[t], a0[W + t], a0[2 * W + t]);
     });
   }
@@ -542,14 +586,14 @@ struct Split {
 // ci - 1, its i-tapped plane into A.
 template <class L, int C>
 __device__ void restrict_body(const Args& a, float* smem) {
-  const Geom g = geometry(a, L::kSplit);
+  const Geom g = geometry(a, L::kSplit, L::kFold);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
   const L lay(a, g, smem);
   const int pa = g.pa, pe = 2 * g.ci1, p1 = 2 * g.ci1 - 1;
   for (int q = pa; q < pa + kERing; ++q) lay.load_e(a, g, q, warp, lane, nwarps);
   for (int q = pa + 1; q <= pa + kRRing; ++q) lay.load_r(a, g, q, warp, lane, nwarps);
   cp_async_commit();
-  zero_boundary(a.out, g, warp, lane, nwarps);  // while the copies fly
+  zero_boundary<L::kFold>(a.out, g, warp, lane, nwarps);  // while the copies fly
   cp_async_wait_all();
   __syncthreads();
   const bool mine = warp < g.rows;  // a warp a fine row of the cone

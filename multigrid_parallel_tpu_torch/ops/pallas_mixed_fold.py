@@ -34,17 +34,19 @@ the full tier that ``pallas_mixed`` holds against JAX. Not carried over
 ``*_block_i`` planners and the ``block_i`` and ``with_delta`` arguments
 (K19 reads the sign planes at the k-edge x-face nodes only).
 
-K17 and K19 are one-pass stages (rect.cuh on the fold layout): one
+K16, K17 and K19 are one-pass stages (rect.cuh on the fold layout): one
 launch a call for n_iter <= 2, all 2 n_iter half-sweeps and the BC pass
-in shared memory, into a fresh field; K16 keeps its first form, a launch
-a half-sweep and one for the BC pass, in place.
+in shared memory, into a fresh field (K16 and K19 on a loaded one, K17
+from zeros). K18 is restrict.cuh's streaming restriction stage on the
+fold layout on the levels from ``pallas_split.FOLD_RESTRICT_STAGE_MIN_N``
+up, and its first form, one thread a coarse point, below; one launch a
+call either way.
 
 A wrapper takes the plain version for tensors on the CPU, launches its
 kernel for CUDA tensors (float32, contiguous, fold shapes; pin (2, n,
 n - 2)), and raises for anything else: no fallback from the kernel to
 the plain version. Each kernel launch adds one to its entry in
-``LAUNCHES`` (every half-sweep and BC pass of K16 counts as a launch of
-its kernel; K20's is the pair, partials then their sum).
+``LAUNCHES`` (K20's is the pair, partials then their sum).
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ import torch
 from multigrid_parallel_tpu_torch.ops import pallas3d as pk
 from multigrid_parallel_tpu_torch.ops import pallas_mixed as pm
 from multigrid_parallel_tpu_torch.ops import pallas_split as ps
-from multigrid_parallel_tpu_torch.ops.pallas3d import _check, _colors, _lib, _stream
+from multigrid_parallel_tpu_torch.ops.pallas3d import _check, _lib, _stream
 
 KERNELS = (
     "mixed_rb_smooth_fold",
@@ -208,30 +210,21 @@ def mixed_rb_smooth_from_zero_fold_plain(r, pin, h: float, n_iter: int, red_firs
     return mixed_rb_smooth_fold_plain(torch.zeros_like(r), r, pin, h, n_iter, red_first)
 
 
-def _half_sweeps_and_bc_pass(u, r, pin, h2, colors, name):
-    """Launch K16's in-place half-sweeps of ``colors``, then its BC pass,
-    each counted as a launch of ``name``."""
-    lib, stream, n = _lib(), _stream(), u.shape[0]
-    for c in colors:
-        _check(lib.mg_mixed_fold_half_sweep(u.data_ptr(), r.data_ptr(), pin.data_ptr(), n,
-                                            h2, c, stream), name)
-        LAUNCHES[name] += 1
-    _check(lib.mg_mixed_fold_bc_pass(u.data_ptr(), pin.data_ptr(), n, stream), name)
-    LAUNCHES[name] += 1
-
-
 def mixed_rb_smooth_fold(e, r, pin, h: float, n_iter: int, red_first: bool = True):
     """n_iter mixed-BC RB-GS iterations on the fold correction e (red first
     = pre-smoothing, black first = post-smoothing), ending with the fold
-    BC pass (x and y faces).
-
-    Updates ``e`` IN PLACE and returns it (on both devices): the CUDA form
-    is 2 * n_iter half-sweep launches and one BC-pass launch. Only e's
-    interior is read."""
+    BC pass (x and y faces), as a fresh field: e is left as it is (on both
+    devices), and only its interior is read. The CUDA form is one one-pass
+    launch of the fold stage on e for n_iter <= 2, ceil(n_iter / 2) in
+    all, each later one on the field so far, all counted as K16 launches."""
+    if n_iter < 1:
+        raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     if not _on_cuda(e, r, pin=pin):
-        return e.copy_(mixed_rb_smooth_fold_plain(e, r, pin, h, n_iter, red_first))
-    _half_sweeps_and_bc_pass(e, r, pin, h * h, list(_colors(red_first)) * n_iter,
-                             "mixed_rb_smooth_fold")
+        return mixed_rb_smooth_fold_plain(e, r, pin, h, n_iter, red_first)
+    lib, stream, h2 = _lib(), _stream(), h * h
+    for chunk in ps._stage_chunks(n_iter):
+        e = _fold_stage_launch(lib, e, r, pin, h2, chunk, red_first, stream,
+                               "mixed_rb_smooth_fold")
     return e
 
 
@@ -278,15 +271,23 @@ def residual_restrict_fold(e, r, h: float):
     """(n, n, n - 2) fold correction e and its RHS r -> the (nc, nc,
     nc - 2) fold coarse RHS, nc = (n + 1) / 2: full weighting of the
     interior residual (k-edge reads folded), zero coarse x and y faces,
-    without storing the fine residual."""
+    without storing the fine residual; the inputs are left as they are.
+    The CUDA form is one launch: the streaming restriction stage on
+    ``_restrict_plan(n, sms, fold=True)`` where n >=
+    ``pallas_split.FOLD_RESTRICT_STAGE_MIN_N``, else the first form."""
     n = e.shape[0]
     if n % 2 == 0:
         raise ValueError(f"restriction needs an odd size, got n = {n}")
     if not _on_cuda(e, r):
         return residual_restrict_fold_plain(e, r, h)
     out = e.new_empty(fold_shape((n + 1) // 2))
-    _check(_lib().mg_residual_restrict_fold(out.data_ptr(), e.data_ptr(), r.data_ptr(), n,
-                                            1.0 / (h * h), _stream()), "residual_restrict_fold")
+    lib, ptrs, inv_h2 = _lib(), (out.data_ptr(), e.data_ptr(), r.data_ptr()), 1.0 / (h * h)
+    if n >= ps.FOLD_RESTRICT_STAGE_MIN_N:
+        err = lib.mg_fold_residual_restrict(*ptrs, n, inv_h2,
+                                            *ps._restrict_args(n, e.device, fold=True), _stream())
+    else:
+        err = lib.mg_residual_restrict_fold(*ptrs, n, inv_h2, _stream())
+    _check(err, "residual_restrict_fold")
     LAUNCHES["residual_restrict_fold"] += 1
     return out
 

@@ -574,7 +574,7 @@ def rb_smooth_split_from_zero(fr, fb, h: float, n_iter: int, red_first: bool = T
     return er, eb
 
 
-# ------------------------- the streaming restriction stage (K3 and K9)
+# ------------------ the streaming restriction stage (K3, K9 and K18)
 
 RESTRICT_MAX_ROWS = 8     # coarse rows a block owns at most (restrict.cuh, kMaxRows)
 RESTRICT_MAX_CHUNKS = 2   # chunks of 32 groups of 4 points a fine row at most (kMaxChunks)
@@ -585,11 +585,22 @@ RESTRICT_REGISTERS = 56   # registers a thread takes (__launch_bounds__(544, 2))
 # SM's blocks copy a microsecond.
 RESTRICT_STEP_US = 0.9
 RESTRICT_SM_BYTES_PER_US = 20e3
+# K18 (pallas_mixed_fold.residual_restrict_fold) takes the stage on fold
+# levels of at least this size and its first form, one thread a coarse
+# point, below: on a small level a launch is latency, and the stage's
+# prologue and 2 bci + 1 barrier steps cost more than the loads they save.
+# Device ms a launch (utils/stage_plans.py --restrict, median of 20; one
+# NVIDIA H100 80GB HBM3 at 700 W), first form against the stage on its
+# plan: 9^3 0.0031 / 0.0043, 17^3 0.0041 / 0.0043, 33^3 0.0036 / 0.0045,
+# 65^3 0.0039 / 0.0062, 129^3 0.0149 / 0.0168, 257^3 0.1020 / 0.0786,
+# 513^3 0.7770 / 0.5689.
+FOLD_RESTRICT_STAGE_MIN_N = 257
 
 
 class RestrictPlan(NamedTuple):
     """How one launch of the streaming restriction stage (restrict.cuh:
-    K3's on a plain n^3 level, K9's where ``split``) cuts the level's
+    K3's on a plain n^3 level, K9's where ``split``, K18's on the fold
+    layout where ``fold``) cuts the level's
     interior coarse points: blocks own boxes of ``bci`` coarse planes x
     ``bcj`` coarse rows x ``bck`` coarse k, tiles numbered k fastest, then
     j, then i, from coarse point 1 (a block at the field's edge also
@@ -605,6 +616,7 @@ class RestrictPlan(NamedTuple):
     chunks: int
     threads: int
     smem: int
+    fold: bool = False
 
     @property
     def tiles(self):
@@ -697,9 +709,11 @@ def _restrict_cost(plan: RestrictPlan, sms: int) -> float:
 
 
 @functools.lru_cache(maxsize=None)
-def _restrict_plan(n: int, sms: int, split: bool = False) -> RestrictPlan:
+def _restrict_plan(n: int, sms: int, split: bool = False, fold: bool = False) -> RestrictPlan:
     """The plan of one launch of the streaming restriction stage on an n^3
-    level (K3; K9 on a split one) for a card of ``sms`` SMs, within
+    level (K3; K9 on a split one; K18 on a fold one, whose tile rows and
+    interior coarse counts are K3's, so it takes K3's plan) for a card of
+    ``sms`` SMs, within
     ``SMEM_MAX`` bytes of shared memory a block: k in whole rows where a
     fine row fits ``RESTRICT_MAX_CHUNKS`` chunks, else in the fewest tiles
     that do (a multiple of 4 slots on a split level whose rows hold a
@@ -711,6 +725,10 @@ def _restrict_plan(n: int, sms: int, split: bool = False) -> RestrictPlan:
     m = _interior(n)
     if n % 2 == 0 or m < 1:
         raise ValueError(f"the restriction stage takes an odd n >= 5, got n = {n}")
+    if split and fold:
+        raise ValueError("a restriction level is split or fold, not both")
+    if fold:
+        return _restrict_plan(n, sms)._replace(fold=True)
     s = split_shape(n)[2]
     evened = _evened(m)
     bck = next(b for b in reversed(evened) if _restrict_chunks(b, split) is not None
@@ -730,15 +748,15 @@ def _restrict_plan(n: int, sms: int, split: bool = False) -> RestrictPlan:
 
 
 @functools.lru_cache(maxsize=None)
-def _restrict_args_on(n: int, index: int, split: bool):
-    return _restrict_plan(n, _sms(index), split).args
+def _restrict_args_on(n: int, index: int, split: bool, fold: bool):
+    return _restrict_plan(n, _sms(index), split, fold).args
 
 
-def _restrict_args(n: int, device, split: bool = False):
+def _restrict_args(n: int, device, split: bool = False, fold: bool = False):
     """The restriction launchers' plan arguments on ``device``
     (``RestrictPlan.args``)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return _restrict_args_on(n, index, split)
+    return _restrict_args_on(n, index, split, fold)
 
 
 # ------------------------------------------- K9: residual + restriction

@@ -25,8 +25,8 @@ smoothing stage call's device time by level (``stage_calls``: K1, K2, K4,
 K7, K8, K10, K13-K17, K19, K21, K22 and K24, the one-pass form's kernel,
 or a first form's head kernel and the half-sweeps that follow it, and the
 BC pass that ends a mixed-BC call), and each restriction call's
-(``restrict_calls``: K3 and K9, a kernel a call, the first forms' one
-thread a coarse point or the streaming stage's plan). The parent prints
+(``restrict_calls``: K3, K9 and K18, a kernel a call, the first forms'
+one thread a coarse point or the streaming stage's plan). The parent prints
 the lines as they come and the card's name and power limit, and at the
 end each path's solution of round 0 against the first ROOT's
 (max|u - u_0|, held in a temporary directory).
@@ -191,13 +191,13 @@ def stage_label(name):
     where false; split_stage_kernel<NITER, VEC, ZERO> K8 and K7 likewise
     (a checkout whose split kernel has no ZERO argument runs it as K7
     only); "K1|K2" where the trace drops the arguments.
-    fold_stage_kernel<NITER, ZERO, BOX> is K17 where ZERO is true, else a
-    later launch of a K17 or K19 call (n_iter > 2); mixed_stage_kernel
-    likewise K14, or a later launch of a K14 or K15 call;
-    msplit_stage_kernel<NITER, VEC, ZERO> K22, or a later launch of a K22
-    or K24 call; the first form's mixed_fold_half_sweep_kernel<FromZero>
-    heads K17 where true, K16 where false or without arguments (this
-    form's K16)."""
+    fold_stage_kernel<NITER, ZERO, BOX> is K17 where ZERO is true, else
+    K16 (or a later launch of a K16, K17 or K19 call, n_iter > 2, which
+    ``stage_calls`` joins to it); mixed_stage_kernel likewise K14, or a
+    later launch of a K14 or K15 call; msplit_stage_kernel<NITER, VEC,
+    ZERO> K22, or a later launch of a K22 or K24 call; the first form's
+    mixed_fold_half_sweep_kernel<FromZero> heads K17 where true, K16 where
+    false or without arguments."""
     base, _, args = name.partition("<")
     args = [a.strip() for a in args.rstrip(">").split(",")] if args else []
     if base == "rect_stage_kernel":
@@ -207,12 +207,17 @@ def stage_label(name):
     if base == "msplit_stage_kernel":
         return "K22" if args[2:] == ["true"] else "K22|K24"
     if base == "fold_stage_kernel":
-        return ("K17" if args[1] == "true" else "K17|K19") if len(args) > 1 else "K17|K19"
+        return ("K17" if args[1] == "true" else "K16") if len(args) > 1 else "K16|K17"
     if base == "mixed_stage_kernel":
         return ("K14" if args[1] == "true" else "K14|K15") if len(args) > 1 else "K14|K15"
     if base == "mixed_fold_half_sweep_kernel":
         return "K17" if args == ["true"] else "K16"
     return STAGE_KERNELS.get(base)
+
+
+# the one-pass fold stages (K16, K17, K19): a call of n_smooth > 2 goes on
+# with launches of the loaded stage, fold_stage_kernel with ZERO false
+FOLD_ONE_PASS = ("fold_stage_kernel", "fold_prolong_stage_kernel")
 
 
 def stage_calls(intervals, sizes, n_smooth=2):
@@ -221,9 +226,11 @@ def stage_calls(intervals, sizes, n_smooth=2):
     in all, and a mixed-BC form's BC pass after them (K2's from-zero head
     followed by the mixed half-sweeps is K14's first form); in the one-pass
     form its one kernel (K24's first form: its red correction, the black
-    correction's half-sweep, three half-sweeps and the BC pass). ``sizes``
-    maps (kernel name without its arguments, shape) to the level's n (a
-    shape without its shared memory where the trace has none). Returns
+    correction's half-sweep, three half-sweeps and the BC pass), a fold
+    stage's ceil(n_smooth / 2) launches, the loaded stage's after the
+    first. ``sizes`` maps (kernel name without its arguments, shape) to
+    the level's n (a shape without its shared memory where the trace has
+    none). Returns
     {"K4 n=257": [calls, summed ms, median ms a call], ...}."""
     groups, sweep = [], None  # sweep: the half-sweep kernels that may continue the last call
     for a, b, name, grid in intervals:
@@ -239,6 +246,10 @@ def stage_calls(intervals, sizes, n_smooth=2):
             groups[-1][2].append((b - a) / 1e3)
             groups[-1][3] += 1
             sweep = None
+        elif (label == "K16" and not sweep and groups and groups[-1][0][0] in FOLD_ONE_PASS
+              and groups[-1][3] < -(-n_smooth // 2)):  # a fold call's next launch
+            groups[-1][2].append((b - a) / 1e3)
+            groups[-1][3] += 1
         elif label:
             groups.append([(base, label), grid, [(b - a) / 1e3], HEAD_SWEEPS.get(base, 1)])
             sweep = FIRST_FORM.get(base)
@@ -255,11 +266,12 @@ def stage_calls(intervals, sizes, n_smooth=2):
 # the restriction kernels, a launch a call: the first forms (one thread a
 # coarse point) and the streaming stage (restrict.cuh)
 RESTRICT_KERNELS = {"residual_restrict_kernel": "K3", "split_residual_restrict_kernel": "K9",
-                    "rect_restrict_kernel": "K3", "split_restrict_kernel": "K9"}
+                    "residual_restrict_fold_kernel": "K18", "rect_restrict_kernel": "K3",
+                    "split_restrict_kernel": "K9", "fold_restrict_kernel": "K18"}
 
 
 def restrict_calls(intervals, sizes):
-    """Each K3 and K9 call's device time by level, ``sizes`` as
+    """Each K3, K9 and K18 call's device time by level, ``sizes`` as
     stage_calls' (``_stage_sizes``): {"K3 n=257": [calls, summed ms,
     median ms a call], ...}."""
     out = {}
@@ -280,7 +292,7 @@ def _stage_sizes(hier, sms):
     streaming restriction from their plans (where the package has them;
     the split ones at every level, though only the finest runs them), the
     first forms from their one thread a point (a slot on a split level, a
-    coarse point for K3 and K9)."""
+    coarse point for K3, K9 and K18)."""
     from multigrid_parallel_tpu_torch.ops import pallas_split as ps
 
     out = {}
@@ -319,12 +331,17 @@ def _stage_sizes(hier, sms):
             add(name, plan.blocks, plan.smem)
         if n < 5:
             continue
+        nc = (n + 1) // 2
         for name in ("residual_restrict_kernel", "split_residual_restrict_kernel"):
-            add(name, -(-((n + 1) // 2) ** 3 // 256), 0)
-        for name, split in (("rect_restrict_kernel", False), ("split_restrict_kernel", True)):
+            add(name, -(-nc ** 3 // 256), 0)
+        add("residual_restrict_fold_kernel", -(-nc * nc * (nc - 2) // 256), 0)
+        for name, split, fold in (("rect_restrict_kernel", False, False),
+                                  ("split_restrict_kernel", True, False),
+                                  ("fold_restrict_kernel", False, True)):
             try:
-                plan = ps._restrict_plan(n, sms, split)
-            except AttributeError:  # a checkout without the streaming restriction
+                plan = (ps._restrict_plan(n, sms, split, fold) if fold
+                        else ps._restrict_plan(n, sms, split))
+            except (TypeError, AttributeError):  # a checkout without that streaming stage
                 continue
             add(name, plan.blocks, plan.smem)
     return out

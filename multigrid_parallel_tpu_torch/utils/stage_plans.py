@@ -1,27 +1,30 @@
 """Time the rect stage kernels (K2's and K4's, ops/csrc/rect.cuh), with
-``--fold`` the same stage on the electrospray's fold layout (K17's and
-K19's), with ``--mixed`` on its full layout (K14's and K15's), with
-``--msplit`` the split pair's mixed stage (K22's and K24's,
-ops/csrc/split.cuh with MIXED), or, with ``--restrict``, the streaming
-restriction stage (K3's and K9's, ops/csrc/restrict.cuh) on candidate
-plans at each level size on one card: the planner's own and plans of
-several block sizes, each held bit for bit against its plain version.
+``--fold`` the same stage on the electrospray's fold layout (K17's, K16's
+on a loaded field, and K19's), with ``--mixed`` on its full layout (K14's
+and K15's), with ``--msplit`` the split pair's mixed stage (K22's and
+K24's, ops/csrc/split.cuh with MIXED), or, with ``--restrict``, the
+streaming restriction stage (K3's, K9's and, on the fold layout, K18's,
+ops/csrc/restrict.cuh; K18's first form beside it) on candidate plans at
+each level size on one card: the planner's own and plans of several
+block sizes, each held bit for bit against its plain version.
 
     python -m multigrid_parallel_tpu_torch.utils.stage_plans [--sizes 9 17 33 65 129]
                                                              [--reps 20]
                                                              [--restrict | --fold | --mixed
                                                               | --msplit]
 
-For each size and kernel (K2 from zero, K4, both at n_iter 2; K17 and
-K19 likewise, with the electrospray's pins and coarse signs; K14 and K15
-with its pins; K22 and K24 with its pin packs and coarse signs, on the
+For each size and kernel (K2 from zero, K4, both at n_iter 2; K17, K16
+and K19 likewise, with the electrospray's pins and coarse signs; K14 and
+K15 with its pins; K22 and K24 with its pin packs and coarse signs, on the
 msplit planner's plan, K7's and K10's and wavefront plans of several
-block sizes; or K3 and K9) and plan, one JSON line: the plan, whether the output equals the
+block sizes; or K3, K9 and K18, K18's first form as the plan
+"first_form") and plan, one JSON line: the plan, whether the output equals the
 plain version, and the median device time of ``reps`` launches from a
 torch.profiler trace (``utils.split_trace.kernel_intervals``). The numbers
 serve to tune ``pallas_split._stage_plan``'s choice between the wavefront
-and the box, and the box's block size, and ``pallas_split._restrict_plan``'s
-cost model; the card's name and power limit first.
+and the box, and the box's block size, ``pallas_split._restrict_plan``'s
+cost model and ``pallas_split.FOLD_RESTRICT_STAGE_MIN_N``, the level from
+which K18 takes the stage; the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -57,15 +60,15 @@ def launch(plan, f, h, ec=None, u=None):
 
 
 def fold_launch(plan, r, pin, h, ec=None, e=None, sgn=None):
-    """One launch of K17's stage (from zero) or, given ec, K19's on
-    ``plan``, into a fresh fold field."""
+    """One launch of K17's stage (from zero; K16's on e where e is given)
+    or, given ec, K19's on ``plan``, into a fresh fold field."""
     out = torch.empty_like(r)
     args = (plan.n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem,
             int(plan.box), pk._stream())
     lib = pk._lib()
     if ec is None:
-        err = lib.mg_fold_stage(out.data_ptr(), None, r.data_ptr(), pin.data_ptr(), plan.n,
-                                h * h, 1, *args)
+        err = lib.mg_fold_stage(out.data_ptr(), None if e is None else e.data_ptr(), r.data_ptr(),
+                                pin.data_ptr(), plan.n, h * h, 1, *args)
     else:
         err = lib.mg_fold_prolong_stage(out.data_ptr(), ec.data_ptr(), e.data_ptr(), r.data_ptr(),
                                         pin.data_ptr(), sgn.data_ptr(), plan.n, h * h, *args)
@@ -222,22 +225,33 @@ def candidates(n, prolong, sms):
 
 
 def restrict_launch(plan, e, r, h):
-    """One launch of K3's (K9's where ``plan.split``; e and r then pairs)
-    restriction stage on ``plan``, into a fresh coarse field."""
-    nc = (plan.n + 1) // 2
-    out = torch.empty((nc, nc, nc), device=e[0].device)
+    """One launch of K3's (K9's where ``plan.split``, e and r then pairs;
+    K18's where ``plan.fold``) restriction stage on ``plan``, or of K18's
+    first form where ``plan`` is None, into a fresh coarse field."""
+    n = e[0].shape[0]
+    nc = (n + 1) // 2
+    fold = plan is None or plan.fold
+    out = torch.empty((nc, nc, nc - 2) if fold else (nc, nc, nc), device=e[0].device)
     lib = pk._lib()
-    fn = lib.mg_split_residual_restrict if plan.split else lib.mg_residual_restrict
-    pk._check(fn(out.data_ptr(), *(x.data_ptr() for x in (*e, *r)), plan.n, 1.0 / (h * h),
-                 *plan.args, pk._stream()), "stage_plans")
+    ptrs = (out.data_ptr(), *(x.data_ptr() for x in (*e, *r)))
+    if plan is None:
+        err = lib.mg_residual_restrict_fold(*ptrs, n, 1.0 / (h * h), pk._stream())
+    else:
+        fn = (lib.mg_split_residual_restrict if plan.split
+              else lib.mg_fold_residual_restrict if fold else lib.mg_residual_restrict)
+        err = fn(*ptrs, n, 1.0 / (h * h), *plan.args, pk._stream())
+    pk._check(err, "stage_plans")
     return out
 
 
-def restrict_candidates(n, split, sms):
+def restrict_candidates(n, split, sms, fold=False):
     """The planner's plan and plans of bci x bcj coarse planes and rows,
-    whole k rows or two k tiles, that the kernels take."""
+    whole k rows or two k tiles, that the kernels take (K18's: ``fold``,
+    its first form as "first_form", a plan of None)."""
     m = (n + 1) // 2 - 2
-    plans = {"planner": ps._restrict_plan(n, sms, split)}
+    plans = {"planner": ps._restrict_plan(n, sms, split, fold)}
+    if fold:
+        plans["first_form"] = None
     half = -(-m // 2)
     if split and ((n - 1) // 2) % 4 == 0:
         half = -(-half // 4) * 4
@@ -253,35 +267,39 @@ def restrict_candidates(n, split, sms):
             for bci in (1, 2, 4, 8, 16, 32):
                 bci = evened(m, bci)
                 plans[f"{bci}x{bcj}x{bck}"] = ps.RestrictPlan(n, split, bci, bcj, bck, chunks,
-                                                              32 * (2 * bcj + 1), smem)
+                                                              32 * (2 * bcj + 1), smem, fold)
     return plans
 
 
 def time_restrict(n, sms, reps, dev):
-    """One JSON line a (kernel, plan) at level n: K3 on random (e, r) and K9
-    on random pairs, each candidate's output against the plain version and
-    its median device time over ``reps`` launches from a trace of its
-    own."""
-    h = 1.0 / (n - 1)
+    """One JSON line a (kernel, plan) at level n: K3 on random (e, r), K9
+    on random pairs and K18 on random fold fields at the electrospray's h
+    (its first form beside the stage), each candidate's output against the
+    plain version and its median device time over ``reps`` launches from a
+    trace of its own."""
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed_fold as pmf
+
     rng = np.random.default_rng(n)
-    for kernel, split in (("K3", False), ("K9", True)):
-        shape = ps.split_shape(n) if split else (n, n, n)
+    for kernel, split, fold in (("K3", False, False), ("K9", True, False),
+                                ("K18", False, True)):
+        h = 3e-4 / (n - 1) if fold else 1.0 / (n - 1)
+        shape = ps.split_shape(n) if split else (n, n, n - 2) if fold else (n, n, n)
         e, r = ([torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
                  for _ in range(2 if split else 1)] for _ in range(2))
         want = (ps.residual_restrict_split_plain(*e, *r, h) if split
+                else pmf.residual_restrict_fold_plain(*e, *r, h) if fold
                 else pk.residual_restrict_plain(*e, *r, h))
-        for label, plan in restrict_candidates(n, split, sms).items():
+        for label, plan in restrict_candidates(n, split, sms, fold).items():
             exact = bool(torch.equal(restrict_launch(plan, e, r, h), want))
             torch.cuda.synchronize()
             times = [(b - a) / 1e3 for a, b, name, *_ in
                      kernel_intervals(lambda: [restrict_launch(plan, e, r, h)
                                                for _ in range(reps)])
-                     if "restrict_kernel" in name]
-            print(json.dumps({"n": n, "kernel": kernel, "plan": label, "bci": plan.bci,
-                              "bcj": plan.bcj, "bck": plan.bck,
-                              "blocks": plan.blocks,
-                              "threads": plan.threads, "smem": plan.smem,
-                              "exact": exact,
+                     if "restrict" in name]
+            shape = {} if plan is None else {
+                "bci": plan.bci, "bcj": plan.bcj, "bck": plan.bck, "blocks": plan.blocks,
+                "threads": plan.threads, "smem": plan.smem}
+            print(json.dumps({"n": n, "kernel": kernel, "plan": label, **shape, "exact": exact,
                               "device_ms": statistics.median(times) if times else None}),
                   flush=True)
 
@@ -306,6 +324,8 @@ def time_electrospray(n, sms, reps, dev, fold):
         pin, sgn = pmf.fold_pin_planes(es, n, dev), pmf.fold_edge_sign_planes(es, nc, dev)
         stages = {"K17": (lambda plan: fold_launch(plan, r, pin, h),
                           lambda: pmf.mixed_rb_smooth_from_zero_fold_plain(r, pin, h, 2, True)),
+                  "K16": (lambda plan: fold_launch(plan, r, pin, h, e=e),
+                          lambda: pmf.mixed_rb_smooth_fold_plain(e, r, pin, h, 2, True)),
                   "K19": (lambda plan: fold_launch(plan, r, pin, h, ec, e, sgn),
                           lambda: pmf.mixed_prolong_smooth_fold_plain(ec, e, r, pin, sgn, h, 2))}
     else:
@@ -314,8 +334,8 @@ def time_electrospray(n, sms, reps, dev, fold):
                           lambda: pm.mixed_rb_smooth_from_zero_plain(r, pin, h, 2, True)),
                   "K15": (lambda plan: mixed_launch(plan, r, pin, h, ec, e),
                           lambda: pm.mixed_prolong_smooth_plain(ec, e, r, pin, h, 2))}
-    for (kernel, (launch_on, plain)), prolong in zip(stages.items(), (False, True)):
-        want = plain()
+    for kernel, (launch_on, plain) in stages.items():
+        prolong, want = kernel in ("K15", "K19"), plain()
         for label, plan in candidates(n, prolong, sms).items():
             exact = bool(torch.equal(launch_on(plan), want))
             torch.cuda.synchronize()
@@ -335,9 +355,10 @@ def main(argv=None) -> int:
     parser.add_argument("--reps", type=int, default=20)
     group = parser.add_mutually_exclusive_group()
     group.add_argument("--restrict", action="store_true",
-                       help="time K3's and K9's restriction stage instead")
+                       help="time K3's, K9's and K18's restriction stage (and K18's first "
+                            "form) instead")
     group.add_argument("--fold", action="store_true",
-                       help="time K17's and K19's fold stages instead")
+                       help="time K17's, K16's and K19's fold stages instead")
     group.add_argument("--mixed", action="store_true",
                        help="time K14's and K15's full-layout mixed stages instead")
     group.add_argument("--msplit", action="store_true",

@@ -20,9 +20,11 @@ one-pass rect stages K1, K2 and K4 against theirs at 9^3-513^3 (K1 also
 at the smoother study's 50^3) and on hand plans (one launch a call),
 the streaming restriction stages K3 and K9 against theirs at
 9^3-513^3 on NaN-poisoned outputs and on hand plans (one launch a call),
-and the one-pass fold stages K17 and K19 against theirs at 9^3-513^3
-and on hand plans, with the electrospray's pins and random ones, on
-NaN-poisoned outputs (one launch a call), the one-pass full-layout
+and the one-pass fold stages K16, K17 and K19 against theirs at
+9^3-513^3 and on hand plans, with the electrospray's pins and random
+ones, on NaN-poisoned outputs (one launch a call; K16 on fields whose x
+and y faces hold NaN), K18 on both of its forms at 9^3-513^3 and on hand
+plans likewise, the one-pass full-layout
 mixed stages K14 and K15 likewise, and the one-pass msplit stages K22 and
 K24 on the split pair likewise.
 
@@ -952,7 +954,7 @@ def test_fold_kernels_match_plain_on_card(cuda, n):
                                                                          h, n_iter))
         got = tpmf.residual_restrict_fold(fe, r, h)
         assert got.shape == (nc, nc, nc - 2)
-        assert _ulps(got, tpmf.residual_restrict_fold_plain(fe, r, h))
+        assert torch.equal(got, tpmf.residual_restrict_fold_plain(fe, r, h))
     x = np.linspace(0.0, 1.0, n)[:, None, None]
     state = [tpmf.pack_fold(t.to(cuda))
              for a in (-1350.0 * x * x + 1e-3 * rng.standard_normal((n, n, n)),
@@ -962,9 +964,8 @@ def test_fold_kernels_match_plain_on_card(cuda, n):
     r_ref, nrm_ref = tpmf.residual_df_norm_fold_plain(*state, h)
     assert torch.equal(r20, r_ref)
     assert float(nrm20) == pytest.approx(float(nrm_ref), rel=1e-5)
-    # per pin, n_iter 1 and 2: K16 2 orders x (2 n_iter + 1); K17 and K19 one
-    # launch a call
-    assert tpmf.LAUNCHES == {"mixed_rb_smooth_fold": 2 * 2 * (3 + 5),
+    # per pin, n_iter 1 and 2: K16 (2 orders), K17 and K19 one launch a call
+    assert tpmf.LAUNCHES == {"mixed_rb_smooth_fold": 2 * 2 * 2,
                              "mixed_rb_smooth_from_zero_fold": 2 * 2,
                              "residual_restrict_fold": 2,
                              "mixed_prolong_smooth_fold": 2 * 2,
@@ -1103,6 +1104,109 @@ def test_fold_stages_on_hand_plans_on_card(cuda, n, bk, box):
             assert _fold_stage_on_plan(plan._replace(smem=plan.smem + 16), r, pin, h)[0] != 0
             assert _fold_stage_on_plan(k19._replace(smem=k19.smem + 16), r, pin, h, u=e, ec=ec,
                                        sgn=sgn)[0] != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [9, 17, 33, 65, 129, 257, 513])
+def test_k16_stage_matches_plain_on_card(cuda, n):
+    """K16, the fold stage on a loaded field, bit for bit against its plain
+    version (9-129: the box schedule; 257, 513: the wavefront), n_iter 1-3,
+    both orders, with the electrospray's pins and random ones, on e whose
+    x and y faces hold NaN (only its interior may be read), the allocator
+    poisoned with NaN first; one launch a call at n_iter <= 2, two at 3,
+    and no other kernel counted; a fresh field, e and r left as they
+    were."""
+    h = 3e-4 / (n - 1)
+    rng = np.random.default_rng(150 + n)
+    e, r = _fold_fields(rng, n, cuda, 2)
+    e[0] = e[-1] = float("nan")
+    e[:, 0] = e[:, -1] = float("nan")
+    for kind in ("electrospray", "random"):
+        pin, _ = _fold_pins(kind, n, cuda, rng)
+        before = [x.clone() for x in (e, r, pin)]
+        for n_iter in (1, 2, 3):
+            for red_first in (True, False):
+                want = tpmf.mixed_rb_smooth_fold_plain(e, r, pin, h, n_iter, red_first)
+                assert bool(torch.isfinite(want).all())
+                _poison_allocator((n, n, n - 2), cuda)
+                tpmf.reset_launches()
+                got = tpmf.mixed_rb_smooth_fold(e, r, pin, h, n_iter, red_first)
+                assert tpmf.LAUNCHES == {**dict.fromkeys(tpmf.KERNELS, 0),
+                                         "mixed_rb_smooth_fold": 1 if n_iter <= 2 else 2}
+                torch.cuda.synchronize()
+                assert got.data_ptr() not in {x.data_ptr() for x in (e, r, pin)}
+                assert torch.equal(got, want), (kind, n_iter, red_first)
+        assert all(_same_with_nan(a, b) for a, b in zip((e, r, pin), before))
+
+
+def _fold_restrict_on(plan, e, r, h):
+    """One launch of K18's streaming stage on ``plan``, or of its first
+    form where ``plan`` is None, into a fresh coarse fold field; the
+    launcher's error code and the field."""
+    n = e.shape[0]
+    nc = (n + 1) // 2
+    out = torch.empty((nc, nc, nc - 2), device=e.device)
+    lib, ptrs = tpmf._lib(), (out.data_ptr(), e.data_ptr(), r.data_ptr())
+    if plan is None:
+        return lib.mg_residual_restrict_fold(*ptrs, n, 1.0 / (h * h), tpk._stream()), out
+    return lib.mg_fold_residual_restrict(*ptrs, n, 1.0 / (h * h), *plan.args,
+                                         tpk._stream()), out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RESTRICT_SIZES)
+def test_k18_restrict_matches_plain_on_card(cuda, n):
+    """K18 bit for bit against ``residual_restrict_fold_plain`` at every
+    stored coarse point (9-129: the first form below the crossover,
+    pallas_split.FOLD_RESTRICT_STAGE_MIN_N; 257: the fold tier's finest
+    level), on fold fields random at every stored point, at the
+    electrospray's h = 3e-4 / (n - 1), the allocator poisoned with NaN
+    first: the wrapper, exactly one launch a call, and each of its forms
+    at this size (the stage on the planner's plan); the inputs
+    unchanged."""
+    h = 3e-4 / (n - 1)
+    nc = (n + 1) // 2
+    rng = np.random.default_rng(170 + n)
+    e, r = _fold_fields(rng, n, cuda, 2)
+    before = [x.clone() for x in (e, r)]
+    want = tpmf.residual_restrict_fold_plain(e, r, h)
+    _poison_allocator((nc, nc, nc - 2), cuda)
+    tpmf.reset_launches()
+    got = tpmf.residual_restrict_fold(e, r, h)
+    assert tpmf.LAUNCHES == {**dict.fromkeys(tpmf.KERNELS, 0), "residual_restrict_fold": 1}
+    assert got.shape == (nc, nc, nc - 2) and torch.equal(got, want)
+    for plan in (None, tps._restrict_plan(n, tps._sms(torch.cuda.current_device()), fold=True)):
+        _poison_allocator((nc, nc, nc - 2), cuda)
+        err, out = _fold_restrict_on(plan, e, r, h)
+        assert err == 0 and torch.equal(out, want), plan
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((e, r), before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 33, 35])
+def test_k18_restrict_on_hand_plans_on_card(cuda, n):
+    """K18's streaming stage on plans of the caller's: several blocks in i
+    and j, whole k rows and k tiles of 2, 3 and 4 coarse k (the first and
+    last tiles' windows clipped at the stored slots; 35: rows of 33
+    slots); bit for bit against the plain version on NaN-poisoned
+    outputs; a plan whose shared memory is not the kernel's, or one that
+    the kernel does not take, is refused."""
+    h = 3e-4 / (n - 1)
+    nc = (n + 1) // 2
+    m = nc - 2
+    rng = np.random.default_rng(190 + n)
+    e, r = _fold_fields(rng, n, cuda, 2)
+    want = tpmf.residual_restrict_fold_plain(e, r, h)
+    for bci, bcj, bck in ((2, 3, m), (3, 2, 2), (5, min(m, 8), 4), (m, 1, 3)):
+        plan = tps.RestrictPlan(n, False, bci, bcj, bck, tps._restrict_chunks(bck, False),
+                                32 * (2 * bcj + 1), tps._restrict_smem(bcj, bck, False), True)
+        _poison_allocator((nc, nc, nc - 2), cuda)
+        err, out = _fold_restrict_on(plan, e, r, h)
+        assert err == 0 and torch.equal(out, want), plan
+        assert _fold_restrict_on(plan._replace(smem=plan.smem + 16), e, r, h)[0] != 0
+    bad = plan._replace(bcj=9, threads=32 * 19, smem=tps._restrict_smem(9, plan.bck, False))
+    assert _fold_restrict_on(bad, e, r, h)[0] != 0
 
 
 @pytest.mark.cuda

@@ -205,7 +205,7 @@ def test_mixed_rb_smooth_fold_matches_pallas(pins, n_iter):
                                          red_first=red_first, block_i=4)
         et = e.clone()
         got = tpmf.mixed_rb_smooth_fold(et, r, pin, H, n_iter, red_first)
-        assert got is et  # in place, as on the card
+        assert got is not et and torch.equal(et, e)  # a fresh field, e as it was, as on the card
         _assert_ulps(got, _from_jfold(want))
 
 

@@ -1,7 +1,8 @@
-"""The one-pass fold smoothing stages (K17 ``mixed_rb_smooth_from_zero_fold``
-and K19 ``mixed_prolong_smooth_fold``, multigrid_parallel_tpu_torch.ops.
-pallas_mixed_fold) on the CPU: an emulation of the CUDA kernels' schedule
-held against the plain versions, and the wrappers' CPU contract.
+"""The one-pass fold smoothing stages (K16 ``mixed_rb_smooth_fold``, K17
+``mixed_rb_smooth_from_zero_fold`` and K19 ``mixed_prolong_smooth_fold``,
+multigrid_parallel_tpu_torch.ops.pallas_mixed_fold) on the CPU: an
+emulation of the CUDA kernels' schedule held against the plain versions,
+and the wrappers' CPU contract.
 
 The CUDA stage (ops/csrc/rect.cuh with FOLD, ``stage_body`` and
 ``box_body``) cannot run here, so its schedule is emulated in torch, block
@@ -11,7 +12,8 @@ slot kk of a colour holding k = 2 kk + 1 + p, the k-face slots (k = 0 and
 n - 1) holding no stored point; the plan's boxes with halos of 2 n_iter
 planes and rows (and k_halo slots where k is tiled); tile planes filled
 with NaN outside the loaded box and at the k-face slots, K17's tile all
-zeros instead; a ring of tile planes for each colour as deep as the
+zeros instead (K16's loaded from a field whose x and y faces hold NaN: only
+its interior may be read); a ring of tile planes for each colour as deep as the
 kernel's (a plane gone from a ring raises); K19's coarse planes in a ring
 of 3 (the box: all of them), copied with the fine planes that first need
 them, the coarse k faces as copies of the stored columns, and e + P ec of
@@ -297,15 +299,20 @@ def _check_writes(writes):
     assert torch.equal(writes, torch.ones_like(writes))
 
 
-def _emulate_k17(r, pin, h, n_iter, red_first, plan_of, fault=None):
-    """K17 from a zero tile, then the fold stage on the field so far."""
+def _emulate_k16(e, r, pin, h, n_iter, red_first, plan_of, fault=None):
+    """K16: the fold stage on the loaded e, then on the field so far (e
+    None: K17, its first launch from a zero tile)."""
     color0 = RED if red_first else BLACK
-    u = None
+    u = e
     for chunk in tps._stage_chunks(n_iter):
         ins, fs = _stage_inputs(u, r, color0)
         u, writes = _emulate_fold_launch(ins, fs, pin, color0, h, plan_of(chunk), fault=fault)
         _check_writes(writes)
     return u
+
+
+def _emulate_k17(r, pin, h, n_iter, red_first, plan_of, fault=None):
+    return _emulate_k16(None, r, pin, h, n_iter, red_first, plan_of, fault)
 
 
 def _emulate_k19(ec, e, r, pin, sgn_c, h, n_iter, plan_of, fault=None):
@@ -389,6 +396,34 @@ def test_emulated_fold_stages_match_plain(n, kind, n_iter, pins):
     assert torch.equal(got, tpmf.mixed_prolong_smooth_fold_plain(ec, e, r, pin, sgn_c, h, n_iter))
 
 
+def _nan_faces(e):
+    """e with NaN on its x and y faces."""
+    e = e.clone()
+    e[0] = e[-1] = NAN
+    e[:, 0] = e[:, -1] = NAN
+    return e
+
+
+@pytest.mark.parametrize("n_iter", [1, 2, 3])
+@pytest.mark.parametrize("n,kind", CASES)
+def test_emulated_k16_on_a_loaded_field_with_nan_faces(n, kind, n_iter):
+    """K16, the fold stage on a loaded e whose x and y faces hold NaN (the
+    plain version rebuilds them by its BC pass first, so the stage may read
+    only e's interior), both orders, n_iter 1-3 (3: a second launch on the
+    field so far), on the plans of the K17 cases: bit for bit against the
+    plain version, every stored point written once a launch."""
+    h = 3e-4 / (n - 1)
+    rng = np.random.default_rng(20 * n + n_iter)
+    pin, _ = _pins("electrospray" if kind == "h100" else "random", n, rng)
+    e, r = _nan_faces(_fold_field(rng, n)), _fold_field(rng, n)
+    plan_of = _plans(kind, n)
+    for red_first in (True, False):
+        want = tpmf.mixed_rb_smooth_fold_plain(e, r, pin, h, n_iter, red_first)
+        assert bool(torch.isfinite(want).all())
+        got = _emulate_k16(e, r, pin, h, n_iter, red_first, plan_of)
+        assert torch.equal(got, want), red_first
+
+
 def test_emulated_fold_stages_chain_past_two_iterations():
     """n_iter 3: a two-iteration launch (K17 from zero, K19 with its
     correction), then the fold stage on the field so far."""
@@ -438,8 +473,9 @@ def test_emulation_finds_a_faulty_schedule(kind, fault):
 
 
 def test_k17_k19_return_fresh_fields_and_leave_their_inputs():
-    """On the CPU the wrappers are the plain versions: fresh outputs, the
-    inputs as they were, no launch counted; n_iter < 1 is refused."""
+    """On the CPU the wrappers are the plain versions: fresh outputs (K16's
+    too), the inputs as they were, no launch counted; n_iter < 1 is
+    refused."""
     n, h = 17, 3e-4 / 16
     rng = np.random.default_rng(7)
     pin, sgn_c = _pins("random", n, rng)
@@ -448,12 +484,15 @@ def test_k17_k19_return_fresh_fields_and_leave_their_inputs():
     tpmf.reset_launches()
     got19 = tpmf.mixed_prolong_smooth_fold(ec, e, r, pin, sgn_c, h, 2)
     got17 = tpmf.mixed_rb_smooth_from_zero_fold(r, pin, h, 2)
+    got16 = tpmf.mixed_rb_smooth_fold(e, r, pin, h, 2, False)
     assert all(torch.equal(a, b) for a, b in zip((e, r, ec, pin, sgn_c), before))
-    assert got19 is not e and got17 is not r
+    assert got19 is not e and got17 is not r and got16 is not e
     assert torch.equal(got19, tpmf.mixed_prolong_smooth_fold_plain(ec, e, r, pin, sgn_c, h, 2))
     assert torch.equal(got17, tpmf.mixed_rb_smooth_from_zero_fold_plain(r, pin, h, 2))
+    assert torch.equal(got16, tpmf.mixed_rb_smooth_fold_plain(e, r, pin, h, 2, False))
     assert not any(tpmf.LAUNCHES.values())
     for call in (lambda: tpmf.mixed_rb_smooth_from_zero_fold(r, pin, h, 0),
+                 lambda: tpmf.mixed_rb_smooth_fold(e, r, pin, h, 0),
                  lambda: tpmf.mixed_prolong_smooth_fold(ec, e, r, pin, sgn_c, h, 0)):
         with pytest.raises(ValueError, match="n_iter"):
             call()

@@ -216,3 +216,67 @@ def test_restrict_calls_by_level_for_both_forms():
     assert got == {"K3 n=33": [1, pytest.approx(0.001), pytest.approx(0.001)],
                    "K3 n=65": [3, pytest.approx(0.006), pytest.approx(0.002)],
                    "K9 n=65": [2, pytest.approx(0.006), pytest.approx(0.003)]}
+
+
+def test_stage_calls_map_k16_on_the_fold_stage():
+    """K16 on the fold stage: fold_stage_kernel with ZERO false heads a K16
+    call, by level from its plan; at n_smooth 3 a fold call (K16, K17,
+    K19) takes the loaded stage's next launch as its second, and the next
+    loaded launch heads a K16 call of its own; the parent's first-form
+    K16 (four half-sweeps and the BC pass) stays mapped."""
+    from multigrid_parallel_tpu_torch.hierarchy import Hierarchy
+    from multigrid_parallel_tpu_torch.ops import pallas_split as tps
+
+    sizes = st._stage_sizes(Hierarchy(ndim=3, coarse_n=5, num_levels=5), 132)
+    plans = {n: tps._stage_plan(n, 2, 132, rect=True) for n in (33, 65)}
+    grid = {n: (p.blocks, 1, 1, p.smem) for n, p in plans.items()}
+    k19 = tps._stage_plan(33, 2, 132, True, True)
+    one = (7, 1, 1, 0)  # an n_iter 1 launch's grid: not a level of the map
+    assert st.stage_label("fold_stage_kernel<2, false, true>") == "K16"
+    assert st.stage_label("fold_stage_kernel<2, true, true>") == "K17"
+    intervals = [(0, 3, "fold_stage_kernel<2, false, true>", grid[65]),
+                 (10, 12, "fold_stage_kernel<2, false, true>", grid[33]),
+                 (20, 21, "rect_restrict_kernel<1>", (1, 1, 1, 0)),
+                 (30, 32, "fold_stage_kernel<2, false, true>", grid[33])]
+    got = st.stage_calls(intervals, sizes)
+    assert got == {"K16 n=65": [1, pytest.approx(0.003), pytest.approx(0.003)],
+                   "K16 n=33": [2, pytest.approx(0.004), pytest.approx(0.002)]}
+    intervals = [(0, 3, "fold_stage_kernel<2, true, true>", grid[33]),
+                 (4, 5, "fold_stage_kernel<1, false, true>", one),
+                 (10, 14, "fold_prolong_stage_kernel<2, true>", (k19.blocks, 1, 1, k19.smem)),
+                 (15, 16, "fold_stage_kernel<1, false, true>", one),
+                 (20, 22, "fold_stage_kernel<2, false, true>", grid[33]),
+                 (23, 24, "fold_stage_kernel<1, false, true>", one)]
+    got = st.stage_calls(intervals, sizes, n_smooth=3)
+    assert got == {"K17 n=33": [1, pytest.approx(0.004), pytest.approx(0.004)],
+                   "K19 n=33": [1, pytest.approx(0.005), pytest.approx(0.005)],
+                   "K16 n=33": [1, pytest.approx(0.003), pytest.approx(0.003)]}
+    g = (-(-65 * 65 * 63 // 256), 1, 1, 0)
+    first = [(10 * i, 10 * i + 2, "mixed_fold_half_sweep_kernel<false>", g) for i in range(4)]
+    first.append((45, 46, "mixed_fold_bc_pass_kernel", (1, 1, 1, 0)))
+    assert st.stage_calls(first, sizes) == {
+        "K16 n=65": [1, pytest.approx(0.009), pytest.approx(0.009)]}
+
+
+def test_restrict_calls_map_both_forms_of_k18():
+    """K18 a kernel a call, by level: the first form
+    (residual_restrict_fold_kernel) from its one thread a stored coarse
+    point of the (nc, nc, nc - 2) fold, the streaming stage
+    (fold_restrict_kernel) from the fold plan's grid and shared memory."""
+    from multigrid_parallel_tpu_torch.hierarchy import Hierarchy
+    from multigrid_parallel_tpu_torch.ops import pallas_split as tps
+
+    sizes = st._stage_sizes(Hierarchy(ndim=3, coarse_n=5, num_levels=6), 132)
+    first = {n: (-(-((n + 1) // 2) ** 2 * ((n + 1) // 2 - 2) // 256), 1, 1, 0) for n in (17, 65)}
+    stage = tps._restrict_plan(129, 132, fold=True)
+    assert (st.short_name("_ZN12_GLOBAL__N_120fold_restrict_kernelILi1EEEvN2mg11restriction4Args"
+                          "E") == "fold_restrict_kernel<1>")
+    intervals = [(0, 2, "residual_restrict_fold_kernel", first[65]),
+                 (5, 6, "residual_restrict_fold_kernel", first[17]),
+                 (10, 14, "fold_restrict_kernel<1>", (stage.blocks, 1, 1, stage.smem)),
+                 (20, 23, "fold_restrict_kernel<1>", (stage.blocks, 1, 1)),
+                 (30, 39, "fold_stage_kernel<2, true, true>", (1, 1, 1, 0))]
+    got = st.restrict_calls(intervals, sizes)
+    assert got == {"K18 n=17": [1, pytest.approx(0.001), pytest.approx(0.001)],
+                   "K18 n=65": [1, pytest.approx(0.002), pytest.approx(0.002)],
+                   "K18 n=129": [2, pytest.approx(0.007), pytest.approx(0.0035)]}
