@@ -131,22 +131,24 @@ which fails the run:
      figure); and the f64 sharded V-cycle at 129^3 on those ranks against
      the single-device one within 1e-11;
  11. the i-sharded electrospray solve (parallel.sharded_mixed_padded):
-     (a) K34-K36 on four simulated ranks' segments of 65^3 (L = 24, and
-     L = 32, where plane 64 is rank 2's first row) and 257^3 (L = 96)
-     electrospray fields with the problem's pins, each bitwise equal to its
-     plain version and, stitched, to K13-K15, pad planes zero, each timed
-     on rank 1's 257^3 segments against its plain version; (b)
-     make_sharded_mixed_padded_df_solver at 257^3 (production
-     configuration) on one NCCL rank, launch counts reset and read around
-     it: K30 and K32 launched as often as phase 6's full tier launches K3
-     and K5, K34-K36 2 n_smooth + 1 times for each call of K13-K15 there,
-     and nothing else, the full tier's outer
+     (a) K34-K36 on simulated ranks' segments of 65^3 (four ranks of L =
+     24, and of L = 32, where plane 64 is rank 2's first row) and 257^3
+     (four ranks of L = 96, one of L = 320, and five of L = 64, where plane
+     256 is rank 4's first row) electrospray fields with the problem's
+     pins, each bitwise equal to its plain version and, stitched, to
+     K13-K15, pad planes zero, each timed on rank 1's 257^3 segments (L =
+     96) against its plain version; (b) make_sharded_mixed_padded_df_solver
+     at 257^3 (production configuration) on one NCCL rank, launch counts
+     reset and read around it: K30, K32 and K34 launched as often as phase
+     6's full tier launches K3, K5 and K13, K35 and K36 (one-pass stages)
+     as often as K14 and K15, and nothing else, the full tier's outer
      steps, max|u - u_full| <= 1e-7 max|u|, walls interleaved with the full
      tier (5 each) and the device busy time of each; (c) in 10c's spawned
      group, the same solve on the four gloo ranks: (b)'s outer steps, u
-     within 1e-7 max|u| of (b)'s, each rank launching only K34-K36, K30,
-     K32 and, in the replicated 9^3 tail, K14, K3, K15; and the f64 sharded
-     mixed-BC cycle at 65^3 against MixedBCSolver's within 1e-11 max|u|;
+     within 1e-7 max|u| of (b)'s, each rank launching exactly K34 210, K35
+     168, K36 210, K30 210 and K32 15 times and, in the replicated 9^3
+     tail, K14, K3 and K15 56 times each; and the f64 sharded mixed-BC
+     cycle at 65^3 against MixedBCSolver's within 1e-11 max|u|;
  12. the (i, j)-sharded solve (parallel.sharded2d_padded): (a) K37-K41 on
      the simulated ranks' blocks of 65^3 and 257^3 fields on 2x2, 4x1 and
      1x4 meshes (the padded plan's blocks, five halo parts with the corner
@@ -419,6 +421,13 @@ MIXED_SEG_TWINS = {"mixed_rb_smooth_seg": "mixed_rb_smooth_fused",
                    "residual_df_norm_seg": "residual_df_norm_fused"}
 MIXED_SEG_TAIL_KERNELS = ("mixed_rb_smooth_from_zero_fused", "residual_restrict_fused",
                           "mixed_prolong_smooth_fused")
+# each of the four gloo ranks' launches in that solve (L = 96; the 9^3 tail's K14, K3
+# and K15 too): K35 and K36 one a call since their one-pass stages (840 and 1,050 in
+# their first forms)
+MIXED_SEG_RANK_LAUNCHES = {"mixed_rb_smooth_seg": 210, "mixed_rb_smooth_from_zero_seg": 168,
+                           "mixed_prolong_smooth_seg": 210, "residual_restrict_seg": 210,
+                           "residual_df_norm_seg": 15, "mixed_rb_smooth_from_zero_fused": 56,
+                           "residual_restrict_fused": 56, "mixed_prolong_smooth_fused": 56}
 # of max|u|: the sharded electrospray solves against the full tier and each other
 # (tests/test_mixed_fold.py:201's bound; the arithmetic is the same, so 0 is expected)
 SHARDED_MIXED_RTOL = 1e-7
@@ -2048,9 +2057,10 @@ def sharded_four_ranks(dev, card, launches, one_rank, es_one_rank, tmp):
 def sharded_mixed_four_ranks(dev, card, launches, es_one_rank, res):
     """Phase 11c, read on the host: the sharded electrospray 257^3 solve on
     the four gloo ranks in phase 11b's outer steps with u within
-    SHARDED_MIXED_RTOL of its, each rank launching exactly K34-K36, K30 and
-    K32 and, in the replicated 9^3 tail, K14, K3 and K15 (added into
-    ``launches``); the f64 sharded mixed-BC cycle at 65^3 against
+    SHARDED_MIXED_RTOL of its, each rank launching exactly
+    MIXED_SEG_RANK_LAUNCHES (K34-K36, K30 and K32 and, in the replicated
+    9^3 tail, K14, K3 and K15; added into ``launches``) and nothing else;
+    the f64 sharded mixed-BC cycle at 65^3 against
     MixedBCSolver's single-device cycle within SHARDED_MIXED_F64_RTOL."""
     import multigrid_parallel_tpu_torch as mg
     from multigrid_parallel_tpu_torch.mixed_bc import MixedBCSolver
@@ -2074,8 +2084,9 @@ def sharded_mixed_four_ranks(dev, card, launches, es_one_rank, res):
         print(f"[launches {n}^3 electrospray sharded rank {rank} of {SHARDED_RANKS}] "
               f"{json.dumps({k: v for k, v in counts.items() if v})}")
         for name in SOURCES:
-            check((counts[name] > 0) == (name in (*MIXED_SEG_TWINS, *MIXED_SEG_TAIL_KERNELS)),
-                  f"4-rank electrospray rank {rank}: kernel {name} launched {counts[name]} times")
+            want = MIXED_SEG_RANK_LAUNCHES.get(name, 0)
+            check(counts[name] == want, f"4-rank electrospray rank {rank}: kernel {name} "
+                                        f"launched {counts[name]} times, expected {want}")
             launches[name] += counts[name]
 
     es = mg.electrospray_problem()
@@ -2097,18 +2108,20 @@ def sharded_mixed_four_ranks(dev, card, launches, es_one_rank, res):
 
 
 def compare_sharded_mixed(dev, results, es):
-    """Phase 11a: K34-K36 on SHARDED_RANKS simulated ranks' segments of
-    electrospray fields (h = 3e-4 / (n - 1), the problem's pin planes; their
-    own copies, zeros at the chain ends): 65^3 at L = 24 (the 4-rank plan),
-    65^3 at L = 32 (plane 64 is rank 2's row 0: its left halo is one plane
-    deeper) and 257^3 at L = 96 (the last rank owns pad planes only). Each
-    rank's kernel output bitwise equal to its plain version, the stitched
-    owned rows bitwise equal to K13-K15 on the whole field, the pad planes
-    zero; then each timed on rank 1's 257^3 segments against its plain
+    """Phase 11a: K34-K36 on simulated ranks' segments of electrospray
+    fields (h = 3e-4 / (n - 1), the problem's pin planes; their own copies,
+    zeros at the chain ends): 65^3 on SHARDED_RANKS ranks of L = 24 (the
+    4-rank plan) and of L = 32 (plane 64 is rank 2's row 0: its left halo
+    is one plane deeper), 257^3 on SHARDED_RANKS ranks of L = 96 (the last
+    rank owns pad planes only), on one of L = 320 (the one-rank plan) and
+    on five of L = 64 (plane 256 is rank 4's row 0). Each rank's kernel
+    output bitwise equal to its plain version, the stitched owned rows
+    bitwise equal to K13-K15 on the whole field, the pad planes zero; then
+    each timed on rank 1's 257^3 segments (L = 96) against its plain
     version."""
     from multigrid_parallel_tpu_torch.ops import pallas_mixed as pm
 
-    D, hh = SHARDED_RANKS, 4
+    hh = 4
     names = ("mixed_rb_smooth_seg", "mixed_rb_smooth_from_zero_seg", "mixed_prolong_smooth_seg")
     for name in names:
         results[name] = {"max_abs_err": 0.0}
@@ -2116,7 +2129,8 @@ def compare_sharded_mixed(dev, results, es):
     def same(name, n, label, got, want):
         bitwise_same(results, name, n, label, got, want)
 
-    for n, L in ((65, 24), (65, 32), (257, 96)):
+    for n, L, D in ((257, 320, 1), (257, 64, 5), (65, 24, SHARDED_RANKS),
+                    (65, 32, SHARDED_RANKS), (257, 96, SHARDED_RANKS)):
         h, nc, Lc = es.length / (n - 1), (n + 1) // 2, L // 2
         pin = pm.dirichlet_pin_planes(es, n, dev)
         rng = np.random.default_rng(n + L)
@@ -2209,8 +2223,8 @@ def sharded_mixed_one_rank(dev, card, launches, full, es):
     production configuration on one rank of an NCCL group, launch counts
     reset just before and read just after (added into ``launches``): K30 and
     K32 launched exactly as often as phase 6's full tier launches K3 and K5,
-    K34-K36 (first forms) 2 n_smooth + 1 times for each call the full tier
-    makes of K13-K15 (seg_twin_launches), and nothing else (the plan shards
+    K34-K36 as often as it launches K13-K15 (seg_twin_launches), and
+    nothing else (the plan shards
     down to 9^3 and gathers the bare 5^3 LU); the full tier's outer steps (``full``: phase
     6's (u, outer steps, solve, counts)), max|u - u_full| <=
     SHARDED_MIXED_RTOL max|u|; then the walls interleaved with the full tier
@@ -2260,7 +2274,7 @@ def sharded_mixed_one_rank(dev, card, launches, full, es):
         check(it == it_full, f"1-rank electrospray solve: {it} outer steps, full tier {it_full}")
         check(du <= SHARDED_MIXED_RTOL * scale, f"1-rank electrospray solve: max|du| = {du}")
         for name in SOURCES:
-            want = seg_twin_launches(counts_full, name, 2)
+            want = seg_twin_launches(counts_full, name)
             check(counts[name] == want, f"1-rank electrospray: kernel {name} launched "
                                         f"{counts[name]} times, expected {want}")
             launches[name] += counts[name]
@@ -2274,19 +2288,15 @@ def sharded_mixed_one_rank(dev, card, launches, full, es):
     return u, it
 
 
-def seg_twin_launches(counts_full, name, n_smooth):
+def seg_twin_launches(counts_full, name):
     """The launches the one-rank sharded electrospray solve makes of kernel
-    ``name``: 0 unless it has a twin in MIXED_SEG_TWINS; its twin's in phase
-    6's full-tier solve for K30 and K32 (K3's, K5's); for K34-K36, whose
-    first forms launch 2 n_smooth + 1 times a call, that many for each call
-    of their twins K13 (as many a call), K14 and K15 (one-pass stages,
-    ceil(n_smooth / 2) a call)."""
+    ``name``: 0 unless it has a twin in MIXED_SEG_TWINS, else its twin's in
+    phase 6's full-tier solve: K30 and K32 as K3 and K5, K34 (2 n_smooth + 1
+    a call, its first form) as K13, K35 and K36 (one-pass stages, one a
+    call at n_smooth 2) as K14 and K15 (224 and 266; 1,120 and 1,330 in
+    their first forms)."""
     twin = MIXED_SEG_TWINS.get(name)
-    if twin is None:
-        return 0
-    if twin not in ("mixed_rb_smooth_from_zero_fused", "mixed_prolong_smooth_fused"):
-        return counts_full[twin]
-    return counts_full[twin] // -(-n_smooth // 2) * (2 * n_smooth + 1)
+    return 0 if twin is None else counts_full[twin]
 
 
 def sharded_phase(dev, card, launches, results, fused, full, es):

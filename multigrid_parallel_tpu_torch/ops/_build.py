@@ -119,6 +119,11 @@ _SIGNATURES = {
     "mg_seg_mixed_bc_pass": (_P, _P, _P, _I, _P) + (_I,) * 5 + (_P,),
     "mg_seg_mixed_prolong_correct_black": ((_P,) * 6 + (_I,) * 3 + (_P, _P, _P, _I) * 2
                                            + (_P,) + (_I,) * 5 + (_F, _P)),
+    # K35's and K36's one-pass stages on segments: ..., h2, (red_first,) the
+    # plan (n_iter, bi, bj, bk, k_halo, threads, smem, box), stream
+    "mg_seg_mixed_stage": (_P,) * 4 + (_I, _P) + (_I,) * 5 + (_F,) + (_I,) * 9 + (_P,),
+    "mg_seg_mixed_prolong_stage": ((_P,) * 4 + (_I,) * 3 + (_P, _P, _P, _I) * 2 + (_P,)
+                                   + (_I,) * 5 + (_F,) + (_I,) * 8 + (_P,)),
 }
 
 

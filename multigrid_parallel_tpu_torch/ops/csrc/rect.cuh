@@ -43,7 +43,7 @@
 //
 // The layout (Layout) says what the stage runs on. kRect: the plain
 // field above (K1, K2, K4). The electrospray's mixed-BC stages run the same
-// schedule with two changes, on one of two layouts (mixed.cuh):
+// schedule with two changes, on one of three layouts (mixed.cuh):
 //   kFold (K17, K19; mixed_rb_smooth_fold.cu, mixed_prolong_smooth_fold.cu):
 //     an (n, n, n - 2) field whose stored slot kk holds grid plane
 //     k = kk + 1. The colour rows place k = 1 .. n - 2 in the same slots;
@@ -53,6 +53,21 @@
 //   kMixed (K14, K15; mixed_rb_smooth.cu, mixed_prolong_smooth.cu): the
 //     plain (n, n, n) field's addressing; the k-face slots hold the loaded
 //     k = 0 and n - 1 values (zeros for K14); the pins are (2, n, n).
+//   kSeg (K35, K36; mixed_rb_smooth_seg.cu, mixed_prolong_smooth_seg.cu):
+//     kMixed on one rank's segmented block of an i-sharded field (seg.cuh),
+//     planes read through the segments at GLOBAL plane q = g0 + t (a
+//     plane's pointer looked up once where a plane or a row starts, never
+//     a point), so q, the colours, the masks and the pins are the whole
+//     field's. The blocks tile the planes [c0, c1) (seg_geometry): the
+//     rank's rows, clipped to q <= n - 1, and plane n - 2 too where plane
+//     n - 1 is the rank's row 0; the loaded box is clipped to the field
+//     only, so a block at a rank's edge reads the halo rows, and its
+//     regions shrink from them as from any tile edge. The store writes
+//     only the rank's own nodes, planes [g0, o1), into its fresh (L, n,
+//     n) body: plane n - 1 at row 0 from the final value of plane n - 2
+//     in the tile (a halo row: the reason for its extra plane). The rows
+//     past n - 1 are pad, never loaded or swept: every block of the launch
+//     writes its share of them (seg_pad_fill), 0 or e's rows.
 // The two changes. (1) The selects: a neighbour across a face (i or j at 1
 // or n - 2, k at 1 or n - 2) is read as the reader's own value, 0 at a
 // pinned x-face node (mixed_nbr_sum's rule), as a select in the sweep, in
@@ -70,6 +85,7 @@
 // half-sweep. The fold stores no z face.
 #pragma once
 
+#include "seg.cuh"
 #include "split.cuh"
 
 namespace mg {
@@ -91,12 +107,18 @@ constexpr int kRowPad = 4;  // tile columns before slot 0 of a whole-row tile ro
 // split.cuh's 640 allow 96 (the stage kernels take 73-94; PERF.md).
 constexpr int kStageMaxThreads = 576;
 
+// The segment stages' (K35, K36) launch bound: 16 warps, so up to 128
+// registers a thread; K36's wavefront at n_iter 2 spilled under 576
+// threads' 96 (the 18 warps' 5 a scheduler), and both ran no slower on
+// 512 (PERF.md, stage_plans --seg).
+constexpr int kSegStageMaxThreads = 512;
+
 __host__ __device__ inline int slots(int n) { return n >> 1; }
 
 // p of `color` in row (i, j): its slot kk holds k = 2 kk + 1 + p.
 __device__ inline int parity(int i, int j, int color) { return ((i + j) & 1) ^ color ^ 1; }
 
-enum class Layout { kRect, kFold, kMixed };
+enum class Layout { kRect, kFold, kMixed, kSeg };
 
 // The mixed-BC selects and the BC pass at store time (the header).
 __host__ __device__ constexpr bool mixed_bc(Layout L) { return L != Layout::kRect; }
@@ -124,6 +146,58 @@ struct StageArgs {
   float h2;
   int bi, bj, bk, k_halo;  // the plan (pallas_split._stage_plan, rect)
 };
+
+// kSeg: the launch's segments (in, f: rows at GLOBAL plane g0 + t; out the
+// rank's L body rows), and the planes [c0, c1) its blocks tile and [g0,
+// o1) whose nodes they store (seg_geometry). The stage reads them through
+// the overloads below, which give the plain fields for StageArgs.
+struct SegStageArgs : StageArgs {
+  Seg in_s, f_s;
+  int g0, L, c0, c1, o1;
+};
+
+// The pointer the loader adds field_at(n, q, j, k) to for plane q of the
+// initial guess, and f's: the field, or (kSeg) the segment's row q - g0
+// less q planes, looked up once a plane or a tile row; the stores' base:
+// out, or the body less g0 planes.
+__device__ inline const float* in_base(const StageArgs& a, int) { return a.in; }
+__device__ inline const float* f_base(const StageArgs& a, int) { return a.f; }
+__device__ inline float* store_base(const StageArgs& a) { return a.out; }
+__device__ inline const float* in_base(const SegStageArgs& a, int q) {
+  return a.in_s.row(q - a.g0) - (long long)q * a.n * a.n;
+}
+__device__ inline const float* f_base(const SegStageArgs& a, int q) {
+  return a.f_s.row(q - a.g0) - (long long)q * a.n * a.n;
+}
+__device__ inline float* store_base(const SegStageArgs& a) {
+  return a.out - (long long)a.g0 * a.n * a.n;
+}
+
+// The planes a launch's blocks tile, and those whose nodes it stores.
+__host__ __device__ inline int planes_lo(const StageArgs&) { return 0; }
+__host__ __device__ inline int planes_hi(const StageArgs& a) { return a.n; }
+__host__ __device__ inline int planes_lo(const SegStageArgs& a) { return a.c0; }
+__host__ __device__ inline int planes_hi(const SegStageArgs& a) { return a.c1; }
+__device__ inline int stored_lo(const StageArgs&) { return 0; }
+__device__ inline int stored_hi(const StageArgs& a) { return a.n; }
+__device__ inline int stored_lo(const SegStageArgs& a) { return a.g0; }
+__device__ inline int stored_hi(const SegStageArgs& a) { return a.o1; }
+
+// kSeg: the planes of a rank's launch from its g0 (the global plane of
+// body row 0), its L rows and its segments' halos kl, kr (at least H = 2
+// n_iter a side, and H + 1 on the left where plane n - 1 is row 0); 0, or
+// cudaErrorInvalidValue for halos too short. A rank of pad rows only (g0 >
+// n - 1) tiles no plane.
+inline int seg_geometry(SegStageArgs& a, int g0, int L, int kl, int kr, int H) {
+  const int n = a.n, last = g0 == n - 1;
+  if (g0 < 0 || L < 1 || kl < H + last || kr < H) return (int)cudaErrorInvalidValue;
+  a.g0 = g0;
+  a.L = L;
+  a.c0 = g0 - last;
+  a.o1 = g0 + L < n ? g0 + L : (g0 < n ? n : g0);
+  a.c1 = g0 < n ? a.o1 : a.c0;
+  return 0;
+}
 
 // Floats in a tile row (one colour).
 __host__ __device__ inline int tile_width(int n, int bk, int k_halo) {
@@ -157,23 +231,27 @@ __host__ __device__ inline int coarse_planes(int bi, int H, bool box) {
   return box ? (bi + 2 * H) / 2 + 2 : 3;
 }
 
-inline int stage_blocks(const StageArgs& a) {
-  const int S = slots(a.n);
-  return ((a.n + a.bi - 1) / a.bi) * ((a.n + a.bj - 1) / a.bj) * ((S + a.bk - 1) / a.bk);
+// The launch's blocks: the plan's tiles of the planes it tiles, at least
+// one along i (a pad rank's blocks write its pad rows only).
+template <class Args>
+inline int stage_blocks(const Args& a) {
+  const int S = slots(a.n), planes = planes_hi(a) - planes_lo(a);
+  return std::max(1, (planes + a.bi - 1) / a.bi) * ((a.n + a.bj - 1) / a.bj) *
+         ((S + a.bk - 1) / a.bk);
 }
 
 // 0 when the plan is one the stage kernels take: n_iter 1 or 2, whole rows
 // or k tiles of a multiple of 4 slots with a halo of a multiple of 4 at
 // least H, the shared memory it names (`smem` less any extra the caller
-// adds).
+// adds), at most ``max_threads`` threads (the kernel's launch bound).
 inline int stage_plan_error(const StageArgs& a, int n_iter, int threads, long long smem,
-                            bool box) {
+                            bool box, int max_threads = kStageMaxThreads) {
   const int S = slots(a.n), H = 2 * n_iter;
   const bool whole_rows = a.k_halo == 0 && a.bk == S;
   const bool k_tiles = a.k_halo >= H && a.k_halo % 4 == 0 && a.bk % 4 == 0 && a.bk >= 4 &&
                        a.bk < S;
   if (a.n < 3 || (n_iter != 1 && n_iter != 2) || a.bi < 1 || a.bj < 1 ||
-      !(whole_rows || k_tiles) || threads < 32 || threads > kStageMaxThreads || threads % 32 ||
+      !(whole_rows || k_tiles) || threads < 32 || threads > max_threads || threads % 32 ||
       smem != stage_smem_bytes(a.n, n_iter, a.bi, a.bj, a.bk, a.k_halo, box))
     return (int)cudaErrorInvalidValue;
   return 0;
@@ -189,15 +267,16 @@ struct Geom {
   int R, W, P;                 // tile rows, floats per tile row, per tile plane
 };
 
-__device__ inline Geom geometry(const StageArgs& a, int H) {
+template <class Args>
+__device__ inline Geom geometry(const Args& a, int H) {
   Geom t;
   const int n = a.n, S = slots(n);
   t.n = n;
   t.S = S;
   const int nj = (n + a.bj - 1) / a.bj, nk = (S + a.bk - 1) / a.bk;
   const int tk = blockIdx.x % nk, tj = (blockIdx.x / nk) % nj, ti = blockIdx.x / (nk * nj);
-  t.i0 = ti * a.bi;
-  t.i1 = min(t.i0 + a.bi, n);
+  t.i0 = planes_lo(a) + ti * a.bi;
+  t.i1 = min(t.i0 + a.bi, planes_hi(a));
   t.j0 = tj * a.bj;
   t.j1 = min(t.j0 + a.bj, n);
   t.k0 = tk * a.bk;
@@ -288,22 +367,23 @@ __device__ inline void tile_store(float* __restrict__ g, float* t0, float* t1, c
   }
 }
 
-// The mixed-BC store with the BC pass (kFold, kMixed; the header): the
+// The mixed-BC store with the BC pass (kFold, kMixed, kSeg; the header): the
 // nodes of plane q's owned rows and k whose copy source lies in plane q, q
 // interior: its interior rows, each with the y-face row it is the source
 // of (row 0 with row 1, row n - 1 with row n - 2), in plane q and, where q
 // is 1 or n - 2, in the x-face plane 0 or n - 1 too, 0 at a pinned node of
-// it. kMixed: each row's k faces too, k = 0 from k = 1 and n - 1 from
+// it. kMixed, kSeg: each row's k faces too, k = 0 from k = 1 and n - 1 from
 // n - 2; the block owning slot 0 owns k = 0 and 1 (kr0 = 0), that owning
 // slot S - 1 k = n - 2 and n - 1 (kr1 = n), so a k face's source is the
 // block's own. A warp a target row, consecutive k across a warp; read once
 // plane q's last half-sweep is done, so every boundary node gets its
-// source's final value.
+// source's final value. Only target planes [o0, o1) are written (kSeg: the
+// rank's; ``g`` then its store_base).
 template <Layout L>
 __device__ inline void mixed_store(float* __restrict__ g, float* t0, float* t1, const Geom& t,
                                    int q, int color0, const float* __restrict__ pin, int warp,
-                                   int lane, int nwarps) {
-  constexpr bool faces = L == Layout::kMixed;  // the k faces are stored
+                                   int lane, int nwarps, int o0, int o1) {
+  constexpr bool faces = L == Layout::kMixed || L == Layout::kSeg;  // the k faces are stored
   const int n = t.n, nk = pin_cols(L, n);
   int jl = max(t.j0, 1), jh = min(t.j1, n - 1);
   if (q < 1 || q > n - 2 || jl >= jh) return;  // an x-face plane: written with its source
@@ -315,6 +395,7 @@ __device__ inline void mixed_store(float* __restrict__ g, float* t0, float* t1, 
   for (int v = warp; v < planes * rows; v += nwarps) {
     const int m = v / rows, jt = jl + v % rows;
     const int qt = m == 0 ? q : (m == 1 && q == 1 ? 0 : n - 1);
+    if (L == Layout::kSeg && (qt < o0 || qt >= o1)) continue;  // another rank's node
     const int js = jt == 0 ? 1 : (jt == n - 1 ? n - 2 : jt);
     const int color = ((q + js) & 1) ^ p ^ 1;
     const float* s = colour_row(t0, t1, t, js, color, color0) + ((k - 1 - p) >> 1);
@@ -442,17 +523,34 @@ __device__ inline void sweep_row(float* dst, const float* lo, const float* mid, 
   }
 }
 
+// kSeg: the rank's pad rows, body rows [o1 - g0, L) (global planes past n
+// - 1, never loaded or swept), written as the plain versions leave them:
+// 0, or (``copy``, K36) the initial guess's rows. Spread over every thread
+// of the launch, consecutive points across a warp; the stage writes no
+// point of them.
+__device__ inline void seg_pad_fill(const SegStageArgs& a, bool copy) {
+  const int nn = a.n * a.n, t0 = a.o1 - a.g0;
+  const int count = (a.L - t0) * nn, stride = gridDim.x * blockDim.x;
+  float* out = a.out + t0 * nn;
+  const float* src = copy ? a.in_s.body + t0 * nn : nullptr;
+  for (int v = blockIdx.x * blockDim.x + threadIdx.x; v < count; v += stride)
+    out[v] = copy ? src[v] : 0.0f;
+}
+
 // The stage. Prep (split::NoPrep, or K4's correction in prolong_smooth.cu)
 // has start(extra shared memory, geometry), load(q, geometry) (copies
 // issued with plane q's) and apply(stage colour 0's tile plane, 1's, q,
 // geometry, row lanes, color0), run on plane q once it has arrived and
 // before any half-sweep reads it (box_body: apply_row, the same a row).
 // ZERO: the initial guess is zero, nothing is loaded. L: the layout (the
-// header).
-template <int NITER, bool ZERO, Layout L = Layout::kRect, class Prep>
-__device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
+// header); Args: StageArgs, or SegStageArgs for kSeg.
+template <int NITER, bool ZERO, Layout L = Layout::kRect, class Prep, class Args>
+__device__ void stage_body(const Args& a, float* smem, Prep prep) {
   constexpr int H = 2 * NITER, D = stage_depth(H);
   const Geom t = geometry(a, H);
+  if constexpr (L == Layout::kSeg) {
+    if (t.i0 >= t.i1) return;  // a pad rank's block
+  }
   const int n = a.n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
   const RowLanes rl = row_lanes(a, t);
@@ -463,7 +561,7 @@ __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
     if constexpr (ZERO) {
       tile_zero(ring(0, q), ring(1, q), t, a.f);
     } else {
-      tile_load<L>(ring(0, q), ring(1, q), a.in, t, q, a.color0, warp, lane, nwarps);
+      tile_load<L>(ring(0, q), ring(1, q), in_base(a, q), t, q, a.color0, warp, lane, nwarps);
     }
     if constexpr (Prep::kActive) prep.load(q, t);
   };
@@ -479,7 +577,7 @@ __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
     return q >= max(t.i0 - H + s, 1) && q < min(t.i1 + H - s, n - 1);
   };
   auto colour_of = [&](int s) { return (s - 1) & 1 ? 1 - a.color0 : a.color0; };
-  auto f_row = [&](int q, int j, int pp) { return a.f + field_at<L>(n, q, j, 1 + pp); };
+  auto f_row = [&](int q, int j, int pp) { return f_base(a, q) + field_at<L>(n, q, j, 1 + pp); };
   float4 f_pre[H] = {};
   auto fetch = [&](int step) {
 #pragma unroll
@@ -535,8 +633,8 @@ __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
     const int qb = p - 1 - 2 * H;
     if (qb >= t.i0 && qb < t.i1) {
       if constexpr (mixed_bc(L)) {
-        mixed_store<L>(a.out, ring(0, qb), ring(1, qb), t, qb, a.color0, a.pin, warp, lane,
-                       nwarps);
+        mixed_store<L>(store_base(a), ring(0, qb), ring(1, qb), t, qb, a.color0, a.pin, warp,
+                       lane, nwarps, stored_lo(a), stored_hi(a));
       } else {
         tile_store(a.out, ring(0, qb), ring(1, qb), t, qb, a.color0, warp, lane, nwarps);
       }
@@ -554,10 +652,13 @@ __device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n"
 // stores as stage_body, so the same values; Prep's coarse planes all
 // resident too (its depth). (f held in shared memory beside the tiles
 // measured no faster: PERF.md.)
-template <int NITER, bool ZERO, Layout L = Layout::kRect, class Prep>
-__device__ void box_body(const StageArgs& a, float* smem, Prep prep) {
+template <int NITER, bool ZERO, Layout L = Layout::kRect, class Prep, class Args>
+__device__ void box_body(const Args& a, float* smem, Prep prep) {
   constexpr int H = 2 * NITER;
   const Geom t = geometry(a, H);
+  if constexpr (L == Layout::kSeg) {
+    if (t.i0 >= t.i1) return;  // a pad rank's block
+  }
   const int n = a.n, planes = tile_planes(a.bi, H, true), q0 = t.i0 - H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
   const RowLanes rl = row_lanes(a, t);
@@ -567,7 +668,7 @@ __device__ void box_body(const StageArgs& a, float* smem, Prep prep) {
     if constexpr (ZERO) {
       tile_zero(tile(0, q), tile(1, q), t, a.f);
     } else {
-      tile_load<L>(tile(0, q), tile(1, q), a.in, t, q, a.color0, warp, lane, nwarps);
+      tile_load<L>(tile(0, q), tile(1, q), in_base(a, q), t, q, a.color0, warp, lane, nwarps);
     }
     if constexpr (Prep::kActive) prep.load(q, t);
   }
@@ -593,7 +694,7 @@ __device__ void box_body(const StageArgs& a, float* smem, Prep prep) {
       const int q = qa + v / rows, j = jl + v % rows;
       const int pp = parity(q, j, color);
       sweep_row<mixed_bc(L)>(tile(c, q), tile(1 - c, q - 1), tile(1 - c, q),
-                             tile(1 - c, q + 1), a.f + field_at<L>(n, q, j, 1 + pp),
+                             tile(1 - c, q + 1), f_base(a, q) + field_at<L>(n, q, j, 1 + pp),
                              (j - t.jb0) * t.W - t.kb0, t.W, kl, min(kh, (n - 1 - pp) >> 1), pp,
                              a.h2, rl, false, float4{},
                              mixed_bc(L) ? mixed_faces<L>(a, q, j, pp) : MixedFaces{});
@@ -602,7 +703,8 @@ __device__ void box_body(const StageArgs& a, float* smem, Prep prep) {
   }
   for (int q = t.i0; q < t.i1; ++q) {
     if constexpr (mixed_bc(L)) {
-      mixed_store<L>(a.out, tile(0, q), tile(1, q), t, q, a.color0, a.pin, warp, lane, nwarps);
+      mixed_store<L>(store_base(a), tile(0, q), tile(1, q), t, q, a.color0, a.pin, warp, lane,
+                     nwarps, stored_lo(a), stored_hi(a));
     } else {
       tile_store(a.out, tile(0, q), tile(1, q), t, q, a.color0, warp, lane, nwarps);
     }
@@ -726,10 +828,33 @@ struct ProlongPrep {
   }
 };
 
-// Launch one stage kernel instantiation on the plan's grid; a cudaError_t.
-template <class Kernel, class... Extra>
-inline int launch_stage(Kernel kernel, const StageArgs& a, int threads, int smem,
-                        cudaStream_t stream, Extra... extra) {
+// K36's ProlongPrep (kSeg): ProlongPrep::load's copies from a coarse
+// field read through a segment, ``cs``, whose body row 0 is global coarse
+// plane cg0, its row looked up once a coarse row.
+struct SegProlongPrep : ProlongPrep {
+  Seg cs;
+  int cg0;
+
+  __device__ void load(int q, const Geom& t) const {
+    if (q != t.ia && !(q & 1)) return;
+    const int c_lo = q == t.ia ? q >> 1 : (q + 1) >> 1, c_hi = (q + 1) >> 1;
+    const int cols = t.kb - cka + 1, rows_c = (t.jb >> 1) - cja + 1;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+    for (int c = c_lo; c <= c_hi; ++c) {
+      for (int r = warp; r < rows_c; r += nwarps) {
+        float* d = plane(c) + r * width;
+        const float* src = cs.row(c - cg0) + (cja + r) * nc + cka;
+        for (int k = lane; k < cols; k += 32) cp_async4(d + k, src + k);
+      }
+    }
+  }
+};
+
+// Launch one stage kernel instantiation on the plan's grid (stage_blocks);
+// a cudaError_t.
+template <class Kernel, class Args, class... Extra>
+inline int launch_stage(Kernel kernel, const Args& a, int threads, int smem, cudaStream_t stream,
+                        Extra... extra) {
   if (const int err = split::raise_smem_limit((const void*)kernel)) return err;
   kernel<<<stage_blocks(a), threads, smem, stream>>>(a, extra...);
   return (int)cudaGetLastError();

@@ -19,13 +19,17 @@ geometry of ``ops.pallas_sharded`` (K28-K33): one kernel on a segmented
 block serves the ext and the halo form, ``gi0`` is the global plane of the
 first halo row (rank * L - 2 n_iter), masks, colours and pins use global
 indices, and the L owned planes equal K13-K15's rows of the whole field
-bit for bit. One geometry needs more than the JAX halo: where global
-plane n - 1 is the block's first row (L divides n - 1), the stage's BC
-copy there reads plane n - 2, the left halo's last row, which 2 n_iter
-in-place half-sweeps leave stale. There the stage takes 2 n_iter + 1
-left halo planes (and K36 n_iter + 1 coarse ones): a halo triple whose
-left buffer is that deep serves it, an ext tensor (2 n_iter a side)
-raises.
+bit for bit. K35 and K36 are K14's and K15's one-pass stages on the
+segments (rect.cuh's ``Layout::kSeg``; one launch a call for n_iter <= 2,
+a fresh body, the halos only read, pad rows written 0 by K35 and as e's
+by K36, the plan ``_stage_plan(..., seg_planes=)`` of the planes a
+rank tiles); K34 keeps its first form. One geometry needs more than the JAX
+halo: where global plane n - 1 is the block's first row (L divides n - 1),
+the stage's BC copy there reads plane n - 2, the left halo's last row,
+which 2 n_iter half-sweeps leave stale in a 2 n_iter halo. There the stage
+takes 2 n_iter + 1 left halo planes (and K36 n_iter + 1 coarse ones), so
+that plane n - 2 is swept to its final value: a halo triple whose left
+buffer is that deep serves it, an ext tensor (2 n_iter a side) raises.
 
 The boundary condition of the correction equation: homogeneous Neumann
 on every face, enforced by the BC pass (``apply_bcs_padded``: face
@@ -51,10 +55,11 @@ A wrapper takes the plain version for tensors on the CPU, launches its
 kernel for CUDA tensors (float32, contiguous, cubic fields; pin (2, n,
 n)), and raises for anything else: no fallback from the kernel to the
 plain version. Each kernel launch adds one to its entry in ``LAUNCHES``
-(every half-sweep and BC pass of K13 and K34-K36 counts as a launch of
-the stage's kernel). The sharded wrappers update a given ``u`` segment in
-place (its halo buffers are scratch afterwards) and return its body;
-``block_i`` is accepted and ignored (a VMEM tile).
+(every half-sweep and BC pass of K13, K34 and of K35's and K36's first
+forms counts as a launch of the stage's kernel). K34 updates a given ``u``
+segment in place (its halo buffers are scratch afterwards) and returns its
+body; K35 and K36 return a fresh body; ``block_i`` is accepted and ignored
+(a VMEM tile).
 """
 
 from __future__ import annotations
@@ -303,6 +308,14 @@ def _stage_slab(u, f, g_first: int, pin, h: float, n_iter: int, n: int, red_firs
     return u
 
 
+def _seg_planes(gi0, n_iter: int, n: int, L: int) -> int:
+    """The planes a K35 or K36 launch tiles (rect.cuh, seg_geometry): the
+    rank's rows clipped to n - 1, with plane n - 2 where plane n - 1 is row
+    0; at least 1, the plan of a rank of pad rows only."""
+    g0 = px._gi0_int(gi0) + 2 * n_iter
+    return max(1, min(g0 + L, n) - g0 + (g0 == n - 1))
+
+
 def _seg_on_cuda(pin, n: int, *segs, coarse=None) -> bool:
     """pallas_sharded's segment checks, plus the pin planes."""
     return _check_pin(pin, n, segs[0].body.device, px._segs_on_cuda(n, *segs, coarse=coarse))
@@ -376,16 +389,28 @@ def mixed_rb_smooth_from_zero_halo_plain(f3, pin, gi0, h: float, n_iter: int, n:
 def mixed_rb_smooth_from_zero_halo(f3, pin, gi0, h: float, n_iter: int, n: int, L: int,
                                    red_first: bool = True, block_i: int = 8):
     """mixed_rb_smooth_halo from an implicit zero initial guess: a fresh
-    (L, n, n) block. The CUDA form's first launch is K29's from-zero
-    half-sweep (from a zero field the folded reads are zero too), which
-    reads only f and writes the body and two scratch halo buffers; then
-    2 n_iter - 1 K34 half-sweeps and the BC pass, all counted as K35's."""
+    (L, n, n) block, its pad rows zero. The CUDA form for n_iter <= 2 is one
+    launch of K14's one-pass stage on the segment (f's rows read through it,
+    the BC pass at the store; bound: f's rows read and the body written, 8 B
+    a point, and the pins). Past n_iter 2 it keeps its first form, which no
+    solve runs: K29's from-zero half-sweep (from a zero field the folded
+    reads are zero too) into the body and two scratch halo buffers, then 2
+    n_iter - 1 K34 half-sweeps and the BC pass. Every launch counts as
+    K35's."""
     del block_i
     hh, kl = 2 * n_iter, _stage_kl(gi0, n_iter, n)
     f = px._seg(f3, kl, hh, L)
     if not _seg_on_cuda(pin, n, f):
         return mixed_rb_smooth_from_zero_halo_plain(f3, pin, gi0, h, n_iter, n, L, red_first)
     name, g0, h2 = "mixed_rb_smooth_from_zero_seg", px._gi0_int(gi0) + hh, h * h
+    if n_iter <= 2:
+        out = torch.empty_like(f.body)
+        _check(_lib().mg_seg_mixed_stage(
+            out.data_ptr(), *px._ptrs(f), pin.data_ptr(), kl, L, hh, n, g0, h2, int(red_first),
+            *ps._plan_args(n, n_iter, f.body.device, rect=True,
+                           seg_planes=_seg_planes(gi0, n_iter, n, L)), _stream()), name)
+        LAUNCHES[name] += 1
+        return out
     out = px._Seg(f.body.new_empty((kl, n, n)), torch.empty_like(f.body),
                   f.body.new_empty((hh, n, n)), 0)
     first, second = _colors(red_first)
@@ -442,15 +467,30 @@ def mixed_prolong_smooth_halo(ec3, e3, r3, pin, gi0, h: float, n_iter: int, n: i
     global plane n - 1 is the first row), the coarse triple with n_iter
     (there n_iter + 1) on the left and n_iter + 1 on the right (composite
     tails read off the shapes); gi0 = rank * L - 2 n_iter. A fresh (L, n,
-    n) block (e is left as it is). The CUDA form is one K36 launch
-    (correction + first black half-sweep into a fresh segment), 2 n_iter
-    - 1 K34 half-sweeps and the BC pass, all counted as K36's."""
+    n) block, its pad rows e's (e is left as it is). The CUDA form for
+    n_iter <= 2 is one launch of K15's one-pass stage on the segments (e +
+    P ec made as each plane reaches shared memory, the coarse rows read
+    through their segment, the BC pass at the store; bound: e's and r's
+    rows read and the body written, 12 B a fine point, the coarse rows and
+    the pins). Past n_iter 2 it keeps its first form, which no solve runs:
+    one launch of the correction and the first black half-sweep into a
+    fresh segment, 2 n_iter - 1 K34 half-sweeps and the BC pass. Every
+    launch counts as K36's."""
     del block_i
     hh = 2 * n_iter
     kl, c, e, r = _prolong_segs(ec3, e3, r3, gi0, n_iter, n, L)
     if not _seg_on_cuda(pin, n, e, r, coarse=c):
         return mixed_prolong_smooth_halo_plain(ec3, e3, r3, pin, gi0, h, n_iter, n, L)
     name, g0, h2 = "mixed_prolong_smooth_seg", px._gi0_int(gi0) + hh, h * h
+    if n_iter <= 2:
+        out = torch.empty_like(e.body)
+        _check(_lib().mg_seg_mixed_prolong_stage(
+            out.data_ptr(), *px._ptrs(c), c.kl, c.rh.shape[0] - c.r_off, *px._ptrs(e),
+            *px._ptrs(r), pin.data_ptr(), kl, L, hh, n, g0, h2,
+            *ps._plan_args(n, n_iter, e.body.device, prolong=True, rect=True,
+                           seg_planes=_seg_planes(gi0, n_iter, n, L)), _stream()), name)
+        LAUNCHES[name] += 1
+        return out
     out = px._Seg(e.body.new_empty((kl, n, n)), torch.empty_like(e.body),
                   e.body.new_empty((hh, n, n)), 0)
     _check(_lib().mg_seg_mixed_prolong_correct_black(

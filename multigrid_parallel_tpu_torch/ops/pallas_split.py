@@ -238,6 +238,8 @@ RECT_ROW_PAD = 4         # tile columns before slot 0 of a whole rect row (rect.
 RECT_BOX_MAX_N = 129     # rect levels up to this size take the box schedule (rect.cuh, box_body)
 RECT_MAX_THREADS = 576   # the rect stage kernels' launch bound (rect.cuh, kStageMaxThreads)
 RECT_REGISTERS = 112     # registers a thread of theirs may take under it (65,536 an SM)
+SEG_MAX_THREADS = 512    # K35's and K36's launch bound (rect.cuh, kSegStageMaxThreads)
+SEG_REGISTERS = 128      # registers a thread of theirs may take under it
 MSPLIT_STEPS_MAX_N = 65  # msplit levels up to this size take the fewest-steps plan (_steps_plan)
 
 
@@ -263,12 +265,13 @@ class StagePlan(NamedTuple):
     smem: int
     rect: bool = False
     box: bool = False
+    planes: int = None  # a segment stage's planes (_stage_plan's seg_planes), else n
 
     @property
     def tiles(self):
         """(planes, rows, slots): the number of boxes along each axis."""
         s = _slots(self.n, self.rect)
-        return (-(-self.n // self.bi), -(-self.n // self.bj), -(-s // self.bk))
+        return (-(-(self.planes or self.n) // self.bi), -(-self.n // self.bj), -(-s // self.bk))
 
     @property
     def blocks(self) -> int:
@@ -325,7 +328,7 @@ def _slots(n: int, rect: bool = False) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _stage_plan(n: int, n_iter: int, sms: int, prolong: bool = False,
-                rect: bool = False, msplit: bool = False) -> StagePlan:
+                rect: bool = False, msplit: bool = False, seg_planes: int = None) -> StagePlan:
     """The plan of one stage launch of n_iter (1 or 2) iterations on an n^3
     split level (``rect``: a plain level, K2's and K4's stage) for a card of
     ``sms`` SMs, within ``SMEM_MAX`` bytes of shared memory a block: a rect
@@ -347,14 +350,19 @@ def _stage_plan(n: int, n_iter: int, sms: int, prolong: bool = False,
     it tiles k only where whole rows fit fewer than 8 rows a block. The
     msplit stages (K22, K24: ``msplit``, the split layout) take K7's and
     K10's plans, and on a level up to ``MSPLIT_STEPS_MAX_N`` the
-    fewest-steps plan (``_steps_plan``)."""
+    fewest-steps plan (``_steps_plan``). ``seg_planes``: the plan of a
+    segment stage (K35, K36) that tiles that many planes of the level (one
+    rank's, the schedule still chosen by n), its ``tiles`` counting them
+    along i, within the kernels' ``SEG_MAX_THREADS``."""
     if n_iter not in (1, 2):
         raise ValueError(f"a stage launch runs 1 or 2 iterations, got {n_iter}")
+    if seg_planes is not None and (not rect or seg_planes < 1):
+        raise ValueError(f"seg_planes = {seg_planes}: a rect plan of one plane or more")
     if rect and n <= RECT_BOX_MAX_N:
-        return _box_plan(n, n_iter, sms, prolong)
+        return _box_plan(n, n_iter, sms, prolong, seg_planes)
     if msplit and n <= MSPLIT_STEPS_MAX_N:
         return _steps_plan(n, n_iter, sms, prolong)
-    return _wave_plan(n, n_iter, sms, prolong, rect)
+    return _wave_plan(n, n_iter, sms, prolong, rect, seg_planes)
 
 
 def _steps_plan(n: int, n_iter: int, sms: int, prolong: bool) -> StagePlan:
@@ -384,9 +392,13 @@ def _steps_plan(n: int, n_iter: int, sms: int, prolong: bool) -> StagePlan:
     return best[1]
 
 
-def _wave_plan(n: int, n_iter: int, sms: int, prolong: bool, rect: bool) -> StagePlan:
+def _wave_plan(n: int, n_iter: int, sms: int, prolong: bool, rect: bool,
+               seg_planes: int = None) -> StagePlan:
     """``_stage_plan``'s wavefront plan (every split level, rect levels
-    past ``RECT_BOX_MAX_N``)."""
+    past ``RECT_BOX_MAX_N``), or a segment stage's of ``seg_planes``."""
+    m = seg_planes or n
+    max_threads, registers = ((SEG_MAX_THREADS, SEG_REGISTERS) if seg_planes
+                              else (RECT_MAX_THREADS, RECT_REGISTERS))
     s = _slots(n, rect)
     halo = 2 * n_iter
     best = None
@@ -413,28 +425,29 @@ def _wave_plan(n: int, n_iter: int, sms: int, prolong: bool, rect: bool) -> Stag
             if -(-n // nj) != bj:  # only evened-out row tiles
                 continue
             rows = min(n, bj + 2 * halo)
-            nthreads = 32 * max(1, min((RECT_MAX_THREADS if rect else STAGE_MAX_THREADS) // 32,
+            nthreads = 32 * max(1, min((max_threads if rect else STAGE_MAX_THREADS) // 32,
                                        -(-rows * lanes // 32)))
             per_sm = min(2, SM_SMEM // (smem + 1024), 2048 // nthreads,
-                         65536 // (nthreads * RECT_REGISTERS) if rect else 2)
+                         65536 // (nthreads * registers) if rect else 2)
             if per_sm < 1:
                 break
-            ni = max(1, min(-(-n // STAGE_MIN_PLANES), per_sm * sms // (nj * nk)))
-            bi = -(-n // ni)
-            ni = -(-n // bi)
+            ni = max(1, min(-(-m // STAGE_MIN_PLANES), per_sm * sms // (nj * nk)))
+            bi = -(-m // ni)
+            ni = -(-m // bi)
             blocks = ni * nj * nk
             read = rows / bj * min(s, width) / bk * (bi + 6 * n_iter) / bi
             est = read * waste * -(-blocks // sms) / blocks
             if best is None or est < best[0] * (1 - 1e-9):
                 best = (est, StagePlan(n, n_iter, halo, k_halo, bi, bj, bk, nthreads, smem,
-                                       rect))
+                                       rect, planes=seg_planes))
     return best[1]
 
 
 BOX_ROW_LATENCY = 10  # a warp's pass over its tile rows, in units of one tile row's work
 
 
-def _box_plan(n: int, n_iter: int, sms: int, prolong: bool) -> StagePlan:
+def _box_plan(n: int, n_iter: int, sms: int, prolong: bool,
+              seg_planes: int = None) -> StagePlan:
     """The box plan of a small rect level (rect.cuh, box_body): whole rows,
     bi planes x bj rows a block, the pair whose estimated time is least
     (more blocks on a tie), within ``SMEM_MAX``. A block of the field's
@@ -443,21 +456,24 @@ def _box_plan(n: int, n_iter: int, sms: int, prolong: bool) -> StagePlan:
     interior) and one to store, its warps sweeping 32 / lanes rows at once
     (``_row_lanes``): a pass takes the longer of its warps' chain
     (``BOX_ROW_LATENCY``) and the row work of the blocks that share an SM,
-    in waves of the blocks the SMs hold at once."""
-    s, halo = _slots(n, True), 2 * n_iter
+    in waves of the blocks the SMs hold at once. ``seg_planes``: a segment
+    stage's plan of that many planes."""
+    s, halo, m = _slots(n, True), 2 * n_iter, seg_planes or n
+    max_threads, registers = ((SEG_MAX_THREADS, SEG_REGISTERS) if seg_planes
+                              else (RECT_MAX_THREADS, RECT_REGISTERS))
     width = _stage_width(n, s, 0, True)
     per_warp = 32 // _row_lanes(s)
     evened = _evened(n)
     best = None
-    for bi in evened:
+    for bi in _evened(m):
         for bj in evened:
             smem = _stage_smem(n_iter, bj, width, prolong, True, box_bi=bi)
             if smem > SMEM_MAX:
                 continue
             loaded = min(n, bi + 2 * halo) * min(n, bj + 2 * halo)
-            warps = max(1, min(RECT_MAX_THREADS // 32, -(-loaded // per_warp)))
-            per_sm = min(16, SM_SMEM // (smem + 1024), 65536 // (32 * warps * RECT_REGISTERS))
-            blocks = -(-n // bi) * -(-n // bj)
+            warps = max(1, min(max_threads // 32, -(-loaded // per_warp)))
+            per_sm = min(16, SM_SMEM // (smem + 1024), 65536 // (32 * warps * registers))
+            blocks = -(-m // bi) * -(-n // bj)
             waves = -(-blocks // (per_sm * sms))
             sharing = min(per_sm, -(-blocks // sms))
             regions = [min(n - 2, bi + 2 * (halo - lvl)) * min(n - 2, bj + 2 * (halo - lvl))
@@ -467,7 +483,7 @@ def _box_plan(n: int, n_iter: int, sms: int, prolong: bool) -> StagePlan:
                                   rows * sharing / per_warp) for rows in passes)
             if best is None or (est, -blocks) < best[0]:
                 best = ((est, -blocks), StagePlan(n, n_iter, halo, 0, bi, bj, s, 32 * warps,
-                                                  smem, True, True))
+                                                  smem, True, True, seg_planes))
     return best[1]
 
 
@@ -483,18 +499,21 @@ def _stage_chunks(n_iter: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_args_on(n: int, n_iter: int, index: int, prolong: bool, rect: bool, msplit: bool):
-    plan = _stage_plan(n, n_iter, _sms(index), prolong=prolong, rect=rect, msplit=msplit)
+def _plan_args_on(n: int, n_iter: int, index: int, prolong: bool, rect: bool, msplit: bool,
+                  seg_planes: int):
+    plan = _stage_plan(n, n_iter, _sms(index), prolong=prolong, rect=rect, msplit=msplit,
+                       seg_planes=seg_planes)
     args = (n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem)
     return args + (int(plan.box),) if rect else args
 
 
 def _plan_args(n: int, n_iter: int, device, prolong: bool = False, rect: bool = False,
-               msplit: bool = False):
+               msplit: bool = False, seg_planes: int = None):
     """The launcher's n_iter and plan arguments on ``device`` (the rect
-    launchers' with the plan's box flag last)."""
+    launchers' with the plan's box flag last; ``seg_planes``:
+    _stage_plan's)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return _plan_args_on(n, n_iter, index, prolong, rect, msplit)
+    return _plan_args_on(n, n_iter, index, prolong, rect, msplit, seg_planes)
 
 
 def _stage_launch(lib, er, eb, fr, fb, h2, n_iter, red_first, stream, name):

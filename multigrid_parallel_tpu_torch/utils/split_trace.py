@@ -2,10 +2,12 @@
 more checkouts of the port, in turns on one card: two versions of the
 split-colour kernels compared within one call, with the fused solve,
 which runs none of them, as the control; or, with ``--electrospray``, the
-electrospray's full, fold and split-colour tiers at 257^3.
+electrospray's full, fold and split-colour tiers at 257^3; or, with
+``--sharded-electrospray``, the i-sharded electrospray solve at 257^3 on
+one NCCL rank, with the full tier as the control.
 
     python -m multigrid_parallel_tpu_torch.utils.split_trace [ROOT ...] [--rounds R]
-                                                             [--electrospray]
+                                             [--electrospray | --sharded-electrospray]
 
 Each ROOT is a directory that holds a ``multigrid_parallel_tpu_torch``
 package (default: this checkout). Round r runs every ROOT once, each in a
@@ -22,10 +24,10 @@ span, each kernel name's summed ms, count and the device idle time
 just before its kernels (``idle_before``; a stage kernel's name carries
 its template arguments, which tell K1 from K2 and K7 from K8), and each
 smoothing stage call's device time by level (``stage_calls``: K1, K2, K4,
-K7, K8, K10, K13-K17, K19, K21, K22 and K24, the one-pass form's kernel,
-or a first form's head kernel and the half-sweeps that follow it, and the
-BC pass that ends a mixed-BC call), and each restriction call's
-(``restrict_calls``: K3, K9 and K18, a kernel a call, the first forms'
+K7, K8, K10, K13-K17, K19, K21, K22, K24 and K34-K36, the one-pass form's
+kernel, or a first form's head kernel and the half-sweeps that follow it,
+and the BC pass that ends a mixed-BC call), and each restriction call's
+(``restrict_calls``: K3, K9, K18 and K30, a kernel a call, the first forms'
 one thread a coarse point or the streaming stage's plan). The parent prints
 the lines as they come and the card's name and power limit, and at the
 end each path's solution of round 0 against the first ROOT's
@@ -39,7 +41,12 @@ in the production configuration (n_smooth 2, gamma 2 capped at 65^3, one
 inner cycle an outer step, rel_tol 1e-8) on the full tier (``full``,
 K13-K15 with K3 and K5, its phase 6), the fold tier (``fold``, K16-K20)
 and the split-colour tier (``split``, K22-K25 on the finest level over
-the fold cycle below it).
+the fold cycle below it). With ``--sharded-electrospray``: phase 11b of
+``chip_smoke.py``, the same solve through
+``parallel.sharded_mixed_padded.make_sharded_mixed_padded_df_solver`` on
+one rank of an NCCL group (world size 1, started in the child process;
+the plan shards six levels, L = 320 at 257^3: K34-K36, K30 and K32),
+``sharded``, and the full tier, ``full``, as the control.
 """
 
 from __future__ import annotations
@@ -164,7 +171,10 @@ STAGE_KERNELS = {"rect_prolong_stage_kernel": "K4", "split_prolong_stage_kernel"
                  "mixed_prolong_stage_kernel": "K15", "mixed_prolong_correct_black_kernel": "K15",
                  "mixed_half_sweep_kernel": "K13", "msplit_prolong_stage_kernel": "K24",
                  "msplit_prolong_correct_red_kernel": "K24",
-                 "msplit_half_sweep_from_zero_kernel": "K22", "msplit_half_sweep_kernel": "K21"}
+                 "msplit_half_sweep_from_zero_kernel": "K22", "msplit_half_sweep_kernel": "K21",
+                 "seg_mixed_half_sweep_kernel": "K34", "seg_half_sweep_from_zero_kernel": "K29",
+                 "mixed_seg_stage_kernel": "K35", "mixed_seg_prolong_stage_kernel": "K36",
+                 "seg_mixed_prolong_correct_black_kernel": "K36"}
 FIRST_FORM = {"rb_half_sweep_from_zero_kernel": ("rb_half_sweep_kernel",
                                                  "mixed_half_sweep_kernel"),
               "prolong_correct_black_kernel": ("rb_half_sweep_kernel",),
@@ -178,11 +188,20 @@ FIRST_FORM = {"rb_half_sweep_from_zero_kernel": ("rb_half_sweep_kernel",
               "msplit_half_sweep_from_zero_kernel": ("msplit_half_sweep_kernel",),
               "msplit_half_sweep_kernel": ("msplit_half_sweep_kernel",),
               "msplit_prolong_correct_red_kernel": ("msplit_prolong_correct_black_kernel",),
-              "msplit_prolong_correct_black_kernel": ("msplit_half_sweep_kernel",)}
+              "msplit_prolong_correct_black_kernel": ("msplit_half_sweep_kernel",),
+              "seg_half_sweep_from_zero_kernel": ("seg_half_sweep_kernel",
+                                                  "seg_mixed_half_sweep_kernel"),
+              "seg_mixed_half_sweep_kernel": ("seg_mixed_half_sweep_kernel",),
+              "seg_mixed_prolong_correct_black_kernel": ("seg_mixed_half_sweep_kernel",)}
 HEAD_SWEEPS = {"msplit_prolong_correct_red_kernel": 0}  # half-sweeps a head counts (else 1)
 BC_PASS = {"mixed_fold_half_sweep_kernel": "mixed_fold_bc_pass_kernel",
            "mixed_half_sweep_kernel": "mixed_bc_pass_kernel",
-           "msplit_half_sweep_kernel": "msplit_bc_pass_kernel"}
+           "msplit_half_sweep_kernel": "msplit_bc_pass_kernel",
+           "seg_mixed_half_sweep_kernel": "seg_mixed_bc_pass_kernel"}
+# a from-zero head followed by a mixed-BC half-sweep is the first form of another
+# stage: K2's with K13's half-sweeps is K14's, K29's with K34's K35's
+RELABEL = {("K2", "mixed_half_sweep_kernel"): "K14",
+           ("K29", "seg_mixed_half_sweep_kernel"): "K35"}
 
 
 def stage_label(name):
@@ -197,7 +216,12 @@ def stage_label(name):
     later launch of a K14 or K15 call; msplit_stage_kernel<NITER, VEC,
     ZERO> K22, or a later launch of a K22 or K24 call; the first form's
     mixed_fold_half_sweep_kernel<FromZero> heads K17 where true, K16 where
-    false or without arguments."""
+    false or without arguments. The i-sharded electrospray's:
+    mixed_seg_stage_kernel is K35, mixed_seg_prolong_stage_kernel K36 (their
+    one-pass stages); the first forms' seg_mixed_half_sweep_kernel heads
+    K34, seg_mixed_prolong_correct_black_kernel K36, and K29's
+    seg_half_sweep_from_zero_kernel K35 where K34's half-sweeps follow it
+    (``stage_calls``)."""
     base, _, args = name.partition("<")
     args = [a.strip() for a in args.rstrip(">").split(",")] if args else []
     if base == "rect_stage_kernel":
@@ -228,7 +252,8 @@ def stage_calls(intervals, sizes, n_smooth=2):
     form its one kernel (K24's first form: its red correction, the black
     correction's half-sweep, three half-sweeps and the BC pass), a fold
     stage's ceil(n_smooth / 2) launches, the loaded stage's after the
-    first. ``sizes`` maps (kernel name without its arguments, shape) to
+    first; K29's from-zero head followed by K34's half-sweeps is K35's
+    first form. ``sizes`` maps (kernel name without its arguments, shape) to
     the level's n (a shape without its shared memory where the trace has
     none). Returns
     {"K4 n=257": [calls, summed ms, median ms a call], ...}."""
@@ -237,8 +262,9 @@ def stage_calls(intervals, sizes, n_smooth=2):
         base = name.split("<")[0]
         label = stage_label(name)
         if sweep and base in sweep and groups[-1][3] < 2 * n_smooth:
-            if groups[-1][0][1] == "K2" and base == "mixed_half_sweep_kernel":
-                groups[-1][0] = (groups[-1][0][0], "K14")
+            relabel = RELABEL.get((groups[-1][0][1], base))
+            if relabel:
+                groups[-1][0] = (groups[-1][0][0], relabel)
             groups[-1][2].append((b - a) / 1e3)
             groups[-1][3] += 1
             sweep = FIRST_FORM.get(base, (base,))
@@ -267,11 +293,12 @@ def stage_calls(intervals, sizes, n_smooth=2):
 # coarse point) and the streaming stage (restrict.cuh)
 RESTRICT_KERNELS = {"residual_restrict_kernel": "K3", "split_residual_restrict_kernel": "K9",
                     "residual_restrict_fold_kernel": "K18", "rect_restrict_kernel": "K3",
-                    "split_restrict_kernel": "K9", "fold_restrict_kernel": "K18"}
+                    "split_restrict_kernel": "K9", "fold_restrict_kernel": "K18",
+                    "seg_residual_restrict_kernel": "K30"}
 
 
 def restrict_calls(intervals, sizes):
-    """Each K3, K9 and K18 call's device time by level, ``sizes`` as
+    """Each K3, K9, K18 and K30 call's device time by level, ``sizes`` as
     stage_calls' (``_stage_sizes``): {"K3 n=257": [calls, summed ms,
     median ms a call], ...}."""
     out = {}
@@ -347,6 +374,73 @@ def _stage_sizes(hier, sms):
     return out
 
 
+def _seg_sizes(hier, sms, plan):
+    """(kernel name, shape) -> n for the i-sharded electrospray's stage and
+    restriction kernels on one rank of ``plan`` (a ShardPlan; depth d at L =
+    plan.local_planes(d), halos of 4 planes a side), as _stage_sizes: the
+    first forms' one thread a point of the rows they span (K34's half-sweeps
+    L + 6, K29's and K36's heads L + 8; K30 a coarse point of its L / 2
+    planes), the one-pass stages from their plans of the planes they tile
+    (where the package has them)."""
+    from multigrid_parallel_tpu_torch.ops import pallas_split as ps
+
+    out = {}
+
+    def add(name, blocks, smem):
+        out[(name, (blocks, 1, 1, smem))] = n
+        out[(name, (blocks, 1, 1))] = n
+
+    for depth in range(plan.n_sharded):
+        n, L = hier.sizes[hier.num_levels - 1 - depth], plan.local_planes(depth)
+        nc = (n + 1) // 2
+        add("seg_mixed_half_sweep_kernel", -(-(L + 6) * n * n // 256), 0)
+        add("seg_half_sweep_from_zero_kernel", -(-(L + 8) * n * n // 256), 0)
+        add("seg_mixed_prolong_correct_black_kernel", -(-(L + 8) * n * n // 256), 0)
+        add("seg_residual_restrict_kernel", -(-(L // 2) * nc * nc // 256), 0)
+        for name, prolong in (("mixed_seg_stage_kernel", False),
+                              ("mixed_seg_prolong_stage_kernel", True)):
+            try:  # a checkout without the one-pass segment stages
+                stage = ps._stage_plan(n, 2, sms, prolong=prolong, rect=True,
+                                       seg_planes=min(L, n))
+            except TypeError:
+                continue
+            add(name, stage.blocks, stage.smem)
+    return out
+
+
+def _sharded_electrospray(dev):
+    """The one-rank sharded electrospray solve (world size 1 on a free
+    localhost port, started here) and the full tier: (hierarchy, solves,
+    unpacks, sharded plan)."""
+    import torch.distributed as dist
+
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch import mixed_padded as mp
+    from multigrid_parallel_tpu_torch.mixed_bc import MixedBCSolver
+    from multigrid_parallel_tpu_torch.parallel import sharded as sh
+    from multigrid_parallel_tpu_torch.parallel import sharded_mixed_padded as smp
+    from multigrid_parallel_tpu_torch.parallel.launch import _free_port
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    mesh = sh.make_mesh(1)
+    es = mg.electrospray_problem()
+    hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7, length=es.length)
+    solver = MixedBCSolver(es, hier, n_smooth=2, gamma=2, gamma_min_n=65, device=mesh.device)
+    kw = dict(rel_tol=1e-8, max_cycles=100, inner_cycles=1)
+    sharded, plan = smp.make_sharded_mixed_padded_df_solver(solver, mesh, **kw)
+    if (plan.n_sharded, plan.local_planes(0)) != (6, 320):
+        raise RuntimeError(f"not the production plan: {plan}")
+    sharded_state = smp.setup_mixed_df_problem_sharded(solver, mesh, plan)
+    full = mp.make_mixed_padded_df_solver(solver, **kw)
+    full_state = mp.setup_mixed_df_problem(solver)
+    solves = {"sharded": lambda: sharded(*sharded_state), "full": lambda: full(*full_state)}
+    return (hier, solves,
+            {"sharded": lambda out: smp.unpack_mixed_solution_sharded(
+                sh.gather_global(out[0], mesh), sh.gather_global(out[1], mesh), hier),
+             "full": lambda out: mp.unpack_mixed_solution(out[0], out[1], hier)}, plan)
+
+
 def _solves(electrospray: bool, dev):
     """(hierarchy, {label: solve}, {label: unpack}) of the paths traced:
     the split and the fused Dirichlet solves, or the electrospray's full,
@@ -391,7 +485,8 @@ def _solves(electrospray: bool, dev):
              "fused": lambda out: pk.df_to_f64(out[0], out[1])})
 
 
-def _child(root: Path, walls: int, traces: int, electrospray: bool, save: Path) -> None:
+def _child(root: Path, walls: int, traces: int, electrospray: bool, save: Path,
+           sharded: bool = False) -> None:
     sys.path[0] = str(root)  # the script's own directory: the ROOT's package instead
     import torch
 
@@ -403,8 +498,13 @@ def _child(root: Path, walls: int, traces: int, electrospray: bool, save: Path) 
     _build.build()
     _build.load()
     dev = torch.device("cuda")
-    hier, solves, unpack = _solves(electrospray, dev)
-    sizes = _stage_sizes(hier, torch.cuda.get_device_properties(0).multi_processor_count)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if sharded:
+        hier, solves, unpack, plan = _sharded_electrospray(dev)
+        sizes = {**_stage_sizes(hier, sms), **_seg_sizes(hier, sms, plan)}
+    else:
+        hier, solves, unpack = _solves(electrospray, dev)
+        sizes = _stage_sizes(hier, sms)
     result = {"root": str(root)}
     for label, solve in solves.items():
         solve()
@@ -443,6 +543,10 @@ def _child(root: Path, walls: int, traces: int, electrospray: bool, save: Path) 
             "restrict_calls": restricts,
         })
     print(json.dumps(result), flush=True)
+    if sharded:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 def main(argv=None) -> int:
@@ -451,13 +555,17 @@ def main(argv=None) -> int:
     parser.add_argument("--rounds", type=int, default=2)
     parser.add_argument("--walls", type=int, default=9)
     parser.add_argument("--traces", type=int, default=3)
-    parser.add_argument("--electrospray", action="store_true",
-                        help="trace the electrospray's full, fold and split tiers instead")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--electrospray", action="store_true",
+                      help="trace the electrospray's full, fold and split tiers instead")
+    mode.add_argument("--sharded-electrospray", action="store_true",
+                      help="trace the one-rank i-sharded electrospray solve and the full tier")
     parser.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     parser.add_argument("--save", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.child is not None:
-        _child(args.child.resolve(), args.walls, args.traces, args.electrospray, args.save)
+        _child(args.child.resolve(), args.walls, args.traces, args.electrospray, args.save,
+               args.sharded_electrospray)
         return 0
     try:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -474,7 +582,9 @@ def main(argv=None) -> int:
                 saved[i].mkdir(exist_ok=True)
                 run = subprocess.run([sys.executable, str(HERE), "--child", str(roots[i]),
                                       "--walls", str(args.walls), "--traces", str(args.traces)]
-                                     + ["--electrospray"] * args.electrospray + save,
+                                     + ["--electrospray"] * args.electrospray
+                                     + ["--sharded-electrospray"] * args.sharded_electrospray
+                                     + save,
                                      cwd=roots[i], capture_output=True, text=True)
                 lines = run.stdout.strip().splitlines()
                 if run.returncode or not lines:

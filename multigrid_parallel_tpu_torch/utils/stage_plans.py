@@ -1,7 +1,8 @@
 """Time the rect stage kernels (K2's and K4's, ops/csrc/rect.cuh), with
 ``--fold`` the same stage on the electrospray's fold layout (K17's, K16's
 on a loaded field, and K19's), with ``--mixed`` on its full layout (K14's
-and K15's), with ``--msplit`` the split pair's mixed stage (K22's and
+and K15's), with ``--seg`` on one rank's segments of an i-sharded field
+(K35's and K36's), with ``--msplit`` the split pair's mixed stage (K22's and
 K24's, ops/csrc/split.cuh with MIXED), or, with ``--restrict``, the
 streaming restriction stage (K3's, K9's and, on the fold layout, K18's,
 ops/csrc/restrict.cuh; K18's first form beside it) on candidate plans at
@@ -11,11 +12,14 @@ block sizes, each held bit for bit against its plain version.
     python -m multigrid_parallel_tpu_torch.utils.stage_plans [--sizes 9 17 33 65 129]
                                                              [--reps 20]
                                                              [--restrict | --fold | --mixed
-                                                              | --msplit]
+                                                              | --seg | --msplit]
 
 For each size and kernel (K2 from zero, K4, both at n_iter 2; K17, K16
 and K19 likewise, with the electrospray's pins and coarse signs; K14 and
-K15 with its pins; K22 and K24 with its pin packs and coarse signs, on the
+K15 with its pins; K35 and K36 likewise on rank 1's segments of L = 320
+and 96 planes (rank 0's where the level has no rank 1: one rank's L =
+320, four ranks' L = 96 at 129^3), by default at 129^3 and 257^3, the plans
+tiling the rank's planes; K22 and K24 with its pin packs and coarse signs, on the
 msplit planner's plan, K7's and K10's and wavefront plans of several
 block sizes; or K3, K9 and K18, K18's first form as the plan
 "first_form") and plan, one JSON line: the plan, whether the output equals the
@@ -178,27 +182,27 @@ def time_msplit(n, sms, reps, dev):
                   flush=True)
 
 
-def box(n, bi, bj, prolong, n_iter=2):
-    """A box plan of bi planes x bj rows (whole rows), or None where it does
-    not fit."""
+def box(n, bi, bj, prolong, n_iter=2, max_threads=ps.RECT_MAX_THREADS):
+    """A box plan of bi planes x bj rows (whole rows), at most
+    ``max_threads`` threads, or None where it does not fit."""
     s, halo = n // 2, 2 * n_iter
     smem = ps._stage_smem(n_iter, bj, ps._stage_width(n, s, 0, True), prolong, True, box_bi=bi)
     if smem > ps.SMEM_MAX:
         return None
     rows = min(n, bi + 2 * halo) * min(n, bj + 2 * halo)
-    threads = 32 * max(1, min(ps.RECT_MAX_THREADS // 32, -(-rows * ps._row_lanes(s) // 32)))
+    threads = 32 * max(1, min(max_threads // 32, -(-rows * ps._row_lanes(s) // 32)))
     return ps.StagePlan(n, n_iter, halo, 0, bi, bj, s, threads, smem, True, True)
 
 
-def wave(n, bi, bj, prolong, n_iter=2):
-    """A wavefront plan of bi planes x bj rows (whole rows), or None where
-    it does not fit."""
+def wave(n, bi, bj, prolong, n_iter=2, max_threads=ps.RECT_MAX_THREADS):
+    """A wavefront plan of bi planes x bj rows (whole rows), at most
+    ``max_threads`` threads, or None where it does not fit."""
     s, halo = n // 2, 2 * n_iter
     smem = ps._stage_smem(n_iter, bj, ps._stage_width(n, s, 0, True), prolong, True)
     if smem > ps.SMEM_MAX:
         return None
     rows = min(n, bj + 2 * halo)
-    threads = 32 * max(1, min(ps.RECT_MAX_THREADS // 32, -(-rows * ps._row_lanes(s) // 32)))
+    threads = 32 * max(1, min(max_threads // 32, -(-rows * ps._row_lanes(s) // 32)))
     return ps.StagePlan(n, n_iter, halo, 0, bi, bj, s, threads, smem, True, False)
 
 
@@ -206,21 +210,23 @@ def evened(n, b):
     return -(-n // -(-n // min(b, n)))
 
 
-def candidates(n, prolong, sms):
+def candidates(n, prolong, sms, planes=None):
     """The planner's plan, the wavefront's, and box plans of square blocks
-    and wavefront plans of a few box sizes."""
-    plans = {"planner": ps._stage_plan(n, 2, sms, prolong=prolong, rect=True),
-             "wave": ps._wave_plan(n, 2, sms, prolong, True)}
+    and wavefront plans of a few box sizes; ``planes``: a segment stage's
+    plans of that many planes (their bi evened over them, at most
+    ``SEG_MAX_THREADS`` threads)."""
+    m, cap = (planes, ps.SEG_MAX_THREADS) if planes else (n, ps.RECT_MAX_THREADS)
+    plans = {"planner": ps._stage_plan(n, 2, sms, prolong=prolong, rect=True,
+                                       seg_planes=planes),
+             "wave": ps._wave_plan(n, 2, sms, prolong, True, planes)}
     for b in (1, 2, 3, 4, 6, 8, 10, 12, 16, 24, 33):
-        b = evened(n, b)
-        plan = box(n, b, b, prolong)
+        plan = box(n, evened(m, b), evened(n, b), prolong, max_threads=cap)
         if plan is not None:
-            plans[f"box{b}x{b}"] = plan
+            plans[f"box{plan.bi}x{plan.bj}"] = plan._replace(planes=planes)
     for bi, bj in ((8, 4), (8, 10), (16, 4), (16, 6), (33, 4)):
-        bi, bj = evened(n, bi), evened(n, bj)
-        plan = wave(n, bi, bj, prolong)
+        plan = wave(n, evened(m, bi), evened(n, bj), prolong, max_threads=cap)
         if plan is not None and n >= 65:
-            plans[f"wave{bi}x{bj}"] = plan
+            plans[f"wave{plan.bi}x{plan.bj}"] = plan._replace(planes=planes)
     return plans
 
 
@@ -349,9 +355,85 @@ def time_electrospray(n, sms, reps, dev, fold):
                   flush=True)
 
 
+def seg_parts(x, rank, L, kl, kr):
+    """Rank ``rank``'s own copies of its (local, lh, rh) planes of the
+    global field x; zeros past the chain's ends."""
+    ext = torch.cat([x.new_zeros((kl,) + x.shape[1:]), x, x.new_zeros((kr,) + x.shape[1:])])
+    lo = rank * L
+    return (ext[kl + lo:kl + lo + L].clone(), ext[lo:lo + kl].clone(),
+            ext[kl + lo + L:kl + lo + L + kr].clone())
+
+
+def time_seg(n, L, sms, reps, dev):
+    """One JSON line a (kernel, plan) at level n for segments of L planes:
+    K35 from zero (red first) and K36 at n_iter 2 on rank 1's segments (rank
+    0's where 2 L > n) of random fields with the electrospray's pins, each
+    candidate plan of the rank's planes (``candidates``) launched through
+    the segment launchers, its output against the plain version and its
+    median device time over ``reps`` launches from a trace of its own."""
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed as pm
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as px
+
+    es = mg.electrospray_problem()
+    h, nc, hh, n_iter = es.length / (n - 1), (n + 1) // 2, 4, 2
+    rank = 1 if 2 * L <= n else 0
+    ranks = max(rank + 2, -(-n // L))
+    rng = np.random.default_rng(n + L)
+    f, e = (torch.from_numpy(rng.standard_normal((ranks * L, n, n)).astype(np.float32)).to(dev)
+            for _ in range(2))
+    ec = torch.from_numpy(rng.standard_normal((ranks * L // 2, nc, nc)).astype(np.float32))
+    ec = ec.to(dev)
+    pin = pm.dirichlet_pin_planes(es, n, dev)
+    e[:n] = pm.apply_bcs_padded(e[:n], pin)
+    gi0, g0 = rank * L - hh, rank * L
+    kl = pm._stage_kl(gi0, n_iter, n)
+    f3, e3 = seg_parts(f, rank, L, kl, hh), seg_parts(e, rank, L, kl, hh)
+    c3 = seg_parts(ec, rank, L // 2, kl - n_iter, n_iter + 1)
+    fs, es_, cs = px._seg(f3, kl, hh, L), px._seg(e3, kl, hh, L), px._seg(c3, kl - n_iter,
+                                                                          n_iter + 1, L // 2)
+    planes, lib = pm._seg_planes(gi0, n_iter, n, L), pk._lib()
+
+    def args(plan):
+        return (plan.n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem,
+                int(plan.box), pk._stream())
+
+    def k35(plan):
+        out = torch.empty((L, n, n), device=dev)
+        pk._check(lib.mg_seg_mixed_stage(out.data_ptr(), *px._ptrs(fs), pin.data_ptr(), kl, L,
+                                         hh, n, g0, h * h, 1, *args(plan)), "stage_plans")
+        return out
+
+    def k36(plan):
+        out = torch.empty((L, n, n), device=dev)
+        pk._check(lib.mg_seg_mixed_prolong_stage(
+            out.data_ptr(), *px._ptrs(cs), cs.kl, n_iter + 1, *px._ptrs(es_), *px._ptrs(fs),
+            pin.data_ptr(), kl, L, hh, n, g0, h * h, *args(plan)), "stage_plans")
+        return out
+
+    stages = {"K35": (k35, pm.mixed_rb_smooth_from_zero_halo_plain(f3, pin, gi0, h, n_iter, n,
+                                                                    L)),
+              "K36": (k36, pm.mixed_prolong_smooth_halo_plain(c3, e3, f3, pin, gi0, h, n_iter,
+                                                              n, L))}
+    for kernel, (launch_on, want) in stages.items():
+        for label, plan in candidates(n, kernel == "K36", sms, planes).items():
+            exact = bool(torch.equal(launch_on(plan), want))
+            torch.cuda.synchronize()
+            times = [(b - a) / 1e3 for a, b, name, *_ in
+                     kernel_intervals(lambda: [launch_on(plan) for _ in range(reps)])
+                     if name.startswith("mixed_seg")]
+            print(json.dumps({"n": n, "L": L, "rank": rank, "planes": planes, "kernel": kernel,
+                              "plan": label, "box": plan.box, "bi": plan.bi, "bj": plan.bj,
+                              "blocks": plan.blocks, "threads": plan.threads, "smem": plan.smem,
+                              "exact": exact,
+                              "device_ms": statistics.median(times) if times else None}),
+                  flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--sizes", type=int, nargs="+", default=[9, 17, 33, 65, 129])
+    parser.add_argument("--sizes", type=int, nargs="+",
+                        help="level sizes (default 9 17 33 65 129; with --seg 129 257)")
     parser.add_argument("--reps", type=int, default=20)
     group = parser.add_mutually_exclusive_group()
     group.add_argument("--restrict", action="store_true",
@@ -361,6 +443,9 @@ def main(argv=None) -> int:
                        help="time K17's, K16's and K19's fold stages instead")
     group.add_argument("--mixed", action="store_true",
                        help="time K14's and K15's full-layout mixed stages instead")
+    group.add_argument("--seg", action="store_true",
+                       help="time K35's and K36's stages on segments of 320 and 96 planes "
+                            "instead")
     group.add_argument("--msplit", action="store_true",
                        help="time K22's and K24's mixed stages on the split pair instead")
     args = parser.parse_args(argv)
@@ -371,6 +456,13 @@ def main(argv=None) -> int:
     print(f"[card] {card}", flush=True)
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if args.sizes is None:
+        args.sizes = [129, 257] if args.seg else [9, 17, 33, 65, 129]
+    if args.seg:
+        for n in args.sizes:
+            for L in (320, 96):
+                time_seg(n, L, sms, args.reps, dev)
+        return 0
     if args.restrict:
         for n in args.sizes:
             time_restrict(n, sms, args.reps, dev)

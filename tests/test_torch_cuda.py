@@ -1681,7 +1681,130 @@ def test_sharded_mixed_kernels_match_plain_and_single_device_on_card(cuda, kerne
         outs.append(got)
     got = torch.cat(outs)
     assert torch.equal(got[:n], want) and not got[n:].any()
-    assert tpm.LAUNCHES == {**dict.fromkeys(tpm.KERNELS, 0), name: 5 * D}
+    per_call = 5 if kernel == "K34" else 1  # K35 and K36: one-pass stages
+    assert tpm.LAUNCHES == {**dict.fromkeys(tpm.KERNELS, 0), name: per_call * D}
+
+
+def _seg_triples(x, rank, L, kl, kr, n, tail=0):
+    """Rank ``rank``'s (local, lh, rhc) triple of the global field x (n
+    valid planes, ``tail`` local tail planes in rhc), its halo rows past the
+    field's edge (negative planes, planes past n - 1) NaN."""
+    import torch_sharded_ranks as rk
+
+    body, lh, rh = rk.rank_parts(x, rank, L, kl, kr, tail)
+    g0 = rank * L
+    lh[:max(0, min(kl, kl - g0))] = float("nan")  # planes g0 - kl .. -1
+    rh[tail + max(0, n - g0 - L):] = float("nan")  # planes g0 + L + (n - g0 - L) .. on
+    return body, lh, rh
+
+
+# (n, L, ranks): every geometry of the stage's emulation (tests/test_torch_seg_stage.py) at
+# 9^3-257^3: rank 0, interior ranks, plane n - 1 at a rank's row 0 (9 / 8, 33 / 16, 257 / 64),
+# pad tails, ranks of pad rows only, the four-rank (L = 96 at 257^3) and the one-rank (320)
+# production segments
+SEG_STAGE_CASES = [(9, 8, 2), (17, 6, 4), (33, 16, 3), (65, 24, 4), (129, 48, 4), (257, 96, 4),
+                   (257, 320, 1), (257, 64, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,ranks", SEG_STAGE_CASES)
+def test_k35_k36_seg_stages_match_plain_on_card(cuda, n, L, ranks):
+    """The one-pass segment stages K35 (both orders) and K36 on every
+    rank of the geometry, n_iter 1-3, with the electrospray's pins and
+    random ones: each body bit for bit its plain version, on fields random
+    at every plane (pad planes too), the halo rows past the field's edge
+    NaN, the allocator poisoned with NaN before each call (a point left
+    unwritten shows); exactly one launch a call at n_iter <= 2 (7 at 3, the
+    first form) and no other kernel; at n_iter 2 the stitched bodies equal
+    K14's and K15's on the whole field, their pad rows 0 (K35) and e's
+    (K36); the inputs left as they were."""
+    es = tmg.electrospray_problem()
+    h, nc, lc = es.length / (n - 1), (n + 1) // 2, L // 2
+    rng = np.random.default_rng(260 + n + L)
+    f, e = (torch.from_numpy(rng.standard_normal((ranks * L, n, n)).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    ec = torch.from_numpy(rng.standard_normal((ranks * lc, nc, nc)).astype(np.float32)).to(cuda)
+    for kind in ("electrospray", "random"):
+        pin = _mixed_pins(kind, n, cuda, rng)
+        e[:n] = tpm.apply_bcs_padded(e[:n], pin)  # BC-consistent, as the cycle hands it over
+        for n_iter in (1, 2, 3):
+            hh, calls = 2 * n_iter, 1 if n_iter <= 2 else 7
+            k35, k36 = [], []
+            for r in range(ranks):
+                gi0 = r * L - hh
+                kl = tpm._stage_kl(gi0, n_iter, n)
+                f3 = _seg_triples(f, r, L, kl, hh, n, tail=2)
+                e3 = _seg_triples(e, r, L, kl, hh, n)
+                ec3 = _seg_triples(ec, r, lc, kl - n_iter, n_iter + 1, nc, tail=1)
+                before = [t.clone() for t in (*f3, *e3, *ec3)]
+                for red_first in (True, False):
+                    want = tpm.mixed_rb_smooth_from_zero_halo_plain(f3, pin, gi0, h, n_iter, n,
+                                                                    L, red_first)
+                    _poison_allocator((L, n, n), cuda)
+                    tpm.reset_launches()
+                    got = tpm.mixed_rb_smooth_from_zero_halo(f3, pin, gi0, h, n_iter, n, L,
+                                                             red_first)
+                    assert tpm.LAUNCHES == {**dict.fromkeys(tpm.KERNELS, 0),
+                                            "mixed_rb_smooth_from_zero_seg": calls}
+                    assert torch.equal(got, want), (kind, n_iter, r, red_first)
+                    if red_first:
+                        k35.append(got)
+                want = tpm.mixed_prolong_smooth_halo_plain(ec3, e3, f3, pin, gi0, h, n_iter, n,
+                                                           L)
+                _poison_allocator((L, n, n), cuda)
+                tpm.reset_launches()
+                got = tpm.mixed_prolong_smooth_halo(ec3, e3, f3, pin, gi0, h, n_iter, n, L)
+                assert tpm.LAUNCHES == {**dict.fromkeys(tpm.KERNELS, 0),
+                                        "mixed_prolong_smooth_seg": calls}
+                assert torch.equal(got, want), (kind, n_iter, r)
+                k36.append(got)
+                assert all(_same_with_nan(a, b) for a, b in zip((*f3, *e3, *ec3), before))
+            if n_iter == 2:
+                k35, k36 = torch.cat(k35), torch.cat(k36)
+                assert torch.equal(k35[:n], tpm.mixed_rb_smooth_from_zero_fused(f[:n], pin, h, 2))
+                assert torch.equal(k36[:n], tpm.mixed_prolong_smooth_fused(ec[:nc], e[:n], f[:n],
+                                                                           pin, h, 2))
+                assert not k35[n:].any() and torch.equal(k36[n:], e[n:])
+
+
+@pytest.mark.cuda
+def test_seg_stage_launchers_refuse_what_they_do_not_take(cuda):
+    """The K35 and K36 launchers refuse a plan whose shared memory is not
+    the kernel's, and a left halo of 2 n_iter where plane n - 1 is row 0
+    (33^3, L = 16, rank 2); the wrappers' own calls succeed."""
+    n, L, r, n_iter, hh = 33, 16, 2, 2, 4
+    nc = (n + 1) // 2
+    h2 = (3e-4 / (n - 1)) ** 2
+    pin = _mixed_pins("random", n, cuda, np.random.default_rng(5))
+    f, e, ec = _sharded_fields(cuda, n, L)
+    lib, stream = tpk._lib(), tpk._stream()
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+
+    ptrs = tpx._ptrs
+
+    def k35(kl, plan, out):
+        f3 = tpx._seg(_seg_triples(f, r, L, kl, hh, n), kl, hh, L)
+        return lib.mg_seg_mixed_stage(out.data_ptr(), *ptrs(f3), pin.data_ptr(), kl, L, hh, n,
+                                      r * L, h2, 1, *plan, stream)
+
+    def k36(kl, plan, out):
+        f3 = tpx._seg(_seg_triples(f, r, L, kl, hh, n), kl, hh, L)
+        e3 = tpx._seg(_seg_triples(e, r, L, kl, hh, n), kl, hh, L)
+        c3 = tpx._seg(_seg_triples(ec, r, L // 2, kl - n_iter, n_iter + 1, nc),
+                      kl - n_iter, n_iter + 1, L // 2)
+        return lib.mg_seg_mixed_prolong_stage(out.data_ptr(), *ptrs(c3), c3.kl, n_iter + 1,
+                                              *ptrs(e3), *ptrs(f3), pin.data_ptr(), kl, L, hh,
+                                              n, r * L, h2, *plan, stream)
+
+    planes = tpm._seg_planes(r * L - hh, n_iter, n, L)
+    for launch, prolong in ((k35, False), (k36, True)):
+        plan = tps._plan_args(n, n_iter, cuda, prolong=prolong, rect=True, seg_planes=planes)
+        out = torch.empty((L, n, n), device=cuda)
+        assert launch(hh + 1, plan, out) == 0
+        bad = plan[:6] + (plan[6] + 16,) + plan[7:]
+        assert launch(hh + 1, bad, out) != 0
+        assert launch(hh, plan, out) != 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

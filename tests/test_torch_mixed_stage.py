@@ -5,8 +5,9 @@ the CUDA kernels' schedule held against the plain versions, and the
 wrappers' CPU contract.
 
 The CUDA stage (ops/csrc/rect.cuh with the kMixed layout, ``stage_body``
-and ``box_body``) cannot run here, so its schedule is emulated in torch,
-block by block, as the kernel runs it, on rect.cuh's tile: a field row
+and ``box_body``) cannot run here, so its schedule is emulated in torch
+(tests/torch_stage_emulation.py), block by block, as the kernel runs it, on
+rect.cuh's tile: a field row
 (i, j) of the (n, n, n) field held as two colour rows of slots, slot kk of
 a colour holding k = 2 kk + 1 + p, the k-face slots (k = 0 and n - 1)
 holding the loaded face values (K14: zeros); the plan's boxes with halos of
@@ -35,245 +36,16 @@ import numpy as np
 import pytest
 import torch
 
-import multigrid_parallel_tpu_torch as tmg
-from multigrid_parallel_tpu_torch.ops import pallas3d as tpk
 from multigrid_parallel_tpu_torch.ops import pallas_mixed as tpm
 from multigrid_parallel_tpu_torch.ops import pallas_split as tps
-from multigrid_parallel_tpu_torch.ops.stencils_3d import BLACK, RED
+from torch_stage_emulation import emulate_k14 as _emulate_k14
+from torch_stage_emulation import emulate_k15 as _emulate_k15
+from torch_stage_emulation import field as _field
+from torch_stage_emulation import pins as _pins
 
 torch.set_num_threads(1)
 
 H100_SMS = 132
-NAN = float("nan")
-
-
-# ------------------------------------------------------ the layout, emulated
-
-
-def _slot_k(n):
-    """(k_red, k_black), each (n, n, n // 2 + 1): the k that slot kk - 1
-    of the colour holds in row (i, j), k = 2 kk - 1 + p."""
-    idx = torch.arange(n)
-    q = (idx[:, None, None] + idx[None, :, None]) % 2
-    kk = torch.arange(-1, n // 2)[None, None, :]
-    return 2 * kk + 1 + q, 2 * kk + 2 - q
-
-
-def _deinterleave(x):
-    """(n, n, n) field -> its colours by field colour (red, black), each
-    (n, n, n // 2 + 1), slot kk at index kk + 1; NaN where a slot holds no
-    point of the field."""
-    n = x.shape[0]
-    out = []
-    for k in _slot_k(n):
-        ok = (k >= 0) & (k < n)
-        vals = torch.gather(x, 2, k.clamp(0, n - 1))
-        out.append(torch.where(ok, vals, torch.full_like(vals, NAN)))
-    return out
-
-
-def _by_stage(colours, color0):
-    """(red, black) by stage colour, and back (the same swap)."""
-    return list(colours) if color0 == RED else [colours[1], colours[0]]
-
-
-def _emulate_launch(ins, fs, pin, color0, h, plan, corr=None, fault=None):
-    """One full-layout mixed stage launch as the kernel runs it:
-    stage_body's wavefront or, for a box plan, box_body. ``ins``, ``fs`` and
-    ``corr`` (K15's P ec, or None) are de-interleaved by stage colour ([0]
-    the first half-sweep's colour, ``color0``), ``ins`` None for K14's zero
-    tile; ``pin`` the (2, n, n) pin planes. ``fault`` names a broken
-    schedule: "k_face_slot" reads the k-face neighbours from the tile's
-    k-face slots, "early_x" writes the x-face planes at their own turn,
-    "early_z" the z faces a step before their source's last half-sweep.
-    Returns the output and how many times each of its points was written."""
-    n, s = fs[0].shape[0], fs[0].shape[2] - 1
-    big_h, levels = plan.halo, 2 * plan.n_iter
-    depth = 2 * levels + 3  # each colour's ring (the wavefront)
-    out = torch.full((n, n, n), NAN)
-    writes = torch.zeros((n, n, n), dtype=torch.int32)
-    width = plan.bk + 2 * plan.k_halo if plan.k_halo else -(-s // 4) * 4 + 4
-    colours = (color0, 1 - color0)  # field colour of stage colour c
-    ni, nj, nk = plan.tiles
-    for ti in range(ni):
-        for tj in range(nj):
-            for tk in range(nk):
-                i0, i1 = ti * plan.bi, min(ti * plan.bi + plan.bi, n)
-                j0, j1 = tj * plan.bj, min(tj * plan.bj + plan.bj, n)
-                k0, k1 = tk * plan.bk, min(tk * plan.bk + plan.bk, s)
-                jb0, kb0 = j0 - big_h, (k0 - plan.k_halo if plan.k_halo else -4)
-                ia, ib = max(i0 - big_h, 0), min(i1 + big_h, n)
-                ja, jb = max(jb0, 0), min(j1 + big_h, n)
-                ka, kb = max(kb0, -1), min(k1 + plan.k_halo, s)
-                rows, cols = slice(ja - jb0, jb - jb0), slice(ka - kb0, kb - kb0)
-                box = (slice(ja, jb), slice(ka + 1, kb + 1))
-                kr0, kr1 = (0 if k0 == 0 else 2 * k0 + 1), min(2 * k1 + 1, n)
-                tiles = [{}, {}]
-
-                def par(q, j, c):
-                    """p of stage colour c in row (q, j)."""
-                    return ((q + j) % 2) ^ colours[c] ^ 1
-
-                def load(q):
-                    for c in (0, 1):
-                        # one column past the tile: a slot's kk + 1 read at the last slot
-                        t = torch.full((plan.bj + 2 * big_h, width + 1), NAN)
-                        if ins is None:
-                            t.zero_()
-                        else:
-                            t[rows, cols] = ins[c][q][box]
-                        if corr is not None:  # e + P ec as the plane arrives
-                            t[rows, cols] = t[rows, cols] + corr[c][q][box]
-                        tiles[c][q] = t
-                        if not plan.box:
-                            tiles[c].pop(q - depth, None)  # the ring slot plane q takes
-
-                def sweep(lvl, q):
-                    """Half-sweep lvl's update of plane q: (tile, rows, cols,
-                    value), or None outside its region."""
-                    c = (lvl - 1) % 2
-                    if not max(i0 - big_h + lvl, 1) <= q < min(i1 + big_h - lvl, n - 1):
-                        return None
-                    jl, jh = max(jb0 + lvl, 1), min(j1 + big_h - lvl, n - 1)
-                    kl = 0 if k0 == 0 else k0 - plan.k_halo + lvl
-                    kh = s if k1 == s else min(k1 + plan.k_halo - lvl, s)  # the live slots
-                    if jh <= jl or kh <= kl:  # an empty region (a halo too short)
-                        return None
-                    lo, mid, hi = tiles[1 - c][q - 1], tiles[1 - c][q], tiles[1 - c][q + 1]
-                    dst = tiles[c][q]
-                    r = slice(jl - jb0, jh - jb0)
-                    cl = slice(kl - kb0, kh - kb0)
-                    kk = torch.arange(kl, kh)[None, :]
-                    j = torch.arange(jl, jh)[:, None]
-                    p = par(q, j, c)
-                    k = 2 * kk + 1 + p
-                    cen = dst[r, cl]
-                    left = mid[r, kl - kb0 - 1:kh - kb0 - 1]
-                    right = mid[r, kl - kb0 + 1:kh - kb0 + 1]
-                    k_lo = torch.where(p == 0, left, mid[r, cl])
-                    k_hi = torch.where(p == 0, mid[r, cl], right)
-                    if fault != "k_face_slot":
-                        k_lo = torch.where(k == 1, cen, k_lo)
-                        k_hi = torch.where(k == n - 2, cen, k_hi)
-                    j_lo = torch.where(j == 1, cen, mid[jl - jb0 - 1:jh - jb0 - 1, cl])
-                    j_hi = torch.where(j == n - 2, cen, mid[jl - jb0 + 1:jh - jb0 + 1, cl])
-                    i_lo, i_hi = lo[r, cl], hi[r, cl]
-                    pk = k.clamp(0, n - 1)
-                    if q == 1:
-                        i_lo = torch.where(pin[0][j, pk] > 0.5, torch.zeros_like(cen), cen)
-                    if q == n - 2:
-                        i_hi = torch.where(pin[1][j, pk] > 0.5, torch.zeros_like(cen), cen)
-                    acc = i_lo + i_hi + j_lo + j_hi + k_lo + k_hi
-                    upd = (acc - (h * h) * fs[c][q, jl:jh, kl + 1:kh + 1]) * (1.0 / 6.0)
-                    return dst, r, cl, torch.where(k <= n - 2, upd, cen)
-
-                def store(q, planes=None, z=None):
-                    """The nodes whose copy source lies in interior plane q
-                    (``planes``: only those target planes; ``z``: only the
-                    z-face columns, or all but them): (target, value) pairs,
-                    read now."""
-                    jl, jh = max(j0, 1), min(j1, n - 1)
-                    if not 1 <= q <= n - 2 or jl >= jh:
-                        return []
-                    targets = [q] + ([0] if q == 1 else []) + ([n - 1] if q == n - 2 else [])
-                    jt = torch.arange(0 if jl == 1 else jl, n if jh == n - 1 else jh)[:, None]
-                    kt = torch.arange(kr0, kr1)[None, :]
-                    if z is not None:
-                        kt = kt[(kt == 0) | (kt == n - 1)] if z else kt[(kt > 0) & (kt < n - 1)]
-                        kt = kt[None, :]
-                    js, ks = jt.clamp(1, n - 2), kt.clamp(1, n - 2)  # each target's source
-                    p = 1 - ks % 2
-                    slot = (ks - 1 - p) // 2
-                    jt, kt, js, ks, p, slot = torch.broadcast_tensors(jt, kt, js, ks, p, slot)
-                    v = torch.full(jt.shape, NAN)
-                    for c in (0, 1):
-                        mine = par(q, js, c) == p
-                        v = torch.where(mine, tiles[c][q][js - jb0, slot - kb0], v)
-                    found = []
-                    for qt in targets if planes is None else [t for t in targets if t in planes]:
-                        val = v
-                        if qt != q:
-                            pinned = pin[0 if qt == 0 else 1][jt, kt]
-                            val = torch.where(pinned > 0.5, torch.zeros_like(v), v)
-                        found.append(((torch.full_like(jt, qt), jt, kt), val))
-                    return found
-
-                def run(updates, stores=()):  # all of a step reads before any writes
-                    for dst, r, cl, value in [u for u in updates if u is not None]:
-                        dst[r, cl] = value
-                    for idx, v in stores:
-                        out[idx] = v
-                        writes[idx] += 1
-
-                def owned_store(q):
-                    if fault == "early_x" and q in (1, n - 2):
-                        return store(q, planes=[q])  # the x-face plane at its own turn instead
-                    if fault == "early_z":
-                        return store(q, z=False)  # the z faces a step before instead
-                    return store(q)
-
-                def early_x(q):  # the fault: x-face plane q written at its own turn
-                    if fault != "early_x" or q not in (0, n - 1):
-                        return []
-                    src = 1 if q == 0 else n - 2
-                    if not i0 <= src < i1:
-                        return []
-                    return store(src, planes=[q])
-
-                def early_z(q):  # the fault: plane q's z faces read before its last half-sweep
-                    return store(q, z=True) if fault == "early_z" and i0 <= q < i1 else []
-
-                if plan.box:  # every plane, then the half-sweeps one by one
-                    for q in range(ia, ib):
-                        load(q)
-                    for lvl in range(1, levels + 1):
-                        if lvl == levels:  # the faults: faces stored before the last half-sweep
-                            run([], [st for q in range(i0, i1) for st in early_x(q) + early_z(q)])
-                        run([sweep(lvl, q) for q in range(ia, ib)])
-                    run([], [st for q in range(i0, i1) for st in owned_store(q)])
-                    continue
-                load(ia)
-                for p in range(ia, i1 + 2 * levels + 1):
-                    if p + 1 < ib:
-                        load(p + 1)
-                    qb = p - 1 - 2 * levels
-                    stores = early_z(p - 2 * levels)  # with half-sweep H's step, not after it
-                    if i0 <= qb < i1:  # both colours' last half-sweeps finished a step ago
-                        stores = stores + owned_store(qb) + early_x(qb)
-                    run([sweep(lvl, p - 2 * lvl) for lvl in range(1, levels + 1)], stores)
-    return out, writes
-
-
-def _check_writes(writes):
-    """Every point of the field written by exactly one block, once."""
-    assert torch.equal(writes, torch.ones_like(writes))
-
-
-def _emulate_k14(r, pin, h, n_iter, red_first, plan_of, fault=None):
-    """K14 from a zero tile, then the stage on the field so far."""
-    color0 = RED if red_first else BLACK
-    fs, u = _by_stage(_deinterleave(r), color0), None
-    for chunk in tps._stage_chunks(n_iter):
-        ins = None if u is None else _by_stage(_deinterleave(u), color0)
-        u, writes = _emulate_launch(ins, fs, pin, color0, h, plan_of(chunk), fault=fault)
-        _check_writes(writes)
-    return u
-
-
-def _emulate_k15(ec, e, r, pin, h, n_iter, plan_of, fault=None):
-    """K15: e + P ec made as planes arrive, then the stage (black first);
-    past n_iter 2 the stage on the field so far."""
-    t = ec
-    for axis in (1, 2, 0):
-        t = tpk._interp_axis(t, axis)
-    fs, u = _by_stage(_deinterleave(r), BLACK), e
-    corr = _by_stage(_deinterleave(t), BLACK)
-    for chunk in tps._stage_chunks(n_iter):
-        u, writes = _emulate_launch(_by_stage(_deinterleave(u), BLACK), fs, pin, BLACK, h,
-                                    plan_of(chunk), corr, fault)
-        _check_writes(writes)
-        corr = None
-    return u
 
 
 def _plans(kind, n):
@@ -301,21 +73,6 @@ def _plans(kind, n):
         return tps.StagePlan(n, n_iter, halo, tps.STAGE_K_HALO, 11, 12, 4, 256, 0, True)
 
     return plan
-
-
-def _field(rng, n):
-    """A field random at every point, the boundary too."""
-    return torch.from_numpy(rng.standard_normal((n, n, n)).astype(np.float32))
-
-
-def _pins(kind, n, rng):
-    """The (2, n, n) pin planes: the electrospray's at this level, or a
-    random patch mask, the k = 0 and n - 1 columns included."""
-    if kind == "electrospray":
-        return tpm.dirichlet_pin_planes(tmg.electrospray_problem(), n, "cpu")
-    pin = torch.from_numpy((rng.random((2, n, n)) < 0.3).astype(np.float32))
-    assert bool(pin[:, :, 0].any()) and bool(pin[:, :, n - 1].any())
-    return pin
 
 
 CASES = [(9, "h100"), (9, "wave"), (17, "h100"), (17, "rows"), (33, "box"), (33, "k_tiles")]

@@ -280,3 +280,52 @@ def test_restrict_calls_map_both_forms_of_k18():
     assert got == {"K18 n=17": [1, pytest.approx(0.001), pytest.approx(0.001)],
                    "K18 n=65": [1, pytest.approx(0.002), pytest.approx(0.002)],
                    "K18 n=129": [2, pytest.approx(0.007), pytest.approx(0.0035)]}
+
+
+def test_stage_and_restrict_calls_map_the_sharded_electrospray():
+    """The one-rank sharded electrospray solve (plan: 6 sharded levels, L =
+    320 at 257^3): K34's first form (four seg_mixed half-sweeps and the BC
+    pass), K35's (K29's from-zero head, three K34 half-sweeps, the BC pass)
+    and K36's (its correction head, three half-sweeps, the BC pass), each
+    by level from its rows' threads (L + 6 or L + 8 planes); K35 and K36 as
+    one-pass stages (mixed_seg_stage_kernel, mixed_seg_prolong_stage_kernel)
+    one kernel a call, by level from their plans of min(L, n) planes; K30 a
+    kernel a call from its coarse points, L / 2 planes; a K29 head followed
+    by the Dirichlet half-sweeps stays K29."""
+    from multigrid_parallel_tpu_torch.hierarchy import Hierarchy
+    from multigrid_parallel_tpu_torch.ops import pallas_split as tps
+    from multigrid_parallel_tpu_torch.parallel.sharded import ShardPlan
+
+    hier = Hierarchy(ndim=3, coarse_n=5, num_levels=7)
+    plan = ShardPlan(n_dev=1, axis="x", n_sharded=6, fine_local=320)
+    sizes = st._seg_sizes(hier, 132, plan)
+    assert plan.local_planes(1) == 160
+
+    def grid(n, rows):
+        return (-(-rows * n * n // 256), 1, 1, 0)
+
+    sweep = [(10 * i, 10 * i + 2, "seg_mixed_half_sweep_kernel", grid(129, 166))
+             for i in range(1, 11)]
+    bc = [(10 * i + 5, 10 * i + 6, "seg_mixed_bc_pass_kernel", (1, 2, 1, 0)) for i in (3, 7, 10)]
+    k35 = tps._stage_plan(257, 2, 132, rect=True, seg_planes=257)
+    k36 = tps._stage_plan(65, 2, 132, True, True, seg_planes=65)
+    intervals = sorted(
+        [(0, 4, "seg_half_sweep_from_zero_kernel<mg::Seg>", grid(129, 168))] + sweep[:3]
+        + [bc[0]] + sweep[3:7] + [bc[1]]
+        + [(78, 79, "seg_mixed_prolong_correct_black_kernel", grid(129, 168))] + sweep[7:10]
+        + [bc[2]]
+        + [(200, 203, "mixed_seg_stage_kernel<2, false>", (k35.blocks, 1, 1, k35.smem)),
+           (210, 215, "mixed_seg_prolong_stage_kernel<2, true>", (k36.blocks, 1, 1, k36.smem)),
+           (220, 221, "seg_residual_restrict_kernel<mg::Seg>", (-(-160 * 129 ** 2 // 256), 1, 1,
+                                                                0)),
+           (300, 301, "seg_half_sweep_from_zero_kernel<mg::Seg>", grid(129, 168)),
+           (310, 312, "seg_half_sweep_kernel<mg::Seg>", grid(129, 166))])
+    got = st.stage_calls(intervals, sizes)
+    assert got == {"K35 n=129": [1, pytest.approx(0.011), pytest.approx(0.011)],
+                   "K34 n=129": [1, pytest.approx(0.009), pytest.approx(0.009)],
+                   "K36 n=129": [1, pytest.approx(0.008), pytest.approx(0.008)],
+                   "K35 n=257": [1, pytest.approx(0.003), pytest.approx(0.003)],
+                   "K36 n=65": [1, pytest.approx(0.005), pytest.approx(0.005)],
+                   "K29 n=129": [1, pytest.approx(0.003), pytest.approx(0.003)]}
+    assert st.restrict_calls(intervals, sizes) == {
+        "K30 n=257": [1, pytest.approx(0.001), pytest.approx(0.001)]}
