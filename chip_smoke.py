@@ -115,12 +115,14 @@ which fails the run:
      in-process, each flag set on the card and on the CPU at 33^3: the
      same cycle counts, printed errors within 1e-5;
  10. the i-sharded solve (parallel.sharded_padded): (a) K28-K33 on four
-     simulated ranks' segments of 65^3 and 257^3 fields, each bitwise
-     equal to its plain version and, stitched, to the single-device
-     kernels (K1, K2, R, K3, K4, K5's r; the partial norms' sum within
-     1e-6 of K5's), each timed against its plain version; (b)
-     make_sharded_df_solver at 257^3 on one rank of an NCCL group, launch
-     counts reset and read around it: only K28-K32 launched, the fused
+     simulated ranks' segments of 65^3 and 257^3 fields and on one rank's
+     257^3 segment (L = 320), each bitwise equal to its plain version and,
+     stitched, to the single-device kernels (K1, K2, R, K3, K4, K5's r;
+     the partial norms' sum within 1e-6 of K5's), each timed against its
+     plain version; (b) make_sharded_df_solver at 257^3 on one rank of an
+     NCCL group, launch counts reset and read around it: exactly the
+     launches predicted from its outer steps (K31 one a call, a one-pass
+     stage), only K28-K32, the fused
      solve's outer steps, error within 1% of its, max|u - u_fused| <=
      1e-9, walls interleaved with the fused solve (5 each) and the device
      busy time of each; (c) the same solve on four gloo ranks on the one
@@ -150,14 +152,15 @@ which fails the run:
      tail, K14, K3 and K15 56 times each; and the f64 sharded mixed-BC
      cycle at 65^3 against MixedBCSolver's within 1e-11 max|u|;
  12. the (i, j)-sharded solve (parallel.sharded2d_padded): (a) K37-K41 on
-     the simulated ranks' blocks of 65^3 and 257^3 fields on 2x2, 4x1 and
-     1x4 meshes (the padded plan's blocks, five halo parts with the corner
+     the simulated ranks' blocks of 65^3 and 257^3 fields on 1x1, 2x2, 4x1
+     and 1x4 meshes (the padded plan's blocks, five halo parts with the corner
      blocks), each bitwise equal to its plain version and, stitched, to K1
      (both orders), K2, K3, K4 and K5's r, each timed on rank (0, 0)'s
      257^3 2x2 block against its plain version; (b)
      make_sharded2d_padded_df_solver at 257^3 on one NCCL rank (a 1x1 mesh,
      plan Li = Lj = 272, n_sharded 4), launch counts reset and read around
-     it: exactly the launches predicted from the tier map, the fused
+     it: exactly the launches predicted from the tier map (K40 and the
+     j-replicated tier's K31 one a call), the fused
      solve's outer steps, max|u - u_fused| = 0, walls interleaved with the
      fused solve (5 each), the device busy time of each, and the dry-run
      twin on that rank; (c) four gloo ranks through parallel.launch: the
@@ -435,7 +438,7 @@ SHARDED_MIXED_RTOL = 1e-7
 # four gloo ranks as a 2x2 mesh, and as a 1x4 mesh under NARROW_2D (n_sharded,
 # fine_local_i, fine_local_j), whose 9^3 level has Lj = 4 columns, too narrow
 # for the 2D kernels' halos: the gate runs the j-replicated tier (K28-K31) there
-SHARDED2D_SHAPES = ((2, 2), (4, 1), (1, 4))
+SHARDED2D_SHAPES = ((1, 1), (2, 2), (4, 1), (1, 4))
 NARROW_2D = (6, 320, 128)
 # the kernel names of each tier of the (i, j) cycle: smoothing, smoothing from
 # zero, residual + restriction, prolongation + smoothing
@@ -1664,9 +1667,10 @@ def bitwise_same(results, name, n, label, got, want):
 
 def compare_sharded(dev, results):
     """Phase 10a: K28-K33 on SHARDED_RANKS simulated ranks' segments of
-    65^3 and 257^3 fields (their own copies: real neighbour halos, zeros at
-    the chain ends, gi0 = rank L - halo; L as the 4-rank plan has it, 24
-    and 96, so at 257^3 the last rank owns only pad planes): each rank's
+    65^3 and 257^3 fields, and on one rank's of 257^3 (their own copies:
+    real neighbour halos, zeros at the chain ends, gi0 = rank L - halo; L
+    as the 4-rank plan has it, 24 and 96, so at 257^3 the last rank owns
+    only pad planes, and as the 1-rank plan, 320, 63 pad planes): each rank's
     kernel output bitwise equal to its plain version on the same segments,
     the stitched owned rows bitwise equal to the single-device kernel on
     the whole field (K1 stage both orders, K2 stage, R, K3, K4 stage, K5's
@@ -1677,14 +1681,16 @@ def compare_sharded(dev, results):
     from multigrid_parallel_tpu_torch.ops import pallas_sharded as px
     from multigrid_parallel_tpu_torch.parallel import sharded as sh
 
-    D, hh = SHARDED_RANKS, 4  # the stage halo of n_smooth = 2
+    hh = 4  # the stage halo of n_smooth = 2
     for name in px.KERNELS:
         results[name] = {"max_abs_err": 0.0}
 
     def same(name, n, label, got, want):
         bitwise_same(results, name, n, label, got, want)
 
-    for levels in (5, 7):
+    # 65^3 and 257^3 on four ranks' segments (the last 257^3 rank pad only), and 257^3 on one
+    # rank's (L = 320, 63 pad rows), the four-rank 257^3 last: its fields are timed below
+    for levels, D in ((5, SHARDED_RANKS), (7, 1), (7, SHARDED_RANKS)):
         hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=levels)
         n, L = hier.finest_n, sh.plan_sharding(hier, D).local_planes(0)
         h, nc, Lc = 1.0 / (n - 1), (n + 1) // 2, L // 2
@@ -1761,7 +1767,7 @@ def compare_sharded(dev, results):
              torch.cat([o[0] for o in outs])[:n], want_r)
         n2 = sum(float(o[1]) for o in outs)
         rel = abs(n2 - float(want_n2)) / float(want_n2)
-        print(f"[sharded kernels n={n} L={L} x{D} ranks] K28-K33 bitwise equal to their plain "
+        print(f"[sharded kernels n={n} L={L} x{D} rank(s)] K28-K33 bitwise equal to their plain "
               f"versions and, stitched, to K1 (both orders, and the ext form), K2, R, K3, K4, "
               f"K5's r; sum of the partial ||r||^2 {n2:.9e} against K5's {float(want_n2):.9e} "
               f"(rel {rel:.2e}, tol {SHARDED_NORM_RTOL:g})")
@@ -1823,8 +1829,10 @@ def _sharded_solver(mesh, init):
 def sharded_one_rank(dev, card, launches, fused):
     """Phase 10b: make_sharded_df_solver at 257^3 on one rank of an NCCL
     group, launch counts reset just before and read just after (added
-    into ``launches``): only K28-K32 launched (the plan shards down to 9^3,
-    so the gathered tail is the bare 5^3 LU), the fused single-device
+    into ``launches``): exactly the launches predicted from the solve's
+    outer steps (``predicted_launches`` with the six sharded levels on
+    K28-K31 and K32 as the norm; the plan shards down to 9^3, so the
+    gathered tail is the bare 5^3 LU), the fused single-device
     solve's outer steps (``fused``: phase 4's (u, outer steps, solve)), its
     L2 error within 1%, max|u - u_fused| <= SHARDED_DU_TOL; then the walls
     interleaved with the fused solve and the device-busy time of each.
@@ -1866,6 +1874,9 @@ def sharded_one_rank(dev, card, launches, fused):
               f"final_norm={nrm:.6e} rel={nrm / init:.3e} err_l2_vs_analytic={err:.4e} "
               f"(fused {err_fused:.4e}) max|u-u_fused|={du:.3e} (tol {SHARDED_DU_TOL:g}) "
               f"finite={bool(torch.isfinite(u).all())} first_run_s={first_s:.4f}")
+        sharded_levels = hier.sizes[hier.num_levels - plan.n_sharded:]
+        want = predicted_launches(hier, dict.fromkeys(sharded_levels, "j-replicated"), it, 4,
+                                  norm="residual_df_norm_seg")
         print(f"[launches {n}^3 sharded 1 rank] {json.dumps(counts)}")
         check(bool(torch.isfinite(u).all()) and nrm <= REL_TOL * init,
               f"1-rank sharded solve not converged: {nrm}")
@@ -1873,8 +1884,9 @@ def sharded_one_rank(dev, card, launches, fused):
         check(abs(err - err_fused) <= 0.01 * err_fused, f"1-rank sharded solve: error {err}")
         check(du <= SHARDED_DU_TOL, f"1-rank sharded solve: max|u - u_fused| = {du}")
         for name in SOURCES:
-            check((counts[name] > 0) == (name in SEG_KERNELS),
-                  f"1-rank sharded: kernel {name} launched {counts[name]} times")
+            check((counts[name] > 0) == (name in SEG_KERNELS) and counts[name] == want[name],
+                  f"1-rank sharded: kernel {name} launched {counts[name]} times, predicted "
+                  f"{want[name]}")
             launches[name] += counts[name]
         solve = lambda: run(*state)  # noqa: E731
         interleave({"sharded_1rank": solve, "fused": solve_fused}, f"{n}^3", card, reps=5)
@@ -2335,7 +2347,7 @@ def _seg_parts2d(x, ix, iy, li, lj, kl, kr):
 
 def compare_sharded2d(dev, results):
     """Phase 12a: K37-K41 on the simulated ranks' blocks of 65^3 and 257^3
-    fields on 2x2, 4x1 and 1x4 meshes (the blocks of the padded plan; their
+    fields on 1x1, 2x2, 4x1 and 1x4 meshes (the blocks of the padded plan; their
     own copies of the five halo parts, corner blocks included, zeros past
     the chain ends; gij0 = (ix Li - halo, iy Lj - halo)): each rank's kernel
     output bitwise equal to its plain version, the stitched owned points
@@ -2496,18 +2508,23 @@ def compare_sharded2d(dev, results):
               f"max_abs_err={res['max_abs_err']:.3e}")
 
 
-def predicted_launches(hier, tiers, steps, inner_cycles, n_smooth=2):
+def predicted_launches(hier, tiers, steps, inner_cycles, n_smooth=2,
+                       norm="residual_df_norm_seg2d"):
     """The kernel launches of one (i, j)-sharded double-float solve of
     ``steps`` outer steps, from the tier map (gamma 1: every coarse visit
     starts from zero; the finest level's first cycle of each step too):
     per V-cycle and level, 2 n_smooth smoothing launches, one residual +
-    restriction, 2 n_smooth prolongation + smoothing launches; the
-    replicated tail runs the single-device cycle (K1-K4) on each of its
-    levels above the coarse LU, whose K1, K2 and K4 are one-pass stages:
-    ceil(n_smooth / 2) launches a call; one K41 per outer step and one
+    restriction, one prolongation + smoothing launch (K31's and K40's
+    one-pass stages; 2 n_smooth in their first forms, past n_smooth 2);
+    the replicated tail runs the single-device cycle (K1-K4) on each of
+    its levels above the coarse LU, whose K1, K2 and K4 are one-pass
+    stages: ceil(n_smooth / 2) launches a call; one ``norm`` launch (K41;
+    K32 for the i-sharded solve, whose sharded levels are the
+    "j-replicated" tier's kernels, K28-K31) per outer step and one
     before."""
     cycles, hs = steps * inner_cycles, 2 * n_smooth
     stage = -(-n_smooth // 2)  # K1's, K2's and K4's launches a call
+    seg_ps = 1 if n_smooth <= 2 else hs  # K31's and K40's
     out = dict.fromkeys(SOURCES, 0)
     top = hier.num_levels - 1
     for depth, (n, tier) in enumerate(sorted(tiers.items(), reverse=True)):
@@ -2524,8 +2541,8 @@ def predicted_launches(hier, tiers, steps, inner_cycles, n_smooth=2):
             out[smooth0] += per_call * (steps if first else cycles)
             out[smooth] += per_call * (cycles - steps) if first else 0
             out[rr] += cycles
-            out[ps] += per_call * cycles
-    out["residual_df_norm_seg2d"] = steps + 1
+            out[ps] += (stage if tier == "replicated" else seg_ps) * cycles
+    out[norm] = steps + 1
     return out
 
 

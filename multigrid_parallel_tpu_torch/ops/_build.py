@@ -124,6 +124,13 @@ _SIGNATURES = {
     "mg_seg_mixed_stage": (_P,) * 4 + (_I, _P) + (_I,) * 5 + (_F,) + (_I,) * 9 + (_P,),
     "mg_seg_mixed_prolong_stage": ((_P,) * 4 + (_I,) * 3 + (_P, _P, _P, _I) * 2 + (_P,)
                                    + (_I,) * 5 + (_F,) + (_I,) * 8 + (_P,)),
+    # K31's and K40's one-pass stages on segments: out, the coarse, e and r
+    # segments (K40: descriptors, then the halos after the blocks), the
+    # geometry, h2, the plan (n_iter, bi, bj, bk, k_halo, threads, smem,
+    # box), stream
+    "mg_seg_prolong_stage": ((_P,) * 4 + (_I,) * 3 + (_P, _P, _P, _I) * 2 + (_I,) * 5 + (_F,)
+                             + (_I,) * 8 + (_P,)),
+    "mg_seg2d_prolong_stage": (_P,) * 4 + (_I,) * 9 + (_F,) + (_I,) * 8 + (_P,),
 }
 
 

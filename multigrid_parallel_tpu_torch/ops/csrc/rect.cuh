@@ -68,6 +68,20 @@
 //     in the tile (a halo row: the reason for its extra plane). The rows
 //     past n - 1 are pad, never loaded or swept: every block of the launch
 //     writes its share of them (seg_pad_fill), 0 or e's rows.
+// kSegRect (K31, K40; prolong_smooth_seg.cu) is kRect's Dirichlet stage on
+// one rank's segmented block: planes at GLOBAL q as kSeg's, on an
+// i-sharded field (SegStageArgs, seg.cuh) or on an (i, j)-sharded one
+// (Seg2StageArgs, seg2d.cuh), whose blocks also tile the rank's columns
+// [gj0, cj1) (clipped to n - 1; the loaded box is clipped to the field
+// only, so a block at the rank's j edge reads the j halos and the corner
+// blocks). A tile row's pointer is looked up once, where the loader, a
+// sweep or the store starts the row (in_row, f_row_at, store_row), never
+// a point. No selects and no BC pass: the boundary nodes keep the values
+// they were loaded with (K4's e + P ec); the store writes the rank's owned
+// nodes, planes [g0, o1) and columns [gj0, cj1), into its fresh body; the
+// pad points past n - 1 are never loaded or swept: every block writes its
+// share of them as the plain versions leave them (seg_pad_prolong, e + P
+// ec).
 // The two changes. (1) The selects: a neighbour across a face (i or j at 1
 // or n - 2, k at 1 or n - 2) is read as the reader's own value, 0 at a
 // pinned x-face node (mixed_nbr_sum's rule), as a select in the sweep, in
@@ -86,6 +100,7 @@
 #pragma once
 
 #include "seg.cuh"
+#include "seg2d.cuh"
 #include "split.cuh"
 
 namespace mg {
@@ -118,10 +133,12 @@ __host__ __device__ inline int slots(int n) { return n >> 1; }
 // p of `color` in row (i, j): its slot kk holds k = 2 kk + 1 + p.
 __device__ inline int parity(int i, int j, int color) { return ((i + j) & 1) ^ color ^ 1; }
 
-enum class Layout { kRect, kFold, kMixed, kSeg };
+enum class Layout { kRect, kFold, kMixed, kSeg, kSegRect };
 
 // The mixed-BC selects and the BC pass at store time (the header).
-__host__ __device__ constexpr bool mixed_bc(Layout L) { return L != Layout::kRect; }
+__host__ __device__ constexpr bool mixed_bc(Layout L) {
+  return L != Layout::kRect && L != Layout::kSegRect;
+}
 
 // Offset of grid point (q, j, k) in an (n, n, n) field, or in an (n, n,
 // n - 2) one of the fold layout (kFold; 1 <= k <= n - 2).
@@ -173,11 +190,61 @@ __device__ inline float* store_base(const SegStageArgs& a) {
   return a.out - (long long)a.g0 * a.n * a.n;
 }
 
+// kSegRect on an (i, j)-sharded field: the launch's segments (seg2d.cuh;
+// in, f: point (t, j) at GLOBAL plane g0 + t and column gj0 + j; out the
+// rank's (L, Lj, n) body), and the planes [g0, o1) and columns [gj0, cj1)
+// its blocks tile and store (seg_rect_geometry).
+struct Seg2StageArgs : StageArgs {
+  Seg2 in_s, f_s;
+  int g0, L, o1;
+  int gj0, Lj, cj1;
+};
+
+// kSegRect: the k row of GLOBAL point (q, j) of the initial guess, of f,
+// and of the output body, looked up once a row.
+__device__ inline const float* in_row(const SegStageArgs& a, int q, int j) {
+  return a.in_s.row(q - a.g0) + j * a.n;
+}
+__device__ inline const float* in_row(const Seg2StageArgs& a, int q, int j) {
+  return a.in_s.at(q - a.g0, j - a.gj0, a.n);
+}
+__device__ inline const float* f_row_at(const SegStageArgs& a, int q, int j) {
+  return a.f_s.row(q - a.g0) + j * a.n;
+}
+__device__ inline const float* f_row_at(const Seg2StageArgs& a, int q, int j) {
+  return a.f_s.at(q - a.g0, j - a.gj0, a.n);
+}
+__device__ inline float* store_row(const SegStageArgs& a, int q, int j) {
+  return a.out + ((long long)(q - a.g0) * a.n + j) * a.n;
+}
+__device__ inline float* store_row(const Seg2StageArgs& a, int q, int j) {
+  return a.out + ((long long)(q - a.g0) * a.Lj + j - a.gj0) * a.n;
+}
+
 // The planes a launch's blocks tile, and those whose nodes it stores.
 __host__ __device__ inline int planes_lo(const StageArgs&) { return 0; }
 __host__ __device__ inline int planes_hi(const StageArgs& a) { return a.n; }
 __host__ __device__ inline int planes_lo(const SegStageArgs& a) { return a.c0; }
 __host__ __device__ inline int planes_hi(const SegStageArgs& a) { return a.c1; }
+__host__ __device__ inline int planes_lo(const Seg2StageArgs& a) { return a.g0; }
+__host__ __device__ inline int planes_hi(const Seg2StageArgs& a) { return a.o1; }
+// The rows (j) a launch's blocks tile, and their count of row tiles (at
+// least one: a rank of pad columns only tiles none); on Seg2 the rank's
+// columns. The owned columns of a body row, and the global column of its
+// column 0.
+__host__ __device__ inline int cols_lo(const StageArgs&) { return 0; }
+__host__ __device__ inline int cols_hi(const StageArgs& a) { return a.n; }
+__host__ __device__ inline int row_tiles(const StageArgs& a) { return (a.n + a.bj - 1) / a.bj; }
+__host__ __device__ inline int body_cols(const StageArgs& a) { return a.n; }
+__host__ __device__ inline int body_col0(const StageArgs&) { return 0; }
+__host__ __device__ inline int cols_lo(const Seg2StageArgs& a) { return a.gj0; }
+__host__ __device__ inline int cols_hi(const Seg2StageArgs& a) { return a.cj1; }
+__host__ __device__ inline int row_tiles(const Seg2StageArgs& a) {
+  const int tiles = (a.cj1 - a.gj0 + a.bj - 1) / a.bj;
+  return tiles > 1 ? tiles : 1;
+}
+__host__ __device__ inline int body_cols(const Seg2StageArgs& a) { return a.Lj; }
+__host__ __device__ inline int body_col0(const Seg2StageArgs& a) { return a.gj0; }
 __device__ inline int stored_lo(const StageArgs&) { return 0; }
 __device__ inline int stored_hi(const StageArgs& a) { return a.n; }
 __device__ inline int stored_lo(const SegStageArgs& a) { return a.g0; }
@@ -196,6 +263,37 @@ inline int seg_geometry(SegStageArgs& a, int g0, int L, int kl, int kr, int H) {
   a.c0 = g0 - last;
   a.o1 = g0 + L < n ? g0 + L : (g0 < n ? n : g0);
   a.c1 = g0 < n ? a.o1 : a.c0;
+  return 0;
+}
+
+// kSegRect: the end of a rank's rows (or columns) [g0, g0 + L) clipped to
+// n - 1; g0 for a rank of pad rows only, which tiles none. The Dirichlet
+// stage tiles and stores the same planes (it stores no node of another
+// plane, and plane n - 1 at row 0 is a boundary plane that keeps its
+// loaded value).
+inline int clipped_end(int g0, int L, int n) { return g0 < n ? std::min(g0 + L, n) : g0; }
+
+// kSegRect's geometry from a rank's g0 and L rows (on Seg2 also gj0 and Lj
+// columns): 0, or cudaErrorInvalidValue for halos kl, kr (on Seg2 also
+// hjl, hjr) shorter than H.
+inline int seg_rect_geometry(SegStageArgs& a, int g0, int L, int kl, int kr, int H) {
+  if (g0 < 0 || L < 1 || kl < H || kr < H) return (int)cudaErrorInvalidValue;
+  a.g0 = a.c0 = g0;
+  a.L = L;
+  a.o1 = a.c1 = clipped_end(g0, L, a.n);
+  return 0;
+}
+
+inline int seg_rect_geometry(Seg2StageArgs& a, int g0, int L, int gj0, int Lj, int kl, int kr,
+                             int hjl, int hjr, int H) {
+  if (g0 < 0 || L < 1 || gj0 < 0 || Lj < 1 || kl < H || kr < H || hjl < H || hjr < H)
+    return (int)cudaErrorInvalidValue;
+  a.g0 = g0;
+  a.L = L;
+  a.o1 = clipped_end(g0, L, a.n);
+  a.gj0 = gj0;
+  a.Lj = Lj;
+  a.cj1 = clipped_end(gj0, Lj, a.n);
   return 0;
 }
 
@@ -236,8 +334,7 @@ __host__ __device__ inline int coarse_planes(int bi, int H, bool box) {
 template <class Args>
 inline int stage_blocks(const Args& a) {
   const int S = slots(a.n), planes = planes_hi(a) - planes_lo(a);
-  return std::max(1, (planes + a.bi - 1) / a.bi) * ((a.n + a.bj - 1) / a.bj) *
-         ((S + a.bk - 1) / a.bk);
+  return std::max(1, (planes + a.bi - 1) / a.bi) * row_tiles(a) * ((S + a.bk - 1) / a.bk);
 }
 
 // 0 when the plan is one the stage kernels take: n_iter 1 or 2, whole rows
@@ -273,12 +370,12 @@ __device__ inline Geom geometry(const Args& a, int H) {
   const int n = a.n, S = slots(n);
   t.n = n;
   t.S = S;
-  const int nj = (n + a.bj - 1) / a.bj, nk = (S + a.bk - 1) / a.bk;
+  const int nj = row_tiles(a), nk = (S + a.bk - 1) / a.bk;
   const int tk = blockIdx.x % nk, tj = (blockIdx.x / nk) % nj, ti = blockIdx.x / (nk * nj);
   t.i0 = planes_lo(a) + ti * a.bi;
   t.i1 = min(t.i0 + a.bi, planes_hi(a));
-  t.j0 = tj * a.bj;
-  t.j1 = min(t.j0 + a.bj, n);
+  t.j0 = cols_lo(a) + tj * a.bj;
+  t.j1 = min(t.j0 + a.bj, cols_hi(a));
   t.k0 = tk * a.bk;
   t.k1 = min(t.k0 + a.bk, S);
   t.jb0 = t.j0 - H;
@@ -344,6 +441,19 @@ __device__ inline void tile_load(float* t0, float* t1, const float* __restrict__
   }
 }
 
+// tile_load on a segment (kSegRect): each row's pointer looked up once.
+template <class Args>
+__device__ inline void seg_tile_load(float* t0, float* t1, const Args& a, const Geom& t, int q,
+                                     int color0, int warp, int lane, int nwarps) {
+  const int k = t.kra + lane, p = 1 - (k & 1);
+  for (int j = t.ja + warp; j < t.jb; j += nwarps) {
+    const int color = ((q + j) & 1) ^ p ^ 1;
+    float* d = colour_row(t0, t1, t, j, color, color0) + ((k - 1 - p) >> 1);
+    const float* s = in_row(a, q, j) + k;
+    for (int m = 0; k + 32 * m < t.krb; ++m) cp_async4(d + 16 * m, s + 32 * m);
+  }
+}
+
 // Start zeroing both rings' tile planes of a plane (a zero initial
 // guess, K2): 16-byte zero-filling cp.async copies (split::cp_async_zero),
 // issued and waited for as a load's are.
@@ -363,6 +473,20 @@ __device__ inline void tile_store(float* __restrict__ g, float* t0, float* t1, c
     const int color = ((q + j) & 1) ^ p ^ 1;
     const float* s = colour_row(t0, t1, t, j, color, color0) + ((k - 1 - p) >> 1);
     float* d = g + (q * t.n + j) * t.n + k;
+    for (int m = 0; k + 32 * m < t.kr1; ++m) d[32 * m] = s[16 * m];
+  }
+}
+
+// tile_store into a rank's body (kSegRect): each row's pointer looked up
+// once.
+template <class Args>
+__device__ inline void seg_tile_store(const Args& a, float* t0, float* t1, const Geom& t, int q,
+                                      int color0, int warp, int lane, int nwarps) {
+  const int k = t.kr0 + lane, p = 1 - (k & 1);
+  for (int j = t.j0 + warp; j < t.j1; j += nwarps) {
+    const int color = ((q + j) & 1) ^ p ^ 1;
+    const float* s = colour_row(t0, t1, t, j, color, color0) + ((k - 1 - p) >> 1);
+    float* d = store_row(a, q, j) + k;
     for (int m = 0; k + 32 * m < t.kr1; ++m) d[32 * m] = s[16 * m];
   }
 }
@@ -537,6 +661,17 @@ __device__ inline void seg_pad_fill(const SegStageArgs& a, bool copy) {
     out[v] = copy ? src[v] : 0.0f;
 }
 
+// f of slot 0 of parity pp in row (q, j): f + field_at, or (kSegRect) the
+// row looked up.
+template <Layout L, class Args>
+__device__ inline const float* f_row_of(const Args& a, int q, int j, int pp) {
+  if constexpr (L == Layout::kSegRect) {
+    return f_row_at(a, q, j) + 1 + pp;
+  } else {
+    return f_base(a, q) + field_at<L>(a.n, q, j, 1 + pp);
+  }
+}
+
 // The stage. Prep (split::NoPrep, or K4's correction in prolong_smooth.cu)
 // has start(extra shared memory, geometry), load(q, geometry) (copies
 // issued with plane q's) and apply(stage colour 0's tile plane, 1's, q,
@@ -551,6 +686,9 @@ __device__ void stage_body(const Args& a, float* smem, Prep prep) {
   if constexpr (L == Layout::kSeg) {
     if (t.i0 >= t.i1) return;  // a pad rank's block
   }
+  if constexpr (L == Layout::kSegRect) {
+    if (t.i0 >= t.i1 || t.j0 >= t.j1) return;  // a pad rank's block
+  }
   const int n = a.n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
   const RowLanes rl = row_lanes(a, t);
@@ -560,6 +698,8 @@ __device__ void stage_body(const Args& a, float* smem, Prep prep) {
   auto load = [&](int q) {
     if constexpr (ZERO) {
       tile_zero(ring(0, q), ring(1, q), t, a.f);
+    } else if constexpr (L == Layout::kSegRect) {
+      seg_tile_load(ring(0, q), ring(1, q), a, t, q, a.color0, warp, lane, nwarps);
     } else {
       tile_load<L>(ring(0, q), ring(1, q), in_base(a, q), t, q, a.color0, warp, lane, nwarps);
     }
@@ -577,7 +717,7 @@ __device__ void stage_body(const Args& a, float* smem, Prep prep) {
     return q >= max(t.i0 - H + s, 1) && q < min(t.i1 + H - s, n - 1);
   };
   auto colour_of = [&](int s) { return (s - 1) & 1 ? 1 - a.color0 : a.color0; };
-  auto f_row = [&](int q, int j, int pp) { return f_base(a, q) + field_at<L>(n, q, j, 1 + pp); };
+  auto f_row = [&](int q, int j, int pp) { return f_row_of<L>(a, q, j, pp); };
   float4 f_pre[H] = {};
   auto fetch = [&](int step) {
 #pragma unroll
@@ -635,6 +775,8 @@ __device__ void stage_body(const Args& a, float* smem, Prep prep) {
       if constexpr (mixed_bc(L)) {
         mixed_store<L>(store_base(a), ring(0, qb), ring(1, qb), t, qb, a.color0, a.pin, warp,
                        lane, nwarps, stored_lo(a), stored_hi(a));
+      } else if constexpr (L == Layout::kSegRect) {
+        seg_tile_store(a, ring(0, qb), ring(1, qb), t, qb, a.color0, warp, lane, nwarps);
       } else {
         tile_store(a.out, ring(0, qb), ring(1, qb), t, qb, a.color0, warp, lane, nwarps);
       }
@@ -659,6 +801,9 @@ __device__ void box_body(const Args& a, float* smem, Prep prep) {
   if constexpr (L == Layout::kSeg) {
     if (t.i0 >= t.i1) return;  // a pad rank's block
   }
+  if constexpr (L == Layout::kSegRect) {
+    if (t.i0 >= t.i1 || t.j0 >= t.j1) return;  // a pad rank's block
+  }
   const int n = a.n, planes = tile_planes(a.bi, H, true), q0 = t.i0 - H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
   const RowLanes rl = row_lanes(a, t);
@@ -667,6 +812,8 @@ __device__ void box_body(const Args& a, float* smem, Prep prep) {
   for (int q = t.ia; q < t.ib; ++q) {
     if constexpr (ZERO) {
       tile_zero(tile(0, q), tile(1, q), t, a.f);
+    } else if constexpr (L == Layout::kSegRect) {
+      seg_tile_load(tile(0, q), tile(1, q), a, t, q, a.color0, warp, lane, nwarps);
     } else {
       tile_load<L>(tile(0, q), tile(1, q), in_base(a, q), t, q, a.color0, warp, lane, nwarps);
     }
@@ -694,7 +841,7 @@ __device__ void box_body(const Args& a, float* smem, Prep prep) {
       const int q = qa + v / rows, j = jl + v % rows;
       const int pp = parity(q, j, color);
       sweep_row<mixed_bc(L)>(tile(c, q), tile(1 - c, q - 1), tile(1 - c, q),
-                             tile(1 - c, q + 1), f_base(a, q) + field_at<L>(n, q, j, 1 + pp),
+                             tile(1 - c, q + 1), f_row_of<L>(a, q, j, pp),
                              (j - t.jb0) * t.W - t.kb0, t.W, kl, min(kh, (n - 1 - pp) >> 1), pp,
                              a.h2, rl, false, float4{},
                              mixed_bc(L) ? mixed_faces<L>(a, q, j, pp) : MixedFaces{});
@@ -705,6 +852,8 @@ __device__ void box_body(const Args& a, float* smem, Prep prep) {
     if constexpr (mixed_bc(L)) {
       mixed_store<L>(store_base(a), tile(0, q), tile(1, q), t, q, a.color0, a.pin, warp, lane,
                      nwarps, stored_lo(a), stored_hi(a));
+    } else if constexpr (L == Layout::kSegRect) {
+      seg_tile_store(a, tile(0, q), tile(1, q), t, q, a.color0, warp, lane, nwarps);
     } else {
       tile_store(a.out, tile(0, q), tile(1, q), t, q, a.color0, warp, lane, nwarps);
     }
@@ -828,12 +977,15 @@ struct ProlongPrep {
   }
 };
 
-// K36's ProlongPrep (kSeg): ProlongPrep::load's copies from a coarse
-// field read through a segment, ``cs``, whose body row 0 is global coarse
-// plane cg0, its row looked up once a coarse row.
+// K36's and K31's ProlongPrep (kSeg, kSegRect): ProlongPrep::load's copies
+// from a coarse field read through a segment, ``cs``, whose body row 0 is
+// global coarse plane cg0, its row looked up once a coarse row
+// (coarse_row: the k row of GLOBAL coarse (ci, cj), seg_pad_prolong's).
 struct SegProlongPrep : ProlongPrep {
   Seg cs;
   int cg0;
+
+  __device__ const float* coarse_row(int ci, int cj) const { return cs.row(ci - cg0) + cj * nc; }
 
   __device__ void load(int q, const Geom& t) const {
     if (q != t.ia && !(q & 1)) return;
@@ -849,6 +1001,78 @@ struct SegProlongPrep : ProlongPrep {
     }
   }
 };
+
+// K40's ProlongPrep (kSegRect on Seg2): the same from an (i, j)-sharded
+// coarse block, ``cs``, whose body row and column 0 are global coarse
+// (cg0, cgj0), a coarse row looked up once (Seg2::at).
+struct Seg2ProlongPrep : ProlongPrep {
+  Seg2 cs;
+  int cg0, cgj0;
+
+  __device__ const float* coarse_row(int ci, int cj) const {
+    return cs.at(ci - cg0, cj - cgj0, nc);
+  }
+
+  __device__ void load(int q, const Geom& t) const {
+    if (q != t.ia && !(q & 1)) return;
+    const int c_lo = q == t.ia ? q >> 1 : (q + 1) >> 1, c_hi = (q + 1) >> 1;
+    const int cols = t.kb - cka + 1, rows_c = (t.jb >> 1) - cja + 1;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+    for (int c = c_lo; c <= c_hi; ++c) {
+      for (int r = warp; r < rows_c; r += nwarps) {
+        float* d = plane(c) + r * width;
+        const float* src = coarse_row(c, cja + r) + cka;
+        for (int k = lane; k < cols; k += 32) cp_async4(d + k, src + k);
+      }
+    }
+  }
+};
+
+// kSegRect: the rank's owned points past n - 1, which no block loads,
+// sweeps or stores: the body rows [o1 - g0, L) whole and, on Seg2, the
+// columns [cj1 - gj0, Lj) of the rows before them. Each is written as the
+// plain versions leave it: e + P ec, P ec from the coarse block's own pad
+// rows, in mg::interp_at's order (j, then k, then i, one rounding a step).
+// A warp a body row (t, j), the k across its lanes, the e, output and
+// coarse rows looked up once; spread over every warp of the launch.
+template <class Args, class Prep>
+__device__ inline void seg_pad_prolong(const Args& a, const Prep& prep) {
+  const int n = a.n, W = body_cols(a), ro = a.o1 - a.g0, co = cols_hi(a) - body_col0(a);
+  const int tail = (a.L - ro) * W, count = tail + ro * (W - co);
+  const int lane = threadIdx.x & 31, nw = (gridDim.x * blockDim.x) >> 5;
+  for (int v = (blockIdx.x * blockDim.x + threadIdx.x) >> 5; v < count; v += nw) {
+    const int t = v < tail ? ro + v / W : (v - tail) / (W - co);
+    const int j = v < tail ? v % W : co + (v - tail) % (W - co);
+    const int g = a.g0 + t, gj = body_col0(a) + j;
+    const bool oi = g & 1, oj = gj & 1;
+    const float* e = in_row(a, g, gj);
+    float* o = store_row(a, g, gj);
+    const float* c[2][2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+        c[p][b] = prep.coarse_row((g >> 1) + (p & oi), (gj >> 1) + (b & oj));
+    }
+    for (int k = lane; k < n; k += 32) {
+      const int ck = k >> 1;
+      const bool ok = k & 1;
+      float y2[2];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        if (p == 1 && !oi) break;
+        float y1[2];
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          if (b == 1 && !ok) break;
+          y1[b] = oj ? 0.5f * c[p][0][ck + b] + 0.5f * c[p][1][ck + b] : c[p][0][ck + b];
+        }
+        y2[p] = ok ? 0.5f * y1[0] + 0.5f * y1[1] : y1[0];
+      }
+      o[k] = e[k] + (oi ? 0.5f * y2[0] + 0.5f * y2[1] : y2[0]);
+    }
+  }
+}
 
 // Launch one stage kernel instantiation on the plan's grid (stage_blocks);
 // a cudaError_t.

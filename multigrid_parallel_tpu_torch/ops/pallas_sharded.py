@@ -41,8 +41,10 @@ the plain version, a CUDA tensor (float32, contiguous) the kernel, and
 anything else raises; there is no fallback. The smoothing wrappers
 update their ``u`` segment IN PLACE (body and halo buffers, which are
 scratch afterwards) and return the body; the others return fresh tensors.
-Each kernel launch adds one to ``LAUNCHES`` (K29's and K31's K28
-half-sweeps count as theirs; K32's partials-and-sum pair counts once).
+Each kernel launch adds one to ``LAUNCHES`` (K29's K28 half-sweeps, and
+K31's past n_iter 2, count as theirs; K32's partials-and-sum pair counts
+once). K31 at n_iter <= 2 is one launch of K4's one-pass stage on the
+segments (ops/csrc/rect.cuh, ``Layout::kSegRect``).
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ import numpy as np
 import torch
 
 from multigrid_parallel_tpu_torch.ops import pallas3d as pk
+from multigrid_parallel_tpu_torch.ops import pallas_split as ps
 from multigrid_parallel_tpu_torch.ops import stencils_3d as ops3
 from multigrid_parallel_tpu_torch.ops.stencils_3d import BLACK, RED
 
@@ -453,15 +456,28 @@ def prolong_smooth_halo_plain(ec3, e3, r3, gi0, h: float, n_iter: int, n: int, L
     return out[hh:hh + L]
 
 
+def seg_rect_planes(g0: int, L: int, n: int) -> int:
+    """The planes (or, of an (i, j) block, the columns) that a K31 or K40
+    launch tiles from the global index ``g0`` of body row 0 and L rows
+    (rect.cuh, seg_rect_geometry): the rank's rows clipped to n - 1; at
+    least 1, the plan of a rank of pad rows only."""
+    return max(1, min(g0 + L, n) - g0)
+
+
 def prolong_smooth_halo(ec3, e3, r3, gi0, h: float, n_iter: int, n: int, L: int,
                         block_i: int = 8):
     """post_smooth(e + trilinear(ec), r) on a rank's block: fine triples
     with H = 2 n_iter halos (composite tails read off the shapes), the
     coarse triple with n_iter planes left and n_iter + 1 right (after its
     composite tail); gi0 = rank * L - H. A fresh (L, n, n) block (e is
-    left as it is). The CUDA form is one K31 launch (correction + first
-    black half-sweep into a fresh segment) and 2 n_iter - 1 K28 launches,
-    all counted as K31's."""
+    left as it is), its pad rows (past n - 1) e + P ec. The CUDA form for
+    n_iter <= 2 is one launch of K4's one-pass stage on the segments (e +
+    P ec made as each plane reaches shared memory, the coarse rows read
+    through their segment; bound: e's and r's rows read and the body
+    written, 12 B a fine point, and the coarse rows). Past n_iter 2 it
+    keeps its first form, which no solve runs: one launch of the
+    correction and the first black half-sweep into a fresh segment, then 2
+    n_iter - 1 K28 launches. Every launch counts as K31's."""
     del block_i
     return _prolong_smooth(ec3, e3, r3, gi0, h, n_iter, n, L, n_iter)
 
@@ -476,6 +492,15 @@ def _prolong_smooth(ec3, e3, r3, gi0, h, n_iter, n, L, kl_c):
         return prolong_smooth_halo_plain((c.body, c.lh[c.kl - n_iter:], c.rh[c.r_off:]),
                                          e3, r3, gi0, h, n_iter, n, L)
     lib, stream, g0 = pk._lib(), pk._stream(), _gi0_int(gi0) + hh
+    if n_iter <= 2:
+        out = torch.empty_like(e.body)
+        pk._check(lib.mg_seg_prolong_stage(
+            out.data_ptr(), *_ptrs(c), c.kl, c.rh.shape[0] - c.r_off, *_ptrs(e), *_ptrs(r), hh, L,
+            hh, n, g0, h * h, *ps._plan_args(n, n_iter, e.body.device, prolong=True, rect=True,
+                                             seg_planes=seg_rect_planes(g0, L, n)), stream),
+            "prolong_smooth_halo")
+        LAUNCHES["prolong_smooth_seg"] += 1
+        return out
     out = _Seg(e.body.new_empty((hh, n, n)), torch.empty_like(e.body),
                e.body.new_empty((hh, n, n)), 0)
     pk._check(lib.mg_seg_prolong_correct_black(

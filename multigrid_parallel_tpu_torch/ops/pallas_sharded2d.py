@@ -56,8 +56,10 @@ n) the kernel, and anything else raises; there is no fallback. The
 smoothing wrappers update their ``u`` segment IN PLACE (body and halo
 buffers, which are scratch afterwards) and return the body; the others
 return fresh tensors. Each kernel launch adds one to ``LAUNCHES`` (K38's
-and K40's K37 half-sweeps count as theirs; K41's partials-and-sum pair
-counts once).
+K37 half-sweeps, and K40's past n_iter 2, count as theirs; K41's
+partials-and-sum pair counts once). K40 at n_iter <= 2 is one launch of
+K4's one-pass stage on the 2D segments (ops/csrc/rect.cuh,
+``Layout::kSegRect`` on ``Seg2``).
 """
 
 from __future__ import annotations
@@ -69,6 +71,8 @@ import numpy as np
 import torch
 
 from multigrid_parallel_tpu_torch.ops import pallas3d as pk
+from multigrid_parallel_tpu_torch.ops import pallas_sharded as px
+from multigrid_parallel_tpu_torch.ops import pallas_split as ps
 from multigrid_parallel_tpu_torch.ops import stencils_3d as ops3
 from multigrid_parallel_tpu_torch.ops.stencils_3d import BLACK, RED
 
@@ -121,6 +125,11 @@ class _Seg2(NamedTuple):
 
     def parts(self):
         return (self.body, self.jl, self.jr, self.lh, self.rh)
+
+    @property
+    def kr(self) -> int:
+        """The rows of the right halo after the composite tail."""
+        return self.rh.shape[0] - self.r_off
 
     @property
     def ph(self) -> int:
@@ -571,6 +580,16 @@ def _prolong_smooth(c: _Seg2, e: _Seg2, r: _Seg2, gij0, h, n_iter, n, what):
     gi, gj = _gij(gij0)
     g0, gj0 = gi + hh, gj + hh
     lib, stream = pk._lib(), pk._stream()
+    if n_iter <= 2:
+        out = e.body.new_empty((L, Lj, n))
+        pk._check(lib.mg_seg2d_prolong_stage(
+            out.data_ptr(), c.desc(), e.desc(), r.desc(), min(e.kr, r.kr),
+            min(e.jr.shape[1], r.jr.shape[1]), c.kr, c.jr.shape[1], L, Lj, n, g0, gj0, h * h,
+            *ps._plan_args(n, n_iter, e.body.device, prolong=True, rect=True,
+                           seg_planes=px.seg_rect_planes(g0, L, n),
+                           seg_cols=px.seg_rect_planes(gj0, Lj, n)), stream), what)
+        LAUNCHES["prolong_smooth_seg2d"] += 1
+        return out
     out = _fresh(e.body, hh)
     od, rd = out.desc(), r.desc()
     pk._check(lib.mg_seg2d_prolong_correct_black(od, c.desc(), e.desc(), rd, hh, L, Lj, n, g0,
@@ -589,9 +608,15 @@ def prolong_smooth_halo2d(ec3, e3, r3, gij0, h: float, n_iter: int, n: int, L: i
     triples or five parts with H = 2 n_iter halos in i and j (composite
     tails read off the shapes), the coarse one of (L / 2, sjl / 2) with
     n_iter rows and columns before it and n_iter + 1 after; gij0 = [rank_i
-    L - H, rank_j Lj - H]. A fresh (L, sjl, n) block (e is left as it is).
-    The CUDA form is one K40 launch (correction + first black half-sweep
-    into a fresh segment) and 2 n_iter - 1 K37 launches, all counted as
+    L - H, rank_j Lj - H]. A fresh (L, sjl, n) block (e is left as it is),
+    its pad rows and columns (past n - 1) e + P ec. The CUDA form for n_iter
+    <= 2 is one launch of K4's one-pass stage on the 2D segments (e + P ec
+    made as each plane reaches shared memory, a row's pointer looked up
+    once, the corner blocks read where a block meets both halos; bound:
+    e's and r's points read and the body written, 12 B a fine point, and
+    the coarse block). Past n_iter 2 it keeps its first form, which no solve
+    runs: one launch of the correction and the first black half-sweep into
+    a fresh segment, then 2 n_iter - 1 K37 launches. Every launch counts as
     K40's."""
     del block_i
     return _prolong_smooth(*_ps_segs(ec3, e3, r3, n_iter, L, sjl), gij0, h, n_iter, n,

@@ -238,7 +238,7 @@ RECT_ROW_PAD = 4         # tile columns before slot 0 of a whole rect row (rect.
 RECT_BOX_MAX_N = 129     # rect levels up to this size take the box schedule (rect.cuh, box_body)
 RECT_MAX_THREADS = 576   # the rect stage kernels' launch bound (rect.cuh, kStageMaxThreads)
 RECT_REGISTERS = 112     # registers a thread of theirs may take under it (65,536 an SM)
-SEG_MAX_THREADS = 512    # K35's and K36's launch bound (rect.cuh, kSegStageMaxThreads)
+SEG_MAX_THREADS = 512    # K31's, K35's, K36's and K40's launch bound (rect.cuh, kSegStageMaxThreads)
 SEG_REGISTERS = 128      # registers a thread of theirs may take under it
 MSPLIT_STEPS_MAX_N = 65  # msplit levels up to this size take the fewest-steps plan (_steps_plan)
 
@@ -266,12 +266,14 @@ class StagePlan(NamedTuple):
     rect: bool = False
     box: bool = False
     planes: int = None  # a segment stage's planes (_stage_plan's seg_planes), else n
+    cols: int = None    # an (i, j) segment stage's rows j (_stage_plan's seg_cols), else n
 
     @property
     def tiles(self):
         """(planes, rows, slots): the number of boxes along each axis."""
         s = _slots(self.n, self.rect)
-        return (-(-(self.planes or self.n) // self.bi), -(-self.n // self.bj), -(-s // self.bk))
+        return (-(-(self.planes or self.n) // self.bi), -(-(self.cols or self.n) // self.bj),
+                -(-s // self.bk))
 
     @property
     def blocks(self) -> int:
@@ -328,7 +330,8 @@ def _slots(n: int, rect: bool = False) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _stage_plan(n: int, n_iter: int, sms: int, prolong: bool = False,
-                rect: bool = False, msplit: bool = False, seg_planes: int = None) -> StagePlan:
+                rect: bool = False, msplit: bool = False, seg_planes: int = None,
+                seg_cols: int = None) -> StagePlan:
     """The plan of one stage launch of n_iter (1 or 2) iterations on an n^3
     split level (``rect``: a plain level, K2's and K4's stage) for a card of
     ``sms`` SMs, within ``SMEM_MAX`` bytes of shared memory a block: a rect
@@ -351,18 +354,22 @@ def _stage_plan(n: int, n_iter: int, sms: int, prolong: bool = False,
     msplit stages (K22, K24: ``msplit``, the split layout) take K7's and
     K10's plans, and on a level up to ``MSPLIT_STEPS_MAX_N`` the
     fewest-steps plan (``_steps_plan``). ``seg_planes``: the plan of a
-    segment stage (K35, K36) that tiles that many planes of the level (one
-    rank's, the schedule still chosen by n), its ``tiles`` counting them
-    along i, within the kernels' ``SEG_MAX_THREADS``."""
+    segment stage (K31, K35, K36, K40) that tiles that many planes of the
+    level (one rank's, the schedule still chosen by n), its ``tiles``
+    counting them along i, within the kernels' ``SEG_MAX_THREADS``;
+    ``seg_cols`` (K40, with ``seg_planes``): that many rows j too (an (i, j)
+    rank's columns), its row tiles cut from them."""
     if n_iter not in (1, 2):
         raise ValueError(f"a stage launch runs 1 or 2 iterations, got {n_iter}")
     if seg_planes is not None and (not rect or seg_planes < 1):
         raise ValueError(f"seg_planes = {seg_planes}: a rect plan of one plane or more")
+    if seg_cols is not None and (seg_planes is None or seg_cols < 1):
+        raise ValueError(f"seg_cols = {seg_cols}: a segment plan of one row or more")
     if rect and n <= RECT_BOX_MAX_N:
-        return _box_plan(n, n_iter, sms, prolong, seg_planes)
+        return _box_plan(n, n_iter, sms, prolong, seg_planes, seg_cols)
     if msplit and n <= MSPLIT_STEPS_MAX_N:
         return _steps_plan(n, n_iter, sms, prolong)
-    return _wave_plan(n, n_iter, sms, prolong, rect, seg_planes)
+    return _wave_plan(n, n_iter, sms, prolong, rect, seg_planes, seg_cols)
 
 
 def _steps_plan(n: int, n_iter: int, sms: int, prolong: bool) -> StagePlan:
@@ -393,10 +400,11 @@ def _steps_plan(n: int, n_iter: int, sms: int, prolong: bool) -> StagePlan:
 
 
 def _wave_plan(n: int, n_iter: int, sms: int, prolong: bool, rect: bool,
-               seg_planes: int = None) -> StagePlan:
+               seg_planes: int = None, seg_cols: int = None) -> StagePlan:
     """``_stage_plan``'s wavefront plan (every split level, rect levels
-    past ``RECT_BOX_MAX_N``), or a segment stage's of ``seg_planes``."""
-    m = seg_planes or n
+    past ``RECT_BOX_MAX_N``), or a segment stage's of ``seg_planes`` (and
+    ``seg_cols`` rows)."""
+    m, mj = seg_planes or n, seg_cols or n
     max_threads, registers = ((SEG_MAX_THREADS, SEG_REGISTERS) if seg_planes
                               else (RECT_MAX_THREADS, RECT_REGISTERS))
     s = _slots(n, rect)
@@ -417,12 +425,12 @@ def _wave_plan(n: int, n_iter: int, sms: int, prolong: bool, rect: bool,
         lanes = _row_lanes(swept) if rect else 32  # a tile row's lanes (32 / lanes rows a warp)
         lane_slots = 4 * lanes if rect else 128 if s % 4 == 0 else 32  # slots a row's pass sweeps
         waste = -(-swept // lane_slots) * lane_slots / swept
-        for bj in range(1, n + 1):
+        for bj in range(1, mj + 1):
             smem = _stage_smem(n_iter, bj, width, prolong, rect)
             if smem > SMEM_MAX:
                 break
-            nj = -(-n // bj)
-            if -(-n // nj) != bj:  # only evened-out row tiles
+            nj = -(-mj // bj)
+            if -(-mj // nj) != bj:  # only evened-out row tiles
                 continue
             rows = min(n, bj + 2 * halo)
             nthreads = 32 * max(1, min((max_threads if rect else STAGE_MAX_THREADS) // 32,
@@ -439,7 +447,7 @@ def _wave_plan(n: int, n_iter: int, sms: int, prolong: bool, rect: bool,
             est = read * waste * -(-blocks // sms) / blocks
             if best is None or est < best[0] * (1 - 1e-9):
                 best = (est, StagePlan(n, n_iter, halo, k_halo, bi, bj, bk, nthreads, smem,
-                                       rect, planes=seg_planes))
+                                       rect, planes=seg_planes, cols=seg_cols))
     return best[1]
 
 
@@ -447,7 +455,7 @@ BOX_ROW_LATENCY = 10  # a warp's pass over its tile rows, in units of one tile r
 
 
 def _box_plan(n: int, n_iter: int, sms: int, prolong: bool,
-              seg_planes: int = None) -> StagePlan:
+              seg_planes: int = None, seg_cols: int = None) -> StagePlan:
     """The box plan of a small rect level (rect.cuh, box_body): whole rows,
     bi planes x bj rows a block, the pair whose estimated time is least
     (more blocks on a tie), within ``SMEM_MAX``. A block of the field's
@@ -457,13 +465,13 @@ def _box_plan(n: int, n_iter: int, sms: int, prolong: bool,
     (``_row_lanes``): a pass takes the longer of its warps' chain
     (``BOX_ROW_LATENCY``) and the row work of the blocks that share an SM,
     in waves of the blocks the SMs hold at once. ``seg_planes``: a segment
-    stage's plan of that many planes."""
-    s, halo, m = _slots(n, True), 2 * n_iter, seg_planes or n
+    stage's plan of that many planes (and ``seg_cols`` rows)."""
+    s, halo, m, mj = _slots(n, True), 2 * n_iter, seg_planes or n, seg_cols or n
     max_threads, registers = ((SEG_MAX_THREADS, SEG_REGISTERS) if seg_planes
                               else (RECT_MAX_THREADS, RECT_REGISTERS))
     width = _stage_width(n, s, 0, True)
     per_warp = 32 // _row_lanes(s)
-    evened = _evened(n)
+    evened = _evened(mj)
     best = None
     for bi in _evened(m):
         for bj in evened:
@@ -473,7 +481,7 @@ def _box_plan(n: int, n_iter: int, sms: int, prolong: bool,
             loaded = min(n, bi + 2 * halo) * min(n, bj + 2 * halo)
             warps = max(1, min(max_threads // 32, -(-loaded // per_warp)))
             per_sm = min(16, SM_SMEM // (smem + 1024), 65536 // (32 * warps * registers))
-            blocks = -(-m // bi) * -(-n // bj)
+            blocks = -(-m // bi) * -(-mj // bj)
             waves = -(-blocks // (per_sm * sms))
             sharing = min(per_sm, -(-blocks // sms))
             regions = [min(n - 2, bi + 2 * (halo - lvl)) * min(n - 2, bj + 2 * (halo - lvl))
@@ -483,7 +491,7 @@ def _box_plan(n: int, n_iter: int, sms: int, prolong: bool,
                                   rows * sharing / per_warp) for rows in passes)
             if best is None or (est, -blocks) < best[0]:
                 best = ((est, -blocks), StagePlan(n, n_iter, halo, 0, bi, bj, s, 32 * warps,
-                                                  smem, True, True, seg_planes))
+                                                  smem, True, True, seg_planes, seg_cols))
     return best[1]
 
 
@@ -500,20 +508,20 @@ def _stage_chunks(n_iter: int):
 
 @functools.lru_cache(maxsize=None)
 def _plan_args_on(n: int, n_iter: int, index: int, prolong: bool, rect: bool, msplit: bool,
-                  seg_planes: int):
+                  seg_planes: int, seg_cols: int = None):
     plan = _stage_plan(n, n_iter, _sms(index), prolong=prolong, rect=rect, msplit=msplit,
-                       seg_planes=seg_planes)
+                       seg_planes=seg_planes, seg_cols=seg_cols)
     args = (n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem)
     return args + (int(plan.box),) if rect else args
 
 
 def _plan_args(n: int, n_iter: int, device, prolong: bool = False, rect: bool = False,
-               msplit: bool = False, seg_planes: int = None):
+               msplit: bool = False, seg_planes: int = None, seg_cols: int = None):
     """The launcher's n_iter and plan arguments on ``device`` (the rect
-    launchers' with the plan's box flag last; ``seg_planes``:
+    launchers' with the plan's box flag last; ``seg_planes``, ``seg_cols``:
     _stage_plan's)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return _plan_args_on(n, n_iter, index, prolong, rect, msplit, seg_planes)
+    return _plan_args_on(n, n_iter, index, prolong, rect, msplit, seg_planes, seg_cols)
 
 
 def _stage_launch(lib, er, eb, fr, fb, h2, n_iter, red_first, stream, name):

@@ -4,10 +4,13 @@ split-colour kernels compared within one call, with the fused solve,
 which runs none of them, as the control; or, with ``--electrospray``, the
 electrospray's full, fold and split-colour tiers at 257^3; or, with
 ``--sharded-electrospray``, the i-sharded electrospray solve at 257^3 on
-one NCCL rank, with the full tier as the control.
+one NCCL rank, with the full tier as the control; or, with ``--sharded``
+and ``--sharded2d``, the i-sharded and the (i, j)-sharded Dirichlet solves
+at 257^3 on one NCCL rank, with the fused solve as the control.
 
     python -m multigrid_parallel_tpu_torch.utils.split_trace [ROOT ...] [--rounds R]
-                                             [--electrospray | --sharded-electrospray]
+                                             [--electrospray | --sharded-electrospray
+                                              | --sharded | --sharded2d]
 
 Each ROOT is a directory that holds a ``multigrid_parallel_tpu_torch``
 package (default: this checkout). Round r runs every ROOT once, each in a
@@ -24,11 +27,12 @@ span, each kernel name's summed ms, count and the device idle time
 just before its kernels (``idle_before``; a stage kernel's name carries
 its template arguments, which tell K1 from K2 and K7 from K8), and each
 smoothing stage call's device time by level (``stage_calls``: K1, K2, K4,
-K7, K8, K10, K13-K17, K19, K21, K22, K24 and K34-K36, the one-pass form's
-kernel, or a first form's head kernel and the half-sweeps that follow it,
-and the BC pass that ends a mixed-BC call), and each restriction call's
-(``restrict_calls``: K3, K9, K18 and K30, a kernel a call, the first forms'
-one thread a coarse point or the streaming stage's plan). The parent prints
+K7, K8, K10, K13-K17, K19, K21, K22, K24, K28, K29, K31, K34-K38 and K40,
+the one-pass form's kernel, or a first form's head kernel and the
+half-sweeps that follow it, and the BC pass that ends a mixed-BC call),
+and each restriction call's (``restrict_calls``: K3, K9, K18, K30 and
+K39, a kernel a call, the first forms' one thread a coarse point or the
+streaming stage's plan). The parent prints
 the lines as they come and the card's name and power limit, and at the
 end each path's solution of round 0 against the first ROOT's
 (max|u - u_0|, held in a temporary directory).
@@ -46,7 +50,17 @@ the fold cycle below it). With ``--sharded-electrospray``: phase 11b of
 ``parallel.sharded_mixed_padded.make_sharded_mixed_padded_df_solver`` on
 one rank of an NCCL group (world size 1, started in the child process;
 the plan shards six levels, L = 320 at 257^3: K34-K36, K30 and K32),
-``sharded``, and the full tier, ``full``, as the control.
+``sharded``, and the full tier, ``full``, as the control. With
+``--sharded``: phase 10b, the Dirichlet problem's solve through
+``parallel.sharded_padded.make_sharded_df_solver`` on one rank of an NCCL
+group (world size 1; the plan shards six levels, L = 320 at 257^3:
+K28-K32), ``sharded``, and the fused solve, ``fused``; with
+``--sharded2d``: phase 12b, the same through
+``parallel.sharded2d_padded.make_sharded2d_padded_df_solver`` on a 1x1
+mesh (the plan shards four levels, Li = Lj = 272 at 257^3: K37-K41, then
+K2-K4 in the replicated 17^3 tail), ``sharded2d``, and ``fused``. Both
+modes run on a checkout of any version: what a parent lacks (a one-pass
+stage, its plan's arguments) is skipped.
 """
 
 from __future__ import annotations
@@ -174,7 +188,13 @@ STAGE_KERNELS = {"rect_prolong_stage_kernel": "K4", "split_prolong_stage_kernel"
                  "msplit_half_sweep_from_zero_kernel": "K22", "msplit_half_sweep_kernel": "K21",
                  "seg_mixed_half_sweep_kernel": "K34", "seg_half_sweep_from_zero_kernel": "K29",
                  "mixed_seg_stage_kernel": "K35", "mixed_seg_prolong_stage_kernel": "K36",
-                 "seg_mixed_prolong_correct_black_kernel": "K36"}
+                 "seg_mixed_prolong_correct_black_kernel": "K36",
+                 "seg_half_sweep_kernel": "K28", "seg_prolong_correct_black_kernel": "K31",
+                 "seg_prolong_stage_kernel": "K31"}
+# the i-sharded Dirichlet kernels' (i, j) twins: the same templates on the 2D
+# accessor (their names' template arguments hold Seg2: Seg2StageArgs for the
+# one-pass K40), or "K28|K37" where the trace drops the arguments
+SEG2D_TWINS = {"K28": "K37", "K29": "K38", "K30": "K39", "K31": "K40"}
 FIRST_FORM = {"rb_half_sweep_from_zero_kernel": ("rb_half_sweep_kernel",
                                                  "mixed_half_sweep_kernel"),
               "prolong_correct_black_kernel": ("rb_half_sweep_kernel",),
@@ -192,7 +212,9 @@ FIRST_FORM = {"rb_half_sweep_from_zero_kernel": ("rb_half_sweep_kernel",
               "seg_half_sweep_from_zero_kernel": ("seg_half_sweep_kernel",
                                                   "seg_mixed_half_sweep_kernel"),
               "seg_mixed_half_sweep_kernel": ("seg_mixed_half_sweep_kernel",),
-              "seg_mixed_prolong_correct_black_kernel": ("seg_mixed_half_sweep_kernel",)}
+              "seg_mixed_prolong_correct_black_kernel": ("seg_mixed_half_sweep_kernel",),
+              "seg_half_sweep_kernel": ("seg_half_sweep_kernel",),
+              "seg_prolong_correct_black_kernel": ("seg_half_sweep_kernel",)}
 HEAD_SWEEPS = {"msplit_prolong_correct_red_kernel": 0}  # half-sweeps a head counts (else 1)
 BC_PASS = {"mixed_fold_half_sweep_kernel": "mixed_fold_bc_pass_kernel",
            "mixed_half_sweep_kernel": "mixed_bc_pass_kernel",
@@ -202,6 +224,19 @@ BC_PASS = {"mixed_fold_half_sweep_kernel": "mixed_fold_bc_pass_kernel",
 # stage: K2's with K13's half-sweeps is K14's, K29's with K34's K35's
 RELABEL = {("K2", "mixed_half_sweep_kernel"): "K14",
            ("K29", "seg_mixed_half_sweep_kernel"): "K35"}
+
+
+def _seg_label(base, args, table):
+    """The label of an i-sharded Dirichlet kernel (K28-K31) from ``table``,
+    or its (i, j) twin's (K37-K40) where its template arguments hold Seg2;
+    "K28|K37" where the trace dropped them."""
+    label = table.get(base)
+    twin = SEG2D_TWINS.get(label)
+    if twin is None:
+        return label
+    if not args:
+        return f"{label}|{twin}"
+    return twin if "Seg2" in args else label
 
 
 def stage_label(name):
@@ -221,8 +256,16 @@ def stage_label(name):
     one-pass stages); the first forms' seg_mixed_half_sweep_kernel heads
     K34, seg_mixed_prolong_correct_black_kernel K36, and K29's
     seg_half_sweep_from_zero_kernel K35 where K34's half-sweeps follow it
-    (``stage_calls``)."""
+    (``stage_calls``). The i-sharded Dirichlet solve's:
+    seg_half_sweep_kernel heads K28, seg_half_sweep_from_zero_kernel K29,
+    seg_prolong_correct_black_kernel K31's first form, each followed by its
+    half-sweeps, and seg_prolong_stage_kernel is K31's one-pass stage; each
+    is its (i, j) twin (K37, K38, K40) where its template arguments hold
+    Seg2."""
     base, _, args = name.partition("<")
+    if base in ("seg_half_sweep_kernel", "seg_half_sweep_from_zero_kernel",
+                "seg_prolong_correct_black_kernel", "seg_prolong_stage_kernel"):
+        return _seg_label(base, args, STAGE_KERNELS)
     args = [a.strip() for a in args.rstrip(">").split(",")] if args else []
     if base == "rect_stage_kernel":
         return ("K2" if args[1] == "true" else "K1") if len(args) > 1 else "K1|K2"
@@ -298,13 +341,13 @@ RESTRICT_KERNELS = {"residual_restrict_kernel": "K3", "split_residual_restrict_k
 
 
 def restrict_calls(intervals, sizes):
-    """Each K3, K9, K18 and K30 call's device time by level, ``sizes`` as
-    stage_calls' (``_stage_sizes``): {"K3 n=257": [calls, summed ms,
-    median ms a call], ...}."""
+    """Each K3, K9, K18, K30 and K39 call's device time by level (K39: K30's
+    kernel on Seg2), ``sizes`` as stage_calls' (``_stage_sizes``): {"K3
+    n=257": [calls, summed ms, median ms a call], ...}."""
     out = {}
     for a, b, name, grid in intervals:
-        base = name.split("<")[0]
-        label = RESTRICT_KERNELS.get(base)
+        base, _, args = name.partition("<")
+        label = _seg_label(base, args, RESTRICT_KERNELS)
         if label:
             n = sizes.get((base, grid), sizes.get((base, grid[:-1]), grid))
             out.setdefault(f"{label} n={n}", []).append((b - a) / 1e3)
@@ -375,13 +418,14 @@ def _stage_sizes(hier, sms):
 
 
 def _seg_sizes(hier, sms, plan):
-    """(kernel name, shape) -> n for the i-sharded electrospray's stage and
-    restriction kernels on one rank of ``plan`` (a ShardPlan; depth d at L =
-    plan.local_planes(d), halos of 4 planes a side), as _stage_sizes: the
-    first forms' one thread a point of the rows they span (K34's half-sweeps
-    L + 6, K29's and K36's heads L + 8; K30 a coarse point of its L / 2
-    planes), the one-pass stages from their plans of the planes they tile
-    (where the package has them)."""
+    """(kernel name, shape) -> n for the i-sharded stage and restriction
+    kernels on rank 0 of ``plan`` (a ShardPlan; depth d at L =
+    plan.local_planes(d), halos of 4 planes a side), the electrospray's and
+    the Dirichlet solve's, as _stage_sizes: the first forms' one thread a
+    point of the rows they span (K28's and K34's half-sweeps L + 6, K29's,
+    K31's and K36's heads L + 8; K30 a coarse point of its L / 2 planes),
+    the one-pass stages from their plans of the planes they tile (where the
+    package has them)."""
     from multigrid_parallel_tpu_torch.ops import pallas_split as ps
 
     out = {}
@@ -394,18 +438,105 @@ def _seg_sizes(hier, sms, plan):
         n, L = hier.sizes[hier.num_levels - 1 - depth], plan.local_planes(depth)
         nc = (n + 1) // 2
         add("seg_mixed_half_sweep_kernel", -(-(L + 6) * n * n // 256), 0)
+        add("seg_half_sweep_kernel", -(-(L + 6) * n * n // 256), 0)
+        add("seg_prolong_correct_black_kernel", -(-(L + 8) * n * n // 256), 0)
         add("seg_half_sweep_from_zero_kernel", -(-(L + 8) * n * n // 256), 0)
         add("seg_mixed_prolong_correct_black_kernel", -(-(L + 8) * n * n // 256), 0)
         add("seg_residual_restrict_kernel", -(-(L // 2) * nc * nc // 256), 0)
-        for name, prolong in (("mixed_seg_stage_kernel", False),
-                              ("mixed_seg_prolong_stage_kernel", True)):
+        # K31's one-pass stage takes K36's plan: the same planes
+        for names, prolong in ((("mixed_seg_stage_kernel",), False),
+                               (("mixed_seg_prolong_stage_kernel", "seg_prolong_stage_kernel"),
+                                True)):
             try:  # a checkout without the one-pass segment stages
                 stage = ps._stage_plan(n, 2, sms, prolong=prolong, rect=True,
                                        seg_planes=min(L, n))
             except TypeError:
                 continue
-            add(name, stage.blocks, stage.smem)
+            for name in names:
+                add(name, stage.blocks, stage.smem)
     return out
+
+
+def _seg2d_sizes(hier, sms, plan):
+    """(kernel name, shape) -> n for the (i, j) stage and restriction
+    kernels on block (0, 0) of ``plan`` (a ShardPlan2D; depth d of the 2D
+    tier at Li = plan.local_i(d), Lj = plan.local_j(d), halos of 4 a side),
+    as _seg_sizes: the first forms' one thread a point of the rows and
+    columns they span (K37's half-sweeps (Li + 6) (Lj + 6) n, K38's and
+    K40's heads (Li + 8) (Lj + 8) n; K39 a coarse point of its (Li / 2, Lj /
+    2) block), K40's one-pass stage from its plan of the planes and rows it
+    tiles (where the package has it)."""
+    from multigrid_parallel_tpu_torch.ops import pallas_split as ps
+
+    out = {}
+
+    def add(name, blocks, smem):
+        out[(name, (blocks, 1, 1, smem))] = n
+        out[(name, (blocks, 1, 1))] = n
+
+    for depth in range(plan.n_sharded):
+        n, li, lj = hier.sizes[hier.num_levels - 1 - depth], plan.local_i(depth), plan.local_j(depth)
+        nc = (n + 1) // 2
+        add("seg_half_sweep_kernel", -(-(li + 6) * (lj + 6) * n // 256), 0)
+        for name in ("seg_half_sweep_from_zero_kernel", "seg_prolong_correct_black_kernel"):
+            add(name, -(-(li + 8) * (lj + 8) * n // 256), 0)
+        add("seg_residual_restrict_kernel", -(-(li // 2) * (lj // 2) * nc // 256), 0)
+        try:  # a checkout without K40's one-pass stage
+            stage = ps._stage_plan(n, 2, sms, prolong=True, rect=True, seg_planes=min(li, n),
+                                   seg_cols=min(lj, n))
+        except TypeError:
+            continue
+        add("seg_prolong_stage_kernel", stage.blocks, stage.smem)
+    return out
+
+
+def _sharded_dirichlet(dev, two_d, sms):
+    """The one-rank i-sharded (``two_d``: (i, j)-sharded, a 1x1 mesh)
+    Dirichlet 257^3 solve (world size 1 on a free localhost port, started
+    here) and the fused solve: (hierarchy, solves, unpacks, sizes of the
+    sharded kernels)."""
+    import torch.distributed as dist
+
+    import multigrid_parallel_tpu_torch as mg
+    from multigrid_parallel_tpu_torch import cycles_padded as cp
+    from multigrid_parallel_tpu_torch.ops import pallas3d as pk
+    from multigrid_parallel_tpu_torch.parallel import sharded as sh
+    from multigrid_parallel_tpu_torch.parallel.launch import _free_port
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    prob = mg.poisson_3d_quadratic()
+    hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7)
+    cfg = mg.CycleConfig(n_smooth=2)
+    init = cp.ref_init_norm(prob, hier, dev)
+    kw = dict(rel_tol=1e-8, max_cycles=40, inner_cycles=4, init_norm=init)
+    if two_d:
+        from multigrid_parallel_tpu_torch.parallel import sharded2d as s2
+        from multigrid_parallel_tpu_torch.parallel import sharded2d_padded as s2p
+
+        mesh2 = s2.make_mesh_2d(1, 1)
+        run, plan = s2p.make_sharded2d_padded_df_solver(hier, cfg, mesh2, None, **kw)
+        if (plan.n_sharded, plan.local_i(0), plan.local_j(0)) != (4, 272, 272):
+            raise RuntimeError(f"not the production plan: {plan}")
+        state = s2p.setup_df_problem_sharded2d_padded(prob, hier, mesh2, plan)
+        label, sizes = "sharded2d", _seg2d_sizes(hier, sms, plan)
+        unpack = lambda out: s2p.unpad_solution2d(  # noqa: E731
+            s2.gather_global2d(out[0], mesh2), s2.gather_global2d(out[1], mesh2), hier)
+    else:
+        from multigrid_parallel_tpu_torch.parallel import sharded_padded as spp
+
+        mesh = sh.make_mesh(1)
+        run, plan = spp.make_sharded_df_solver(hier, cfg, mesh, **kw)
+        if (plan.n_sharded, plan.local_planes(0)) != (6, 320):
+            raise RuntimeError(f"not the production plan: {plan}")
+        state = spp.setup_df_problem_sharded_padded(prob, hier, mesh, plan)
+        label, sizes = "sharded", _seg_sizes(hier, sms, plan)
+        unpack = lambda out: spp.unpad_solution(  # noqa: E731
+            sh.gather_global(out[0], mesh), sh.gather_global(out[1], mesh), hier)
+    fused = cp.make_on_device_df_solver(hier, cfg, fused=True, device=dev, **kw)
+    fused_state = cp.setup_df_problem(prob, hier, dev)
+    return (hier, {label: lambda: run(*state), "fused": lambda: fused(*fused_state)},
+            {label: unpack, "fused": lambda out: pk.df_to_f64(out[0], out[1])}, sizes)
 
 
 def _sharded_electrospray(dev):
@@ -486,7 +617,7 @@ def _solves(electrospray: bool, dev):
 
 
 def _child(root: Path, walls: int, traces: int, electrospray: bool, save: Path,
-           sharded: bool = False) -> None:
+           sharded: bool = False, dirichlet: str = None) -> None:
     sys.path[0] = str(root)  # the script's own directory: the ROOT's package instead
     import torch
 
@@ -502,6 +633,9 @@ def _child(root: Path, walls: int, traces: int, electrospray: bool, save: Path,
     if sharded:
         hier, solves, unpack, plan = _sharded_electrospray(dev)
         sizes = {**_stage_sizes(hier, sms), **_seg_sizes(hier, sms, plan)}
+    elif dirichlet:
+        hier, solves, unpack, seg = _sharded_dirichlet(dev, dirichlet == "sharded2d", sms)
+        sizes = {**_stage_sizes(hier, sms), **seg}
     else:
         hier, solves, unpack = _solves(electrospray, dev)
         sizes = _stage_sizes(hier, sms)
@@ -543,7 +677,7 @@ def _child(root: Path, walls: int, traces: int, electrospray: bool, save: Path,
             "restrict_calls": restricts,
         })
     print(json.dumps(result), flush=True)
-    if sharded:
+    if sharded or dirichlet:
         import torch.distributed as dist
 
         dist.destroy_process_group()
@@ -560,12 +694,17 @@ def main(argv=None) -> int:
                       help="trace the electrospray's full, fold and split tiers instead")
     mode.add_argument("--sharded-electrospray", action="store_true",
                       help="trace the one-rank i-sharded electrospray solve and the full tier")
+    mode.add_argument("--sharded", action="store_true",
+                      help="trace the one-rank i-sharded Dirichlet solve and the fused one")
+    mode.add_argument("--sharded2d", action="store_true",
+                      help="trace the 1x1 (i, j)-sharded Dirichlet solve and the fused one")
     parser.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     parser.add_argument("--save", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.child is not None:
+        dirichlet = "sharded" if args.sharded else "sharded2d" if args.sharded2d else None
         _child(args.child.resolve(), args.walls, args.traces, args.electrospray, args.save,
-               args.sharded_electrospray)
+               args.sharded_electrospray, dirichlet)
         return 0
     try:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -584,6 +723,8 @@ def main(argv=None) -> int:
                                       "--walls", str(args.walls), "--traces", str(args.traces)]
                                      + ["--electrospray"] * args.electrospray
                                      + ["--sharded-electrospray"] * args.sharded_electrospray
+                                     + ["--sharded"] * args.sharded
+                                     + ["--sharded2d"] * args.sharded2d
                                      + save,
                                      cwd=roots[i], capture_output=True, text=True)
                 lines = run.stdout.strip().splitlines()

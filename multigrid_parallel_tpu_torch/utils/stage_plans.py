@@ -2,7 +2,8 @@
 ``--fold`` the same stage on the electrospray's fold layout (K17's, K16's
 on a loaded field, and K19's), with ``--mixed`` on its full layout (K14's
 and K15's), with ``--seg`` on one rank's segments of an i-sharded field
-(K35's and K36's), with ``--msplit`` the split pair's mixed stage (K22's and
+(K35's and K36's), with ``--seg-rect`` K4's Dirichlet stage there (K31's)
+and on one rank's block of an (i, j)-sharded field (K40's), with ``--msplit`` the split pair's mixed stage (K22's and
 K24's, ops/csrc/split.cuh with MIXED), or, with ``--restrict``, the
 streaming restriction stage (K3's, K9's and, on the fold layout, K18's,
 ops/csrc/restrict.cuh; K18's first form beside it) on candidate plans at
@@ -12,14 +13,22 @@ block sizes, each held bit for bit against its plain version.
     python -m multigrid_parallel_tpu_torch.utils.stage_plans [--sizes 9 17 33 65 129]
                                                              [--reps 20]
                                                              [--restrict | --fold | --mixed
-                                                              | --seg | --msplit]
+                                                              | --seg | --seg-rect
+                                                              | --msplit]
 
 For each size and kernel (K2 from zero, K4, both at n_iter 2; K17, K16
 and K19 likewise, with the electrospray's pins and coarse signs; K14 and
 K15 with its pins; K35 and K36 likewise on rank 1's segments of L = 320
 and 96 planes (rank 0's where the level has no rank 1: one rank's L =
 320, four ranks' L = 96 at 129^3), by default at 129^3 and 257^3, the plans
-tiling the rank's planes; K22 and K24 with its pin packs and coarse signs, on the
+tiling the rank's planes; K31 at n_iter 2 on the production segments of
+the level (one rank's L = 320 (n - 1) / 256 and rank 1's of four ranks' L
+= 96 (n - 1) / 256) and K40 on its production blocks (the 1x1 block of
+272 (n - 1) / 256 rows and columns, rank (0, 0)'s of the 2x2 mesh's 144
+(n - 1) / 256), by default at 129^3 and 257^3, the plans tiling the
+rank's planes and rows, with the first form (its correction launch and 3
+half-sweep launches, their device times summed a call) as the plan
+"first_form"; K22 and K24 with its pin packs and coarse signs, on the
 msplit planner's plan, K7's and K10's and wavefront plans of several
 block sizes; or K3, K9 and K18, K18's first form as the plan
 "first_form") and plan, one JSON line: the plan, whether the output equals the
@@ -210,23 +219,25 @@ def evened(n, b):
     return -(-n // -(-n // min(b, n)))
 
 
-def candidates(n, prolong, sms, planes=None):
+def candidates(n, prolong, sms, planes=None, cols=None):
     """The planner's plan, the wavefront's, and box plans of square blocks
     and wavefront plans of a few box sizes; ``planes``: a segment stage's
     plans of that many planes (their bi evened over them, at most
-    ``SEG_MAX_THREADS`` threads)."""
+    ``SEG_MAX_THREADS`` threads), ``cols`` (with ``planes``): of that many
+    rows j too (their bj evened over them)."""
     m, cap = (planes, ps.SEG_MAX_THREADS) if planes else (n, ps.RECT_MAX_THREADS)
+    mj = cols or n
     plans = {"planner": ps._stage_plan(n, 2, sms, prolong=prolong, rect=True,
-                                       seg_planes=planes),
-             "wave": ps._wave_plan(n, 2, sms, prolong, True, planes)}
+                                       seg_planes=planes, seg_cols=cols),
+             "wave": ps._wave_plan(n, 2, sms, prolong, True, planes, cols)}
     for b in (1, 2, 3, 4, 6, 8, 10, 12, 16, 24, 33):
-        plan = box(n, evened(m, b), evened(n, b), prolong, max_threads=cap)
+        plan = box(n, evened(m, b), evened(mj, b), prolong, max_threads=cap)
         if plan is not None:
-            plans[f"box{plan.bi}x{plan.bj}"] = plan._replace(planes=planes)
+            plans[f"box{plan.bi}x{plan.bj}"] = plan._replace(planes=planes, cols=cols)
     for bi, bj in ((8, 4), (8, 10), (16, 4), (16, 6), (33, 4)):
-        plan = wave(n, evened(m, bi), evened(n, bj), prolong, max_threads=cap)
+        plan = wave(n, evened(m, bi), evened(mj, bj), prolong, max_threads=cap)
         if plan is not None and n >= 65:
-            plans[f"wave{plan.bi}x{plan.bj}"] = plan._replace(planes=planes)
+            plans[f"wave{plan.bi}x{plan.bj}"] = plan._replace(planes=planes, cols=cols)
     return plans
 
 
@@ -430,6 +441,131 @@ def time_seg(n, L, sms, reps, dev):
                   flush=True)
 
 
+def time_seg_rect(n, sms, reps, dev):
+    """One JSON line a (kernel, segment, plan) at level n: K31 at n_iter 2
+    on the one-rank segment (L = 320 (n - 1) / 256, rank 0) and on rank 1's
+    of four (L = 96 (n - 1) / 256), and K40 on the 1x1 block (272 (n - 1) /
+    256 rows and columns) and on rank (0, 0)'s of the 2x2 mesh (144 (n - 1)
+    / 256), of random fields, zeros past the chain ends: each candidate
+    plan of the rank's planes and rows (``candidates``) launched through
+    the segment launchers, and the first form ("first_form": the correction
+    launch and 3 half-sweep launches, a call's device time their sum), its
+    output against the plain version and its median device time a call
+    over ``reps`` calls from a trace of its own."""
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as px
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as px2
+
+    h, nc, hh, n_iter = 1.0 / (n - 1), (n + 1) // 2, 4, 2
+    lib, stream = pk._lib(), pk._stream()
+    rng = np.random.default_rng(n)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    def args(plan):
+        return (plan.n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem,
+                int(plan.box), stream)
+
+    def first_form_1d(c, e, r, L, g0):
+        def run():
+            out = px._Seg(e.body.new_empty((hh, n, n)), torch.empty_like(e.body),
+                          e.body.new_empty((hh, n, n)), 0)
+            pk._check(lib.mg_seg_prolong_correct_black(
+                *px._ptrs(out)[:3], *px._ptrs(c), c.kl, c.rh.shape[0] - c.r_off,
+                *px._ptrs(e), *px._ptrs(r), hh, L, n, g0, h * h, stream), "stage_plans")
+            for color in (1, 0, 1):
+                pk._check(lib.mg_seg_half_sweep(*px._ptrs(out), *px._ptrs(r), hh, L, hh, n, g0,
+                                                h * h, color, stream), "stage_plans")
+            return out.body
+        return run
+
+    def first_form_2d(c, e, r, L, Lj, g0, gj0):
+        def run():
+            out = px2._fresh(e.body, hh)
+            od, rd = out.desc(), r.desc()
+            pk._check(lib.mg_seg2d_prolong_correct_black(od, c.desc(), e.desc(), rd, hh, L, Lj,
+                                                         n, g0, gj0, h * h, stream),
+                      "stage_plans")
+            for color in (1, 0, 1):
+                pk._check(lib.mg_seg2d_half_sweep(od, rd, hh, L, Lj, n, g0, gj0, h * h, color,
+                                                  stream), "stage_plans")
+            return out.body
+        return run
+
+    cases = []
+    for L, rank in ((320 * (n - 1) // 256, 0), (96 * (n - 1) // 256, 1)):
+        ranks = max(rank + 2, -(-n // L))
+        e, f, ec = rnd(ranks * L, n, n), rnd(ranks * L, n, n), rnd(ranks * L // 2, nc, nc)
+        gi0, g0 = rank * L - hh, rank * L
+        e3, f3 = seg_parts(e, rank, L, hh, hh), seg_parts(f, rank, L, hh, hh)
+        c3 = seg_parts(ec, rank, L // 2, n_iter, n_iter + 1)
+        es_, fs = px._seg(e3, hh, hh, L), px._seg(f3, hh, hh, L)
+        cs = px._seg(c3, n_iter, n_iter + 1, L // 2)
+        planes = px.seg_rect_planes(g0, L, n)
+
+        def k31(plan, L=L, g0=g0, es_=es_, fs=fs, cs=cs):
+            out = torch.empty((L, n, n), device=dev)
+            pk._check(lib.mg_seg_prolong_stage(
+                out.data_ptr(), *px._ptrs(cs), cs.kl, n_iter + 1, *px._ptrs(es_), *px._ptrs(fs),
+                hh, L, hh, n, g0, h * h, *args(plan)), "stage_plans")
+            return out
+
+        cases.append(("K31", {"L": L, "rank": rank}, k31, candidates(n, True, sms, planes),
+                      first_form_1d(cs, es_, fs, L, g0),
+                      px.prolong_smooth_halo_plain(c3, e3, f3, gi0, h, n_iter, n, L)))
+    for w, (nx, ix) in ((272 * (n - 1) // 256, (1, 0)), (144 * (n - 1) // 256, (2, 0))):
+        E, F, EC = rnd(nx * w, nx * w, n), rnd(nx * w, nx * w, n), rnd(nx * w // 2, nx * w // 2,
+                                                                           nc)
+        e5 = seg_parts2d(E, ix, ix, w, hh, hh)
+        f5 = seg_parts2d(F, ix, ix, w, hh, hh)
+        c5 = seg_parts2d(EC, ix, ix, w // 2, n_iter, n_iter + 1)
+        es_, fs = px2._seg2(e5, w, w, hh, hh, hh, hh), px2._seg2(f5, w, w, hh, hh, hh, hh)
+        kc = n_iter + 1
+        cs = px2._seg2(c5, w // 2, w // 2, n_iter, kc, n_iter, kc)
+        g0 = ix * w
+        extent = px.seg_rect_planes(g0, w, n)
+
+        def k40(plan, w=w, g0=g0, es_=es_, fs=fs, cs=cs):
+            out = torch.empty((w, w, n), device=dev)
+            pk._check(lib.mg_seg2d_prolong_stage(
+                out.data_ptr(), cs.desc(), es_.desc(), fs.desc(), hh, hh, kc, kc, w, w, n, g0, g0,
+                h * h, *args(plan)), "stage_plans")
+            return out
+
+        cases.append(("K40", {"Li": w, "Lj": w, "rank": [ix, ix], "mesh": [nx, nx]}, k40,
+                      candidates(n, True, sms, extent, extent),
+                      first_form_2d(cs, es_, fs, w, w, g0, g0),
+                      px2.prolong_smooth_halo2d_plain(c5, e5, f5, (g0 - hh, g0 - hh), h, n_iter,
+                                                      n, w, w)))
+    for kernel, where, launch_on, plans, first, want in cases:
+        for label, plan in list(plans.items()) + [("first_form", None)]:
+            run = first if plan is None else (lambda plan=plan: launch_on(plan))
+            exact = bool(torch.equal(run(), want))
+            torch.cuda.synchronize()
+            intervals = kernel_intervals(lambda: [run() for _ in range(reps)])
+            per = [(b - a) / 1e3 for a, b, name, *_ in intervals if "seg_" in name]
+            calls = [sum(per[i:i + 4]) for i in range(0, len(per), 4)] if plan is None else per
+            row = {"n": n, "kernel": kernel, **where, "plan": label, "exact": exact,
+                   "device_ms": statistics.median(calls) if calls else None}
+            if plan is not None:
+                row.update({"box": plan.box, "bi": plan.bi, "bj": plan.bj, "bk": plan.bk,
+                            "blocks": plan.blocks, "threads": plan.threads, "smem": plan.smem})
+            print(json.dumps(row), flush=True)
+
+
+def seg_parts2d(x, ix, iy, L, kl, kr):
+    """Rank (ix, iy)'s own five parts (body, jl, jr, lh, rh) of the global
+    field x of square (L, L) blocks, halos kl before and kr after in i and
+    j, corners included; zeros past the chain's ends."""
+    rows, cols, m = x.shape
+    g = x.new_zeros((rows + kl + kr, cols + kl + kr, m))
+    g[kl:kl + rows, kl:kl + cols] = x
+    e = g[ix * L:ix * L + kl + L + kr, iy * L:iy * L + kl + L + kr]
+    mid = e[kl:kl + L]
+    return (mid[:, kl:kl + L].clone(), mid[:, :kl].clone(), mid[:, kl + L:].clone(),
+            e[:kl].clone(), e[kl + L:].clone())
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--sizes", type=int, nargs="+",
@@ -446,6 +582,9 @@ def main(argv=None) -> int:
     group.add_argument("--seg", action="store_true",
                        help="time K35's and K36's stages on segments of 320 and 96 planes "
                             "instead")
+    group.add_argument("--seg-rect", action="store_true",
+                       help="time K31's and K40's Dirichlet stages on the production segments "
+                            "and blocks instead")
     group.add_argument("--msplit", action="store_true",
                        help="time K22's and K24's mixed stages on the split pair instead")
     args = parser.parse_args(argv)
@@ -457,7 +596,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     if args.sizes is None:
-        args.sizes = [129, 257] if args.seg else [9, 17, 33, 65, 129]
+        args.sizes = [129, 257] if args.seg or args.seg_rect else [9, 17, 33, 65, 129]
+    if args.seg_rect:
+        for n in args.sizes:
+            time_seg_rect(n, sms, args.reps, dev)
+        return 0
     if args.seg:
         for n in args.sizes:
             for L in (320, 96):

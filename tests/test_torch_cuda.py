@@ -18,6 +18,8 @@ stage K42 against its plain version, the one-pass split stages K7, K8
 and K10 against theirs at 9^3-513^3 (one launch a call), and the
 one-pass rect stages K1, K2 and K4 against theirs at 9^3-513^3 (K1 also
 at the smoother study's 50^3) and on hand plans (one launch a call),
+the one-pass Dirichlet segment stages K31 and K40 against theirs on the
+257^3 production segments and blocks (one launch a call at n_iter <= 2),
 the streaming restriction stages K3 and K9 against theirs at
 9^3-513^3 on NaN-poisoned outputs and on hand plans (one launch a call),
 and the one-pass fold stages K16, K17 and K19 against theirs at
@@ -1577,7 +1579,7 @@ def test_sharded_kernels_match_plain_and_single_device_on_card(cuda, kernel):
                 lambda r: tpx.residual_restrict_halo_plain(parts(u, r, 2, 1), parts(f, r, 2, 1),
                                                            r * L - 2, h, n, Lc),
                 tpk.residual_restrict_fused(u[:n], f[:n], h)),
-        "K31": ("prolong_smooth_seg", 4,
+        "K31": ("prolong_smooth_seg", 1,
                 lambda r: tpx.prolong_smooth_halo(parts(ec, r, 2, 3, Lc), parts(u, r, hh, hh),
                                                   parts(f, r, hh, hh), r * L - hh, h, 2, n, L),
                 lambda r: tpx.prolong_smooth_halo_plain(parts(ec, r, 2, 3, Lc),
@@ -1624,6 +1626,177 @@ def test_sharded_df_solver_one_nccl_rank_matches_fused(cuda):
     seg = {"rb_smooth_seg", "rb_smooth_from_zero_seg", "residual_restrict_seg",
            "prolong_smooth_seg", "residual_df_norm_seg"}
     assert {k for k, v in launches.items() if v} == seg, launches
+
+
+def _nan_past_field(parts, g0, gj0, L, Lj, hl, hr, n):
+    """Five (i, j) parts (body, jl, jr, lh, rhc; lh hl rows, rhc hr) of a
+    block whose body point (0, 0) is global (g0, gj0), with every HALO
+    point past the field's edge (a global row or column < 0 or > n - 1)
+    NaN; the body's pad points keep their values."""
+    body, jl, jr, lh, rh = (t.clone() for t in parts)
+    hj = jl.shape[1]
+
+    def poison(t, rows0, cols0):
+        g = torch.arange(t.shape[0], device=t.device) + rows0
+        gj = torch.arange(t.shape[1], device=t.device) + cols0
+        out = (g[:, None] < 0) | (g[:, None] > n - 1) | (gj[None, :] < 0) | (gj[None, :] > n - 1)
+        t[out] = float("nan")
+
+    poison(jl, g0, gj0 - hj)
+    poison(jr, g0, gj0 + Lj)
+    poison(lh, g0 - hl, gj0 - hj)
+    poison(rh, g0 + L + hr - rh.shape[0], gj0 - hj)
+    return body, jl, jr, lh, rh
+
+
+# (n, L, ranks) of K31: the production segments at 257^3, four ranks' L = 96 (rank 3 pad
+# only) and one rank's L = 320 (63 pad rows), and 65^3 with L = 24
+K31_CASES = [(257, 96, 4), (257, 320, 1), (65, 24, 4)]
+# (n, (nx, ny), Li, Lj) of K40: the 1x1 block at 257^3 (15 pad rows and columns) and every
+# block of the 2x2 mesh (block (1, 1) 31 pad rows and columns), and 65^3's 1x4 narrow blocks
+K40_CASES = [(257, (1, 1), 272, 272), (257, (2, 2), 144, 144), (65, (1, 4), 80, 18)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,ranks", K31_CASES)
+def test_k31_seg_stage_matches_plain_on_card(cuda, n, L, ranks):
+    """The one-pass K31 stage on every rank of the geometry, n_iter 1-3:
+    each body bit for bit its plain version, on fields random at every
+    plane (pad rows and the coarse block's pad rows too, so the pad rows'
+    e + P ec shows), e's and r's halo rows past the field NaN, the
+    allocator poisoned with NaN before each call (a point left unwritten
+    shows); exactly one launch a call at n_iter <= 2 (6 at 3, the first
+    form); at n_iter 2 the stitched bodies equal K4's on the whole field;
+    the inputs left as they were."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+
+    h, nc, lc = 1.0 / (n - 1), (n + 1) // 2, L // 2
+    rng = np.random.default_rng(500 + n + L)
+    e, f = (torch.from_numpy(rng.standard_normal((ranks * L, n, n)).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    ec = torch.from_numpy(rng.standard_normal((ranks * lc, nc, nc)).astype(np.float32)).to(cuda)
+    for n_iter in (1, 2, 3):
+        hh, calls = 2 * n_iter, 1 if n_iter <= 2 else 2 * n_iter
+        outs = []
+        for r in range(ranks):
+            gi0 = r * L - hh
+            e3 = _seg_triples(e, r, L, hh, hh, n, tail=2)
+            f3 = _seg_triples(f, r, L, hh, hh, n)
+            ec3 = rk.rank_parts(ec, r, lc, n_iter, n_iter + 1, tail=1)
+            before = [t.clone() for t in (*e3, *f3, *ec3)]
+            want = tpx.prolong_smooth_halo_plain(ec3, e3, f3, gi0, h, n_iter, n, L)
+            _poison_allocator((L, n, n), cuda)
+            tpx.reset_launches()
+            got = tpx.prolong_smooth_halo(ec3, e3, f3, gi0, h, n_iter, n, L)
+            assert tpx.LAUNCHES == {**dict.fromkeys(tpx.KERNELS, 0), "prolong_smooth_seg": calls}
+            assert bool(torch.isfinite(got).all()) and torch.equal(got, want), (n_iter, r)
+            assert all(_same_with_nan(a, b) for a, b in zip((*e3, *f3, *ec3), before))
+            outs.append(got)
+        if n_iter == 2:
+            whole = torch.cat(outs)[:n]
+            assert torch.equal(whole, tpk.prolong_smooth_fused(ec[:nc], e[:n], f[:n], h, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,mesh,li,lj", K40_CASES)
+def test_k40_seg2d_stage_matches_plain_on_card(cuda, n, mesh, li, lj):
+    """The one-pass K40 stage on every block of the mesh, n_iter 1-3: each
+    block bit for bit its plain version, on fields random at every point
+    (the pad rows and columns too), e's and r's halo points past the field
+    NaN (corner blocks included), the allocator poisoned with NaN before
+    each call; exactly one launch a call at n_iter <= 2 (6 at 3, the first
+    form); at n_iter 2 the stitched blocks equal K4's on the whole field;
+    the inputs left as they were."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as tpx2
+
+    (nx, ny), h, nc = mesh, 1.0 / (n - 1), (n + 1) // 2
+    rng = np.random.default_rng(600 + n + li + lj)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+
+    e, f, ec = rnd(nx * li, ny * lj, n), rnd(nx * li, ny * lj, n), rnd(nx * li // 2, ny * lj // 2,
+                                                                         nc)
+    for n_iter in (1, 2, 3):
+        hh, calls = 2 * n_iter, 1 if n_iter <= 2 else 2 * n_iter
+        outs = {}
+        for ix in range(nx):
+            for iy in range(ny):
+                g0, gj0 = ix * li, iy * lj
+                e5 = _nan_past_field(rk.rank_parts2d(e, ix, iy, li, lj, hh, hh, tail=2), g0, gj0,
+                                     li, lj, hh, hh, n)
+                f5 = _nan_past_field(rk.rank_parts2d(f, ix, iy, li, lj, hh, hh), g0, gj0, li, lj,
+                                     hh, hh, n)
+                c5 = rk.rank_parts2d(ec, ix, iy, li // 2, lj // 2, n_iter, n_iter + 1)
+                before = [t.clone() for t in (*e5, *f5, *c5)]
+                gij0 = (g0 - hh, gj0 - hh)
+                want = tpx2.prolong_smooth_halo2d_plain(c5, e5, f5, gij0, h, n_iter, n, li, lj)
+                _poison_allocator((li, lj, n), cuda)
+                tpx2.reset_launches()
+                got = tpx2.prolong_smooth_halo2d(c5, e5, f5, gij0, h, n_iter, n, li, lj)
+                assert tpx2.LAUNCHES == {**dict.fromkeys(tpx2.KERNELS, 0),
+                                         "prolong_smooth_seg2d": calls}
+                assert bool(torch.isfinite(got).all()) and torch.equal(got, want), (n_iter, ix, iy)
+                assert all(_same_with_nan(a, b) for a, b in zip((*e5, *f5, *c5), before))
+                outs[ix, iy] = got
+        if n_iter == 2:
+            whole = _stitch2d(lambda ix, iy: outs[ix, iy], nx, ny)[:n, :n].contiguous()
+            assert torch.equal(whole, tpk.prolong_smooth_fused(ec[:nc, :nc].contiguous(),
+                                                               e[:n, :n].contiguous(),
+                                                               f[:n, :n].contiguous(), h, 2))
+
+
+@pytest.mark.cuda
+def test_seg_rect_launchers_refuse_what_they_do_not_take(cuda):
+    """The K31 and K40 launchers refuse a plan whose shared memory is not
+    the kernel's, and a halo shorter than 2 n_iter (K31: the left or the
+    right rows; K40: also the j columns); the wrappers' own arguments
+    succeed."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as tpx2
+
+    n, L, r, n_iter, hh = 33, 16, 1, 2, 4
+    h2 = (1.0 / (n - 1)) ** 2
+    e, f, ec = _sharded_fields(cuda, n, L)
+    lib, stream, ptrs = tpk._lib(), tpk._stream(), tpx._ptrs
+    es, fs = (tpx._seg(rk.rank_parts(x, r, L, hh, hh), hh, hh, L) for x in (e, f))
+    cs = tpx._seg(rk.rank_parts(ec, r, L // 2, n_iter, n_iter + 1), n_iter, n_iter + 1, L // 2)
+    plan = tps._plan_args(n, n_iter, cuda, prolong=True, rect=True,
+                          seg_planes=tpx.seg_rect_planes(r * L, L, n))
+    bad = plan[:6] + (plan[6] + 16,) + plan[7:]
+    out = torch.empty((L, n, n), device=cuda)
+
+    def k31(kl, kr, p):
+        return lib.mg_seg_prolong_stage(out.data_ptr(), *ptrs(cs), cs.kl, n_iter + 1, *ptrs(es),
+                                        *ptrs(fs), kl, L, kr, n, r * L, h2, *p, stream)
+
+    assert k31(hh, hh, plan) == 0
+    assert k31(hh, hh, bad) != 0 and k31(hh - 1, hh, plan) != 0 and k31(hh, hh - 1, plan) != 0
+    li = lj = 18
+    u2, f2, ec2 = _blocks2d(cuda, n, li, lj)
+    e5, r5 = (tpx2._seg2(rk.rank_parts2d(x, 1, 1, li, lj, hh, hh), li, lj, hh, hh, hh, hh)
+              for x in (u2, f2))
+    c5 = tpx2._seg2(rk.rank_parts2d(ec2, 1, 1, li // 2, lj // 2, n_iter, n_iter + 1), li // 2,
+                    lj // 2, n_iter, n_iter + 1, n_iter, n_iter + 1)
+    plan2 = tps._plan_args(n, n_iter, cuda, prolong=True, rect=True,
+                           seg_planes=tpx.seg_rect_planes(li, li, n),
+                           seg_cols=tpx.seg_rect_planes(lj, lj, n))
+    bad2 = plan2[:6] + (plan2[6] + 16,) + plan2[7:]
+    out2 = torch.empty((li, lj, n), device=cuda)
+
+    def k40(kr, hjr, p, e=e5):
+        return lib.mg_seg2d_prolong_stage(out2.data_ptr(), c5.desc(), e.desc(), r5.desc(), kr,
+                                          hjr, n_iter + 1, n_iter + 1, li, lj, n, li, lj, h2, *p,
+                                          stream)
+
+    assert k40(hh, hh, plan2) == 0
+    assert k40(hh, hh, bad2) != 0 and k40(hh - 1, hh, plan2) != 0 and k40(hh, hh - 1, plan2) != 0
+    short = tpx2._Seg2(e5.body, e5.jl[:, 1:], e5.jr, e5.lh, e5.rh, e5.r_off)  # a j halo of 3
+    assert k40(hh, hh, plan2, short) != 0
+    torch.cuda.synchronize()
 
 
 # --------------------------------- the i-sharded electrospray kernels K34-K36
@@ -1935,7 +2108,7 @@ def test_sharded2d_kernels_match_plain_and_single_device_on_card(cuda, kernel):
                 lambda ix, iy: tpx2.residual_restrict_halo2d_plain(
                     p5(u, ix, iy, 2, 1), p5(f, ix, iy, 2, 1), g(ix, iy, 2), h, n, lic, ljc),
                 tpk.residual_restrict_fused(cube(u), cube(f), h)),
-        "K40": ("prolong_smooth_seg2d", 4,
+        "K40": ("prolong_smooth_seg2d", 1,
                 lambda ix, iy: tpx2.prolong_smooth_halo2d(p5(ec, ix, iy, 2, 3, lic, ljc),
                                                           p5(u, ix, iy, hh, hh),
                                                           p5(f, ix, iy, hh, hh), g(ix, iy, hh),

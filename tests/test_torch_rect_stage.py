@@ -5,8 +5,9 @@ an emulation of the CUDA kernels' schedule held against the plain
 versions, and the wrappers' CPU contract.
 
 The CUDA stage kernel (ops/csrc/rect.cuh, ``stage_body``) cannot run here,
-so its schedule is emulated in torch, block by block, as the kernel runs
-it. A field row (i, j) is held as two colour rows of slots, slot kk of a
+so its schedule is emulated in torch (tests/torch_stage_emulation.py,
+emulate_dirichlet_launch, which K31's and K40's emulation shares), block
+by block, as the kernel runs it. A field row (i, j) is held as two colour rows of slots, slot kk of a
 colour holding k = 2 kk + 1 + p (p = (i + j) mod 2 for red, 1 - that for
 black), the colour with p = 1 also k = 0 at slot -1; the plan's boxes with
 halos of 2 n_iter planes and rows (and k_halo slots where k is tiled);
@@ -29,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_stage_emulation as em
 from multigrid_parallel_tpu_torch.ops import pallas3d as tpk
 from multigrid_parallel_tpu_torch.ops import pallas_split as tps
 from multigrid_parallel_tpu_torch.ops.stencils_3d import BLACK, RED
@@ -37,7 +39,6 @@ torch.set_num_threads(1)
 
 PLAN_SIZES = [5, 9, 11, 16, 17, 33, 65, 129, 257, 513, 1025]
 H100_SMS = 132
-NAN = float("nan")
 
 
 def _spans(extent, size):
@@ -95,158 +96,21 @@ def test_rect_plan_rejects_what_the_kernel_does_not_run():
 # ------------------------------------------------------ the layout, emulated
 
 
-def _slot_k(n):
-    """(k_red, k_black), each (n, n, n // 2 + 1): the k that slot kk - 1
-    of the colour holds in row (i, j), k = 2 kk - 1 + p; outside [0, n)
-    where the slot holds no point."""
-    idx = torch.arange(n)
-    q = (idx[:, None, None] + idx[None, :, None]) % 2
-    kk = torch.arange(-1, n // 2)[None, None, :]
-    return 2 * kk + 1 + q, 2 * kk + 2 - q
-
-
-def _deinterleave(x):
-    """(n, n, n) field -> its colours, each (n, n, n // 2 + 1), slot kk at
-    index kk + 1; NaN where a slot holds no point."""
-    n = x.shape[0]
-    out = []
-    for k in _slot_k(n):
-        ok = (k >= 0) & (k < n)
-        vals = torch.gather(x, 2, k.clamp(0, n - 1))
-        out.append(torch.where(ok, vals, torch.full_like(vals, NAN)))
-    return out
-
-
-def _interleave(colours):
-    n = colours[0].shape[0]
-    out = torch.full((n, n, n), NAN, dtype=colours[0].dtype)
-    for x, k in zip(colours, _slot_k(n)):
-        ok = (k >= 0) & (k < n)
-        out[ok.nonzero(as_tuple=True)[:2] + (k[ok],)] = x[ok]
-    return out
-
-
 def test_layout_round_trip_holds_every_point_once():
     for n in (5, 16, 17):
         x = torch.randn(n, n, n)
-        red, black = _deinterleave(x)
+        red, black = em.deinterleave(x)
         assert int(torch.isfinite(red).sum() + torch.isfinite(black).sum()) == n ** 3
-        assert torch.equal(_interleave([red, black]), x)
+        assert torch.equal(em.interleave([red, black], n), x)
         idx = torch.arange(n)
         ij = idx[:, None, None] + idx[None, :, None]
-        for k, odd in zip(_slot_k(n), (1, 0)):  # red holds (i + j + k) odd
+        for k, odd in zip(em._slot_k(n), (1, 0)):  # red holds (i + j + k) odd
             assert bool(((ij + k) % 2 == odd).all())
-
-
-def _emulate_launch(ins, fs, color0, h, plan, corr=None):
-    """One rect stage launch as the kernel runs it: stage_body's wavefront
-    or, for a box plan, box_body. ``ins``, ``fs`` and ``corr`` (K4's P ec,
-    or None) are de-interleaved by stage colour ([0] the first
-    half-sweep's colour, ``color0``); K2's zero tile is a zero ``ins``.
-    Returns the outputs by stage colour and how many blocks wrote each
-    slot."""
-    n, _, s1 = ins[0].shape
-    s = s1 - 1
-    big_h, levels = plan.halo, 2 * plan.n_iter
-    depth = 2 * levels + 3  # each colour's ring (the wavefront)
-    outs = [torch.full_like(x, NAN) for x in ins]
-    writes = torch.zeros((2,) + ins[0].shape, dtype=torch.int32)
-    width = plan.bk + 2 * plan.k_halo if plan.k_halo else -(-s // 4) * 4 + 4
-    ni, nj, nk = plan.tiles
-    for ti in range(ni):
-        for tj in range(nj):
-            for tk in range(nk):
-                i0, i1 = ti * plan.bi, min(ti * plan.bi + plan.bi, n)
-                j0, j1 = tj * plan.bj, min(tj * plan.bj + plan.bj, n)
-                k0, k1 = tk * plan.bk, min(tk * plan.bk + plan.bk, s)
-                jb0, kb0 = j0 - big_h, (k0 - plan.k_halo if plan.k_halo else -4)
-                ia, ib = max(i0 - big_h, 0), min(i1 + big_h, n)
-                ja, jb = max(jb0, 0), min(j1 + big_h, n)
-                ka, kb = max(kb0, -1), min(k1 + plan.k_halo, s)
-                rows, cols = slice(ja - jb0, jb - jb0), slice(ka - kb0, kb - kb0)
-                box = (slice(ja, jb), slice(ka + 1, kb + 1))
-                tiles = [{}, {}]
-
-                def load(q):
-                    for c in (0, 1):
-                        # one column past the tile: a slot's kk + 1 read at the last slot
-                        t = torch.full((plan.bj + 2 * big_h, width + 1), NAN,
-                                       dtype=ins[c].dtype)
-                        t[rows, cols] = ins[c][q][box]
-                        if corr is not None:  # e + P ec as the plane arrives
-                            t[rows, cols] = t[rows, cols] + corr[c][q][box]
-                        tiles[c][q] = t
-                        if not plan.box:
-                            tiles[c].pop(q - depth, None)  # the ring slot plane q takes
-
-                def sweep(lvl, q):
-                    """Half-sweep lvl's update of plane q: (tile, rows, cols,
-                    value), or None outside its region."""
-                    c = (lvl - 1) % 2
-                    if not max(i0 - big_h + lvl, 1) <= q < min(i1 + big_h - lvl, n - 1):
-                        return None
-                    color = color0 if c == 0 else 1 - color0
-                    jl, jh = max(jb0 + lvl, 1), min(j1 + big_h - lvl, n - 1)
-                    kl = 0 if k0 == 0 else k0 - plan.k_halo + lvl
-                    kh = s if k1 == s else k1 + plan.k_halo - lvl
-                    if jh <= jl or kh <= kl:  # an empty region (a halo too short)
-                        return None
-                    lo, mid, hi = tiles[1 - c][q - 1], tiles[1 - c][q], tiles[1 - c][q + 1]
-                    r = slice(jl - jb0, jh - jb0)
-                    cl = slice(kl - kb0, kh - kb0)
-                    kk = torch.arange(kl, kh)[None, :]
-                    j = torch.arange(jl, jh)[:, None]
-                    par = ((q + j) % 2) ^ color ^ 1
-                    left = mid[r, kl - kb0 - 1:kh - kb0 - 1]
-                    right = mid[r, kl - kb0 + 1:kh - kb0 + 1]
-                    k_lo = torch.where(par == 0, left, mid[r, cl])
-                    k_hi = torch.where(par == 0, mid[r, cl], right)
-                    r_lo = slice(jl - jb0 - 1, jh - jb0 - 1)
-                    r_hi = slice(jl - jb0 + 1, jh - jb0 + 1)
-                    acc = lo[r, cl] + hi[r, cl] + mid[r_lo, cl] + mid[r_hi, cl] + k_lo + k_hi
-                    upd = (acc - (h * h) * fs[c][q, jl:jh, kl + 1:kh + 1]) * (1.0 / 6.0)
-                    live = 2 * kk + 1 + par <= n - 2
-                    dst = tiles[c][q]
-                    return dst, r, cl, torch.where(live, upd, dst[r, cl])
-
-                def run(updates):  # all of a step (or half-sweep) reads before any writes
-                    for dst, r, cl, value in [u for u in updates if u is not None]:
-                        dst[r, cl] = value
-
-                def store(q):
-                    lo_slot = -1 if k0 == 0 else k0  # a block owns k = 0 with slot 0
-                    for c in (0, 1):
-                        outs[c][q, j0:j1, lo_slot + 1:k1 + 1] = tiles[c][q][
-                            j0 - jb0:j1 - jb0, lo_slot - kb0:k1 - kb0]
-                        writes[c, q, j0:j1, lo_slot + 1:k1 + 1] += 1
-
-                if plan.box:  # every plane, then the half-sweeps one by one
-                    for q in range(ia, ib):
-                        load(q)
-                    for lvl in range(1, levels + 1):
-                        run([sweep(lvl, q) for q in range(ia, ib)])
-                    for q in range(i0, i1):
-                        store(q)
-                    continue
-                load(ia)
-                for p in range(ia, i1 + 2 * levels + 1):
-                    if p + 1 < ib:
-                        load(p + 1)
-                    run([sweep(lvl, p - 2 * lvl) for lvl in range(1, levels + 1)])
-                    # both colours' last half-sweeps finished a step ago
-                    if i0 <= p - 1 - 2 * levels < i1:
-                        store(p - 1 - 2 * levels)
-    return outs, writes
-
-
-def _by_stage(colours, color0):
-    """(red, black) by stage colour, and back (the same swap)."""
-    return list(colours) if color0 == RED else [colours[1], colours[0]]
 
 
 def _check_writes(writes, n):
     """Every point of the field written by exactly one block."""
-    exists = torch.stack([torch.isfinite(x) for x in _deinterleave(torch.zeros(n, n, n))])
+    exists = torch.stack([torch.isfinite(x) for x in em.deinterleave(torch.zeros(n, n, n))])
     assert torch.equal(writes[exists], torch.ones_like(writes[exists]))
 
 
@@ -258,12 +122,12 @@ def _emulate_k1(u, f, h, n_iter, red_first, plan_of):
     """K1 from the initial guess u (K2: a zero one), chunk after chunk."""
     n = f.shape[0]
     color0 = RED if red_first else BLACK
-    fs = _by_stage(_deinterleave(f), color0)
+    fs = em.by_stage(em.deinterleave(f), color0)
     for chunk in tps._stage_chunks(n_iter):
-        outs, writes = _emulate_launch(_by_stage(_deinterleave(u), color0), fs, color0, h,
-                                       plan_of(chunk))
+        outs, writes = em.emulate_dirichlet_launch(em.by_stage(em.deinterleave(u), color0), fs,
+                                                   color0, h, plan_of(chunk), n)
         _check_writes(writes, n)
-        u = _interleave(_by_stage(outs, color0))
+        u = em.interleave(em.by_stage(outs, color0), n)
     return u
 
 
@@ -272,13 +136,13 @@ def _emulate_k4(ec, e, r, h, n_iter, plan_of):
     t = ec
     for axis in (1, 2, 0):
         t = tpk._interp_axis(t, axis)
-    fs = _by_stage(_deinterleave(r), BLACK)
-    u, corr = e, _by_stage(_deinterleave(t), BLACK)
+    fs = em.by_stage(em.deinterleave(r), BLACK)
+    u, corr = e, em.by_stage(em.deinterleave(t), BLACK)
     for chunk in tps._stage_chunks(n_iter):
-        outs, writes = _emulate_launch(_by_stage(_deinterleave(u), BLACK), fs, BLACK, h,
-                                       plan_of(chunk), corr=corr)
+        outs, writes = em.emulate_dirichlet_launch(em.by_stage(em.deinterleave(u), BLACK), fs,
+                                                   BLACK, h, plan_of(chunk), n, corr=corr)
         _check_writes(writes, n)
-        u, corr = _interleave(_by_stage(outs, BLACK)), None
+        u, corr = em.interleave(em.by_stage(outs, BLACK), n), None
     return u
 
 

@@ -329,3 +329,74 @@ def test_stage_and_restrict_calls_map_the_sharded_electrospray():
                    "K29 n=129": [1, pytest.approx(0.003), pytest.approx(0.003)]}
     assert st.restrict_calls(intervals, sizes) == {
         "K30 n=257": [1, pytest.approx(0.001), pytest.approx(0.001)]}
+
+
+def test_stage_and_restrict_calls_map_the_sharded_dirichlet_solves():
+    """The one-rank i-sharded Dirichlet solve (plan: 6 sharded levels, L =
+    320 at 257^3) and the 1x1 (i, j) one (4 sharded levels, Li = Lj = 272):
+    K28's first form (four half-sweeps), K29's (its from-zero head and three
+    half-sweeps) and K31's (its correction head and three half-sweeps), by
+    level from their rows' threads (L + 6 or L + 8 planes); K31 as the
+    one-pass stage (seg_prolong_stage_kernel) one kernel a call, by level
+    from its plan of min(L, n) planes; K30 a kernel a call from its coarse
+    points; the same kernels on Seg2 are K37, K38, K40 and K39, by level from
+    their blocks' rows and columns; a name without its arguments is either."""
+    from multigrid_parallel_tpu_torch.hierarchy import Hierarchy
+    from multigrid_parallel_tpu_torch.ops import pallas_split as tps
+    from multigrid_parallel_tpu_torch.parallel.sharded import ShardPlan
+    from multigrid_parallel_tpu_torch.parallel.sharded2d_padded import plan_sharding_2d_padded
+
+    hier = Hierarchy(ndim=3, coarse_n=5, num_levels=7)
+    plan = ShardPlan(n_dev=1, axis="x", n_sharded=6, fine_local=320)
+    sizes = st._seg_sizes(hier, 132, plan)
+
+    def grid(n, rows):
+        return (-(-rows * n * n // 256), 1, 1, 0)
+
+    half = [(10 * i, 10 * i + 2, "seg_half_sweep_kernel<mg::Seg>", grid(129, 166))
+            for i in range(1, 10)]
+    k31 = tps._stage_plan(65, 2, 132, True, True, seg_planes=65)
+    intervals = sorted(
+        half[:4]
+        + [(48, 49, "seg_half_sweep_from_zero_kernel<mg::Seg>", grid(129, 168))] + half[4:7]
+        + [(75, 79, "seg_prolong_correct_black_kernel<mg::Seg>", grid(257, 328))]
+        + [(80 + 10 * i, 81 + 10 * i, "seg_half_sweep_kernel<mg::Seg>", grid(257, 326))
+           for i in range(3)]
+        + [(200, 203, "seg_prolong_stage_kernel<2, false, mg::rect::SegStageArgs, "
+                      "mg::rect::SegProlongPrep>", (k31.blocks, 1, 1, k31.smem)),
+           (210, 211, "seg_residual_restrict_kernel<mg::Seg>", (-(-160 * 129 ** 2 // 256), 1, 1,
+                                                                0))])
+    got = st.stage_calls(intervals, sizes)
+    assert got == {"K28 n=129": [1, pytest.approx(0.008), pytest.approx(0.008)],
+                   "K29 n=129": [1, pytest.approx(0.007), pytest.approx(0.007)],
+                   "K31 n=257": [1, pytest.approx(0.007), pytest.approx(0.007)],
+                   "K31 n=65": [1, pytest.approx(0.003), pytest.approx(0.003)]}
+    assert st.restrict_calls(intervals, sizes) == {
+        "K30 n=257": [1, pytest.approx(0.001), pytest.approx(0.001)]}
+
+    plan2 = plan_sharding_2d_padded(hier, 1, 1)
+    assert (plan2.n_sharded, plan2.local_i(0), plan2.local_j(0)) == (4, 272, 272)
+    sizes2 = st._seg2d_sizes(hier, 132, plan2)
+
+    def grid2(n, li, lj):
+        return (-(-li * lj * n // 256), 1, 1, 0)
+
+    k40 = tps._stage_plan(257, 2, 132, True, True, seg_planes=257, seg_cols=257)
+    sweep2 = [(10 * i, 10 * i + 1, "seg_half_sweep_kernel<mg::Seg2>", grid2(65, 74, 74))
+              for i in range(1, 7)]
+    intervals2 = sorted(
+        [(0, 3, "seg_prolong_correct_black_kernel<mg::Seg2>", grid2(65, 76, 76))] + sweep2[:3]
+        + [(35, 36, "seg_half_sweep_from_zero_kernel<mg::Seg2>", grid2(65, 76, 76))]
+        + sweep2[3:]
+        + [(100, 104, "seg_prolong_stage_kernel<2, false, mg::rect::Seg2StageArgs, "
+                      "mg::rect::Seg2ProlongPrep>", (k40.blocks, 1, 1, k40.smem)),
+           (110, 111, "seg_residual_restrict_kernel<mg::Seg2>",
+            (-(-136 * 136 * 129 // 256), 1, 1, 0)),
+           (120, 121, "seg_prolong_stage_kernel", (k40.blocks, 1, 1, k40.smem))])
+    assert st.stage_calls(intervals2, sizes2) == {
+        "K40 n=65": [1, pytest.approx(0.006), pytest.approx(0.006)],
+        "K38 n=65": [1, pytest.approx(0.004), pytest.approx(0.004)],
+        "K40 n=257": [1, pytest.approx(0.004), pytest.approx(0.004)],
+        "K31|K40 n=257": [1, pytest.approx(0.001), pytest.approx(0.001)]}
+    assert st.restrict_calls(intervals2, sizes2) == {
+        "K39 n=257": [1, pytest.approx(0.001), pytest.approx(0.001)]}

@@ -2,7 +2,9 @@
 kernels run it, shared by the stage tests (torch only): K14 and K15 on the
 full (n, n, n) layout (``Layout::kMixed``; tests/test_torch_mixed_stage.py)
 and K35 and K36 on one rank's segments of an i-sharded field (``kSeg``;
-tests/test_torch_seg_stage.py).
+tests/test_torch_seg_stage.py); and of its Dirichlet stage on a rank's
+segmented block, K31 on an i-sharded field and K40 on an (i, j)-sharded
+one (``kSegRect``; tests/test_torch_seg_rect_stage.py, below).
 
 The stage runs block by block on rect.cuh's tile: a field row (i, j) held
 as two colour rows of slots, slot kk of a colour holding k = 2 kk + 1 + p,
@@ -50,25 +52,37 @@ NAN = float("nan")
 # ------------------------------------------------------ the layout, emulated
 
 
-def _slot_k(n, planes=None):
-    """(k_red, k_black), each (planes, n, n // 2 + 1): the k that slot kk -
-    1 of the colour holds in row (i, j), k = 2 kk - 1 + p (planes: n)."""
-    i, idx = torch.arange(planes or n), torch.arange(n)
+def _slot_k(n, planes=None, rows=None):
+    """(k_red, k_black), each (planes, rows, n // 2 + 1): the k that slot
+    kk - 1 of the colour holds in row (i, j), k = 2 kk - 1 + p (planes,
+    rows: n)."""
+    i, idx = torch.arange(planes or n), torch.arange(rows or n)
     q = (i[:, None, None] + idx[None, :, None]) % 2
     kk = torch.arange(-1, n // 2)[None, None, :]
     return 2 * kk + 1 + q, 2 * kk + 2 - q
 
 
 def deinterleave(x):
-    """(planes, n, n) field -> its colours by field colour (red, black),
-    each (planes, n, n // 2 + 1), slot kk at index kk + 1; NaN where a slot
-    holds no point of the field."""
-    n = x.shape[1]
+    """(planes, rows, n) field -> its colours by field colour (red, black),
+    each (planes, rows, n // 2 + 1), slot kk at index kk + 1; NaN where a
+    slot holds no point of the field."""
+    n = x.shape[2]
     out = []
-    for k in _slot_k(n, x.shape[0]):
+    for k in _slot_k(n, x.shape[0], x.shape[1]):
         ok = (k >= 0) & (k < n)
         vals = torch.gather(x, 2, k.clamp(0, n - 1))
         out.append(torch.where(ok, vals, torch.full_like(vals, NAN)))
+    return out
+
+
+def interleave(colours, n):
+    """deinterleave's inverse: colours by field colour -> the (planes,
+    rows, n) field."""
+    planes, rows = colours[0].shape[:2]
+    out = torch.full((planes, rows, n), NAN)
+    for x, k in zip(colours, _slot_k(n, planes, rows)):
+        ok = (k >= 0) & (k < n)
+        out[ok.nonzero(as_tuple=True)[:2] + (k[ok],)] = x[ok]
     return out
 
 
@@ -278,11 +292,12 @@ def check_writes(writes):
     assert torch.equal(writes, torch.ones_like(writes))
 
 
-def prolongation(ec):
+def prolongation(ec, order=(1, 2, 0)):
     """P ec: the trilinear interpolation of a coarse field (j, then k, then
-    i, as the plain versions make it), NaN where a coarse plane is NaN."""
+    i, as the plain versions make it; ``order``: the axes in another
+    order), NaN where a coarse plane is NaN."""
     t = ec
-    for axis in (1, 2, 0):
+    for axis in order:
         t = tpk._interp_axis(t, axis)
     return t
 
@@ -389,3 +404,171 @@ def pins(kind, n, rng):
     pin = torch.from_numpy((rng.random((2, n, n)) < 0.3).astype(np.float32))
     assert bool(pin[:, :, 0].any()) and bool(pin[:, :, n - 1].any())
     return pin
+
+
+# ------------------------------------- the Dirichlet stage on segments
+
+
+def emulate_dirichlet_launch(ins, fs, color0, h, plan, n, span=None, cols=None, corr=None,
+                             fault=None):
+    """One Dirichlet stage launch as the kernel runs it (rect.cuh with
+    ``Layout::kRect`` for K1, K2 and K4 on the whole field, or
+    ``Layout::kSegRect`` for K31 and K40 on a rank's block: stage_body's
+    wavefront or, for a box plan, box_body) on (P, C, n) fields whose plane
+    and row indices are the global ones (a rank's VIRTUAL fields). ``ins``
+    (the initial guess, e), ``fs`` (f, r) and ``corr`` (P ec, or None) are
+    de-interleaved by stage colour; the blocks tile the planes ``span`` =
+    (c0, c1) and the rows ``cols`` = (cj0, cj1) (by default the field's; a
+    rank's clipped to n - 1), their loaded boxes clipped to the field [0,
+    n) only; each half-sweep
+    updates its region (the loaded box shrunk by its level, clipped to the
+    interior) in place, the neighbours read from the tile in the plain
+    version's order, no boundary node swept; the store writes both colours
+    of the owned box, boundary nodes included. ``fault`` "pad_swept" tiles,
+    loads, sweeps and stores the rows and planes past n - 1 as interior ones
+    (the spans then the rank's whole body). Returns the outputs by stage
+    colour (NaN where not stored) and each slot's writes."""
+    s = n // 2
+    planes_n, rows_n = ins[0].shape[:2]
+    (c0, c1), (cj0, cj1) = span or (0, n), cols or (0, n)
+    edge_i, edge_j = (planes_n, rows_n) if fault == "pad_swept" else (n, n)
+    big_h, levels = plan.halo, 2 * plan.n_iter
+    depth = 2 * levels + 3  # each colour's ring (the wavefront)
+    outs = [torch.full_like(x, NAN) for x in ins]
+    writes = torch.zeros((2,) + ins[0].shape, dtype=torch.int32)
+    width = plan.bk + 2 * plan.k_halo if plan.k_halo else -(-s // 4) * 4 + 4
+    nk = plan.tiles[2]
+    for ti in range(max(1, -(-(c1 - c0) // plan.bi))):
+        for tj in range(max(1, -(-(cj1 - cj0) // plan.bj))):
+            for tk in range(nk):
+                i0 = c0 + ti * plan.bi
+                i1 = min(i0 + plan.bi, c1)
+                j0 = cj0 + tj * plan.bj
+                j1 = min(j0 + plan.bj, cj1)
+                if i0 >= i1 or j0 >= j1:
+                    continue  # a pad rank's block
+                k0, k1 = tk * plan.bk, min(tk * plan.bk + plan.bk, s)
+                jb0, kb0 = j0 - big_h, (k0 - plan.k_halo if plan.k_halo else -4)
+                ia, ib = max(i0 - big_h, 0), min(i1 + big_h, edge_i)
+                ja, jb = max(jb0, 0), min(j1 + big_h, edge_j)
+                ka, kb = max(kb0, -1), min(k1 + plan.k_halo, s)
+                rows, kcols = slice(ja - jb0, jb - jb0), slice(ka - kb0, kb - kb0)
+                box = (slice(ja, jb), slice(ka + 1, kb + 1))
+                tiles = [{}, {}]
+
+                def load(q):
+                    for c in (0, 1):
+                        # one column past the tile: a slot's kk + 1 read at the last slot
+                        t = torch.full((plan.bj + 2 * big_h, width + 1), NAN)
+                        t[rows, kcols] = ins[c][q][box]
+                        if corr is not None:  # e + P ec as the plane arrives
+                            t[rows, kcols] = t[rows, kcols] + corr[c][q][box]
+                        tiles[c][q] = t
+                        if not plan.box:
+                            tiles[c].pop(q - depth, None)  # the ring slot plane q takes
+
+                def sweep(lvl, q):
+                    c = (lvl - 1) % 2
+                    if not max(i0 - big_h + lvl, 1) <= q < min(i1 + big_h - lvl, edge_i - 1):
+                        return None
+                    color = color0 if c == 0 else 1 - color0
+                    jl, jh = max(jb0 + lvl, 1), min(j1 + big_h - lvl, edge_j - 1)
+                    kl = 0 if k0 == 0 else k0 - plan.k_halo + lvl
+                    kh = s if k1 == s else k1 + plan.k_halo - lvl
+                    if jh <= jl or kh <= kl:
+                        return None
+                    lo, mid, hi = tiles[1 - c][q - 1], tiles[1 - c][q], tiles[1 - c][q + 1]
+                    r = slice(jl - jb0, jh - jb0)
+                    cl = slice(kl - kb0, kh - kb0)
+                    kk = torch.arange(kl, kh)[None, :]
+                    j = torch.arange(jl, jh)[:, None]
+                    par = ((q + j) % 2) ^ color ^ 1
+                    left = mid[r, kl - kb0 - 1:kh - kb0 - 1]
+                    right = mid[r, kl - kb0 + 1:kh - kb0 + 1]
+                    k_lo = torch.where(par == 0, left, mid[r, cl])
+                    k_hi = torch.where(par == 0, mid[r, cl], right)
+                    r_lo = slice(jl - jb0 - 1, jh - jb0 - 1)
+                    r_hi = slice(jl - jb0 + 1, jh - jb0 + 1)
+                    acc = lo[r, cl] + hi[r, cl] + mid[r_lo, cl] + mid[r_hi, cl] + k_lo + k_hi
+                    upd = (acc - (h * h) * fs[c][q, jl:jh, kl + 1:kh + 1]) * (1.0 / 6.0)
+                    live = 2 * kk + 1 + par <= n - 2
+                    dst = tiles[c][q]
+                    return dst, r, cl, torch.where(live, upd, dst[r, cl])
+
+                def run(updates):  # all of a step (or half-sweep) reads before any writes
+                    for dst, r, cl, value in [u for u in updates if u is not None]:
+                        dst[r, cl] = value
+
+                def store(q):
+                    lo_slot = -1 if k0 == 0 else k0  # a block owns k = 0 with slot 0
+                    for c in (0, 1):
+                        outs[c][q, j0:j1, lo_slot + 1:k1 + 1] = tiles[c][q][
+                            j0 - jb0:j1 - jb0, lo_slot - kb0:k1 - kb0]
+                        writes[c, q, j0:j1, lo_slot + 1:k1 + 1] += 1
+
+                if plan.box:  # every plane, then the half-sweeps one by one
+                    for q in range(ia, ib):
+                        load(q)
+                    for lvl in range(1, levels + 1):
+                        run([sweep(lvl, q) for q in range(ia, ib)])
+                    for q in range(i0, i1):
+                        store(q)
+                    continue
+                load(ia)
+                for p in range(ia, i1 + 2 * levels + 1):
+                    if p + 1 < ib:
+                        load(p + 1)
+                    run([sweep(lvl, p - 2 * lvl) for lvl in range(1, levels + 1)])
+                    if i0 <= p - 1 - 2 * levels < i1:  # both colours' last half-sweeps done
+                        store(p - 1 - 2 * levels)
+    return outs, writes
+
+
+def virtual2d(slab, first, shape):
+    """(planes, rows, m): ``slab`` (its point [0, 0] at GLOBAL (plane, row)
+    ``first``) at its global indices, NaN everywhere else (negative halo
+    indices dropped)."""
+    out = torch.full(tuple(shape) + tuple(slab.shape[2:]), NAN)
+    (g, gj), (p, c) = first, slab.shape[:2]
+    lo, hi = max(g, 0), min(g + p, shape[0])
+    lo_j, hi_j = max(gj, 0), min(gj + c, shape[1])
+    if hi > lo and hi_j > lo_j:
+        out[lo:hi, lo_j:hi_j] = slab[lo - g:hi - g, lo_j - gj:hi_j - gj]
+    return out
+
+
+def emulate_seg_rect(e_slab, r_slab, c_slab, first, c_first, body, n, n_iter, h, plan,
+                     fault=None):
+    """K31 (i-sharded: rows whole) or K40 ((i, j)-sharded) on one rank's
+    block as the kernel runs it: the fine slabs e and r (their point [0, 0]
+    at GLOBAL (plane, row) ``first``) and the coarse one (at ``c_first``)
+    read as virtual fields, NaN outside them; one Dirichlet stage launch,
+    black first, e + P ec made as planes arrive, its blocks tiling the
+    rank's planes and rows clipped to n - 1 (rect.cuh, seg_rect_geometry);
+    then the pad points of the body (past n - 1) written as e + P ec.
+    ``body`` = (g0, L, gj0, Lj). ``fault``: "pad_swept" (the pad swept as
+    interior and stored by the blocks), "order" (P ec interpolated i, then
+    j, then k). Returns the (L, Lj, n) body and each point's writes."""
+    g0, L, gj0, Lj = body
+    hh = 2 * n_iter
+    shape = (g0 + L + 2 * hh + 2, max(n, gj0 + Lj + 2 * hh + 2))
+    ev, rv = virtual2d(e_slab, first, shape), virtual2d(r_slab, first, shape)
+    cshape = (shape[0] // 2 + 1, shape[1] // 2 + 1)
+    cv = virtual2d(c_slab, c_first, cshape)
+    t = prolongation(cv, (0, 1, 2) if fault == "order" else (1, 2, 0))[:shape[0], :shape[1]]
+    span = (g0, min(g0 + L, n) if g0 < n else g0)
+    cols = (gj0, min(gj0 + Lj, n) if gj0 < n else gj0)
+    if fault == "pad_swept":
+        span, cols = (g0, g0 + L), (gj0, gj0 + Lj)
+    outs, writes = emulate_dirichlet_launch(
+        by_stage(deinterleave(ev), BLACK), by_stage(deinterleave(rv), BLACK), BLACK, h, plan, n,
+        span, cols, by_stage(deinterleave(t), BLACK), fault)
+    out = interleave(by_stage(outs, BLACK), n)
+    w = interleave(by_stage([x.float() for x in writes], BLACK), n)
+    pad = torch.ones(shape[:2], dtype=torch.bool)
+    pad[:n, :n] = False
+    if fault != "pad_swept":  # every block's share of the pad points
+        out[pad] = (ev + t)[pad]
+        w[pad] += 1
+    sl = (slice(g0, g0 + L), slice(gj0, gj0 + Lj))
+    return out[sl].clone(), w[sl].clone()
