@@ -119,7 +119,9 @@ which fails the run:
      257^3 segment (L = 320), each bitwise equal to its plain version and,
      stitched, to the single-device kernels (K1, K2, R, K3, K4, K5's r;
      the partial norms' sum within 1e-6 of K5's), each timed against its
-     plain version; (b) make_sharded_df_solver at 257^3 on one rank of an
+     plain version, and K30 (the streaming restriction stage on segments)
+     timed on the one-rank L = 320 segment beside its bound from the bytes
+     it needs; (b) make_sharded_df_solver at 257^3 on one rank of an
      NCCL group, launch counts reset and read around it: exactly the
      launches predicted from its outer steps (K31 one a call, a one-pass
      stage), only K28-K32, the fused
@@ -156,7 +158,8 @@ which fails the run:
      and 1x4 meshes (the padded plan's blocks, five halo parts with the corner
      blocks), each bitwise equal to its plain version and, stitched, to K1
      (both orders), K2, K3, K4 and K5's r, each timed on rank (0, 0)'s
-     257^3 2x2 block against its plain version; (b)
+     257^3 2x2 block against its plain version, and K39 checked and timed
+     on the 1x1 block (272^2) beside its bound; (b)
      make_sharded2d_padded_df_solver at 257^3 on one NCCL rank (a 1x1 mesh,
      plan Li = Lj = 272, n_sharded 4), launch counts reset and read around
      it: exactly the launches predicted from the tier map (K40 and the
@@ -831,7 +834,8 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
     # K1 at every level of the main path (it runs at each on the unfused and
     # FMG paths): the one-pass stage against its per-sweep form, the same
     # call, n_iter 2, red first; event-timed (host launch work included),
-    # and device time a call from one trace of 20 calls of each
+    # and device time a call from one trace of 20 calls of each, 10 ms idle
+    # at each end of the trace
     for n in (9, 17, 33, 65, 129, 257):
         h = 1.0 / (n - 1)
         u, f = (torch.from_numpy(np.random.default_rng(n + 1).standard_normal((n, n, n))
@@ -843,7 +847,7 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
         calls, device, seen = 20, [], []
         for fn, per_call in ((lambda: pk.rb_smooth_fused(u, f, h, 2, True), 1),
                              (lambda: pk.rb_smooth_fused_per_sweep(uk, f, h, 2, True), 4)):
-            traces = retraced(lambda: device_trace(lambda: [fn() for _ in range(calls)]),
+            traces = retraced(lambda: device_trace(lambda: [fn() for _ in range(calls)], 0.01),
                               lambda t: t[0] is not None and t[1] == per_call * calls)
             busy, kernels, _, _ = traces[-1]
             check(busy is None or kernels == per_call * calls,
@@ -1050,12 +1054,12 @@ def compare_msplit(pm, pmf, pms, ps, es, n, h, u, r, ec, es_state, dev, record, 
     record_pair("residual_df_norm_msplit", "r_", got[:2], want[:2], times, io=(state, got))
 
 
-def device_trace(fn):
+def device_trace(fn, guard_s=0.0):
     """(busy ms, kernels, by_name, span ms) of one traced call of fn
     (``utils.split_trace.device_trace``)."""
     from multigrid_parallel_tpu_torch.utils.split_trace import device_trace as trace
 
-    return trace(fn)
+    return trace(fn, guard_s)
 
 
 def _launch_modules():
@@ -1067,13 +1071,18 @@ def _launch_modules():
             pallas_sharded, pallas_sharded2d, pallas_splitcolor)
 
 
-def retraced(trace, complete, tries=3):
+def retraced(trace, complete, tries=6, pause_s=0.25):
     """The traces taken by calling trace() until one is complete(), at
-    most ``tries``: the profiler now and then loses a trace's kernel events,
-    some or all of them, though the traced calls launch the same kernels
-    every time (``utils.trace_drops`` counts such traces)."""
+    most ``tries``, the device drained and idle for ``pause_s`` before each
+    retry: the profiler now and then loses a trace's kernel events, some or
+    all of them, though the traced calls launch the same kernels every time
+    (``utils.trace_drops`` counts such traces), and the losses come in runs
+    of consecutive traces that lose fewer each time (kernels seen at 257^3:
+    5, 8, 20 and 1, 8, 18 of 20)."""
     out = [trace()]
     while not complete(out[-1]) and len(out) < tries:
+        torch.cuda.synchronize()
+        time.sleep(pause_s)
         out.append(trace())
     return out
 
@@ -1810,6 +1819,18 @@ def compare_sharded(dev, results):
         print(f"[sharded kernel] {name:24s} n={n} L={L} rank 1 kernel_ms={res['ms']:.4f} "
               f"plain_ms={res['plain_ms']:.4f} bound_ms={res['bound_ms']:.4f} "
               f"({res['bound_by']}) max_abs_err={res['max_abs_err']:.3e}")
+    # K30 on the one-rank plan's 257^3 segment (L = 320, 63 pad planes): the shape of the
+    # one-rank solves (phases 10b and 11b)
+    L1 = 320
+    u1, f1 = _seg_parts(u[:L1], 0, L1, 2, 1), _seg_parts(f[:L1], 0, L1, 2, 1)
+    k30 = lambda: px.residual_restrict_halo(u1, f1, -2, h, n, L1 // 2)  # noqa: E731
+    got = k30()
+    bitwise_same(results, "residual_restrict_seg", n, "L=320 rank 0 against plain", got,
+                 px.residual_restrict_halo_plain(u1, f1, -2, h, n, L1 // 2))
+    # the bytes the function needs: e and r on the field's n planes, read once, and the block
+    bound1, _ = bound("residual_restrict_seg", L1 * n * n, (8 * n ** 3,), (got,))
+    print(f"[sharded kernel] residual_restrict_seg    n={n} L={L1} rank 0 of 1 "
+          f"kernel_ms={time_ms(k30):.4f} bound_ms={bound1:.4f}")
 
 
 def _sharded_solver(mesh, init):
@@ -2506,6 +2527,17 @@ def compare_sharded2d(dev, results):
               f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
               f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
               f"max_abs_err={res['max_abs_err']:.3e}")
+    # K39 on the 1x1 plan's 257^3 block (272^2, 15 pad rows and columns): the shape of the
+    # one-rank solve (phase 12b)
+    w = 272
+    u1, f1 = (_seg_parts2d(x[:w, :w].contiguous(), 0, 0, w, w, 2, 1) for x in (U, F))
+    k39 = lambda: px2.residual_restrict_halo2d(u1, f1, g(2), h, n, w // 2, w // 2)  # noqa: E731
+    got = k39()
+    bitwise_same(results, "residual_restrict_seg2d", n, "1x1 Li=Lj=272 against plain", got,
+                 px2.residual_restrict_halo2d_plain(u1, f1, g(2), h, n, w // 2, w // 2))
+    bound1, _ = bound("residual_restrict_seg2d", w * w * n, (8 * n ** 3,), (got,))
+    print(f"[sharded2d kernel] residual_restrict_seg2d    n={n} Li={w} Lj={w} block (0, 0) of 1x1 "
+          f"kernel_ms={time_ms(k39):.4f} bound_ms={bound1:.4f}")
 
 
 def predicted_launches(hier, tiers, steps, inner_cycles, n_smooth=2,

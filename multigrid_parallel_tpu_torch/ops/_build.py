@@ -101,7 +101,6 @@ _SIGNATURES = {
     # segmented (i-sharded) blocks: each segment is (lh, body, rh[, r_off])
     "mg_seg_half_sweep": (_P, _P, _P, _I) * 2 + (_I,) * 5 + (_F, _I, _P),
     "mg_seg_half_sweep_from_zero": (_P,) * 6 + (_I,) * 6 + (_F, _I, _P),
-    "mg_seg_residual_restrict": (_P,) + (_P, _P, _P, _I) * 2 + (_I,) * 5 + (_F, _P),
     "mg_seg_prolong_correct_black": ((_P,) * 6 + (_I,) * 3 + (_P, _P, _P, _I) * 2
                                      + (_I,) * 4 + (_F, _P)),
     "mg_seg_residual_df_norm_partials": (_I, _I),
@@ -111,7 +110,6 @@ _SIGNATURES = {
     # (i, j)-sharded blocks: each segment is a host descriptor (seg2d.cuh)
     "mg_seg2d_half_sweep": (_P, _P) + (_I,) * 6 + (_F, _I, _P),
     "mg_seg2d_half_sweep_from_zero": (_P, _P) + (_I,) * 6 + (_F, _I, _P),
-    "mg_seg2d_residual_restrict": (_P,) * 3 + (_I,) * 5 + (_F, _P),
     "mg_seg2d_prolong_correct_black": (_P,) * 4 + (_I,) * 6 + (_F, _P),
     "mg_seg2d_residual_df_norm_partials": (_I, _I, _I),
     "mg_seg2d_residual_df_norm": (_P,) * 7 + (_I,) * 5 + (_F, _P),
@@ -131,6 +129,11 @@ _SIGNATURES = {
     "mg_seg_prolong_stage": ((_P,) * 4 + (_I,) * 3 + (_P, _P, _P, _I) * 2 + (_I,) * 5 + (_F,)
                              + (_I,) * 8 + (_P,)),
     "mg_seg2d_prolong_stage": (_P,) * 4 + (_I,) * 9 + (_F,) + (_I,) * 8 + (_P,),
+    # K30's and K39's streaming restriction stages on segments: out, the e and
+    # r segments (K39: descriptors, then the halos after the blocks), the
+    # geometry, inv_h2, the plan (bci, bcj, bck, chunks, threads, smem), stream
+    "mg_seg_restrict_stage": (_P,) + (_P, _P, _P, _I) * 2 + (_I,) * 5 + (_F,) + (_I,) * 6 + (_P,),
+    "mg_seg2d_restrict_stage": (_P,) * 3 + (_I,) * 7 + (_F,) + (_I,) * 6 + (_P,),
 }
 
 

@@ -1,11 +1,13 @@
 // The streaming restriction stage of K3 (residual_restrict.cu, a plain
-// (n, n, n) correction), K9 (residual_restrict_split.cu, a split pair)
-// and K18 (residual_restrict_fold.cu, the electrospray's (n, n, n - 2)
-// fold layout): the interior residual of e against r, restricted by full
-// weighting to the coarse (nc, nc, nc) RHS (K18: the (nc, nc, nc - 2)
-// fold), nc = (n + 1) / 2, in one launch, each fine residual computed
-// once, from tiles of e and r in shared memory, and only the coarse RHS
-// written to device memory.
+// (n, n, n) correction), K9 (residual_restrict_split.cu, a split pair),
+// K18 (residual_restrict_fold.cu, the electrospray's (n, n, n - 2) fold
+// layout), and K30 and K39 (residual_restrict_seg.cu, one rank's
+// segmented block of an i-sharded or an (i, j)-sharded field): the
+// interior residual of e against r, restricted by full weighting to the
+// coarse (nc, nc, nc) RHS (K18: the (nc, nc, nc - 2) fold; K30, K39: the
+// rank's coarse block), nc = (n + 1) / 2, in one launch, each fine
+// residual computed once, from tiles of e and r in shared memory, and
+// only the coarse RHS written to device memory.
 //
 // A block owns a box of interior coarse points: bci coarse planes x bcj
 // coarse rows x bck coarse k (the plan, pallas_split._restrict_plan; the
@@ -44,6 +46,15 @@
 //   neighbour at k = 1 and the k + 1 one at k = n - 2 are selects of the
 //   point's own value (the BC copy), never reads of the tile column there,
 //   which is not loaded; coarse k at slot ck - 1 of a row of nc - 2.
+// - K30, K39 (residual_restrict_halo_plain, residual_restrict_halo2d_plain
+//   of ops/pallas_sharded.py and pallas_sharded2d.py): K3's tile, taps and
+//   arithmetic on a rank's segments (SegLayout): a tile row (plane q, row
+//   j, local indices) is copied from the row that Seg::row or Seg2::at
+//   gives, looked up once a row, so the halo rows and columns and, on
+//   Seg2, the corner blocks come from the halo buffers; the blocks tile the
+//   rank's local coarse rows (and, on Seg2, columns) whose global index
+//   lies in [1, nc - 2]; every other point of the rank's coarse block is
+//   written 0 by the same launch.
 // - K9 (residual_restrict_split_plain): the k taps first, within the
 //   fine row, 0.5 E[ck - 1] + 0.25 (O[ck - 1] + O[ck]) with E / O the
 //   colour holding the row's even / odd k: a lane holds both colours'
@@ -64,6 +75,7 @@
 // and cache traffic instead.
 #pragma once
 
+#include "seg2d.cuh"
 #include "split.cuh"
 
 namespace mg {
@@ -150,14 +162,18 @@ inline int blocks(const Args& a) {
   return ((m + a.bci - 1) / a.bci) * ((m + a.bcj - 1) / a.bcj) * ((m + a.bck - 1) / a.bck);
 }
 
-// 0 when the kernels take the plan: a box inside the interior, at most
-// kMaxRows coarse rows, a warp a fine row, C chunks a power of 2 up to
-// kMaxChunks that cover a row, the shared memory the formula gives.
-inline int plan_error(const Args& a, bool split, int chunks, int threads, long long smem) {
+// 0 when the kernels take the plan: a box inside the interior (of mi
+// coarse planes and mj rows, the level's m where 0), at most kMaxRows
+// coarse rows, a warp a fine row, C chunks a power of 2 up to kMaxChunks
+// that cover a row, the shared memory the formula gives.
+inline int plan_error(const Args& a, bool split, int chunks, int threads, long long smem,
+                      int mi = 0, int mj = 0) {
   const int m = interior(a.n);
+  mi = mi ? mi : m;
+  mj = mj ? mj : m;
   const bool chunks_ok = (chunks == 1 || chunks == kMaxChunks) &&
                          128 * chunks >= row_points(a.bck, split);
-  if (m < 1 || a.bci < 1 || a.bci > m || a.bcj < 1 || a.bcj > imin(m, kMaxRows) || a.bck < 1 ||
+  if (m < 1 || a.bci < 1 || a.bci > mi || a.bcj < 1 || a.bcj > imin(mj, kMaxRows) || a.bck < 1 ||
       a.bck > m || !chunks_ok || threads != 32 * (2 * a.bcj + 1) ||
       smem != smem_bytes(a.bcj, a.bck, split))
     return (int)cudaErrorInvalidValue;
@@ -304,6 +320,7 @@ template <bool FOLD>
 struct RectLayout {
   static constexpr bool kSplit = false;
   static constexpr bool kFold = FOLD;
+  static constexpr bool kSeg = false;
   float* ering;  // kERing planes of 2 bcj + 3 rows x we
   float* rring;  // kRRing planes of 2 bcj + 1 rows x wr
   float* A;      // 2 bcj + 1 rows x wa
@@ -414,6 +431,7 @@ using Fold = RectLayout<true>;
 struct Split {
   static constexpr bool kSplit = true;
   static constexpr bool kFold = false;
+  static constexpr bool kSeg = false;
   float* ering;  // kERing planes x 2 colours of 2 bcj + 3 rows x we
   float* rring;  // kRRing planes x 2 colours of 2 bcj + 1 rows x wr
   float* A;      // 2 bcj + 1 rows x wa
@@ -577,15 +595,205 @@ struct Split {
   }
 };
 
+// ------------------------------------------------ K30's and K39's segments
+
+// A launch on one rank's segmented block: K3's arguments (e and r unused),
+// the rank's segments of e and r (seg2d.cuh: row t, column j local, the
+// halos at negative and past-the-end indices), its coarse block's lc rows
+// of ljc columns of nc (on Seg the j axis whole, ljc = nc), and its local
+// interior coarse rows [c0, c1) and columns [cj0, cj1), those whose
+// GLOBAL index lies in [1, nc - 2]; all four 0 for a rank without
+// interior coarse points (seg_setup).
+template <class S>
+struct SegArgs : Args {
+  S e_s, r_s;
+  int lc, ljc;
+  int c0, c1, cj0, cj1;
+};
+
+// The local interior coarse points [lo, hi) of len coarse points whose
+// first is global coarse index cg0.
+inline void interior_span(int cg0, int len, int nc, int& lo, int& hi) {
+  lo = imax(0, 1 - cg0);
+  hi = imin(len, nc - 1 - cg0);
+}
+
+// SegArgs' block and interior from the rank's global fine row g0 of body
+// row 0 and its L rows, and (Seg2) gj0 and Lj columns; on Seg (whole) the
+// columns are the field's, gj0 and Lj unused. 0, or cudaErrorInvalidValue
+// for an odd offset or extent (a coarse point is two fine ones from global
+// 0) or a level without interior coarse points.
+template <class S>
+inline int seg_setup(SegArgs<S>& a, int g0, int L, int gj0, int Lj, bool whole) {
+  const int nc = (a.n + 1) / 2;
+  if (a.n % 2 == 0 || interior(a.n) < 1 || g0 < 0 || g0 % 2 || L < 2 || L % 2 ||
+      (!whole && (gj0 < 0 || gj0 % 2 || Lj < 2 || Lj % 2)) ||
+      (long long)(L / 2) * (whole ? nc : Lj / 2) * nc >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  a.lc = L / 2;
+  a.ljc = whole ? nc : Lj / 2;
+  interior_span(g0 / 2, a.lc, nc, a.c0, a.c1);
+  interior_span(whole ? 0 : gj0 / 2, a.ljc, nc, a.cj0, a.cj1);
+  if (a.c1 <= a.c0 || a.cj1 <= a.cj0) a.c0 = a.c1 = a.cj0 = a.cj1 = 0;
+  return 0;
+}
+
+// 0 when the kernels take the plan: plan_error's rules with the rank's
+// interior rows and columns for the level's (any box for a rank without
+// interior coarse points, whose one block writes zeros only).
+template <class S>
+inline int seg_plan_error(const SegArgs<S>& a, int chunks, int threads, long long smem) {
+  const bool empty = a.c1 <= a.c0;
+  return plan_error(a, false, chunks, threads, smem, empty ? 0x7fffffff : a.c1 - a.c0,
+                    empty ? kMaxRows : a.cj1 - a.cj0);
+}
+
+// A segment launch's blocks: the boxes over the rank's interior, or one
+// (chosen over blocks(const Args&) by launch for SegArgs).
+template <class S>
+inline int blocks(const SegArgs<S>& a) {
+  if (a.c1 <= a.c0) return 1;
+  const int m = interior(a.n);
+  return ((a.c1 - a.c0 + a.bci - 1) / a.bci) * ((a.cj1 - a.cj0 + a.bcj - 1) / a.bcj) *
+         ((m + a.bck - 1) / a.bck);
+}
+
+// One block's box, in local coarse indices, and K3's footprint of it: the
+// cone's fine planes 2 ci0 - 2 .. 2 ci1 of e reach local plane -2 and L,
+// its rows (Seg2) local column -2 and Lj, through the halos.
+template <class S>
+__device__ inline Geom geometry(const SegArgs<S>& a, bool, bool) {
+  Geom g;
+  g.n = a.n;
+  g.nc = (a.n + 1) / 2;
+  g.S = split::slots(a.n);
+  const int nj = (a.cj1 - a.cj0 + a.bcj - 1) / a.bcj, nk = (g.nc - 2 + a.bck - 1) / a.bck;
+  const int tk = blockIdx.x % nk, tj = (blockIdx.x / nk) % nj, ti = blockIdx.x / (nk * nj);
+  g.ci0 = a.c0 + ti * a.bci;
+  g.ci1 = imin(g.ci0 + a.bci, a.c1);
+  g.cj0 = a.cj0 + tj * a.bcj;
+  g.cj1 = imin(g.cj0 + a.bcj, a.cj1);
+  g.ck0 = 1 + tk * a.bck;
+  g.ck1 = imin(g.ck0 + a.bck, g.nc - 1);
+  g.rows = 2 * (g.cj1 - g.cj0) + 1;
+  g.pa = 2 * g.ci0 - 2;
+  g.w = widths(a.bck, false);
+  g.pts = 2 * (g.ck1 - g.ck0) + 1;
+  g.k0 = 2 * g.ck0 - 1;
+  g.ka = g.k0 - 1;
+  g.kb = 2 * g.ck1 + 1;
+  g.ra = g.k0;
+  g.rb = 2 * g.ck1;
+  return g;
+}
+
+// The coarse planes [0, c0) and [c1, lc) of the rank's block, written 0
+// (the whole block where it has no interior), spread over every thread of
+// the launch, consecutive points across a warp.
+template <class S>
+__device__ inline void seg_zero_planes(const SegArgs<S>& a) {
+  const int P = a.ljc * ((a.n + 1) / 2), head = a.c0 * P, skip = (a.c1 - a.c0) * P;
+  const int count = head + (a.lc - a.c1) * P, stride = gridDim.x * blockDim.x;
+  for (int v = blockIdx.x * blockDim.x + threadIdx.x; v < count; v += stride)
+    a.out[v < head ? v : v + skip] = 0.0f;
+}
+
+// K30's and K39's layout: K3's tile (Rect), its rows copied from the
+// segments, a row looked up once (seg_at: Seg::row, Seg2::at), 4-byte
+// copies (rows of an odd n floats do not start on 16 bytes); K3's
+// residuals and i taps; the coarse rows stored into the rank's (lc, ljc,
+// nc) block; the zeros of the rank's coarse points off the interior.
+template <class S>
+struct SegLayout : Rect {
+  static constexpr bool kSeg = true;
+  int ljc;  // the coarse block's columns
+
+  __device__ SegLayout(const SegArgs<S>& a, const Geom& g, float* smem)
+      : Rect(a, g, smem), ljc(a.ljc) {}
+
+  // Rows [j0, j1) x columns [c0, c1) of plane q of segment s into a tile
+  // whose row 0 is row j0 and whose column col0 holds column c0.
+  __device__ static void load_rows(float* tile, const S& s, int q, int n, int j0, int j1, int c0,
+                                   int c1, int col0, int W, int warp, int lane, int nwarps) {
+    for (int j = j0 + warp; j < j1; j += nwarps) {
+      float* d = tile + (j - j0) * W + col0 - c0;
+      const float* src = seg_at(s, q, j, n);
+      for (int c = c0 + lane; c < c1; c += 32) cp_async4(d + c, src + c);
+    }
+  }
+
+  __device__ void load_e(const SegArgs<S>& a, const Geom& g, int q, int warp, int lane,
+                         int nwarps) const {
+    load_rows(e_plane(g, q), a.e_s, q, g.n, 2 * g.cj0 - 2, 2 * g.cj1 + 1, g.ka, g.kb, kPad - 1,
+              g.w.we, warp, lane, nwarps);
+  }
+
+  __device__ void load_r(const SegArgs<S>& a, const Geom& g, int q, int warp, int lane,
+                         int nwarps) const {
+    load_rows(r_plane(g, q), a.r_s, q, g.n, 2 * g.cj0 - 1, 2 * g.cj1, g.ra, g.rb, 0, g.w.wr,
+              warp, lane, nwarps);
+  }
+
+  // Coarse plane ci from A: K3's j taps, then its k taps, into the block.
+  __device__ void coarse_rows(float* __restrict__ out, const Geom& g, int ci, int warp, int lane,
+                              int nwarps) const {
+    const int W = g.w.wa, ncr = g.cj1 - g.cj0, nck = g.ck1 - g.ck0, groups = (nck + 31) >> 5;
+    for (int it = warp; it < ncr * groups; it += nwarps) {
+      const int cr = it / groups, t = 32 * (it - cr * groups) + lane;
+      if (t >= nck) continue;
+      const float* a0 = A + 2 * cr * W;
+      float y[3];
+#pragma unroll
+      for (int dk = 0; dk < 3; ++dk) {
+        const int b = 2 * t + dk;
+        y[dk] = tap3(a0[b], a0[W + b], a0[2 * W + b]);
+      }
+      out[(ci * ljc + g.cj0 + cr) * g.nc + g.ck0 + t] = tap3(y[0], y[1], y[2]);
+    }
+  }
+
+  // The rank's coarse points off the global interior, written 0: the
+  // planes outside [c0, c1) (seg_zero_planes); in the box's planes, the
+  // points of the box widened by one to the block's edge on each side that
+  // reaches the end of the interior (rows to 0 and ljc, k to 0 and nc) that
+  // lie off it, as zero_boundary's: whole rows off [cj0, cj1) (boundary,
+  // pad), else the k ends; a warp a row. Each such point is written once.
+  __device__ void zero(const SegArgs<S>& a, const Geom& g, int warp, int lane, int nwarps) const {
+    seg_zero_planes(a);
+    const int last = g.nc - 1;
+    const int ja = g.cj0 == a.cj0 ? 0 : g.cj0, jb = g.cj1 == a.cj1 ? a.ljc : g.cj1;
+    const bool k_lo = g.ck0 == 1, k_hi = g.ck1 == last;
+    const int ka = k_lo ? 0 : g.ck0, kb = k_hi ? g.nc : g.ck1, nj = jb - ja;
+    for (int row = warp; row < (g.ci1 - g.ci0) * nj; row += nwarps) {
+      const int ci = g.ci0 + row / nj, cj = ja + row % nj;
+      float* o = a.out + (ci * a.ljc + cj) * g.nc;
+      if (cj < a.cj0 || cj >= a.cj1) {
+        for (int ck = ka + lane; ck < kb; ck += 32) o[ck] = 0.0f;
+      } else if (lane == 0) {
+        if (k_lo) o[0] = 0.0f;
+        if (k_hi) o[last] = 0.0f;
+      }
+    }
+  }
+};
+
 // The stage: the prologue (e planes 2 ci0 - 2 .. 2 ci0, r planes 2 ci0 - 1
 // and 2 ci0; the block's boundary zeros stored while they fly), then a
 // step a fine plane p of the cone: wait for plane p + 1 of e and p of r, a
 // barrier, the rows of the coarse plane the step before closed, start e
 // plane p + 2 and r plane p + 1 (into the ring slots of plane p - 1), the
 // row values and the i taps, and where p = 2 ci - 1 closes coarse plane
-// ci - 1, its i-tapped plane into A.
-template <class L, int C>
-__device__ void restrict_body(const Args& a, float* smem) {
+// ci - 1, its i-tapped plane into A. On a segment (L::kSeg, Arg SegArgs)
+// the layout's own zeros; a rank without interior coarse points (one
+// block) writes its zeros only.
+template <class L, int C, class Arg>
+__device__ void restrict_body(const Arg& a, float* smem) {
+  if constexpr (L::kSeg) {
+    if (a.c1 <= a.c0) {
+      seg_zero_planes(a);
+      return;
+    }
+  }
   const Geom g = geometry(a, L::kSplit, L::kFold);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
   const L lay(a, g, smem);
@@ -593,7 +801,11 @@ __device__ void restrict_body(const Args& a, float* smem) {
   for (int q = pa; q < pa + kERing; ++q) lay.load_e(a, g, q, warp, lane, nwarps);
   for (int q = pa + 1; q <= pa + kRRing; ++q) lay.load_r(a, g, q, warp, lane, nwarps);
   cp_async_commit();
-  zero_boundary<L::kFold>(a.out, g, warp, lane, nwarps);  // while the copies fly
+  if constexpr (L::kSeg) {
+    lay.zero(a, g, warp, lane, nwarps);  // while the copies fly
+  } else {
+    zero_boundary<L::kFold>(a.out, g, warp, lane, nwarps);  // while the copies fly
+  }
   cp_async_wait_all();
   __syncthreads();
   const bool mine = warp < g.rows;  // a warp a fine row of the cone
@@ -631,9 +843,10 @@ __device__ void restrict_body(const Args& a, float* smem) {
   lay.coarse_rows(a.out, g, g.ci1 - 1, warp, lane, nwarps);
 }
 
-// Launch one instantiation on the plan's grid; a cudaError_t.
-template <class Kernel>
-inline int launch(Kernel kernel, const Args& a, int threads, int smem, cudaStream_t stream) {
+// Launch one instantiation on the plan's grid (Arg: Args or SegArgs); a
+// cudaError_t.
+template <class Kernel, class Arg>
+inline int launch(Kernel kernel, const Arg& a, int threads, int smem, cudaStream_t stream) {
   if (const int err = split::raise_smem_limit((const void*)kernel)) return err;
   kernel<<<blocks(a), threads, smem, stream>>>(a);
   return (int)cudaGetLastError();

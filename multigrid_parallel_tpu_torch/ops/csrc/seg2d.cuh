@@ -4,7 +4,8 @@
 // by the i-sharded kernels K28-K32 (on seg.cuh's Seg) and their (i, j)
 // twins K37-K41 (on Seg2): each kernel is one template instantiated on
 // both accessors, so K37-K41 run the arithmetic that K28-K32 hold bit for
-// bit to the single-device K1-K5.
+// bit to the single-device K1-K5 (K30 and K39: restrict.cuh's SegLayout
+// on either accessor; K31 and K40 at n_iter <= 2: rect.cuh's kSegRect).
 //
 // The JAX package hands its 2D kernels an ext copy (rows and columns
 // extended, multigrid_parallel_tpu/ops/pallas_sharded2d.py *_ext2d), a

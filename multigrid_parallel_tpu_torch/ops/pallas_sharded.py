@@ -44,7 +44,9 @@ scratch afterwards) and return the body; the others return fresh tensors.
 Each kernel launch adds one to ``LAUNCHES`` (K29's K28 half-sweeps, and
 K31's past n_iter 2, count as theirs; K32's partials-and-sum pair counts
 once). K31 at n_iter <= 2 is one launch of K4's one-pass stage on the
-segments (ops/csrc/rect.cuh, ``Layout::kSegRect``).
+segments (ops/csrc/rect.cuh, ``Layout::kSegRect``). K30 is one launch of
+K3's streaming restriction stage on the segments (ops/csrc/restrict.cuh,
+``SegLayout``).
 """
 
 from __future__ import annotations
@@ -403,12 +405,35 @@ def residual_restrict_halo_plain(u3, f3, gi0, h: float, n: int, Lc: int):
     return torch.where(keep, out, torch.zeros_like(out))
 
 
+def seg_restrict_extents(n: int, g0: int, L: int, gj0: int = None, Lj: int = None):
+    """The interior coarse rows (and, of an (i, j) block of Lj columns from
+    global column gj0, columns) that a K30 or K39 stage launch tiles, from
+    the global fine row ``g0`` of body row 0 and L rows: those of the
+    rank's L / 2 coarse rows (Lj / 2 columns) whose global index lies in
+    [1, nc - 2]; (rows, None) on an i-sharded block (its columns the
+    level's), (rows, cols) on an (i, j) one; 1 for each where the rank has
+    no interior coarse point (its launch writes zeros only; restrict.cuh,
+    seg_setup)."""
+    nc = (n + 1) // 2
+
+    def span(cg0, length):
+        return min(length, nc - 1 - cg0) - max(0, 1 - cg0)
+
+    rows = span(g0 // 2, L // 2)
+    cols = None if Lj is None else span(gj0 // 2, Lj // 2)
+    if rows < 1 or (cols is not None and cols < 1):
+        return 1, None if cols is None else 1
+    return rows, cols
+
+
 def residual_restrict_halo(u3, f3, gi0, h: float, n: int, Lc: int, block_i: int = 8):
     """Fused residual + full-weighting restriction on a rank's block:
     (local, lh, rh) triples, lh 2 planes, rh a PLAIN right halo (>= 1
     plane, no composite tail, as the JAX kernel takes it); gi0 = rank * L
     - 2. Returns the rank's (Lc, nc, nc) coarse planes, Lc = L / 2. One K30
-    launch on the card."""
+    launch on the card: K3's streaming stage on the segments (restrict.cuh's
+    SegLayout, the plan of ``_restrict_plan`` with the rank's interior
+    rows)."""
     del block_i
     L = 2 * Lc
     e, f, kr = _rr_segs(u3, f3, L, composite=False)
@@ -416,11 +441,13 @@ def residual_restrict_halo(u3, f3, gi0, h: float, n: int, Lc: int, block_i: int 
         raise ValueError("the restriction needs a right halo of at least 1 plane")
     if not _segs_on_cuda(n, e, f):
         return residual_restrict_halo_plain(u3, f3, gi0, h, n, Lc)
-    nc = (n + 1) // 2
+    nc, g0 = (n + 1) // 2, _gi0_int(gi0) + 2
     out = e.body.new_empty((Lc, nc, nc))
-    pk._check(pk._lib().mg_seg_residual_restrict(
-        out.data_ptr(), *_ptrs(e), *_ptrs(f), 2, L, kr, n, _gi0_int(gi0) + 2, 1.0 / (h * h),
-        pk._stream()), "residual_restrict_halo")
+    rows, _ = seg_restrict_extents(n, g0, L)
+    err = pk._lib().mg_seg_restrict_stage(
+        out.data_ptr(), *_ptrs(e), *_ptrs(f), 2, L, kr, n, g0, 1.0 / (h * h),
+        *ps._restrict_args(n, e.body.device, seg_rows=rows), pk._stream())
+    pk._check(err, "residual_restrict_halo")
     LAUNCHES["residual_restrict_seg"] += 1
     return out
 

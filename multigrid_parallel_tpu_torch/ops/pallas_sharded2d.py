@@ -59,7 +59,9 @@ return fresh tensors. Each kernel launch adds one to ``LAUNCHES`` (K38's
 K37 half-sweeps, and K40's past n_iter 2, count as theirs; K41's
 partials-and-sum pair counts once). K40 at n_iter <= 2 is one launch of
 K4's one-pass stage on the 2D segments (ops/csrc/rect.cuh,
-``Layout::kSegRect`` on ``Seg2``).
+``Layout::kSegRect`` on ``Seg2``). K39 is one launch of K3's streaming
+restriction stage on them (ops/csrc/restrict.cuh, ``SegLayout`` on
+``Seg2``).
 """
 
 from __future__ import annotations
@@ -509,10 +511,14 @@ def _residual_restrict(e: _Seg2, f: _Seg2, gij0, h, n, what):
         return _residual_restrict_plain(e, f, gij0, h, n)
     L, Lj = e.body.shape[:2]
     gi, gj = _gij(gij0)
+    g0, gj0 = gi + 2, gj + 2
     out = e.body.new_empty((L // 2, Lj // 2, (n + 1) // 2))
-    pk._check(pk._lib().mg_seg2d_residual_restrict(out.data_ptr(), e.desc(), f.desc(), L, Lj, n,
-                                                   gi + 2, gj + 2, 1.0 / (h * h), pk._stream()),
-              what)
+    rows, cols = px.seg_restrict_extents(n, g0, L, gj0, Lj)
+    err = pk._lib().mg_seg2d_restrict_stage(
+        out.data_ptr(), e.desc(), f.desc(), min(e.kr, f.kr), min(e.jr.shape[1], f.jr.shape[1]), L,
+        Lj, n, g0, gj0, 1.0 / (h * h),
+        *ps._restrict_args(n, e.body.device, seg_rows=rows, seg_cols=cols), pk._stream())
+    pk._check(err, what)
     LAUNCHES["residual_restrict_seg2d"] += 1
     return out
 
@@ -523,7 +529,11 @@ def residual_restrict_halo2d(u3, f3, gij0, h: float, n: int, Lc: int, sjlc: int,
     sjlc) block from triples or five parts: 2 halo rows and columns before
     the block, a PLAIN halo (>= 1, no composite tail) after it; gij0 =
     [rank_i L - 2, rank_j Lj - 2]. Returns the rank's (Lc, sjlc, nc)
-    coarse block. One K39 launch on the card."""
+    coarse block. One K39 launch on the card: K3's streaming stage on the
+    2D segments (restrict.cuh's SegLayout on Seg2, a tile row's pointer
+    looked up once, the corner blocks read where a block meets both halos;
+    the plan of ``_restrict_plan`` with the rank's interior rows and
+    columns)."""
     del skc, block_i
     if sjl is not None and sjl != 2 * sjlc:
         raise ValueError(f"sjl = {sjl} is not 2 sjlc = {2 * sjlc}")

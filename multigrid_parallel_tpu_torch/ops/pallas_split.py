@@ -601,7 +601,7 @@ def rb_smooth_split_from_zero(fr, fb, h: float, n_iter: int, red_first: bool = T
     return er, eb
 
 
-# ------------------ the streaming restriction stage (K3, K9 and K18)
+# ---------- the streaming restriction stage (K3, K9, K18, K30 and K39)
 
 RESTRICT_MAX_ROWS = 8     # coarse rows a block owns at most (restrict.cuh, kMaxRows)
 RESTRICT_MAX_CHUNKS = 2   # chunks of 32 groups of 4 points a fine row at most (kMaxChunks)
@@ -634,7 +634,10 @@ class RestrictPlan(NamedTuple):
     zeroes the coarse boundary next to its box); a warp a fine row of the
     box's cone, ``threads`` = 32 (2 bcj + 1), its lanes ``chunks`` x 32
     groups of 4 points of the row; ``smem`` the bytes of shared memory a
-    block takes (``_restrict_smem``)."""
+    block takes (``_restrict_smem``). ``rows`` and ``cols``: a segment
+    launch's (K30, K39) interior coarse rows and columns, which its boxes
+    tile (``_restrict_plan``'s seg_rows and seg_cols), else None: the
+    level's."""
     n: int
     split: bool
     bci: int
@@ -644,12 +647,15 @@ class RestrictPlan(NamedTuple):
     threads: int
     smem: int
     fold: bool = False
+    rows: int = None
+    cols: int = None
 
     @property
     def tiles(self):
         """(planes, rows, k): the number of boxes along each axis."""
         m = _interior(self.n)
-        return (-(-m // self.bci), -(-m // self.bcj), -(-m // self.bck))
+        return (-(-(self.rows or m) // self.bci), -(-(self.cols or m) // self.bcj),
+                -(-m // self.bck))
 
     @property
     def blocks(self) -> int:
@@ -736,7 +742,8 @@ def _restrict_cost(plan: RestrictPlan, sms: int) -> float:
 
 
 @functools.lru_cache(maxsize=None)
-def _restrict_plan(n: int, sms: int, split: bool = False, fold: bool = False) -> RestrictPlan:
+def _restrict_plan(n: int, sms: int, split: bool = False, fold: bool = False,
+                   seg_rows: int = None, seg_cols: int = None) -> RestrictPlan:
     """The plan of one launch of the streaming restriction stage on an n^3
     level (K3; K9 on a split one; K18 on a fold one, whose tile rows and
     interior coarse counts are K3's, so it takes K3's plan) for a card of
@@ -747,13 +754,20 @@ def _restrict_plan(n: int, sms: int, split: bool = False, fold: bool = False) ->
     multiple of 4); over the plane and row counts that cut their axes
     evenly (at most ``RESTRICT_MAX_ROWS`` coarse rows), the plan of least
     ``_restrict_cost``; a plan of at least one block an SM first where the
-    level has one. Raises for a level without interior coarse points
-    (n < 5) or an even n."""
+    level has one. ``seg_rows``: the plan of a segment launch (K30, K39:
+    K3's tile) whose boxes tile that many interior coarse rows (a rank's,
+    ``pallas_sharded.seg_restrict_extents``) instead of the level's;
+    ``seg_cols`` (K39, with ``seg_rows``): that many columns too. Raises
+    for a level without interior coarse points (n < 5) or an even n."""
     m = _interior(n)
     if n % 2 == 0 or m < 1:
         raise ValueError(f"the restriction stage takes an odd n >= 5, got n = {n}")
     if split and fold:
         raise ValueError("a restriction level is split or fold, not both")
+    if seg_rows is not None and (split or fold or seg_rows < 1):
+        raise ValueError(f"seg_rows = {seg_rows}: a plain level's plan of one row or more")
+    if seg_cols is not None and (seg_rows is None or seg_cols < 1):
+        raise ValueError(f"seg_cols = {seg_cols}: a segment plan of one column or more")
     if fold:
         return _restrict_plan(n, sms)._replace(fold=True)
     s = split_shape(n)[2]
@@ -762,12 +776,13 @@ def _restrict_plan(n: int, sms: int, split: bool = False, fold: bool = False) ->
                and not (split and s % 4 == 0 and b < m and b % 4))
     chunks = _restrict_chunks(bck, split)
     best = None
-    for bcj in (b for b in evened if b <= RESTRICT_MAX_ROWS):
+    for bcj in (b for b in _evened(seg_cols or m) if b <= RESTRICT_MAX_ROWS):
         smem = _restrict_smem(bcj, bck, split)
         if smem > SMEM_MAX:
             break
-        for bci in evened:
-            plan = RestrictPlan(n, split, bci, bcj, bck, chunks, 32 * (2 * bcj + 1), smem)
+        for bci in _evened(seg_rows or m):
+            plan = RestrictPlan(n, split, bci, bcj, bck, chunks, 32 * (2 * bcj + 1), smem,
+                                rows=seg_rows, cols=seg_cols)
             key = (plan.blocks < sms, _restrict_cost(plan, sms), -plan.blocks)
             if best is None or key < best[0]:
                 best = (key, plan)
@@ -775,15 +790,17 @@ def _restrict_plan(n: int, sms: int, split: bool = False, fold: bool = False) ->
 
 
 @functools.lru_cache(maxsize=None)
-def _restrict_args_on(n: int, index: int, split: bool, fold: bool):
-    return _restrict_plan(n, _sms(index), split, fold).args
+def _restrict_args_on(n: int, index: int, split: bool, fold: bool, seg_rows: int = None,
+                      seg_cols: int = None):
+    return _restrict_plan(n, _sms(index), split, fold, seg_rows, seg_cols).args
 
 
-def _restrict_args(n: int, device, split: bool = False, fold: bool = False):
+def _restrict_args(n: int, device, split: bool = False, fold: bool = False,
+                   seg_rows: int = None, seg_cols: int = None):
     """The restriction launchers' plan arguments on ``device``
-    (``RestrictPlan.args``)."""
+    (``RestrictPlan.args``; ``seg_rows``, ``seg_cols``: _restrict_plan's)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return _restrict_args_on(n, index, split, fold)
+    return _restrict_args_on(n, index, split, fold, seg_rows, seg_cols)
 
 
 # ------------------------------------------- K9: residual + restriction

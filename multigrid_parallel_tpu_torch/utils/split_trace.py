@@ -32,7 +32,8 @@ the one-pass form's kernel, or a first form's head kernel and the
 half-sweeps that follow it, and the BC pass that ends a mixed-BC call),
 and each restriction call's (``restrict_calls``: K3, K9, K18, K30 and
 K39, a kernel a call, the first forms' one thread a coarse point or the
-streaming stage's plan). The parent prints
+streaming stage's plan; K30's and K39's stage on a rank's segments,
+``seg_restrict_kernel``, by its plan of the rank's interior rows). The parent prints
 the lines as they come and the card's name and power limit, and at the
 end each path's solution of round 0 against the first ROOT's
 (max|u - u_0|, held in a temporary directory).
@@ -99,21 +100,29 @@ def short_name(name):
     return found.group(1) + args
 
 
-def kernel_intervals(fn):
+def kernel_intervals(fn, guard_s=0.0):
     """The device kernels (and copies and fills) of one call of fn, from a
     torch.profiler trace: (start us, end us, name, shape) sorted by start,
     a kernel by its function's name (with its template arguments, as
     ``<2, true, false>``, where the name has them, demangled or not), its
     shape the grid and the shared memory from the trace's chrome export (() where the export holds no
-    device events, and the times then from the profiler's events). Defined
-    here, not imported from the package, so that it serves a checkout of
-    any version."""
+    device events, and the times then from the profiler's events). With
+    ``guard_s``, the trace idles that long, the device drained, before fn
+    and after it, so that kernel records that come late or whose device
+    timestamps stray from the host's clock stay inside the profiler's
+    window. Defined here, not imported from the package, so that it serves
+    a checkout of any version."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        if guard_s:
+            torch.cuda.synchronize()
+            time.sleep(guard_s)
         fn()
         torch.cuda.synchronize()
+        if guard_s:
+            time.sleep(guard_s)
 
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
@@ -128,13 +137,13 @@ def kernel_intervals(fn):
     return sorted(out)
 
 
-def device_trace(fn):
+def device_trace(fn, guard_s=0.0):
     """(busy ms, kernels, by_name, span ms) of one call of fn: the union
     of the device's kernel intervals, their count, each kernel name's
     summed ms and count, and the span from the first kernel's start to
     the last one's end; (None, 0, {}, None) when the trace holds no device
-    events."""
-    return _summary(kernel_intervals(fn))
+    events. ``guard_s`` as in ``kernel_intervals``."""
+    return _summary(kernel_intervals(fn, guard_s))
 
 
 def _summary(intervals):
@@ -337,13 +346,15 @@ def stage_calls(intervals, sizes, n_smooth=2):
 RESTRICT_KERNELS = {"residual_restrict_kernel": "K3", "split_residual_restrict_kernel": "K9",
                     "residual_restrict_fold_kernel": "K18", "rect_restrict_kernel": "K3",
                     "split_restrict_kernel": "K9", "fold_restrict_kernel": "K18",
-                    "seg_residual_restrict_kernel": "K30"}
+                    "seg_residual_restrict_kernel": "K30", "seg_restrict_kernel": "K30"}
 
 
 def restrict_calls(intervals, sizes):
     """Each K3, K9, K18, K30 and K39 call's device time by level (K39: K30's
-    kernel on Seg2), ``sizes`` as stage_calls' (``_stage_sizes``): {"K3
-    n=257": [calls, summed ms, median ms a call], ...}."""
+    kernels on Seg2: the first form's seg_residual_restrict_kernel<mg::Seg2>
+    and the stage's seg_restrict_kernel<mg::Seg2, C>), ``sizes`` as
+    stage_calls' (``_stage_sizes``): {"K3 n=257": [calls, summed ms, median
+    ms a call], ...}."""
     out = {}
     for a, b, name, grid in intervals:
         base, _, args = name.partition("<")
@@ -424,8 +435,10 @@ def _seg_sizes(hier, sms, plan):
     the Dirichlet solve's, as _stage_sizes: the first forms' one thread a
     point of the rows they span (K28's and K34's half-sweeps L + 6, K29's,
     K31's and K36's heads L + 8; K30 a coarse point of its L / 2 planes),
-    the one-pass stages from their plans of the planes they tile (where the
+    the one-pass stages from their plans of the planes they tile, and K30's
+    streaming stage from its plan of rank 0's interior rows (where the
     package has them)."""
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as px
     from multigrid_parallel_tpu_torch.ops import pallas_split as ps
 
     out = {}
@@ -443,6 +456,12 @@ def _seg_sizes(hier, sms, plan):
         add("seg_half_sweep_from_zero_kernel", -(-(L + 8) * n * n // 256), 0)
         add("seg_mixed_prolong_correct_black_kernel", -(-(L + 8) * n * n // 256), 0)
         add("seg_residual_restrict_kernel", -(-(L // 2) * nc * nc // 256), 0)
+        try:  # a checkout without K30's streaming stage
+            rows, _ = px.seg_restrict_extents(n, 0, L)
+            stage = ps._restrict_plan(n, sms, seg_rows=rows)
+            add("seg_restrict_kernel", stage.blocks, stage.smem)
+        except (TypeError, AttributeError):
+            pass
         # K31's one-pass stage takes K36's plan: the same planes
         for names, prolong in ((("mixed_seg_stage_kernel",), False),
                                (("mixed_seg_prolong_stage_kernel", "seg_prolong_stage_kernel"),
@@ -465,7 +484,9 @@ def _seg2d_sizes(hier, sms, plan):
     columns they span (K37's half-sweeps (Li + 6) (Lj + 6) n, K38's and
     K40's heads (Li + 8) (Lj + 8) n; K39 a coarse point of its (Li / 2, Lj /
     2) block), K40's one-pass stage from its plan of the planes and rows it
-    tiles (where the package has it)."""
+    tiles and K39's streaming stage from its plan of the block's interior
+    rows and columns (where the package has them)."""
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as px
     from multigrid_parallel_tpu_torch.ops import pallas_split as ps
 
     out = {}
@@ -481,6 +502,12 @@ def _seg2d_sizes(hier, sms, plan):
         for name in ("seg_half_sweep_from_zero_kernel", "seg_prolong_correct_black_kernel"):
             add(name, -(-(li + 8) * (lj + 8) * n // 256), 0)
         add("seg_residual_restrict_kernel", -(-(li // 2) * (lj // 2) * nc // 256), 0)
+        try:  # a checkout without K39's streaming stage
+            rows, cols = px.seg_restrict_extents(n, 0, li, 0, lj)
+            stage = ps._restrict_plan(n, sms, seg_rows=rows, seg_cols=cols)
+            add("seg_restrict_kernel", stage.blocks, stage.smem)
+        except (TypeError, AttributeError):
+            pass
         try:  # a checkout without K40's one-pass stage
             stage = ps._stage_plan(n, 2, sms, prolong=True, rect=True, seg_planes=min(li, n),
                                    seg_cols=min(lj, n))

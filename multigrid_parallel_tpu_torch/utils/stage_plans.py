@@ -3,7 +3,9 @@
 on a loaded field, and K19's), with ``--mixed`` on its full layout (K14's
 and K15's), with ``--seg`` on one rank's segments of an i-sharded field
 (K35's and K36's), with ``--seg-rect`` K4's Dirichlet stage there (K31's)
-and on one rank's block of an (i, j)-sharded field (K40's), with ``--msplit`` the split pair's mixed stage (K22's and
+and on one rank's block of an (i, j)-sharded field (K40's), with
+``--seg-restrict`` the streaming restriction stage there (K30's and K39's,
+K3's beside them), with ``--msplit`` the split pair's mixed stage (K22's and
 K24's, ops/csrc/split.cuh with MIXED), or, with ``--restrict``, the
 streaming restriction stage (K3's, K9's and, on the fold layout, K18's,
 ops/csrc/restrict.cuh; K18's first form beside it) on candidate plans at
@@ -14,7 +16,7 @@ block sizes, each held bit for bit against its plain version.
                                                              [--reps 20]
                                                              [--restrict | --fold | --mixed
                                                               | --seg | --seg-rect
-                                                              | --msplit]
+                                                              | --seg-restrict | --msplit]
 
 For each size and kernel (K2 from zero, K4, both at n_iter 2; K17, K16
 and K19 likewise, with the electrospray's pins and coarse signs; K14 and
@@ -31,7 +33,9 @@ half-sweep launches, their device times summed a call) as the plan
 "first_form"; K22 and K24 with its pin packs and coarse signs, on the
 msplit planner's plan, K7's and K10's and wavefront plans of several
 block sizes; or K3, K9 and K18, K18's first form as the plan
-"first_form") and plan, one JSON line: the plan, whether the output equals the
+"first_form"; or K30 and K39 on the production segments and blocks of the
+level (as K31's and K40's, each covering the level, at 9^3-257^3 by
+default), and K3 on the level) and plan, one JSON line: the plan, whether the output equals the
 plain version, and the median device time of ``reps`` launches from a
 torch.profiler trace (``utils.split_trace.kernel_intervals``). The numbers
 serve to tune ``pallas_split._stage_plan``'s choice between the wavefront
@@ -553,6 +557,108 @@ def time_seg_rect(n, sms, reps, dev):
             print(json.dumps(row), flush=True)
 
 
+def _even_at_least(*xs):
+    """The least even number at least each of xs."""
+    return 2 * -(-max(xs) // 2)
+
+
+def seg_restrict_candidates(n, sms, rows, cols=None):
+    """The segment planner's plan (``_restrict_plan`` with the rank's
+    interior coarse rows and columns) and plans of bci x bcj coarse rows
+    and columns of it, whole k rows or two k tiles, that the kernels take."""
+    m = (n + 1) // 2 - 2
+    plans = {"planner": ps._restrict_plan(n, sms, seg_rows=rows, seg_cols=cols)}
+    half = -(-m // 2)
+    for bck in sorted({m, half}):
+        chunks = ps._restrict_chunks(bck, False)
+        if chunks is None:
+            continue
+        for bcj in (1, 2, 4, 8):
+            bcj = evened(cols or m, bcj)
+            smem = ps._restrict_smem(bcj, bck, False)
+            for bci in (1, 2, 4, 8, 16, 32):
+                bci = evened(rows, bci)
+                plans[f"{bci}x{bcj}x{bck}"] = ps.RestrictPlan(
+                    n, False, bci, bcj, bck, chunks, 32 * (2 * bcj + 1), smem, rows=rows,
+                    cols=cols)
+    return plans
+
+
+def time_seg_restrict(n, sms, reps, dev):
+    """One JSON line a (kernel, segment, plan) at level n: K30 on the
+    one-rank segment (L = 320 (n - 1) / 256, rank 0) and on rank 1's of
+    four (L = 96 (n - 1) / 256), and K39 on the 1x1 block (272 (n - 1) /
+    256 rows and columns) and on rank (0, 0)'s of the 2x2 mesh (144 (n - 1)
+    / 256), each even and covering the level where the production plans
+    stop, of random fields: each candidate plan of the rank's interior
+    coarse rows and columns (``seg_restrict_candidates``) launched through
+    the stage's launchers; then K3's stage on the level on its planner's
+    plan, all held against their plain versions, with the median device
+    time a call over ``reps`` calls from a trace of their own."""
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as px
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as px2
+
+    h, nc = 1.0 / (n - 1), (n + 1) // 2
+    inv_h2 = 1.0 / (h * h)
+    lib, stream = pk._lib(), pk._stream()
+    rng = np.random.default_rng(n)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    cases = []
+    for L, rank in ((_even_at_least(320 * (n - 1) // 256, n), 0),
+                    (_even_at_least(96 * (n - 1) // 256, -(-n // 4)), 1)):
+        e, f = rnd((rank + 2) * L, n, n), rnd((rank + 2) * L, n, n)
+        g0 = rank * L
+        e3, f3 = seg_parts(e, rank, L, 2, 1), seg_parts(f, rank, L, 2, 1)
+        es_, fs = (px._seg(x, 2, 1, L, composite=False) for x in (e3, f3))
+        rows, _ = px.seg_restrict_extents(n, g0, L)
+
+        def k30(plan, L=L, g0=g0, es_=es_, fs=fs):
+            out = torch.empty((L // 2, nc, nc), device=dev)
+            pk._check(lib.mg_seg_restrict_stage(out.data_ptr(), *px._ptrs(es_), *px._ptrs(fs), 2,
+                                                L, 1, n, g0, inv_h2, *plan.args, stream),
+                      "stage_plans")
+            return out
+
+        cases.append(("K30", {"L": L, "rank": rank}, k30, seg_restrict_candidates(n, sms, rows),
+                      px.residual_restrict_halo_plain(e3, f3, g0 - 2, h, n, L // 2)))
+    for w, nx in ((_even_at_least(272 * (n - 1) // 256, n), 1),
+                  (_even_at_least(144 * (n - 1) // 256, -(-n // 2)), 2)):
+        E, F = rnd(nx * w, nx * w, n), rnd(nx * w, nx * w, n)
+        e5, f5 = seg_parts2d(E, 0, 0, w, 2, 1), seg_parts2d(F, 0, 0, w, 2, 1)
+        es_, fs = (px2._seg2(x, w, w, 2, 1, 2, 1, composite=False) for x in (e5, f5))
+        rows, cols = px.seg_restrict_extents(n, 0, w, 0, w)
+
+        def k39(plan, w=w, es_=es_, fs=fs):
+            out = torch.empty((w // 2, w // 2, nc), device=dev)
+            pk._check(lib.mg_seg2d_restrict_stage(out.data_ptr(), es_.desc(), fs.desc(), 1, 1, w,
+                                                  w, n, 0, 0, inv_h2, *plan.args, stream),
+                      "stage_plans")
+            return out
+
+        cases.append(("K39", {"Li": w, "Lj": w, "rank": [0, 0], "mesh": [nx, nx]}, k39,
+                      seg_restrict_candidates(n, sms, rows, cols),
+                      px2.residual_restrict_halo2d_plain(e5, f5, (-2, -2), h, n, w // 2, w // 2)))
+    e, f = rnd(n, n, n), rnd(n, n, n)
+    k3_plan = ps._restrict_plan(n, sms)
+    cases.append(("K3", {}, lambda plan: restrict_launch(plan, (e,), (f,), h),
+                  {"planner": k3_plan}, pk.residual_restrict_plain(e, f, h)))
+    for kernel, where, launch_on, plans, want in cases:
+        for label, plan in plans.items():
+            run = lambda plan=plan: launch_on(plan)  # noqa: E731
+            exact = bool(torch.equal(run(), want))
+            torch.cuda.synchronize()
+            times = [(b - a) / 1e3 for a, b, name, *_ in
+                     kernel_intervals(lambda: [run() for _ in range(reps)]) if "restrict" in name]
+            print(json.dumps({"n": n, "kernel": kernel, **where, "plan": label, "bci": plan.bci,
+                              "bcj": plan.bcj, "bck": plan.bck, "blocks": plan.blocks,
+                              "threads": plan.threads, "smem": plan.smem, "exact": exact,
+                              "device_ms": statistics.median(times) if times else None}),
+                  flush=True)
+
+
 def seg_parts2d(x, ix, iy, L, kl, kr):
     """Rank (ix, iy)'s own five parts (body, jl, jr, lh, rh) of the global
     field x of square (L, L) blocks, halos kl before and kr after in i and
@@ -587,6 +693,9 @@ def main(argv=None) -> int:
                             "and blocks instead")
     group.add_argument("--msplit", action="store_true",
                        help="time K22's and K24's mixed stages on the split pair instead")
+    group.add_argument("--seg-restrict", action="store_true",
+                       help="time K30's and K39's restriction stages on the production "
+                            "segments and blocks, and K3's, instead")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("stage_plans: needs a CUDA device")
@@ -596,10 +705,16 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     if args.sizes is None:
-        args.sizes = [129, 257] if args.seg or args.seg_rect else [9, 17, 33, 65, 129]
+        args.sizes = ([129, 257] if args.seg or args.seg_rect
+                      else [9, 17, 33, 65, 129, 257] if args.seg_restrict
+                      else [9, 17, 33, 65, 129])
     if args.seg_rect:
         for n in args.sizes:
             time_seg_rect(n, sms, args.reps, dev)
+        return 0
+    if args.seg_restrict:
+        for n in args.sizes:
+            time_seg_restrict(n, sms, args.reps, dev)
         return 0
     if args.seg:
         for n in args.sizes:

@@ -20,6 +20,9 @@ one-pass rect stages K1, K2 and K4 against theirs at 9^3-513^3 (K1 also
 at the smoother study's 50^3) and on hand plans (one launch a call),
 the one-pass Dirichlet segment stages K31 and K40 against theirs on the
 257^3 production segments and blocks (one launch a call at n_iter <= 2),
+the segment restriction stages K30 and K39 against theirs on the
+production segments and blocks at 9^3-513^3 and on hand plans, stitched
+against K3, NaN-poisoned (one launch a call),
 the streaming restriction stages K3 and K9 against theirs at
 9^3-513^3 on NaN-poisoned outputs and on hand plans (one launch a call),
 and the one-pass fold stages K16, K17 and K19 against theirs at
@@ -1796,6 +1799,216 @@ def test_seg_rect_launchers_refuse_what_they_do_not_take(cuda):
     assert k40(hh, hh, bad2) != 0 and k40(hh - 1, hh, plan2) != 0 and k40(hh, hh - 1, plan2) != 0
     short = tpx2._Seg2(e5.body, e5.jl[:, 1:], e5.jr, e5.lh, e5.rh, e5.r_off)  # a j halo of 3
     assert k40(hh, hh, plan2, short) != 0
+    torch.cuda.synchronize()
+
+
+# (n, L, ranks) of K30: the production segments at 257^3 (four ranks' L = 96, rank 3 pad
+# only; one rank's L = 320, 63 pad planes) and 513^3 (one rank, L = 640), and each level
+# below 257^3 of both plans
+K30_CASES = ([(257, 96, 4), (257, 320, 1), (513, 640, 1)]
+             + [(257 >> d | 1, 320 >> d, 1) for d in range(1, 6)]
+             + [(257 >> d | 1, 96 >> d, 4) for d in range(1, 5)])
+# (n, (nx, ny), Li, Lj) of K39: the 1x1 block at 257^3 (15 pad rows and columns) and every
+# block of the 2x2 mesh, each level of both plans below it, 17^3 and 9^3 blocks, and 65^3's
+# 1x4 narrow blocks (the last of pad columns only)
+K39_CASES = ([(257, (1, 1), 272, 272), (257, (2, 2), 144, 144)]
+             + [(257 >> d | 1, (1, 1), 272 >> d, 272 >> d) for d in range(1, 4)]
+             + [(257 >> d | 1, (2, 2), 144 >> d, 144 >> d) for d in range(1, 4)]
+             + [(17, (1, 1), 18, 18), (9, (1, 1), 10, 10), (65, (1, 4), 80, 18)])
+
+
+def _nan_past(x, first, n, dims):
+    """x (a rank's part) with every point whose GLOBAL index along one of
+    ``dims`` (its first index ``first`` there) lies past the field (< 0 or
+    > n - 1) NaN: points no restriction reads."""
+    x = x.clone()
+    for d, g in zip(dims, first):
+        idx = torch.arange(x.shape[d], device=x.device) + g
+        out = (idx < 0) | (idx > n - 1)
+        x[(slice(None),) * d + (out,)] = float("nan")
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,ranks", K30_CASES)
+def test_k30_seg_restrict_matches_plain_on_card(cuda, n, L, ranks):
+    """K30 on every rank of the geometry, through the wrapper's choice of
+    form: each coarse block bit for bit its plain version, on fields random
+    at every plane, e's and r's planes past the field NaN (halo and pad
+    planes, which no restriction reads), the allocator poisoned with NaN
+    before each call (a point left unwritten shows); one launch a call;
+    the inputs left as they were; the stitched blocks equal K3's on the
+    whole field, the pad planes 0."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+
+    h, nc, lc = 1.0 / (n - 1), (n + 1) // 2, L // 2
+    rng = np.random.default_rng(700 + n + L)
+    e, f = (torch.from_numpy(rng.standard_normal((ranks * L, n, n)).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    outs = []
+    for r in range(ranks):
+        g0 = r * L
+        e3, f3 = ([_nan_past(t, (g,), n, (0,)) for t, g in zip(rk.rank_parts(x, r, L, 2, 1),
+                                                                 (g0, g0 - 2, g0 + L))]
+                  for x in (e, f))
+        before = [t.clone() for t in (*e3, *f3)]
+        want = tpx.residual_restrict_halo_plain(e3, f3, g0 - 2, h, n, lc)
+        _poison_allocator((lc, nc, nc), cuda)
+        tpx.reset_launches()
+        got = tpx.residual_restrict_halo(e3, f3, g0 - 2, h, n, lc)
+        assert tpx.LAUNCHES == {**dict.fromkeys(tpx.KERNELS, 0), "residual_restrict_seg": 1}
+        assert bool(torch.isfinite(got).all()) and torch.equal(got, want), r
+        assert all(_same_with_nan(a, b) for a, b in zip((*e3, *f3), before))
+        outs.append(got)
+    whole = torch.cat(outs)
+    assert torch.equal(whole[:nc], tpk.residual_restrict_fused(e[:n], f[:n], h))
+    assert not whole[nc:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,mesh,li,lj", K39_CASES)
+def test_k39_seg2d_restrict_matches_plain_on_card(cuda, n, mesh, li, lj):
+    """K39 on every block of the mesh, through the wrapper's choice of
+    form: each coarse block bit for bit its plain version, on fields random
+    at every point, e's and r's points past the field NaN (halo and pad
+    rows and columns, corner blocks included), the allocator poisoned with
+    NaN before each call; one launch a call; the inputs left as they were;
+    the stitched blocks equal K3's on the whole field, the pad points 0."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as tpx2
+
+    (nx, ny), h, nc = mesh, 1.0 / (n - 1), (n + 1) // 2
+    lic, ljc = li // 2, lj // 2
+    rng = np.random.default_rng(800 + n + li + lj)
+    e, f = (torch.from_numpy(rng.standard_normal((nx * li, ny * lj, n)).astype(np.float32))
+            .to(cuda) for _ in range(2))
+    outs = {}
+    for ix in range(nx):
+        for iy in range(ny):
+            g0, gj0 = ix * li, iy * lj
+            firsts = ((g0, gj0), (g0, gj0 - 2), (g0, gj0 + lj), (g0 - 2, gj0 - 2),
+                      (g0 + li, gj0 - 2))
+            e5, f5 = ([_nan_past(t, g, n, (0, 1)) for t, g in
+                       zip(rk.rank_parts2d(x, ix, iy, li, lj, 2, 1), firsts)] for x in (e, f))
+            before = [t.clone() for t in (*e5, *f5)]
+            gij0 = (g0 - 2, gj0 - 2)
+            want = tpx2.residual_restrict_halo2d_plain(e5, f5, gij0, h, n, lic, ljc)
+            _poison_allocator((lic, ljc, nc), cuda)
+            tpx2.reset_launches()
+            got = tpx2.residual_restrict_halo2d(e5, f5, gij0, h, n, lic, ljc)
+            assert tpx2.LAUNCHES == {**dict.fromkeys(tpx2.KERNELS, 0),
+                                     "residual_restrict_seg2d": 1}
+            assert bool(torch.isfinite(got).all()) and torch.equal(got, want), (ix, iy)
+            assert all(_same_with_nan(a, b) for a, b in zip((*e5, *f5), before))
+            outs[ix, iy] = got
+    whole = _stitch2d(lambda ix, iy: outs[ix, iy], nx, ny)
+    want = tpk.residual_restrict_fused(e[:n, :n].contiguous(), f[:n, :n].contiguous(), h)
+    assert torch.equal(whole[:nc, :nc], want)
+    assert not whole[nc:].any() and not whole[:, nc:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 65, 257])
+def test_seg_restrict_on_hand_plans_on_card(cuda, n):
+    """K30's and K39's stages on hand plans (several blocks along i and j,
+    k tiles of 2 and 3 coarse points, one row a block) launched directly:
+    bit for bit their plain versions on NaN-poisoned outputs; K30 on an
+    interior rank and the last of four (a pad tail; at 17^3 pad only), K39 on the (1, 1)
+    block of a 2x2 mesh, its halos and corner block from the other three."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as tpx2
+
+    h, nc, m = 1.0 / (n - 1), (n + 1) // 2, (n + 1) // 2 - 2
+    L = 2 * ((n + 3) // 8 + 1)
+    lib, stream = tpk._lib(), tpk._stream()
+    rng = np.random.default_rng(900 + n)
+    e, f = (torch.from_numpy(rng.standard_normal((4 * L, n, n)).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    for r in (1, 3):
+        g0 = r * L
+        e3, f3 = (rk.rank_parts(x, r, L, 2, 1) for x in (e, f))
+        es, fs = (tpx._seg(x, 2, 1, L, composite=False) for x in (e3, f3))
+        want = tpx.residual_restrict_halo_plain(e3, f3, g0 - 2, h, n, L // 2)
+        rows, _ = tpx.seg_restrict_extents(n, g0, L)
+        for bci, bcj, bck in ((2, 3, m), (3, 2, 2), (1, 8, 3), (rows, 1, 1)):
+            plan = tps._restrict_plan(n, 132, seg_rows=rows)._replace(
+                bci=min(bci, rows), bcj=min(bcj, m), bck=min(bck, m))
+            plan = plan._replace(chunks=tps._restrict_chunks(plan.bck, False),
+                                 threads=32 * (2 * plan.bcj + 1),
+                                 smem=tps._restrict_smem(plan.bcj, plan.bck, False))
+            out = torch.full((L // 2, nc, nc), float("nan"), device=cuda)
+            assert lib.mg_seg_restrict_stage(out.data_ptr(), *tpx._ptrs(es), *tpx._ptrs(fs), 2,
+                                             L, 1, n, g0, 1.0 / (h * h), *plan.args,
+                                             stream) == 0
+            assert torch.equal(out, want), (r, plan)
+    li = lj = 2 * ((n + 3) // 4)
+    e2, f2 = (torch.from_numpy(rng.standard_normal((2 * li, 2 * lj, n)).astype(np.float32))
+              .to(cuda) for _ in range(2))
+    e5, f5 = (rk.rank_parts2d(x, 1, 1, li, lj, 2, 1) for x in (e2, f2))
+    es, fs = (tpx2._seg2(x, li, lj, 2, 1, 2, 1, composite=False) for x in (e5, f5))
+    want = tpx2.residual_restrict_halo2d_plain(e5, f5, (li - 2, lj - 2), h, n, li // 2, lj // 2)
+    rows, cols = tpx.seg_restrict_extents(n, li, li, lj, lj)
+    for bci, bcj, bck in ((2, 3, m), (3, 2, 2), (1, 8, 3)):
+        plan = tps._restrict_plan(n, 132, seg_rows=rows, seg_cols=cols)._replace(
+            bci=min(bci, rows), bcj=min(bcj, cols), bck=min(bck, m))
+        plan = plan._replace(chunks=tps._restrict_chunks(plan.bck, False),
+                             threads=32 * (2 * plan.bcj + 1),
+                             smem=tps._restrict_smem(plan.bcj, plan.bck, False))
+        out = torch.full((li // 2, lj // 2, nc), float("nan"), device=cuda)
+        assert lib.mg_seg2d_restrict_stage(out.data_ptr(), es.desc(), fs.desc(), 1, 1, li, lj, n,
+                                           li, lj, 1.0 / (h * h), *plan.args, stream) == 0
+        assert torch.equal(out, want), plan
+
+
+@pytest.mark.cuda
+def test_seg_restrict_launchers_refuse_what_they_do_not_take(cuda):
+    """The K30 and K39 stage launchers refuse a plan whose shared memory is
+    not the kernel's, a halo shorter than the stencil's (e 2 rows before
+    the block and 1 after; K39 also 2 columns before and 1 after), and an
+    odd rank offset; the wrappers' own arguments succeed."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as tpx2
+
+    n, L, r = 33, 16, 1
+    inv_h2 = float((n - 1) ** 2)
+    e, f, _ = _sharded_fields(cuda, n, L)
+    lib, stream, ptrs = tpk._lib(), tpk._stream(), tpx._ptrs
+    es, fs = (tpx._seg(rk.rank_parts(x, r, L, 2, 1), 2, 1, L, composite=False) for x in (e, f))
+    plan = tps._restrict_args(n, cuda, seg_rows=tpx.seg_restrict_extents(n, r * L, L)[0])
+    bad = plan[:5] + (plan[5] + 16,)
+    out = torch.empty((L // 2, (n + 1) // 2, (n + 1) // 2), device=cuda)
+
+    def k30(kl, kr, g0, p):
+        return lib.mg_seg_restrict_stage(out.data_ptr(), *ptrs(es), *ptrs(fs), kl, L, kr, n, g0,
+                                         inv_h2, *p, stream)
+
+    assert k30(2, 1, r * L, plan) == 0
+    assert k30(2, 1, r * L, bad) != 0
+    assert k30(1, 1, r * L, plan) != 0 and k30(2, 0, r * L, plan) != 0
+    assert k30(2, 1, r * L + 1, plan) != 0
+    li = lj = 18
+    u2, f2, _ = _blocks2d(cuda, n, li, lj)
+    e5, r5 = (tpx2._seg2(rk.rank_parts2d(x, 1, 1, li, lj, 2, 1), li, lj, 2, 1, 2, 1,
+                         composite=False) for x in (u2, f2))
+    plan2 = tps._restrict_args(n, cuda, seg_rows=tpx.seg_restrict_extents(n, li, li, lj, lj)[0],
+                               seg_cols=tpx.seg_restrict_extents(n, li, li, lj, lj)[1])
+    bad2 = plan2[:5] + (plan2[5] + 16,)
+    out2 = torch.empty((li // 2, lj // 2, (n + 1) // 2), device=cuda)
+
+    def k39(kr, hjr, g0, gj0, p, e=e5):
+        return lib.mg_seg2d_restrict_stage(out2.data_ptr(), e.desc(), r5.desc(), kr, hjr, li, lj,
+                                           n, g0, gj0, inv_h2, *p, stream)
+
+    assert k39(1, 1, li, lj, plan2) == 0
+    assert k39(1, 1, li, lj, bad2) != 0
+    assert k39(0, 1, li, lj, plan2) != 0 and k39(1, 0, li, lj, plan2) != 0
+    assert k39(1, 1, li + 1, lj, plan2) != 0 and k39(1, 1, li, lj + 1, plan2) != 0
+    short_j = tpx2._Seg2(e5.body, e5.jl[:, 1:], e5.jr, e5.lh[:, 1:], e5.rh[:, 1:], e5.r_off)
+    short_i = tpx2._Seg2(e5.body, e5.jl, e5.jr, e5.lh[1:], e5.rh, e5.r_off)
+    assert k39(1, 1, li, lj, plan2, short_j) != 0 and k39(1, 1, li, lj, plan2, short_i) != 0
     torch.cuda.synchronize()
 
 

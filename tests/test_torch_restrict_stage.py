@@ -7,8 +7,9 @@ CUDA kernel's schedule held against the plain versions bit for bit, and
 the wrappers' CPU contract.
 
 The CUDA kernel (ops/csrc/restrict.cuh, ``restrict_body``) cannot run
-here, so its schedule is emulated in torch, block by block, as the kernel
-runs it: the plan's boxes of interior coarse points (``_restrict_plan``,
+here, so its schedule is emulated in torch (tests/torch_stage_emulation.py,
+emulate_restrict, which K30's and K39's segment tests share), block by
+block, as the kernel runs it: the plan's boxes of interior coarse points (``_restrict_plan``,
 and hand plans with several blocks along each axis, k tiles among them);
 each block's tile planes filled with NaN outside the footprint it loads
 (e with one row and one k, or the 16-byte slot windows, of halo; r
@@ -33,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_stage_emulation as em
 from multigrid_parallel_tpu_torch.ops import pallas3d as tpk
 from multigrid_parallel_tpu_torch.ops import pallas_mixed_fold as tpmf
 from multigrid_parallel_tpu_torch.ops import pallas_split as tps
@@ -86,6 +88,51 @@ def test_restrict_plan_covers_the_interior_once(n, split):
     assert plan.blocks == np.prod(plan.tiles)
 
 
+# the production segments: (n, L, Lj, ranks) of the one-rank i-sharded plan (L = 320 at
+# 257^3), the four-rank one (L = 96 at 257^3), the 1x1 (i, j) plan (272^2) and the 2x2
+# one (144^2), halved at each level below; Lj None on an i-sharded block
+SEG_BLOCKS = ([(257 >> d | 1, 320 >> d, None, 1) for d in range(6)]
+              + [(257 >> d | 1, 96 >> d, None, 4) for d in range(5)]
+              + [(257 >> d | 1, 272 >> d, 272 >> d, 1) for d in range(4)]
+              + [(257 >> d | 1, 144 >> d, 144 >> d, 2) for d in range(4)])
+
+
+@pytest.mark.parametrize("n,L,Lj,ranks", SEG_BLOCKS)
+def test_seg_restrict_plan_tiles_a_ranks_interior(n, L, Lj, ranks):
+    """K30's and K39's plans (``seg_rows``, ``seg_cols``) on the production
+    segments and blocks, every rank: the boxes tile the rank's interior
+    coarse rows (and columns) exactly and evenly, at most RESTRICT_MAX_ROWS
+    coarse rows, K3's tile rows and k tiling (the level's interior k), the
+    shared memory the launchers' formula gives; at 257^3 at least one block
+    an SM where the rank has that many boxes of one row and plane; a plan
+    of a plain level's rows only (segments are K3's layout)."""
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+
+    m = (n + 1) // 2 - 2
+    whole = tps._restrict_plan(n, H100_SMS)
+    for ri in range(ranks):
+        for rj in range(ranks if Lj else 1):
+            rows, cols = (tpx.seg_restrict_extents(n, ri * L, L, rj * Lj, Lj) if Lj
+                          else tpx.seg_restrict_extents(n, ri * L, L))
+            plan = tps._restrict_plan(n, H100_SMS, seg_rows=rows, seg_cols=cols)
+            assert (plan.rows, plan.cols) == (rows, cols) and not plan.split and not plan.fold
+            assert plan.bck == whole.bck and plan.chunks == whole.chunks
+            assert 1 <= plan.bcj <= min(cols or m, tps.RESTRICT_MAX_ROWS)
+            assert plan.threads == 32 * (2 * plan.bcj + 1)
+            assert plan.smem == tps._restrict_smem(plan.bcj, plan.bck, False) <= tps.SMEM_MAX
+            for size, count, extent in zip((plan.bci, plan.bcj, plan.bck), plan.tiles,
+                                           (rows, cols or m, m)):
+                spans = _spans(extent, size)
+                assert len(spans) == count and spans[-1][1] == extent
+                assert -(-extent // count) == size
+            if n == 257 and rows * (cols or m) * plan.tiles[2] >= H100_SMS:
+                assert plan.blocks >= H100_SMS
+    with pytest.raises(ValueError, match="seg_rows"):
+        tps._restrict_plan(33, H100_SMS, split=True, seg_rows=4)
+    with pytest.raises(ValueError, match="seg_cols"):
+        tps._restrict_plan(33, H100_SMS, seg_cols=4)
+
+
 @pytest.mark.parametrize("n", PLAN_SIZES)
 def test_fold_restrict_plan_is_k3s(n):
     """K18's fold levels take K3's plan: the same interior coarse counts
@@ -123,228 +170,6 @@ def test_restrict_plan_at_257_fills_the_card():
 
 
 # ------------------------------------------------------------ the emulation
-
-
-def _geometry(plan, ti, tj, tk):
-    """restrict.cuh, geometry: the block's owned interior coarse box, its
-    cone's fine rows and residual points a row, and the loaded windows
-    (K18's in slots: fine k k at slot k - 1, clipped to the n - 2
-    stored)."""
-    n = plan.n
-    nc, s = (n + 1) // 2, (n - 1) // 2
-    m = nc - 2
-    g = {"n": n, "nc": nc, "S": s}
-    for ax, t, b in (("i", ti, plan.bci), ("j", tj, plan.bcj), ("k", tk, plan.bck)):
-        g[f"c{ax}0"] = 1 + t * b
-        g[f"c{ax}1"] = min(1 + t * b + b, nc - 1)
-    ck0, ck1 = g["ck0"], g["ck1"]
-    g["rows"] = 2 * (g["cj1"] - g["cj0"]) + 1
-    if plan.fold:
-        g.update(pts=2 * (ck1 - ck0) + 1, ka=max(2 * ck0 - 3, 0), kb=min(2 * ck1, n - 2),
-                 ra=2 * ck0 - 2, rb=2 * ck1 - 1)
-    elif not plan.split:
-        g.update(pts=2 * (ck1 - ck0) + 1, ka=2 * ck0 - 2, kb=2 * ck1 + 1, ra=2 * ck0 - 1,
-                 rb=2 * ck1)
-    elif s % 4 == 0 and (plan.bck >= m or plan.bck % 4 == 0):  # 16-byte windows
-        g.update(pts=ck1 - ck0 + 1, ka=max(ck0 - 5, 0), kb=min((ck1 + 4) & ~3, s), ra=ck0 - 1,
-                 rb=min((ck1 + 3) & ~3, s))
-    else:
-        g.update(pts=ck1 - ck0 + 1, ka=max(ck0 - 2, 0), kb=min(ck1 + 1, s), ra=ck0 - 1, rb=ck1)
-    return g
-
-
-def _tap3(a, b, c):
-    return 0.25 * a + 0.5 * b + 0.25 * c
-
-
-def _emulate(plan, e, r, h, e_halo_rows=1, close_last=True, k_edge_select=True):
-    """One launch of the restriction stage as the kernel runs it. ``e``
-    and ``r`` are tuples of one field (K3, K18) or of the pair (red,
-    black) (K9). ``e_halo_rows`` 0 loads e without its first halo row,
-    ``close_last`` False leaves the last fine plane of each box out of the
-    i taps of its last coarse plane, and ``k_edge_select`` False reads
-    K18's k-edge neighbours from the tile (all must fail). Returns the
-    coarse field and how many blocks wrote each point."""
-    n, split = plan.n, plan.split
-    nc = (n + 1) // 2
-    inv_h2 = 1.0 / (h * h)
-    we, wr, wa = tps._restrict_widths(plan.bck, split)
-    re_, rr_ = 2 * plan.bcj + 3, 2 * plan.bcj + 1
-    shape = (nc, nc, nc - 2) if plan.fold else (nc, nc, nc)
-    out = torch.full(shape, NAN)
-    writes = torch.zeros(shape, dtype=torch.int32)
-    ni, nj, nk = plan.tiles
-    for ti in range(ni):
-        for tj in range(nj):
-            for tk in range(nk):
-                g = _geometry(plan, ti, tj, tk)
-                _zero_boundary(out, writes, g, plan.fold)
-                _emulate_block(plan, g, e, r, inv_h2, out, writes, (we, wr, wa), (re_, rr_),
-                               e_halo_rows, close_last, k_edge_select)
-    return out, writes
-
-
-def _zero_boundary(out, writes, g, fold=False):
-    """The block's coarse boundary points (K18: of the x and y faces only,
-    over the box's own k, at slot ck - 1)."""
-    nc = g["nc"]
-    ext = []
-    for ax in "ijk":
-        a, b = g[f"c{ax}0"], g[f"c{ax}1"]
-        if fold and ax == "k":
-            ext.append(range(a, b))
-        else:
-            ext.append(range(0 if a == 1 else a, nc if b == nc - 1 else b))
-    for ci in ext[0]:
-        for cj in ext[1]:
-            for ck in ext[2]:
-                faces = (ci, cj) if fold else (ci, cj, ck)
-                if min(faces) == 0 or max(faces) == nc - 1:
-                    at = (ci, cj, ck - 1) if fold else (ci, cj, ck)
-                    out[at] = 0.0
-                    writes[at] += 1
-
-
-def _emulate_block(plan, g, e, r, inv_h2, out, writes, widths, tile_rows, e_halo_rows,
-                   close_last, k_edge_select):
-    split, fold = plan.split, plan.fold
-    we, wr, wa = widths
-    re_, rr_ = tile_rows
-    colours = len(e)
-    cj0, cj1, ck0, ck1 = g["cj0"], g["cj1"], g["ck0"], g["ck1"]
-    rows, pts = g["rows"], g["pts"]
-    ka, kb, ra, rb = g["ka"], g["kb"], g["ra"], g["rb"]
-    k0 = 2 * ck0 - 1 if not split else ck0 - 1
-    # the windows fit the plan's tile rows: e from column RESTRICT_PAD +
-    # ka - k0 (K18: slot ka holds fine k ka + 1), the last group's reads to
-    # RESTRICT_PAD + pts rounded up to 4, plus one; r from column 0
-    pad, shift = tps.RESTRICT_PAD, int(fold)
-    assert pad + ka + shift - k0 >= 0 and pad + kb + shift - k0 <= we
-    assert pad + -(-pts // 4) * 4 + 1 <= we
-    assert rb - ra <= wr and x_cols(split, pts) <= wa
-    pa, pe, p1 = 2 * g["ci0"] - 2, 2 * g["ci1"], 2 * g["ci1"] - 1
-    # the tile planes, each (plane held, tile), in the kernel's ring slots,
-    # (q - pa) modulo the ring's depth: a plane read from a slot that
-    # another has taken raises
-    e_slots, r_slots = [None] * 3, [None] * 2
-
-    def load(slots, fields, q, j0, j1, jt, c0, c1, width, nrows, col=1):
-        """Tile plane q of each colour: rows [j0, j1) x columns [c0, c1) of
-        the field, tile row 0 at field row jt, field column c0 at tile
-        column ``col``; NaN elsewhere, one NaN column past each side."""
-        tile = torch.full((colours, nrows, width + 2), NAN)
-        for c in range(colours):
-            tile[c, j0 - jt:j1 - jt, col:col + c1 - c0] = fields[c][q, j0:j1, c0:c1]
-        slots[(q - pa) % len(slots)] = (q, tile)
-
-    def held(slots, q):
-        plane, tile = slots[(q - pa) % len(slots)]
-        assert plane == q, (plane, q)
-        return tile
-
-    def load_e(q):
-        # K18: fine k k0 - 1 (slot k0 - 2) at tile column 1, as K3's, so a
-        # window clipped at slot 0 starts one column in
-        load(e_slots, e, q, 2 * cj0 - 2 + (1 - e_halo_rows), 2 * cj1 + 1, 2 * cj0 - 2, ka, kb,
-             we, re_, 1 + ka - (k0 - 2) if fold else 1)
-
-    def load_r(q):
-        load(r_slots, r, q, 2 * cj0 - 1, 2 * cj1, 2 * cj0 - 1, ra, rb, wr, rr_)
-
-    a = torch.arange(rows)[:, None]
-    for q in range(pa, pa + 3):
-        load_e(q)
-    for q in range(pa + 1, pa + 3):
-        load_r(q)
-    if split:
-        kk = ck0 - 1 + torch.arange(pts)[None, :]  # the lane's slots
-        ke, kr = kk - ka + 1, kk - ra + 1          # their tile columns
-
-        def even_colour(q):
-            j = 2 * cj0 - 1 + a
-            return torch.where((q + j) % 2 == 1, 0, 1).expand(rows, pts)
-
-        ce = even_colour(pa)
-        first = held(e_slots, pa)
-        prev = [first[ce, a + 1, ke], first[1 - ce, a + 1, ke]]
-    else:
-        prev = [held(e_slots, pa)[0, 1:rows + 1, 1 + 1:pts + 2]]
-    acc = None
-    for p in range(pa + 1, p1 + 1):
-        if p + 2 <= pe:  # into the ring slot of e plane p - 1
-            load_e(p + 2)
-        if p > pa + 1 and p + 1 <= p1:  # of r plane p - 1
-            load_r(p + 1)
-        mid, hi = held(e_slots, p), held(e_slots, p + 1)
-        rt = held(r_slots, p)
-        if split:
-            ce = even_colour(p)
-            co = 1 - ce
-            s_ = g["S"]
-
-            def residual(own, other, lo, pc):
-                s = lo + hi[other, a + 1, ke]
-                s = s + mid[other, a, ke]
-                s = s + mid[other, a + 2, ke]
-                s = s + mid[other, a + 1, ke]
-                if pc == 0:
-                    s = s + torch.where(kk > 0, mid[other, a + 1, ke - 1], 0.0)
-                else:
-                    s = s + torch.where(kk + 1 < s_, mid[other, a + 1, ke + 1], 0.0)
-                return rt[own, a, kr] - inv_h2 * (s - 6.0 * mid[own, a + 1, ke])
-
-            se = residual(ce, co, prev[0], 1)
-            so = residual(co, ce, prev[1], 0)
-            prev = [mid[ce, a + 1, ke], mid[co, a + 1, ke]]
-            x = 0.5 * se[:, :-1] + 0.25 * (so[:, :-1] + so[:, 1:])
-        else:
-            t = mid[0]
-            cols = slice(2, pts + 2)
-            cen = t[1:rows + 1, cols]
-            left, right = t[1:rows + 1, 1:pts + 1], t[1:rows + 1, 3:pts + 3]
-            if fold and k_edge_select:  # the k faces' BC copies: the point's own value
-                k = k0 + torch.arange(pts)[None, :]
-                left = torch.where(k == 1, cen, left)
-                right = torch.where(k == g["n"] - 2, cen, right)
-            s = prev[0] + hi[0, 1:rows + 1, cols]
-            s = s + t[0:rows, cols]
-            s = s + t[2:rows + 2, cols]
-            s = s + left
-            s = s + right
-            x = rt[0, 0:rows, 1:pts + 1] - inv_h2 * (s - 6.0 * cen)
-            prev = [t[1:rows + 1, cols]]
-        ci = (p + 1) // 2
-        if p % 2 == 1:  # p = 2 ci - 1 opens ci and closes ci - 1
-            q = 0.25 * x
-            if ci > g["ci0"]:
-                plane = torch.full((rr_, wa), NAN)
-                closed = acc if (p == p1 and not close_last) else acc + q
-                plane[:rows, :x.shape[1]] = closed
-                _coarse_rows(plane, g, ci - 1, split, out, writes, fold)
-            acc = q
-        else:
-            acc = acc + 0.5 * x
-
-
-def x_cols(split, pts):
-    """Columns of A a fine row's i-tapped values take: the k-tapped ones
-    of the split row (pts - 1), or the row's fine k."""
-    return pts - 1 if split else pts
-
-
-def _coarse_rows(plane, g, ci, split, out, writes, fold=False):
-    """The closed plane's j taps (then K3's and K18's k taps) into coarse
-    plane ci (K18: coarse k at slot ck - 1)."""
-    cj0, cj1, ck0, ck1 = g["cj0"], g["cj1"], g["ck0"], g["ck1"]
-    nr, nk = cj1 - cj0, ck1 - ck0
-    y = _tap3(plane[0:2 * nr:2], plane[1:2 * nr + 1:2], plane[2:2 * nr + 2:2])
-    if split:
-        v = y[:, :nk]
-    else:
-        v = _tap3(y[:, 0:2 * nk:2], y[:, 1:2 * nk + 1:2], y[:, 2:2 * nk + 2:2])
-    ks = slice(ck0 - 1, ck1 - 1) if fold else slice(ck0, ck1)
-    out[ci, cj0:cj1, ks] = v
-    writes[ci, cj0:cj1, ks] += 1
 
 
 def _fields(seed, n, layout):
@@ -407,7 +232,7 @@ def test_emulated_stage_matches_plain_bitwise(n, layout):
     plans = [tps._restrict_plan(n, H100_SMS, *_flags(layout))] + _hand_plans(n, layout)
     assert any(p.tiles[2] > 1 for p in plans) and any(min(p.tiles[:2]) > 1 for p in plans)
     for plan in plans:
-        got, writes = _emulate(plan, e, r, h)
+        got, writes = em.emulate_restrict(plan, e, r, h)
         assert bool((writes == 1).all()), plan
         assert torch.equal(got, want), plan
 
@@ -422,7 +247,7 @@ def test_emulated_k9_on_rows_of_an_odd_slot_count():
     for bci, bcj, bck in ((4, 5, 16), (6, 3, 7)):
         plan = tps.RestrictPlan(n, True, bci, bcj, bck, tps._restrict_chunks(bck, True),
                                 32 * (2 * bcj + 1), tps._restrict_smem(bcj, bck, True))
-        got, writes = _emulate(plan, e, r, h)
+        got, writes = em.emulate_restrict(plan, e, r, h)
         assert bool((writes == 1).all()) and torch.equal(got, want), plan
 
 
@@ -437,7 +262,7 @@ def test_emulated_stage_fails_with_a_fault(layout, fault):
     e, r = _fields(60, n, layout)
     plan = _hand_plans(n, layout)[0]
     kw = {"e_halo_rows": 0} if fault == "e_halo_one_row_short" else {"close_last": False}
-    got, _ = _emulate(plan, e, r, h, **kw)
+    got, _ = em.emulate_restrict(plan, e, r, h, **kw)
     assert not torch.equal(got, _plain(layout, e, r, h))
 
 
@@ -451,7 +276,7 @@ def test_emulated_k18_fails_without_its_k_edge_selects(n):
     e, r = _fields(65 + n, n, "k18")
     want = _plain("k18", e, r, h)
     for plan in (tps._restrict_plan(n, H100_SMS, fold=True), _hand_plans(n, "k18")[1]):
-        got, _ = _emulate(plan, e, r, h, k_edge_select=False)
+        got, _ = em.emulate_restrict(plan, e, r, h, k_edge_select=False)
         bad = ~(got == want)
         assert bool(bad[1:-1, 1:-1, 0].all() and bad[1:-1, 1:-1, -1].all()), plan
         assert not bool(bad[1:-1, 1:-1, 1:-1].any()), plan

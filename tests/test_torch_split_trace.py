@@ -400,3 +400,51 @@ def test_stage_and_restrict_calls_map_the_sharded_dirichlet_solves():
         "K31|K40 n=257": [1, pytest.approx(0.001), pytest.approx(0.001)]}
     assert st.restrict_calls(intervals2, sizes2) == {
         "K39 n=257": [1, pytest.approx(0.001), pytest.approx(0.001)]}
+
+
+def test_restrict_calls_map_the_segment_restriction_stages():
+    """K30's and K39's streaming stages (seg_restrict_kernel<mg::Seg, C>
+    and <mg::Seg2, C>, from a demangled or a mangled name) one kernel a
+    call, by level from their plans of rank 0's interior coarse rows (and
+    columns) on the one-rank i-sharded plan (L = 320 at 257^3) and the 1x1
+    (i, j) one (272^2), beside the first form's kernel; a name without its
+    arguments is either."""
+    from multigrid_parallel_tpu_torch.hierarchy import Hierarchy
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+    from multigrid_parallel_tpu_torch.ops import pallas_split as tps
+    from multigrid_parallel_tpu_torch.parallel.sharded import ShardPlan
+    from multigrid_parallel_tpu_torch.parallel.sharded2d_padded import plan_sharding_2d_padded
+
+    assert (st.short_name("void (anonymous namespace)::seg_restrict_kernel<mg::Seg2, 2>("
+                          "mg::restriction::SegArgs<mg::Seg2>)")
+            == "seg_restrict_kernel<mg::Seg2, 2>")
+    hier = Hierarchy(ndim=3, coarse_n=5, num_levels=7)
+    sizes = st._seg_sizes(hier, 132, ShardPlan(n_dev=1, axis="x", n_sharded=6, fine_local=320))
+    plan2 = plan_sharding_2d_padded(hier, 1, 1)
+    sizes2 = st._seg2d_sizes(hier, 132, plan2)
+    k30 = {n: tps._restrict_plan(n, 132, seg_rows=tpx.seg_restrict_extents(n, 0, L)[0])
+           for n, L in ((257, 320), (129, 160), (9, 10))}
+    k39 = {n: tps._restrict_plan(n, 132, seg_rows=(n - 1) // 2 - 1, seg_cols=(n - 1) // 2 - 1)
+           for n in (257, 129)}
+    assert all((k39[n].rows, k39[n].cols) == tpx.seg_restrict_extents(n, 0, w, 0, w)
+               for n, w in ((257, 272), (129, 136)))
+
+    def shape(p, smem=True):
+        return (p.blocks, 1, 1, p.smem) if smem else (p.blocks, 1, 1)
+
+    intervals = [(0, 4, "seg_restrict_kernel<mg::Seg, 2>", shape(k30[257])),
+                 (10, 12, "seg_restrict_kernel<mg::Seg, 1>", shape(k30[129], False)),
+                 (20, 21, "seg_restrict_kernel<mg::Seg, 1>", shape(k30[9])),
+                 (30, 31, "seg_residual_restrict_kernel<mg::Seg>",
+                  (-(-5 * 5 * 5 // 256), 1, 1, 0))]
+    assert st.restrict_calls(intervals, {**sizes}) == {
+        "K30 n=257": [1, pytest.approx(0.004), pytest.approx(0.004)],
+        "K30 n=129": [1, pytest.approx(0.002), pytest.approx(0.002)],
+        "K30 n=9": [2, pytest.approx(0.002), pytest.approx(0.001)]}
+    intervals2 = [(0, 3, "seg_restrict_kernel<mg::Seg2, 2>", shape(k39[257])),
+                  (10, 11, "seg_restrict_kernel<mg::Seg2, 1>", shape(k39[129])),
+                  (20, 22, "seg_restrict_kernel", shape(k39[129]))]
+    assert st.restrict_calls(intervals2, sizes2) == {
+        "K39 n=257": [1, pytest.approx(0.003), pytest.approx(0.003)],
+        "K39 n=129": [1, pytest.approx(0.001), pytest.approx(0.001)],
+        "K30|K39 n=129": [1, pytest.approx(0.002), pytest.approx(0.002)]}

@@ -572,3 +572,345 @@ def emulate_seg_rect(e_slab, r_slab, c_slab, first, c_first, body, n, n_iter, h,
         w[pad] += 1
     sl = (slice(g0, g0 + L), slice(gj0, gj0 + Lj))
     return out[sl].clone(), w[sl].clone()
+
+
+# ---------------------------------- the streaming restriction stage (restrict.cuh)
+#
+# K3 (a plain field), K9 (a split pair), K18 (the fold layout), and K30 and
+# K39 (K3's tile on one rank's segmented block, restrict.cuh's SegLayout):
+# a block's box of interior coarse points, its tile planes filled with NaN
+# outside the footprint it loads (e with one row and one k, or the 16-byte
+# slot windows, of halo; r without), one NaN column past each side of a
+# tile row; each plane in the kernel's slot of a ring of three e planes and
+# two r planes (a plane read from a slot that another has taken raises);
+# the e of the plane before at each point held from the step before; each
+# fine residual computed once, in the plain version's neighbour order;
+# K9's k taps within the fine row; the i taps as a running partial closed
+# by plane 2 ci + 1; the j (and K3's k) taps from the closed plane; the
+# zeros; and each coarse point written by one block.
+
+
+class SegRestrict(NamedTuple):
+    """A segment launch (K30, K39): e and r given as slabs whose point
+    [oi, oj] is local (plane 0, row 0) of the rank's block, NaN past what
+    its segments hold; the coarse block's lc rows of ljc columns; the local
+    interior coarse rows [c0, c1) and columns [cj0, cj1) its blocks tile
+    (all 0 for a rank without interior coarse points)."""
+    oi: int
+    oj: int
+    lc: int
+    ljc: int
+    c0: int
+    c1: int
+    cj0: int
+    cj1: int
+
+
+def seg_restrict(n, g0, L, oi, oj, gj0=None, Lj=None):
+    """SegRestrict of a rank's block from the global fine row g0 of body
+    row 0 and L rows (and, on an (i, j) block, gj0 and Lj columns; else
+    the j axis whole), as restrict.cuh's seg_setup makes it."""
+    nc = (n + 1) // 2
+
+    def span(cg0, length):
+        return max(0, 1 - cg0), min(length, nc - 1 - cg0)
+
+    lc, ljc = L // 2, nc if Lj is None else Lj // 2
+    (c0, c1), (cj0, cj1) = span(g0 // 2, lc), span(0 if Lj is None else gj0 // 2, ljc)
+    if c1 <= c0 or cj1 <= cj0:
+        c0 = c1 = cj0 = cj1 = 0
+    return SegRestrict(oi, oj, lc, ljc, c0, c1, cj0, cj1)
+
+
+def nan_padded(slab, pad):
+    """slab with ``pad`` NaN planes and rows before and after it (its
+    point [0, 0] at [pad, pad])."""
+    out = torch.full((slab.shape[0] + 2 * pad, slab.shape[1] + 2 * pad) + tuple(slab.shape[2:]),
+                     NAN)
+    out[pad:pad + slab.shape[0], pad:pad + slab.shape[1]] = slab
+    return out
+
+
+def restrict_geometry(plan, ti, tj, tk, box=None):
+    """restrict.cuh, geometry: the block's owned interior coarse box, its
+    cone's fine rows and residual points a row, and the loaded windows
+    (K18's in slots: fine k k at slot k - 1, clipped to the n - 2 stored).
+    ``box``: ((c0, c1), (cj0, cj1)), the local interior rows and columns a
+    segment launch tiles; else the level's [1, nc - 1)."""
+    n = plan.n
+    nc, s = (n + 1) // 2, (n - 1) // 2
+    m = nc - 2
+    g = {"n": n, "nc": nc, "S": s}
+    (ai, bi), (aj, bj) = box or ((1, nc - 1), (1, nc - 1))
+    for ax, t, b, lo, hi in (("i", ti, plan.bci, ai, bi), ("j", tj, plan.bcj, aj, bj),
+                             ("k", tk, plan.bck, 1, nc - 1)):
+        g[f"c{ax}0"] = lo + t * b
+        g[f"c{ax}1"] = min(lo + t * b + b, hi)
+    ck0, ck1 = g["ck0"], g["ck1"]
+    g["rows"] = 2 * (g["cj1"] - g["cj0"]) + 1
+    if plan.fold:
+        g.update(pts=2 * (ck1 - ck0) + 1, ka=max(2 * ck0 - 3, 0), kb=min(2 * ck1, n - 2),
+                 ra=2 * ck0 - 2, rb=2 * ck1 - 1)
+    elif not plan.split:
+        g.update(pts=2 * (ck1 - ck0) + 1, ka=2 * ck0 - 2, kb=2 * ck1 + 1, ra=2 * ck0 - 1,
+                 rb=2 * ck1)
+    elif s % 4 == 0 and (plan.bck >= m or plan.bck % 4 == 0):  # 16-byte windows
+        g.update(pts=ck1 - ck0 + 1, ka=max(ck0 - 5, 0), kb=min((ck1 + 4) & ~3, s), ra=ck0 - 1,
+                 rb=min((ck1 + 3) & ~3, s))
+    else:
+        g.update(pts=ck1 - ck0 + 1, ka=max(ck0 - 2, 0), kb=min(ck1 + 1, s), ra=ck0 - 1, rb=ck1)
+    return g
+
+
+def _tap3(a, b, c):
+    return 0.25 * a + 0.5 * b + 0.25 * c
+
+
+def emulate_restrict(plan, e, r, h, e_halo_rows=1, close_last=True, k_edge_select=True,
+                     seg=None, fault=None):
+    """One launch of the restriction stage as the kernel runs it. ``e``
+    and ``r`` are tuples of one field (K3, K18; K30, K39: a slab as
+    ``seg`` says) or of the pair (red, black) (K9). ``e_halo_rows`` 0
+    loads e without its first halo row, ``close_last`` False leaves the
+    last fine plane of each box out of the i taps of its last coarse
+    plane, ``k_edge_select`` False reads K18's k-edge neighbours from the
+    tile, ``fault`` "order" applies the k taps before the j taps and
+    "pad_unwritten" leaves a segment block's rows past its interior
+    columns unwritten (all must fail). Returns the coarse field (a
+    segment's (lc, ljc, nc) block) and how many blocks wrote each point."""
+    n, split = plan.n, plan.split
+    nc = (n + 1) // 2
+    inv_h2 = 1.0 / (h * h)
+    we, wr, wa = tps._restrict_widths(plan.bck, split)
+    re_, rr_ = 2 * plan.bcj + 3, 2 * plan.bcj + 1
+    if seg is not None:
+        shape = (seg.lc, seg.ljc, nc)
+    else:
+        shape = (nc, nc, nc - 2) if plan.fold else (nc, nc, nc)
+    out = torch.full(shape, NAN)
+    writes = torch.zeros(shape, dtype=torch.int32)
+    box = None
+    if seg is not None:
+        _seg_zero_planes(out, writes, seg)
+        if seg.c1 <= seg.c0:
+            return out, writes  # one block: its zeros only
+        box = ((seg.c0, seg.c1), (seg.cj0, seg.cj1))
+        m = nc - 2
+        tiles = (-(-(seg.c1 - seg.c0) // plan.bci), -(-(seg.cj1 - seg.cj0) // plan.bcj),
+                 -(-m // plan.bck))
+    else:
+        tiles = plan.tiles
+    ni, nj, nk = tiles
+    for ti in range(ni):
+        for tj in range(nj):
+            for tk in range(nk):
+                g = restrict_geometry(plan, ti, tj, tk, box)
+                if seg is not None:
+                    _seg_zero_block(out, writes, g, seg, fault)
+                else:
+                    _zero_boundary(out, writes, g, plan.fold)
+                _emulate_block(plan, g, e, r, inv_h2, out, writes, (we, wr, wa), (re_, rr_),
+                               e_halo_rows, close_last, k_edge_select, seg, fault)
+    return out, writes
+
+
+def _zero_boundary(out, writes, g, fold=False):
+    """The block's coarse boundary points (K18: of the x and y faces only,
+    over the box's own k, at slot ck - 1)."""
+    nc = g["nc"]
+    ext = []
+    for ax in "ijk":
+        a, b = g[f"c{ax}0"], g[f"c{ax}1"]
+        if fold and ax == "k":
+            ext.append(range(a, b))
+        else:
+            ext.append(range(0 if a == 1 else a, nc if b == nc - 1 else b))
+    for ci in ext[0]:
+        for cj in ext[1]:
+            for ck in ext[2]:
+                faces = (ci, cj) if fold else (ci, cj, ck)
+                if min(faces) == 0 or max(faces) == nc - 1:
+                    at = (ci, cj, ck - 1) if fold else (ci, cj, ck)
+                    out[at] = 0.0
+                    writes[at] += 1
+
+
+def _seg_zero_planes(out, writes, seg):
+    """restrict.cuh, seg_zero_planes: the coarse planes outside [c0, c1)
+    of the rank's block."""
+    for rows in (slice(0, seg.c0), slice(seg.c1, seg.lc)):
+        out[rows] = 0.0
+        writes[rows] += 1
+
+
+def _seg_zero_block(out, writes, g, seg, fault=None):
+    """SegLayout::zero's share of a block: in its planes, the points off
+    the interior of its box widened to the block's edge on each side that
+    reaches the end of the interior: whole rows off [cj0, cj1), else the k
+    ends ("pad_unwritten": the rows past cj1 left out)."""
+    nc = g["nc"]
+    ja = 0 if g["cj0"] == seg.cj0 else g["cj0"]
+    jb = seg.ljc if g["cj1"] == seg.cj1 else g["cj1"]
+    k_lo, k_hi = g["ck0"] == 1, g["ck1"] == nc - 1
+    ka, kb = (0 if k_lo else g["ck0"]), (nc if k_hi else g["ck1"])
+    planes = slice(g["ci0"], g["ci1"])
+    for cj in range(ja, jb):
+        if cj < seg.cj0 or cj >= seg.cj1:
+            if fault == "pad_unwritten" and cj >= seg.cj1:
+                continue
+            out[planes, cj, ka:kb] = 0.0
+            writes[planes, cj, ka:kb] += 1
+        else:
+            for ck in [0] * k_lo + [nc - 1] * k_hi:
+                out[planes, cj, ck] = 0.0
+                writes[planes, cj, ck] += 1
+
+
+def _emulate_block(plan, g, e, r, inv_h2, out, writes, widths, tile_rows, e_halo_rows,
+                   close_last, k_edge_select, seg=None, fault=None):
+    split, fold = plan.split, plan.fold
+    we, wr, wa = widths
+    re_, rr_ = tile_rows
+    colours = len(e)
+    oi, oj = (seg.oi, seg.oj) if seg is not None else (0, 0)
+    cj0, cj1, ck0, ck1 = g["cj0"], g["cj1"], g["ck0"], g["ck1"]
+    rows, pts = g["rows"], g["pts"]
+    ka, kb, ra, rb = g["ka"], g["kb"], g["ra"], g["rb"]
+    k0 = 2 * ck0 - 1 if not split else ck0 - 1
+    # the windows fit the plan's tile rows: e from column RESTRICT_PAD +
+    # ka - k0 (K18: slot ka holds fine k ka + 1), the last group's reads to
+    # RESTRICT_PAD + pts rounded up to 4, plus one; r from column 0
+    pad, shift = tps.RESTRICT_PAD, int(fold)
+    assert pad + ka + shift - k0 >= 0 and pad + kb + shift - k0 <= we
+    assert pad + -(-pts // 4) * 4 + 1 <= we
+    assert rb - ra <= wr and x_cols(split, pts) <= wa
+    pa, pe, p1 = 2 * g["ci0"] - 2, 2 * g["ci1"], 2 * g["ci1"] - 1
+    # the tile planes, each (plane held, tile), in the kernel's ring slots,
+    # (q - pa) modulo the ring's depth: a plane read from a slot that
+    # another has taken raises
+    e_slots, r_slots = [None] * 3, [None] * 2
+
+    def load(slots, fields, q, j0, j1, jt, c0, c1, width, nrows, col=1):
+        """Tile plane q of each colour: rows [j0, j1) x columns [c0, c1) of
+        the field (a segment's slab at its offsets), tile row 0 at field
+        row jt, field column c0 at tile column ``col``; NaN elsewhere, one
+        NaN column past each side."""
+        assert q + oi >= 0 and j0 + oj >= 0, "a read before the slab"
+        tile = torch.full((colours, nrows, width + 2), NAN)
+        for c in range(colours):
+            tile[c, j0 - jt:j1 - jt, col:col + c1 - c0] = fields[c][q + oi, j0 + oj:j1 + oj,
+                                                                    c0:c1]
+        slots[(q - pa) % len(slots)] = (q, tile)
+
+    def held(slots, q):
+        plane, tile = slots[(q - pa) % len(slots)]
+        assert plane == q, (plane, q)
+        return tile
+
+    def load_e(q):
+        # K18: fine k k0 - 1 (slot k0 - 2) at tile column 1, as K3's, so a
+        # window clipped at slot 0 starts one column in
+        load(e_slots, e, q, 2 * cj0 - 2 + (1 - e_halo_rows), 2 * cj1 + 1, 2 * cj0 - 2, ka, kb,
+             we, re_, 1 + ka - (k0 - 2) if fold else 1)
+
+    def load_r(q):
+        load(r_slots, r, q, 2 * cj0 - 1, 2 * cj1, 2 * cj0 - 1, ra, rb, wr, rr_)
+
+    a = torch.arange(rows)[:, None]
+    for q in range(pa, pa + 3):
+        load_e(q)
+    for q in range(pa + 1, pa + 3):
+        load_r(q)
+    if split:
+        kk = ck0 - 1 + torch.arange(pts)[None, :]  # the lane's slots
+        ke, kr = kk - ka + 1, kk - ra + 1          # their tile columns
+
+        def even_colour(q):
+            j = 2 * cj0 - 1 + a
+            return torch.where((q + j) % 2 == 1, 0, 1).expand(rows, pts)
+
+        ce = even_colour(pa)
+        first = held(e_slots, pa)
+        prev = [first[ce, a + 1, ke], first[1 - ce, a + 1, ke]]
+    else:
+        prev = [held(e_slots, pa)[0, 1:rows + 1, 1 + 1:pts + 2]]
+    acc = None
+    for p in range(pa + 1, p1 + 1):
+        if p + 2 <= pe:  # into the ring slot of e plane p - 1
+            load_e(p + 2)
+        if p > pa + 1 and p + 1 <= p1:  # of r plane p - 1
+            load_r(p + 1)
+        mid, hi = held(e_slots, p), held(e_slots, p + 1)
+        rt = held(r_slots, p)
+        if split:
+            ce = even_colour(p)
+            co = 1 - ce
+            s_ = g["S"]
+
+            def residual(own, other, lo, pc):
+                s = lo + hi[other, a + 1, ke]
+                s = s + mid[other, a, ke]
+                s = s + mid[other, a + 2, ke]
+                s = s + mid[other, a + 1, ke]
+                if pc == 0:
+                    s = s + torch.where(kk > 0, mid[other, a + 1, ke - 1], 0.0)
+                else:
+                    s = s + torch.where(kk + 1 < s_, mid[other, a + 1, ke + 1], 0.0)
+                return rt[own, a, kr] - inv_h2 * (s - 6.0 * mid[own, a + 1, ke])
+
+            se = residual(ce, co, prev[0], 1)
+            so = residual(co, ce, prev[1], 0)
+            prev = [mid[ce, a + 1, ke], mid[co, a + 1, ke]]
+            x = 0.5 * se[:, :-1] + 0.25 * (so[:, :-1] + so[:, 1:])
+        else:
+            t = mid[0]
+            cols = slice(2, pts + 2)
+            cen = t[1:rows + 1, cols]
+            left, right = t[1:rows + 1, 1:pts + 1], t[1:rows + 1, 3:pts + 3]
+            if fold and k_edge_select:  # the k faces' BC copies: the point's own value
+                k = k0 + torch.arange(pts)[None, :]
+                left = torch.where(k == 1, cen, left)
+                right = torch.where(k == g["n"] - 2, cen, right)
+            s = prev[0] + hi[0, 1:rows + 1, cols]
+            s = s + t[0:rows, cols]
+            s = s + t[2:rows + 2, cols]
+            s = s + left
+            s = s + right
+            x = rt[0, 0:rows, 1:pts + 1] - inv_h2 * (s - 6.0 * cen)
+            prev = [t[1:rows + 1, cols]]
+        ci = (p + 1) // 2
+        if p % 2 != 0:  # p = 2 ci - 1 opens ci and closes ci - 1
+            q = 0.25 * x
+            if ci > g["ci0"]:
+                plane = torch.full((rr_, wa), NAN)
+                closed = acc if (p == p1 and not close_last) else acc + q
+                plane[:rows, :x.shape[1]] = closed
+                _coarse_rows(plane, g, ci - 1, split, out, writes, fold, fault)
+            acc = q
+        else:
+            acc = acc + 0.5 * x
+
+
+def x_cols(split, pts):
+    """Columns of A a fine row's i-tapped values take: the k-tapped ones
+    of the split row (pts - 1), or the row's fine k."""
+    return pts - 1 if split else pts
+
+
+def _coarse_rows(plane, g, ci, split, out, writes, fold=False, fault=None):
+    """The closed plane's j taps (then K3's and K18's k taps) into coarse
+    plane ci (K18: coarse k at slot ck - 1; "order": the k taps first)."""
+    cj0, cj1, ck0, ck1 = g["cj0"], g["cj1"], g["ck0"], g["ck1"]
+    nr, nk = cj1 - cj0, ck1 - ck0
+    if split:
+        y = _tap3(plane[0:2 * nr:2], plane[1:2 * nr + 1:2], plane[2:2 * nr + 2:2])
+        v = y[:, :nk]
+    elif fault == "order":
+        y = _tap3(plane[:, 0:2 * nk:2], plane[:, 1:2 * nk + 1:2], plane[:, 2:2 * nk + 2:2])
+        v = _tap3(y[0:2 * nr:2], y[1:2 * nr + 1:2], y[2:2 * nr + 2:2])
+    else:
+        y = _tap3(plane[0:2 * nr:2], plane[1:2 * nr + 1:2], plane[2:2 * nr + 2:2])
+        v = _tap3(y[:, 0:2 * nk:2], y[:, 1:2 * nk + 1:2], y[:, 2:2 * nk + 2:2])
+    ks = slice(ck0 - 1, ck1 - 1) if fold else slice(ck0, ck1)
+    out[ci, cj0:cj1, ks] = v
+    writes[ci, cj0:cj1, ks] += 1
