@@ -120,11 +120,12 @@ which fails the run:
      stitched, to the single-device kernels (K1, K2, R, K3, K4, K5's r;
      the partial norms' sum within 1e-6 of K5's), each timed against its
      plain version, and K30 (the streaming restriction stage on segments)
-     timed on the one-rank L = 320 segment beside its bound from the bytes
-     it needs; (b) make_sharded_df_solver at 257^3 on one rank of an
-     NCCL group, launch counts reset and read around it: exactly the
-     launches predicted from its outer steps (K31 one a call, a one-pass
-     stage), only K28-K32, the fused
+     and K28 (K1's one-pass stage on segments) timed on the one-rank L =
+     320 segment beside their bounds from the bytes they need (K29's
+     bound beside them); (b) make_sharded_df_solver at 257^3 on one rank
+     of an NCCL group, launch counts reset and read around it: exactly the
+     launches predicted from its outer steps (K28 and K31 one a call,
+     one-pass stages), only K28-K32, the fused
      solve's outer steps, error within 1% of its, max|u - u_fused| <=
      1e-9, walls interleaved with the fused solve (5 each) and the device
      busy time of each; (c) the same solve on four gloo ranks on the one
@@ -158,12 +159,13 @@ which fails the run:
      and 1x4 meshes (the padded plan's blocks, five halo parts with the corner
      blocks), each bitwise equal to its plain version and, stitched, to K1
      (both orders), K2, K3, K4 and K5's r, each timed on rank (0, 0)'s
-     257^3 2x2 block against its plain version, and K39 checked and timed
-     on the 1x1 block (272^2) beside its bound; (b)
+     257^3 2x2 block against its plain version, and K39 and K37 checked and
+     timed on the 1x1 block (272^2) beside their bounds (K38's beside
+     them); (b)
      make_sharded2d_padded_df_solver at 257^3 on one NCCL rank (a 1x1 mesh,
      plan Li = Lj = 272, n_sharded 4), launch counts reset and read around
-     it: exactly the launches predicted from the tier map (K40 and the
-     j-replicated tier's K31 one a call), the fused
+     it: exactly the launches predicted from the tier map (K37, K40 and the
+     j-replicated tier's K28 and K31 one a call), the fused
      solve's outer steps, max|u - u_fused| = 0, walls interleaved with the
      fused solve (5 each), the device busy time of each, and the dry-run
      twin on that rank; (c) four gloo ranks through parallel.launch: the
@@ -272,7 +274,7 @@ SOURCES = {
                                 "multigrid_parallel_tpu/ops/pallas_mixed_split.py:922"),
     # the i-sharded kernels: each serves the ext and the halo form of its
     # Pallas kernel (the sites :184 and :864 for K28 / K29; :374 and :864 for K32)
-    "rb_smooth_seg": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth_seg.cu",
+    "rb_smooth_seg": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth_seg_stage.cu",
                       "multigrid_parallel_tpu/ops/pallas_sharded.py:184, "
                       "multigrid_parallel_tpu/ops/pallas_sharded.py:864"),
     "rb_smooth_from_zero_seg": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth_seg.cu",
@@ -303,7 +305,7 @@ SOURCES = {
     # the (i, j)-sharded kernels: the i-sharded sources instantiated on the 2D
     # accessor (seg2d.cuh); each serves the ext and the halo form of its Pallas
     # kernel (the sites :181 and :910 for K37 / K38; :676 and :910 for K41)
-    "rb_smooth_seg2d": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth_seg.cu",
+    "rb_smooth_seg2d": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth_seg_stage.cu",
                         "multigrid_parallel_tpu/ops/pallas_sharded2d.py:181, "
                         "multigrid_parallel_tpu/ops/pallas_sharded2d.py:910"),
     "rb_smooth_from_zero_seg2d": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth_seg.cu",
@@ -1788,9 +1790,11 @@ def compare_sharded(dev, results):
     ec23, df11 = seg(ec, 2, 3, Lc), [seg(x, 1, 1) for x in df]
     u_ext, f_ext = _seg_ext(u, 1, L, 1), _seg_ext(f, 1, L, 1)
     calls = {
+        # K28's one-pass stage reads u's and f's rows, halos included, and
+        # writes the fresh body
         "rb_smooth_seg": (lambda: px.rb_smooth_halo(u4, f4, L - hh, h, 2, n, L),
                           lambda: px.rb_smooth_halo_plain(u4, f4, L - hh, h, 2, n, L),
-                          (*u4, *f4), (L + 2 * hh) * n * n),
+                          (*u4, *f4), L * n * n),
         "rb_smooth_from_zero_seg": (lambda: px.rb_smooth_from_zero_halo(f4, L - hh, h, 2, n, L),
                                     lambda: px.rb_smooth_from_zero_halo_plain(f4, L - hh, h, 2,
                                                                               n, L),
@@ -1819,18 +1823,32 @@ def compare_sharded(dev, results):
         print(f"[sharded kernel] {name:24s} n={n} L={L} rank 1 kernel_ms={res['ms']:.4f} "
               f"plain_ms={res['plain_ms']:.4f} bound_ms={res['bound_ms']:.4f} "
               f"({res['bound_by']}) max_abs_err={res['max_abs_err']:.3e}")
-    # K30 on the one-rank plan's 257^3 segment (L = 320, 63 pad planes): the shape of the
-    # one-rank solves (phases 10b and 11b)
+    # K30, K28 and K29 on the one-rank plan's 257^3 segment (L = 320, 63 pad planes): the
+    # shape of the one-rank solves (phases 10b and 11b); each bound from the bytes the
+    # function needs: e (u) and r (f) on the field's n planes, read once, and the block
     L1 = 320
     u1, f1 = _seg_parts(u[:L1], 0, L1, 2, 1), _seg_parts(f[:L1], 0, L1, 2, 1)
     k30 = lambda: px.residual_restrict_halo(u1, f1, -2, h, n, L1 // 2)  # noqa: E731
     got = k30()
     bitwise_same(results, "residual_restrict_seg", n, "L=320 rank 0 against plain", got,
                  px.residual_restrict_halo_plain(u1, f1, -2, h, n, L1 // 2))
-    # the bytes the function needs: e and r on the field's n planes, read once, and the block
     bound1, _ = bound("residual_restrict_seg", L1 * n * n, (8 * n ** 3,), (got,))
     print(f"[sharded kernel] residual_restrict_seg    n={n} L={L1} rank 0 of 1 "
           f"kernel_ms={time_ms(k30):.4f} bound_ms={bound1:.4f}")
+    u1, f1 = _seg_parts(u[:L1], 0, L1, hh, hh), _seg_parts(f[:L1], 0, L1, hh, hh)
+    one_rank = {
+        "rb_smooth_seg": (lambda: px.rb_smooth_halo(u1, f1, -hh, h, 2, n, L1),
+                          lambda: px.rb_smooth_halo_plain(u1, f1, -hh, h, 2, n, L1), 8),
+        "rb_smooth_from_zero_seg": (lambda: px.rb_smooth_from_zero_halo(f1, -hh, h, 2, n, L1),
+                                    lambda: px.rb_smooth_from_zero_halo_plain(f1, -hh, h, 2, n,
+                                                                              L1), 4),
+    }
+    for name, (kernel, plain, need) in one_rank.items():
+        got = kernel()
+        bitwise_same(results, name, n, "L=320 rank 0 against plain", got, plain())
+        bound1, _ = bound(name, n * n * n, (need * n ** 3,), (got,))
+        print(f"[sharded kernel] {name:24s} n={n} L={L1} rank 0 of 1 "
+              f"kernel_ms={time_ms(kernel):.4f} bound_ms={bound1:.4f}")
 
 
 def _sharded_solver(mesh, init):
@@ -2497,9 +2515,11 @@ def compare_sharded2d(dev, results):
     g = lambda halo: (-halo, -halo)  # noqa: E731
     ext_pts = (li + 2 * hh) * (lj + 2 * hh) * n
     calls = {
+        # K37's one-pass stage reads u's and f's points, halos included, and
+        # writes the fresh block
         "rb_smooth_seg2d": (lambda: px2.rb_smooth_halo2d(u4, f4, g(hh), h, 2, n, li, lj),
                             lambda: px2.rb_smooth_halo2d_plain(u4, f4, g(hh), h, 2, n, li, lj),
-                            (*u4, *f4), ext_pts),
+                            (*u4, *f4), li * lj * n),
         "rb_smooth_from_zero_seg2d": (
             lambda: px2.rb_smooth_from_zero_halo2d(f4, g(hh), h, 2, n, li, lj),
             lambda: px2.rb_smooth_from_zero_halo2d_plain(f4, g(hh), h, 2, n, li, lj),
@@ -2527,8 +2547,8 @@ def compare_sharded2d(dev, results):
               f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
               f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
               f"max_abs_err={res['max_abs_err']:.3e}")
-    # K39 on the 1x1 plan's 257^3 block (272^2, 15 pad rows and columns): the shape of the
-    # one-rank solve (phase 12b)
+    # K39, K37 and K38 on the 1x1 plan's 257^3 block (272^2, 15 pad rows and columns): the
+    # shape of the one-rank solve (phase 12b); each bound from the bytes the function needs
     w = 272
     u1, f1 = (_seg_parts2d(x[:w, :w].contiguous(), 0, 0, w, w, 2, 1) for x in (U, F))
     k39 = lambda: px2.residual_restrict_halo2d(u1, f1, g(2), h, n, w // 2, w // 2)  # noqa: E731
@@ -2538,6 +2558,20 @@ def compare_sharded2d(dev, results):
     bound1, _ = bound("residual_restrict_seg2d", w * w * n, (8 * n ** 3,), (got,))
     print(f"[sharded2d kernel] residual_restrict_seg2d    n={n} Li={w} Lj={w} block (0, 0) of 1x1 "
           f"kernel_ms={time_ms(k39):.4f} bound_ms={bound1:.4f}")
+    u1, f1 = (_seg_parts2d(x[:w, :w].contiguous(), 0, 0, w, w, hh, hh) for x in (U, F))
+    one_rank = {
+        "rb_smooth_seg2d": (lambda: px2.rb_smooth_halo2d(u1, f1, g(hh), h, 2, n, w, w),
+                            lambda: px2.rb_smooth_halo2d_plain(u1, f1, g(hh), h, 2, n, w, w), 8),
+        "rb_smooth_from_zero_seg2d": (
+            lambda: px2.rb_smooth_from_zero_halo2d(f1, g(hh), h, 2, n, w, w),
+            lambda: px2.rb_smooth_from_zero_halo2d_plain(f1, g(hh), h, 2, n, w, w), 4),
+    }
+    for name, (kernel, plain, need) in one_rank.items():
+        got = kernel()
+        bitwise_same(results, name, n, "1x1 Li=Lj=272 against plain", got, plain())
+        bound1, _ = bound(name, n * n * n, (need * n ** 3,), (got,))
+        print(f"[sharded2d kernel] {name:26s} n={n} Li={w} Lj={w} block (0, 0) of 1x1 "
+              f"kernel_ms={time_ms(kernel):.4f} bound_ms={bound1:.4f}")
 
 
 def predicted_launches(hier, tiers, steps, inner_cycles, n_smooth=2,
@@ -2545,18 +2579,19 @@ def predicted_launches(hier, tiers, steps, inner_cycles, n_smooth=2,
     """The kernel launches of one (i, j)-sharded double-float solve of
     ``steps`` outer steps, from the tier map (gamma 1: every coarse visit
     starts from zero; the finest level's first cycle of each step too):
-    per V-cycle and level, 2 n_smooth smoothing launches, one residual +
-    restriction, one prolongation + smoothing launch (K31's and K40's
-    one-pass stages; 2 n_smooth in their first forms, past n_smooth 2);
-    the replicated tail runs the single-device cycle (K1-K4) on each of
-    its levels above the coarse LU, whose K1, K2 and K4 are one-pass
-    stages: ceil(n_smooth / 2) launches a call; one ``norm`` launch (K41;
-    K32 for the i-sharded solve, whose sharded levels are the
-    "j-replicated" tier's kernels, K28-K31) per outer step and one
-    before."""
+    per V-cycle and level, 2 n_smooth launches of the smoothing from zero
+    (K29's, K38's first forms), or one of the smoothing stage (K28's and
+    K37's one-pass stages; 2 n_smooth in their first forms, past n_smooth
+    2), one residual + restriction, one prolongation + smoothing launch
+    (K31's and K40's one-pass stages, as K28's); the replicated tail runs
+    the single-device cycle (K1-K4) on each of its levels above the coarse
+    LU, whose K1, K2 and K4 are one-pass stages: ceil(n_smooth / 2)
+    launches a call; one ``norm`` launch (K41; K32 for the i-sharded
+    solve, whose sharded levels are the "j-replicated" tier's kernels,
+    K28-K31) per outer step and one before."""
     cycles, hs = steps * inner_cycles, 2 * n_smooth
     stage = -(-n_smooth // 2)  # K1's, K2's and K4's launches a call
-    seg_ps = 1 if n_smooth <= 2 else hs  # K31's and K40's
+    seg_stage = 1 if n_smooth <= 2 else hs  # K28's, K31's, K37's and K40's
     out = dict.fromkeys(SOURCES, 0)
     top = hier.num_levels - 1
     for depth, (n, tier) in enumerate(sorted(tiers.items(), reverse=True)):
@@ -2567,13 +2602,14 @@ def predicted_launches(hier, tiers, steps, inner_cycles, n_smooth=2,
         else:
             continue
         smooth, smooth0, rr, ps = TIER_KERNELS[tier]
-        per_call = stage if tier == "replicated" else hs
+        per_zero_call = stage if tier == "replicated" else hs
+        per_call = stage if tier == "replicated" else seg_stage
         for m in levels:
             first = depth == 0 and m == n
-            out[smooth0] += per_call * (steps if first else cycles)
+            out[smooth0] += per_zero_call * (steps if first else cycles)
             out[smooth] += per_call * (cycles - steps) if first else 0
             out[rr] += cycles
-            out[ps] += (stage if tier == "replicated" else seg_ps) * cycles
+            out[ps] += per_call * cycles
     out[norm] = steps + 1
     return out
 

@@ -129,6 +129,11 @@ _SIGNATURES = {
     "mg_seg_prolong_stage": ((_P,) * 4 + (_I,) * 3 + (_P, _P, _P, _I) * 2 + (_I,) * 5 + (_F,)
                              + (_I,) * 8 + (_P,)),
     "mg_seg2d_prolong_stage": (_P,) * 4 + (_I,) * 9 + (_F,) + (_I,) * 8 + (_P,),
+    # K28's and K37's one-pass stages on segments: out, the u and f segments
+    # (K37: descriptors, then the halos after the block), the geometry, h2,
+    # red_first, the plan (n_iter, bi, bj, bk, k_halo, threads, smem, box), stream
+    "mg_seg_smooth_stage": (_P,) + (_P, _P, _P, _I) * 2 + (_I,) * 5 + (_F,) + (_I,) * 9 + (_P,),
+    "mg_seg2d_smooth_stage": (_P,) * 3 + (_I,) * 7 + (_F,) + (_I,) * 9 + (_P,),
     # K30's and K39's streaming restriction stages on segments: out, the e and
     # r segments (K39: descriptors, then the halos after the blocks), the
     # geometry, inv_h2, the plan (bci, bcj, bck, chunks, threads, smem), stream

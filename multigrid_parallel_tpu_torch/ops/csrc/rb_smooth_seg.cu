@@ -9,17 +9,20 @@
 // (trapezoidal recompute in VMEM), and their (i, j) twins of
 // pallas_sharded2d.py: rb_smooth_ext2d / rb_smooth_halo2d (K37) and
 // rb_smooth_from_zero_ext2d / rb_smooth_from_zero_halo2d (K38), the same
-// stage on a block with that halo in i and in j. Here, as for K1/K2, one
-// launch per half-sweep over local rows [-kl + 1, L + kr - 2] (and, on an
-// (i, j) block, columns [-hjl + 1, Lj + hjr - 2]), in place: the halo rows
-// and columns are the rank's own receive buffers (or its own ext copy), so
-// writing them is safe. A half-sweep is Jacobi within a colour, so a stale
-// halo row or column spoils one more per half-sweep; a halo as deep as the
-// number of half-sweeps leaves every owned point exactly what the
-// single-device K1 computes on the whole field, bit for bit (same
-// neighbour order, global colours and masks, --fmad=false). The corner
-// points of an (i, j) stage read diagonal-neighbour values: they come in
-// the j-extended i-halo rows (seg2d.cuh).
+// stage on a block with that halo in i and in j. K28 and K37 at n_iter <=
+// 2 are one launch of K1's one-pass stage (rb_smooth_seg_stage.cu); this
+// is their first form, which K29, K38 and every stage past n_iter 2 still
+// run: one launch per half-sweep over local rows [-kl + 1, L + kr - 2]
+// (and, on an (i, j) block, columns [-hjl + 1, Lj + hjr - 2]), in place on
+// a segment of the wrapper's own (a copy of u's, or K29's and K38's fresh
+// output), so writing its halo rows and columns is safe. A half-sweep is
+// Jacobi within a colour, so a stale halo row or column spoils one more per
+// half-sweep; a halo as deep as the number of half-sweeps leaves every
+// owned point exactly what the single-device K1 computes on the whole
+// field, bit for bit (same neighbour order, global colours and masks,
+// --fmad=false). The corner points of an (i, j) stage read
+// diagonal-neighbour values: they come in the j-extended i-halo rows
+// (seg2d.cuh).
 //
 // K29's (K38's) first half-sweep reads only f (the initial guess is an
 // implicit zero) and writes every point of the output segment: the body

@@ -13,7 +13,7 @@ Wrapper (ext and halo forms), Pallas kernel it replaces in
 multigrid_parallel_tpu/ops/pallas_sharded.py, and CUDA source in
 ops/csrc/:
 
-  K28 rb_smooth_ext / _halo                 :209 / :881   rb_smooth_seg.cu
+  K28 rb_smooth_ext / _halo                 :209 / :881   rb_smooth_seg_stage.cu
   K29 rb_smooth_from_zero_ext / _halo       :231 / :902   rb_smooth_seg.cu
   K30 residual_restrict_ext / _halo         :495 / :964   residual_restrict_seg.cu
   K31 prolong_smooth_ext / _halo            :641 / :1078  prolong_smooth_seg.cu
@@ -38,12 +38,11 @@ does not carry over; the JAX ``*_block_i`` planners are not ported.
 
 Like the single-device wrappers (``ops.pallas3d``): a CPU tensor takes
 the plain version, a CUDA tensor (float32, contiguous) the kernel, and
-anything else raises; there is no fallback. The smoothing wrappers
-update their ``u`` segment IN PLACE (body and halo buffers, which are
-scratch afterwards) and return the body; the others return fresh tensors.
-Each kernel launch adds one to ``LAUNCHES`` (K29's K28 half-sweeps, and
-K31's past n_iter 2, count as theirs; K32's partials-and-sum pair counts
-once). K31 at n_iter <= 2 is one launch of K4's one-pass stage on the
+anything else raises; there is no fallback. Every wrapper returns fresh
+tensors and leaves its inputs as they were. Each kernel launch adds one to
+``LAUNCHES`` (K29's K28 half-sweeps, and K28's and K31's past n_iter 2,
+count as theirs; K32's partials-and-sum pair counts once). K28 and K31 at
+n_iter <= 2 are one launch each of K1's and K4's one-pass stages on the
 segments (ops/csrc/rect.cuh, ``Layout::kSegRect``). K30 is one launch of
 K3's streaming restriction stage on the segments (ops/csrc/restrict.cuh,
 ``SegLayout``).
@@ -220,15 +219,30 @@ def rb_smooth_halo_plain(u3, f3, gi0, h: float, n_iter: int, n: int, L: int,
 def rb_smooth_halo(u3, f3, gi0, h: float, n_iter: int, n: int, L: int,
                    red_first: bool = True, block_i: int = 8):
     """All 2 * n_iter RB half-sweeps of a smoothing stage on a rank's
-    block from (local, lh, rhc) triples with a 2 * n_iter plane halo. The
-    CUDA form is 2 * n_iter K28 launches in place on u3; returns u3's
-    local block (updated in place on both devices)."""
+    block from (local, lh, rhc) triples with a 2 * n_iter plane halo: a
+    fresh (L, n, n) block (u3 is left as it is), its pad rows (past n - 1)
+    u's. The CUDA form for n_iter <= 2 is one launch of K1's one-pass
+    stage on the segments (a tile row's pointer looked up once; bound: u's
+    and f's rows read and the body written, 12 B a point). Past n_iter 2
+    it keeps its first form, which no solve runs: 2 n_iter half-sweep
+    launches in place on a copy of u's segments."""
     del block_i
+    if n_iter < 1:
+        raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     hh = 2 * n_iter
     u, f = _seg(u3, hh, hh, L), _seg(f3, hh, hh, L)
     if not _segs_on_cuda(n, u, f):
-        return u.body.copy_(rb_smooth_halo_plain(u3, f3, gi0, h, n_iter, n, L, red_first))
+        return rb_smooth_halo_plain(u3, f3, gi0, h, n_iter, n, L, red_first)
     lib, stream, g0 = pk._lib(), pk._stream(), _gi0_int(gi0) + hh
+    if n_iter <= 2:
+        out = torch.empty_like(u.body)
+        pk._check(lib.mg_seg_smooth_stage(
+            out.data_ptr(), *_ptrs(u), *_ptrs(f), hh, L, hh, n, g0, h * h, int(red_first),
+            *ps._plan_args(n, n_iter, u.body.device, rect=True,
+                           seg_planes=seg_rect_planes(g0, L, n)), stream), "rb_smooth_halo")
+        LAUNCHES["rb_smooth_seg"] += 1
+        return out
+    u = _Seg(*(t.clone() for t in u[:3]), u.r_off)
     for _ in range(n_iter):
         for c in pk._colors(red_first):
             pk._check(lib.mg_seg_half_sweep(*_ptrs(u), *_ptrs(f), hh, L, hh, n, g0, h * h, c,
@@ -240,8 +254,8 @@ def rb_smooth_halo(u3, f3, gi0, h: float, n_iter: int, n: int, L: int,
 def rb_smooth_ext(u_ext, f_ext, gi0, h: float, n_iter: int, n: int, L: int,
                   red_first: bool = True, block_i: int = 8):
     """rb_smooth_halo on ext tensors (L + 4 n_iter planes): the same
-    launches on their views; returns the L owned planes, a view of u_ext
-    (updated in place; its halo planes are scratch afterwards)."""
+    launches on their views; a fresh (L, n, n) block (u_ext is left as it
+    is)."""
     hh = 2 * n_iter
     return rb_smooth_halo(_ext_parts(u_ext, hh, L), _ext_parts(f_ext, hh, L), gi0, h,
                           n_iter, n, L, red_first, block_i)
@@ -484,10 +498,10 @@ def prolong_smooth_halo_plain(ec3, e3, r3, gi0, h: float, n_iter: int, n: int, L
 
 
 def seg_rect_planes(g0: int, L: int, n: int) -> int:
-    """The planes (or, of an (i, j) block, the columns) that a K31 or K40
-    launch tiles from the global index ``g0`` of body row 0 and L rows
-    (rect.cuh, seg_rect_geometry): the rank's rows clipped to n - 1; at
-    least 1, the plan of a rank of pad rows only."""
+    """The planes (or, of an (i, j) block, the columns) that a K28, K31,
+    K37 or K40 launch tiles from the global index ``g0`` of body row 0 and
+    L rows (rect.cuh, seg_rect_geometry): the rank's rows clipped to n - 1;
+    at least 1, the plan of a rank of pad rows only."""
     return max(1, min(g0 + L, n) - g0)
 
 

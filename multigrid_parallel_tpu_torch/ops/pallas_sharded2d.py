@@ -17,7 +17,7 @@ halo forms), Pallas kernel it replaces in
 multigrid_parallel_tpu/ops/pallas_sharded2d.py, and CUDA source in
 ops/csrc/:
 
-  K37 rb_smooth_ext2d / _halo2d                :226 / :927    rb_smooth_seg.cu
+  K37 rb_smooth_ext2d / _halo2d                :226 / :927    rb_smooth_seg_stage.cu
   K38 rb_smooth_from_zero_ext2d / _halo2d      :246 / :952    rb_smooth_seg.cu
   K39 residual_restrict_ext2d / _halo2d        :370 / :1021   residual_restrict_seg.cu
   K40 prolong_smooth_ext2d / _halo2d           :522 / :1144   prolong_smooth_seg.cu
@@ -52,13 +52,12 @@ TPU's lane width); the JAX ``*_block_i`` planners are not ported.
 
 Like the i-sharded wrappers (``ops.pallas_sharded``): a CPU tensor takes
 the plain version, a CUDA tensor (float32, unit stride in k, k rows of
-n) the kernel, and anything else raises; there is no fallback. The
-smoothing wrappers update their ``u`` segment IN PLACE (body and halo
-buffers, which are scratch afterwards) and return the body; the others
-return fresh tensors. Each kernel launch adds one to ``LAUNCHES`` (K38's
-K37 half-sweeps, and K40's past n_iter 2, count as theirs; K41's
-partials-and-sum pair counts once). K40 at n_iter <= 2 is one launch of
-K4's one-pass stage on the 2D segments (ops/csrc/rect.cuh,
+n) the kernel, and anything else raises; there is no fallback. Every
+wrapper returns fresh tensors and leaves its inputs as they were. Each
+kernel launch adds one to ``LAUNCHES`` (K38's K37 half-sweeps, and K37's
+and K40's past n_iter 2, count as theirs; K41's partials-and-sum pair
+counts once). K37 and K40 at n_iter <= 2 are one launch each of K1's and
+K4's one-pass stages on the 2D segments (ops/csrc/rect.cuh,
 ``Layout::kSegRect`` on ``Seg2``). K39 is one launch of K3's streaming
 restriction stage on them (ops/csrc/restrict.cuh, ``SegLayout`` on
 ``Seg2``).
@@ -303,16 +302,31 @@ def rb_smooth_halo2d_plain(u3, f3, gij0, h: float, n_iter: int, n: int, L: int, 
 
 
 def _rb_smooth(u: _Seg2, f: _Seg2, gij0, h, n_iter, n, red_first, what):
+    if n_iter < 1:
+        raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     if not _on_cuda(n, u, f):
-        return u.body.copy_(_rb_smooth_plain(u, f, gij0, h, n_iter, n, red_first))
+        return _rb_smooth_plain(u, f, gij0, h, n_iter, n, red_first).contiguous()
     hh = 2 * n_iter
     L, Lj = u.body.shape[:2]
     gi, gj = _gij(gij0)
-    lib, stream, ud, fd = pk._lib(), pk._stream(), u.desc(), f.desc()
+    g0, gj0 = gi + hh, gj + hh
+    lib, stream = pk._lib(), pk._stream()
+    if n_iter <= 2:
+        out = u.body.new_empty((L, Lj, n))
+        pk._check(lib.mg_seg2d_smooth_stage(
+            out.data_ptr(), u.desc(), f.desc(), min(u.kr, f.kr),
+            min(u.jr.shape[1], f.jr.shape[1]), L, Lj, n, g0, gj0, h * h, int(red_first),
+            *ps._plan_args(n, n_iter, u.body.device, rect=True,
+                           seg_planes=px.seg_rect_planes(g0, L, n),
+                           seg_cols=px.seg_rect_planes(gj0, Lj, n)), stream), what)
+        LAUNCHES["rb_smooth_seg2d"] += 1
+        return out
+    u = _Seg2(*(t.clone(memory_format=torch.contiguous_format) for t in u.parts()), u.r_off)
+    ud, fd = u.desc(), f.desc()
     for _ in range(n_iter):
         for c in pk._colors(red_first):
-            pk._check(lib.mg_seg2d_half_sweep(ud, fd, hh, L, Lj, n, gi + hh, gj + hh, h * h, c,
-                                              stream), what)
+            pk._check(lib.mg_seg2d_half_sweep(ud, fd, hh, L, Lj, n, g0, gj0, h * h, c, stream),
+                      what)
             LAUNCHES["rb_smooth_seg2d"] += 1
     return u.body
 
@@ -320,9 +334,14 @@ def _rb_smooth(u: _Seg2, f: _Seg2, gij0, h, n_iter, n, red_first, what):
 def rb_smooth_halo2d(u3, f3, gij0, h: float, n_iter: int, n: int, L: int, sjl: int,
                      red_first: bool = True, block_i: int = 8):
     """All 2 n_iter RB half-sweeps of a smoothing stage on a rank's (L,
-    sjl) block from triples or five parts with a 2 n_iter halo in i and j.
-    The CUDA form is 2 n_iter K37 launches in place on u3; returns u3's
-    body (updated in place on both devices)."""
+    sjl) block from triples or five parts with a 2 n_iter halo in i and j:
+    a fresh (L, sjl, n) block (u3 is left as it is), its pad rows and
+    columns (past n - 1) u's. The CUDA form for n_iter <= 2 is one launch
+    of K1's one-pass stage on the 2D segments (a row's pointer looked up
+    once, the corner blocks read where a block meets both halos; bound: u's
+    and f's points read and the body written, 12 B a point). Past n_iter 2
+    it keeps its first form, which no solve runs: 2 n_iter K37 half-sweep
+    launches in place on a copy of u's parts."""
     del block_i
     u, f = _smooth_segs(u3, f3, n_iter, L, sjl)
     return _rb_smooth(u, f, gij0, h, n_iter, n, red_first, "rb_smooth_halo2d")
@@ -331,9 +350,8 @@ def rb_smooth_halo2d(u3, f3, gij0, h: float, n_iter: int, n: int, L: int, sjl: i
 def rb_smooth_ext2d(u_ext, f_ext, gij0, h: float, n_iter: int, n: int, L: int, sjl: int,
                     red_first: bool = True, block_i: int = 8):
     """rb_smooth_halo2d on ext tensors (L + 4 n_iter rows, sjl + 2 hj
-    columns, hj >= 2 n_iter): the same launches on their views; returns the
-    owned block, a view of u_ext (updated in place; its halo is scratch
-    afterwards)."""
+    columns, hj >= 2 n_iter): the same launches on their views; a fresh
+    block (u_ext is left as it is)."""
     del block_i
     u, f = _smooth_segs(u_ext, f_ext, n_iter, L, sjl, k_ext=2 * n_iter)
     return _rb_smooth(u, f, gij0, h, n_iter, n, red_first, "rb_smooth_ext2d")

@@ -1564,7 +1564,7 @@ def test_sharded_kernels_match_plain_and_single_device_on_card(cuda, kernel):
         return
     hh = 4
     calls = {
-        "K28": ("rb_smooth_seg", 4,
+        "K28": ("rb_smooth_seg", 1,  # one-pass: one launch a call
                 lambda r: tpx.rb_smooth_halo(parts(u, r, hh, hh), parts(f, r, hh, hh),
                                              r * L - hh, h, 2, n, L, False),
                 lambda r: tpx.rb_smooth_halo_plain(parts(u, r, hh, hh), parts(f, r, hh, hh),
@@ -2012,6 +2012,194 @@ def test_seg_restrict_launchers_refuse_what_they_do_not_take(cuda):
     torch.cuda.synchronize()
 
 
+# (n, L, ranks) of K28, K30's: the production segments at 257^3 (four ranks' L = 96, rank
+# 3 pad only; one rank's L = 320, 63 pad planes) and 513^3, each level below 257^3 of both
+# plans (the 1x4 j-replicated tier's 9^3 level among them: one rank of L = 10)
+K28_CASES = K30_CASES
+# (n, (nx, ny), Li, Lj) of K37, K39's: the 1x1 and 2x2 blocks at 257^3 and below, 17^3 and
+# 9^3 blocks, and 65^3's 1x4 narrow blocks (the last of pad columns only)
+K37_CASES = K39_CASES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,ranks", K28_CASES)
+def test_k28_seg_stage_matches_plain_on_card(cuda, n, L, ranks):
+    """The one-pass K28 stage on every rank of the geometry, n_iter 1 and 2
+    in both orders and n_iter 3 (the first form) red first: each body bit
+    for bit its plain version, on fields random at every plane (the pad
+    rows too, which the body keeps), u's and f's halo rows past the field
+    NaN, the allocator poisoned with NaN before each call; exactly one
+    launch a call at n_iter <= 2 (6 at 3); the inputs left as they were;
+    at n_iter 2 the stitched bodies equal K1's on the whole field."""
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+
+    h = 1.0 / (n - 1)
+    rng = np.random.default_rng(1000 + n + L)
+    u, f = (torch.from_numpy(rng.standard_normal((ranks * L, n, n)).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    for n_iter, red in ((1, True), (1, False), (2, True), (2, False), (3, True)):
+        hh, calls = 2 * n_iter, 1 if n_iter <= 2 else 2 * n_iter
+        outs = []
+        for r in range(ranks):
+            gi0 = r * L - hh
+            u3, f3 = _seg_triples(u, r, L, hh, hh, n, tail=2), _seg_triples(f, r, L, hh, hh, n)
+            before = [t.clone() for t in (*u3, *f3)]
+            want = tpx.rb_smooth_halo_plain(u3, f3, gi0, h, n_iter, n, L, red)
+            _poison_allocator((L, n, n), cuda)
+            tpx.reset_launches()
+            got = tpx.rb_smooth_halo(u3, f3, gi0, h, n_iter, n, L, red)
+            assert tpx.LAUNCHES == {**dict.fromkeys(tpx.KERNELS, 0), "rb_smooth_seg": calls}
+            assert bool(torch.isfinite(got).all()) and torch.equal(got, want), (n_iter, red, r)
+            assert all(_same_with_nan(a, b) for a, b in zip((*u3, *f3), before))
+            outs.append(got)
+        if n_iter == 2:
+            whole = torch.cat(outs)[:n]
+            assert torch.equal(whole, tpk.rb_smooth_fused(u[:n], f[:n], h, 2, red)), red
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,mesh,li,lj", K37_CASES)
+def test_k37_seg2d_stage_matches_plain_on_card(cuda, n, mesh, li, lj):
+    """The one-pass K37 stage on every block of the mesh, n_iter 1 and 2 in
+    both orders and n_iter 3 (the first form) red first: each block bit
+    for bit its plain version, on fields random at every point (the pad
+    rows and columns too, which the block keeps), u's and f's halo points
+    past the field NaN (corner blocks included), the allocator poisoned
+    with NaN before each call; exactly one launch a call at n_iter <= 2 (6
+    at 3); the inputs left as they were; at n_iter 2 the stitched blocks
+    equal K1's on the whole field."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as tpx2
+
+    (nx, ny), h = mesh, 1.0 / (n - 1)
+    rng = np.random.default_rng(1100 + n + li + lj)
+    u, f = (torch.from_numpy(rng.standard_normal((nx * li, ny * lj, n)).astype(np.float32))
+            .to(cuda) for _ in range(2))
+    for n_iter, red in ((1, True), (1, False), (2, True), (2, False), (3, True)):
+        hh, calls = 2 * n_iter, 1 if n_iter <= 2 else 2 * n_iter
+        outs = {}
+        for ix in range(nx):
+            for iy in range(ny):
+                g0, gj0 = ix * li, iy * lj
+                u5 = _nan_past_field(rk.rank_parts2d(u, ix, iy, li, lj, hh, hh, tail=2), g0, gj0,
+                                     li, lj, hh, hh, n)
+                f5 = _nan_past_field(rk.rank_parts2d(f, ix, iy, li, lj, hh, hh), g0, gj0, li, lj,
+                                     hh, hh, n)
+                before = [t.clone() for t in (*u5, *f5)]
+                gij0 = (g0 - hh, gj0 - hh)
+                want = tpx2.rb_smooth_halo2d_plain(u5, f5, gij0, h, n_iter, n, li, lj, red)
+                _poison_allocator((li, lj, n), cuda)
+                tpx2.reset_launches()
+                got = tpx2.rb_smooth_halo2d(u5, f5, gij0, h, n_iter, n, li, lj, red)
+                assert tpx2.LAUNCHES == {**dict.fromkeys(tpx2.KERNELS, 0),
+                                         "rb_smooth_seg2d": calls}
+                assert bool(torch.isfinite(got).all()) and torch.equal(got, want), (
+                    n_iter, red, ix, iy)
+                assert all(_same_with_nan(a, b) for a, b in zip((*u5, *f5), before))
+                outs[ix, iy] = got
+        if n_iter == 2:
+            whole = _stitch2d(lambda ix, iy: outs[ix, iy], nx, ny)[:n, :n].contiguous()
+            assert torch.equal(whole, tpk.rb_smooth_fused(u[:n, :n].contiguous(),
+                                                          f[:n, :n].contiguous(), h, 2, red)), red
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 65, 129])
+def test_seg_smooth_on_candidate_plans_on_card(cuda, n):
+    """K28's and K37's stages on every candidate plan of the stage bench
+    (utils.stage_plans.candidates: boxes and wavefronts of several block
+    sizes) launched directly, red first: bit for bit their plain versions
+    on NaN-poisoned outputs; K28 on the last of four ranks (a pad tail; at
+    17^3 pad only), K37 on the (1, 1) block of a 2x2 mesh, its halos and
+    corner block from the other three."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as tpx2
+    from multigrid_parallel_tpu_torch.utils.stage_plans import candidates
+
+    h, hh = 1.0 / (n - 1), 4
+    lib, stream = tpk._lib(), tpk._stream()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(1200 + n)
+
+    def args(plan):
+        return (plan.n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem,
+                int(plan.box), stream)
+
+    L = 2 * ((n + 3) // 8 + 1)
+    u, f = (torch.from_numpy(rng.standard_normal((4 * L, n, n)).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    u3, f3 = (rk.rank_parts(x, 3, L, hh, hh) for x in (u, f))
+    us, fs = (tpx._seg(x, hh, hh, L) for x in (u3, f3))
+    want = tpx.rb_smooth_halo_plain(u3, f3, 3 * L - hh, h, 2, n, L, True)
+    for label, plan in candidates(n, False, sms, tpx.seg_rect_planes(3 * L, L, n)).items():
+        out = torch.full((L, n, n), float("nan"), device=cuda)
+        assert lib.mg_seg_smooth_stage(out.data_ptr(), *tpx._ptrs(us), *tpx._ptrs(fs), hh, L,
+                                       hh, n, 3 * L, h * h, 1, *args(plan)) == 0, label
+        assert torch.equal(out, want), label
+    li = lj = 2 * ((n + 3) // 4)
+    u2, f2 = (torch.from_numpy(rng.standard_normal((2 * li, 2 * lj, n)).astype(np.float32))
+              .to(cuda) for _ in range(2))
+    u5, f5 = (rk.rank_parts2d(x, 1, 1, li, lj, hh, hh) for x in (u2, f2))
+    us2, fs2 = (tpx2._seg2(x, li, lj, hh, hh, hh, hh) for x in (u5, f5))
+    want = tpx2.rb_smooth_halo2d_plain(u5, f5, (li - hh, lj - hh), h, 2, n, li, lj, True)
+    extent = (tpx.seg_rect_planes(li, li, n), tpx.seg_rect_planes(lj, lj, n))
+    for label, plan in candidates(n, False, sms, *extent).items():
+        out = torch.full((li, lj, n), float("nan"), device=cuda)
+        assert lib.mg_seg2d_smooth_stage(out.data_ptr(), us2.desc(), fs2.desc(), hh, hh, li, lj,
+                                         n, li, lj, h * h, 1, *args(plan)) == 0, label
+        assert torch.equal(out, want), label
+
+
+@pytest.mark.cuda
+def test_seg_smooth_launchers_refuse_what_they_do_not_take(cuda):
+    """The K28 and K37 launchers refuse a plan whose shared memory is not
+    the kernel's, a halo shorter than 2 n_iter (K28: the left or the right
+    rows; K37: also the j columns), and an output that meets u or f (its
+    body, a halo buffer); the wrappers' own arguments succeed."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as tpx2
+
+    n, L, r, n_iter, hh = 33, 16, 1, 2, 4
+    h2 = (1.0 / (n - 1)) ** 2
+    u, f, _ = _sharded_fields(cuda, n, L)
+    lib, stream, ptrs = tpk._lib(), tpk._stream(), tpx._ptrs
+    us, fs = (tpx._seg(rk.rank_parts(x, r, L, hh, hh), hh, hh, L) for x in (u, f))
+    plan = tps._plan_args(n, n_iter, cuda, rect=True, seg_planes=tpx.seg_rect_planes(r * L, L, n))
+    bad = plan[:6] + (plan[6] + 16,) + plan[7:]
+    out = torch.empty((L, n, n), device=cuda)
+
+    def k28(kl, kr, p, o=out):
+        return lib.mg_seg_smooth_stage(o.data_ptr(), *ptrs(us), *ptrs(fs), kl, L, kr, n, r * L,
+                                       h2, 1, *p, stream)
+
+    assert k28(hh, hh, plan) == 0
+    assert k28(hh, hh, bad) != 0 and k28(hh - 1, hh, plan) != 0 and k28(hh, hh - 1, plan) != 0
+    assert k28(hh, hh, plan, us.body) != 0 and k28(hh, hh, plan, us.lh) != 0
+    assert k28(hh, hh, plan, fs.rh) != 0 and k28(hh, hh, plan, fs.body[1:]) != 0
+    li = lj = 18
+    u2, f2, _ = _blocks2d(cuda, n, li, lj)
+    u5, f5 = (tpx2._seg2(rk.rank_parts2d(x, 1, 1, li, lj, hh, hh), li, lj, hh, hh, hh, hh)
+              for x in (u2, f2))
+    plan2 = tps._plan_args(n, n_iter, cuda, rect=True, seg_planes=tpx.seg_rect_planes(li, li, n),
+                           seg_cols=tpx.seg_rect_planes(lj, lj, n))
+    bad2 = plan2[:6] + (plan2[6] + 16,) + plan2[7:]
+    out2 = torch.empty((li, lj, n), device=cuda)
+
+    def k37(kr, hjr, p, u=u5, o=out2):
+        return lib.mg_seg2d_smooth_stage(o.data_ptr(), u.desc(), f5.desc(), kr, hjr, li, lj, n,
+                                         li, lj, h2, 1, *p, stream)
+
+    assert k37(hh, hh, plan2) == 0
+    assert k37(hh, hh, bad2) != 0 and k37(hh - 1, hh, plan2) != 0 and k37(hh, hh - 1, plan2) != 0
+    short = tpx2._Seg2(u5.body, u5.jl[:, 1:], u5.jr, u5.lh, u5.rh, u5.r_off)  # a j halo of 3
+    assert k37(hh, hh, plan2, short) != 0
+    for part in (*u5.parts(), f5.body, f5.jr, f5.rh):
+        assert k37(hh, hh, plan2, o=part) != 0
+    torch.cuda.synchronize()
+
+
 # --------------------------------- the i-sharded electrospray kernels K34-K36
 
 
@@ -2301,7 +2489,7 @@ def test_sharded2d_kernels_match_plain_and_single_device_on_card(cuda, kernel):
         return
     hh = 4
     calls = {
-        "K37": ("rb_smooth_seg2d", 4,
+        "K37": ("rb_smooth_seg2d", 1,  # one-pass: one launch a call
                 lambda ix, iy: tpx2.rb_smooth_halo2d(p5(u, ix, iy, hh, hh), p5(f, ix, iy, hh, hh),
                                                      g(ix, iy, hh), h, 2, n, li, lj, True),
                 lambda ix, iy: tpx2.rb_smooth_halo2d_plain(p5(u, ix, iy, hh, hh),

@@ -363,14 +363,18 @@ def test_stage_reads_the_corner_blocks():
 
 
 def test_smoothing_wrapper_updates_the_segment_in_place():
+    """The smoothing wrapper's contract: a fresh contiguous block, equal to
+    the plain version, and u's five parts as they were."""
     u, f = _field(30), _field(31)
     u5 = rk.rank_parts2d(u, 1, 0, LI, LJ, 4, 4)
+    before = [t.clone() for t in u5]
     want = px2.rb_smooth_halo2d_plain(u5, rk.rank_parts2d(f, 1, 0, LI, LJ, 4, 4), _g(1, 0, 4), H,
                                       2, N, LI, LJ)
     out = px2.rb_smooth_halo2d(u5, rk.rank_parts2d(f, 1, 0, LI, LJ, 4, 4),
                                torch.tensor(_g(1, 0, 4), dtype=torch.int32), H, 2, N, LI, LJ)
-    assert out.data_ptr() == u5[0].data_ptr()
+    assert all(out.data_ptr() != t.data_ptr() for t in u5) and out.is_contiguous()
     assert torch.equal(out, want)
+    assert all(torch.equal(a, b) for a, b in zip(u5, before))
 
 
 def test_descriptor_reads_each_part_of_an_ext_block():

@@ -7,8 +7,8 @@ single-device plain K1/K2/R/K3/K4/K5 on the whole field, on the same
 numpy-seeded inputs; plus halo_ok and plan_sharding against the JAX
 package's.
 
-The ranks' segments are their own copies (tests/torch_sharded_ranks.py):
-the smoothing wrappers update them in place, as a rank's receive buffers.
+The ranks' segments are their own copies (tests/torch_sharded_ranks.py),
+as a rank's receive buffers; every wrapper leaves them as they were.
 On CPU tensors the wrappers take their plain versions; the CUDA kernels
 are held against those on the card (tests/test_torch_cuda.py and
 chip_smoke.py).
@@ -334,13 +334,17 @@ def test_stitched_rows_equal_single_device(kernel, n, Lr):
 
 
 def test_smoothing_wrappers_update_the_segment_in_place():
+    """The smoothing wrappers' contract: a fresh body, equal to the plain
+    version, and u's segments (body, halos, composite tail) as they were."""
     u, f = _field(30), _field(31)
     u3 = _parts(u, 1, 4, tail=4)
+    before = [t.clone() for t in u3]
     out = px.rb_smooth_halo(u3, _parts(f, 1, 4), torch.tensor(L - 4, dtype=torch.int32), H, 2,
                             N, L, True)
-    assert out.data_ptr() == u3[0].data_ptr()
+    assert all(out.data_ptr() != t.data_ptr() for t in u3)
     want = px.rb_smooth_halo_plain(_parts(u, 1, 4), _parts(f, 1, 4), L - 4, H, 2, N, L, True)
     assert torch.equal(out, want)
+    assert all(torch.equal(a, b) for a, b in zip(u3, before))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

@@ -402,6 +402,44 @@ def test_stage_and_restrict_calls_map_the_sharded_dirichlet_solves():
         "K39 n=257": [1, pytest.approx(0.001), pytest.approx(0.001)]}
 
 
+def test_stage_calls_map_the_segment_smoothing_stages():
+    """K28's and K37's one-pass stage (seg_smooth_stage_kernel, K1's stage
+    on a rank's segmented block) is one kernel a call: K28 on
+    SegStageArgs, K37 on Seg2StageArgs, by level from its plan of the
+    rank's planes (and rows); between K29's first-form calls it starts a
+    call of its own; a name without its arguments is either."""
+    from multigrid_parallel_tpu_torch.hierarchy import Hierarchy
+    from multigrid_parallel_tpu_torch.ops import pallas_split as tps
+    from multigrid_parallel_tpu_torch.parallel.sharded import ShardPlan
+    from multigrid_parallel_tpu_torch.parallel.sharded2d_padded import plan_sharding_2d_padded
+
+    hier = Hierarchy(ndim=3, coarse_n=5, num_levels=7)
+    sizes = st._seg_sizes(hier, 132, ShardPlan(n_dev=1, axis="x", n_sharded=6, fine_local=320))
+    k28 = tps._stage_plan(257, 2, 132, False, True, seg_planes=257)
+    k28_65 = tps._stage_plan(65, 2, 132, False, True, seg_planes=65)
+    zero = (-(-168 * 129 * 129 // 256), 1, 1, 0)
+    intervals = sorted(
+        [(0, 3, "seg_smooth_stage_kernel<2, false, mg::rect::SegStageArgs>",
+          (k28.blocks, 1, 1, k28.smem)),
+         (10, 11, "seg_half_sweep_from_zero_kernel<mg::Seg>", zero)]
+        + [(20 + 10 * i, 21 + 10 * i, "seg_half_sweep_kernel<mg::Seg>",
+            (-(-166 * 129 * 129 // 256), 1, 1, 0)) for i in range(3)]
+        + [(60, 62, "seg_smooth_stage_kernel<2, true, mg::rect::SegStageArgs>",
+            (k28_65.blocks, 1, 1, k28_65.smem))])
+    assert st.stage_calls(intervals, sizes) == {
+        "K28 n=257": [1, pytest.approx(0.003), pytest.approx(0.003)],
+        "K29 n=129": [1, pytest.approx(0.004), pytest.approx(0.004)],
+        "K28 n=65": [1, pytest.approx(0.002), pytest.approx(0.002)]}
+    sizes2 = st._seg2d_sizes(hier, 132, plan_sharding_2d_padded(hier, 1, 1))
+    k37 = tps._stage_plan(257, 2, 132, False, True, seg_planes=257, seg_cols=257)
+    intervals2 = [(0, 4, "seg_smooth_stage_kernel<2, false, mg::rect::Seg2StageArgs>",
+                   (k37.blocks, 1, 1, k37.smem)),
+                  (10, 11, "seg_smooth_stage_kernel", (k37.blocks, 1, 1, k37.smem))]
+    assert st.stage_calls(intervals2, sizes2) == {
+        "K37 n=257": [1, pytest.approx(0.004), pytest.approx(0.004)],
+        "K28|K37 n=257": [1, pytest.approx(0.001), pytest.approx(0.001)]}
+
+
 def test_restrict_calls_map_the_segment_restriction_stages():
     """K30's and K39's streaming stages (seg_restrict_kernel<mg::Seg, C>
     and <mg::Seg2, C>, from a demangled or a mangled name) one kernel a

@@ -3,8 +3,9 @@ kernels run it, shared by the stage tests (torch only): K14 and K15 on the
 full (n, n, n) layout (``Layout::kMixed``; tests/test_torch_mixed_stage.py)
 and K35 and K36 on one rank's segments of an i-sharded field (``kSeg``;
 tests/test_torch_seg_stage.py); and of its Dirichlet stage on a rank's
-segmented block, K31 on an i-sharded field and K40 on an (i, j)-sharded
-one (``kSegRect``; tests/test_torch_seg_rect_stage.py, below).
+segmented block, K31 and K28 on an i-sharded field and K40 and K37 on an
+(i, j)-sharded one (``kSegRect``; tests/test_torch_seg_rect_stage.py,
+below).
 
 The stage runs block by block on rect.cuh's tile: a field row (i, j) held
 as two colour rows of slots, slot kk of a colour holding k = 2 kk + 1 + p,
@@ -413,21 +414,21 @@ def emulate_dirichlet_launch(ins, fs, color0, h, plan, n, span=None, cols=None, 
                              fault=None):
     """One Dirichlet stage launch as the kernel runs it (rect.cuh with
     ``Layout::kRect`` for K1, K2 and K4 on the whole field, or
-    ``Layout::kSegRect`` for K31 and K40 on a rank's block: stage_body's
-    wavefront or, for a box plan, box_body) on (P, C, n) fields whose plane
-    and row indices are the global ones (a rank's VIRTUAL fields). ``ins``
-    (the initial guess, e), ``fs`` (f, r) and ``corr`` (P ec, or None) are
-    de-interleaved by stage colour; the blocks tile the planes ``span`` =
-    (c0, c1) and the rows ``cols`` = (cj0, cj1) (by default the field's; a
-    rank's clipped to n - 1), their loaded boxes clipped to the field [0,
-    n) only; each half-sweep
-    updates its region (the loaded box shrunk by its level, clipped to the
+    ``Layout::kSegRect`` for K28, K31, K37 and K40 on a rank's block:
+    stage_body's wavefront or, for a box plan, box_body) on (P, C, n)
+    fields whose plane and row indices are the global ones (a rank's
+    VIRTUAL fields). ``ins`` (the initial guess, e), ``fs`` (f, r) and
+    ``corr`` (P ec, or None) are de-interleaved by stage colour; the
+    blocks tile the planes ``span`` = (c0, c1) and the rows ``cols`` =
+    (cj0, cj1) (by default the field's; a rank's clipped to n - 1), their
+    loaded boxes clipped to the field [0, n) only; each half-sweep updates
+    its region (the loaded box shrunk by its level, clipped to the
     interior) in place, the neighbours read from the tile in the plain
     version's order, no boundary node swept; the store writes both colours
-    of the owned box, boundary nodes included. ``fault`` "pad_swept" tiles,
-    loads, sweeps and stores the rows and planes past n - 1 as interior ones
-    (the spans then the rank's whole body). Returns the outputs by stage
-    colour (NaN where not stored) and each slot's writes."""
+    of the owned box, boundary nodes included. ``fault`` "pad_swept"
+    tiles, loads, sweeps and stores the rows and planes past n - 1 as
+    interior ones (the spans then the rank's whole body). Returns the
+    outputs by stage colour (NaN where not stored) and each slot's writes."""
     s = n // 2
     planes_n, rows_n = ins[0].shape[:2]
     (c0, c1), (cj0, cj1) = span or (0, n), cols or (0, n)
@@ -538,37 +539,47 @@ def virtual2d(slab, first, shape):
 
 
 def emulate_seg_rect(e_slab, r_slab, c_slab, first, c_first, body, n, n_iter, h, plan,
-                     fault=None):
+                     fault=None, red_first=False):
     """K31 (i-sharded: rows whole) or K40 ((i, j)-sharded) on one rank's
     block as the kernel runs it: the fine slabs e and r (their point [0, 0]
     at GLOBAL (plane, row) ``first``) and the coarse one (at ``c_first``)
     read as virtual fields, NaN outside them; one Dirichlet stage launch,
     black first, e + P ec made as planes arrive, its blocks tiling the
     rank's planes and rows clipped to n - 1 (rect.cuh, seg_rect_geometry);
-    then the pad points of the body (past n - 1) written as e + P ec.
+    then the pad points of the body (past n - 1) written as e + P ec. With
+    ``c_slab`` None, K28 or K37: K1's stage on u = ``e_slab`` against f =
+    ``r_slab``, red first where ``red_first``, the pad points u's own.
     ``body`` = (g0, L, gj0, Lj). ``fault``: "pad_swept" (the pad swept as
     interior and stored by the blocks), "order" (P ec interpolated i, then
-    j, then k). Returns the (L, Lj, n) body and each point's writes."""
+    j, then k; K28 and K37: the colours in the other order). Returns the
+    (L, Lj, n) body and each point's writes."""
     g0, L, gj0, Lj = body
     hh = 2 * n_iter
     shape = (g0 + L + 2 * hh + 2, max(n, gj0 + Lj + 2 * hh + 2))
     ev, rv = virtual2d(e_slab, first, shape), virtual2d(r_slab, first, shape)
-    cshape = (shape[0] // 2 + 1, shape[1] // 2 + 1)
-    cv = virtual2d(c_slab, c_first, cshape)
-    t = prolongation(cv, (0, 1, 2) if fault == "order" else (1, 2, 0))[:shape[0], :shape[1]]
+    if c_slab is None:
+        color0 = (RED if red_first else BLACK) if fault != "order" else (
+            BLACK if red_first else RED)
+        u, corr = ev, None
+    else:
+        color0 = BLACK
+        cshape = (shape[0] // 2 + 1, shape[1] // 2 + 1)
+        cv = virtual2d(c_slab, c_first, cshape)
+        t = prolongation(cv, (0, 1, 2) if fault == "order" else (1, 2, 0))[:shape[0], :shape[1]]
+        u, corr = ev + t, by_stage(deinterleave(t), color0)
     span = (g0, min(g0 + L, n) if g0 < n else g0)
     cols = (gj0, min(gj0 + Lj, n) if gj0 < n else gj0)
     if fault == "pad_swept":
         span, cols = (g0, g0 + L), (gj0, gj0 + Lj)
     outs, writes = emulate_dirichlet_launch(
-        by_stage(deinterleave(ev), BLACK), by_stage(deinterleave(rv), BLACK), BLACK, h, plan, n,
-        span, cols, by_stage(deinterleave(t), BLACK), fault)
-    out = interleave(by_stage(outs, BLACK), n)
-    w = interleave(by_stage([x.float() for x in writes], BLACK), n)
+        by_stage(deinterleave(ev), color0), by_stage(deinterleave(rv), color0), color0, h, plan,
+        n, span, cols, corr, fault)
+    out = interleave(by_stage(outs, color0), n)
+    w = interleave(by_stage([x.float() for x in writes], color0), n)
     pad = torch.ones(shape[:2], dtype=torch.bool)
     pad[:n, :n] = False
     if fault != "pad_swept":  # every block's share of the pad points
-        out[pad] = (ev + t)[pad]
+        out[pad] = u[pad]
         w[pad] += 1
     sl = (slice(g0, g0 + L), slice(gj0, gj0 + Lj))
     return out[sl].clone(), w[sl].clone()
