@@ -120,19 +120,19 @@ which fails the run:
      stitched, to the single-device kernels (K1, K2, R, K3, K4, K5's r;
      the partial norms' sum within 1e-6 of K5's), each timed against its
      plain version, and K30 (the streaming restriction stage on segments)
-     and K28 (K1's one-pass stage on segments) timed on the one-rank L =
-     320 segment beside their bounds from the bytes they need (K29's
-     bound beside them); (b) make_sharded_df_solver at 257^3 on one rank
-     of an NCCL group, launch counts reset and read around it: exactly the
-     launches predicted from its outer steps (K28 and K31 one a call,
-     one-pass stages), only K28-K32, the fused
+     and K28 and K29 (K1's and K2's one-pass stages on segments) timed on
+     the one-rank L = 320 segment beside their bounds from the bytes they
+     need; (b) make_sharded_df_solver at 257^3 on one rank of an NCCL
+     group, launch counts reset and read around it: exactly the launches
+     predicted from its outer steps (K28, K29 and K31 one a call, one-pass
+     stages), only K28-K32, the fused
      solve's outer steps, error within 1% of its, max|u - u_fused| <=
      1e-9, walls interleaved with the fused solve (5 each) and the device
      busy time of each; (c) the same solve on four gloo ranks on the one
      card (halos staged through host memory, every kernel on the card),
      spawned by parallel.launch: (b)'s outer steps, u within 1e-9 of (b)'s,
      each rank launching only K28-K32 and, in the replicated 9^3 cycle,
-     K2-K4, one host-staged wall (not a scaling
+     K2-K4, each exactly as predicted, one host-staged wall (not a scaling
      figure); and the f64 sharded V-cycle at 129^3 on those ranks against
      the single-device one within 1e-11;
  11. the i-sharded electrospray solve (parallel.sharded_mixed_padded):
@@ -159,13 +159,12 @@ which fails the run:
      and 1x4 meshes (the padded plan's blocks, five halo parts with the corner
      blocks), each bitwise equal to its plain version and, stitched, to K1
      (both orders), K2, K3, K4 and K5's r, each timed on rank (0, 0)'s
-     257^3 2x2 block against its plain version, and K39 and K37 checked and
-     timed on the 1x1 block (272^2) beside their bounds (K38's beside
-     them); (b)
+     257^3 2x2 block against its plain version, and K39, K37 and K38
+     checked and timed on the 1x1 block (272^2) beside their bounds; (b)
      make_sharded2d_padded_df_solver at 257^3 on one NCCL rank (a 1x1 mesh,
      plan Li = Lj = 272, n_sharded 4), launch counts reset and read around
-     it: exactly the launches predicted from the tier map (K37, K40 and the
-     j-replicated tier's K28 and K31 one a call), the fused
+     it: exactly the launches predicted from the tier map (K37, K38, K40
+     and the j-replicated tier's K28, K29 and K31 one a call), the fused
      solve's outer steps, max|u - u_fused| = 0, walls interleaved with the
      fused solve (5 each), the device busy time of each, and the dry-run
      twin on that rank; (c) four gloo ranks through parallel.launch: the
@@ -277,7 +276,7 @@ SOURCES = {
     "rb_smooth_seg": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth_seg_stage.cu",
                       "multigrid_parallel_tpu/ops/pallas_sharded.py:184, "
                       "multigrid_parallel_tpu/ops/pallas_sharded.py:864"),
-    "rb_smooth_from_zero_seg": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth_seg.cu",
+    "rb_smooth_from_zero_seg": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth_seg_stage.cu",
                                 "multigrid_parallel_tpu/ops/pallas_sharded.py:184, "
                                 "multigrid_parallel_tpu/ops/pallas_sharded.py:864"),
     "residual_restrict_seg": ("multigrid_parallel_tpu_torch/ops/csrc/residual_restrict_seg.cu",
@@ -308,7 +307,7 @@ SOURCES = {
     "rb_smooth_seg2d": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth_seg_stage.cu",
                         "multigrid_parallel_tpu/ops/pallas_sharded2d.py:181, "
                         "multigrid_parallel_tpu/ops/pallas_sharded2d.py:910"),
-    "rb_smooth_from_zero_seg2d": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth_seg.cu",
+    "rb_smooth_from_zero_seg2d": ("multigrid_parallel_tpu_torch/ops/csrc/rb_smooth_seg_stage.cu",
                                   "multigrid_parallel_tpu/ops/pallas_sharded2d.py:181, "
                                   "multigrid_parallel_tpu/ops/pallas_sharded2d.py:910"),
     "residual_restrict_seg2d": ("multigrid_parallel_tpu_torch/ops/csrc/residual_restrict_seg.cu",
@@ -1737,11 +1736,25 @@ def compare_sharded(dev, results):
                                             r * L - hh, h, 2, n, L, False),
                  lambda r: px.rb_smooth_halo_plain(parts(u, r, hh, hh), parts(f, r, hh, hh),
                                                    r * L - hh, h, 2, n, L, False), want)
-        stitched("rb_smooth_from_zero_seg", "red_first=True",
-                 lambda r: px.rb_smooth_from_zero_halo(parts(f, r, hh, hh), r * L - hh, h, 2, n, L),
+        # K29: K2's one-pass stage on the segments, one launch a call, the pad rows 0
+        before = px.LAUNCHES["rb_smooth_from_zero_seg"]
+        for red in (True, False):
+            out = stitched("rb_smooth_from_zero_seg", f"red_first={red}",
+                           lambda r: px.rb_smooth_from_zero_halo(parts(f, r, hh, hh), r * L - hh,
+                                                                 h, 2, n, L, red),
+                           lambda r: px.rb_smooth_from_zero_halo_plain(
+                               parts(f, r, hh, hh), r * L - hh, h, 2, n, L, red),
+                           pk.rb_smooth_from_zero_fused(f[:n], h, 2, red))
+            check(not out[n:].any(), f"rb_smooth_from_zero_seg n={n}: pad rows not zero")
+        stitched("rb_smooth_from_zero_seg", "ext form",
+                 lambda r: px.rb_smooth_from_zero_ext(_seg_ext(f, r, L, hh), r * L - hh, h, 2, n,
+                                                      L, False),
                  lambda r: px.rb_smooth_from_zero_halo_plain(parts(f, r, hh, hh), r * L - hh, h,
-                                                             2, n, L),
-                 pk.rb_smooth_from_zero_fused(f[:n], h, 2))
+                                                             2, n, L, False),
+                 pk.rb_smooth_from_zero_fused(f[:n], h, 2, False))
+        k29_launches = px.LAUNCHES["rb_smooth_from_zero_seg"] - before
+        check(k29_launches == 3 * D, f"rb_smooth_from_zero_seg n={n}: {k29_launches} launches "
+              f"for {3 * D} calls")
         stitched("residual_seg", "ext form",
                  lambda r: px.residual_ext(_seg_ext(u, r, L, 1), _seg_ext(f, r, L, 1), r * L - 1,
                                            h, n, L),
@@ -1779,7 +1792,7 @@ def compare_sharded(dev, results):
         n2 = sum(float(o[1]) for o in outs)
         rel = abs(n2 - float(want_n2)) / float(want_n2)
         print(f"[sharded kernels n={n} L={L} x{D} rank(s)] K28-K33 bitwise equal to their plain "
-              f"versions and, stitched, to K1 (both orders, and the ext form), K2, R, K3, K4, "
+              f"versions and, stitched, to K1 and K2 (both orders, and the ext form), R, K3, K4, "
               f"K5's r; sum of the partial ||r||^2 {n2:.9e} against K5's {float(want_n2):.9e} "
               f"(rel {rel:.2e}, tol {SHARDED_NORM_RTOL:g})")
         check(rel <= SHARDED_NORM_RTOL, f"residual_df_norm_seg n={n}: norm rel diff {rel}")
@@ -1795,10 +1808,12 @@ def compare_sharded(dev, results):
         "rb_smooth_seg": (lambda: px.rb_smooth_halo(u4, f4, L - hh, h, 2, n, L),
                           lambda: px.rb_smooth_halo_plain(u4, f4, L - hh, h, 2, n, L),
                           (*u4, *f4), L * n * n),
+        # K29's one-pass stage (K2's from a zero tile) reads f's rows, halos
+        # included, and writes the fresh body
         "rb_smooth_from_zero_seg": (lambda: px.rb_smooth_from_zero_halo(f4, L - hh, h, 2, n, L),
                                     lambda: px.rb_smooth_from_zero_halo_plain(f4, L - hh, h, 2,
                                                                               n, L),
-                                    f4, (L + 2 * hh) * n * n),
+                                    f4, L * n * n),
         "residual_seg": (lambda: px.residual_ext(u_ext, f_ext, L - 1, h, n, L),
                          lambda: px.residual_ext_plain(u_ext, f_ext, L - 1, h, n, L),
                          (u_ext, f11[0]), L * n * n),
@@ -2050,8 +2065,9 @@ def sharded_four_ranks(dev, card, launches, one_rank, es_one_rank, tmp):
     """Phases 10c and 11c: four gloo ranks on the one card (halos and
     reductions staged through host memory; every kernel on the card): the
     257^3 sharded solve in phase 10b's outer steps with u within
-    SHARDED_DU_TOL of its, each rank launching exactly K28-K32 and, in the
-    replicated 9^3 cycle, K2-K4 (added into ``launches``), one host-staged
+    SHARDED_DU_TOL of its, each rank launching K28-K32 and, in the
+    replicated 9^3 cycle, K2-K4, exactly as often as ``predicted_launches``
+    says from its outer steps (added into ``launches``), one host-staged
     wall; the f64 sharded V-cycle at 129^3 against the single-device one
     within SHARDED_F64_TOL; then the electrospray's (11c) against
     ``es_one_rank``, phase 11b's (u, outer steps)."""
@@ -2082,12 +2098,20 @@ def sharded_four_ranks(dev, card, launches, one_rank, es_one_rank, tmp):
           f"4-rank plan {res['plan']}")
     check(res["it"] == it_one, f"4-rank sharded solve: {res['it']} outer steps, 1 rank {it_one}")
     check(res["du"] <= SHARDED_DU_TOL, f"4-rank sharded solve: max|u - u_1rank| = {res['du']}")
+    # the sharded levels on K28-K31, the level below them the replicated cycle (K2-K4)
+    hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7)
+    first_sharded = hier.num_levels - res["plan"].n_sharded
+    tiers = dict.fromkeys(hier.sizes[first_sharded:], "j-replicated")
+    tiers[hier.sizes[first_sharded - 1]] = "replicated"
+    want = predicted_launches(hier, tiers, res["it"], 4, norm="residual_df_norm_seg")
     for rank, (_, counts) in enumerate(res["per_rank"]):
         print(f"[launches {n}^3 sharded rank {rank} of {SHARDED_RANKS}] "
               f"{json.dumps({k: v for k, v in counts.items() if v})}")
         for name in SOURCES:
-            check((counts[name] > 0) == (name in SEG_KERNELS + SEG_TAIL_KERNELS),
-                  f"4-rank sharded rank {rank}: kernel {name} launched {counts[name]} times")
+            check((counts[name] > 0) == (name in SEG_KERNELS + SEG_TAIL_KERNELS)
+                  and counts[name] == want[name],
+                  f"4-rank sharded rank {rank}: kernel {name} launched {counts[name]} times, "
+                  f"predicted {want[name]}")
             launches[name] += counts[name]
 
     hier64 = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=6)
@@ -2417,7 +2441,8 @@ def compare_sharded2d(dev, results):
         wants = {
             ("rb_smooth_seg2d", True): pk.rb_smooth_fused(u.clone(), f, h, 2, True),
             ("rb_smooth_seg2d", False): pk.rb_smooth_fused(u.clone(), f, h, 2, False),
-            ("rb_smooth_from_zero_seg2d", True): pk.rb_smooth_from_zero_fused(f, h, 2),
+            ("rb_smooth_from_zero_seg2d", True): pk.rb_smooth_from_zero_fused(f, h, 2, True),
+            ("rb_smooth_from_zero_seg2d", False): pk.rb_smooth_from_zero_fused(f, h, 2, False),
             ("residual_restrict_seg2d", True): pk.residual_restrict_fused(u, f, h),
             ("prolong_smooth_seg2d", True): pk.prolong_smooth_fused(ec, u, f, h, 2),
         }
@@ -2449,7 +2474,9 @@ def compare_sharded2d(dev, results):
                     p5(U, ix, iy, hh, hh), p5(F, ix, iy, hh, hh), g(ix, iy, hh), h, 2, n, li, lj,
                     False),
                 ("rb_smooth_from_zero_seg2d", True): lambda ix, iy, fn: fn(
-                    p5(F, ix, iy, hh, hh), g(ix, iy, hh), h, 2, n, li, lj),
+                    p5(F, ix, iy, hh, hh), g(ix, iy, hh), h, 2, n, li, lj, True),
+                ("rb_smooth_from_zero_seg2d", False): lambda ix, iy, fn: fn(
+                    p5(F, ix, iy, hh, hh), g(ix, iy, hh), h, 2, n, li, lj, False),
                 ("residual_restrict_seg2d", True): lambda ix, iy, fn: fn(
                     p5(U, ix, iy, 2, 1), p5(F, ix, iy, 2, 1), g(ix, iy, 2), h, n, lic, ljc),
                 ("prolong_smooth_seg2d", True): lambda ix, iy, fn: fn(
@@ -2468,7 +2495,10 @@ def compare_sharded2d(dev, results):
                 kern, plain = fns[name]
                 outs = {}
                 for ix, iy in ranks:
+                    before = px2.LAUNCHES[name]
                     outs[ix, iy] = call(ix, iy, kern)
+                    check(px2.LAUNCHES[name] - before == 1,  # each a one-pass stage
+                          f"{name} n={n} {label}: {px2.LAUNCHES[name] - before} launches a call")
                     bitwise_same(results, name, n, f"{label} red_first={red} rank ({ix}, {iy}) "
                                  "against plain", outs[ix, iy], call(ix, iy, plain))
                 stitched = torch.cat([torch.cat([outs[ix, iy] for iy in range(ny)], dim=1)
@@ -2501,8 +2531,8 @@ def compare_sharded2d(dev, results):
             rel = abs(n2 - float(want_n2)) / float(want_n2)
             check(rel <= SHARDED_NORM_RTOL, f"residual_df_norm_seg2d n={n} {label}: norm rel {rel}")
             print(f"[sharded2d kernels n={n} {label}] K37-K41 bitwise equal to their plain "
-                  f"versions and, stitched, to K1 (both orders), K2, K3, K4, K5's r; sum of the "
-                  f"partial ||r||^2 {n2:.9e} against K5's {float(want_n2):.9e} (rel {rel:.2e})")
+                  f"versions and, stitched, to K1 and K2 (both orders), K3, K4, K5's r; sum of "
+                  f"the partial ||r||^2 {n2:.9e} against K5's {float(want_n2):.9e} (rel {rel:.2e})")
             if n == 257 and (nx, ny) == (2, 2):
                 timed = dict(U=U, F=F, EC=EC, DF=DF, li=li, lj=lj, n=n, h=h, p5=p5)
 
@@ -2520,10 +2550,12 @@ def compare_sharded2d(dev, results):
         "rb_smooth_seg2d": (lambda: px2.rb_smooth_halo2d(u4, f4, g(hh), h, 2, n, li, lj),
                             lambda: px2.rb_smooth_halo2d_plain(u4, f4, g(hh), h, 2, n, li, lj),
                             (*u4, *f4), li * lj * n),
+        # K38's one-pass stage (K2's from a zero tile) reads f's points, halos
+        # included, and writes the fresh block
         "rb_smooth_from_zero_seg2d": (
             lambda: px2.rb_smooth_from_zero_halo2d(f4, g(hh), h, 2, n, li, lj),
             lambda: px2.rb_smooth_from_zero_halo2d_plain(f4, g(hh), h, 2, n, li, lj),
-            f4, ext_pts),
+            f4, li * lj * n),
         "residual_restrict_seg2d": (
             lambda: px2.residual_restrict_halo2d(u21, f21, g(2), h, n, li // 2, lj // 2),
             lambda: px2.residual_restrict_halo2d_plain(u21, f21, g(2), h, n, li // 2, lj // 2),
@@ -2579,11 +2611,11 @@ def predicted_launches(hier, tiers, steps, inner_cycles, n_smooth=2,
     """The kernel launches of one (i, j)-sharded double-float solve of
     ``steps`` outer steps, from the tier map (gamma 1: every coarse visit
     starts from zero; the finest level's first cycle of each step too):
-    per V-cycle and level, 2 n_smooth launches of the smoothing from zero
-    (K29's, K38's first forms), or one of the smoothing stage (K28's and
-    K37's one-pass stages; 2 n_smooth in their first forms, past n_smooth
-    2), one residual + restriction, one prolongation + smoothing launch
-    (K31's and K40's one-pass stages, as K28's); the replicated tail runs
+    per V-cycle and level, one launch of the smoothing from zero (K29's and
+    K38's one-pass stages) or of the smoothing stage (K28's and K37's; 2
+    n_smooth each in their first forms, past n_smooth 2), one residual +
+    restriction, one prolongation + smoothing launch (K31's and K40's
+    one-pass stages, as K28's); the replicated tail runs
     the single-device cycle (K1-K4) on each of its levels above the coarse
     LU, whose K1, K2 and K4 are one-pass stages: ceil(n_smooth / 2)
     launches a call; one ``norm`` launch (K41; K32 for the i-sharded
@@ -2591,7 +2623,7 @@ def predicted_launches(hier, tiers, steps, inner_cycles, n_smooth=2,
     K28-K31) per outer step and one before."""
     cycles, hs = steps * inner_cycles, 2 * n_smooth
     stage = -(-n_smooth // 2)  # K1's, K2's and K4's launches a call
-    seg_stage = 1 if n_smooth <= 2 else hs  # K28's, K31's, K37's and K40's
+    seg_stage = 1 if n_smooth <= 2 else hs  # K28's, K29's, K31's, K37's, K38's and K40's
     out = dict.fromkeys(SOURCES, 0)
     top = hier.num_levels - 1
     for depth, (n, tier) in enumerate(sorted(tiers.items(), reverse=True)):
@@ -2602,11 +2634,10 @@ def predicted_launches(hier, tiers, steps, inner_cycles, n_smooth=2,
         else:
             continue
         smooth, smooth0, rr, ps = TIER_KERNELS[tier]
-        per_zero_call = stage if tier == "replicated" else hs
         per_call = stage if tier == "replicated" else seg_stage
         for m in levels:
             first = depth == 0 and m == n
-            out[smooth0] += per_zero_call * (steps if first else cycles)
+            out[smooth0] += per_call * (steps if first else cycles)
             out[smooth] += per_call * (cycles - steps) if first else 0
             out[rr] += cycles
             out[ps] += per_call * cycles

@@ -15,7 +15,9 @@ versions bit for bit and the EFT two-sum chains stay exact.
 
 ``python -m multigrid_parallel_tpu_torch.ops._build --ptxas rb_smooth.cu
 ...`` compiles the named sources with the same flags and ``-Xptxas -v``
-and prints each kernel's registers, stack frame and spill bytes.
+and prints each kernel's registers, stack frame and spill bytes, a line a
+kernel; with ``--csrc DIR`` first, the sources of DIR (another
+checkout's ``ops/csrc``), so that ``diff`` compares two trees' reports.
 
 The library is built at first use into ``multigrid_parallel_tpu_torch/
 _build/`` (listed in .gitignore), named by a hash of the sources and the
@@ -134,6 +136,10 @@ _SIGNATURES = {
     # red_first, the plan (n_iter, bi, bj, bk, k_halo, threads, smem, box), stream
     "mg_seg_smooth_stage": (_P,) + (_P, _P, _P, _I) * 2 + (_I,) * 5 + (_F,) + (_I,) * 9 + (_P,),
     "mg_seg2d_smooth_stage": (_P,) * 3 + (_I,) * 7 + (_F,) + (_I,) * 9 + (_P,),
+    # K29's and K38's (K2's stage from a zero tile): the same with f's segments only
+    "mg_seg_smooth_from_zero_stage": (_P,) + (_P, _P, _P, _I) + (_I,) * 5 + (_F,) + (_I,) * 9
+                                     + (_P,),
+    "mg_seg2d_smooth_from_zero_stage": (_P,) * 2 + (_I,) * 7 + (_F,) + (_I,) * 9 + (_P,),
     # K30's and K39's streaming restriction stages on segments: out, the e and
     # r segments (K39: descriptors, then the halos after the blocks), the
     # geometry, inv_h2, the plan (bci, bcj, bck, chunks, threads, smem), stream
@@ -216,35 +222,51 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def ptxas_report(names) -> str:
-    """ptxas's resource lines (registers, stack frame, spills) of each
-    kernel of the named ``csrc`` sources, compiled with the build's flags
-    and ``-Xptxas -v``; mangled names demangled where cu++filt is found."""
+def ptxas_report(names, csrc: Path = _CSRC) -> str:
+    """ptxas's resource lines of each kernel of the named sources of
+    ``csrc`` (by default this package's; another checkout's to compare
+    two), each source compiled by its own nvcc with the build's flags and
+    ``-Xptxas -v``, all started together: one line a kernel, ``source:
+    kernel | stack frame and spills | registers``, sorted, the kernel's
+    name demangled where cu++filt is found (the unnamed namespace's
+    path-dependent tag dropped where not), so that two reports compare
+    line by line."""
     nvcc = _nvcc()
     filt = Path(nvcc).with_name("cu++filt")
-    lines = []
     with tempfile.TemporaryDirectory() as tmp:
-        for name in names:
-            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(Path(tmp) / "k.o"),
-                   str(_CSRC / name)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                                   f"{proc.stdout}\n{proc.stderr}")
-            for line in (proc.stdout + proc.stderr).splitlines():
-                if "entry function" in line or "registers" in line or "spill" in line:
-                    found = re.search(r"'(_Z\w+)'", line)
-                    if found and filt.exists():
-                        name_d = subprocess.run([str(filt), found.group(1)], capture_output=True,
-                                                text=True).stdout.strip()
-                        line = line.replace(found.group(1), name_d)
-                    lines.append(f"{name}: {line.strip()}")
-    return "\n".join(lines)
+        procs = {name: subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(Path(tmp) / f"{name}.o"),
+             str(Path(csrc) / name)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for name in names}
+        outs = {name: proc.communicate()[0] for name, proc in procs.items()}
+    lines = []
+    for name, out in outs.items():
+        if procs[name].returncode != 0:
+            raise RuntimeError(f"nvcc failed ({procs[name].returncode}) on {name}:\n{out}")
+        kernel, parts = None, []
+        for line in out.splitlines() + ["ptxas info    : Compiling entry function 'end'"]:
+            found = re.search(r"Compiling entry function '(\w+)'", line)
+            if found:
+                if kernel is not None:
+                    lines.append(f"{name}: {kernel} | " + " | ".join(parts))
+                kernel, parts = found.group(1), []
+                if filt.exists() and kernel.startswith("_Z"):
+                    kernel = subprocess.run([str(filt), kernel], capture_output=True,
+                                            text=True).stdout.strip()
+                kernel = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", kernel)
+            elif kernel is not None and ("registers" in line or "spill" in line):
+                parts.append(line.split("ptxas info    :")[-1].strip())
+    return "\n".join(sorted(lines))
 
 
 if __name__ == "__main__":
     import sys
 
-    if len(sys.argv) < 3 or sys.argv[1] != "--ptxas":
-        sys.exit("usage: python -m multigrid_parallel_tpu_torch.ops._build --ptxas SOURCE.cu ...")
-    print(ptxas_report(sys.argv[2:]))
+    args = sys.argv[1:]
+    if len(args) < 2 or args[0] != "--ptxas":
+        sys.exit("usage: python -m multigrid_parallel_tpu_torch.ops._build --ptxas "
+                 "[--csrc DIR] SOURCE.cu ...")
+    root = _CSRC
+    if args[1] == "--csrc":
+        root, args = Path(args[2]), args[2:]
+    print(ptxas_report(args[1:], root))

@@ -10,11 +10,12 @@
 // pallas_sharded2d.py: rb_smooth_ext2d / rb_smooth_halo2d (K37) and
 // rb_smooth_from_zero_ext2d / rb_smooth_from_zero_halo2d (K38), the same
 // stage on a block with that halo in i and in j. K28 and K37 at n_iter <=
-// 2 are one launch of K1's one-pass stage (rb_smooth_seg_stage.cu); this
-// is their first form, which K29, K38 and every stage past n_iter 2 still
-// run: one launch per half-sweep over local rows [-kl + 1, L + kr - 2]
-// (and, on an (i, j) block, columns [-hjl + 1, Lj + hjr - 2]), in place on
-// a segment of the wrapper's own (a copy of u's, or K29's and K38's fresh
+// 2 are one launch of K1's one-pass stage, K29 and K38 of K2's
+// (rb_smooth_seg_stage.cu); this is their first form, which every stage
+// past n_iter 2 still runs (and K35's past n_iter 2 its from-zero head):
+// one launch per half-sweep over local rows [-kl + 1, L + kr - 2] (and, on
+// an (i, j) block, columns [-hjl + 1, Lj + hjr - 2]), in place on a
+// segment of the wrapper's own (a copy of u's, or K29's and K38's fresh
 // output), so writing its halo rows and columns is safe. A half-sweep is
 // Jacobi within a colour, so a stale halo row or column spoils one more per
 // half-sweep; a halo as deep as the number of half-sweeps leaves every

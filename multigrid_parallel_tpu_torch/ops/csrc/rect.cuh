@@ -69,7 +69,8 @@
 //     past n - 1 are pad, never loaded or swept: every block of the launch
 //     writes its share of them (seg_pad_fill), 0 or e's rows.
 // kSegRect (K31, K40; prolong_smooth_seg.cu; and K28, K37 with no Prep,
-// K1's stage, rb_smooth_seg_stage.cu) is kRect's Dirichlet stage on
+// K1's stage, and K29, K38, K2's from a zero tile, rb_smooth_seg_stage.cu)
+// is kRect's Dirichlet stage on
 // one rank's segmented block: planes at GLOBAL q as kSeg's, on an
 // i-sharded field (SegStageArgs, seg.cuh) or on an (i, j)-sharded one
 // (Seg2StageArgs, seg2d.cuh), whose blocks also tile the rank's columns
@@ -82,7 +83,7 @@
 // nodes, planes [g0, o1) and columns [gj0, cj1), into its fresh body; the
 // pad points past n - 1 are never loaded or swept: every block writes its
 // share of them as the plain versions leave them (seg_pad_prolong, e + P
-// ec; K28, K37: seg_pad_copy, u's own values).
+// ec; K28, K37: seg_pad_copy, u's own values; K29, K38: 0).
 // The two changes. (1) The selects: a neighbour across a face (i or j at 1
 // or n - 2, k at 1 or n - 2) is read as the reader's own value, 0 at a
 // pinned x-face node (mixed_nbr_sum's rule), as a select in the sweep, in
@@ -1077,10 +1078,10 @@ __device__ inline void seg_pad_prolong(const Args& a, const Prep& prep) {
 
 // kSegRect without a Prep (K28, K37): seg_pad_prolong's points, written as
 // the plain versions leave them, the initial guess's own values (no
-// half-sweep updates a point past n - 1). A warp a body row, the k across
-// its lanes, both rows looked up once; spread over every warp of the
-// launch.
-template <class Args>
+// half-sweep updates a point past n - 1); ZERO (K29, K38, from a zero
+// guess, no u to read): 0. A warp a body row, the k across its lanes, the
+// rows looked up once; spread over every warp of the launch.
+template <bool ZERO = false, class Args>
 __device__ inline void seg_pad_copy(const Args& a) {
   const int n = a.n, W = body_cols(a), ro = a.o1 - a.g0, co = cols_hi(a) - body_col0(a);
   const int tail = (a.L - ro) * W, count = tail + ro * (W - co);
@@ -1088,9 +1089,14 @@ __device__ inline void seg_pad_copy(const Args& a) {
   for (int v = (blockIdx.x * blockDim.x + threadIdx.x) >> 5; v < count; v += nw) {
     const int t = v < tail ? ro + v / W : (v - tail) / (W - co);
     const int j = v < tail ? v % W : co + (v - tail) % (W - co);
-    const float* u = in_row(a, a.g0 + t, body_col0(a) + j);
-    float* o = store_row(a, a.g0 + t, body_col0(a) + j);
-    for (int k = lane; k < n; k += 32) o[k] = u[k];
+    if constexpr (ZERO) {
+      float* o = store_row(a, a.g0 + t, body_col0(a) + j);
+      for (int k = lane; k < n; k += 32) o[k] = 0.0f;
+    } else {
+      const float* u = in_row(a, a.g0 + t, body_col0(a) + j);
+      float* o = store_row(a, a.g0 + t, body_col0(a) + j);
+      for (int k = lane; k < n; k += 32) o[k] = u[k];
+    }
   }
 }
 

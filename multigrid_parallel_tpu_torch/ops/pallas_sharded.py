@@ -14,7 +14,7 @@ multigrid_parallel_tpu/ops/pallas_sharded.py, and CUDA source in
 ops/csrc/:
 
   K28 rb_smooth_ext / _halo                 :209 / :881   rb_smooth_seg_stage.cu
-  K29 rb_smooth_from_zero_ext / _halo       :231 / :902   rb_smooth_seg.cu
+  K29 rb_smooth_from_zero_ext / _halo       :231 / :902   rb_smooth_seg_stage.cu
   K30 residual_restrict_ext / _halo         :495 / :964   residual_restrict_seg.cu
   K31 prolong_smooth_ext / _halo            :641 / :1078  prolong_smooth_seg.cu
   K32 residual_df_norm_ext / _halo          :365 / :922   residual_df_norm_seg.cu
@@ -40,12 +40,13 @@ Like the single-device wrappers (``ops.pallas3d``): a CPU tensor takes
 the plain version, a CUDA tensor (float32, contiguous) the kernel, and
 anything else raises; there is no fallback. Every wrapper returns fresh
 tensors and leaves its inputs as they were. Each kernel launch adds one to
-``LAUNCHES`` (K29's K28 half-sweeps, and K28's and K31's past n_iter 2,
-count as theirs; K32's partials-and-sum pair counts once). K28 and K31 at
-n_iter <= 2 are one launch each of K1's and K4's one-pass stages on the
-segments (ops/csrc/rect.cuh, ``Layout::kSegRect``). K30 is one launch of
-K3's streaming restriction stage on the segments (ops/csrc/restrict.cuh,
-``SegLayout``).
+``LAUNCHES`` (past n_iter 2 every launch of a K28, K29 or K31 call counts
+as the call's, K29's K28 half-sweeps included; K32's partials-and-sum pair
+counts once). K28, K29 and K31 at n_iter <= 2 are one launch each of K1's,
+K2's and K4's one-pass stages on the segments (ops/csrc/rect.cuh,
+``Layout::kSegRect``; K29's from a zero tile, f alone read). K30 is one
+launch of K3's streaming restriction stage on the segments
+(ops/csrc/restrict.cuh, ``SegLayout``).
 """
 
 from __future__ import annotations
@@ -276,15 +277,30 @@ def rb_smooth_from_zero_halo_plain(f3, gi0, h: float, n_iter: int, n: int, L: in
 def rb_smooth_from_zero_halo(f3, gi0, h: float, n_iter: int, n: int, L: int,
                              red_first: bool = True, block_i: int = 8):
     """rb_smooth_halo from an implicit zero initial guess: a fresh (L, n,
-    n) block. The CUDA form's first launch reads only f and writes the
-    body and two H-plane scratch buffers; then 2 n_iter - 1 K28 launches,
-    all counted as K29's."""
+    n) block, its pad rows (past n - 1) 0 (f3 is left as it is). The CUDA
+    form for n_iter <= 2 is one launch of K2's one-pass stage on f's
+    segments (a zero tile; bound: f's rows read and the body written, 8 B
+    a point). Past n_iter 2 it keeps its first form, which no solve runs: a
+    launch that reads only f and writes the body and two H-plane scratch
+    buffers, then 2 n_iter - 1 K28 half-sweep launches, all counted as
+    K29's."""
     del block_i
+    if n_iter < 1:
+        raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     hh = 2 * n_iter
     f = _seg(f3, hh, hh, L)
     if not _segs_on_cuda(n, f):
         return rb_smooth_from_zero_halo_plain(f3, gi0, h, n_iter, n, L, red_first)
     lib, stream, g0 = pk._lib(), pk._stream(), _gi0_int(gi0) + hh
+    if n_iter <= 2:
+        out = f.body.new_empty((L, n, n))
+        pk._check(lib.mg_seg_smooth_from_zero_stage(
+            out.data_ptr(), *_ptrs(f), hh, L, hh, n, g0, h * h, int(red_first),
+            *ps._plan_args(n, n_iter, f.body.device, rect=True,
+                           seg_planes=seg_rect_planes(g0, L, n)), stream),
+            "rb_smooth_from_zero_halo")
+        LAUNCHES["rb_smooth_from_zero_seg"] += 1
+        return out
     out = _Seg(f.body.new_empty((hh, n, n)), torch.empty_like(f.body),
                f.body.new_empty((hh, n, n)), 0)
     first, second = pk._colors(red_first)
@@ -498,10 +514,10 @@ def prolong_smooth_halo_plain(ec3, e3, r3, gi0, h: float, n_iter: int, n: int, L
 
 
 def seg_rect_planes(g0: int, L: int, n: int) -> int:
-    """The planes (or, of an (i, j) block, the columns) that a K28, K31,
-    K37 or K40 launch tiles from the global index ``g0`` of body row 0 and
-    L rows (rect.cuh, seg_rect_geometry): the rank's rows clipped to n - 1;
-    at least 1, the plan of a rank of pad rows only."""
+    """The planes (or, of an (i, j) block, the columns) that a K28, K29,
+    K31, K37, K38 or K40 launch tiles from the global index ``g0`` of body
+    row 0 and L rows (rect.cuh, seg_rect_geometry): the rank's rows clipped
+    to n - 1; at least 1, the plan of a rank of pad rows only."""
     return max(1, min(g0 + L, n) - g0)
 
 

@@ -18,7 +18,7 @@ multigrid_parallel_tpu/ops/pallas_sharded2d.py, and CUDA source in
 ops/csrc/:
 
   K37 rb_smooth_ext2d / _halo2d                :226 / :927    rb_smooth_seg_stage.cu
-  K38 rb_smooth_from_zero_ext2d / _halo2d      :246 / :952    rb_smooth_seg.cu
+  K38 rb_smooth_from_zero_ext2d / _halo2d      :246 / :952    rb_smooth_seg_stage.cu
   K39 residual_restrict_ext2d / _halo2d        :370 / :1021   residual_restrict_seg.cu
   K40 prolong_smooth_ext2d / _halo2d           :522 / :1144   prolong_smooth_seg.cu
   K41 residual_df_norm_ext2d / _halo2d         :666 / :973    residual_df_norm_seg.cu
@@ -54,11 +54,12 @@ Like the i-sharded wrappers (``ops.pallas_sharded``): a CPU tensor takes
 the plain version, a CUDA tensor (float32, unit stride in k, k rows of
 n) the kernel, and anything else raises; there is no fallback. Every
 wrapper returns fresh tensors and leaves its inputs as they were. Each
-kernel launch adds one to ``LAUNCHES`` (K38's K37 half-sweeps, and K37's
-and K40's past n_iter 2, count as theirs; K41's partials-and-sum pair
-counts once). K37 and K40 at n_iter <= 2 are one launch each of K1's and
-K4's one-pass stages on the 2D segments (ops/csrc/rect.cuh,
-``Layout::kSegRect`` on ``Seg2``). K39 is one launch of K3's streaming
+kernel launch adds one to ``LAUNCHES`` (past n_iter 2 every launch of a
+K37, K38 or K40 call counts as the call's, K38's K37 half-sweeps included;
+K41's partials-and-sum pair counts once). K37, K38 and K40 at n_iter <= 2
+are one launch each of K1's, K2's and K4's one-pass stages on the 2D
+segments (ops/csrc/rect.cuh, ``Layout::kSegRect`` on ``Seg2``; K38's from
+a zero tile, f alone read). K39 is one launch of K3's streaming
 restriction stage on them (ops/csrc/restrict.cuh, ``SegLayout`` on
 ``Seg2``).
 """
@@ -378,16 +379,28 @@ def rb_smooth_from_zero_halo2d_plain(f3, gij0, h: float, n_iter: int, n: int, L:
 
 
 def _rb_smooth_from_zero(f: _Seg2, gij0, h, n_iter, n, red_first, what):
+    if n_iter < 1:
+        raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     hh = 2 * n_iter
     L, Lj = f.body.shape[:2]
     if not _on_cuda(n, f):
         return _rb_smooth_from_zero_plain(f, gij0, h, n_iter, n, red_first)
     gi, gj = _gij(gij0)
     lib, stream = pk._lib(), pk._stream()
+    g0, gj0 = gi + hh, gj + hh
+    if n_iter <= 2:
+        out = f.body.new_empty((L, Lj, n))
+        pk._check(lib.mg_seg2d_smooth_from_zero_stage(
+            out.data_ptr(), f.desc(), f.kr, f.jr.shape[1], L, Lj, n, g0, gj0, h * h,
+            int(red_first), *ps._plan_args(n, n_iter, f.body.device, rect=True,
+                                           seg_planes=px.seg_rect_planes(g0, L, n),
+                                           seg_cols=px.seg_rect_planes(gj0, Lj, n)), stream),
+            what)
+        LAUNCHES["rb_smooth_from_zero_seg2d"] += 1
+        return out
     out = _fresh(f.body, hh)
     od, fd = out.desc(), f.desc()
     first, second = pk._colors(red_first)
-    g0, gj0 = gi + hh, gj + hh
     pk._check(lib.mg_seg2d_half_sweep_from_zero(od, fd, hh, L, Lj, n, g0, gj0, h * h, first,
                                                 stream), what)
     LAUNCHES["rb_smooth_from_zero_seg2d"] += 1
@@ -400,9 +413,14 @@ def _rb_smooth_from_zero(f: _Seg2, gij0, h, n_iter, n, red_first, what):
 def rb_smooth_from_zero_halo2d(f3, gij0, h: float, n_iter: int, n: int, L: int, sjl: int,
                                red_first: bool = True, block_i: int = 8):
     """rb_smooth_halo2d from an implicit zero initial guess: a fresh (L,
-    sjl, n) block. The CUDA form's first launch reads only f and writes the
-    body and four H-deep scratch buffers; then 2 n_iter - 1 K37 launches,
-    all counted as K38's."""
+    sjl, n) block, its pad rows and columns (past n - 1) 0 (f3 is left as
+    it is). The CUDA form for n_iter <= 2 is one launch of K2's one-pass
+    stage on f's 2D segments (a zero tile, a row's pointer looked up once,
+    the corner blocks read where a block meets both halos; bound: f's
+    points read and the body written, 8 B a point). Past n_iter 2 it keeps
+    its first form, which no solve runs: a launch that reads only f and
+    writes the body and four H-deep scratch buffers, then 2 n_iter - 1 K37
+    half-sweep launches, all counted as K38's."""
     del block_i
     hh = 2 * n_iter
     return _rb_smooth_from_zero(_seg2(f3, L, sjl, hh, hh, hh, hh), gij0, h, n_iter, n,

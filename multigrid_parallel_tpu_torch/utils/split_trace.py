@@ -199,7 +199,8 @@ STAGE_KERNELS = {"rect_prolong_stage_kernel": "K4", "split_prolong_stage_kernel"
                  "mixed_seg_stage_kernel": "K35", "mixed_seg_prolong_stage_kernel": "K36",
                  "seg_mixed_prolong_correct_black_kernel": "K36",
                  "seg_half_sweep_kernel": "K28", "seg_prolong_correct_black_kernel": "K31",
-                 "seg_prolong_stage_kernel": "K31", "seg_smooth_stage_kernel": "K28"}
+                 "seg_prolong_stage_kernel": "K31", "seg_smooth_stage_kernel": "K28",
+                 "seg_smooth_from_zero_stage_kernel": "K29"}
 # the i-sharded Dirichlet kernels' (i, j) twins: the same templates on the 2D
 # accessor (their names' template arguments hold Seg2: Seg2StageArgs for the
 # one-pass K40), or "K28|K37" where the trace drops the arguments
@@ -268,13 +269,14 @@ def stage_label(name):
     (``stage_calls``). The i-sharded Dirichlet solve's:
     seg_half_sweep_kernel heads K28, seg_half_sweep_from_zero_kernel K29,
     seg_prolong_correct_black_kernel K31's first form, each followed by its
-    half-sweeps, and seg_smooth_stage_kernel and seg_prolong_stage_kernel
-    are K28's and K31's one-pass stages; each is its (i, j) twin (K37, K38,
-    K40) where its template arguments hold Seg2."""
+    half-sweeps, and the one-pass stages seg_smooth_stage_kernel (K28),
+    seg_smooth_from_zero_stage_kernel (K29) and seg_prolong_stage_kernel
+    (K31); each is its (i, j) twin (K37, K38, K40) where its template
+    arguments hold Seg2."""
     base, _, args = name.partition("<")
     if base in ("seg_half_sweep_kernel", "seg_half_sweep_from_zero_kernel",
                 "seg_prolong_correct_black_kernel", "seg_prolong_stage_kernel",
-                "seg_smooth_stage_kernel"):
+                "seg_smooth_stage_kernel", "seg_smooth_from_zero_stage_kernel"):
         return _seg_label(base, args, STAGE_KERNELS)
     args = [a.strip() for a in args.rstrip(">").split(",")] if args else []
     if base == "rect_stage_kernel":
@@ -463,8 +465,9 @@ def _seg_sizes(hier, sms, plan):
             add("seg_restrict_kernel", stage.blocks, stage.smem)
         except (TypeError, AttributeError):
             pass
-        # K28's and K31's one-pass stages take K35's and K36's plans: the same planes
-        for names, prolong in ((("mixed_seg_stage_kernel", "seg_smooth_stage_kernel"), False),
+        # K28's, K29's and K31's one-pass stages take K35's and K36's plans: the same planes
+        for names, prolong in ((("mixed_seg_stage_kernel", "seg_smooth_stage_kernel",
+                                 "seg_smooth_from_zero_stage_kernel"), False),
                                (("mixed_seg_prolong_stage_kernel", "seg_prolong_stage_kernel"),
                                 True)):
             try:  # a checkout without the one-pass segment stages
@@ -484,9 +487,10 @@ def _seg2d_sizes(hier, sms, plan):
     as _seg_sizes: the first forms' one thread a point of the rows and
     columns they span (K37's half-sweeps (Li + 6) (Lj + 6) n, K38's and
     K40's heads (Li + 8) (Lj + 8) n; K39 a coarse point of its (Li / 2, Lj /
-    2) block), K37's and K40's one-pass stages from their plans of the
-    planes and rows they tile and K39's streaming stage from its plan of
-    the block's interior rows and columns (where the package has them)."""
+    2) block), K37's, K38's and K40's one-pass stages from their plans of
+    the planes and rows they tile and K39's streaming stage from its plan
+    of the block's interior rows and columns (where the package has
+    them)."""
     from multigrid_parallel_tpu_torch.ops import pallas_sharded as px
     from multigrid_parallel_tpu_torch.ops import pallas_split as ps
 
@@ -509,14 +513,15 @@ def _seg2d_sizes(hier, sms, plan):
             add("seg_restrict_kernel", stage.blocks, stage.smem)
         except (TypeError, AttributeError):
             pass
-        for name, prolong in (("seg_smooth_stage_kernel", False),
-                              ("seg_prolong_stage_kernel", True)):
+        for names, prolong in ((("seg_smooth_stage_kernel", "seg_smooth_from_zero_stage_kernel"),
+                                False), (("seg_prolong_stage_kernel",), True)):
             try:  # a checkout without K40's one-pass stage
                 stage = ps._stage_plan(n, 2, sms, prolong=prolong, rect=True,
                                        seg_planes=min(li, n), seg_cols=min(lj, n))
             except TypeError:
                 break
-            add(name, stage.blocks, stage.smem)
+            for name in names:
+                add(name, stage.blocks, stage.smem)
     return out
 
 

@@ -2,9 +2,9 @@
 ``--fold`` the same stage on the electrospray's fold layout (K17's, K16's
 on a loaded field, and K19's), with ``--mixed`` on its full layout (K14's
 and K15's), with ``--seg`` on one rank's segments of an i-sharded field
-(K35's and K36's), with ``--seg-rect`` K4's and K1's Dirichlet stages
-there (K31's and K28's) and on one rank's block of an (i, j)-sharded field
-(K40's and K37's), with
+(K35's and K36's), with ``--seg-rect`` K4's, K1's and K2's Dirichlet
+stages there (K31's, K28's and K29's) and on one rank's block of an (i,
+j)-sharded field (K40's, K37's and K38's), with
 ``--seg-restrict`` the streaming restriction stage there (K30's and K39's,
 K3's beside them), with ``--msplit`` the split pair's mixed stage (K22's and
 K24's, ops/csrc/split.cuh with MIXED), or, with ``--restrict``, the
@@ -18,21 +18,24 @@ block sizes, each held bit for bit against its plain version.
                                                              [--restrict | --fold | --mixed
                                                               | --seg | --seg-rect
                                                               | --seg-restrict | --msplit]
+                                                             [--kernels K29 K38 K2 ...]
 
 For each size and kernel (K2 from zero, K4, both at n_iter 2; K17, K16 and
 K19 likewise, with the electrospray's pins and coarse signs; K14 and K15
 with its pins; K35 and K36 likewise on rank 1's segments of L = 320 and 96
 planes (rank 0's where the level has no rank 1: one rank's L = 320, four
 ranks' L = 96 at 129^3), by default at 129^3 and 257^3, the plans tiling
-the rank's planes; K31 and K28 at n_iter 2 on the production segments of
-the level (one rank's L = 320 (n - 1) / 256 and rank 1's of four ranks' L
-= 96 (n - 1) / 256) and K40 and K37 on its production blocks (the 1x1
-block of 272 (n - 1) / 256 rows and columns, rank (0, 0)'s of the 2x2
-mesh's 144 (n - 1) / 256), by default at 129^3 and 257^3, the plans tiling
-the rank's planes and rows, with the first form (4 launches a call: K31's
-and K40's correction and 3 half-sweeps, K28's and K37's 4 half-sweeps,
-their device times summed) as the plan "first_form", and K1 on the level
-on its planner's plan; K22 and K24 with its pin packs and coarse signs, on
+the rank's planes; K31, K28 and K29 at n_iter 2 on the production
+segments of the level (one rank's L = 320 (n - 1) / 256 and, from 17^3
+up, rank 1's of four ranks' L = 96 (n - 1) / 256) and K40, K37 and K38 on
+its production blocks from 33^3 up (the 1x1 block of 272 (n - 1) / 256
+rows and columns, rank (0, 0)'s of the 2x2 mesh's 144 (n - 1) / 256), by
+default at 129^3 and 257^3, the plans tiling the rank's planes and rows,
+with the first form (4 launches a call: K31's and K40's correction and 3
+half-sweeps, K28's and K37's 4 half-sweeps, K29's and K38's from-zero
+launch and 3 half-sweeps, their device times summed) as the plan
+"first_form", and K1 and K2 on the level on their planner's plan
+(``--kernels`` picks some of these); K22 and K24 with its pin packs and coarse signs, on
 the msplit planner's plan, K7's and K10's and wavefront plans of several
 block sizes; or K3, K9 and K18, K18's first form as the plan "first_form";
 or K30 and K39 on the production segments and blocks of the level (as
@@ -447,20 +450,22 @@ def time_seg(n, L, sms, reps, dev):
                   flush=True)
 
 
-def time_seg_rect(n, sms, reps, dev):
-    """One JSON line a (kernel, segment, plan) at level n: K31 and K28 (red
-    first) at n_iter 2 on the one-rank segment (L = 320 (n - 1) / 256, rank
-    0) and on rank 1's of four (L = 96 (n - 1) / 256), and K40 and K37 on
-    the 1x1 block (272 (n - 1) / 256 rows and columns) and on rank (0, 0)'s
-    of the 2x2 mesh (144 (n - 1) / 256), of random fields, zeros past the
-    chain ends: each candidate plan of the rank's planes and rows
-    (``candidates``) launched through the segment launchers, and the first
-    form ("first_form": K31's and K40's correction launch and 3 half-sweep
-    launches, K28's and K37's 4 half-sweep launches on a copy of u's
-    segments, a call's device time their sum); then K1's stage on the level
-    on its planner's plan; each output against the plain version, with the
-    median device time a call over ``reps`` calls from a trace of its
-    own."""
+def time_seg_rect(n, sms, reps, dev, kernels=None):
+    """One JSON line a (kernel, segment, plan) at level n: K31, K28 and K29
+    (red first) at n_iter 2 on the one-rank segment (L = 320 (n - 1) / 256,
+    rank 0) and on rank 1's of four (L = 96 (n - 1) / 256, from 17^3 up),
+    and K40, K37 and K38 on the 1x1 block (272 (n - 1) / 256 rows and
+    columns) and on rank (0, 0)'s of the 2x2 mesh (144 (n - 1) / 256), from
+    33^3 up (the levels that the production plans shard), of random fields,
+    zeros past the chain ends: each candidate plan of the rank's planes and
+    rows (``candidates``) launched through the segment launchers, and the
+    first form ("first_form": K31's and K40's correction launch and 3
+    half-sweep launches, K28's and K37's 4 half-sweep launches on a copy of
+    u's segments, K29's and K38's from-zero launch and 3 half-sweep
+    launches, a call's device time their sum); then K1's and K2's stages on
+    the level on their planner's plan; only the ``kernels`` named (all by
+    default); each output against the plain version, with the median device
+    time a call over ``reps`` calls from a trace of its own."""
     from multigrid_parallel_tpu_torch.ops import pallas_sharded as px
     from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as px2
 
@@ -510,6 +515,30 @@ def time_seg_rect(n, sms, reps, dev):
             return w.body
         return run
 
+    def first_zero_1d(f, L, g0):
+        def run():
+            out = px._Seg(f.body.new_empty((hh, n, n)), torch.empty_like(f.body),
+                          f.body.new_empty((hh, n, n)), 0)
+            pk._check(lib.mg_seg_half_sweep_from_zero(*px._ptrs(out)[:3], *px._ptrs(f), hh, L, hh,
+                                                      n, g0, h * h, 1, stream), "stage_plans")
+            for color in (0, 1, 0):
+                pk._check(lib.mg_seg_half_sweep(*px._ptrs(out), *px._ptrs(f), hh, L, hh, n, g0,
+                                                h * h, color, stream), "stage_plans")
+            return out.body
+        return run
+
+    def first_zero_2d(f, L, Lj, g0, gj0):
+        def run():
+            out = px2._fresh(f.body, hh)
+            od, fd = out.desc(), f.desc()
+            pk._check(lib.mg_seg2d_half_sweep_from_zero(od, fd, hh, L, Lj, n, g0, gj0, h * h, 1,
+                                                        stream), "stage_plans")
+            for color in (0, 1, 0):
+                pk._check(lib.mg_seg2d_half_sweep(od, fd, hh, L, Lj, n, g0, gj0, h * h, color,
+                                                  stream), "stage_plans")
+            return out.body
+        return run
+
     def first_smooth_2d(u, f, L, Lj, g0, gj0):
         def run():
             w = px2._Seg2(*(t.clone(memory_format=torch.contiguous_format) for t in u.parts()),
@@ -522,7 +551,8 @@ def time_seg_rect(n, sms, reps, dev):
         return run
 
     cases = []
-    for L, rank in ((320 * (n - 1) // 256, 0), (96 * (n - 1) // 256, 1)):
+    segments = [(320 * (n - 1) // 256, 0)] + ([(96 * (n - 1) // 256, 1)] if n >= 17 else [])
+    for L, rank in segments:
         ranks = max(rank + 2, -(-n // L))
         e, f, ec = rnd(ranks * L, n, n), rnd(ranks * L, n, n), rnd(ranks * L // 2, nc, nc)
         gi0, g0 = rank * L - hh, rank * L
@@ -546,6 +576,13 @@ def time_seg_rect(n, sms, reps, dev):
                 *args(plan)), "stage_plans")
             return out
 
+        def k29(plan, L=L, g0=g0, fs=fs):
+            out = torch.empty((L, n, n), device=dev)
+            pk._check(lib.mg_seg_smooth_from_zero_stage(
+                out.data_ptr(), *px._ptrs(fs), hh, L, hh, n, g0, h * h, 1, *args(plan)),
+                "stage_plans")
+            return out
+
         where = {"L": L, "rank": rank}
         cases.append(("K31", where, k31, candidates(n, True, sms, planes),
                       first_form_1d(cs, es_, fs, L, g0),
@@ -553,7 +590,11 @@ def time_seg_rect(n, sms, reps, dev):
         cases.append(("K28", where, k28, candidates(n, False, sms, planes),
                       first_smooth_1d(es_, fs, L, g0),
                       px.rb_smooth_halo_plain(e3, f3, gi0, h, n_iter, n, L, True)))
-    for w, (nx, ix) in ((272 * (n - 1) // 256, (1, 0)), (144 * (n - 1) // 256, (2, 0))):
+        cases.append(("K29", where, k29, candidates(n, False, sms, planes),
+                      first_zero_1d(fs, L, g0),
+                      px.rb_smooth_from_zero_halo_plain(f3, gi0, h, n_iter, n, L, True)))
+    blocks = ((272 * (n - 1) // 256, (1, 0)), (144 * (n - 1) // 256, (2, 0))) if n >= 33 else ()
+    for w, (nx, ix) in blocks:
         E, F, EC = rnd(nx * w, nx * w, n), rnd(nx * w, nx * w, n), rnd(nx * w // 2, nx * w // 2,
                                                                            nc)
         e5 = seg_parts2d(E, ix, ix, w, hh, hh)
@@ -579,6 +620,13 @@ def time_seg_rect(n, sms, reps, dev):
                 *args(plan)), "stage_plans")
             return out
 
+        def k38(plan, w=w, g0=g0, fs=fs):
+            out = torch.empty((w, w, n), device=dev)
+            pk._check(lib.mg_seg2d_smooth_from_zero_stage(
+                out.data_ptr(), fs.desc(), hh, hh, w, w, n, g0, g0, h * h, 1, *args(plan)),
+                "stage_plans")
+            return out
+
         where = {"Li": w, "Lj": w, "rank": [ix, ix], "mesh": [nx, nx]}
         cases.append(("K40", where, k40, candidates(n, True, sms, extent, extent),
                       first_form_2d(cs, es_, fs, w, w, g0, g0),
@@ -588,11 +636,19 @@ def time_seg_rect(n, sms, reps, dev):
                       first_smooth_2d(es_, fs, w, w, g0, g0),
                       px2.rb_smooth_halo2d_plain(e5, f5, (g0 - hh, g0 - hh), h, n_iter, n, w, w,
                                                  True)))
+        cases.append(("K38", where, k38, candidates(n, False, sms, extent, extent),
+                      first_zero_2d(fs, w, w, g0, g0),
+                      px2.rb_smooth_from_zero_halo2d_plain(f5, (g0 - hh, g0 - hh), h, n_iter, n,
+                                                           w, w, True)))
     u, f = rnd(n, n, n), rnd(n, n, n)
-    cases.append(("K1", {}, lambda plan: launch(plan, f, h, u=u),
-                  {"planner": ps._stage_plan(n, n_iter, sms, rect=True)}, None,
+    planner = {"planner": ps._stage_plan(n, n_iter, sms, rect=True)}
+    cases.append(("K1", {}, lambda plan: launch(plan, f, h, u=u), planner, None,
                   pk.rb_smooth_plain(u, f, h, n_iter, True)))
+    cases.append(("K2", {}, lambda plan: launch(plan, f, h), planner, None,
+                  pk.rb_smooth_from_zero_plain(f, h, n_iter, True)))
     for kernel, where, launch_on, plans, first, want in cases:
+        if kernels and kernel not in kernels:
+            continue
         extra = [] if first is None else [("first_form", None)]
         for label, plan in list(plans.items()) + extra:
             run = first if plan is None else (lambda plan=plan: launch_on(plan))
@@ -600,7 +656,7 @@ def time_seg_rect(n, sms, reps, dev):
             torch.cuda.synchronize()
             intervals = kernel_intervals(lambda: [run() for _ in range(reps)])
             per = [(b - a) / 1e3 for a, b, name, *_ in intervals
-                   if ("rect_stage" if kernel == "K1" else "seg_") in name]
+                   if ("rect_stage" if kernel in ("K1", "K2") else "seg_") in name]
             calls = [sum(per[i:i + 4]) for i in range(0, len(per), 4)] if plan is None else per
             row = {"n": n, "kernel": kernel, **where, "plan": label, "exact": exact,
                    "device_ms": statistics.median(calls) if calls else None}
@@ -730,6 +786,8 @@ def main(argv=None) -> int:
     parser.add_argument("--sizes", type=int, nargs="+",
                         help="level sizes (default 9 17 33 65 129; with --seg 129 257)")
     parser.add_argument("--reps", type=int, default=20)
+    parser.add_argument("--kernels", nargs="+",
+                        help="with --seg-rect: time only these (K1 K2 K28 K29 K31 K37 K38 K40)")
     group = parser.add_mutually_exclusive_group()
     group.add_argument("--restrict", action="store_true",
                        help="time K3's, K9's and K18's restriction stage (and K18's first "
@@ -742,8 +800,8 @@ def main(argv=None) -> int:
                        help="time K35's and K36's stages on segments of 320 and 96 planes "
                             "instead")
     group.add_argument("--seg-rect", action="store_true",
-                       help="time K31's, K28's, K40's and K37's Dirichlet stages on the "
-                            "production segments and blocks, and K1's, instead")
+                       help="time K31's, K28's, K29's, K40's, K37's and K38's Dirichlet stages "
+                            "on the production segments and blocks, and K1's and K2's, instead")
     group.add_argument("--msplit", action="store_true",
                        help="time K22's and K24's mixed stages on the split pair instead")
     group.add_argument("--seg-restrict", action="store_true",
@@ -763,7 +821,7 @@ def main(argv=None) -> int:
                       else [9, 17, 33, 65, 129])
     if args.seg_rect:
         for n in args.sizes:
-            time_seg_rect(n, sms, args.reps, dev)
+            time_seg_rect(n, sms, args.reps, dev, args.kernels)
         return 0
     if args.seg_restrict:
         for n in args.sizes:

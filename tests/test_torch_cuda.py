@@ -1570,7 +1570,7 @@ def test_sharded_kernels_match_plain_and_single_device_on_card(cuda, kernel):
                 lambda r: tpx.rb_smooth_halo_plain(parts(u, r, hh, hh), parts(f, r, hh, hh),
                                                    r * L - hh, h, 2, n, L, False),
                 tpk.rb_smooth_fused(u[:n].clone(), f[:n], h, 2, red_first=False)),
-        "K29": ("rb_smooth_from_zero_seg", 4,
+        "K29": ("rb_smooth_from_zero_seg", 1,  # one-pass: one launch a call
                 lambda r: tpx.rb_smooth_from_zero_halo(parts(f, r, hh, hh), r * L - hh, h, 2,
                                                        n, L),
                 lambda r: tpx.rb_smooth_from_zero_halo_plain(parts(f, r, hh, hh), r * L - hh, h,
@@ -2200,6 +2200,189 @@ def test_seg_smooth_launchers_refuse_what_they_do_not_take(cuda):
     torch.cuda.synchronize()
 
 
+# (n, L, ranks) of K29, K28's: the production segments at 257^3 and 513^3, each level below
+# 257^3 of both plans, the 1x4 j-replicated tier's 9^3 level among them
+K29_CASES = K28_CASES
+# (n, (nx, ny), Li, Lj) of K38, K37's: the 1x1 and 2x2 blocks at 257^3 and below, 17^3 and
+# 9^3 blocks, and 65^3's 1x4 narrow blocks (the last of pad columns only)
+K38_CASES = K37_CASES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,ranks", K29_CASES)
+def test_k29_seg_stage_matches_plain_on_card(cuda, n, L, ranks):
+    """The one-pass K29 stage (K2's from a zero tile) on every rank of the
+    geometry, n_iter 1 and 2 in both orders and n_iter 3 (the first form)
+    red first: each body bit for bit its plain version, on an f random at
+    every plane (the pad rows too, which the body holds as 0), its halo
+    rows past the field NaN, the right buffer composite, the allocator
+    poisoned with NaN before each call; the pad rows 0; exactly one launch
+    a call at n_iter <= 2 (6 at 3); f left as it was; at n_iter 2 the
+    stitched bodies equal K2's on the whole field."""
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+
+    h = 1.0 / (n - 1)
+    rng = np.random.default_rng(1300 + n + L)
+    f = torch.from_numpy(rng.standard_normal((ranks * L, n, n)).astype(np.float32)).to(cuda)
+    for n_iter, red in ((1, True), (1, False), (2, True), (2, False), (3, True)):
+        hh, calls = 2 * n_iter, 1 if n_iter <= 2 else 2 * n_iter
+        outs = []
+        for r in range(ranks):
+            gi0 = r * L - hh
+            f3 = _seg_triples(f, r, L, hh, hh, n, tail=2)
+            before = [t.clone() for t in f3]
+            want = tpx.rb_smooth_from_zero_halo_plain(f3, gi0, h, n_iter, n, L, red)
+            _poison_allocator((L, n, n), cuda)
+            tpx.reset_launches()
+            got = tpx.rb_smooth_from_zero_halo(f3, gi0, h, n_iter, n, L, red)
+            assert tpx.LAUNCHES == {**dict.fromkeys(tpx.KERNELS, 0),
+                                    "rb_smooth_from_zero_seg": calls}
+            assert bool(torch.isfinite(got).all()) and torch.equal(got, want), (n_iter, red, r)
+            assert not got[max(0, n - r * L):].any(), (n_iter, red, r)
+            assert all(_same_with_nan(a, b) for a, b in zip(f3, before))
+            outs.append(got)
+        if n_iter == 2:
+            whole = torch.cat(outs)[:n]
+            assert torch.equal(whole, tpk.rb_smooth_from_zero_fused(f[:n], h, 2, red)), red
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,mesh,li,lj", K38_CASES)
+def test_k38_seg2d_stage_matches_plain_on_card(cuda, n, mesh, li, lj):
+    """The one-pass K38 stage (K2's from a zero tile) on every block of the
+    mesh, n_iter 1 and 2 in both orders and n_iter 3 (the first form) red
+    first: each block bit for bit its plain version, on an f random at
+    every point (the pad rows and columns too, which the block holds as 0),
+    its halo points past the field NaN (corner blocks included), the
+    allocator poisoned with NaN before each call; the pad rows and columns
+    0; exactly one launch a call at n_iter <= 2 (6 at 3); f left as it was;
+    at n_iter 2 the stitched blocks equal K2's on the whole field."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as tpx2
+
+    (nx, ny), h = mesh, 1.0 / (n - 1)
+    rng = np.random.default_rng(1400 + n + li + lj)
+    f = torch.from_numpy(rng.standard_normal((nx * li, ny * lj, n)).astype(np.float32)).to(cuda)
+    for n_iter, red in ((1, True), (1, False), (2, True), (2, False), (3, True)):
+        hh, calls = 2 * n_iter, 1 if n_iter <= 2 else 2 * n_iter
+        outs = {}
+        for ix in range(nx):
+            for iy in range(ny):
+                g0, gj0 = ix * li, iy * lj
+                f5 = _nan_past_field(rk.rank_parts2d(f, ix, iy, li, lj, hh, hh, tail=2), g0, gj0,
+                                     li, lj, hh, hh, n)
+                before = [t.clone() for t in f5]
+                gij0 = (g0 - hh, gj0 - hh)
+                want = tpx2.rb_smooth_from_zero_halo2d_plain(f5, gij0, h, n_iter, n, li, lj, red)
+                _poison_allocator((li, lj, n), cuda)
+                tpx2.reset_launches()
+                got = tpx2.rb_smooth_from_zero_halo2d(f5, gij0, h, n_iter, n, li, lj, red)
+                assert tpx2.LAUNCHES == {**dict.fromkeys(tpx2.KERNELS, 0),
+                                         "rb_smooth_from_zero_seg2d": calls}
+                assert bool(torch.isfinite(got).all()) and torch.equal(got, want), (
+                    n_iter, red, ix, iy)
+                assert not got[max(0, n - g0):].any() and not got[:, max(0, n - gj0):].any()
+                assert all(_same_with_nan(a, b) for a, b in zip(f5, before))
+                outs[ix, iy] = got
+        if n_iter == 2:
+            whole = _stitch2d(lambda ix, iy: outs[ix, iy], nx, ny)[:n, :n].contiguous()
+            assert torch.equal(whole, tpk.rb_smooth_from_zero_fused(f[:n, :n].contiguous(), h, 2,
+                                                                    red)), red
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 65, 129])
+def test_seg_from_zero_on_candidate_plans_on_card(cuda, n):
+    """K29's and K38's stages on every candidate plan of the stage bench
+    (utils.stage_plans.candidates) launched directly, black first: bit for
+    bit their plain versions on NaN-poisoned outputs; K29 on the last of
+    four ranks (a pad tail; at 17^3 pad only), K38 on the (1, 1) block of a
+    2x2 mesh, its halos and corner block from the other three."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as tpx2
+    from multigrid_parallel_tpu_torch.utils.stage_plans import candidates
+
+    h, hh = 1.0 / (n - 1), 4
+    lib, stream = tpk._lib(), tpk._stream()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(1500 + n)
+
+    def args(plan):
+        return (plan.n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem,
+                int(plan.box), stream)
+
+    L = 2 * ((n + 3) // 8 + 1)
+    f = torch.from_numpy(rng.standard_normal((4 * L, n, n)).astype(np.float32)).to(cuda)
+    f3 = rk.rank_parts(f, 3, L, hh, hh)
+    fs = tpx._seg(f3, hh, hh, L)
+    want = tpx.rb_smooth_from_zero_halo_plain(f3, 3 * L - hh, h, 2, n, L, False)
+    for label, plan in candidates(n, False, sms, tpx.seg_rect_planes(3 * L, L, n)).items():
+        out = torch.full((L, n, n), float("nan"), device=cuda)
+        assert lib.mg_seg_smooth_from_zero_stage(out.data_ptr(), *tpx._ptrs(fs), hh, L, hh, n,
+                                                 3 * L, h * h, 0, *args(plan)) == 0, label
+        assert torch.equal(out, want), label
+    li = lj = 2 * ((n + 3) // 4)
+    f2 = torch.from_numpy(rng.standard_normal((2 * li, 2 * lj, n)).astype(np.float32)).to(cuda)
+    f5 = rk.rank_parts2d(f2, 1, 1, li, lj, hh, hh)
+    fs2 = tpx2._seg2(f5, li, lj, hh, hh, hh, hh)
+    want = tpx2.rb_smooth_from_zero_halo2d_plain(f5, (li - hh, lj - hh), h, 2, n, li, lj, False)
+    extent = (tpx.seg_rect_planes(li, li, n), tpx.seg_rect_planes(lj, lj, n))
+    for label, plan in candidates(n, False, sms, *extent).items():
+        out = torch.full((li, lj, n), float("nan"), device=cuda)
+        assert lib.mg_seg2d_smooth_from_zero_stage(out.data_ptr(), fs2.desc(), hh, hh, li, lj,
+                                                   n, li, lj, h * h, 0, *args(plan)) == 0, label
+        assert torch.equal(out, want), label
+
+
+@pytest.mark.cuda
+def test_seg_from_zero_launchers_refuse_what_they_do_not_take(cuda):
+    """The K29 and K38 launchers refuse a plan whose shared memory is not
+    the kernel's, an f halo shorter than 2 n_iter (K29: the left or the
+    right rows; K38: also the j columns), and an output that meets f (its
+    body, a halo buffer); the wrappers' own arguments succeed."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as tpx2
+
+    n, L, r, n_iter, hh = 33, 16, 1, 2, 4
+    h2 = (1.0 / (n - 1)) ** 2
+    _, f, _ = _sharded_fields(cuda, n, L)
+    lib, stream, ptrs = tpk._lib(), tpk._stream(), tpx._ptrs
+    fs = tpx._seg(rk.rank_parts(f, r, L, hh, hh), hh, hh, L)
+    plan = tps._plan_args(n, n_iter, cuda, rect=True, seg_planes=tpx.seg_rect_planes(r * L, L, n))
+    bad = plan[:6] + (plan[6] + 16,) + plan[7:]
+    out = torch.empty((L, n, n), device=cuda)
+
+    def k29(kl, kr, p, o=out):
+        return lib.mg_seg_smooth_from_zero_stage(o.data_ptr(), *ptrs(fs), kl, L, kr, n, r * L,
+                                                 h2, 1, *p, stream)
+
+    assert k29(hh, hh, plan) == 0
+    assert k29(hh, hh, bad) != 0 and k29(hh - 1, hh, plan) != 0 and k29(hh, hh - 1, plan) != 0
+    assert k29(hh, hh, plan, fs.body) != 0 and k29(hh, hh, plan, fs.lh) != 0
+    assert k29(hh, hh, plan, fs.rh) != 0 and k29(hh, hh, plan, fs.body[1:]) != 0
+    li = lj = 18
+    _, f2, _ = _blocks2d(cuda, n, li, lj)
+    f5 = tpx2._seg2(rk.rank_parts2d(f2, 1, 1, li, lj, hh, hh), li, lj, hh, hh, hh, hh)
+    plan2 = tps._plan_args(n, n_iter, cuda, rect=True, seg_planes=tpx.seg_rect_planes(li, li, n),
+                           seg_cols=tpx.seg_rect_planes(lj, lj, n))
+    bad2 = plan2[:6] + (plan2[6] + 16,) + plan2[7:]
+    out2 = torch.empty((li, lj, n), device=cuda)
+
+    def k38(kr, hjr, p, f=f5, o=out2):
+        return lib.mg_seg2d_smooth_from_zero_stage(o.data_ptr(), f.desc(), kr, hjr, li, lj, n,
+                                                   li, lj, h2, 1, *p, stream)
+
+    assert k38(hh, hh, plan2) == 0
+    assert k38(hh, hh, bad2) != 0 and k38(hh - 1, hh, plan2) != 0 and k38(hh, hh - 1, plan2) != 0
+    short = tpx2._Seg2(f5.body, f5.jl[:, 1:], f5.jr, f5.lh, f5.rh, f5.r_off)  # a j halo of 3
+    assert k38(hh, hh, plan2, short) != 0
+    for part in f5.parts():
+        assert k38(hh, hh, plan2, o=part) != 0
+    torch.cuda.synchronize()
+
+
 # --------------------------------- the i-sharded electrospray kernels K34-K36
 
 
@@ -2496,7 +2679,7 @@ def test_sharded2d_kernels_match_plain_and_single_device_on_card(cuda, kernel):
                                                            p5(f, ix, iy, hh, hh), g(ix, iy, hh),
                                                            h, 2, n, li, lj, True),
                 tpk.rb_smooth_fused(cube(u), cube(f), h, 2, red_first=True)),
-        "K38": ("rb_smooth_from_zero_seg2d", 4,
+        "K38": ("rb_smooth_from_zero_seg2d", 1,  # one-pass: one launch a call
                 lambda ix, iy: tpx2.rb_smooth_from_zero_halo2d(p5(f, ix, iy, hh, hh),
                                                                g(ix, iy, hh), h, 2, n, li, lj),
                 lambda ix, iy: tpx2.rb_smooth_from_zero_halo2d_plain(

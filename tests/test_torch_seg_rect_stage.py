@@ -2,10 +2,12 @@
 prolongation stage (K31 ``prolong_smooth_halo`` of
 multigrid_parallel_tpu_torch.ops.pallas_sharded on an i-sharded field, K40
 ``prolong_smooth_halo2d`` of ops.pallas_sharded2d on an (i, j)-sharded
-one) and the smoothing stage from a loaded u (K28 ``rb_smooth_halo``, K37
-``rb_smooth_halo2d``), on the CPU: an emulation of the CUDA kernels'
-schedule held against the plain versions, the planner's plans for
-segments, and the wrappers' CPU contract.
+one), the smoothing stage from a loaded u (K28 ``rb_smooth_halo``, K37
+``rb_smooth_halo2d``) and from a zero one (K29
+``rb_smooth_from_zero_halo``, K38 ``rb_smooth_from_zero_halo2d``), on the
+CPU: an emulation of the CUDA kernels' schedule held against the plain
+versions, the planner's plans for segments, and the wrappers' CPU
+contract.
 
 The CUDA stage (ops/csrc/rect.cuh with ``Layout::kSegRect``) cannot run
 here, so it is emulated in torch (tests/torch_stage_emulation.py,
@@ -38,8 +40,12 @@ another order. K28 and K37 (K1's stage, no correction, red or black
 first, the pad points u's own) are held the same way on every geometry,
 n_iter 1 and 2, both orders, on fewer plans a case, stitched against K1's
 plain version, and with the same four faults (the last: the colours in
-the other order). The card tests hold the kernels themselves against the
-plain versions (tests/test_torch_cuda.py).
+the other order). K29 and K38 (K2's stage from a zero tile, f alone read,
+the pad points 0) likewise, stitched against K2's plain version, with a
+fifth fault, the pad points left unwritten; f's j halo must be two columns
+short to show, as the zero tile's outer ring is never swept. The card
+tests hold the kernels themselves against the plain versions
+(tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -142,6 +148,18 @@ class Rank:
                                    (self.g0, self.L, 0, self.n), self.n, self.n_iter, self.h,
                                    plan, fault, red_first)
 
+    def zero_plain(self, red_first):
+        """K29's plain version on f = r."""
+        return tpx.rb_smooth_from_zero_halo_plain(self.r3, self.gi0, self.h, self.n_iter,
+                                                  self.n, self.L, red_first)
+
+    def emulate_zero(self, plan, red_first, fault=None):
+        hh = 2 * self.n_iter
+        f = tpx._seg(self.r3, hh, hh, self.L)
+        return em.emulate_seg_rect(None, f.rows(hh, hh), None, (self.g0 - hh, 0), None,
+                                   (self.g0, self.L, 0, self.n), self.n, self.n_iter, self.h,
+                                   plan, fault, red_first)
+
 
 class Block:
     """One (i, j) block's five parts of random global fields (e, r: (nx
@@ -208,6 +226,18 @@ class Block:
         return em.emulate_seg_rect(slabs[0], slabs[1], None, (self.g0 - hh, self.gj0 - self.hjl),
                                    None, (self.g0, self.li, self.gj0, self.lj), self.n,
                                    self.n_iter, self.h, plan, fault, red_first)
+
+    def zero_plain(self, red_first):
+        """K38's plain version on f = r."""
+        return tpx2.rb_smooth_from_zero_halo2d_plain(self.r5, self.gij0, self.h, self.n_iter,
+                                                     self.n, self.li, self.lj, red_first)
+
+    def emulate_zero(self, plan, red_first, fault=None):
+        hh = 2 * self.n_iter
+        return em.emulate_seg_rect(None, self._slabs()[1], None,
+                                   (self.g0 - hh, self.gj0 - self.hjl), None,
+                                   (self.g0, self.li, self.gj0, self.lj), self.n, self.n_iter,
+                                   self.h, plan, fault, red_first)
 
 
 def _check_writes(w):
@@ -396,6 +426,105 @@ def test_emulation_finds_a_faulty_seg_smooth_stage(fault):
     assert not torch.equal(rank.emulate_smooth(plan1, True, fault)[0], want1)
 
 
+# --------------------------- K29 and K38: K2's stage from a zero tile on segments
+
+
+@pytest.mark.parametrize("red_first", [True, False])
+@pytest.mark.parametrize("n_iter", [1, 2])
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_emulated_k29_stage_matches_plain(geometry, n_iter, red_first):
+    """K29 on each i-sharded geometry, at 17^3 and 33^3, both orders: bit
+    for bit against the plain version, every point of the body written
+    once (the pad rows 0)."""
+    n, L, rank = GEOMETRIES[geometry]
+    rk_ = Rank(n, L, rank, n_iter, seed=200 * n + 10 * rank + n_iter + 5 * red_first)
+    want = rk_.zero_plain(red_first)
+    for kind in _smooth_kinds(n, red_first):
+        got, w = rk_.emulate_zero(_plans(kind, n, n_iter, rk_.planes(), prolong=False),
+                                  red_first)
+        _check_writes(w)
+        assert torch.equal(got, want), kind
+    assert not want[max(0, n - rk_.g0):].any(), "pad rows not 0"
+
+
+@pytest.mark.parametrize("red_first", [True, False])
+@pytest.mark.parametrize("n_iter", [1, 2])
+@pytest.mark.parametrize("geometry", list(GEOMETRIES2D))
+def test_emulated_k38_stage_matches_plain(geometry, n_iter, red_first):
+    """K38 on each (i, j) block, at 17^3 and 33^3, both orders: bit for
+    bit against the plain version, every point of the block written once
+    (the pad rows and columns 0)."""
+    n, mesh, li, lj, blocks = GEOMETRIES2D[geometry]
+    for ix, iy in blocks:
+        b = Block(n, mesh, li, lj, ix, iy, n_iter,
+                  seed=200 * n + 10 * ix + iy + n_iter + 5 * red_first)
+        want = b.zero_plain(red_first)
+        for kind in _smooth_kinds(n, red_first):
+            got, w = b.emulate_zero(_plans(kind, n, n_iter, b.planes(), b.cols(),
+                                           prolong=False), red_first)
+            _check_writes(w)
+            assert torch.equal(got, want), (kind, ix, iy)
+        assert not want[max(0, n - b.g0):].any() and not want[:, max(0, n - b.gj0):].any()
+
+
+def test_emulated_from_zero_stages_stitch_to_k2():
+    """The four i-sharded ranks' emulated K29 bodies at 17^3, L = 6 (rank
+    3 pad only), red first, and the four 2x2 blocks' K38 ones (Li = Lj =
+    10), black first, stitched: their points of the field bit for bit K2's
+    plain version on the whole field, the pad points 0."""
+    n, n_iter = 17, 2
+    ranks = [Rank(n, 6, r, n_iter, seed=9) for r in range(D)]  # one seed: one global field
+    got = torch.cat([r.emulate_zero(_plans("h100", n, n_iter, r.planes(), prolong=False),
+                                    True)[0] for r in ranks])
+    r0 = ranks[0]
+    assert torch.equal(got[:n], tpk.rb_smooth_from_zero_plain(r0.r[:n], r0.h, n_iter, True))
+    assert not got[n:].any()
+    blocks = {(ix, iy): Block(n, (2, 2), 10, 10, ix, iy, n_iter, seed=10)
+              for ix in range(2) for iy in range(2)}
+    outs = {k: b.emulate_zero(_plans("h100", n, n_iter, b.planes(), b.cols(), prolong=False),
+                              False)[0] for k, b in blocks.items()}
+    got = torch.cat([torch.cat([outs[ix, iy] for iy in range(2)], dim=1) for ix in range(2)])
+    b0 = blocks[0, 0]
+    want = tpk.rb_smooth_from_zero_plain(b0.r[:n, :n], b0.h, n_iter, False)
+    assert torch.equal(got[:n, :n], want)
+    assert not got[n:].any() and not got[:, n:].any()
+
+
+@pytest.mark.parametrize("fault", ["short_j_halo", "corners_zeroed", "pad_swept", "order",
+                                   "pad_unwritten"])
+def test_emulation_finds_a_faulty_seg_from_zero_stage(fault):
+    """The emulation of K29 and K38 is a check. On the (1, 1) block of a
+    2x2 mesh at 17^3: f's j halo short of what the stage reads (NaN where a
+    read left the segment; two columns short, as the zero tile's outer ring
+    is never swept, so f's column H before the block is never read), f's
+    corner blocks zeroed, the pad rows and columns swept as interior ones,
+    the colours in the other order, or the pad points left unwritten: each
+    leaves a wrong value in K38's block, and the last three in K29's at the
+    pad-tail geometry (33^3, L = 12, rank 2); without the fault both equal
+    their plain versions, red first."""
+    n, n_iter = 17, 2
+    good = Block(n, (2, 2), 10, 10, 1, 1, n_iter, seed=13)
+    plan = _plans("h100", n, n_iter, good.planes(), good.cols(), prolong=False)
+    want = good.zero_plain(True)
+    assert torch.equal(good.emulate_zero(plan, True)[0], want)
+    rank = Rank(33, 12, 2, n_iter, seed=14)
+    plan1 = _plans("h100", 33, n_iter, rank.planes(), prolong=False)
+    want1 = rank.zero_plain(True)
+    assert torch.equal(rank.emulate_zero(plan1, True)[0], want1)
+    if fault == "short_j_halo":
+        ok = Block(n, (2, 2), 10, 10, 1, 1, n_iter, seed=13, hjl=2 * n_iter - 1)
+        assert torch.equal(ok.emulate_zero(plan, True)[0], want)  # column H: never read
+        bad = Block(n, (2, 2), 10, 10, 1, 1, n_iter, seed=13, hjl=2 * n_iter - 2)
+        assert torch.isnan(bad.emulate_zero(plan, True)[0]).any()
+        return
+    if fault == "corners_zeroed":
+        bad = Block(n, (2, 2), 10, 10, 1, 1, n_iter, seed=13, corners=False)
+        assert not torch.equal(bad.emulate_zero(plan, True)[0], want)
+        return
+    assert not torch.equal(good.emulate_zero(plan, True, fault)[0], want)
+    assert not torch.equal(rank.emulate_zero(plan1, True, fault)[0], want1)
+
+
 # ------------------------------------------------------------- the plans
 
 
@@ -505,3 +634,36 @@ def test_k28_k37_wrappers_on_the_cpu_are_the_plain_versions():
         tpx.rb_smooth_halo(rk_.e3, rk_.r3, rk_.gi0, rk_.h, 0, 33, 12)
     with pytest.raises(ValueError, match="n_iter"):
         tpx2.rb_smooth_halo2d(b.e5, b.r5, b.gij0, b.h, 0, 17, 20, 20)
+
+
+def test_k29_k38_wrappers_on_the_cpu_are_the_plain_versions():
+    """On the CPU the from-zero wrappers are the plain versions: fresh
+    bodies whose pad rows (and columns) are 0 though f's are random, f as
+    it was, no launch counted; the ext forms give the same bodies; n_iter 0
+    refused."""
+    n_iter, hh = 2, 4
+    rk_ = Rank(33, 12, 2, n_iter, seed=5)
+    before = [t.clone() for t in rk_.r3]
+    tpx.reset_launches()
+    tpx2.reset_launches()
+    for red in (True, False):
+        got = tpx.rb_smooth_from_zero_halo(rk_.r3, rk_.gi0, rk_.h, n_iter, 33, 12, red)
+        assert torch.equal(got, rk_.zero_plain(red))
+        assert not got[9:].any() and rk_.r[33:36].all()  # planes 33-35: pad
+        assert got[:8, 1:-1, 1:-1].all() and not got[8].any()  # plane 32: a boundary
+    assert all(torch.equal(a, b) for a, b in zip(rk_.r3, before))
+    ext = tpx.rb_smooth_from_zero_ext(rk.rank_ext(rk_.r, 2, 12, hh), rk_.gi0, rk_.h, n_iter, 33,
+                                      12, False)
+    assert torch.equal(ext, got)
+    b = Block(17, (1, 1), 20, 20, 0, 0, n_iter, seed=6)
+    got2 = tpx2.rb_smooth_from_zero_halo2d(b.r5, b.gij0, b.h, n_iter, 17, 20, 20)
+    assert got2.is_contiguous() and torch.equal(got2, b.zero_plain(True))
+    assert not got2[17:].any() and not got2[:, 17:].any()
+    ext2 = tpx2.rb_smooth_from_zero_ext2d(rk.rank_ext2d(b.r, 0, 0, 20, 20, hh, hh, hh, hh),
+                                          b.gij0, b.h, n_iter, 17, 20, 20)
+    assert torch.equal(ext2, got2)
+    assert not any(tpx.LAUNCHES.values()) and not any(tpx2.LAUNCHES.values())
+    with pytest.raises(ValueError, match="n_iter"):
+        tpx.rb_smooth_from_zero_halo(rk_.r3, rk_.gi0, rk_.h, 0, 33, 12)
+    with pytest.raises(ValueError, match="n_iter"):
+        tpx2.rb_smooth_from_zero_halo2d(b.r5, b.gij0, b.h, 0, 17, 20, 20)

@@ -440,6 +440,51 @@ def test_stage_calls_map_the_segment_smoothing_stages():
         "K28|K37 n=257": [1, pytest.approx(0.001), pytest.approx(0.001)]}
 
 
+def test_stage_calls_map_the_segment_from_zero_stages():
+    """K29's and K38's one-pass stage (seg_smooth_from_zero_stage_kernel,
+    K2's stage from a zero tile on a rank's segmented block) is one kernel a
+    call, told from K28's and K37's seg_smooth_stage_kernel with or without
+    its arguments: K29 on SegStageArgs, K38 on Seg2StageArgs, by level from
+    its plan of the rank's planes (and rows); a first-form K29 call (its
+    head and three half-sweeps) beside it is grouped as before; a name
+    without its arguments is either of the twins."""
+    from multigrid_parallel_tpu_torch.hierarchy import Hierarchy
+    from multigrid_parallel_tpu_torch.ops import pallas_split as tps
+    from multigrid_parallel_tpu_torch.parallel.sharded import ShardPlan
+    from multigrid_parallel_tpu_torch.parallel.sharded2d_padded import plan_sharding_2d_padded
+
+    hier = Hierarchy(ndim=3, coarse_n=5, num_levels=7)
+    sizes = st._seg_sizes(hier, 132, ShardPlan(n_dev=1, axis="x", n_sharded=6, fine_local=320))
+    k29 = tps._stage_plan(257, 2, 132, False, True, seg_planes=257)
+    k29_129 = tps._stage_plan(129, 2, 132, False, True, seg_planes=129)
+    intervals = sorted(
+        [(0, 3, "seg_smooth_from_zero_stage_kernel<2, false, mg::rect::SegStageArgs>",
+          (k29.blocks, 1, 1, k29.smem)),
+         (5, 6, "seg_smooth_stage_kernel<2, false, mg::rect::SegStageArgs>",
+          (k29.blocks, 1, 1, k29.smem)),
+         (10, 12, "seg_smooth_from_zero_stage_kernel<2, true, mg::rect::SegStageArgs>",
+          (k29_129.blocks, 1, 1, k29_129.smem)),
+         (20, 21, "seg_half_sweep_from_zero_kernel<mg::Seg>", (-(-88 * 65 * 65 // 256), 1, 1,
+                                                               0))]
+        + [(30 + 10 * i, 31 + 10 * i, "seg_half_sweep_kernel<mg::Seg>",
+            (-(-86 * 65 * 65 // 256), 1, 1, 0)) for i in range(3)])
+    assert st.stage_calls(intervals, sizes) == {
+        "K29 n=257": [1, pytest.approx(0.003), pytest.approx(0.003)],
+        "K28 n=257": [1, pytest.approx(0.001), pytest.approx(0.001)],
+        "K29 n=129": [1, pytest.approx(0.002), pytest.approx(0.002)],
+        "K29 n=65": [1, pytest.approx(0.004), pytest.approx(0.004)]}
+    sizes2 = st._seg2d_sizes(hier, 132, plan_sharding_2d_padded(hier, 1, 1))
+    k38 = tps._stage_plan(257, 2, 132, False, True, seg_planes=257, seg_cols=257)
+    intervals2 = [(0, 4, "seg_smooth_from_zero_stage_kernel<2, false, mg::rect::Seg2StageArgs>",
+                   (k38.blocks, 1, 1, k38.smem)),
+                  (10, 11, "seg_smooth_from_zero_stage_kernel", (k38.blocks, 1, 1, k38.smem)),
+                  (20, 22, "seg_smooth_stage_kernel", (k38.blocks, 1, 1, k38.smem))]
+    assert st.stage_calls(intervals2, sizes2) == {
+        "K38 n=257": [1, pytest.approx(0.004), pytest.approx(0.004)],
+        "K29|K38 n=257": [1, pytest.approx(0.001), pytest.approx(0.001)],
+        "K28|K37 n=257": [1, pytest.approx(0.002), pytest.approx(0.002)]}
+
+
 def test_restrict_calls_map_the_segment_restriction_stages():
     """K30's and K39's streaming stages (seg_restrict_kernel<mg::Seg, C>
     and <mg::Seg2, C>, from a demangled or a mangled name) one kernel a

@@ -3,9 +3,9 @@ kernels run it, shared by the stage tests (torch only): K14 and K15 on the
 full (n, n, n) layout (``Layout::kMixed``; tests/test_torch_mixed_stage.py)
 and K35 and K36 on one rank's segments of an i-sharded field (``kSeg``;
 tests/test_torch_seg_stage.py); and of its Dirichlet stage on a rank's
-segmented block, K31 and K28 on an i-sharded field and K40 and K37 on an
-(i, j)-sharded one (``kSegRect``; tests/test_torch_seg_rect_stage.py,
-below).
+segmented block, K31, K28 and K29 on an i-sharded field and K40, K37 and
+K38 on an (i, j)-sharded one (``kSegRect``;
+tests/test_torch_seg_rect_stage.py, below).
 
 The stage runs block by block on rect.cuh's tile: a field row (i, j) held
 as two colour rows of slots, slot kk of a colour holding k = 2 kk + 1 + p,
@@ -414,13 +414,14 @@ def emulate_dirichlet_launch(ins, fs, color0, h, plan, n, span=None, cols=None, 
                              fault=None):
     """One Dirichlet stage launch as the kernel runs it (rect.cuh with
     ``Layout::kRect`` for K1, K2 and K4 on the whole field, or
-    ``Layout::kSegRect`` for K28, K31, K37 and K40 on a rank's block:
-    stage_body's wavefront or, for a box plan, box_body) on (P, C, n)
-    fields whose plane and row indices are the global ones (a rank's
-    VIRTUAL fields). ``ins`` (the initial guess, e), ``fs`` (f, r) and
-    ``corr`` (P ec, or None) are de-interleaved by stage colour; the
-    blocks tile the planes ``span`` = (c0, c1) and the rows ``cols`` =
-    (cj0, cj1) (by default the field's; a rank's clipped to n - 1), their
+    ``Layout::kSegRect`` for K28, K29, K31, K37, K38 and K40 on a rank's
+    block: stage_body's wavefront or, for a box plan, box_body) on (P, C,
+    n) fields whose plane and row indices are the global ones (a rank's
+    VIRTUAL fields). ``ins`` (the initial guess, e; zeros for a zero
+    tile), ``fs`` (f, r) and ``corr`` (P ec, or None) are de-interleaved by
+    stage colour; the blocks tile the planes ``span`` = (c0, c1) and the
+    rows ``cols`` = (cj0, cj1) (by default the field's; a rank's clipped to
+    n - 1), their
     loaded boxes clipped to the field [0, n) only; each half-sweep updates
     its region (the loaded box shrunk by its level, clipped to the
     interior) in place, the neighbours read from the tile in the plain
@@ -548,15 +549,19 @@ def emulate_seg_rect(e_slab, r_slab, c_slab, first, c_first, body, n, n_iter, h,
     rank's planes and rows clipped to n - 1 (rect.cuh, seg_rect_geometry);
     then the pad points of the body (past n - 1) written as e + P ec. With
     ``c_slab`` None, K28 or K37: K1's stage on u = ``e_slab`` against f =
-    ``r_slab``, red first where ``red_first``, the pad points u's own.
-    ``body`` = (g0, L, gj0, Lj). ``fault``: "pad_swept" (the pad swept as
-    interior and stored by the blocks), "order" (P ec interpolated i, then
-    j, then k; K28 and K37: the colours in the other order). Returns the
-    (L, Lj, n) body and each point's writes."""
+    ``r_slab``, red first where ``red_first``, the pad points u's own; with
+    ``e_slab`` None too, K29 or K38: K2's stage from a zero tile (the loaded
+    box all zeros, nothing of u read), the pad points 0. ``body`` = (g0, L,
+    gj0, Lj). ``fault``: "pad_swept" (the pad swept as interior and stored
+    by the blocks), "order" (P ec interpolated i, then j, then k; K28, K29,
+    K37 and K38: the colours in the other order), "pad_unwritten" (no
+    block writes the pad points). Returns the (L, Lj, n) body and each
+    point's writes."""
     g0, L, gj0, Lj = body
     hh = 2 * n_iter
     shape = (g0 + L + 2 * hh + 2, max(n, gj0 + Lj + 2 * hh + 2))
-    ev, rv = virtual2d(e_slab, first, shape), virtual2d(r_slab, first, shape)
+    rv = virtual2d(r_slab, first, shape)
+    ev = torch.zeros_like(rv) if e_slab is None else virtual2d(e_slab, first, shape)
     if c_slab is None:
         color0 = (RED if red_first else BLACK) if fault != "order" else (
             BLACK if red_first else RED)
@@ -578,7 +583,7 @@ def emulate_seg_rect(e_slab, r_slab, c_slab, first, c_first, body, n, n_iter, h,
     w = interleave(by_stage([x.float() for x in writes], color0), n)
     pad = torch.ones(shape[:2], dtype=torch.bool)
     pad[:n, :n] = False
-    if fault != "pad_swept":  # every block's share of the pad points
+    if fault not in ("pad_swept", "pad_unwritten"):  # every block's share of the pad points
         out[pad] = u[pad]
         w[pad] += 1
     sl = (slice(g0, g0 + L), slice(gj0, gj0 + Lj))
