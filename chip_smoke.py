@@ -122,7 +122,9 @@ which fails the run:
      plain version, and K30 (the streaming restriction stage on segments)
      and K28 and K29 (K1's and K2's one-pass stages on segments) timed on
      the one-rank L = 320 segment beside their bounds from the bytes they
-     need; (b) make_sharded_df_solver at 257^3 on one rank of an NCCL
+     need, and K32 (the streaming df residual-and-norm stage) checked and
+     timed there against its plain version and that bound, K5 on the whole
+     field beside it; (b) make_sharded_df_solver at 257^3 on one rank of an NCCL
      group, launch counts reset and read around it: exactly the launches
      predicted from its outer steps (K28, K29 and K31 one a call, one-pass
      stages), only K28-K32, the fused
@@ -159,8 +161,9 @@ which fails the run:
      and 1x4 meshes (the padded plan's blocks, five halo parts with the corner
      blocks), each bitwise equal to its plain version and, stitched, to K1
      (both orders), K2, K3, K4 and K5's r, each timed on rank (0, 0)'s
-     257^3 2x2 block against its plain version, and K39, K37 and K38
-     checked and timed on the 1x1 block (272^2) beside their bounds; (b)
+     257^3 2x2 block against its plain version, and K39, K37, K38 and K41
+     checked and timed on the 1x1 block (272^2) beside their bounds (K41
+     against its plain version too, K5 beside it); (b)
      make_sharded2d_padded_df_solver at 257^3 on one NCCL rank (a 1x1 mesh,
      plan Li = Lj = 272, n_sharded 4), launch counts reset and read around
      it: exactly the launches predicted from the tier map (K37, K38, K40
@@ -1800,7 +1803,7 @@ def compare_sharded(dev, results):
     # times on rank 1's segments of the 257^3 fields (the 4-rank solve's shapes)
     seg = lambda x, kl, kr, Lr=L: _seg_parts(x, 1, Lr, kl, kr)  # noqa: E731
     u4, f4, u21, f21, f11 = seg(u, hh, hh), seg(f, hh, hh), seg(u, 2, 1), seg(f, 2, 1), seg(f, 1, 1)
-    ec23, df11 = seg(ec, 2, 3, Lc), [seg(x, 1, 1) for x in df]
+    ec23 = seg(ec, 2, 3, Lc)
     u_ext, f_ext = _seg_ext(u, 1, L, 1), _seg_ext(f, 1, L, 1)
     calls = {
         # K28's one-pass stage reads u's and f's rows, halos included, and
@@ -1825,9 +1828,6 @@ def compare_sharded(dev, results):
                                lambda: px.prolong_smooth_halo_plain(ec23, u4, f4, L - hh, h, 2,
                                                                     n, L),
                                (*ec23, *u4, *f4), (L + 2 * hh) * n * n),
-        "residual_df_norm_seg": (lambda: px.residual_df_norm_halo(*df11, L - 1, h, n, L),
-                                 lambda: px.residual_df_norm_halo_plain(*df11, L - 1, h, n, L),
-                                 (*df11[0], *df11[1], df11[2][0], df11[3][0]), L * n * n),
     }
     for name, (kernel, plain, inputs, points) in calls.items():
         out = kernel()
@@ -1850,6 +1850,15 @@ def compare_sharded(dev, results):
     bound1, _ = bound("residual_restrict_seg", L1 * n * n, (8 * n ** 3,), (got,))
     print(f"[sharded kernel] residual_restrict_seg    n={n} L={L1} rank 0 of 1 "
           f"kernel_ms={time_ms(k30):.4f} bound_ms={bound1:.4f}")
+    # K32's stage there, and K5 on the whole field beside it, each bound from the bytes
+    # the function needs: u_hi, u_lo, f_hi, f_lo on the field's n planes, read once, and r
+    # written (K32: its L planes, the pad ones 0)
+    df1 = [_seg_parts(x[:L1], 0, L1, 1, 1) for x in df]
+    time_df_norm(results, "residual_df_norm_seg", "[sharded kernel] residual_df_norm_seg    "
+                 f" n={n} L={L1} rank 0 of 1",
+                 lambda: px.residual_df_norm_halo(*df1, -1, h, n, L1),
+                 lambda: px.residual_df_norm_halo_plain(*df1, -1, h, n, L1),
+                 L1 * n * n, [x[:n] for x in df], h)
     u1, f1 = _seg_parts(u[:L1], 0, L1, hh, hh), _seg_parts(f[:L1], 0, L1, hh, hh)
     one_rank = {
         "rb_smooth_seg": (lambda: px.rb_smooth_halo(u1, f1, -hh, h, 2, n, L1),
@@ -1864,6 +1873,32 @@ def compare_sharded(dev, results):
         bound1, _ = bound(name, n * n * n, (need * n ** 3,), (got,))
         print(f"[sharded kernel] {name:24s} n={n} L={L1} rank 0 of 1 "
               f"kernel_ms={time_ms(kernel):.4f} bound_ms={bound1:.4f}")
+
+
+def time_df_norm(results, name, label, kernel, plain, points, cube, h):
+    """A K32 or K41 call on a one-rank block of ``points`` points: its r
+    bitwise equal to the plain version's and its norm within
+    SHARDED_NORM_RTOL; its time, the plain version's and its bound (the
+    bytes it needs: u_hi, u_lo, f_hi, f_lo on the field's n^3 points read
+    once and r written) into results[name]; K5 on the whole field ``cube``
+    timed beside it against its own bound."""
+    from multigrid_parallel_tpu_torch.ops import pallas3d as pk
+
+    n = cube[0].shape[0]
+    got_r, got_n2 = kernel()
+    plain_r, plain_n2 = plain()
+    bitwise_same(results, name, n, f"{label} against plain", got_r, plain_r)
+    check(abs(float(got_n2) - float(plain_n2)) <= SHARDED_NORM_RTOL * float(plain_n2),
+          f"{name} {label}: partial norm {float(got_n2)} against {float(plain_n2)}")
+    res = results[name]
+    res["ms"], res["plain_ms"] = time_ms(kernel), time_ms(plain)
+    res["bound_ms"], res["bound_by"] = bound(name, points, (16 * n ** 3,), (got_r, got_n2))
+    k5 = lambda: pk.residual_df_norm_fused(*cube, h)  # noqa: E731
+    k5_bound, _ = bound("residual_df_norm_fused", n ** 3, (16 * n ** 3,), k5())
+    print(f"{label} kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+          f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
+          f"max_abs_err={res['max_abs_err']:.3e}; K5 n={n} kernel_ms={time_ms(k5):.4f} "
+          f"bound_ms={k5_bound:.4f}")
 
 
 def _sharded_solver(mesh, init):
@@ -2541,7 +2576,7 @@ def compare_sharded2d(dev, results):
                                                           "h", "p5"))
     u4, f4 = p5(U, 0, 0, hh, hh), p5(F, 0, 0, hh, hh)
     u21, f21 = p5(U, 0, 0, 2, 1), p5(F, 0, 0, 2, 1)
-    ec23, df11 = p5(EC, 0, 0, 2, 3, li // 2, lj // 2), [p5(x, 0, 0, 1, 1) for x in DF]
+    ec23 = p5(EC, 0, 0, 2, 3, li // 2, lj // 2)
     g = lambda halo: (-halo, -halo)  # noqa: E731
     ext_pts = (li + 2 * hh) * (lj + 2 * hh) * n
     calls = {
@@ -2564,10 +2599,6 @@ def compare_sharded2d(dev, results):
             lambda: px2.prolong_smooth_halo2d(ec23, u4, f4, g(hh), h, 2, n, li, lj),
             lambda: px2.prolong_smooth_halo2d_plain(ec23, u4, f4, g(hh), h, 2, n, li, lj),
             (*ec23, *u4, *f4), ext_pts),
-        "residual_df_norm_seg2d": (
-            lambda: px2.residual_df_norm_halo2d(*df11, g(1), h, n, li, lj),
-            lambda: px2.residual_df_norm_halo2d_plain(*df11, g(1), h, n, li, lj),
-            (*df11[0], *df11[1], df11[2][0], df11[3][0]), li * lj * n),
     }
     for name, (kernel, plain, inputs, points) in calls.items():
         out = kernel()
@@ -2590,6 +2621,13 @@ def compare_sharded2d(dev, results):
     bound1, _ = bound("residual_restrict_seg2d", w * w * n, (8 * n ** 3,), (got,))
     print(f"[sharded2d kernel] residual_restrict_seg2d    n={n} Li={w} Lj={w} block (0, 0) of 1x1 "
           f"kernel_ms={time_ms(k39):.4f} bound_ms={bound1:.4f}")
+    # K41's stage there, and K5 beside it, as K32's in phase 10a
+    df1 = [_seg_parts2d(x[:w, :w].contiguous(), 0, 0, w, w, 1, 1) for x in DF]
+    time_df_norm(results, "residual_df_norm_seg2d", "[sharded2d kernel] residual_df_norm_seg2d    "
+                 f"  n={n} Li={w} Lj={w} block (0, 0) of 1x1",
+                 lambda: px2.residual_df_norm_halo2d(*df1, g(1), h, n, w, w),
+                 lambda: px2.residual_df_norm_halo2d_plain(*df1, g(1), h, n, w, w),
+                 w * w * n, [x[:n, :n].contiguous() for x in DF], h)
     u1, f1 = (_seg_parts2d(x[:w, :w].contiguous(), 0, 0, w, w, hh, hh) for x in (U, F))
     one_rank = {
         "rb_smooth_seg2d": (lambda: px2.rb_smooth_halo2d(u1, f1, g(hh), h, 2, n, w, w),

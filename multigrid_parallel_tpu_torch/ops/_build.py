@@ -145,6 +145,13 @@ _SIGNATURES = {
     # geometry, inv_h2, the plan (bci, bcj, bck, chunks, threads, smem), stream
     "mg_seg_restrict_stage": (_P,) + (_P, _P, _P, _I) * 2 + (_I,) * 5 + (_F,) + (_I,) * 6 + (_P,),
     "mg_seg2d_restrict_stage": (_P,) * 3 + (_I,) * 7 + (_F,) + (_I,) * 6 + (_P,),
+    # K32's and K41's streaming df residual-and-norm stages: r, nrm2, the
+    # partials and their count, the u_hi, u_lo, f_hi and f_lo segments (K41:
+    # descriptors, then the halos after the block), the geometry, inv_h2, the
+    # plan (bi, bj, bk, chunks, threads, smem), stream
+    "mg_seg_df_stage": ((_P,) * 3 + (_I,) + (_P, _P, _P, _I) * 2 + (_P, _P) + (_I,) * 5
+                        + (_F,) + (_I,) * 6 + (_P,)),
+    "mg_seg2d_df_stage": (_P,) * 3 + (_I,) + (_P,) * 4 + (_I,) * 7 + (_F,) + (_I,) * 6 + (_P,),
 }
 
 

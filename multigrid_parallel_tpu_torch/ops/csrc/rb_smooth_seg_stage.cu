@@ -96,32 +96,7 @@ int seg_smooth_stage(Args& a, int red_first, int n_iter, int bi, int bj, int bk,
                      : launch_seg_smooth_stage<2, ZERO>(a, box, threads, smem, stream);
 }
 
-// Whether the floats [p, p + count) and [q, q + qcount) meet.
-inline bool meet(const float* p, long long count, const float* q, long long qcount) {
-  return q != nullptr && qcount > 0 && p < q + qcount && q < p + count;
-}
-
-// Whether the body out of ``count`` floats meets a part of the segment s
-// of rows [-kl, L + kr) (rh from row r_off on).
-inline bool meets(const float* out, long long count, const mg::Seg& s, int kr) {
-  return meet(out, count, s.lh, (long long)s.kl * s.nn) ||
-         meet(out, count, s.body, (long long)s.L * s.nn) ||
-         meet(out, count, s.rh, (long long)(s.r_off + kr) * s.nn);
-}
-
-// The same for a Seg2 of hjr columns after the block: each part's extent
-// from its first point to its last.
-inline bool meets(const float* out, long long count, const mg::Seg2& s, int kr, int hjr, int n) {
-  auto span = [&](int rows, int pitch, int cols) {
-    return rows > 0 && cols > 0 ? (long long)(rows - 1) * pitch + (long long)cols * n : 0LL;
-  };
-  const int width = s.hj + s.Lj + hjr;
-  return meet(out, count, s.body, span(s.L, s.pb, s.Lj)) ||
-         meet(out, count, s.jl, span(s.L, s.pjl, s.hj)) ||
-         meet(out, count, s.jr, span(s.L, s.pjr, hjr)) ||
-         meet(out, count, s.lh, span(s.kl, s.ph, width)) ||
-         meet(out, count, s.rh, span(s.r_off + kr, s.ph, width));
-}
+using mg::meets;
 
 }  // namespace
 

@@ -190,4 +190,32 @@ __device__ inline float interp_coarse(const SegCoarseAt<Seg2>& c, int fi, int fj
   return oi ? 0.5f * y2[0] + 0.5f * y2[1] : y2[0];
 }
 
+// Whether the floats [p, p + count) and [q, q + qcount) meet (the
+// launchers' check that an output meets no input).
+inline bool meet(const float* p, long long count, const float* q, long long qcount) {
+  return q != nullptr && qcount > 0 && p < q + qcount && q < p + count;
+}
+
+// Whether the body out of ``count`` floats meets a part of the segment s
+// of rows [-kl, L + kr) (rh from row r_off on).
+inline bool meets(const float* out, long long count, const Seg& s, int kr) {
+  return meet(out, count, s.lh, (long long)s.kl * s.nn) ||
+         meet(out, count, s.body, (long long)s.L * s.nn) ||
+         meet(out, count, s.rh, (long long)(s.r_off + kr) * s.nn);
+}
+
+// The same for a Seg2 of hjr columns after the block: each part's extent
+// from its first point to its last.
+inline bool meets(const float* out, long long count, const Seg2& s, int kr, int hjr, int n) {
+  auto span = [&](int rows, int pitch, int cols) {
+    return rows > 0 && cols > 0 ? (long long)(rows - 1) * pitch + (long long)cols * n : 0LL;
+  };
+  const int width = s.hj + s.Lj + hjr;
+  return meet(out, count, s.body, span(s.L, s.pb, s.Lj)) ||
+         meet(out, count, s.jl, span(s.L, s.pjl, s.hj)) ||
+         meet(out, count, s.jr, span(s.L, s.pjr, hjr)) ||
+         meet(out, count, s.lh, span(s.kl, s.ph, width)) ||
+         meet(out, count, s.rh, span(s.r_off + kr, s.ph, width));
+}
+
 }  // namespace mg

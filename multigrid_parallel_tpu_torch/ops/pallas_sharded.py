@@ -46,11 +46,16 @@ counts once). K28, K29 and K31 at n_iter <= 2 are one launch each of K1's,
 K2's and K4's one-pass stages on the segments (ops/csrc/rect.cuh,
 ``Layout::kSegRect``; K29's from a zero tile, f alone read). K30 is one
 launch of K3's streaming restriction stage on the segments
-(ops/csrc/restrict.cuh, ``SegLayout``).
+(ops/csrc/restrict.cuh, ``SegLayout``). K32 is one launch of the
+streaming double-float residual-and-norm stage on the segments
+(ops/csrc/residual_df_norm_seg.cu, the plan ``pallas_split._df_plan``)
+from ``pallas_split.DF_STAGE_MIN_N`` up, of its first form (one thread a
+point) below, then the sum of the partials.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -373,26 +378,71 @@ def residual_df_norm_halo_plain(uhi3, ulo3, fhi3, flo3, gi0, h: float, n: int, L
     return r, torch.sum(r64 * r64).to(r.dtype)
 
 
+def seg_df_extents(n: int, g0: int, L: int, gj0: int = None, Lj: int = None):
+    """The interior planes (and, of an (i, j) block of Lj columns from
+    global column gj0, columns) that a K32 or K41 stage launch tiles, from
+    the global plane ``g0`` of body row 0 and L rows: those whose global
+    index lies in [1, n - 2]; on an i-sharded block the columns are the
+    level's n - 2. (0, 0) where the rank has no interior point (its launch
+    writes zeros only; residual_df_norm_seg.cu, df_setup)."""
+    rows = min(L, n - 1 - g0) - max(0, 1 - g0)
+    cols = n - 2 if Lj is None else min(Lj, n - 1 - gj0) - max(0, 1 - gj0)
+    return (rows, cols) if rows > 0 and cols > 0 else (0, 0)
+
+
+def seg_df_parts(n: int, device, rows: int, cols: int, points: int):
+    """(partials, plan arguments) of a K32 or K41 stage launch on a rank's
+    block of ``points`` points whose interior is ``rows`` x ``cols``
+    (``seg_df_extents``) on ``device``: the launch's blocks, one f64
+    partial each, and the plan of ``pallas_split._df_plan`` (for a rank
+    without interior points, the level's plan's threads, each writing its
+    share of the zeros)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _seg_df_parts_on(n, index, rows, cols, points)
+
+
+@functools.lru_cache(maxsize=None)
+def _seg_df_parts_on(n: int, index: int, rows: int, cols: int, points: int):
+    sms = ps._sms(index)
+    if rows:
+        plan = ps._df_plan(n, sms, rows, cols)
+        return plan.blocks, plan.args
+    args = ps._df_plan(n, sms, n - 2, n - 2).args
+    return ps._df_zero_blocks(points, args[4]), args
+
+
 def residual_df_norm_halo(uhi3, ulo3, fhi3, flo3, gi0, h: float, n: int, L: int,
                           block_i: int = 8):
     """(r_local (L, n, n), partial ||r||^2 0-d): the compensated residual
     of the double-float solution on a rank's block from triples with
     1-plane halos (f's halos are not read); the caller all-reduces the
-    partial across the ranks. One K32 launch (partials, then their sum)."""
+    partial across the ranks. One K32 launch: from ``DF_STAGE_MIN_N`` up
+    the streaming stage on the segments (residual_df_norm_seg.cu; the plan
+    of ``_df_plan`` with the rank's interior planes), below it the first
+    form, one thread a point; then the sum of the partials."""
     del block_i
     uh, ul = _seg(uhi3, 1, 1, L), _seg(ulo3, 1, 1, L)
     fh, fl = fhi3[0], flo3[0]
     if not _on_cuda(([uh.lh, uh.body, uh.rh, ul.lh, ul.body, ul.rh, fh, fl], n)):
         return residual_df_norm_halo_plain(uhi3, ulo3, fhi3, flo3, gi0, h, n, L)
-    lib = pk._lib()
+    lib, g0, inv_h2 = pk._lib(), _gi0_int(gi0) + 1, 1.0 / (h * h)
     r = torch.empty_like(fh)
     nrm2 = torch.empty((), dtype=torch.float32, device=fh.device)
-    partials = torch.empty(lib.mg_seg_residual_df_norm_partials(L, n), dtype=torch.float64,
-                           device=fh.device)
-    pk._check(lib.mg_seg_residual_df_norm(
-        r.data_ptr(), nrm2.data_ptr(), partials.data_ptr(), *_ptrs(uh), *_ptrs(ul),
-        fh.data_ptr(), fl.data_ptr(), L, n, _gi0_int(gi0) + 1, 1.0 / (h * h), pk._stream()),
-        "residual_df_norm_halo")
+    if n >= ps.DF_STAGE_MIN_N:
+        rows, cols = seg_df_extents(n, g0, L)
+        nparts, plan = seg_df_parts(n, fh.device, rows, cols, L * n * n)
+        partials = torch.empty(nparts, dtype=torch.float64, device=fh.device)
+        kr = min(uh.rh.shape[0] - uh.r_off, ul.rh.shape[0] - ul.r_off)
+        err = lib.mg_seg_df_stage(r.data_ptr(), nrm2.data_ptr(), partials.data_ptr(), nparts,
+                                  *_ptrs(uh), *_ptrs(ul), fh.data_ptr(), fl.data_ptr(), 1, L, kr,
+                                  n, g0, inv_h2, *plan, pk._stream())
+    else:
+        partials = torch.empty(lib.mg_seg_residual_df_norm_partials(L, n), dtype=torch.float64,
+                               device=fh.device)
+        err = lib.mg_seg_residual_df_norm(r.data_ptr(), nrm2.data_ptr(), partials.data_ptr(),
+                                          *_ptrs(uh), *_ptrs(ul), fh.data_ptr(), fl.data_ptr(), L,
+                                          n, g0, inv_h2, pk._stream())
+    pk._check(err, "residual_df_norm_halo")
     LAUNCHES["residual_df_norm_seg"] += 1
     return r, nrm2
 

@@ -61,7 +61,10 @@ are one launch each of K1's, K2's and K4's one-pass stages on the 2D
 segments (ops/csrc/rect.cuh, ``Layout::kSegRect`` on ``Seg2``; K38's from
 a zero tile, f alone read). K39 is one launch of K3's streaming
 restriction stage on them (ops/csrc/restrict.cuh, ``SegLayout`` on
-``Seg2``).
+``Seg2``), and K41 of K32's streaming double-float residual-and-norm
+stage (ops/csrc/residual_df_norm_seg.cu on ``Seg2``) from
+``pallas_split.DF_STAGE_MIN_N`` up, of its first form below, then the sum
+of the partials.
 """
 
 from __future__ import annotations
@@ -477,14 +480,24 @@ def _residual_df_norm(segs, gij0, h, n, what):
         return _residual_df_norm_plain(uh, ul, fh, fl, gij0, h, n)
     L, Lj = uh.body.shape[:2]
     gi, gj = _gij(gij0)
-    lib, dev = pk._lib(), uh.body.device
+    lib, g0, gj0, dev = pk._lib(), gi + 1, gj + 1, uh.body.device
     r = torch.empty((L, Lj, n), dtype=torch.float32, device=dev)
     nrm2 = torch.empty((), dtype=torch.float32, device=dev)
-    partials = torch.empty(lib.mg_seg2d_residual_df_norm_partials(L, Lj, n), dtype=torch.float64,
-                           device=dev)
-    pk._check(lib.mg_seg2d_residual_df_norm(
-        r.data_ptr(), nrm2.data_ptr(), partials.data_ptr(), *(s.desc() for s in segs), L, Lj, n,
-        gi + 1, gj + 1, 1.0 / (h * h), pk._stream()), what)
+    if n >= ps.DF_STAGE_MIN_N:
+        rows, cols = px.seg_df_extents(n, g0, L, gj0, Lj)
+        nparts, plan = px.seg_df_parts(n, dev, rows, cols, L * Lj * n)
+        partials = torch.empty(nparts, dtype=torch.float64, device=dev)
+        err = lib.mg_seg2d_df_stage(r.data_ptr(), nrm2.data_ptr(), partials.data_ptr(), nparts,
+                                    *(s.desc() for s in segs), min(uh.kr, ul.kr),
+                                    min(uh.jr.shape[1], ul.jr.shape[1]), L, Lj, n, g0, gj0,
+                                    1.0 / (h * h), *plan, pk._stream())
+    else:
+        partials = torch.empty(lib.mg_seg2d_residual_df_norm_partials(L, Lj, n),
+                               dtype=torch.float64, device=dev)
+        err = lib.mg_seg2d_residual_df_norm(r.data_ptr(), nrm2.data_ptr(), partials.data_ptr(),
+                                            *(s.desc() for s in segs), L, Lj, n, g0, gj0,
+                                            1.0 / (h * h), pk._stream())
+    pk._check(err, what)
     LAUNCHES["residual_df_norm_seg2d"] += 1
     return r, nrm2
 
@@ -494,8 +507,10 @@ def residual_df_norm_halo2d(uhi3, ulo3, fhi3, flo3, gij0, h: float, n: int, L: i
     """(r_local (L, sjl, n), partial ||r||^2 0-d): the compensated residual
     of the double-float solution on a rank's block from triples or five
     parts with one-deep halos (f's halos are not read); the caller
-    all-reduces the partial over both mesh axes. One K41 launch (partials,
-    then their sum)."""
+    all-reduces the partial over both mesh axes. One K41 launch: from
+    ``DF_STAGE_MIN_N`` up K32's streaming stage on the 2D segments (the
+    plan of ``_df_plan`` with the block's interior rows and columns), below
+    it the first form, one thread a point; then the sum of the partials."""
     del block_i
     return _residual_df_norm(_norm_segs((uhi3, ulo3, fhi3, flo3), L, sjl), gij0, h, n,
                              "residual_df_norm_halo2d")

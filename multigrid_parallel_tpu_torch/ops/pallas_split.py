@@ -803,6 +803,147 @@ def _restrict_args(n: int, device, split: bool = False, fold: bool = False,
     return _restrict_args_on(n, index, split, fold, seg_rows, seg_cols)
 
 
+# ---------- the streaming double-float residual-and-norm stage (K32, K41)
+
+DF_MAX_ROWS = 8     # rows a block owns at most, a warp each (residual_df_norm_seg.cu, kMaxRows)
+DF_MAX_PLANES = 32  # planes a block streams at most in a plan (longer measured slower at 513^3)
+DF_MAX_CHUNKS = 8   # 32-point chunks of a lane's row tile at most (kMaxChunks)
+DF_RING = 3         # planes of u_hi and of u_lo in a block's ring (kRing)
+DF_ZERO_PER_THREAD = 32  # zeros a thread of a launch without interior points writes
+# registers a thread takes by chunks (ptxas, the Seg and Seg2 kernels' most,
+# rounded up to the allocation's 8): the cost model's occupancy
+DF_REGISTERS = {1: 64, 2: 64, 4: 72, 8: 128}
+# The cost model's constants: a step's latency, and the bytes an SM's
+# blocks move a microsecond (3.35 TB/s over 132 SMs); with them, and
+# DF_MAX_PLANES, the planner's plan is the fastest or within 3% of the
+# candidates timed at 129^3-513^3 (utils/stage_plans.py --seg-df; one
+# NVIDIA H100 80GB HBM3 at 700 W).
+DF_STEP_US = 1.0
+DF_SM_BYTES_PER_US = 25.4e3
+# K32 and K41 take the stage on levels of at least this size and their
+# first form, one thread a point, below: on a small level a launch is
+# latency, and the stage's prologue and steps cost more than the loads they
+# save. Device ms a call, stage and first form (utils/stage_plans.py
+# --seg-df, median of 20; one NVIDIA H100 80GB HBM3 at 700 W): K32 65^3 L =
+# 80 0.0087 / 0.0081, L = 24 0.0063 / 0.0058, 129^3 L = 160 0.0296 /
+# 0.0406, L = 48 0.0138 / 0.0170; K41 65^3 68^2 0.0097 / 0.0098, 36^2
+# 0.0072 / 0.0055, 129^3 136^2 0.0331 / 0.0435, 72^2 0.0146 / 0.0162.
+DF_STAGE_MIN_N = 129
+
+
+class DfPlan(NamedTuple):
+    """How one launch of the double-float residual-and-norm stage on a
+    rank's block (K32, K41) cuts its interior points (``rows`` planes x
+    ``cols`` rows x n - 2 k): blocks own boxes of ``bi`` planes x ``bj``
+    rows x ``bk`` k, tiles numbered k fastest, then j, then i; a warp a row,
+    ``threads`` = 32 bj, a lane the points 32 c apart of ``chunks`` chunks;
+    ``smem`` the bytes of a block's ring (``_df_smem``)."""
+    n: int
+    bi: int
+    bj: int
+    bk: int
+    chunks: int
+    threads: int
+    smem: int
+    rows: int
+    cols: int
+
+    @property
+    def tiles(self):
+        """(planes, rows, k): the number of boxes along each axis."""
+        return (-(-self.rows // self.bi), -(-self.cols // self.bj), -(-(self.n - 2) // self.bk))
+
+    @property
+    def blocks(self) -> int:
+        ni, nj, nk = self.tiles
+        return ni * nj * nk
+
+    @property
+    def args(self):
+        """The launchers' plan arguments: (bi, bj, bk, chunks, threads,
+        smem)."""
+        return (self.bi, self.bj, self.bk, self.chunks, self.threads, self.smem)
+
+
+def _df_smem(bj: int, bk: int) -> int:
+    """Shared-memory bytes of a block: DF_RING planes of u_hi and of u_lo,
+    bj + 2 rows of bk + 2 floats rounded up to 4 (residual_df_norm_seg.cu,
+    smem_bytes, which the launchers check a plan against)."""
+    return 4 * 2 * DF_RING * (bj + 2) * (-(-(bk + 2) // 4) * 4)
+
+
+def _df_chunks(bk: int):
+    """The least power of 2 of 32-point chunks that covers bk k, or None
+    past DF_MAX_CHUNKS."""
+    chunks = 1
+    while 32 * chunks < bk:
+        chunks *= 2
+    return chunks if chunks <= DF_MAX_CHUNKS else None
+
+
+def _df_make(n: int, bi: int, bj: int, bk: int, rows: int, cols: int) -> DfPlan:
+    return DfPlan(n, bi, bj, bk, _df_chunks(bk), 32 * bj, _df_smem(bj, bk), rows, cols)
+
+
+def _df_cost(plan: DfPlan, sms: int) -> float:
+    """The estimated time of a launch on ``plan`` (us): the blocks run in
+    waves of what the SMs hold at once (shared memory, threads,
+    ``DF_REGISTERS``), each SM's resident blocks moving
+    ``DF_SM_BYTES_PER_US`` between them. A block takes bi steps and a
+    prologue of about 2, each ``DF_STEP_US`` plus its resident blocks'
+    planes of u (halo rows and k included), f and r at that rate."""
+    bj, bk = plan.bj, plan.bk
+    step_bytes = 4 * (2 * (bj + 2) * (bk + 2) + 3 * bj * bk)
+    per_sm = min(SM_SMEM // (plan.smem + 1024), 2048 // plan.threads,
+                 65536 // (plan.threads * DF_REGISTERS[plan.chunks]), 32)
+    resident = min(per_sm, -(-plan.blocks // sms))
+    waves = -(-plan.blocks // (per_sm * sms))
+    return waves * (plan.bi + 2) * (DF_STEP_US + resident * step_bytes / DF_SM_BYTES_PER_US)
+
+
+def _df_candidates(n: int, rows: int, cols: int):
+    """The plans the stage takes on ``rows`` interior planes x ``cols``
+    interior rows of an n-point level: k in whole rows where they fit
+    DF_MAX_CHUNKS chunks, else in the fewest tiles that do, and in two
+    tiles more; over the row and plane counts that cut their axes evenly,
+    at most DF_MAX_ROWS rows and DF_MAX_PLANES planes."""
+    m = n - 2
+    whole = -(-m // -(-m // (32 * DF_MAX_CHUNKS)))
+    half = -(-m // (2 * -(-m // whole)))
+    out = []
+    for bk in sorted({whole, half}):
+        for bj in (b for b in _evened(cols) if b <= DF_MAX_ROWS):
+            for bi in (b for b in _evened(rows) if b <= DF_MAX_PLANES):
+                out.append(_df_make(n, bi, bj, bk, rows, cols))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _df_plan(n: int, sms: int, rows: int, cols: int) -> DfPlan:
+    """The plan of one launch of the double-float residual-and-norm stage
+    (K32, K41) on a rank's ``rows`` interior planes and ``cols`` interior
+    rows (``pallas_sharded.seg_df_extents``; n - 2 on an i-sharded block)
+    of an n-point level, for a card of ``sms`` SMs: of ``_df_candidates``,
+    the one of least ``_df_cost``, one of at least one block an SM first
+    where the rank has one. Raises for n < 3 or an empty interior."""
+    if n < 3 or rows < 1 or cols < 1:
+        raise ValueError(f"the df stage plans n >= 3 and an interior, got n = {n}, rows = "
+                         f"{rows}, cols = {cols}")
+    best = None
+    for plan in _df_candidates(n, rows, cols):
+        key = (plan.blocks < sms, _df_cost(plan, sms), -plan.blocks, plan.bk)
+        if best is None or key < best[0]:
+            best = (key, plan)
+    return best[1]
+
+
+def _df_zero_blocks(points: int, threads: int) -> int:
+    """The blocks of a launch on a block without interior points, which
+    write its ``points`` zeros, DF_ZERO_PER_THREAD a thread
+    (residual_df_norm_seg.cu, df_blocks)."""
+    return -(-points // (DF_ZERO_PER_THREAD * threads))
+
+
 # ------------------------------------------- K9: residual + restriction
 
 

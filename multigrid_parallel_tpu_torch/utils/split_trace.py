@@ -33,7 +33,10 @@ half-sweeps that follow it, and the BC pass that ends a mixed-BC call),
 and each restriction call's (``restrict_calls``: K3, K9, K18, K30 and
 K39, a kernel a call, the first forms' one thread a coarse point or the
 streaming stage's plan; K30's and K39's stage on a rank's segments,
-``seg_restrict_kernel``, by its plan of the rank's interior rows). The parent prints
+``seg_restrict_kernel``, by its plan of the rank's interior rows), and each
+double-float residual-and-norm call's (``norm_calls``: K5, K32 and K41, the
+partials kernel and the sum after it; K32's and K41's first form, one
+thread a point, or their stage, ``df_stage_kernel``). The parent prints
 the lines as they come and the card's name and power limit, and at the
 end each path's solution of round 0 against the first ROOT's
 (max|u - u_0|, held in a temporary directory).
@@ -369,6 +372,33 @@ def restrict_calls(intervals, sizes):
             for key, v in sorted(out.items())}
 
 
+# the double-float residual-and-norm kernels, each call its partials kernel
+# and the sum of the partials after it: K5's, and K32's (K41's where the
+# template arguments hold Seg2) first form, one thread a point, and stage
+NORM_KERNELS = {"residual_df_partials_kernel": "K5", "seg_residual_df_partials_kernel": "K32",
+                "df_stage_kernel": "K32"}
+
+
+def norm_calls(intervals):
+    """Each K5, K32 and K41 call's device time, its partials kernel and the
+    sum_partials_kernel after it ("K32|K41" where the trace dropped the
+    template arguments): {"K32": [calls, summed ms, median ms a call],
+    ...}."""
+    out, call = {}, None
+    for a, b, name, *_ in intervals:
+        base, _, args = name.partition("<")
+        label = NORM_KERNELS.get(base)
+        if label == "K32":
+            label = "K32|K41" if not args else "K41" if "Seg2" in args else "K32"
+        if label:
+            call = [label, (b - a) / 1e3]
+        elif base == "sum_partials_kernel" and call:
+            out.setdefault(call[0], []).append(call[1] + (b - a) / 1e3)
+            call = None
+    return {key: [len(v), round(sum(v), 4), round(statistics.median(v), 4)]
+            for key, v in sorted(out.items())}
+
+
 def _stage_sizes(hier, sms):
     """(kernel name, shape) -> n for the stage and restriction kernels of
     each level, the shape the grid and the shared memory and, for a trace
@@ -696,9 +726,10 @@ def _child(root: Path, walls: int, traces: int, electrospray: bool, save: Path,
             intervals = kernel_intervals(solve)
             runs.append(_summary(intervals) + (idle_before(intervals),
                                                stage_calls(intervals, sizes),
-                                               restrict_calls(intervals, sizes)))
+                                               restrict_calls(intervals, sizes),
+                                               norm_calls(intervals)))
         runs.sort(key=lambda r: float("inf") if r[0] is None else r[0])
-        busy, n_kernels, by_name, span, idle, calls, restricts = runs[len(runs) // 2]
+        busy, n_kernels, by_name, span, idle, calls, restricts, norms = runs[len(runs) // 2]
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
         result[label].update({
             "wall_ms_median": statistics.median(times[label]),
@@ -710,6 +741,7 @@ def _child(root: Path, walls: int, traces: int, electrospray: bool, save: Path,
                         for name, (ms, count) in top},
             "stage_calls": calls,
             "restrict_calls": restricts,
+            "norm_calls": norms,
         })
     print(json.dumps(result), flush=True)
     if sharded or dirichlet:

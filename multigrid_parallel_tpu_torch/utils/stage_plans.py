@@ -6,7 +6,9 @@ and K15's), with ``--seg`` on one rank's segments of an i-sharded field
 stages there (K31's, K28's and K29's) and on one rank's block of an (i,
 j)-sharded field (K40's, K37's and K38's), with
 ``--seg-restrict`` the streaming restriction stage there (K30's and K39's,
-K3's beside them), with ``--msplit`` the split pair's mixed stage (K22's and
+K3's beside them), with ``--seg-df`` the streaming double-float
+residual-and-norm stage there (K32's and K41's, their first forms and K5
+beside them), with ``--msplit`` the split pair's mixed stage (K22's and
 K24's, ops/csrc/split.cuh with MIXED), or, with ``--restrict``, the
 streaming restriction stage (K3's, K9's and, on the fold layout, K18's,
 ops/csrc/restrict.cuh; K18's first form beside it) on candidate plans at
@@ -17,7 +19,8 @@ block sizes, each held bit for bit against its plain version.
                                                              [--reps 20]
                                                              [--restrict | --fold | --mixed
                                                               | --seg | --seg-rect
-                                                              | --seg-restrict | --msplit]
+                                                              | --seg-restrict | --seg-df
+                                                              | --msplit]
                                                              [--kernels K29 K38 K2 ...]
 
 For each size and kernel (K2 from zero, K4, both at n_iter 2; K17, K16 and
@@ -40,13 +43,17 @@ the msplit planner's plan, K7's and K10's and wavefront plans of several
 block sizes; or K3, K9 and K18, K18's first form as the plan "first_form";
 or K30 and K39 on the production segments and blocks of the level (as
 K31's and K40's, each covering the level, at 9^3-257^3 by default), and K3
-on the level) and plan, one JSON line: the plan, whether the output equals
-the plain version, and the median device time of ``reps`` launches from a
-torch.profiler trace (``utils.split_trace.kernel_intervals``). The numbers
-serve to tune ``pallas_split._stage_plan``'s choice between the wavefront
-and the box, and the box's block size, ``pallas_split._restrict_plan``'s
-cost model and ``pallas_split.FOLD_RESTRICT_STAGE_MIN_N``, the level from
-which K18 takes the stage; the card's name and power limit first.
+on the level; or K32 and K41 on those segments and blocks, their first
+forms as the plan "first_form", and K5 on the level, at 65^3-513^3 by
+default, a call its partials kernel and their sum) and plan, one JSON line:
+the plan, whether the output equals the plain version, and the median
+device time of ``reps`` launches from a torch.profiler trace
+(``utils.split_trace.kernel_intervals``). The numbers serve to tune
+``pallas_split._stage_plan``'s choice between the wavefront and the box,
+and the box's block size, ``pallas_split._restrict_plan``'s and
+``_df_plan``'s cost models, ``pallas_split.FOLD_RESTRICT_STAGE_MIN_N``, the
+level from which K18 takes the stage, and ``DF_STAGE_MIN_N``, K32's and
+K41's; the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -768,6 +775,136 @@ def time_seg_restrict(n, sms, reps, dev):
                   flush=True)
 
 
+def seg_df_candidates(n, rows, cols, sms):
+    """The df stage planner's plan (``_df_plan`` of the rank's interior
+    planes and rows) and plans of bi planes x bj rows, whole k rows or two
+    k tiles, that the kernels take."""
+    plans = {"planner": ps._df_plan(n, sms, rows, cols)}
+    for plan in ps._df_candidates(n, rows, cols):
+        if (plan.bj == evened(cols, plan.bj) and plan.bj in (evened(cols, 4), evened(cols, 8))
+                and plan.bi in {evened(rows, b) for b in (8, 16, 32, 64)}):
+            plans[f"{plan.bi}x{plan.bj}x{plan.bk}"] = plan
+    return plans
+
+
+def _df_calls(intervals):
+    """Each call's device ms from a trace of df calls: the kernels up to and
+    including each sum_partials_kernel (a stage's or first form's partials,
+    then their sum)."""
+    calls, t = [], 0.0
+    for a, b, name, *_ in intervals:
+        t += (b - a) / 1e3
+        if name.startswith("sum_partials_kernel"):
+            calls.append(t)
+            t = 0.0
+    return calls
+
+
+def time_seg_df(n, sms, reps, dev):
+    """One JSON line a (kernel, segment, plan) at level n: K32 on the
+    one-rank segment (L = 320 (n - 1) / 256, rank 0) and on rank 1's of
+    four (L = 96 (n - 1) / 256), and K41 on the 1x1 block (272 (n - 1) /
+    256 rows and columns) and on rank (0, 0)'s of the 2x2 mesh (144 (n - 1)
+    / 256), each covering the level where the production plans stop, of
+    random double-float fields: each candidate plan of the rank's interior
+    (``seg_df_candidates``) launched through the stage's launchers, and the
+    first form (one thread a point) as the plan "first_form" where the
+    package has it; then K5 on the level; all held against their plain
+    versions (r bit for bit, the norm within rel 1e-6), with the median
+    device time a call (its partials kernel and their sum) over ``reps``
+    calls from a trace of their own."""
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as px
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as px2
+
+    h = 1.0 / (n - 1)
+    inv_h2 = 1.0 / (h * h)
+    lib, stream = pk._lib(), pk._stream()
+    first_form = hasattr(lib, "mg_seg_residual_df_norm")
+    rng = np.random.default_rng(n)
+
+    def df(*shape):
+        return [t.to(dev) for _ in range(2)
+                for t in pk.df_split(torch.from_numpy(rng.standard_normal(shape)))]
+
+    def outputs(shape, blocks):
+        return (torch.empty(shape, device=dev), torch.empty((), device=dev),
+                torch.empty(blocks, dtype=torch.float64, device=dev))
+
+    cases = []
+    for L, rank in ((_even_at_least(320 * (n - 1) // 256, n), 0),
+                    (_even_at_least(96 * (n - 1) // 256, -(-n // 4)), 1)):
+        fields = df((rank + 2) * L, n, n)
+        parts = [seg_parts(x, rank, L, 1, 1) for x in fields]
+        uh, ul = (px._seg(x, 1, 1, L) for x in parts[:2])
+        fh, fl = parts[2][0], parts[3][0]
+        g0 = rank * L
+        rows, cols = px.seg_df_extents(n, g0, L)
+
+        def k32(plan, L=L, g0=g0, uh=uh, ul=ul, fh=fh, fl=fl):
+            if plan is None:
+                r, nrm2, partials = outputs((L, n, n), lib.mg_seg_residual_df_norm_partials(L, n))
+                err = lib.mg_seg_residual_df_norm(r.data_ptr(), nrm2.data_ptr(),
+                                                  partials.data_ptr(), *px._ptrs(uh),
+                                                  *px._ptrs(ul), fh.data_ptr(), fl.data_ptr(), L,
+                                                  n, g0, inv_h2, stream)
+            else:
+                r, nrm2, partials = outputs((L, n, n), plan.blocks)
+                err = lib.mg_seg_df_stage(r.data_ptr(), nrm2.data_ptr(), partials.data_ptr(),
+                                          plan.blocks, *px._ptrs(uh), *px._ptrs(ul),
+                                          fh.data_ptr(), fl.data_ptr(), 1, L, 1, n, g0, inv_h2,
+                                          *plan.args, stream)
+            pk._check(err, "stage_plans")
+            return r, nrm2
+
+        cases.append(("K32", {"L": L, "rank": rank}, k32, seg_df_candidates(n, rows, cols, sms),
+                      px.residual_df_norm_halo_plain(*parts, g0 - 1, h, n, L)))
+    for w, nx in ((_even_at_least(272 * (n - 1) // 256, n), 1),
+                  (_even_at_least(144 * (n - 1) // 256, -(-n // 2)), 2)):
+        fields = df(nx * w, nx * w, n)
+        parts = [seg_parts2d(x, 0, 0, w, 1, 1) for x in fields]
+        segs = px2._norm_segs(parts, w, w)
+        rows, cols = px.seg_df_extents(n, 0, w, 0, w)
+
+        def k41(plan, w=w, segs=segs):
+            if plan is None:
+                r, nrm2, partials = outputs((w, w, n),
+                                            lib.mg_seg2d_residual_df_norm_partials(w, w, n))
+                err = lib.mg_seg2d_residual_df_norm(r.data_ptr(), nrm2.data_ptr(),
+                                                    partials.data_ptr(),
+                                                    *(s.desc() for s in segs), w, w, n, 0, 0,
+                                                    inv_h2, stream)
+            else:
+                r, nrm2, partials = outputs((w, w, n), plan.blocks)
+                err = lib.mg_seg2d_df_stage(r.data_ptr(), nrm2.data_ptr(), partials.data_ptr(),
+                                            plan.blocks, *(s.desc() for s in segs), 1, 1, w, w,
+                                            n, 0, 0, inv_h2, *plan.args, stream)
+            pk._check(err, "stage_plans")
+            return r, nrm2
+
+        cases.append(("K41", {"Li": w, "Lj": w, "rank": [0, 0], "mesh": [nx, nx]}, k41,
+                      seg_df_candidates(n, rows, cols, sms),
+                      px2.residual_df_norm_halo2d_plain(*parts, (-1, -1), h, n, w, w)))
+    cube = df(n, n, n)
+    cases.append(("K5", {}, lambda plan: pk.residual_df_norm_fused(*cube, h), {"kernel": None},
+                  pk.residual_df_norm_plain(*cube, h)))
+    for kernel, where, launch_on, plans, (want, want_n2) in cases:
+        extra = [("first_form", None)] if first_form and kernel != "K5" else []
+        for label, plan in list(plans.items()) + extra:
+            run = lambda plan=plan: launch_on(plan)  # noqa: E731
+            got, got_n2 = run()
+            exact = bool(torch.equal(got, want)) and (
+                abs(float(got_n2) - float(want_n2)) <= 1e-6 * abs(float(want_n2)))
+            torch.cuda.synchronize()
+            calls = _df_calls(kernel_intervals(lambda: [run() for _ in range(reps)]))
+            row = {"n": n, "kernel": kernel, **where, "plan": label, "exact": exact,
+                   "device_ms": statistics.median(calls) if calls else None}
+            if plan is not None:
+                row.update({"bi": plan.bi, "bj": plan.bj, "bk": plan.bk, "blocks": plan.blocks,
+                            "threads": plan.threads, "smem": plan.smem,
+                            "cost_us": round(ps._df_cost(plan, sms), 2)})
+            print(json.dumps(row), flush=True)
+
+
 def seg_parts2d(x, ix, iy, L, kl, kr):
     """Rank (ix, iy)'s own five parts (body, jl, jr, lh, rh) of the global
     field x of square (L, L) blocks, halos kl before and kr after in i and
@@ -807,6 +944,9 @@ def main(argv=None) -> int:
     group.add_argument("--seg-restrict", action="store_true",
                        help="time K30's and K39's restriction stages on the production "
                             "segments and blocks, and K3's, instead")
+    group.add_argument("--seg-df", action="store_true",
+                       help="time K32's and K41's df residual-and-norm stages on the production "
+                            "segments and blocks (and their first forms), and K5, instead")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("stage_plans: needs a CUDA device")
@@ -818,6 +958,7 @@ def main(argv=None) -> int:
     if args.sizes is None:
         args.sizes = ([129, 257] if args.seg or args.seg_rect
                       else [9, 17, 33, 65, 129, 257] if args.seg_restrict
+                      else [65, 129, 257, 513] if args.seg_df
                       else [9, 17, 33, 65, 129])
     if args.seg_rect:
         for n in args.sizes:
@@ -826,6 +967,10 @@ def main(argv=None) -> int:
     if args.seg_restrict:
         for n in args.sizes:
             time_seg_restrict(n, sms, args.reps, dev)
+        return 0
+    if args.seg_df:
+        for n in args.sizes:
+            time_seg_df(n, sms, args.reps, dev)
         return 0
     if args.seg:
         for n in args.sizes:

@@ -22,7 +22,9 @@ the one-pass Dirichlet segment stages K31 and K40 against theirs on the
 257^3 production segments and blocks (one launch a call at n_iter <= 2),
 the segment restriction stages K30 and K39 against theirs on the
 production segments and blocks at 9^3-513^3 and on hand plans, stitched
-against K3, NaN-poisoned (one launch a call),
+against K3, NaN-poisoned (one launch a call), K32 and K41 (the streaming
+df residual-and-norm stage, its first form below 129^3) likewise, the
+stage on every plan its planner weighs,
 the streaming restriction stages K3 and K9 against theirs at
 9^3-513^3 on NaN-poisoned outputs and on hand plans (one launch a call),
 and the one-pass fold stages K16, K17 and K19 against theirs at
@@ -2009,6 +2011,215 @@ def test_seg_restrict_launchers_refuse_what_they_do_not_take(cuda):
     short_j = tpx2._Seg2(e5.body, e5.jl[:, 1:], e5.jr, e5.lh[:, 1:], e5.rh[:, 1:], e5.r_off)
     short_i = tpx2._Seg2(e5.body, e5.jl, e5.jr, e5.lh[1:], e5.rh, e5.r_off)
     assert k39(1, 1, li, lj, plan2, short_j) != 0 and k39(1, 1, li, lj, plan2, short_i) != 0
+    torch.cuda.synchronize()
+
+
+# (n, L, ranks) of K32, K30's: the production segments at 257^3 (four ranks' L = 96, rank
+# 3 pad only; one rank's L = 320, 63 pad planes) and 513^3, each level below 257^3 of both
+# plans
+K32_CASES = K30_CASES
+# (n, (nx, ny), Li, Lj) of K41: K39's blocks, and the 4x1 and 1x4 meshes' blocks at 257^3
+K41_CASES = K39_CASES + [(257, (4, 1), 72, 272), (257, (1, 4), 272, 72)]
+
+
+def _df_global(rng, rows, cols, n, dev):
+    """u_hi, u_lo, f_hi, f_lo: double-float splits of two random f64 fields of
+    (rows, cols, n), random at every point."""
+    return [t.to(dev) for _ in range(2)
+            for t in tpk.df_split(torch.from_numpy(rng.standard_normal((rows, cols, n))))]
+
+
+def _norm_within(got, want):
+    """A partial norm within rel 1e-6 of the plain version's (the f64 sum in
+    another order), exactly 0 where that is."""
+    return abs(float(got) - float(want)) <= 1e-6 * abs(float(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,ranks", K32_CASES)
+def test_k32_df_stage_matches_plain_on_card(cuda, n, L, ranks):
+    """K32 on every rank of the geometry, through the wrapper's choice of
+    form (the streaming stage from DF_STAGE_MIN_N up, the first form
+    below): r bit for bit its plain version and the partial norm within
+    rel 1e-6 of its, on
+    double-float fields random at every plane, u's and f's planes past the
+    field NaN (halo and pad planes, which no residual reads), the allocator
+    poisoned with NaN before each call (a point left unwritten shows); one
+    launch a call; the inputs left as they were; the stitched r equal to
+    K5's on the whole field, the pad planes 0, the norms summed within rel
+    1e-6 of K5's."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+
+    h = 1.0 / (n - 1)
+    df = _df_global(np.random.default_rng(1000 + n + L), ranks * L, n, n, cuda)
+    outs, n2 = [], 0.0
+    for r in range(ranks):
+        g0 = r * L
+        parts = [[_nan_past(t, (g,), n, (0,)) for t, g in zip(rk.rank_parts(x, r, L, 1, 1),
+                                                               (g0, g0 - 1, g0 + L))]
+                 for x in df]
+        before = [t.clone() for p in parts for t in p]
+        want, want_n2 = tpx.residual_df_norm_halo_plain(*parts, g0 - 1, h, n, L)
+        _poison_allocator((L, n, n), cuda)
+        tpx.reset_launches()
+        got, got_n2 = tpx.residual_df_norm_halo(*parts, g0 - 1, h, n, L)
+        assert tpx.LAUNCHES == {**dict.fromkeys(tpx.KERNELS, 0), "residual_df_norm_seg": 1}
+        assert bool(torch.isfinite(got).all()) and torch.equal(got, want), r
+        assert _norm_within(got_n2, want_n2), (r, float(got_n2), float(want_n2))
+        assert all(_same_with_nan(a, b) for a, b in zip((t for p in parts for t in p), before))
+        outs.append(got)
+        n2 += float(got_n2)
+    whole = torch.cat(outs)
+    want_r, want_n2 = tpk.residual_df_norm_fused(*(x[:n] for x in df), h)
+    assert torch.equal(whole[:n], want_r) and not whole[n:].any()
+    assert _norm_within(n2, want_n2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,mesh,li,lj", K41_CASES)
+def test_k41_df_stage_matches_plain_on_card(cuda, n, mesh, li, lj):
+    """K41 on every block of the mesh, through the wrapper's choice of form,
+    as K32's test:
+    r bit for bit its plain version, the norm within rel 1e-6, on fields
+    random at every point, u's and f's points past the field NaN (halo and
+    pad rows and columns), NaN-poisoned outputs, one launch a call, the
+    inputs as they were; the stitched r equal to K5's on the whole field,
+    the pad points 0, the norms summed within rel 1e-6 of K5's."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as tpx2
+
+    (nx, ny), h = mesh, 1.0 / (n - 1)
+    df = _df_global(np.random.default_rng(1100 + n + li + lj), nx * li, ny * lj, n, cuda)
+    outs, n2 = {}, 0.0
+    for ix in range(nx):
+        for iy in range(ny):
+            g0, gj0 = ix * li, iy * lj
+            firsts = ((g0, gj0), (g0, gj0 - 1), (g0, gj0 + lj), (g0 - 1, gj0 - 1),
+                      (g0 + li, gj0 - 1))
+            parts = [[_nan_past(t, g, n, (0, 1)) for t, g in
+                      zip(rk.rank_parts2d(x, ix, iy, li, lj, 1, 1), firsts)] for x in df]
+            before = [t.clone() for p in parts for t in p]
+            gij0 = (g0 - 1, gj0 - 1)
+            want, want_n2 = tpx2.residual_df_norm_halo2d_plain(*parts, gij0, h, n, li, lj)
+            _poison_allocator((li, lj, n), cuda)
+            tpx2.reset_launches()
+            got, got_n2 = tpx2.residual_df_norm_halo2d(*parts, gij0, h, n, li, lj)
+            assert tpx2.LAUNCHES == {**dict.fromkeys(tpx2.KERNELS, 0),
+                                     "residual_df_norm_seg2d": 1}
+            assert bool(torch.isfinite(got).all()) and torch.equal(got, want), (ix, iy)
+            assert _norm_within(got_n2, want_n2), (ix, iy)
+            assert all(_same_with_nan(a, b)
+                       for a, b in zip((t for p in parts for t in p), before))
+            outs[ix, iy] = got
+            n2 += float(got_n2)
+    whole = _stitch2d(lambda ix, iy: outs[ix, iy], nx, ny)
+    want_r, want_n2 = tpk.residual_df_norm_fused(*(x[:n, :n].contiguous() for x in df), h)
+    assert torch.equal(whole[:n, :n], want_r)
+    assert not whole[n:].any() and not whole[:, n:].any()
+    assert _norm_within(n2, want_n2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 65, 257])
+def test_df_stage_on_every_candidate_plan_on_card(cuda, n):
+    """K32's and K41's stages launched directly on every plan that the
+    planner weighs (pallas_split._df_candidates) of the one-rank segment,
+    rank 1's of four ranks and the 1x1 block (the production sizes scaled
+    to the level): r bit for bit the plain version's on NaN-poisoned
+    outputs, the norm within rel 1e-6."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as tpx2
+
+    h, lib, stream = 1.0 / (n - 1), tpk._lib(), tpk._stream()
+    rng = np.random.default_rng(1200 + n)
+    for L, r in ((max(320 * (n - 1) // 256, n + 1), 0), (max(96 * (n - 1) // 256, -(-n // 4)), 1)):
+        df = _df_global(rng, (r + 2) * L, n, n, cuda)
+        parts = [rk.rank_parts(x, r, L, 1, 1) for x in df]
+        segs = [tpx._seg(x, 1, 1, L) for x in parts[:2]]
+        want, want_n2 = tpx.residual_df_norm_halo_plain(*parts, r * L - 1, h, n, L)
+        rows, cols = tpx.seg_df_extents(n, r * L, L)
+        for plan in tps._df_candidates(n, rows, cols):
+            out = torch.full((L, n, n), float("nan"), device=cuda)
+            nrm2 = torch.full((), float("nan"), device=cuda)
+            partials = torch.empty(plan.blocks, dtype=torch.float64, device=cuda)
+            assert lib.mg_seg_df_stage(out.data_ptr(), nrm2.data_ptr(), partials.data_ptr(),
+                                       plan.blocks, *tpx._ptrs(segs[0]), *tpx._ptrs(segs[1]),
+                                       parts[2][0].data_ptr(), parts[3][0].data_ptr(), 1, L, 1,
+                                       n, r * L, 1.0 / (h * h), *plan.args, stream) == 0, plan
+            assert torch.equal(out, want) and _norm_within(nrm2, want_n2), (L, r, plan)
+    w = max(272 * (n - 1) // 256, n + 1)
+    df = _df_global(rng, w, w, n, cuda)
+    parts = [rk.rank_parts2d(x, 0, 0, w, w, 1, 1) for x in df]
+    segs = tpx2._norm_segs(parts, w, w)
+    want, want_n2 = tpx2.residual_df_norm_halo2d_plain(*parts, (-1, -1), h, n, w, w)
+    rows, cols = tpx.seg_df_extents(n, 0, w, 0, w)
+    for plan in tps._df_candidates(n, rows, cols):
+        out = torch.full((w, w, n), float("nan"), device=cuda)
+        nrm2 = torch.full((), float("nan"), device=cuda)
+        partials = torch.empty(plan.blocks, dtype=torch.float64, device=cuda)
+        assert lib.mg_seg2d_df_stage(out.data_ptr(), nrm2.data_ptr(), partials.data_ptr(),
+                                     plan.blocks, *(s.desc() for s in segs), 1, 1, w, w, n, 0, 0,
+                                     1.0 / (h * h), *plan.args, stream) == 0, plan
+        assert torch.equal(out, want) and _norm_within(nrm2, want_n2), plan
+
+
+@pytest.mark.cuda
+def test_df_stage_launchers_refuse_what_they_do_not_take(cuda):
+    """The K32 and K41 stage launchers refuse a plan whose shared memory is
+    not the kernel's, a partials count that is not the launch's blocks, a
+    missing halo (u without its row or column of halo on a side) and an r
+    that meets an input; the wrappers' own arguments succeed."""
+    import torch_sharded_ranks as rk
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded2d as tpx2
+
+    n, L, r = 33, 16, 1
+    inv_h2 = float((n - 1) ** 2)
+    lib, stream = tpk._lib(), tpk._stream()
+    df = _df_global(np.random.default_rng(1300), 4 * L, n, n, cuda)
+    parts = [rk.rank_parts(x, r, L, 1, 1) for x in df]
+    uh, ul = (tpx._seg(x, 1, 1, L) for x in parts[:2])
+    fh, fl = parts[2][0], parts[3][0]
+    rows, cols = tpx.seg_df_extents(n, r * L, L)
+    nparts, plan = tpx.seg_df_parts(n, cuda, rows, cols, L * n * n)
+    bad = plan[:5] + (plan[5] + 16,)
+    out = torch.empty((L, n, n), device=cuda)
+    nrm2 = torch.empty((), device=cuda)
+    partials = torch.empty(nparts + 1, dtype=torch.float64, device=cuda)
+
+    def k32(kl, kr, p, m=nparts, r_out=out):
+        return lib.mg_seg_df_stage(r_out.data_ptr(), nrm2.data_ptr(), partials.data_ptr(), m,
+                                   *tpx._ptrs(uh), *tpx._ptrs(ul), fh.data_ptr(), fl.data_ptr(),
+                                   kl, L, kr, n, r * L, inv_h2, *p, stream)
+
+    assert k32(1, 1, plan) == 0
+    assert k32(1, 1, bad) != 0 and k32(1, 1, plan, nparts + 1) != 0
+    assert k32(0, 1, plan) != 0 and k32(1, 0, plan) != 0
+    assert k32(1, 1, plan, r_out=uh.body) != 0 and k32(1, 1, plan, r_out=fl) != 0
+    li = lj = 18
+    df2 = _df_global(np.random.default_rng(1301), 2 * li, 2 * lj, n, cuda)
+    segs = tpx2._norm_segs([rk.rank_parts2d(x, 1, 1, li, lj, 1, 1) for x in df2], li, lj)
+    rows2, cols2 = tpx.seg_df_extents(n, li, li, lj, lj)
+    nparts2, plan2 = tpx.seg_df_parts(n, cuda, rows2, cols2, li * lj * n)
+    bad2 = plan2[:5] + (plan2[5] + 16,)
+    out2 = torch.empty((li, lj, n), device=cuda)
+
+    def k41(kr, hjr, p, s=segs, m=nparts2, r_out=out2):
+        return lib.mg_seg2d_df_stage(r_out.data_ptr(), nrm2.data_ptr(), partials.data_ptr(), m,
+                                     *(x.desc() for x in s), kr, hjr, li, lj, n, li, lj, inv_h2,
+                                     *p, stream)
+
+    assert k41(1, 1, plan2) == 0
+    assert k41(1, 1, bad2) != 0 and k41(1, 1, plan2, m=nparts2 + 1) != 0
+    assert k41(0, 1, plan2) != 0 and k41(1, 0, plan2) != 0
+    u = segs[0]
+    no_jl = tpx2._Seg2(u.body, u.jl[:, :0], u.jr, u.lh, u.rh, u.r_off)
+    no_lh = tpx2._Seg2(u.body, u.jl, u.jr, u.lh[:0], u.rh, u.r_off)
+    assert k41(1, 1, plan2, (no_jl,) + tuple(segs[1:])) != 0
+    assert k41(1, 1, plan2, (no_lh,) + tuple(segs[1:])) != 0
+    assert k41(1, 1, plan2, r_out=segs[3].body) != 0 and k41(1, 1, plan2, r_out=u.body) != 0
     torch.cuda.synchronize()
 
 

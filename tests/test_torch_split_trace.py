@@ -531,3 +531,29 @@ def test_restrict_calls_map_the_segment_restriction_stages():
         "K39 n=257": [1, pytest.approx(0.003), pytest.approx(0.003)],
         "K39 n=129": [1, pytest.approx(0.001), pytest.approx(0.001)],
         "K30|K39 n=129": [1, pytest.approx(0.002), pytest.approx(0.002)]}
+
+
+def test_norm_calls_join_each_partials_kernel_to_its_sum():
+    """A K5, K32 or K41 call is its partials kernel (K5's, K32's first
+    form or stage, K41 where the arguments hold Seg2, "K32|K41" where the
+    trace dropped them) and the sum_partials_kernel after it; other
+    kernels between calls are no part of one."""
+    assert (st.short_name("void (anonymous namespace)::df_stage_kernel<mg::Seg2, 8>("
+                          "(anonymous namespace)::DfArgs<mg::Seg2>)")
+            == "df_stage_kernel<mg::Seg2, 8>")
+    intervals = [(0, 100, "df_stage_kernel<mg::Seg, 8>", ()),
+                 (100, 103, "sum_partials_kernel", ()),
+                 (110, 120, "rb_half_sweep_kernel", ()),
+                 (130, 290, "df_stage_kernel<mg::Seg, 8>", ()),
+                 (290, 292, "sum_partials_kernel", ()),
+                 (300, 400, "seg_residual_df_partials_kernel<mg::Seg2>", ()),
+                 (400, 401, "sum_partials_kernel", ()),
+                 (410, 420, "df_stage_kernel", ()),
+                 (420, 421, "sum_partials_kernel", ()),
+                 (430, 530, "residual_df_partials_kernel", ()),
+                 (530, 532, "sum_partials_kernel", ())]
+    assert st.norm_calls(intervals) == {
+        "K32": [2, pytest.approx(0.265), pytest.approx(0.1325)],
+        "K41": [1, pytest.approx(0.101), pytest.approx(0.101)],
+        "K32|K41": [1, pytest.approx(0.011), pytest.approx(0.011)],
+        "K5": [1, pytest.approx(0.102), pytest.approx(0.102)]}

@@ -5,7 +5,10 @@ and K35 and K36 on one rank's segments of an i-sharded field (``kSeg``;
 tests/test_torch_seg_stage.py); and of its Dirichlet stage on a rank's
 segmented block, K31, K28 and K29 on an i-sharded field and K40, K37 and
 K38 on an (i, j)-sharded one (``kSegRect``;
-tests/test_torch_seg_rect_stage.py, below).
+tests/test_torch_seg_rect_stage.py, below); and of the streaming
+restriction (restrict.cuh) and the double-float residual-and-norm stage
+(residual_df_norm_seg.cu, K32 and K41; tests/test_torch_seg_df_stage.py)
+further below.
 
 The stage runs block by block on rect.cuh's tile: a field row (i, j) held
 as two colour rows of slots, slot kk of a colour holding k = 2 kk + 1 + p,
@@ -930,3 +933,194 @@ def _coarse_rows(plane, g, ci, split, out, writes, fold=False, fault=None):
     ks = slice(ck0 - 1, ck1 - 1) if fold else slice(ck0, ck1)
     out[ci, cj0:cj1, ks] = v
     writes[ci, cj0:cj1, ks] += 1
+
+
+# ----------------------------- the double-float residual-and-norm stage
+# (K32 and K41: residual_df_norm_seg.cu, df_stage_kernel), emulated as the
+# kernel runs it on a rank's segmented block: the blocks tile the rank's
+# interior planes, rows and k on the plan (bi planes x bj rows x bk k, k
+# fastest, then j, then i); a block streams its planes through a ring of
+# DF_RING tile planes of u_hi and u_lo (rows ja - 1 .. jb and k ka - 1 ..
+# kb, copied from a slab of the rank's segments at local indices, NaN past
+# what they hold; a plane read from a slot that another has taken raises),
+# the plane before at each point held from the step before, f read at the
+# owned points, K5's compensated residual in nbr_sum order; the zeros of
+# the planes outside the interior and, around each box, of its boundary
+# rows, pad columns and k ends; each thread's f64 sum of squares (lane l
+# of warp w the points ka + l + 32 c of row ja + w), planes in order, then
+# its chunks; the block's warp tree and its warps in order; and the sum of
+# the partials, 1,024 strided sums and their tree.
+
+
+class DfSeg(NamedTuple):
+    """A K32 or K41 launch: u_hi and u_lo given as slabs whose point [oi,
+    oj] is local (plane 0, row 0) of the rank's (L, Lj, n) block (Lj = n on
+    an i-sharded one), NaN past what its segments hold; the local interior
+    planes [t0, t1) and rows [j0, j1) (all 0 for a rank without interior
+    points)."""
+    oi: int
+    oj: int
+    L: int
+    Lj: int
+    t0: int
+    t1: int
+    j0: int
+    j1: int
+
+
+def df_seg(n, g0, L, oi, oj, gj0=None, Lj=None):
+    """DfSeg of a rank's block from the global plane g0 of body row 0 and L
+    rows (and, on an (i, j) block, gj0 and Lj columns; else the j axis
+    whole), as residual_df_norm_seg.cu's df_setup makes it."""
+    t0, t1 = max(0, 1 - g0), min(L, n - 1 - g0)
+    if Lj is None:
+        Lj, j0, j1 = n, 1, n - 1
+    else:
+        j0, j1 = max(0, 1 - gj0), min(Lj, n - 1 - gj0)
+    if t1 <= t0 or j1 <= j0:
+        t0 = t1 = j0 = j1 = 0
+    return DfSeg(oi, oj, L, Lj, t0, t1, j0, j1)
+
+
+def _warp_tree(v):
+    """A warp's sum of its lanes' values (..., 32), as the kernel's
+    __shfl_down_sync tree leaves it in lane 0."""
+    for o in (16, 8, 4, 2, 1):
+        v = v[..., :o] + v[..., o:2 * o]
+    return v[..., 0]
+
+
+def _sum_partials(partials):
+    """eft.cuh's sum_partials_kernel: 1,024 threads each summing the
+    partials q = t, t + 1,024, ... in order, then their tree."""
+    m = partials.shape[0]
+    acc = torch.zeros(1024, dtype=torch.float64)
+    for q0 in range(0, m, 1024):
+        chunk = partials[q0:q0 + 1024]
+        acc[:chunk.shape[0]] = acc[:chunk.shape[0]] + chunk
+    w = 512
+    while w:
+        acc = acc[:w] + acc[w:2 * w]
+        w //= 2
+    return acc[0]
+
+
+def emulate_df(plan, uh, ul, fh, fl, h, seg, fault=None):
+    """One K32 or K41 launch on ``plan`` (a pallas_split.DfPlan; its rows
+    and cols are the rank's interior ones, anything for a rank without
+    them). ``uh`` and ``ul`` are slabs as ``seg`` says; ``fh`` and ``fl``
+    the owned (L, Lj, n) bodies. ``fault``: "ring_early" starts copying
+    plane p + 2 into the ring slot of plane p, one plane early;
+    "k_wrap" takes the k + 1 neighbour of a chunk's lane 31 from its lane 0
+    and the k - 1 one of its lane 0 from its lane 31 (a warp shuffle that
+    wraps); "pad_unwritten" leaves the planes past the interior unwritten
+    (all must fail). Returns (r, how many times each point was written,
+    the f32 norm)."""
+    n, inv_h2 = plan.n, 1.0 / (h * h)
+    shape = (seg.L, seg.Lj, n)
+    out = torch.full(shape, NAN)
+    writes = torch.zeros(shape, dtype=torch.int32)
+    planes = [slice(0, seg.t0), slice(seg.t1, seg.L)]
+    if fault == "pad_unwritten":
+        planes = planes[:1]
+    for rows in planes:
+        out[rows] = 0.0
+        writes[rows] += 1
+    if seg.t1 <= seg.t0:
+        blocks = tps._df_zero_blocks(seg.L * seg.Lj * n, plan.threads)
+        return out, writes, _sum_partials(torch.zeros(blocks, dtype=torch.float64)).float()
+    ring_w = -(-(plan.bk + 2) // 4) * 4
+    ni, nj, nk = (-(-(seg.t1 - seg.t0) // plan.bi), -(-(seg.j1 - seg.j0) // plan.bj),
+                  -(-(n - 2) // plan.bk))
+    partials = []
+    for ti in range(ni):
+        for tj in range(nj):
+            for tk in range(nk):
+                ta = seg.t0 + ti * plan.bi
+                tb = min(ta + plan.bi, seg.t1)
+                ja = seg.j0 + tj * plan.bj
+                jb = min(ja + plan.bj, seg.j1)
+                ka = 1 + tk * plan.bk
+                kb = min(ka + plan.bk, n - 1)
+                _df_zero_box(out, writes, seg, n, ta, tb, ja, jb, ka, kb)
+                acc = _df_block(plan, uh, ul, fh, fl, inv_h2, seg, ta, tb, ja, jb, ka, kb,
+                                ring_w, out, writes, fault)
+                partials.append(_warps_in_order(_warp_tree(acc)))
+    return out, writes, _sum_partials(torch.tensor(partials, dtype=torch.float64)).float()
+
+
+def _warps_in_order(per_warp):
+    s = per_warp[0]
+    for w in range(1, per_warp.shape[0]):
+        s = s + per_warp[w]
+    return float(s)
+
+
+def _df_zero_box(out, writes, seg, n, ta, tb, ja, jb, ka, kb):
+    """The block's zeros in its planes: rows off [j0, j1) of its box
+    widened to the block's edges where it reaches them, else the k ends."""
+    jlo = 0 if ja == seg.j0 else ja
+    jhi = seg.Lj if jb == seg.j1 else jb
+    klo, khi = (0 if ka == 1 else ka), (n if kb == n - 1 else kb)
+    for j in range(jlo, jhi):
+        if j < seg.j0 or j >= seg.j1:
+            out[ta:tb, j, klo:khi] = 0.0
+            writes[ta:tb, j, klo:khi] += 1
+        else:
+            for k in [0] * (ka == 1) + [n - 1] * (kb == n - 1):
+                out[ta:tb, j, k] = 0.0
+                writes[ta:tb, j, k] += 1
+
+
+def _df_block(plan, uh, ul, fh, fl, inv_h2, seg, ta, tb, ja, jb, ka, kb, ring_w, out, writes,
+              fault):
+    """One block's stream; returns its threads' f64 sums, (bj, 32)."""
+    rows, pts, chunks = jb - ja, kb - ka, plan.chunks
+    slots = [None] * tps.DF_RING
+
+    def slot(q):
+        return (q - ta + 1) % tps.DF_RING
+
+    def load(q, into):
+        assert q + seg.oi >= 0 and ja - 1 + seg.oj >= 0, "a read before the slab"
+        tiles = torch.full((2, plan.bj + 2, ring_w), NAN)
+        for c, u in enumerate((uh, ul)):
+            tiles[c, :rows + 2, :pts + 2] = u[q + seg.oi, ja - 1 + seg.oj:jb + 1 + seg.oj,
+                                             ka - 1:kb + 1]
+        slots[into] = (q, tiles)
+
+    def held(q):
+        plane, tiles = slots[slot(q)]
+        if fault is None:
+            assert plane == q, (plane, q)
+        return tiles
+
+    for q in range(ta - 1, ta + 2):
+        load(q, slot(q))
+    lane = torch.arange(pts) % 32
+    first = held(ta - 1)
+    prev = first[:, 1:rows + 1, 1:pts + 1]
+    acc = torch.zeros((plan.bj, 32), dtype=torch.float64)  # a thread's sum
+    for p in range(ta, tb):
+        if p + 2 <= tb:
+            load(p + 2, slot(p) if fault == "ring_early" else slot(p + 2))
+        mid, hi = held(p), held(p + 1)
+        c = mid[:, 1:rows + 1, 1:pts + 1]
+        left, right = mid[:, 1:rows + 1, 0:pts], mid[:, 1:rows + 1, 2:pts + 2]
+        if fault == "k_wrap":
+            b = torch.arange(pts)
+            right = torch.where(lane == 31, c[..., (b - 31).clamp(min=0)], right)
+            wraps = (lane == 0) & (b + 31 < pts)
+            left = torch.where(wraps, c[..., torch.where(wraps, b + 31, b)], left)
+        nbrs = [prev, hi[:, 1:rows + 1, 1:pts + 1], mid[:, 0:rows, 1:pts + 1],
+                mid[:, 2:rows + 2, 1:pts + 1], left, right]
+        v = tpk._eft_residual(fh[p, ja:jb, ka:kb], fl[p, ja:jb, ka:kb], c[0],
+                              [x[0] for x in nbrs], c[1], [x[1] for x in nbrs], inv_h2)
+        out[p, ja:jb, ka:kb] = v
+        writes[p, ja:jb, ka:kb] += 1
+        sq = torch.zeros((plan.bj, chunks * 32), dtype=torch.float64)
+        sq[:rows, :pts] = v.double() * v.double()
+        for ch in range(chunks):  # the thread's chunks in order
+            acc = acc + sq[:, ch * 32:(ch + 1) * 32]
+        prev = c
+    return acc
