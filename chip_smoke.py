@@ -81,8 +81,8 @@ which fails the run:
   6. the electrospray 257^3 solve, launches reset and read around it:
      14 +- 1 outer steps, final norm <= 1e-8 of the initial one, only
      K13-K15, K3 and K5 launched, K13, K14 and K15 exactly as many times
-     as the cycle's calls in that many outer steps need (K14 and K15 one
-     launch a call, K13 2 n_smooth + 1); its wall (warm-up, median of 5)
+     as the cycle's calls in that many outer steps need (one launch a call
+     each); its wall (warm-up, median of 5)
      beside the device-busy time of one traced solve; its solution within
      1e-3 V of the f64-outer MixedBCSolver.solve_on_device, outer steps
      within 1; K13, K14 and K15's device time a call by level from a trace;
@@ -144,15 +144,17 @@ which fails the run:
      256 is rank 4's first row) electrospray fields with the problem's
      pins, each bitwise equal to its plain version and, stitched, to
      K13-K15, pad planes zero, each timed on rank 1's 257^3 segments (L =
-     96) against its plain version; (b) make_sharded_mixed_padded_df_solver
+     96) against its plain version, and K34 and K35 timed on the one-rank
+     plan's blocks at 129^3 (L = 160) and 65^3 (L = 80), where the solve
+     runs K34, beside their bounds; (b) make_sharded_mixed_padded_df_solver
      at 257^3 (production configuration) on one NCCL rank, launch counts
-     reset and read around it: K30, K32 and K34 launched as often as phase
-     6's full tier launches K3, K5 and K13, K35 and K36 (one-pass stages)
-     as often as K14 and K15, and nothing else, the full tier's outer
+     reset and read around it: K30, K32 and K34-K36 (one-pass stages)
+     launched as often as phase 6's full tier launches K3, K5 and K13-K15,
+     and nothing else, the full tier's outer
      steps, max|u - u_full| <= 1e-7 max|u|, walls interleaved with the full
      tier (5 each) and the device busy time of each; (c) in 10c's spawned
      group, the same solve on the four gloo ranks: (b)'s outer steps, u
-     within 1e-7 max|u| of (b)'s, each rank launching exactly K34 210, K35
+     within 1e-7 max|u| of (b)'s, each rank launching exactly K34 42, K35
      168, K36 210, K30 210 and K32 15 times and, in the replicated 9^3
      tail, K14, K3 and K15 56 times each; and the f64 sharded mixed-BC
      cycle at 65^3 against MixedBCSolver's within 1e-11 max|u|;
@@ -432,9 +434,9 @@ MIXED_SEG_TWINS = {"mixed_rb_smooth_seg": "mixed_rb_smooth_fused",
 MIXED_SEG_TAIL_KERNELS = ("mixed_rb_smooth_from_zero_fused", "residual_restrict_fused",
                           "mixed_prolong_smooth_fused")
 # each of the four gloo ranks' launches in that solve (L = 96; the 9^3 tail's K14, K3
-# and K15 too): K35 and K36 one a call since their one-pass stages (840 and 1,050 in
-# their first forms)
-MIXED_SEG_RANK_LAUNCHES = {"mixed_rb_smooth_seg": 210, "mixed_rb_smooth_from_zero_seg": 168,
+# and K15 too): K34, K35 and K36 one a call since their one-pass stages (210, 840 and
+# 1,050 in their first forms)
+MIXED_SEG_RANK_LAUNCHES = {"mixed_rb_smooth_seg": 42, "mixed_rb_smooth_from_zero_seg": 168,
                            "mixed_prolong_smooth_seg": 210, "residual_restrict_seg": 210,
                            "residual_df_norm_seg": 15, "mixed_rb_smooth_from_zero_fused": 56,
                            "residual_restrict_fused": 56, "mixed_prolong_smooth_fused": 56}
@@ -774,15 +776,17 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
             timed = n_iter == 2  # the main path's n_smooth
             for red_first in (True, False):
                 want = pm.mixed_rb_smooth_plain(e_bc, r0, pin, h_es, n_iter, red_first)
-                got = pm.mixed_rb_smooth_fused(e_bc.clone(), r0, pin, h_es, n_iter, red_first)
+                e0 = e_bc.clone()
+                got = pm.mixed_rb_smooth_fused(e_bc, r0, pin, h_es, n_iter, red_first)
+                torch.cuda.synchronize()
+                check(torch.equal(e_bc, e0), f"mixed_rb_smooth_fused n={n}: e changed")
                 times = ()
                 if timed and red_first:
-                    ek = e_bc.clone()
-                    times = (time_ms(lambda: pm.mixed_rb_smooth_fused(ek, r0, pin, h_es, 2)),
+                    times = (time_ms(lambda: pm.mixed_rb_smooth_fused(e_bc, r0, pin, h_es, 2)),
                              time_ms(lambda: pm.mixed_rb_smooth_plain(e_bc, r0, pin, h_es, 2)))
                 label = f"n_iter={n_iter}_" + ("red_first" if red_first else "black_first")
                 record("mixed_rb_smooth_fused", n, label, got, want, *times,
-                       io=((e_bc, r0, pin), (e_bc,)))
+                       io=((e_bc, r0, pin), (got,)), bitwise=True)
             got = pm.mixed_rb_smooth_from_zero_fused(r0, pin, h_es, n_iter)
             times = ()
             if timed:
@@ -1239,7 +1243,7 @@ def fold_257(es, dev, card, launches, full):
 # each mixed-BC cycle's smoothing stages: where a level's correction is
 # revisited (K13, K16), entered from zero (K14, K17) and the prolongation
 # (K15, K19), in that order; one-pass stages of ceil(n_smooth / 2) launches
-# a call, but for the revisit stages still in their first form
+# a call, but for a revisit stage still in its first form
 # (PER_SWEEP_STAGES: 2 n_smooth + 1 launches a call, a half-sweep each and
 # the BC pass)
 FULL_STAGES = {"K13": "mixed_rb_smooth_fused", "K14": "mixed_rb_smooth_from_zero_fused",
@@ -1251,7 +1255,7 @@ FOLD_STAGES = {"K16": "mixed_rb_smooth_fold", "K17": "mixed_rb_smooth_from_zero_
 # took 2 n_smooth + 1 and 2 n_smooth + 2 launches a call)
 MSPLIT_STAGES = {"K21": "mixed_rb_smooth_msplit", "K22": "mixed_rb_smooth_from_zero_msplit",
                  "K24": "mixed_prolong_smooth_msplit"}
-PER_SWEEP_STAGES = ("K13", "K21")
+PER_SWEEP_STAGES = ("K21",)
 
 
 def new_calls(stages):
@@ -1860,17 +1864,24 @@ def compare_sharded(dev, results):
                  lambda: px.residual_df_norm_halo_plain(*df1, -1, h, n, L1),
                  L1 * n * n, [x[:n] for x in df], h)
     u1, f1 = _seg_parts(u[:L1], 0, L1, hh, hh), _seg_parts(f[:L1], 0, L1, hh, hh)
+    ec1 = _seg_parts(ec[:L1 // 2], 0, L1 // 2, 2, 3)
+    nc = (n + 1) // 2
     one_rank = {
         "rb_smooth_seg": (lambda: px.rb_smooth_halo(u1, f1, -hh, h, 2, n, L1),
-                          lambda: px.rb_smooth_halo_plain(u1, f1, -hh, h, 2, n, L1), 8),
+                          lambda: px.rb_smooth_halo_plain(u1, f1, -hh, h, 2, n, L1), 8 * n ** 3),
         "rb_smooth_from_zero_seg": (lambda: px.rb_smooth_from_zero_halo(f1, -hh, h, 2, n, L1),
                                     lambda: px.rb_smooth_from_zero_halo_plain(f1, -hh, h, 2, n,
-                                                                              L1), 4),
+                                                                              L1), 4 * n ** 3),
+        # K31: e and r on the field's n planes and the coarse field's nc read once
+        "prolong_smooth_seg": (
+            lambda: px.prolong_smooth_halo(ec1, u1, f1, -hh, h, 2, n, L1),
+            lambda: px.prolong_smooth_halo_plain(ec1, u1, f1, -hh, h, 2, n, L1),
+            8 * n ** 3 + 4 * nc ** 3),
     }
     for name, (kernel, plain, need) in one_rank.items():
         got = kernel()
         bitwise_same(results, name, n, "L=320 rank 0 against plain", got, plain())
-        bound1, _ = bound(name, n * n * n, (need * n ** 3,), (got,))
+        bound1, _ = bound(name, n * n * n, (need,), (got,))
         print(f"[sharded kernel] {name:24s} n={n} L={L1} rank 0 of 1 "
               f"kernel_ms={time_ms(kernel):.4f} bound_ms={bound1:.4f}")
 
@@ -2326,6 +2337,53 @@ def compare_sharded_mixed(dev, results, es):
               f"kernel {twins[name][1]} {dirichlet:.4f} ms on the same rows; per stored point "
               f"{res['ms'] / points * 1e9:.3f} ps against {twins[name][0]}'s "
               f"{single / n ** 3 * 1e9:.3f} ps on the whole {n}^3 field")
+    time_mixed_one_rank(dev, results, es)
+
+
+def time_mixed_one_rank(dev, results, es):
+    """K34 and K35 on the one-rank plan's blocks where the solve runs K34:
+    129^3 (L = 160) and 65^3 (L = 80), the halos zero (the chain ends), e
+    BC-consistent, each bitwise equal to its plain version and to K13's and
+    K14's on the whole field, timed beside its bound: the bytes it needs,
+    e (K34) and r on the field's n planes read once, the pins, and the
+    body written. A call this short is bound by the wrapper's host work
+    under CUDA events, so its device time a call is the mean of its
+    kernel's events in a trace of 20 calls (the profiler may drop some;
+    the launches are counted by LAUNCHES)."""
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed as pm
+
+    hh = 4
+    for n, L1 in ((129, 160), (65, 80)):
+        h, pin = es.length / (n - 1), pm.dirichlet_pin_planes(es, n, dev)
+        rng = np.random.default_rng(n + L1)
+        u, f = (torch.zeros((L1, n, n), device=dev) for _ in range(2))
+        u[:n] = pm.apply_bcs_padded(torch.from_numpy(
+            rng.standard_normal((n, n, n)).astype(np.float32)).to(dev), pin)
+        f[:n] = torch.from_numpy(rng.standard_normal((n, n, n)).astype(np.float32)).to(dev)
+        u1, f1 = _seg_parts(u, 0, L1, hh, hh), _seg_parts(f, 0, L1, hh, hh)
+        calls = {
+            "mixed_rb_smooth_seg": (
+                lambda: pm.mixed_rb_smooth_halo(u1, f1, pin, -hh, h, 2, n, L1),
+                lambda: pm.mixed_rb_smooth_halo_plain(u1, f1, pin, -hh, h, 2, n, L1),
+                pm.mixed_rb_smooth_plain(u[:n], f[:n], pin, h, 2), 8),
+            "mixed_rb_smooth_from_zero_seg": (
+                lambda: pm.mixed_rb_smooth_from_zero_halo(f1, pin, -hh, h, 2, n, L1),
+                lambda: pm.mixed_rb_smooth_from_zero_halo_plain(f1, pin, -hh, h, 2, n, L1),
+                pm.mixed_rb_smooth_from_zero_plain(f[:n], pin, h, 2), 4),
+        }
+        for name, (kernel, plain, whole, need) in calls.items():
+            got = kernel()
+            bitwise_same(results, name, n, f"L={L1} rank 0 of 1 against plain", got, plain())
+            bitwise_same(results, name, n, f"L={L1} rank 0 of 1 against the whole field",
+                         got[:n], whole)
+            bound1, _ = bound(name, n ** 3, (need * n ** 3, pin), (got,))
+            _, _, by_name, _ = device_trace(lambda: [kernel() for _ in range(20)], 0.01)
+            seen = [v for k, v in by_name.items() if k.startswith("mixed_seg_stage_kernel")]
+            device = (f"{sum(ms for ms, _ in seen) / sum(c for _, c in seen):.4f} "
+                      f"({sum(c for _, c in seen)} of 20 traced)" if seen else "not measured")
+            print(f"[sharded mixed kernel] {name:30s} n={n} L={L1} rank 0 of 1 "
+                  f"kernel_ms={time_ms(kernel):.4f} device_ms_a_call={device} "
+                  f"bound_ms={bound1:.4f}")
 
 
 def sharded_mixed_one_rank(dev, card, launches, full, es):
@@ -2401,10 +2459,9 @@ def sharded_mixed_one_rank(dev, card, launches, full, es):
 def seg_twin_launches(counts_full, name):
     """The launches the one-rank sharded electrospray solve makes of kernel
     ``name``: 0 unless it has a twin in MIXED_SEG_TWINS, else its twin's in
-    phase 6's full-tier solve: K30 and K32 as K3 and K5, K34 (2 n_smooth + 1
-    a call, its first form) as K13, K35 and K36 (one-pass stages, one a
-    call at n_smooth 2) as K14 and K15 (224 and 266; 1,120 and 1,330 in
-    their first forms)."""
+    phase 6's full-tier solve: K30 and K32 as K3 and K5, K34, K35 and K36
+    (one-pass stages, one a call at n_smooth 2) as K13, K14 and K15 (42,
+    224 and 266; 210, 1,120 and 1,330 in their first forms)."""
     twin = MIXED_SEG_TWINS.get(name)
     return 0 if twin is None else counts_full[twin]
 
@@ -2629,17 +2686,27 @@ def compare_sharded2d(dev, results):
                  lambda: px2.residual_df_norm_halo2d_plain(*df1, g(1), h, n, w, w),
                  w * w * n, [x[:n, :n].contiguous() for x in DF], h)
     u1, f1 = (_seg_parts2d(x[:w, :w].contiguous(), 0, 0, w, w, hh, hh) for x in (U, F))
+    nc, wc = (n + 1) // 2, w // 2
+    c1 = EC.new_zeros((wc, wc, nc))
+    c1[:nc, :nc] = EC[:nc, :nc]
+    ec1 = _seg_parts2d(c1, 0, 0, wc, wc, 2, 3)
     one_rank = {
         "rb_smooth_seg2d": (lambda: px2.rb_smooth_halo2d(u1, f1, g(hh), h, 2, n, w, w),
-                            lambda: px2.rb_smooth_halo2d_plain(u1, f1, g(hh), h, 2, n, w, w), 8),
+                            lambda: px2.rb_smooth_halo2d_plain(u1, f1, g(hh), h, 2, n, w, w),
+                            8 * n ** 3),
         "rb_smooth_from_zero_seg2d": (
             lambda: px2.rb_smooth_from_zero_halo2d(f1, g(hh), h, 2, n, w, w),
-            lambda: px2.rb_smooth_from_zero_halo2d_plain(f1, g(hh), h, 2, n, w, w), 4),
+            lambda: px2.rb_smooth_from_zero_halo2d_plain(f1, g(hh), h, 2, n, w, w), 4 * n ** 3),
+        # K40: e and r on the field's n^3 points and the coarse field's nc^3 read once
+        "prolong_smooth_seg2d": (
+            lambda: px2.prolong_smooth_halo2d(ec1, u1, f1, g(hh), h, 2, n, w, w),
+            lambda: px2.prolong_smooth_halo2d_plain(ec1, u1, f1, g(hh), h, 2, n, w, w),
+            8 * n ** 3 + 4 * nc ** 3),
     }
     for name, (kernel, plain, need) in one_rank.items():
         got = kernel()
         bitwise_same(results, name, n, "1x1 Li=Lj=272 against plain", got, plain())
-        bound1, _ = bound(name, n * n * n, (need * n ** 3,), (got,))
+        bound1, _ = bound(name, n * n * n, (need,), (got,))
         print(f"[sharded2d kernel] {name:26s} n={n} Li={w} Lj={w} block (0, 0) of 1x1 "
               f"kernel_ms={time_ms(kernel):.4f} bound_ms={bound1:.4f}")
 

@@ -92,8 +92,8 @@ def _make_mixed_descend(solver: MixedBCSolver, hier32: Hierarchy):
     """descend(e, r, level, from_zero) for the mixed correction equation
     (zero Dirichlet pins, Neumann copies at every level): K14 / K13, K3,
     the coarse recursion (revisited ``gamma - 1`` times where the coarse
-    size is at least ``gamma_min_n``), K15. A given e is updated in place
-    by the pre-smoother."""
+    size is at least ``gamma_min_n``), K15. A given e is left as it is:
+    the pre-smoother returns a fresh field."""
     n_smooth = solver.n_smooth
     pins = [pm.dirichlet_pin_planes(solver.problem, n, solver.device)
             for n in hier32.sizes]

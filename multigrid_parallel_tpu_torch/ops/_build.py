@@ -18,6 +18,9 @@ versions bit for bit and the EFT two-sum chains stay exact.
 and prints each kernel's registers, stack frame and spill bytes, a line a
 kernel; with ``--csrc DIR`` first, the sources of DIR (another
 checkout's ``ops/csrc``), so that ``diff`` compares two trees' reports.
+``--sass`` in place of ``--ptxas`` prints each kernel's machine code
+(``cuobjdump -sass``) as its instruction count and a hash, a line a
+kernel, so that the same ``diff`` shows which kernels' code changed.
 
 The library is built at first use into ``multigrid_parallel_tpu_torch/
 _build/`` (listed in .gitignore), named by a hash of the sources and the
@@ -77,8 +80,6 @@ _SIGNATURES = {
     "mg_split_residual_df_norm": (_P,) * 12 + (_I, _F, _P),
     "mg_split_df_step": (_P,) * 18 + (_I, _F, _P),
     "mg_splitcolor_half_sweep": (_P, _P, _I, _F, _I, _P),
-    "mg_mixed_half_sweep": (_P, _P, _P, _I, _F, _I, _P),
-    "mg_mixed_bc_pass": (_P, _P, _I, _P),
     # the full-layout mixed stages (rect.cuh, kMixed): the rect stages' arguments with
     # the pins after the fields
     "mg_mixed_stage": (_P,) * 4 + (_I, _F, _I, _I) + (_I,) * 7 + (_P,),
@@ -119,9 +120,11 @@ _SIGNATURES = {
     "mg_seg_mixed_bc_pass": (_P, _P, _P, _I, _P) + (_I,) * 5 + (_P,),
     "mg_seg_mixed_prolong_correct_black": ((_P,) * 6 + (_I,) * 3 + (_P, _P, _P, _I) * 2
                                            + (_P,) + (_I,) * 5 + (_F, _P)),
-    # K35's and K36's one-pass stages on segments: ..., h2, (red_first,) the
-    # plan (n_iter, bi, bj, bk, k_halo, threads, smem, box), stream
-    "mg_seg_mixed_stage": (_P,) * 4 + (_I, _P) + (_I,) * 5 + (_F,) + (_I,) * 9 + (_P,),
+    # K34's and K35's, and K36's one-pass stages on segments: ..., h2,
+    # (red_first,) the plan (n_iter, bi, bj, bk, k_halo, threads, smem, box),
+    # stream; K34's and K35's fields out, the u segment (null for K35) and f's
+    "mg_seg_mixed_stage": (_P,) + (_P, _P, _P, _I) * 2 + (_P,) + (_I,) * 5 + (_F,) + (_I,) * 9
+                          + (_P,),
     "mg_seg_mixed_prolong_stage": ((_P,) * 4 + (_I,) * 3 + (_P, _P, _P, _I) * 2 + (_P,)
                                    + (_I,) * 5 + (_F,) + (_I,) * 8 + (_P,)),
     # K31's and K40's one-pass stages on segments: out, the coarse, e and r
@@ -256,13 +259,50 @@ def ptxas_report(names, csrc: Path = _CSRC) -> str:
             if found:
                 if kernel is not None:
                     lines.append(f"{name}: {kernel} | " + " | ".join(parts))
-                kernel, parts = found.group(1), []
-                if filt.exists() and kernel.startswith("_Z"):
-                    kernel = subprocess.run([str(filt), kernel], capture_output=True,
-                                            text=True).stdout.strip()
-                kernel = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", kernel)
+                kernel, parts = _demangled(found.group(1), filt), []
             elif kernel is not None and ("registers" in line or "spill" in line):
                 parts.append(line.split("ptxas info    :")[-1].strip())
+    return "\n".join(sorted(lines))
+
+
+def _demangled(name: str, filt: Path) -> str:
+    """A kernel's name demangled where cu++filt is found, the unnamed
+    namespace's path-dependent tag dropped, as ptxas_report prints it."""
+    if filt.exists() and name.startswith("_Z"):
+        name = subprocess.run([str(filt), name], capture_output=True, text=True).stdout.strip()
+    return re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", name)
+
+
+def sass_report(names, csrc: Path = _CSRC) -> str:
+    """Each kernel's machine code of the named sources of ``csrc``,
+    compiled with the build's flags, all started together: one line a
+    kernel, ``source: kernel | instructions | sha256 of its cuobjdump
+    -sass text``, sorted, so that two trees' reports compare line by
+    line."""
+    nvcc = _nvcc()
+    filt, objdump = Path(nvcc).with_name("cu++filt"), Path(nvcc).with_name("cuobjdump")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {name: subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(Path(tmp) / f"{name}.o"), str(Path(csrc) / name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in names}
+        lines = []
+        for name, proc in procs.items():
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) on {name}:\n{out}")
+            sass = subprocess.run([str(objdump), "-sass", str(Path(tmp) / f"{name}.o")],
+                                  capture_output=True, text=True, check=True).stdout
+            kernels, kernel = {}, None
+            for line in sass.splitlines():
+                found = re.match(r"\s*Function : (\S+)", line)
+                if found:
+                    kernel = _demangled(found.group(1), filt)
+                    kernels[kernel] = []
+                elif kernel is not None and re.search(r"/\*[0-9a-f]{4}\*/", line):
+                    kernels[kernel].append(" ".join(line.split()))
+            for kernel, code in kernels.items():
+                digest = hashlib.sha256("\n".join(code).encode()).hexdigest()[:16]
+                lines.append(f"{name}: {kernel} | {len(code)} instructions | sass {digest}")
     return "\n".join(sorted(lines))
 
 
@@ -270,10 +310,11 @@ if __name__ == "__main__":
     import sys
 
     args = sys.argv[1:]
-    if len(args) < 2 or args[0] != "--ptxas":
-        sys.exit("usage: python -m multigrid_parallel_tpu_torch.ops._build --ptxas "
+    if len(args) < 2 or args[0] not in ("--ptxas", "--sass"):
+        sys.exit("usage: python -m multigrid_parallel_tpu_torch.ops._build --ptxas | --sass "
                  "[--csrc DIR] SOURCE.cu ...")
+    report = ptxas_report if args[0] == "--ptxas" else sass_report
     root = _CSRC
     if args[1] == "--csrc":
         root, args = Path(args[2]), args[2:]
-    print(ptxas_report(args[1:], root))
+    print(report(args[1:], root))

@@ -1,6 +1,7 @@
 // Mixed-BC smoothing on one rank's segmented block of an i-sharded
-// correction field: K35's one-pass stage from zero, and K34's half-sweeps
-// and BC pass (which K35 past n_iter 2 runs too).
+// correction field: the one-pass stage of K34 (from a loaded correction)
+// and K35 (from zero), and the half-sweeps and BC pass of their first
+// form, which they keep past n_iter 2.
 //
 // Replace the Pallas kernels multigrid_parallel_tpu/ops/pallas_mixed.py:
 // mixed_rb_smooth_ext / mixed_rb_smooth_halo (K34) and
@@ -9,28 +10,31 @@
 // (mixed.cuh), and one BC pass on a block with a 2 * n_iter plane halo in
 // one pass.
 //
-// K35 (n_iter <= 2) is one launch of K14's stage (rect.cuh, the wavefront
-// or up to 129^3 the box) on the segment: Layout::kSeg, f read through its
-// segment at GLOBAL plane g0 + t, the tile starting as zeros, the selects
-// and the BC pass at the store as K14's, the blocks tiling the rank's
-// planes clipped to n - 1 (and plane n - 2 from the left halo where plane
-// n - 1 is row 0, whose copy there is its final value in the tile: the
-// left halo is 2 n_iter + 1 planes), into a fresh (L, n, n) body, its pad
-// rows (past n - 1) zero; a rank of pad rows only takes its launch too.
-// The plan is pallas_split._stage_plan(rect, rows = the planes tiled). So
-// the owned rows equal K14's on the whole field bit for bit. Bound:
-// device-memory bytes, f's rows and halos read and the body written, 8 B a
-// point, the pins of the x faces where the rank holds them. The design
-// answers the first form's costs: K29's from-zero launch, 2 n_iter - 1
-// in-place half-sweep launches over the rows and halos (~10 B a point
-// each) and a BC-pass launch, 5 launches a call at n_iter 2.
+// K34 and K35 (n_iter <= 2) are one launch of K13's and K14's stage
+// (rect.cuh, the wavefront or up to 129^3 the box) on the segment:
+// Layout::kSeg, u (K34) and f read through their segments at GLOBAL plane
+// g0 + t, the tile loaded from u (K34) or starting as zeros (K35), the
+// selects and the BC pass at the store as K14's, the blocks tiling the
+// rank's planes clipped to n - 1 (and plane n - 2 from the left halo where
+// plane n - 1 is row 0, whose copy there is its final value in the tile,
+// not u's: the left halo is 2 n_iter + 1 planes), into a fresh (L, n, n)
+// body, its pad rows (past n - 1) u's (K34) or zero (K35); a rank of pad
+// rows only takes its launch too. The plan is pallas_split._stage_plan(rect,
+// rows = the planes tiled). So the owned rows equal K13's and K14's on the
+// whole field bit for bit. Bound: device-memory bytes, u's (K34) and f's
+// rows and halos read and the body written, 8 B a point (12 B for K34),
+// the pins of the x faces where the rank holds them. The design answers
+// the first form's costs: 2 n_iter in-place half-sweep launches over the
+// rows and halos (~10 B a point each; K35's first one K29's from-zero
+// launch) and a BC-pass launch, 5 launches a call at n_iter 2.
 //
-// n_iter > 2 keeps that first form (no solve runs it): K29's from-zero
-// half-sweep (mg_seg_half_sweep_from_zero), then K34's in-place
-// half-sweeps and BC pass here, on a segment with scratch halo buffers.
+// n_iter > 2 keeps that first form (no solve runs it): K34's in-place
+// half-sweeps and BC pass here, on a copy of u's segment (K35: K29's
+// from-zero half-sweep, mg_seg_half_sweep_from_zero, first, on a segment
+// with scratch halo buffers).
 //
-// K34, in place, one launch per half-sweep over local rows [-kl + 1, L +
-// kr - 2] on the rank's own segment, then one BC-pass launch over the body
+// The first form, one launch per half-sweep over local rows [-kl + 1, L +
+// kr - 2] of the segment, in place, then one BC-pass launch over the body
 // rows. The segment is read at GLOBAL plane i = g0 + t (mg::SegFieldAt),
 // so mixed.cuh's folded neighbour sum and pin selects serve it unchanged:
 // the neighbour order, the global colour (RED = (i + j + k) odd), the
@@ -38,13 +42,12 @@
 // one more row per half-sweep, so after the stage the rows from -kl + 2
 // n_iter on are what K13 computes on the whole field. Its BC pass writes
 // each boundary node of the body rows once: u[c(i), c(j), c(k)], or 0 at a
-// pinned x-face node (mg_mixed_bc_pass's rule). Only its copy at global
-// plane n - 1 reads another row, plane n - 2; where plane n - 1 is body
-// row 0 that is row -1, so the caller gives that block a left halo of 2
-// n_iter + 1 rows, and row -1 is fresh at the end. Pad planes (i >= n) are
-// never written. Bound: device-memory bytes, as K13: ~10 B per point and
-// half-sweep over the L + kl + kr rows; the BC pass touches ~4 n boundary
-// nodes a row.
+// pinned x-face node. Only its copy at global plane n - 1 reads another
+// row, plane n - 2; where plane n - 1 is body row 0 that is row -1, so the
+// caller gives that block a left halo of 2 n_iter + 1 rows, and row -1 is
+// fresh at the end. Pad planes (i >= n) are never written. Bound:
+// device-memory bytes: ~10 B per point and half-sweep over the L + kl + kr
+// rows; the BC pass touches ~4 n boundary nodes a row.
 #include "mixed.cuh"
 #include "rect.cuh"
 #include "seg.cuh"
@@ -102,45 +105,53 @@ __global__ void seg_mixed_bc_pass_kernel(mg::Seg u, const float* __restrict__ pi
           : u.row(mg::copy_source(g, n) - g0)[mg::copy_source(j, n) * n + mg::copy_source(k, n)];
 }
 
-template <int NITER, bool BOX>
+// ZERO: K35, from a zero tile, pad rows 0; else K34, u loaded, pad rows u's.
+template <int NITER, bool ZERO, bool BOX>
 __global__ void __launch_bounds__(mg::rect::kSegStageMaxThreads)
     mixed_seg_stage_kernel(mg::rect::SegStageArgs a) {
   using namespace mg::rect;
   extern __shared__ __align__(16) float tile[];
-  seg_pad_fill(a, false);
+  seg_pad_fill(a, !ZERO);
   if constexpr (BOX) {
-    box_body<NITER, true, Layout::kSeg>(a, tile, mg::split::NoPrep{});
+    box_body<NITER, ZERO, Layout::kSeg>(a, tile, mg::split::NoPrep{});
   } else {
-    stage_body<NITER, true, Layout::kSeg>(a, tile, mg::split::NoPrep{});
+    stage_body<NITER, ZERO, Layout::kSeg>(a, tile, mg::split::NoPrep{});
   }
 }
 
-template <int NITER>
+template <int NITER, bool ZERO>
 int launch_mixed_seg_stage(const mg::rect::SegStageArgs& a, int box, int threads, int smem,
                            cudaStream_t stream) {
   using mg::rect::launch_stage;
-  return box ? launch_stage(mixed_seg_stage_kernel<NITER, true>, a, threads, smem, stream)
-             : launch_stage(mixed_seg_stage_kernel<NITER, false>, a, threads, smem, stream);
+  return box ? launch_stage(mixed_seg_stage_kernel<NITER, ZERO, true>, a, threads, smem, stream)
+             : launch_stage(mixed_seg_stage_kernel<NITER, ZERO, false>, a, threads, smem,
+                            stream);
 }
 
 }  // namespace
 
-// The K35 stage: the (L, n, n) body out <- n_iter (1 or 2) mixed RB-GS
-// iterations from zero against the segment f (kl rows on the left, kr on
-// the right; g0 = global plane of body row 0), red first or black first,
+// The K34 and K35 stage: the (L, n, n) body out <- n_iter (1 or 2) mixed
+// RB-GS iterations of the segment u (K34; a zero field where u_body is
+// null, K35) against the segment f (both kl rows on the left, kr on the
+// right; g0 = global plane of body row 0), red first or black first,
 // ending with the BC pass, on the plan (bi, bj, bk, k_halo, threads, smem,
 // box) of pallas_split._stage_plan (rect, rows = the planes the launch
-// tiles). Pad rows are written 0.
-extern "C" int mg_seg_mixed_stage(float* out, float* f_lh, float* f_body, float* f_rh, int f_roff,
-                                  const float* pin, int kl, int L, int kr, int n, int g0,
-                                  float h2, int red_first, int n_iter, int bi, int bj, int bk,
-                                  int k_halo, int threads, int smem, int box,
+// tiles). Pad rows are written as u's rows (K34) or 0 (K35). out must
+// meet neither segment.
+extern "C" int mg_seg_mixed_stage(float* out, float* u_lh, float* u_body, float* u_rh,
+                                  int u_roff, float* f_lh, float* f_body, float* f_rh,
+                                  int f_roff, const float* pin, int kl, int L, int kr, int n,
+                                  int g0, float h2, int red_first, int n_iter, int bi, int bj,
+                                  int bk, int k_halo, int threads, int smem, int box,
                                   cudaStream_t stream) {
   using namespace mg::rect;
+  const int nn = n * n;
   SegStageArgs a{};
   a.out = out;
+  a.in = u_body;
   a.f = f_body;
-  a.f_s = mg::make_seg(f_lh, f_body, f_rh, kl, L, kr, f_roff, n * n);
+  if (u_body != nullptr) a.in_s = mg::make_seg(u_lh, u_body, u_rh, kl, L, kr, u_roff, nn);
+  a.f_s = mg::make_seg(f_lh, f_body, f_rh, kl, L, kr, f_roff, nn);
   a.pin = pin;
   a.color0 = red_first ? mg::split::kRed : mg::split::kBlack;
   a.n = n;
@@ -149,12 +160,19 @@ extern "C" int mg_seg_mixed_stage(float* out, float* f_lh, float* f_body, float*
   a.bj = bj;
   a.bk = bk;
   a.k_halo = k_halo;
-  if (pin == nullptr || f_body == nullptr) return (int)cudaErrorInvalidValue;
+  const long long count = (long long)L * nn;
+  if (out == nullptr || pin == nullptr || f_body == nullptr || mg::meets(out, count, a.f_s, kr) ||
+      (u_body != nullptr && mg::meets(out, count, a.in_s, kr)))
+    return (int)cudaErrorInvalidValue;
   if (const int err = seg_geometry(a, g0, L, kl, kr, 2 * n_iter)) return err;
   if (const int err = stage_plan_error(a, n_iter, threads, smem, box, kSegStageMaxThreads))
     return err;
-  return n_iter == 1 ? launch_mixed_seg_stage<1>(a, box, threads, smem, stream)
-                     : launch_mixed_seg_stage<2>(a, box, threads, smem, stream);
+  if (u_body == nullptr) {
+    return n_iter == 1 ? launch_mixed_seg_stage<1, true>(a, box, threads, smem, stream)
+                       : launch_mixed_seg_stage<2, true>(a, box, threads, smem, stream);
+  }
+  return n_iter == 1 ? launch_mixed_seg_stage<1, false>(a, box, threads, smem, stream)
+                     : launch_mixed_seg_stage<2, false>(a, box, threads, smem, stream);
 }
 
 // One in-place mixed half-sweep of `color` (1 = RED) over local rows

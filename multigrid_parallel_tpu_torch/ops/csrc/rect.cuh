@@ -50,10 +50,10 @@
 //     the k-face slots (slot -1 and, for n odd, slot S - 1 of the colour
 //     with p = 1) hold no stored point. The loader, the store and f
 //     address fold rows; the pins are (2, n, n - 2) fold columns.
-//   kMixed (K14, K15; mixed_rb_smooth.cu, mixed_prolong_smooth.cu): the
-//     plain (n, n, n) field's addressing; the k-face slots hold the loaded
-//     k = 0 and n - 1 values (zeros for K14); the pins are (2, n, n).
-//   kSeg (K35, K36; mixed_rb_smooth_seg.cu, mixed_prolong_smooth_seg.cu):
+//   kMixed (K13, K14, K15; mixed_rb_smooth.cu, mixed_prolong_smooth.cu):
+//     the plain (n, n, n) field's addressing; the k-face slots hold the
+//     loaded k = 0 and n - 1 values (zeros for K14); the pins are (2, n, n).
+//   kSeg (K34, K35, K36; mixed_rb_smooth_seg.cu, mixed_prolong_smooth_seg.cu):
 //     kMixed on one rank's segmented block of an i-sharded field (seg.cuh),
 //     planes read through the segments at GLOBAL plane q = g0 + t (a
 //     plane's pointer looked up once where a plane or a row starts, never
@@ -67,7 +67,7 @@
 //     n) body: plane n - 1 at row 0 from the final value of plane n - 2
 //     in the tile (a halo row: the reason for its extra plane). The rows
 //     past n - 1 are pad, never loaded or swept: every block of the launch
-//     writes its share of them (seg_pad_fill), 0 or e's rows.
+//     writes its share of them (seg_pad_fill), 0 or u's (e's) rows.
 // kSegRect (K31, K40; prolong_smooth_seg.cu; and K28, K37 with no Prep,
 // K1's stage, and K29, K38, K2's from a zero tile, rb_smooth_seg_stage.cu)
 // is kRect's Dirichlet stage on
@@ -124,7 +124,7 @@ constexpr int kRowPad = 4;  // tile columns before slot 0 of a whole-row tile ro
 // split.cuh's 640 allow 96 (the stage kernels take 73-94; PERF.md).
 constexpr int kStageMaxThreads = 576;
 
-// The segment stages' (K35, K36) launch bound: 16 warps, so up to 128
+// The segment stages' (K34, K35, K36) launch bound: 16 warps, so up to 128
 // registers a thread; K36's wavefront at n_iter 2 spilled under 576
 // threads' 96 (the 18 warps' 5 a scheduler), and both ran no slower on
 // 512 (PERF.md, stage_plans --seg).
@@ -651,7 +651,7 @@ __device__ inline void sweep_row(float* dst, const float* lo, const float* mid, 
 
 // kSeg: the rank's pad rows, body rows [o1 - g0, L) (global planes past n
 // - 1, never loaded or swept), written as the plain versions leave them:
-// 0, or (``copy``, K36) the initial guess's rows. Spread over every thread
+// 0, or (``copy``, K34, K36) the initial guess's rows. Spread over every thread
 // of the launch, consecutive points across a warp; the stage writes no
 // point of them.
 __device__ inline void seg_pad_fill(const SegStageArgs& a, bool copy) {

@@ -19,17 +19,18 @@ geometry of ``ops.pallas_sharded`` (K28-K33): one kernel on a segmented
 block serves the ext and the halo form, ``gi0`` is the global plane of the
 first halo row (rank * L - 2 n_iter), masks, colours and pins use global
 indices, and the L owned planes equal K13-K15's rows of the whole field
-bit for bit. K35 and K36 are K14's and K15's one-pass stages on the
-segments (rect.cuh's ``Layout::kSeg``; one launch a call for n_iter <= 2,
-a fresh body, the halos only read, pad rows written 0 by K35 and as e's
-by K36, the plan ``_stage_plan(..., seg_planes=)`` of the planes a
-rank tiles); K34 keeps its first form. One geometry needs more than the JAX
-halo: where global plane n - 1 is the block's first row (L divides n - 1),
-the stage's BC copy there reads plane n - 2, the left halo's last row,
-which 2 n_iter half-sweeps leave stale in a 2 n_iter halo. There the stage
-takes 2 n_iter + 1 left halo planes (and K36 n_iter + 1 coarse ones), so
-that plane n - 2 is swept to its final value: a halo triple whose left
-buffer is that deep serves it, an ext tensor (2 n_iter a side) raises.
+bit for bit. K34, K35 and K36 are K13's, K14's and K15's one-pass stages
+on the segments (rect.cuh's ``Layout::kSeg``; one launch a call for n_iter
+<= 2, a fresh body, the input and the halos only read, pad rows written as
+u's by K34, 0 by K35 and as e's by K36, the plan ``_stage_plan(...,
+seg_planes=)`` of the planes a rank tiles). One geometry needs more than
+the JAX halo: where global plane n - 1 is the block's first row (L
+divides n - 1), the stage's BC copy there reads plane n - 2, the left
+halo's last row, which 2 n_iter half-sweeps leave stale in a 2 n_iter
+halo. There the stage takes 2 n_iter + 1 left halo planes (and K36 n_iter
++ 1 coarse ones), so that plane n - 2 is swept to its final value: a halo
+triple whose left buffer is that deep serves it, an ext tensor (2 n_iter a
+side) raises.
 
 The boundary condition of the correction equation: homogeneous Neumann
 on every face, enforced by the BC pass (``apply_bcs_padded``: face
@@ -39,11 +40,10 @@ n) f32 0/1 ``pin`` planes of ``dirichlet_pin_planes``.
 
 The kernels fold the copy-BC into the stencil (a face-adjacent
 neighbour reads the reader's own value, or 0 at a pinned x-face node)
-and end each stage with one BC pass, as the Pallas kernels do. K14 and
-K15 are one-pass stages (rect.cuh on the full layout): one launch a call
-for n_iter <= 2, all 2 n_iter half-sweeps in shared memory and the BC
-pass, z faces included, at the store, into a fresh field; K13 keeps its
-first form, a launch a half-sweep and one for the BC pass, in place. The
+and end each stage with one BC pass, as the Pallas kernels do. K13, K14
+and K15 are one-pass stages (rect.cuh on the full layout): one launch a
+call for n_iter <= 2, all 2 n_iter half-sweeps in shared memory and the
+BC pass, z faces included, at the store, into a fresh field. The
 plain versions are written in the COPY form instead: a half-sweep, then a BC
 pass, after every half-sweep (``mixed_padded._mixed_smooth_padded_jnp``
 in the JAX package). The two agree bit for bit on BC-consistent input,
@@ -55,11 +55,11 @@ A wrapper takes the plain version for tensors on the CPU, launches its
 kernel for CUDA tensors (float32, contiguous, cubic fields; pin (2, n,
 n)), and raises for anything else: no fallback from the kernel to the
 plain version. Each kernel launch adds one to its entry in ``LAUNCHES``
-(every half-sweep and BC pass of K13, K34 and of K35's and K36's first
-forms counts as a launch of the stage's kernel). K34 updates a given ``u``
-segment in place (its halo buffers are scratch afterwards) and returns its
-body; K35 and K36 return a fresh body; ``block_i`` is accepted and ignored
-(a VMEM tile).
+(every half-sweep and BC pass of the segment stages' first forms, past
+n_iter 2, counts as a launch of the stage's kernel). Every wrapper returns
+a fresh field or body and leaves its inputs as they are, so a caller
+rebinds (``e = mixed_rb_smooth_fused(e, ...)``); ``block_i`` is accepted
+and ignored (a VMEM tile).
 """
 
 from __future__ import annotations
@@ -160,29 +160,23 @@ def mixed_rb_smooth_from_zero_plain(r, pin, h: float, n_iter: int, red_first: bo
     return mixed_rb_smooth_plain(torch.zeros_like(r), r, pin, h, n_iter, red_first)
 
 
-def _half_sweeps_and_bc_pass(u, r, pin, h2, colors, name):
-    """Launch K13's in-place half-sweeps of ``colors``, then its BC pass,
-    each counted as a launch of ``name``."""
-    lib, stream, n = _lib(), _stream(), u.shape[0]
-    for c in colors:
-        _check(lib.mg_mixed_half_sweep(u.data_ptr(), r.data_ptr(), pin.data_ptr(), n, h2,
-                                       c, stream), name)
-        LAUNCHES[name] += 1
-    _check(lib.mg_mixed_bc_pass(u.data_ptr(), pin.data_ptr(), n, stream), name)
-    LAUNCHES[name] += 1
-
-
 def mixed_rb_smooth_fused(e, r, pin, h: float, n_iter: int, red_first: bool = True):
     """n_iter mixed-BC RB-GS iterations on the correction e (red first =
-    pre-smoothing, black first = post-smoothing), ending with the BC pass.
-
-    Updates ``e`` IN PLACE and returns it (on both devices): the CUDA form
-    is 2 * n_iter half-sweep launches and one BC-pass launch. ``e`` must
-    be BC-consistent (the cycle's fields are)."""
+    pre-smoothing, black first = post-smoothing), ending with the BC pass,
+    as a fresh field (e is left as it is; on both devices). ``e`` must be
+    BC-consistent (the cycle's fields are). The CUDA form is one one-pass
+    launch of the full-layout mixed stage on the loaded e for n_iter <= 2
+    (the BC pass, z faces too, at its store); ceil(n_iter / 2) in all, each
+    later one the same stage on the field so far, all counted as K13
+    launches. Bound: e and r read and the output written, 12 B a point, and
+    the pins (bytes over 3.35 TB/s: 0.0610 ms at 257^3)."""
+    if n_iter < 1:
+        raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     if not _on_cuda(pin, e, r):
-        return e.copy_(mixed_rb_smooth_plain(e, r, pin, h, n_iter, red_first))
-    _half_sweeps_and_bc_pass(e, r, pin, h * h, list(_colors(red_first)) * n_iter,
-                             "mixed_rb_smooth_fused")
+        return mixed_rb_smooth_plain(e, r, pin, h, n_iter, red_first)
+    lib, stream, h2 = _lib(), _stream(), h * h
+    for chunk in ps._stage_chunks(n_iter):
+        e = _stage_launch(lib, e, r, pin, h2, chunk, red_first, stream, "mixed_rb_smooth_fused")
     return e
 
 
@@ -309,7 +303,7 @@ def _stage_slab(u, f, g_first: int, pin, h: float, n_iter: int, n: int, red_firs
 
 
 def _seg_planes(gi0, n_iter: int, n: int, L: int) -> int:
-    """The planes a K35 or K36 launch tiles (rect.cuh, seg_geometry): the
+    """The planes a K34, K35 or K36 launch tiles (rect.cuh, seg_geometry): the
     rank's rows clipped to n - 1, with plane n - 2 where plane n - 1 is row
     0; at least 1, the plan of a rank of pad rows only."""
     g0 = px._gi0_int(gi0) + 2 * n_iter
@@ -322,8 +316,9 @@ def _seg_on_cuda(pin, n: int, *segs, coarse=None) -> bool:
 
 
 def _seg_stage(u, f, pin, kl: int, kr: int, L: int, n: int, g0: int, h2: float, colors, name):
-    """Launch K34's in-place half-sweeps of ``colors`` on segment u, then
-    its BC pass over the body rows, each counted as a launch of ``name``."""
+    """Launch the first form's in-place half-sweeps of ``colors`` on
+    segment u, then its BC pass over the body rows, each counted as a
+    launch of ``name``."""
     lib, stream = _lib(), _stream()
     for c in colors:
         _check(lib.mg_seg_mixed_half_sweep(*px._ptrs(u), *px._ptrs(f), pin.data_ptr(), kl, L, kr,
@@ -331,6 +326,21 @@ def _seg_stage(u, f, pin, kl: int, kr: int, L: int, n: int, g0: int, h2: float, 
         LAUNCHES[name] += 1
     _check(lib.mg_seg_mixed_bc_pass(*px._ptrs(u), pin.data_ptr(), kl, L, kr, n, g0, stream), name)
     LAUNCHES[name] += 1
+
+
+def _seg_mixed_stage(u, f, pin, kl: int, L: int, kr: int, n: int, g0: int, h2: float,
+                     red_first: bool, n_iter: int, name: str):
+    """One launch of the segment mixed stage (K34 on the segment u, K35
+    from a zero tile where u is None) against f into a fresh (L, n, n)
+    body, counted as ``name``'s."""
+    out = torch.empty_like(f.body)
+    _check(_lib().mg_seg_mixed_stage(
+        out.data_ptr(), *((None, None, None, 0) if u is None else px._ptrs(u)), *px._ptrs(f),
+        pin.data_ptr(), kl, L, kr, n, g0, h2, int(red_first),
+        *ps._plan_args(n, n_iter, f.body.device, rect=True,
+                       seg_planes=_seg_planes(g0 - 2 * n_iter, n_iter, n, L)), _stream()), name)
+    LAUNCHES[name] += 1
+    return out
 
 
 def mixed_rb_smooth_halo_plain(u3, f3, pin, gi0, h: float, n_iter: int, n: int, L: int,
@@ -351,26 +361,35 @@ def mixed_rb_smooth_halo(u3, f3, pin, gi0, h: float, n_iter: int, n: int, L: int
     pass on a rank's block from (local, lh, rhc) triples with 2 n_iter
     halo planes (2 n_iter + 1 on the left where global plane n - 1 is the
     first row; composite tails read off the shapes); gi0 = rank * L -
-    2 n_iter. The CUDA form is 2 n_iter K34 half-sweep launches in place
-    on u3 and one BC-pass launch; returns u3's local block (updated in
-    place on both devices)."""
+    2 n_iter. A fresh (L, n, n) block, its pad rows u's (u3 is left as it
+    is, on both devices). The CUDA form for n_iter <= 2 is one launch of
+    K13's one-pass stage on the segments (u's and f's rows read through
+    them, the BC pass at the store; bound: u's and f's rows read and the
+    body written, 12 B a point, and the pins). Past n_iter 2 it keeps its
+    first form, which no solve runs: 2 n_iter half-sweep launches and a
+    BC-pass launch in place on a copy of u's segments. Every launch counts
+    as K34's."""
     del block_i
+    if n_iter < 1:
+        raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     hh, kl = 2 * n_iter, _stage_kl(gi0, n_iter, n)
     u, f = px._seg(u3, kl, hh, L), px._seg(f3, kl, hh, L)
     if not _seg_on_cuda(pin, n, u, f):
-        return u.body.copy_(mixed_rb_smooth_halo_plain(u3, f3, pin, gi0, h, n_iter, n, L,
-                                                       red_first))
-    _seg_stage(u, f, pin, kl, hh, L, n, px._gi0_int(gi0) + hh, h * h,
-               list(_colors(red_first)) * n_iter, "mixed_rb_smooth_seg")
+        return mixed_rb_smooth_halo_plain(u3, f3, pin, gi0, h, n_iter, n, L, red_first)
+    name, g0, h2 = "mixed_rb_smooth_seg", px._gi0_int(gi0) + hh, h * h
+    if n_iter <= 2:
+        return _seg_mixed_stage(u, f, pin, kl, L, hh, n, g0, h2, red_first, n_iter, name)
+    u = px._Seg(*(t.clone() for t in u[:3]), u.r_off)
+    _seg_stage(u, f, pin, kl, hh, L, n, g0, h2, list(_colors(red_first)) * n_iter, name)
     return u.body
 
 
 def mixed_rb_smooth_ext(u_ext, f_ext, pin, gi0, h: float, n_iter: int, n: int, L: int,
                         red_first: bool = True, block_i: int = 8):
     """mixed_rb_smooth_halo on ext tensors (L + 4 n_iter planes, as the
-    JAX kernel takes them): the same launches on their views; returns the
-    L owned planes, a view of u_ext (updated in place). Raises where
-    global plane n - 1 is the first row (the halo form serves it)."""
+    JAX kernel takes them): the same launches on their views; a fresh (L,
+    n, n) block (u_ext is left as it is). Raises where global plane n - 1
+    is the first row (the halo form serves it)."""
     hh = 2 * n_iter
     return mixed_rb_smooth_halo(px._ext_parts(u_ext, hh, L), px._ext_parts(f_ext, hh, L), pin,
                                 gi0, h, n_iter, n, L, red_first, block_i)
@@ -404,13 +423,7 @@ def mixed_rb_smooth_from_zero_halo(f3, pin, gi0, h: float, n_iter: int, n: int, 
         return mixed_rb_smooth_from_zero_halo_plain(f3, pin, gi0, h, n_iter, n, L, red_first)
     name, g0, h2 = "mixed_rb_smooth_from_zero_seg", px._gi0_int(gi0) + hh, h * h
     if n_iter <= 2:
-        out = torch.empty_like(f.body)
-        _check(_lib().mg_seg_mixed_stage(
-            out.data_ptr(), *px._ptrs(f), pin.data_ptr(), kl, L, hh, n, g0, h2, int(red_first),
-            *ps._plan_args(n, n_iter, f.body.device, rect=True,
-                           seg_planes=_seg_planes(gi0, n_iter, n, L)), _stream()), name)
-        LAUNCHES[name] += 1
-        return out
+        return _seg_mixed_stage(None, f, pin, kl, L, hh, n, g0, h2, red_first, n_iter, name)
     out = px._Seg(f.body.new_empty((kl, n, n)), torch.empty_like(f.body),
                   f.body.new_empty((hh, n, n)), 0)
     first, second = _colors(red_first)

@@ -83,8 +83,8 @@ def _build_local_mixed_cycle(solver: MixedBCSolver, hier32: Hierarchy, plan: Sha
                              mesh: Mesh, jnp_level_max: int):
     """cycle(e, r, level, from_zero) -> e' on this rank's blocks of the
     mixed correction equation (``level`` is the finest of hier32, as
-    ``mixed_padded._outer_loop`` passes it); a given e is updated in place
-    at a kernel level."""
+    ``mixed_padded._outer_loop`` passes it); a given e is left as it is:
+    each stage returns a fresh block."""
     n_smooth = solver.n_smooth
     H = 2 * n_smooth
     rep_level = hier32.num_levels - 1 - plan.n_sharded

@@ -260,13 +260,17 @@ def stage_label(name):
     only); "K1|K2" where the trace drops the arguments.
     fold_stage_kernel<NITER, ZERO, BOX> is K17 where ZERO is true, else
     K16 (or a later launch of a K16, K17 or K19 call, n_iter > 2, which
-    ``stage_calls`` joins to it); mixed_stage_kernel likewise K14, or a
-    later launch of a K14 or K15 call; msplit_stage_kernel<NITER, VEC,
+    ``stage_calls`` joins to it); mixed_stage_kernel likewise K14 and K13
+    (or a later launch of a K13, K14 or K15 call; a checkout before K13's
+    stage runs it only as such); msplit_stage_kernel<NITER, VEC,
     ZERO> K22, or a later launch of a K22 or K24 call; the first form's
     mixed_fold_half_sweep_kernel<FromZero> heads K17 where true, K16 where
     false or without arguments. The i-sharded electrospray's:
-    mixed_seg_stage_kernel is K35, mixed_seg_prolong_stage_kernel K36 (their
-    one-pass stages); the first forms' seg_mixed_half_sweep_kernel heads
+    mixed_seg_stage_kernel<NITER, ZERO, BOX> is K35 where ZERO is true, K34
+    where false (a checkout whose kernel has no ZERO argument, <NITER, BOX>,
+    runs it as K35 only; "K34|K35" where the trace drops the arguments),
+    mixed_seg_prolong_stage_kernel K36 (their one-pass stages); the first
+    forms' seg_mixed_half_sweep_kernel heads
     K34, seg_mixed_prolong_correct_black_kernel K36, and K29's
     seg_half_sweep_from_zero_kernel K35 where K34's half-sweeps follow it
     (``stage_calls``). The i-sharded Dirichlet solve's:
@@ -291,15 +295,21 @@ def stage_label(name):
     if base == "fold_stage_kernel":
         return ("K17" if args[1] == "true" else "K16") if len(args) > 1 else "K16|K17"
     if base == "mixed_stage_kernel":
-        return ("K14" if args[1] == "true" else "K14|K15") if len(args) > 1 else "K14|K15"
+        return ("K14" if args[1] == "true" else "K13") if len(args) > 1 else "K13|K14"
+    if base == "mixed_seg_stage_kernel":
+        if len(args) == 3:
+            return "K35" if args[1] == "true" else "K34"
+        return "K35" if args else "K34|K35"
     if base == "mixed_fold_half_sweep_kernel":
         return "K17" if args == ["true"] else "K16"
     return STAGE_KERNELS.get(base)
 
 
-# the one-pass fold stages (K16, K17, K19): a call of n_smooth > 2 goes on
-# with launches of the loaded stage, fold_stage_kernel with ZERO false
-FOLD_ONE_PASS = ("fold_stage_kernel", "fold_prolong_stage_kernel")
+# the one-pass fold and full-layout mixed stages (K16, K17, K19; K13, K14,
+# K15): a call of n_smooth > 2 goes on with launches of the loaded stage,
+# fold_stage_kernel (mixed_stage_kernel) with ZERO false, labelled K16 (K13)
+ONE_PASS_CHAINS = {"K16": ("fold_stage_kernel", "fold_prolong_stage_kernel"),
+                   "K13": ("mixed_stage_kernel", "mixed_prolong_stage_kernel")}
 
 
 def stage_calls(intervals, sizes, n_smooth=2):
@@ -308,9 +318,9 @@ def stage_calls(intervals, sizes, n_smooth=2):
     in all, and a mixed-BC form's BC pass after them (K2's from-zero head
     followed by the mixed half-sweeps is K14's first form); in the one-pass
     form its one kernel (K24's first form: its red correction, the black
-    correction's half-sweep, three half-sweeps and the BC pass), a fold
-    stage's ceil(n_smooth / 2) launches, the loaded stage's after the
-    first; K29's from-zero head followed by K34's half-sweeps is K35's
+    correction's half-sweep, three half-sweeps and the BC pass), a fold or
+    full-layout mixed stage's ceil(n_smooth / 2) launches, the loaded
+    stage's after the first; K29's from-zero head followed by K34's half-sweeps is K35's
     first form. ``sizes`` maps (kernel name without its arguments, shape) to
     the level's n (a shape without its shared memory where the trace has
     none). Returns
@@ -330,8 +340,9 @@ def stage_calls(intervals, sizes, n_smooth=2):
             groups[-1][2].append((b - a) / 1e3)
             groups[-1][3] += 1
             sweep = None
-        elif (label == "K16" and not sweep and groups and groups[-1][0][0] in FOLD_ONE_PASS
-              and groups[-1][3] < -(-n_smooth // 2)):  # a fold call's next launch
+        elif (label in ONE_PASS_CHAINS and not sweep and groups
+              and groups[-1][0][0] in ONE_PASS_CHAINS[label]
+              and groups[-1][3] < -(-n_smooth // 2)):  # a one-pass call's next launch
             groups[-1][2].append((b - a) / 1e3)
             groups[-1][3] += 1
         elif label:

@@ -1,8 +1,8 @@
 """Time the rect stage kernels (K2's and K4's, ops/csrc/rect.cuh), with
 ``--fold`` the same stage on the electrospray's fold layout (K17's, K16's
-on a loaded field, and K19's), with ``--mixed`` on its full layout (K14's
-and K15's), with ``--seg`` on one rank's segments of an i-sharded field
-(K35's and K36's), with ``--seg-rect`` K4's, K1's and K2's Dirichlet
+on a loaded field, and K19's), with ``--mixed`` on its full layout (K14's,
+K13's on a loaded field, and K15's), with ``--seg`` on one rank's segments
+of an i-sharded field (K35's, K34's on a loaded field, and K36's), with ``--seg-rect`` K4's, K1's and K2's Dirichlet
 stages there (K31's, K28's and K29's) and on one rank's block of an (i,
 j)-sharded field (K40's, K37's and K38's), with
 ``--seg-restrict`` the streaming restriction stage there (K30's and K39's,
@@ -22,13 +22,16 @@ block sizes, each held bit for bit against its plain version.
                                                               | --seg-restrict | --seg-df
                                                               | --msplit]
                                                              [--kernels K29 K38 K2 ...]
+                                                             [--parent ROOT]
 
 For each size and kernel (K2 from zero, K4, both at n_iter 2; K17, K16 and
-K19 likewise, with the electrospray's pins and coarse signs; K14 and K15
-with its pins; K35 and K36 likewise on rank 1's segments of L = 320 and 96
-planes (rank 0's where the level has no rank 1: one rank's L = 320, four
-ranks' L = 96 at 129^3), by default at 129^3 and 257^3, the plans tiling
-the rank's planes; K31, K28 and K29 at n_iter 2 on the production
+K19 likewise, with the electrospray's pins and coarse signs; K14, K13 (on
+a BC-consistent e) and K15 with its pins, and with ``--parent ROOT`` K13's
+first form from that checkout in place and on a copy of e; K35, K34 and K36
+likewise on the production segments of the level (one rank's L = 320 (n -
+1) / 256, rank 0's, and rank 1's of four ranks' L = 96 (n - 1) / 256), by
+default at 65^3, 129^3 and 257^3, the plans tiling the rank's planes, and
+K34's first form in place and on a copy of e's segments; K31, K28 and K29 at n_iter 2 on the production
 segments of the level (one rank's L = 320 (n - 1) / 256 and, from 17^3
 up, rank 1's of four ranks' L = 96 (n - 1) / 256) and K40, K37 and K38 on
 its production blocks from 33^3 up (the 1x1 block of 272 (n - 1) / 256
@@ -106,15 +109,15 @@ def fold_launch(plan, r, pin, h, ec=None, e=None, sgn=None):
 
 
 def mixed_launch(plan, r, pin, h, ec=None, e=None):
-    """One launch of K14's stage (from zero) or, given ec, K15's on
-    ``plan``, into a fresh field."""
+    """One launch of K14's stage (from zero), given e K13's (on e) or, given
+    ec too, K15's on ``plan``, into a fresh field."""
     out = torch.empty_like(r)
     args = (plan.n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem,
             int(plan.box), pk._stream())
     lib = pk._lib()
     if ec is None:
-        err = lib.mg_mixed_stage(out.data_ptr(), None, r.data_ptr(), pin.data_ptr(), plan.n,
-                                 h * h, 1, *args)
+        err = lib.mg_mixed_stage(out.data_ptr(), None if e is None else e.data_ptr(),
+                                 r.data_ptr(), pin.data_ptr(), plan.n, h * h, 1, *args)
     else:
         err = lib.mg_mixed_prolong_stage(out.data_ptr(), ec.data_ptr(), e.data_ptr(),
                                          r.data_ptr(), pin.data_ptr(), plan.n, h * h, *args)
@@ -337,13 +340,49 @@ def time_restrict(n, sms, reps, dev):
                   flush=True)
 
 
-def time_electrospray(n, sms, reps, dev, fold):
+def first_form_rows(forms, want, reps, row):
+    """One JSON line a first form (``forms``: label -> a call that returns
+    its output): its output against the plain version and its device time
+    a call from one trace of ``reps`` calls, each kernel or copy name's
+    median time times its launches a call, summed (a trace that drops an
+    event still gives the call's parts)."""
+    for label, run in forms.items():
+        exact = bool(torch.equal(run(), want))
+        torch.cuda.synchronize()
+        by_name = {}
+        for a, b, name, *_ in kernel_intervals(lambda: [run() for _ in range(reps)]):
+            by_name.setdefault(name, []).append((b - a) / 1e3)
+        each = {name: round(len(v) / reps) for name, v in by_name.items()}
+        ms = sum(statistics.median(v) * each[name] for name, v in by_name.items())
+        print(json.dumps({**row, "plan": label, "exact": exact, "launches a call": each,
+                          "device_ms": ms}), flush=True)
+
+
+def parent_lib(root):
+    """The kernel library of the checkout at ``root`` (built and loaded by
+    that checkout's own ops/_build.py), for a first form this tree no
+    longer has."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", Path(root) / "multigrid_parallel_tpu_torch" / "ops" / "_build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.load()
+
+
+def time_electrospray(n, sms, reps, dev, fold, parent=None):
     """One JSON line a (kernel, plan) at level n: K17 from zero and K19 at
     n_iter 2 on random fold fields with the electrospray's pins and the
-    coarse level's signs (``fold``), or K14 and K15 likewise on full fields
-    (the coarse one's boundary live), each candidate's output against the
-    plain version and its median device time over ``reps`` launches from a
-    trace of its own."""
+    coarse level's signs (``fold``), or K14, K13 (on e made BC-consistent)
+    and K15 likewise on full fields (the coarse one's boundary live), each
+    candidate's output against the plain version and its median device
+    time over ``reps`` launches from a trace of its own; with ``parent``
+    (a checkout whose K13 has its first form), K13's first form from that
+    checkout's library beside them: in place ("first_form", the parent's
+    contract) and on a copy of e ("first_form_copy", the copy in the
+    call, the fresh-field contract of this tree's K13)."""
     import multigrid_parallel_tpu_torch as mg
     from multigrid_parallel_tpu_torch.ops import pallas_mixed as pm
     from multigrid_parallel_tpu_torch.ops import pallas_mixed_fold as pmf
@@ -363,8 +402,11 @@ def time_electrospray(n, sms, reps, dev, fold):
                           lambda: pmf.mixed_prolong_smooth_fold_plain(ec, e, r, pin, sgn, h, 2))}
     else:
         pin = pm.dirichlet_pin_planes(es, n, dev)
+        e_bc = pm.apply_bcs_padded(e, pin)
         stages = {"K14": (lambda plan: mixed_launch(plan, r, pin, h),
                           lambda: pm.mixed_rb_smooth_from_zero_plain(r, pin, h, 2, True)),
+                  "K13": (lambda plan: mixed_launch(plan, r, pin, h, e=e_bc),
+                          lambda: pm.mixed_rb_smooth_plain(e_bc, r, pin, h, 2, True)),
                   "K15": (lambda plan: mixed_launch(plan, r, pin, h, ec, e),
                           lambda: pm.mixed_prolong_smooth_plain(ec, e, r, pin, h, 2))}
     for kernel, (launch_on, plain) in stages.items():
@@ -380,6 +422,21 @@ def time_electrospray(n, sms, reps, dev, fold):
                               "threads": plan.threads, "smem": plan.smem, "exact": exact,
                               "device_ms": statistics.median(times) if times else None}),
                   flush=True)
+        if kernel == "K13" and parent is not None:
+            old = parent_lib(parent)
+
+            def first_form(u):
+                for c in list(pk._colors(True)) * 2:
+                    pk._check(old.mg_mixed_half_sweep(u.data_ptr(), r.data_ptr(), pin.data_ptr(),
+                                                      n, h * h, c, pk._stream()), "stage_plans")
+                pk._check(old.mg_mixed_bc_pass(u.data_ptr(), pin.data_ptr(), n, pk._stream()),
+                          "stage_plans")
+                return u
+
+            scratch = e_bc.clone()
+            first_form_rows({"first_form": lambda: first_form(scratch),
+                             "first_form_copy": lambda: first_form(e_bc.clone())},
+                            want, reps, {"n": n, "kernel": kernel})
 
 
 def seg_parts(x, rank, L, kl, kr):
@@ -393,8 +450,10 @@ def seg_parts(x, rank, L, kl, kr):
 
 def time_seg(n, L, sms, reps, dev):
     """One JSON line a (kernel, plan) at level n for segments of L planes:
-    K35 from zero (red first) and K36 at n_iter 2 on rank 1's segments (rank
-    0's where 2 L > n) of random fields with the electrospray's pins, each
+    K35 from zero, K34 on e (red first) and K36 at n_iter 2 on rank 1's
+    segments (rank 0's where 2 L > n) of random fields with the
+    electrospray's pins (e BC-consistent), and K34's first form in place
+    ("first_form") and on a copy of e's segments ("first_form_copy"), each
     candidate plan of the rank's planes (``candidates``) launched through
     the segment launchers, its output against the plain version and its
     median device time over ``reps`` launches from a trace of its own."""
@@ -425,10 +484,12 @@ def time_seg(n, L, sms, reps, dev):
         return (plan.n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem,
                 int(plan.box), pk._stream())
 
-    def k35(plan):
+    def k35(plan, u=None):
         out = torch.empty((L, n, n), device=dev)
-        pk._check(lib.mg_seg_mixed_stage(out.data_ptr(), *px._ptrs(fs), pin.data_ptr(), kl, L,
-                                         hh, n, g0, h * h, 1, *args(plan)), "stage_plans")
+        pk._check(lib.mg_seg_mixed_stage(
+            out.data_ptr(), *((None, None, None, 0) if u is None else px._ptrs(u)),
+            *px._ptrs(fs), pin.data_ptr(), kl, L, hh, n, g0, h * h, 1, *args(plan)),
+            "stage_plans")
         return out
 
     def k36(plan):
@@ -440,6 +501,8 @@ def time_seg(n, L, sms, reps, dev):
 
     stages = {"K35": (k35, pm.mixed_rb_smooth_from_zero_halo_plain(f3, pin, gi0, h, n_iter, n,
                                                                     L)),
+              "K34": (lambda plan: k35(plan, es_),
+                      pm.mixed_rb_smooth_halo_plain(e3, f3, pin, gi0, h, n_iter, n, L)),
               "K36": (k36, pm.mixed_prolong_smooth_halo_plain(c3, e3, f3, pin, gi0, h, n_iter,
                                                               n, L))}
     for kernel, (launch_on, want) in stages.items():
@@ -455,6 +518,19 @@ def time_seg(n, L, sms, reps, dev):
                               "exact": exact,
                               "device_ms": statistics.median(times) if times else None}),
                   flush=True)
+
+    def first_form(u):  # K34's first form: its half-sweeps and BC pass, in place on u
+        pm._seg_stage(u, fs, pin, kl, hh, L, n, g0, h * h, list(pk._colors(True)) * 2,
+                      "mixed_rb_smooth_seg")
+        return u.body
+
+    def copy():
+        return px._Seg(*(t.clone() for t in es_[:3]), es_.r_off)
+
+    scratch = copy()
+    first_form_rows({"first_form": lambda: first_form(scratch),
+                     "first_form_copy": lambda: first_form(copy())}, stages["K34"][1], reps,
+                    {"n": n, "L": L, "rank": rank, "planes": planes, "kernel": "K34"})
 
 
 def time_seg_rect(n, sms, reps, dev, kernels=None):
@@ -921,8 +997,11 @@ def seg_parts2d(x, ix, iy, L, kl, kr):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--sizes", type=int, nargs="+",
-                        help="level sizes (default 9 17 33 65 129; with --seg 129 257)")
+                        help="level sizes (default 9 17 33 65 129; with --seg 65 129 257)")
     parser.add_argument("--reps", type=int, default=20)
+    parser.add_argument("--parent", type=str,
+                        help="with --mixed: a checkout whose K13 has its first form, timed "
+                             "beside the stage")
     parser.add_argument("--kernels", nargs="+",
                         help="with --seg-rect: time only these (K1 K2 K28 K29 K31 K37 K38 K40)")
     group = parser.add_mutually_exclusive_group()
@@ -932,10 +1011,10 @@ def main(argv=None) -> int:
     group.add_argument("--fold", action="store_true",
                        help="time K17's, K16's and K19's fold stages instead")
     group.add_argument("--mixed", action="store_true",
-                       help="time K14's and K15's full-layout mixed stages instead")
+                       help="time K14's, K13's and K15's full-layout mixed stages instead")
     group.add_argument("--seg", action="store_true",
-                       help="time K35's and K36's stages on segments of 320 and 96 planes "
-                            "instead")
+                       help="time K35's, K34's and K36's stages on the production segments "
+                            "(L = 320 and 96 at 257^3, scaled with n) instead")
     group.add_argument("--seg-rect", action="store_true",
                        help="time K31's, K28's, K29's, K40's, K37's and K38's Dirichlet stages "
                             "on the production segments and blocks, and K1's and K2's, instead")
@@ -956,7 +1035,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     if args.sizes is None:
-        args.sizes = ([129, 257] if args.seg or args.seg_rect
+        args.sizes = ([65, 129, 257] if args.seg else [129, 257] if args.seg_rect
                       else [9, 17, 33, 65, 129, 257] if args.seg_restrict
                       else [65, 129, 257, 513] if args.seg_df
                       else [9, 17, 33, 65, 129])
@@ -974,7 +1053,7 @@ def main(argv=None) -> int:
         return 0
     if args.seg:
         for n in args.sizes:
-            for L in (320, 96):
+            for L in (320 * (n - 1) // 256, 96 * (n - 1) // 256):
                 time_seg(n, L, sms, args.reps, dev)
         return 0
     if args.restrict:
@@ -987,7 +1066,7 @@ def main(argv=None) -> int:
         return 0
     if args.fold or args.mixed:
         for n in args.sizes:
-            time_electrospray(n, sms, args.reps, dev, args.fold)
+            time_electrospray(n, sms, args.reps, dev, args.fold, args.parent)
         return 0
     for n in args.sizes:
         h = 1.0 / (n - 1)

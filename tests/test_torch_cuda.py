@@ -32,8 +32,10 @@ and the one-pass fold stages K16, K17 and K19 against theirs at
 ones, on NaN-poisoned outputs (one launch a call; K16 on fields whose x
 and y faces hold NaN), K18 on both of its forms at 9^3-513^3 and on hand
 plans likewise, the one-pass full-layout
-mixed stages K14 and K15 likewise, and the one-pass msplit stages K22 and
-K24 on the split pair likewise.
+mixed stages K13, K14 and K15 likewise (K13 at 9^3-513^3, n_iter 1-3), the
+one-pass segment stages K34 and K35 on every segment geometry at
+9^3-257^3, and the one-pass msplit stages K22 and K24 on the split pair
+likewise.
 
 These need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 themselves where there is none. The file imports no jax, so on a machine
@@ -725,18 +727,19 @@ def test_mixed_kernels_match_plain_on_card(cuda, n):
         for n_iter in (1, 2):
             for red_first in (True, False):
                 want = tpm.mixed_rb_smooth_plain(e_bc, r, pin, h, n_iter, red_first)
-                got = tpm.mixed_rb_smooth_fused(e_bc.clone(), r, pin, h, n_iter, red_first)
-                assert torch.equal(got, want)
+                e0 = e_bc.clone()
+                got = tpm.mixed_rb_smooth_fused(e_bc, r, pin, h, n_iter, red_first)
+                assert torch.equal(got, want) and torch.equal(e_bc, e0)  # fresh, e untouched
             assert torch.equal(tpm.mixed_rb_smooth_from_zero_fused(r, pin, h, n_iter),
                                tpm.mixed_rb_smooth_from_zero_plain(r, pin, h, n_iter))
             e0 = e.clone()
             got = tpm.mixed_prolong_smooth_fused(ec, e, r, pin, h, n_iter)
             assert torch.equal(e, e0)  # fresh output, e untouched
             assert torch.equal(got, tpm.mixed_prolong_smooth_plain(ec, e, r, pin, h, n_iter))
-    # per pin, n_iter 1 and 2: K13 2 orders x (2 n_iter + 1); K14 and K15 one
-    # launch a call (one-pass stages)
+    # per pin, n_iter 1 and 2: K13 2 orders, K14 and K15 one call; one launch
+    # a call (one-pass stages)
     assert tpm.LAUNCHES == {**dict.fromkeys(tpm.KERNELS, 0),
-                            "mixed_rb_smooth_fused": 2 * 2 * (3 + 5),
+                            "mixed_rb_smooth_fused": 2 * 2 * 2,
                             "mixed_rb_smooth_from_zero_fused": 2 * 2,
                             "mixed_prolong_smooth_fused": 2 * 2}
 
@@ -869,6 +872,44 @@ def test_mixed_stages_on_hand_plans_on_card(cuda, n, bk, box):
             assert _mixed_stage_on_plan(plan._replace(smem=plan.smem + 16), r, pin, h)[0] != 0
             assert _mixed_stage_on_plan(k15._replace(smem=k15.smem + 16), r, pin, h, u=e,
                                         ec=ec)[0] != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [9, 17, 33, 65, 129, 257, 513])
+def test_k13_stage_matches_plain_on_card(cuda, n):
+    """K13, the full-layout mixed stage on a loaded BC-consistent e, with
+    the electrospray's pins and random ones (k-face columns too), both
+    orders, n_iter 1-3, r random everywhere, the allocator poisoned with
+    NaN: bit for bit against the plain version, a fresh field, e and r
+    untouched, ceil(n_iter / 2) launches a call and no other kernel; its
+    launcher refuses an output that meets e or r."""
+    h = 3e-4 / (n - 1)
+    rng = np.random.default_rng(300 + n)
+    e, r = _cubes(rng, n, cuda, 2)
+    for kind in ("electrospray", "random"):
+        pin = _mixed_pins(kind, n, cuda, rng)
+        e_bc = tpm.apply_bcs_padded(e, pin)
+        before = [e_bc.clone(), r.clone()]
+        for n_iter in (1, 2, 3):
+            for red_first in (True, False):
+                want = tpm.mixed_rb_smooth_plain(e_bc, r, pin, h, n_iter, red_first)
+                _poison_allocator((n, n, n), cuda, count=2 if n == 513 else 8)
+                tpm.reset_launches()
+                got = tpm.mixed_rb_smooth_fused(e_bc, r, pin, h, n_iter, red_first)
+                assert tpm.LAUNCHES == {**dict.fromkeys(tpm.KERNELS, 0),
+                                        "mixed_rb_smooth_fused": -(-n_iter // 2)}
+                assert torch.equal(got, want), (kind, n_iter, red_first)
+                del want, got
+        assert torch.equal(e_bc, before[0]) and torch.equal(r, before[1])
+    plan = tps._plan_args(n, 2, cuda, rect=True)
+    lib, stream, h2 = tpk._lib(), tpk._stream(), h * h
+    for out, u in ((e_bc, e_bc), (r, e_bc), (r, None)):  # out meets e, or r
+        assert lib.mg_mixed_stage(out.data_ptr(), None if u is None else u.data_ptr(),
+                                  r.data_ptr(), pin.data_ptr(), n, h2, 1, *plan, stream) != 0
+    fresh = torch.empty_like(r)
+    assert lib.mg_mixed_stage(fresh.data_ptr(), e_bc.data_ptr(), r.data_ptr(), pin.data_ptr(), n,
+                              h2, 1, *plan, stream) == 0
+    torch.cuda.synchronize()
 
 
 def _interior(n, dev):
@@ -2649,8 +2690,8 @@ def test_sharded_mixed_kernels_match_plain_and_single_device_on_card(cuda, kerne
         outs.append(got)
     got = torch.cat(outs)
     assert torch.equal(got[:n], want) and not got[n:].any()
-    per_call = 5 if kernel == "K34" else 1  # K35 and K36: one-pass stages
-    assert tpm.LAUNCHES == {**dict.fromkeys(tpm.KERNELS, 0), name: per_call * D}
+    # K34, K35 and K36: one-pass stages, one launch a call
+    assert tpm.LAUNCHES == {**dict.fromkeys(tpm.KERNELS, 0), name: D}
 
 
 def _seg_triples(x, rank, L, kl, kr, n, tail=0):
@@ -2736,10 +2777,59 @@ def test_k35_k36_seg_stages_match_plain_on_card(cuda, n, L, ranks):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,L,ranks", SEG_STAGE_CASES)
+def test_k34_seg_stage_matches_plain_on_card(cuda, n, L, ranks):
+    """The one-pass segment stage K34 on a loaded u, both orders, on every
+    rank of the geometry, n_iter 1-3, with the electrospray's pins and
+    random ones: each body bit for bit its plain version, on fields random
+    at every plane (pad planes too; u BC-consistent on the field), the halo
+    rows past the field's edge NaN, the allocator poisoned with NaN before
+    each call; exactly one launch a call at n_iter <= 2 (7 at 3, the first
+    form on a copy of u's segments) and no other kernel; at n_iter 2 the
+    stitched bodies equal K13's on the whole field in both orders, their pad
+    rows u's; the inputs left as they were."""
+    es = tmg.electrospray_problem()
+    h = es.length / (n - 1)
+    rng = np.random.default_rng(270 + n + L)
+    f, u = (torch.from_numpy(rng.standard_normal((ranks * L, n, n)).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    for kind in ("electrospray", "random"):
+        pin = _mixed_pins(kind, n, cuda, rng)
+        u[:n] = tpm.apply_bcs_padded(u[:n], pin)  # BC-consistent, as the cycle hands it over
+        for n_iter in (1, 2, 3):
+            hh, calls = 2 * n_iter, 1 if n_iter <= 2 else 2 * n_iter + 1
+            bodies = {True: [], False: []}
+            for r in range(ranks):
+                gi0 = r * L - hh
+                kl = tpm._stage_kl(gi0, n_iter, n)
+                f3 = _seg_triples(f, r, L, kl, hh, n, tail=2)
+                u3 = _seg_triples(u, r, L, kl, hh, n, tail=1)
+                before = [t.clone() for t in (*f3, *u3)]
+                for red_first in (True, False):
+                    want = tpm.mixed_rb_smooth_halo_plain(u3, f3, pin, gi0, h, n_iter, n, L,
+                                                          red_first)
+                    _poison_allocator((L, n, n), cuda)
+                    tpm.reset_launches()
+                    got = tpm.mixed_rb_smooth_halo(u3, f3, pin, gi0, h, n_iter, n, L, red_first)
+                    assert tpm.LAUNCHES == {**dict.fromkeys(tpm.KERNELS, 0),
+                                            "mixed_rb_smooth_seg": calls}
+                    assert torch.equal(got, want), (kind, n_iter, r, red_first)
+                    bodies[red_first].append(got)
+                assert all(_same_with_nan(a, b) for a, b in zip((*f3, *u3), before))
+            if n_iter == 2:
+                for red_first, parts in bodies.items():
+                    got = torch.cat(parts)
+                    assert torch.equal(got[:n], tpm.mixed_rb_smooth_fused(u[:n], f[:n], pin, h,
+                                                                          2, red_first))
+                    assert torch.equal(got[n:], u[n:])
+
+
+@pytest.mark.cuda
 def test_seg_stage_launchers_refuse_what_they_do_not_take(cuda):
-    """The K35 and K36 launchers refuse a plan whose shared memory is not
-    the kernel's, and a left halo of 2 n_iter where plane n - 1 is row 0
-    (33^3, L = 16, rank 2); the wrappers' own calls succeed."""
+    """The K34, K35 and K36 launchers refuse a plan whose shared memory is
+    not the kernel's, and a left halo of 2 n_iter where plane n - 1 is row 0
+    (33^3, L = 16, rank 2); K34's and K35's an output that meets u's or f's
+    segment; the wrappers' own calls succeed."""
     n, L, r, n_iter, hh = 33, 16, 2, 2, 4
     nc = (n + 1) // 2
     h2 = (3e-4 / (n - 1)) ** 2
@@ -2750,10 +2840,16 @@ def test_seg_stage_launchers_refuse_what_they_do_not_take(cuda):
 
     ptrs = tpx._ptrs
 
-    def k35(kl, plan, out):
-        f3 = tpx._seg(_seg_triples(f, r, L, kl, hh, n), kl, hh, L)
-        return lib.mg_seg_mixed_stage(out.data_ptr(), *ptrs(f3), pin.data_ptr(), kl, L, hh, n,
-                                      r * L, h2, 1, *plan, stream)
+    def k35(kl, plan, out, f3=None):
+        f3 = f3 or tpx._seg(_seg_triples(f, r, L, kl, hh, n), kl, hh, L)
+        return lib.mg_seg_mixed_stage(out.data_ptr(), None, None, None, 0, *ptrs(f3),
+                                      pin.data_ptr(), kl, L, hh, n, r * L, h2, 1, *plan, stream)
+
+    def k34(kl, plan, out, u3=None, f3=None):
+        f3 = f3 or tpx._seg(_seg_triples(f, r, L, kl, hh, n), kl, hh, L)
+        u3 = u3 or tpx._seg(_seg_triples(e, r, L, kl, hh, n), kl, hh, L)
+        return lib.mg_seg_mixed_stage(out.data_ptr(), *ptrs(u3), *ptrs(f3), pin.data_ptr(), kl,
+                                      L, hh, n, r * L, h2, 1, *plan, stream)
 
     def k36(kl, plan, out):
         f3 = tpx._seg(_seg_triples(f, r, L, kl, hh, n), kl, hh, L)
@@ -2765,13 +2861,20 @@ def test_seg_stage_launchers_refuse_what_they_do_not_take(cuda):
                                               n, r * L, h2, *plan, stream)
 
     planes = tpm._seg_planes(r * L - hh, n_iter, n, L)
-    for launch, prolong in ((k35, False), (k36, True)):
+    for launch, prolong in ((k34, False), (k35, False), (k36, True)):
         plan = tps._plan_args(n, n_iter, cuda, prolong=prolong, rect=True, seg_planes=planes)
         out = torch.empty((L, n, n), device=cuda)
         assert launch(hh + 1, plan, out) == 0
         bad = plan[:6] + (plan[6] + 16,) + plan[7:]
         assert launch(hh + 1, bad, out) != 0
         assert launch(hh, plan, out) != 0
+    plan = tps._plan_args(n, n_iter, cuda, rect=True, seg_planes=planes)
+    f3 = tpx._seg(_seg_triples(f, r, L, hh + 1, hh, n), hh + 1, hh, L)
+    u3 = tpx._seg(_seg_triples(e, r, L, hh + 1, hh, n), hh + 1, hh, L)
+    for part in (0, 1, 2):  # the body, the left halo, the right one
+        assert k34(hh + 1, plan, u3[part], u3, f3) != 0
+        assert k34(hh + 1, plan, f3[part], u3, f3) != 0
+        assert k35(hh + 1, plan, f3[part], f3) != 0
     torch.cuda.synchronize()
 
 

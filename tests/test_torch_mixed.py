@@ -209,7 +209,7 @@ def test_mixed_rb_smooth_fused_matches_pallas(pins, n_iter):
                                          red_first=red_first, block_i=4)
         et = _t(e.copy())
         got = tpm.mixed_rb_smooth_fused(et, _t(r), _t(pin), H, n_iter, red_first)
-        assert got is et  # in place, as on the card
+        assert got is not et and np.array_equal(et.numpy(), e)  # a fresh field, as on the card
         _assert_ulps(got, np.asarray(want)[:, :N, :N])
 
 

@@ -1,6 +1,7 @@
-"""The one-pass full-layout mixed smoothing stages (K14
-``mixed_rb_smooth_from_zero_fused`` and K15 ``mixed_prolong_smooth_fused``,
-multigrid_parallel_tpu_torch.ops.pallas_mixed) on the CPU: an emulation of
+"""The one-pass full-layout mixed smoothing stages (K13
+``mixed_rb_smooth_fused``, K14 ``mixed_rb_smooth_from_zero_fused`` and K15
+``mixed_prolong_smooth_fused``, multigrid_parallel_tpu_torch.ops.pallas_mixed)
+on the CPU: an emulation of
 the CUDA kernels' schedule held against the plain versions, and the
 wrappers' CPU contract.
 
@@ -10,7 +11,7 @@ and ``box_body``) cannot run here, so its schedule is emulated in torch
 rect.cuh's tile: a field row
 (i, j) of the (n, n, n) field held as two colour rows of slots, slot kk of
 a colour holding k = 2 kk + 1 + p, the k-face slots (k = 0 and n - 1)
-holding the loaded face values (K14: zeros); the plan's boxes with halos of
+holding the loaded face values (K14: zeros; K13: e's); the plan's boxes with halos of
 2 n_iter planes and rows (and k_halo slots where k is tiled); tile planes
 filled with NaN outside the loaded box, K14's tile all zeros instead; a
 ring of tile planes for each colour as deep as the kernel's (a plane gone
@@ -28,8 +29,11 @@ the copy source of (k = 0 from k = 1, row 0 from row 1, plane 0 from plane
 The emulation must equal the plain versions bit for bit, and three faults
 of the schedule must not: a halo one plane short, a k-face neighbour read
 from the tile's loaded k-face slot, and an x-face or a z-face node stored
-before its source's last half-sweep. The card tests hold the kernels
-themselves against the plain versions (tests/test_torch_cuda.py).
+before its source's last half-sweep. K13, the same stage on a loaded
+(BC-consistent) e, is held the same way, and a zero tile in place of e, a
+k-face neighbour read from the tile's loaded slot and a halo one plane
+short must make it differ. The card tests hold the kernels themselves
+against the plain versions (tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -164,6 +168,54 @@ def test_emulation_finds_a_faulty_schedule(kind, fault):
     assert not torch.equal(got15, want15)
 
 
+def _k13_inputs(n, seed):
+    """(pin, e, r, h): random pins and fields, e made BC-consistent, as the
+    cycle hands it over."""
+    rng = np.random.default_rng(seed)
+    pin = _pins("random", n, rng)
+    e, r = _field(rng, n), _field(rng, n)
+    return pin, tpm.apply_bcs_padded(e, pin), r, 3e-4 / (n - 1)
+
+
+@pytest.mark.parametrize("n,kind", CASES)
+def test_emulated_k13_matches_plain(n, kind):
+    """K13, the stage on the loaded e, on the level sizes 9^3, 17^3 and
+    33^3 and the plans of K14's test: n_iter 1 red first and n_iter 2 black
+    first, bit for bit against the plain version."""
+    pin, e, r, h = _k13_inputs(n, 40 + n)
+    for n_iter, red_first in ((1, True), (2, False)):
+        got = _emulate_k14(r, pin, h, n_iter, red_first, _plans(kind, n), e=e)
+        assert torch.equal(got, tpm.mixed_rb_smooth_plain(e, r, pin, h, n_iter, red_first)), \
+            n_iter
+
+
+def test_emulated_k13_chains_past_two_iterations():
+    """n_iter 3: K13's two-iteration launch on e, then the stage on the
+    field so far, both orders."""
+    pin, e, r, h = _k13_inputs(17, 4)
+    for red_first in (True, False):
+        got = _emulate_k14(r, pin, h, 3, red_first, _plans("rows", 17), e=e)
+        assert torch.equal(got, tpm.mixed_rb_smooth_plain(e, r, pin, h, 3, red_first))
+
+
+@pytest.mark.parametrize("fault", ["zero_tile", "k_face_slot", "short_halo"])
+def test_emulation_finds_a_faulty_k13(fault):
+    """The emulation is a check of K13 too (17^3, n_iter 2, the wavefront
+    plan of whole rows): a zero tile in place of the loaded e, the k-face
+    neighbours read from the tile's loaded k-face slots, or a halo one
+    plane short leaves a wrong value; without the fault it equals the plain
+    version."""
+    n, n_iter = 17, 2
+    pin, e, r, h = _k13_inputs(n, 6)
+    plan = _plans("rows", n)(n_iter)
+    want = tpm.mixed_rb_smooth_plain(e, r, pin, h, n_iter, True)
+    assert torch.equal(_emulate_k14(r, pin, h, n_iter, True, lambda _: plan, e=e), want)
+    bad, broken = (plan._replace(halo=plan.halo - 1), None) if fault == "short_halo" else (
+        plan, fault)
+    got = _emulate_k14(r, pin, h, n_iter, True, lambda _: bad, broken, e=e)
+    assert not torch.equal(got, want)
+
+
 # ------------------------------------------------- the wrappers on the CPU
 
 
@@ -187,3 +239,19 @@ def test_k14_k15_return_fresh_fields_and_leave_their_inputs():
                  lambda: tpm.mixed_prolong_smooth_fused(ec, e, r, pin, h, 0)):
         with pytest.raises(ValueError, match="n_iter"):
             call()
+
+
+def test_k13_returns_a_fresh_field_and_leaves_its_inputs():
+    """On the CPU K13's wrapper is the plain version: a fresh field at
+    n_iter 1-3, e and r as they were, no launch counted; n_iter < 1 is
+    refused."""
+    pin, e, r, h = _k13_inputs(17, 8)
+    before = [x.clone() for x in (e, r, pin)]
+    tpm.reset_launches()
+    for n_iter in (1, 2, 3):
+        got = tpm.mixed_rb_smooth_fused(e, r, pin, h, n_iter)
+        assert got is not e and torch.equal(got, tpm.mixed_rb_smooth_plain(e, r, pin, h, n_iter))
+    assert all(torch.equal(a, b) for a, b in zip((e, r, pin), before))
+    assert not any(tpm.LAUNCHES.values())
+    with pytest.raises(ValueError, match="n_iter"):
+        tpm.mixed_rb_smooth_fused(e, r, pin, h, 0)

@@ -1,13 +1,13 @@
 """The one-pass mixed smoothing stages on one rank's segments of an
-i-sharded field (K35 ``mixed_rb_smooth_from_zero_halo`` and K36
-``mixed_prolong_smooth_halo``, multigrid_parallel_tpu_torch.ops.
-pallas_mixed) on the CPU: an emulation of the CUDA kernels' schedule held
+i-sharded field (K34 ``mixed_rb_smooth_halo``, K35
+``mixed_rb_smooth_from_zero_halo`` and K36 ``mixed_prolong_smooth_halo``,
+multigrid_parallel_tpu_torch.ops.pallas_mixed) on the CPU: an emulation of the CUDA kernels' schedule held
 against the plain versions, the planner's plans for segments, and the
 wrappers' CPU contract.
 
 The CUDA stage (ops/csrc/rect.cuh with ``Layout::kSeg``) cannot run here,
 so it is emulated in torch (tests/torch_stage_emulation.py) as the kernel
-runs it: K14's and K15's stage on VIRTUAL fields whose planes are the
+runs it: K13's, K14's and K15's stage on VIRTUAL fields whose planes are the
 global ones, holding a rank's rows where its three buffers (left halo,
 body, right halo, the right one composite where it starts with local tail
 planes) have them and NaN at every other plane, so that a read outside the
@@ -15,7 +15,7 @@ segment shows; the blocks tile the rank's planes clipped to n - 1 (and
 plane n - 2 from the left halo where plane n - 1 is row 0), the loaded box
 is clipped to the field only, the stores write the rank's nodes only
 (plane n - 1 at row 0 from plane n - 2's final value in the tile), and the
-pad rows past n - 1 take 0 (K35) or e's rows (K36). The fields, f, e and the
+pad rows past n - 1 take u's rows (K34), 0 (K35) or e's rows (K36). The fields, f, e and the
 coarse correction, are random at every point, the pad planes too, so a pad
 row swept or loaded would show.
 
@@ -28,7 +28,12 @@ plans for the H100 and on hand plans (box and wavefront, several blocks in
 i and j, k tiles), every point written once. Three faults must not: a left
 halo of 2 n_iter at the n - 1 geometry (K36), the n - 1 copy read from
 device memory in place of the tile, and the pad rows swept as interior
-ones. The card tests hold the kernels themselves against the plain
+ones. K34, the stage on the loaded u, is held the same way, on the planner's
+plans and hand plans, stitched over the ranks against K13's plain version,
+and with five faults of its own that must show: a zero tile in place of u,
+a sweep that reads the loaded k-face slot, pad rows written 0, plane n - 1
+at row 0 copied from u in place of the tile, and a left halo one plane
+short. The card tests hold the kernels themselves against the plain
 versions (tests/test_torch_cuda.py).
 """
 
@@ -81,6 +86,14 @@ class Rank:
 
     def planes(self):
         return tpm._seg_planes(self.gi0, self.n_iter, self.n, self.L)
+
+    def k34_plain(self, red_first=True):
+        return tpm.mixed_rb_smooth_halo_plain(self.e3, self.f3, self.pin, self.gi0, self.h,
+                                              self.n_iter, self.n, self.L, red_first)
+
+    def k34(self, plan, red_first=True, fault=None):
+        return em.emulate_seg(self.f3, self.pin, self.gi0, self.h, self.n_iter, self.n, self.L,
+                              plan, self.kl, red_first, e3=self.e3, fault=fault)
 
     def k35_plain(self, red_first=True):
         return tpm.mixed_rb_smooth_from_zero_halo_plain(self.f3, self.pin, self.gi0, self.h,
@@ -181,6 +194,67 @@ def test_emulation_finds_a_faulty_seg_stage(fault):
     assert not torch.equal(good.k36(plans[1], fault=fault)[0], want36)
 
 
+# (n, L, rank) of K34's cases: GEOMETRIES' edges, an interior rank at 17^3
+K34_GEOMETRIES = {**GEOMETRIES, "interior": (17, 6, 1)}
+
+
+@pytest.mark.parametrize("n_iter", [1, 2])
+@pytest.mark.parametrize("geometry", list(K34_GEOMETRIES))
+def test_emulated_k34_matches_plain(geometry, n_iter):
+    """K34, the stage on the loaded u, on each geometry: red first on the
+    planner's plan, black first on a hand plan (a box at 17^3, k tiles at
+    33^3, at n_iter 1), bit for bit against the plain version, the pad rows
+    u's, every point of the body written once."""
+    n, L, rank = K34_GEOMETRIES[geometry]
+    rk_ = Rank(n, L, rank, n_iter, seed=100 * n + 10 * rank + n_iter + 5)
+    hand = "box" if n == 17 else "k_tiles" if n_iter == 1 else None
+    for kind, red_first in (("h100", True), (hand, False)):
+        if kind is None:
+            continue
+        got, writes = rk_.k34(_plans(kind, n, n_iter, rk_.planes())[0], red_first)
+        em.check_writes(writes)
+        assert torch.equal(got, rk_.k34_plain(red_first)), (kind, red_first)
+
+
+def test_emulated_k34_stitches_to_k13():
+    """The four ranks' emulated K34 bodies at 17^3, L = 8 (plane 16 at rank
+    2's row 0, rank 3 pad only), stitched: their first n planes bit for bit
+    K13's plain version on the whole field, red first on the planner's
+    plans, black first on box plans."""
+    n, L, n_iter = 17, 8, 2
+    ranks = [Rank(n, L, r, n_iter, seed=8) for r in range(D)]  # one seed: one global field
+    f = torch.cat([r.f3[0] for r in ranks])[:n]
+    e = torch.cat([r.e3[0] for r in ranks])[:n]
+    for kind, red_first in (("h100", True), ("box", False)):
+        got = torch.cat([r.k34(_plans(kind, n, n_iter, r.planes())[0], red_first)[0]
+                         for r in ranks])[:n]
+        want = tpm.mixed_rb_smooth_plain(e, f, ranks[0].pin, ranks[0].h, n_iter, red_first)
+        assert torch.equal(got, want), red_first
+
+
+@pytest.mark.parametrize("fault", ["zero_tile", "k_face_slot", "pad_zero", "n1_from_memory",
+                                   "short_left_halo"])
+def test_emulation_finds_a_faulty_k34(fault):
+    """The emulation is a check of K34 too. At the n - 1 geometry (17^3, L =
+    8, rank 2: plane 16 its row 0, planes 17-23 pad), n_iter 2: a zero tile
+    in place of the loaded u, the k-face neighbours read from the tile's
+    loaded k-face slots, the pad rows written 0, the copy into plane n - 1
+    read from u in device memory in place of the tile's final plane n - 2,
+    or a left halo of 2 n_iter planes (u's missing plane shows as NaN) each
+    leaves a wrong value in the body; without the fault it equals the plain
+    version."""
+    n, L, rank, n_iter = 17, 8, 2, 2
+    good = Rank(n, L, rank, n_iter, seed=12)
+    plan = _plans("h100", n, n_iter, good.planes())[0]
+    want = good.k34_plain()
+    assert torch.equal(good.k34(plan)[0], want)
+    if fault == "short_left_halo":
+        got = Rank(n, L, rank, n_iter, seed=12, kl=2 * n_iter).k34(plan)[0]
+        assert torch.isnan(got[0]).any()
+        return
+    assert not torch.equal(good.k34(plan, fault=fault)[0], want)
+
+
 # ------------------------------------------------------------- the plans
 
 
@@ -224,15 +298,18 @@ def test_seg_plans_tile_the_planes_of_a_segment(n):
 
 def test_k35_k36_wrappers_on_the_cpu_are_the_plain_versions():
     """On the CPU the wrappers are the plain versions: fresh bodies (pad
-    rows 0 for K35, e's for K36), the inputs as they were, no launch
-    counted; the ext forms raise at the n - 1 geometry."""
+    rows 0 for K35, e's for K36, u's for K34), the inputs as they were, no
+    launch counted; the ext forms raise at the n - 1 geometry."""
     rk_ = Rank(33, 12, 2, 2, seed=3)
     before = [t.clone() for t in (*rk_.f3, *rk_.e3, *rk_.ec3)]
     tpm.reset_launches()
     got35 = tpm.mixed_rb_smooth_from_zero_halo(rk_.f3, rk_.pin, rk_.gi0, rk_.h, 2, 33, 12)
     got36 = tpm.mixed_prolong_smooth_halo(rk_.ec3, rk_.e3, rk_.f3, rk_.pin, rk_.gi0, rk_.h, 2,
                                           33, 12)
+    got34 = tpm.mixed_rb_smooth_halo(rk_.e3, rk_.f3, rk_.pin, rk_.gi0, rk_.h, 2, 33, 12)
     assert all(torch.equal(a, b) for a, b in zip((*rk_.f3, *rk_.e3, *rk_.ec3), before))
+    assert got34.data_ptr() != rk_.e3[0].data_ptr() and torch.equal(got34, rk_.k34_plain())
+    assert torch.equal(got34[9:], rk_.e3[0][9:])
     assert torch.equal(got35, rk_.k35_plain()) and torch.equal(got36, rk_.k36_plain())
     assert not got35[9:].any() and torch.equal(got36[9:], rk_.e3[0][9:])  # pad rows 33-35
     assert not any(tpm.LAUNCHES.values())

@@ -258,6 +258,68 @@ def test_stage_calls_map_k16_on_the_fold_stage():
         "K16 n=65": [1, pytest.approx(0.009), pytest.approx(0.009)]}
 
 
+def test_stage_calls_map_k13_and_k34_on_the_loaded_stages():
+    """K13 on the full-layout mixed stage (mixed_stage_kernel with ZERO
+    false) and K34 on the segment stage (mixed_seg_stage_kernel<NITER,
+    ZERO, BOX> with ZERO false) head a call each, by level from their
+    plans, beside K14 and K35 (ZERO true); the parent's segment kernel
+    without ZERO (<NITER, BOX>) stays K35, a name without its arguments is
+    either; at n_smooth 3 a K14 or K15 call takes the loaded stage's next
+    launch as its second, and the next loaded launch heads a K13 call that
+    takes the one after it."""
+    from multigrid_parallel_tpu_torch.hierarchy import Hierarchy
+    from multigrid_parallel_tpu_torch.ops import pallas_split as tps
+    from multigrid_parallel_tpu_torch.parallel.sharded import ShardPlan
+
+    assert st.stage_label("mixed_stage_kernel<2, false, true>") == "K13"
+    assert st.stage_label("mixed_stage_kernel<2, true, true>") == "K14"
+    assert st.stage_label("mixed_seg_stage_kernel<2, false, false>") == "K34"
+    assert st.stage_label("mixed_seg_stage_kernel<2, true, true>") == "K35"
+    assert st.stage_label("mixed_seg_stage_kernel<2, false>") == "K35"
+    assert st.stage_label("mixed_seg_stage_kernel") == "K34|K35"
+    assert (st.short_name("_ZN12_GLOBAL__N_122mixed_seg_stage_kernelILi2ELb0ELb1EEEvN2mg4rect"
+                          "12SegStageArgsE") == "mixed_seg_stage_kernel<2, false, true>")
+    sizes = st._stage_sizes(Hierarchy(ndim=3, coarse_n=5, num_levels=6), 132)
+    grid = {n: (p.blocks, 1, 1, p.smem) for n, p in
+            ((n, tps._stage_plan(n, 2, 132, rect=True)) for n in (65, 129))}
+    k15 = tps._stage_plan(65, 2, 132, True, True)
+    one = (7, 1, 1, 0)  # an n_iter 1 launch's grid: not a level of the map
+    intervals = [(0, 3, "mixed_stage_kernel<2, false, true>", grid[129]),
+                 (10, 12, "mixed_stage_kernel<2, true, true>", grid[65]),
+                 (20, 21, "mixed_stage_kernel<2, false, true>", grid[65])]
+    assert st.stage_calls(intervals, sizes) == {
+        "K13 n=129": [1, pytest.approx(0.003), pytest.approx(0.003)],
+        "K14 n=65": [1, pytest.approx(0.002), pytest.approx(0.002)],
+        "K13 n=65": [1, pytest.approx(0.001), pytest.approx(0.001)]}
+    intervals = [(0, 3, "mixed_stage_kernel<2, true, true>", grid[65]),
+                 (4, 5, "mixed_stage_kernel<1, false, true>", one),
+                 (10, 14, "mixed_prolong_stage_kernel<2, true>", (k15.blocks, 1, 1, k15.smem)),
+                 (15, 16, "mixed_stage_kernel<1, false, true>", one),
+                 (20, 22, "mixed_stage_kernel<2, false, true>", grid[65]),
+                 (23, 24, "mixed_stage_kernel<1, false, true>", one)]
+    assert st.stage_calls(intervals, sizes, n_smooth=3) == {
+        "K14 n=65": [1, pytest.approx(0.004), pytest.approx(0.004)],
+        "K15 n=65": [1, pytest.approx(0.005), pytest.approx(0.005)],
+        "K13 n=65": [1, pytest.approx(0.003), pytest.approx(0.003)]}
+
+    plan = ShardPlan(n_dev=1, axis="x", n_sharded=6, fine_local=320)
+    seg = st._seg_sizes(Hierarchy(ndim=3, coarse_n=5, num_levels=7), 132, plan)
+    k34 = {n: tps._stage_plan(n, 2, 132, rect=True, seg_planes=n) for n in (65, 129)}
+    intervals = [(0, 3, "mixed_seg_stage_kernel<2, false, true>",
+                  (k34[129].blocks, 1, 1, k34[129].smem)),
+                 (10, 11, "mixed_seg_stage_kernel<2, true, true>",
+                  (k34[65].blocks, 1, 1, k34[65].smem)),
+                 (20, 22, "mixed_seg_stage_kernel<2, false, true>",
+                  (k34[65].blocks, 1, 1, k34[65].smem)),
+                 (30, 34, "mixed_seg_stage_kernel<2, true>",
+                  (k34[129].blocks, 1, 1, k34[129].smem))]
+    assert st.stage_calls(intervals, seg) == {
+        "K34 n=129": [1, pytest.approx(0.003), pytest.approx(0.003)],
+        "K35 n=65": [1, pytest.approx(0.001), pytest.approx(0.001)],
+        "K34 n=65": [1, pytest.approx(0.002), pytest.approx(0.002)],
+        "K35 n=129": [1, pytest.approx(0.004), pytest.approx(0.004)]}
+
+
 def test_restrict_calls_map_both_forms_of_k18():
     """K18 a kernel a call, by level: the first form
     (residual_restrict_fold_kernel) from its one thread a stored coarse

@@ -1,7 +1,7 @@
 """A torch emulation of rect.cuh's mixed-BC one-pass stage, as the CUDA
-kernels run it, shared by the stage tests (torch only): K14 and K15 on the
-full (n, n, n) layout (``Layout::kMixed``; tests/test_torch_mixed_stage.py)
-and K35 and K36 on one rank's segments of an i-sharded field (``kSeg``;
+kernels run it, shared by the stage tests (torch only): K13, K14 and K15 on
+the full (n, n, n) layout (``Layout::kMixed``; tests/test_torch_mixed_stage.py)
+and K34, K35 and K36 on one rank's segments of an i-sharded field (``kSeg``;
 tests/test_torch_seg_stage.py); and of its Dirichlet stage on a rank's
 segmented block, K31, K28 and K29 on an i-sharded field and K40, K37 and
 K38 on an (i, j)-sharded one (``kSegRect``;
@@ -306,12 +306,15 @@ def prolongation(ec, order=(1, 2, 0)):
     return t
 
 
-def emulate_k14(r, pin, h, n_iter, red_first, plan_of, fault=None):
-    """K14 from a zero tile, then the stage on the field so far."""
+def emulate_k14(r, pin, h, n_iter, red_first, plan_of, fault=None, e=None):
+    """K14 from a zero tile (``e`` None) or K13 with e loaded, then the
+    stage on the field so far. The fault "zero_tile" starts K13's first
+    launch from a zero tile in place of e."""
     color0 = RED if red_first else BLACK
-    fs, u = by_stage(deinterleave(r), color0), None
+    fs, u = by_stage(deinterleave(r), color0), e
     for chunk in tps._stage_chunks(n_iter):
-        ins = None if u is None else by_stage(deinterleave(u), color0)
+        zero = u is None or fault == "zero_tile" and u is e
+        ins = None if zero else by_stage(deinterleave(u), color0)
         u, writes = emulate_launch(ins, fs, pin, color0, h, plan_of(chunk), fault=fault)
         check_writes(writes)
     return u
@@ -354,14 +357,17 @@ def seg_span(g0, L, n):
 
 def emulate_seg(f3, pin, gi0, h, n_iter, n, L, plan, kl, red_first=True, e3=None, ec3=None,
                 fault=None):
-    """K35 (``e3`` None: a zero tile, ``red_first``) or K36 (black first, e
-    + P ec as planes arrive) on one rank's segments as the kernel runs it:
-    the fine triples read with ``kl`` left halo planes (the wrappers' rule
-    is tpm._stage_kl) and 2 n_iter on the right, the coarse one with kl -
+    """K35 (``e3`` None: a zero tile, ``red_first``), K34 (``e3`` the loaded
+    u, no ``ec3``, ``red_first``) or K36 (black first, e + P ec as planes
+    arrive) on one rank's segments as the kernel runs it: the fine triples
+    read with ``kl`` left halo planes (the wrappers' rule is
+    tpm._stage_kl) and 2 n_iter on the right, the coarse one with kl -
     n_iter and n_iter + 1, as virtual fields; one launch on ``plan`` over
     seg_span's planes, then the pad rows (past n - 1) written, 0 for K35
-    and e's rows for K36. Returns the (L, n, n) body and each point's
-    writes."""
+    and e's (u's) rows for K34 and K36. Beside emulate_launch's faults,
+    "zero_tile" starts K34 from a zero tile in place of u, and "pad_zero"
+    writes K34's and K36's pad rows 0. Returns the (L, n, n) body and each
+    point's writes."""
     hh, g0 = 2 * n_iter, tpx._gi0_int(gi0) + 2 * n_iter
     f = tpx._seg(f3, kl, hh, L)
     planes = max(n, g0 + L + hh)
@@ -369,13 +375,14 @@ def emulate_seg(f3, pin, gi0, h, n_iter, n, L, plan, kl, red_first=True, e3=None
     span = seg_span(g0, L, n)
     if fault == "pad_swept":
         span = Span(span.c0, g0 + L, g0, g0 + L)
+    color0, corr = (RED if red_first and ec3 is None else BLACK), None
     if e3 is None:
-        color0, ins, corr, mem = (RED if red_first else BLACK), None, None, torch.zeros_like(fv)
+        ins, mem = None, torch.zeros_like(fv)
     else:
-        color0 = BLACK
         e = tpx._seg(e3, kl, hh, L)
         mem = _virtual(e.rows(kl, hh), g0 - kl, planes)
-        ins = by_stage(deinterleave(mem), color0)
+        ins = None if fault == "zero_tile" else by_stage(deinterleave(mem), color0)
+    if ec3 is not None:
         kc, lc = kl - n_iter, L // 2
         c = tpx._seg(ec3, kc, n_iter + 1, lc)
         cv = _virtual(c.rows(kc, n_iter + 1), g0 // 2 - kc, (planes + 2) // 2)
@@ -387,7 +394,7 @@ def emulate_seg(f3, pin, gi0, h, n_iter, n, L, plan, kl, red_first=True, e3=None
     body, w = out[g0:g0 + L].clone(), writes[g0:g0 + L].clone()
     if fault != "pad_swept":  # every block's share of the pad rows
         t0 = span.o1 - g0
-        body[t0:] = 0.0 if e3 is None else e.body[t0:]
+        body[t0:] = 0.0 if e3 is None or fault == "pad_zero" else e.body[t0:]
         w[t0:] += 1
     return body, w
 
