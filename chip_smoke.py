@@ -56,15 +56,16 @@ which fails the run:
      loaded field) bit for bit at 65^3 and 257^3, one launch a call at
      n_iter <= 2; K18 bit for bit at 17^3 and 65^3 (its first form) and
      257^3 (the streaming stage); K14 and K15 (one-pass
-     full-layout mixed stages) bit for bit at 17^3, 65^3 and 257^3; K22
-     and K24 (one-pass msplit stages) bit for bit at 17^3 (K24 with the
+     full-layout mixed stages) bit for bit at 17^3, 65^3 and 257^3; K21,
+     K22 and K24 (one-pass msplit stages) and K23 (the streaming
+     restriction stage on the pair) bit for bit at 17^3 (K24 with the
      pin-edge delta), 65^3 and 257^3;
   3. solve 33^3 on the CPU (plain versions) and on the card (kernels),
      unfused, fused, fused with FMG and split: same outer-step count,
      solutions within 1e-8; the electrospray full, fold and split tiers
      at 33^3, V and W, and the split tier with two inner cycles (K21
-     launched; its card solves' launches counted): same count, within
-     1e-7 V;
+     launched exactly once an outer step; its card solves' launches
+     counted): same count, within 1e-7 V;
   4. solve 257^3 on each Dirichlet path with every launch count reset
      just before and read just after, then check the outer-step count,
      the final relative residual, the error against the analytic solution
@@ -990,9 +991,9 @@ def compare_msplit(pm, pmf, pms, ps, es, n, h, u, r, ec, es_state, dev, record, 
     compare_fold packed into pairs (the cycle's pairs are BC-consistent,
     their dead slots 0), with the electrospray's pin packs and the coarse
     level's fold correction and sign planes; K25 on the packed
-    double-float state es_state. The one-pass stages K22 and K24 bit for
-    bit at every size; only they when not ``timed`` (17^3, K24's delta
-    check); else all, timed at n_iter = 2."""
+    double-float state es_state. K21-K24 bit for bit at every size; K25
+    only when ``timed``, the others timed then at n_iter = 2 (17^3, not
+    timed: K24's delta check, K21-K23 on its plans)."""
     nc = (n + 1) // 2
     packs = pms.msplit_pin_packs(es, n, dev)
     e2 = ps.pack_split(pm.apply_bcs_padded(u, pm.dirichlet_pin_planes(es, n, dev)))
@@ -1028,27 +1029,26 @@ def compare_msplit(pm, pmf, pms, ps, es, n, h, u, r, ec, es_state, dev, record, 
         record_pair("mixed_rb_smooth_from_zero_msplit", f"n_iter={n_iter}_", got,
                     pms.mixed_rb_smooth_from_zero_msplit_plain(*r2, packs, h, n_iter), times,
                     io=((*r2, packs), got), bitwise=True)
-        if not timed:
-            continue
         for red_first in (True, False):
+            got = pms.mixed_rb_smooth_msplit(*e2, *r2, packs, h, n_iter, red_first)
             times = ()
             if t2 and red_first:
-                ek = tuple(x.clone() for x in e2)
-                times = (time_ms(lambda: pms.mixed_rb_smooth_msplit(*ek, *r2, packs, h, 2)),
+                times = (time_ms(lambda: pms.mixed_rb_smooth_msplit(*e2, *r2, packs, h, 2)),
                          time_ms(lambda: pms.mixed_rb_smooth_msplit_plain(*e2, *r2, packs, h, 2)))
             record_pair("mixed_rb_smooth_msplit",
                         f"n_iter={n_iter}_" + ("red_first_" if red_first else "black_first_"),
-                        pms.mixed_rb_smooth_msplit(*(x.clone() for x in e2), *r2, packs, h,
-                                                   n_iter, red_first),
+                        got,
                         pms.mixed_rb_smooth_msplit_plain(*e2, *r2, packs, h, n_iter, red_first),
-                        times, io=((*e2, *r2, packs), e2))
+                        times, io=((*e2, *r2, packs), got), bitwise=True)
+    rc = pms.residual_restrict_msplit(*e2, *r2, h)
+    times = ()
+    if timed:
+        times = (time_ms(lambda: pms.residual_restrict_msplit(*e2, *r2, h)),
+                 time_ms(lambda: pms.residual_restrict_msplit_plain(*e2, *r2, h)))
+    record("residual_restrict_msplit", n, "", rc, pms.residual_restrict_msplit_plain(*e2, *r2, h),
+           *times, io=((*e2, *r2), (rc,)), points=points, bitwise=True)
     if not timed:
         return
-    rc = pms.residual_restrict_msplit(*e2, *r2, h)
-    times = (time_ms(lambda: pms.residual_restrict_msplit(*e2, *r2, h)),
-             time_ms(lambda: pms.residual_restrict_msplit_plain(*e2, *r2, h)))
-    record("residual_restrict_msplit", n, "", rc, pms.residual_restrict_msplit_plain(*e2, *r2, h),
-           *times, io=((*e2, *r2), (rc,)), points=points)
     state = [x for t in es_state for x in ps.pack_split(t)]
     got, want = pms.residual_df_norm_msplit(*state, h), pms.residual_df_norm_msplit_plain(*state, h)
     rel = abs(float(got[2]) - float(want[2])) / float(want[2])
@@ -1243,19 +1243,16 @@ def fold_257(es, dev, card, launches, full):
 # each mixed-BC cycle's smoothing stages: where a level's correction is
 # revisited (K13, K16), entered from zero (K14, K17) and the prolongation
 # (K15, K19), in that order; one-pass stages of ceil(n_smooth / 2) launches
-# a call, but for a revisit stage still in its first form
-# (PER_SWEEP_STAGES: 2 n_smooth + 1 launches a call, a half-sweep each and
-# the BC pass)
+# a call
 FULL_STAGES = {"K13": "mixed_rb_smooth_fused", "K14": "mixed_rb_smooth_from_zero_fused",
                "K15": "mixed_prolong_smooth_fused"}
 FOLD_STAGES = {"K16": "mixed_rb_smooth_fold", "K17": "mixed_rb_smooth_from_zero_fold",
                "K19": "mixed_prolong_smooth_fold"}
-# the msplit tier's finest level: K21 where its correction is revisited
-# (first form), K22 from zero and K24 (one-pass stages; their first forms
-# took 2 n_smooth + 1 and 2 n_smooth + 2 launches a call)
+# the msplit tier's finest level: K21 where its correction is revisited,
+# K22 from zero and K24 (one-pass stages; their first forms took 2 n_smooth
+# + 1, 2 n_smooth + 1 and 2 n_smooth + 2 launches a call)
 MSPLIT_STAGES = {"K21": "mixed_rb_smooth_msplit", "K22": "mixed_rb_smooth_from_zero_msplit",
                  "K24": "mixed_prolong_smooth_msplit"}
-PER_SWEEP_STAGES = ("K21",)
 
 
 def new_calls(stages):
@@ -1284,23 +1281,19 @@ def cycle_calls(solver, level, from_zero, calls):
 def check_stage_launches(counts, calls, steps, n_smooth, what, stages, first_forms=None):
     """A mixed cycle's stage launches in a solve of ``steps`` outer steps,
     ``calls`` those of one step: the one-pass stages one launch per two
-    iterations a call, a revisit stage in its first form (PER_SWEEP_STAGES)
-    2 n_smooth + 1 (a launch a half-sweep and the BC pass), each exactly;
-    printed beside the first forms' launches a call (``first_forms`` by
-    stage, else 2 n_smooth + 1)."""
+    iterations a call, each exactly; printed beside the first forms'
+    launches a call (``first_forms`` by stage, else 2 n_smooth + 1)."""
     chunks = -(-n_smooth // 2)
     first = {k: 2 * n_smooth + 1 for k in stages} | (first_forms or {})
-    per_call = {k: first[k] if k in PER_SWEEP_STAGES else chunks for k in stages}
     for key, name in stages.items():
-        want = steps * calls[key] * per_call[key]
+        want = steps * calls[key] * chunks
         check(counts[name] == want, f"{what}: {name} launched {counts[name]} times, expected "
-              f"{want} ({steps} outer steps x {calls[key]} calls x {per_call[key]})")
-    fewer = sum(steps * calls[k] * (first[k] - per_call[k]) for k in stages)
+              f"{want} ({steps} outer steps x {calls[key]} calls x {chunks})")
+    fewer = sum(steps * calls[k] * (first[k] - chunks) for k in stages)
     print(f"[launches {what} stages] "
           + "; ".join(f"{k}: {steps * calls[k]} calls, {counts[name]} launches (first form "
                       f"{steps * calls[k] * first[k]})" for k, name in stages.items())
-          + f" | {fewer} launches fewer than the first forms of "
-          + ", ".join(k for k in stages if k not in PER_SWEEP_STAGES))
+          + f" | {fewer} launches fewer than the first forms of " + ", ".join(stages))
 
 
 def check_fold_restrict_launches(counts, calls, steps, what):
@@ -3159,8 +3152,13 @@ def main():
             check(du <= MIXED_DU_TOL, f"33^3 electrospray {label}: solutions differ by {du} V")
             if tier == " msplit":
                 print(f"[launches 33^3 electrospray {label}] {json.dumps(counts)}")
-                check((counts["mixed_rb_smooth_msplit"] > 0) == (inner_cycles > 1),
-                      f"33^3 {label}: K21 launched {counts['mixed_rb_smooth_msplit']} times")
+                # K21: one stage launch a call, a call each finest-level cycle
+                # after an outer step's first
+                want21 = small["cuda"][1] * (inner_cycles - 1)
+                check(counts["mixed_rb_smooth_msplit"] == want21,
+                      f"33^3 {label}: K21 launched {counts['mixed_rb_smooth_msplit']} times, "
+                      f"expected {want21}")
+                check(inner_cycles == 1 or want21 > 0, f"33^3 {label}: K21 never ran")
                 for name in SOURCES:
                     launches[name] += counts[name]
 

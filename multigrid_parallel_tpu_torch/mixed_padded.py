@@ -367,7 +367,7 @@ def make_mixed_split_df_solver(solver: MixedBCSolver, rel_tol: float = 1e-8,
 
     def cycle(e2, r2, lvl, from_zero=False):
         """One finest-level cycle on the correction pair; a given e2 is
-        updated in place by the pre-smoother."""
+        left as it is (the pre-smoother returns a fresh pair)."""
         rr, rb = r2
         if from_zero:
             er, eb = pms.mixed_rb_smooth_from_zero_msplit(rr, rb, packs, h, ns, red_first=True)

@@ -92,13 +92,12 @@ _SIGNATURES = {
     "mg_fold_prolong_stage": (_P,) * 6 + (_I, _F, _I) + (_I,) * 7 + (_P,),
     "mg_residual_df_norm_fold_partials": (_I,),
     "mg_residual_df_norm_fold": (_P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
-    "mg_msplit_half_sweep": (_P, _P, _P, _P, _I, _F, _I, _P),
-    "mg_msplit_bc_pass": (_P, _P, _P, _I, _P),
     # the msplit stages (split.cuh, MIXED): the split stages' arguments with the
     # pin packs (and K24's coarse sign planes) among the pointers
     "mg_msplit_stage": (_P,) * 7 + (_I, _F, _I, _I) + (_I,) * 6 + (_P,),
     "mg_msplit_prolong_stage": (_P,) * 9 + (_I, _F, _I) + (_I,) * 6 + (_P,),
     "mg_msplit_residual_restrict": (_P, _P, _P, _P, _P, _I, _F, _P),
+    "mg_msplit_restrict_stage": (_P,) * 5 + (_I, _F) + (_I,) * 6 + (_P,),
     "mg_msplit_residual_df_norm_partials": (_I,),
     "mg_msplit_residual_df_norm": (_P,) * 12 + (_I, _F, _P),
     # segmented (i-sharded) blocks: each segment is (lh, body, rh[, r_off])

@@ -15,8 +15,7 @@
 //
 // Invariant, as for split.cuh: the dead slot of every row (the colour
 // that holds the row's even k's, slot S - 1, k = n - 1) is exactly 0. No
-// kernel writes a live value there, and the BC pass copies dead slots
-// from dead slots.
+// kernel writes a live value there.
 //
 // The x-face Dirichlet pin masks come as two parity packs, (2, 2, n, S)
 // f32: packs[p][face][j][kk] = pin(face, j, k = 2 kk + 1 + p), 0 past
@@ -48,22 +47,6 @@ struct PairAt {
     int c;
     const int idx = slot_of(i, j, k, n, c);
     return c ? red[idx] : black[idx];
-  }
-};
-
-// The pin of parity pack p, x face `face`, row j, slot kk.
-__device__ inline bool pack_pinned(const float* packs, int n, int p, int face, int j,
-                                   int kk) {
-  return packs[((p * 2 + face) * n + j) * slots(n) + kk] > 0.5f;
-}
-
-// The pin packs read as mixed_nbr_sum's pin(face, j, k): grid plane k
-// lies in pack p = (k - 1) mod 2 at slot (k - 1) / 2.
-struct PackPinAt {
-  const float* packs;
-  int n;
-  __device__ bool operator()(int face, int j, int k) const {
-    return pack_pinned(packs, n, (k - 1) & 1, face, j, (k - 1) >> 1);
   }
 };
 

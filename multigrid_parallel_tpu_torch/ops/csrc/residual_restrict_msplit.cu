@@ -20,19 +20,35 @@
 // has S = (n - 1) / 2 slots and the coarse fold nc - 2 = S - 1 (the TPU's
 // 128-lane round-up makes the two widths equal there).
 //
-// One thread per stored coarse point; its 27 fine residuals lie on the
-// fine interior (216 loads, mostly from L1/L2, as K18). Bound: device-
-// memory bytes, 8 B per fine grid point (the e and r pairs read once)
-// plus 4 B per coarse point written.
+// Two forms, one launch a call each, both bit for bit the plain version:
+// - the streaming stage (restrict.cuh's MSplit layout: K9's tile and
+//   schedule with the mixed k edge and K18's coarse fold out; the plan
+//   pallas_split._restrict_plan(n, sms, split=True), K9's, since the tile
+//   is K9's): both colours of e and r through rings in shared memory,
+//   each fine residual computed once, the k taps within a warp, the i
+//   taps' partial sums in registers, only the coarse RHS written; the
+//   levels from pallas_split.MSPLIT_RESTRICT_STAGE_MIN_N (257) up, where
+//   it is the faster (device ms a launch, one NVIDIA H100 80GB HBM3 at
+//   700 W: 0.0644 against 0.1035 at 257^3; the table beside that constant);
+// - the first form below that: one thread per stored coarse point; its 27
+//   fine residuals lie on the fine interior (216 loads, mostly from
+//   L1/L2, as K18's first form), each fine residual computed 27 / 8 times.
+//   On a small level a launch is latency: the stage's prologue and
+//   2 bci + 1 barrier steps cost more than the loads they save.
+// Bound: device-memory bytes, 8 B per fine grid point (the e and r pairs
+// read once) plus 4 B per coarse point written: 0.0429 ms at 257^3 at
+// 3.35 TB/s.
+// nvcc -Xptxas -v (sm_90a): msplit_restrict_kernel<1> 52 registers, <2>
+// 94, no spills, no stack frame, shared memory all dynamic (the plan's);
+// the first form 72 registers.
 #include "msplit.cuh"
+#include "restrict.cuh"
 
 namespace {
 
 using mg::msplit::PairAt;
-
-__device__ inline float tap3(float a, float b, float c) {
-  return (0.25f * a + 0.5f * b) + 0.25f * c;
-}
+using mg::restriction::Args;
+using mg::restriction::tap3;
 
 __device__ inline float residual(const PairAt& e, const PairAt& r, int i, int j, int k,
                                  int n, float inv_h2) {
@@ -80,12 +96,43 @@ __global__ void residual_restrict_msplit_kernel(float* __restrict__ out,
   out[q] = tap3(y[0], y[1], y[2]);  // j taps
 }
 
+// Two chunks (only 513^3 and past) hold too much for two blocks an SM's
+// registers: one block an SM, as K9's.
+template <int C>
+__global__ void __launch_bounds__(mg::restriction::kMaxThreads, C == 1 ? 2 : 1)
+    msplit_restrict_kernel(Args a) {
+  extern __shared__ __align__(16) float tile[];
+  mg::restriction::restrict_body<mg::restriction::MSplit, C>(a, tile);
+}
+
 }  // namespace
 
+// The first form: out <- the coarse fold RHS of the pairs (er, eb), (rr,
+// rb), one thread a stored coarse point.
 extern "C" int mg_msplit_residual_restrict(float* out, const float* er, const float* eb,
                                            const float* rr, const float* rb, int n,
                                            float inv_h2, cudaStream_t stream) {
   residual_restrict_msplit_kernel<<<mg::fold_blocks((n + 1) / 2), mg::kThreads, 0,
                                     stream>>>(out, er, eb, rr, rb, n, inv_h2);
   return (int)cudaGetLastError();
+}
+
+// The streaming stage: out <- the coarse fold RHS of the pairs (er, eb),
+// (rr, rb) on the plan (bci, bcj, bck, chunks, threads, smem) of
+// pallas_split._restrict_plan (split); cudaErrorInvalidValue for another
+// plan, or an out that meets an input.
+extern "C" int mg_msplit_restrict_stage(float* out, const float* er, const float* eb,
+                                        const float* rr, const float* rb, int n, float inv_h2,
+                                        int bci, int bcj, int bck, int chunks, int threads,
+                                        int smem, cudaStream_t stream) {
+  using namespace mg::restriction;
+  const int S = mg::split::slots(n), nc = (n + 1) / 2;
+  const long long fine = (long long)n * n * S, coarse = (long long)nc * nc * (nc - 2);
+  for (const float* in : {er, eb, rr, rb})
+    if (mg::meet(out, coarse, in, fine)) return (int)cudaErrorInvalidValue;
+  const int vec = S % 4 == 0 && (bck >= interior(n) || bck % 4 == 0);
+  const Args a{out, {er, eb}, {rr, rb}, n, inv_h2, bci, bcj, bck, vec};
+  if (const int err = plan_error(a, true, chunks, threads, smem)) return err;
+  return chunks == 1 ? launch(msplit_restrict_kernel<1>, a, threads, smem, stream)
+                     : launch(msplit_restrict_kernel<kMaxChunks>, a, threads, smem, stream);
 }

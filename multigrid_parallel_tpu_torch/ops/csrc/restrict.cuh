@@ -1,11 +1,12 @@
 // The streaming restriction stage of K3 (residual_restrict.cu, a plain
 // (n, n, n) correction), K9 (residual_restrict_split.cu, a split pair),
 // K18 (residual_restrict_fold.cu, the electrospray's (n, n, n - 2) fold
-// layout), and K30 and K39 (residual_restrict_seg.cu, one rank's
+// layout), K23 (residual_restrict_msplit.cu, the electrospray's split
+// pair), and K30 and K39 (residual_restrict_seg.cu, one rank's
 // segmented block of an i-sharded or an (i, j)-sharded field): the
 // interior residual of e against r, restricted by full weighting to the
-// coarse (nc, nc, nc) RHS (K18: the (nc, nc, nc - 2) fold; K30, K39: the
-// rank's coarse block), nc = (n + 1) / 2, in one launch, each fine
+// coarse (nc, nc, nc) RHS (K18, K23: the (nc, nc, nc - 2) fold; K30, K39:
+// the rank's coarse block), nc = (n + 1) / 2, in one launch, each fine
 // residual computed once, from tiles of e and r in shared memory, and
 // only the coarse RHS written to device memory.
 //
@@ -61,6 +62,15 @@
 //   residuals at its slots and takes the next group's first O from the
 //   next lane by a warp shuffle. Then the i taps as K3's, then the j taps
 //   from A.
+// - K23 (residual_restrict_msplit_plain of ops/pallas_mixed_split.py):
+//   K9's tile, schedule and taps on the electrospray's pair (MSplit), two
+//   changes. (1) The residual sums its neighbours in mixed.cuh's order,
+//   k - 1 before k + 1 (K9's O adds E[kk] before E[kk - 1]), and the k
+//   faces are not fields but BC copies: the k - 1 neighbour of O's slot 0
+//   (k = 1) and the k + 1 one of its slot S - 1 (k = n - 2) are selects
+//   of the point's own value, never the guard's or the dead slot's 0 that
+//   K9 reads there. (2) The output is K18's coarse fold: coarse k at slot
+//   ck - 1 of rows of nc - 2, only its x and y faces zeroed.
 // The 0.25 and 0.5 scalings are single IEEE roundings like the rest
 // (built with --fmad=false), so the result equals the plain version's
 // bit for bit.
@@ -113,12 +123,12 @@ __device__ inline float tap3(float a, float b, float c) {
 
 struct Args {
   float* out;
-  const float* e[2];  // K3, K18: e[0]; K9: (red, black)
+  const float* e[2];  // K3, K18: e[0]; K9, K23: (red, black)
   const float* r[2];
   int n;
   float inv_h2;
   int bci, bcj, bck;  // the plan (pallas_split._restrict_plan)
-  int vec;            // K9: 16-byte copies (every loaded row starts and ends on 4 slots)
+  int vec;            // K9, K23: 16-byte copies (every loaded row starts and ends on 4 slots)
 };
 
 // Interior coarse points along an axis.
@@ -320,6 +330,7 @@ template <bool FOLD>
 struct RectLayout {
   static constexpr bool kSplit = false;
   static constexpr bool kFold = FOLD;
+  static constexpr bool kFoldOut = FOLD;  // the coarse fold out (zero_boundary, coarse_row)
   static constexpr bool kSeg = false;
   float* ering;  // kERing planes of 2 bcj + 3 rows x we
   float* rring;  // kRRing planes of 2 bcj + 1 rows x wr
@@ -427,17 +438,21 @@ using Rect = RectLayout<false>;
 using Fold = RectLayout<true>;
 
 // K9's layout: a split pair, tile rows of slots, both colours; slot
-// k0 + s of e at column kPad + s, of r and A at column s.
-struct Split {
+// k0 + s of e at column kPad + s, of r and A at column s. MIXED: K23's,
+// the same tile, the residual's k terms in mixed.cuh's order with the k
+// faces' BC copies selected, the coarse fold out.
+template <bool MIXED>
+struct SplitLayout {
   static constexpr bool kSplit = true;
   static constexpr bool kFold = false;
+  static constexpr bool kFoldOut = MIXED;
   static constexpr bool kSeg = false;
   float* ering;  // kERing planes x 2 colours of 2 bcj + 3 rows x we
   float* rring;  // kRRing planes x 2 colours of 2 bcj + 1 rows x wr
   float* A;      // 2 bcj + 1 rows x wa
   int pe, pr;
 
-  __device__ Split(const Args& a, const Geom& g, float* smem) {
+  __device__ SplitLayout(const Args& a, const Geom& g, float* smem) {
     pe = (2 * a.bcj + 3) * g.w.we;
     pr = (2 * a.bcj + 1) * g.w.wr;
     ering = smem;
@@ -512,11 +527,14 @@ struct Split {
   // k, each group handed to sink(m, values): both colours' residuals at
   // slots kk = k0 + s (split.cuh's nbr_sum order: the other colour at
   // i - 1 (prev), i + 1, j - 1, j + 1, kk, then kk - 1 where the colour's
-  // k is odd, kk + 1 where even, 0 past the row), then
+  // k is odd, kk + 1 where even, 0 past the row; MIXED: O's k terms k - 1
+  // (kk - 1) before k + 1 (kk), each the point's own value past its end
+  // of the row), then
   // 0.5 E[kk] + 0.25 (O[kk] + O[kk + 1]), E / O the colour holding the
   // row's even / odd k, the group's last O[kk + 1] from the next lane (or
   // the next chunk's first); prev becomes plane p's e. Slots past the
-  // row's last point compute values that nothing reads.
+  // row's last point compute values that nothing reads (E's dead slot
+  // S - 1 among them).
   template <int C, class Sink>
   __device__ void row_values(float4 (&prev)[2][C], const Args& a, const Geom& g, int p, int row,
                              int lane, Sink sink) const {
@@ -549,13 +567,19 @@ struct Split {
         t = t + comp(vo, i);
         t = t + (kk + 1 < g.S ? (i == 3 ? o_right : comp(vo, i + 1)) : 0.0f);
         se[i] = comp(vre, i) - a.inv_h2 * (t - 6.0f * comp(ve, i));
-        // O (k parity 0): the other colour E, its kk - 1 last
+        // O (k parity 0): the other colour E; K9 its kk - 1 last, MIXED
+        // first, the k = 1 and k = n - 2 neighbours the centre
         float u = comp(lo, i);
         u = u + comp(vhe, i);
         u = u + comp(eom, i);
         u = u + comp(eop, i);
-        u = u + comp(ve, i);
-        u = u + (kk > 0 ? (i == 0 ? e_left : comp(ve, i - 1)) : 0.0f);
+        if constexpr (MIXED) {
+          u = u + (kk > 0 ? (i == 0 ? e_left : comp(ve, i - 1)) : comp(vo, i));
+          u = u + (kk + 1 < g.S ? comp(ve, i) : comp(vo, i));
+        } else {
+          u = u + comp(ve, i);
+          u = u + (kk > 0 ? (i == 0 ? e_left : comp(ve, i - 1)) : 0.0f);
+        }
         so[i] = comp(vro, i) - a.inv_h2 * (u - 6.0f * comp(vo, i));
       }
       prev[0][m] = ve;
@@ -585,15 +609,18 @@ struct Split {
     }
   }
 
-  // Coarse plane ci from A: the j taps.
+  // Coarse plane ci from A: the j taps (MIXED: into the coarse fold).
   __device__ void coarse_rows(float* __restrict__ out, const Geom& g, int ci, int warp, int lane,
                               int nwarps) const {
-    store_coarse<false>(out, A, g, ci, g.w.wa, warp, lane, nwarps,
+    store_coarse<MIXED>(out, A, g, ci, g.w.wa, warp, lane, nwarps,
                         [](const float* a0, int W, int t) {
       return tap3(a0[t], a0[W + t], a0[2 * W + t]);
     });
   }
 };
+
+using Split = SplitLayout<false>;
+using MSplit = SplitLayout<true>;
 
 // ------------------------------------------------ K30's and K39's segments
 
@@ -804,7 +831,7 @@ __device__ void restrict_body(const Arg& a, float* smem) {
   if constexpr (L::kSeg) {
     lay.zero(a, g, warp, lane, nwarps);  // while the copies fly
   } else {
-    zero_boundary<L::kFold>(a.out, g, warp, lane, nwarps);  // while the copies fly
+    zero_boundary<L::kFoldOut>(a.out, g, warp, lane, nwarps);  // while the copies fly
   }
   cp_async_wait_all();
   __syncthreads();

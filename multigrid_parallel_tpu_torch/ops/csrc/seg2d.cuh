@@ -190,12 +190,6 @@ __device__ inline float interp_coarse(const SegCoarseAt<Seg2>& c, int fi, int fj
   return oi ? 0.5f * y2[0] + 0.5f * y2[1] : y2[0];
 }
 
-// Whether the floats [p, p + count) and [q, q + qcount) meet (the
-// launchers' check that an output meets no input).
-inline bool meet(const float* p, long long count, const float* q, long long qcount) {
-  return q != nullptr && qcount > 0 && p < q + qcount && q < p + count;
-}
-
 // Whether the body out of ``count`` floats meets a part of the segment s
 // of rows [-kl, L + kr) (rh from row r_off on).
 inline bool meets(const float* out, long long count, const Seg& s, int kr) {

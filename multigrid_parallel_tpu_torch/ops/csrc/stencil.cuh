@@ -17,6 +17,12 @@ namespace mg {
 // threads per block of every point-parallel kernel
 constexpr int kThreads = 256;
 
+// Whether the floats [p, p + count) and [q, q + qcount) meet (the
+// launchers' check that an output meets no input).
+inline bool meet(const float* p, long long count, const float* q, long long qcount) {
+  return q != nullptr && qcount > 0 && p < q + qcount && q < p + count;
+}
+
 inline int point_blocks(int n) {
   long long total = (long long)n * n * n;
   return (int)((total + kThreads - 1) / kThreads);

@@ -43,27 +43,31 @@ Not carried over (TPU planning, the same half-sweep sequence):
 planners and the ``block_i`` and ``with_delta`` arguments (K24 reads the
 sign planes at the x faces' k edges only).
 
-K22 and K24 are one-pass stages: one launch of split.cuh's
+K21, K22 and K24 are one-pass stages: one launch of split.cuh's
 ``stage_body`` in its mixed-BC mode a call for n_iter <= 2, on
 ``pallas_split._stage_plan``'s plan with ``msplit`` (K7's and, for K24,
 K10's; the fewest-steps plan on a level up to 65^3), all 2 n_iter
 half-sweeps on tiles of both colours in shared memory, the faces'
 neighbours selects of the slot's own value, the cross-colour BC pass done
-at store time, K24's e + P ec made as each plane arrives: a fresh pair,
-bit for bit the plain version's. A larger n_iter goes on with the same
-stage on the pair so far (``mg_msplit_stage`` with u loaded),
-ceil(n_iter / 2) launches in all. Bound: device-memory bytes
-(``chip_smoke.bound``; their sources' headers give them and ptxas's
-registers and spills). K21 keeps its first form: 2 n_iter in-place
-half-sweep launches and a BC-pass launch.
+at store time, K21's tiles loaded from its pair (only the live interior
+slots of which reach the output), K22's zeros, K24's e + P ec made as each
+plane arrives: a fresh pair, bit for bit the plain version's. A larger
+n_iter goes on with the same stage on the pair so far (``mg_msplit_stage``
+with u loaded), ceil(n_iter / 2) launches in all. K23 is restrict.cuh's
+streaming restriction stage on the pair (K9's tile and plan, the mixed k
+edge, the coarse fold out), one launch a call, bit for bit the plain
+version's, on levels from ``pallas_split.MSPLIT_RESTRICT_STAGE_MIN_N`` up
+and its first form, one thread a coarse point, below. Bound: device-memory
+bytes (``chip_smoke.bound``; their sources' headers give them and ptxas's
+registers and spills).
 
 A wrapper takes the plain version for tensors on the CPU, launches its
 kernel for CUDA tensors (float32, contiguous, pairs of ``split_shape(n)``
 with n odd >= 5; packs (2, 2, n, (n - 1) // 2); K24's coarse fold field
 and sign planes of the next coarser level), and raises for anything else:
 no fallback from the kernel to the plain version. Each kernel launch adds
-one to its entry in ``LAUNCHES`` (every half-sweep and BC pass of K21's
-stage counts as a launch; K25's is the pair, partials then their sum).
+one to its entry in ``LAUNCHES`` (K25's is the pair, partials then
+their sum).
 """
 
 from __future__ import annotations
@@ -75,8 +79,7 @@ from multigrid_parallel_tpu_torch.ops import pallas_mixed as pm
 from multigrid_parallel_tpu_torch.ops import pallas_mixed_fold as pmf
 from multigrid_parallel_tpu_torch.ops import pallas_split as ps
 from multigrid_parallel_tpu_torch.ops import stencils_3d as ops3
-from multigrid_parallel_tpu_torch.ops.pallas3d import _check, _colors, _lib, _stream
-from multigrid_parallel_tpu_torch.ops.stencils_3d import BLACK, RED
+from multigrid_parallel_tpu_torch.ops.pallas3d import _check, _lib, _stream
 
 KERNELS = (
     "mixed_rb_smooth_msplit",
@@ -242,30 +245,25 @@ def mixed_rb_smooth_msplit(er, eb, fr, fb, packs, h: float, n_iter: int,
                            red_first: bool = True):
     """n_iter mixed-BC RB-GS iterations on the correction pair (red first
     = pre-smoothing, black first = post-smoothing), ending with the
-    cross-colour BC pass.
-
-    Updates ``er`` and ``eb`` IN PLACE and returns them (on both devices):
-    the CUDA form is 2 * n_iter half-sweep launches, each writing the
-    active colour only, and one BC-pass launch. Only the interior rows of
-    the pair are read."""
+    cross-colour BC pass, as a fresh pair: er and eb are left as they are
+    (on both devices), and only their live interior slots are read. The
+    CUDA form is one one-pass launch of the mixed stage on the pair for
+    n_iter <= 2; ceil(n_iter / 2) in all, each later one on the pair so
+    far."""
+    if n_iter < 1:
+        raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     if not _on_cuda(er, eb, fr, fb, packs=packs):
-        r, b = mixed_rb_smooth_msplit_plain(er, eb, fr, fb, packs, h, n_iter, red_first)
-        return er.copy_(r), eb.copy_(b)
-    name, lib, stream, n = "mixed_rb_smooth_msplit", _lib(), _stream(), er.shape[0]
-    rhs = {RED: fr, BLACK: fb}
-    for c in list(_colors(red_first)) * n_iter:
-        _check(lib.mg_msplit_half_sweep(er.data_ptr(), eb.data_ptr(), rhs[c].data_ptr(),
-                                        packs.data_ptr(), n, h * h, c, stream), name)
-        LAUNCHES[name] += 1
-    _check(lib.mg_msplit_bc_pass(er.data_ptr(), eb.data_ptr(), packs.data_ptr(), n, stream),
-           name)
-    LAUNCHES[name] += 1
+        return mixed_rb_smooth_msplit_plain(er, eb, fr, fb, packs, h, n_iter, red_first)
+    lib, stream, h2, name = _lib(), _stream(), h * h, "mixed_rb_smooth_msplit"
+    for chunk in ps._stage_chunks(n_iter):
+        er, eb = _stage_launch(lib, er, eb, fr, fb, packs, h2, chunk, red_first, stream, name)
     return er, eb
 
 
 def _stage_launch(lib, er, eb, fr, fb, packs, h2, n_iter, red_first, stream, name):
-    """One launch of the mixed stage on a pair (K22's from a zero pair,
-    where er and eb are None) into a fresh pair, counted as ``name``'s."""
+    """One launch of the mixed stage on a pair (K21's; K22's from a zero
+    pair, where er and eb are None) into a fresh pair, counted as
+    ``name``'s."""
     n = fr.shape[0]
     out_r, out_b = torch.empty_like(fr), torch.empty_like(fb)
     _check(lib.mg_msplit_stage(out_r.data_ptr(), out_b.data_ptr(),
@@ -320,14 +318,23 @@ def residual_restrict_msplit(er, eb, rr, rb, h: float):
     """Correction pair (er, eb) and its RHS pair -> the (nc, nc, nc - 2)
     coarse fold RHS, nc = (n + 1) / 2: full weighting of the interior
     residual, zero coarse x and y faces, without storing the fine
-    residual."""
+    residual; the inputs are left as they are. The CUDA form is one
+    launch: the streaming restriction stage on K9's plan
+    (``_restrict_plan(n, sms, split=True)``) where n >=
+    ``pallas_split.MSPLIT_RESTRICT_STAGE_MIN_N``, else the first form."""
     if not _on_cuda(er, eb, rr, rb):
         return residual_restrict_msplit_plain(er, eb, rr, rb, h)
     n = er.shape[0]
     out = er.new_empty(pmf.fold_shape((n + 1) // 2))
-    _check(_lib().mg_msplit_residual_restrict(out.data_ptr(), er.data_ptr(), eb.data_ptr(),
-                                              rr.data_ptr(), rb.data_ptr(), n, 1.0 / (h * h),
-                                              _stream()), "residual_restrict_msplit")
+    lib, inv_h2 = _lib(), 1.0 / (h * h)
+    ptrs = (out.data_ptr(), er.data_ptr(), eb.data_ptr(), rr.data_ptr(), rb.data_ptr())
+    if n >= ps.MSPLIT_RESTRICT_STAGE_MIN_N:
+        err = lib.mg_msplit_restrict_stage(*ptrs, n, inv_h2,
+                                           *ps._restrict_args(n, er.device, split=True),
+                                           _stream())
+    else:
+        err = lib.mg_msplit_residual_restrict(*ptrs, n, inv_h2, _stream())
+    _check(err, "residual_restrict_msplit")
     LAUNCHES["residual_restrict_msplit"] += 1
     return out
 

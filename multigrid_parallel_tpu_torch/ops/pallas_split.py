@@ -601,7 +601,7 @@ def rb_smooth_split_from_zero(fr, fb, h: float, n_iter: int, red_first: bool = T
     return er, eb
 
 
-# ---------- the streaming restriction stage (K3, K9, K18, K30 and K39)
+# ---------- the streaming restriction stage (K3, K9, K18, K23, K30 and K39)
 
 RESTRICT_MAX_ROWS = 8     # coarse rows a block owns at most (restrict.cuh, kMaxRows)
 RESTRICT_MAX_CHUNKS = 2   # chunks of 32 groups of 4 points a fine row at most (kMaxChunks)
@@ -622,12 +622,22 @@ RESTRICT_SM_BYTES_PER_US = 20e3
 # 65^3 0.0039 / 0.0062, 129^3 0.0149 / 0.0168, 257^3 0.1020 / 0.0786,
 # 513^3 0.7770 / 0.5689.
 FOLD_RESTRICT_STAGE_MIN_N = 257
+# K23 (pallas_mixed_split.residual_restrict_msplit) takes the stage, on K9's
+# plan, on split levels of at least this size and its first form, one thread
+# a coarse point, below, for the same reason. Device ms a launch
+# (utils/stage_plans.py --restrict --kernels K23, median of 20; one NVIDIA
+# H100 80GB HBM3 at 700 W), first form against the stage on its plan: 9^3
+# 0.0028 / 0.0068, 17^3 0.0031 / 0.0068, 33^3 0.0034 / 0.0073, 65^3 0.0036 /
+# 0.0097, 129^3 0.0120 / 0.0207, 257^3 0.1035 / 0.0644, 513^3 0.8146 /
+# 0.4348.
+MSPLIT_RESTRICT_STAGE_MIN_N = 257
 
 
 class RestrictPlan(NamedTuple):
     """How one launch of the streaming restriction stage (restrict.cuh:
-    K3's on a plain n^3 level, K9's where ``split``, K18's on the fold
-    layout where ``fold``) cuts the level's
+    K3's on a plain n^3 level, K9's where ``split`` (and K23's, on the
+    electrospray's pair: K9's tile), K18's on the fold layout where
+    ``fold``) cuts the level's
     interior coarse points: blocks own boxes of ``bci`` coarse planes x
     ``bcj`` coarse rows x ``bck`` coarse k, tiles numbered k fastest, then
     j, then i, from coarse point 1 (a block at the field's edge also
@@ -745,7 +755,7 @@ def _restrict_cost(plan: RestrictPlan, sms: int) -> float:
 def _restrict_plan(n: int, sms: int, split: bool = False, fold: bool = False,
                    seg_rows: int = None, seg_cols: int = None) -> RestrictPlan:
     """The plan of one launch of the streaming restriction stage on an n^3
-    level (K3; K9 on a split one; K18 on a fold one, whose tile rows and
+    level (K3; K9 and K23 on a split one; K18 on a fold one, whose tile rows and
     interior coarse counts are K3's, so it takes K3's plan) for a card of
     ``sms`` SMs, within
     ``SMEM_MAX`` bytes of shared memory a block: k in whole rows where a

@@ -9,7 +9,8 @@ and ``--sharded2d``, the i-sharded and the (i, j)-sharded Dirichlet solves
 at 257^3 on one NCCL rank, with the fused solve as the control.
 
     python -m multigrid_parallel_tpu_torch.utils.split_trace [ROOT ...] [--rounds R]
-                                             [--electrospray | --sharded-electrospray
+                                             [--electrospray [--inner-cycles N]
+                                              | --sharded-electrospray
                                               | --sharded | --sharded2d]
 
 Each ROOT is a directory that holds a ``multigrid_parallel_tpu_torch``
@@ -30,7 +31,7 @@ smoothing stage call's device time by level (``stage_calls``: K1, K2, K4,
 K7, K8, K10, K13-K17, K19, K21, K22, K24, K28, K29, K31, K34-K38 and K40,
 the one-pass form's kernel, or a first form's head kernel and the
 half-sweeps that follow it, and the BC pass that ends a mixed-BC call),
-and each restriction call's (``restrict_calls``: K3, K9, K18, K30 and
+and each restriction call's (``restrict_calls``: K3, K9, K18, K23, K30 and
 K39, a kernel a call, the first forms' one thread a coarse point or the
 streaming stage's plan; K30's and K39's stage on a rank's segments,
 ``seg_restrict_kernel``, by its plan of the rank's interior rows), and each
@@ -49,7 +50,10 @@ in the production configuration (n_smooth 2, gamma 2 capped at 65^3, one
 inner cycle an outer step, rel_tol 1e-8) on the full tier (``full``,
 K13-K15 with K3 and K5, its phase 6), the fold tier (``fold``, K16-K20)
 and the split-colour tier (``split``, K22-K25 on the finest level over
-the fold cycle below it). With ``--sharded-electrospray``: phase 11b of
+the fold cycle below it); with ``--inner-cycles 2`` two finest-level
+cycles an outer step, the second from the correction so far (the split
+tier's K21, the fold tier's K16 and the full tier's K13 at the finest
+level). With ``--sharded-electrospray``: phase 11b of
 ``chip_smoke.py``, the same solve through
 ``parallel.sharded_mixed_padded.make_sharded_mixed_padded_df_solver`` on
 one rank of an NCCL group (world size 1, started in the child process;
@@ -263,7 +267,9 @@ def stage_label(name):
     ``stage_calls`` joins to it); mixed_stage_kernel likewise K14 and K13
     (or a later launch of a K13, K14 or K15 call; a checkout before K13's
     stage runs it only as such); msplit_stage_kernel<NITER, VEC,
-    ZERO> K22, or a later launch of a K22 or K24 call; the first form's
+    ZERO> likewise K22 and K21 (or a later launch of a K21, K22 or K24
+    call; a checkout before K21's stage runs it only as such); the first
+    form's
     mixed_fold_half_sweep_kernel<FromZero> heads K17 where true, K16 where
     false or without arguments. The i-sharded electrospray's:
     mixed_seg_stage_kernel<NITER, ZERO, BOX> is K35 where ZERO is true, K34
@@ -291,7 +297,7 @@ def stage_label(name):
     if base == "split_stage_kernel":
         return "K8" if args[2:] == ["true"] else "K7"
     if base == "msplit_stage_kernel":
-        return "K22" if args[2:] == ["true"] else "K22|K24"
+        return "K22" if args[2:] == ["true"] else "K21" if len(args) > 2 else "K21|K22"
     if base == "fold_stage_kernel":
         return ("K17" if args[1] == "true" else "K16") if len(args) > 1 else "K16|K17"
     if base == "mixed_stage_kernel":
@@ -305,11 +311,13 @@ def stage_label(name):
     return STAGE_KERNELS.get(base)
 
 
-# the one-pass fold and full-layout mixed stages (K16, K17, K19; K13, K14,
-# K15): a call of n_smooth > 2 goes on with launches of the loaded stage,
-# fold_stage_kernel (mixed_stage_kernel) with ZERO false, labelled K16 (K13)
+# the one-pass mixed stages (K16, K17, K19; K13, K14, K15; K21, K22, K24): a
+# call of n_smooth > 2 goes on with launches of the loaded stage,
+# fold_stage_kernel (mixed_stage_kernel, msplit_stage_kernel) with ZERO
+# false, labelled K16 (K13, K21)
 ONE_PASS_CHAINS = {"K16": ("fold_stage_kernel", "fold_prolong_stage_kernel"),
-                   "K13": ("mixed_stage_kernel", "mixed_prolong_stage_kernel")}
+                   "K13": ("mixed_stage_kernel", "mixed_prolong_stage_kernel"),
+                   "K21": ("msplit_stage_kernel", "msplit_prolong_stage_kernel")}
 
 
 def stage_calls(intervals, sizes, n_smooth=2):
@@ -318,9 +326,9 @@ def stage_calls(intervals, sizes, n_smooth=2):
     in all, and a mixed-BC form's BC pass after them (K2's from-zero head
     followed by the mixed half-sweeps is K14's first form); in the one-pass
     form its one kernel (K24's first form: its red correction, the black
-    correction's half-sweep, three half-sweeps and the BC pass), a fold or
-    full-layout mixed stage's ceil(n_smooth / 2) launches, the loaded
-    stage's after the first; K29's from-zero head followed by K34's half-sweeps is K35's
+    correction's half-sweep, three half-sweeps and the BC pass), a mixed
+    stage's (fold, full layout, split pair) ceil(n_smooth / 2) launches, the
+    loaded stage's after the first; K29's from-zero head followed by K34's half-sweeps is K35's
     first form. ``sizes`` maps (kernel name without its arguments, shape) to
     the level's n (a shape without its shared memory where the trace has
     none). Returns
@@ -363,11 +371,12 @@ def stage_calls(intervals, sizes, n_smooth=2):
 RESTRICT_KERNELS = {"residual_restrict_kernel": "K3", "split_residual_restrict_kernel": "K9",
                     "residual_restrict_fold_kernel": "K18", "rect_restrict_kernel": "K3",
                     "split_restrict_kernel": "K9", "fold_restrict_kernel": "K18",
+                    "residual_restrict_msplit_kernel": "K23", "msplit_restrict_kernel": "K23",
                     "seg_residual_restrict_kernel": "K30", "seg_restrict_kernel": "K30"}
 
 
 def restrict_calls(intervals, sizes):
-    """Each K3, K9, K18, K30 and K39 call's device time by level (K39: K30's
+    """Each K3, K9, K18, K23, K30 and K39 call's device time by level (K39: K30's
     kernels on Seg2: the first form's seg_residual_restrict_kernel<mg::Seg2>
     and the stage's seg_restrict_kernel<mg::Seg2, C>), ``sizes`` as
     stage_calls' (``_stage_sizes``): {"K3 n=257": [calls, summed ms, median
@@ -459,9 +468,11 @@ def _stage_sizes(hier, sms):
         nc = (n + 1) // 2
         for name in ("residual_restrict_kernel", "split_residual_restrict_kernel"):
             add(name, -(-nc ** 3 // 256), 0)
-        add("residual_restrict_fold_kernel", -(-nc * nc * (nc - 2) // 256), 0)
+        for name in ("residual_restrict_fold_kernel", "residual_restrict_msplit_kernel"):
+            add(name, -(-nc * nc * (nc - 2) // 256), 0)
         for name, split, fold in (("rect_restrict_kernel", False, False),
                                   ("split_restrict_kernel", True, False),
+                                  ("msplit_restrict_kernel", True, False),
                                   ("fold_restrict_kernel", False, True)):
             try:
                 plan = (ps._restrict_plan(n, sms, split, fold) if fold
@@ -648,11 +659,11 @@ def _sharded_electrospray(dev):
              "full": lambda out: mp.unpack_mixed_solution(out[0], out[1], hier)}, plan)
 
 
-def _solves(electrospray: bool, dev):
+def _solves(electrospray: bool, dev, inner_cycles: int = 1):
     """(hierarchy, {label: solve}, {label: unpack}) of the paths traced:
     the split and the fused Dirichlet solves, or the electrospray's full,
-    fold and split tiers; unpack takes a solve's output to its f64
-    solution."""
+    fold and split tiers (``inner_cycles`` finest-level cycles an outer
+    step); unpack takes a solve's output to its f64 solution."""
     import multigrid_parallel_tpu_torch as mg
     from multigrid_parallel_tpu_torch.ops import pallas3d as pk
 
@@ -663,7 +674,7 @@ def _solves(electrospray: bool, dev):
         es = mg.electrospray_problem()
         hier = mg.Hierarchy(ndim=3, coarse_n=5, num_levels=7, length=es.length)
         solver = MixedBCSolver(es, hier, n_smooth=2, gamma=2, gamma_min_n=65, device=dev)
-        kw = dict(rel_tol=1e-8, max_cycles=100, inner_cycles=1)
+        kw = dict(rel_tol=1e-8, max_cycles=100, inner_cycles=inner_cycles)
         full = mp.make_mixed_padded_df_solver(solver, **kw)
         full_state = mp.setup_mixed_df_problem(solver)
         fold = mp.make_mixed_fold_df_solver(solver, **kw)
@@ -693,7 +704,7 @@ def _solves(electrospray: bool, dev):
 
 
 def _child(root: Path, walls: int, traces: int, electrospray: bool, save: Path,
-           sharded: bool = False, dirichlet: str = None) -> None:
+           sharded: bool = False, dirichlet: str = None, inner_cycles: int = 1) -> None:
     sys.path[0] = str(root)  # the script's own directory: the ROOT's package instead
     import torch
 
@@ -713,7 +724,7 @@ def _child(root: Path, walls: int, traces: int, electrospray: bool, save: Path,
         hier, solves, unpack, seg = _sharded_dirichlet(dev, dirichlet == "sharded2d", sms)
         sizes = {**_stage_sizes(hier, sms), **seg}
     else:
-        hier, solves, unpack = _solves(electrospray, dev)
+        hier, solves, unpack = _solves(electrospray, dev, inner_cycles)
         sizes = _stage_sizes(hier, sms)
     result = {"root": str(root)}
     for label, solve in solves.items():
@@ -776,13 +787,16 @@ def main(argv=None) -> int:
                       help="trace the one-rank i-sharded Dirichlet solve and the fused one")
     mode.add_argument("--sharded2d", action="store_true",
                       help="trace the 1x1 (i, j)-sharded Dirichlet solve and the fused one")
+    parser.add_argument("--inner-cycles", type=int, default=1,
+                        help="with --electrospray: finest-level cycles an outer step (2 runs "
+                             "the msplit tier's K21 and the other tiers' revisit stages)")
     parser.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     parser.add_argument("--save", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.child is not None:
         dirichlet = "sharded" if args.sharded else "sharded2d" if args.sharded2d else None
         _child(args.child.resolve(), args.walls, args.traces, args.electrospray, args.save,
-               args.sharded_electrospray, dirichlet)
+               args.sharded_electrospray, dirichlet, args.inner_cycles)
         return 0
     try:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -803,6 +817,7 @@ def main(argv=None) -> int:
                                      + ["--sharded-electrospray"] * args.sharded_electrospray
                                      + ["--sharded"] * args.sharded
                                      + ["--sharded2d"] * args.sharded2d
+                                     + ["--inner-cycles", str(args.inner_cycles)]
                                      + save,
                                      cwd=roots[i], capture_output=True, text=True)
                 lines = run.stdout.strip().splitlines()

@@ -8,12 +8,13 @@ j)-sharded field (K40's, K37's and K38's), with
 ``--seg-restrict`` the streaming restriction stage there (K30's and K39's,
 K3's beside them), with ``--seg-df`` the streaming double-float
 residual-and-norm stage there (K32's and K41's, their first forms and K5
-beside them), with ``--msplit`` the split pair's mixed stage (K22's and
-K24's, ops/csrc/split.cuh with MIXED), or, with ``--restrict``, the
-streaming restriction stage (K3's, K9's and, on the fold layout, K18's,
-ops/csrc/restrict.cuh; K18's first form beside it) on candidate plans at
-each level size on one card: the planner's own and plans of several
-block sizes, each held bit for bit against its plain version.
+beside them), with ``--msplit`` the split pair's mixed stage (K22's,
+K21's and K24's, ops/csrc/split.cuh with MIXED), or, with ``--restrict``,
+the streaming restriction stage (K3's, K9's, on the fold layout K18's,
+and on the electrospray's pair K23's, ops/csrc/restrict.cuh; K18's and
+K23's first forms beside them) on candidate plans at each level size on
+one card: the planner's own and plans of several block sizes, each held
+bit for bit against its plain version.
 
     python -m multigrid_parallel_tpu_torch.utils.stage_plans [--sizes 9 17 33 65 129]
                                                              [--reps 20]
@@ -41,9 +42,13 @@ with the first form (4 launches a call: K31's and K40's correction and 3
 half-sweeps, K28's and K37's 4 half-sweeps, K29's and K38's from-zero
 launch and 3 half-sweeps, their device times summed) as the plan
 "first_form", and K1 and K2 on the level on their planner's plan
-(``--kernels`` picks some of these); K22 and K24 with its pin packs and coarse signs, on
+(``--kernels`` picks some of these, with ``--msplit`` and ``--restrict``
+too); K22 and K24 with its pin packs and coarse signs, on
 the msplit planner's plan, K7's and K10's and wavefront plans of several
-block sizes; or K3, K9 and K18, K18's first form as the plan "first_form";
+block sizes, and K21 on its planner's plan, with ``--parent ROOT``
+beside its first form from that checkout in place; or K3, K9,
+K18 and K23, K18's and K23's first forms as the plan "first_form" (K23's
+from ``--parent ROOT`` where given);
 or K30 and K39 on the production segments and blocks of the level (as
 K31's and K40's, each covering the level, at 9^3-257^3 by default), and K3
 on the level; or K32 and K41 on those segments and blocks, their first
@@ -126,15 +131,16 @@ def mixed_launch(plan, r, pin, h, ec=None, e=None):
 
 
 def msplit_launch(plan, r, packs, h, ec=None, e=None, sgn=None):
-    """One launch of K22's stage (from zero, red first) or, given ec,
-    K24's on ``plan``, into a fresh pair."""
+    """One launch of K22's stage (from zero, red first; given e K21's, on
+    e) or, given ec, K24's on ``plan``, into a fresh pair."""
     out = [torch.empty_like(x) for x in r]
     args = (plan.n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem,
             pk._stream())
     lib = pk._lib()
     ptrs = [x.data_ptr() for x in out]
     if ec is None:
-        err = lib.mg_msplit_stage(*ptrs, None, None, *(x.data_ptr() for x in r), packs.data_ptr(),
+        ins = (None, None) if e is None else (e[0].data_ptr(), e[1].data_ptr())
+        err = lib.mg_msplit_stage(*ptrs, *ins, *(x.data_ptr() for x in r), packs.data_ptr(),
                                   plan.n, h * h, 1, *args)
     else:
         err = lib.mg_msplit_prolong_stage(*ptrs, ec.data_ptr(), sgn.data_ptr(),
@@ -173,12 +179,17 @@ def split_candidates(n, prolong, sms):
     return plans
 
 
-def time_msplit(n, sms, reps, dev):
-    """One JSON line a (kernel, plan) at level n: K22 from zero and K24 at
-    n_iter 2 on pairs random at every slot, with the electrospray's pin
-    packs and the coarse level's sign planes, each candidate's output
-    against the plain version and its median device time over ``reps``
-    launches from a trace of its own."""
+def time_msplit(n, sms, reps, dev, kernels=None, parent=None):
+    """One JSON line a (kernel, plan) at level n: K22 from zero, K21 (on
+    its planner's plan, K22's) and K24 at n_iter 2 on pairs random at every
+    slot (K21's e with its dead slots 0, as the solve keeps them), with the
+    electrospray's pin packs and the coarse level's sign planes, each
+    candidate's output against the plain version and its median device
+    time over ``reps`` launches from a trace of its own (``kernels``: only
+    these); with ``parent`` (a checkout whose K21 has its first form),
+    K21's first form from that checkout's library beside them, in place
+    ("first_form": four half-sweeps and the BC pass, the parent's
+    contract)."""
     import multigrid_parallel_tpu_torch as mg
     from multigrid_parallel_tpu_torch.ops import pallas_mixed_fold as pmf
     from multigrid_parallel_tpu_torch.ops import pallas_mixed_split as pms
@@ -190,14 +201,22 @@ def time_msplit(n, sms, reps, dev):
              for _ in range(2)] for _ in range(2))
     ec = torch.from_numpy(rng.standard_normal((nc, nc, nc - 2)).astype(np.float32)).to(dev)
     packs, sgn = pms.msplit_pin_packs(es, n, dev), pmf.fold_edge_sign_planes(es, nc, dev)
+    e21 = pms.fold_to_split(pms.split_to_fold(*e))  # the dead slots 0
     stages = {"K22": (lambda plan: msplit_launch(plan, r, packs, h),
                       lambda: pms.mixed_rb_smooth_from_zero_msplit_plain(*r, packs, h, 2)),
+              "K21": (lambda plan: msplit_launch(plan, r, packs, h, e=e21),
+                      lambda: pms.mixed_rb_smooth_msplit_plain(*e21, *r, packs, h, 2)),
               "K24": (lambda plan: msplit_launch(plan, r, packs, h, ec, e, sgn),
                       lambda: pms.mixed_prolong_smooth_msplit_plain(ec, *e, *r, packs, sgn, h,
                                                                     2))}
-    for (kernel, (launch_on, plain)), prolong in zip(stages.items(), (False, True)):
-        want = plain()
-        for label, plan in split_candidates(n, prolong, sms).items():
+    for kernel, (launch_on, plain) in stages.items():
+        if kernels and kernel not in kernels:
+            continue
+        prolong, want = kernel == "K24", plain()
+        plans = split_candidates(n, prolong, sms)
+        if kernel == "K21":
+            plans = {"planner": plans["planner"]}
+        for label, plan in plans.items():
             exact = all(torch.equal(g, w) for g, w in zip(launch_on(plan), want))
             torch.cuda.synchronize()
             times = [(b - a) / 1e3 for a, b, name, *_ in
@@ -208,6 +227,21 @@ def time_msplit(n, sms, reps, dev):
                               "smem": plan.smem, "exact": exact,
                               "device_ms": statistics.median(times) if times else None}),
                   flush=True)
+        if kernel == "K21" and parent is not None:
+            old, rhs = parent_lib(parent), dict(zip((pk.RED, pk.BLACK), r))
+
+            def first_form(pair):
+                for c in list(pk._colors(True)) * 2:
+                    pk._check(old.mg_msplit_half_sweep(*(x.data_ptr() for x in pair),
+                                                       rhs[c].data_ptr(), packs.data_ptr(), n,
+                                                       h * h, c, pk._stream()), "stage_plans")
+                pk._check(old.mg_msplit_bc_pass(*(x.data_ptr() for x in pair), packs.data_ptr(),
+                                                n, pk._stream()), "stage_plans")
+                return pair
+
+            scratch = [x.clone() for x in e21]
+            first_form_rows({"first_form": lambda: first_form(scratch)}, want, reps,
+                            {"n": n, "kernel": kernel})
 
 
 def box(n, bi, bj, prolong, n_iter=2, max_threads=ps.RECT_MAX_THREADS):
@@ -260,33 +294,38 @@ def candidates(n, prolong, sms, planes=None, cols=None):
     return plans
 
 
-def restrict_launch(plan, e, r, h):
-    """One launch of K3's (K9's where ``plan.split``, e and r then pairs;
-    K18's where ``plan.fold``) restriction stage on ``plan``, or of K18's
-    first form where ``plan`` is None, into a fresh coarse field."""
+def restrict_launch(plan, e, r, h, msplit=False, lib=None):
+    """One launch of K3's (K9's where ``plan.split``, e and r then pairs,
+    K23's where ``msplit`` too; K18's where ``plan.fold``) restriction
+    stage on ``plan``, or of K18's (K23's) first form where ``plan`` is
+    None (from ``lib``, another checkout's library, where given), into a
+    fresh coarse field."""
     n = e[0].shape[0]
     nc = (n + 1) // 2
-    fold = plan is None or plan.fold
+    fold = msplit or plan is None or plan.fold
     out = torch.empty((nc, nc, nc - 2) if fold else (nc, nc, nc), device=e[0].device)
-    lib = pk._lib()
+    lib = lib or pk._lib()
     ptrs = (out.data_ptr(), *(x.data_ptr() for x in (*e, *r)))
     if plan is None:
-        err = lib.mg_residual_restrict_fold(*ptrs, n, 1.0 / (h * h), pk._stream())
+        fn = lib.mg_msplit_residual_restrict if msplit else lib.mg_residual_restrict_fold
+        err = fn(*ptrs, n, 1.0 / (h * h), pk._stream())
     else:
-        fn = (lib.mg_split_residual_restrict if plan.split
+        fn = (lib.mg_msplit_restrict_stage if msplit
+              else lib.mg_split_residual_restrict if plan.split
               else lib.mg_fold_residual_restrict if fold else lib.mg_residual_restrict)
         err = fn(*ptrs, n, 1.0 / (h * h), *plan.args, pk._stream())
     pk._check(err, "stage_plans")
     return out
 
 
-def restrict_candidates(n, split, sms, fold=False):
+def restrict_candidates(n, split, sms, fold=False, first_form=False):
     """The planner's plan and plans of bci x bcj coarse planes and rows,
     whole k rows or two k tiles, that the kernels take (K18's: ``fold``,
-    its first form as "first_form", a plan of None)."""
+    its first form as "first_form", a plan of None; K23's, ``split`` with
+    ``first_form``, likewise)."""
     m = (n + 1) // 2 - 2
     plans = {"planner": ps._restrict_plan(n, sms, split, fold)}
-    if fold:
+    if fold or first_form:
         plans["first_form"] = None
     half = -(-m // 2)
     if split and ((n - 1) // 2) % 4 == 0:
@@ -307,29 +346,38 @@ def restrict_candidates(n, split, sms, fold=False):
     return plans
 
 
-def time_restrict(n, sms, reps, dev):
+def time_restrict(n, sms, reps, dev, kernels=None, parent=None):
     """One JSON line a (kernel, plan) at level n: K3 on random (e, r), K9
-    on random pairs and K18 on random fold fields at the electrospray's h
-    (its first form beside the stage), each candidate's output against the
-    plain version and its median device time over ``reps`` launches from a
-    trace of its own."""
+    on random pairs, K18 on random fold fields at the electrospray's h
+    (its first form beside the stage) and K23 on random pairs at that h
+    (its first form beside the stage: with ``parent``, from that
+    checkout's library, else this one's), each candidate's
+    output against the plain version and its median device time over
+    ``reps`` launches from a trace of its own (``kernels``: only these)."""
     from multigrid_parallel_tpu_torch.ops import pallas_mixed_fold as pmf
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed_split as pms
 
     rng = np.random.default_rng(n)
     for kernel, split, fold in (("K3", False, False), ("K9", True, False),
-                                ("K18", False, True)):
-        h = 3e-4 / (n - 1) if fold else 1.0 / (n - 1)
+                                ("K18", False, True), ("K23", True, False)):
+        msplit = kernel == "K23"
+        h = 3e-4 / (n - 1) if fold or msplit else 1.0 / (n - 1)
         shape = ps.split_shape(n) if split else (n, n, n - 2) if fold else (n, n, n)
         e, r = ([torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
                  for _ in range(2 if split else 1)] for _ in range(2))
-        want = (ps.residual_restrict_split_plain(*e, *r, h) if split
+        if kernels and kernel not in kernels:
+            continue
+        want = (pms.residual_restrict_msplit_plain(*e, *r, h) if msplit
+                else ps.residual_restrict_split_plain(*e, *r, h) if split
                 else pmf.residual_restrict_fold_plain(*e, *r, h) if fold
                 else pk.residual_restrict_plain(*e, *r, h))
-        for label, plan in restrict_candidates(n, split, sms, fold).items():
-            exact = bool(torch.equal(restrict_launch(plan, e, r, h), want))
+        lib = parent_lib(parent) if msplit and parent is not None else pk._lib()
+        for label, plan in restrict_candidates(n, split, sms, fold, msplit).items():
+            old = lib if plan is None else None
+            exact = bool(torch.equal(restrict_launch(plan, e, r, h, msplit, old), want))
             torch.cuda.synchronize()
             times = [(b - a) / 1e3 for a, b, name, *_ in
-                     kernel_intervals(lambda: [restrict_launch(plan, e, r, h)
+                     kernel_intervals(lambda: [restrict_launch(plan, e, r, h, msplit, old)
                                                for _ in range(reps)])
                      if "restrict" in name]
             shape = {} if plan is None else {
@@ -347,7 +395,9 @@ def first_form_rows(forms, want, reps, row):
     median time times its launches a call, summed (a trace that drops an
     event still gives the call's parts)."""
     for label, run in forms.items():
-        exact = bool(torch.equal(run(), want))
+        got = run()
+        exact = (all(torch.equal(g, w) for g, w in zip(got, want)) if isinstance(want, tuple)
+                 else bool(torch.equal(got, want)))
         torch.cuda.synchronize()
         by_name = {}
         for a, b, name, *_ in kernel_intervals(lambda: [run() for _ in range(reps)]):
@@ -1000,14 +1050,15 @@ def main(argv=None) -> int:
                         help="level sizes (default 9 17 33 65 129; with --seg 65 129 257)")
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--parent", type=str,
-                        help="with --mixed: a checkout whose K13 has its first form, timed "
-                             "beside the stage")
+                        help="with --mixed, --msplit or --restrict: a checkout whose K13, K21 "
+                             "or K23 first form is timed beside the stage")
     parser.add_argument("--kernels", nargs="+",
-                        help="with --seg-rect: time only these (K1 K2 K28 K29 K31 K37 K38 K40)")
+                        help="with --seg-rect, --msplit or --restrict: time only these (K1 K2 "
+                             "K28 K29 K31 K37 K38 K40; K21 K22 K24; K3 K9 K18 K23)")
     group = parser.add_mutually_exclusive_group()
     group.add_argument("--restrict", action="store_true",
-                       help="time K3's, K9's and K18's restriction stage (and K18's first "
-                            "form) instead")
+                       help="time K3's, K9's, K18's and K23's restriction stage (and K18's "
+                            "and K23's first forms) instead")
     group.add_argument("--fold", action="store_true",
                        help="time K17's, K16's and K19's fold stages instead")
     group.add_argument("--mixed", action="store_true",
@@ -1019,7 +1070,8 @@ def main(argv=None) -> int:
                        help="time K31's, K28's, K29's, K40's, K37's and K38's Dirichlet stages "
                             "on the production segments and blocks, and K1's and K2's, instead")
     group.add_argument("--msplit", action="store_true",
-                       help="time K22's and K24's mixed stages on the split pair instead")
+                       help="time K22's, K21's and K24's mixed stages on the split pair "
+                            "instead")
     group.add_argument("--seg-restrict", action="store_true",
                        help="time K30's and K39's restriction stages on the production "
                             "segments and blocks, and K3's, instead")
@@ -1058,11 +1110,11 @@ def main(argv=None) -> int:
         return 0
     if args.restrict:
         for n in args.sizes:
-            time_restrict(n, sms, args.reps, dev)
+            time_restrict(n, sms, args.reps, dev, args.kernels, args.parent)
         return 0
     if args.msplit:
         for n in args.sizes:
-            time_msplit(n, sms, args.reps, dev)
+            time_msplit(n, sms, args.reps, dev, args.kernels, args.parent)
         return 0
     if args.fold or args.mixed:
         for n in args.sizes:

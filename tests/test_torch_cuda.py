@@ -112,11 +112,6 @@ def test_kernels_match_plain_on_card(cuda, n):
                             "residual_fused": 1, "residual_df_norm_fused": 1}
 
 
-def _ulps(got, want, ulps=4):
-    err = float((got.double() - want.double()).abs().max())
-    return err <= ulps * float(np.spacing(np.float32(want.abs().max().item())))
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [17, 65])
 def test_fused_kernels_match_plain_on_card(cuda, n):
@@ -1298,9 +1293,9 @@ def test_fold_tier_on_card_matches_cpu(cuda, gamma):
 def test_msplit_kernels_match_plain_on_card(cuda, n):
     """K21-K25 at the electrospray's h, with its pin packs and a random
     x-face mask, on pairs packed from BC-consistent cubes; K24 with the
-    coarse level's sign planes (the pin-edge delta live at 17^3). K21,
-    K22, K24 and K25 take the same steps as their plain versions (fields
-    bitwise); K23 too, held to 4 ulp of the max as K18 is."""
+    coarse level's sign planes (the pin-edge delta live at 17^3). Every
+    kernel takes the same steps as its plain version: fields bit for bit
+    (K25's norm within rel 1e-5)."""
     h = 3e-4 / (n - 1)
     nc = (n + 1) // 2
     prob = tmg.electrospray_problem()
@@ -1332,7 +1327,7 @@ def test_msplit_kernels_match_plain_on_card(cuda, n):
             assert all(torch.equal(g, w) for g, w in zip(got, want))
         got = tpms.residual_restrict_msplit(*e2, *r2, h)
         assert got.shape == (nc, nc, nc - 2)
-        assert _ulps(got, tpms.residual_restrict_msplit_plain(*e2, *r2, h))
+        assert torch.equal(got, tpms.residual_restrict_msplit_plain(*e2, *r2, h))
     x = np.linspace(0.0, 1.0, n)[:, None, None]
     state = [t for a in (-1350.0 * x * x + 1e-3 * rng.standard_normal((n, n, n)),
                          1e3 * rng.standard_normal((n, n, n)))
@@ -1341,8 +1336,8 @@ def test_msplit_kernels_match_plain_on_card(cuda, n):
     want = tpms.residual_df_norm_msplit_plain(*state, h)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert float(got[2]) == pytest.approx(float(want[2]), rel=1e-5)
-    # per pin, n_iter 1 and 2: K21 2 orders x (2 n_iter + 1); K22 and K24 one launch a call
-    assert tpms.LAUNCHES == {"mixed_rb_smooth_msplit": 2 * 2 * (3 + 5),
+    # per pin, n_iter 1 and 2: K21 2 orders, K22 and K24 one launch a call
+    assert tpms.LAUNCHES == {"mixed_rb_smooth_msplit": 2 * 2 * (1 + 1),
                              "mixed_rb_smooth_from_zero_msplit": 2 * (1 + 1),
                              "residual_restrict_msplit": 2,
                              "mixed_prolong_smooth_msplit": 2 * (1 + 1),
@@ -1407,6 +1402,167 @@ def test_k22_k24_stages_match_plain_on_card(cuda, n):
             assert not {g.data_ptr() for g in got} & {x.data_ptr() for x in inputs}
             assert _bitwise_pair(got, want), (kind, n_iter)
         assert all(torch.equal(a, b) for a, b in zip(inputs, before))
+
+
+def _nan_off_interior(pair, n):
+    """The pair with NaN in its boundary rows and dead slots: what K21
+    must not read."""
+    _, live_r, live_b = tps._masks(n, pair[0].device)
+    return tuple(torch.where(live, x, torch.full_like(x, float("nan")))
+                 for x, live in zip(pair, (live_r, live_b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [9, 17, 33, 65, 129, 257, 513])
+def test_k21_stage_matches_plain_on_card(cuda, n):
+    """K21, the stage on the loaded pair, bit for bit against its plain
+    version (257: the main path's plan, 513: k tiles), n_iter 1-3, both
+    orders, with the electrospray's pins and random ones, on a pair random
+    at its live interior slots and NaN at its boundary rows and dead slots
+    (which no sweep reads and the BC pass rewrites), the allocator
+    poisoned with NaN first; ceil(n_iter / 2) launches a call and no other
+    kernel counted; a fresh pair, the inputs left as they were."""
+    h = 3e-4 / (n - 1)
+    rng = np.random.default_rng(200 + n)
+    e, r = _random_pairs(200 + n, n, cuda, 2)
+    e = _nan_off_interior(e, n)
+    shape = tps.split_shape(n)
+    for kind in ("electrospray", "random"):
+        packs, _ = _msplit_pins(kind, n, cuda, rng)
+        inputs = (*e, *r, packs)
+        before = [x.clone() for x in inputs]
+        for n_iter in (1, 2, 3):
+            for red_first in (True, False):
+                want = tpms.mixed_rb_smooth_msplit_plain(*e, *r, packs, h, n_iter, red_first)
+                assert all(bool(torch.isfinite(w).all()) for w in want)
+                _poison_allocator(shape, cuda)
+                tpms.reset_launches()
+                got = tpms.mixed_rb_smooth_msplit(*e, *r, packs, h, n_iter, red_first)
+                assert tpms.LAUNCHES == {**dict.fromkeys(tpms.KERNELS, 0),
+                                         "mixed_rb_smooth_msplit": -(-n_iter // 2)}
+                torch.cuda.synchronize()
+                assert not {g.data_ptr() for g in got} & {x.data_ptr() for x in inputs}
+                assert _bitwise_pair(got, want), (kind, n_iter, red_first)
+        assert all(_same_with_nan(a, b) for a, b in zip(inputs, before))
+
+
+def _msplit_restrict_fields(seed, n, dev):
+    """(e, r) pairs random at every slot, boundary rows too, NaN at their
+    dead slots (no residual of K23's reads one)."""
+    e, r = _random_pairs(seed, n, dev, 2)
+    for pair in (e, r):
+        for x, k in zip(pair, tps._slot_k(n, dev)):
+            x[k > n - 2] = float("nan")
+    return e, r
+
+
+def _msplit_restrict_on(plan, e, r, h, out=None):
+    """One launch of K23's streaming stage on ``plan``, or of its first
+    form where ``plan`` is None, into ``out`` (a fresh coarse fold field
+    where None); the launcher's error code and the field."""
+    n = e[0].shape[0]
+    nc = (n + 1) // 2
+    out = torch.empty((nc, nc, nc - 2), device=e[0].device) if out is None else out
+    lib, ptrs = tpms._lib(), [x.data_ptr() for x in (out, *e, *r)]
+    if plan is None:
+        return lib.mg_msplit_residual_restrict(*ptrs, n, 1.0 / (h * h), tpk._stream()), out
+    return lib.mg_msplit_restrict_stage(*ptrs, n, 1.0 / (h * h), *plan.args,
+                                        tpk._stream()), out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RESTRICT_SIZES)
+def test_k23_restrict_matches_plain_on_card(cuda, n):
+    """K23 bit for bit against ``residual_restrict_msplit_plain`` at every
+    stored coarse point (257: the msplit tier's finest level), on pairs
+    random at every slot, boundary rows included, NaN at their dead slots,
+    at the electrospray's h = 3e-4 / (n - 1), the allocator poisoned with
+    NaN first: the wrapper, exactly one launch a call, and each of its
+    forms at this size (the stage on K9's plan, and the first form below
+    pallas_split.MSPLIT_RESTRICT_STAGE_MIN_N); the inputs unchanged."""
+    h = 3e-4 / (n - 1)
+    nc = (n + 1) // 2
+    e, r = _msplit_restrict_fields(210 + n, n, cuda)
+    before = [x.clone() for x in (*e, *r)]
+    want = tpms.residual_restrict_msplit_plain(*e, *r, h)
+    assert bool(torch.isfinite(want).all())
+    _poison_allocator((nc, nc, nc - 2), cuda)
+    tpms.reset_launches()
+    got = tpms.residual_restrict_msplit(*e, *r, h)
+    assert tpms.LAUNCHES == {**dict.fromkeys(tpms.KERNELS, 0), "residual_restrict_msplit": 1}
+    assert got.shape == (nc, nc, nc - 2) and torch.equal(got, want)
+    forms = [tps._restrict_plan(n, tps._sms(torch.cuda.current_device()), split=True)]
+    if n < tps.MSPLIT_RESTRICT_STAGE_MIN_N:
+        forms.append(None)
+    for plan in forms:
+        _poison_allocator((nc, nc, nc - 2), cuda)
+        err, out = _msplit_restrict_on(plan, e, r, h)
+        assert err == 0 and torch.equal(out, want), plan
+    torch.cuda.synchronize()
+    assert all(_same_with_nan(a, b) for a, b in zip((*e, *r), before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 33, 35])
+def test_k23_restrict_on_hand_plans_on_card(cuda, n):
+    """K23's stage on plans of the caller's: several blocks in i and j,
+    whole k rows and k tiles (35: rows of 17 slots, 4-byte copies; 33:
+    tiles of 4 slots, the 16-byte windows, and of 2, the exact ones), bit
+    for bit against the plain version; a plan the kernel does not take, a
+    shared-memory size not the plan's, and an output that meets an input
+    are refused, not run."""
+    h = 3e-4 / (n - 1)
+    nc = (n + 1) // 2
+    m = nc - 2
+    e, r = _msplit_restrict_fields(220 + n, n, cuda)
+    want = tpms.residual_restrict_msplit_plain(*e, *r, h)
+    for bci, bcj, bck in ((2, 3, m), (3, 2, 2), (5, min(m, 8), 4), (m, 1, 3)):
+        plan = tps.RestrictPlan(n, True, bci, bcj, bck, tps._restrict_chunks(bck, True),
+                                32 * (2 * bcj + 1), tps._restrict_smem(bcj, bck, True))
+        _poison_allocator((nc, nc, nc - 2), cuda)
+        err, out = _msplit_restrict_on(plan, e, r, h)
+        assert err == 0 and torch.equal(out, want), plan
+    bad = tps.RestrictPlan(n, True, 1, 9, 1, 1, 32 * 19, tps._restrict_smem(9, 1, True))
+    assert _msplit_restrict_on(bad, e, r, h)[0] != 0
+    assert _msplit_restrict_on(plan._replace(smem=plan.smem + 16), e, r, h)[0] != 0
+    for x in (*e, *r):
+        alias = x.view(-1)[:nc * nc * (nc - 2)].view(nc, nc, nc - 2)
+        assert _msplit_restrict_on(plan, e, r, h, out=alias)[0] != 0
+    torch.cuda.synchronize()
+    assert torch.equal(tpms.residual_restrict_msplit_plain(*e, *r, h), want)  # inputs untouched
+
+
+@pytest.mark.cuda
+def test_msplit_stage_launcher_refuses_an_output_that_meets_an_input(cuda):
+    """K21's launcher (the msplit stage, K22's and K24's later launches
+    too) refuses an output pair that meets e, f, the pin packs or the
+    other output, and runs on one that does not."""
+    n = 17
+    h = 3e-4 / (n - 1)
+    rng = np.random.default_rng(230)
+    e, r = _random_pairs(230, n, cuda, 2)
+    packs, _ = _msplit_pins("random", n, cuda, rng)
+    plan = tps._stage_plan(n, 2, tps._sms(torch.cuda.current_device()), msplit=True)
+    args = (plan.n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem,
+            tpk._stream())
+    lib = tpk._lib()
+    # the packs at the head of a buffer that an output can overlap
+    buf = torch.zeros(2 * r[0].numel(), device=cuda)
+    packs = buf[:packs.numel()].view_as(packs).copy_(packs)
+
+    def launch(out_r, out_b):
+        return lib.mg_msplit_stage(out_r.data_ptr(), out_b.data_ptr(),
+                                   *(x.data_ptr() for x in (*e, *r, packs)), n, h * h, 1, *args)
+
+    fresh = [torch.empty_like(x) for x in r]
+    assert launch(*fresh) == 0
+    torch.cuda.synchronize()
+    assert _bitwise_pair(fresh, tpms.mixed_rb_smooth_msplit_plain(*e, *r, packs, h, 2))
+    for x in (*e, *r):
+        assert launch(x, fresh[1]) != 0 and launch(fresh[0], x) != 0
+    assert launch(fresh[0], fresh[0]) != 0
+    assert launch(buf[-r[0].numel():].view_as(r[0]), fresh[1]) == 0
+    assert launch(buf[packs.numel() - 1:][:r[0].numel()].view_as(r[0]), fresh[1]) != 0
 
 
 def _msplit_stage_on_plan(plan, r, packs, h, red_first=True, e=None, ec=None, sgn=None):

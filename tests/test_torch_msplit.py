@@ -249,7 +249,9 @@ def test_mixed_rb_smooth_msplit_matches_pallas(pins, n_iter):
                                            N, red_first=red_first, block_i=4)
         et = tuple(x.clone() for x in e)
         got = tpms.mixed_rb_smooth_msplit(*et, *r, packs, H, n_iter, red_first)
-        assert got[0] is et[0] and got[1] is et[1]  # in place, as on the card
+        # a fresh pair, the input pair as it was, as on the card
+        assert all(g is not x for g in got for x in (*et, *r))
+        assert all(torch.equal(a, b) for a, b in zip(et, e))
         _assert_pair_ulps(got, _from_jpair(want))
 
 

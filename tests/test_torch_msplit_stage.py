@@ -1,7 +1,8 @@
-"""The one-pass msplit smoothing stages (K22 ``mixed_rb_smooth_from_zero_
-msplit`` and K24 ``mixed_prolong_smooth_msplit``, multigrid_parallel_tpu_
-torch.ops.pallas_mixed_split) on the CPU: an emulation of the CUDA
-kernels' schedule held against the plain versions, and the wrappers' CPU
+"""The one-pass msplit smoothing stages (K21 ``mixed_rb_smooth_msplit``,
+K22 ``mixed_rb_smooth_from_zero_msplit`` and K24
+``mixed_prolong_smooth_msplit``, multigrid_parallel_tpu_torch.ops.
+pallas_mixed_split) on the CPU: an emulation of the CUDA kernels'
+schedule held against the plain versions, and the wrappers' CPU
 contract.
 
 The CUDA stage (ops/csrc/split.cuh, ``stage_body`` with MIXED) cannot run
@@ -9,7 +10,8 @@ here, so its schedule is emulated in torch, block by block, as the kernel
 runs it, on the pair's own layout (red, black), (n, n, S) each: the plan's
 boxes with halos of 2 n_iter planes and rows (and k_halo slots where k is
 tiled); tile planes filled with NaN outside the loaded box, K22's tile
-all zeros instead; a ring of tile planes for each colour as deep as the
+all zeros instead, K21's loaded from its pair (random at its boundary
+rows and dead slots, which no sweep may read); a ring of tile planes for each colour as deep as the
 kernel's (a plane gone from a ring raises); K24's coarse fold planes in a
 ring of 3, NaN outside the rows and slots the block copies, copied with
 the fine planes that first need them, and e + P ec of both colours made as
@@ -28,8 +30,11 @@ x-face node and at the dead slots. The emulation must equal the plain
 versions bit for bit, and three faults of the schedule must not: a face
 row stored at the first colour's step, K10's load of the first colour
 only where no half-sweep rewrites it, and a k-edge neighbour read as the
-dead slot's or the guard's 0 in place of the select. The card tests hold
-the kernels themselves against the plain versions (tests/test_torch_cuda.py).
+dead slot's or the guard's 0 in place of the select; nor two of K21's:
+a zero tile in place of its pair (K22's launch), and a j-face neighbour
+read from the tile's boundary row in place of the select. The card tests
+hold the kernels themselves against the plain versions
+(tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -47,6 +52,7 @@ torch.set_num_threads(1)
 NAN = float("nan")
 H100_SMS = 132
 FAULTS = ("early_face_store", "fixed_first", "k_edge_zero")
+K21_FAULTS = ("zero_tile", "face_read")
 
 
 def _by_stage(pair, color0):
@@ -58,8 +64,9 @@ def _emulate_launch(ins, fs, packs, color0, h, plan, coarse=None, fault=None):
     """One msplit stage launch as stage_body runs it with MIXED. ``ins``
     and ``fs`` by stage colour ([0] the first half-sweep's colour,
     ``color0``), ``ins`` None for K22's zero tile; ``coarse`` K24's (ec,
-    sgn_c); ``fault`` one of FAULTS. Returns the outputs by stage colour
-    and how many times each slot of each was written."""
+    sgn_c); ``fault`` one of FAULTS, or "face_read" (a j-face neighbour
+    read from the tile's boundary row). Returns the outputs by stage
+    colour and how many times each slot of each was written."""
     n, s = fs[0].shape[0], fs[0].shape[2]
     big_h, levels = plan.halo, 2 * plan.n_iter
     depth = 2 * levels + 3  # each colour's ring
@@ -179,8 +186,10 @@ def _emulate_launch(ins, fs, packs, color0, h, plan, coarse=None, fault=None):
                     edge_value = zero if fault == "k_edge_zero" else cen
                     k_lo = torch.where(k == 1, edge_value, k_lo)
                     k_hi = torch.where(k == n - 2, edge_value, k_hi)
-                    j_lo = torch.where(j == 1, cen, mid[jl - jb0 - 1:jh - jb0 - 1, cl])
-                    j_hi = torch.where(j == n - 2, cen, mid[jl - jb0 + 1:jh - jb0 + 1, cl])
+                    j_lo, j_hi = mid[jl - jb0 - 1:jh - jb0 - 1, cl], mid[jl - jb0 + 1:jh - jb0 + 1, cl]
+                    if fault != "face_read":
+                        j_lo = torch.where(j == 1, cen, j_lo)
+                        j_hi = torch.where(j == n - 2, cen, j_hi)
                     i_lo, i_hi = lo[r, cl], hi[r, cl]
                     pk = p.expand_as(k)
                     rows_j = j.expand_as(k)
@@ -257,6 +266,20 @@ def _emulate_k22(fr, fb, packs, h, n_iter, red_first, plan_of, fault=None):
     for chunk in tps._stage_chunks(n_iter):
         ins = None if pair is None else _by_stage(pair, color0)
         outs, writes = _emulate_launch(ins, fs, packs, color0, h, plan_of(chunk), fault=fault)
+        _check_writes(writes)
+        pair = tuple(_by_stage(outs, color0))
+    return pair
+
+
+def _emulate_k21(er, eb, fr, fb, packs, h, n_iter, red_first, plan_of, fault=None):
+    """K21: the stage with the pair loaded, then on the pair so far
+    ("zero_tile": the first launch from a zero tile, K22's)."""
+    color0 = RED if red_first else BLACK
+    fs, pair = _by_stage((fr, fb), color0), (er, eb)
+    for i, chunk in enumerate(tps._stage_chunks(n_iter)):
+        ins = None if fault == "zero_tile" and i == 0 else _by_stage(pair, color0)
+        outs, writes = _emulate_launch(ins, fs, packs, color0, h, plan_of(chunk),
+                                       fault=None if fault == "zero_tile" else fault)
         _check_writes(writes)
         pair = tuple(_by_stage(outs, color0))
     return pair
@@ -438,13 +461,60 @@ def test_emulation_finds_a_faulty_schedule(n, kind, fault):
         assert not _bitwise(got22, want22)
 
 
+def _check_k21(n, kind, n_iters, pins, seed):
+    """K21 by the emulation against its plain version, bit for bit, both
+    orders, on a pair random at every slot, boundary rows and dead slots
+    too."""
+    h = 3e-4 / (n - 1)
+    rng, e, r, _ = _fields(n, seed)
+    packs, _ = _pins(pins, n, rng)
+    plan_of = _plans(kind, n)
+    for n_iter in n_iters:
+        for red_first in (True, False):
+            got = _emulate_k21(*e, *r, packs, h, n_iter, red_first, plan_of)
+            want = tpms.mixed_rb_smooth_msplit_plain(*e, *r, packs, h, n_iter, red_first)
+            assert _bitwise(got, want), (n_iter, red_first)
+
+
+@pytest.mark.parametrize("n,kind,pins", [(9, "h100", "electrospray"), (17, "rows", "random"),
+                                         (17, "k_tiles", "electrospray")])
+def test_emulated_k21_stage_matches_plain(n, kind, pins):
+    """K21, the loaded stage, one launch at n_iter 1 and 2, both orders, on
+    plans of several blocks (whole rows, k tiles; one a plane at 9^3),
+    the electrospray's pins and random ones, on a pair random at its
+    boundary rows and dead slots: bit for bit against the plain version,
+    every slot written once."""
+    assert _plans(kind, n)(2).blocks > 1
+    _check_k21(n, kind, (1, 2), pins, 3 * n)
+
+
+def test_emulated_k21_stage_chains_past_two_iterations():
+    """n_iter 3: a two-iteration launch on the pair, then the stage on
+    the pair so far, both orders."""
+    _check_k21(9, "rows", (3,), "random", 4)
+
+
+@pytest.mark.parametrize("fault", K21_FAULTS)
+def test_emulated_k21_fails_with_a_fault(fault):
+    """K21's launch from a zero tile (K22's) in place of its pair, or a
+    j-face neighbour read from the tile's boundary row (random, not the
+    BC) in place of the select, leaves a wrong value in the output."""
+    n, n_iter = 9, 2
+    h = 3e-4 / (n - 1)
+    rng, e, r, _ = _fields(n, 6)
+    packs, _ = _pins("electrospray", n, rng)
+    want = tpms.mixed_rb_smooth_msplit_plain(*e, *r, packs, h, n_iter, True)
+    got = _emulate_k21(*e, *r, packs, h, n_iter, True, _plans("rows", n), fault)
+    assert not _bitwise(got, want)
+
+
 # ------------------------------------------------- the wrappers on the CPU
 
 
 def test_k22_k24_return_fresh_pairs_and_leave_their_inputs():
     """On the CPU the wrappers are the plain versions: fresh pairs (dead
-    slots 0), the inputs as they were, no launch counted; n_iter < 1 is
-    refused."""
+    slots 0), the inputs as they were, no launch counted (K21's too);
+    n_iter < 1 is refused."""
     n, h = 17, 3e-4 / 16
     rng, e, r, ec = _fields(n, 7)
     packs, sgn_c = _pins("random", n, rng)
@@ -453,16 +523,19 @@ def test_k22_k24_return_fresh_pairs_and_leave_their_inputs():
     tpms.reset_launches()
     got24 = tpms.mixed_prolong_smooth_msplit(ec, *e, *r, packs, sgn_c, h, 2)
     got22 = tpms.mixed_rb_smooth_from_zero_msplit(*r, packs, h, 3, False)
+    got21 = tpms.mixed_rb_smooth_msplit(*e, *r, packs, h, 3, False)
     assert _bitwise(inputs, before)
-    assert all(g is not x for g in (*got22, *got24) for x in inputs)
+    assert all(g is not x for g in (*got21, *got22, *got24) for x in inputs)
     assert _bitwise(got24, tpms.mixed_prolong_smooth_msplit_plain(ec, *e, *r, packs, sgn_c, h, 2))
     assert _bitwise(got22, tpms.mixed_rb_smooth_from_zero_msplit_plain(*r, packs, h, 3, False))
+    assert _bitwise(got21, tpms.mixed_rb_smooth_msplit_plain(*e, *r, packs, h, 3, False))
     _, live_r, live_b = tps._masks(n, "cpu")
     dead_r, dead_b = tps._slot_k(n, "cpu")[0] > n - 2, tps._slot_k(n, "cpu")[1] > n - 2
-    for got in (got22, got24):
+    for got in (got21, got22, got24):
         assert not got[0][dead_r].any() and not got[1][dead_b].any()
     assert not any(tpms.LAUNCHES.values())
     for call in (lambda: tpms.mixed_rb_smooth_from_zero_msplit(*r, packs, h, 0),
+                 lambda: tpms.mixed_rb_smooth_msplit(*e, *r, packs, h, 0),
                  lambda: tpms.mixed_prolong_smooth_msplit(ec, *e, *r, packs, sgn_c, h, 0)):
         with pytest.raises(ValueError, match="n_iter"):
             call()

@@ -1,10 +1,12 @@
 """The streaming restriction stage of K3 (``residual_restrict_fused``,
 multigrid_parallel_tpu_torch.ops.pallas3d), K9
-(``residual_restrict_split``, ops.pallas_split) and K18
+(``residual_restrict_split``, ops.pallas_split), K18
 (``residual_restrict_fold``, ops.pallas_mixed_fold, on the electrospray's
-(n, n, n - 2) fold layout) on the CPU: its plan, an emulation of the
-CUDA kernel's schedule held against the plain versions bit for bit, and
-the wrappers' CPU contract.
+(n, n, n - 2) fold layout) and K23 (``residual_restrict_msplit``,
+ops.pallas_mixed_split, the electrospray's split pair into the coarse
+fold) on the CPU: its plan, an emulation of the CUDA kernel's schedule
+held against the plain versions bit for bit, and the wrappers' CPU
+contract.
 
 The CUDA kernel (ops/csrc/restrict.cuh, ``restrict_body``) cannot run
 here, so its schedule is emulated in torch (tests/torch_stage_emulation.py,
@@ -24,10 +26,12 @@ by the blocks at the field's edge; and each coarse point written by one
 block. K18's tile is K3's, loaded from fold rows: its window stops at the
 stored slots, so the k-face columns stay NaN and its k - 1 neighbour at
 k = 1 and k + 1 one at k = n - 2 are selects of the point's own value.
-A halo too shallow, or a k-edge select left out, reads NaN, so the
-emulation must equal the plain versions bit for bit. The card tests hold
-the kernels themselves against the plain versions
-(tests/test_torch_cuda.py).
+K23's tile and plan are K9's, its odd-k residuals summed k - 1 before
+k + 1 with the same k-edge selects (the guard and e's dead slots, NaN
+here, never read), its coarse fold rows K18's. A halo too shallow, or a
+k-edge select left out, reads NaN, so the emulation must equal the plain
+versions bit for bit. The card tests hold the kernels themselves against
+the plain versions (tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -37,6 +41,7 @@ import torch
 import torch_stage_emulation as em
 from multigrid_parallel_tpu_torch.ops import pallas3d as tpk
 from multigrid_parallel_tpu_torch.ops import pallas_mixed_fold as tpmf
+from multigrid_parallel_tpu_torch.ops import pallas_mixed_split as tpms
 from multigrid_parallel_tpu_torch.ops import pallas_split as tps
 
 torch.set_num_threads(1)
@@ -46,7 +51,7 @@ H100_SMS = 132
 NAN = float("nan")
 
 
-LAYOUTS = ["k3", "k9", "k18"]
+LAYOUTS = ["k3", "k9", "k18", "k23"]
 
 
 def _spans(extent, size):
@@ -54,8 +59,12 @@ def _spans(extent, size):
 
 
 def _flags(layout):
-    """(split, fold) of a layout."""
-    return layout == "k9", layout == "k18"
+    """(split, fold) of a layout's plan (K23's is K9's)."""
+    return layout in ("k9", "k23"), layout == "k18"
+
+
+def _emulate(plan, layout, e, r, h, **kw):
+    return em.emulate_restrict(plan, e, r, h, msplit=layout == "k23", **kw)
 
 
 @pytest.mark.parametrize("split", [False, True], ids=["k3", "k9"])
@@ -155,6 +164,15 @@ def test_fold_restrict_crossover_is_a_level_size():
     assert tps._restrict_plan(n, H100_SMS, fold=True).blocks >= 1
 
 
+def test_msplit_restrict_crossover_is_a_level_size():
+    """The level size from which K23 takes the stage (on K9's plan) is an
+    odd size of the hierarchy (2^m + 1) that the stage plans for, the
+    msplit tier's finest level at 257^3 among them."""
+    n = tps.MSPLIT_RESTRICT_STAGE_MIN_N
+    assert 5 <= n <= 257 and ((n - 1) & (n - 2)) == 0
+    assert tps._restrict_plan(n, H100_SMS, split=True).blocks >= H100_SMS
+
+
 def test_restrict_plan_at_257_fills_the_card():
     """The main path's plans (K3 on the fused path's finest level, K9 on
     the split one's): at least one block an SM of the H100's 132; 129^3
@@ -175,9 +193,10 @@ def test_restrict_plan_at_257_fills_the_card():
 def _fields(seed, n, layout):
     """(e, r) random at every point, faces included (K18: every stored
     point of the fold); for K9 split pairs random at every slot but r's
-    dead slots, which hold NaN (no residual reads them)."""
+    dead slots, which hold NaN (no residual reads them); for K23 e's dead
+    slots NaN too (its k-edge selects read none)."""
     rng = np.random.default_rng(seed)
-    if layout != "k9":
+    if layout not in ("k9", "k23"):
         shape = (n, n, n - 2) if layout == "k18" else (n, n, n)
         e, r = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                 for _ in range(2))
@@ -191,12 +210,17 @@ def _fields(seed, n, layout):
     rows = inner[:, None, None] & inner[None, :, None]
     for x, live in zip(r, (live_r, live_b)):
         x[rows.expand(shape) & ~live] = NAN  # the dead slot of every interior row
+    if layout == "k23":
+        for x, k in zip(e, tps._slot_k(n, torch.device("cpu"))):
+            x[k.expand(shape) > n - 2] = NAN  # every row's dead slot
     return tuple(e), tuple(r)
 
 
 def _plain(layout, e, r, h):
     if layout == "k9":
         return tps.residual_restrict_split_plain(*e, *r, h)
+    if layout == "k23":
+        return tpms.residual_restrict_msplit_plain(*e, *r, h)
     if layout == "k18":
         return tpmf.residual_restrict_fold_plain(*e, *r, h)
     return tpk.residual_restrict_plain(*e, *r, h)
@@ -224,7 +248,8 @@ def test_emulated_stage_matches_plain_bitwise(n, layout):
     """The planner's plan and hand plans (several blocks in i, j and k):
     the emulated schedule equals the plain version bit for bit, every
     coarse point written by one block (K18's with NaN in the k-face tile
-    columns, which its window never loads)."""
+    columns, which its window never loads; K23's with NaN in e's dead
+    slots)."""
     h = 1.0 / (n - 1)
     e, r = _fields(40 + n, n, layout)
     want = _plain(layout, e, r, h)
@@ -232,7 +257,7 @@ def test_emulated_stage_matches_plain_bitwise(n, layout):
     plans = [tps._restrict_plan(n, H100_SMS, *_flags(layout))] + _hand_plans(n, layout)
     assert any(p.tiles[2] > 1 for p in plans) and any(min(p.tiles[:2]) > 1 for p in plans)
     for plan in plans:
-        got, writes = em.emulate_restrict(plan, e, r, h)
+        got, writes = _emulate(plan, layout, e, r, h)
         assert bool((writes == 1).all()), plan
         assert torch.equal(got, want), plan
 
@@ -262,7 +287,7 @@ def test_emulated_stage_fails_with_a_fault(layout, fault):
     e, r = _fields(60, n, layout)
     plan = _hand_plans(n, layout)[0]
     kw = {"e_halo_rows": 0} if fault == "e_halo_one_row_short" else {"close_last": False}
-    got, _ = em.emulate_restrict(plan, e, r, h, **kw)
+    got, _ = _emulate(plan, layout, e, r, h, **kw)
     assert not torch.equal(got, _plain(layout, e, r, h))
 
 
@@ -282,9 +307,41 @@ def test_emulated_k18_fails_without_its_k_edge_selects(n):
         assert not bool(bad[1:-1, 1:-1, 1:-1].any()), plan
 
 
+@pytest.mark.parametrize("n", [9, 17])
+def test_emulated_k23_fails_without_its_k_edge_selects(n):
+    """K23 with its odd-k residuals' k-edge neighbours read as K9 reads
+    them, the guard's 0 at k = 1 and the dead slot (NaN here) at
+    k = n - 2, in place of the point's own value: the coarse points of
+    the first and last coarse k differ from the plain version, and only
+    they, on the planner's plan and on k tiles."""
+    h = 3e-4 / (n - 1)
+    e, r = _fields(80 + n, n, "k23")
+    want = _plain("k23", e, r, h)
+    for plan in (tps._restrict_plan(n, H100_SMS, split=True), _hand_plans(n, "k23")[1]):
+        got, _ = _emulate(plan, "k23", e, r, h, k_edge_select=False)
+        bad = ~(got == want)
+        assert bool(bad[1:-1, 1:-1, 0].all() and bad[1:-1, 1:-1, -1].all()), plan
+        assert not bool(bad[1:-1, 1:-1, 1:-1].any()), plan
+
+
+@pytest.mark.parametrize("fault", ["k9_row", "k9_order"])
+def test_emulated_k23_fails_with_k9s_row_or_order(fault):
+    """K23 with K9's coarse rows (coarse k at ck of rows of nc, not at
+    slot ck - 1 of rows of nc - 2) or K9's order of the odd-k residuals'
+    k terms (k + 1 before k - 1) gives another result; the same plans
+    without the fault equal the plain version."""
+    n = 17
+    h = 3e-4 / (n - 1)
+    e, r = _fields(90, n, "k23")
+    want = _plain("k23", e, r, h)
+    for plan in (tps._restrict_plan(n, H100_SMS, split=True), _hand_plans(n, "k23")[2]):
+        assert torch.equal(_emulate(plan, "k23", e, r, h)[0], want)
+        assert not torch.equal(_emulate(plan, "k23", e, r, h, fault=fault)[0], want), plan
+
+
 def test_cpu_wrappers_return_the_plain_result_and_leave_inputs():
     """On the CPU the wrappers are the plain versions: a fresh (nc, nc, nc)
-    field (K18: the (nc, nc, nc - 2) fold), the inputs untouched, no
+    field (K18, K23: the (nc, nc, nc - 2) fold), the inputs untouched, no
     launch counted."""
     n = 9
     nc = (n + 1) // 2
@@ -292,16 +349,18 @@ def test_cpu_wrappers_return_the_plain_result_and_leave_inputs():
     tpk.reset_launches()
     tps.reset_launches()
     tpmf.reset_launches()
+    tpms.reset_launches()
     wrappers = {"k3": tpk.residual_restrict_fused, "k9": tps.residual_restrict_split,
-                "k18": tpmf.residual_restrict_fold}
+                "k18": tpmf.residual_restrict_fold, "k23": tpms.residual_restrict_msplit}
     for layout, fn in wrappers.items():
         e, r = _fields(70, n, layout)
         before = [x.clone() for x in (*e, *r)]
         got = fn(*e, *r, h)
-        assert got.shape == ((nc, nc, nc - 2) if layout == "k18" else (nc,) * 3)
+        assert got.shape == ((nc, nc, nc - 2) if layout in ("k18", "k23") else (nc,) * 3)
         assert torch.equal(got, _plain(layout, e, r, h))
         assert all(torch.equal(x.isnan(), b.isnan()) and torch.equal(x.nan_to_num(), b.nan_to_num())
                    for x, b in zip((*e, *r), before))  # r's dead slots hold NaN
     assert tpk.LAUNCHES["residual_restrict_fused"] == 0
     assert tps.LAUNCHES["residual_restrict_split"] == 0
     assert tpmf.LAUNCHES["residual_restrict_fold"] == 0
+    assert tpms.LAUNCHES["residual_restrict_msplit"] == 0

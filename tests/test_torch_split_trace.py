@@ -157,8 +157,8 @@ def test_stage_calls_group_the_msplit_stages():
     correction's half-sweep, three half-sweeps and the BC pass, K21's four
     half-sweeps and the BC pass; the one-pass K22 (msplit_stage_kernel
     with ZERO true) and K24 one kernel a call, by level from their plans,
-    a loaded msplit stage launch a later launch of a K22 or K24 call; the
-    names demangled or mangled."""
+    and at n_smooth 2 a loaded msplit stage launch after them a K21 call
+    of its own (K21's one-pass stage); the names demangled or mangled."""
     from multigrid_parallel_tpu_torch.hierarchy import Hierarchy
     from multigrid_parallel_tpu_torch.ops import pallas_split as tps
 
@@ -186,9 +186,35 @@ def test_stage_calls_group_the_msplit_stages():
                            (k22.blocks, 1, 1))])
     got = st.stage_calls(intervals, sizes)
     assert got == {"K22 n=65": [2, pytest.approx(0.014), pytest.approx(0.007)],
-                   "K21 n=65": [1, pytest.approx(0.009), pytest.approx(0.009)],
-                   "K24 n=65": [2, pytest.approx(0.014), pytest.approx(0.007)],
-                   "K22|K24 n=65": [1, pytest.approx(0.002), pytest.approx(0.002)]}
+                   "K21 n=65": [2, pytest.approx(0.011), pytest.approx(0.0055)],
+                   "K24 n=65": [2, pytest.approx(0.014), pytest.approx(0.007)]}
+
+
+def test_stage_calls_tell_k21s_stage_from_later_launches():
+    """K21 on the msplit stage: msplit_stage_kernel with ZERO false heads a
+    K21 call; at n_smooth 3 a K22, K24 or K21 call takes the loaded
+    stage's next launch as its second, and the launch after that heads a
+    K21 call of its own; by level from the plan; a name without its
+    template arguments is "K21|K22"."""
+    from multigrid_parallel_tpu_torch.hierarchy import Hierarchy
+    from multigrid_parallel_tpu_torch.ops import pallas_split as tps
+
+    assert st.stage_label("msplit_stage_kernel<2, true, false>") == "K21"
+    assert st.stage_label("msplit_stage_kernel<2, true, true>") == "K22"
+    assert st.stage_label("msplit_stage_kernel") == "K21|K22"
+    sizes = st._stage_sizes(Hierarchy(ndim=3, coarse_n=5, num_levels=5), 132)
+    k22 = tps._stage_plan(65, 2, 132, msplit=True)
+    k24 = tps._stage_plan(65, 2, 132, prolong=True, msplit=True)
+    grid, pgrid = (k22.blocks, 1, 1, k22.smem), (k24.blocks, 1, 1, k24.smem)
+    loaded = "msplit_stage_kernel<1, true, false>"
+    intervals = [(0, 3, "msplit_stage_kernel<2, true, true>", grid), (3, 4, loaded, grid),
+                 (10, 13, "msplit_prolong_stage_kernel<2, true>", pgrid), (13, 14, loaded, grid),
+                 (20, 23, "msplit_stage_kernel<2, true, false>", grid), (23, 24, loaded, grid),
+                 (30, 32, "msplit_stage_kernel<2, true, false>", grid)]
+    assert st.stage_calls(intervals, sizes, n_smooth=3) == {
+        "K22 n=65": [1, pytest.approx(0.004), pytest.approx(0.004)],
+        "K24 n=65": [1, pytest.approx(0.004), pytest.approx(0.004)],
+        "K21 n=65": [2, pytest.approx(0.006), pytest.approx(0.003)]}
 
 
 def test_restrict_calls_by_level_for_both_forms():
@@ -216,6 +242,30 @@ def test_restrict_calls_by_level_for_both_forms():
     assert got == {"K3 n=33": [1, pytest.approx(0.001), pytest.approx(0.001)],
                    "K3 n=65": [3, pytest.approx(0.006), pytest.approx(0.002)],
                    "K9 n=65": [2, pytest.approx(0.006), pytest.approx(0.003)]}
+
+
+def test_restrict_calls_map_both_forms_of_k23():
+    """K23 a kernel a call, by level: the first form
+    (residual_restrict_msplit_kernel) from its one thread a stored coarse
+    point of the (nc, nc, nc - 2) fold, the streaming stage
+    (msplit_restrict_kernel) from K9's plan's grid and shared memory, its
+    name mangled or not; K9's stage on the same grid stays K9's."""
+    from multigrid_parallel_tpu_torch.hierarchy import Hierarchy
+    from multigrid_parallel_tpu_torch.ops import pallas_split as tps
+
+    sizes = st._stage_sizes(Hierarchy(ndim=3, coarse_n=5, num_levels=6), 132)
+    first = (-(-17 ** 2 * 15 // 256), 1, 1, 0)
+    stage = tps._restrict_plan(129, 132, split=True)
+    assert (st.short_name("_ZN12_GLOBAL__N_122msplit_restrict_kernelILi1EEEvN2mg11restriction4Args"
+                          "E") == "msplit_restrict_kernel<1>")
+    intervals = [(0, 2, "residual_restrict_msplit_kernel", first),
+                 (10, 14, "msplit_restrict_kernel<1>", (stage.blocks, 1, 1, stage.smem)),
+                 (20, 23, "msplit_restrict_kernel<1>", (stage.blocks, 1, 1)),
+                 (30, 31, "split_restrict_kernel<1>", (stage.blocks, 1, 1, stage.smem))]
+    assert st.restrict_calls(intervals, sizes) == {
+        "K23 n=33": [1, pytest.approx(0.002), pytest.approx(0.002)],
+        "K23 n=129": [2, pytest.approx(0.007), pytest.approx(0.0035)],
+        "K9 n=129": [1, pytest.approx(0.001), pytest.approx(0.001)]}
 
 
 def test_stage_calls_map_k16_on_the_fold_stage():

@@ -693,18 +693,24 @@ def _tap3(a, b, c):
 
 
 def emulate_restrict(plan, e, r, h, e_halo_rows=1, close_last=True, k_edge_select=True,
-                     seg=None, fault=None):
+                     seg=None, fault=None, msplit=False):
     """One launch of the restriction stage as the kernel runs it. ``e``
     and ``r`` are tuples of one field (K3, K18; K30, K39: a slab as
-    ``seg`` says) or of the pair (red, black) (K9). ``e_halo_rows`` 0
-    loads e without its first halo row, ``close_last`` False leaves the
-    last fine plane of each box out of the i taps of its last coarse
-    plane, ``k_edge_select`` False reads K18's k-edge neighbours from the
-    tile, ``fault`` "order" applies the k taps before the j taps and
+    ``seg`` says) or of the pair (red, black) (K9; K23 where ``msplit``,
+    on K9's plan: the residual's O terms k - 1 before k + 1, the k-edge
+    neighbours selects of the point's own value, the coarse fold out).
+    ``e_halo_rows`` 0 loads e without its first halo row, ``close_last``
+    False leaves the last fine plane of each box out of the i taps of its
+    last coarse plane, ``k_edge_select`` False reads K18's k-edge
+    neighbours from the tile (K23's as K9 reads them: the guard's 0 and
+    the dead slot), ``fault`` "order" applies the k taps before the j taps,
     "pad_unwritten" leaves a segment block's rows past its interior
-    columns unwritten (all must fail). Returns the coarse field (a
+    columns unwritten, "k9_row" stores K23's coarse rows as K9's (coarse k
+    at ck of rows of nc, in the fold's memory) and "k9_order" sums K23's
+    O terms in K9's order (all must fail). Returns the coarse field (a
     segment's (lc, ljc, nc) block) and how many blocks wrote each point."""
     n, split = plan.n, plan.split
+    assert split or not msplit, "K23 runs on a split plan"
     nc = (n + 1) // 2
     inv_h2 = 1.0 / (h * h)
     we, wr, wa = tps._restrict_widths(plan.bck, split)
@@ -712,7 +718,7 @@ def emulate_restrict(plan, e, r, h, e_halo_rows=1, close_last=True, k_edge_selec
     if seg is not None:
         shape = (seg.lc, seg.ljc, nc)
     else:
-        shape = (nc, nc, nc - 2) if plan.fold else (nc, nc, nc)
+        shape = (nc, nc, nc - 2) if plan.fold or msplit else (nc, nc, nc)
     out = torch.full(shape, NAN)
     writes = torch.zeros(shape, dtype=torch.int32)
     box = None
@@ -734,9 +740,9 @@ def emulate_restrict(plan, e, r, h, e_halo_rows=1, close_last=True, k_edge_selec
                 if seg is not None:
                     _seg_zero_block(out, writes, g, seg, fault)
                 else:
-                    _zero_boundary(out, writes, g, plan.fold)
+                    _zero_boundary(out, writes, g, plan.fold or msplit)
                 _emulate_block(plan, g, e, r, inv_h2, out, writes, (we, wr, wa), (re_, rr_),
-                               e_halo_rows, close_last, k_edge_select, seg, fault)
+                               e_halo_rows, close_last, k_edge_select, seg, fault, msplit)
     return out, writes
 
 
@@ -793,7 +799,7 @@ def _seg_zero_block(out, writes, g, seg, fault=None):
 
 
 def _emulate_block(plan, g, e, r, inv_h2, out, writes, widths, tile_rows, e_halo_rows,
-                   close_last, k_edge_select, seg=None, fault=None):
+                   close_last, k_edge_select, seg=None, fault=None, msplit=False):
     split, fold = plan.split, plan.fold
     we, wr, wa = widths
     re_, rr_ = tile_rows
@@ -874,15 +880,29 @@ def _emulate_block(plan, g, e, r, inv_h2, out, writes, widths, tile_rows, e_halo
             s_ = g["S"]
 
             def residual(own, other, lo, pc):
+                cen = mid[own, a + 1, ke]
                 s = lo + hi[other, a + 1, ke]
                 s = s + mid[other, a, ke]
                 s = s + mid[other, a + 2, ke]
-                s = s + mid[other, a + 1, ke]
-                if pc == 0:
-                    s = s + torch.where(kk > 0, mid[other, a + 1, ke - 1], 0.0)
+                if msplit and pc == 0:
+                    # K23's O: k - 1 (slot kk - 1), then k + 1 (slot kk), the
+                    # k faces' BC copies the point's own value (without the
+                    # selects K9's reads: the guard's 0, the dead slot)
+                    km = torch.where(kk > 0, mid[other, a + 1, ke - 1],
+                                     cen if k_edge_select else 0.0)
+                    kp = mid[other, a + 1, ke]
+                    if k_edge_select:
+                        kp = torch.where(kk + 1 < s_, kp, cen)
+                    first, second = (kp, km) if fault == "k9_order" else (km, kp)
+                    s = s + first
+                    s = s + second
                 else:
-                    s = s + torch.where(kk + 1 < s_, mid[other, a + 1, ke + 1], 0.0)
-                return rt[own, a, kr] - inv_h2 * (s - 6.0 * mid[own, a + 1, ke])
+                    s = s + mid[other, a + 1, ke]
+                    if pc == 0:
+                        s = s + torch.where(kk > 0, mid[other, a + 1, ke - 1], 0.0)
+                    else:
+                        s = s + torch.where(kk + 1 < s_, mid[other, a + 1, ke + 1], 0.0)
+                return rt[own, a, kr] - inv_h2 * (s - 6.0 * cen)
 
             se = residual(ce, co, prev[0], 1)
             so = residual(co, ce, prev[1], 0)
@@ -911,7 +931,7 @@ def _emulate_block(plan, g, e, r, inv_h2, out, writes, widths, tile_rows, e_halo
                 plane = torch.full((rr_, wa), NAN)
                 closed = acc if (p == p1 and not close_last) else acc + q
                 plane[:rows, :x.shape[1]] = closed
-                _coarse_rows(plane, g, ci - 1, split, out, writes, fold, fault)
+                _coarse_rows(plane, g, ci - 1, split, out, writes, fold or msplit, fault)
             acc = q
         else:
             acc = acc + 0.5 * x
@@ -925,7 +945,9 @@ def x_cols(split, pts):
 
 def _coarse_rows(plane, g, ci, split, out, writes, fold=False, fault=None):
     """The closed plane's j taps (then K3's and K18's k taps) into coarse
-    plane ci (K18: coarse k at slot ck - 1; "order": the k taps first)."""
+    plane ci (K18, K23: coarse k at slot ck - 1; "order": the k taps first;
+    "k9_row": K23's rows at K9's coarse k ck of rows of nc, in the fold's
+    memory, what lies past its end dropped)."""
     cj0, cj1, ck0, ck1 = g["cj0"], g["cj1"], g["ck0"], g["ck1"]
     nr, nk = cj1 - cj0, ck1 - ck0
     if split:
@@ -937,6 +959,14 @@ def _coarse_rows(plane, g, ci, split, out, writes, fold=False, fault=None):
     else:
         y = _tap3(plane[0:2 * nr:2], plane[1:2 * nr + 1:2], plane[2:2 * nr + 2:2])
         v = _tap3(y[:, 0:2 * nk:2], y[:, 1:2 * nk + 1:2], y[:, 2:2 * nk + 2:2])
+    if fault == "k9_row":
+        nc = g["nc"]
+        at = ((ci * nc + torch.arange(cj0, cj1)[:, None]) * nc
+              + torch.arange(ck0, ck1)[None, :]).reshape(-1)
+        inside = at < out.numel()
+        out.view(-1)[at[inside]] = v.reshape(-1)[inside]
+        writes.view(-1)[at[inside]] += 1
+        return
     ks = slice(ck0 - 1, ck1 - 1) if fold else slice(ck0, ck1)
     out[ci, cj0:cj1, ks] = v
     writes[ci, cj0:cj1, ks] += 1
