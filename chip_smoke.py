@@ -47,8 +47,10 @@ which fails the run:
      bit, K3 at both h; K1 (a one-pass stage) timed beside its per-sweep form
      (one launch a half-sweep) in the same call, at 65^3 and 257^3 and at
      every level of the main path, 9^3-257^3 (CUDA events, and device time
-     a call from a trace of 20 calls); K26 against K1 + R timed in
-     the same call, and residual_norm_fused (R and a sum) against its plain
+     a call from a trace of 20 calls); K26 (K1's one-pass stage that also
+     writes the residual: fresh (u', r), u untouched, ceil(n_iter / 2)
+     launches a call) bit for bit at n_iter 1-3, both orders, timed against
+     K1 + R in the same call, and residual_norm_fused (R and a sum) against its plain
      version; K1, K2 and K4 (one-pass stages) once more at 129^3, n_iter
      1-3, K2 and K4 timed at n_iter 2 beside the bound from the bytes a
      call needs; K17 and K19 (one-pass fold stages) bit for bit at 65^3,
@@ -178,18 +180,20 @@ which fails the run:
      level runs the j-replicated tier, each in (b)'s outer steps with u
      bitwise equal to (b)'s and each rank's launches as predicted, one
      host-staged wall a rank, and the dry-run twin with its 2D part;
- 13. the packed split-colour stage (ops.pallas_splitcolor): (a) K42 at
-     65^3 and 257^3 on packed arrays of zero-boundary cubes, n_iter 1 and
-     2, both orders, each call launching 2 n_iter times, against its plain
-     version and, within 4 ulp of max|u| (another addition order), K7 on
-     the pair and K1 on the cube; timed against its plain version; (b) the
-     stage bench at 257^3, n_iter 2, launch counts reset just before and
-     read just after: the rect (K1) stage and K1's per-sweep form, the
-     packed (K42) stage, the pair (K7) stage and K7's per-sweep form (one
-     launch a half-sweep each) and the same-bytes floor, interleaved
-     (median of 20 CUDA-event rounds), each with its one-pass bytes and
-     bound, and exactly one launch of each of K1 and K7 a call, 2 n_iter
-     of K42 and of each per-sweep form (counted apart).
+ 13. the packed split-colour stage (ops.pallas_splitcolor): (a) K42 (K7's
+     one-pass stage on the packed array) at 65^3 and 257^3 on packed
+     arrays of zero-boundary cubes, n_iter 1-3, both orders, each call
+     launching ceil(n_iter / 2) times into a fresh array, u2 untouched,
+     bit for bit against its plain version and, within 4 ulp of max|u|
+     (another addition order), K7 on the pair and K1 on the cube; timed
+     against its plain version; (b) the stage bench at 257^3, n_iter 2,
+     launch counts reset just before and read just after: the rect (K1)
+     stage, the packed (K42) stage and the pair (K7) stage, each beside
+     its per-sweep form (one launch a half-sweep), and the same-bytes
+     floor, interleaved (median of 20 CUDA-event rounds), each with its
+     one-pass bytes and bound, K42 against K7's stage, and exactly one
+     launch of each of K1, K42 and K7 a call, 2 n_iter of each per-sweep
+     form (counted apart).
 
 Prints a {"kernels": [...]} line (each kernel's launches summed over the
 257^3 runs of phases 4, 6, 7, 8, 10, 11 and 12 (all four ranks of 10c,
@@ -507,27 +511,6 @@ def bound(name, points, inputs, outputs):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def split_stage_bytes(ps, n, red_first, prolong=False, from_zero=False):
-    """The bytes a K7 stage call (K10's, ``prolong``, black first; K8's,
-    ``from_zero``) at n^3 must move, counted in the card's 32-byte sectors:
-    the fresh pair written, the second colour read whole; of the first
-    half-sweep's colour only the slots that no half-sweep updates (the
-    boundary rows and dead slots, which the output keeps); of each colour's
-    f its live slots; K10's coarse correction read whole. K8 reads no pair:
-    only the f's and the written pair count."""
-    _, live_r, live_b = ps._masks(n, "cpu")
-
-    def sectors(mask):
-        flat = mask.reshape(-1)
-        flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 8)])
-        return int(flat.view(-1, 8).any(1).sum())
-
-    first = live_r if red_first and not prolong else live_b
-    pair_read = 0 if from_zero else sectors(torch.ones_like(live_r)) + sectors(~first)
-    total = 2 * sectors(torch.ones_like(live_r)) + pair_read + sectors(live_r) + sectors(live_b)
-    return 32 * total + (4 * ((n + 1) // 2) ** 3 if prolong else 0)
-
-
 def field_err(got, want):
     err = float((got.double() - want.double()).abs().max())
     tol = FIELD_ULPS * float(np.spacing(np.float32(want.abs().max().item())))
@@ -538,6 +521,8 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
     """Phase 2: each kernel against its plain version at 65^3 and 257^3
     (the mixed ones with the pin planes of the electrospray problem es),
     and K19 and K24 at 17^3."""
+    from multigrid_parallel_tpu_torch.utils.timing import split_stage_bytes
+
     results = {name: {"max_abs_err": 0.0} for name in SOURCES}
 
     def record(name, n, label, got, want, t_kernel=None, t_plain=None, io=None, points=None,
@@ -620,29 +605,35 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
         check(torch.equal(r27, pk.residual_df_plain(*state, h)),
               f"residual_df_fused n={n}: r not bitwise equal")
 
-        # K26: the pre-smoothing stage and its residual, against K1 then R
-        for n_iter in (1, 2):
+        # K26: the pre-smoothing stage and its residual (one launch of K1's
+        # stage that writes r), against K1 then R; fresh (u', r), u untouched
+        for n_iter in (1, 2, 3):
             for red_first in (True, False):
                 want_u, want_r = pk.rb_smooth_residual_plain(u, f, h, n_iter, red_first)
-                got_u, got_r = pk.rb_smooth_residual_fused(u.clone(), f, h, n_iter, red_first)
+                u0 = u.clone()
+                before = pk.LAUNCHES["rb_smooth_residual_fused"]
+                got_u, got_r = pk.rb_smooth_residual_fused(u, f, h, n_iter, red_first)
+                calls = pk.LAUNCHES["rb_smooth_residual_fused"] - before
+                torch.cuda.synchronize()
                 label = f"n_iter={n_iter}_" + ("red_first" if red_first else "black_first")
+                check(torch.equal(u, u0), f"rb_smooth_residual_fused n={n} {label}: u changed")
+                check(calls == (n_iter + 1) // 2,
+                      f"rb_smooth_residual_fused n={n} {label}: {calls} launches")
                 times = ()
                 if n_iter == 2 and red_first:  # the pre-smoother of the main paths
-                    uk = u.clone()
-                    times = (time_ms(lambda: pk.rb_smooth_residual_fused(uk, f, h, 2, True)),
+                    times = (time_ms(lambda: pk.rb_smooth_residual_fused(u, f, h, 2, True)),
                              time_ms(lambda: pk.rb_smooth_residual_plain(u, f, h, 2, True)))
                 record("rb_smooth_residual_fused", n, label + "_u", got_u, want_u)
                 record("rb_smooth_residual_fused", n, label + "_r", got_r, want_r, *times,
                        io=((u, f), (got_u, got_r)))
                 check(torch.equal(got_u, want_u) and torch.equal(got_r, want_r),
                       f"rb_smooth_residual_fused n={n} {label}: not bitwise equal")
-        uk = u.clone()
         fused_ms = results["rb_smooth_residual_fused"]["ms"]
-        pair_ms = time_ms(lambda: (pk.rb_smooth_fused(uk, f, h, 2, True),
-                                   pk.residual_fused(uk, f, h)))
+        pair_ms = time_ms(lambda: pk.residual_fused(pk.rb_smooth_fused(u, f, h, 2, True), f, h))
         results["rb_smooth_residual_fused"]["pair_ms"] = pair_ms
         print(f"[kernel] rb_smooth_residual_fused   n={n:3d} K26_ms={fused_ms:.4f} "
-              f"K1+R_ms={pair_ms:.4f} K26/(K1+R)={fused_ms / pair_ms:.3f}")
+              f"K1+R_ms={pair_ms:.4f} K26/(K1+R)={fused_ms / pair_ms:.3f} bound_ms="
+              f"{results['rb_smooth_residual_fused']['bound_ms']:.4f} (K26's bytes)")
         nrm = pk.residual_norm_fused(u, f, h)
         nrm_ref = pk.residual_norm_plain(u, f, h)
         rel = abs(float(nrm) - float(nrm_ref)) / float(nrm_ref)
@@ -710,7 +701,7 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
                 times = (time_ms(lambda: ps.rb_smooth_split(*ek, *r2, h, 2, True)),
                          time_ms(lambda: ps.rb_smooth_split_plain(*e2, *r2, h, 2, True)))
             record_pair("rb_smooth_split", label, got, want, times,
-                        io=((split_stage_bytes(ps, n, True),), ()))
+                        io=((split_stage_bytes(n, True),), ()))
             times = ()
             if red_first:
                 times = (time_ms(lambda: ps.rb_smooth_split_from_zero(*r2, h, 2, True)),
@@ -718,7 +709,7 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
             record_pair("rb_smooth_split_from_zero", label,
                         ps.rb_smooth_split_from_zero(*r2, h, 2, red_first),
                         ps.rb_smooth_split_from_zero_plain(*r2, h, 2, red_first), times,
-                        io=((split_stage_bytes(ps, n, True, from_zero=True),), ()))
+                        io=((split_stage_bytes(n, True, from_zero=True),), ()))
         times = (time_ms(lambda: ps.residual_restrict_split(*e2, *r2, h)),
                  time_ms(lambda: ps.residual_restrict_split_plain(*e2, *r2, h)))
         rc = ps.residual_restrict_split(*e2, *r2, h)
@@ -733,7 +724,7 @@ def compare_kernels(pk, ps, pm, pmf, pms, es, dev):
             record_pair("prolong_smooth_split", f"n_iter={n_iter}_",
                         ps.prolong_smooth_split(ec, *e2, *r2, h, n_iter),
                         ps.prolong_smooth_split_plain(ec, *e2, *r2, h, n_iter), times,
-                        io=((split_stage_bytes(ps, n, False, prolong=True),), ()))
+                        io=((split_stage_bytes(n, False, prolong=True),), ()))
         split_state = [x for t in state for x in ps.pack_split(t)]
         for name, args in (("residual_df_norm_split", split_state),
                            ("df_step_split", split_state[:4] + list(d2) + split_state[4:])):
@@ -2950,15 +2941,18 @@ def sharded2d_phase(dev, card, launches, results, fused):
 
 
 def compare_splitcolor(dev, results):
-    """Phase 13a: K42 against its plain version at 65^3 and 257^3 on
-    packed arrays of numpy-seeded zero-boundary cubes, n_iter 1 and 2, both
-    orders, each call launching exactly 2 n_iter times; against K7 (its
-    pair joined along j) and K1 (through unpack_split) within FIELD_ULPS of
-    max|u|, the gap printed in ulps (another addition order); K42 and its
-    plain version timed at n_iter 2, red first."""
+    """Phase 13a: K42 (K7's one-pass stage on the packed array) against its
+    plain version at 65^3 and 257^3 on packed arrays of numpy-seeded
+    zero-boundary cubes, n_iter 1-3, both orders, bit for bit, into a fresh
+    array with u2 left as it is, each call launching exactly ceil(n_iter /
+    2) times; against K7 (its pair joined along j) and K1 (through
+    unpack_split) within FIELD_ULPS of max|u|, the gap printed in ulps
+    (another addition order); K42 and its plain version timed at n_iter 2,
+    red first."""
     from multigrid_parallel_tpu_torch.ops import pallas3d as pk
     from multigrid_parallel_tpu_torch.ops import pallas_split as ps
     from multigrid_parallel_tpu_torch.ops import pallas_splitcolor as psc
+    from multigrid_parallel_tpu_torch.utils.timing import split_stage_bytes
 
     name = "rb_smooth_split_fused"
     res = results[name]
@@ -2969,16 +2963,16 @@ def compare_splitcolor(dev, results):
                 .to(dev) for _ in range(2))
         u2, f2 = psc.pack_split(u), psc.pack_split(f)
         pu, pf = ps.pack_split(u), ps.pack_split(f)
-        for n_iter in (1, 2):
+        for n_iter in (1, 2, 3):
             for red_first in (True, False):
                 label = f"n_iter={n_iter}_" + ("red_first" if red_first else "black_first")
                 want = psc.rb_smooth_split_fused_plain(u2, f2, h, n_iter, red_first)
                 before = psc.LAUNCHES[name]
-                got = u2.clone()
-                check(psc.rb_smooth_split_fused(got, f2, h, n_iter, n, red_first) is got,
-                      f"{name}: not in place")
+                u0 = u2.clone()
+                got = psc.rb_smooth_split_fused(u2, f2, h, n_iter, n, red_first)
                 calls = psc.LAUNCHES[name] - before
                 torch.cuda.synchronize()
+                check(got is not u2 and torch.equal(u2, u0), f"{name}: u2 changed")
                 err, tol, exact = field_err(got, want)
                 k7 = torch.cat(ps.rb_smooth_split(pu[0].clone(), pu[1].clone(), *pf, h, n_iter,
                                                   red_first), dim=1)
@@ -2988,22 +2982,23 @@ def compare_splitcolor(dev, results):
                 gap1 = float((psc.unpack_split(got) - k1).abs().max())
                 times = ()
                 if n_iter == 2 and red_first:
-                    uk = u2.clone()
-                    times = (time_ms(lambda: psc.rb_smooth_split_fused(uk, f2, h, 2, n, True)),
+                    times = (time_ms(lambda: psc.rb_smooth_split_fused(u2, f2, h, 2, n, True)),
                              time_ms(lambda: psc.rb_smooth_split_fused_plain(u2, f2, h, 2, True)))
                 print(f"[kernel] {name:26s} n={n:3d} {label:22s} max_abs_err={err:.3e} "
                       f"(tol {tol:.3e}) bitwise_equal={exact} launches={calls} | vs K7 "
                       f"{gap7 / ulp:.1f} ulp, vs K1 {gap1 / ulp:.1f} ulp of max|u| "
                       f"{float(want.abs().max()):.4f} (tol {FIELD_ULPS})"
                       + (f" kernel_ms={times[0]:.4f} plain_ms={times[1]:.4f}" if times else ""))
-                check(err <= tol, f"{name} n={n} {label}: {err} > {tol}")
-                check(calls == 2 * n_iter, f"{name} n={n} {label}: {calls} launches")
+                check(err <= tol and exact, f"{name} n={n} {label}: {err} > {tol}, or not "
+                      "bit for bit")
+                check(calls == (n_iter + 1) // 2, f"{name} n={n} {label}: {calls} launches")
                 check(max(gap7, gap1) <= FIELD_ULPS * ulp,
                       f"{name} n={n} {label}: {gap7 / ulp} / {gap1 / ulp} ulp from K7 / K1")
                 res["max_abs_err"] = max(res["max_abs_err"], err)
                 if times:
                     res["ms"], res["plain_ms"] = times
-                    res["bound_ms"], res["bound_by"] = bound(name, n ** 3, (u2, f2), (u2,))
+                    res["bound_ms"], res["bound_by"] = bound(
+                        name, n ** 3, (split_stage_bytes(n, True, packed=True),), ())
 
 
 def splitcolor_phase(dev, card, launches, results):
@@ -3013,6 +3008,7 @@ def splitcolor_phase(dev, card, launches, results):
     just before and read just after (13b)."""
     from multigrid_parallel_tpu_torch.ops import pallas3d as pk
     from multigrid_parallel_tpu_torch.ops import pallas_split as ps
+    from multigrid_parallel_tpu_torch.ops import pallas_splitcolor as psc
     from multigrid_parallel_tpu_torch.utils.timing import profile_splitcolor_stage
 
     t_phase = time.perf_counter()
@@ -3027,19 +3023,24 @@ def splitcolor_phase(dev, card, launches, results):
         print(f"[splitcolor stage {n}^3] {label}: {1e3 * seconds:.4f} ms, "
               f"{nbytes / seconds / 1e9:.1f} GB/s of {nbytes / 1e6:.1f} MB one-pass, bound "
               f"{1e3 * bound_s:.4f} ms ({bound_s / seconds:.1%}) | card: {card}")
-    check(len(rows) == 6 and all(np.isfinite(s) and s > 0 for _, s, _, _ in rows),
+    check(len(rows) == 7 and all(np.isfinite(s) and s > 0 for _, s, _, _ in rows),
           "profile_splitcolor_stage: rows")
+    k42_s, k7_s = rows[2][1], rows[4][1]
+    print(f"[splitcolor stage {n}^3] packed K42 / pair K7 one-pass = {k42_s / k7_s:.3f} "
+          f"({1e3 * k42_s:.4f} / {1e3 * k7_s:.4f} ms; K42's bound from the bytes it needs "
+          f"{results['rb_smooth_split_fused']['bound_ms']:.4f} ms) | card: {card}")
     ran = {k: v for k, v in counts.items() if v}
-    per_sweep = {**ps.PER_SWEEP_LAUNCHES, **pk.PER_SWEEP_LAUNCHES}
-    print(f"[launches {n}^3 splitcolor stage bench] {json.dumps(ran)} | per-sweep K7 and K1 "
-          f"{json.dumps(per_sweep)}")
+    per_sweep = {**ps.PER_SWEEP_LAUNCHES, **pk.PER_SWEEP_LAUNCHES, **psc.PER_SWEEP_LAUNCHES}
+    print(f"[launches {n}^3 splitcolor stage bench] {json.dumps(ran)} | per-sweep K7, K1 and "
+          f"K42 {json.dumps(per_sweep)}")
     calls = STAGE_REPS + 1  # a warm-up call and STAGE_REPS timed ones
-    want = {"rb_smooth_split_fused": 2 * n_iter * calls,
+    want = {"rb_smooth_split_fused": calls,
             "rb_smooth_fused": calls, "rb_smooth_split": calls}  # one one-pass launch a call
     check(ran == want, f"stage bench launches {ran}, {want} expected")
     check(per_sweep == {"rb_smooth_split_per_sweep": 2 * n_iter * calls,
-                        "rb_smooth_fused_per_sweep": 2 * n_iter * calls},
-          f"stage bench per-sweep K7 and K1 launches {per_sweep}")
+                        "rb_smooth_fused_per_sweep": 2 * n_iter * calls,
+                        "rb_smooth_split_fused_per_sweep": 2 * n_iter * calls},
+          f"stage bench per-sweep K7, K1 and K42 launches {per_sweep}")
     for name in SOURCES:
         launches[name] += counts[name]
     print(f"[phase 13] {time.perf_counter() - t_phase:.1f} s")

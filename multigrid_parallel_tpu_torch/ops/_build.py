@@ -62,7 +62,6 @@ _SIGNATURES = {
     # the streaming restrictions: pointers, n, inv_h2, the plan (bci, bcj,
     # bck, chunks, threads, smem), stream
     "mg_residual_restrict": (_P, _P, _P, _I, _F) + (_I,) * 6 + (_P,),
-    "mg_rb_last_sweep_residual": (_P, _P, _P, _I, _F, _F, _I, _P),
     "mg_residual_df": (_P, _P, _P, _P, _P, _I, _F, _P),
     "mg_df_step_partials": (_I,),
     "mg_df_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
@@ -76,10 +75,13 @@ _SIGNATURES = {
     # the rect stages: the plan, then its box flag
     "mg_rect_stage": (_P,) * 3 + (_I, _F, _I, _I) + (_I,) * 7 + (_P,),
     "mg_rect_prolong_stage": (_P,) * 4 + (_I, _F, _I) + (_I,) * 7 + (_P,),
+    # K26's: out, r, u, f, n, h2, inv_h2, red_first, n_iter, the plan and its box flag
+    "mg_rect_resid_stage": (_P,) * 4 + (_I, _F, _F, _I, _I) + (_I,) * 7 + (_P,),
     "mg_split_df_partials": (_I,),
     "mg_split_residual_df_norm": (_P,) * 12 + (_I, _F, _P),
     "mg_split_df_step": (_P,) * 18 + (_I, _F, _P),
     "mg_splitcolor_half_sweep": (_P, _P, _I, _F, _I, _P),
+    "mg_splitcolor_stage": (_P,) * 3 + (_I, _F, _I, _I) + (_I,) * 6 + (_P,),
     # the full-layout mixed stages (rect.cuh, kMixed): the rect stages' arguments with
     # the pins after the fields
     "mg_mixed_stage": (_P,) * 4 + (_I, _F, _I, _I) + (_I,) * 7 + (_P,),

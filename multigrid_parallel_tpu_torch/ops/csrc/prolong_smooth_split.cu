@@ -24,7 +24,7 @@
 // the 5 coarse k its 4 slots need, from coarse planes that stream through
 // a ring of 3 in shared memory beside the fine rings.
 //
-// Bound: device-memory bytes, those the function needs (chip_smoke.
+// Bound: device-memory bytes, those the function needs (utils.timing.
 // split_stage_bytes, in 32-byte sectors): K7's, black first (the pair
 // written, e_r read whole, e_b where not live, rr and rb where live) plus
 // ec, 8.59 MB: 178.2 MB at 257^3, 0.0532 ms at 3.35 TB/s.

@@ -28,8 +28,8 @@
 // because a colour reads only the other colour:
 //   u <- (sum6(u) - h^2 f) * (1/6)   on interior points of `color`,
 // one thread a point, ~10 bytes a point a launch, 4 launches a call at
-// n_iter 2. K26 (rb_smooth_residual.cu) runs its stage on that half-sweep
-// too.
+// n_iter 2. K26 (rb_smooth_residual.cu) is this stage with the residual
+// (rect.cuh, RESID).
 #include "rect.cuh"
 #include "stencil.cuh"
 

@@ -9,7 +9,7 @@
 //
 // K7 is one launch of stage_body (split.cuh) for n_iter <= 2: one pass
 // over device memory. Bound: device-memory bytes, those the function needs
-// (chip_smoke.split_stage_bytes, in 32-byte sectors): the fresh pair
+// (utils.timing.split_stage_bytes, in 32-byte sectors): the fresh pair
 // written and the second colour read whole, of each f its live slots, and
 // of the first colour only what no half-sweep rewrites (boundary rows and
 // dead slots, 4.6% of it): 169.6 MB at 257^3, 0.0506 ms at 3.35 TB/s; the
@@ -59,7 +59,7 @@
 // as the plain version does from a zero pair, and every other slot (dead
 // slots, boundary rows) is written out as 0: the fresh pair needs no
 // initialising. Bound: device-memory bytes, the live slots of each f read
-// and the pair written (chip_smoke.split_stage_bytes, from_zero): 134.2 MB
+// and the pair written (utils.timing.split_stage_bytes, from_zero): 134.2 MB
 // at 257^3, 0.0401 ms at 3.35 TB/s. Its first form was four
 // launches a call at n_iter 2, a half-sweep from zero, a fresh one and two
 // in place, each a pass over a colour, f and the other colour. n_iter > 2:

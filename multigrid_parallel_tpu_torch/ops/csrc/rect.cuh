@@ -99,6 +99,20 @@
 // value: the x faces whole, the y faces, and (kMixed) the z faces, each
 // node exactly once whatever the plan, and never before its source's last
 // half-sweep. The fold stores no z face.
+//
+// RESID (K26, rb_smooth_residual.cu): kRect's stage with u loaded (K1's)
+// that also writes the residual of its result, f - (1/h^2)(sum6(u') -
+// 6 u'), 0 on the boundary, into a second fresh field (resid_store). Two
+// changes. (1) Halos of H + 1 planes, rows and (k_halo >= H + 1) slots: the
+// regions shrink from the loaded box as before, so after H half-sweeps
+// both colours are final one point past the owned box, where the residual
+// of its edge reads. (2) Plane q's residual is taken, and u' and r of
+// plane q stored, a step after plane q + 1's last half-sweep (the
+// wavefront's step q + 2 H + 2, when planes q - 1 .. q + 1 are final), so
+// each colour's ring holds 2 H + 5 planes, two more than K1's; the box
+// stores after its last half-sweep as before. The residual sums the six
+// neighbours of a point, all of the other colour, in ops3.neighbor_sum's
+// order (i - 1, i + 1, j - 1, j + 1, k - 1, k + 1), as R's plain version.
 #pragma once
 
 #include "seg.cuh"
@@ -164,6 +178,12 @@ struct StageArgs {
   int n;
   float h2;
   int bi, bj, bk, k_halo;  // the plan (pallas_split._stage_plan, rect)
+};
+
+// RESID (K26): the residual's fresh field and 1 / h^2 beside K1's arguments.
+struct ResidStageArgs : StageArgs {
+  float* r;
+  float inv_h2;
 };
 
 // kSeg: the launch's segments (in, f: rows at GLOBAL plane g0 + t; out the
@@ -312,10 +332,12 @@ __host__ __device__ inline int tile_planes(int bi, int H, bool box) {
 
 // Shared-memory bytes of the two colours' tile planes: the same formula as
 // pallas_split._stage_smem (rect); the launchers reject a plan that differs.
+// ``resid`` (K26): halos of H + 1, and a wavefront ring 2 planes deeper.
 __host__ __device__ inline long long stage_smem_bytes(int n, int n_iter, int bi, int bj, int bk,
-                                                      int k_halo, bool box) {
-  const int H = 2 * n_iter;
-  return 2LL * tile_planes(bi, H, box) * (bj + 2 * H) * tile_width(n, bk, k_halo) * 4;
+                                                      int k_halo, bool box, bool resid = false) {
+  const int H = 2 * n_iter, HH = H + resid;
+  const int planes = box ? tile_planes(bi, HH, true) : stage_depth(H) + 2 * resid;
+  return 2LL * planes * (bj + 2 * HH) * tile_width(n, bk, k_halo) * 4;
 }
 
 // The coarse tile of a prolongation stage (K4, K19), beside the fine one:
@@ -341,17 +363,18 @@ inline int stage_blocks(const Args& a) {
 
 // 0 when the plan is one the stage kernels take: n_iter 1 or 2, whole rows
 // or k tiles of a multiple of 4 slots with a halo of a multiple of 4 at
-// least H, the shared memory it names (`smem` less any extra the caller
-// adds), at most ``max_threads`` threads (the kernel's launch bound).
+// least H (``resid``, K26: H + 1, and no wider than a tile), the shared
+// memory it names (`smem` less any extra the caller adds), at most
+// ``max_threads`` threads (the kernel's launch bound).
 inline int stage_plan_error(const StageArgs& a, int n_iter, int threads, long long smem,
-                            bool box, int max_threads = kStageMaxThreads) {
-  const int S = slots(a.n), H = 2 * n_iter;
+                            bool box, int max_threads = kStageMaxThreads, bool resid = false) {
+  const int S = slots(a.n), H = 2 * n_iter + resid;
   const bool whole_rows = a.k_halo == 0 && a.bk == S;
   const bool k_tiles = a.k_halo >= H && a.k_halo % 4 == 0 && a.bk % 4 == 0 && a.bk >= 4 &&
-                       a.bk < S;
+                       a.bk < S && (!resid || a.bk >= a.k_halo);
   if (a.n < 3 || (n_iter != 1 && n_iter != 2) || a.bi < 1 || a.bj < 1 ||
       !(whole_rows || k_tiles) || threads < 32 || threads > max_threads || threads % 32 ||
-      smem != stage_smem_bytes(a.n, n_iter, a.bi, a.bj, a.bk, a.k_halo, box))
+      smem != stage_smem_bytes(a.n, n_iter, a.bi, a.bj, a.bk, a.k_halo, box, resid))
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -490,6 +513,52 @@ __device__ inline void seg_tile_store(const Args& a, float* t0, float* t1, const
     const float* s = colour_row(t0, t1, t, j, color, color0) + ((k - 1 - p) >> 1);
     float* d = store_row(a, q, j) + k;
     for (int m = 0; k + 32 * m < t.kr1; ++m) d[32 * m] = s[16 * m];
+  }
+}
+
+// K26's store (RESID): tile_store's points of plane q to a.out and the
+// residual of each to a.r, f - inv_h2 (sum6 - 6 u'), 0 at a boundary point;
+// the six neighbours of a point are the other colour's, read from the tile
+// planes q - 1 (lo), q (mid) and q + 1 (hi) of the rings (stage colour 0's,
+// then 1's): the same slot in planes q -+ 1 and rows j -+ 1 (W floats
+// apart), and in row j the slots of k - 1 and k + 1, slot - 1 + p and
+// slot + p. Summed in ops3.neighbor_sum's order. Run once planes q - 1 ..
+// q + 1 are final.
+__device__ inline void resid_store(const ResidStageArgs& a, const float* lo0, const float* lo1,
+                                   const float* m0, const float* m1, const float* hi0,
+                                   const float* hi1, const Geom& t, int q, int warp, int lane,
+                                   int nwarps) {
+  const int n = t.n, W = t.W, k = t.kr0 + lane, p = 1 - (k & 1), slot = (k - 1 - p) >> 1;
+  const bool plane = q >= 1 && q <= n - 2;
+  // the lane's slot in the tile row of field row j and colour `color`, in
+  // the rings' planes r0 (stage colour 0) and r1
+  auto at_slot = [&](const float* r0, const float* r1, int j, int color) {
+    return ((color ^ a.color0) ? r1 : r0) + (j - t.jb0) * W - t.kb0 + slot;
+  };
+  for (int j = t.j0 + warp; j < t.j1; j += nwarps) {
+    const int color = ((q + j) & 1) ^ p ^ 1;
+    const float* s = at_slot(m0, m1, j, color);
+    const float* xl = at_slot(lo0, lo1, j, 1 - color);
+    const float* xh = at_slot(hi0, hi1, j, 1 - color);
+    const float* xm = at_slot(m0, m1, j, 1 - color);
+    const bool row = plane && j >= 1 && j <= n - 2;
+    const int at = (q * n + j) * n + k;
+    for (int m = 0; k + 32 * m < t.kr1; ++m) {
+      const int o = 16 * m, kt = k + 32 * m;
+      const float u = s[o];
+      float r = 0.0f;
+      if (row && kt >= 1 && kt <= n - 2) {
+        float sum = xl[o];
+        sum = sum + xh[o];
+        sum = sum + xm[o - W];
+        sum = sum + xm[o + W];
+        sum = sum + xm[o - 1 + p];
+        sum = sum + xm[o + p];
+        r = __ldg(a.f + at + 32 * m) - a.inv_h2 * (sum - 6.0f * u);
+      }
+      a.out[at + 32 * m] = u;
+      a.r[at + 32 * m] = r;
+    }
   }
 }
 
@@ -680,11 +749,15 @@ __device__ inline const float* f_row_of(const Args& a, int q, int j, int pp) {
 // geometry, row lanes, color0), run on plane q once it has arrived and
 // before any half-sweep reads it (box_body: apply_row, the same a row).
 // ZERO: the initial guess is zero, nothing is loaded. L: the layout (the
-// header); Args: StageArgs, or SegStageArgs for kSeg.
-template <int NITER, bool ZERO, Layout L = Layout::kRect, class Prep, class Args>
+// header); Args: StageArgs, or SegStageArgs for kSeg. RESID (K26, kRect,
+// ResidStageArgs): halos of HH = H + 1, rings of 2 H + 5 planes, and
+// resid_store a step later than tile_store (the header).
+template <int NITER, bool ZERO, Layout L = Layout::kRect, bool RESID = false, class Prep,
+          class Args>
 __device__ void stage_body(const Args& a, float* smem, Prep prep) {
-  constexpr int H = 2 * NITER, D = stage_depth(H);
-  const Geom t = geometry(a, H);
+  static_assert(!RESID || (L == Layout::kRect && !ZERO && !Prep::kActive), "K26 is K1's stage");
+  constexpr int H = 2 * NITER, HH = H + RESID, D = stage_depth(H) + 2 * RESID;
+  const Geom t = geometry(a, HH);
   if constexpr (L == Layout::kSeg) {
     if (t.i0 >= t.i1) return;  // a pad rank's block
   }
@@ -713,10 +786,10 @@ __device__ void stage_body(const Args& a, float* smem, Prep prep) {
   // it, the f of its first row fetched into registers a step ahead
   auto region = [&](int s, int q, int& jl, int& jh, int& kl, int& kh) {
     jl = max(t.jb0 + s, 1);
-    jh = min(t.j1 + H - s, n - 1);
+    jh = min(t.j1 + HH - s, n - 1);
     kl = t.k0 == 0 ? 0 : t.k0 - a.k_halo + s;
     kh = t.k1 == t.S ? t.S : t.k1 + a.k_halo - s;
-    return q >= max(t.i0 - H + s, 1) && q < min(t.i1 + H - s, n - 1);
+    return q >= max(t.i0 - HH + s, 1) && q < min(t.i1 + HH - s, n - 1);
   };
   auto colour_of = [&](int s) { return (s - 1) & 1 ? 1 - a.color0 : a.color0; };
   auto f_row = [&](int q, int j, int pp) { return f_row_of<L>(a, q, j, pp); };
@@ -738,8 +811,8 @@ __device__ void stage_body(const Args& a, float* smem, Prep prep) {
   cp_async_commit();
   fetch(t.ia);
   // the last step writes the last owned plane, i1 - 1, finished by
-  // half-sweep H at step i1 - 1 + 2 H
-  for (int p = t.ia; p <= t.i1 + 2 * H; ++p) {
+  // half-sweep H at step i1 - 1 + 2 H (RESID: its residual a step later)
+  for (int p = t.ia; p <= t.i1 + 2 * H + RESID; ++p) {
     if (p + 1 < t.ib) load(p + 1);
     cp_async_commit();  // an empty group past the last plane keeps the count
     cp_async_wait_all_but_one();
@@ -773,7 +846,12 @@ __device__ void stage_body(const Args& a, float* smem, Prep prep) {
     // both colours' last half-sweeps (H - 1 and H) are done with plane
     // p - 1 - 2 H: half-sweep H finished it a step ago
     const int qb = p - 1 - 2 * H;
-    if (qb >= t.i0 && qb < t.i1) {
+    if constexpr (RESID) {  // plane qb + 1 was finished a step ago too
+      const int q = qb - 1, ql = max(q - 1, 0);
+      if (q >= t.i0 && q < t.i1)
+        resid_store(a, ring(0, ql), ring(1, ql), ring(0, q), ring(1, q), ring(0, q + 1),
+                    ring(1, q + 1), t, q, warp, lane, nwarps);
+    } else if (qb >= t.i0 && qb < t.i1) {
       if constexpr (mixed_bc(L)) {
         mixed_store<L>(store_base(a), ring(0, qb), ring(1, qb), t, qb, a.color0, a.pin, warp,
                        lane, nwarps, stored_lo(a), stored_hi(a));
@@ -796,17 +874,19 @@ __device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n"
 // stores as stage_body, so the same values; Prep's coarse planes all
 // resident too (its depth). (f held in shared memory beside the tiles
 // measured no faster: PERF.md.)
-template <int NITER, bool ZERO, Layout L = Layout::kRect, class Prep, class Args>
+template <int NITER, bool ZERO, Layout L = Layout::kRect, bool RESID = false, class Prep,
+          class Args>
 __device__ void box_body(const Args& a, float* smem, Prep prep) {
-  constexpr int H = 2 * NITER;
-  const Geom t = geometry(a, H);
+  static_assert(!RESID || (L == Layout::kRect && !ZERO && !Prep::kActive), "K26 is K1's stage");
+  constexpr int H = 2 * NITER, HH = H + RESID;
+  const Geom t = geometry(a, HH);
   if constexpr (L == Layout::kSeg) {
     if (t.i0 >= t.i1) return;  // a pad rank's block
   }
   if constexpr (L == Layout::kSegRect) {
     if (t.i0 >= t.i1 || t.j0 >= t.j1) return;  // a pad rank's block
   }
-  const int n = a.n, planes = tile_planes(a.bi, H, true), q0 = t.i0 - H;
+  const int n = a.n, planes = tile_planes(a.bi, HH, true), q0 = t.i0 - HH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
   const RowLanes rl = row_lanes(a, t);
   auto tile = [&](int c, int q) { return smem + (c * planes + q - q0) * t.P; };
@@ -834,8 +914,8 @@ __device__ void box_body(const Args& a, float* smem, Prep prep) {
   }
   for (int s = 1; s <= H; ++s) {
     const int c = (s - 1) & 1, color = c ? 1 - a.color0 : a.color0;
-    const int qa = max(t.i0 - H + s, 1), qb = min(t.i1 + H - s, n - 1);
-    const int jl = max(t.jb0 + s, 1), jh = min(t.j1 + H - s, n - 1);
+    const int qa = max(t.i0 - HH + s, 1), qb = min(t.i1 + HH - s, n - 1);
+    const int jl = max(t.jb0 + s, 1), jh = min(t.j1 + HH - s, n - 1);
     const int kl = t.k0 == 0 ? 0 : t.k0 - a.k_halo + s;
     const int kh = t.k1 == t.S ? t.S : t.k1 + a.k_halo - s;
     const int rows = jh - jl, count = rows > 0 && qb > qa ? (qb - qa) * rows : 0;
@@ -851,7 +931,10 @@ __device__ void box_body(const Args& a, float* smem, Prep prep) {
     __syncthreads();
   }
   for (int q = t.i0; q < t.i1; ++q) {
-    if constexpr (mixed_bc(L)) {
+    if constexpr (RESID) {  // planes q - 1 .. q + 1 are all held
+      resid_store(a, tile(0, q - 1), tile(1, q - 1), tile(0, q), tile(1, q), tile(0, q + 1),
+                  tile(1, q + 1), t, q, warp, lane, nwarps);
+    } else if constexpr (mixed_bc(L)) {
       mixed_store<L>(store_base(a), tile(0, q), tile(1, q), t, q, a.color0, a.pin, warp, lane,
                      nwarps, stored_lo(a), stored_hi(a));
     } else if constexpr (L == Layout::kSegRect) {

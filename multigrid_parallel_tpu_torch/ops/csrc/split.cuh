@@ -177,6 +177,16 @@ struct StageGeom {
 // The most threads a stage block runs (its kernels' launch bound).
 constexpr int kStageMaxThreads = 640;
 
+// PACKED: K42's packed array (rb_smooth_splitcolor.cu), the pair joined
+// along j in one tensor of (n, 2 n, S), so a colour's plane q starts 2 n S
+// floats after plane q - 1, not n S; the colours' bases (out, in and f by
+// stage colour) are the halves' (offsets 0 and n S). The offset of row
+// (q, j) from its colour's base, the one place that knows the pitch.
+template <bool PACKED = false>
+__host__ __device__ inline int row_at(int n, int S, int q, int j) {
+  return (q * (PACKED ? 2 * n : n) + j) * S;
+}
+
 // Tile planes in each colour's ring: p + 1 .. p - 2 H - 1 at step p.
 __host__ __device__ constexpr int stage_depth(int H) { return 2 * H + 3; }
 
@@ -259,7 +269,7 @@ __device__ inline void cp_async_wait_all_but_one() {
 
 // Start copying rows [ja, jb) of the loaded box of plane q of field g into
 // its tile plane.
-template <bool VEC>
+template <bool VEC, bool PACKED = false>
 __device__ inline void tile_load_rows(float* tile, const float* __restrict__ g,
                                       const StageGeom& t, int q, int ja, int jb) {
   constexpr int V = VEC ? 4 : 1;
@@ -267,7 +277,7 @@ __device__ inline void tile_load_rows(float* tile, const float* __restrict__ g,
   for (int v = threadIdx.x; v < count; v += blockDim.x) {
     const int r = v / w, j = ja + r, k = t.ka + (v - r * w) * V;
     float* d = tile + (j - t.jb0) * t.W + (k - t.kb0);
-    const float* s = g + (q * t.n + j) * t.S + k;
+    const float* s = g + row_at<PACKED>(t.n, t.S, q, j) + k;
     if (VEC) {
       cp_async16(d, s);
     } else {
@@ -277,10 +287,10 @@ __device__ inline void tile_load_rows(float* tile, const float* __restrict__ g,
 }
 
 // Start copying the loaded box of plane q of field g into its tile plane.
-template <bool VEC>
+template <bool VEC, bool PACKED = false>
 __device__ inline void tile_load(float* tile, const float* __restrict__ g, const StageGeom& t,
                                  int q) {
-  tile_load_rows<VEC>(tile, g, t, q, t.ja, t.jb);
+  tile_load_rows<VEC, PACKED>(tile, g, t, q, t.ja, t.jb);
 }
 
 // The same for the first half-sweep's colour `color`, whose live slots no
@@ -317,13 +327,13 @@ __device__ inline void tile_zero(float* t0, float* t1, const StageGeom& t, const
 }
 
 // Write the owned box of tile plane q to plane q of field g, a warp a row.
-template <bool VEC>
+template <bool VEC, bool PACKED = false>
 __device__ inline void tile_store(float* __restrict__ g, const float* tile, const StageGeom& t,
                                   int q, int warp, int lane, int nwarps) {
   constexpr int V = VEC ? 4 : 1;
   for (int j = t.j0 + warp; j < t.j1; j += nwarps) {
     const float* s = tile + (j - t.jb0) * t.W - t.kb0;
-    float* d = g + (q * t.n + j) * t.S;
+    float* d = g + row_at<PACKED>(t.n, t.S, q, j);
     for (int k = t.k0 + V * lane; k < t.k1; k += 32 * V) {
       if (VEC) {
         *reinterpret_cast<float4*>(d + k) = *reinterpret_cast<const float4*>(s + k);
@@ -336,13 +346,20 @@ __device__ inline void tile_store(float* __restrict__ g, const float* tile, cons
 
 // nbr_sum on tile planes: the other colour at planes q - 1 (lo), q (mid)
 // and q + 1 (hi), tile offset o of global slot kk, rows W floats apart;
-// the same terms in the same order.
+// the same terms in the same order. KPAIR: K42's order
+// (pallas_splitcolor.py:133-141), the i and j terms left to right, then the
+// same-slot value and the other k neighbour summed first and added as one.
+template <bool KPAIR = false>
 __device__ inline float tile_nbr_sum(const float* lo, const float* mid, const float* hi, int o,
                                      int W, int S, int kk, int p) {
   float s = lo[o];
   s = s + hi[o];
   s = s + mid[o - W];
   s = s + mid[o + W];
+  if constexpr (KPAIR) {
+    const float kn = p == 0 ? (kk > 0 ? mid[o - 1] : 0.0f) : (kk + 1 < S ? mid[o + 1] : 0.0f);
+    return s + (mid[o] + kn);
+  }
   s = s + mid[o];
   if (p == 0) {
     s = s + (kk > 0 ? mid[o - 1] : 0.0f);
@@ -351,6 +368,25 @@ __device__ inline float tile_nbr_sum(const float* lo, const float* mid, const fl
   }
   return s;
 }
+
+// The last two terms of a sum in the vectorised sweep: the same-slot value
+// m and the other k neighbour k, added one at a time (the pair's order) or,
+// KPAIR, summed first and added as one (K42's). A specialised struct, not
+// an ``if constexpr`` in the sweep: that branch changed the pair stages'
+// machine code (``_build --sass``), this keeps it.
+template <bool KPAIR>
+struct KSum;
+template <>
+struct KSum<false> {
+  static __device__ __forceinline__ float add(float s, float m, float k) {
+    s = s + m;
+    return s + k;
+  }
+};
+template <>
+struct KSum<true> {
+  static __device__ __forceinline__ float add(float s, float m, float k) { return s + (m + k); }
+};
 
 __device__ inline float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
@@ -387,12 +423,13 @@ __device__ inline PairFaces pair_faces(const StageArgs& a, int q, int j, int p) 
 // memory; its lane's first group prefetched in ``pre`` where ``use_pre``).
 // VEC: a 4-slot group a lane, 16-byte loads and stores, the other slots
 // of a group keeping their values; else a slot a lane. Each slot takes
-// tile_nbr_sum's terms in its order, then (sum - h2 f) (1/6). MIXED: the
+// tile_nbr_sum's terms in its order (PACKED: K42's, tile_nbr_sum<true>),
+// then (sum - h2 f) (1/6). MIXED: the
 // neighbours in mixed_nbr_sum's order, those across the faces ``fc``
 // selects of the slot's own value (slot kk's k - 1 and k + 1 neighbours
 // are the other colour's slots kk - 1 and kk where p = 0, kk and kk + 1
 // where p = 1).
-template <bool VEC, bool MIXED = false>
+template <bool VEC, bool MIXED = false, bool PACKED = false>
 __device__ inline void sweep_row(float* dst, const float* lo, const float* mid, const float* hi,
                                  const float* __restrict__ f_row, int row, int W, int S, int kl,
                                  int k_end, int p, float h2, int lane, bool use_pre,
@@ -412,7 +449,7 @@ __device__ inline void sweep_row(float* dst, const float* lo, const float* mid, 
         s = s + kp;
         dst[o] = (s - h2 * __ldg(f_row + kk)) * (1.0f / 6.0f);
       } else {
-        dst[o] = (tile_nbr_sum(lo, mid, hi, o, W, S, kk, p) - h2 * __ldg(f_row + kk)) *
+        dst[o] = (tile_nbr_sum<PACKED>(lo, mid, hi, o, W, S, kk, p) - h2 * __ldg(f_row + kk)) *
                  (1.0f / 6.0f);
       }
     }
@@ -504,8 +541,7 @@ __device__ inline void sweep_row(float* dst, const float* lo, const float* mid, 
           s = s + comp(vh, c);
           s = s + comp(vjm, c);
           s = s + comp(vjp, c);
-          s = s + comp(vm, c);
-          s = s + kn[c];
+          s = KSum<PACKED>::add(s, comp(vm, c), kn[c]);
           const int kk = g + c;
           r[c] = kk >= kl && kk < k_end ? (s - h2 * comp(vf, c)) * (1.0f / 6.0f) : comp(old, c);
         }
@@ -577,10 +613,14 @@ struct NoPrep {
 // (1/6) at every live slot of its region, as the plain version does from a
 // zero pair (a MIXED select returns the slot's +0 too), and every other
 // slot is written out as 0. MIXED: the mixed-BC stage (the header).
-template <int NITER, bool VEC, bool ZERO = false, bool MIXED = false, class Prep>
+// PACKED: K42's stage on the packed array, its plane pitch (row_at) and
+// its order of additions (sweep_row); the schedule, plan and regions K7's.
+template <int NITER, bool VEC, bool ZERO = false, bool MIXED = false, bool PACKED = false,
+          class Prep>
 __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
   static_assert(!(ZERO && Prep::kActive), "a zero initial pair has nothing to prepare");
   static_assert(!(MIXED && Prep::kFixedFirst), "the mixed selects read the first colour whole");
+  static_assert(!(PACKED && (MIXED || Prep::kActive)), "K42 is K7's stage on the packed array");
   constexpr int H = 2 * NITER, D = stage_depth(H);
   StageGeom t;
   const int n = a.n, S = slots(n);
@@ -615,9 +655,9 @@ __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
       if constexpr (Prep::kFixedFirst) {
         tile_load_fixed<VEC>(ring(0, q), a.in[0], t, q, a.color0);
       } else {
-        tile_load<VEC>(ring(0, q), a.in[0], t, q);
+        tile_load<VEC, PACKED>(ring(0, q), a.in[0], t, q);
       }
-      tile_load<VEC>(ring(1, q), a.in[1], t, q);
+      tile_load<VEC, PACKED>(ring(1, q), a.in[1], t, q);
     }
     if constexpr (Prep::kActive) prep.load(q, t);
   };
@@ -644,7 +684,7 @@ __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
         const int g = (kl & ~3) + 4 * lane;  // the lane's first group
         if (rows && g < kh)
           f_pre[s - 1] = __ldg(reinterpret_cast<const float4*>(a.f[(s - 1) & 1] +
-                                                               (q * n + j) * S + g));
+                                                               row_at<PACKED>(n, S, q, j) + g));
       }
     }
   };
@@ -678,10 +718,11 @@ __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
           const int j = t.jb0 + r;
           if (j < jl || j >= jh) continue;
           const int pp = parity(q, j, color);
-          sweep_row<VEC, MIXED>(dst, lo, mid, hi, a.f[c] + (q * n + j) * S, r * t.W - t.kb0,
-                                t.W, S, kl, min(kh, (n - 1 - pp) >> 1), pp, a.h2, lane,
-                                VEC && r == warp, f_pre[s - 1],
-                                MIXED ? pair_faces(a, q, j, pp) : PairFaces{});
+          sweep_row<VEC, MIXED, PACKED>(dst, lo, mid, hi, a.f[c] + row_at<PACKED>(n, S, q, j),
+                                        r * t.W - t.kb0, t.W, S, kl,
+                                        min(kh, (n - 1 - pp) >> 1), pp, a.h2, lane,
+                                        VEC && r == warp, f_pre[s - 1],
+                                        MIXED ? pair_faces(a, q, j, pp) : PairFaces{});
         }
       }
     }
@@ -693,9 +734,9 @@ __device__ void stage_body(const StageArgs& a, float* smem, Prep prep) {
         mixed_store<VEC>(a, ring(0, qb), ring(1, qb), t, qb, warp, lane, nwarps);
     } else {
       if (qa >= t.i0 && qa < t.i1)
-        tile_store<VEC>(a.out[0], ring(0, qa), t, qa, warp, lane, nwarps);
+        tile_store<VEC, PACKED>(a.out[0], ring(0, qa), t, qa, warp, lane, nwarps);
       if (qb >= t.i0 && qb < t.i1)
-        tile_store<VEC>(a.out[1], ring(1, qb), t, qb, warp, lane, nwarps);
+        tile_store<VEC, PACKED>(a.out[1], ring(1, qb), t, qb, warp, lane, nwarps);
     }
     __syncthreads();
   }

@@ -25,13 +25,13 @@ The JAX package's single-buffered and pipelined Pallas forms of K1 and R
 differ only in how the TPU overlaps its DMAs, so one Hopper kernel
 serves both. ``residual_norm_fused`` is R and then a torch sum, as the
 JAX function takes its norm outside the kernel. (K5, K6 and K27 share
-the double-float arithmetic of eft.cuh; K26 runs its stage as K1's
-per-sweep form does, one half-sweep a launch.) K1, K2 and K4 are one-pass
+the double-float arithmetic of eft.cuh.) K1, K2, K4 and K26 are one-pass
 stage kernels (rect.cuh): one launch runs all 2 n_iter <= 4 half-sweeps
 of a stage on tiles in shared memory (``pallas_split._stage_plan`` with
 ``rect=True`` cuts the level into blocks) and writes a fresh field, its
 inputs left as they are (K1 loads its initial guess, K2's tile starts as
-zeros). K3 is the streaming restriction stage that K9 shares
+zeros; K26 is K1's stage with halos one deeper that also writes the
+residual of its result, ``resid=True``). K3 is the streaming restriction stage that K9 shares
 (restrict.cuh): one launch a call streams the fine planes through shared
 memory and computes each fine residual once (``pallas_split.
 _restrict_plan`` cuts the coarse interior into blocks). Fields are plain
@@ -41,9 +41,9 @@ the plain version for a tensor on the CPU, launches its kernel for a
 CUDA tensor (float32, contiguous, cubic), and raises for anything else:
 there is no fallback from the kernel to the plain version. Each kernel
 launch adds one to its entry in ``LAUNCHES`` (the launch of K5 or K6 is
-the pair: per-block partials, then their sum; each K1 half-sweep that K26
-runs counts as a K26 launch; a K1, K2 or K4 call makes ceil(n_iter / 2)
-launches; K1's per-sweep form counts in ``PER_SWEEP_LAUNCHES``).
+the pair: per-block partials, then their sum; a K1, K2, K4 or K26 call
+makes ceil(n_iter / 2) launches, K26's leading ones K1's stage counted as
+K26's; K1's per-sweep form counts in ``PER_SWEEP_LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -255,27 +255,28 @@ def rb_smooth_residual_plain(u, f, h: float, n_iter: int, red_first: bool = True
 def rb_smooth_residual_fused(u, f, h: float, n_iter: int, red_first: bool = True):
     """(u', r): n_iter red-black GS iterations and the interior residual
     of their result (the pre-smoothing stage and its residual in one
-    call). Updates ``u`` IN PLACE and returns it with a fresh r (on both
-    devices). The CUDA form is 2 * n_iter - 1 half-sweeps (the kernel of
-    K1's per-sweep form) and one launch that sweeps the last colour and
-    writes r, all counted as K26 launches."""
+    call), both fresh fields: u is left as it is (on both devices). The
+    CUDA form is one launch of K1's rect stage that also writes r (rect.cuh,
+    RESID) for n_iter <= 2; ceil(n_iter / 2) in all, the leading ones K1's
+    stage on the field so far, all counted as K26 launches."""
     if n_iter < 1:
         raise ValueError(f"n_iter must be >= 1, got {n_iter}")
     if not _on_cuda(u, f):
-        u.copy_(rb_smooth_plain(u, f, h, n_iter, red_first))
-        return u, residual_plain(u, f, h)
+        return rb_smooth_residual_plain(u, f, h, n_iter, red_first)
+    from multigrid_parallel_tpu_torch.ops import pallas_split as ps
+
     lib, stream, n, h2 = _lib(), _stream(), u.shape[0], h * h
-    colors = list(_colors(red_first)) * n_iter
-    for c in colors[:-1]:
-        _check(lib.mg_rb_half_sweep(u.data_ptr(), f.data_ptr(), n, h2, c, stream),
-               "rb_smooth_residual_fused")
-        LAUNCHES["rb_smooth_residual_fused"] += 1
-    r = torch.empty_like(u)
-    _check(lib.mg_rb_last_sweep_residual(u.data_ptr(), r.data_ptr(), f.data_ptr(), n, h2,
-                                         1.0 / (h * h), colors[-1], stream),
-           "rb_smooth_residual_fused")
+    *lead, last = ps._stage_chunks(n_iter)
+    for chunk in lead:
+        u = _rect_stage_launch(lib, u, f, h2, chunk, red_first, stream,
+                               "rb_smooth_residual_fused")
+    out, r = torch.empty_like(u), torch.empty_like(u)
+    _check(lib.mg_rect_resid_stage(out.data_ptr(), r.data_ptr(), u.data_ptr(), f.data_ptr(), n,
+                                   h2, 1.0 / (h * h), int(red_first),
+                                   *ps._plan_args(n, last, f.device, rect=True, resid=True),
+                                   stream), "rb_smooth_residual_fused")
     LAUNCHES["rb_smooth_residual_fused"] += 1
-    return u, r
+    return out, r
 
 
 # ------------------------------------------- K3: residual + restriction

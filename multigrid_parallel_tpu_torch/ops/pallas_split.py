@@ -248,8 +248,9 @@ class StagePlan(NamedTuple):
     cuts a split level (or, ``rect``, a plain one, its rows held as two
     colours of n // 2 slots): blocks own boxes of ``bi`` planes x ``bj``
     rows x ``bk`` slots of both colours, tiles numbered k fastest, then j,
-    then i, and read ``halo`` = 2 n_iter planes and rows and ``k_halo``
-    slots (0 when a block holds whole rows) past their box on each side,
+    then i, and read ``halo`` = 2 n_iter planes and rows (K26's: 2 n_iter
+    + 1) and ``k_halo`` slots (0 when a block holds whole rows) past their
+    box on each side,
     clipped to the field. ``smem`` is the bytes of shared memory a block
     takes: a ring of tile planes for each colour (``_stage_smem``), or,
     ``box``, all bi + 2 halo planes of its loaded box (rect.cuh, box_body:
@@ -282,20 +283,22 @@ class StagePlan(NamedTuple):
 
 
 def _stage_smem(n_iter: int, bj: int, width: int, prolong: bool = False,
-                rect: bool = False, box_bi: int = 0) -> int:
+                rect: bool = False, box_bi: int = 0, resid: bool = False) -> int:
     """Shared-memory bytes of a block of bj rows of ``width`` slots: for
     each colour a ring of 2 H + 3 tile planes of bj + 2 H rows, H = 2 n_iter
     (split.cuh, stage_depth), or, for a box of ``box_bi`` planes, its bi +
     2 H planes; K10 (``prolong``) adds a ring of 3 coarse planes of (bj +
     2 H) / 2 + 2 rows of width + 1 values (prolong_smooth_split.cu), K4
     (``prolong`` and ``rect``) of width + 4, the box's (bi + 2 H) / 2 + 2
-    planes of them (prolong_smooth.cu). The launchers compute the same bytes
+    planes of them (prolong_smooth.cu). K26 (``resid``, rect) has halos of
+    H + 1 (bj + 2 H + 2 rows, a box's bi + 2 H + 2 planes) and rings of 2 H
+    + 5 planes (rect.cuh, RESID). The launchers compute the same bytes
     (split.cuh and rect.cuh, stage_smem_bytes; coarse_rows, coarse_width
     and coarse_planes) and reject a plan that differs: a change to a ring
     is made in both."""
-    halo = 2 * n_iter
+    halo = 2 * n_iter + resid
     planes, coarse = ((box_bi + 2 * halo, (box_bi + 2 * halo) // 2 + 2) if box_bi
-                      else (2 * halo + 3, 3))
+                      else (4 * n_iter + 3 + 2 * resid, 3))
     coarse_width = width + (4 if rect else 1)
     extra = coarse * ((bj + 2 * halo) // 2 + 2) * coarse_width * 4 if prolong else 0
     return 2 * planes * (bj + 2 * halo) * width * 4 + extra
@@ -331,7 +334,7 @@ def _slots(n: int, rect: bool = False) -> int:
 @functools.lru_cache(maxsize=None)
 def _stage_plan(n: int, n_iter: int, sms: int, prolong: bool = False,
                 rect: bool = False, msplit: bool = False, seg_planes: int = None,
-                seg_cols: int = None) -> StagePlan:
+                seg_cols: int = None, resid: bool = False) -> StagePlan:
     """The plan of one stage launch of n_iter (1 or 2) iterations on an n^3
     split level (``rect``: a plain level, K2's and K4's stage) for a card of
     ``sms`` SMs, within ``SMEM_MAX`` bytes of shared memory a block: a rect
@@ -358,18 +361,23 @@ def _stage_plan(n: int, n_iter: int, sms: int, prolong: bool = False,
     level (one rank's, the schedule still chosen by n), its ``tiles``
     counting them along i, within the kernels' ``SEG_MAX_THREADS``;
     ``seg_cols`` (K40, with ``seg_planes``): that many rows j too (an (i, j)
-    rank's columns), its row tiles cut from them."""
+    rank's columns), its row tiles cut from them. ``resid`` (K26, with
+    ``rect``): K1's stage that also writes the residual, its halos 2 n_iter
+    + 1 (``halo``; a k tile's ``k_halo`` that rounded up to 4) and its
+    rings two planes deeper (``_stage_smem``)."""
     if n_iter not in (1, 2):
         raise ValueError(f"a stage launch runs 1 or 2 iterations, got {n_iter}")
     if seg_planes is not None and (not rect or seg_planes < 1):
         raise ValueError(f"seg_planes = {seg_planes}: a rect plan of one plane or more")
     if seg_cols is not None and (seg_planes is None or seg_cols < 1):
         raise ValueError(f"seg_cols = {seg_cols}: a segment plan of one row or more")
+    if resid and (not rect or prolong or seg_planes is not None):
+        raise ValueError("resid: K26's plan, a rect stage on the whole level")
     if rect and n <= RECT_BOX_MAX_N:
-        return _box_plan(n, n_iter, sms, prolong, seg_planes, seg_cols)
+        return _box_plan(n, n_iter, sms, prolong, seg_planes, seg_cols, resid)
     if msplit and n <= MSPLIT_STEPS_MAX_N:
         return _steps_plan(n, n_iter, sms, prolong)
-    return _wave_plan(n, n_iter, sms, prolong, rect, seg_planes, seg_cols)
+    return _wave_plan(n, n_iter, sms, prolong, rect, seg_planes, seg_cols, resid)
 
 
 def _steps_plan(n: int, n_iter: int, sms: int, prolong: bool) -> StagePlan:
@@ -400,15 +408,15 @@ def _steps_plan(n: int, n_iter: int, sms: int, prolong: bool) -> StagePlan:
 
 
 def _wave_plan(n: int, n_iter: int, sms: int, prolong: bool, rect: bool,
-               seg_planes: int = None, seg_cols: int = None) -> StagePlan:
+               seg_planes: int = None, seg_cols: int = None, resid: bool = False) -> StagePlan:
     """``_stage_plan``'s wavefront plan (every split level, rect levels
     past ``RECT_BOX_MAX_N``), or a segment stage's of ``seg_planes`` (and
-    ``seg_cols`` rows)."""
+    ``seg_cols`` rows), or K26's (``resid``)."""
     m, mj = seg_planes or n, seg_cols or n
     max_threads, registers = ((SEG_MAX_THREADS, SEG_REGISTERS) if seg_planes
                               else (RECT_MAX_THREADS, RECT_REGISTERS))
     s = _slots(n, rect)
-    halo = 2 * n_iter
+    halo = 2 * n_iter + resid
     best = None
     for nk in range(1, max(1, s // 4) + 1):
         if nk == 1:
@@ -419,14 +427,16 @@ def _wave_plan(n: int, n_iter: int, sms: int, prolong: bool, rect: bool,
             bk = -(-(-(-s // nk)) // 4) * 4
             if bk >= s or -(-s // bk) != nk:
                 continue
-            k_halo = STAGE_K_HALO
+            k_halo = max(STAGE_K_HALO, -(-halo // 4) * 4)
+            if bk < k_halo:  # a tile's halo reaches past the tile before it only
+                continue
         width = _stage_width(n, bk, k_halo, rect)
         swept = width - RECT_ROW_PAD if rect and not k_halo else width  # slots a sweep spans
         lanes = _row_lanes(swept) if rect else 32  # a tile row's lanes (32 / lanes rows a warp)
         lane_slots = 4 * lanes if rect else 128 if s % 4 == 0 else 32  # slots a row's pass sweeps
         waste = -(-swept // lane_slots) * lane_slots / swept
         for bj in range(1, mj + 1):
-            smem = _stage_smem(n_iter, bj, width, prolong, rect)
+            smem = _stage_smem(n_iter, bj, width, prolong, rect, resid=resid)
             if smem > SMEM_MAX:
                 break
             nj = -(-mj // bj)
@@ -443,7 +453,7 @@ def _wave_plan(n: int, n_iter: int, sms: int, prolong: bool, rect: bool,
             bi = -(-m // ni)
             ni = -(-m // bi)
             blocks = ni * nj * nk
-            read = rows / bj * min(s, width) / bk * (bi + 6 * n_iter) / bi
+            read = rows / bj * min(s, width) / bk * (bi + 2 * halo + 2 * n_iter) / bi
             est = read * waste * -(-blocks // sms) / blocks
             if best is None or est < best[0] * (1 - 1e-9):
                 best = (est, StagePlan(n, n_iter, halo, k_halo, bi, bj, bk, nthreads, smem,
@@ -455,7 +465,7 @@ BOX_ROW_LATENCY = 10  # a warp's pass over its tile rows, in units of one tile r
 
 
 def _box_plan(n: int, n_iter: int, sms: int, prolong: bool,
-              seg_planes: int = None, seg_cols: int = None) -> StagePlan:
+              seg_planes: int = None, seg_cols: int = None, resid: bool = False) -> StagePlan:
     """The box plan of a small rect level (rect.cuh, box_body): whole rows,
     bi planes x bj rows a block, the pair whose estimated time is least
     (more blocks on a tie), within ``SMEM_MAX``. A block of the field's
@@ -465,8 +475,9 @@ def _box_plan(n: int, n_iter: int, sms: int, prolong: bool,
     (``_row_lanes``): a pass takes the longer of its warps' chain
     (``BOX_ROW_LATENCY``) and the row work of the blocks that share an SM,
     in waves of the blocks the SMs hold at once. ``seg_planes``: a segment
-    stage's plan of that many planes (and ``seg_cols`` rows)."""
-    s, halo, m, mj = _slots(n, True), 2 * n_iter, seg_planes or n, seg_cols or n
+    stage's plan of that many planes (and ``seg_cols`` rows); ``resid``:
+    K26's, its halos one deeper."""
+    s, halo, m, mj = _slots(n, True), 2 * n_iter + resid, seg_planes or n, seg_cols or n
     max_threads, registers = ((SEG_MAX_THREADS, SEG_REGISTERS) if seg_planes
                               else (RECT_MAX_THREADS, RECT_REGISTERS))
     width = _stage_width(n, s, 0, True)
@@ -475,7 +486,7 @@ def _box_plan(n: int, n_iter: int, sms: int, prolong: bool,
     best = None
     for bi in _evened(m):
         for bj in evened:
-            smem = _stage_smem(n_iter, bj, width, prolong, True, box_bi=bi)
+            smem = _stage_smem(n_iter, bj, width, prolong, True, box_bi=bi, resid=resid)
             if smem > SMEM_MAX:
                 continue
             loaded = min(n, bi + 2 * halo) * min(n, bj + 2 * halo)
@@ -485,7 +496,7 @@ def _box_plan(n: int, n_iter: int, sms: int, prolong: bool,
             waves = -(-blocks // (per_sm * sms))
             sharing = min(per_sm, -(-blocks // sms))
             regions = [min(n - 2, bi + 2 * (halo - lvl)) * min(n - 2, bj + 2 * (halo - lvl))
-                       for lvl in range(1, halo + 1)]
+                       for lvl in range(1, 2 * n_iter + 1)]
             passes = [loaded] + regions + [bi * bj]
             est = waves * sum(max(BOX_ROW_LATENCY * -(-rows // (warps * per_warp)),
                                   rows * sharing / per_warp) for rows in passes)
@@ -508,20 +519,21 @@ def _stage_chunks(n_iter: int):
 
 @functools.lru_cache(maxsize=None)
 def _plan_args_on(n: int, n_iter: int, index: int, prolong: bool, rect: bool, msplit: bool,
-                  seg_planes: int, seg_cols: int = None):
+                  seg_planes: int, seg_cols: int = None, resid: bool = False):
     plan = _stage_plan(n, n_iter, _sms(index), prolong=prolong, rect=rect, msplit=msplit,
-                       seg_planes=seg_planes, seg_cols=seg_cols)
+                       seg_planes=seg_planes, seg_cols=seg_cols, resid=resid)
     args = (n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads, plan.smem)
     return args + (int(plan.box),) if rect else args
 
 
 def _plan_args(n: int, n_iter: int, device, prolong: bool = False, rect: bool = False,
-               msplit: bool = False, seg_planes: int = None, seg_cols: int = None):
+               msplit: bool = False, seg_planes: int = None, seg_cols: int = None,
+               resid: bool = False):
     """The launcher's n_iter and plan arguments on ``device`` (the rect
-    launchers' with the plan's box flag last; ``seg_planes``, ``seg_cols``:
-    _stage_plan's)."""
+    launchers' with the plan's box flag last; ``seg_planes``, ``seg_cols``,
+    ``resid``: _stage_plan's)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return _plan_args_on(n, n_iter, index, prolong, rect, msplit, seg_planes, seg_cols)
+    return _plan_args_on(n, n_iter, index, prolong, rect, msplit, seg_planes, seg_cols, resid)
 
 
 def _stage_launch(lib, er, eb, fr, fb, h2, n_iter, red_first, stream, name):

@@ -11,7 +11,14 @@ pallas_splitcolor.py, and its CUDA source in ops/csrc/ (on split.cuh):
 As in JAX, no solve path calls it: its caller is the stage bench
 (``utils.timing.profile_splitcolor_stage``, the counterpart of
 scripts/splitcolor_bench.py), which times it against the rect stage
-(K1) and the pair stage (K7).
+(K1) and the pair stage (K7), each beside its per-sweep form.
+
+K42 is K7's one-pass stage (split.cuh, ``stage_body`` with PACKED) on
+the packed array, on K7's plan (``pallas_split._stage_plan``): one launch
+a call at n_iter <= 2 into a FRESH array, the input left as it is
+(ceil(n_iter / 2) launches in all). Its first form,
+``rb_smooth_split_fused_per_sweep``, one launch a half-sweep in place,
+stays as the stage bench's per-sweep row.
 
 The layout. A field is ONE contiguous tensor of shape
 ``split_shape(n) = (n, 2 n, (n - 1) // 2)``: the split pair of
@@ -38,8 +45,8 @@ for bit.
 A wrapper takes the plain version for tensors on the CPU, launches its
 kernel for CUDA tensors (float32, contiguous, in the packed shape), and
 raises for anything else: no fallback from the kernel to the plain
-version. Each kernel launch (one a half-sweep) adds one to its entry in
-``LAUNCHES``.
+version. Each stage launch adds one to its entry in ``LAUNCHES``; the
+first form's launches (one a half-sweep) count in ``PER_SWEEP_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -53,11 +60,14 @@ from multigrid_parallel_tpu_torch.ops.stencils_3d import RED
 KERNELS = ("rb_smooth_split_fused",)
 # kernel launches per wrapper, since the last reset_launches()
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+# the per-sweep form of K42, counted apart from K42's launches
+PER_SWEEP_LAUNCHES = {"rb_smooth_split_fused_per_sweep": 0}
 
 
 def reset_launches() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+    PER_SWEEP_LAUNCHES["rb_smooth_split_fused_per_sweep"] = 0
 
 
 def split_shape(n: int):
@@ -129,18 +139,41 @@ def rb_smooth_split_fused_plain(u2, f2, h: float, n_iter: int, red_first: bool =
 def rb_smooth_split_fused(u2, f2, h: float, n_iter: int, n: int, red_first: bool = True):
     """n_iter red-black GS iterations on a packed split-colour array,
     red first (preSmoother ordering) or black first, each half-sweep
-    updating only its colour's live slots.
+    updating only its colour's live slots, as a FRESH array: u2 is left as
+    it is (on both devices).
 
     The positional arguments are the JAX function's; its ``block_i`` (the
-    VMEM slab the TPU streams) has no counterpart. Updates ``u2`` IN PLACE
-    and returns it (on both devices): the CUDA form sweeps one colour per
-    launch, 2 * n_iter launches."""
+    VMEM slab the TPU streams) has no counterpart. The CUDA form is one
+    one-pass launch of K7's stage on the packed array for n_iter <= 2,
+    ceil(n_iter / 2) in all, each later one on the array so far."""
+    if n_iter < 1:
+        raise ValueError(f"n_iter must be >= 1, got {n_iter}")
+    if not _on_cuda(u2, f2, n):
+        return rb_smooth_split_fused_plain(u2, f2, h, n_iter, red_first)
+    lib, stream, h2 = _lib(), _stream(), h * h
+    for chunk in ps._stage_chunks(n_iter):
+        out = torch.empty_like(u2)
+        _check(lib.mg_splitcolor_stage(out.data_ptr(), u2.data_ptr(), f2.data_ptr(), n, h2,
+                                       int(red_first), *ps._plan_args(n, chunk, u2.device),
+                                       stream), "rb_smooth_split_fused")
+        LAUNCHES["rb_smooth_split_fused"] += 1
+        u2 = out
+    return u2
+
+
+def rb_smooth_split_fused_per_sweep(u2, f2, h: float, n_iter: int, n: int,
+                                    red_first: bool = True):
+    """K42's first CUDA form, kept as the stage bench's per-sweep row: one
+    launch a half-sweep, 2 n_iter launches, each a pass over the other
+    colour, f and the active colour. Updates u2 IN PLACE and returns it;
+    the plain version on the CPU. Its launches count in
+    ``PER_SWEEP_LAUNCHES``."""
     if not _on_cuda(u2, f2, n):
         return u2.copy_(rb_smooth_split_fused_plain(u2, f2, h, n_iter, red_first))
     lib, stream, h2 = _lib(), _stream(), h * h
     for _ in range(n_iter):
         for c in _colors(red_first):
             _check(lib.mg_splitcolor_half_sweep(u2.data_ptr(), f2.data_ptr(), n, h2, c, stream),
-                   "rb_smooth_split_fused")
-            LAUNCHES["rb_smooth_split_fused"] += 1
+                   "rb_smooth_split_fused_per_sweep")
+            PER_SWEEP_LAUNCHES["rb_smooth_split_fused_per_sweep"] += 1
     return u2

@@ -21,8 +21,11 @@ bit for bit against its plain version.
                                                              [--restrict | --fold | --mixed
                                                               | --seg | --seg-rect
                                                               | --seg-restrict | --seg-df
-                                                              | --msplit]
+                                                              | --msplit | --offpath]
                                                              [--kernels K29 K38 K2 ...]
+                                                             [--parent ROOT]
+    python -m multigrid_parallel_tpu_torch.utils.stage_plans --offpath
+                                                             [--kernels K26 K42 K33]
                                                              [--parent ROOT]
 
 For each size and kernel (K2 from zero, K4, both at n_iter 2; K17, K16 and
@@ -42,8 +45,8 @@ with the first form (4 launches a call: K31's and K40's correction and 3
 half-sweeps, K28's and K37's 4 half-sweeps, K29's and K38's from-zero
 launch and 3 half-sweeps, their device times summed) as the plan
 "first_form", and K1 and K2 on the level on their planner's plan
-(``--kernels`` picks some of these, with ``--msplit`` and ``--restrict``
-too); K22 and K24 with its pin packs and coarse signs, on
+(``--kernels`` picks some of these, with ``--msplit``, ``--restrict`` and
+``--offpath`` too); K22 and K24 with its pin packs and coarse signs, on
 the msplit planner's plan, K7's and K10's and wavefront plans of several
 block sizes, and K21 on its planner's plan, with ``--parent ROOT``
 beside its first form from that checkout in place; or K3, K9,
@@ -53,7 +56,13 @@ or K30 and K39 on the production segments and blocks of the level (as
 K31's and K40's, each covering the level, at 9^3-257^3 by default), and K3
 on the level; or K32 and K41 on those segments and blocks, their first
 forms as the plan "first_form", and K5 on the level, at 65^3-513^3 by
-default, a call its partials kernel and their sum) and plan, one JSON line:
+default, a call its partials kernel and their sum; or, with
+``--offpath``, the kernels no solve launches at 9^3-513^3 by default
+(time_offpath, ``--kernels`` picking some of K26, K42 and K33): K26's
+and K42's one-pass stages beside their first forms (K26's from
+``--parent ROOT``), K1 + R and K7's stage, K26's stage on its candidate
+plans too, and K33 on the production ext blocks, each with its bound) and
+plan, one JSON line:
 the plan, whether the output equals the plain version, and the median
 device time of ``reps`` launches from a torch.profiler trace
 (``utils.split_trace.kernel_intervals``). The numbers serve to tune
@@ -77,6 +86,7 @@ import torch
 from multigrid_parallel_tpu_torch.ops import pallas3d as pk
 from multigrid_parallel_tpu_torch.ops import pallas_split as ps
 from multigrid_parallel_tpu_torch.utils.split_trace import kernel_intervals
+from multigrid_parallel_tpu_torch.utils.timing import HBM_BYTES_PER_S, split_stage_bytes
 
 
 def launch(plan, f, h, ec=None, u=None):
@@ -294,6 +304,61 @@ def candidates(n, prolong, sms, planes=None, cols=None):
     return plans
 
 
+def resid_plan(n, bi, bj, bk=None, box=False, n_iter=2):
+    """A K26 plan (halos 2 n_iter + 1, rings 2 H + 5) of bi planes x bj
+    rows, whole rows or (``bk``) k tiles under the 8-slot k halo, the box
+    or the wavefront, or None where it does not fit or the kernel would
+    refuse it."""
+    s, halo = n // 2, 2 * n_iter + 1
+    k_halo = -(-halo // 4) * 4 if bk is not None and bk < s else 0
+    bk = bk if k_halo else s
+    if k_halo and (bk % 4 or bk < k_halo):
+        return None
+    width = ps._stage_width(n, bk, k_halo, True)
+    smem = ps._stage_smem(n_iter, bj, width, rect=True, box_bi=bi if box else 0, resid=True)
+    if smem > ps.SMEM_MAX:
+        return None
+    rows = min(n, bj + 2 * halo) * (min(n, bi + 2 * halo) if box else 1)
+    lanes = ps._row_lanes(width if k_halo else s)
+    threads = 32 * max(1, min(ps.RECT_MAX_THREADS // 32, -(-rows * lanes // 32)))
+    return ps.StagePlan(n, n_iter, halo, k_halo, bi, bj, bk, threads, smem, True, box)
+
+
+def resid_candidates(n, sms):
+    """K26's planner plan and others: boxes of a few block sizes (up to
+    129^3), and wavefronts of whole rows and of k tiles, their planes cut
+    so that the blocks fill about one wave of ``sms`` SMs."""
+    plans = {"planner": ps._stage_plan(n, 2, sms, rect=True, resid=True)}
+    if n <= 129:
+        for bi, bj in ((1, 1), (2, 2), (3, 3), (4, 4), (6, 6), (8, 8), (4, 8), (8, 4), (6, 11),
+                       (10, 13), (12, 12), (16, 16)):
+            plan = resid_plan(n, evened(n, bi), evened(n, bj), box=True)
+            if plan is not None:
+                plans[f"box{plan.bi}x{plan.bj}"] = plan
+    if n >= 65:
+        for bk in (None, 16, 32, 44, 64):
+            for bj in (2, 4, 6, 8, 12, 16, 24):
+                probe = resid_plan(n, n, evened(n, bj), bk)
+                if probe is None:
+                    continue
+                per_sm = min(2, ps.SM_SMEM // (probe.smem + 1024))
+                ni = max(1, per_sm * sms // (probe.tiles[1] * probe.tiles[2]))
+                plan = resid_plan(n, evened(n, -(-n // ni)), probe.bj, bk)
+                if plan is not None and plan.blocks <= 2 * per_sm * sms:
+                    plans[f"wave{plan.bi}x{plan.bj}x{plan.bk}"] = plan
+    return plans
+
+
+def resid_launch(plan, u, f, h, red_first=True):
+    """One launch of K26's stage on ``plan`` into a fresh (u', r)."""
+    out, r = torch.empty_like(u), torch.empty_like(u)
+    pk._check(pk._lib().mg_rect_resid_stage(
+        out.data_ptr(), r.data_ptr(), u.data_ptr(), f.data_ptr(), plan.n, h * h, 1.0 / (h * h),
+        int(red_first), plan.n_iter, plan.bi, plan.bj, plan.bk, plan.k_halo, plan.threads,
+        plan.smem, int(plan.box), pk._stream()), "stage_plans")
+    return out, r
+
+
 def restrict_launch(plan, e, r, h, msplit=False, lib=None):
     """One launch of K3's (K9's where ``plan.split``, e and r then pairs,
     K23's where ``msplit`` too; K18's where ``plan.fold``) restriction
@@ -406,6 +471,100 @@ def first_form_rows(forms, want, reps, row):
         ms = sum(statistics.median(v) * each[name] for name, v in by_name.items())
         print(json.dumps({**row, "plan": label, "exact": exact, "launches a call": each,
                           "device_ms": ms}), flush=True)
+
+
+OFFPATH_KERNELS = ("K26", "K42", "K33")
+
+
+def time_offpath(n, reps, dev, kernels, sms, parent=None):
+    """One JSON line a form at level n of the kernels no solve path
+    launches (``kernels``: some of OFFPATH_KERNELS), each form's output
+    against the plain version and its device time a call from one trace of
+    ``reps`` calls (first_form_rows), beside the bound from the bytes the
+    function must move over the H100's 3.35 TB/s: K26 at n_iter 2, red
+    first, on u and f random everywhere, its one-pass stage, its first form
+    (with ``parent``, from that checkout's library: three half-sweeps of
+    K1's per-sweep kernel and the launch that sweeps the last colour and
+    writes r), in place and on a copy of u made in the call (the stage's
+    contract leaves u as it is), and K1's stage then R;
+    K42 at n_iter 2 on the packed array of zero-boundary cubes, its
+    one-pass stage, its first form (in place) and K7's stage on the pair
+    (another order of additions, held against K7's plain version); K33 on
+    rank 1's ext block of four ranks' L = 96 (n - 1) / 256 and on the one
+    rank's L = 320 (n - 1) / 256 (the ranks' planes past n - 1 zero).
+    K26's stage also on its candidate plans for ``sms`` SMs
+    (resid_candidates), which tune ``pallas_split._stage_plan``'s resid
+    plans."""
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as px
+    from multigrid_parallel_tpu_torch.ops import pallas_splitcolor as psc
+
+    h, rate = 1.0 / (n - 1), HBM_BYTES_PER_S / 1e3  # bytes a millisecond
+    rng = np.random.default_rng(n)
+    if "K26" in kernels:
+        u, f = (torch.from_numpy(rng.standard_normal((n, n, n)).astype(np.float32)).to(dev)
+                for _ in range(2))
+        want = pk.rb_smooth_residual_plain(u, f, h, 2, True)
+        lib, scratch = parent_lib(parent) if parent is not None else None, u.clone()
+
+        def first_form(copy):
+            if copy:  # the fresh (u', r) of the stage's contract: u left as it is
+                scratch.copy_(u)
+            colors = list(pk._colors(True)) * 2
+            for c in colors[:-1]:
+                pk._check(lib.mg_rb_half_sweep(scratch.data_ptr(), f.data_ptr(), n, h * h, c,
+                                               pk._stream()), "stage_plans")
+            r = torch.empty_like(u)
+            pk._check(lib.mg_rb_last_sweep_residual(scratch.data_ptr(), r.data_ptr(),
+                                                    f.data_ptr(), n, h * h, 1.0 / (h * h),
+                                                    colors[-1], pk._stream()), "stage_plans")
+            return scratch, r
+
+        def k1_r():
+            v = pk.rb_smooth_fused(u, f, h, 2, True)
+            return v, pk.residual_fused(v, f, h)
+
+        row = {"n": n, "kernel": "K26", "bound_ms": 16 * n ** 3 / rate}
+        forms = {"stage": lambda: pk.rb_smooth_residual_fused(u, f, h, 2, True), "K1+R": k1_r}
+        if lib is not None:
+            forms.update(first_form=lambda: first_form(False),
+                         first_form_on_a_copy=lambda: first_form(True))
+        first_form_rows(forms, want, reps, row)
+        for label, plan in resid_candidates(n, sms).items():
+            first_form_rows({label: lambda: resid_launch(plan, u, f, h)}, want, reps,
+                            {**row, "bi": plan.bi, "bj": plan.bj, "bk": plan.bk,
+                             "box": plan.box, "blocks": plan.blocks, "threads": plan.threads,
+                             "smem": plan.smem})
+    if "K42" in kernels:
+        cubes = []
+        for _ in range(2):
+            x = np.zeros((n, n, n), np.float32)
+            x[1:-1, 1:-1, 1:-1] = rng.standard_normal((n - 2,) * 3)
+            cubes.append(torch.from_numpy(x).to(dev))
+        u2, f2 = (psc.pack_split(x) for x in cubes)
+        pair, rhs = ps.pack_split(cubes[0]), ps.pack_split(cubes[1])
+        scratch = u2.clone()
+        row = {"n": n, "kernel": "K42",
+               "bound_ms": split_stage_bytes(n, True, packed=True) / rate}
+        first_form_rows({"stage": lambda: psc.rb_smooth_split_fused(u2, f2, h, 2, n, True),
+                         "first_form": lambda: psc.rb_smooth_split_fused_per_sweep(
+                             scratch, f2, h, 2, n, True)},
+                        psc.rb_smooth_split_fused_plain(u2, f2, h, 2, True), reps, row)
+        first_form_rows({"K7 stage": lambda: ps.rb_smooth_split(*pair, *rhs, h, 2, True)},
+                        ps.rb_smooth_split_plain(*pair, *rhs, h, 2, True), reps, row)
+    if "K33" in kernels:
+        for ranks, L in ((4, 96 * (n - 1) // 256), (1, 320 * (n - 1) // 256)):
+            rank = 1 if ranks > 1 else 0
+            u, f = (torch.zeros((ranks * L, n, n), device=dev) for _ in range(2))
+            for x in (u, f):
+                x[:n] = torch.from_numpy(rng.standard_normal((n, n, n)).astype(np.float32))
+            u_ext, f_ext = (torch.cat([lh, body, rh])
+                            for body, lh, rh in (seg_parts(x, rank, L, 1, 1) for x in (u, f)))
+            gi0 = rank * L - 1
+            first_form_rows({f"{ranks} rank(s), L = {L}, rank {rank}":
+                             lambda: px.residual_ext(u_ext, f_ext, gi0, h, n, L)},
+                            px.residual_ext_plain(u_ext, f_ext, gi0, h, n, L), reps,
+                            {"n": n, "kernel": "K33",
+                             "bound_ms": 4 * (u_ext.numel() + 2 * L * n * n) / rate})
 
 
 def parent_lib(root):
@@ -1051,10 +1210,12 @@ def main(argv=None) -> int:
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--parent", type=str,
                         help="with --mixed, --msplit or --restrict: a checkout whose K13, K21 "
-                             "or K23 first form is timed beside the stage")
+                             "or K23 first form is timed beside the stage; with --offpath, "
+                             "K26's (its in-place half-sweeps and last launch)")
     parser.add_argument("--kernels", nargs="+",
-                        help="with --seg-rect, --msplit or --restrict: time only these (K1 K2 "
-                             "K28 K29 K31 K37 K38 K40; K21 K22 K24; K3 K9 K18 K23)")
+                        help="with --seg-rect, --msplit, --restrict or --offpath: time only "
+                             "these (K1 K2 K28 K29 K31 K37 K38 K40; K21 K22 K24; K3 K9 K18 "
+                             "K23; K26 K42 K33)")
     group = parser.add_mutually_exclusive_group()
     group.add_argument("--restrict", action="store_true",
                        help="time K3's, K9's, K18's and K23's restriction stage (and K18's "
@@ -1075,6 +1236,9 @@ def main(argv=None) -> int:
     group.add_argument("--seg-restrict", action="store_true",
                        help="time K30's and K39's restriction stages on the production "
                             "segments and blocks, and K3's, instead")
+    group.add_argument("--offpath", action="store_true",
+                       help="time the kernels no solve launches, K26, K42 and K33, beside "
+                            "their first forms (at 9^3-513^3 by default) instead")
     group.add_argument("--seg-df", action="store_true",
                        help="time K32's and K41's df residual-and-norm stages on the production "
                             "segments and blocks (and their first forms), and K5, instead")
@@ -1088,9 +1252,14 @@ def main(argv=None) -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     if args.sizes is None:
         args.sizes = ([65, 129, 257] if args.seg else [129, 257] if args.seg_rect
+                      else [9, 17, 33, 65, 129, 257, 513] if args.offpath
                       else [9, 17, 33, 65, 129, 257] if args.seg_restrict
                       else [65, 129, 257, 513] if args.seg_df
                       else [9, 17, 33, 65, 129])
+    if args.offpath:
+        for n in args.sizes:
+            time_offpath(n, args.reps, dev, args.kernels or OFFPATH_KERNELS, sms, args.parent)
+        return 0
     if args.seg_rect:
         for n in args.sizes:
             time_seg_rect(n, sms, args.reps, dev, args.kernels)

@@ -201,6 +201,37 @@ def profile_padded_stages(hier, cfg, reps: int = 20, device="cuda"):
 
 
 
+def split_stage_bytes(n: int, red_first: bool, prolong=False, from_zero=False,
+                      packed=False) -> int:
+    """The bytes a K7 stage call (K10's, ``prolong``, black first; K8's,
+    ``from_zero``; K42's, ``packed``: the pair joined along j, plane q of
+    each colour 2 n S floats after plane q - 1) at n^3 must move, counted
+    in the card's 32-byte sectors: the fresh pair written, the second
+    colour read whole; of the first half-sweep's colour only the slots
+    that no half-sweep updates (the boundary rows and dead slots, which
+    the output keeps); of each colour's f its live slots; K10's coarse
+    correction read whole. K8 reads no pair: only the f's and the written
+    pair count."""
+    from multigrid_parallel_tpu_torch.ops import pallas_split as ps
+
+    _, live_r, live_b = ps._masks(n, "cpu")
+    every = torch.ones_like(live_r)
+
+    def sectors(red, black):
+        parts = [torch.cat([red, black], dim=1)] if packed else [red, black]
+        total = 0
+        for mask in parts:
+            flat = mask.reshape(-1)
+            flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 8)])
+            total += int(flat.view(-1, 8).any(1).sum())
+        return total
+
+    red_kept = red_first and not prolong  # the first half-sweep's colour is red
+    read = (sectors(~live_r, every) if red_kept else sectors(every, ~live_b))
+    total = sectors(every, every) + (0 if from_zero else read) + sectors(live_r, live_b)
+    return 32 * total + (4 * ((n + 1) // 2) ** 3 if prolong else 0)
+
+
 def profile_splitcolor_stage(n: int = 257, n_iter: int = 2, reps: int = 20, device="cuda"):
     """One red-first RB-GS smoothing stage of n_iter iterations at n^3 in
     three layouts, and a floor: the counterpart of
@@ -211,15 +242,17 @@ def profile_splitcolor_stage(n: int = 257, n_iter: int = 2, reps: int = 20, devi
     cube), the rect stage in K1's per-sweep form
     (``pallas3d.rb_smooth_fused_per_sweep``, one launch a half-sweep), the
     packed split-colour stage (K42, ``pallas_splitcolor.
-    rb_smooth_split_fused``, on (n, 2 n, (n - 1) // 2)), the pair stage
-    (K7, ``pallas_split.rb_smooth_split``, one one-pass launch), the pair
-    stage in K7's per-sweep form (``pallas_split.rb_smooth_split_per_sweep``,
-    one launch a half-sweep) and ``torch.add(u2, f2, out=w)``, which reads
-    u2 and f2 and writes one array of their size: the bytes of a one-pass
+    rb_smooth_split_fused``, one one-pass launch, on (n, 2 n, (n - 1) //
+    2)), the packed stage in K42's per-sweep form (``pallas_splitcolor.
+    rb_smooth_split_fused_per_sweep``), the pair stage (K7,
+    ``pallas_split.rb_smooth_split``, one one-pass launch), the pair stage
+    in K7's per-sweep form (``pallas_split.rb_smooth_split_per_sweep``, one
+    launch a half-sweep) and ``torch.add(u2, f2, out=w)``, which reads u2
+    and f2 and writes one array of their size: the bytes of a one-pass
     stage (the script's identity-DMA floor). Inputs are seeded as the
     script seeds them: ``default_rng(0)``, standard-normal interiors of u
-    and then f, zero boundaries. Each per-sweep form and K42 update their
-    own copy of u in place, call after call; K1 and K7 smooth theirs into a
+    and then f, zero boundaries. Each per-sweep form updates its own copy
+    of u in place, call after call; K1, K42 and K7 smooth theirs into a
     fresh one, the next call's input. On a CUDA device each row is
     the median over ``reps`` rounds of the CUDA-event time of one call,
     after one warm-up call each; with ``device="cpu"`` the plain versions
@@ -248,6 +281,7 @@ def profile_splitcolor_stage(n: int = 257, n_iter: int = 2, reps: int = 20, devi
     u2, f2 = psc.pack_split(u), psc.pack_split(f)
     rhs = ps.pack_split(f)
     cube = [u.clone()]
+    packed = [u2.clone()]
     pair = list(ps.pack_split(u))
     per_sweep = ps.pack_split(u)
     w = torch.empty_like(u2)
@@ -255,14 +289,20 @@ def profile_splitcolor_stage(n: int = 257, n_iter: int = 2, reps: int = 20, devi
     def k1():
         cube[0] = pk.rb_smooth_fused(cube[0], f, h, n_iter, red_first=True)
 
+    def k42():
+        packed[0] = psc.rb_smooth_split_fused(packed[0], f2, h, n_iter, n, red_first=True)
+
     def k7():
         pair[:] = ps.rb_smooth_split(*pair, *rhs, h, n_iter, True)
     stages = (
         (f"rect stage (K1, {2 * n_iter} half-sweeps, one launch)", k1, (u, f, u)),
         (f"rect stage, one launch a half-sweep (K1's per-sweep form, {2 * n_iter} launches)",
          lambda: pk.rb_smooth_fused_per_sweep(u, f, h, n_iter, red_first=True), (u, f, u)),
-        (f"packed stage (K42, {2 * n_iter} half-sweeps)",
-         lambda: psc.rb_smooth_split_fused(u2, f2, h, n_iter, n, red_first=True), (u2, f2, u2)),
+        (f"packed stage (K42, {2 * n_iter} half-sweeps, one launch)", k42, (u2, f2, u2)),
+        (f"packed stage, one launch a half-sweep (K42's per-sweep form, {2 * n_iter} "
+         "launches)",
+         lambda: psc.rb_smooth_split_fused_per_sweep(u2, f2, h, n_iter, n, red_first=True),
+         (u2, f2, u2)),
         (f"pair stage (K7, {2 * n_iter} half-sweeps, one launch)",
          k7, (*pair, *rhs, *pair)),
         (f"pair stage, one launch a half-sweep (K7's per-sweep form, {2 * n_iter} launches)",

@@ -644,21 +644,85 @@ def test_split_wrappers_reject_what_the_kernels_do_not_take(cuda):
 @pytest.mark.cuda
 def test_splitcolor_kernel_matches_plain_on_card(cuda):
     """K42 on packed arrays (pairs of zero-boundary cubes joined along j),
-    in place, bitwise equal to its plain version; 2 n_iter launches a
-    call."""
+    into a fresh array, u2 left as it is, bitwise equal to its plain
+    version; one launch a call at n_iter <= 2."""
     n = 65
     h = 1.0 / (n - 1)
     u2, f2 = (torch.cat(pair, dim=1) for pair in _split_pairs(16, n, cuda, 2))
+    u0 = u2.clone()
     tpsc.reset_launches()
     for n_iter in (1, 2):
         for red_first in (True, False):
             want = tpsc.rb_smooth_split_fused_plain(u2, f2, h, n_iter, red_first)
-            got = u2.clone()
             before = tpsc.LAUNCHES["rb_smooth_split_fused"]
-            assert tpsc.rb_smooth_split_fused(got, f2, h, n_iter, n, red_first) is got
-            assert tpsc.LAUNCHES["rb_smooth_split_fused"] - before == 2 * n_iter
+            got = tpsc.rb_smooth_split_fused(u2, f2, h, n_iter, n, red_first)
+            assert got is not u2
+            assert tpsc.LAUNCHES["rb_smooth_split_fused"] - before == 1
+            torch.cuda.synchronize()
+            assert torch.equal(u2, u0) and torch.equal(got, want), (n_iter, red_first)
+    assert tpsc.LAUNCHES == {"rb_smooth_split_fused": 4}
+
+
+def _packed_random(seed, n, dev):
+    """Packed (n, 2 n, S) arrays of u and f random at every slot, dead
+    slots and boundary rows too: what the stage keeps there must come from
+    its input."""
+    rng = np.random.default_rng(seed)
+    shape = tpsc.split_shape(n)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+            for _ in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [9, 17, 33, 65, 129, 257, 513])
+def test_k42_stage_matches_plain_on_card(cuda, n):
+    """K42's one-pass stage (K7's on the packed array, K7's plan: whole rows,
+    k tiles at 513^3) bit for bit against its plain version, n_iter 1-3,
+    both orders, on arrays random at every slot, the allocator poisoned with
+    NaN first; u2 and f2 left as they are; one launch a call at n_iter <= 2,
+    two at 3; its per-sweep form likewise, 2 n_iter launches counted
+    apart."""
+    h = 1.0 / (n - 1)
+    u2, f2 = _packed_random(90 + n, n, cuda)
+    before = (u2.clone(), f2.clone())
+    for n_iter in (1, 2, 3):
+        for red_first in (True, False):
+            want = tpsc.rb_smooth_split_fused_plain(u2, f2, h, n_iter, red_first)
+            _poison_allocator(u2.shape, cuda)
+            tpsc.reset_launches()
+            got = tpsc.rb_smooth_split_fused(u2, f2, h, n_iter, n, red_first)
+            assert tpsc.LAUNCHES == {"rb_smooth_split_fused": 1 if n_iter <= 2 else 2}
+            torch.cuda.synchronize()
+            assert torch.equal(u2, before[0]) and torch.equal(f2, before[1])
             assert torch.equal(got, want), (n_iter, red_first)
-    assert tpsc.LAUNCHES == {"rb_smooth_split_fused": 2 * (2 + 4)}
+            mine = u2.clone()
+            assert tpsc.rb_smooth_split_fused_per_sweep(mine, f2, h, n_iter, n, red_first) is mine
+            assert tpsc.PER_SWEEP_LAUNCHES == {"rb_smooth_split_fused_per_sweep": 2 * n_iter}
+            assert torch.equal(mine, want), (n_iter, red_first)
+
+
+@pytest.mark.cuda
+def test_k42_launcher_rejects_what_the_stage_does_not_run(cuda):
+    """mg_splitcolor_stage refuses a plan of 3 iterations, shared memory
+    other than the plan's, and an output that meets u2 or f2; the planner's
+    own plan runs."""
+    n = 33
+    h2 = (1.0 / (n - 1)) ** 2
+    u2, f2 = _packed_random(7, n, cuda)
+    out = torch.empty_like(u2)
+    lib = tpk._lib()
+    plan = list(tps._plan_args(n, 2, u2.device))
+
+    def run(dst, args):
+        return lib.mg_splitcolor_stage(dst.data_ptr(), u2.data_ptr(), f2.data_ptr(), n, h2, 1,
+                                       *args, tpk._stream())
+
+    assert run(out, plan) == 0
+    assert run(out, [3] + plan[1:]) != 0
+    assert run(out, plan[:-1] + [plan[-1] + 16]) != 0
+    assert run(u2, plan) != 0 and run(f2, plan) != 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, tpsc.rb_smooth_split_fused_plain(u2, f2, 1.0 / (n - 1), 2, True))
 
 
 @pytest.mark.cuda
@@ -1675,12 +1739,13 @@ def test_k26_k27_match_plain_on_card(cuda, n):
     h = 1.0 / (n - 1)
     u, f = _fields32(20, n, cuda)
     tpk.reset_launches()
+    u0 = u.clone()
     for n_iter in (1, 2, 3):
         for red_first in (True, False):
             want_u, want_r = tpk.rb_smooth_residual_plain(u, f, h, n_iter, red_first)
-            u1 = u.clone()
-            got_u, got_r = tpk.rb_smooth_residual_fused(u1, f, h, n_iter, red_first)
-            assert got_u is u1
+            got_u, got_r = tpk.rb_smooth_residual_fused(u, f, h, n_iter, red_first)
+            torch.cuda.synchronize()
+            assert torch.equal(u, u0)  # fresh (u', r), u left as it is
             assert torch.equal(got_u, want_u) and torch.equal(got_r, want_r)
     state = _df_state(21, n, cuda)
     r = tpk.residual_df_fused(*state, h)
@@ -1688,10 +1753,69 @@ def test_k26_k27_match_plain_on_card(cuda, n):
     assert torch.equal(r, tpk.residual_df_norm_fused(*state, h)[0])
     nrm = tpk.residual_norm_fused(u, f, h)
     assert float(nrm) == pytest.approx(float(tpk.residual_norm_plain(u, f, h)), rel=1e-6)
-    # K26: 2 n_iter launches a call, n_iter = 1, 2, 3, both orders
+    # K26: ceil(n_iter / 2) launches a call, n_iter = 1, 2, 3, both orders
     assert tpk.LAUNCHES == {**dict.fromkeys(tpk.KERNELS, 0),
-                            "rb_smooth_residual_fused": 24, "residual_df_fused": 1,
+                            "rb_smooth_residual_fused": 8, "residual_df_fused": 1,
                             "residual_df_norm_fused": 1, "residual_fused": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [9, 17, 33, 50, 65, 129, 257, 513])
+def test_k26_stage_matches_plain_on_card(cuda, n):
+    """K26's one-pass stage (K1's with halos one deeper that also writes the
+    residual: the box up to 129^3, the wavefront at 257^3 and 513^3, k tiles
+    at n_iter 2 there) bit for bit against its plain version, u' and r,
+    n_iter 1-3, both orders, on u and f random at every point, the allocator
+    poisoned with NaN first; u and f left as they are; one launch a call at
+    n_iter <= 2, two at 3 (K1's stage, then K26's)."""
+    h = 1.0 / (n - 1)
+    u, f = _rect_fields(110 + n, n, cuda, 2)
+    before = (u.clone(), f.clone())
+    for n_iter in (1, 2, 3):
+        for red_first in (True, False):
+            want = tpk.rb_smooth_residual_plain(u, f, h, n_iter, red_first)
+            _poison_allocator(u.shape, cuda)
+            tpk.reset_launches()
+            got = tpk.rb_smooth_residual_fused(u, f, h, n_iter, red_first)
+            assert tpk.LAUNCHES == {**dict.fromkeys(tpk.KERNELS, 0),
+                                    "rb_smooth_residual_fused": 1 if n_iter <= 2 else 2}
+            torch.cuda.synchronize()
+            assert torch.equal(u, before[0]) and torch.equal(f, before[1])
+            assert torch.equal(got[0], want[0]), ("u", n_iter, red_first)
+            assert torch.equal(got[1], want[1]), ("r", n_iter, red_first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [33, 257])
+def test_k26_launcher_rejects_what_the_stage_does_not_run(cuda, n):
+    """mg_rect_resid_stage refuses a plan of 3 iterations, K1's plan (its
+    halo and shared memory one short), shared memory other than the plan's,
+    a k halo wider than its tile, and outputs that meet each other, u or f;
+    the planner's own plan runs."""
+    h = 1.0 / (n - 1)
+    u, f = _rect_fields(8 + n, n, cuda, 2)
+    out, r = torch.empty_like(u), torch.empty_like(u)
+    lib = tpk._lib()
+    plan = list(tps._plan_args(n, 2, u.device, rect=True, resid=True))
+
+    def run(dst, res, args):
+        return lib.mg_rect_resid_stage(dst.data_ptr(), res.data_ptr(), u.data_ptr(),
+                                       f.data_ptr(), n, h * h, 1.0 / (h * h), 1, *args,
+                                       tpk._stream())
+
+    assert run(out, r, plan) == 0
+    assert run(out, r, [3] + plan[1:]) != 0
+    assert run(out, r, list(tps._plan_args(n, 2, u.device, rect=True))) != 0
+    assert run(out, r, plan[:6] + [plan[6] + 16] + plan[7:]) != 0
+    s = n // 2  # 4-slot k tiles under an 8-slot halo, the smem they would take
+    tiles = tps.StagePlan(n, 2, 5, 8, 9, 8, 4, 32 * 18,
+                          tps._stage_smem(2, 8, 20, rect=True, resid=True), True)
+    assert s > 4 and run(out, r, [2, tiles.bi, tiles.bj, tiles.bk, tiles.k_halo, tiles.threads,
+                                  tiles.smem, 0]) != 0
+    assert run(out, out, plan) != 0 and run(u, r, plan) != 0 and run(out, f, plan) != 0
+    torch.cuda.synchronize()
+    want = tpk.rb_smooth_residual_plain(u, f, h, 2, True)
+    assert torch.equal(out, want[0]) and torch.equal(r, want[1])
 
 
 @pytest.mark.cuda

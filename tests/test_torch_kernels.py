@@ -132,7 +132,8 @@ def test_rb_smooth_residual_fused_matches_pallas(red_first, n_iter):
     ut = torch.from_numpy(u.copy())
     got_u, got_r = tpk.rb_smooth_residual_fused(ut, torch.from_numpy(f), H, n_iter,
                                                 red_first=red_first)
-    assert got_u is ut  # updated in place, as the CUDA form does
+    # fresh fields, u left as it is, as the CUDA form returns them
+    assert got_u is not ut and np.array_equal(ut.numpy(), u)
     _assert_ulps(got_u, _unpad(want_u))
     _assert_ulps(got_r, _unpad(want_r))
     # the plain version is K1's plain version, then R's
@@ -220,7 +221,7 @@ def test_build_flags_and_library_name():
             "prolong_smooth.cu", "df_step.cu", "rb_smooth_residual.cu", "eft.cuh",
             "stencil.cuh", "rect.cuh"} <= names
     assert {"mg_residual_restrict", "mg_rect_stage", "mg_rect_prolong_stage", "mg_df_step",
-            "mg_df_step_partials", "mg_rb_last_sweep_residual",
+            "mg_df_step_partials", "mg_rect_resid_stage", "mg_splitcolor_stage",
             "mg_residual_df"} <= set(_build._SIGNATURES)
     # no kernel source leans on a library for the work its TPU kernel does
     for src in _build._sources():

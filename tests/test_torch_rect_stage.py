@@ -93,6 +93,33 @@ def test_rect_plan_rejects_what_the_kernel_does_not_run():
         tps._stage_plan(17, 3, H100_SMS, rect=True)
 
 
+@pytest.mark.parametrize("n_iter", [1, 2])
+@pytest.mark.parametrize("n", PLAN_SIZES)
+def test_k26_plan_covers_the_field_once(n, n_iter):
+    """K26's plan (K1's stage that also writes the residual): halos of 2
+    n_iter + 1, a k tile's k_halo at least that and a multiple of 4; rings
+    two planes deeper than K1's on the wavefront; shared memory within a
+    block's, the formula the launcher checks; the owned boxes tile the
+    field."""
+    s = n // 2
+    plan = tps._stage_plan(n, n_iter, H100_SMS, rect=True, resid=True)
+    assert plan.rect and plan.halo == 2 * n_iter + 1 and plan.box == (n <= tps.RECT_BOX_MAX_N)
+    width = plan.bk + 2 * plan.k_halo if plan.k_halo else -(-s // 4) * 4 + 4
+    rows, planes = plan.bj + 2 * plan.halo, plan.bi + 2 * plan.halo if plan.box else 4 * n_iter + 5
+    assert plan.smem == 2 * planes * rows * width * 4 == tps._stage_smem(
+        n_iter, plan.bj, width, rect=True, box_bi=plan.bi if plan.box else 0, resid=True)
+    assert plan.smem <= tps.SMEM_MAX
+    assert (plan.k_halo == 0 and plan.bk == s
+            or plan.k_halo >= plan.halo and plan.k_halo % 4 == 0 and plan.bk % 4 == 0
+            and 4 <= plan.bk < s)
+    assert 32 <= plan.threads <= tps.RECT_MAX_THREADS and plan.threads % 32 == 0
+    for extent, size, count in zip((n, n, s), (plan.bi, plan.bj, plan.bk), plan.tiles):
+        spans = _spans(extent, size)
+        assert len(spans) == count and spans[0][0] == 0 and spans[-1][1] == extent
+    with pytest.raises(ValueError, match="resid"):
+        tps._stage_plan(n, n_iter, H100_SMS, resid=True)
+
+
 # ------------------------------------------------------ the layout, emulated
 
 
@@ -267,6 +294,109 @@ def test_emulation_finds_a_shallow_halo(box):
         assert torch.equal(_emulate_k4(ec, e, r, h, n_iter, lambda _: short), want4)
 
 
+# ---------------------------------- K26: K1's stage that writes the residual
+
+
+def _resid_plans(kind, n):
+    """K26's plan of each launch size, all with tiles smaller than the
+    field: the planner's for 4 SMs, its wavefront's, 8 x 8 blocks of k
+    tiles as wide as their k halo (2 n_iter + 1 rounded up to 4; whole rows
+    where that is the row), or a box of 5 planes by 4 rows; halos of 2
+    n_iter + 1."""
+    s = n // 2
+
+    def plan(n_iter):
+        halo = 2 * n_iter + 1
+        if kind == "default":
+            return tps._stage_plan(n, n_iter, 4, rect=True, resid=True)
+        if kind == "wave":
+            return tps._wave_plan(n, n_iter, 4, False, True, resid=True)
+        if kind == "box":
+            return tps.StagePlan(n, n_iter, halo, 0, 5, 4, s, 256, 0, True, True)
+        k_halo = -(-halo // 4) * 4
+        if k_halo >= s:
+            return tps.StagePlan(n, n_iter, halo, 0, 8, 8, s, 256, 0, True)
+        return tps.StagePlan(n, n_iter, halo, k_halo, 8, 8, k_halo, 256, 0, True)
+
+    return plan
+
+
+def _emulate_k26(u, f, h, n_iter, red_first, resid_plan_of, fault=None):
+    """K26: K1's stage for the leading chunks of n_iter (on K1's planner's
+    plans for 4 SMs), then K1's stage that writes the residual for the
+    last; (u', r)."""
+    n = f.shape[0]
+    color0 = RED if red_first else BLACK
+    *lead, last = tps._stage_chunks(n_iter)
+    for chunk in lead:
+        u = _emulate_k1(u, f, h, chunk, red_first, _plans("default", n))
+    ins = em.by_stage(em.deinterleave(u), color0)
+    r_outs = [torch.full_like(x, em.NAN) for x in ins]
+    outs, writes = em.emulate_dirichlet_launch(ins, em.by_stage(em.deinterleave(f), color0),
+                                               color0, h, resid_plan_of(last), n, fault=fault,
+                                               r_outs=r_outs)
+    _check_writes(writes, n)
+    return (em.interleave(em.by_stage(outs, color0), n),
+            em.interleave(em.by_stage(r_outs, color0), n))
+
+
+@pytest.mark.parametrize("kind", ["default", "wave", "tiles"])
+@pytest.mark.parametrize("n_iter", [1, 2])
+@pytest.mark.parametrize("n", [9, 17, 33])
+def test_emulated_k26_schedule_matches_plain(n, n_iter, kind):
+    """K26's schedule (the box up to 129^3 on the planner's plan, the
+    wavefront with its deeper rings, k tiles) on u and f random at every
+    point: u' and r bit for bit the plain version's (K1's, then R's), both
+    orders."""
+    h = 1.0 / (n - 1)
+    rng = np.random.default_rng(5 * n + n_iter)
+    u, f = _field(rng, n), _field(rng, n)
+    plan_of = _resid_plans(kind, n)
+    assert plan_of(n_iter).blocks > 1 or n == 9
+    for red_first in (True, False):
+        got = _emulate_k26(u, f, h, n_iter, red_first, plan_of)
+        want = tpk.rb_smooth_residual_plain(u, f, h, n_iter, red_first)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), red_first
+
+
+@pytest.mark.parametrize("box", [False, True], ids=["wave", "box"])
+def test_emulation_finds_k26_faults(box):
+    """The emulation is a check: K26 with K1's halo of 2 n_iter, with a
+    plane's residual taken before the next plane's last half-sweep, or with
+    r's boundary left unwritten, no longer equals the plain version."""
+    n, n_iter = 17, 2
+    h = 1.0 / (n - 1)
+    rng = np.random.default_rng(6)
+    u, f = _field(rng, n), _field(rng, n)
+    plan = tps.StagePlan(n, n_iter, 2 * n_iter + 1, 0, 5, 4, n // 2, 256, 0, True, box)
+    want = tpk.rb_smooth_residual_plain(u, f, h, n_iter, True)
+
+    def same(got):
+        return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    assert same(_emulate_k26(u, f, h, n_iter, True, lambda _: plan))
+    assert not same(_emulate_k26(u, f, h, n_iter, True, lambda _: plan._replace(halo=2 * n_iter)))
+    for fault in ("resid_early", "resid_boundary"):
+        assert not same(_emulate_k26(u, f, h, n_iter, True, lambda _: plan, fault=fault)), fault
+
+
+def test_k26_returns_fresh_fields_and_leaves_its_input():
+    """K26 returns a fresh (u', r), u untouched, no launch on the CPU; at
+    n_iter 3 the emulation's K1 chunk and K26 chunk give the same."""
+    n, h = 17, 1.0 / 16
+    rng = np.random.default_rng(9)
+    u, f = _field(rng, n), _field(rng, n)
+    u0 = u.clone()
+    tpk.reset_launches()
+    got = tpk.rb_smooth_residual_fused(u, f, h, 3, False)
+    want = tpk.rb_smooth_residual_plain(u0, f, h, 3, False)
+    assert got[0] is not u and torch.equal(u, u0)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    emulated = _emulate_k26(u, f, h, 3, False, _resid_plans("default", n))
+    assert all(torch.equal(g, w) for g, w in zip(emulated, want))
+    assert tpk.LAUNCHES["rb_smooth_residual_fused"] == 0
+
+
 # ------------------------------------------------- the wrappers on the CPU
 
 
@@ -325,3 +455,23 @@ def test_stage_plans_candidates_fit():
                 assert plan.smem == tps._stage_smem(2, plan.bj, width, prolong, True,
                                                     box_bi=plan.bi if plan.box else 0)
                 assert 32 <= plan.threads <= tps.RECT_MAX_THREADS and plan.threads % 32 == 0
+
+
+def test_k26_stage_plans_candidates_fit():
+    """K26's candidates in the plan bench (utils/stage_plans.py): the
+    planner's first, each a plan its launcher takes (halos 2 n_iter + 1, a
+    k halo no wider than its tile, shared memory by the resid formula
+    within a block's, threads within the launch bound)."""
+    from multigrid_parallel_tpu_torch.utils import stage_plans as sp
+
+    for n in (9, 65, 257):
+        plans = sp.resid_candidates(n, H100_SMS)
+        assert list(plans)[0] == "planner" and len(plans) > 4
+        assert plans["planner"] == tps._stage_plan(n, 2, H100_SMS, rect=True, resid=True)
+        for plan in plans.values():
+            width = tps._stage_width(n, plan.bk, plan.k_halo, rect=True)
+            assert plan.halo == 5 and plan.smem <= tps.SMEM_MAX
+            assert plan.k_halo == 0 or plan.k_halo <= plan.bk < n // 2
+            assert plan.smem == tps._stage_smem(2, plan.bj, width, rect=True, resid=True,
+                                                box_bi=plan.bi if plan.box else 0)
+            assert 32 <= plan.threads <= tps.RECT_MAX_THREADS and plan.threads % 32 == 0

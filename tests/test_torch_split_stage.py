@@ -26,8 +26,10 @@ the kernels themselves against the plain versions (tests/test_torch_cuda.py).
 import numpy as np
 import pytest
 import torch
+import torch_stage_emulation as em
 
 from multigrid_parallel_tpu_torch.ops import pallas_split as tps
+from multigrid_parallel_tpu_torch.ops import pallas_splitcolor as tpsc
 from multigrid_parallel_tpu_torch.ops.stencils_3d import BLACK, RED
 
 torch.set_num_threads(1)
@@ -102,100 +104,15 @@ def _plans(kind, n):
 
 
 def _emulate_launch(ins, fs, color0, h, plan, prep=None, from_zero=False):
-    """One stage launch as stage_body runs it. ``ins`` and ``fs`` by stage
-    colour ([0] the first half-sweep's colour, ``color0``); ``prep(c, q,
-    rows, cols, tile)`` corrects a newly loaded tile plane; ``from_zero`` (K8):
-    the tile planes start as zeros, nothing read from ``ins`` (the kernel
-    zeros whole tile planes; what lies outside the loaded box stays NaN
-    here, as no half-sweep may read it). The half-sweeps
-    of a step (and the correction of its new plane) run as if at once: all
-    of them read the tiles before any writes. Returns the outputs by stage
-    colour and how many blocks wrote each slot."""
-    n, _, s = ins[0].shape
-    live0 = tps._masks(n, ins[0].device)[1 if color0 == RED else 2]
-    big_h, levels = plan.halo, 2 * plan.n_iter
-    depth = 2 * levels + 3  # each colour's ring
+    """One stage launch as stage_body runs it (torch_stage_emulation.
+    emulate_split_launch) on pair colours by stage colour ([0] the first
+    half-sweep's colour, ``color0``). Returns the outputs by stage colour
+    (NaN where not stored) and how many blocks wrote each slot."""
     outs = [torch.full_like(x, float("nan")) for x in ins]
-    writes = torch.zeros(ins[0].shape, dtype=torch.int32)
-    width = plan.bk + 2 * plan.k_halo if plan.k_halo else s
-    ni, nj, nk = plan.tiles
-    for ti in range(ni):
-        for tj in range(nj):
-            for tk in range(nk):
-                i0, i1 = ti * plan.bi, min(ti * plan.bi + plan.bi, n)
-                j0, j1 = tj * plan.bj, min(tj * plan.bj + plan.bj, n)
-                k0, k1 = tk * plan.bk, min(tk * plan.bk + plan.bk, s)
-                jb0, kb0 = j0 - big_h, k0 - plan.k_halo
-                ia, ib = max(i0 - big_h, 0), min(i1 + big_h, n)
-                ja, jb = max(jb0, 0), min(j1 + big_h, n)
-                ka, kb = max(kb0, 0), min(k1 + plan.k_halo, s)
-                rows, cols = slice(ja - jb0, jb - jb0), slice(ka - kb0, kb - kb0)
-                ring = [{}, {}]
-
-                def load(q):
-                    for c in (0, 1):
-                        t = torch.full((plan.bj + 2 * big_h, width), float("nan"),
-                                       dtype=ins[c].dtype)
-                        box = ins[c][q, ja:jb, ka:kb]
-                        if from_zero:
-                            box = torch.zeros_like(box)
-                        elif c == 0:  # only the slots that no half-sweep updates
-                            box = torch.where(live0[q, ja:jb, ka:kb],
-                                              torch.full_like(box, float("nan")), box)
-                        t[rows, cols] = box
-                        ring[c][q] = t
-                        ring[c].pop(q - depth, None)  # the slot plane q takes
-
-                load(ia)
-                for p in range(ia, i1 + 2 * levels + 1):
-                    if p + 1 < ib:
-                        load(p + 1)
-                    updates = []
-                    for lvl in range(1, levels + 1):
-                        c, q = (lvl - 1) % 2, p - 2 * lvl
-                        if not max(i0 - big_h + lvl, 1) <= q < min(i1 + big_h - lvl, n - 1):
-                            continue
-                        color = color0 if c == 0 else 1 - color0
-                        jl, jh = max(jb0 + lvl, 1), min(j1 + big_h - lvl, n - 1)
-                        kl = 0 if k0 == 0 else k0 - plan.k_halo + lvl
-                        kh = s if k1 == s else k1 + plan.k_halo - lvl
-                        if jh <= jl or kh <= kl:  # an empty region (a halo too short)
-                            continue
-                        lo, mid, hi = ring[1 - c][q - 1], ring[1 - c][q], ring[1 - c][q + 1]
-                        r = slice(jl - jb0, jh - jb0)
-                        cl = slice(kl - kb0, kh - kb0)
-                        kk = torch.arange(kl, kh)[None, :]
-                        j = torch.arange(jl, jh)[:, None]
-                        par = ((q + j) % 2) ^ color ^ 1
-                        left = torch.full_like(mid[r, cl], float("nan"))
-                        right = torch.full_like(mid[r, cl], float("nan"))
-                        lc = max(kl - kb0 - 1, 0)
-                        left[:, lc - (kl - kb0 - 1):] = mid[r, lc:kh - kb0 - 1]
-                        rc = min(kh - kb0 + 1, width)
-                        right[:, :rc - (kl - kb0 + 1)] = mid[r, kl - kb0 + 1:rc]
-                        zero = torch.zeros_like(left)
-                        last = torch.where(par == 0, torch.where(kk > 0, left, zero),
-                                           torch.where(kk + 1 < s, right, zero))
-                        r_lo = slice(jl - jb0 - 1, jh - jb0 - 1)
-                        r_hi = slice(jl - jb0 + 1, jh - jb0 + 1)
-                        acc = lo[r, cl] + hi[r, cl] + mid[r_lo, cl] + mid[r_hi, cl] + mid[r, cl]
-                        acc = acc + last
-                        upd = (acc - (h * h) * fs[c][q, jl:jh, kl:kh]) * (1.0 / 6.0)
-                        live = 2 * kk + 1 + par <= n - 2
-                        dst = ring[c][q]
-                        updates.append((dst, r, cl, torch.where(live, upd, dst[r, cl])))
-                    if prep is not None and p < ib:
-                        for c in (0, 1):
-                            prep(c, p, (ja, jb), (ka, kb), ring[c][p][rows, cols])
-                    for dst, r, cl, value in updates:
-                        dst[r, cl] = value
-                    # each colour's last half-sweep finished a step ago
-                    for c, q in ((0, p - 1 - 2 * (levels - 1)), (1, p - 1 - 2 * levels)):
-                        if i0 <= q < i1:
-                            outs[c][q, j0:j1, k0:k1] = ring[c][q][j0 - jb0:j1 - jb0,
-                                                                  k0 - kb0:k1 - kb0]
-                            if c == 0:
-                                writes[q, j0:j1, k0:k1] += 1
+    writes = em.emulate_split_launch([em.pair_rows(x) for x in ins],
+                                     [em.pair_rows(x) for x in fs],
+                                     [em.pair_rows(x) for x in outs], color0, h, plan,
+                                     ins[0].shape[0], prep, from_zero)
     return outs, writes
 
 
@@ -338,6 +255,71 @@ def test_emulation_finds_a_shallow_halo():
     want8 = tps.rb_smooth_split_from_zero_plain(*f, h, n_iter, True)
     assert _bitwise(_emulate_k8(*f, h, n_iter, True, lambda _: plan, []), want8)
     assert not _bitwise(_emulate_k8(*f, h, n_iter, True, lambda _: short, []), want8)
+
+
+# ------------------------------------- K42: K7's stage on the packed array
+
+
+def _packed(seed, n):
+    """Packed (n, 2 n, S) arrays of u and f from zero-boundary cubes (the
+    pair invariant: dead slots and boundary rows 0)."""
+    return [torch.cat(pair, dim=1) for pair in _split_fields(seed, n, 2)]
+
+
+@pytest.mark.parametrize("kind", ["default", "tiled"])
+@pytest.mark.parametrize("n_iter", [1, 2])
+@pytest.mark.parametrize("n", [9, 17, 33])
+def test_emulated_k42_schedule_matches_plain(n, n_iter, kind):
+    """K42's one-pass stage on K7's plans (the planner's for 4 SMs, and 4-slot
+    k tiles, at 9^3 whole rows of 8 x 7 blocks), through the packed array's
+    addresses (plane pitch 2 n S, the black half at n S) in K42's order of
+    additions: bit for bit its plain version, both orders, every slot
+    written by one block, the input untouched."""
+    h = 1.0 / (n - 1)
+    u2, f2 = _packed(4 * n + n_iter, n)
+    u0 = u2.clone()
+    plan_of = _plans(kind if kind == "default" else "k_tiles" if n > 9 else "rows", n)
+    assert plan_of(n_iter).blocks > 1
+    for red_first in (True, False):
+        got, writes = em.emulate_k42(u2, f2, h, n_iter, red_first, plan_of)
+        want = tpsc.rb_smooth_split_fused_plain(u2, f2, h, n_iter, red_first)
+        assert torch.equal(got, want), (n, n_iter, kind, red_first)
+        assert all(bool((w == 1).all()) for w in writes)
+    assert torch.equal(u2, u0)
+
+
+def test_emulation_finds_k42_faults():
+    """The emulation is a check: K42 with K7's order of additions, or with
+    the pair's plane pitch of n S, no longer equals the plain version; nor
+    does a halo one short."""
+    n, n_iter = 17, 2
+    h = 1.0 / (n - 1)
+    u2, f2 = _packed(6, n)
+    plan_of = _plans("default", n)
+    want = tpsc.rb_smooth_split_fused_plain(u2, f2, h, n_iter, True)
+    assert torch.equal(em.emulate_k42(u2, f2, h, n_iter, True, plan_of)[0], want)
+    for fault in ("order", "pitch"):
+        got = em.emulate_k42(u2, f2, h, n_iter, True, plan_of, fault=fault)[0]
+        assert not torch.equal(got, want), fault
+    short = plan_of(n_iter)._replace(halo=2 * n_iter - 1)
+    assert not torch.equal(em.emulate_k42(u2, f2, h, n_iter, True, lambda _: short)[0], want)
+
+
+def test_k42_returns_a_fresh_array_and_leaves_its_input():
+    """The wrapper's CPU contract: a fresh packed array, u2 untouched, no
+    launch counted; n_iter 3 as ceil(3 / 2) chunks in the emulation."""
+    n, h = 17, 1.0 / 16
+    u2, f2 = _packed(10, n)
+    u0 = u2.clone()
+    tpsc.reset_launches()
+    got = tpsc.rb_smooth_split_fused(u2, f2, h, 3, n, False)
+    want = tpsc.rb_smooth_split_fused_plain(u0, f2, h, 3, False)
+    assert got is not u2 and torch.equal(u2, u0) and torch.equal(got, want)
+    assert torch.equal(em.emulate_k42(u2, f2, h, 3, False, _plans("rows", n))[0], want)
+    assert tpsc.LAUNCHES == {"rb_smooth_split_fused": 0}
+    assert tpsc.PER_SWEEP_LAUNCHES == {"rb_smooth_split_fused_per_sweep": 0}
+    with pytest.raises(ValueError, match="n_iter"):
+        tpsc.rb_smooth_split_fused(u2, f2, h, 0, n)
 
 
 # ------------------------------------------------- the wrappers on the CPU

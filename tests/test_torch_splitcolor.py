@@ -147,13 +147,19 @@ def test_plain_matches_pair_and_rect(n, n_iter, red_first):
 
 
 def test_wrapper_updates_in_place_on_cpu():
+    """K42's first form (one launch a half-sweep) updates u2 in place; the
+    stage returns a fresh array and leaves u2 as it is; on the CPU both
+    run the plain version and launch nothing."""
     n = 17
     u2, f2 = (tsc.pack_split(torch.from_numpy(_cube(n, s))) for s in (40, 41))
+    u0 = u2.clone()
     want = tsc.rb_smooth_split_fused_plain(u2, f2, 1.0 / (n - 1), 2, False)
-    before = dict(tsc.LAUNCHES)
+    before = (dict(tsc.LAUNCHES), dict(tsc.PER_SWEEP_LAUNCHES))
     got = tsc.rb_smooth_split_fused(u2, f2, 1.0 / (n - 1), 2, n, red_first=False)
+    assert got is not u2 and torch.equal(u2, u0) and torch.equal(got, want)
+    got = tsc.rb_smooth_split_fused_per_sweep(u2, f2, 1.0 / (n - 1), 2, n, red_first=False)
     assert got is u2 and torch.equal(u2, want)
-    assert tsc.LAUNCHES == before  # the plain path launches nothing
+    assert (tsc.LAUNCHES, tsc.PER_SWEEP_LAUNCHES) == before  # the plain path launches nothing
 
 
 @pytest.mark.parametrize("case", ["shape", "n", "even_n", "devices", "dtype"])
@@ -178,10 +184,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
 def test_profile_splitcolor_stage_on_cpu():
     n = 17
     rows = profile_splitcolor_stage(n=n, reps=2, device="cpu")
-    assert [label.split()[0] for label, *_ in rows] == ["rect", "rect", "packed", "pair",
-                                                        "pair", "same-bytes"]
-    assert "one launch a half-sweep" in rows[1][0] and "one launch a half-sweep" in rows[4][0]
+    assert [label.split()[0] for label, *_ in rows] == ["rect", "rect", "packed", "packed",
+                                                        "pair", "pair", "same-bytes"]
+    assert all("one launch a half-sweep" in rows[i][0] for i in (1, 3, 5))
     cube, packed = n ** 3 * 4, n * 2 * n * ((n - 1) // 2) * 4
-    assert [b for _, _, b, _ in rows] == [3 * cube] * 2 + [3 * packed] * 4
+    assert [b for _, _, b, _ in rows] == [3 * cube] * 2 + [3 * packed] * 5
     for _, seconds, nbytes, bound_s in rows:
         assert seconds > 0 and bound_s == nbytes / HBM_BYTES_PER_S

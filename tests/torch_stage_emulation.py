@@ -8,7 +8,12 @@ K38 on an (i, j)-sharded one (``kSegRect``;
 tests/test_torch_seg_rect_stage.py, below); and of the streaming
 restriction (restrict.cuh) and the double-float residual-and-norm stage
 (residual_df_norm_seg.cu, K32 and K41; tests/test_torch_seg_df_stage.py)
-further below.
+further below; and of split.cuh's stage (K7, K8 and K10 on the pair,
+tests/test_torch_split_stage.py; K42 on the packed array, its plane pitch
+and order of additions, through the colours' addresses, ``Rows``) at the
+end. The Dirichlet launch also emulates K26 (``r_outs``: K1's stage with
+halos one deeper that writes the residual of its result;
+tests/test_torch_rect_stage.py).
 
 The stage runs block by block on rect.cuh's tile: a field row (i, j) held
 as two colour rows of slots, slot kk of a colour holding k = 2 kk + 1 + p,
@@ -421,7 +426,7 @@ def pins(kind, n, rng):
 
 
 def emulate_dirichlet_launch(ins, fs, color0, h, plan, n, span=None, cols=None, corr=None,
-                             fault=None):
+                             fault=None, r_outs=None):
     """One Dirichlet stage launch as the kernel runs it (rect.cuh with
     ``Layout::kRect`` for K1, K2 and K4 on the whole field, or
     ``Layout::kSegRect`` for K28, K29, K31, K37, K38 and K40 on a rank's
@@ -439,13 +444,27 @@ def emulate_dirichlet_launch(ins, fs, color0, h, plan, n, span=None, cols=None, 
     of the owned box, boundary nodes included. ``fault`` "pad_swept"
     tiles, loads, sweeps and stores the rows and planes past n - 1 as
     interior ones (the spans then the rank's whole body). Returns the
-    outputs by stage colour (NaN where not stored) and each slot's writes."""
+    outputs by stage colour (NaN where not stored) and each slot's writes.
+
+    ``r_outs`` (K26, rect.cuh with RESID: K1's stage that also writes the
+    residual of its result): two NaN tensors by stage colour, de-interleaved
+    as ``ins``, into which each owned point's residual f - (1/h^2)(sum6 -
+    6 u') is written (0 on the boundary), the neighbours read from the
+    tile planes q - 1 .. q + 1 of the other colour in neighbor_sum's order;
+    the rings two planes deeper, plane q's u' and r stored a step after
+    plane q + 1's last half-sweep (the box: after its last half-sweep).
+    The halo is the plan's (H + 1 for K26). ``fault`` "resid_early" takes
+    plane q's residual (and stores it) a step sooner, before plane q + 1's
+    last half-sweep (the box: before its last half-sweep); "resid_boundary"
+    leaves r unwritten at the boundary points."""
     s = n // 2
     planes_n, rows_n = ins[0].shape[:2]
     (c0, c1), (cj0, cj1) = span or (0, n), cols or (0, n)
     edge_i, edge_j = (planes_n, rows_n) if fault == "pad_swept" else (n, n)
     big_h, levels = plan.halo, 2 * plan.n_iter
-    depth = 2 * levels + 3  # each colour's ring (the wavefront)
+    resid = r_outs is not None
+    depth = 2 * levels + 3 + 2 * resid  # each colour's ring (the wavefront)
+    inv_h2 = 1.0 / (h * h)
     outs = [torch.full_like(x, NAN) for x in ins]
     writes = torch.zeros((2,) + ins[0].shape, dtype=torch.int32)
     width = plan.bk + 2 * plan.k_halo if plan.k_halo else -(-s // 4) * 4 + 4
@@ -518,21 +537,63 @@ def emulate_dirichlet_launch(ins, fs, color0, h, plan, n, span=None, cols=None, 
                             j0 - jb0:j1 - jb0, lo_slot - kb0:k1 - kb0]
                         writes[c, q, j0:j1, lo_slot + 1:k1 + 1] += 1
 
+                def residual(q):  # K26: r of the owned points of plane q
+                    lo_slot = -1 if k0 == 0 else k0
+                    r = slice(j0 - jb0, j1 - jb0)
+                    cl = slice(lo_slot - kb0, k1 - kb0)
+                    kk = torch.arange(lo_slot, k1)[None, :]
+                    j = torch.arange(j0, j1)[:, None]
+                    for c in (0, 1):
+                        par = ((q + j) % 2) ^ (color0 if c == 0 else 1 - color0) ^ 1
+                        k = 2 * kk + 1 + par
+                        inner = (j >= 1) & (j <= n - 2) & (k >= 1) & (k <= n - 2) & (
+                            1 <= q <= n - 2)
+                        value = torch.zeros(inner.shape)
+                        if 1 <= q <= n - 2:  # a boundary plane reads no neighbour
+                            lo, mid, hi = tiles[1 - c][q - 1], tiles[1 - c][q], tiles[1 - c][q + 1]
+                            own = tiles[c][q][r, cl]
+                            left = mid[r, lo_slot - kb0 - 1:k1 - kb0 - 1]
+                            right = mid[r, lo_slot - kb0 + 1:k1 - kb0 + 1]
+                            k_lo = torch.where(par == 0, left, mid[r, cl])
+                            k_hi = torch.where(par == 0, mid[r, cl], right)
+                            r_lo = slice(j0 - jb0 - 1, j1 - jb0 - 1)
+                            r_hi = slice(j0 - jb0 + 1, j1 - jb0 + 1)
+                            acc = lo[r, cl] + hi[r, cl] + mid[r_lo, cl] + mid[r_hi, cl] + k_lo + k_hi
+                            f = fs[c][q, j0:j1, lo_slot + 1:k1 + 1]
+                            value = torch.where(inner, f - inv_h2 * (acc - 6.0 * own), value)
+                        dst = r_outs[c][q, j0:j1, lo_slot + 1:k1 + 1]
+                        keep = inner if fault == "resid_boundary" else torch.ones_like(inner)
+                        dst.copy_(torch.where(keep, value, dst))
+
+                early = resid and fault == "resid_early"
                 if plan.box:  # every plane, then the half-sweeps one by one
                     for q in range(ia, ib):
                         load(q)
                     for lvl in range(1, levels + 1):
+                        if early and lvl == levels:
+                            for q in range(i0, i1):
+                                residual(q)
                         run([sweep(lvl, q) for q in range(ia, ib)])
                     for q in range(i0, i1):
                         store(q)
+                        if resid and not early:
+                            residual(q)
                     continue
+                # K26 stores plane q a step later than K1: once plane q + 1 is final too
+                late = 1 if resid and not early else 0
                 load(ia)
-                for p in range(ia, i1 + 2 * levels + 1):
+                for p in range(ia, i1 + 2 * levels + 1 + late):
                     if p + 1 < ib:
                         load(p + 1)
+                    q = p - 1 - 2 * levels - late
+                    if early and i0 <= q < i1:  # before this step's half-sweeps write
+                        store(q)
+                        residual(q)
                     run([sweep(lvl, p - 2 * lvl) for lvl in range(1, levels + 1)])
-                    if i0 <= p - 1 - 2 * levels < i1:  # both colours' last half-sweeps done
-                        store(p - 1 - 2 * levels)
+                    if not early and i0 <= q < i1:  # both colours' last half-sweeps done
+                        store(q)
+                        if resid:
+                            residual(q)
     return outs, writes
 
 
@@ -1161,3 +1222,166 @@ def _df_block(plan, uh, ul, fh, fl, inv_h2, seg, ta, tb, ja, jb, ka, kb, ring_w,
             acc = acc + sq[:, ch * 32:(ch + 1) * 32]
         prev = c
     return acc
+
+
+# ------------------------------------- the split stage (K7, K8, K10, K42)
+
+
+class Rows(NamedTuple):
+    """One colour's rows as split.cuh's stage addresses them (row_at): row
+    (q, j) at flat offset base + (q * pitch + j) * S of ``flat``, a 1-D
+    view of its tensor. A pair colour: base 0, pitch n; K42's packed
+    array: base 0 (red) or n S (black), pitch 2 n."""
+    flat: torch.Tensor
+    base: int
+    pitch: int
+    S: int
+
+    def index(self, q, ja, jb, ka, kb):
+        j = torch.arange(ja, jb)[:, None]
+        return self.base + (q * self.pitch + j) * self.S + torch.arange(ka, kb)[None, :]
+
+    def get(self, q, ja, jb, ka, kb):
+        return self.flat[self.index(q, ja, jb, ka, kb)]
+
+    def put(self, q, ja, jb, ka, kb, value):
+        self.flat[self.index(q, ja, jb, ka, kb)] = value
+
+
+def pair_rows(x):
+    """A pair colour's (n, n, S) contiguous tensor as Rows."""
+    n, _, s = x.shape
+    return Rows(x.view(-1), 0, n, s)
+
+
+def emulate_split_launch(ins, fs, outs, color0, h, plan, n, prep=None, from_zero=False,
+                         order="split"):
+    """One split.cuh stage launch as stage_body runs it. ``ins``, ``fs``
+    and ``outs`` are Rows by stage colour ([0] the first half-sweep's
+    colour, ``color0``), read and written only through their addresses;
+    ``prep(c, q, rows, cols, tile)`` corrects a newly loaded tile plane;
+    ``from_zero`` (K8): the tile planes start as zeros, nothing read from
+    ``ins`` (the kernel zeros whole tile planes; what lies outside the
+    loaded box stays NaN here, as no half-sweep may read it). The first
+    colour's live slots load as NaN: no half-sweep may read them before it
+    rewrites them. The half-sweeps of a step (and the correction of its new
+    plane) run as if at once: all of them read the tiles before any writes.
+    ``order``: "split", the pair kernels' six adds one at a time, or
+    "packed", K42's (the i and j terms, then the same-slot value plus the
+    other k neighbour as one term). Returns how many blocks wrote each slot
+    of colour 0, (n, n, S)."""
+    s = (n - 1) // 2
+    dtype = ins[0].flat.dtype
+    live0 = tps._masks(n, "cpu")[1 if color0 == RED else 2]
+    big_h, levels = plan.halo, 2 * plan.n_iter
+    depth = 2 * levels + 3  # each colour's ring
+    writes = torch.zeros((n, n, s), dtype=torch.int32)
+    width = plan.bk + 2 * plan.k_halo if plan.k_halo else s
+    ni, nj, nk = plan.tiles
+    for ti in range(ni):
+        for tj in range(nj):
+            for tk in range(nk):
+                i0, i1 = ti * plan.bi, min(ti * plan.bi + plan.bi, n)
+                j0, j1 = tj * plan.bj, min(tj * plan.bj + plan.bj, n)
+                k0, k1 = tk * plan.bk, min(tk * plan.bk + plan.bk, s)
+                jb0, kb0 = j0 - big_h, k0 - plan.k_halo
+                ia, ib = max(i0 - big_h, 0), min(i1 + big_h, n)
+                ja, jb = max(jb0, 0), min(j1 + big_h, n)
+                ka, kb = max(kb0, 0), min(k1 + plan.k_halo, s)
+                rows, cols = slice(ja - jb0, jb - jb0), slice(ka - kb0, kb - kb0)
+                ring = [{}, {}]
+
+                def load(q):
+                    for c in (0, 1):
+                        t = torch.full((plan.bj + 2 * big_h, width), NAN, dtype=dtype)
+                        box = ins[c].get(q, ja, jb, ka, kb)
+                        if from_zero:
+                            box = torch.zeros_like(box)
+                        elif c == 0:  # only the slots that no half-sweep updates
+                            box = torch.where(live0[q, ja:jb, ka:kb],
+                                              torch.full_like(box, NAN), box)
+                        t[rows, cols] = box
+                        ring[c][q] = t
+                        ring[c].pop(q - depth, None)  # the slot plane q takes
+
+                load(ia)
+                for p in range(ia, i1 + 2 * levels + 1):
+                    if p + 1 < ib:
+                        load(p + 1)
+                    updates = []
+                    for lvl in range(1, levels + 1):
+                        c, q = (lvl - 1) % 2, p - 2 * lvl
+                        if not max(i0 - big_h + lvl, 1) <= q < min(i1 + big_h - lvl, n - 1):
+                            continue
+                        color = color0 if c == 0 else 1 - color0
+                        jl, jh = max(jb0 + lvl, 1), min(j1 + big_h - lvl, n - 1)
+                        kl = 0 if k0 == 0 else k0 - plan.k_halo + lvl
+                        kh = s if k1 == s else k1 + plan.k_halo - lvl
+                        if jh <= jl or kh <= kl:  # an empty region (a halo too short)
+                            continue
+                        lo, mid, hi = ring[1 - c][q - 1], ring[1 - c][q], ring[1 - c][q + 1]
+                        r = slice(jl - jb0, jh - jb0)
+                        cl = slice(kl - kb0, kh - kb0)
+                        kk = torch.arange(kl, kh)[None, :]
+                        j = torch.arange(jl, jh)[:, None]
+                        par = ((q + j) % 2) ^ color ^ 1
+                        left = torch.full_like(mid[r, cl], NAN)
+                        right = torch.full_like(mid[r, cl], NAN)
+                        lc = max(kl - kb0 - 1, 0)
+                        left[:, lc - (kl - kb0 - 1):] = mid[r, lc:kh - kb0 - 1]
+                        rc = min(kh - kb0 + 1, width)
+                        right[:, :rc - (kl - kb0 + 1)] = mid[r, kl - kb0 + 1:rc]
+                        zero = torch.zeros_like(left)
+                        last = torch.where(par == 0, torch.where(kk > 0, left, zero),
+                                           torch.where(kk + 1 < s, right, zero))
+                        r_lo = slice(jl - jb0 - 1, jh - jb0 - 1)
+                        r_hi = slice(jl - jb0 + 1, jh - jb0 + 1)
+                        acc = lo[r, cl] + hi[r, cl] + mid[r_lo, cl] + mid[r_hi, cl]
+                        if order == "packed":
+                            acc = acc + (mid[r, cl] + last)
+                        else:
+                            acc = acc + mid[r, cl] + last
+                        upd = (acc - (h * h) * fs[c].get(q, jl, jh, kl, kh)) * (1.0 / 6.0)
+                        live = 2 * kk + 1 + par <= n - 2
+                        dst = ring[c][q]
+                        updates.append((dst, r, cl, torch.where(live, upd, dst[r, cl])))
+                    if prep is not None and p < ib:
+                        for c in (0, 1):
+                            prep(c, p, (ja, jb), (ka, kb), ring[c][p][rows, cols])
+                    for dst, r, cl, value in updates:
+                        dst[r, cl] = value
+                    # each colour's last half-sweep finished a step ago
+                    for c, q in ((0, p - 1 - 2 * (levels - 1)), (1, p - 1 - 2 * levels)):
+                        if i0 <= q < i1:
+                            outs[c].put(q, j0, j1, k0, k1,
+                                        ring[c][q][j0 - jb0:j1 - jb0, k0 - kb0:k1 - kb0])
+                            if c == 0:
+                                writes[q, j0:j1, k0:k1] += 1
+    return writes
+
+
+def emulate_k42(u2, f2, h, n_iter, red_first, plan_of, fault=None):
+    """K42 (rb_smooth_splitcolor.cu): K7's stage on the packed (n, 2 n, S)
+    array, chunk after chunk (pallas_split._stage_chunks), each launch into
+    a fresh NaN array; ``plan_of(n_iter)`` gives each launch's plan (K7's).
+    ``fault`` "order": the pair kernels' order of additions; "pitch": the
+    pair's plane pitch of n S (for the loads, f and the stores). Returns
+    the result and each launch's writes."""
+    n = u2.shape[0]
+    s = (n - 1) // 2
+    color0 = RED if red_first else BLACK
+    pitch = n if fault == "pitch" else 2 * n
+
+    def rows(x, c):  # stage colour c's half of the packed array x
+        color = color0 if c == 0 else 1 - color0
+        return Rows(x.view(-1), (0 if color == RED else 1) * n * s, pitch, s)
+
+    writes = []
+    for chunk in tps._stage_chunks(n_iter):
+        out = torch.full_like(u2, NAN)
+        writes.append(emulate_split_launch(
+            [rows(u2, c) for c in (0, 1)], [rows(f2, c) for c in (0, 1)],
+            [rows(out, c) for c in (0, 1)], color0, h, plan_of(chunk), n,
+            order="split" if fault == "order" else "packed"))
+        u2 = out
+    return u2, writes
