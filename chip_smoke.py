@@ -125,13 +125,14 @@ which fails the run:
      plain version, and K30 (the streaming restriction stage on segments)
      and K28 and K29 (K1's and K2's one-pass stages on segments) timed on
      the one-rank L = 320 segment beside their bounds from the bytes they
-     need, and K32 (the streaming df residual-and-norm stage) checked and
-     timed there against its plain version and that bound, K5 on the whole
-     field beside it; (b) make_sharded_df_solver at 257^3 on one rank of an NCCL
-     group, launch counts reset and read around it: exactly the launches
-     predicted from its outer steps (K28, K29 and K31 one a call, one-pass
-     stages), only K28-K32, the fused
-     solve's outer steps, error within 1% of its, max|u - u_fused| <=
+     need, and K32 (the streaming df residual-and-norm stage) and K33 (the
+     streaming residual stage) checked and timed there against their plain
+     versions and that bound (K33's also on rank 1's: 12 bytes an interior
+     point, 4 any other), K5 on the whole field beside them; (b)
+     make_sharded_df_solver at 257^3 on one rank of an NCCL group, launch
+     counts reset and read around it: exactly the launches predicted from
+     its outer steps (K28, K29 and K31 one a call, one-pass stages), only
+     K28-K32, the fused solve's outer steps, error within 1% of its, max|u - u_fused| <=
      1e-9, walls interleaved with the fused solve (5 each) and the device
      busy time of each; (c) the same solve on four gloo ranks on the one
      card (halos staged through host memory, every kernel on the card),
@@ -1658,6 +1659,12 @@ def _seg_ext(x, rank, L, k):
     return torch.cat([lh, body, rh])
 
 
+def _seg_interior(n, g0, L):
+    """The interior points of an i-sharded block of L rows from global plane
+    g0: its planes in [1, n - 2] times (n - 2)^2."""
+    return max(0, min(L, n - 1 - g0) - max(0, 1 - g0)) * (n - 2) ** 2
+
+
 def bitwise_same(results, name, n, label, got, want):
     """Check got == want bit for bit; keep the largest difference seen in
     results[name]["max_abs_err"]."""
@@ -1790,7 +1797,7 @@ def compare_sharded(dev, results):
 
     # times on rank 1's segments of the 257^3 fields (the 4-rank solve's shapes)
     seg = lambda x, kl, kr, Lr=L: _seg_parts(x, 1, Lr, kl, kr)  # noqa: E731
-    u4, f4, u21, f21, f11 = seg(u, hh, hh), seg(f, hh, hh), seg(u, 2, 1), seg(f, 2, 1), seg(f, 1, 1)
+    u4, f4, u21, f21 = seg(u, hh, hh), seg(f, hh, hh), seg(u, 2, 1), seg(f, 2, 1)
     ec23 = seg(ec, 2, 3, Lc)
     u_ext, f_ext = _seg_ext(u, 1, L, 1), _seg_ext(f, 1, L, 1)
     calls = {
@@ -1805,9 +1812,10 @@ def compare_sharded(dev, results):
                                     lambda: px.rb_smooth_from_zero_halo_plain(f4, L - hh, h, 2,
                                                                               n, L),
                                     f4, L * n * n),
+        # K33 reads u and f at the block's interior points and writes r at every point
         "residual_seg": (lambda: px.residual_ext(u_ext, f_ext, L - 1, h, n, L),
                          lambda: px.residual_ext_plain(u_ext, f_ext, L - 1, h, n, L),
-                         (u_ext, f11[0]), L * n * n),
+                         (8 * _seg_interior(n, L, L),), L * n * n),
         "residual_restrict_seg": (lambda: px.residual_restrict_halo(u21, f21, L - 2, h, n, Lc),
                                   lambda: px.residual_restrict_halo_plain(u21, f21, L - 2, h, n,
                                                                           Lc),
@@ -1847,6 +1855,15 @@ def compare_sharded(dev, results):
                  lambda: px.residual_df_norm_halo(*df1, -1, h, n, L1),
                  lambda: px.residual_df_norm_halo_plain(*df1, -1, h, n, L1),
                  L1 * n * n, [x[:n] for x in df], h)
+    # K33 there, its bound the bytes the function needs as on rank 1's block
+    u_ext1, f_ext1 = _seg_ext(u[:L1], 0, L1, 1), _seg_ext(f[:L1], 0, L1, 1)
+    k33 = lambda: px.residual_ext(u_ext1, f_ext1, -1, h, n, L1)  # noqa: E731
+    got = k33()
+    bitwise_same(results, "residual_seg", n, "L=320 rank 0 against plain", got,
+                 px.residual_ext_plain(u_ext1, f_ext1, -1, h, n, L1))
+    bound1, _ = bound("residual_seg", L1 * n * n, (8 * _seg_interior(n, 0, L1),), (got,))
+    print(f"[sharded kernel] residual_seg             n={n} L={L1} rank 0 of 1 "
+          f"kernel_ms={time_ms(k33):.4f} bound_ms={bound1:.4f}")
     u1, f1 = _seg_parts(u[:L1], 0, L1, hh, hh), _seg_parts(f[:L1], 0, L1, hh, hh)
     ec1 = _seg_parts(ec[:L1 // 2], 0, L1 // 2, 2, 3)
     nc = (n + 1) // 2

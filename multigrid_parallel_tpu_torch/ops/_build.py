@@ -110,7 +110,10 @@ _SIGNATURES = {
     "mg_seg_residual_df_norm_partials": (_I, _I),
     "mg_seg_residual_df_norm": (_P,) * 3 + (_P, _P, _P, _I) * 2 + (_P, _P) + (_I,) * 3
                                + (_F, _P),
-    "mg_seg_residual": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _P),
+    # K33's streaming residual stage: r, the u segment, f's owned rows, the geometry
+    # (kl, L, kr, n, g0), inv_h2, the plan (bi, bj, bk, chunks, threads, smem), stream
+    "mg_seg_resid_stage": (_P,) + (_P, _P, _P, _I) + (_P,) + (_I,) * 5 + (_F,) + (_I,) * 6
+                          + (_P,),
     # (i, j)-sharded blocks: each segment is a host descriptor (seg2d.cuh)
     "mg_seg2d_half_sweep": (_P, _P) + (_I,) * 6 + (_F, _I, _P),
     "mg_seg2d_half_sweep_from_zero": (_P, _P) + (_I,) * 6 + (_F, _I, _P),

@@ -18,7 +18,7 @@ ops/csrc/:
   K30 residual_restrict_ext / _halo         :495 / :964   residual_restrict_seg.cu
   K31 prolong_smooth_ext / _halo            :641 / :1078  prolong_smooth_seg.cu
   K32 residual_df_norm_ext / _halo          :365 / :922   residual_df_norm_seg.cu
-  K33 residual_ext                          :250          residual.cu (2nd entry)
+  K33 residual_ext                          :250          residual.cu
 
 Geometry, as in the JAX package: the global i axis (n valid planes,
 padded to n_dev * L) is sharded and j, k are not; fields are plain
@@ -50,7 +50,9 @@ launch of K3's streaming restriction stage on the segments
 streaming double-float residual-and-norm stage on the segments
 (ops/csrc/residual_df_norm_seg.cu, the plan ``pallas_split._df_plan``)
 from ``pallas_split.DF_STAGE_MIN_N`` up, of its first form (one thread a
-point) below, then the sum of the partials.
+point) below, then the sum of the partials. K33 is one launch of the same
+stage with one field and no norm (ops/csrc/residual.cu, the plan
+``pallas_split._df_plan(..., stage="resid")``) at every size.
 """
 
 from __future__ import annotations
@@ -338,19 +340,33 @@ def residual_ext_plain(u_ext, f_ext, gi0, h: float, n: int, L: int):
     return torch.where(interior, r, torch.zeros_like(r))
 
 
+def seg_resid_args(n: int, device, rows: int):
+    """The plan arguments of a K33 stage launch on a rank's block whose
+    interior holds ``rows`` planes (``seg_df_extents``) on ``device``: the
+    plan of ``pallas_split._df_plan(..., stage="resid")``, for a rank without
+    interior points the level's (its threads each write their share of the
+    zeros)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return ps._df_plan(n, ps._sms(index), rows or n - 2, n - 2, stage="resid").args
+
+
 def residual_ext(u_ext, f_ext, gi0, h: float, n: int, L: int, block_i: int = 8):
     """Interior residual on a rank's block from ext tensors with a 1-plane
     halo (L + 2 planes): a fresh (L, n, n) tensor, zero off the global
-    interior. One K33 launch on the card."""
+    interior; u and f are left as they were. One K33 launch on the card:
+    the streaming stage on the segment (residual.cu, ``seg_resid_args``'s
+    plan)."""
     del block_i
     u = _seg(_ext_parts(u_ext, 1, L), 1, 1, L)
     f_body = _ext_parts(f_ext, 1, L)[0]
     if not _on_cuda(([u.lh, u.body, u.rh, f_body], n)):
         return residual_ext_plain(u_ext, f_ext, gi0, h, n, L)
+    g0 = _gi0_int(gi0) + 1
+    plan = seg_resid_args(n, f_body.device, seg_df_extents(n, g0, L)[0])
     r = torch.empty_like(f_body)
-    pk._check(pk._lib().mg_seg_residual(r.data_ptr(), *_ptrs(u), f_body.data_ptr(), L, n,
-                                     _gi0_int(gi0) + 1, 1.0 / (h * h), pk._stream()),
-           "residual_ext")
+    pk._check(pk._lib().mg_seg_resid_stage(r.data_ptr(), *_ptrs(u), f_body.data_ptr(), 1, L, 1,
+                                           n, g0, 1.0 / (h * h), *plan, pk._stream()),
+              "residual_ext")
     LAUNCHES["residual_seg"] += 1
     return r
 

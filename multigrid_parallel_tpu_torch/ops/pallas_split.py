@@ -825,12 +825,13 @@ def _restrict_args(n: int, device, split: bool = False, fold: bool = False,
     return _restrict_args_on(n, index, split, fold, seg_rows, seg_cols)
 
 
-# ---------- the streaming double-float residual-and-norm stage (K32, K41)
+# ---------- the streaming double-float residual-and-norm stage (K32, K41), and
+# ---------- the one-field residual stage on its geometry (K33)
 
 DF_MAX_ROWS = 8     # rows a block owns at most, a warp each (residual_df_norm_seg.cu, kMaxRows)
 DF_MAX_PLANES = 32  # planes a block streams at most in a plan (longer measured slower at 513^3)
 DF_MAX_CHUNKS = 8   # 32-point chunks of a lane's row tile at most (kMaxChunks)
-DF_RING = 3         # planes of u_hi and of u_lo in a block's ring (kRing)
+DF_RING = 3         # planes of each streamed field in a block's ring (kRing)
 DF_ZERO_PER_THREAD = 32  # zeros a thread of a launch without interior points writes
 # registers a thread takes by chunks (ptxas, the Seg and Seg2 kernels' most,
 # rounded up to the allocation's 8): the cost model's occupancy
@@ -851,15 +852,25 @@ DF_SM_BYTES_PER_US = 25.4e3
 # 0.0406, L = 48 0.0138 / 0.0170; K41 65^3 68^2 0.0097 / 0.0098, 36^2
 # 0.0072 / 0.0055, 129^3 136^2 0.0331 / 0.0435, 72^2 0.0146 / 0.0162.
 DF_STAGE_MIN_N = 129
+# registers a thread of K33's stage takes by chunks (ptxas, resid_stage_kernel):
+# its cost model's occupancy; with it the planner's plan is the fastest or
+# within 2% of the candidates timed at 65^3-513^3, but for 513^3's one-rank
+# block (6%; utils/stage_plans.py --offpath --kernels K33)
+RESID_REGISTERS = {1: 40, 2: 40, 4: 48, 8: 64}
+# The stages on this geometry by name: the fields each streams through a
+# ring of its own, and the registers a thread of it takes by chunks.
+DF_STAGES = {"df": (2, DF_REGISTERS), "resid": (1, RESID_REGISTERS)}
 
 
 class DfPlan(NamedTuple):
-    """How one launch of the double-float residual-and-norm stage on a
-    rank's block (K32, K41) cuts its interior points (``rows`` planes x
-    ``cols`` rows x n - 2 k): blocks own boxes of ``bi`` planes x ``bj``
-    rows x ``bk`` k, tiles numbered k fastest, then j, then i; a warp a row,
-    ``threads`` = 32 bj, a lane the points 32 c apart of ``chunks`` chunks;
-    ``smem`` the bytes of a block's ring (``_df_smem``)."""
+    """How one launch of the streaming stage on a rank's block cuts its
+    interior points (``rows`` planes x ``cols`` rows x n - 2 k): blocks own
+    boxes of ``bi`` planes x ``bj`` rows x ``bk`` k, tiles numbered k
+    fastest, then j, then i; a warp a row, ``threads`` = 32 bj, a lane the
+    points 32 c apart of ``chunks`` chunks; ``smem`` the bytes of a block's
+    rings (``_df_smem``), one a streamed field; ``stage`` the kernel it
+    plans (``DF_STAGES``): "df" the double-float residual-and-norm stage
+    (K32, K41), "resid" the residual stage (K33)."""
     n: int
     bi: int
     bj: int
@@ -869,6 +880,11 @@ class DfPlan(NamedTuple):
     smem: int
     rows: int
     cols: int
+    stage: str = "df"
+
+    @property
+    def fields(self):
+        return DF_STAGES[self.stage][0]
 
     @property
     def tiles(self):
@@ -887,11 +903,12 @@ class DfPlan(NamedTuple):
         return (self.bi, self.bj, self.bk, self.chunks, self.threads, self.smem)
 
 
-def _df_smem(bj: int, bk: int) -> int:
-    """Shared-memory bytes of a block: DF_RING planes of u_hi and of u_lo,
-    bj + 2 rows of bk + 2 floats rounded up to 4 (residual_df_norm_seg.cu,
-    smem_bytes, which the launchers check a plan against)."""
-    return 4 * 2 * DF_RING * (bj + 2) * (-(-(bk + 2) // 4) * 4)
+def _df_smem(bj: int, bk: int, fields: int = 2) -> int:
+    """Shared-memory bytes of a block: DF_RING planes of each of ``fields``
+    streamed fields (u_hi and u_lo; K33's u), bj + 2 rows of bk + 2 floats
+    rounded up to 4 (seg_stream.cuh, smem_bytes, which the launchers check a
+    plan against)."""
+    return 4 * fields * DF_RING * (bj + 2) * (-(-(bk + 2) // 4) * 4)
 
 
 def _df_chunks(bk: int):
@@ -903,27 +920,31 @@ def _df_chunks(bk: int):
     return chunks if chunks <= DF_MAX_CHUNKS else None
 
 
-def _df_make(n: int, bi: int, bj: int, bk: int, rows: int, cols: int) -> DfPlan:
-    return DfPlan(n, bi, bj, bk, _df_chunks(bk), 32 * bj, _df_smem(bj, bk), rows, cols)
+def _df_make(n: int, bi: int, bj: int, bk: int, rows: int, cols: int,
+             stage: str = "df") -> DfPlan:
+    smem = _df_smem(bj, bk, DF_STAGES[stage][0])
+    return DfPlan(n, bi, bj, bk, _df_chunks(bk), 32 * bj, smem, rows, cols, stage)
 
 
 def _df_cost(plan: DfPlan, sms: int) -> float:
     """The estimated time of a launch on ``plan`` (us): the blocks run in
-    waves of what the SMs hold at once (shared memory, threads,
-    ``DF_REGISTERS``), each SM's resident blocks moving
-    ``DF_SM_BYTES_PER_US`` between them. A block takes bi steps and a
-    prologue of about 2, each ``DF_STEP_US`` plus its resident blocks'
-    planes of u (halo rows and k included), f and r at that rate."""
-    bj, bk = plan.bj, plan.bk
-    step_bytes = 4 * (2 * (bj + 2) * (bk + 2) + 3 * bj * bk)
+    waves of what the SMs hold at once (shared memory, threads, the
+    registers of the plan's stage in ``DF_STAGES``), each SM's resident
+    blocks moving ``DF_SM_BYTES_PER_US`` between them. A block takes bi
+    steps and a prologue of about 2, each ``DF_STEP_US`` plus its resident
+    blocks' planes of the streamed fields (halo rows and k included), of f
+    (one or two) and of r at that rate."""
+    bj, bk, fields = plan.bj, plan.bk, plan.fields
+    step_bytes = 4 * (fields * (bj + 2) * (bk + 2) + (fields + 1) * bj * bk)
+    registers = DF_STAGES[plan.stage][1][plan.chunks]
     per_sm = min(SM_SMEM // (plan.smem + 1024), 2048 // plan.threads,
-                 65536 // (plan.threads * DF_REGISTERS[plan.chunks]), 32)
+                 65536 // (plan.threads * registers), 32)
     resident = min(per_sm, -(-plan.blocks // sms))
     waves = -(-plan.blocks // (per_sm * sms))
     return waves * (plan.bi + 2) * (DF_STEP_US + resident * step_bytes / DF_SM_BYTES_PER_US)
 
 
-def _df_candidates(n: int, rows: int, cols: int):
+def _df_candidates(n: int, rows: int, cols: int, stage: str = "df"):
     """The plans the stage takes on ``rows`` interior planes x ``cols``
     interior rows of an n-point level: k in whole rows where they fit
     DF_MAX_CHUNKS chunks, else in the fewest tiles that do, and in two
@@ -936,23 +957,24 @@ def _df_candidates(n: int, rows: int, cols: int):
     for bk in sorted({whole, half}):
         for bj in (b for b in _evened(cols) if b <= DF_MAX_ROWS):
             for bi in (b for b in _evened(rows) if b <= DF_MAX_PLANES):
-                out.append(_df_make(n, bi, bj, bk, rows, cols))
+                out.append(_df_make(n, bi, bj, bk, rows, cols, stage))
     return out
 
 
 @functools.lru_cache(maxsize=None)
-def _df_plan(n: int, sms: int, rows: int, cols: int) -> DfPlan:
+def _df_plan(n: int, sms: int, rows: int, cols: int, stage: str = "df") -> DfPlan:
     """The plan of one launch of the double-float residual-and-norm stage
-    (K32, K41) on a rank's ``rows`` interior planes and ``cols`` interior
-    rows (``pallas_sharded.seg_df_extents``; n - 2 on an i-sharded block)
-    of an n-point level, for a card of ``sms`` SMs: of ``_df_candidates``,
+    (K32, K41; ``stage`` "df") or of the residual stage (K33; "resid")
+    on a rank's ``rows`` interior planes and ``cols`` interior rows
+    (``pallas_sharded.seg_df_extents``; n - 2 on an i-sharded block) of an
+    n-point level, for a card of ``sms`` SMs: of ``_df_candidates``,
     the one of least ``_df_cost``, one of at least one block an SM first
     where the rank has one. Raises for n < 3 or an empty interior."""
     if n < 3 or rows < 1 or cols < 1:
         raise ValueError(f"the df stage plans n >= 3 and an interior, got n = {n}, rows = "
                          f"{rows}, cols = {cols}")
     best = None
-    for plan in _df_candidates(n, rows, cols):
+    for plan in _df_candidates(n, rows, cols, stage):
         key = (plan.blocks < sms, _df_cost(plan, sms), -plan.blocks, plan.bk)
         if best is None or key < best[0]:
             best = (key, plan)

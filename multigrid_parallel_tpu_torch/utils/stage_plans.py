@@ -25,7 +25,8 @@ bit for bit against its plain version.
                                                              [--kernels K29 K38 K2 ...]
                                                              [--parent ROOT]
     python -m multigrid_parallel_tpu_torch.utils.stage_plans --offpath
-                                                             [--kernels K26 K42 K33]
+                                                             [--kernels K26 K42 K33
+                                                              R K5 K6 K11 K12 K20 K25 K27]
                                                              [--parent ROOT]
 
 For each size and kernel (K2 from zero, K4, both at n_iter 2; K17, K16 and
@@ -61,8 +62,12 @@ default, a call its partials kernel and their sum; or, with
 (time_offpath, ``--kernels`` picking some of K26, K42 and K33): K26's
 and K42's one-pass stages beside their first forms (K26's from
 ``--parent ROOT``), K1 + R and K7's stage, K26's stage on its candidate
-plans too, and K33 on the production ext blocks, each with its bound) and
-plan, one JSON line:
+plans too, and K33's stage on the production ext blocks, on its planner's
+plan and (from 65^3) its candidate plans, beside its first form (from
+``--parent ROOT``), each with its bound;
+and, named in ``--kernels``, the kernels never redesigned, R, K5, K6, K11,
+K12, K20, K25 and K27 (time_retimed), each on its own inputs with its
+bound) and plan, one JSON line:
 the plan, whether the output equals the plain version, and the median
 device time of ``reps`` launches from a torch.profiler trace
 (``utils.split_trace.kernel_intervals``). The numbers serve to tune
@@ -491,7 +496,11 @@ def time_offpath(n, reps, dev, kernels, sms, parent=None):
     one-pass stage, its first form (in place) and K7's stage on the pair
     (another order of additions, held against K7's plain version); K33 on
     rank 1's ext block of four ranks' L = 96 (n - 1) / 256 and on the one
-    rank's L = 320 (n - 1) / 256 (the ranks' planes past n - 1 zero).
+    rank's L = 320 (n - 1) / 256 (the ranks' planes past n - 1 zero): its
+    stage launched on its planner's plan (``_df_plan(..., stage="resid")``)
+    and, from 65^3, on its candidate plans, and with ``parent`` its first
+    form from that checkout's library, each against the bytes the function needs
+    (12 an interior point: read u and f, write r; 4 any other: write 0).
     K26's stage also on its candidate plans for ``sms`` SMs
     (resid_candidates), which tune ``pallas_split._stage_plan``'s resid
     plans."""
@@ -552,6 +561,8 @@ def time_offpath(n, reps, dev, kernels, sms, parent=None):
         first_form_rows({"K7 stage": lambda: ps.rb_smooth_split(*pair, *rhs, h, 2, True)},
                         ps.rb_smooth_split_plain(*pair, *rhs, h, 2, True), reps, row)
     if "K33" in kernels:
+        lib, stream = pk._lib(), pk._stream()
+        old = parent_lib(parent) if parent is not None else None
         for ranks, L in ((4, 96 * (n - 1) // 256), (1, 320 * (n - 1) // 256)):
             rank = 1 if ranks > 1 else 0
             u, f = (torch.zeros((ranks * L, n, n), device=dev) for _ in range(2))
@@ -559,12 +570,100 @@ def time_offpath(n, reps, dev, kernels, sms, parent=None):
                 x[:n] = torch.from_numpy(rng.standard_normal((n, n, n)).astype(np.float32))
             u_ext, f_ext = (torch.cat([lh, body, rh])
                             for body, lh, rh in (seg_parts(x, rank, L, 1, 1) for x in (u, f)))
-            gi0 = rank * L - 1
-            first_form_rows({f"{ranks} rank(s), L = {L}, rank {rank}":
-                             lambda: px.residual_ext(u_ext, f_ext, gi0, h, n, L)},
-                            px.residual_ext_plain(u_ext, f_ext, gi0, h, n, L), reps,
-                            {"n": n, "kernel": "K33",
-                             "bound_ms": 4 * (u_ext.numel() + 2 * L * n * n) / rate})
+            g0 = rank * L
+            us, fb = px._seg(px._ext_parts(u_ext, 1, L), 1, 1, L), f_ext[1:-1]
+            rows = px.seg_df_extents(n, g0, L)[0]
+
+            def stage(plan, us=us, fb=fb, L=L, g0=g0):
+                r = torch.empty((L, n, n), device=dev)
+                pk._check(lib.mg_seg_resid_stage(r.data_ptr(), *px._ptrs(us), fb.data_ptr(), 1, L,
+                                                 1, n, g0, 1.0 / (h * h), *plan.args, stream),
+                          "stage_plans")
+                return r
+
+            def first_form(us=us, fb=fb, L=L, g0=g0):
+                r = torch.empty((L, n, n), device=dev)
+                pk._check(old.mg_seg_residual(r.data_ptr(), *px._ptrs(us), fb.data_ptr(), L, n,
+                                              g0, 1.0 / (h * h), stream), "stage_plans")
+                return r
+
+            # the bytes the function needs: read u and f and write r at an interior
+            # point, write 0 at any other
+            inner = rows * (n - 2) ** 2
+            row = {"n": n, "kernel": "K33", "L": L, "rank": rank,
+                   "bound_ms": (12 * inner + 4 * (L * n * n - inner)) / rate}
+            plans = seg_df_candidates(n, rows or n - 2, n - 2, sms, stage="resid")
+            forms = {"stage": lambda: stage(plans["planner"])}
+            if old is not None:
+                forms["first_form"] = first_form
+            want = px.residual_ext_plain(u_ext, f_ext, g0 - 1, h, n, L)
+            first_form_rows(forms, want, reps, {**row, **_plan_row(plans["planner"], sms)})
+            for label, plan in plans.items():
+                if label != "planner" and n >= 65 and rows:
+                    first_form_rows({label: lambda plan=plan: stage(plan)}, want, reps,
+                                    {**row, **_plan_row(plan, sms)})
+
+
+def _plan_row(plan, sms):
+    return {"bi": plan.bi, "bj": plan.bj, "bk": plan.bk, "blocks": plan.blocks,
+            "threads": plan.threads, "smem": plan.smem,
+            "cost_us": round(ps._df_cost(plan, sms), 2)}
+
+
+RETIMED_KERNELS = ("R", "K5", "K6", "K11", "K12", "K20", "K25", "K27")
+
+
+def time_retimed(n, reps, dev, kernels):
+    """One JSON line a kernel never redesigned at level n (``kernels``: some
+    of RETIMED_KERNELS), on inputs as chip_smoke.py's phase 2 makes them (a
+    double-float state near a solution, packed into the split pair and the
+    fold layout for K11, K12, K25 and K20): its output against the plain
+    version (a norm left out: its f64 sum runs in another order), its device
+    time a call from one trace of ``reps`` calls (first_form_rows: a norm
+    kernel's partials and their sum together), and its bound, the bytes of
+    its inputs read once and its outputs written once over the H100's 3.35
+    TB/s."""
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed_fold as pmf
+    from multigrid_parallel_tpu_torch.ops import pallas_mixed_split as pms
+
+    h, rate = 1.0 / (n - 1), HBM_BYTES_PER_S / 1e3
+    rng = np.random.default_rng(n)
+    u, f, d = (torch.from_numpy(s * rng.standard_normal((n, n, n)).astype(np.float32)).to(dev)
+               for s in (1.0, 1.0, 1e-6))
+    c = np.arange(n) * h
+    x, y, z = np.meshgrid(c, c, c, indexing="ij")
+    u64 = x * x - 2 * y * y + z * z + 1e-9 * rng.standard_normal((n, n, n))
+    state = [t.to(dev) for x64 in (u64, 1e-6 * rng.standard_normal((n, n, n)))
+             for t in pk.df_split(torch.from_numpy(x64))]
+    inner = torch.zeros((n, n, n), dtype=torch.bool, device=dev)
+    inner[1:-1, 1:-1, 1:-1] = True
+    d2 = ps.pack_split(torch.where(inner, d, torch.zeros_like(d)))
+    pair = [x for t in state for x in ps.pack_split(t)]
+    fold = [pmf.pack_fold(t) for t in state]
+    calls = {  # kernel, plain version, inputs
+        "R": (pk.residual_fused, pk.residual_plain, (u, f)),
+        "K5": (pk.residual_df_norm_fused, pk.residual_df_norm_plain, state),
+        "K6": (pk.df_step_residual_norm_fused, pk.df_step_residual_norm_plain,
+               (*state[:2], d, *state[2:])),
+        "K11": (ps.df_step_split, ps.df_step_split_plain, (*pair[:4], *d2, *pair[4:])),
+        "K12": (ps.residual_df_norm_split, ps.residual_df_norm_split_plain, pair),
+        "K20": (pmf.residual_df_norm_fold, pmf.residual_df_norm_fold_plain, fold),
+        "K25": (pms.residual_df_norm_msplit, pms.residual_df_norm_msplit_plain, pair),
+        "K27": (pk.residual_df_fused, pk.residual_df_plain, state),
+    }
+
+    def fields(out):  # the output fields, a norm left out
+        if not isinstance(out, tuple):
+            return out
+        return out[:-1] if out[-1].dim() == 0 else out
+
+    for name in kernels:
+        kernel, plain, args = calls[name]
+        out = kernel(*args, h)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (*args, *(out if isinstance(out, tuple) else (out,))))
+        first_form_rows({"kernel": lambda: fields(kernel(*args, h))}, fields(plain(*args, h)),
+                        reps, {"n": n, "kernel": name, "bound_ms": nbytes / rate})
 
 
 def parent_lib(root):
@@ -1060,12 +1159,12 @@ def time_seg_restrict(n, sms, reps, dev):
                   flush=True)
 
 
-def seg_df_candidates(n, rows, cols, sms):
+def seg_df_candidates(n, rows, cols, sms, stage="df"):
     """The df stage planner's plan (``_df_plan`` of the rank's interior
-    planes and rows) and plans of bi planes x bj rows, whole k rows or two
-    k tiles, that the kernels take."""
-    plans = {"planner": ps._df_plan(n, sms, rows, cols)}
-    for plan in ps._df_candidates(n, rows, cols):
+    planes and rows; K33's with ``stage`` "resid") and plans of bi planes x bj
+    rows, whole k rows or two k tiles, that the kernels take."""
+    plans = {"planner": ps._df_plan(n, sms, rows, cols, stage)}
+    for plan in ps._df_candidates(n, rows, cols, stage):
         if (plan.bj == evened(cols, plan.bj) and plan.bj in (evened(cols, 4), evened(cols, 8))
                 and plan.bi in {evened(rows, b) for b in (8, 16, 32, 64)}):
             plans[f"{plan.bi}x{plan.bj}x{plan.bk}"] = plan
@@ -1211,11 +1310,11 @@ def main(argv=None) -> int:
     parser.add_argument("--parent", type=str,
                         help="with --mixed, --msplit or --restrict: a checkout whose K13, K21 "
                              "or K23 first form is timed beside the stage; with --offpath, "
-                             "K26's (its in-place half-sweeps and last launch)")
+                             "K26's (its in-place half-sweeps and last launch) and K33's")
     parser.add_argument("--kernels", nargs="+",
                         help="with --seg-rect, --msplit, --restrict or --offpath: time only "
                              "these (K1 K2 K28 K29 K31 K37 K38 K40; K21 K22 K24; K3 K9 K18 "
-                             "K23; K26 K42 K33)")
+                             "K23; K26 K42 K33, and R K5 K6 K11 K12 K20 K25 K27)")
     group = parser.add_mutually_exclusive_group()
     group.add_argument("--restrict", action="store_true",
                        help="time K3's, K9's, K18's and K23's restriction stage (and K18's "
@@ -1257,8 +1356,10 @@ def main(argv=None) -> int:
                       else [65, 129, 257, 513] if args.seg_df
                       else [9, 17, 33, 65, 129])
     if args.offpath:
+        kernels = args.kernels or OFFPATH_KERNELS
         for n in args.sizes:
-            time_offpath(n, args.reps, dev, args.kernels or OFFPATH_KERNELS, sms, args.parent)
+            time_offpath(n, args.reps, dev, kernels, sms, args.parent)
+            time_retimed(n, args.reps, dev, [k for k in kernels if k in RETIMED_KERNELS])
         return 0
     if args.seg_rect:
         for n in args.sizes:

@@ -24,7 +24,9 @@ the segment restriction stages K30 and K39 against theirs on the
 production segments and blocks at 9^3-513^3 and on hand plans, stitched
 against K3, NaN-poisoned (one launch a call), K32 and K41 (the streaming
 df residual-and-norm stage, its first form below 129^3) likewise, the
-stage on every plan its planner weighs,
+stage on every plan its planner weighs, K33's streaming residual stage
+likewise at 9^3-513^3 on every rank of four and on one rank's block,
+stitched against R, with its launcher's refusals,
 the streaming restriction stages K3 and K9 against theirs at
 9^3-513^3 on NaN-poisoned outputs and on hand plans (one launch a call),
 and the one-pass fold stages K16, K17 and K19 against theirs at
@@ -1928,6 +1930,129 @@ def test_sharded_kernels_match_plain_and_single_device_on_card(cuda, kernel):
         outs.append(got)
     assert torch.equal(torch.cat(outs)[:want.shape[0]], want)
     assert tpx.LAUNCHES == {**dict.fromkeys(tpx.KERNELS, 0), name: per_call * D}
+
+
+# (n, L, ranks) of K33: four ranks' L = 96 (n - 1) / 256 (at 257^3 rank 3 pad only) and one
+# rank's L = 320 (n - 1) / 256 (at 257^3 63 pad planes), at every odd n 9^3-513^3
+K33_CASES = [(n, L, ranks) for n in (9, 17, 33, 65, 129, 257, 513)
+             for L, ranks in ((96 * (n - 1) // 256, 4), (320 * (n - 1) // 256, 1))]
+
+
+def _k33_rank(x, r, L, n):
+    """Rank r's ext copy (L + 2 planes, halo 1) of the global field x, its
+    planes past the field NaN (no residual reads them)."""
+    import torch_sharded_ranks as rk
+
+    return _nan_past(rk.rank_ext(x, r, L, 1), (r * L - 1,), n, (0,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,ranks", K33_CASES)
+def test_k33_resid_stage_matches_plain_on_card(cuda, n, L, ranks):
+    """K33 on every rank of the geometry: the streaming stage launched on
+    its plan, and the wrapper (that stage at every size: the library holds
+    no other K33 kernel), each bit for bit its plain version on fields
+    random at every plane, u's and f's planes past the
+    field NaN, the output NaN before the stage and the allocator poisoned
+    with NaN before the wrapper (a point left unwritten shows); one launch a
+    call; the inputs left as they were; the stitched r equal to R's on the
+    whole field, the pad planes 0."""
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+
+    h, inv_h2 = 1.0 / (n - 1), float((n - 1) ** 2)
+    lib, stream = tpk._lib(), tpk._stream()
+    assert not hasattr(lib, "mg_seg_residual")  # the first form, one thread a point, is gone
+    rng = np.random.default_rng(1400 + n + L)
+    u, f = (torch.from_numpy(rng.standard_normal((ranks * L, n, n)).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    outs = []
+    for r in range(ranks):
+        u_ext, f_ext = _k33_rank(u, r, L, n), _k33_rank(f, r, L, n)
+        before = (u_ext.clone(), f_ext.clone())
+        want = tpx.residual_ext_plain(u_ext, f_ext, r * L - 1, h, n, L)
+        rows = tpx.seg_df_extents(n, r * L, L)[0]
+        stage = torch.full((L, n, n), float("nan"), device=cuda)
+        us = tpx._seg(tpx._ext_parts(u_ext, 1, L), 1, 1, L)
+        assert lib.mg_seg_resid_stage(stage.data_ptr(), *tpx._ptrs(us), f_ext[1:-1].data_ptr(),
+                                      1, L, 1, n, r * L, inv_h2,
+                                      *tpx.seg_resid_args(n, cuda, rows), stream) == 0
+        assert torch.equal(stage, want), r
+        _poison_allocator((L, n, n), cuda)
+        tpx.reset_launches()
+        got = tpx.residual_ext(u_ext, f_ext, r * L - 1, h, n, L)
+        assert tpx.LAUNCHES == {**dict.fromkeys(tpx.KERNELS, 0), "residual_seg": 1}
+        assert bool(torch.isfinite(got).all()) and torch.equal(got, want), r
+        assert _same_with_nan(u_ext, before[0]) and _same_with_nan(f_ext, before[1])
+        outs.append(got)
+    whole = torch.cat(outs)
+    assert torch.equal(whole[:n], tpk.residual_fused(u[:n], f[:n], h)) and not whole[n:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 65, 257])
+def test_k33_stage_on_every_candidate_plan_on_card(cuda, n):
+    """K33's stage launched directly on every plan that its planner weighs
+    (pallas_split._df_candidates of the "resid" stage) of the one-rank block and
+    rank 1's of four (the production sizes scaled to the level): r bit for
+    bit the plain version's on NaN-filled outputs."""
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+
+    h, lib, stream = 1.0 / (n - 1), tpk._lib(), tpk._stream()
+    rng = np.random.default_rng(1500 + n)
+    for L, r in ((320 * (n - 1) // 256, 0), (96 * (n - 1) // 256, 1)):
+        u, f = (torch.from_numpy(rng.standard_normal(((r + 2) * L, n, n)).astype(np.float32))
+                .to(cuda) for _ in range(2))
+        u_ext, f_ext = _k33_rank(u, r, L, n), _k33_rank(f, r, L, n)
+        us = tpx._seg(tpx._ext_parts(u_ext, 1, L), 1, 1, L)
+        want = tpx.residual_ext_plain(u_ext, f_ext, r * L - 1, h, n, L)
+        rows = tpx.seg_df_extents(n, r * L, L)[0]
+        for plan in tps._df_candidates(n, rows, n - 2, stage="resid"):
+            out = torch.full((L, n, n), float("nan"), device=cuda)
+            assert lib.mg_seg_resid_stage(out.data_ptr(), *tpx._ptrs(us), f_ext[1:-1].data_ptr(),
+                                          1, L, 1, n, r * L, 1.0 / (h * h), *plan.args,
+                                          stream) == 0, plan
+            assert torch.equal(out, want), (L, r, plan)
+
+
+@pytest.mark.cuda
+def test_k33_launcher_refuses_what_the_stage_does_not_take(cuda):
+    """The K33 stage launcher refuses a plan it cannot run (a box past the
+    interior, chunks that do not cover its k tile, threads other than a
+    warp a row), shared memory other than its one ring's (K32's two rings
+    among them), a missing halo plane on either side and an r that meets
+    u's segment or f; the wrapper's own arguments succeed."""
+    from multigrid_parallel_tpu_torch.ops import pallas_sharded as tpx
+
+    n, L, r = 33, 12, 1
+    inv_h2 = float((n - 1) ** 2)
+    lib, stream = tpk._lib(), tpk._stream()
+    rng = np.random.default_rng(1600)
+    u, f = (torch.from_numpy(rng.standard_normal((4 * L, n, n)).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    u_ext, f_ext = _k33_rank(u, r, L, n), _k33_rank(f, r, L, n)
+    us, fb = tpx._seg(tpx._ext_parts(u_ext, 1, L), 1, 1, L), f_ext[1:-1]
+    rows = tpx.seg_df_extents(n, r * L, L)[0]
+    plan = tps._df_plan(n, torch.cuda.get_device_properties(0).multi_processor_count, rows,
+                        n - 2, stage="resid")
+    out = torch.empty((L, n, n), device=cuda)
+
+    def k33(args, kl=1, kr=1, r_out=out):
+        return lib.mg_seg_resid_stage(r_out.data_ptr(), *tpx._ptrs(us), fb.data_ptr(), kl, L, kr,
+                                      n, r * L, inv_h2, *args, stream)
+
+    bi, bj, bk, chunks, threads, smem = plan.args
+    assert k33(plan.args) == 0
+    assert torch.equal(out, tpx.residual_ext_plain(u_ext, f_ext, r * L - 1, h=1.0 / (n - 1),
+                                                   n=n, L=L))
+    assert k33((rows + 1, bj, bk, chunks, threads, smem)) != 0          # past the interior
+    assert k33((bi, bj, bk, 2 * chunks, threads, smem)) != 0            # chunks
+    assert k33((bi, bj, bk, chunks, threads + 32, smem)) != 0           # threads
+    assert k33((bi, bj, bk, chunks, threads, smem + 16)) != 0           # other smem
+    assert k33((bi, bj, bk, chunks, threads, tps._df_smem(bj, bk))) != 0  # K32's two rings
+    assert k33(plan.args, kl=0) != 0 and k33(plan.args, kr=0) != 0
+    assert k33(plan.args, r_out=us.body) != 0 and k33(plan.args, r_out=fb) != 0
+    assert k33(plan.args, r_out=u_ext[:L]) != 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

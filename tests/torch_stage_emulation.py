@@ -1115,6 +1115,45 @@ def emulate_df(plan, uh, ul, fh, fl, h, seg, fault=None):
     (all must fail). Returns (r, how many times each point was written,
     the f32 norm)."""
     n, inv_h2 = plan.n, 1.0 / (h * h)
+    out, writes = _launch_out(seg, n, fault)
+    if seg.t1 <= seg.t0:
+        blocks = tps._df_zero_blocks(seg.L * seg.Lj * n, plan.threads)
+        return out, writes, _sum_partials(torch.zeros(blocks, dtype=torch.float64)).float()
+
+    def value(p, jj, kk, c, nbrs):  # K5's EFT residual, a field each of c's and nbrs' first axis
+        return tpk._eft_residual(fh[p, jj, kk], fl[p, jj, kk], c[0], [x[0] for x in nbrs], c[1],
+                                 [x[1] for x in nbrs], inv_h2)
+
+    partials = [_warps_in_order(_warp_tree(acc))
+                for acc in _stream(plan, (uh, ul), seg, out, writes, fault, value)]
+    return out, writes, _sum_partials(torch.tensor(partials, dtype=torch.float64)).float()
+
+
+def emulate_resid(plan, u, f, h, seg, fault=None):
+    """One K33 launch (residual.cu, resid_stage_kernel) on ``plan`` (a
+    pallas_split.DfPlan of one field): K32's stream with u alone in the
+    ring, R's arithmetic f - (1/h^2) (nbr - 6 u), the neighbours in
+    seg_nbr_sum's order, and no norm. ``u`` is a slab as ``seg`` says, ``f``
+    the owned (L, n, n) body; ``fault`` as emulate_df's ("ring_early",
+    "pad_unwritten"). Returns (r, how many times each point was written)."""
+    n, inv_h2 = plan.n, 1.0 / (h * h)
+    out, writes = _launch_out(seg, n, fault)
+    if seg.t1 > seg.t0:
+        def value(p, jj, kk, c, nbrs):
+            s = nbrs[0][0]
+            for x in nbrs[1:]:
+                s = s + x[0]
+            return f[p, jj, kk] - inv_h2 * (s - 6.0 * c[0])
+
+        for _ in _stream(plan, (u,), seg, out, writes, fault, value):
+            pass
+    return out, writes
+
+
+def _launch_out(seg, n, fault):
+    """A launch's output, NaN but for the planes outside the interior,
+    which are 0 (those past it left unwritten under "pad_unwritten"), and
+    how many times each point was written."""
     shape = (seg.L, seg.Lj, n)
     out = torch.full(shape, NAN)
     writes = torch.zeros(shape, dtype=torch.int32)
@@ -1124,13 +1163,20 @@ def emulate_df(plan, uh, ul, fh, fl, h, seg, fault=None):
     for rows in planes:
         out[rows] = 0.0
         writes[rows] += 1
-    if seg.t1 <= seg.t0:
-        blocks = tps._df_zero_blocks(seg.L * seg.Lj * n, plan.threads)
-        return out, writes, _sum_partials(torch.zeros(blocks, dtype=torch.float64)).float()
+    return out, writes
+
+
+def _stream(plan, us, seg, out, writes, fault, value):
+    """Each block of a K32, K41 or K33 launch on the rank's interior: its
+    zeros, then its stream of the fields ``us`` (slabs as ``seg`` says)
+    through the ring, ``value(p, rows, ks, c, nbrs)`` the residual of plane
+    p's box rows and k from the tile values c and the six neighbours nbrs
+    (each with a leading field axis). Yields each block's threads' f64 sums
+    of squares, (bj, 32)."""
+    n = plan.n
     ring_w = -(-(plan.bk + 2) // 4) * 4
     ni, nj, nk = (-(-(seg.t1 - seg.t0) // plan.bi), -(-(seg.j1 - seg.j0) // plan.bj),
                   -(-(n - 2) // plan.bk))
-    partials = []
     for ti in range(ni):
         for tj in range(nj):
             for tk in range(nk):
@@ -1141,10 +1187,8 @@ def emulate_df(plan, uh, ul, fh, fl, h, seg, fault=None):
                 ka = 1 + tk * plan.bk
                 kb = min(ka + plan.bk, n - 1)
                 _df_zero_box(out, writes, seg, n, ta, tb, ja, jb, ka, kb)
-                acc = _df_block(plan, uh, ul, fh, fl, inv_h2, seg, ta, tb, ja, jb, ka, kb,
-                                ring_w, out, writes, fault)
-                partials.append(_warps_in_order(_warp_tree(acc)))
-    return out, writes, _sum_partials(torch.tensor(partials, dtype=torch.float64)).float()
+                yield _df_block(plan, us, seg, ta, tb, ja, jb, ka, kb, ring_w, out, writes,
+                                fault, value)
 
 
 def _warps_in_order(per_warp):
@@ -1170,8 +1214,7 @@ def _df_zero_box(out, writes, seg, n, ta, tb, ja, jb, ka, kb):
                 writes[ta:tb, j, k] += 1
 
 
-def _df_block(plan, uh, ul, fh, fl, inv_h2, seg, ta, tb, ja, jb, ka, kb, ring_w, out, writes,
-              fault):
+def _df_block(plan, us, seg, ta, tb, ja, jb, ka, kb, ring_w, out, writes, fault, value):
     """One block's stream; returns its threads' f64 sums, (bj, 32)."""
     rows, pts, chunks = jb - ja, kb - ka, plan.chunks
     slots = [None] * tps.DF_RING
@@ -1181,8 +1224,8 @@ def _df_block(plan, uh, ul, fh, fl, inv_h2, seg, ta, tb, ja, jb, ka, kb, ring_w,
 
     def load(q, into):
         assert q + seg.oi >= 0 and ja - 1 + seg.oj >= 0, "a read before the slab"
-        tiles = torch.full((2, plan.bj + 2, ring_w), NAN)
-        for c, u in enumerate((uh, ul)):
+        tiles = torch.full((len(us), plan.bj + 2, ring_w), NAN)
+        for c, u in enumerate(us):
             tiles[c, :rows + 2, :pts + 2] = u[q + seg.oi, ja - 1 + seg.oj:jb + 1 + seg.oj,
                                              ka - 1:kb + 1]
         slots[into] = (q, tiles)
@@ -1212,8 +1255,7 @@ def _df_block(plan, uh, ul, fh, fl, inv_h2, seg, ta, tb, ja, jb, ka, kb, ring_w,
             left = torch.where(wraps, c[..., torch.where(wraps, b + 31, b)], left)
         nbrs = [prev, hi[:, 1:rows + 1, 1:pts + 1], mid[:, 0:rows, 1:pts + 1],
                 mid[:, 2:rows + 2, 1:pts + 1], left, right]
-        v = tpk._eft_residual(fh[p, ja:jb, ka:kb], fl[p, ja:jb, ka:kb], c[0],
-                              [x[0] for x in nbrs], c[1], [x[1] for x in nbrs], inv_h2)
+        v = value(p, slice(ja, jb), slice(ka, kb), c, nbrs)
         out[p, ja:jb, ka:kb] = v
         writes[p, ja:jb, ka:kb] += 1
         sq = torch.zeros((plan.bj, chunks * 32), dtype=torch.float64)
